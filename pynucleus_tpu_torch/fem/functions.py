@@ -1,0 +1,71 @@
+"""Function objects for right-hand sides and analytic solutions (host numpy).
+
+Carried over from pynucleus_tpu/fem/functions.py.  Functions are evaluated
+only at setup time (interpolation nodes, quadrature points) over X [N, dim];
+the results go to the device as tensors.
+"""
+from __future__ import annotations
+
+import numpy as np
+from scipy.special import gamma as Gamma
+
+__all__ = ['function', 'constant', 'Lambda', 'radialIndicator',
+           'solFractional']
+
+
+class function:
+    def __call__(self, X):
+        X = np.atleast_2d(np.asarray(X, dtype=np.float64))
+        return self.eval(X)
+
+    def eval(self, X):
+        raise NotImplementedError()
+
+
+class constant(function):
+    def __init__(self, value):
+        self.value = value
+
+    def eval(self, X):
+        return np.full(X.shape[0], self.value, dtype=np.float64)
+
+    def __repr__(self):
+        return f'constant({self.value})'
+
+
+class Lambda(function):
+    """Wrap a per-point python callable f(x) with x [dim]."""
+
+    def __init__(self, fun):
+        self.fun = fun
+
+    def eval(self, X):
+        return np.array([self.fun(x) for x in X], dtype=np.float64)
+
+
+class radialIndicator(function):
+    def __init__(self, radius, center=None):
+        self.radius = radius
+        self.center = center
+
+    def eval(self, X):
+        c = self.center if self.center is not None else np.zeros(X.shape[1])
+        r = np.linalg.norm(X - c[None, :], axis=1)
+        return (r <= self.radius).astype(np.float64)
+
+
+class solFractional(function):
+    """Analytic solution of (-Delta)^s u = 1 on the unit ball, u=0 outside:
+    u(x) = 2^{-2s} Gamma(d/2)/Gamma((d+2s)/2)/Gamma(1+s) (1-|x|^2)_+^s."""
+
+    def __init__(self, s, dim, radius=1.0):
+        self.s = s
+        self.dim = dim
+        self.radius = radius
+        self.C = 2.0 ** (-2.0 * s) * Gamma(dim / 2.0) \
+            / Gamma((dim + 2.0 * s) / 2.0) / Gamma(1.0 + s)
+
+    def eval(self, X):
+        r2 = np.sum(X ** 2, axis=1) / self.radius ** 2
+        val = np.maximum(1.0 - r2, 0.0) ** self.s
+        return self.C * self.radius ** (2.0 * self.s) * val

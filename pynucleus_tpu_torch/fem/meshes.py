@@ -1,0 +1,250 @@
+"""Simplex meshes (1D/2D), uniform refinement, boundary facets, surface mesh.
+
+Carried over from pynucleus_tpu/fem/meshes.py (host numpy): the slice needs
+simpleInterval, the disc (circle + radialMeshTransformer), red refinement,
+the boundary facets of the default PHYSICAL tag and the outward-oriented
+surface mesh of the zero-exterior term.  Vertex and cell numbering are those
+of the JAX package, so both packages refine to identical meshes.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..config import REAL, INDEX
+
+PHYSICAL = 0
+NO_BOUNDARY = np.iinfo(np.int32).min
+
+__all__ = ['simplexMesh', 'simpleInterval', 'circle', 'radialMeshTransformer',
+           'PHYSICAL', 'NO_BOUNDARY']
+
+
+class simplexMesh:
+    """vertices [V, dim] float64, cells [C, manifold_dim+1] int32."""
+
+    def __init__(self, vertices, cells, dim=None):
+        self.vertices = np.ascontiguousarray(vertices, dtype=REAL)
+        self.cells = np.ascontiguousarray(cells, dtype=INDEX)
+        self.dim = dim if dim is not None else self.vertices.shape[1]
+        self.manifold_dim = self.cells.shape[1] - 1
+        self.transformer = None
+        self._boundaryVertices = None
+        self._boundaryEdges = None
+
+    @property
+    def num_vertices(self):
+        return self.vertices.shape[0]
+
+    @property
+    def num_cells(self):
+        return self.cells.shape[0]
+
+    # --------------------------------------------------------------- geometry
+    def simplexVolumes(self):
+        V = self.vertices[self.cells]                      # [C, m+1, dim]
+        m = self.manifold_dim
+        span = V[:, 1:, :] - V[:, :1, :]                   # [C, m, dim]
+        if m == 0:
+            return np.ones(self.num_cells, dtype=REAL)
+        fac = {1: 1.0, 2: 0.5, 3: 1.0 / 6.0}[m]
+        if m == self.dim:
+            return np.abs(np.linalg.det(span)) * fac
+        # manifold simplices (surface meshes)
+        G = np.einsum('cid,cjd->cij', span, span)
+        det = np.linalg.det(G) if m > 1 else G[:, 0, 0]
+        return np.sqrt(np.abs(det)) * fac
+
+    def edgeLengths(self):
+        V = self.vertices[self.cells]
+        m = self.manifold_dim
+        ls = []
+        for i in range(m + 1):
+            for j in range(i + 1, m + 1):
+                ls.append(np.linalg.norm(V[:, i, :] - V[:, j, :], axis=1))
+        return np.stack(ls, axis=1)  # [C, numEdges]
+
+    @property
+    def h(self):
+        return float(self.edgeLengths().max())
+
+    @property
+    def hmin(self):
+        return float(self.edgeLengths().min())
+
+    @property
+    def diam(self):
+        lo = self.vertices.min(axis=0)
+        hi = self.vertices.max(axis=0)
+        return float(np.linalg.norm(hi - lo))
+
+    # --------------------------------------------------------------- boundary
+    def _computeBoundary(self):
+        """Boundary facets appear in exactly one cell."""
+        m = self.manifold_dim
+        if m == 1:
+            counts = np.zeros(self.num_vertices, dtype=np.int64)
+            np.add.at(counts, self.cells.ravel(), 1)
+            self._boundaryVertices = np.nonzero(counts == 1)[0].astype(INDEX)
+        elif m == 2:
+            edges = np.concatenate([self.cells[:, [0, 1]],
+                                    self.cells[:, [1, 2]],
+                                    self.cells[:, [2, 0]]], axis=0)
+            uniq, counts = np.unique(np.sort(edges, axis=1), axis=0,
+                                     return_counts=True)
+            self._boundaryEdges = uniq[counts == 1].astype(INDEX)
+            self._boundaryVertices = np.unique(
+                self._boundaryEdges.ravel()).astype(INDEX)
+        else:
+            raise NotImplementedError(m)
+
+    @property
+    def boundaryVertices(self):
+        if self._boundaryVertices is None:
+            self._computeBoundary()
+        return self._boundaryVertices
+
+    @property
+    def boundaryEdges(self):
+        if self._boundaryEdges is None:
+            self._computeBoundary()
+        return self._boundaryEdges
+
+    # ------------------------------------------------------------- refinement
+    def refine(self):
+        """Uniform refinement (red). 1D: bisection; 2D: 4 triangles."""
+        m = self.manifold_dim
+        if m == 1:
+            newMesh, lookup = self._refine1D()
+        elif m == 2:
+            newMesh, lookup = self._refine2D()
+        else:
+            raise NotImplementedError(m)
+        newMesh.transformer = self.transformer
+        if self.transformer is not None:
+            self.transformer(self, newMesh, lookup)
+        return newMesh
+
+    def _refine1D(self):
+        C = self.num_cells
+        mids = 0.5 * (self.vertices[self.cells[:, 0]] +
+                      self.vertices[self.cells[:, 1]])
+        newV = np.concatenate([self.vertices, mids], axis=0)
+        midIdx = self.num_vertices + np.arange(C)
+        left = np.stack([self.cells[:, 0], midIdx], axis=1)
+        right = np.stack([midIdx, self.cells[:, 1]], axis=1)
+        newC = np.concatenate([left, right], axis=0)
+        lookup = {'edges': np.sort(self.cells, axis=1), 'newIdx': midIdx}
+        return simplexMesh(newV, newC, dim=self.dim), lookup
+
+    def _refine2D(self):
+        cells = self.cells
+        edges = np.concatenate([cells[:, [0, 1]], cells[:, [1, 2]],
+                                cells[:, [2, 0]]], axis=0)
+        uniq, inv = np.unique(np.sort(edges, axis=1), axis=0,
+                              return_inverse=True)
+        inv = inv.reshape(-1)
+        mids = 0.5 * (self.vertices[uniq[:, 0]] + self.vertices[uniq[:, 1]])
+        newIdx = self.num_vertices + np.arange(uniq.shape[0], dtype=np.int64)
+        newV = np.concatenate([self.vertices, mids], axis=0)
+        C = self.num_cells
+        m01 = newIdx[inv[:C]]
+        m12 = newIdx[inv[C:2 * C]]
+        m20 = newIdx[inv[2 * C:]]
+        v0, v1, v2 = cells[:, 0], cells[:, 1], cells[:, 2]
+        newC = np.concatenate([
+            np.stack([v0, m01, m20], axis=1),
+            np.stack([v1, m12, m01], axis=1),
+            np.stack([v2, m20, m12], axis=1),
+            np.stack([m01, m12, m20], axis=1)], axis=0)
+        lookup = {'edges': uniq, 'newIdx': newIdx}
+        return simplexMesh(newV, newC, dim=self.dim), lookup
+
+    # ----------------------------------------------------------- surface mesh
+    def get_surface_mesh(self):
+        """Mesh of the boundary facets with outward unit normals."""
+        m = self.manifold_dim
+        if m == 1:
+            bv = self.boundaryVertices
+            sm = simplexMesh(self.vertices.copy(), bv.reshape(-1, 1),
+                             dim=self.dim)
+            normals = np.zeros((len(bv), self.dim), dtype=REAL)
+            for k, v in enumerate(bv):
+                # outward: away from the other vertex of v's single cell
+                cell = self.cells[np.nonzero((self.cells == v).any(axis=1))[0][0]]
+                d = self.vertices[v] - self.vertices[cell[cell != v][0]]
+                normals[k] = d / np.linalg.norm(d)
+            sm.normals = normals
+            return sm
+        if m != 2:
+            raise NotImplementedError(m)
+        be = self.boundaryEdges
+        sm = simplexMesh(self.vertices.copy(), be, dim=self.dim)
+        # owner cell of each boundary edge (first cell holding it)
+        cells = self.cells
+        alledges = np.sort(np.concatenate([cells[:, [0, 1]], cells[:, [1, 2]],
+                                           cells[:, [2, 0]]], axis=0), axis=1)
+        owner = np.tile(np.arange(len(cells)), 3)
+        order = np.lexsort((owner, alledges[:, 1], alledges[:, 0]))
+        keys = alledges[order, 0].astype(np.int64) * self.num_vertices \
+            + alledges[order, 1]
+        bkeys = be[:, 0].astype(np.int64) * self.num_vertices + be[:, 1]
+        cellNo = owner[order][np.searchsorted(keys, bkeys)]
+        t = self.vertices[be[:, 1]] - self.vertices[be[:, 0]]
+        n = np.stack([t[:, 1], -t[:, 0]], axis=1)
+        n /= np.linalg.norm(n, axis=1)[:, None]
+        center = self.vertices[cells[cellNo]].mean(axis=1)
+        mid = 0.5 * (self.vertices[be[:, 0]] + self.vertices[be[:, 1]])
+        flip = np.einsum('kd,kd->k', n, mid - center) < 0
+        n[flip] = -n[flip]
+        sm.normals = n
+        return sm
+
+    def __repr__(self):
+        return (f'<simplexMesh dim={self.dim} manifold={self.manifold_dim} '
+                f'V={self.num_vertices} C={self.num_cells} h={self.h:.4g}>')
+
+
+def simpleInterval(a=0.0, b=1.0, numCells=1):
+    vertices = np.linspace(a, b, numCells + 1).reshape(-1, 1)
+    cells = np.stack([np.arange(numCells), np.arange(1, numCells + 1)], axis=1)
+    return simplexMesh(vertices, cells, dim=1)
+
+
+def circle(n=8, radius=1.0, h=None):
+    """Disc mesh: regular n-gon fan, with a radial projection transformer so
+    refinements approach the circle."""
+    if h is not None:
+        n = max(int(np.ceil(2 * np.pi * radius / h)), 4)
+    angles = 2 * np.pi * np.arange(n) / n
+    ring = radius * np.stack([np.cos(angles), np.sin(angles)], axis=1)
+    vertices = np.concatenate([np.zeros((1, 2)), ring], axis=0)
+    cells = np.array([[0, 1 + i, 1 + (i + 1) % n] for i in range(n)],
+                     dtype=INDEX)
+    m = simplexMesh(vertices, cells, dim=2)
+    m.transformer = radialMeshTransformer(radius)
+    return m
+
+
+class radialMeshTransformer:
+    """After refinement, project new vertices whose parent edge endpoints both
+    lie on a circle of the same radius back onto that circle."""
+
+    def __init__(self, radius=None, center=None):
+        self.radius = radius
+        self.center = center
+
+    def __call__(self, oldMesh, newMesh, lookup):
+        edges = lookup['edges']
+        newIdx = lookup['newIdx']
+        center = self.center
+        if center is None:
+            center = np.zeros(oldMesh.dim)
+        r0 = np.linalg.norm(oldMesh.vertices[edges[:, 0]] - center, axis=1)
+        r1 = np.linalg.norm(oldMesh.vertices[edges[:, 1]] - center, axis=1)
+        onCircle = np.abs(r0 - r1) < 1e-9 * (1 + np.abs(r0))
+        target = 0.5 * (r0 + r1)
+        mids = newMesh.vertices[newIdx]
+        rm = np.linalg.norm(mids - center, axis=1)
+        scale = np.where(onCircle & (rm > 0),
+                         target / np.maximum(rm, 1e-300), 1.0)
+        newMesh.vertices[newIdx] = center + (mids - center) * scale[:, None]
