@@ -3,6 +3,8 @@
 Port of Dense_LinearOperator and Diagonal_LinearOperator of
 pynucleus_tpu/base/linear_operators.py.  The dense matvec is ``torch.mv``:
 the plain large product the JAX package leaves to XLA (``A.data @ x``).
+Every operator's ``matvec(x, out=None)`` writes into ``out`` when given
+(the CG loop reuses one buffer); the H2 operator is nl/h2.py H2Matrix.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ class LinearOperator:
     def shape(self):
         return (self.num_rows, self.num_columns)
 
-    def matvec(self, x):
+    def matvec(self, x, out=None):
         raise NotImplementedError()
 
     def __matmul__(self, x):
@@ -36,8 +38,8 @@ class Dense_LinearOperator(LinearOperator):
         self.data = data
         self.num_rows, self.num_columns = data.shape
 
-    def matvec(self, x):
-        return torch.mv(self.data, x)
+    def matvec(self, x, out=None):
+        return torch.mv(self.data, x, out=out)
 
     def toarray(self):
         return self.data.detach().cpu().numpy()
@@ -52,8 +54,8 @@ class Diagonal_LinearOperator(LinearOperator):
         self.data = data
         self.num_rows = self.num_columns = data.shape[0]
 
-    def matvec(self, x):
-        return self.data * x
+    def matvec(self, x, out=None):
+        return torch.mul(self.data, x, out=out)
 
     @property
     def diagonal(self):

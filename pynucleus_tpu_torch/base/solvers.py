@@ -6,7 +6,8 @@ x0 = 0, convergence test on sqrt(r.M.r) (sqrt(r.r) with use2norm) against
 an absolute tolerance, the residual history, and the reference's iteration
 convention (the loop index at the convergence check).
 
-Each iteration is ``Ap = A p`` (``torch.mv``) followed by one call of
+Each iteration is ``Ap = A p`` (the operator's ``matvec``: ``torch.mv``
+for the dense operator, kernel K8 for the H2 operator) followed by one call of
 :func:`pcg_update`, kernel K4, which does the vector work of the JAX loop
 body in one fused pass; the host reads the convergence value once per
 iteration.
@@ -153,7 +154,7 @@ class cg_solver(krylov_solver):
         k = 0
         convCrit = float(conv)
         while convCrit > tol and k < maxiter:
-            torch.mv(A.data, p, out=Ap)
+            A.matvec(p, out=Ap)
             pcg_update(x, r, z, p, Ap, invD, scal, hist, k, self.use2norm)
             k += 1
             convCrit = float(scal[2])

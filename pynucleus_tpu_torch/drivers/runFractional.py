@@ -1,14 +1,15 @@
 """Solve the fractional Poisson problem (infinite horizon, zero exterior)
-with the port: dense assembly on the device, CG-Jacobi.
+with the port: dense or H2 assembly on the device, CG-Jacobi.
 
     python -m pynucleus_tpu_torch.drivers.runFractional --domain disc \\
         --s 'const(0.75)' --problem constant --element P1 \\
-        --solverType cg-jacobi --matrixFormat dense [--noRef N] \\
-        [--device cuda|cpu]
+        --solverType cg-jacobi --matrixFormat dense|H2 [--noRef N] \\
+        [--maxiter K] [--device cuda|cpu]
 
-Port of drivers/runFractional.py for the dense slice.  It prints the same
-``results`` and ``errors`` labels as the JAX driver, in float64, plus the
-wall times of assembly and solve (``timers``).
+Port of drivers/runFractional.py for the dense and H2 slices (H2 on the
+disc only).  It prints the same ``results`` and ``errors`` labels as the
+JAX driver, in float64, plus the wall times of assembly and solve and, for
+H2, of each build part (``timers``).
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def parser():
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--solverType', default='cg-jacobi',
                    choices=['cg-jacobi', 'cg'])
-    p.add_argument('--matrixFormat', default='dense', choices=['dense'])
+    p.add_argument('--matrixFormat', default='dense', choices=['dense', 'H2'])
     p.add_argument('--noRef', type=int, default=-1)
     p.add_argument('--maxiter', type=int, default=100)
     p.add_argument('--tol', type=float, default=1e-6)
@@ -65,8 +66,10 @@ def main(argv=None, quiet=False):
 
     _sync(dev)
     t0 = time.perf_counter()
+    parts = {}
     A = assembleNonlocal(dm, prob['kernel'], matrixFormat=args.matrixFormat,
-                         zeroExterior=prob['zeroExterior'], device=dev)
+                         zeroExterior=prob['zeroExterior'], device=dev,
+                         timers=parts)
     _sync(dev)
     tAssemble = time.perf_counter() - t0
 
@@ -98,6 +101,8 @@ def main(argv=None, quiet=False):
     timers = outputGroup('timers')
     timers.add('device', str(dev))
     timers.add('assembly seconds', tAssemble)
+    for part, sec in parts.items():
+        timers.add(f'assembly {part} seconds', sec)
     timers.add('solve seconds', tSolve)
     timers.add('explicit residual', resError)
     if not quiet:

@@ -1,19 +1,27 @@
 """Build the port's objects from plain arrays.
 
 The state of this system is the mesh, the dofmap and the kernel
-parameters.  ``fromArrays`` builds the port's mesh, P1 dofmap and kernel
-from numpy arrays, such as the ``vertices``/``cells`` of a JAX package
-mesh, so that both packages assemble on the identical mesh.
+parameters, and for an assembled H2 operator its tree-ordered near field,
+leaf data and per-level far-field data.  ``fromArrays`` builds the port's
+mesh, P1 dofmap and kernel from numpy arrays, such as the
+``vertices``/``cells`` of a JAX package mesh, so that both packages
+assemble on the identical mesh; ``h2FromArrays`` builds the port's
+H2Matrix from the arrays of an H2 operator, such as those of a JAX package
+H2Matrix, so that its apply can be checked on its own.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from .config import getDevice
 
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import getFractionalKernel
+from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 
-__all__ = ['fromArrays']
+__all__ = ['fromArrays', 'h2FromArrays']
 
 
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cpu'):
@@ -23,3 +31,44 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cpu'):
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL, device=device)
     return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
+
+
+def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
+                 perm, N, leafDofs, leafPhi, leafLvl, leafPos, levels,
+                 device='cpu'):
+    """The port's H2Matrix from numpy arrays.
+
+    Near field: the tree-ordered data [nnz] and its structure (the fields
+    of pynucleus_tpu/nl/h2.py _TreeNearMeta: indptrT, tmplAll, tmplStart,
+    tStartRow, tLen, rowLen, perm, N).  Leaves: leafDofs [L, nbar] (pad
+    -1), leafPhi [L, nbar, M], each leaf's level and position.  levels:
+    one mapping per level with 'size' and, where present, 'T' [size, M, M],
+    'parentIdx' [size], 'K' [p, M, M] (with the -2 factor), 'src' and
+    'dst' [p], as the JAX package's H2Matrix.levels hold them."""
+    dev = getDevice(device)
+    dataT = np.array(dataT, dtype=np.float64)
+    dataZ = torch.zeros(len(dataT) + 1, dtype=torch.float64, device=dev)
+    dataZ[:-1] = torch.as_tensor(dataT, device=dev)
+    near = TreeNearOperator(dataZ, TreeNearMeta(
+        indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen, perm, N))
+    lv, Ks, off = [], [], 0
+    for level in levels:
+        entry = {'size': int(level['size'])}
+        for name in ('T', 'parentIdx'):
+            if level.get(name) is not None:
+                entry[name] = np.asarray(level[name])
+        if level.get('K') is not None:
+            K = np.asarray(level['K'], dtype=np.float64)
+            entry.update(farOff=off, farCount=K.shape[0],
+                         src=np.asarray(level['src']),
+                         dst=np.asarray(level['dst']))
+            Ks.append(K)
+            off += K.shape[0]
+        lv.append(entry)
+    M = np.asarray(leafPhi).shape[2]
+    Kall = torch.as_tensor(np.concatenate(Ks) if Ks else
+                           np.zeros((0, M, M)), device=dev)
+    return H2Matrix(near, torch.as_tensor(np.asarray(leafPhi,
+                                                     dtype=np.float64),
+                                          device=dev),
+                    (leafLvl, leafPos), lv, Kall, N, leafDofs)

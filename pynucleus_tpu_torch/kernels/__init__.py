@@ -1,21 +1,35 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Four kernels carry the slice's device work:
+Eight kernels carry the port's device work:
 
-  K1 panel_scatter  (csrc/panel_scatter.cu)  singular/touching/correction
-                    panel quadrature + scatter into dense A
+  K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
+                    pairs, scattered into dense A or into CSR data at
+                    explicit or arithmetic tree slots
   K2 grid_distant   (csrc/grid_distant.cu)   cell-pair grid over one f32
-                    distance window
+                    distance window (dense)
   K3 grid_boundary  (csrc/grid_boundary.cu)  zero-exterior surface term
+                    (dense)
   K4 pcg_update     (pcg_update.py, Triton)  fused PCG vector pass
+  K5 near_enum      (csrc/near_enum.cu)      H2 near-field enumeration:
+                    element keys, f32 order model, histogram
+  K6 near_enum_quad (csrc/near_enum.cu)      H2 near-field quadrature of
+                    one order's elements into tree slots
+  K7 far_field      (csrc/far_field.cu)      H2 far-field kernel blocks
+  K8 h2_matvec      (csrc/h2_matvec.cu)      H2 apply (a sequence of
+                    launches per call)
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
-package has the program they replace: K1-K3 in nl/assembly.py, K4 in
-base/solvers.py.  A wrapper runs the plain version only for tensors on the
-CPU; on a CUDA tensor it launches its kernel or raises.
+package has the program they replace: K1-K3 and K5-K7 in nl/assembly.py,
+K4 in base/solvers.py, K8 in nl/h2.py.  A wrapper runs the plain version
+only for tensors on the CPU; on a CUDA tensor it launches its kernel or
+raises.
 
-``launches`` counts kernel launches per kernel (a plain int each, bumped by
-the wrapper where it launches); ``resetLaunches`` zeroes them.
+``launches`` counts, per kernel, the wrapper calls that launched it (a
+plain int each, bumped by the wrapper where it launches).  One such launch
+is one CUDA launch, except for K2 (2), K4 (3) and K8 (2 nLvl + 2 for an
+operator of nLvl levels: one per pass and level).  K1's three scatter
+targets are also counted apart, under ``panel_scatter:dense``, ``:slots``
+and ``:tree``.  ``resetLaunches`` zeroes them all.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
@@ -29,21 +43,25 @@ import os
 import subprocess
 import tempfile
 
-KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update')
-launches = {k: 0 for k in KERNELS}
+KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
+           'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec')
+K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
+              'panel_scatter:tree')
+launches = {k: 0 for k in KERNELS + K1_TARGETS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
-SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu')
+SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
+           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC')
+              '-Xcompiler', '-fPIC')
 
 _lib = None
 
 
 def resetLaunches():
-    for k in KERNELS:
+    for k in launches:
         launches[k] = 0
 
 
@@ -55,7 +73,10 @@ def _nvcc():
 
 def buildLibrary(verbose=False):
     """Compile the CUDA sources (once per source content) and return the
-    path of the shared library."""
+    path of the shared library.  One nvcc per source, all started
+    together, then one link: on the H100 machine (8 cores) the cold build
+    of all six sources took 9.1 s, where one nvcc over the first three
+    alone had taken 15.0 s."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
     for name in SOURCES + ('common.cuh',):
         with open(os.path.join(CSRC, name), 'rb') as f:
@@ -64,25 +85,37 @@ def buildLibrary(verbose=False):
     out = os.path.join(BUILD_DIR, f'libnucleax_{h.hexdigest()[:16]}.so')
     if os.path.exists(out):
         return out
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp] + \
-        [os.path.join(CSRC, s) for s in SOURCES]
-    if verbose:
-        cmd.insert(1, '-Xptxas=-v')
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError('nvcc failed:\n' + proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    extra = ['-Xptxas=-v'] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.replace('.cu', '.o')) for s in SOURCES]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *extra, '-c',
+                                   os.path.join(CSRC, s), '-o', o],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run([_nvcc(), '-shared', '-gencode',
+                                   'arch=compute_90a,code=sm_90a', '-o',
+                                   os.path.join(tmp, 'lib.so'), *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append('link')
+        if failed:
+            raise RuntimeError(f'nvcc failed ({", ".join(failed)}):\n'
+                               + '\n'.join(logs))
+        if verbose:
+            print('\n'.join(logs))
+        os.replace(os.path.join(tmp, 'lib.so'), out)
     return out
 
 
 def _declare(lib):
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
+    F = ctypes.c_float
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, stream
@@ -96,6 +129,34 @@ def _declare(lib):
         # S, Q2, exclPtr, exclIdx, PhiXw, PhiX, Cg, e, useNormals, stream
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, D, D, I, P],
+        # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
+        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        'panel_scatter_slots': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                P, P, P, P, I, D, D, P],
+        # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
+        # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
+        # tStart, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        'panel_scatter_tree': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                               P, P, P, P, P, P, P, P, P, P, P, P, I, D, D,
+                               P],
+        # keys, pT, hist, cum, nP, offI, offJ, n2, IA, JA, ncArr, cells, nv,
+        # cellNodes, dpe, centers, C, logh, s, c, logH0, T, stream
+        'near_enum': [P, P, P, P, I, P, P, P, P, P, P, P, I, P, I, P, I, P,
+                      F, F, F, I, P],
+        # data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
+        # ncArr, vertices, dim, cells, nv, vols, dofs, dpe, dofNode,
+        # treePos, indptrT, tStart, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        'near_enum_quad': [P, L, P, I, P, P, P, P, P, P, P, P, P, P, P, I,
+                           P, I, P, P, I, P, P, P, P, P, P, P, P, I, D, D,
+                           P],
+        # K, gi, gj, P, M, dim, C, e, stream
+        'far_field': [P, P, P, L, I, I, D, D, P],
+        # y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode, indptrT,
+        # tStartRow, tLen, rowLen, tmplStart, tmplAll, data, leafPhi,
+        # leafNode, T, parent, levelOff (host), nLvl, K, src, dst, nFar,
+        # stream
+        'h2_matvec': [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P,
+                      P, P, P, P, P, I, P, P, P, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)
@@ -128,3 +189,9 @@ def ptr(t):
 def stream():
     import torch
     return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def i64array(values):
+    """A host array of int64 (read by a C entry point on the host)."""
+    values = [int(v) for v in values]
+    return (ctypes.c_longlong * len(values))(*values)

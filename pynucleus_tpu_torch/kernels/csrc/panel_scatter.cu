@@ -1,15 +1,21 @@
 // K1 panel_scatter: batched panel quadrature of explicit element pairs,
-// scattered into the dense operator.
+// scattered into the dense operator or into the H2 near-field CSR data.
 //
 // Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib (+ the dense
-// scatter _device_scatter_rows), _bucket_natural_scatter_scan and
-// _bucket_rows_scatter_scan.  For pair p with simplices vi1[p], vi2[p]:
+// scatter _device_scatter_rows), _bucket_natural_scatter_scan,
+// _bucket_rows_scatter_scan, _bucket_masked_csr_scan and
+// _bucket_surface_tree_scan.  For pair p with simplices vi1[p], vi2[p]:
 //   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
 //   t_q = gamma(|x_q-y_q|^2) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
 //   M[I,J] = sum_q t_q PSIP[q, I*nPSI+J]
-//   A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
-// Negative dofs (boundary dofs -d-1 and DROP) are skipped; this replaces
-// the JAX dump row N.
+// One quadrature body (common.cuh panelQuad), three epilogues:
+//   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
+//          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
+//   SLOTS  data[slots[p, I*nPSI+J]] += M[I,J]       for 0 <= slot < nnz
+//          (host slots of the identical-cell and touching near pairs)
+//   TREE   data[treeSlot(dofRows[p,I], dofRows[p,J]; I_p, J_p, offF_p,
+//          offB_p)] += M[I,J] (union surfaces; the slot is arithmetic in the
+//          tree-ordered CSR, see common.cuh treeSlot)
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
@@ -20,15 +26,21 @@
 
 #include "common.cuh"
 
-template <int NPSI>
+enum Target { DENSE = 0, SLOTS = 1, TREE = 2 };
+
+template <int NPSI, int TARGET>
 __global__ void __launch_bounds__(256)
-panel_scatter_kernel(double* __restrict__ A, long long N,
+panel_scatter_kernel(double* __restrict__ out, long long N /* dense: N; CSR: nnz */,
                      const double* __restrict__ vertices, int dim,
                      const long long* __restrict__ vi1, int nv1,
                      const long long* __restrict__ vi2, int nv2,
                      const long long* __restrict__ dofRows,
+                     const int* __restrict__ slots,
                      const double* __restrict__ volsym,
                      const double* __restrict__ normals, long long P,
+                     const int* __restrict__ I, const int* __restrict__ J,
+                     const int* __restrict__ offF,
+                     const int* __restrict__ offB, TreeTables tt,
                      const double* __restrict__ bary_x,
                      const double* __restrict__ bary_y,
                      const double* __restrict__ w,
@@ -41,64 +53,75 @@ panel_scatter_kernel(double* __restrict__ A, long long N,
     if (pair >= P) return;  // uniform across the warp
 
     double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM], nrm[MAXDIM];
-    for (int a = 0; a < nv1; ++a) {
-        const long long vid = vi1[pair * nv1 + a];
-        for (int d = 0; d < dim; ++d) v1[a][d] = vertices[vid * dim + d];
-    }
-    for (int a = 0; a < nv2; ++a) {
-        const long long vid = vi2[pair * nv2 + a];
-        for (int d = 0; d < dim; ++d) v2[a][d] = vertices[vid * dim + d];
-    }
-    for (int d = 0; d < dim; ++d)
-        nrm[d] = normals != nullptr ? normals[pair * dim + d] : 0.0;
-    const double vs = volsym[pair];
+    loadSimplex(v1, vertices, vi1 + pair * nv1, nv1, dim);
+    loadSimplex(v2, vertices, vi2 + pair * nv2, nv2, dim);
+    if (normals != nullptr)
+        for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
 
     double acc[NN];
-#pragma unroll
-    for (int k = 0; k < NN; ++k) acc[k] = 0.0;
-
-    for (int q = lane; q < Q; q += 32) {
-        double x[MAXDIM], y[MAXDIM];
-        double r2 = 0.0;
-        for (int d = 0; d < dim; ++d) {
-            double xd = 0.0, yd = 0.0;
-            for (int a = 0; a < nv1; ++a) xd += bary_x[a * Q + q] * v1[a][d];
-            for (int a = 0; a < nv2; ++a) yd += bary_y[a * Q + q] * v2[a][d];
-            x[d] = xd;
-            y[d] = yd;
-            const double dd = xd - yd;
-            r2 += dd * dd;
-        }
-        double t = radial(r2, C, e) * w[q];
-        if (normals != nullptr) {
-            double fac = 0.0;
-            if (r2 > 0.0) {
-                for (int d = 0; d < dim; ++d) fac += nrm[d] * (y[d] - x[d]);
-                fac /= sqrt(r2);
-            }
-            t *= fac;
-        }
-        t *= vs;
-        const double* ps = PSIP + (long long)q * NN;
-#pragma unroll
-        for (int k = 0; k < NN; ++k) acc[k] += t * __ldg(ps + k);
-    }
-
+    panelQuad<NN>(acc, v1, nv1, v2, nv2, dim,
+                  normals != nullptr ? nrm : nullptr, volsym[pair], bary_x,
+                  bary_y, w, PSIP, Q, C, e, lane, 32);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
-    const long long* dr = dofRows + pair * NPSI;
+    if (TARGET == TREE) {
+        long long dr[NPSI];
+#pragma unroll
+        for (int i = 0; i < NPSI; ++i) dr[i] = dofRows[pair * NPSI + i];
+        treeScatter<NPSI>(out, N, tt, dr, I[pair], J[pair], offF[pair],
+                          offB[pair], acc, lane);
+        return;
+    }
 #pragma unroll
     for (int k = 0; k < NN; ++k) {
-        if ((k & 31) == lane) {
+        if ((k & 31) != lane) continue;
+        if (TARGET == DENSE) {
+            const long long* dr = dofRows + pair * NPSI;
             const long long r = dr[k / NPSI], c = dr[k % NPSI];
-            if (r >= 0 && c >= 0) atomicAdd(A + r * N + c, acc[k]);
+            if (r >= 0 && c >= 0) atomicAdd(out + r * N + c, acc[k]);
+        } else {
+            const long long s = slots[pair * NN + k];
+            if (s >= 0 && s < N) atomicAdd(out + s, acc[k]);
         }
     }
 }
 
 EXPORT const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+template <int TARGET>
+static int launchPanel(double* out, long long N, const double* vertices,
+                       int dim, const long long* vi1, int nv1,
+                       const long long* vi2, int nv2,
+                       const long long* dofRows, const int* slots, int nPSI,
+                       const double* volsym, const double* normals,
+                       long long P, const int* I, const int* J,
+                       const int* offF, const int* offB, TreeTables tt,
+                       const double* bary_x, const double* bary_y,
+                       const double* w, const double* PSIP, int Q, double C,
+                       double e, cudaStream_t stream) {
+    if (P <= 0) return 0;
+    if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 256;
+    const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+#define LAUNCH(NP)                                                          \
+    panel_scatter_kernel<NP, TARGET><<<(unsigned)blocks, threads, 0,       \
+                                       stream>>>(                          \
+        out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
+        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, C, e)
+    switch (nPSI) {
+        case 2: LAUNCH(2); break;
+        case 3: LAUNCH(3); break;
+        case 4: LAUNCH(4); break;
+        case 6: LAUNCH(6); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
 }
 
 EXPORT int panel_scatter(double* A, long long N, const double* vertices,
@@ -110,23 +133,46 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, double C, double e,
                          cudaStream_t stream) {
-    if (P <= 0) return 0;
-    if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 256;
-    const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
-    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH(NP)                                                          \
-    panel_scatter_kernel<NP><<<(unsigned)blocks, threads, 0, stream>>>(    \
-        A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, volsym, normals, \
-        P, bary_x, bary_y, w, PSIP, Q, C, e)
-    switch (nPSI) {
-        case 2: LAUNCH(2); break;
-        case 3: LAUNCH(3); break;
-        case 4: LAUNCH(4); break;
-        case 6: LAUNCH(6); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
+    return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
+                              dofRows, nullptr, nPSI, volsym, normals, P,
+                              nullptr, nullptr, nullptr, nullptr,
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
+                              stream);
+}
+
+EXPORT int panel_scatter_slots(double* data, long long nnz,
+                               const double* vertices, int dim,
+                               const long long* vi1, int nv1,
+                               const long long* vi2, int nv2,
+                               const int* slots, int nPSI,
+                               const double* volsym, const double* normals,
+                               long long P, const double* bary_x,
+                               const double* bary_y, const double* w,
+                               const double* PSIP, int Q, double C, double e,
+                               cudaStream_t stream) {
+    return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
+                              nullptr, slots, nPSI, volsym, normals, P,
+                              nullptr, nullptr, nullptr, nullptr,
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
+                              stream);
+}
+
+EXPORT int panel_scatter_tree(double* data, long long nnz,
+                              const double* vertices, int dim,
+                              const long long* vi1, int nv1,
+                              const long long* vi2, int nv2,
+                              const long long* dofRows, int nPSI,
+                              const double* volsym, const double* normals,
+                              long long P, const int* I, const int* J,
+                              const int* offF, const int* offB,
+                              const int* dofNode, const int* treePos,
+                              const int* indptrT, const int* tStart,
+                              const double* bary_x, const double* bary_y,
+                              const double* w, const double* PSIP, int Q,
+                              double C, double e, cudaStream_t stream) {
+    return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
+                             dofRows, nullptr, nPSI, volsym, normals, P, I,
+                             J, offF, offB,
+                             TreeTables{dofNode, treePos, indptrT, tStart},
+                             bary_x, bary_y, w, PSIP, Q, C, e, stream);
 }

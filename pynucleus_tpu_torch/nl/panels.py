@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['permuteLocalDofs', 'classifyPairsDenseGrid',
+__all__ = ['permuteLocalDofs', 'classifyPairsDenseGrid', 'classifyPairList',
            'classifyBoundaryPairs']
 
 
@@ -172,6 +172,47 @@ def distantOrders(dm, kernel, hs, centers, di, dj, mp):
     o2 = np.ceil((c + (s - 1.0) * l1 + lmin - s * logdh1) /
                  (np.maximum(logdh2, 0) + np.float32(0.4)))
     return np.maximum(np.maximum(o1, o2), 2).astype(np.int64)
+
+
+def classifyPairList(dm, kernel, pi, pj, target_order=None):
+    """Classify an explicit cell-pair list into id / touching / distant
+    buckets (pynucleus_tpu/nl/panels.py classifyPairList, infinite
+    horizon).  The H2 near field passes the identical and vertex-sharing
+    pairs through it; 'touching' is (pairs [P, 2], (lut, group)) as
+    _sharedVertices returns it."""
+    if kernel.finiteHorizon:
+        raise NotImplementedError('finite horizon')
+    mesh = dm.mesh
+    cells = mesh.cells
+    mp = orderModelParams(dm, kernel, target_order)
+
+    pi = np.asarray(pi, dtype=np.int64)
+    pj = np.asarray(pj, dtype=np.int64)
+    idMask = pi == pj
+    ids = pi[idMask]
+
+    rest_i = pi[~idMask]
+    rest_j = pj[~idMask]
+    c1 = cells[rest_i]
+    c2 = cells[rest_j]
+    nShared = (c1[:, :, None] == c2[:, None, :]).any(axis=2).sum(axis=1)
+    touchMask = nShared >= 1
+
+    touching_pairs = np.stack([rest_i[touchMask], rest_j[touchMask]], axis=1)
+    sharedInfo = _sharedVertices(cells, touching_pairs)
+
+    di = rest_i[~touchMask]
+    dj = rest_j[~touchMask]
+    centers = mesh.vertices[cells].mean(axis=1)
+    hs = _cellDiameter(mesh.vertices, cells)
+    orders = distantOrders(dm, kernel, hs, centers, di, dj, mp) \
+        if len(di) else np.zeros(0, dtype=np.int64)
+    orders = ((orders + 1) // 2) * 2
+
+    return {'id': ids,
+            'touching': (touching_pairs, sharedInfo),
+            'distant': (di, dj, orders),
+            **mp}
 
 
 def _d2f32(centers32, ii, jj):

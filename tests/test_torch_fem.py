@@ -58,6 +58,7 @@ def _close(a, b, tol=TOL):
 
 def test_port_imports_no_jax():
     code = ('import pynucleus_tpu_torch, pynucleus_tpu_torch.nl.assembly, '
+            'pynucleus_tpu_torch.nl.h2, pynucleus_tpu_torch.interop, '
             'pynucleus_tpu_torch.drivers.runFractional, '
             'pynucleus_tpu_torch.kernels.pcg_update, sys; '
             "assert 'jax' not in sys.modules, 'jax imported'")

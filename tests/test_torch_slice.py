@@ -50,7 +50,7 @@ def test_assembleNonlocal_rejects_other_formats():
     m = jfem.simpleInterval(-1.0, 1.0).refine()
     _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 1)
     with pytest.raises(NotImplementedError):
-        assembleNonlocal(tdm, tk, matrixFormat='H2')
+        assembleNonlocal(tdm, tk, matrixFormat='sparse')
 
 
 @pytest.mark.parametrize('argv', [
