@@ -15,9 +15,10 @@ TREAL = torch.float64
 TINDEX = torch.int64
 
 
-def getDevice(device='cpu'):
-    """``torch.device`` for a name or device.  Asking for CUDA where no GPU
-    is present raises: the port never carries on on the CPU in its place."""
+def getDevice(device='cuda'):
+    """``torch.device`` for a name or device; the card unless the caller
+    asks for the CPU.  Asking for CUDA where no GPU is present raises: the
+    port never carries on on the CPU in its place."""
     dev = torch.device(device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'device {device!r} requested, but '

@@ -1,15 +1,20 @@
 """Solve the fractional Poisson problem (infinite horizon, zero exterior)
-with the port: dense or H2 assembly on the device, CG-Jacobi.
+with the port: dense or H2 assembly on the device, CG-Jacobi, CG-MG or MG.
 
     python -m pynucleus_tpu_torch.drivers.runFractional --domain disc \\
         --s 'const(0.75)' --problem constant --element P1 \\
-        --solverType cg-jacobi --matrixFormat dense|H2 [--noRef N] \\
-        [--maxiter K] [--device cuda|cpu]
+        --solverType cg-jacobi|cg|cg-mg|mg --matrixFormat dense|H2 \\
+        [--noRef N] [--maxiter K] [--device cuda|cpu]
 
-Port of drivers/runFractional.py for the dense and H2 slices (H2 on the
-disc only).  It prints the same ``results`` and ``errors`` labels as the
-JAX driver, in float64, plus the wall times of assembly and solve and, for
-H2, of each build part (``timers``).
+Port of drivers/runFractional.py for the dense and H2 formats (H2 on the
+disc only).  It runs on the card unless ``--device cpu`` asks for the CPU;
+asking for the card without one raises.  With a multigrid solver every
+level noRef 0 ... N is assembled in the requested format, as in the JAX
+package.  It prints the same ``results`` and ``errors`` labels as the JAX
+driver, in float64, plus wall times (``timers``): the assembly of each
+level and in total, the finest H2 level's build parts, the hierarchy
+set-up (prolongations, their transposes, the solver's set-up with the
+inverse diagonals and the coarse LU) and the solve.
 """
 from __future__ import annotations
 
@@ -21,11 +26,11 @@ import torch
 from ..config import getDevice
 from ..base.solvers import solverFactory, iterative_solver
 from ..base.utilsFem import outputGroup
-from ..fem.dofmaps import str2DoFMap
 from ..fem.assembly import assembleRHS
-from ..nl.assembly import assembleNonlocal
-from ..nl.discretized import ERROR_LABELS, modelErrors
+from ..nl.discretized import (ERROR_LABELS, modelErrors, buildMeshHierarchy,
+                              buildHierarchy)
 from ..nl.problems import fractionalLaplacianProblem, defaultNoRef
+from .. import multilevel  # noqa: F401  (registers the 'mg' solver)
 
 
 def parser():
@@ -36,12 +41,12 @@ def parser():
     p.add_argument('--problem', default='constant', choices=['constant'])
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--solverType', default='cg-jacobi',
-                   choices=['cg-jacobi', 'cg'])
+                   choices=['cg-jacobi', 'cg', 'cg-mg', 'mg'])
     p.add_argument('--matrixFormat', default='dense', choices=['dense', 'H2'])
     p.add_argument('--noRef', type=int, default=-1)
     p.add_argument('--maxiter', type=int, default=100)
     p.add_argument('--tol', type=float, default=1e-6)
-    p.add_argument('--device', default='cpu')
+    p.add_argument('--device', default='cuda')
     return p
 
 
@@ -52,33 +57,43 @@ def _sync(dev):
 
 def main(argv=None, quiet=False):
     """Run the driver; returns a dict with the output groups ('results',
-    'errors', 'timers'), the solution ``u``, the operator ``A`` and the
-    solver."""
+    'errors', 'timers'), the solution ``u``, the finest operator ``A``,
+    the level ``hierarchy``, the finest dofmap ``dm`` and the solver."""
     args = parser().parse_args(argv)
     dev = getDevice(args.device)
     noRef = args.noRef if args.noRef > 0 else \
         defaultNoRef(args.domain, args.element)
     prob = fractionalLaplacianProblem(args.domain, args.s, args.problem)
-    mesh = prob['mesh']
-    for _ in range(noRef):
-        mesh = mesh.refine()
-    dm = str2DoFMap[args.element](mesh, prob['tag'], device=dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    parts = {}
-    A = assembleNonlocal(dm, prob['kernel'], matrixFormat=args.matrixFormat,
-                         zeroExterior=prob['zeroExterior'], device=dev,
-                         timers=parts)
+    meshes, dms, Ps = buildMeshHierarchy(prob['mesh'], args.solverType,
+                                         prob['tag'], noRef, args.element,
+                                         dev)
     _sync(dev)
-    tAssemble = time.perf_counter() - t0
+    tSetup = time.perf_counter() - t0
+    mesh, dm = meshes[-1], dms[-1]
+    parts = {}
+    t0 = time.perf_counter()
+    hierarchy = buildHierarchy(dms, Ps, prob['kernel'], args.solverType,
+                               args.matrixFormat, prob['zeroExterior'],
+                               timers=parts)
+    _sync(dev)
+    levelSeconds = {k: v for k, v in parts.items() if k.startswith('level ')}
+    tAssemble = sum(levelSeconds.values())
+    # the transposes R = P.T, built after the levels' assembly
+    tSetup += time.perf_counter() - t0 - tAssemble
+    A = hierarchy[-1]['A']
 
     b = assembleRHS(dm, prob['rhs'], qOrder=3)
-    solver = solverFactory.build(args.solverType, A=A, setup=True)
+    t0 = time.perf_counter()
+    solver = solverFactory.build(args.solverType, hierarchy=hierarchy,
+                                 setup=True)
     if isinstance(solver, iterative_solver):
         solver.tolerance = args.tol
         solver.maxIter = args.maxiter
     _sync(dev)
+    tSetup += time.perf_counter() - t0
     t0 = time.perf_counter()
     u = solver.solve(b.data)
     _sync(dev)
@@ -103,13 +118,14 @@ def main(argv=None, quiet=False):
     timers.add('assembly seconds', tAssemble)
     for part, sec in parts.items():
         timers.add(f'assembly {part} seconds', sec)
+    timers.add('hierarchy set-up seconds', tSetup)
     timers.add('solve seconds', tSolve)
     timers.add('explicit residual', resError)
     if not quiet:
         for g in (results, errors, timers):
             g.log()
     return {'results': results, 'errors': errors, 'timers': timers, 'u': u,
-            'A': A, 'solver': solver, 'dm': dm}
+            'A': A, 'hierarchy': hierarchy, 'solver': solver, 'dm': dm}
 
 
 if __name__ == '__main__':

@@ -21,11 +21,12 @@ class DoFMap:
     """Maps (cell, local dof) -> global dof; interior >= 0, boundary < 0.
 
     ``device`` is where the dofmap's vectors (``interpolate``, the load
-    vector) live; the numbering itself is host numpy."""
+    vector) live, the card unless the caller asks for the CPU; the
+    numbering itself is host numpy."""
 
     polynomialOrder = None
 
-    def __init__(self, mesh: simplexMesh, tag=PHYSICAL, device='cpu'):
+    def __init__(self, mesh: simplexMesh, tag=PHYSICAL, device='cuda'):
         self.mesh = mesh
         self.dim = mesh.dim
         self.tag = tag
@@ -66,7 +67,7 @@ class DoFMap:
 class P1_DoFMap(DoFMap):
     polynomialOrder = 1
 
-    def __init__(self, mesh, tag=PHYSICAL, device='cpu'):
+    def __init__(self, mesh, tag=PHYSICAL, device='cuda'):
         mdim = mesh.manifold_dim
         self.localNodes = np.eye(mdim + 1)
         self.dofs_per_element = mdim + 1

@@ -7,7 +7,11 @@ mesh, P1 dofmap and kernel from numpy arrays, such as the
 ``vertices``/``cells`` of a JAX package mesh, so that both packages
 assemble on the identical mesh; ``h2FromArrays`` builds the port's
 H2Matrix from the arrays of an H2 operator, such as those of a JAX package
-H2Matrix, so that its apply can be checked on its own.
+H2Matrix, so that its apply can be checked on its own; ``csrFromArrays``
+builds the port's CSR operator, such as a JAX package prolongation, so
+that a multigrid cycle can run on operators identical to the JAX
+package's.  Like every entry point of the port they build on the card
+unless the caller asks for the CPU.
 """
 from __future__ import annotations
 
@@ -20,11 +24,12 @@ from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import getFractionalKernel
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
+from .base.linear_operators import CSR_LinearOperator
 
-__all__ = ['fromArrays', 'h2FromArrays']
+__all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays']
 
 
-def fromArrays(vertices, cells, s, dim, scaling=None, device='cpu'):
+def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda'):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells),
     P1_DoFMap on the PHYSICAL boundary tag, and the fractional kernel of
     order s (normalized unless ``scaling`` is given)."""
@@ -35,7 +40,7 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cpu'):
 
 def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
                  perm, N, leafDofs, leafPhi, leafLvl, leafPos, levels,
-                 device='cpu'):
+                 device='cuda'):
     """The port's H2Matrix from numpy arrays.
 
     Near field: the tree-ordered data [nnz] and its structure (the fields
@@ -72,3 +77,12 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
                                                      dtype=np.float64),
                                           device=dev),
                     (leafLvl, leafPos), lv, Kall, N, leafDofs)
+
+
+def csrFromArrays(indptr, indices, data, shape, device='cuda'):
+    """The port's CSR_LinearOperator of shape (rows, columns) from the CSR
+    arrays indptr [rows+1], indices and data [nnz]."""
+    if len(indptr) != shape[0] + 1:
+        raise ValueError('csrFromArrays: indptr must have rows + 1 entries')
+    return CSR_LinearOperator(indptr, indices, data, num_columns=shape[1],
+                              device=device)

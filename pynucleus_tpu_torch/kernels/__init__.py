@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Eight kernels carry the port's device work:
+Ten kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs, scattered into dense A or into CSR data at
@@ -9,7 +9,9 @@ Eight kernels carry the port's device work:
                     distance window (dense)
   K3 grid_boundary  (csrc/grid_boundary.cu)  zero-exterior surface term
                     (dense)
-  K4 pcg_update     (pcg_update.py, Triton)  fused PCG vector pass
+  K4 pcg_update     (pcg_update.py, Triton)  fused PCG vector pass, in two
+                    forms: Jacobi (z = invD r inside the pass) and general
+                    (two passes around the preconditioner's z = M r)
   K5 near_enum      (csrc/near_enum.cu)      H2 near-field enumeration:
                     element keys, f32 order model, histogram
   K6 near_enum_quad (csrc/near_enum.cu)      H2 near-field quadrature of
@@ -17,19 +19,26 @@ Eight kernels carry the port's device work:
   K7 far_field      (csrc/far_field.cu)      H2 far-field kernel blocks
   K8 h2_matvec      (csrc/h2_matvec.cu)      H2 apply (a sequence of
                     launches per call)
+  K9 csr_spmv       (csrc/csr_spmv.cu)       CSR apply y = A x or y += A x
+                    (multigrid prolongation and restriction)
+  K10 jacobi_smooth (jacobi_smooth.py,       damped-Jacobi vector pass of
+                    Triton)                  the V-cycle, three modes
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
 package has the program they replace: K1-K3 and K5-K7 in nl/assembly.py,
-K4 in base/solvers.py, K8 in nl/h2.py.  A wrapper runs the plain version
-only for tensors on the CPU; on a CUDA tensor it launches its kernel or
-raises.
+K4 in base/solvers.py, K8 in nl/h2.py, K9 in base/linear_operators.py,
+K10 in multilevel/gmg.py.  A wrapper runs the plain version only for
+tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
-plain int each, bumped by the wrapper where it launches).  One such launch
-is one CUDA launch, except for K2 (2), K4 (3) and K8 (2 nLvl + 2 for an
-operator of nLvl levels: one per pass and level).  K1's three scatter
-targets are also counted apart, under ``panel_scatter:dense``, ``:slots``
-and ``:tree``.  ``resetLaunches`` zeroes them all.
+plain int each, bumped by the wrapper where it launches).  K1's three
+scatter targets are also counted apart, under ``panel_scatter:dense``,
+``:slots`` and ``:tree``, and K4's two forms under ``pcg_update:jacobi``
+and ``:general``.  ``deviceLaunches`` counts, per kernel, the CUDA
+launches those calls made: one per call, except for K2 (two), K4 (three
+in the Jacobi form, four in the general form) and K8 (one per pass that
+has work, as the C entry point reports: at most 2 nLvl + 2 for an
+operator of nLvl levels).  ``resetLaunches`` zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
@@ -44,16 +53,19 @@ import subprocess
 import tempfile
 
 KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
-           'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec')
+           'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
+           'csr_spmv', 'jacobi_smooth')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree')
-launches = {k: 0 for k in KERNELS + K1_TARGETS}
+K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
+launches = {k: 0 for k in KERNELS + K1_TARGETS + K4_FORMS}
+deviceLaunches = {k: 0 for k in KERNELS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
-           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu')
+           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -61,8 +73,9 @@ _lib = None
 
 
 def resetLaunches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, deviceLaunches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc():
@@ -75,7 +88,7 @@ def buildLibrary(verbose=False):
     """Compile the CUDA sources (once per source content) and return the
     path of the shared library.  One nvcc per source, all started
     together, then one link: on the H100 machine (8 cores) the cold build
-    of all six sources took 9.1 s, where one nvcc over the first three
+    of the seven sources took 9.2 s, where one nvcc over the first three
     alone had taken 15.0 s."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
     for name in SOURCES + ('common.cuh',):
@@ -154,9 +167,12 @@ def _declare(lib):
         # y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode, indptrT,
         # tStartRow, tLen, rowLen, tmplStart, tmplAll, data, leafPhi,
         # leafNode, T, parent, levelOff (host), nLvl, K, src, dst, nFar,
-        # stream
+        # launched (host, out), stream
         'h2_matvec': [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P,
-                      P, P, P, P, P, I, P, P, P, L, P],
+                      P, P, P, P, P, I, P, P, P, L,
+                      ctypes.POINTER(ctypes.c_int), P],
+        # y, indptr, indices, data, x, nRows, accumulate, stream
+        'csr_spmv': [P, P, P, P, P, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -4,7 +4,8 @@
 // TreeNearOperator._x2, _matvec_tree and _scatter_tree.  Nodes are
 // numbered level-major (coefficient row n of [nodes, M]); leaf l is near
 // node l and owns tree rows tStartRow[l] .. + tLen[l].  One launch per pass
-// and level, in order on the stream:
+// and level that has work (a level without nodes and a far pass without
+// pairs are skipped), in order on the stream:
 //   gather       xt[t] = x[perm[t]]; coef = far = 0               [Nt]
 //   moments      coef[leafNode[l], m] = sum_i leafPhi[l,i,m] xt[t0(l)+i]
 //   up (level ell, finest first)
@@ -17,8 +18,8 @@
 // The near block of leaf r is read in place in the tree CSR (every row of
 // r shares the column template tmplAll[tmplStart[r]:]); no padded block
 // copies.  xt, coef and far are the operator's own work buffers, reused by
-// every apply; the gather zeroes coef and far.  2 nLvl + 2 launches per
-// apply.
+// every apply; the gather zeroes coef and far.  At most 2 nLvl + 2 launches
+// per apply; the entry point writes how many it made to *launched.
 // Bound on the card: the near data, read once per apply (8 B per stored
 // entry, a few hundred MB at 73k dofs), and the far blocks K; the per-level
 // passes are small and latency-bound (launch overhead dominates them).
@@ -146,11 +147,13 @@ EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
                      const int* leafNode, const double* T, const int* parent,
                      const long long* levelOff, int nLvl, const double* K,
                      const int* src, const int* dst, long long nFar,
-                     cudaStream_t stream) {
+                     int* launched, cudaStream_t stream) {
     const int th = 256;
     int err;
+    *launched = 0;
 #define CHECK()                                                    \
-    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err
+    if ((err = static_cast<int>(cudaGetLastError())) != 0) return err; \
+    ++*launched
     if (Nt <= 0) return 0;
     const long long nCoef = levelOff[nLvl] * M;
     gather_kernel<<<gridFor(nCoef > Nt ? nCoef : Nt, th), th, 0, stream>>>(

@@ -1,0 +1,318 @@
+"""Geometric multigrid on tensors; kernel K10.
+
+Port of pynucleus_tpu/multilevel/gmg.py for the damped-Jacobi smoother:
+``buildProlongation`` (host numpy/scipy, code-identical), the level
+container, the V/W cycle ``_vcycle``/``_mg_apply``, ``multigrid`` (set-up
+and the host-driven solve loop) and ``mgPreconditioner``.
+
+The JAX package compiles the whole cycle into one XLA program; here the
+host walks the levels and each step is a launch on the level's device:
+
+  the level operator's matvec      torch.mv (dense) or kernel K8 (H2)
+  the damped-Jacobi passes         kernel K10 :func:`jacobi_smooth`
+  restriction P^T res, x += P xc   kernel K9 (CSR_LinearOperator)
+  the coarsest level               torch.linalg.lu_solve on factors made
+                                   once by torch.linalg.lu_factor (the JAX
+                                   package's jax.scipy.linalg.lu_factor /
+                                   lu_solve there, a library LU too)
+
+Every level keeps its work vectors, made at set-up, so a cycle allocates
+only the coarsest level's solution.  Not ported (ROADMAP A10): the
+Chebyshev and ILU smoothers, FMG (``_fmg_solve``) and ``_mg_solve``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from .. import kernels
+from ..base.linear_operators import LinearOperator, CSR_LinearOperator
+from ..base.solvers import iterative_solver, solverFactory
+
+__all__ = ['buildProlongation', 'multigrid', 'mgPreconditioner',
+           'jacobi_smooth']
+
+
+def buildProlongation(dmCoarse, dmFine):
+    """P [fineDofs x coarseDofs]: evaluate coarse basis at fine dof nodes.
+
+    Exact for nested Lagrange spaces; replaces the reference's
+    buildRestrictionProlongation tables (restrictionProlongation.pyx).
+    Assumes dmFine.mesh is the uniform refinement of dmCoarse.mesh (children
+    of coarse cell c are fine cells c + k*C, k < 2^mdim, as produced by
+    simplexMesh.refine).  The operator lives on dmFine's device."""
+    meshC, meshF = dmCoarse.mesh, dmFine.mesh
+    C = meshC.num_cells
+    mdim = meshC.manifold_dim
+    nchild = meshF.num_cells // C
+    assert nchild * C == meshF.num_cells
+
+    # physical coords of fine dof nodes per fine cell
+    VF = meshF.vertices[meshF.cells]                     # [CF, m+1, dim]
+    nodesF = np.einsum('jk,ckd->cjd', dmFine.localNodes, VF)  # [CF, dpeF, dim]
+
+    # barycentric coords of those points within the parent coarse cell
+    parents = np.tile(np.arange(C), nchild)
+    VC = meshC.vertices[meshC.cells[parents]]            # [CF, m+1, dim]
+    v0 = VC[:, 0, :]
+    span = VC[:, 1:, :] - v0[:, None, :]                 # [CF, m, dim]
+    if mdim == meshC.dim:
+        spanInv = np.linalg.inv(span)
+        xi = np.einsum('cjd,cdm->cjm', nodesF - v0[:, None, :], spanInv)
+    else:
+        G = np.einsum('cid,cjd->cij', span, span)
+        rhs = np.einsum('cjd,cmd->cjm', nodesF - v0[:, None, :], span)
+        xi = np.einsum('cjm,cmn->cjn', rhs, np.linalg.inv(G))
+    bary = np.concatenate([1.0 - xi.sum(axis=2, keepdims=True), xi], axis=2)
+
+    rows, cols, vals = [], [], []
+    dofsF = dmFine.dofs
+    dofsC = dmCoarse.dofs
+    dpeF = dofsF.shape[1]
+    CF = meshF.num_cells
+    # evaluate all coarse basis functions at all fine nodes (per fine cell)
+    baryFlat = bary.reshape(-1, mdim + 1)
+    PHI = dmCoarse.evalPhi(baryFlat)                     # [dpeC, CF*dpeF]
+    PHI = PHI.reshape(-1, CF, dpeF)                      # [dpeC, CF, dpeF]
+    dpeC = PHI.shape[0]
+
+    fRow = np.broadcast_to(dofsF[None, :, :], (dpeC, CF, dpeF))
+    cCol = np.broadcast_to(dofsC[parents].T[:, :, None], (dpeC, CF, dpeF))
+    mask = (fRow >= 0) & (cCol >= 0) & (np.abs(PHI) > 1e-14)
+    rows = fRow[mask]
+    cols = cCol[mask]
+    vals = PHI[mask]
+    P = sp.coo_matrix((vals, (rows, cols)),
+                      shape=(dmFine.num_dofs, dmCoarse.num_dofs)).tocsr()
+    # duplicates: same fine dof seen from several cells -> average (values
+    # agree for nested spaces, so sum/count is exact)
+    cnt = sp.coo_matrix((np.ones(len(rows)), (rows, cols)),
+                        shape=P.shape).tocsr()
+    P.sort_indices()
+    cnt.sort_indices()
+    P.data = P.data / cnt.data
+    P.eliminate_zeros()
+    return CSR_LinearOperator.from_scipy(P, device=dmFine.device)
+
+
+# ----------------------------------------------------------------- K10 ----
+
+_K10_MODES = ('zero', 'residual', 'update')
+
+
+def jacobi_smooth(mode, x, b, Ax=None, Dinv=None, omega=None):
+    """One damped-Jacobi vector pass of the V-cycle, into x [n] in place:
+
+        'zero'      x = omega * (Dinv * b)              (first pre-sweep)
+        'residual'  x = b - Ax
+        'update'    x = x + omega * (Dinv * (b - Ax))
+
+    float64 vectors [n] on one device; ``omega`` a float64 tensor [1]
+    there.  Kernel K10 (Triton, kernels/jacobi_smooth.py) on CUDA tensors,
+    the plain version on CPU tensors.  Replaces the Jacobi arithmetic of
+    pynucleus_tpu/multilevel/gmg.py:_vcycle (lines 216-218, 220,
+    235-236)."""
+    if mode not in _K10_MODES:
+        raise ValueError(f'jacobi_smooth: mode must be one of {_K10_MODES}')
+    n = x.shape[0]
+    need = {'zero': (b, Dinv), 'residual': (b, Ax),
+            'update': (b, Ax, Dinv)}[mode]
+    for t in (x,) + need:
+        if t is None or t.dtype != torch.float64 or t.shape != (n,) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f'jacobi_smooth ({mode}): contiguous float64 '
+                             f'vectors [{n}] on {x.device} expected')
+    if mode != 'residual' and (omega is None or omega.shape != (1,)
+                               or omega.dtype != torch.float64
+                               or omega.device != x.device):
+        raise ValueError('jacobi_smooth: omega must be a float64 tensor [1] '
+                         f'on {x.device}')
+    if x.device.type == 'cpu':
+        return _jacobi_smooth_plain(mode, x, b, Ax, Dinv, omega)
+    if x.device.type != 'cuda':
+        raise ValueError(f'jacobi_smooth: unsupported device {x.device}')
+    if n == 0:
+        return x
+    from ..kernels import jacobi_smooth as k10
+    kernels.launches['jacobi_smooth'] += 1
+    kernels.deviceLaunches['jacobi_smooth'] += 1
+    k10.launch(k10.MODES[mode], x, b, b if Ax is None else Ax,
+               b if Dinv is None else Dinv, b if omega is None else omega)
+    return x
+
+
+def _jacobi_smooth_plain(mode, x, b, Ax=None, Dinv=None, omega=None):
+    """Plain PyTorch version of :func:`jacobi_smooth` (any device)."""
+    if mode == 'zero':
+        x.copy_(omega * (Dinv * b))
+    elif mode == 'residual':
+        torch.sub(b, Ax, out=x)
+    else:
+        x.add_(omega * (Dinv * (b - Ax)))
+    return x
+
+
+# ------------------------------------------------------------- the cycle --
+
+# the smoother of the JAX package's default ('jacobi', {'omega': 2/3}):
+# one damped-Jacobi sweep before and one after the coarse correction
+OMEGA = 2.0 / 3.0
+
+
+class _mgLevels:
+    """Per-level A, P (to this level), damped-Jacobi inverse diagonal and
+    work vectors, plus the coarse LU factors.  ``Ps[l]`` maps level l-1 to
+    l (``Ps[0]`` is None); ``omegaT`` is OMEGA as a float64 tensor [1] on
+    the device (K10's argument)."""
+
+    def __init__(self, As, Ps, Dinvs, coarse_lu, coarse_piv):
+        self.As, self.Ps, self.Dinvs = As, Ps, Dinvs
+        dev = As[-1].device
+        self.omegaT = torch.tensor([OMEGA], dtype=torch.float64, device=dev)
+        self.coarse_lu, self.coarse_piv = coarse_lu, coarse_piv
+        self.work = [None]
+        for lvl in range(1, len(As)):
+            n, nc = As[lvl].num_rows, As[lvl - 1].num_rows
+
+            def vec(k):
+                return torch.empty(k, dtype=torch.float64, device=dev)
+            self.work.append({'x': vec(n), 'Ax': vec(n), 'res': vec(n),
+                              'defect': vec(nc)})
+
+
+def _vcycle(levels, lvl, b, gamma=1, x=None):
+    """Recursive V/W cycle on level ``lvl`` for the right-hand side b; the
+    result goes into x (default: the level's own work vector), which is
+    returned.  As in the JAX package, the first pre-sweep starts from
+    x = 0, so a W cycle's second coarse visit repeats its first."""
+    if lvl == 0:
+        return _coarseSolve(levels, b, x)
+    if x is None:
+        x = levels.work[lvl]['x']
+    defect = _smoothRestrict(levels, lvl, b, x)
+    for _ in range(gamma):
+        xc = _vcycle(levels, lvl - 1, defect, gamma)
+    _prolongSmooth(levels, lvl, b, x, xc)
+    return x
+
+
+def _coarseSolve(levels, b, x=None):
+    """Level 0: the LU solve, into x if given."""
+    xc = torch.linalg.lu_solve(levels.coarse_lu, levels.coarse_piv,
+                               b.unsqueeze(1)).squeeze(1)
+    return xc if x is None else x.copy_(xc)
+
+
+def _smoothRestrict(levels, lvl, b, x):
+    """Level ``lvl``'s steps before the coarse visit: the one pre-sweep
+    from x = 0, the residual and its restriction; returns the defect."""
+    A, Dinv, w = levels.As[lvl], levels.Dinvs[lvl], levels.work[lvl]
+    jacobi_smooth('zero', x, b, Dinv=Dinv, omega=levels.omegaT)
+    A.matvec(x, out=w['Ax'])
+    jacobi_smooth('residual', w['res'], b, Ax=w['Ax'])
+    return levels.Ps[lvl].rmatvec(w['res'], out=w['defect'])   # R = P^T
+
+
+def _prolongSmooth(levels, lvl, b, x, xc):
+    """Level ``lvl``'s steps after the coarse visit: x += P xc and the one
+    post-sweep."""
+    A, w = levels.As[lvl], levels.work[lvl]
+    levels.Ps[lvl].matvec(xc, out=x, accumulate=True)
+    A.matvec(x, out=w['Ax'])
+    jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=levels.Dinvs[lvl],
+                  omega=levels.omegaT)
+
+
+def _mg_apply(levels, b, gamma=1, out=None):
+    """One cycle from x = 0 on the finest level; into ``out`` if given,
+    else into a new vector."""
+    return _vcycle(levels, len(levels.As) - 1, b, gamma,
+                   torch.empty_like(b) if out is None else out)
+
+
+class multigrid(iterative_solver):
+    """MG solver over a level list [{'A':..., 'P':..., ('R':...)}, ...]
+    ordered coarse -> fine (pynucleus_tpu/multilevel/gmg.py:302), with the
+    JAX package's default smoother only (OMEGA, one sweep each side)."""
+
+    def __init__(self, hierarchy=None, smoother='jacobi'):
+        self.hierarchyList = hierarchy
+        A = hierarchy[-1]['A'] if hierarchy else None
+        super().__init__(A)
+        self.smootherType = smoother
+        self.maxIter = 50
+        self.cycle = 'V'
+
+    def setup(self, A=None):
+        levels = self.hierarchyList
+        if self.smootherType != 'jacobi':
+            raise NotImplementedError(f'smoother {self.smootherType!r}: the '
+                                      'port has the damped-Jacobi smoother '
+                                      'only')
+        As, Ps, Dinvs = [], [], []
+        for lvlNo, lvl in enumerate(levels):
+            A_ = lvl['A']
+            As.append(A_)
+            Ps.append(lvl.get('P', None) if lvlNo > 0 else None)
+            Dinvs.append((1.0 / A_.diagonal).contiguous())
+        A0 = torch.as_tensor(levels[0]['A'].toarray(), dtype=torch.float64,
+                             device=As[-1].device)
+        lu, piv = torch.linalg.lu_factor(A0)
+        self.levels = _mgLevels(As, Ps, Dinvs, lu, piv)
+        self.initialized = True
+
+    def _gamma(self):
+        if self.cycle not in ('V', 'W'):
+            raise NotImplementedError(f'cycle {self.cycle!r}: FMG is not '
+                                      'ported')
+        return 2 if self.cycle == 'W' else 1
+
+    def solve(self, b):
+        """Host-driven iteration over cycles, recording the residual
+        history (the JAX package's loop: the residuals list starts with
+        the residual before the first cycle)."""
+        gamma = self._gamma()
+        A = self.A
+        x = torch.zeros_like(b)
+        Ax = A.matvec(x)
+        r = torch.empty_like(b)
+        jacobi_smooth('residual', r, b, Ax=Ax)
+        iters = 0
+        rn = float(torch.linalg.norm(r))
+        residuals = [rn]
+        while rn > self.tolerance and iters < self.maxIter:
+            iters += 1
+            x.add_(_mg_apply(self.levels, r, gamma=gamma))
+            A.matvec(x, out=Ax)
+            jacobi_smooth('residual', r, b, Ax=Ax)
+            rn = float(torch.linalg.norm(r))
+            residuals.append(rn)
+        self.iterations = iters
+        self.residuals = residuals
+        return x
+
+    def asPreconditioner(self, cycle='V'):
+        return mgPreconditioner(self.levels, cycle)
+
+
+class mgPreconditioner(LinearOperator):
+    """One MG cycle as an operator (pynucleus_tpu/multilevel/gmg.py:422)."""
+
+    def __init__(self, levels, cycle='V'):
+        if cycle not in ('V', 'W'):
+            raise NotImplementedError(f'cycle {cycle!r}')
+        self.levels = levels
+        self.cycle = cycle
+        self.num_rows = self.num_columns = levels.As[-1].num_rows
+
+    @property
+    def device(self):
+        return self.levels.As[-1].device
+
+    def matvec(self, b, out=None):
+        return _mg_apply(self.levels, b, gamma=2 if self.cycle == 'W' else 1,
+                         out=out)
+
+
+solverFactory.register('mg', multigrid, isMultilevelSolver=True)

@@ -135,6 +135,7 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
         return
     lib = kernels.library()
     kernels.launches['panel_scatter'] += 1
+    kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:dense'] += 1
     kernels.check(lib.panel_scatter(
         kernels.ptr(A), A.shape[0], kernels.ptr(vertices), dim,
@@ -224,6 +225,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
         return
     lib = kernels.library()
     kernels.launches['panel_scatter'] += 1
+    kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:slots'] += 1
     p = kernels.ptr
     kernels.check(lib.panel_scatter_slots(
@@ -315,6 +317,7 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         return
     lib = kernels.library()
     kernels.launches['panel_scatter'] += 1
+    kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:tree'] += 1
     p = kernels.ptr
     dofNode, treePos, indptrT, tStart = tables
@@ -376,6 +379,8 @@ def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
         kernels.ptr(PhiX), kernels.ptr(PsiYw), kernels.ptr(w),
         float(t_lo), float(t_hi), float(C), float(e), kernels.ptr(R),
         kernels.stream()))
+    # the C entry point launches the window pass and the diagonal pass
+    kernels.deviceLaunches['grid_distant'] += 2 if nC > 0 else 0
 
 
 def _d2f32(ccf, rc):
@@ -447,6 +452,7 @@ def grid_boundary(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr, exclIdx,
                                     useNormals)
     lib = kernels.library()
     kernels.launches['grid_boundary'] += 1
+    kernels.deviceLaunches['grid_boundary'] += 1
     kernels.check(lib.grid_boundary(
         kernels.ptr(A), A.shape[0], kernels.ptr(X), Q1, dim,
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(Ysurf),
@@ -544,6 +550,7 @@ def near_enum(cum, offI, offJ, n2, IA, JA, ncArr, cells, cellNodes,
         return keys, pT, hist
     lib = kernels.library()
     kernels.launches['near_enum'] += 1
+    kernels.deviceLaunches['near_enum'] += 1
     p = kernels.ptr
     s, c, lH0 = (float(np.float32(v)) for v in consts)
     kernels.check(lib.near_enum(
@@ -643,6 +650,7 @@ def near_enum_quad(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
         return
     lib = kernels.library()
     kernels.launches['near_enum_quad'] += 1
+    kernels.deviceLaunches['near_enum_quad'] += 1
     p = kernels.ptr
     dofNode, treePos, indptrT, tStart = tables
     kernels.check(lib.near_enum_quad(
@@ -703,6 +711,7 @@ def far_field(gi, gj, C, e):
         return K
     lib = kernels.library()
     kernels.launches['far_field'] += 1
+    kernels.deviceLaunches['far_field'] += 1
     kernels.check(lib.far_field(
         kernels.ptr(K), kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
         float(C), float(e), kernels.stream()))

@@ -26,6 +26,7 @@ both the far and the near field.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -505,7 +506,7 @@ def h2_matvec(op, x, out=None):
 
     (t = tree row i of leaf l; the near block of leaf l is read in place in
     the tree CSR.)  Kernel K8 (kernels/csrc/h2_matvec.cu, one launch per pass
-    and level) on CUDA tensors, the plain version on CPU tensors.  Replaces
+    and level that has work) on CUDA tensors, the plain version on CPU tensors.  Replaces
     pynucleus_tpu/nl/h2.py:_h2_matvec with TreeNearOperator._x2,
     _matvec_tree and _scatter_tree."""
     N = op.num_rows
@@ -535,13 +536,17 @@ def h2_matvec(op, x, out=None):
     lib = kernels.library()
     kernels.launches['h2_matvec'] += 1
     P = kernels.ptr
-    kernels.check(lib.h2_matvec(
+    launched = ctypes.c_int(0)
+    err = lib.h2_matvec(
         P(out), P(x), P(xt), P(coef), P(far), A.Nt, op.L, op.nbar, M,
         P(A.perm), P(A.rowNode), P(A.indptrT), P(A.tStartRow), P(A.tLen),
         P(A.rowLen), P(A.tmplStart), P(A.tmplAll), P(A.dataZ),
         P(op.leafPhi), P(op.leafNode), P(op.T), P(op.parent),
         kernels.i64array(op.levelOff), op.nLvl, P(op.Kall), P(op.src),
-        P(op.dst), op.Kall.shape[0], kernels.stream()))
+        P(op.dst), op.Kall.shape[0], ctypes.byref(launched),
+        kernels.stream())
+    kernels.deviceLaunches['h2_matvec'] += launched.value
+    kernels.check(err)
     return out
 
 

@@ -46,7 +46,7 @@ def _coarseMesh(domain):
         mesh = circle(h=0.78, radius=1.0)
     else:
         raise NotImplementedError(domain)
-    while P1_DoFMap(mesh, PHYSICAL).num_dofs == 0:
+    while P1_DoFMap(mesh, PHYSICAL, device='cpu').num_dofs == 0:
         mesh = mesh.refine()
     return mesh
 

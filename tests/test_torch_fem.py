@@ -60,7 +60,11 @@ def test_port_imports_no_jax():
     code = ('import pynucleus_tpu_torch, pynucleus_tpu_torch.nl.assembly, '
             'pynucleus_tpu_torch.nl.h2, pynucleus_tpu_torch.interop, '
             'pynucleus_tpu_torch.drivers.runFractional, '
-            'pynucleus_tpu_torch.kernels.pcg_update, sys; '
+            'pynucleus_tpu_torch.kernels.pcg_update, '
+            'pynucleus_tpu_torch.kernels.jacobi_smooth, '
+            'pynucleus_tpu_torch.multilevel.gmg, '
+            'pynucleus_tpu_torch.nl.discretized, '
+            'pynucleus_tpu_torch.base.linear_operators, sys; '
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)
@@ -123,7 +127,7 @@ def test_mesh_dofmap_surface(domain, noRef):
     _close(mt.vertices, mj.vertices)
     assert (mt.h, mt.hmin, mt.diam) == (mj.h, mj.hmin, mj.diam)
     _close(mt.simplexVolumes(), mj.simplexVolumes())
-    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt)
+    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt, device='cpu')
     assert np.array_equal(dt.dofs, dj.dofs)
     assert (dt.num_dofs, dt.num_boundary_dofs) == \
         (dj.num_dofs, dj.num_boundary_dofs)
@@ -137,14 +141,15 @@ def test_mesh_dofmap_surface(domain, noRef):
     _close(st.normals, sj.normals)
     _close(st.simplexVolumes(), sj.simplexVolumes())
     # interop builds the same objects from the JAX package's arrays
-    mesh, dm, k = fromArrays(mj.vertices, mj.cells, 0.75, mj.dim)
+    mesh, dm, k = fromArrays(mj.vertices, mj.cells, 0.75, mj.dim,
+                             device='cpu')
     assert np.array_equal(dm.dofs, dj.dofs)
 
 
 @pytest.mark.parametrize('domain', ['disc', 'interval'])
 def test_functions_rhs_mass(domain):
     mj, mt = _meshes(domain, 2)
-    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt)
+    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt, device='cpu')
     dim = mt.dim
     X = np.random.RandomState(1).uniform(-1.1, 1.1, size=(50, dim))
     fj = [jfem.constant(2.5), jfem.solFractional(0.75, dim),
@@ -177,7 +182,7 @@ def test_kernel_parameters(dim, s):
 @pytest.mark.parametrize('domain,noRef', [('disc', 3), ('interval', 5)])
 def test_pair_classification(domain, noRef):
     mj, mt = _meshes(domain, noRef)
-    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt)
+    dj, dt = jfem.P1_DoFMap(mj), tfem.P1_DoFMap(mt, device='cpu')
     kj, kt = jKernel(mt.dim, 0.75), tKernel(mt.dim, 0.75)
     ij, it = jGrid(dj, kj), tGrid(dt, kt)
     assert it['gridPasses'] == ij['gridPasses']

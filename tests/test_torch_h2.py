@@ -45,7 +45,7 @@ def plans(request):
     m = _mesh(*request.param)
     dm = jfem.P1_DoFMap(m)
     pj = jasm.nonlocalBuilder(dm, jKernel(2, 0.75)).planH2()
-    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2, device='cpu')
     pt = tasm.nonlocalBuilder(tdm, tk).planH2()
     return pj, pt, tk
 
@@ -153,7 +153,7 @@ def test_h2matrix_requires_fused_layout(jaxH2):
 @pytest.fixture(scope='module')
 def portOps():
     m = _mesh('circle8', 3)
-    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2, device='cpu')
     H = tasm.nonlocalBuilder(tdm, tk).getH2()
     D = tasm.nonlocalBuilder(tdm, tk).getDense()
     return tdm, H, D
@@ -181,7 +181,7 @@ def test_cg_jacobi_h2_and_dense_iterations():
     mesh = prob['mesh']
     for _ in range(3):
         mesh = mesh.refine()
-    dm = P1_DoFMap(mesh, prob['tag'])
+    dm = P1_DoFMap(mesh, prob['tag'], device='cpu')
     b = assembleRHS(dm, prob['rhs'], qOrder=3).data
     its, sols = [], []
     for fmt in ('dense', 'H2'):
@@ -223,4 +223,4 @@ def test_h2_driver_matches_jax_driver(noRef):
 def test_h2_interval_raises():
     with pytest.raises(NotImplementedError):
         tMain(['--domain', 'interval', '--matrixFormat', 'H2', '--noRef',
-               '3'], quiet=True)
+               '3', '--device', 'cpu'], quiet=True)

@@ -84,7 +84,8 @@ def recorded():
     dm, H = _buildJax(m, record)
     for name in RECORDED:
         assert record.get(name), name
-    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2,
+                           device='cpu')
     return m, dm, H, record, tk
 
 
@@ -201,7 +202,8 @@ def test_touching_slots_vs_host_adds(recorded):
     host adds of DeviceCSRAccumulator in the JAX package (with the shared
     j-side dofs DROPped and the cluster-pair incidence masks)."""
     m, dm, H, record, tk = recorded
-    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2,
+                         device='cpu')
     calls = []
     orig = tasm.panel_scatter_slots
 
@@ -226,7 +228,8 @@ def built(request, recorded):
     else:
         m = _mesh('disc')
         dm, H = _buildJax(m)
-    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2,
+                           device='cpu')
     return m, dm, H, tasm.nonlocalBuilder(tdm, tk).getH2()
 
 
@@ -270,7 +273,8 @@ def test_enumeration_segments_do_not_change_the_near_data(recorded):
     of 2^10 elements the same near data must come out (the segments cut
     the cluster-pair list; the sums only change order)."""
     m, dm, H, _, tk = recorded
-    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2,
+                         device='cpu')
     ref = tasm.nonlocalBuilder(tdm, tk).getH2().Anear.dataT
     calls = []
     orig = tasm.near_enum
@@ -288,7 +292,8 @@ def test_tree_slots_match_pattern_search(recorded):
     search of the tree-ordered pattern itself, on random entries (in and
     outside the pattern, and negative dofs)."""
     m, dm, H, _, tk = recorded
-    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2)
+    _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2,
+                         device='cpu')
     accs = []
     cls = tasm.DeviceTreeCSRAccumulator
 

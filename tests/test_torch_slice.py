@@ -36,7 +36,7 @@ def test_getDense_matches_jax_grid(domain, noRef, s):
     dm = jfem.P1_DoFMap(m)
     Aj = np.asarray(jBuilder(dm, jKernel(dim, s),
                              params={'denseGrid': True}).getDense().toarray())
-    _, tdm, tk = fromArrays(m.vertices, m.cells, s, dim)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, s, dim, device='cpu')
     A = tBuilder(tdm, tk).getDense()
     assert A.data.dtype == torch.float64 and A.data.device.type == 'cpu'
     At = A.toarray()
@@ -48,7 +48,7 @@ def test_getDense_matches_jax_grid(domain, noRef, s):
 
 def test_assembleNonlocal_rejects_other_formats():
     m = jfem.simpleInterval(-1.0, 1.0).refine()
-    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 1)
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
     with pytest.raises(NotImplementedError):
         assembleNonlocal(tdm, tk, matrixFormat='sparse')
 
@@ -78,7 +78,7 @@ def test_driver_matches_jax_driver(argv):
 
 
 def test_driver_prints_jax_labels(capsys):
-    tMain(['--domain', 'interval', '--noRef', '3'])
+    tMain(['--domain', 'interval', '--noRef', '3', '--device', 'cpu'])
     text = capsys.readouterr().out
     for label in ('results:', 'errors:', 'dofs:', 'iterations:',
                   'L2 error:', 'relative interpolated Linf error:',
