@@ -17,8 +17,11 @@ result line):
      zero just before this run of the dense main path
   5. the H2 slice at noRef 5 against the JAX package's H2 outputs, pinned
      below; the H2 operator at noRef 6 against phase 4's dense operator
-     (1e-5 relative, the Chebyshev far field)
-  6. the H2 slice at noRef 7 (73153 dofs): assembly seconds with the build
+     (1e-5 relative, the Chebyshev far field), and the default (block)
+     near-field engine against the flat one at noRef 6: H2 apply 1e-10
+     relative, near data 1e-10 of max|data|
+  6. the H2 slice at noRef 7 (73153 dofs) on the flat near-field engine
+     (params={'nearEngine': 'flat'}): assembly seconds with the build
      parts, solve seconds and iterations, peak device memory, and the launch
      count of every kernel, reset to zero just before this run of the H2
      main path; CG must converge and the L2 error must be below phase 4's.
@@ -36,13 +39,22 @@ result line):
      count of every kernel, reset to zero just before this run of the
      multigrid main path; it must converge within 100 iterations, with
      an L2 error within rtol 3e-2 of phase 6's (the finest operator is
-     the same).  Then K4's two
-     forms (ten iterations each, the general one with this V-cycle), K9
-     (P and P^T of noRef 6 -> 7) and K10 (its three modes) against their
-     plain versions at these shapes.
+     the same up to the engines' 1e-12).  Its H2 levels build their near
+     field with the default block engine (K11, K12; K5 and K6 on the pairs
+     that also hold orders > 8).  Then K4's two forms (ten iterations
+     each, the general one with this V-cycle), K9 (P and P^T of noRef
+     6 -> 7), K10 (its three modes), and K11 and K12 (their calls of the
+     finest level, recorded during the run) against their plain versions
+     at these shapes.
+  9. the host near-field engine: the H2 slice at noRef 5 with
+     params={'nearEngine': 'host'} (launch counts reset to zero just
+     before it) against the JAX package's pinned H2 outputs; then the
+     three engines' operators at noRef 5 agree (H2 apply 1e-10 relative,
+     near data 1e-10 of max|data|).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
-at the noRef 4 shapes, and K8 on the noRef 0, 1 and 2 operators, against
-their plain versions.
+at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
+(a default build) and K13 (a host-engine build) at the noRef 4 shapes
+against their plain versions.
 The last lines are the kernel table (JSON: per kernel its launches on the
 main paths and the CUDA launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -151,6 +163,14 @@ KERNEL_INFO = {
                  'pynucleus_tpu/base/linear_operators.py:310'),
     'jacobi_smooth': ('triton', 'pynucleus_tpu_torch/kernels/jacobi_smooth.py',
                       'pynucleus_tpu/multilevel/gmg.py:216'),
+    'block_near_count': ('cuda',
+                         'pynucleus_tpu_torch/kernels/csrc/near_block.cu',
+                         'pynucleus_tpu/nl/assembly.py:1402'),
+    'block_near_quad': ('cuda',
+                        'pynucleus_tpu_torch/kernels/csrc/near_block.cu',
+                        'pynucleus_tpu/nl/assembly.py:1427'),
+    'tree_csr_quad': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/near_enum.cu',
+                      'pynucleus_tpu/nl/assembly.py:1118'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -160,7 +180,14 @@ H2_PATH = ('panel_scatter', 'pcg_update', 'near_enum', 'near_enum_quad',
            'panel_scatter:tree', 'pcg_update:jacobi')
 MG_PATH = ('panel_scatter', 'pcg_update', 'near_enum', 'near_enum_quad',
            'far_field', 'h2_matvec', 'csr_spmv', 'jacobi_smooth',
-           'panel_scatter:slots', 'panel_scatter:tree', 'pcg_update:general')
+           'block_near_count', 'block_near_quad', 'panel_scatter:slots',
+           'panel_scatter:tree', 'pcg_update:general')
+HOST_PATH = ('panel_scatter', 'pcg_update', 'tree_csr_quad', 'far_field',
+             'h2_matvec', 'panel_scatter:slots', 'panel_scatter:tree',
+             'pcg_update:jacobi')
+FLAT = {'nearEngine': 'flat'}
+HOST = {'nearEngine': 'host'}
+TOL_ENGINES = 1e-10
 # where the kernel table's comparison with the plain version was made
 COMPARED_AT = {
     'panel_scatter': 'disc noRef 4 (dense target), '
@@ -177,6 +204,11 @@ COMPARED_AT = {
     'csr_spmv': f'disc noRef {H2_NOREF}: P x and P^T r of noRef '
                 f'{H2_NOREF - 1} -> {H2_NOREF}, per pair of products',
     'jacobi_smooth': f'disc noRef {H2_NOREF}: its three modes, per set',
+    'block_near_count': f'disc noRef {H2_NOREF}, the finest level of the '
+                        'flagship (its one call)',
+    'block_near_quad': f'disc noRef {H2_NOREF}, the finest level of the '
+                       'flagship (its one call)',
+    'tree_csr_quad': 'disc noRef 4, a host-engine build, all calls',
 }
 
 
@@ -206,6 +238,8 @@ def nbytes(*ts):
             n += t.numel() * t.element_size()
         elif isinstance(t, (tuple, list)):
             n += nbytes(*t)
+        elif isinstance(t, dict):
+            n += nbytes(*t.values())
     return n
 
 
@@ -343,15 +377,18 @@ class ArgRecorder:
         setattr(self.module, self.name, self.orig)
 
 
-# the H2 build's kernel wrappers (nl.assembly); the first three add into
-# the near data [nnz+1]
+# the H2 build's kernel wrappers (nl.assembly): K1's CSR targets, K6, K5
+# and K7 (the flat engine's build), K11-K13 (the block and host engines);
+# those of CSR_DATA add into the near data [nnz+1]
 H2_CSR = ('panel_scatter_slots', 'panel_scatter_tree', 'near_enum_quad')
 H2_BUILD = H2_CSR + ('near_enum', 'far_field')
+ENGINE_KERNELS = ('block_near_count', 'block_near_quad', 'tree_csr_quad')
+CSR_DATA = H2_CSR + ENGINE_KERNELS[1:]
 
 
-def record_h2_build(build, largestOnly):
-    """Runs ``build()``, an H2 build, with the calls of K1's CSR targets,
-    K5, K6 and K7 recorded; with ``largestOnly`` K5 keeps only its largest
+def record_h2_build(build, names=H2_BUILD, largestOnly=False):
+    """Runs ``build()``, an H2 build, with the calls of the wrappers
+    ``names`` recorded; with ``largestOnly`` K5 keeps only its largest
     segment and K6 only its largest order.  Returns (what build returned,
     the recorders)."""
     import contextlib
@@ -362,8 +399,8 @@ def record_h2_build(build, largestOnly):
         if largestOnly else {}
     with contextlib.ExitStack() as stack:
         recs = {n: stack.enter_context(ArgRecorder(
-            asm, n, dataFirst=n in H2_CSR, size=sizes.get(n)))
-            for n in H2_BUILD}
+            asm, n, dataFirst=n in CSR_DATA, size=sizes.get(n)))
+            for n in names}
         H = build()
     torch.cuda.synchronize()
     return H, recs
@@ -465,6 +502,119 @@ def compare_h2_build(recs):
         f'{worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
     out['far_field'] = result(worst, ms, plain_ms, work)
     return out
+
+
+# per element of the near field's order model: the cell-pair validity (9
+# vertex and 2 dpe node comparisons) and the float32 order (about 45
+# operations: distance, log, two ceil'd ratios, the snap)
+ENUM_OPS = 60
+
+
+def block_count_work(args):
+    """K11 on recorded args (offI, offJ, n1, n2, I, J, ncArr, cells,
+    cellNodes, centers, logh, consts): the tables read once, the counts
+    written once; the validity and order model per element."""
+    n1, n2 = args[2], args[3]
+    T = int((n1.long() * n2.long()).sum())
+    return (nbytes(args) + 20 * args[0].shape[0], ENUM_OPS * T, F32_PEAK)
+
+
+def block_quad_work(args):
+    """K12 on recorded args (nnz+1, pairs, ncArr, cells, cellNodes,
+    centers, logh, consts, vertices, vols, dofs, treePos, rules, C, e): the
+    order model per element; per element of a requested order K1's
+    quadrature body (counted by K11's plain version on the same pairs);
+    the tables read once, each pair's block(s) read and written once."""
+    import pynucleus_tpu_torch.nl.assembly as asm
+    pairs, tabs, rules = args[1], args[2:8], args[12]
+    cells, vertices, dofs = args[3], args[8], args[10]
+    counts = asm._block_near_count_plain(*pairs[:6], *tabs).sum(0)
+    nv, dim, nn = cells.shape[1], vertices.shape[1], (2 * dofs.shape[1]) ** 2
+    T = int((pairs[2].long() * pairs[3].long()).sum())
+    ops = ENUM_OPS * T
+    for o, (bx, by, w, PSIP) in rules.items():
+        ops += int(counts[o // 2 - 1]) * w.shape[0] * (
+            4 * dim * nv + 3 * dim + 3 + 2 * nn)
+    nI, nJ, I, J = pairs[12].long(), pairs[13].long(), pairs[4], pairs[5]
+    blockEntries = int((nI * nJ * (1 + (I != J).long())).sum())
+    return (nbytes(args[1:]) + 16 * blockEntries, ops, F64_PEAK)
+
+
+def tree_quad_work(args):
+    """K13 on recorded args (nnz+1, c1, c2, I, J, offF, offB, sf,
+    vertices, cells, vols, dofs, tables, bary_x, bary_y, w, PSIP, C, e):
+    K1's quadrature body per element, the touched entries read and written
+    once."""
+    c1, vertices, cells, w, PSIP = args[1], args[8], args[9], args[-4], \
+        args[-3]
+    n, Q, nn, dim, nv = c1.shape[0], w.shape[0], PSIP.shape[1], \
+        vertices.shape[1], cells.shape[1]
+    ops = n * Q * (4 * dim * nv + 3 * dim + 3 + 2 * nn)
+    return (nbytes(args[1:]) + 16 * n * nn, ops, F64_PEAK)
+
+
+def compare_block_count(calls):
+    """K11 on its recorded calls against the plain version (counts equal),
+    after an untimed call of each; returns (result(), the counts summed
+    over the calls by class)."""
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    ms = plain_ms = 0.0
+    total = 0
+    for args, kw in calls:
+        asm.block_near_count(*args), asm._block_near_count_plain(*args)
+        got, ref = [], []
+        ms += timed(lambda: got.append(asm.block_near_count(*args)))
+        plain_ms += timed(lambda: ref.append(
+            asm._block_near_count_plain(*args)))
+        if not torch.equal(got[0], ref[0]):
+            raise AssertionError('block_near_count: counts differ from the '
+                                 'plain version')
+        total = total + ref[0].sum(0).cpu()
+    log(f'  block_near_count: {len(calls)} calls, '
+        f'{sum(c[0][0].shape[0] for c in calls)} pairs, counts equal (by '
+        f'class 2/4/6/8/>8: {total.tolist()}), kernel {ms:.3f} ms, plain '
+        f'{plain_ms:.3f} ms')
+    return result(0.0, ms, plain_ms,
+                  [block_count_work(c[0]) for c in calls]), total.tolist()
+
+
+def compare_engines(recs, names):
+    """Kernels ``names`` among K11-K13 on their recorded calls against
+    their plain versions; returns {name: result()}."""
+    import pynucleus_tpu_torch.nl.assembly as asm
+    out = {}
+    for n in names:
+        if not recs[n].calls:
+            raise AssertionError(f'{n}: the build made no call of it')
+    if 'block_near_count' in names:
+        out['block_near_count'] = compare_block_count(
+            recs['block_near_count'].calls)[0]
+    for n, work in (('block_near_quad', block_quad_work),
+                    ('tree_csr_quad', tree_quad_work)):
+        if n in names:
+            out[n] = compare_csr_kernel(n, recs[n].calls, getattr(asm, n),
+                                        getattr(asm, '_' + n + '_plain'),
+                                        work)
+    return out
+
+
+def compare_operators(label, Ha, Hb, seed):
+    """Two H2 operators of one mesh from two near-field engines: the
+    apply to TOL_ENGINES relative, the near data to TOL_ENGINES of
+    max|data|."""
+    import torch
+    x = torch.randn(Ha.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(seed))
+    ya = Ha.matvec(x)
+    rel = float(torch.linalg.norm(Hb.matvec(x) - ya) / torch.linalg.norm(ya))
+    da, db = Ha.Anear.dataT, Hb.Anear.dataT
+    dErr = float((da - db).abs().max() / da.abs().max())
+    if not (rel <= TOL_ENGINES and dErr <= TOL_ENGINES):
+        raise AssertionError(f'{label}: apply {rel}, near data {dErr} '
+                             f'(> {TOL_ENGINES})')
+    log(f'  {label}: apply relative error {rel:.3e}, near data {dErr:.3e} '
+        f'of max|data| (<= {TOL_ENGINES})')
 
 
 def h2_matvec_work(H):
@@ -776,11 +926,21 @@ def phase2():
                           f'{hier[k]["A"].nLvl} tree levels)')
 
     # the H2 kernels at these shapes too (the kernel table holds them at
-    # the shapes of phase 6's main path)
+    # the shapes of phase 6's main path, K11 and K12 at phase 8's), the
+    # flat engine's from a flat build, K11 and K12 from a default (block)
+    # build, K13 from a host-engine build
     H, recs = record_h2_build(
-        lambda: asm.nonlocalBuilder(dm, prob['kernel']).getH2(), False)
+        lambda: asm.nonlocalBuilder(dm, prob['kernel'], FLAT).getH2())
     compare_h2_build(recs)
     compare_h2_matvec(H)
+    _, recs = record_h2_build(
+        lambda: asm.nonlocalBuilder(dm, prob['kernel']).getH2(),
+        ENGINE_KERNELS[:2])
+    compare_engines(recs, ENGINE_KERNELS[:2])
+    _, recs = record_h2_build(
+        lambda: asm.nonlocalBuilder(dm, prob['kernel'], HOST).getH2(),
+        ENGINE_KERNELS[2:])
+    out.update(compare_engines(recs, ENGINE_KERNELS[2:]))
     return out
 
 
@@ -812,17 +972,18 @@ def phase3():
     return check_against_jax(main(slice_argv(5), quiet=True), JAX_NOREF5)
 
 
-def run_main_path(argv, path):
-    """One run of a main path through the driver, with every launch count
-    set to 0 just before and read just after; each kernel of the path must
-    have launched, CG must have converged."""
+def run_main_path(argv, path, params=None):
+    """One run of a main path through the driver (builder ``params`` to
+    every level), with every launch count set to 0 just before and read
+    just after; each kernel of the path must have launched, CG must have
+    converged."""
     import torch
     from pynucleus_tpu_torch import kernels
     from pynucleus_tpu_torch.drivers.runFractional import main
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kernels.resetLaunches()
-    out = main(argv, quiet=True)
+    out = main(argv, quiet=True, params=params)
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
     counts['device'] = dict(kernels.deviceLaunches)
@@ -883,6 +1044,8 @@ def phase5(A6, dm6):
         raise AssertionError(f'H2 vs dense at noRef 6: relative error {rel}')
     log(f'  H2 vs dense matvec at noRef 6: relative error {rel:.3e} '
         f'(<= {TOL_H2_DENSE})')
+    compare_operators('block vs flat engine at noRef 6', H, assembleNonlocal(
+        dm6, kernel, matrixFormat='H2', device='cuda', params=FLAT), 6)
 
 
 def phase6(errs6):
@@ -894,9 +1057,9 @@ def phase6(errs6):
     import torch
     from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
     from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
-    log(f'phase 6: H2 slice at noRef {H2_NOREF}')
+    log(f'phase 6: H2 slice at noRef {H2_NOREF} (flat near-field engine)')
     out, counts = run_main_path(slice_argv(H2_NOREF, 'H2', H2_MAXITER),
-                                H2_PATH)
+                                H2_PATH, FLAT)
     errs = out['errors'].toDict()
     if not errs['L2 error'] < errs6['L2 error']:
         raise AssertionError(f"L2 error {errs['L2 error']} not below dense "
@@ -911,7 +1074,8 @@ def phase6(errs6):
     prob = fractionalLaplacianProblem('disc', 'const(0.75)')
     recs = record_h2_build(lambda: assembleNonlocal(
         dm, prob['kernel'], matrixFormat='H2',
-        zeroExterior=prob['zeroExterior'], device='cuda'), True)[1]
+        zeroExterior=prob['zeroExterior'], device='cuda', params=FLAT),
+        largestOnly=True)[1]
     cmp.update(compare_h2_build(recs))
     return counts, cmp, errs
 
@@ -926,15 +1090,24 @@ def phase7():
 
 def phase8(errs6):
     """The flagship: the multigrid main path at noRef H2_NOREF and a warm
-    solve, then K4's two forms, K9 and K10 against their plain versions
+    solve, then K4's two forms, K9, K10, and K11 and K12 (their finest
+    level's calls, recorded during the run) against their plain versions
     at its finest shapes.  Returns the launch counts and the
     comparisons."""
     import torch
     from pynucleus_tpu_torch.fem.assembly import assembleRHS
     from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
+    import pynucleus_tpu_torch.nl.assembly as asm
     log(f'phase 8: the flagship, H2 CG-MG at noRef {H2_NOREF}')
-    out, counts = run_main_path(slice_argv(H2_NOREF, 'H2', MG_MAXITER,
-                                           'cg-mg'), MG_PATH)
+    # K11's and K12's calls of the finest level (the largest) are recorded
+    # during the run; a recorded call is cloned, not launched again
+    with ArgRecorder(asm, 'block_near_count',
+                     size=lambda offI, *a: offI.shape[0]) as k11, \
+            ArgRecorder(asm, 'block_near_quad', dataFirst=True,
+                        size=lambda data, pairs, *a: pairs[0].shape[0]) \
+            as k12:
+        out, counts = run_main_path(slice_argv(H2_NOREF, 'H2', MG_MAXITER,
+                                               'cg-mg'), MG_PATH)
     errs = out['errors'].toDict()
     tim = out['timers'].toDict()
     ref = errs6['L2 error']
@@ -973,7 +1146,36 @@ def phase8(errs6):
     cmp = {'pcg_update': compare_pcg_forms(A, rhs, M, f'noRef {H2_NOREF}'),
            'csr_spmv': compare_csr_spmv(P),
            'jacobi_smooth': compare_jacobi_smooth(P.num_rows)}
+    del out, hierarchy, M, solver, A
+    torch.cuda.empty_cache()
+    cmp['block_near_count'], byClass = compare_block_count(k11.calls)
+    log(f'  near-field elements of the finest level: block engine '
+        f'{sum(byClass[:4])} (orders 2/4/6/8: {byClass[:4]}), flat engine '
+        f'{byClass[4]} (orders > 8)')
+    cmp['block_near_quad'] = compare_csr_kernel(
+        'block_near_quad', k12.calls, asm.block_near_quad,
+        asm._block_near_quad_plain, block_quad_work)
     return counts, cmp
+
+
+def phase9():
+    """The host near-field engine through the driver at noRef 5 (a path
+    of its own, launch counts reset), held to the pinned JAX outputs; then
+    the three engines' operators at noRef 5 agree.  Returns the launch
+    counts."""
+    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
+    from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
+    log('phase 9: H2 slice at noRef 5 on the host near-field engine; the '
+        'three engines at noRef 5')
+    out, counts = run_main_path(slice_argv(5, 'H2'), HOST_PATH, HOST)
+    check_against_jax(out, JAX_H2_NOREF5)
+    kernel = fractionalLaplacianProblem('disc', 'const(0.75)')['kernel']
+    for engine in ('block', 'flat'):
+        H = assembleNonlocal(out['dm'], kernel, matrixFormat='H2',
+                             device='cuda', params={'nearEngine': engine})
+        compare_operators(f'{engine} vs host engine at noRef 5', H,
+                          out['A'], 5)
+    return counts
 
 
 def main():
@@ -1013,6 +1215,7 @@ def main():
     counts7, cmp7, errs7 = phase6(errs6)
     phase7()
     counts8, cmp8 = phase8(errs7)
+    counts9 = phase9()
 
     # K1 is one kernel with three targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's
@@ -1023,7 +1226,8 @@ def main():
     cmp.update(cmp8)
     paths = ((DENSE_PATH, 'dense_noRef6', counts6),
              (H2_PATH, f'h2_cg_jacobi_noRef{H2_NOREF}', counts7),
-             (MG_PATH, f'h2_cg_mg_noRef{H2_NOREF}', counts8))
+             (MG_PATH, f'h2_cg_mg_noRef{H2_NOREF}', counts8),
+             (HOST_PATH, 'h2_host_engine_noRef5', counts9))
     table = []
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]

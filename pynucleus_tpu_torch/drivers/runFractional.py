@@ -14,7 +14,10 @@ package.  It prints the same ``results`` and ``errors`` labels as the JAX
 driver, in float64, plus wall times (``timers``): the assembly of each
 level and in total, the finest H2 level's build parts, the hierarchy
 set-up (prolongations, their transposes, the solver's set-up with the
-inverse diagonals and the coarse LU) and the solve.
+inverse diagonals and the coarse LU) and the solve.  ``main(params=...)``
+passes builder parameters to every level's assembly, e.g.
+``{'nearEngine': 'flat'}`` (see nl.assembly.nonlocalBuilder); the JAX
+driver has no flag for them either.
 """
 from __future__ import annotations
 
@@ -55,10 +58,11 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def main(argv=None, quiet=False):
+def main(argv=None, quiet=False, params=None):
     """Run the driver; returns a dict with the output groups ('results',
     'errors', 'timers'), the solution ``u``, the finest operator ``A``,
-    the level ``hierarchy``, the finest dofmap ``dm`` and the solver."""
+    the level ``hierarchy``, the finest dofmap ``dm`` and the solver.
+    ``params`` go to the builder of every level."""
     args = parser().parse_args(argv)
     dev = getDevice(args.device)
     noRef = args.noRef if args.noRef > 0 else \
@@ -77,7 +81,7 @@ def main(argv=None, quiet=False):
     t0 = time.perf_counter()
     hierarchy = buildHierarchy(dms, Ps, prob['kernel'], args.solverType,
                                args.matrixFormat, prob['zeroExterior'],
-                               timers=parts)
+                               timers=parts, params=params)
     _sync(dev)
     levelSeconds = {k: v for k, v in parts.items() if k.startswith('level ')}
     tAssemble = sum(levelSeconds.values())

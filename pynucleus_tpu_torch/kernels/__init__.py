@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Ten kernels carry the port's device work:
+Thirteen kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs, scattered into dense A or into CSR data at
@@ -23,11 +23,17 @@ Ten kernels carry the port's device work:
                     (multigrid prolongation and restriction)
   K10 jacobi_smooth (jacobi_smooth.py,       damped-Jacobi vector pass of
                     Triton)                  the V-cycle, three modes
+  K11 block_near_count (csrc/near_block.cu)  H2 block near-field engine:
+                    element counts per cluster pair and order class
+  K12 block_near_quad (csrc/near_block.cu)   H2 block near-field engine:
+                    quadrature of orders 2-8 into per-pair tree blocks
+  K13 tree_csr_quad (csrc/near_enum.cu)      H2 host-enumeration engine:
+                    quadrature of host-listed elements into tree slots
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
-package has the program they replace: K1-K3 and K5-K7 in nl/assembly.py,
-K4 in base/solvers.py, K8 in nl/h2.py, K9 in base/linear_operators.py,
-K10 in multilevel/gmg.py.  A wrapper runs the plain version only for
+package has the program they replace: K1-K3, K5-K7 and K11-K13 in
+nl/assembly.py, K4 in base/solvers.py, K8 in nl/h2.py, K9 in
+base/linear_operators.py, K10 in multilevel/gmg.py.  A wrapper runs the plain version only for
 tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
@@ -54,7 +60,8 @@ import tempfile
 
 KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
-           'csr_spmv', 'jacobi_smooth')
+           'csr_spmv', 'jacobi_smooth', 'block_near_count', 'block_near_quad',
+           'tree_csr_quad')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
@@ -65,7 +72,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
-           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu')
+           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
+           'near_block.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -162,6 +170,23 @@ def _declare(lib):
         'near_enum_quad': [P, L, P, I, P, P, P, P, P, P, P, P, P, P, P, I,
                            P, I, P, P, I, P, P, P, P, P, P, P, P, I, D, D,
                            P],
+        # data, nnz, c1, c2, I, J, offF, offB, sf, n, vertices, dim, cells,
+        # nv, vols, dofs, dpe, dofNode, treePos, indptrT, tStart, bary_x,
+        # bary_y, w, PSIP, Q, C, e, stream
+        'tree_csr_quad': [P, L, P, P, P, P, P, P, P, L, P, I, P, I, P, P, I,
+                          P, P, P, P, P, P, P, P, I, D, D, P],
+        # counts, nP, offI, offJ, n1, n2, I, J, ncArr, cells, nv, cellNodes,
+        # dpe, centers, C, logh, s, c, logH0, stream
+        'block_near_count': [P, I, P, P, P, P, P, P, P, P, I, P, I, P, I, P,
+                             F, F, F, P],
+        # data, nP, offI, offJ, n1, n2, I, J, tSI, tSJ, baseF, baseB, LI,
+        # LJ, nI, nJ, maxBlock, ncArr, cells, nv, cellNodes, dpe, centers,
+        # C, logh, s, c, logH0, vertices, dim, vols, dofs, treePos, rules,
+        # ruleQ (host), ruleOff (host), C, e, stream
+        'block_near_quad': [P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                            I, P, P, I, P, I, P, I, P, F, F, F, P, I, P, P,
+                            P, P, ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_longlong), D, D, P],
         # K, gi, gj, P, M, dim, C, e, stream
         'far_field': [P, P, P, L, I, I, D, D, P],
         # y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode, indptrT,
@@ -211,3 +236,9 @@ def i64array(values):
     """A host array of int64 (read by a C entry point on the host)."""
     values = [int(v) for v in values]
     return (ctypes.c_longlong * len(values))(*values)
+
+
+def i32array(values):
+    """A host array of int32 (read by a C entry point on the host)."""
+    values = [int(v) for v in values]
+    return (ctypes.c_int * len(values))(*values)

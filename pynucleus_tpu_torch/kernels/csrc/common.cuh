@@ -26,16 +26,98 @@ __device__ __forceinline__ double warpSum(double v) {
 constexpr int MAXDIM = 3;
 constexpr int MAXNV = 3;
 
-// v[a][d] = vertices[vid[a], d] for the nv vertex ids of one simplex.
+// v[a][d] = vertices[vid[a], d] for the nv vertex ids of one simplex
+// (int64 or int32 ids).
+template <typename Idx>
 __device__ __forceinline__ void loadSimplex(double v[MAXNV][MAXDIM],
                                             const double* __restrict__ vertices,
-                                            const long long* vid, int nv,
-                                            int dim) {
+                                            const Idx* vid, int nv, int dim) {
     for (int a = 0; a < nv; ++a)
-        for (int d = 0; d < dim; ++d) v[a][d] = vertices[vid[a] * dim + d];
+        for (int d = 0; d < dim; ++d)
+            v[a][d] = vertices[(long long)vid[a] * dim + d];
 }
 
-// K1's quadrature body, shared by its three scatter targets and by K6:
+// ---- the near field's element rules, shared by K5, K11 and K12 ----------
+//
+// An element is a cell pair (a, b), a from the cell list of cluster node I,
+// b from that of J (pynucleus_tpu/nl/assembly.py:_enum_elem_key and
+// _block_mask_order).  It is quadrature work of the distant engines iff
+//   a != b, the cells share no vertex (the singular path owns those), and
+//   a < b where the pair is also enumerated the other way round (b has a
+//   dof of node I and a one of node J).
+// cells [C, nv] and cellNodes [C, dpe] (node of each local dof, -1 if
+// none) are int32.
+__device__ __forceinline__ bool nearValid(const int* __restrict__ cells,
+                                          int nv,
+                                          const int* __restrict__ cellNodes,
+                                          int dpe, int a, int b, int I,
+                                          int J) {
+    if (a == b) return false;
+    bool share = false;
+    for (int i = 0; i < nv; ++i)
+        for (int j = 0; j < nv; ++j)
+            share |= cells[a * nv + i] == cells[b * nv + j];
+    if (share) return false;
+    bool bInI = false, aInJ = false;
+    for (int i = 0; i < dpe; ++i) {
+        bInI |= cellNodes[b * dpe + i] == I;
+        aInJ |= cellNodes[a * dpe + i] == J;
+    }
+    return !(bInI && aInJ) || a < b;
+}
+
+// 2D order model of pynucleus_tpu/nl/panels.py:distantOrders in float32,
+// snapped as _enum_elem_key does (even; (8,16] -> 16; > 16 -> multiple of 8).
+// centers [2, C] and logh [C] float32; (s, c, lH0) the model's constants.
+// Each step rounds as the plain PyTorch versions' separate operations do:
+// __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn keep nvcc from contracting into
+// FMAs, and logf (not __logf) is the accurate log that torch.log uses on
+// the card.  Otherwise an order whose ceil sits on an integer could land
+// in another quadrature bucket, or in the other near-field engine.
+__device__ __forceinline__ int orderKey(const float* __restrict__ centers,
+                                        int C, const float* __restrict__ logh,
+                                        int a, int b, float s, float c,
+                                        float lH0) {
+    const float dx = __fsub_rn(centers[a], centers[b]);
+    const float dy = __fsub_rn(centers[C + a], centers[C + b]);
+    const float r2c = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    const float logd = __fmul_rn(0.5f, logf(fmaxf(r2c, 1e-38f)));
+    const float lh1 = logh[a], lh2 = logh[b];
+    const float ldh1 = __fsub_rn(logd, lh1), ldh2 = __fsub_rn(logd, lh2);
+    const float l1 = fabsf(__fsub_rn(lh1, lH0));
+    const float l2 = fabsf(__fsub_rn(lh2, lH0));
+    const float lmin = fmaxf(l1, l2);
+    const float sm1 = __fsub_rn(s, 1.0f);
+    const float num1 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l2)),
+                                           lmin), __fmul_rn(s, ldh2));
+    const float num2 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l1)),
+                                           lmin), __fmul_rn(s, ldh1));
+    const float o1 = ceilf(__fdiv_rn(num1, __fadd_rn(fmaxf(ldh1, 0.0f), 0.4f)));
+    const float o2 = ceilf(__fdiv_rn(num2, __fadd_rn(fmaxf(ldh2, 0.0f), 0.4f)));
+    const float of = fminf(fmaxf(fmaxf(fmaxf(o1, o2), 2.0f), 2.0f), 120.0f);
+    int o = static_cast<int>(of);
+    o = ((o + 1) / 2) * 2;
+    if (o > 16) o = ((o + 7) / 8) * 8;
+    if (o > 8 && o <= 16) o = 16;
+    return o;
+}
+
+// Per-cluster-pair element tables of the near-field enumeration (int32):
+// the cell lists of the near nodes (ncArr), the mesh and the order model.
+struct EnumTables {
+    const int* ncArr;      // concatenated per-node cell lists
+    const int* cells;      // [C, nv]
+    int nv;
+    const int* cellNodes;  // [C, dpe]
+    int dpe;
+    const float* centers;  // [2, C]
+    int C;
+    const float* logh;     // [C]
+    float s, c, lH0;
+};
+
+// K1's quadrature body, shared by its three scatter targets and by K6, K12
+// and K13:
 // lanes lane, lane+nl, ... of the pair's Q nodes accumulate
 //   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v]
 //   t_q = gamma(|x_q-y_q|^2) w_q (* n.(y_q-x_q)/|y_q-x_q|) volsym

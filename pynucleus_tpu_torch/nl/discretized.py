@@ -43,13 +43,13 @@ def buildMeshHierarchy(mesh, solverType, tag, noRef, element, device):
 
 
 def buildHierarchy(dms, Ps, kernel, solverType, matrixFormat, zeroExterior,
-                   timers=None):
+                   timers=None, params=None):
     """The level list [{'A', 'P', 'R'}, ...], coarse to fine: every level
     assembled in ``matrixFormat`` with a multigrid solver (H2 stays H2 on
     every level), else the finest level only; R = P.T (its CSR is built
-    here).  ``timers``, if a dict, receives the assembly seconds of each
-    level ('level k', synchronised at the level's end) and the finest
-    level's build parts."""
+    here).  ``params`` go to the builder of every level.  ``timers``, if a
+    dict, receives the assembly seconds of each level ('level k',
+    synchronised at the level's end) and the finest level's build parts."""
     needAllLevels = 'mg' in solverType
     hierarchy = []
     nLvl = len(dms)
@@ -62,7 +62,7 @@ def buildHierarchy(dms, Ps, kernel, solverType, matrixFormat, zeroExterior,
             entry['A'] = assembleNonlocal(dm, kernel,
                                           matrixFormat=matrixFormat,
                                           zeroExterior=zeroExterior,
-                                          timers=parts)
+                                          params=params, timers=parts)
             _sync(dm.device)
             if timers is not None:
                 timers[f'level {lvl}'] = time.perf_counter() - t0

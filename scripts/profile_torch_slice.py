@@ -12,7 +12,10 @@ noRef 0 ... noRef) and two solves at full size.  Reports
     finest level's parts from a second run that synchronises around each
     part, so that nothing overlaps: host classification, each kernel
     wrapper call, and everything else (for H2 also the builder's own part
-    timers, which synchronise at each part's end);
+    timers, which synchronise at each part's end: with the default block
+    near-field engine 'near blocks' holds K11 and K12 with their host
+    glue, 'enumeration' the flat engine's K5 and K6 on the remainder
+    pairs; the wrapper calls time K11, K12, K5 and K6 apart);
   - device time per kernel name from torch.profiler (CUPTI, a third run
     of the finest level) and the device busy share of the assembly and of
     the warm solve;
@@ -109,7 +112,8 @@ def main():
 
     patched = {n: getattr(asm, n) for n in (
         ('panel_scatter_slots', 'panel_scatter_tree', 'near_enum',
-         'near_enum_quad', 'far_field', 'classifyPairList') if h2 else
+         'near_enum_quad', 'far_field', 'classifyPairList',
+         'block_near_count', 'block_near_quad') if h2 else
         ('panel_scatter', 'grid_distant', 'grid_boundary',
          'classifyPairsDenseGrid', 'classifyBoundaryPairs'))}
     levelParts = {}

@@ -2,7 +2,10 @@
 
 The JAX side is pynucleus_tpu's getH2 with the device-CSR accumulator and
 the flat device enumeration (``params={'forceDeviceCSR': True}``,
-``PYNUCLEUS_TPU_BLOCK_NEAR=0``), run on the CPU.  Its device programs are
+``PYNUCLEUS_TPU_BLOCK_NEAR=0``), run on the CPU; the port's builds that
+are held to it run its flat engine too (``params={'nearEngine':
+'flat'}``; the default block engine is held to the JAX default in
+test_torch_nearblock.py).  Its device programs are
 recorded with their inputs; each kernel's plain version gets the same
 inputs (into zeroed data) and is held to the program it replaces:
 
@@ -31,6 +34,7 @@ from pynucleus_tpu_torch.interop import fromArrays
 from pynucleus_tpu_torch.nl import assembly as tasm
 
 TOL = 1e-12
+FLAT = {'nearEngine': 'flat'}
 RECORDED = ('_bucket_masked_csr_scan', '_bucket_surface_tree_scan',
             '_enum_phase1', '_enum_phase2')
 
@@ -230,7 +234,7 @@ def built(request, recorded):
         dm, H = _buildJax(m)
     _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 2,
                            device='cpu')
-    return m, dm, H, tasm.nonlocalBuilder(tdm, tk).getH2()
+    return m, dm, H, tasm.nonlocalBuilder(tdm, tk, params=FLAT).getH2()
 
 
 def test_near_data_matches_jax_flat_engine(built):
@@ -275,14 +279,14 @@ def test_enumeration_segments_do_not_change_the_near_data(recorded):
     m, dm, H, _, tk = recorded
     _, tdm, _ = fromArrays(m.vertices, m.cells, 0.75, 2,
                          device='cpu')
-    ref = tasm.nonlocalBuilder(tdm, tk).getH2().Anear.dataT
+    ref = tasm.nonlocalBuilder(tdm, tk, params=FLAT).getH2().Anear.dataT
     calls = []
     orig = tasm.near_enum
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(tasm, 'ENUM_SEGMENT', 1 << 10)
         mp.setattr(tasm, 'near_enum',
                    lambda *a: calls.append(int(a[0][-1])) or orig(*a))
-        got = tasm.nonlocalBuilder(tdm, tk).getH2().Anear.dataT
+        got = tasm.nonlocalBuilder(tdm, tk, params=FLAT).getH2().Anear.dataT
     assert len(calls) > 10 and max(calls) <= 1 << 10
     _assertData(got.numpy(), ref.numpy())
 
