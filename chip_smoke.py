@@ -51,6 +51,21 @@ result line):
      before it) against the JAX package's pinned H2 outputs; then the
      three engines' operators at noRef 5 agree (H2 apply 1e-10 relative,
      near data 1e-10 of max|data|).
+ 10. the finite-horizon path (drivers/runNonlocal.py: constant kernel,
+     ball2, horizon 0.2, poly-Dirichlet with its collar): the five interval
+     patch lines of tests/test_nonlocal_driver.py at noRef 6 to their
+     bounds, the sparse one a path of its own (launch counts reset) whose
+     K14 calls are held against the plain version; the square at noRef 2
+     (sparse, cg-mg) against the JAX package's pinned outputs, with K15
+     and K1's cross target held against their plain versions on all its
+     calls; then the full-width line, the square at noRef 3 (sparse
+     cg-mg, 4 levels, 6241 dofs; launch counts reset just before it):
+     per-level assembly seconds with the host classification and pattern
+     and the device fill, iterations, L2 error (below noRef 2's), peak
+     device memory; K15 (its largest call) and K1's cross target (the
+     calls of A_BC) against their plain versions at these shapes; the
+     sparse operator against the dense one (1e-12 relative on a seeded
+     vector).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -127,6 +142,19 @@ JAX_H2_MG_NOREF5 = {
         'relative Hs error': 7.038763e-02,
     },
 }
+# JAX package outputs of `drivers/runNonlocal.py --domain square
+# --kernelType constant --problem poly-Dirichlet --element P1 --solverType
+# cg-mg --matrixFormat sparse` (default noRef 2, horizon 0.2, 1521 dofs),
+# run on the CPU in float64; iterations +-1 and the error within the
+# repo's regression tolerance rtol 3e-2.
+JAX_SQUARE_NOREF2 = {'dofs': 1521, 'iterations': 7,
+                     'L2 error interpolated': 3.6939776e-04}
+FH_NOREF = 3
+# tests/test_nonlocal_driver.py INTERVAL_CONFIGS: (kernel, format, bound)
+INTERVAL_PATCH = (('constant', 'dense', 1e-12), ('constant', 'H2', 1e-12),
+                  ('constant', 'sparse', 1e-12),
+                  ('inverseDistance', 'dense', 1e-12),
+                  ('fractional', 'dense', 1e-8))
 RTOL_ERRORS = 3e-2
 TOL_KERNEL = 1e-12
 TOL_H2_DENSE = 1e-5
@@ -171,6 +199,10 @@ KERNEL_INFO = {
                         'pynucleus_tpu/nl/assembly.py:1427'),
     'tree_csr_quad': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/near_enum.cu',
                       'pynucleus_tpu/nl/assembly.py:1118'),
+    'cut1d': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/cut_cells.cu',
+              'pynucleus_tpu/nl/assembly.py:644'),
+    'cut2d_polar': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/cut_cells.cu',
+                    'pynucleus_tpu/nl/assembly.py:511'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -185,13 +217,19 @@ MG_PATH = ('panel_scatter', 'pcg_update', 'near_enum', 'near_enum_quad',
 HOST_PATH = ('panel_scatter', 'pcg_update', 'tree_csr_quad', 'far_field',
              'h2_matvec', 'panel_scatter:slots', 'panel_scatter:tree',
              'pcg_update:jacobi')
+INTERVAL_PATH = ('panel_scatter', 'cut1d', 'csr_spmv', 'panel_scatter:slots',
+                 'panel_scatter:cross')
+NONLOCAL_PATH = ('panel_scatter', 'pcg_update', 'csr_spmv', 'jacobi_smooth',
+                 'cut2d_polar', 'panel_scatter:slots', 'panel_scatter:cross',
+                 'pcg_update:general')
 FLAT = {'nearEngine': 'flat'}
 HOST = {'nearEngine': 'host'}
 TOL_ENGINES = 1e-10
 # where the kernel table's comparison with the plain version was made
 COMPARED_AT = {
     'panel_scatter': 'disc noRef 4 (dense target), '
-                     f'noRef {H2_NOREF} (CSR targets, all calls)',
+                     f'noRef {H2_NOREF} (CSR targets, all calls), square '
+                     f'noRef {FH_NOREF} horizon 0.2 (cross target, A_BC)',
     'grid_distant': 'disc noRef 4, all calls, and an order-6 window',
     'grid_boundary': 'disc noRef 4',
     'pcg_update': f'disc noRef {H2_NOREF}, 10 iterations of each form (the '
@@ -209,6 +247,9 @@ COMPARED_AT = {
     'block_near_quad': f'disc noRef {H2_NOREF}, the finest level of the '
                        'flagship (its one call)',
     'tree_csr_quad': 'disc noRef 4, a host-engine build, all calls',
+    'cut1d': 'interval noRef 6 (horizon 0.2, sparse), all calls',
+    'cut2d_polar': f'square noRef {FH_NOREF} (horizon 0.2, sparse), its '
+                   'largest call',
 }
 
 
@@ -300,34 +341,6 @@ def timed(fn):
     return start.elapsed_time(end)
 
 
-def compare_assembly_kernel(name, calls, kernel, plain, work):
-    """Each recorded call once through the kernel and once through the
-    plain version, each into its own zero A, after one untimed warm-up
-    call of each; returns the result() over the calls (``work(args)`` of
-    each call's recorded args)."""
-    import torch
-    worst_abs = worst_rel = 0.0
-    ms = plain_ms = 0.0
-    for (N, *args), kw in calls:
-        Ak = torch.zeros((N, N), dtype=torch.float64, device='cuda')
-        Ap = torch.zeros_like(Ak)
-        # warm-up into a scratch A (module loading, allocator), then timed
-        kernel(torch.zeros_like(Ak), *args)
-        plain(torch.zeros_like(Ak), *args)
-        ms += timed(lambda: kernel(Ak, *args))
-        plain_ms += timed(lambda: plain(Ap, *args))
-        err = float((Ak - Ap).abs().max())
-        scale = float(Ap.abs().max())
-        if not (scale > 0 and err <= TOL_KERNEL * scale):
-            raise AssertionError(f'{name}: kernel vs plain max err {err} '
-                                 f'(max|A| {scale})')
-        worst_abs = max(worst_abs, err)
-        worst_rel = max(worst_rel, err / scale)
-    log(f'  {name}: {len(calls)} calls, max abs err {worst_abs:.3e} '
-        f'(rel {worst_rel:.3e}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-    return result(worst_abs, ms, plain_ms, [work(c[0]) for c in calls])
-
-
 def _clone(a):
     import torch
     if isinstance(a, torch.Tensor):
@@ -343,8 +356,9 @@ class ArgRecorder:
     """Replaces a kernel wrapper of a module by one that records cloned
     arguments of every call of the main path (and then makes the call).
     For a kernel that adds into its first argument (``dataFirst``: dense A
-    [N, N] or the near data [nnz+1]) that one is recorded by its length.  With ``size``, only the call of
-    the largest ``size(*args)`` is kept."""
+    [N, N], A_BC [N, NB] or CSR data [nnz+1]) that one is recorded by its
+    shape.  With ``size``, only the call of the largest ``size(*args)`` is
+    kept."""
 
     def __init__(self, module, name, dataFirst=False, size=None):
         self.module, self.name = module, name
@@ -355,7 +369,7 @@ class ArgRecorder:
 
     def _record(self, args, kw):
         if self.dataFirst:
-            args = (args[0].shape[0],) + _clone(args[1:])
+            args = (tuple(args[0].shape),) + _clone(args[1:])
         else:
             args = _clone(args)
         return args, _clone(kw)
@@ -406,32 +420,41 @@ def record_h2_build(build, names=H2_BUILD, largestOnly=False):
     return H, recs
 
 
-def compare_csr_kernel(name, calls, kernel, plain, work):
-    """The recorded calls of a kernel that adds into the near-field data
-    [nnz+1], all into one zero vector through the kernel and one through
-    the plain version (after an untimed warm-up of each); compared on the
-    nnz real slots.  Returns the result()."""
+def compare_target_kernel(name, calls, kernel, plain, work):
+    """Recorded calls of a kernel that adds into its first argument
+    (recorded by its shape: dense A, A_BC or CSR data [nnz+1]) through the
+    kernel and through the plain version, the calls of one shape all into
+    one zero tensor each way (after an untimed warm-up call of each); CSR
+    data compared on its nnz real slots.  Returns the result() with
+    ``work(args)`` of each call's recorded args."""
     import torch
-    n = calls[0][0][0]
-    Dk = torch.zeros(n, dtype=torch.float64, device='cuda')
-    Dp = torch.zeros_like(Dk)
-    kernel(torch.zeros_like(Dk), *calls[0][0][1:])
-    plain(torch.zeros_like(Dk), *calls[0][0][1:])
-    ms = plain_ms = 0.0
-    for args, kw in calls:
-        if args[0] != n:
-            raise AssertionError(f'{name}: calls on different data')
-        ms += timed(lambda: kernel(Dk, *args[1:]))
-        plain_ms += timed(lambda: plain(Dp, *args[1:]))
-    err = float((Dk[:-1] - Dp[:-1]).abs().max())
-    scale = float(Dp[:-1].abs().max())
-    if not (scale > 0 and err <= TOL_KERNEL * scale):
-        raise AssertionError(f'{name}: kernel vs plain max err {err} '
-                             f'(max|data| {scale})')
-    log(f'  {name}: {len(calls)} calls, max abs err {err:.3e} '
-        f'(rel {err / scale:.3e}), kernel {ms:.3f} ms, plain '
-        f'{plain_ms:.3f} ms')
-    return result(err, ms, plain_ms, [work(c[0]) for c in calls])
+    byShape = {}
+    for c in calls:
+        byShape.setdefault(c[0][0], []).append(c)
+    dev = next(a.device for a in calls[0][0] if isinstance(a, torch.Tensor))
+    worst_abs = worst_rel = ms = plain_ms = 0.0
+    for shape, group in byShape.items():
+        Dk = torch.zeros(shape, dtype=torch.float64, device=dev)
+        Dp = torch.zeros_like(Dk)
+        (_, *args0), kw0 = group[0]
+        kernel(torch.zeros_like(Dk), *args0, **kw0)
+        plain(torch.zeros_like(Dk), *args0, **kw0)
+        for (_, *args), kw in group:
+            ms += timed(lambda: kernel(Dk, *args, **kw))
+            plain_ms += timed(lambda: plain(Dp, *args, **kw))
+        if len(shape) == 1:
+            Dk, Dp = Dk[:-1], Dp[:-1]
+        err = float((Dk - Dp).abs().max())
+        scale = float(Dp.abs().max())
+        if not (scale > 0 and err <= TOL_KERNEL * scale):
+            raise AssertionError(f'{name}: kernel vs plain max err {err} '
+                                 f'(max {scale}) on {shape}')
+        worst_abs = max(worst_abs, err)
+        worst_rel = max(worst_rel, err / scale)
+    log(f'  {name}: {len(calls)} calls on {len(byShape)} targets, max abs '
+        f'err {worst_abs:.3e} (rel {worst_rel:.3e}), kernel {ms:.3f} ms, '
+        f'plain {plain_ms:.3f} ms')
+    return result(worst_abs, ms, plain_ms, [work(c[0]) for c in calls])
 
 
 def enum_quad_work(args):
@@ -457,7 +480,7 @@ def compare_h2_build(recs):
             raise AssertionError(f'{n}: the build made no call of it')
     out = {}
     for n in H2_CSR:
-        out[n] = compare_csr_kernel(
+        out[n] = compare_target_kernel(
             n, recs[n].calls, getattr(asm, n), getattr(asm, '_' + n + '_plain'),
             enum_quad_work if n == 'near_enum_quad' else panel_work)
 
@@ -593,7 +616,7 @@ def compare_engines(recs, names):
     for n, work in (('block_near_quad', block_quad_work),
                     ('tree_csr_quad', tree_quad_work)):
         if n in names:
-            out[n] = compare_csr_kernel(n, recs[n].calls, getattr(asm, n),
+            out[n] = compare_target_kernel(n, recs[n].calls, getattr(asm, n),
                                         getattr(asm, '_' + n + '_plain'),
                                         work)
     return out
@@ -897,13 +920,13 @@ def phase2():
         ccf, vols, dofs, dev(Phi6 * w6), dev(Phi6), dev(-Phi6 * w6),
         dev(w6), t_lo, t_hi, C, e), {}))
     out = {}
-    out['panel_scatter'] = compare_assembly_kernel(
+    out['panel_scatter'] = compare_target_kernel(
         'panel_scatter', k1.calls, asm.panel_scatter, asm._panel_scatter_plain,
         panel_work)
-    out['grid_distant'] = compare_assembly_kernel(
+    out['grid_distant'] = compare_target_kernel(
         'grid_distant', k2.calls, asm.grid_distant, asm._grid_distant_plain,
         grid_distant_work)
-    out['grid_boundary'] = compare_assembly_kernel(
+    out['grid_boundary'] = compare_target_kernel(
         'grid_boundary', k3.calls, asm.grid_boundary, asm._grid_boundary_plain,
         grid_boundary_work)
 
@@ -1152,7 +1175,7 @@ def phase8(errs6):
     log(f'  near-field elements of the finest level: block engine '
         f'{sum(byClass[:4])} (orders 2/4/6/8: {byClass[:4]}), flat engine '
         f'{byClass[4]} (orders > 8)')
-    cmp['block_near_quad'] = compare_csr_kernel(
+    cmp['block_near_quad'] = compare_target_kernel(
         'block_near_quad', k12.calls, asm.block_near_quad,
         asm._block_near_quad_plain, block_quad_work)
     return counts, cmp
@@ -1176,6 +1199,207 @@ def phase9():
         compare_operators(f'{engine} vs host engine at noRef 5', H,
                           out['A'], 5)
     return counts
+
+
+# ---------------------------------------------------------------- phase 10
+
+# operations per unit of the cut-pair kernels (a pow, atan2, sin, cos or
+# division counts as one): K14 per node (the clipped interval, y, the
+# kernel value, the weight and the 10 upper-triangle multiply-adds); K15
+# per x node (its window: 4 atan2, 3 floor-mods, the clips and the sort),
+# per ray (angle, cos, sin, 3 ray-edge solves, the ball clip) and per
+# radial node of a ray that hits the cell (y, the kernel value, the
+# barycentrics and the 21 upper-triangle multiply-adds)
+CUT1D_NODE_OPS = 47
+CUT2D_XNODE_OPS = 70
+CUT2D_RAY_OPS = 77
+CUT2D_NODE_OPS = 74
+
+
+def nonlocal_argv(domain, noRef, fmt, solver, kernelType='constant'):
+    return ['--domain', domain, '--kernelType', kernelType, '--horizon',
+            '0.2', '--problem', 'poly-Dirichlet', '--element', 'P1',
+            '--solverType', solver, '--matrixFormat', fmt, '--noRef',
+            str(noRef), '--device', 'cuda']
+
+
+def run_nonlocal_path(argv, path):
+    """One run of the finite-horizon path through runNonlocal, with every
+    launch count set to 0 just before and read just after; each kernel of
+    the path must have launched, an iterative solver must have
+    converged."""
+    import torch
+    from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.drivers.runNonlocal import main
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.resetLaunches()
+    out = main(argv, quiet=True)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    counts['device'] = dict(kernels.deviceLaunches)
+    peak = torch.cuda.max_memory_allocated()
+    res = out['results'].toDict()
+    tim = out['timers'].toDict()
+    errs = out['errors'].toDict()
+    log(f"  {' '.join(argv[:2] + argv[10:14])}: dofs {res['dofs']}, "
+        f"iterations {res['iterations']}, assembly "
+        f"{tim['assembly seconds']:.3f} s, A_BC {tim['A_BC seconds']:.3f} s, "
+        f"solve {tim['solve seconds']:.3f} s, peak device memory "
+        f'{peak / 2**30:.3f} GiB, L2 error interpolated '
+        f"{errs['L2 error interpolated']:.6e}")
+    log(f'  launches: {counts}')
+    for k in path:
+        if counts[k] <= 0:
+            raise AssertionError(f'kernel {k} was not launched by the path')
+    solver = out['solver']
+    if hasattr(solver, 'residuals') and (
+            not solver.residuals[-1] <= solver.tolerance
+            or res['iterations'] >= solver.maxIter):
+        raise AssertionError(f'{res["solver"]} did not converge: '
+                             f'{solver.residuals[-3:]}')
+    for k, v in errs.items():
+        if not v == v or v < 0:
+            raise AssertionError(f'{k} = {v}')
+    out['peak'] = peak
+    return out, counts
+
+
+def cut1d_work(args):
+    """K14 on recorded args (shape, target, index, vertices, vi1, vi2,
+    vols1, tq, wq, ur, wr, horizon, C, e): every (x, y) node product of
+    every pair; inputs read once, the 16 entries of a pair read and
+    written once."""
+    P = args[4].shape[0]
+    Q = args[7].shape[0] * args[9].shape[0]
+    return (nbytes(args[2:]) + 16 * 16 * P, CUT1D_NODE_OPS * P * Q, F64_PEAK)
+
+
+def cut2d_work(args):
+    """K15 on recorded args (shape, target, index, vertices, vi1, vi2,
+    vols1, bary_x, wx, thetas, wtheta, rq, wr, horizon, inter, C, e): the
+    window of every x node, every ray, and the radial nodes of the rays
+    that hit the cell in this run's data (counted by the plain version's
+    ray part, chunked); inputs read once, the 36 entries of a pair read
+    and written once."""
+    import pynucleus_tpu_torch.nl.assembly as asm
+    (vertices, vi1, vi2, bary_x, thetas, wtheta, horizon,
+     inter) = args[3], args[4], args[5], args[7], args[9], args[10], \
+        args[13], args[14]
+    P, Qx, Qr = vi1.shape[0], bary_x.shape[1], args[11].shape[0]
+    rays = hitRays = 0
+    for sl in asm._plainChunks(P, Qx * thetas.shape[0] * 8):
+        hits = asm._cut2dRays(vertices, vi1[sl], vi2[sl], bary_x, thetas,
+                              wtheta, horizon, inter)[-1]
+        rays += hits.numel()
+        hitRays += int(hits.sum())
+    ops = CUT2D_XNODE_OPS * P * Qx + CUT2D_RAY_OPS * rays \
+        + CUT2D_NODE_OPS * hitRays * Qr
+    return (nbytes(args[2:]) + 16 * 36 * P, ops, F64_PEAK)
+
+
+def phase10():
+    """The finite-horizon path.  Returns the launch counts of its two paths
+    (the interval's sparse patch line, the square at noRef FH_NOREF) and
+    the comparisons of K14, K15 and K1's cross target."""
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.drivers.runNonlocal import main
+    log('phase 10: the finite-horizon path (runNonlocal, horizon 0.2)')
+    cmp = {}
+    countsI = None
+    for kernelType, fmt, bnd in INTERVAL_PATCH:
+        argv = nonlocal_argv('interval', 6, fmt, 'lu', kernelType)
+        if (kernelType, fmt) == ('constant', 'sparse'):
+            with ArgRecorder(asm, 'cut1d', dataFirst=True) as k14:
+                out, countsI = run_nonlocal_path(argv, INTERVAL_PATH)
+        else:
+            out = main(argv, quiet=True)
+        err = out['errors'].toDict()['L2 error interpolated']
+        if not err < bnd:
+            raise AssertionError(f'interval {kernelType} {fmt}: L2 error '
+                                 f'interpolated {err} >= {bnd}')
+        log(f'  interval noRef 6 {kernelType} {fmt} lu: L2 error '
+            f'interpolated {err:.3e} (< {bnd})')
+    cmp['cut1d'] = compare_target_kernel('cut1d', k14.calls, asm.cut1d,
+                                         asm._cut1d_plain, cut1d_work)
+
+    with ArgRecorder(asm, 'cut2d_polar', dataFirst=True) as k15, \
+            ArgRecorder(asm, 'panel_scatter_cross', dataFirst=True) as kx:
+        out = main(nonlocal_argv('square', 2, 'sparse', 'cg-mg'),
+                   quiet=True)
+    res, errs = out['results'].toDict(), out['errors'].toDict()
+    ref = JAX_SQUARE_NOREF2
+    got = errs['L2 error interpolated']
+    if res['dofs'] != ref['dofs'] or \
+            abs(res['iterations'] - ref['iterations']) > 1 or \
+            not abs(got - ref['L2 error interpolated']) \
+            <= RTOL_ERRORS * ref['L2 error interpolated']:
+        raise AssertionError(f'square noRef 2: {res}, {errs} vs JAX {ref}')
+    log(f"  square noRef 2 sparse cg-mg: dofs {res['dofs']}, iterations "
+        f"{res['iterations']}, L2 error interpolated {got:.7e}: matches the "
+        f'JAX outputs (dofs, iterations +-1, error within rtol '
+        f'{RTOL_ERRORS})')
+    compare_target_kernel('cut2d_polar (noRef 2, all calls)', k15.calls,
+                          asm.cut2d_polar, asm._cut2d_polar_plain,
+                          cut2d_work)
+    compare_target_kernel('panel_scatter_cross (noRef 2, A_BC)', kx.calls,
+                          asm.panel_scatter_cross,
+                          asm._panel_scatter_cross_plain, panel_work)
+    del out, k15, kx
+    torch.cuda.empty_cache()
+
+    log(f'  the full-width line: square noRef {FH_NOREF}, sparse, cg-mg')
+    with ArgRecorder(asm, 'cut2d_polar', dataFirst=True,
+                     size=lambda out, t, i, v, vi1, *a: vi1.shape[0]) as k15, \
+            ArgRecorder(asm, 'panel_scatter_cross', dataFirst=True) as kx:
+        out, countsS = run_nonlocal_path(
+            nonlocal_argv('square', FH_NOREF, 'sparse', 'cg-mg'),
+            NONLOCAL_PATH)
+    tim = out['timers'].toDict()
+    errs = out['errors'].toDict()
+    if not errs['L2 error interpolated'] < got:
+        raise AssertionError(f"noRef {FH_NOREF} L2 error "
+                             f"{errs['L2 error interpolated']} not below "
+                             f'noRef 2 {got}')
+    for k in range(FH_NOREF + 1):
+        parts = {p: round(tim[f'assembly level {k} {p} seconds'], 3)
+                 for p in ('classification', 'pattern', 'quadrature')}
+        log(f"  level {k}: {out['hierarchy'][k]['A'].num_rows} dofs, nnz "
+            f"{out['hierarchy'][k]['A'].nnz}, assembly "
+            f"{tim[f'assembly level {k} seconds']:.3f} s (host "
+            f"classification {parts['classification']}, host pattern "
+            f"{parts['pattern']}, device fill {parts['quadrature']})")
+    log(f"  A_BC {tuple(out['A_BC'].shape)} {tim['A_BC seconds']:.3f} s, "
+        f"solver set-up {tim['solver set-up seconds']:.3f} s, solve "
+        f"{tim['solve seconds']:.4f} s, explicit residual "
+        f"{tim['explicit residual']:.3e}, peak device memory "
+        f"{out['peak'] / 2**30:.3f} GiB")
+    A, dm, kernel = out['A'], out['dm'], out['kernel']
+    del out
+    torch.cuda.empty_cache()
+    D = asm.assembleNonlocal(dm, kernel, matrixFormat='dense',
+                             device='cuda')
+    x = torch.randn(dm.num_dofs, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(10))
+    ref = D.matvec(x)
+    rel = float(torch.linalg.norm(A.matvec(x) - ref) / torch.linalg.norm(ref))
+    if not rel <= TOL_KERNEL:
+        raise AssertionError(f'sparse vs dense at noRef {FH_NOREF}: {rel}')
+    log(f'  sparse vs dense apply at noRef {FH_NOREF}: relative error '
+        f'{rel:.3e} (<= {TOL_KERNEL})')
+    del A, D
+    torch.cuda.empty_cache()
+    log(f'  kernels against their plain versions at the noRef {FH_NOREF} '
+        'shapes')
+    cmp['cut2d_polar'] = compare_target_kernel(
+        'cut2d_polar', k15.calls, asm.cut2d_polar, asm._cut2d_polar_plain,
+        cut2d_work)
+    log(f'  cut2d_polar: {k15.largest} pairs in its largest call')
+    cmp['panel_scatter_cross'] = compare_target_kernel(
+        'panel_scatter_cross (A_BC)', kx.calls, asm.panel_scatter_cross,
+        asm._panel_scatter_cross_plain, panel_work)
+    return countsI, countsS, cmp
 
 
 def main():
@@ -1216,18 +1440,25 @@ def main():
     phase7()
     counts8, cmp8 = phase8(errs7)
     counts9 = phase9()
+    countsI, countsS, cmp10 = phase10()
 
-    # K1 is one kernel with three targets: the dense one compared at the
-    # noRef 4 shapes, the CSR ones at the H2 main path's
+    # K1 is one kernel with four targets: the dense one compared at the
+    # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
+    # the finite-horizon path's
     cmp['panel_scatter'] = merge(cmp['panel_scatter'],
                                  cmp7.pop('panel_scatter_slots'),
-                                 cmp7.pop('panel_scatter_tree'))
+                                 cmp7.pop('panel_scatter_tree'),
+                                 cmp10.pop('panel_scatter_cross'))
     cmp.update(cmp7)
     cmp.update(cmp8)
+    cmp.update(cmp10)
     paths = ((DENSE_PATH, 'dense_noRef6', counts6),
              (H2_PATH, f'h2_cg_jacobi_noRef{H2_NOREF}', counts7),
              (MG_PATH, f'h2_cg_mg_noRef{H2_NOREF}', counts8),
-             (HOST_PATH, 'h2_host_engine_noRef5', counts9))
+             (HOST_PATH, 'h2_host_engine_noRef5', counts9),
+             (INTERVAL_PATH, 'fh_interval_sparse_noRef6', countsI),
+             (NONLOCAL_PATH, f'fh_square_sparse_cg_mg_noRef{FH_NOREF}',
+              countsS))
     table = []
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]

@@ -167,14 +167,39 @@ class CSR_LinearOperator(LinearOperator):
         dev = getDevice(device)
         self.indptrH = np.array(indptr, dtype=np.int32)
         self.indicesH = np.array(indices, dtype=np.int32)
-        self.dataH = np.array(data, dtype=np.float64)
+        self._dataH = np.array(data, dtype=np.float64)
         self.num_rows = len(self.indptrH) - 1
         self.num_columns = int(num_columns) if num_columns is not None \
             else self.num_rows
         self.indptr = torch.as_tensor(self.indptrH, device=dev)
         self.indices = torch.as_tensor(self.indicesH, device=dev)
-        self.data = torch.as_tensor(self.dataH, device=dev)
+        self.data = torch.as_tensor(self._dataH, device=dev)
         self._transpose = None
+
+    @classmethod
+    def fromDevice(cls, indptr, indices, data, num_columns=None):
+        """The operator of host indptr and indices and of ``data``, a
+        float64 tensor already on its device (assembled there); the host
+        copy of the data is made at its first use (``dataH``)."""
+        A = object.__new__(cls)
+        dev = data.device
+        A.indptrH = np.array(indptr, dtype=np.int32)
+        A.indicesH = np.array(indices, dtype=np.int32)
+        A._dataH = None
+        A.num_rows = len(A.indptrH) - 1
+        A.num_columns = int(num_columns) if num_columns is not None \
+            else A.num_rows
+        A.indptr = torch.as_tensor(A.indptrH, device=dev)
+        A.indices = torch.as_tensor(A.indicesH, device=dev)
+        A.data = data.contiguous()
+        A._transpose = None
+        return A
+
+    @property
+    def dataH(self):
+        if self._dataH is None:
+            self._dataH = self.data.detach().cpu().numpy().astype(np.float64)
+        return self._dataH
 
     @property
     def device(self):

@@ -1,6 +1,6 @@
-"""Jacobi and (preconditioned) CG solvers on tensors; kernel K4.
+"""LU, Jacobi and (preconditioned) CG solvers on tensors; kernel K4.
 
-Port of jacobi_solver, cg_solver and solverFactory of
+Port of lu_solver, jacobi_solver, cg_solver and solverFactory of
 pynucleus_tpu/base/solvers.py.  The CG keeps ``_cg_core``'s semantics:
 x0 = 0, convergence test on sqrt(r.M.r) (sqrt(r.r) with use2norm) against
 an absolute tolerance, the residual history, and the reference's iteration
@@ -20,10 +20,11 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .linear_operators import Diagonal_LinearOperator
+from .linear_operators import Diagonal_LinearOperator, Dense_LinearOperator
 
-__all__ = ['solver', 'jacobi_solver', 'iterative_solver', 'krylov_solver',
-           'cg_solver', 'solverFactory', 'pcg_update', 'pcg_update_prec']
+__all__ = ['solver', 'lu_solver', 'jacobi_solver', 'iterative_solver',
+           'krylov_solver', 'cg_solver', 'solverFactory', 'pcg_update',
+           'pcg_update_prec']
 
 
 # ------------------------------------------------------------------ K4 ----
@@ -151,6 +152,26 @@ class solver:
         raise NotImplementedError()
 
 
+class lu_solver(solver):
+    """Dense LU on the device (pynucleus_tpu/base/solvers.py:115 lu_solver):
+    a library factorisation, torch.linalg.lu_factor / lu_solve, of the
+    operator's dense form (``A.data`` of a dense operator, else
+    ``A.toarray()``), as the JAX package's jax.scipy.linalg.lu_factor."""
+
+    def setup(self, A=None):
+        if A is not None:
+            self.A = A
+        data = self.A.data if isinstance(self.A, Dense_LinearOperator) else \
+            torch.as_tensor(self.A.toarray(), dtype=torch.float64,
+                            device=self.A.device)
+        self.lu, self.piv = torch.linalg.lu_factor(data)
+        self.initialized = True
+
+    def solve(self, b):
+        return torch.linalg.lu_solve(self.lu, self.piv,
+                                     b.unsqueeze(1)).squeeze(1)
+
+
 class jacobi_solver(solver):
     """Diagonal scaling."""
 
@@ -263,5 +284,6 @@ class solverFactoryClass:
 
 
 solverFactory = solverFactoryClass()
+solverFactory.register('lu', lu_solver)
 solverFactory.register('jacobi', jacobi_solver)
 solverFactory.register('cg', cg_solver)

@@ -30,8 +30,7 @@ from ..config import getDevice
 from ..base.solvers import solverFactory, iterative_solver
 from ..base.utilsFem import outputGroup
 from ..fem.assembly import assembleRHS
-from ..nl.discretized import (ERROR_LABELS, modelErrors, buildMeshHierarchy,
-                              buildHierarchy)
+from ..nl.discretized import modelErrors, buildMeshHierarchy, buildHierarchy
 from ..nl.problems import fractionalLaplacianProblem, defaultNoRef
 from .. import multilevel  # noqa: F401  (registers the 'mg' solver)
 
@@ -115,8 +114,8 @@ def main(argv=None, quiet=False, params=None):
     errs = modelErrors(dm, u, b, prob['analyticSolution'],
                        prob['exactL2Squared'], prob['exactHsSquared'])
     errors = outputGroup('errors')
-    for label in ERROR_LABELS:
-        errors.add(label, errs[label])
+    for label, val in errs.items():
+        errors.add(label, val)
     timers = outputGroup('timers')
     timers.add('device', str(dev))
     timers.add('assembly seconds', tAssemble)

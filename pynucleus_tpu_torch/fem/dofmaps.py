@@ -2,7 +2,8 @@
 
 Port of pynucleus_tpu/fem/dofmaps.py for the slice's element.  Conventions
 are the JAX package's: interior dofs are numbered >= 0 in cell-traversal
-order, boundary dofs (on the PHYSICAL boundary) are encoded as -dof-1, and
+order, boundary dofs (on the PHYSICAL boundary, or outside the indicator
+function given as the tag) are encoded as -dof-1, and
 shape functions are evaluated on the host from barycentric coordinates.
 ``fe_vector`` holds a tensor on the dofmap's device.
 """
@@ -80,17 +81,29 @@ class P1_DoFMap(DoFMap):
     def _buildDofNumbering(self):
         """Vertex dofs numbered in order of first appearance in the cell
         list (ref DoFMaps.pyx cell traversal); boundary vertices of the
-        tag get -1, -2, ... in the same order."""
+        tag get -1, -2, ... in the same order.  The tag is PHYSICAL (the
+        mesh boundary), NO_BOUNDARY, a function object whose value > 0.5
+        marks the interior vertices (pynucleus_tpu/fem/dofmaps.py
+        _buildDofNumbering with a function tag), or a boolean vertex mask
+        of the interior vertices."""
         mesh = self.mesh
         flat = mesh.cells.reshape(-1).astype(np.int64)
         verts, first = np.unique(flat, return_index=True)
         order = verts[np.argsort(first, kind='stable')]
-        if self.tag == NO_BOUNDARY:
+        tag = self.tag
+        if callable(tag) and not isinstance(tag, (int, np.integer)):
+            # a function tag: a dof is interior iff tag(node) > 0.5 (volume
+            # constraints on an interaction collar)
+            isB = ~(np.asarray(tag(mesh.vertices[order])) > 0.5)
+        elif isinstance(tag, np.ndarray):
+            # a vertex mask: True for the interior vertices
+            isB = ~tag.astype(bool)[order]
+        elif tag == NO_BOUNDARY:
             isB = np.zeros(len(order), dtype=bool)
-        else:
-            if self.tag != PHYSICAL:
-                raise NotImplementedError(f'tag {self.tag!r}')
+        elif tag == PHYSICAL:
             isB = np.isin(order, mesh.boundaryVertices)
+        else:
+            raise NotImplementedError(f'tag {tag!r}')
         num = np.empty(mesh.num_vertices, dtype=np.int64)
         num[order[~isB]] = np.arange((~isB).sum())
         num[order[isB]] = -1 - np.arange(isB.sum())

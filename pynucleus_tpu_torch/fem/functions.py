@@ -2,15 +2,17 @@
 
 Carried over from pynucleus_tpu/fem/functions.py.  Functions are evaluated
 only at setup time (interpolation nodes, quadrature points) over X [N, dim];
-the results go to the device as tensors.
+the results go to the device as tensors.  Sums, differences and products of
+functions (and of functions and numbers) are functions, as the JAX
+package's indicator arithmetic of the finite-horizon problems needs.
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy.special import gamma as Gamma
 
-__all__ = ['function', 'constant', 'Lambda', 'radialIndicator',
-           'solFractional']
+__all__ = ['function', 'constant', 'Lambda', 'squareIndicator',
+           'radialIndicator', 'solFractional']
 
 
 class function:
@@ -20,6 +22,53 @@ class function:
 
     def eval(self, X):
         raise NotImplementedError()
+
+    def __add__(self, other):
+        return sumFunction(self, asFunction(other))
+
+    def __radd__(self, other):
+        return sumFunction(asFunction(other), self)
+
+    def __sub__(self, other):
+        return sumFunction(self, mulFunction(asFunction(other), -1.0))
+
+    def __rsub__(self, other):
+        return sumFunction(asFunction(other), mulFunction(self, -1.0))
+
+    def __mul__(self, other):
+        if isinstance(other, function):
+            return prodFunction(self, other)
+        return mulFunction(self, other)
+
+    def __rmul__(self, other):
+        return mulFunction(self, other)
+
+    def __neg__(self):
+        return mulFunction(self, -1.0)
+
+
+class sumFunction(function):
+    def __init__(self, f, g):
+        self.f, self.g = f, g
+
+    def eval(self, X):
+        return self.f.eval(X) + self.g.eval(X)
+
+
+class mulFunction(function):
+    def __init__(self, f, fac):
+        self.f, self.fac = f, fac
+
+    def eval(self, X):
+        return self.fac * self.f.eval(X)
+
+
+class prodFunction(function):
+    def __init__(self, f, g):
+        self.f, self.g = f, g
+
+    def eval(self, X):
+        return self.f.eval(X) * self.g.eval(X)
 
 
 class constant(function):
@@ -41,6 +90,19 @@ class Lambda(function):
 
     def eval(self, X):
         return np.array([self.fun(x) for x in X], dtype=np.float64)
+
+
+class squareIndicator(function):
+    """1 on the box a <= x <= b (componentwise), else 0."""
+
+    def __init__(self, a, b):
+        self.a = np.asarray(a, dtype=np.float64)
+        self.b = np.asarray(b, dtype=np.float64)
+
+    def eval(self, X):
+        inside = np.all((X >= self.a[None, :]) & (X <= self.b[None, :]),
+                        axis=1)
+        return inside.astype(np.float64)
 
 
 class radialIndicator(function):
@@ -69,3 +131,13 @@ class solFractional(function):
         r2 = np.sum(X ** 2, axis=1) / self.radius ** 2
         val = np.maximum(1.0 - r2, 0.0) ** self.s
         return self.C * self.radius ** (2.0 * self.s) * val
+
+
+def asFunction(f):
+    if isinstance(f, function):
+        return f
+    if np.isscalar(f):
+        return constant(f)
+    if callable(f):
+        return Lambda(f)
+    raise TypeError(f)

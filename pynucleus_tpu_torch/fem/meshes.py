@@ -1,10 +1,13 @@
 """Simplex meshes (1D/2D), uniform refinement, boundary facets, surface mesh.
 
-Carried over from pynucleus_tpu/fem/meshes.py (host numpy): the slice needs
-simpleInterval, the disc (circle + radialMeshTransformer), red refinement,
-the boundary facets of the default PHYSICAL tag and the outward-oriented
-surface mesh of the zero-exterior term.  Vertex and cell numbering are those
-of the JAX package, so both packages refine to identical meshes.
+Carried over from pynucleus_tpu/fem/meshes.py (host numpy): simpleInterval,
+the disc (circle + radialMeshTransformer), the uniform square and the
+interval and square extended by an interaction collar of width horizon
+(intervalWithInteraction, uniformSquare, squareWithInteractions), red
+refinement, the boundary facets of the default PHYSICAL tag and the
+outward-oriented surface mesh of the zero-exterior term.  Vertex and cell
+numbering are those of the JAX package, so both packages refine to
+identical meshes.
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ PHYSICAL = 0
 NO_BOUNDARY = np.iinfo(np.int32).min
 
 __all__ = ['simplexMesh', 'simpleInterval', 'circle', 'radialMeshTransformer',
-           'PHYSICAL', 'NO_BOUNDARY']
+           'intervalWithInteraction', 'uniformSquare',
+           'squareWithInteractions', 'PHYSICAL', 'NO_BOUNDARY']
 
 
 class simplexMesh:
@@ -208,6 +212,73 @@ def simpleInterval(a=0.0, b=1.0, numCells=1):
     vertices = np.linspace(a, b, numCells + 1).reshape(-1, 1)
     cells = np.stack([np.arange(numCells), np.arange(1, numCells + 1)], axis=1)
     return simplexMesh(vertices, cells, dim=1)
+
+
+def intervalWithInteraction(a=-1.0, b=1.0, horizon=0.1, h=None):
+    """[a-horizon, b+horizon] with vertices at a and b.  The default mesh
+    size is the horizon, so that after uniform refinement the horizon stays
+    an exact multiple of h."""
+    if h is None:
+        h = horizon if horizon > 0 else (b - a)
+    numCells = int(np.ceil((b - a) / h - 1e-8))
+    hh = (b - a) / numCells
+    numInt = max(int(np.ceil(horizon / hh - 1e-8)), 1) if horizon > 0 else 0
+    left = a - horizon + (horizon / numInt) * np.arange(numInt) if numInt \
+        else np.zeros((0,))
+    mid = a + hh * np.arange(numCells + 1)
+    right = b + (horizon / numInt) * np.arange(1, numInt + 1) if numInt \
+        else np.zeros((0,))
+    verts = np.concatenate([left, mid, right]).reshape(-1, 1)
+    n = len(verts)
+    cells = np.stack([np.arange(n - 1), np.arange(1, n)], axis=1)
+    return simplexMesh(verts, cells, dim=1)
+
+
+def _crossedGrid(xs, ys):
+    """Triangles of the vertex grid xs x ys, the diagonal of each square
+    alternating in a checkerboard."""
+    X, Y = np.meshgrid(xs, ys, indexing='ij')
+    vertices = np.stack([X.ravel(), Y.ravel()], axis=1)
+    N, M = len(xs), len(ys)
+
+    def vid(i, j):
+        return i * M + j
+
+    cells = []
+    for i in range(N - 1):
+        for j in range(M - 1):
+            v00, v10 = vid(i, j), vid(i + 1, j)
+            v01, v11 = vid(i, j + 1), vid(i + 1, j + 1)
+            if (i + j) % 2 == 0:
+                cells.append([v00, v10, v11])
+                cells.append([v00, v11, v01])
+            else:
+                cells.append([v10, v11, v01])
+                cells.append([v10, v01, v00])
+    return simplexMesh(vertices, np.array(cells, dtype=INDEX), dim=2)
+
+
+def uniformSquare(N=2, M=None, ax=0.0, ay=0.0, bx=1.0, by=1.0):
+    """N x M vertex grid of crossed triangles."""
+    if M is None:
+        M = N
+    return _crossedGrid(np.linspace(ax, bx, N), np.linspace(ay, by, M))
+
+
+def squareWithInteractions(ax=-1., ay=-1., bx=1., by=1., horizon=0.1, h=None):
+    """The square extended by the horizon: a uniform grid over the
+    extended box with grid lines on the inner square's boundary."""
+    if h is None:
+        h = horizon
+
+    def axis(lo, hi):
+        nIn = max(int(np.ceil((hi - lo) / h)), 1)
+        inner = np.linspace(lo, hi, nIn + 1)
+        nH = max(int(np.ceil(horizon / h)), 1)
+        left = lo - horizon + (horizon / nH) * np.arange(nH)
+        right = hi + (horizon / nH) * np.arange(1, nH + 1)
+        return np.concatenate([left, inner, right])
+    return _crossedGrid(axis(ax, bx), axis(ay, by))
 
 
 def circle(n=8, radius=1.0, h=None):

@@ -1,7 +1,8 @@
 """Build the port's objects from plain arrays.
 
-The state of this system is the mesh, the dofmap and the kernel
-parameters, and for an assembled H2 operator its tree-ordered near field,
+The state of this system is the mesh, the dofmap (with its interior
+vertices) and the kernel parameters (type, horizon, interaction, scaling,
+order), and for an assembled H2 operator its tree-ordered near field,
 leaf data and per-level far-field data.  ``fromArrays`` builds the port's
 mesh, P1 dofmap and kernel from numpy arrays, such as the
 ``vertices``/``cells`` of a JAX package mesh, so that both packages
@@ -22,20 +23,45 @@ from .config import getDevice
 
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
-from .nl.kernels import getFractionalKernel
+from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
+                         interactionFactory)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .base.linear_operators import CSR_LinearOperator
 
 __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays']
 
 
-def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda'):
-    """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells),
-    P1_DoFMap on the PHYSICAL boundary tag, and the fractional kernel of
-    order s (normalized unless ``scaling`` is given)."""
+def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
+               kernelType='fractional', horizon=np.inf, interaction='ball2',
+               normalized=True, interior=None):
+    """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
+    P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
+    with ``interior`` (a boolean mask of the vertices) the interior
+    vertices of a volume constraint, as a function tag of the JAX package
+    marks them.  The kernel: the fractional kernel of order s (normalized
+    unless ``scaling`` is given), or of a finite ``horizon`` the
+    fractional, indicator ('constant') or peridynamic ('inverseDistance')
+    kernel with the ball2 or ballInf ``interaction`` (nl.problems
+    processKernel)."""
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
-    dm = P1_DoFMap(mesh, PHYSICAL, device=device)
-    return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
+    dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
+                   np.asarray(interior, dtype=bool), device=device)
+    if horizon == np.inf:
+        if kernelType != 'fractional':
+            raise NotImplementedError(f'{kernelType} with an infinite '
+                                      'horizon')
+        return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
+    inter = interactionFactory[interaction]()
+    if kernelType == 'fractional':
+        kernel = getFractionalKernel(dim, s, horizon=horizon,
+                                     interaction=inter, scaling=scaling,
+                                     normalized=normalized)
+    else:
+        kernel = getIntegrableKernel(
+            dim, {'constant': 'indicator', 'inverseDistance': 'peridynamic'}
+            .get(kernelType, kernelType), horizon, interaction=inter,
+            scaling=scaling, normalized=normalized)
+    return mesh, dm, kernel
 
 
 def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Thirteen kernels carry the port's device work:
+Fifteen kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
-                    pairs, scattered into dense A or into CSR data at
-                    explicit or arithmetic tree slots
+                    pairs (times the interaction indicator of a finite
+                    horizon), scattered into dense A, into CSR data at
+                    explicit or arithmetic tree slots, or into the interior
+                    x boundary coupling A_BC
   K2 grid_distant   (csrc/grid_distant.cu)   cell-pair grid over one f32
                     distance window (dense)
   K3 grid_boundary  (csrc/grid_boundary.cu)  zero-exterior surface term
@@ -29,18 +31,24 @@ Thirteen kernels carry the port's device work:
                     quadrature of orders 2-8 into per-pair tree blocks
   K13 tree_csr_quad (csrc/near_enum.cu)      H2 host-enumeration engine:
                     quadrature of host-listed elements into tree slots
+  K14 cut1d         (csrc/cut_cells.cu)      1D pairs cut by the horizon:
+                    exact interval clipping
+  K15 cut2d_polar   (csrc/cut_cells.cu)      2D pairs cut by the horizon:
+                    kink-split polar rays clipped to the cell and the ball
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
-package has the program they replace: K1-K3, K5-K7 and K11-K13 in
+package has the program they replace: K1-K3, K5-K7 and K11-K15 in
 nl/assembly.py, K4 in base/solvers.py, K8 in nl/h2.py, K9 in
-base/linear_operators.py, K10 in multilevel/gmg.py.  A wrapper runs the plain version only for
-tensors on the CPU; on a CUDA tensor it launches its kernel or raises.
+base/linear_operators.py, K10 in multilevel/gmg.py.  A wrapper runs the
+plain version only for tensors on the CPU; on a CUDA tensor it launches
+its kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
-plain int each, bumped by the wrapper where it launches).  K1's three
+plain int each, bumped by the wrapper where it launches).  K1's four
 scatter targets are also counted apart, under ``panel_scatter:dense``,
-``:slots`` and ``:tree``, and K4's two forms under ``pcg_update:jacobi``
-and ``:general``.  ``deviceLaunches`` counts, per kernel, the CUDA
+``:slots``, ``:tree`` and ``:cross``, and K4's two forms under
+``pcg_update:jacobi`` and ``:general``.  ``deviceLaunches`` counts, per
+kernel, the CUDA
 launches those calls made: one per call, except for K2 (two), K4 (three
 in the Jacobi form, four in the general form) and K8 (one per pass that
 has work, as the C entry point reports: at most 2 nLvl + 2 for an
@@ -48,7 +56,9 @@ operator of nLvl levels).  ``resetLaunches`` zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
-ctypes); only sources in this directory are used.
+ctypes); only sources in this directory are used.  cut_cells.cu is
+compiled with -fmad=false (its branch decisions must round as the plain
+versions' separate operations do).
 """
 from __future__ import annotations
 
@@ -61,9 +71,9 @@ import tempfile
 KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
            'csr_spmv', 'jacobi_smooth', 'block_near_count', 'block_near_quad',
-           'tree_csr_quad')
+           'tree_csr_quad', 'cut1d', 'cut2d_polar')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
-              'panel_scatter:tree')
+              'panel_scatter:tree', 'panel_scatter:cross')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K4_FORMS}
 deviceLaunches = {k: 0 for k in KERNELS}
@@ -73,7 +83,9 @@ CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
-           'near_block.cu')
+           'near_block.cu', 'cut_cells.cu')
+# flags of one source on top of NVCC_FLAGS
+SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',)}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -96,9 +108,10 @@ def buildLibrary(verbose=False):
     """Compile the CUDA sources (once per source content) and return the
     path of the shared library.  One nvcc per source, all started
     together, then one link: on the H100 machine (8 cores) the cold build
-    of the seven sources took 9.2 s, where one nvcc over the first three
+    of seven sources took 9.2 s, where one nvcc over the first three
     alone had taken 15.0 s."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + ('common.cuh',):
         with open(os.path.join(CSRC, name), 'rb') as f:
             h.update(f.read())
@@ -109,7 +122,8 @@ def buildLibrary(verbose=False):
     extra = ['-Xptxas=-v'] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s.replace('.cu', '.o')) for s in SOURCES]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, *extra, '-c',
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS,
+                                   *SOURCE_FLAGS.get(s, ()), *extra, '-c',
                                    os.path.join(CSRC, s), '-o', o],
                                   stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
@@ -139,9 +153,12 @@ def _declare(lib):
     F = ctypes.c_float
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, inter, h2, stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, D, D, P],
+                          P, P, P, P, I, D, D, I, D, P],
+        # A_BC, NB, then as panel_scatter
+        'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                P, P, P, P, I, D, D, I, D, P],
         # A, N, X, Q, dim, ccf, vols, dofs, dpe, C, PhiXw, PhiX, PsiYw, w,
         # t_lo, t_hi, Cg, e, R, stream
         'grid_distant': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
@@ -151,9 +168,17 @@ def _declare(lib):
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, D, D, I, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, inter, h2, stream
         'panel_scatter_slots': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, D, D, P],
+                                P, P, P, P, I, D, D, I, D, P],
+        # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
+        # wq, Qx, ur, wr, Qy, horizon, C, e, stream
+        'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
+        # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P,
+        # bary_x, wx, Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter, C,
+        # e, stream
+        'cut2d_polar': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, P, P,
+                        I, D, I, D, D, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
         # tStart, bary_x, bary_y, w, PSIP, Q, C, e, stream

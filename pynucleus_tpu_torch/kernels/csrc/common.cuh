@@ -116,11 +116,33 @@ struct EnumTables {
     float s, c, lH0;
 };
 
-// K1's quadrature body, shared by its three scatter targets and by K6, K12
-// and K13:
+// Largest (negative) dof code that is a boundary dof -d-1 and not DROP:
+// DROP is int32 min // 2 (pynucleus_tpu/nl/assembly.py), and a cross-target
+// column c is kept iff DROP_HALF < c < 0, as BCAccumulator.add does.
+constexpr long long DROP_HALF = -536870912LL;
+
+// Interaction indicator of a finite horizon at one node pair
+// (pynucleus_tpu/nl/kernels.py jaxIndicator): code 1 ball2, |x-y|^2 < h2;
+// code 2 ballInf, max_d |x_d-y_d|^2 < h2; code 0 the full space.  Products
+// and sums round separately (no FMA), as the plain versions' operations do.
+__device__ __forceinline__ bool inBall(int code, const double* x,
+                                       const double* y, int dim, double h2) {
+    if (code == 0) return true;
+    double r2 = 0.0, m = 0.0;
+    for (int d = 0; d < dim; ++d) {
+        const double dd = __dsub_rn(x[d], y[d]);
+        r2 = __dadd_rn(r2, __dmul_rn(dd, dd));
+        m = fmax(m, fabs(dd));
+    }
+    return code == 1 ? r2 < h2 : __dmul_rn(m, m) < h2;
+}
+
+// K1's quadrature body, shared by its scatter targets and by K6, K12 and
+// K13:
 // lanes lane, lane+nl, ... of the pair's Q nodes accumulate
 //   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v]
-//   t_q = gamma(|x_q-y_q|^2) w_q (* n.(y_q-x_q)/|y_q-x_q|) volsym
+//   t_q = gamma(|x_q-y_q|^2) w_q (* n.(y_q-x_q)/|y_q-x_q|)
+//         (* chi(x_q, y_q) for a finite horizon, inter != 0) volsym
 //   acc[k] += t_q PSIP[q, k]
 // (acc zeroed here); the caller reduces across its nl lanes.
 template <int NN>
@@ -130,7 +152,7 @@ __device__ __forceinline__ void panelQuad(
     const double* nrm /* [dim] or nullptr */, double vs,
     const double* __restrict__ bary_x, const double* __restrict__ bary_y,
     const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
-    double C, double e, int lane, int nl) {
+    double C, double e, int lane, int nl, int inter = 0, double h2 = 0.0) {
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = 0.0;
     for (int q = lane; q < Q; q += nl) {
@@ -146,6 +168,7 @@ __device__ __forceinline__ void panelQuad(
             r2 += dd * dd;
         }
         double t = radial(r2, C, e) * w[q];
+        if (!inBall(inter, x, y, dim, h2)) t = 0.0;
         if (nrm != nullptr) {
             double fac = 0.0;
             if (r2 > 0.0) {

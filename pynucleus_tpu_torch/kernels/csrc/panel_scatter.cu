@@ -1,5 +1,6 @@
 // K1 panel_scatter: batched panel quadrature of explicit element pairs,
-// scattered into the dense operator or into the H2 near-field CSR data.
+// scattered into the dense operator, into CSR data (the H2 near field, the
+// sparse format) or into the interior x boundary coupling A_BC.
 //
 // Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib (+ the dense
 // scatter _device_scatter_rows), _bucket_natural_scatter_scan,
@@ -7,8 +8,9 @@
 // _bucket_surface_tree_scan.  For pair p with simplices vi1[p], vi2[p]:
 //   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
 //   t_q = gamma(|x_q-y_q|^2) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
+//         (* chi(x_q, y_q), the interaction indicator of a finite horizon)
 //   M[I,J] = sum_q t_q PSIP[q, I*nPSI+J]
-// One quadrature body (common.cuh panelQuad), three epilogues:
+// One quadrature body (common.cuh panelQuad), four epilogues:
 //   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
 //          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
 //   SLOTS  data[slots[p, I*nPSI+J]] += M[I,J]       for 0 <= slot < nnz
@@ -16,6 +18,9 @@
 //   TREE   data[treeSlot(dofRows[p,I], dofRows[p,J]; I_p, J_p, offF_p,
 //          offB_p)] += M[I,J] (union surfaces; the slot is arithmetic in the
 //          tree-ordered CSR, see common.cuh treeSlot)
+//   CROSS  A[dofRows[p,I], -dofRows[p,J]-1] += M[I,J]  for an interior row
+//          (>= 0) and a boundary column (DROP_HALF < c < 0): A_BC [N, NB]
+//          of pynucleus_tpu/nl/assembly.py:getDenseCross / BCAccumulator
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
@@ -26,11 +31,12 @@
 
 #include "common.cuh"
 
-enum Target { DENSE = 0, SLOTS = 1, TREE = 2 };
+enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3 };
 
 template <int NPSI, int TARGET>
 __global__ void __launch_bounds__(256)
-panel_scatter_kernel(double* __restrict__ out, long long N /* dense: N; CSR: nnz */,
+panel_scatter_kernel(double* __restrict__ out,
+                     long long N /* dense: N; CSR: nnz; cross: NB */,
                      const double* __restrict__ vertices, int dim,
                      const long long* __restrict__ vi1, int nv1,
                      const long long* __restrict__ vi2, int nv2,
@@ -45,7 +51,7 @@ panel_scatter_kernel(double* __restrict__ out, long long N /* dense: N; CSR: nnz
                      const double* __restrict__ bary_y,
                      const double* __restrict__ w,
                      const double* __restrict__ PSIP, int Q,
-                     double C, double e) {
+                     double C, double e, int inter, double h2) {
     constexpr int NN = NPSI * NPSI;
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
@@ -61,7 +67,7 @@ panel_scatter_kernel(double* __restrict__ out, long long N /* dense: N; CSR: nnz
     double acc[NN];
     panelQuad<NN>(acc, v1, nv1, v2, nv2, dim,
                   normals != nullptr ? nrm : nullptr, volsym[pair], bary_x,
-                  bary_y, w, PSIP, Q, C, e, lane, 32);
+                  bary_y, w, PSIP, Q, C, e, lane, 32, inter, h2);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
@@ -80,6 +86,11 @@ panel_scatter_kernel(double* __restrict__ out, long long N /* dense: N; CSR: nnz
             const long long* dr = dofRows + pair * NPSI;
             const long long r = dr[k / NPSI], c = dr[k % NPSI];
             if (r >= 0 && c >= 0) atomicAdd(out + r * N + c, acc[k]);
+        } else if (TARGET == CROSS) {
+            const long long* dr = dofRows + pair * NPSI;
+            const long long r = dr[k / NPSI], c = dr[k % NPSI];
+            if (r >= 0 && c < 0 && c > DROP_HALF)
+                atomicAdd(out + r * N - c - 1, acc[k]);
         } else {
             const long long s = slots[pair * NN + k];
             if (s >= 0 && s < N) atomicAdd(out + s, acc[k]);
@@ -101,7 +112,7 @@ static int launchPanel(double* out, long long N, const double* vertices,
                        const int* offF, const int* offB, TreeTables tt,
                        const double* bary_x, const double* bary_y,
                        const double* w, const double* PSIP, int Q, double C,
-                       double e, cudaStream_t stream) {
+                       double e, int inter, double h2, cudaStream_t stream) {
     if (P <= 0) return 0;
     if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -112,7 +123,8 @@ static int launchPanel(double* out, long long N, const double* vertices,
     panel_scatter_kernel<NP, TARGET><<<(unsigned)blocks, threads, 0,       \
                                        stream>>>(                          \
         out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
-        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, C, e)
+        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, C, e, \
+        inter, h2)
     switch (nPSI) {
         case 2: LAUNCH(2); break;
         case 3: LAUNCH(3); break;
@@ -132,12 +144,29 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          long long P, const double* bary_x,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, double C, double e,
-                         cudaStream_t stream) {
+                         int inter, double h2, cudaStream_t stream) {
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
-                              stream);
+                              inter, h2, stream);
+}
+
+EXPORT int panel_scatter_cross(double* A, long long NB,
+                               const double* vertices, int dim,
+                               const long long* vi1, int nv1,
+                               const long long* vi2, int nv2,
+                               const long long* dofRows, int nPSI,
+                               const double* volsym, const double* normals,
+                               long long P, const double* bary_x,
+                               const double* bary_y, const double* w,
+                               const double* PSIP, int Q, double C, double e,
+                               int inter, double h2, cudaStream_t stream) {
+    return launchPanel<CROSS>(A, NB, vertices, dim, vi1, nv1, vi2, nv2,
+                              dofRows, nullptr, nPSI, volsym, normals, P,
+                              nullptr, nullptr, nullptr, nullptr,
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
+                              inter, h2, stream);
 }
 
 EXPORT int panel_scatter_slots(double* data, long long nnz,
@@ -149,12 +178,12 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                long long P, const double* bary_x,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, double C, double e,
-                               cudaStream_t stream) {
+                               int inter, double h2, cudaStream_t stream) {
     return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
-                              stream);
+                              inter, h2, stream);
 }
 
 EXPORT int panel_scatter_tree(double* data, long long nnz,
@@ -174,5 +203,6 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                              dofRows, nullptr, nPSI, volsym, normals, P, I,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
-                             bary_x, bary_y, w, PSIP, Q, C, e, stream);
+                             bary_x, bary_y, w, PSIP, Q, C, e, 0, 0.0,
+                             stream);
 }

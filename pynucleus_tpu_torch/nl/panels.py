@@ -1,13 +1,16 @@
 """Host-side element-pair classification into panel buckets (numpy).
 
 Carried over from pynucleus_tpu/nl/panels.py: the grid classification of
-the dense assembly (classifyPairsDenseGrid), the zero-exterior boundary
-classification and the shared-vertex permutations.  The port must partition
-the cell pairs exactly as the JAX package does, so the partitioning code is
-unchanged; only the shared-vertex permutations come back per pattern group
-instead of one tuple per pair.  Every pair is classified up front with vectorized numpy, permuted so shared
-vertices come first, and grouped into buckets that each map to ONE batched
-device kernel launch:
+the dense assembly (classifyPairsDenseGrid), the classification of all cell
+pairs with the horizon screen of a finite horizon (classifyPairsDense,
+_horizonScreen: pairs fully inside, cut by, or beyond the horizon), the
+zero-exterior boundary classification and the shared-vertex permutations.
+The port must partition the cell pairs exactly as the JAX package does, so
+the partitioning code is unchanged; only the shared-vertex permutations
+come back per pattern group instead of one tuple per pair.  Every pair is
+classified up front with vectorized numpy, permuted so shared vertices come
+first, and grouped into buckets that each map to ONE batched device kernel
+launch:
 
   bucket = (rule tables, vertIdx1 [P,nv1], vertIdx2 [P,nv2],
             dofRows [P,nPSI] global dofs (or DROP), volsym [P])
@@ -20,8 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ['permuteLocalDofs', 'classifyPairsDenseGrid', 'classifyPairList',
-           'classifyBoundaryPairs']
+__all__ = ['permuteLocalDofs', 'classifyPairsDense', 'classifyPairsDenseGrid',
+           'classifyPairList', 'classifyBoundaryPairs']
 
 
 def permuteLocalDofs(dm, perm):
@@ -213,6 +216,63 @@ def classifyPairList(dm, kernel, pi, pj, target_order=None):
             'touching': (touching_pairs, sharedInfo),
             'distant': (di, dj, orders),
             **mp}
+
+
+def classifyPairsDense(dm, kernel, target_order=None):
+    """Classify all (i <= j) cell pairs for a symmetric kernel.
+
+    Returns dict with keys:
+      'id'        -> ids of identical-cell pairs
+      'touching'  -> (pairs, (lut, group)) touching pairs with shared-vertex
+                     perms
+      'distant'   -> (i, j, orders) per remaining pair (horizon-screened)
+      'cut'       -> (i, j, orders) of the pairs cut by a finite horizon
+      plus the order-model scalars.
+    """
+    mesh = dm.mesh
+    cells = mesh.cells
+    C = mesh.num_cells
+    verts = mesh.vertices
+    mp = orderModelParams(dm, kernel, target_order)
+
+    touching_pairs = _cellAdjacency(cells, mesh.num_vertices)
+    sharedInfo = _sharedVertices(cells, touching_pairs)
+
+    centers = verts[cells].mean(axis=1)                       # [C, dim]
+    hs = _cellDiameter(verts, cells)                          # [C]
+
+    iu, ju = np.triu_indices(C, k=1)
+    mask_touch = np.zeros(len(iu), dtype=bool)
+    if len(touching_pairs):
+        keys = iu.astype(np.int64) * C + ju.astype(np.int64)
+        tkeys = touching_pairs[:, 0] * C + touching_pairs[:, 1]
+        mask_touch = np.isin(keys, tkeys)
+    di = iu[~mask_touch]
+    dj = ju[~mask_touch]
+
+    # horizon screening (extreme distances; ref getPanelType + IGNORED);
+    # pairs CUT by the horizon get exact interval clipping (1D) instead of
+    # the discontinuous-indicator quadrature (ref interactionDomains
+    # retriangulation)
+    ci = cj = np.zeros(0, dtype=np.int64)
+    if kernel.finiteHorizon and len(di):
+        di, dj, ci, cj = _horizonScreen(verts, cells, centers, di, dj,
+                                        kernel)
+
+    orders = distantOrders(dm, kernel, hs, centers, di, dj, mp) \
+        if len(di) else np.zeros(0, dtype=np.int64)
+    orders = ((orders + 1) // 2) * 2
+    cutOrders = distantOrders(dm, kernel, hs, centers, ci, cj, mp) \
+        if len(ci) else np.zeros(0, dtype=np.int64)
+    cutOrders = np.minimum(((cutOrders + 1) // 2) * 2 + 2, 16)
+
+    return {
+        'id': np.arange(C, dtype=np.int64),
+        'touching': (touching_pairs, sharedInfo),
+        'distant': (di, dj, orders),
+        'cut': (ci, cj, cutOrders),
+        **mp,
+    }
 
 
 def _d2f32(centers32, ii, jj):
@@ -417,6 +477,64 @@ def _cellDiameter(verts, cells):
         for j in range(i + 1, m + 1):
             h = np.maximum(h, np.linalg.norm(V[:, i] - V[:, j], axis=1))
     return h
+
+
+def _horizonScreen(verts, cells, centers, di, dj, kernelOrHv):
+    """Split non-touching pairs into fully-within-horizon (di, dj) and
+    horizon-cut (ci, cj); pairs entirely beyond the horizon are dropped
+    (ref getPanelType IGNORED, interactionDomains getRelativePosition).
+
+    For non-Euclidean interaction balls (ballInf) the screen uses the
+    enclosed/enclosing Euclidean radii ball2(rIn) <= interaction <=
+    ball2(rOut): pairs with dmin >= rOut cannot interact, pairs with
+    dmax < rIn interact fully, everything between is treated as cut.
+
+    A cheap center-distance screen with cell radii r = max|v - center|
+    bounds dc - ri - rj <= dmin <= dmax <= dc + ri + rj, so the exact
+    O(nv^2) vertex-pair distances are only computed on the ambiguous band
+    around the horizon."""
+    if np.isscalar(kernelOrHv):
+        rIn = rOut = kernelOrHv
+    elif getattr(kernelOrHv, 'variableHorizon', False):
+        raise NotImplementedError('variable horizon')
+    else:
+        kernel = kernelOrHv
+        hv = kernel.horizonValue
+        dim = verts.shape[1]
+        inter = kernel.interaction
+        rIn = inter.innerRadius2(hv, dim)
+        rOut = inter.outerRadius2(hv, dim)
+    radii = np.linalg.norm(
+        verts[cells] - centers[:, None, :], axis=-1).max(axis=1)
+    dc = np.linalg.norm(centers[di] - centers[dj], axis=-1)
+    rsum = radii[di] + radii[dj]
+    sureIgnored = dc - rsum >= rOut        # implies dmin >= rOut
+    sureInside = dc + rsum < rIn           # implies dmax < rIn
+    band = ~(sureIgnored | sureInside)
+    bi, bj = di[band], dj[band]
+    dmin = _pairMinDistance(verts, cells, bi, bj)
+    dmax = _pairMaxDistance(verts, cells, bi, bj)
+    keep = dmin < rOut
+    cut = keep & (dmax >= rIn)
+    bandFull = keep & ~cut
+    full = np.zeros(len(di), dtype=bool)
+    full[~band] = sureInside[~band]
+    full[band] = bandFull
+    return di[full], dj[full], bi[cut], bj[cut]
+
+
+def _pairMaxDistance(verts, cells, di, dj):
+    V1 = verts[cells[di]]
+    V2 = verts[cells[dj]]
+    D = V1[:, :, None, :] - V2[:, None, :, :]
+    return np.sqrt((D ** 2).sum(axis=-1)).max(axis=(1, 2))
+
+
+def _pairMinDistance(verts, cells, di, dj):
+    V1 = verts[cells[di]]                                     # [P, nv, dim]
+    V2 = verts[cells[dj]]
+    D = V1[:, :, None, :] - V2[:, None, :, :]
+    return np.sqrt((D ** 2).sum(axis=-1)).min(axis=(1, 2))
 
 
 def _boundaryOrderModel(d, h1, h2, sval, c0, H0, horizon, hcut=None):

@@ -1,21 +1,40 @@
-"""Fractional Laplacian problems on the interval and the disc.
+"""Nonlocal problems: the fractional Laplacian on the interval and the disc
+(infinite horizon) and the finite-horizon nonlocal Poisson problems on the
+interval and the square with an interaction collar.
 
-Port of the infinite-horizon ``problem constant`` cases of
-pynucleus_tpu/nl/problems.py (fractionalLaplacianProblem and the
-nonlocalMeshFactory entries 'interval' and 'disc') as a plain function;
-the ``@generates`` DAG of the JAX package's driver comes in a later port.
+Port of pynucleus_tpu/nl/problems.py as plain functions (the ``@generates``
+DAG of the JAX package's drivers is not ported): the infinite-horizon
+``problem constant`` of fractionalLaplacianProblem; nonlocalMeshFactory's
+'interval' and 'square' entries with their indicators
+(intervalIndicators, squareIndicators, :44-168); processKernel (:214-236);
+nonlocalPoissonProblem (:416-566) with the ``poly-Dirichlet`` and
+``constant`` problems (``poly-Neumann`` needs the Sum operator and is not
+ported).
 """
 from __future__ import annotations
 
 import numpy as np
 from scipy.special import gamma as Gamma
 
-from ..fem.meshes import simpleInterval, circle, PHYSICAL
+from ..fem.meshes import (simpleInterval, circle, intervalWithInteraction,
+                          squareWithInteractions, PHYSICAL, NO_BOUNDARY)
 from ..fem.dofmaps import P1_DoFMap
-from ..fem.functions import constant, solFractional
-from .kernels import constFractionalOrder, getFractionalKernel
+from ..fem.functions import (constant, Lambda, squareIndicator,
+                             solFractional)
+from .kernels import (constFractionalOrder, getFractionalKernel,
+                      getIntegrableKernel, ball2, ballInf, FRACTIONAL)
 
-__all__ = ['parseFractionalOrder', 'defaultNoRef', 'fractionalLaplacianProblem']
+__all__ = ['parseFractionalOrder', 'defaultNoRef',
+           'fractionalLaplacianProblem', 'nonlocalMesh', 'processKernel',
+           'nonlocalPoissonProblem', 'defaultNoRefNonlocal', 'DIRICHLET',
+           'NEUMANN', 'HOMOGENEOUS_DIRICHLET', 'HOMOGENEOUS_NEUMANN',
+           'KERNEL_TYPES']
+
+# boundary condition enums (pynucleus_tpu/nl/problems.py)
+DIRICHLET = 0
+NEUMANN = 1
+HOMOGENEOUS_DIRICHLET = 2
+HOMOGENEOUS_NEUMANN = 3
 
 
 def parseFractionalOrder(sArg):
@@ -82,3 +101,142 @@ def fractionalLaplacianProblem(domain, s, problem='constant'):
             'tag': PHYSICAL,
             'zeroExterior': True,
             'problemDescription': 'constant rhs, homogeneous Dirichlet'}
+
+
+# ------------------------------------------------------ finite horizon ----
+
+def intervalIndicators(a=-1.0, b=1.0):
+    eps = 1e-12
+    domainIndicator = squareIndicator(np.array([a + eps]), np.array([b - eps]))
+    interactionIndicator = Lambda(
+        lambda x: 1.0 if (x[0] < a - eps or x[0] > b + eps) else 0.0)
+    boundaryIndicator = Lambda(
+        lambda x: 1.0 if (abs(x[0] - a) < eps or abs(x[0] - b) < eps) else 0.0)
+    return domainIndicator, boundaryIndicator, interactionIndicator
+
+
+def squareIndicators(ax=-1.0, ay=-1.0, bx=1.0, by=1.0):
+    eps = 1e-12
+    domainIndicator = squareIndicator(np.array([ax + eps, ay + eps]),
+                                      np.array([bx - eps, by - eps]))
+    interactionIndicator = constant(1.0) - squareIndicator(
+        np.array([ax - eps, ay - eps]), np.array([bx + eps, by + eps]))
+    boundaryIndicator = constant(1.0) - domainIndicator - interactionIndicator
+    return domainIndicator, boundaryIndicator, interactionIndicator
+
+
+# name -> (dim, mesh with collar, indicators, domain parameters)
+_DOMAINS = {
+    'interval': (1, intervalWithInteraction, intervalIndicators,
+                 {'a': -1.0, 'b': 1.0}),
+    'square': (2, squareWithInteractions, squareIndicators,
+               {'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}),
+}
+
+
+def _domain(name):
+    if name not in _DOMAINS:
+        raise NotImplementedError(f'domain {name!r} with a collar (the disc '
+                                  'is not ported)')
+    return _DOMAINS[name]
+
+
+def nonlocalMesh(domain, kernel, boundaryCondition):
+    """(mesh, info) of pynucleus_tpu/nl/problems.py nonlocalMeshFactory
+    .build for the finite-horizon boundary conditions: the domain with its
+    interaction collar of width horizon, and the domain, boundary and
+    interaction indicators."""
+    dim, meshCollar, indicators, params = _domain(domain)
+    horizonValue = kernel.horizonValue
+    if not 0 < horizonValue < np.inf:
+        raise NotImplementedError('a finite horizon is expected')
+    if boundaryCondition == HOMOGENEOUS_DIRICHLET:
+        tag = PHYSICAL
+    elif boundaryCondition == DIRICHLET:
+        tag = NO_BOUNDARY
+    else:
+        raise NotImplementedError(f'boundary condition {boundaryCondition}')
+    domainIndicator, boundaryIndicator, interactionIndicator = indicators()
+    mesh = meshCollar(horizon=horizonValue, **params)
+    while P1_DoFMap(mesh, tag, device='cpu').num_dofs == 0:
+        mesh = mesh.refine()
+    return mesh, {'domain': domainIndicator, 'boundary': boundaryIndicator,
+                  'interaction': interactionIndicator, 'tag': tag,
+                  'zeroExterior': False}
+
+
+# the driver's kernel types: the fractional kernel and the integrable ones
+KERNEL_TYPES = ('fractional', 'constant', 'indicator', 'inverseDistance',
+                'peridynamic')
+
+
+def processKernel(domain, kernelType, s, horizon, interaction='ball2',
+                  normalized=True):
+    """The kernel of the driver's flags (pynucleus_tpu/nl/problems.py
+    processKernel): a finite horizon takes the ball2 or ballInf
+    interaction (ball2 for any other name), 'constant' is the indicator
+    kernel and 'inverseDistance' the peridynamic one."""
+    dim = _domain(domain)[0]
+    inter = None
+    if horizon != np.inf:
+        inter = {'ball2': ball2(), 'ballInf': ballInf()}.get(interaction,
+                                                             ball2())
+    if kernelType == 'fractional':
+        return getFractionalKernel(dim, parseFractionalOrder(s),
+                                   horizon=horizon, interaction=inter,
+                                   normalized=normalized)
+    if kernelType not in KERNEL_TYPES:
+        raise NotImplementedError(f'kernelType {kernelType!r}')
+    kname = {'constant': 'indicator',
+             'inverseDistance': 'peridynamic'}.get(kernelType, kernelType)
+    return getIntegrableKernel(dim, kname, horizon, interaction=inter,
+                               normalized=normalized)
+
+
+def defaultNoRefNonlocal(domain):
+    """Refinement count of runNonlocal's default."""
+    return {'interval': 8, 'square': 2, 'disc': 4}[domain]
+
+
+def nonlocalPoissonProblem(domain, kernelType='constant', s='const(0.4)',
+                           horizon=0.2, interaction='ball2', normalized=True,
+                           problem='poly-Dirichlet'):
+    """Finite-horizon nonlocal Poisson problem: a dict with the kernel, the
+    coarse mesh with its collar, the dof tag (the domain indicator), the
+    boundary condition, rhs, Dirichlet data and analytic solution.
+
+    poly-Dirichlet is the quadratic patch test: for any normalized kernel
+    the nonlocal operator reproduces -Laplacian on quadratics, so
+    u = 1 - |x|^2, extended into the collar as Dirichlet data, is solved to
+    machine precision."""
+    kernel = processKernel(domain, kernelType, s, horizon, interaction,
+                           normalized)
+    dim = kernel.dim
+    if problem == 'poly-Dirichlet':
+        boundaryCondition = DIRICHLET
+    elif problem == 'constant':
+        boundaryCondition = HOMOGENEOUS_DIRICHLET
+    else:
+        raise NotImplementedError(f'problem {problem!r} (poly-Neumann needs '
+                                  'the Sum operator)')
+    mesh, info = nonlocalMesh(domain, kernel, boundaryCondition)
+    out = {'kernel': kernel, 'dim': dim, 'mesh': mesh,
+           # dofs are interior where the domain indicator is positive
+           'tag': info['domain'], 'zeroExterior': info['zeroExterior'],
+           'boundaryCondition': boundaryCondition,
+           'domainIndicator': info['domain'],
+           'interactionIndicator': info['interaction'],
+           'dirichletData': None, 'analyticSolution': None,
+           'exactL2Squared': None, 'exactHsSquared': None}
+    if problem == 'poly-Dirichlet':
+        out['problemDescription'] = 'quadratic patch test, Dirichlet collar'
+        out['rhs'] = constant(2.0 * dim)
+        out['dirichletData'] = Lambda(
+            lambda x: 1 - np.sum(np.asarray(x) ** 2))
+        if kernel.kernelType != FRACTIONAL or hasattr(kernel.s, 'value'):
+            out['analyticSolution'] = Lambda(
+                lambda x: 1 - np.sum(np.asarray(x) ** 2))
+    else:
+        out['problemDescription'] = 'constant forcing, homogeneous collar'
+        out['rhs'] = constant(1.0)
+    return out

@@ -60,6 +60,8 @@ def test_port_imports_no_jax():
     code = ('import pynucleus_tpu_torch, pynucleus_tpu_torch.nl.assembly, '
             'pynucleus_tpu_torch.nl.h2, pynucleus_tpu_torch.interop, '
             'pynucleus_tpu_torch.drivers.runFractional, '
+            'pynucleus_tpu_torch.drivers.runNonlocal, '
+            'pynucleus_tpu_torch.nl.problems, '
             'pynucleus_tpu_torch.kernels.pcg_update, '
             'pynucleus_tpu_torch.kernels.jacobi_smooth, '
             'pynucleus_tpu_torch.multilevel.gmg, '
