@@ -66,6 +66,19 @@ result line):
      calls of A_BC) against their plain versions at these shapes; the
      sparse operator against the dense one (1e-12 relative on a seeded
      vector).
+ 11. the serial multigrid path (drivers/runSerialGMG.py: Poisson on the
+     unit square, P1, MG and FMG V-cycles with two damped-Jacobi sweeps on
+     each side, CG, GMRES and BiCGStab, plain and preconditioned by one
+     V-cycle): the square at noRef 4 against the JAX package's pinned
+     outputs (iterations equal); then the full-width line, noRef 9 (10
+     levels, 1,046,529 dofs; launch counts reset just before it) against
+     the pinned JAX outputs (iterations equal, rates and residuals rtol
+     1e-5, errors rtol 1e-6 above their summation floor) and the
+     reference cache (tests/test_gmg.py:36-49), with the host set-up
+     parts, K16's device time per level, each solve's seconds, a V-cycle
+     (CUDA events) and the peak device memory; then K16 (the finest
+     stiffness), K17 (one restart cycle of 10 steps and the combine) and
+     K18 (10 iterations) against their plain versions at these shapes.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -203,6 +216,13 @@ KERNEL_INFO = {
               'pynucleus_tpu/nl/assembly.py:644'),
     'cut2d_polar': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/cut_cells.cu',
                     'pynucleus_tpu/nl/assembly.py:511'),
+    'csr_scatter': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/csr_scatter.cu',
+                    'pynucleus_tpu/fem/assembly.py:87'),
+    'gmres_arnoldi': ('triton', 'pynucleus_tpu_torch/kernels/gmres_arnoldi.py',
+                      'pynucleus_tpu/base/solvers.py:365'),
+    'bicgstab_update': ('triton',
+                        'pynucleus_tpu_torch/kernels/bicgstab_update.py',
+                        'pynucleus_tpu/base/solvers.py:503'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -250,6 +270,11 @@ COMPARED_AT = {
     'cut1d': 'interval noRef 6 (horizon 0.2, sparse), all calls',
     'cut2d_polar': f'square noRef {FH_NOREF} (horizon 0.2, sparse), its '
                    'largest call',
+    'csr_scatter': 'the Poisson square at noRef 9: the finest stiffness (its '
+                   'one call), per call',
+    'gmres_arnoldi': 'the Poisson square at noRef 9: one restart cycle of 10 '
+                     'steps and the combine, per cycle',
+    'bicgstab_update': 'the Poisson square at noRef 9: 10 iterations',
 }
 
 
@@ -729,7 +754,9 @@ def compare_csr_spmv(P, reps=10):
 def compare_jacobi_smooth(n, reps=10):
     """K10: its three modes on random vectors [n] against the plain
     version, ``reps`` passes of each mode each way after an untimed one;
-    returns the result() per set of three passes."""
+    returns the result() per set of three passes, with the time of the
+    library call of the residual mode, one torch.sub (never used by the
+    port), beside that mode's own."""
     import torch
     from pynucleus_tpu_torch.multilevel.gmg import (jacobi_smooth,
                                                     _jacobi_smooth_plain)
@@ -758,9 +785,17 @@ def compare_jacobi_smooth(n, reps=10):
             mode, xp, b, Ax=Ax, Dinv=Dinv, omega=om)
             for _ in range(reps)]) / reps
         work.append((8 * nvec * n, ops * n, F64_PEAK))
+    torch.sub(b, Ax, out=xp)
+    lib_ms = timed(lambda: [torch.sub(b, Ax, out=xp)
+                            for _ in range(reps)]) / reps
+    res_ms = timed(lambda: [jacobi_smooth('residual', xk, b, Ax=Ax)
+                            for _ in range(reps)]) / reps
     log(f'  jacobi_smooth: n {n}, three modes, max abs err {worst:.3e}, '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per set')
-    return result(worst, ms, plain_ms, work)
+        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per set; residual '
+        f'mode {res_ms:.4f} ms, torch.sub {lib_ms:.4f} ms')
+    r = result(worst, ms, plain_ms, work, lib_ms)
+    r['residual_ms'] = res_ms
+    return r
 
 
 def grid_distant_work(args):
@@ -1402,6 +1437,461 @@ def phase10():
     return countsI, countsS, cmp
 
 
+# ---------------------------------------------------------------- phase 11
+
+# JAX package outputs of `drivers/runSerialGMG.py --domain square --noRef
+# N`, run on the CPU in float64 (printed to 7 digits): label -> (iterations,
+# rate, residual norm); errors L2 and H1_0
+SERIAL_LABELS = ('MG', 'FMG', 'CG', 'PCG', 'GMRES', 'PGMRES', 'BICGSTAB',
+                 'PBICGSTAB')
+JAX_SERIAL = {
+    4: {'DoFs': 961, 'Tol': 9.765625e-04,
+        'iterations': (5, 4, 8, 3, 5, 3, 3, 1),
+        'residuals': (7.453214e-04, 5.298254e-04, 8.871800e-04, 1.794617e-04,
+                      8.725642e-04, 1.165668e-04, 7.755684e-04,
+                      1.959891e-04),
+        'errors': (1.340462e-03, 1.095661e-01)},
+    9: {'DoFs': 1046529, 'Tol': 9.536743e-07,
+        'iterations': (9, 5, 50, 5, 22, 5, 14, 2),
+        'rates': (3.199636e-01, 1.282801e-01, 8.348316e-01, 1.543608e-01,
+                  6.565008e-01, 1.042137e-01, 5.158734e-01, 5.563332e-03),
+        'residuals': (3.387693e-07, 3.348073e-07, 1.158627e-06, 8.446646e-07,
+                      9.187029e-07, 1.184738e-07, 9.111774e-07,
+                      2.983109e-07),
+        'errors': (1.517652e-06, 3.497728e-03)},
+}
+SERIAL_NOREF = 9
+# the reference's cache (tests/test_gmg.py:36-49, BASELINE.md:19):
+# (group, label, value, atol, rtol); iterations exact
+SERIAL_CACHE = (('iterations', 'MG', 9, 0, 0),
+                ('rates', 'MG', 0.31996358412183235, 1e-2, 0),
+                ('residuals', 'MG', 3.387693291422185e-07, 0, 3e-1),
+                ('iterations', 'CG', 50, 0, 0),
+                ('rates', 'CG', 0.8348286600972041, 1e-2, 0),
+                ('residuals', 'PCG', 8.44664592068035e-07, 0, 3e-1),
+                ('iterations', 'FMG', 5, 0, 0),
+                ('iterations', 'PCG', 5, 0, 0),
+                ('errors', 'L^2 error', 1.6442082655606228e-06, 0, 2.0),
+                ('errors', 'H^1_0 error', 0.003537410542403111, 0, 2.0))
+# rates and residuals of the JAX noRef 9 table within this (the pinned
+# values carry 7 digits); errors within TOL_SERIAL_ERRORS above the
+# summation floor of their formulas (see check_serial)
+TOL_SERIAL = 1e-5
+TOL_SERIAL_ERRORS = 1e-6
+# except unpreconditioned BiCGStab, whose 14 erratic steps amplify
+# rounding: its residual differs from the JAX package's CPU run by 4.1e-5
+# relative on an H100 (NVIDIA H100 80GB HBM3, 700 W), while its rate, its
+# iterations and every other solver's numbers agree to 3e-6 or better;
+# phase 11 measures in every run how far that residual moves when only
+# the summation orders change (the dot products, A x's row sums, or all
+# of them on the host's CPU)
+TOL_SERIAL_LABEL = {'BICGSTAB': 1e-4}
+# K18's scalars (rho, alpha, omega, ||r||) against the plain version's,
+# each relative to itself
+TOL_SCALARS = 1e-8
+SERIAL_PATH = ('csr_scatter', 'csr_spmv', 'jacobi_smooth', 'pcg_update',
+               'pcg_update:jacobi', 'pcg_update:general', 'gmres_arnoldi',
+               'bicgstab_update')
+
+
+def serial_argv(noRef):
+    return ['--domain', 'square', '--noRef', str(noRef), '--device', 'cuda']
+
+
+def check_serial(out, noRef):
+    """The driver's groups against the JAX outputs of JAX_SERIAL[noRef]:
+    dofs and iterations equal; at noRef 9 also rates and residuals within
+    TOL_SERIAL, the errors within TOL_SERIAL_ERRORS plus the floor
+    sqrt(n) eps ex / err^2 of their formulas (sums of n terms of the size
+    of the exact norm ex cancel to err^2; the JAX package's CPU dot sums in
+    another order), and the reference cache.  Logs every comparison, then
+    raises if one failed."""
+    import numpy as np
+    ref = JAX_SERIAL[noRef]
+    g = {k: out[k].toDict() for k in ('info', 'rates', 'iterations',
+                                      'residuals', 'errors')}
+    bad = []
+    if g['info']['DoFs'] != ref['DoFs']:
+        bad.append(f"DoFs {g['info']['DoFs']} != {ref['DoFs']}")
+    its = [g['iterations']['Number of iterations ' + k]
+           for k in SERIAL_LABELS]
+    if its != list(ref['iterations']):
+        bad.append(f"iterations {its} != JAX {list(ref['iterations'])}")
+    log(f"  square noRef {noRef}: {g['info']['DoFs']} dofs, Tol "
+        f"{g['info']['Tol']:.6e}; iterations {dict(zip(SERIAL_LABELS, its))}"
+        f" (JAX {list(ref['iterations'])})")
+    worst = {}
+    for group, key in (('rates', 'Rate of convergence '),
+                       ('residuals', 'Residual norm ')):
+        if group not in ref:
+            continue
+        rel = [abs(g[group][key + k] - v) / v
+               for k, v in zip(SERIAL_LABELS, ref[group])]
+        worst[group] = max(rel)
+        for k, r in zip(SERIAL_LABELS, rel):
+            if r > TOL_SERIAL_LABEL.get(k, TOL_SERIAL):
+                bad.append(f'{group} {k}: relative difference {r:.2e} > '
+                           f'{TOL_SERIAL_LABEL.get(k, TOL_SERIAL)}')
+        log(f'  {group}: ' + ', '.join(
+            f'{k} {g[group][key + k]:.6e}' for k in SERIAL_LABELS)
+            + f' (largest relative difference from JAX {worst[group]:.2e})')
+    n = ref['DoFs']
+    eps = float(np.finfo(float).eps)
+    for (label, ex), val in zip((('L^2 error', 0.25),
+                                 ('H^1_0 error', 2 * np.pi ** 2 / 4)),
+                                ref['errors']):
+        got = g['errors'][label]
+        tol = TOL_SERIAL_ERRORS + np.sqrt(n) * eps * ex / val ** 2
+        rel = abs(got - val) / val
+        log(f'  {label} {got:.7e} (JAX {val:.6e}, relative difference '
+            f'{rel:.2e}, allowed {tol:.2e})')
+        if rel > tol:
+            bad.append(f'{label}: {got} vs JAX {val} (rtol {tol:.2e})')
+    if noRef == SERIAL_NOREF:
+        for group, label, val, atol, rtol in SERIAL_CACHE:
+            key = label if group == 'errors' else {
+                'iterations': 'Number of iterations ',
+                'rates': 'Rate of convergence ',
+                'residuals': 'Residual norm '}[group] + label
+            got = g[group][key]
+            if not abs(got - val) <= atol + rtol * abs(val):
+                bad.append(f'cache {key}: {got} vs {val}')
+        log(f'  the reference cache (tests/test_gmg.py:36-49, BASELINE.md:19):'
+            f' {"met" if not any(b.startswith("cache") for b in bad) else "MISSED"}')
+    if bad:
+        raise AssertionError('runSerialGMG: ' + '; '.join(bad))
+    return worst
+
+
+def scatter_work(args):
+    """K16 on recorded args (vals, order, offsets): its inputs read once,
+    the data [nnz] written once; one addition per kept contribution."""
+    vals, order, offsets = args[:3]
+    return (nbytes(vals, order, offsets) + 8 * (offsets.shape[0] - 1),
+            order.shape[0], F64_PEAK)
+
+
+def compare_csr_scatter(dm, reps=10):
+    """K16 on the finest level's stiffness (the dofmap dm's local matrices
+    and gather order) against its plain version (equal to 1e-12 of the
+    largest entry; the same sums in the same order), ``reps`` calls each
+    way after an untimed one, and the library yardstick: one index_add_ of
+    all contributions into [nnz+1], the dropped ones into the last slot
+    (never used by the port).  Returns the result() per call."""
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import (
+        csr_scatter, _csr_scatter_plain, localStiffness, scatterPlan)
+    _, _, order, offsets = scatterPlan(dm)
+    vals = torch.as_tensor(localStiffness(dm).reshape(-1), device='cuda')
+    nnz = offsets.shape[0] - 1
+    dk = torch.empty(nnz, dtype=torch.float64, device='cuda')
+    dp = torch.empty_like(dk)
+    csr_scatter(vals, order, offsets, out=dk)
+    _csr_scatter_plain(vals, order, offsets, dp)
+    err = float((dk - dp).abs().max())
+    scale = float(dp.abs().max())
+    if not (scale > 0 and err <= TOL_KERNEL * scale):
+        raise AssertionError(f'csr_scatter: max err {err} (max {scale})')
+    ms = timed(lambda: [csr_scatter(vals, order, offsets, out=dk)
+                        for _ in range(reps)]) / reps
+    plain_ms = timed(lambda: [_csr_scatter_plain(vals, order, offsets, dp)
+                              for _ in range(reps)]) / reps
+    # the flat slot of every contribution (nnz for a dropped one)
+    slot = torch.full_like(vals, nnz, dtype=torch.int64)
+    slot[order.long()] = torch.repeat_interleave(
+        torch.arange(nnz, device='cuda'), (offsets[1:] - offsets[:-1]).long())
+    lib = torch.zeros(nnz + 1, dtype=torch.float64, device='cuda')
+    lib.index_add_(0, slot, vals)
+    libErr = float((lib[:nnz] - dp).abs().max())
+    if not libErr <= 1e-10 * scale:
+        raise AssertionError(f'csr_scatter: index_add_ differs by {libErr}')
+    lib_ms = timed(lambda: [lib.zero_().index_add_(0, slot, vals)
+                            for _ in range(reps)]) / reps
+    log(f'  csr_scatter: {vals.shape[0]} local entries, {order.shape[0]} '
+        f'kept, nnz {nnz}, max abs err {err:.3e}, kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms (max difference '
+        f'{libErr:.2e}, atomics)')
+    return result(err, ms, plain_ms, [scatter_work((vals, order, offsets))],
+                  lib_ms)
+
+
+def _max_err(pairs):
+    """Largest absolute difference and largest entry over (kernel, plain)
+    tensor pairs."""
+    err = max(float((a - b).abs().max()) for a, b in pairs)
+    scale = max(float(b.abs().max()) for _, b in pairs)
+    return err, scale
+
+
+def compare_gmres_arnoldi(A, b, restart=10):
+    """K17 on one full restart cycle of GMRES on the operator A from x0 =
+    0: the start and each of the ``restart`` Arnoldi steps, then the
+    combine x0 + V y, each call made by the kernel and by the plain
+    version on copies of the same state (the cycle goes on from the
+    kernel's), compared to 1e-12 of the largest entry and timed with CUDA
+    events; and the combine's library yardstick, one torch.addmv.  Returns
+    the result() per cycle."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.base import solvers as S
+    n = b.shape[0]
+    V = torch.empty((restart + 1, n), dtype=torch.float64, device='cuda')
+    h = torch.zeros(restart + 1, dtype=torch.float64, device='cuda')
+    guards = torch.tensor([0.0, 1e-300], dtype=torch.float64, device='cuda')
+    w = b.clone()
+    worst = ms = plain_ms = 0.0
+    work = []
+    for j in range(-1, restart):
+        if j >= 0:
+            A.matvec(V[j], out=w)
+        guard = guards[:1] if j < 0 else guards[1:]
+        Vp, wp, hp = V.clone(), w.clone(), h.clone()
+        ms += timed(lambda: S.gmres_arnoldi(V, w, h, j, guard))
+        plain_ms += timed(lambda: S._gmres_arnoldi_plain(Vp, wp, hp, j,
+                                                         guard))
+        err, scale = _max_err(((V[:j + 2], Vp[:j + 2]), (w, wp)))
+        herr = float((h[:j + 2] - hp[:j + 2]).abs().max())
+        if not (err <= TOL_KERNEL * scale and
+                herr <= TOL_KERNEL * float(hp[:j + 2].abs().max())):
+            raise AssertionError(f'gmres_arnoldi step {j}: max err {err}, '
+                                 f'h {herr}')
+        worst = max(worst, err)
+        # V[0..j] and w read, w and V[j+1] written (the start: w read,
+        # V[0] written); 4 n operations a Gram-Schmidt term, 3 n for the
+        # norm and the division
+        work.append((8 * n * (j + 4 if j >= 0 else 2),
+                     4 * n * (j + 1) + 3 * n, F64_PEAK))
+    y = torch.as_tensor(np.random.default_rng(11).normal(size=restart),
+                        device='cuda')
+    x0 = torch.randn(n, dtype=torch.float64, device='cuda',
+                     generator=torch.Generator('cuda').manual_seed(12))
+    xk, xp = x0.clone(), x0.clone()
+    cms = timed(lambda: S.gmres_combine(xk, V, y))
+    cplain = timed(lambda: S._gmres_combine_plain(xp, V, y))
+    err, scale = _max_err(((xk, xp),))
+    if not err <= TOL_KERNEL * scale:
+        raise AssertionError(f'gmres_combine: max err {err}')
+    worst = max(worst, err)
+    Vt = V[:restart].T
+    torch.addmv(x0, Vt, y)
+    lib_ms = timed(lambda: torch.addmv(x0, Vt, y))
+    ms += cms
+    plain_ms += cplain
+    work.append((8 * n * (restart + 2), 2 * n * restart + n, F64_PEAK))
+    log(f'  gmres_arnoldi: one cycle of {restart} steps on n {n} (start, '
+        f'steps, combine), max abs err {worst:.3e}, kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms; combine {cms:.4f} ms, torch.addmv {lib_ms:.4f} '
+        'ms')
+    r = result(worst, ms, plain_ms, work)
+    r.update(combine_ms=cms, combine_library_ms=lib_ms)
+    return r
+
+
+def compare_bicgstab_update(A, b, iters=10):
+    """K18 on ``iters`` BiCGStab iterations on the operator A from x0 = 0
+    (no preconditioner): each of its calls made by the kernel and by the
+    plain version on copies of the same state (the iteration goes on from
+    the kernel's), vectors and scalars compared to 1e-12 of their largest
+    entry and timed with CUDA events.  Returns the result() per
+    ``iters`` iterations."""
+    import torch
+    from pynucleus_tpu_torch.base import solvers as S
+    x = torch.zeros_like(b)
+    r, r0 = b.clone(), b.clone()
+    p, v, s, t = (torch.zeros_like(b) for _ in range(4))
+    scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=torch.float64,
+                        device='cuda')
+    n = b.shape[0]
+    # inputs read and outputs written once: direction r0, r, p, v -> p;
+    # step r0, v, r -> s; update t, s, x, p -> x, r (ph = p, sh = s)
+    nvec = {'direction': 5, 'step': 4, 'update': 6}
+    nops = {'direction': 9, 'step': 4, 'update': 10}
+    worst = ms = plain_ms = worstScal = 0.0
+    work = []
+    for it in range(iters):
+        for mode in ('direction', 'step', 'update'):
+            if mode == 'step':
+                A.matvec(p, out=v)
+            elif mode == 'update':
+                A.matvec(s, out=t)
+            k = [x, r, r0, p, v, s, t, p, s, scal]
+            q = [a.clone() for a in k[:7]]
+            q = q + [q[3], q[5], scal.clone()]
+            ms += timed(lambda: S.bicgstab_update(mode, *k, it))
+            plain_ms += timed(lambda: S._bicgstab_update_plain(mode, *q, it))
+            err, scale = _max_err(list(zip(k[:7], q[:7])))
+            # each scalar is a quotient of dot products that cancel, which
+            # the kernel's block sums and torch.dot round differently; the
+            # vectors they scale are held to TOL_KERNEL
+            serr = float(((k[-1] - q[-1]).abs() / q[-1].abs()).max())
+            if not (err <= TOL_KERNEL * scale and serr <= TOL_SCALARS):
+                raise AssertionError(f'bicgstab_update ({mode}, {it}): max '
+                                     f'err {err}, scalars {serr}')
+            worst = max(worst, err)
+            worstScal = max(worstScal, serr)
+            work.append((8 * n * nvec[mode], nops[mode] * n, F64_PEAK))
+    log(f'  bicgstab_update: {iters} iterations on n {n}, max abs err '
+        f'{worst:.3e} (scalars: relative {worstScal:.2e}), kernel {ms:.4f} '
+        f'ms, plain {plain_ms:.4f} ms (||r|| {float(scal[4]):.3e})')
+    return result(worst, ms, plain_ms, work)
+
+
+def warm_solves(out):
+    """Each solve of the driver again, warm (the kernels compiled), timed
+    by the host clock to a synchronize: returns {label: seconds}."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    from pynucleus_tpu_torch.drivers.runSerialGMG import SOLVERS
+    ml, b = out['ml'], out['b']
+    A = out['hierarchy'][-1]['A']
+    secs = {}
+
+    def run(label, solve):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+    for cycle, label in (('V', 'MG'), ('FMG_V', 'FMG')):
+        ml.cycle = cycle
+        run(label, lambda: ml.solve(b))
+    for name, label, restarts in SOLVERS:
+        for prefix in ('', 'P'):
+            s = solverFactory.build(name, A=A, setup=True)
+            s.tolerance = ml.tolerance
+            s.maxIter = ml.maxIter // 5 if name == 'gmres' else ml.maxIter
+            if name == 'gmres':
+                s.restarts = restarts
+            if prefix:
+                s.setPreconditioner(ml.asPreconditioner())
+            run(prefix + label, lambda: s.solve(b))
+    return secs
+
+
+class LibraryCSR:
+    """The CSR operator A applied by one torch.sparse CSR product (another
+    order of each row's sum than K9's); a yardstick, never used by the
+    port."""
+
+    def __init__(self, A):
+        import torch
+        self.S = torch.sparse_csr_tensor(A.indptr, A.indices, A.data,
+                                         size=A.shape)
+        self.num_rows, self.num_columns = A.shape
+
+    def matvec(self, x, out=None):
+        import torch
+        y = torch.mv(self.S, x)
+        return y if out is None else out.copy_(y)
+
+
+def bicgstab_spread(out):
+    """Unpreconditioned BiCGStab as in the driver four ways: through K18
+    and K9 (the port), through K18's plain version (other orders of the
+    dot products), with A x by a torch.sparse product (another order of
+    each row's sum), and on the host's CPU (the plain versions: the CPU's
+    blocked dot products and sequential row sums, less accurate sums of a
+    million terms, as the JAX package's CPU run takes).  Returns the final
+    residuals ||b - A x|| of the four and the relative spread of the last
+    three from the first."""
+    import torch
+    from pynucleus_tpu_torch.base import solvers as S
+    from pynucleus_tpu_torch.base.linear_operators import CSR_LinearOperator
+    ml, b = out['ml'], out['b']
+    A = out['hierarchy'][-1]['A']
+    Ah = CSR_LinearOperator(A.indptrH, A.indicesH, A.dataH,
+                            num_columns=A.num_columns, device='cpu')
+    res = []
+    for fn, op, rhs in ((S.bicgstab_update, A, b),
+                        (S._bicgstab_update_plain, A, b),
+                        (S.bicgstab_update, LibraryCSR(A), b),
+                        (S.bicgstab_update, Ah, b.cpu())):
+        orig, S.bicgstab_update = S.bicgstab_update, fn
+        try:
+            s = S.bicgstab_solver(op)
+            s.tolerance, s.maxIter = ml.tolerance, ml.maxIter
+            x = s.solve(rhs)
+        finally:
+            S.bicgstab_update = orig
+        res.append(float(torch.linalg.norm(b - A.matvec(x.to(b.device)))))
+    return res, [abs(r - res[0]) / res[0] for r in res[1:]]
+
+
+def phase11():
+    """The serial multigrid path (drivers/runSerialGMG.py): the square at
+    noRef 4 against the JAX outputs; the full-width line at noRef
+    SERIAL_NOREF (launch counts reset just before it) against the JAX
+    outputs and the reference cache, with its set-up parts, K16 per level,
+    the solves, a V-cycle and the peak memory; then K16, K17 and K18
+    against their plain versions at its shapes.  Returns the launch counts
+    and the comparisons."""
+    import torch
+    from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.drivers.runSerialGMG import main
+    log('phase 11: the serial multigrid path (runSerialGMG, the Poisson '
+        'square)')
+    check_serial(main(serial_argv(4), quiet=True), 4)
+    log(f'  the full-width line: square noRef {SERIAL_NOREF}')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.resetLaunches()
+    t0 = time.perf_counter()
+    out = main(serial_argv(SERIAL_NOREF), quiet=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    counts['device'] = dict(kernels.deviceLaunches)
+    peak = torch.cuda.max_memory_allocated()
+    log(f'  launches: {counts}')
+    for k in SERIAL_PATH:
+        if counts[k] <= 0:
+            raise AssertionError(f'kernel {k} was not launched by the path')
+    tim = out['timers'].toDict()
+    nLvl = len(out['hierarchy'])
+    log(f'  {nLvl} levels, the driver {wall:.3f} s, peak device memory '
+        f'{peak / 2**30:.3f} GiB')
+    log('  host set-up (s): ' + ', '.join(
+        f'{k[:-len(" seconds")]} {v:.3f}' for k, v in tim.items()
+        if k.endswith(' seconds') and not k.startswith(('level ', 'solve '))))
+    for part in ('local', 'pattern', 'scatter order'):
+        log(f'  {part} (host s) per level: '
+            f"{[round(tim[f'level {k} {part} seconds'], 3) for k in range(nLvl)]}")
+    log('  K16 csr_scatter (device ms, CUDA events) per level: '
+        f"{[round(tim[f'level {k} scatter seconds'] * 1e3, 4) for k in range(nLvl)]}")
+    log('  solves (s): ' + ', '.join(
+        f"{k} {tim[f'solve {k} seconds']:.4f}" for k in SERIAL_LABELS))
+    secs = warm_solves(out)
+    log('  warm solves (s): ' + ', '.join(f'{k} {v:.4f}'
+                                          for k, v in secs.items()))
+    res, spread = bicgstab_spread(out)
+    log(f'  BICGSTAB residual through K18 and K9 {res[0]:.7e}; through '
+        f"K18's plain version {res[1]:.7e} (relative {spread[0]:.2e}); "
+        f'with A x by torch.sparse {res[2]:.7e} (relative {spread[1]:.2e}); '
+        f'on the host CPU {res[3]:.7e} (relative {spread[2]:.2e})')
+    worst = check_serial(out, SERIAL_NOREF)
+    ml, b, dm = out['ml'], out['b'], out['dm']
+    A = out['hierarchy'][-1]['A']
+    M = ml.asPreconditioner()
+    z = torch.empty_like(b)
+    M.matvec(b, out=z)
+    perCycle = timed(lambda: [M.matvec(b, out=z) for _ in range(10)]) / 10
+    log(f'  V-cycle (2+2 sweeps, {nLvl} levels) {perCycle:.3f} ms (CUDA '
+        'events over 10 cycles)')
+    del out, ml, M, z
+    torch.cuda.empty_cache()
+    log(f'  kernels against their plain versions at the noRef '
+        f'{SERIAL_NOREF} shapes')
+    cmp = {'csr_scatter': compare_csr_scatter(dm),
+           'gmres_arnoldi': compare_gmres_arnoldi(A, b),
+           'bicgstab_update': compare_bicgstab_update(A, b)}
+    summary = {'dofs': A.num_rows, 'levels': nLvl, 'wall_s': wall,
+               'peak_GiB': peak / 2**30, 'vcycle_ms': perCycle,
+               'largest_rel_diff': worst, 'bicgstab_spread': spread,
+               'warm_solve_s': secs}
+    log(f'  summary: {json.dumps(summary)}')
+    return counts, cmp
+
+
 def main():
     try:
         import torch
@@ -1441,6 +1931,7 @@ def main():
     counts8, cmp8 = phase8(errs7)
     counts9 = phase9()
     countsI, countsS, cmp10 = phase10()
+    countsG, cmp11 = phase11()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -1452,13 +1943,16 @@ def main():
     cmp.update(cmp7)
     cmp.update(cmp8)
     cmp.update(cmp10)
+    cmp.update(cmp11)
     paths = ((DENSE_PATH, 'dense_noRef6', counts6),
              (H2_PATH, f'h2_cg_jacobi_noRef{H2_NOREF}', counts7),
              (MG_PATH, f'h2_cg_mg_noRef{H2_NOREF}', counts8),
              (HOST_PATH, 'h2_host_engine_noRef5', counts9),
              (INTERVAL_PATH, 'fh_interval_sparse_noRef6', countsI),
              (NONLOCAL_PATH, f'fh_square_sparse_cg_mg_noRef{FH_NOREF}',
-              countsS))
+              countsS),
+             (SERIAL_PATH, f'serial_gmg_square_noRef{SERIAL_NOREF}',
+              countsG))
     table = []
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
@@ -1477,6 +1971,9 @@ def main():
                'launches_by_path': byPath,
                'device_launches': device,
                'compared_at': COMPARED_AT[name]}
+        row.update({k: v for k, v in c.items()
+                    if k not in ('err', 'ms', 'plain_ms', 'work',
+                                 'library_ms')})
         split = {'panel_scatter': ('launches_by_target', kernels.K1_TARGETS),
                  'pcg_update': ('launches_by_form', kernels.K4_FORMS)}
         if name in split:

@@ -1,10 +1,13 @@
-"""LU, Jacobi and (preconditioned) CG solvers on tensors; kernel K4.
+"""LU, Jacobi, (preconditioned) CG, GMRES and BiCGStab solvers on tensors;
+kernels K4, K17 and K18.
 
-Port of lu_solver, jacobi_solver, cg_solver and solverFactory of
-pynucleus_tpu/base/solvers.py.  The CG keeps ``_cg_core``'s semantics:
-x0 = 0, convergence test on sqrt(r.M.r) (sqrt(r.r) with use2norm) against
-an absolute tolerance, the residual history, and the reference's iteration
-convention (the loop index at the convergence check).
+Port of lu_solver, jacobi_solver, cg_solver, gmres_solver,
+bicgstab_solver and solverFactory of pynucleus_tpu/base/solvers.py, for
+real float64 systems (the complex path is not ported).  The CG keeps
+``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
+(sqrt(r.r) with use2norm) against an absolute tolerance, the residual
+history, and the reference's iteration convention (the loop index at the
+convergence check).
 
 Each iteration is ``Ap = A p`` (the operator's ``matvec``: ``torch.mv``
 for the dense operator, kernel K8 for the H2 operator) followed by one call
@@ -14,17 +17,31 @@ diagonal preconditioner that is :func:`pcg_update` (``z = invD r`` inside
 the pass); with any other (a multigrid V-cycle) :func:`pcg_update_prec`,
 whose two passes go around the preconditioner's ``z = M r``
 (``_cg_core``'s use_prec branch).
+
+GMRES (``_gmres_cycle``, right-preconditioned, restarted) runs each
+Arnoldi step as ``z = M V[j]`` (into Z[j]), ``w = A z`` and one call of
+kernel K17 :func:`gmres_arnoldi` (modified Gram-Schmidt in the JAX
+package's order, the norm, V[j+1]); the host reads the Hessenberg column,
+applies the Givens rotations in float64 and stops at the JAX package's
+test, which is equivalent to its masking of the remaining steps.  The back
+substitution is host float64 and ``x0 + Z y`` is K17's
+:func:`gmres_combine`.  BiCGStab (``_bicgstab_core``) runs its vector work
+through kernel K18 :func:`bicgstab_update` around its two applies and two
+preconditioner applies, its scalars on the device; the host reads ||r||
+once per iteration.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
 from .linear_operators import Diagonal_LinearOperator, Dense_LinearOperator
 
 __all__ = ['solver', 'lu_solver', 'jacobi_solver', 'iterative_solver',
-           'krylov_solver', 'cg_solver', 'solverFactory', 'pcg_update',
-           'pcg_update_prec']
+           'krylov_solver', 'cg_solver', 'gmres_solver', 'bicgstab_solver',
+           'solverFactory', 'SOLVER_TYPES', 'pcg_update', 'pcg_update_prec',
+           'gmres_arnoldi', 'gmres_combine', 'bicgstab_update']
 
 
 # ------------------------------------------------------------------ K4 ----
@@ -131,6 +148,161 @@ def _pcg_update_prec_plain(x, r, z, p, Ap, M, scal, hist, it,
     scal[1 - old] = beta
     scal[2] = conv
     hist[it + 1] = conv
+
+
+# ----------------------------------------------------------------- K17 ----
+
+def gmres_arnoldi(V, w, h, j, guard):
+    """One Arnoldi step of GMRES, in place, after ``w = A z``: for i = 0..j
+    (modified Gram-Schmidt, in this order)
+
+        h[i] = V[i].w;  w -= h[i] V[i]
+
+    then h[j+1] = ||w|| and V[j+1] = w / h[j+1] where h[j+1] > guard, else
+    w.  With j = -1 it starts a cycle: h[0] = ||w||, V[0] = w / h[0] where
+    h[0] > guard, else w.  V [restart+1, n] and w [n] float64 on one
+    device, h float64 [>= j+2], guard a float64 tensor [1] there (0 to
+    start a cycle, 1e-300 for a step, as the JAX package's guards).
+
+    Kernel K17 (Triton, kernels/gmres_arnoldi.py) on CUDA tensors, the
+    plain version on CPU tensors.  Replaces the vector work of one step
+    of pynucleus_tpu/base/solvers.py:365 _gmres_cycle (lines 390-403)."""
+    _checkBasis('gmres_arnoldi', V, w, j + 2)
+    for t, k in ((h, j + 2), (guard, 1)):
+        if t.device != w.device or t.dtype != torch.float64 \
+                or not t.is_contiguous() or t.dim() != 1 or t.shape[0] < k:
+            raise ValueError('gmres_arnoldi: h and guard must be float64 '
+                             f'vectors on {w.device}')
+    if w.device.type == 'cpu':
+        return _gmres_arnoldi_plain(V, w, h, j, guard)
+    from ..kernels import gmres_arnoldi as k17
+    parts = torch.empty((2, -(-w.shape[0] // k17.BLOCK)), dtype=torch.float64,
+                        device=w.device)
+    kernels.launches['gmres_arnoldi'] += 1
+    kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_step(
+        V, w, h, j, guard, parts)
+
+
+def _checkBasis(name, B, x, rows):
+    n = x.shape[0]
+    for t in (B, x):
+        if t.device != x.device or t.dtype != torch.float64 \
+                or not t.is_contiguous():
+            raise ValueError(f'{name}: float64 contiguous tensors on one '
+                             'device expected')
+    if x.dim() != 1 or B.dim() != 2 or B.shape[1] != n or B.shape[0] < rows:
+        raise ValueError(f'{name}: shape mismatch')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {x.device}')
+
+
+def _gmres_arnoldi_plain(V, w, h, j, guard):
+    """Plain PyTorch version of :func:`gmres_arnoldi` (any device)."""
+    for i in range(j + 1):
+        hi = torch.dot(V[i], w)
+        w.sub_(hi * V[i])
+        h[i] = hi
+    nrm = torch.sqrt(torch.dot(w, w))
+    V[j + 1] = torch.where(nrm > guard, w / nrm, w)
+    h[j + 1] = nrm
+
+
+def gmres_combine(x, B, y):
+    """x += sum_k y[k] B[k] over the len(y) first rows of B, in place
+    (x0 + Z y at the end of a GMRES cycle, Z the preconditioned basis or
+    V); y float64 on x's device.  Kernel K17's combine mode on CUDA
+    tensors, the plain version on CPU tensors.  Replaces ``Z.T @ y``
+    (pynucleus_tpu/base/solvers.py:450)."""
+    _checkBasis('gmres_combine', B, x, y.shape[0])
+    if y.device != x.device or y.dtype != torch.float64 or y.dim() != 1:
+        raise ValueError(f'gmres_combine: y must be float64 on {x.device}')
+    if x.device.type == 'cpu':
+        return _gmres_combine_plain(x, B, y)
+    if y.shape[0] == 0:
+        return x
+    from ..kernels import gmres_arnoldi as k17
+    kernels.launches['gmres_arnoldi'] += 1
+    kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_combine(
+        x, B, y.contiguous())
+    return x
+
+
+def _gmres_combine_plain(x, B, y):
+    """Plain PyTorch version of :func:`gmres_combine` (any device)."""
+    acc = torch.zeros_like(x)
+    for k in range(y.shape[0]):
+        acc.add_(y[k] * B[k])
+    return x.add_(acc)
+
+
+# ----------------------------------------------------------------- K18 ----
+
+BICGSTAB_MODES = ('direction', 'step', 'update')
+
+
+def bicgstab_update(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
+    """The vector passes of BiCGStab iteration ``it``, in place
+    (pynucleus_tpu/base/solvers.py:517-531), by ``mode``:
+
+        'direction'  rho_new = r0.r;  beta = (rho_new / scal[it%2])
+                     (scal[2] / scal[3]);  p = r + beta (p - scal[3] v);
+                     scal[(it+1)%2] = rho_new;  scal[4] = ||r||
+        'step'       (after v = A ph) alpha = scal[(it+1)%2] / r0.v;
+                     s = r - alpha v;  scal[2] = alpha
+        'update'     (after t = A sh) omega = t.s / t.t;
+                     x += alpha ph + omega sh;  r = s - omega t;
+                     scal[3] = omega
+
+    float64 vectors [n] on one device (ph may be p and sh s, without a
+    preconditioner); scal float64 [5] there, starting as (1, 1, 1, 1, 0).
+    Kernel K18 (Triton, kernels/bicgstab_update.py) on CUDA tensors, the
+    plain version on CPU tensors.  Replaces the vector work of
+    _bicgstab_core's loop body."""
+    if mode not in BICGSTAB_MODES:
+        raise ValueError(f'bicgstab_update: mode must be one of '
+                         f'{BICGSTAB_MODES}')
+    vecs = (x, r, r0, p, v, s, t, ph, sh)
+    n = x.shape[0]
+    for q in vecs + (scal,):
+        if q.device != x.device or q.dtype != torch.float64 \
+                or not q.is_contiguous():
+            raise ValueError('bicgstab_update: float64 contiguous tensors on '
+                             'one device expected')
+    if any(q.shape != (n,) for q in vecs) or scal.shape != (5,):
+        raise ValueError('bicgstab_update: shape mismatch')
+    if x.device.type == 'cpu':
+        return _bicgstab_update_plain(mode, x, r, r0, p, v, s, t, ph, sh,
+                                      scal, it)
+    if x.device.type != 'cuda':
+        raise ValueError(f'bicgstab_update: unsupported device {x.device}')
+    from ..kernels import bicgstab_update as k18
+    parts = torch.empty((5, -(-n // k18.BLOCK)), dtype=torch.float64,
+                        device=x.device)
+    kernels.launches['bicgstab_update'] += 1
+    kernels.deviceLaunches['bicgstab_update'] += k18.launch(
+        mode, x, r, r0, p, v, s, t, ph, sh, scal, parts, it)
+
+
+def _bicgstab_update_plain(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
+    """Plain PyTorch version of :func:`bicgstab_update` (any device); its
+    dot products are taken where they are used."""
+    old, new = it % 2, 1 - it % 2
+    if mode == 'direction':
+        rho_new = torch.dot(r0, r)
+        omega = scal[3].clone()
+        beta = (rho_new / scal[old]) * (scal[2] / omega)
+        p.copy_(r + beta * (p - omega * v))
+        scal[new] = rho_new
+        scal[4] = torch.sqrt(torch.dot(r, r))
+    elif mode == 'step':
+        alpha = scal[new] / torch.dot(r0, v)
+        torch.sub(r, alpha * v, out=s)
+        scal[2] = alpha
+    elif mode == 'update':
+        omega = torch.dot(t, s) / torch.dot(t, t)
+        x.add_(scal[2] * ph).add_(omega * sh)
+        torch.sub(s, omega * t, out=r)
+        scal[3] = omega
 
 
 # ---------------------------------------------------------------- solvers --
@@ -251,6 +423,150 @@ class cg_solver(krylov_solver):
         return x
 
 
+def _realVector(name, b):
+    if b.is_complex():
+        raise NotImplementedError(f'{name}: complex systems are not ported')
+
+
+class gmres_solver(krylov_solver):
+    """Restarted GMRES (pynucleus_tpu/base/solvers.py:454): cycles of
+    ``maxIter`` Arnoldi steps (the restart length), at most ``restarts``
+    of them, right-preconditioned (flexible, Z kept) by ``prec``, from
+    x0 = 0 against an absolute tolerance.  ``residuals`` starts with
+    ||b - A x0|| and holds each step's Givens estimate; ``iterations`` is
+    the number of steps, less one when converged; ``explicitResidual`` is
+    ||b - A x|| at the end."""
+
+    def __init__(self, A=None):
+        super().__init__(A)
+        self.restarts = 1
+        self.maxIter = 20
+        self.flexible = True
+
+    def solve(self, b):
+        _realVector('gmres', b)
+        A, M, tol = self.A, self.prec, self.tolerance
+        restart = self.maxIter if self.maxIter > 0 else 20
+        n, dev = b.shape[0], b.device
+
+        def vec(*shape):
+            return torch.empty(shape, dtype=torch.float64, device=dev)
+        x, w, Ax, h = vec(n).zero_(), vec(n), vec(n), vec(restart + 1)
+        V = vec(restart + 1, n)
+        Z = vec(restart, n) if M is not None else None
+        guards = torch.tensor([0.0, 1e-300], dtype=torch.float64, device=dev)
+        residuals = None
+        total = 0
+        resnorm = 0.0
+        for _ in range(max(self.restarts, 1)):
+            A.matvec(x, out=Ax)
+            torch.sub(b, Ax, out=w)
+            gmres_arnoldi(V, w, h, -1, guards[:1])
+            beta = float(h[0])
+            if residuals is None:
+                residuals = [beta]
+            resnorm, k, hist = self._cycle(A, M, V, Z, w, h, guards[1:],
+                                           beta, restart, tol, x)
+            residuals.extend(hist)
+            total += k
+            if resnorm <= tol:
+                break
+        A.matvec(x, out=Ax)
+        self.residuals = residuals
+        self.explicitResidual = float(torch.linalg.norm(b - Ax))
+        self.iterations = total - 1 if (resnorm <= tol and total > 0) \
+            else total
+        return x
+
+    @staticmethod
+    def _cycle(A, M, V, Z, w, h, guard, beta, restart, tol, x):
+        """The Arnoldi steps of one cycle from V[0] (x is x0, updated in
+        place); the Givens rotations of the Hessenberg columns (real case
+        of solvers.py:409-426) and the back substitution (:444-449) in
+        host float64.  Returns (resnorm, steps, the steps' residual
+        estimates)."""
+        H = np.zeros((restart + 1, restart))
+        cs, sn = [1.0] * restart, [0.0] * restart
+        g = [0.0] * (restart + 1)
+        g[0] = beta
+        hist = []
+        k, resnorm = 0, beta
+        while resnorm > tol and k < restart:
+            j = k
+            z = V[j] if M is None else M.matvec(V[j], out=Z[j])
+            A.matvec(z, out=w)
+            gmres_arnoldi(V, w, h, j, guard)
+            hc = h[:j + 2].tolist()
+            for i in range(j):
+                hi = cs[i] * hc[i] + sn[i] * hc[i + 1]
+                hc[i + 1] = -sn[i] * hc[i] + cs[i] * hc[i + 1]
+                hc[i] = hi
+            denom = np.sqrt(hc[j] * hc[j] + hc[j + 1] * hc[j + 1])
+            c = hc[j] / denom if denom > 0 else 1.0
+            s_ = hc[j + 1] / denom if denom > 0 else 0.0
+            hc[j], hc[j + 1] = denom, 0.0
+            g[j + 1] = -s_ * g[j]
+            g[j] = c * g[j]
+            H[:j + 2, j] = hc
+            cs[j], sn[j] = c, s_
+            resnorm = abs(g[j + 1])
+            hist.append(resnorm)
+            k = j + 1
+        if k > 0:
+            from scipy.linalg import solve_triangular
+            y = solve_triangular(H[:k, :k], np.asarray(g[:k]), lower=False)
+            gmres_combine(x, V if M is None else Z,
+                          torch.as_tensor(y, device=x.device))
+        return resnorm, k, hist
+
+
+class bicgstab_solver(krylov_solver):
+    """BiCGStab (pynucleus_tpu/base/solvers.py:538) from x0 = 0 against an
+    absolute tolerance on ||r||, preconditioned by ``prec`` if set;
+    ``iterations`` is the JAX package's count (one less when it stopped
+    early), ``residuals`` the final ||r||."""
+
+    def __init__(self, A=None):
+        super().__init__(A)
+        self.maxIter = 200
+
+    def solve(self, b):
+        _realVector('bicgstab', b)
+        A, M, tol = self.A, self.prec, self.tolerance
+        maxiter = self.maxIter
+        x = torch.zeros_like(b)
+        r, r0, s, t = (torch.empty_like(b) for _ in range(4))
+        p, v = torch.zeros_like(b), torch.zeros_like(b)
+        ph, sh = (p, s) if M is None else (torch.empty_like(b),
+                                           torch.empty_like(b))
+        A.matvec(x, out=t)
+        torch.sub(b, t, out=r)
+        r0.copy_(r)
+        scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=torch.float64,
+                            device=b.device)
+        vecs = (x, r, r0, p, v, s, t, ph, sh)
+        k = 0
+        while True:
+            # the direction of iteration k (unused if the loop stops here)
+            # and ||r|| of the iterate so far
+            bicgstab_update('direction', *vecs, scal, k)
+            resnorm = float(scal[4])
+            if not (resnorm > tol and k < maxiter):
+                break
+            if M is not None:
+                M.matvec(p, out=ph)
+            A.matvec(ph, out=v)
+            bicgstab_update('step', *vecs, scal, k)
+            if M is not None:
+                M.matvec(s, out=sh)
+            A.matvec(sh, out=t)
+            bicgstab_update('update', *vecs, scal, k)
+            k += 1
+        self.iterations = k - 1 if (0 < k < maxiter) else k
+        self.residuals = [resnorm]
+        return x
+
+
 class solverFactoryClass:
     """String -> solver construction (pynucleus_tpu/base/solvers.py:557-598).
     A combined name 'cg-jacobi' or 'cg-mg' is the first solver
@@ -287,3 +603,10 @@ solverFactory = solverFactoryClass()
 solverFactory.register('lu', lu_solver)
 solverFactory.register('jacobi', jacobi_solver)
 solverFactory.register('cg', cg_solver)
+solverFactory.register('gmres', gmres_solver)
+solverFactory.register('bicgstab', bicgstab_solver)
+
+# the --solverType choices of the port's nonlocal drivers
+SOLVER_TYPES = ('cg-jacobi', 'cg', 'cg-mg', 'mg', 'lu', 'gmres',
+                'gmres-jacobi', 'gmres-mg', 'bicgstab', 'bicgstab-jacobi',
+                'bicgstab-mg')

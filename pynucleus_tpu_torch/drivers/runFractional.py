@@ -1,13 +1,15 @@
 """Solve the fractional Poisson problem (infinite horizon, zero exterior)
-with the port: dense or H2 assembly on the device, CG-Jacobi, CG-MG or MG.
+with the port: dense or H2 assembly on the device, CG-Jacobi, CG-MG, MG,
+LU, GMRES or BiCGStab.
 
     python -m pynucleus_tpu_torch.drivers.runFractional --domain disc \\
         --s 'const(0.75)' --problem constant --element P1 \\
-        --solverType cg-jacobi|cg|cg-mg|mg --matrixFormat dense|H2 \\
-        [--noRef N] [--maxiter K] [--device cuda|cpu]
+        --solverType cg-jacobi|cg|cg-mg|mg|lu|gmres[-jacobi|-mg]|... \\
+        --matrixFormat dense|H2 [--noRef N] [--maxiter K] [--device cuda|cpu]
 
 Port of drivers/runFractional.py for the dense and H2 formats (H2 on the
-disc only).  It runs on the card unless ``--device cpu`` asks for the CPU;
+disc only), with the solvers of ``SOLVER_TYPES`` (the JAX driver takes any
+registered name).  It runs on the card unless ``--device cpu`` asks for the CPU;
 asking for the card without one raises.  With a multigrid solver every
 level noRef 0 ... N is assembled in the requested format, as in the JAX
 package.  It prints the same ``results`` and ``errors`` labels as the JAX
@@ -27,7 +29,7 @@ import time
 import torch
 
 from ..config import getDevice
-from ..base.solvers import solverFactory, iterative_solver
+from ..base.solvers import solverFactory, iterative_solver, SOLVER_TYPES
 from ..base.utilsFem import outputGroup
 from ..fem.assembly import assembleRHS
 from ..nl.discretized import modelErrors, buildMeshHierarchy, buildHierarchy
@@ -42,8 +44,7 @@ def parser():
     p.add_argument('--s', default='const(0.75)')
     p.add_argument('--problem', default='constant', choices=['constant'])
     p.add_argument('--element', default='P1', choices=['P1'])
-    p.add_argument('--solverType', default='cg-jacobi',
-                   choices=['cg-jacobi', 'cg', 'cg-mg', 'mg'])
+    p.add_argument('--solverType', default='cg-jacobi', choices=SOLVER_TYPES)
     p.add_argument('--matrixFormat', default='dense', choices=['dense', 'H2'])
     p.add_argument('--noRef', type=int, default=-1)
     p.add_argument('--maxiter', type=int, default=100)

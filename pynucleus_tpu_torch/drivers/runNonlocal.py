@@ -3,7 +3,8 @@ sparse or H2 (= sparse) assembly on the device, with the Dirichlet collar.
 
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain square \\
         --kernelType constant --horizon 0.2 --problem poly-Dirichlet \\
-        --element P1 --solverType cg-mg --matrixFormat sparse [--noRef N] \\
+        --element P1 --solverType cg-mg|lu|mg|cg-jacobi|gmres-mg|... \\
+        --matrixFormat sparse [--noRef N] \\
         [--interaction ball2|ballInf] [--device cuda|cpu]
 
 Port of drivers/runNonlocal.py (pynucleus_tpu/nl/problems.py
@@ -28,6 +29,7 @@ import argparse
 import numpy as np
 
 from ..config import getDevice
+from ..base.solvers import SOLVER_TYPES
 from ..base.utilsFem import outputGroup
 from ..nl.discretized import modelErrors, solveNonlocal
 from ..nl.problems import (nonlocalPoissonProblem, defaultNoRefNonlocal,
@@ -52,8 +54,7 @@ def parser():
                    choices=['poly-Dirichlet', 'constant'])
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--noRef', type=int, default=-1)
-    p.add_argument('--solverType', default='cg-mg',
-                   choices=['cg-mg', 'lu', 'mg', 'cg-jacobi'])
+    p.add_argument('--solverType', default='cg-mg', choices=SOLVER_TYPES)
     p.add_argument('--maxiter', type=int, default=100)
     p.add_argument('--tol', type=float, default=1e-6)
     p.add_argument('--matrixFormat', default='H2',

@@ -78,6 +78,16 @@ class P1_DoFMap(DoFMap):
         # P1 shape functions are the barycentric coordinates themselves
         return np.ascontiguousarray(np.asarray(bary, dtype=np.float64).T)
 
+    def evalGradPhi(self, bary):
+        """Derivatives of the shape functions with respect to the
+        barycentric coordinates at bary [Q, m+1] -> [dpe, Q, m+1]: the
+        identity at every point."""
+        Q = np.asarray(bary).shape[0]
+        eye = np.eye(self.dofs_per_element)
+        return np.ascontiguousarray(np.broadcast_to(
+            eye[:, None, :], (self.dofs_per_element, Q,
+                              self.dofs_per_element)))
+
     def _buildDofNumbering(self):
         """Vertex dofs numbered in order of first appearance in the cell
         list (ref DoFMaps.pyx cell traversal); boundary vertices of the

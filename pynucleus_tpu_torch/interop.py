@@ -11,7 +11,9 @@ H2Matrix from the arrays of an H2 operator, such as those of a JAX package
 H2Matrix, so that its apply can be checked on its own; ``csrFromArrays``
 builds the port's CSR operator, such as a JAX package prolongation, so
 that a multigrid cycle can run on operators identical to the JAX
-package's.  Like every entry point of the port they build on the card
+package's; ``csrHierarchyFromArrays`` builds a level list of CSR
+operators and prolongations, such as a JAX package stiffness hierarchy,
+for the port's multigrid and Krylov solvers.  Like every entry point of the port they build on the card
 unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -28,7 +30,8 @@ from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .base.linear_operators import CSR_LinearOperator
 
-__all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays']
+__all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
+           'csrHierarchyFromArrays']
 
 
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
@@ -112,3 +115,18 @@ def csrFromArrays(indptr, indices, data, shape, device='cuda'):
         raise ValueError('csrFromArrays: indptr must have rows + 1 entries')
     return CSR_LinearOperator(indptr, indices, data, num_columns=shape[1],
                               device=device)
+
+
+def csrHierarchyFromArrays(As, Ps, device='cuda'):
+    """The port's level list [{'A'}, {'A', 'P', 'R'}, ...], coarse to fine,
+    from CSR arrays: As[l] and Ps[l] (l >= 1; Ps[0] is ignored) each a
+    tuple (indptr, indices, data, shape) as for :func:`csrFromArrays`; R is
+    the CSR of P's transpose."""
+    hierarchy = []
+    for lvl, A in enumerate(As):
+        entry = {'A': csrFromArrays(*A, device=device)}
+        if lvl > 0:
+            entry['P'] = csrFromArrays(*Ps[lvl], device=device)
+            entry['R'] = entry['P'].T
+        hierarchy.append(entry)
+    return hierarchy

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Fifteen kernels carry the port's device work:
+Eighteen kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -35,11 +35,20 @@ Fifteen kernels carry the port's device work:
                     exact interval clipping
   K15 cut2d_polar   (csrc/cut_cells.cu)      2D pairs cut by the horizon:
                     kink-split polar rays clipped to the cell and the ball
+  K16 csr_scatter   (csrc/csr_scatter.cu)    local stiffness and mass
+                    matrices summed into CSR data, one thread per slot
+                    over its host-sorted contributions
+  K17 gmres_arnoldi (gmres_arnoldi.py,       GMRES: one Arnoldi step's
+                    Triton)                  modified Gram-Schmidt and
+                                             normalisation; x += Z y
+  K18 bicgstab_update (bicgstab_update.py,   BiCGStab's vector passes
+                    Triton)                  around its applies
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
 package has the program they replace: K1-K3, K5-K7 and K11-K15 in
-nl/assembly.py, K4 in base/solvers.py, K8 in nl/h2.py, K9 in
-base/linear_operators.py, K10 in multilevel/gmg.py.  A wrapper runs the
+nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 in nl/h2.py, K9 in
+base/linear_operators.py, K10 in multilevel/gmg.py, K16 in
+fem/assembly.py.  A wrapper runs the
 plain version only for tensors on the CPU; on a CUDA tensor it launches
 its kernel or raises.
 
@@ -50,9 +59,10 @@ scatter targets are also counted apart, under ``panel_scatter:dense``,
 ``pcg_update:jacobi`` and ``:general``.  ``deviceLaunches`` counts, per
 kernel, the CUDA
 launches those calls made: one per call, except for K2 (two), K4 (three
-in the Jacobi form, four in the general form) and K8 (one per pass that
+in the Jacobi form, four in the general form), K8 (one per pass that
 has work, as the C entry point reports: at most 2 nLvl + 2 for an
-operator of nLvl levels).  ``resetLaunches`` zeroes both.
+operator of nLvl levels), K17 (j + 3 for Arnoldi step j, two to start a
+cycle, one to combine) and K18 (two per call).  ``resetLaunches`` zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
@@ -71,7 +81,8 @@ import tempfile
 KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
            'csr_spmv', 'jacobi_smooth', 'block_near_count', 'block_near_quad',
-           'tree_csr_quad', 'cut1d', 'cut2d_polar')
+           'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
+           'gmres_arnoldi', 'bicgstab_update')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
@@ -83,7 +94,7 @@ CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
-           'near_block.cu', 'cut_cells.cu')
+           'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',)}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -223,6 +234,8 @@ def _declare(lib):
                       ctypes.POINTER(ctypes.c_int), P],
         # y, indptr, indices, data, x, nRows, accumulate, stream
         'csr_spmv': [P, P, P, P, P, I, I, P],
+        # data, vals, order, offsets, nnz, stream
+        'csr_scatter': [P, P, P, P, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

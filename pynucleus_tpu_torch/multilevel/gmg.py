@@ -2,8 +2,10 @@
 
 Port of pynucleus_tpu/multilevel/gmg.py for the damped-Jacobi smoother:
 ``buildProlongation`` (host numpy/scipy, code-identical), the level
-container, the V/W cycle ``_vcycle``/``_mg_apply``, ``multigrid`` (set-up
-and the host-driven solve loop) and ``mgPreconditioner``.
+container, the V/W cycle ``_vcycle``/``_mg_apply`` with the smoother's
+pre- and post-sweep counts, full multigrid ``_fmg_solve``, ``multigrid``
+(set-up and the host-driven solve loop, V, W, FMG_V and FMG_W) and
+``mgPreconditioner``.
 
 The JAX package compiles the whole cycle into one XLA program; here the
 host walks the levels and each step is a launch on the level's device:
@@ -16,9 +18,11 @@ host walks the levels and each step is a launch on the level's device:
                                    package's jax.scipy.linalg.lu_factor /
                                    lu_solve there, a library LU too)
 
-Every level keeps its work vectors, made at set-up, so a cycle allocates
-only the coarsest level's solution.  Not ported (ROADMAP A10): the
-Chebyshev and ILU smoothers, FMG (``_fmg_solve``) and ``_mg_solve``.
+Every level keeps its work vectors, made at set-up (FMG's at its first
+use), so a cycle allocates only the coarsest level's solution.  FMG
+composes the same steps: the chain of P^T (K9), the coarse LU, then per
+level P (K9), the residual (the level's matvec and K10) and a cycle.  Not
+ported (ROADMAP A9): the Chebyshev and ILU smoothers and ``_mg_solve``.
 """
 from __future__ import annotations
 
@@ -160,25 +164,55 @@ def _jacobi_smooth_plain(mode, x, b, Ax=None, Dinv=None, omega=None):
 OMEGA = 2.0 / 3.0
 
 
+def _smootherParameters(smoother):
+    """(omega, preSteps, postSteps) of a smoother given as the JAX
+    package's multigrid takes it (gmg.py:335-346): a name, or a tuple
+    (name, {'omega', 'presmoothingSteps', 'postsmoothingSteps'}) whose
+    missing entries take the defaults (omega 2/3, one pre-sweep, as many
+    post-sweeps as pre-sweeps).  The port has the damped-Jacobi smoother
+    only."""
+    kind, params = (smoother, {}) if isinstance(smoother, str) else smoother
+    if kind != 'jacobi':
+        raise NotImplementedError(f'smoother {kind!r}: the port has the '
+                                  'damped-Jacobi smoother only')
+    pre = params.get('presmoothingSteps', 1)
+    return params.get('omega', OMEGA), pre, params.get('postsmoothingSteps',
+                                                       pre)
+
+
 class _mgLevels:
     """Per-level A, P (to this level), damped-Jacobi inverse diagonal and
-    work vectors, plus the coarse LU factors.  ``Ps[l]`` maps level l-1 to
-    l (``Ps[0]`` is None); ``omegaT`` is OMEGA as a float64 tensor [1] on
-    the device (K10's argument)."""
+    work vectors, plus the coarse LU factors and the sweep counts.
+    ``Ps[l]`` maps level l-1 to l (``Ps[0]`` is None); ``omegaT`` is omega
+    as a float64 tensor [1] on the device (K10's argument)."""
 
-    def __init__(self, As, Ps, Dinvs, coarse_lu, coarse_piv):
+    def __init__(self, As, Ps, Dinvs, coarse_lu, coarse_piv, omega=OMEGA,
+                 preSteps=1, postSteps=1):
         self.As, self.Ps, self.Dinvs = As, Ps, Dinvs
-        dev = As[-1].device
-        self.omegaT = torch.tensor([OMEGA], dtype=torch.float64, device=dev)
+        self.dev = As[-1].device
+        self.omegaT = torch.tensor([omega], dtype=torch.float64,
+                                   device=self.dev)
+        self.preSteps, self.postSteps = preSteps, postSteps
         self.coarse_lu, self.coarse_piv = coarse_lu, coarse_piv
         self.work = [None]
         for lvl in range(1, len(As)):
             n, nc = As[lvl].num_rows, As[lvl - 1].num_rows
+            self.work.append({'x': self._vec(n), 'Ax': self._vec(n),
+                              'res': self._vec(n), 'defect': self._vec(nc)})
+        self._fmg = None
 
-            def vec(k):
-                return torch.empty(k, dtype=torch.float64, device=dev)
-            self.work.append({'x': vec(n), 'Ax': vec(n), 'res': vec(n),
-                              'defect': vec(nc)})
+    def _vec(self, k):
+        return torch.empty(k, dtype=torch.float64, device=self.dev)
+
+    def fmgWork(self):
+        """FMG's vectors of every level below the finest (its right-hand
+        side, iterate and residual), apart from the cycle's own: FMG adds
+        a cycle's result into its iterate."""
+        if self._fmg is None:
+            self._fmg = [{'rhs': self._vec(A.num_rows), 'x': self._vec(
+                A.num_rows), 'r': self._vec(A.num_rows)}
+                for A in self.As[:-1]]
+        return self._fmg
 
 
 def _vcycle(levels, lvl, b, gamma=1, x=None):
@@ -205,23 +239,33 @@ def _coarseSolve(levels, b, x=None):
 
 
 def _smoothRestrict(levels, lvl, b, x):
-    """Level ``lvl``'s steps before the coarse visit: the one pre-sweep
-    from x = 0, the residual and its restriction; returns the defect."""
+    """Level ``lvl``'s steps before the coarse visit: the pre-sweeps (the
+    first from x = 0), the residual and its restriction; returns the
+    defect."""
     A, Dinv, w = levels.As[lvl], levels.Dinvs[lvl], levels.work[lvl]
     jacobi_smooth('zero', x, b, Dinv=Dinv, omega=levels.omegaT)
+    for _ in range(levels.preSteps - 1):
+        A.matvec(x, out=w['Ax'])
+        jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=Dinv,
+                      omega=levels.omegaT)
     A.matvec(x, out=w['Ax'])
     jacobi_smooth('residual', w['res'], b, Ax=w['Ax'])
     return levels.Ps[lvl].rmatvec(w['res'], out=w['defect'])   # R = P^T
 
 
 def _prolongSmooth(levels, lvl, b, x, xc):
-    """Level ``lvl``'s steps after the coarse visit: x += P xc and the one
-    post-sweep."""
-    A, w = levels.As[lvl], levels.work[lvl]
+    """Level ``lvl``'s steps after the coarse visit: x += P xc and the
+    post-sweeps."""
     levels.Ps[lvl].matvec(xc, out=x, accumulate=True)
-    A.matvec(x, out=w['Ax'])
-    jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=levels.Dinvs[lvl],
-                  omega=levels.omegaT)
+    _postSmooth(levels, lvl, b, x)
+
+
+def _postSmooth(levels, lvl, b, x):
+    A, w = levels.As[lvl], levels.work[lvl]
+    for _ in range(levels.postSteps):
+        A.matvec(x, out=w['Ax'])
+        jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=levels.Dinvs[lvl],
+                      omega=levels.omegaT)
 
 
 def _mg_apply(levels, b, gamma=1, out=None):
@@ -231,12 +275,40 @@ def _mg_apply(levels, b, gamma=1, out=None):
                    torch.empty_like(b) if out is None else out)
 
 
+def _fmg_solve(levels, b, gamma=1, out=None):
+    """Full multigrid (pynucleus_tpu/multilevel/gmg.py:268): b restricted
+    to every level, the coarsest solved by LU, then on each intermediate
+    level the prolonged iterate corrected by one cycle on its residual; on
+    the finest level only the prolongation and the post-sweeps.  Into
+    ``out`` if given, else into a new vector."""
+    nl = len(levels.As) - 1
+    if nl < 1:
+        raise ValueError('FMG needs at least two levels')
+    fw = levels.fmgWork()
+    rhss = [None] * nl + [b]
+    for lvl in range(nl - 1, -1, -1):
+        rhss[lvl] = levels.Ps[lvl + 1].rmatvec(rhss[lvl + 1],
+                                               out=fw[lvl]['rhs'])
+    x = _coarseSolve(levels, rhss[0], fw[0]['x'])
+    for lvl in range(1, nl):
+        x = levels.Ps[lvl].matvec(x, out=fw[lvl]['x'])
+        Ax = levels.work[lvl]['Ax']
+        levels.As[lvl].matvec(x, out=Ax)
+        jacobi_smooth('residual', fw[lvl]['r'], rhss[lvl], Ax=Ax)
+        x.add_(_vcycle(levels, lvl, fw[lvl]['r'], gamma))
+    out = levels.Ps[nl].matvec(x, out=torch.empty_like(b) if out is None
+                               else out)
+    _postSmooth(levels, nl, b, out)
+    return out
+
+
 class multigrid(iterative_solver):
     """MG solver over a level list [{'A':..., 'P':..., ('R':...)}, ...]
-    ordered coarse -> fine (pynucleus_tpu/multilevel/gmg.py:302), with the
-    JAX package's default smoother only (OMEGA, one sweep each side)."""
+    ordered coarse -> fine (pynucleus_tpu/multilevel/gmg.py:302) with the
+    damped-Jacobi smoother, given as the JAX package's (a name or a tuple,
+    :func:`_smootherParameters`)."""
 
-    def __init__(self, hierarchy=None, smoother='jacobi'):
+    def __init__(self, hierarchy=None, smoother=('jacobi', {'omega': OMEGA})):
         self.hierarchyList = hierarchy
         A = hierarchy[-1]['A'] if hierarchy else None
         super().__init__(A)
@@ -246,10 +318,7 @@ class multigrid(iterative_solver):
 
     def setup(self, A=None):
         levels = self.hierarchyList
-        if self.smootherType != 'jacobi':
-            raise NotImplementedError(f'smoother {self.smootherType!r}: the '
-                                      'port has the damped-Jacobi smoother '
-                                      'only')
+        omega, pre, post = _smootherParameters(self.smootherType)
         As, Ps, Dinvs = [], [], []
         for lvlNo, lvl in enumerate(levels):
             A_ = lvl['A']
@@ -259,26 +328,30 @@ class multigrid(iterative_solver):
         A0 = torch.as_tensor(levels[0]['A'].toarray(), dtype=torch.float64,
                              device=As[-1].device)
         lu, piv = torch.linalg.lu_factor(A0)
-        self.levels = _mgLevels(As, Ps, Dinvs, lu, piv)
+        self.levels = _mgLevels(As, Ps, Dinvs, lu, piv, omega, pre, post)
         self.initialized = True
 
     def _gamma(self):
-        if self.cycle not in ('V', 'W'):
-            raise NotImplementedError(f'cycle {self.cycle!r}: FMG is not '
-                                      'ported')
-        return 2 if self.cycle == 'W' else 1
+        if self.cycle not in ('V', 'W', 'FMG_V', 'FMG_W'):
+            raise NotImplementedError(f'cycle {self.cycle!r}')
+        return 2 if self.cycle in ('W', 'FMG_W') else 1
 
     def solve(self, b):
         """Host-driven iteration over cycles, recording the residual
-        history (the JAX package's loop: the residuals list starts with
-        the residual before the first cycle)."""
+        history (the JAX package's loop: FMG counts as iteration 1 and
+        seeds the cycles; the residuals list starts with the residual
+        before the first cycle)."""
         gamma = self._gamma()
         A = self.A
-        x = torch.zeros_like(b)
+        if self.cycle in ('FMG_V', 'FMG_W'):
+            x = _fmg_solve(self.levels, b, gamma)
+            iters = 1
+        else:
+            x = torch.zeros_like(b)
+            iters = 0
         Ax = A.matvec(x)
         r = torch.empty_like(b)
         jacobi_smooth('residual', r, b, Ax=Ax)
-        iters = 0
         rn = float(torch.linalg.norm(r))
         residuals = [rn]
         while rn > self.tolerance and iters < self.maxIter:

@@ -7,7 +7,8 @@ collar's A_BC and right-hand side, the solve and its explicit residual) and
 of stationaryModelSolution's error formulas (:34-129) as plain functions;
 the ``@generates`` DAG of the JAX package's driver is not ported.  The
 solution comes from the device; the error integrals are host numpy with the
-mass matrix of fem/assembly.py.
+host copy of the mass matrix of fem/assembly.py (summed on the dofmap's
+device by K16).
 """
 from __future__ import annotations
 
@@ -102,7 +103,7 @@ def modelErrors(dm, u, b, analyticSolution, exactL2Squared, exactHsSquared):
     out = {}
     if analyticSolution is None:
         return out
-    M = assembleMass(dm)
+    M = assembleMass(dm).to_scipy()
     if exactL2Squared is not None:
         z = assembleRHS(dm, analyticSolution).toarray()
         L2 = np.sqrt(abs(exactL2Squared - 2 * float(z @ uh)
