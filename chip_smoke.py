@@ -79,6 +79,22 @@ result line):
      (CUDA events) and the peak device memory; then K16 (the finest
      stiffness), K17 (one restart cycle of 10 steps and the combine) and
      K18 (10 iterations) against their plain versions at these shapes.
+ 12. the interval in H2 and the smooth kernels: runFractional's interval
+     (s = 0.75, P1, lu, H2, noRef 6, 127 dofs; a path of its own) against
+     the reference cache and the pinned JAX outputs, and its cg-mg line
+     against the JAX outputs; runNonlocal's gaussian and exponential lines
+     (lu, H2, fullSpace, noRef 8; each a path of its own) against their
+     caches and the JAX outputs, with K1's CSR targets, K5, K6, K7, K11 and
+     K12 on all their calls, K13 (a host-engine build) and K1's dense
+     target, K2 and K3 (a dense build) against their plain versions with
+     these profiles (erfc included, in the gaussian's 1D boundary kernel);
+     the gaussian at noRef 14 (cg-jacobi, a path); H2 against dense at
+     noRef 12 (8,191 dofs, 1e-5 relative) and that line's CG-MG error; then
+     the full-width line, H2 CG-MG at noRef 16 (17 levels, 131,071 dofs; a
+     path): per-level build parts, iterations, the warm solve, ms per
+     V-cycle, peak device memory, an L2 error below noRef 12's, and K1's
+     CSR targets, K5, K6, K7, K11 and K12 (their largest calls) against
+     their plain versions at its shapes.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -341,11 +357,11 @@ def bound(work):
 
 def panel_work(args):
     """K1 (any target) on recorded args (N or nnz+1, vertices, vi1, vi2,
-    ..., w, PSIP, C, e): per pair and node the positions, r^2, gamma (one
-    pow), the normal factor and nPSI^2 multiply-adds; the touched entries
-    are read and written once."""
+    ..., w, PSIP, profile): per pair and node the positions, r^2, gamma
+    (one pow, exp or erfc), the normal factor and nPSI^2 multiply-adds;
+    the touched entries are read and written once."""
     vertices, vi1, vi2, normals = args[1], args[2], args[3], args[6]
-    w, PSIP = args[-4], args[-3]
+    w, PSIP = args[-3], args[-2]
     P, Q, nn, dim = vi1.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1]
     ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim + 3
@@ -371,7 +387,9 @@ def _clone(a):
     if isinstance(a, torch.Tensor):
         return a.clone()
     if isinstance(a, tuple):
-        return tuple(_clone(b) for b in a)
+        items = tuple(_clone(b) for b in a)
+        # a named tuple (the kernels' Profile) keeps its type
+        return type(a)(*items) if hasattr(a, '_fields') else items
     if isinstance(a, dict):
         return {k: _clone(v) for k, v in a.items()}
     return a
@@ -484,10 +502,10 @@ def compare_target_kernel(name, calls, kernel, plain, work):
 
 def enum_quad_work(args):
     """K6 on recorded args (nnz+1, ids, pT, ..., vertices, cells, ...,
-    w, PSIP, C, e): K1's quadrature body per element (two cells), the
+    w, PSIP, profile): K1's quadrature body per element (two cells), the
     touched entries read and written once."""
-    ids, vertices, cells, w, PSIP = args[1], args[12], args[13], args[-4], \
-        args[-3]
+    ids, vertices, cells, w, PSIP = args[1], args[12], args[13], args[-3], \
+        args[-2]
     n, Q, nn, dim, nv = ids.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1], cells.shape[1]
     ops = n * Q * (4 * dim * nv + 3 * dim + 3 + 2 * nn)
@@ -569,8 +587,8 @@ def block_count_work(args):
 
 def block_quad_work(args):
     """K12 on recorded args (nnz+1, pairs, ncArr, cells, cellNodes,
-    centers, logh, consts, vertices, vols, dofs, treePos, rules, C, e): the
-    order model per element; per element of a requested order K1's
+    centers, logh, consts, vertices, vols, dofs, treePos, rules, profile):
+    the order model per element; per element of a requested order K1's
     quadrature body (counted by K11's plain version on the same pairs);
     the tables read once, each pair's block(s) read and written once."""
     import pynucleus_tpu_torch.nl.assembly as asm
@@ -590,11 +608,11 @@ def block_quad_work(args):
 
 def tree_quad_work(args):
     """K13 on recorded args (nnz+1, c1, c2, I, J, offF, offB, sf,
-    vertices, cells, vols, dofs, tables, bary_x, bary_y, w, PSIP, C, e):
-    K1's quadrature body per element, the touched entries read and written
-    once."""
-    c1, vertices, cells, w, PSIP = args[1], args[8], args[9], args[-4], \
-        args[-3]
+    vertices, cells, vols, dofs, tables, bary_x, bary_y, w, PSIP,
+    profile): K1's quadrature body per element, the touched entries read
+    and written once."""
+    c1, vertices, cells, w, PSIP = args[1], args[8], args[9], args[-3], \
+        args[-2]
     n, Q, nn, dim, nv = c1.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1], cells.shape[1]
     ops = n * Q * (4 * dim * nv + 3 * dim + 3 + 2 * nn)
@@ -800,8 +818,8 @@ def compare_jacobi_smooth(n, reps=10):
 
 def grid_distant_work(args):
     """K2 on recorded args (N, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w,
-    t_lo, t_hi, C, e): per cell pair of the window Q^2 kernel values (one
-    pow each) and the two contractions with the dpe shape functions, per
+    t_lo, t_hi, profile): per cell pair of the window Q^2 kernel values
+    (one pow or exp each) and the two contractions with the dpe shape functions, per
     cell its dpe^2 block; the touched entries read and written once."""
     import torch
     import pynucleus_tpu_torch.nl.assembly as asm
@@ -817,11 +835,11 @@ def grid_distant_work(args):
 
 def grid_boundary_work(args):
     """K3 on recorded args (N, X, vols, dofs, Ysurf, svolw2, normals,
-    exclPtr, exclIdx, PhiXw, PhiX, C, e, useNormals): a kernel value (and
+    exclPtr, exclIdx, PhiXw, PhiX, profile, useNormals): a kernel value (and
     the normal factor) per cell node and surface node not excluded, per
     cell its dpe^2 block."""
     X, dofs, Ysurf, exclIdx, useNormals = args[1], args[3], args[4], \
-        args[8], args[13]
+        args[8], args[12]
     nC, Q1, dim = X.shape
     S, Q2, _ = Ysurf.shape
     dpe = dofs.shape[1]
@@ -832,31 +850,34 @@ def grid_boundary_work(args):
 
 
 def compare_pcg(name, fns, states, M=None, iters=10):
-    """``iters`` PCG iterations of two states, one through each of fns
-    (kernel, plain), with A p by the operator ``M[0]`` and, for the
-    general form, the preconditioner ``M[1]``; x, r, p and the history
-    must agree.  Returns (max abs err, kernel ms, plain ms), the times
+    """``iters`` PCG iterations through fns[0] (the kernel) on states[0],
+    with A p by the operator ``M[0]`` and, for the general form, the
+    preconditioner ``M[1]``; each iteration the plain version fns[1] takes
+    the same step from a copy of the kernel's state into states[1] (the
+    same inputs: two separate trajectories would drift apart by rounding,
+    most where the residual has shrunk), and x, r, p and the history must
+    agree after it.  Returns (max abs err, kernel ms, plain ms), the times
     summed over the iterations (the operator's apply is not timed, the
     preconditioner's is)."""
     A, prec = M
     ms = plain_ms = worst = 0.0
+    pre = [prec] if prec is not None else []
     for it in range(iters):
-        for st in states:
-            A.matvec(st[3], out=st[4])
-        args = [states[0][:5] + ([prec] if prec is not None else [])
-                + states[0][5:], states[1][:5]
-                + ([prec] if prec is not None else []) + states[1][5:]]
+        A.matvec(states[0][3], out=states[0][4])
+        for vk, vp in zip(*states):
+            vp.copy_(vk)
+        args = [st[:5] + pre + st[5:] for st in states]
         ms += timed(lambda: fns[0](*args[0], it))
         plain_ms += timed(lambda: fns[1](*args[1], it))
-    for what, i in (('x', 0), ('r', 1), ('p', 3), ('hist', -1)):
-        vk = states[0][i][:iters + 1] if what == 'hist' else states[0][i]
-        vp = states[1][i][:iters + 1] if what == 'hist' else states[1][i]
-        err = float((vk - vp).abs().max())
-        scale = float(vp.abs().max())
-        if not err <= TOL_KERNEL * scale:
-            raise AssertionError(f'{name}: {what} max err {err} '
-                                 f'(max {scale})')
-        worst = max(worst, err)
+        for what, i in (('x', 0), ('r', 1), ('p', 3), ('hist', -1)):
+            vk = states[0][i][:it + 2] if what == 'hist' else states[0][i]
+            vp = states[1][i][:it + 2] if what == 'hist' else states[1][i]
+            err = float((vk - vp).abs().max())
+            scale = float(vp.abs().max())
+            if not err <= TOL_KERNEL * scale:
+                raise AssertionError(f'{name}: {what} max err {err} '
+                                     f'(max {scale}) at iteration {it}')
+            worst = max(worst, err)
     return worst, ms, plain_ms
 
 
@@ -875,9 +896,10 @@ def pcg_state(b, z0, extra):
     return [x, r, z, p, torch.empty_like(b)] + extra + [scal, hist]
 
 
-def compare_pcg_forms(A, b, M, label):
-    """K4's two forms against their plain versions, ten iterations each
-    with A p of the operator A: the Jacobi form with invD the inverse
+def compare_pcg_forms(A, b, M, label, iters=10):
+    """K4's two forms against their plain versions, ``iters`` iterations
+    each (fewer than the solve needs: a converged residual is rounding
+    noise) with A p of the operator A: the Jacobi form with invD the inverse
     diagonal of M's finest level, the general form with M (a multigrid
     preconditioner, whose K8, K9 and K10 launches are no main path's);
     the general form's time is taken with M = that diagonal (one
@@ -900,20 +922,22 @@ def compare_pcg_forms(A, b, M, label):
         A.matvec(w[3], out=w[4])
         fn(*w[:5], M, *w[5:], 0)
     errJ, msJ, plainJ = compare_pcg('pcg_update (Jacobi form)', jac, [
-        pcg_state(b, invD * b, [invD]) for _ in range(2)], (A, None))
+        pcg_state(b, invD * b, [invD]) for _ in range(2)], (A, None), iters)
     errG, _, _ = compare_pcg('pcg_update (general form, CG-MG)', gen, [
-        pcg_state(b, M.matvec(b), []) for _ in range(2)], (A, M))
+        pcg_state(b, M.matvec(b), []) for _ in range(2)], (A, M), iters)
     errD, msG, plainG = compare_pcg('pcg_update (general form)', gen, [
-        pcg_state(b, Mdiag.matvec(b), []) for _ in range(2)], (A, Mdiag))
-    log(f'  pcg_update ({label}): 10 iterations of each form; Jacobi: max '
-        f'abs err {errJ:.3e}, kernel {msJ:.3f} ms, plain {plainJ:.3f} ms; '
+        pcg_state(b, Mdiag.matvec(b), []) for _ in range(2)], (A, Mdiag),
+        iters)
+    log(f'  pcg_update ({label}): {iters} iterations of each form; Jacobi: '
+        f'max abs err {errJ:.3e}, kernel {msJ:.3f} ms, plain {plainJ:.3f} ms; '
         f'general (CG-MG): max abs err {errG:.3e}, timed with M = diag: '
         f'kernel {msG:.3f} ms, plain {plainG:.3f} ms')
     # per iteration, Jacobi: x, r, p, Ap, invD read, x, r, z, p written;
     # general: x, r, p, Ap, z read, x, r, p written
-    return merge(result(errJ, msJ, plainJ, [(72 * n, 13 * n, F64_PEAK)] * 10),
+    return merge(result(errJ, msJ, plainJ,
+                        [(72 * n, 13 * n, F64_PEAK)] * iters),
                  result(max(errG, errD), msG, plainG,
-                        [(64 * n, 12 * n, F64_PEAK)] * 10))
+                        [(64 * n, 12 * n, F64_PEAK)] * iters))
 
 
 def phase2():
@@ -945,7 +969,7 @@ def phase2():
     from pynucleus_tpu_torch.fem.quadrature import simplexCompact
     b6, w6 = simplexCompact(6, 2)
     Phi6 = dm.evalPhi(b6)
-    (N4, _, ccf, vols, dofs, *_, t_lo, t_hi, C, e), _ = k2.calls[-1]
+    (N4, _, ccf, vols, dofs, *_, t_lo, t_hi, prof), _ = k2.calls[-1]
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
@@ -953,7 +977,7 @@ def phase2():
     k2.calls.append(((
         N4, dev(np.einsum('qk,ckd->cqd', b6, mesh.vertices[mesh.cells])),
         ccf, vols, dofs, dev(Phi6 * w6), dev(Phi6), dev(-Phi6 * w6),
-        dev(w6), t_lo, t_hi, C, e), {}))
+        dev(w6), t_lo, t_hi, prof), {}))
     out = {}
     out['panel_scatter'] = compare_target_kernel(
         'panel_scatter', k1.calls, asm.panel_scatter, asm._panel_scatter_plain,
@@ -1033,8 +1057,8 @@ def phase3():
 def run_main_path(argv, path, params=None):
     """One run of a main path through the driver (builder ``params`` to
     every level), with every launch count set to 0 just before and read
-    just after; each kernel of the path must have launched, CG must have
-    converged."""
+    just after; each kernel of the path must have launched, an iterative
+    solver must have converged."""
     import torch
     from pynucleus_tpu_torch import kernels
     from pynucleus_tpu_torch.drivers.runFractional import main
@@ -1064,8 +1088,9 @@ def run_main_path(argv, path, params=None):
             raise AssertionError(f'kernel {k} was not launched by the main '
                                  'path')
     solver = out['solver']
-    if not solver.residuals[-1] <= solver.tolerance \
-            or res['iterations'] >= solver.maxIter:
+    if hasattr(solver, 'residuals') and (
+            not solver.residuals[-1] <= solver.tolerance
+            or res['iterations'] >= solver.maxIter):
         raise AssertionError(f'{res["solver"]} did not converge: '
                              f'{solver.residuals[-3:]}')
     for k, v in errs.items():
@@ -1302,7 +1327,7 @@ def run_nonlocal_path(argv, path):
 
 def cut1d_work(args):
     """K14 on recorded args (shape, target, index, vertices, vi1, vi2,
-    vols1, tq, wq, ur, wr, horizon, C, e): every (x, y) node product of
+    vols1, tq, wq, ur, wr, horizon, profile): every (x, y) node product of
     every pair; inputs read once, the 16 entries of a pair read and
     written once."""
     P = args[4].shape[0]
@@ -1312,7 +1337,7 @@ def cut1d_work(args):
 
 def cut2d_work(args):
     """K15 on recorded args (shape, target, index, vertices, vi1, vi2,
-    vols1, bary_x, wx, thetas, wtheta, rq, wr, horizon, inter, C, e): the
+    vols1, bary_x, wx, thetas, wtheta, rq, wr, horizon, inter, profile): the
     window of every x node, every ray, and the radial nodes of the rays
     that hit the cell in this run's data (counted by the plain version's
     ray part, chunked); inputs read once, the 36 entries of a pair read
@@ -1892,6 +1917,355 @@ def phase11():
     return counts, cmp
 
 
+# ---------------------------------------------------------------- phase 12
+
+# JAX package outputs of `drivers/runFractional.py --domain interval --s
+# 'const(0.75)' --problem constant --element P1 --solverType lu
+# --matrixFormat H2` (default noRef 6, 127 dofs) and of the same line with
+# --solverType cg-mg (7 levels, every one H2), run on the CPU in float64.
+# The port's near data equal the JAX package's to 1e-15 of max|data| there
+# (tests/test_torch_interval_h2.py), so the errors are held to
+# TOL_INTERVAL_JAX relative.
+JAX_INTERVAL_LU = {
+    'dofs': 127, 'iterations': 1,
+    'errors': {'L2 error': 0.0014601356600079179,
+               'relative L2 error': 0.00178829366113067,
+               'L2 error interpolated': 0.0010913476899855,
+               'relative interpolated L2 error': 0.0013367044777926175,
+               'Linf error interpolated': 0.000987510692509408,
+               'relative interpolated Linf error': 0.0013127378473115044,
+               'Hs error': 0.04187962925463276,
+               'relative Hs error': 0.040269522411370114}}
+JAX_INTERVAL_MG = {
+    'dofs': 127, 'iterations': 3,
+    'errors': {'L2 error': 0.0014601358642015285,
+               'L2 error interpolated': 0.0010913478773632536,
+               'Hs error': 0.04187962925529021}}
+TOL_INTERVAL_JAX = 1e-6
+# the reference cache of the lu line (tests/test_drivers_fractional.py:95-98)
+INTERVAL_H2_CACHE = {'Hs error': 0.041849732677658555,
+                     'L2 error': 0.001458788789368659,
+                     'L2 error interpolated': 0.001089628333551184,
+                     'Linf error interpolated': 0.0009871148528776685}
+# runNonlocal's smooth lines (lu, H2, fullSpace, default noRef 8, 511
+# dofs): flags, the reference cache (tests/test_nonlocal_driver.py:83-104)
+# and the JAX package's output (CPU, float64) of 'L2 error interpolated'
+SMOOTH_LINES = {
+    'gaussian': (['--kernelType', 'gaussian', '--problem', 'gaussian',
+                  '--gaussianVariance', '0.1'], 2.9565447289171816e-03,
+                 2.9352268303818796e-03),
+    'exponential': (['--kernelType', 'exponential', '--problem',
+                     'exponential', '--exponentialRate', '8.0'],
+                    2.5530396949181036e-04, 2.545126451525732e-04)}
+# the square with the gaussian kernel (runNonlocal, lu, H2, fullSpace,
+# variance 0.1) at noRef 3, 225 dofs, for the 2D profiles: the gaussian
+# and its boundary form C exp(-a r2) / (2 a r); the JAX package's output
+# (CPU, float64) of 'L2 error interpolated' (no reference cache holds the
+# square).  The 2D exponential kernel (rate 8, scaling 0.7: it has no
+# normalization in 2D) and its boundary form on the same mesh, built
+# through the library.
+SQUARE_NOREF = 3
+JAX_SQUARE_GAUSSIAN = 41.68066922312951
+SQUARE_EXPONENTIAL = {'exponentialRate': 8.0, 'scaling': 0.7}
+INTERVAL_NOREF = 16
+INTERVAL_CHECK_NOREF = 12
+SMOOTH_NOREF = 14
+INTERVAL_LU_PATH = ('panel_scatter', 'near_enum', 'near_enum_quad',
+                    'far_field', 'h2_matvec', 'block_near_count',
+                    'block_near_quad', 'panel_scatter:slots',
+                    'panel_scatter:tree')
+SMOOTH_CG_PATH = INTERVAL_LU_PATH + ('pcg_update', 'pcg_update:jacobi')
+# the kernels of this slice, held with the smooth profiles (and K1, K5-K7,
+# K11, K12 at the noRef 16 line's shapes), and the solve's kernels K4, K8,
+# K9, K10 at the noRef 16 line's shapes, in the kernel table's
+# 'at_interval'
+INTERVAL_KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary',
+                    'near_enum', 'near_enum_quad', 'far_field',
+                    'block_near_count', 'block_near_quad', 'tree_csr_quad',
+                    'pcg_update', 'h2_matvec', 'csr_spmv', 'jacobi_smooth')
+INTERVAL_COMPARED_AT = (
+    'interval: the gaussian (variance 0.1) and exponential (rate 8) lines '
+    'at noRef 8 (all calls of their H2 builds; K13 a host-engine build, K1 '
+    'dense, K2 and K3 a dense build), the 2D boundary profiles on the '
+    'square (K1 tree and dense targets, K3, K7), and K1, K5-K7, K11, K12 '
+    f'the largest call of the fractional CG-MG line at noRef {INTERVAL_NOREF}; '
+    f'on that line K8 on each of its levels (timed on the finest, per '
+    'apply), K9 on the finest prolongation, K10 at the finest size, K4 '
+    'one iteration fewer than the solve took, each form, with its V-cycle')
+
+
+def interval_argv(noRef, solver):
+    return ['--domain', 'interval', '--s', 'const(0.75)', '--problem',
+            'constant', '--element', 'P1', '--solverType', solver,
+            '--matrixFormat', 'H2', '--noRef', str(noRef), '--maxiter',
+            str(MG_MAXITER), '--device', 'cuda']
+
+
+def smooth_argv(kind, noRef, solver='lu', domain='interval'):
+    return ['--domain', domain] + SMOOTH_LINES[kind][0] + [
+        '--interaction', 'fullSpace', '--horizon', 'inf', '--solverType',
+        solver, '--matrixFormat', 'H2', '--noRef', str(noRef), '--device',
+        'cuda']
+
+
+def check_interval_jax(out, ref, label):
+    """dofs and iterations equal, errors within TOL_INTERVAL_JAX of the
+    pinned JAX outputs."""
+    res, errs = out['results'].toDict(), out['errors'].toDict()
+    bad = [f"{k}: {errs[k]} vs JAX {v}" for k, v in ref['errors'].items()
+           if not abs(errs[k] - v) <= TOL_INTERVAL_JAX * abs(v)]
+    if res['dofs'] != ref['dofs'] or res['iterations'] != ref['iterations']:
+        bad.append(f"dofs {res['dofs']}, iterations {res['iterations']} vs "
+                   f"JAX {ref['dofs']}, {ref['iterations']}")
+    if bad:
+        raise AssertionError(f'{label}: ' + '; '.join(bad))
+    log(f"  {label}: dofs {res['dofs']}, iterations {res['iterations']}, "
+        f"L2 error {errs['L2 error']:.9e}: the JAX outputs (errors within "
+        f'rtol {TOL_INTERVAL_JAX})')
+    return errs
+
+
+def compare_smooth_builds(kind, domain='interval'):
+    """The kernels of this slice with the ``kind`` profile on the card
+    against their plain versions, at the shapes of its smooth line (the
+    interval at noRef 8, or the square at SQUARE_NOREF, held to its pinned
+    JAX output): K1's CSR targets, K5, K6, K7, K11 and K12 on the recorded
+    calls of the line's run (launch counts reset just before it: a path
+    of its own), then compare_profile_builds on its mesh.  Returns (the
+    launch counts, {name: result()}, (dofmap, kernel))."""
+    noRef = 8 if domain == 'interval' else SQUARE_NOREF
+    (out, counts), recs = record_h2_build(
+        lambda: run_nonlocal_path(smooth_argv(kind, noRef, domain=domain),
+                                  INTERVAL_LU_PATH),
+        H2_BUILD + ENGINE_KERNELS[:2])
+    errs = out['errors'].toDict()
+    got = errs['L2 error interpolated']
+    if domain == 'interval':
+        _, cache, jaxErr = SMOOTH_LINES[kind]
+        ok = abs(got - cache) <= RTOL_ERRORS * cache
+        what = f'the reference cache {cache:.7e} (rtol {RTOL_ERRORS}) and '
+    else:
+        jaxErr, ok, what = JAX_SQUARE_GAUSSIAN, True, ''
+    if not (ok and abs(got - jaxErr) <= TOL_INTERVAL_JAX * jaxErr):
+        raise AssertionError(f'{kind} {domain} line: L2 error interpolated '
+                             f'{got} vs {what}JAX {jaxErr} (rtol '
+                             f'{TOL_INTERVAL_JAX})')
+    log(f'  {kind} {domain} noRef {noRef} lu H2: L2 error interpolated '
+        f'{got:.9e}: {what}the JAX output (rtol {TOL_INTERVAL_JAX})')
+    dm, kernel = out['dm'], out['kernel']
+    del out
+    log(f'  kernels against their plain versions, {kind} profile')
+    cmp = compare_h2_build(recs)
+    cmp.update(compare_engines(recs, ENGINE_KERNELS[:2]))
+    return counts, compare_profile_builds(dm, kernel, cmp), (dm, kernel)
+
+
+def compare_profile_builds(dm, kernel, cmp=None):
+    """The kernels that evaluate ``kernel``'s profiles (its own and its
+    boundary kernel's) against their plain versions on the dofmap dm: K13
+    on a host-engine build, K1's dense target, K2 and K3 on a dense build
+    (in 2D K3 without its exclusions);
+    without ``cmp`` (the comparisons of a recorded driver run) also K1's
+    CSR targets, K5-K7, K11 and K12 on a default H2 build.  Returns
+    {name: result()}, K1's targets merged."""
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    if cmp is None:
+        _, recs = record_h2_build(
+            lambda: asm.assembleNonlocal(dm, kernel, matrixFormat='H2',
+                                         device='cuda'),
+            H2_BUILD + ENGINE_KERNELS[:2])
+        cmp = compare_h2_build(recs)
+        cmp.update(compare_engines(recs, ENGINE_KERNELS[:2]))
+    _, recs = record_h2_build(
+        lambda: asm.assembleNonlocal(dm, kernel, matrixFormat='H2',
+                                     device='cuda', params=HOST),
+        ENGINE_KERNELS[2:])
+    cmp.update(compare_engines(recs, ENGINE_KERNELS[2:]))
+    with ArgRecorder(asm, 'panel_scatter', dataFirst=True) as k1, \
+            ArgRecorder(asm, 'grid_distant', dataFirst=True) as k2, \
+            ArgRecorder(asm, 'grid_boundary', dataFirst=True) as k3:
+        asm.assembleNonlocal(dm, kernel, matrixFormat='dense',
+                             device='cuda')
+    torch.cuda.synchronize()
+    k3calls = k3.calls
+    if kernel.dim == 2:
+        # the smooth 2D kernels send every cell-surface pair to K1 (orders
+        # above 4), so K3 adds nothing there: it is held on those calls
+        # with their exclusion lists (exclPtr, exclIdx) emptied
+        k3calls = [(a[:7] + (torch.zeros_like(a[7]), a[8][:0]) + a[9:], kw)
+                   for a, kw in k3calls]
+    for name, calls, work in (('panel_scatter', k1.calls, panel_work),
+                              ('grid_distant', k2.calls, grid_distant_work),
+                              ('grid_boundary', k3calls, grid_boundary_work)):
+        cmp[name] = compare_target_kernel(
+            f'{name} ({kernel}, dense)', calls, getattr(asm, name),
+            getattr(asm, '_' + name + '_plain'), work)
+    cmp['panel_scatter'] = merge(cmp['panel_scatter'],
+                                 cmp.pop('panel_scatter_slots'),
+                                 cmp.pop('panel_scatter_tree'))
+    return cmp
+
+
+def phase12():
+    """The interval in H2 and the smooth kernels: the reference line
+    against the cache and the JAX outputs, the kernels of this slice with
+    the gaussian and exponential profiles against their plain versions,
+    the gaussian at noRef SMOOTH_NOREF, H2 against dense at noRef
+    INTERVAL_CHECK_NOREF and the full-width line, CG-MG at noRef
+    INTERVAL_NOREF, with its kernels against their plain versions at its
+    shapes.  Returns the launch counts of its paths and the comparisons."""
+    import contextlib
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.drivers.runFractional import main
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.nl.kernels import getIntegrableKernel
+    from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
+    prob = fractionalLaplacianProblem('interval', 'const(0.75)')
+    log('phase 12: the interval in H2 (runFractional) and the gaussian and '
+        'exponential kernels (runNonlocal)')
+    counts = {}
+    out, counts['lu'] = run_main_path(interval_argv(6, 'lu'),
+                                      INTERVAL_LU_PATH)
+    errs = check_interval_jax(out, JAX_INTERVAL_LU, 'interval noRef 6 lu H2')
+    bad = [k for k, v in INTERVAL_H2_CACHE.items()
+           if not abs(errs[k] - v) <= RTOL_ERRORS * v]
+    if bad:
+        raise AssertionError(f'interval lu H2: {bad} miss the reference '
+                             'cache')
+    log(f'  the reference cache (tests/test_drivers_fractional.py:95-98): '
+        f'met (rtol {RTOL_ERRORS})')
+    check_interval_jax(main(interval_argv(6, 'cg-mg'), quiet=True),
+                       JAX_INTERVAL_MG, 'interval noRef 6 cg-mg H2')
+
+    byProfile = {}
+    for kind in SMOOTH_LINES:
+        counts[kind], byProfile[kind], _ = compare_smooth_builds(kind)
+    # the 2D profile codes: the gaussian square line, then the exponential
+    # kernel on its mesh
+    counts['square'], byProfile['square'], (dm, _) = compare_smooth_builds(
+        'gaussian', 'square')
+    kExp = getIntegrableKernel(2, 'exponential', np.inf,
+                               **SQUARE_EXPONENTIAL)
+    log(f'  {kExp} and its boundary kernel on the square at noRef '
+        f'{SQUARE_NOREF}: the kernels against their plain versions')
+    byProfile['square exponential'] = compare_profile_builds(dm, kExp)
+    del dm
+    out, counts['gaussian14'] = run_nonlocal_path(
+        smooth_argv('gaussian', SMOOTH_NOREF, 'cg-jacobi'), SMOOTH_CG_PATH)
+    g14 = out['errors'].toDict()['L2 error interpolated']
+    log(f"  gaussian noRef {SMOOTH_NOREF} cg-jacobi H2: dofs "
+        f"{out['results'].toDict()['dofs']}, L2 error interpolated "
+        f'{g14:.6e} (noRef 8: {SMOOTH_LINES["gaussian"][2]:.6e}; the '
+        'solution is exact only up to the zero Dirichlet data)')
+    del out
+    torch.cuda.empty_cache()
+
+    log(f'  H2 against dense at noRef {INTERVAL_CHECK_NOREF}, and its CG-MG '
+        'error')
+    outC = main(interval_argv(INTERVAL_CHECK_NOREF, 'cg-mg'), quiet=True)
+    errC = outC['errors'].toDict()['L2 error']
+    H, dm = outC['A'], outC['dm']
+    del outC
+    D = asm.assembleNonlocal(dm, prob['kernel'], matrixFormat='dense',
+                             device='cuda')
+    x = torch.randn(dm.num_dofs, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(12))
+    ref = D.matvec(x)
+    rel = float(torch.linalg.norm(H.matvec(x) - ref) / torch.linalg.norm(ref))
+    if not rel <= TOL_H2_DENSE:
+        raise AssertionError(f'interval H2 vs dense at noRef '
+                             f'{INTERVAL_CHECK_NOREF}: {rel}')
+    log(f'  {dm.num_dofs} dofs: H2 vs dense apply relative error {rel:.3e} '
+        f'(<= {TOL_H2_DENSE}); CG-MG L2 error {errC:.6e}')
+    del H, D, dm
+    torch.cuda.empty_cache()
+
+    log(f'  the full-width line: interval noRef {INTERVAL_NOREF}, H2 CG-MG')
+    recNames = {'block_near_count': (lambda offI, *a: offI.shape[0], False),
+                'block_near_quad': (lambda data, pairs, *a: pairs[0].shape[0],
+                                    True),
+                'near_enum': (lambda cum, *a: int(cum[-1]), False),
+                'near_enum_quad': (lambda data, ids, *a: ids.shape[0], True),
+                'far_field': (lambda gi, *a: gi.shape[0], False),
+                'panel_scatter_slots': (lambda d, v, vi1, *a: vi1.shape[0],
+                                        True),
+                'panel_scatter_tree': (lambda d, v, vi1, *a: vi1.shape[0],
+                                       True)}
+    with contextlib.ExitStack() as stack:
+        recs = {n: stack.enter_context(ArgRecorder(asm, n, dataFirst=df,
+                                                   size=size))
+                for n, (size, df) in recNames.items()}
+        out, counts['mg16'] = run_main_path(
+            interval_argv(INTERVAL_NOREF, 'cg-mg'), MG_PATH)
+    errs = out['errors'].toDict()
+    if not errs['L2 error'] < errC:
+        raise AssertionError(f"noRef {INTERVAL_NOREF} L2 error "
+                             f"{errs['L2 error']} not below noRef "
+                             f'{INTERVAL_CHECK_NOREF} {errC}')
+    hierarchy, tim = out['hierarchy'], out['timers'].toDict()
+    for k in range(len(hierarchy)):
+        parts = out['levelParts'][k]
+        log(f"  level {k}: {hierarchy[k]['A'].num_rows} dofs, assembly "
+            f"{tim[f'assembly level {k} seconds']:.3f} s: " + ', '.join(
+                f'{p} {v:.3f}' for p, v in parts.items()))
+    M = out['solver'].prec
+    b = torch.randn(M.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(13))
+    z = torch.empty_like(b)
+    M.matvec(b, out=z)
+    perCycle = timed(lambda: [M.matvec(b, out=z) for _ in range(10)]) / 10
+    solver, dm = out['solver'], out['dm']
+    rhs = assembleRHS(dm, prob['rhs'], qOrder=3).data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.solve(rhs)
+    torch.cuda.synchronize()
+    tWarm = time.perf_counter() - t0
+    summary = {'dofs': dm.num_dofs, 'levels': len(hierarchy),
+               'iterations': out['results'].toDict()['iterations'],
+               'L2_error': errs['L2 error'],
+               'L2_error_noRef12': errC,
+               'assembly_s': tim['assembly seconds'],
+               'solve_s': tim['solve seconds'], 'warm_solve_s': tWarm,
+               'vcycle_ms': perCycle,
+               'peak_GiB': torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f'  summary: {json.dumps(summary)}')
+    log(f'  kernels against their plain versions at the noRef '
+        f'{INTERVAL_NOREF} shapes (the largest call of each; K8 on every '
+        'level of the hierarchy, timed on the finest)')
+    A, P = hierarchy[-1]['A'], hierarchy[-1]['P']
+    k8 = [compare_h2_matvec(lv['A'], reps=10 if k == len(hierarchy) - 1
+                            else 1, label=f' level {k}')
+          for k, lv in enumerate(hierarchy)]
+    mg = {'h2_matvec': dict(k8[-1], err=max(r['err'] for r in k8)),
+          'csr_spmv': compare_csr_spmv(P),
+          'jacobi_smooth': compare_jacobi_smooth(P.num_rows),
+          'pcg_update': compare_pcg_forms(
+              A, rhs, M, f'interval noRef {INTERVAL_NOREF}',
+              iters=out['results'].toDict()['iterations'] - 1)}
+    del out, hierarchy, M, solver, z, A, P
+    torch.cuda.empty_cache()
+    mg.update(compare_h2_build(recs))
+    mg['block_near_count'] = compare_block_count(
+        recs['block_near_count'].calls)[0]
+    mg['block_near_quad'] = compare_target_kernel(
+        'block_near_quad', recs['block_near_quad'].calls,
+        asm.block_near_quad, asm._block_near_quad_plain, block_quad_work)
+    mg['panel_scatter'] = merge(mg.pop('panel_scatter_slots'),
+                                mg.pop('panel_scatter_tree'))
+    # per kernel: the smooth profiles' comparisons and the noRef 16 line's
+    cmp = {}
+    for name in INTERVAL_KERNELS:
+        rs = [byProfile[k][name] for k in byProfile if name in byProfile[k]]
+        if name in mg:
+            rs.append(mg[name])
+        cmp[name] = rs[0] if len(rs) == 1 else merge(*rs)
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -1932,6 +2306,7 @@ def main():
     counts9 = phase9()
     countsI, countsS, cmp10 = phase10()
     countsG, cmp11 = phase11()
+    counts12, cmp12, _ = phase12()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -1952,7 +2327,19 @@ def main():
              (NONLOCAL_PATH, f'fh_square_sparse_cg_mg_noRef{FH_NOREF}',
               countsS),
              (SERIAL_PATH, f'serial_gmg_square_noRef{SERIAL_NOREF}',
-              countsG))
+              countsG),
+             (INTERVAL_LU_PATH, 'h2_lu_interval_noRef6', counts12['lu']),
+             (INTERVAL_LU_PATH, 'h2_lu_gaussian_interval_noRef8',
+              counts12['gaussian']),
+             (INTERVAL_LU_PATH, 'h2_lu_exponential_interval_noRef8',
+              counts12['exponential']),
+             (INTERVAL_LU_PATH, f'h2_lu_gaussian_square_noRef{SQUARE_NOREF}',
+              counts12['square']),
+             (SMOOTH_CG_PATH,
+              f'h2_cg_jacobi_gaussian_interval_noRef{SMOOTH_NOREF}',
+              counts12['gaussian14']),
+             (MG_PATH, f'h2_cg_mg_interval_noRef{INTERVAL_NOREF}',
+              counts12['mg16']))
     table = []
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
@@ -1974,6 +2361,17 @@ def main():
         row.update({k: v for k, v in c.items()
                     if k not in ('err', 'ms', 'plain_ms', 'work',
                                  'library_ms')})
+        if name in cmp12:
+            # the same kernel with the gaussian and exponential profiles at
+            # the smooth lines' shapes and, for K1, K4-K12, at the noRef 16
+            # line's
+            c12 = cmp12[name]
+            ims, iby = bound(c12['work'])
+            row['at_interval'] = {
+                'max_abs_err': c12['err'], 'ms': c12['ms'],
+                'plain_ms': c12['plain_ms'], 'bound_ms': ims,
+                'bound_by': iby, 'library_ms': c12['library_ms'],
+                'compared_at': INTERVAL_COMPARED_AT}
         split = {'panel_scatter': ('launches_by_target', kernels.K1_TARGETS),
                  'pcg_update': ('launches_by_form', kernels.K4_FORMS)}
         if name in split:

@@ -7,9 +7,9 @@ LU, GMRES or BiCGStab.
         --solverType cg-jacobi|cg|cg-mg|mg|lu|gmres[-jacobi|-mg]|... \\
         --matrixFormat dense|H2 [--noRef N] [--maxiter K] [--device cuda|cpu]
 
-Port of drivers/runFractional.py for the dense and H2 formats (H2 on the
-disc only), with the solvers of ``SOLVER_TYPES`` (the JAX driver takes any
-registered name).  It runs on the card unless ``--device cpu`` asks for the CPU;
+Port of drivers/runFractional.py for the dense and H2 formats (the
+interval and the disc), with the solvers of ``SOLVER_TYPES`` (the JAX
+driver takes any registered name).  It runs on the card unless ``--device cpu`` asks for the CPU;
 asking for the card without one raises.  With a multigrid solver every
 level noRef 0 ... N is assembled in the requested format, as in the JAX
 package.  It prints the same ``results`` and ``errors`` labels as the JAX
@@ -61,8 +61,9 @@ def _sync(dev):
 def main(argv=None, quiet=False, params=None):
     """Run the driver; returns a dict with the output groups ('results',
     'errors', 'timers'), the solution ``u``, the finest operator ``A``,
-    the level ``hierarchy``, the finest dofmap ``dm`` and the solver.
-    ``params`` go to the builder of every level."""
+    the level ``hierarchy``, the finest dofmap ``dm``, the solver and the
+    build parts of every level (``levelParts``, level -> {part:
+    seconds}).  ``params`` go to the builder of every level."""
     args = parser().parse_args(argv)
     dev = getDevice(args.device)
     noRef = args.noRef if args.noRef > 0 else \
@@ -77,11 +78,12 @@ def main(argv=None, quiet=False, params=None):
     _sync(dev)
     tSetup = time.perf_counter() - t0
     mesh, dm = meshes[-1], dms[-1]
-    parts = {}
+    parts, levelParts = {}, {}
     t0 = time.perf_counter()
     hierarchy = buildHierarchy(dms, Ps, prob['kernel'], args.solverType,
                                args.matrixFormat, prob['zeroExterior'],
-                               timers=parts, params=params)
+                               timers=parts, params=params,
+                               levelParts=levelParts)
     _sync(dev)
     levelSeconds = {k: v for k, v in parts.items() if k.startswith('level ')}
     tAssemble = sum(levelSeconds.values())
@@ -129,7 +131,8 @@ def main(argv=None, quiet=False, params=None):
         for g in (results, errors, timers):
             g.log()
     return {'results': results, 'errors': errors, 'timers': timers, 'u': u,
-            'A': A, 'hierarchy': hierarchy, 'solver': solver, 'dm': dm}
+            'A': A, 'hierarchy': hierarchy, 'solver': solver, 'dm': dm,
+            'levelParts': levelParts}
 
 
 if __name__ == '__main__':

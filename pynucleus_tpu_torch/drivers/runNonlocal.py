@@ -1,19 +1,27 @@
-"""Solve a finite-horizon nonlocal Poisson problem with the port: dense,
-sparse or H2 (= sparse) assembly on the device, with the Dirichlet collar.
+"""Solve a nonlocal Poisson problem with the port: a finite horizon with the
+Dirichlet collar (dense, sparse or H2 = sparse assembly on the device), or
+the gaussian or exponential kernel of an infinite horizon with the zero
+exterior (dense or H2).
 
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain square \\
         --kernelType constant --horizon 0.2 --problem poly-Dirichlet \\
         --element P1 --solverType cg-mg|lu|mg|cg-jacobi|gmres-mg|... \\
         --matrixFormat sparse [--noRef N] \\
         [--interaction ball2|ballInf] [--device cuda|cpu]
+    python -m pynucleus_tpu_torch.drivers.runNonlocal --domain interval \\
+        --kernelType gaussian --problem gaussian --gaussianVariance 0.1 \\
+        --interaction fullSpace --horizon inf --solverType lu \\
+        --matrixFormat H2 [--device cpu]
 
 Port of drivers/runNonlocal.py (pynucleus_tpu/nl/problems.py
 nonlocalPoissonProblem and nl/discretized.py discretizedNonlocalProblem)
 with the flags and defaults of the JAX driver: kernelType constant,
-horizon 0.2, s const(0.4), interaction ball2, noRef 8 on the interval and
-2 on the square.  The interval and the square take the poly-Dirichlet and
-constant problems; poly-Neumann (the Sum operator) and the disc with a
-collar are not ported.  It runs on the card unless ``--device cpu`` asks
+horizon 0.2, s const(0.4), interaction ball2, gaussianVariance and
+exponentialRate 1, noRef 8 on the interval and 2 on the square.  The
+interval and the square take the poly-Dirichlet and constant problems, the
+interval also the gaussian and exponential ones; poly-Neumann (the Sum
+operator), the disc with a collar and a finite-horizon gaussian or
+exponential kernel are not ported.  It runs on the card unless ``--device cpu`` asks
 for the CPU; asking for the card without one raises.  With a multigrid
 solver every level noRef 0 ... N is assembled in the requested format.  It
 prints the JAX driver's ``results`` and ``errors`` labels, in float64, and
@@ -26,14 +34,12 @@ from __future__ import annotations
 
 import argparse
 
-import numpy as np
-
 from ..config import getDevice
 from ..base.solvers import SOLVER_TYPES
 from ..base.utilsFem import outputGroup
 from ..nl.discretized import modelErrors, solveNonlocal
 from ..nl.problems import (nonlocalPoissonProblem, defaultNoRefNonlocal,
-                           KERNEL_TYPES)
+                           KERNEL_TYPES, PROBLEMS)
 from .. import multilevel  # noqa: F401  (registers the 'mg' solver)
 
 
@@ -43,15 +49,16 @@ def parser():
     p.add_argument('--s', default='const(0.4)')
     p.add_argument('--horizon', type=float, default=0.2)
     p.add_argument('--interaction', default='ball2',
-                   choices=['ball2', 'ballInf'])
+                   choices=['ball2', 'ballInf', 'fullSpace'])
+    p.add_argument('--gaussianVariance', type=float, default=1.0)
+    p.add_argument('--exponentialRate', type=float, default=1.0)
     p.add_argument('--normalized', dest='normalized', action='store_true',
                    default=True)
     p.add_argument('--no-normalized', dest='normalized',
                    action='store_false')
     p.add_argument('--domain', default='interval',
                    choices=['interval', 'square'])
-    p.add_argument('--problem', default='poly-Dirichlet',
-                   choices=['poly-Dirichlet', 'constant'])
+    p.add_argument('--problem', default='poly-Dirichlet', choices=PROBLEMS)
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--noRef', type=int, default=-1)
     p.add_argument('--solverType', default='cg-mg', choices=SOLVER_TYPES)
@@ -72,11 +79,10 @@ def main(argv=None, quiet=False, params=None):
     args = parser().parse_args(argv)
     dev = getDevice(args.device)
     noRef = args.noRef if args.noRef > 0 else defaultNoRefNonlocal(args.domain)
-    if args.horizon == np.inf:
-        raise NotImplementedError('runNonlocal with an infinite horizon')
     prob = nonlocalPoissonProblem(args.domain, args.kernelType, args.s,
                                   args.horizon, args.interaction,
-                                  args.normalized, args.problem)
+                                  args.normalized, args.problem,
+                                  args.gaussianVariance, args.exponentialRate)
     out = solveNonlocal(prob, noRef, args.element, args.solverType,
                         args.matrixFormat, args.tol, args.maxiter, dev,
                         params=params)

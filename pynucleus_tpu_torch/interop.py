@@ -36,20 +36,27 @@ __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
 
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
                kernelType='fractional', horizon=np.inf, interaction='ball2',
-               normalized=True, interior=None):
+               normalized=True, interior=None, gaussianVariance=1.0,
+               exponentialRate=1.0):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
     P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
     with ``interior`` (a boolean mask of the vertices) the interior
     vertices of a volume constraint, as a function tag of the JAX package
-    marks them.  The kernel: the fractional kernel of order s (normalized
-    unless ``scaling`` is given), or of a finite ``horizon`` the
-    fractional, indicator ('constant') or peridynamic ('inverseDistance')
-    kernel with the ball2 or ballInf ``interaction`` (nl.problems
-    processKernel)."""
+    marks them.  The kernel: of an infinite horizon the fractional kernel
+    of order s (normalized unless ``scaling`` is given), the gaussian one
+    of variance ``gaussianVariance`` or the exponential one of rate
+    ``exponentialRate``; of a finite ``horizon`` the fractional, indicator
+    ('constant') or peridynamic ('inverseDistance') kernel with the ball2
+    or ballInf ``interaction`` (nl.problems processKernel)."""
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
     if horizon == np.inf:
+        if kernelType in ('gaussian', 'exponential'):
+            return mesh, dm, getIntegrableKernel(
+                dim, kernelType, horizon, scaling=scaling,
+                normalized=normalized, gaussian_variance=gaussianVariance,
+                exponentialRate=exponentialRate)
         if kernelType != 'fractional':
             raise NotImplementedError(f'{kernelType} with an infinite '
                                       'horizon')

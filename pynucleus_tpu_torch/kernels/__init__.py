@@ -15,7 +15,8 @@ Eighteen kernels carry the port's device work:
                     forms: Jacobi (z = invD r inside the pass) and general
                     (two passes around the preconditioner's z = M r)
   K5 near_enum      (csrc/near_enum.cu)      H2 near-field enumeration:
-                    element keys, f32 order model, histogram
+                    element keys, f32 order model (1D or 2D),
+                    histogram
   K6 near_enum_quad (csrc/near_enum.cu)      H2 near-field quadrature of
                     one order's elements into tree slots
   K7 far_field      (csrc/far_field.cu)      H2 far-field kernel blocks
@@ -43,6 +44,15 @@ Eighteen kernels carry the port's device work:
                                              normalisation; x += Z y
   K18 bicgstab_update (bicgstab_update.py,   BiCGStab's vector passes
                     Triton)                  around its applies
+
+The quadrature kernels (K1, K2, K3, K6, K7, K12, K13) evaluate the
+kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
+gaussian, the exponential and their boundary forms) in one device
+function, common.cuh radial<code>(); each is compiled once per profile
+code and its launcher picks the instance.  K14 and K15 take the power
+profile only.
+K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
+dimension of their centers says.
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
 package has the program they replace: K1-K3, K5-K7 and K11-K15 in
@@ -162,26 +172,29 @@ def _declare(lib):
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
     F = ctypes.c_float
+    # a radial profile: code, C, e, a (nl/kernels.py Profile)
+    PROF = (I, D, D, D)
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, inter, h2, stream
+        # normals, P, bary_x, bary_y, w, PSIP, Q, profile (code, C, e, a),
+        # inter, h2, stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, D, D, I, D, P],
+                          P, P, P, P, I, *PROF, I, D, P],
         # A_BC, NB, then as panel_scatter
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, D, D, I, D, P],
+                                P, P, P, P, I, *PROF, I, D, P],
         # A, N, X, Q, dim, ccf, vols, dofs, dpe, C, PhiXw, PhiX, PsiYw, w,
-        # t_lo, t_hi, Cg, e, R, stream
+        # t_lo, t_hi, profile, R, stream
         'grid_distant': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
-                         ctypes.c_float, ctypes.c_float, D, D, P, P],
+                         ctypes.c_float, ctypes.c_float, *PROF, P, P],
         # A, N, X, Q1, dim, vols, dofs, dpe, C, Ysurf, svolw2, normals,
-        # S, Q2, exclPtr, exclIdx, PhiXw, PhiX, Cg, e, useNormals, stream
+        # S, Q2, exclPtr, exclIdx, PhiXw, PhiX, profile, useNormals, stream
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
-                          P, P, P, P, D, D, I, P],
+                          P, P, P, P, *PROF, I, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, C, e, inter, h2, stream
+        # normals, P, bary_x, bary_y, w, PSIP, Q, profile, inter, h2, stream
         'panel_scatter_slots': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, D, D, I, D, P],
+                                P, P, P, P, I, *PROF, I, D, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
@@ -192,39 +205,40 @@ def _declare(lib):
                         I, D, I, D, D, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
-        # tStart, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        # tStart, bary_x, bary_y, w, PSIP, Q, profile, stream
         'panel_scatter_tree': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                               P, P, P, P, P, P, P, P, P, P, P, P, I, D, D,
+                               P, P, P, P, P, P, P, P, P, P, P, P, I, *PROF,
                                P],
         # keys, pT, hist, cum, nP, offI, offJ, n2, IA, JA, ncArr, cells, nv,
-        # cellNodes, dpe, centers, C, logh, s, c, logH0, T, stream
-        'near_enum': [P, P, P, P, I, P, P, P, P, P, P, P, I, P, I, P, I, P,
-                      F, F, F, I, P],
+        # cellNodes, dpe, centers, dim, C, logh, s, c, logH0, T, stream
+        'near_enum': [P, P, P, P, I, P, P, P, P, P, P, P, I, P, I, P, I, I,
+                      P, F, F, F, I, P],
         # data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
         # ncArr, vertices, dim, cells, nv, vols, dofs, dpe, dofNode,
-        # treePos, indptrT, tStart, bary_x, bary_y, w, PSIP, Q, C, e, stream
+        # treePos, indptrT, tStart, bary_x, bary_y, w, PSIP, Q, profile,
+        # stream
         'near_enum_quad': [P, L, P, I, P, P, P, P, P, P, P, P, P, P, P, I,
-                           P, I, P, P, I, P, P, P, P, P, P, P, P, I, D, D,
+                           P, I, P, P, I, P, P, P, P, P, P, P, P, I, *PROF,
                            P],
         # data, nnz, c1, c2, I, J, offF, offB, sf, n, vertices, dim, cells,
         # nv, vols, dofs, dpe, dofNode, treePos, indptrT, tStart, bary_x,
-        # bary_y, w, PSIP, Q, C, e, stream
+        # bary_y, w, PSIP, Q, profile, stream
         'tree_csr_quad': [P, L, P, P, P, P, P, P, P, L, P, I, P, I, P, P, I,
-                          P, P, P, P, P, P, P, P, I, D, D, P],
+                          P, P, P, P, P, P, P, P, I, *PROF, P],
         # counts, nP, offI, offJ, n1, n2, I, J, ncArr, cells, nv, cellNodes,
-        # dpe, centers, C, logh, s, c, logH0, stream
-        'block_near_count': [P, I, P, P, P, P, P, P, P, P, I, P, I, P, I, P,
-                             F, F, F, P],
+        # dpe, centers, dim, C, logh, s, c, logH0, stream
+        'block_near_count': [P, I, P, P, P, P, P, P, P, P, I, P, I, P, I, I,
+                             P, F, F, F, P],
         # data, nP, offI, offJ, n1, n2, I, J, tSI, tSJ, baseF, baseB, LI,
         # LJ, nI, nJ, maxBlock, ncArr, cells, nv, cellNodes, dpe, centers,
-        # C, logh, s, c, logH0, vertices, dim, vols, dofs, treePos, rules,
-        # ruleQ (host), ruleOff (host), C, e, stream
+        # dim, C, logh, s, c, logH0, vertices, dim, vols, dofs, treePos,
+        # rules, ruleQ (host), ruleOff (host), profile, stream
         'block_near_quad': [P, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                            I, P, P, I, P, I, P, I, P, F, F, F, P, I, P, P,
-                            P, P, ctypes.POINTER(ctypes.c_int),
-                            ctypes.POINTER(ctypes.c_longlong), D, D, P],
-        # K, gi, gj, P, M, dim, C, e, stream
-        'far_field': [P, P, P, L, I, I, D, D, P],
+                            I, P, P, I, P, I, P, I, I, P, F, F, F, P, I, P,
+                            P, P, P, ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_longlong), *PROF, P],
+        # K, gi, gj, P, M, dim, profile, stream
+        'far_field': [P, P, P, L, I, I, *PROF, P],
         # y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode, indptrT,
         # tStartRow, tLen, rowLen, tmplStart, tmplAll, data, leafPhi,
         # leafNode, T, parent, levelOff (host), nLvl, K, src, dst, nFar,

@@ -7,13 +7,82 @@
 
 #define FULL_MASK 0xffffffffu
 
-// gamma(r2) = C * r2^e for the constant-order fractional kernel and its
-// boundary kernel; exactly 0 at r2 == 0 (coincident points of the singular
-// rules), as pynucleus_tpu/nl/assembly.py:_radial_eval.  K1, K6 and K7
-// share it.
-__device__ __forceinline__ double radial(double r2, double C, double e) {
-    return r2 > 0.0 ? C * pow(r2, e) : 0.0;
+// A kernel's radial profile (pynucleus_tpu_torch/nl/kernels.py Profile and
+// its codes): the power C r2^e (the constant-order fractional kernel and
+// its boundary kernel, the indicator and peridynamic kernels) and the
+// smooth kernels of pynucleus_tpu/nl/kernels.py:_radialJax with their
+// boundary forms.
+enum ProfileCode {
+    PROFILE_POWER = 0,          // C r2^e
+    PROFILE_GAUSSIAN = 1,       // C exp(-a r2)
+    PROFILE_EXPONENTIAL = 2,    // C exp(-a r)
+    PROFILE_GAUSSIAN_B1 = 3,    // C 1/2 sqrt(pi/a) erfc(sqrt(a) r)
+    PROFILE_GAUSSIAN_B2 = 4,    // C exp(-a r2) / (2 a r)
+    PROFILE_EXPONENTIAL_B1 = 5, // C/a exp(-a r)
+    PROFILE_EXPONENTIAL_B2 = 6  // C exp(-a r) (r/a + 1/a^2) / r
+};
+
+struct Profile {
+    int code;
+    double C, e, a;
+};
+
+// gamma(r2) of the profile PC (a ProfileCode, fixed when the kernel is
+// compiled: each launcher switches on the code once, PROFILE_SWITCH), with
+// the parameters of p; exactly 0 at r2 == 0 (coincident points of the
+// singular rules), as pynucleus_tpu/nl/assembly.py:_radial_eval.  Every
+// kernel that evaluates a kernel shares it.  Each operation is the plain
+// version's (nl/kernels.py radialEval), in its order and rounded on its own
+// (the _rn intrinsics keep nvcc from contracting a product into an FMA);
+// exp, pow and erfc are CUDA's double-precision functions.
+template <int PC>
+__device__ __forceinline__ double radial(double r2, const Profile& p) {
+    if (!(r2 > 0.0)) return 0.0;
+    if constexpr (PC == PROFILE_POWER) {
+        return __dmul_rn(p.C, pow(r2, p.e));
+    } else if constexpr (PC == PROFILE_GAUSSIAN) {
+        return __dmul_rn(p.C, exp(__dmul_rn(-p.a, r2)));
+    } else if constexpr (PC == PROFILE_EXPONENTIAL) {
+        return __dmul_rn(p.C, exp(__dmul_rn(-p.a, sqrt(r2))));
+    } else if constexpr (PC == PROFILE_GAUSSIAN_B1) {
+        const double k = __dmul_rn(__dmul_rn(p.C, 0.5),
+                                   sqrt(__ddiv_rn(3.141592653589793, p.a)));
+        return __dmul_rn(k, erfc(__dmul_rn(sqrt(p.a), sqrt(r2))));
+    } else if constexpr (PC == PROFILE_GAUSSIAN_B2) {
+        return __ddiv_rn(__dmul_rn(p.C, exp(__dmul_rn(-p.a, r2))),
+                         __dmul_rn(__dmul_rn(2.0, p.a), sqrt(r2)));
+    } else if constexpr (PC == PROFILE_EXPONENTIAL_B1) {
+        return __dmul_rn(__ddiv_rn(p.C, p.a),
+                         exp(__dmul_rn(-p.a, sqrt(r2))));
+    } else {
+        static_assert(PC == PROFILE_EXPONENTIAL_B2, "unknown profile code");
+        const double r = sqrt(r2);
+        const double t = __dadd_rn(__ddiv_rn(r, p.a),
+                                   __ddiv_rn(1.0, __dmul_rn(p.a, p.a)));
+        return __ddiv_rn(__dmul_rn(__dmul_rn(p.C, exp(__dmul_rn(-p.a, r))), t),
+                         r);
+    }
 }
+
+// Runs the statements ... with the compile-time constant PC equal to the
+// runtime profile code `code`; an unknown code returns
+// cudaErrorInvalidValue from the enclosing launcher.
+#define PROFILE_CASE(P, ...) \
+    case P: {                \
+        constexpr int PC = P; \
+        __VA_ARGS__;         \
+    } break;
+#define PROFILE_SWITCH(code, ...)                                   \
+    switch (code) {                                                 \
+        PROFILE_CASE(PROFILE_POWER, __VA_ARGS__)                    \
+        PROFILE_CASE(PROFILE_GAUSSIAN, __VA_ARGS__)                 \
+        PROFILE_CASE(PROFILE_EXPONENTIAL, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_GAUSSIAN_B1, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_GAUSSIAN_B2, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_EXPONENTIAL_B1, __VA_ARGS__)           \
+        PROFILE_CASE(PROFILE_EXPONENTIAL_B2, __VA_ARGS__)           \
+        default: return static_cast<int>(cudaErrorInvalidValue);    \
+    }
 
 __device__ __forceinline__ double warpSum(double v) {
 #pragma unroll
@@ -66,34 +135,56 @@ __device__ __forceinline__ bool nearValid(const int* __restrict__ cells,
     return !(bInI && aInJ) || a < b;
 }
 
-// 2D order model of pynucleus_tpu/nl/panels.py:distantOrders in float32,
+// Order models of pynucleus_tpu/nl/panels.py:distantOrders in float32,
 // snapped as _enum_elem_key does (even; (8,16] -> 16; > 16 -> multiple of 8).
-// centers [2, C] and logh [C] float32; (s, c, lH0) the model's constants.
-// Each step rounds as the plain PyTorch versions' separate operations do:
-// __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn keep nvcc from contracting into
-// FMAs, and logf (not __logf) is the accurate log that torch.log uses on
-// the card.  Otherwise an order whose ceil sits on an integer could land
-// in another quadrature bucket, or in the other near-field engine.
+// centers [dim, C] and logh [C] float32; (s, c, lH0) the model's constants
+// (in 1D s is sval).  dim 2 (pynucleus_tpu/nl/assembly.py:1259-1268):
+//   o1 = ceil((c + (s-1) l2 + max(l1, l2) - s ldh2) / (max(ldh1, 0) + 0.4))
+// dim 1 (:1248-1257):
+//   o1 = ceil((c + (2s-1) l2 - 2s ldh2) / (max(ldh1, 0) + 0.8))
+// with li = |log h_i - lH0|, ldhi = log d - log h_i, and o2 the same with
+// 1 and 2 swapped.  Each step rounds as the plain PyTorch versions'
+// separate operations do: __fadd_rn/__fsub_rn/__fmul_rn/__fdiv_rn keep
+// nvcc from contracting into FMAs, and logf (not __logf) is the accurate
+// log that torch.log uses on the card.  Otherwise an order whose ceil sits
+// on an integer could land in another quadrature bucket, or in the other
+// near-field engine.
 __device__ __forceinline__ int orderKey(const float* __restrict__ centers,
-                                        int C, const float* __restrict__ logh,
+                                        int dim, int C,
+                                        const float* __restrict__ logh,
                                         int a, int b, float s, float c,
                                         float lH0) {
     const float dx = __fsub_rn(centers[a], centers[b]);
-    const float dy = __fsub_rn(centers[C + a], centers[C + b]);
-    const float r2c = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+    float r2c = __fmul_rn(dx, dx);
+    if (dim == 2) {
+        const float dy = __fsub_rn(centers[C + a], centers[C + b]);
+        r2c = __fadd_rn(r2c, __fmul_rn(dy, dy));
+    }
     const float logd = __fmul_rn(0.5f, logf(fmaxf(r2c, 1e-38f)));
     const float lh1 = logh[a], lh2 = logh[b];
     const float ldh1 = __fsub_rn(logd, lh1), ldh2 = __fsub_rn(logd, lh2);
     const float l1 = fabsf(__fsub_rn(lh1, lH0));
     const float l2 = fabsf(__fsub_rn(lh2, lH0));
-    const float lmin = fmaxf(l1, l2);
-    const float sm1 = __fsub_rn(s, 1.0f);
-    const float num1 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l2)),
-                                           lmin), __fmul_rn(s, ldh2));
-    const float num2 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l1)),
-                                           lmin), __fmul_rn(s, ldh1));
-    const float o1 = ceilf(__fdiv_rn(num1, __fadd_rn(fmaxf(ldh1, 0.0f), 0.4f)));
-    const float o2 = ceilf(__fdiv_rn(num2, __fadd_rn(fmaxf(ldh2, 0.0f), 0.4f)));
+    float num1, num2, den;
+    if (dim == 1) {
+        const float s2 = __fmul_rn(s, 2.0f);
+        const float s2m1 = __fsub_rn(s2, 1.0f);
+        num1 = __fsub_rn(__fadd_rn(c, __fmul_rn(s2m1, l2)),
+                         __fmul_rn(s2, ldh2));
+        num2 = __fsub_rn(__fadd_rn(c, __fmul_rn(s2m1, l1)),
+                         __fmul_rn(s2, ldh1));
+        den = 0.8f;
+    } else {
+        const float lmin = fmaxf(l1, l2);
+        const float sm1 = __fsub_rn(s, 1.0f);
+        num1 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l2)), lmin),
+                         __fmul_rn(s, ldh2));
+        num2 = __fsub_rn(__fadd_rn(__fadd_rn(c, __fmul_rn(sm1, l1)), lmin),
+                         __fmul_rn(s, ldh1));
+        den = 0.4f;
+    }
+    const float o1 = ceilf(__fdiv_rn(num1, __fadd_rn(fmaxf(ldh1, 0.0f), den)));
+    const float o2 = ceilf(__fdiv_rn(num2, __fadd_rn(fmaxf(ldh2, 0.0f), den)));
     const float of = fminf(fmaxf(fmaxf(fmaxf(o1, o2), 2.0f), 2.0f), 120.0f);
     int o = static_cast<int>(of);
     o = ((o + 1) / 2) * 2;
@@ -110,7 +201,8 @@ struct EnumTables {
     int nv;
     const int* cellNodes;  // [C, dpe]
     int dpe;
-    const float* centers;  // [2, C]
+    const float* centers;  // [dim, C]
+    int dim;               // 1 or 2: the order model
     int C;
     const float* logh;     // [C]
     float s, c, lH0;
@@ -145,14 +237,14 @@ __device__ __forceinline__ bool inBall(int code, const double* x,
 //         (* chi(x_q, y_q) for a finite horizon, inter != 0) volsym
 //   acc[k] += t_q PSIP[q, k]
 // (acc zeroed here); the caller reduces across its nl lanes.
-template <int NN>
+template <int NN, int PC>
 __device__ __forceinline__ void panelQuad(
     double acc[NN], double v1[MAXNV][MAXDIM], int nv1,
     double v2[MAXNV][MAXDIM], int nv2, int dim,
     const double* nrm /* [dim] or nullptr */, double vs,
     const double* __restrict__ bary_x, const double* __restrict__ bary_y,
     const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
-    double C, double e, int lane, int nl, int inter = 0, double h2 = 0.0) {
+    const Profile& pf, int lane, int nl, int inter = 0, double h2 = 0.0) {
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = 0.0;
     for (int q = lane; q < Q; q += nl) {
@@ -167,7 +259,7 @@ __device__ __forceinline__ void panelQuad(
             const double dd = xd - yd;
             r2 += dd * dd;
         }
-        double t = radial(r2, C, e) * w[q];
+        double t = radial<PC>(r2, pf) * w[q];
         if (!inBall(inter, x, y, dim, h2)) t = 0.0;
         if (nrm != nullptr) {
             double fac = 0.0;

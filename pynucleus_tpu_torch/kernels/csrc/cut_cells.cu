@@ -109,6 +109,7 @@ cut1d_kernel(double* __restrict__ out, long long N,
              const double* __restrict__ wr, int Qy, double horizon, double C,
              double e) {
     constexpr int N2 = 4, NU = N2 * (N2 + 1) / 2;
+    const Profile pf{PROFILE_POWER, C, e, 0.0};
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
@@ -132,7 +133,8 @@ cut1d_kernel(double* __restrict__ out, long long N,
         const double y = lo + ur[b] * len;
         const double t2 = (y - v20) / (v21 - v20);
         const double d = x - y;
-        const double W = radial(d * d, C, e) * (((wq[a] * wr[b]) * len) * vol);
+        const double W = radial<PROFILE_POWER>(d * d, pf)
+                         * (((wq[a] * wr[b]) * len) * vol);
         const double psi[N2] = {1.0 - t, t, -(1.0 - t2), -t2};
         addOuter<N2>(acc, psi, W);
     }
@@ -174,6 +176,7 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
                    const double* __restrict__ wr, int Qr, double horizon,
                    int inter, double C, double e) {
     constexpr int N2 = 6, NU = N2 * (N2 + 1) / 2;
+    const Profile pf{PROFILE_POWER, C, e, 0.0};
     __shared__ double bnd[CUT_WARPS][MAXQX][MAXB];
     __shared__ double xs[CUT_WARPS][MAXQX][2];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -284,7 +287,8 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
             const double r = rLo + len * rq[ir];
             const double wrad = len * wr[ir];
             const double y0 = x0 + r * d0, y1 = x1 + r * d1;
-            const double W = (((radial(r * r, C, e) * r) * wrad) * wth) * wxa;
+            const double W =
+                (((radial<PROFILE_POWER>(r * r, pf) * r) * wrad) * wth) * wxa;
             const double rel0 = y0 - v2[0][0], rel1 = y1 - v2[0][1];
             const double xi0 = rel0 * i00 + rel1 * i01;
             const double xi1 = rel0 * i10 + rel1 * i11;

@@ -19,7 +19,7 @@
 
 constexpr int BOUNDARY_THREADS = 128;
 
-template <int Q1, int DPE>
+template <int Q1, int DPE, int PC>
 __global__ void __launch_bounds__(BOUNDARY_THREADS)
 grid_boundary_kernel(double* __restrict__ A, long long N,
                      const double* __restrict__ X, int dim,
@@ -31,7 +31,7 @@ grid_boundary_kernel(double* __restrict__ A, long long N,
                      const long long* __restrict__ exclPtr,
                      const long long* __restrict__ exclIdx,
                      const double* __restrict__ PhiXw,
-                     const double* __restrict__ PhiX, double Cg, double e,
+                     const double* __restrict__ PhiX, Profile pf,
                      int useNormals) {
     const long long c = blockIdx.x;
     const long long e0 = exclPtr[c], e1 = exclPtr[c + 1];
@@ -64,7 +64,7 @@ grid_boundary_kernel(double* __restrict__ A, long long N,
                 r2 += dd * dd;
                 fac += normals[s * dim + d] * dd;
             }
-            double g = radial(r2, Cg, e);
+            double g = radial<PC>(r2, pf);
             if (useNormals) g *= r2 > 0.0 ? fac / sqrt(r2) : 0.0;
             Rl[q] += g * sw;
         }
@@ -110,21 +110,23 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
                          const double* svolw2, const double* normals,
                          long long S, int Q2, const long long* exclPtr,
                          const long long* exclIdx, const double* PhiXw,
-                         const double* PhiX, double Cg, double e,
-                         int useNormals, cudaStream_t stream) {
+                         const double* PhiX, int pcode, double Cg, double e,
+                         double a, int useNormals, cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM || C > 2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
 #define CASE(QQ, DD)                                                        \
     if (Q1 == QQ && dpe == DD) {                                            \
-        grid_boundary_kernel<QQ, DD>                                        \
+        grid_boundary_kernel<QQ, DD, PC>                                    \
             <<<(unsigned)C, BOUNDARY_THREADS, 0, stream>>>(                 \
                 A, N, X, dim, vols, dofs, Ysurf, svolw2, normals, S, Q2,    \
-                exclPtr, exclIdx, PhiXw, PhiX, Cg, e, useNormals);          \
+                exclPtr, exclIdx, PhiXw, PhiX, Profile{pcode, Cg, e, a},   \
+                useNormals);                                                \
         return static_cast<int>(cudaGetLastError());                        \
     }
     // order-4 cell rules: 6 triangle nodes (2D P1), 3 Gauss nodes (1D P1)
-    CASE(6, 3) CASE(3, 2)
+    PROFILE_SWITCH(pcode, CASE(6, 3) CASE(3, 2)
+                   return static_cast<int>(cudaErrorInvalidValue))
 #undef CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }

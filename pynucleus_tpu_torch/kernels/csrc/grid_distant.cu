@@ -38,13 +38,13 @@ constexpr int COOP_Q = 12;
 // idx = 32 j + k (q = idx / Q, r = idx % Q).  The cross block is reduced
 // over the warp per pair; the row sums of c1 (fixed for the warp) stay in
 // registers per round and are reduced once, through shared memory.
-template <int Q, int DPE>
+template <int Q, int DPE, int PC>
 __device__ __forceinline__ void warpPairs(
         double* __restrict__ A, long long N, const double* __restrict__ X,
         int dim, const double* __restrict__ vols,
         const long long* __restrict__ dofs, const double* __restrict__ PhiXw,
         const double* __restrict__ PsiYw, const double* __restrict__ w,
-        double Cg, double e, double* __restrict__ R, long long c1,
+        const Profile& pf, double* __restrict__ R, long long c1,
         long long c2, bool in) {
     constexpr int NR = (Q * Q + 31) / 32;
     const int lane = threadIdx.x & 31;
@@ -74,7 +74,7 @@ __device__ __forceinline__ void warpPairs(
                     const double dd = y2[r * dim + d] - x1[q * dim + d];
                     r2 += dd * dd;
                 }
-                const double g = radial(r2, Cg, e) * vv;
+                const double g = radial<PC>(r2, pf) * vv;
                 racc[k] += g * w[r];
 #pragma unroll
                 for (int a = 0; a < DPE; ++a) {
@@ -113,13 +113,13 @@ __device__ __forceinline__ void warpPairs(
 
 // One ordered pair per thread: the cross block in registers, the row sums
 // of c1 (fixed for the warp) reduced over the warp, one atomic per node.
-template <int Q, int DPE>
+template <int Q, int DPE, int PC>
 __device__ __forceinline__ void threadPairs(
         double* __restrict__ A, long long N, const double* __restrict__ X,
         int dim, const double* __restrict__ vols,
         const long long* __restrict__ dofs, long long C,
         const double* __restrict__ PhiXw, const double* __restrict__ PsiYw,
-        const double* __restrict__ w, double Cg, double e,
+        const double* __restrict__ w, const Profile& pf,
         double* __restrict__ R, long long c1, long long c2, bool in) {
     double Rx[Q];
 #pragma unroll
@@ -146,7 +146,7 @@ __device__ __forceinline__ void threadPairs(
                     const double dd = y2[r * dim + d] - x1[q * dim + d];
                     r2 += dd * dd;
                 }
-                const double g = radial(r2, Cg, e) * vv;
+                const double g = radial<PC>(r2, pf) * vv;
                 rq += g * w[r];
 #pragma unroll
                 for (int b = 0; b < DPE; ++b) tq[b] += g * PsiYw[b * Q + r];
@@ -177,7 +177,7 @@ __device__ __forceinline__ void threadPairs(
     }
 }
 
-template <int Q, int DPE>
+template <int Q, int DPE, int PC>
 __global__ void __launch_bounds__(256)
 grid_distant_kernel(double* __restrict__ A, long long N,
                     const double* __restrict__ X, int dim,
@@ -187,7 +187,7 @@ grid_distant_kernel(double* __restrict__ A, long long N,
                     const double* __restrict__ PhiXw,
                     const double* __restrict__ PsiYw,
                     const double* __restrict__ w, float t_lo, float t_hi,
-                    double Cg, double e, double* __restrict__ R) {
+                    Profile pf, double* __restrict__ R) {
     const long long c2 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long c1 = (long long)blockIdx.y * blockDim.y + threadIdx.y;
     bool in = (c1 < C) && (c2 < C);
@@ -204,11 +204,11 @@ grid_distant_kernel(double* __restrict__ A, long long N,
     if (!__any_sync(FULL_MASK, in)) return;
 
     if constexpr (Q >= COOP_Q)
-        warpPairs<Q, DPE>(A, N, X, dim, vols, dofs, PhiXw, PsiYw, w, Cg, e,
-                          R, c1, c2, in);
+        warpPairs<Q, DPE, PC>(A, N, X, dim, vols, dofs, PhiXw, PsiYw, w, pf,
+                              R, c1, c2, in);
     else
-        threadPairs<Q, DPE>(A, N, X, dim, vols, dofs, C, PhiXw, PsiYw, w, Cg,
-                            e, R, c1, c2, in);
+        threadPairs<Q, DPE, PC>(A, N, X, dim, vols, dofs, C, PhiXw, PsiYw, w,
+                                pf, R, c1, c2, in);
 }
 
 template <int Q, int DPE>
@@ -237,21 +237,21 @@ __global__ void grid_diag_kernel(double* __restrict__ A, long long N,
     }
 }
 
-template <int Q, int DPE>
+template <int Q, int DPE, int PC>
 static int launchGrid(double* A, long long N, const double* X, int dim,
                       const float* ccf, const double* vols,
                       const long long* dofs, long long C,
                       const double* PhiXw, const double* PhiX,
                       const double* PsiYw, const double* w, float t_lo,
-                      float t_hi, double Cg, double e, double* R,
+                      float t_hi, Profile pf, double* R,
                       cudaStream_t stream) {
     const dim3 block(32, 8);
     const long long gx = (C + 31) / 32, gy = (C + 7) / 8;
     if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((unsigned)gx, (unsigned)gy);
-    grid_distant_kernel<Q, DPE><<<grid, block, 0, stream>>>(
-        A, N, X, dim, ccf, vols, dofs, C, PhiXw, PsiYw, w, t_lo, t_hi, Cg,
-        e, R);
+    grid_distant_kernel<Q, DPE, PC><<<grid, block, 0, stream>>>(
+        A, N, X, dim, ccf, vols, dofs, C, PhiXw, PsiYw, w, t_lo, t_hi, pf,
+        R);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     grid_diag_kernel<Q, DPE><<<(unsigned)((C + 127) / 128), 128, 0, stream>>>(
@@ -265,19 +265,20 @@ EXPORT int grid_distant(double* A, long long N, const double* X, int Q,
                         const long long* dofs, int dpe, long long C,
                         const double* PhiXw, const double* PhiX,
                         const double* PsiYw, const double* w, float t_lo,
-                        float t_hi, double Cg, double e, double* R,
-                        cudaStream_t stream) {
+                        float t_hi, int pcode, double Cg, double e,
+                        double a, double* R, cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM) return static_cast<int>(cudaErrorInvalidValue);
 #define CASE(QQ, DD)                                                       \
     if (Q == QQ && dpe == DD)                                              \
-        return launchGrid<QQ, DD>(A, N, X, dim, ccf, vols, dofs, C, PhiXw, \
-                                  PhiX, PsiYw, w, t_lo, t_hi, Cg, e, R,    \
-                                  stream);
-    // 2D P1 (dpe 3): compact triangle rules of orders 2, 4, 6, 8
-    CASE(3, 3) CASE(6, 3) CASE(12, 3) CASE(16, 3)
-    // 1D P1 (dpe 2): Gauss rules of orders 2, 4, 6, 8
-    CASE(2, 2) CASE(3, 2) CASE(4, 2) CASE(5, 2)
+        return launchGrid<QQ, DD, PC>(A, N, X, dim, ccf, vols, dofs, C,    \
+                                      PhiXw, PhiX, PsiYw, w, t_lo, t_hi,   \
+                                      Profile{pcode, Cg, e, a}, R, stream);
+    // 2D P1 (dpe 3): compact triangle rules of orders 2, 4, 6, 8; 1D P1
+    // (dpe 2): Gauss rules of orders 2, 4, 6, 8
+    PROFILE_SWITCH(pcode, CASE(3, 3) CASE(6, 3) CASE(12, 3) CASE(16, 3)
+                   CASE(2, 2) CASE(3, 2) CASE(4, 2) CASE(5, 2)
+                   return static_cast<int>(cudaErrorInvalidValue))
 #undef CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,7 +29,9 @@
 // the CTA owns its two blocks within the launch: the final add is plain,
 // deterministic and needs no global atomics.  The TPU's one-hot placement
 // einsums, size buckets and pair chunks are not carried over.  Bound: a
-// float64 pow per node and the (2 dpe)^2 FMAs per node, as K1.
+// float64 pow (or the kernel's exp or erfc) per node and the (2 dpe)^2
+// FMAs per node, as K1.  Segments (1D, nv = dpe = 2) and triangles (2D,
+// nv = dpe = 3) take the same code.
 
 #include "common.cuh"
 
@@ -67,8 +69,8 @@ block_near_count_kernel(int* __restrict__ counts, BlockPairs bp,
         const int b = et.ncArr[offJ + (int)(el % n2)];
         if (!nearValid(et.cells, et.nv, et.cellNodes, et.dpe, a, b, I, J))
             continue;
-        const int o = orderKey(et.centers, et.C, et.logh, a, b, et.s, et.c,
-                               et.lH0);
+        const int o = orderKey(et.centers, et.dim, et.C, et.logh, a, b, et.s,
+                               et.c, et.lH0);
         ++cnt[o <= 8 ? o / 2 - 1 : 4];
     }
 #pragma unroll
@@ -82,14 +84,14 @@ EXPORT int block_near_count(int* counts, int nP, const int* offI,
                             const int* offJ, const int* n1, const int* n2,
                             const int* I, const int* J, const int* ncArr,
                             const int* cells, int nv, const int* cellNodes,
-                            int dpe, const float* centers, int C,
+                            int dpe, const float* centers, int dimC, int C,
                             const float* logh, float s, float c, float lH0,
                             cudaStream_t stream) {
     if (nP <= 0) return 0;
     const BlockPairs bp{offI, offJ, n1, n2, I, J, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, nullptr, nullptr};
-    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, C, logh,
-                        s, c, lH0};
+    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, dimC, C,
+                        logh, s, c, lH0};
     block_near_count_kernel<<<nP, 256, 0, stream>>>(counts, bp, et);
     return static_cast<int>(cudaGetLastError());
 }
@@ -103,15 +105,15 @@ struct RuleSet {
     long long off[4];
 };
 
-template <int NPSI>
+template <int NPSI, int PC>
 __global__ void __launch_bounds__(256)
 block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
                        EnumTables et, const double* __restrict__ vertices,
                        int dim, const double* __restrict__ vols,
                        const long long* __restrict__ dofs,
                        const int* __restrict__ treePos,
-                       const double* __restrict__ rules, RuleSet rs, double C,
-                       double e) {
+                       const double* __restrict__ rules, RuleSet rs,
+                       Profile pf) {
     constexpr int DPE = NPSI / 2;
     constexpr int NN = NPSI * NPSI;
     extern __shared__ double blk[];
@@ -130,8 +132,8 @@ block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
         const int a = et.ncArr[offI + (int)(el / n2)];
         const int b = et.ncArr[offJ + (int)(el % n2)];
         if (!nearValid(et.cells, nv, et.cellNodes, DPE, a, b, I, J)) continue;
-        const int o = orderKey(et.centers, et.C, et.logh, a, b, et.s, et.c,
-                               et.lH0);
+        const int o = orderKey(et.centers, et.dim, et.C, et.logh, a, b, et.s,
+                               et.c, et.lH0);
         if (o > 8) continue;
         const int Q = rs.Q[o / 2 - 1];
         if (Q == 0) continue;
@@ -143,9 +145,9 @@ block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
         loadSimplex(v1, vertices, et.cells + a * nv, nv, dim);
         loadSimplex(v2, vertices, et.cells + b * nv, nv, dim);
         double acc[NN];
-        panelQuad<NN>(acc, v1, nv, v2, nv, dim, nullptr,
-                      vols[a] * vols[b] * 2.0, bx, by, w, PSIP, Q, C, e, lane,
-                      32);
+        panelQuad<NN, PC>(acc, v1, nv, v2, nv, dim, nullptr,
+                          vols[a] * vols[b] * 2.0, bx, by, w, PSIP, Q, pf,
+                          lane, 32);
 #pragma unroll
         for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
         // block row of each local dof in I, block column in J, else -1
@@ -185,20 +187,20 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
                            const int* LI, const int* LJ, const int* nI,
                            const int* nJ, int maxBlock, const int* ncArr,
                            const int* cells, int nv, const int* cellNodes,
-                           int dpe, const float* centers, int C,
+                           int dpe, const float* centers, int dimC, int C,
                            const float* logh, float s, float c, float lH0,
                            const double* vertices, int dim, const double* vols,
                            const long long* dofs, const int* treePos,
                            const double* rules, const int* ruleQ,
-                           const long long* ruleOff, double Cg, double e,
-                           cudaStream_t stream) {
+                           const long long* ruleOff, int pcode, double Cg,
+                           double e, double a, cudaStream_t stream) {
     if (nP <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
     const BlockPairs bp{offI, offJ, n1, n2, I, J, tSI, tSJ, baseF, baseB, LI,
                         LJ, nI, nJ};
-    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, C, logh,
-                        s, c, lH0};
+    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, dimC, C,
+                        logh, s, c, lH0};
     RuleSet rs;
     for (int k = 0; k < 4; ++k) {
         rs.Q[k] = ruleQ[k];
@@ -211,19 +213,19 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
     {                                                                       \
         if (shmem > 48 * 1024) {                                            \
             const cudaError_t err = cudaFuncSetAttribute(                   \
-                block_near_quad_kernel<NP>,                                 \
+                block_near_quad_kernel<NP, PC>,                             \
                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);   \
             if (err != cudaSuccess) return static_cast<int>(err);           \
         }                                                                   \
-        block_near_quad_kernel<NP><<<nP, 256, shmem, stream>>>(             \
+        block_near_quad_kernel<NP, PC><<<nP, 256, shmem, stream>>>(         \
             data, bp, et, vertices, dim, vols, dofs, treePos, rules, rs,    \
-            Cg, e);                                                         \
+            Profile{pcode, Cg, e, a});                                      \
     }
-    switch (dpe) {
+    PROFILE_SWITCH(pcode, switch (dpe) {
         case 2: LAUNCH(4); break;
         case 3: LAUNCH(6); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    })
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }

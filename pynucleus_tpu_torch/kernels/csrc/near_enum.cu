@@ -25,8 +25,8 @@
 // The element body: K1's quadrature body (common.cuh panelQuad) over the
 // order's rule with volsym sf vol(c1) vol(c2), and K1's tree-slot epilogue
 // (global atomics) for the dofs [dofs[c1], dofs[c2]] under cluster pair
-// (I, J).  Bound: a float64 pow per node and the (2 dpe)^2 FMAs per node,
-// as K1.
+// (I, J).  Bound: a float64 pow (or the kernel's exp or erfc) per node
+// and the (2 dpe)^2 FMAs per node, as K1.
 
 #include "common.cuh"
 
@@ -62,7 +62,8 @@ near_enum_kernel(signed char* __restrict__ keys, int* __restrict__ pT,
         const int b = et.ncArr[offJ[p] + l % n2p];
         const int key = nearValid(et.cells, et.nv, et.cellNodes, et.dpe, a, b,
                                   IA[p], JA[p])
-            ? orderKey(et.centers, et.C, et.logh, a, b, et.s, et.c, et.lH0)
+            ? orderKey(et.centers, et.dim, et.C, et.logh, a, b, et.s, et.c,
+                       et.lH0)
             : ENUM_SENTINEL;
         keys[t] = static_cast<signed char>(key);
         pT[t] = p;
@@ -77,13 +78,13 @@ EXPORT int near_enum(signed char* keys, int* pT, int* hist, const int* cum,
                      int nP, const int* offI, const int* offJ, const int* n2,
                      const int* IA, const int* JA, const int* ncArr,
                      const int* cells, int nv, const int* cellNodes, int dpe,
-                     const float* centers, int C, const float* logh, float s,
-                     float c, float lH0, int T, cudaStream_t stream) {
+                     const float* centers, int dimC, int C, const float* logh,
+                     float s, float c, float lH0, int T, cudaStream_t stream) {
     if (T <= 0) return 0;
     const int threads = 256;
     const int blocks = (T + threads - 1) / threads;
-    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, C, logh,
-                        s, c, lH0};
+    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, dimC, C,
+                        logh, s, c, lH0};
     near_enum_kernel<<<blocks, threads, 0, stream>>>(
         keys, pT, hist, cum, nP, offI, offJ, n2, IA, JA, et, T);
     return static_cast<int>(cudaGetLastError());
@@ -102,11 +103,11 @@ struct QuadTables {
     const double* w;         // [Q]
     const double* PSIP;      // [Q, (2 dpe)^2]
     int Q;
-    double C, e;
+    Profile pf;
 };
 
 // The element body of K6 and K13, run by one warp.
-template <int NPSI>
+template <int NPSI, int PC>
 __device__ __forceinline__ void treeElement(double* __restrict__ data,
                                             long long nnz, const TreeTables& tt,
                                             const QuadTables& qt, long long c1,
@@ -119,9 +120,9 @@ __device__ __forceinline__ void treeElement(double* __restrict__ data,
     loadSimplex(v1, qt.vertices, qt.cells + c1 * qt.nv, qt.nv, qt.dim);
     loadSimplex(v2, qt.vertices, qt.cells + c2 * qt.nv, qt.nv, qt.dim);
     double acc[NN];
-    panelQuad<NN>(acc, v1, qt.nv, v2, qt.nv, qt.dim, nullptr,
-                  qt.vols[c1] * qt.vols[c2] * sf, qt.bary_x, qt.bary_y, qt.w,
-                  qt.PSIP, qt.Q, qt.C, qt.e, lane, 32);
+    panelQuad<NN, PC>(acc, v1, qt.nv, v2, qt.nv, qt.dim, nullptr,
+                      qt.vols[c1] * qt.vols[c2] * sf, qt.bary_x, qt.bary_y,
+                      qt.w, qt.PSIP, qt.Q, qt.pf, lane, 32);
 #pragma unroll
     for (int i = 0; i < NN; ++i) acc[i] = warpSum(acc[i]);
     long long dr[NPSI];
@@ -133,7 +134,7 @@ __device__ __forceinline__ void treeElement(double* __restrict__ data,
     treeScatter<NPSI>(data, nnz, tt, dr, I, J, offF, offB, acc, lane);
 }
 
-template <int NPSI>
+template <int NPSI, int PC>
 __global__ void __launch_bounds__(256)
 near_enum_quad_kernel(double* __restrict__ data, long long nnz,
                       const int* __restrict__ ids, int n,
@@ -156,8 +157,8 @@ near_enum_quad_kernel(double* __restrict__ data, long long nnz,
     const int n2p = n2[p];
     const long long c1 = ncArr[offI[p] + l / n2p];
     const long long c2 = ncArr[offJ[p] + l % n2p];
-    treeElement<NPSI>(data, nnz, tt, qt, c1, c2, 2.0, IA[p], JA[p], offF[p],
-                      offB[p], lane);
+    treeElement<NPSI, PC>(data, nnz, tt, qt, c1, c2, 2.0, IA[p], JA[p],
+                          offF[p], offB[p], lane);
 }
 
 EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
@@ -170,8 +171,8 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
                           const int* treePos, const int* indptrT,
                           const int* tStart, const double* bary_x,
                           const double* bary_y, const double* w,
-                          const double* PSIP, int Q, double C, double e,
-                          cudaStream_t stream) {
+                          const double* PSIP, int Q, int pcode, double C,
+                          double e, double a, cudaStream_t stream) {
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -179,21 +180,21 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
     const long long blocks = ((long long)n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, C, e};
+                        w, PSIP, Q, Profile{pcode, C, e, a}};
 #define LAUNCH(NP)                                                          \
-    near_enum_quad_kernel<NP><<<(unsigned)blocks, threads, 0, stream>>>(   \
+    near_enum_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
         data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,     \
         ncArr, qt, tt)
-    switch (dpe) {
+    PROFILE_SWITCH(pcode, switch (dpe) {
         case 2: LAUNCH(4); break;
         case 3: LAUNCH(6); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    })
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
 
-template <int NPSI>
+template <int NPSI, int PC>
 __global__ void __launch_bounds__(256)
 tree_csr_quad_kernel(double* __restrict__ data, long long nnz,
                      const int* __restrict__ c1A, const int* __restrict__ c2A,
@@ -206,8 +207,8 @@ tree_csr_quad_kernel(double* __restrict__ data, long long nnz,
     const long long k = (long long)blockIdx.x * (blockDim.x >> 5)
                         + (threadIdx.x >> 5);
     if (k >= n) return;  // uniform across the warp
-    treeElement<NPSI>(data, nnz, tt, qt, c1A[k], c2A[k], sfA[k], IA[k], JA[k],
-                      offFA[k], offBA[k], lane);
+    treeElement<NPSI, PC>(data, nnz, tt, qt, c1A[k], c2A[k], sfA[k], IA[k],
+                          JA[k], offFA[k], offBA[k], lane);
 }
 
 EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
@@ -219,8 +220,8 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
                          const int* treePos, const int* indptrT,
                          const int* tStart, const double* bary_x,
                          const double* bary_y, const double* w,
-                         const double* PSIP, int Q, double C, double e,
-                         cudaStream_t stream) {
+                         const double* PSIP, int Q, int pcode, double C,
+                         double e, double a, cudaStream_t stream) {
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -228,15 +229,15 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
     const long long blocks = (n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, C, e};
+                        w, PSIP, Q, Profile{pcode, C, e, a}};
 #define LAUNCH(NP)                                                          \
-    tree_csr_quad_kernel<NP><<<(unsigned)blocks, threads, 0, stream>>>(    \
+    tree_csr_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
         data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt)
-    switch (dpe) {
+    PROFILE_SWITCH(pcode, switch (dpe) {
         case 2: LAUNCH(4); break;
         case 3: LAUNCH(6); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    })
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }

@@ -33,7 +33,7 @@
 
 enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3 };
 
-template <int NPSI, int TARGET>
+template <int NPSI, int TARGET, int PC>
 __global__ void __launch_bounds__(256)
 panel_scatter_kernel(double* __restrict__ out,
                      long long N /* dense: N; CSR: nnz; cross: NB */,
@@ -51,7 +51,7 @@ panel_scatter_kernel(double* __restrict__ out,
                      const double* __restrict__ bary_y,
                      const double* __restrict__ w,
                      const double* __restrict__ PSIP, int Q,
-                     double C, double e, int inter, double h2) {
+                     Profile pf, int inter, double h2) {
     constexpr int NN = NPSI * NPSI;
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
@@ -65,9 +65,9 @@ panel_scatter_kernel(double* __restrict__ out,
         for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
 
     double acc[NN];
-    panelQuad<NN>(acc, v1, nv1, v2, nv2, dim,
-                  normals != nullptr ? nrm : nullptr, volsym[pair], bary_x,
-                  bary_y, w, PSIP, Q, C, e, lane, 32, inter, h2);
+    panelQuad<NN, PC>(acc, v1, nv1, v2, nv2, dim,
+                      normals != nullptr ? nrm : nullptr, volsym[pair], bary_x,
+                      bary_y, w, PSIP, Q, pf, lane, 32, inter, h2);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
@@ -111,8 +111,8 @@ static int launchPanel(double* out, long long N, const double* vertices,
                        long long P, const int* I, const int* J,
                        const int* offF, const int* offB, TreeTables tt,
                        const double* bary_x, const double* bary_y,
-                       const double* w, const double* PSIP, int Q, double C,
-                       double e, int inter, double h2, cudaStream_t stream) {
+                       const double* w, const double* PSIP, int Q, Profile pf,
+                       int inter, double h2, cudaStream_t stream) {
     if (P <= 0) return 0;
     if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -120,18 +120,18 @@ static int launchPanel(double* out, long long N, const double* vertices,
     const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
 #define LAUNCH(NP)                                                          \
-    panel_scatter_kernel<NP, TARGET><<<(unsigned)blocks, threads, 0,       \
-                                       stream>>>(                          \
+    panel_scatter_kernel<NP, TARGET, PC><<<(unsigned)blocks, threads, 0,   \
+                                           stream>>>(                      \
         out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
-        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, C, e, \
+        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, pf,  \
         inter, h2)
-    switch (nPSI) {
+    PROFILE_SWITCH(pf.code, switch (nPSI) {
         case 2: LAUNCH(2); break;
         case 3: LAUNCH(3); break;
         case 4: LAUNCH(4); break;
         case 6: LAUNCH(6); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+    })
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
@@ -143,13 +143,14 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          const double* volsym, const double* normals,
                          long long P, const double* bary_x,
                          const double* bary_y, const double* w,
-                         const double* PSIP, int Q, double C, double e,
-                         int inter, double h2, cudaStream_t stream) {
+                         const double* PSIP, int Q, int pcode, double C,
+                         double e, double a, int inter, double h2,
+                         cudaStream_t stream) {
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
-                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
-                              inter, h2, stream);
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
+                              Profile{pcode, C, e, a}, inter, h2, stream);
 }
 
 EXPORT int panel_scatter_cross(double* A, long long NB,
@@ -160,13 +161,14 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                                const double* volsym, const double* normals,
                                long long P, const double* bary_x,
                                const double* bary_y, const double* w,
-                               const double* PSIP, int Q, double C, double e,
-                               int inter, double h2, cudaStream_t stream) {
+                               const double* PSIP, int Q, int pcode, double C,
+                               double e, double a, int inter, double h2,
+                               cudaStream_t stream) {
     return launchPanel<CROSS>(A, NB, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
-                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
-                              inter, h2, stream);
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
+                              Profile{pcode, C, e, a}, inter, h2, stream);
 }
 
 EXPORT int panel_scatter_slots(double* data, long long nnz,
@@ -177,13 +179,14 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                const double* volsym, const double* normals,
                                long long P, const double* bary_x,
                                const double* bary_y, const double* w,
-                               const double* PSIP, int Q, double C, double e,
-                               int inter, double h2, cudaStream_t stream) {
+                               const double* PSIP, int Q, int pcode, double C,
+                               double e, double a, int inter, double h2,
+                               cudaStream_t stream) {
     return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
-                              TreeTables{}, bary_x, bary_y, w, PSIP, Q, C, e,
-                              inter, h2, stream);
+                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
+                              Profile{pcode, C, e, a}, inter, h2, stream);
 }
 
 EXPORT int panel_scatter_tree(double* data, long long nnz,
@@ -198,11 +201,12 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               const int* indptrT, const int* tStart,
                               const double* bary_x, const double* bary_y,
                               const double* w, const double* PSIP, int Q,
-                              double C, double e, cudaStream_t stream) {
+                              int pcode, double C, double e, double a,
+                              cudaStream_t stream) {
     return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P, I,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
-                             bary_x, bary_y, w, PSIP, Q, C, e, 0, 0.0,
-                             stream);
+                             bary_x, bary_y, w, PSIP, Q,
+                             Profile{pcode, C, e, a}, 0, 0.0, stream);
 }

@@ -2,12 +2,14 @@
 K1-K3, K5-K7 and K11-K15.
 
 Port of the symmetric constant-coefficient paths of
-pynucleus_tpu/nl/assembly.py.  Infinite horizon: getDense with the
-cell-pair grid (``params={'denseGrid': True}``) and getH2 with the
-device-CSR near field (``params={'forceDeviceCSR': True}``) and the JAX
-package's default near-field engine: the block engine for orders up to 8
-and the flat device enumeration for the pairs that also hold higher
-orders.  Finite horizon: getDense and getSparse on the per-pair path (the
+pynucleus_tpu/nl/assembly.py.  Infinite horizon (the fractional,
+gaussian and exponential kernels, 1D and 2D): getDense with the cell-pair
+grid (``params={'denseGrid': True}``) and getH2 with the device-CSR near
+field (``params={'forceDeviceCSR': True}``) and the JAX package's default
+near-field engine: the block engine for orders up to 8 and the flat
+device enumeration for the pairs that also hold higher orders.  Every
+kernel evaluates the kernel's radial profile (nl.kernels.Profile).
+Finite horizon: getDense and getSparse on the per-pair path (the
 general branch of _runPairBuckets, every cell pair classified), getH2 as
 getSparse, and getDenseCross (A_BC of the Dirichlet collar).
 ``params={'nearEngine': 'flat'}`` runs the flat engine alone (the JAX
@@ -80,7 +82,7 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
                      boundaryOrderModelParams)
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
-from .kernels import radialEval
+from .kernels import radialEval, profileArgs, POWER
 
 __all__ = ['nonlocalBuilder', 'assembleNonlocal', 'panel_scatter',
            'panel_scatter_slots', 'panel_scatter_tree',
@@ -157,7 +159,7 @@ def _indicatorArgs(indicator):
 # ------------------------------------------------------------------ K1 ----
 
 def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
-                  bary_x, bary_y, w, PSIP, C, e, indicator=None):
+                  bary_x, bary_y, w, PSIP, prof, indicator=None):
     """Panel quadrature of explicit pairs, scattered into A [N, N]:
 
         M[p] = sum_q gamma(|x_q - y_q|^2) w_q volsym[p]
@@ -166,7 +168,8 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
 
     vertices [V, dim]; vi1 [P, nv1], vi2 [P, nv2] vertex ids in rule order;
     dofRows [P, nPSI]; volsym [P]; normals [P, dim] or None; bary_x
-    [nv1, Q], bary_y [nv2, Q], w [Q], PSIP [Q, nPSI^2]; gamma(r2) = C r2^e;
+    [nv1, Q], bary_y [nv2, Q], w [Q], PSIP [Q, nPSI^2]; gamma the radial
+    profile ``prof`` (nl.kernels.Profile, evaluated as nl.kernels.radialEval);
     indicator (code, h2) the interaction indicator chi of a finite horizon
     (code 1: |x-y|^2 < h2, ball2; code 2: max|x_d-y_d|^2 < h2, ballInf), or
     None.
@@ -183,15 +186,15 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
         raise ValueError('panel_scatter: shape mismatch')
     if A.device.type == 'cpu':
         return _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym,
-                                    normals, bary_x, bary_y, w, PSIP, C, e,
+                                    normals, bary_x, bary_y, w, PSIP, prof,
                                     indicator)
     _launchDofTarget('panel_scatter', 'dense', A, A.shape[0], vertices, vi1,
                      vi2, dofRows, volsym, normals, bary_x, bary_y, w, PSIP,
-                     C, e, indicator)
+                     prof, indicator)
 
 
 def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
-                     normals, bary_x, bary_y, w, PSIP, C, e, indicator):
+                     normals, bary_x, bary_y, w, PSIP, prof, indicator):
     """K1 into a dof-indexed target (dense A [N, N], or A_BC [N, NB] with N
     the column count NB)."""
     P, nPSI = dofRows.shape
@@ -206,12 +209,12 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
         p(A), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(bary_x),
-        p(bary_y), p(w), p(PSIP), w.shape[0], float(C), float(e),
+        p(bary_y), p(w), p(PSIP), w.shape[0], *profileArgs(prof),
         *_indicatorArgs(indicator), kernels.stream()))
 
 
 def panel_scatter_cross(A, vertices, vi1, vi2, dofRows, volsym, normals,
-                        bary_x, bary_y, w, PSIP, C, e, indicator=None):
+                        bary_x, bary_y, w, PSIP, prof, indicator=None):
     """K1 into the interior x boundary coupling A_BC [N, NB]: with M[p] as
     in :func:`panel_scatter`,
 
@@ -233,21 +236,21 @@ def panel_scatter_cross(A, vertices, vi1, vi2, dofRows, volsym, normals,
     if A.device.type == 'cpu':
         return _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows,
                                           volsym, normals, bary_x, bary_y,
-                                          w, PSIP, C, e, indicator)
+                                          w, PSIP, prof, indicator)
     _launchDofTarget('panel_scatter_cross', 'cross', A, A.shape[1], vertices,
                      vi1, vi2, dofRows, volsym, normals, bary_x, bary_y, w,
-                     PSIP, C, e, indicator)
+                     PSIP, prof, indicator)
 
 
 def _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows, volsym,
-                               normals, bary_x, bary_y, w, PSIP, C, e,
+                               normals, bary_x, bary_y, w, PSIP, prof,
                                indicator=None):
     """Plain PyTorch version of :func:`panel_scatter_cross` (any device)."""
     P, nPSI = dofRows.shape
     for sl in _plainChunks(P, w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, C, e, indicator)
+                           bary_x, bary_y, w, PSIP, prof, indicator)
         dr = dofRows[sl]
         p = dr.shape[0]
         rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(-1)
@@ -256,13 +259,13 @@ def _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows, volsym,
 
 
 def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
-                   PSIP, C, e, indicator=None):
+                   PSIP, prof, indicator=None):
     """Local matrices M [P, nPSI^2] of explicit pairs (K1's quadrature body,
     plain); the caller bounds P."""
     x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
     y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
     r2 = ((x - y) ** 2).sum(-1)
-    t = radialEval(r2, C, e) * w[None, :]
+    t = radialEval(r2, prof) * w[None, :]
     code, h2 = _indicatorArgs(indicator)
     if code == 1:
         t = t * (r2 < h2)
@@ -283,13 +286,13 @@ def _plainChunks(P, Q):
 
 
 def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
-                         bary_x, bary_y, w, PSIP, C, e, indicator=None):
+                         bary_x, bary_y, w, PSIP, prof, indicator=None):
     """Plain PyTorch version of :func:`panel_scatter` (any device)."""
     P, nPSI = dofRows.shape
     for sl in _plainChunks(P, w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, C, e, indicator)
+                           bary_x, bary_y, w, PSIP, prof, indicator)
         dr = dofRows[sl]
         p = dr.shape[0]
         rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(-1)
@@ -314,7 +317,7 @@ def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
 
 
 def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
-                        bary_x, bary_y, w, PSIP, C, e, indicator=None):
+                        bary_x, bary_y, w, PSIP, prof, indicator=None):
     """K1 into CSR data at explicit slots: with M[p] as in
     :func:`panel_scatter`,
 
@@ -337,7 +340,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
     if data.device.type == 'cpu':
         return _panel_scatter_slots_plain(data, vertices, vi1, vi2, slots,
                                           volsym, normals, bary_x, bary_y,
-                                          w, PSIP, C, e, indicator)
+                                          w, PSIP, prof, indicator)
     if P == 0:
         return
     lib = kernels.library()
@@ -349,7 +352,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
         p(data), data.shape[0] - 1, p(vertices), dim, p(vi1), vi1.shape[1],
         p(vi2), vi2.shape[1], p(slots), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(bary_x),
-        p(bary_y), p(w), p(PSIP), Q, float(C), float(e),
+        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
         *_indicatorArgs(indicator), kernels.stream()))
 
 
@@ -360,13 +363,13 @@ def _addSlots(data, slots, vals):
 
 
 def _panel_scatter_slots_plain(data, vertices, vi1, vi2, slots, volsym,
-                               normals, bary_x, bary_y, w, PSIP, C, e,
+                               normals, bary_x, bary_y, w, PSIP, prof,
                                indicator=None):
     """Plain PyTorch version of :func:`panel_scatter_slots` (any device)."""
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, C, e, indicator)
+                           bary_x, bary_y, w, PSIP, prof, indicator)
         _addSlots(data, slots[sl].reshape(-1), M.reshape(-1))
 
 
@@ -404,8 +407,8 @@ def _checkTables(name, data, tables):
 
 
 def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
-                       I, J, offF, offB, tables, bary_x, bary_y, w, PSIP, C,
-                       e):
+                       I, J, offF, offB, tables, bary_x, bary_y, w, PSIP,
+                       prof):
     """K1 into CSR data at arithmetic tree slots: with M[p] as in
     :func:`panel_scatter` and the slot of local entry (a, b) of pair p from
     its cluster pair (I[p], J[p]) and block offsets (offF[p], offB[p])
@@ -430,8 +433,7 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
     if data.device.type == 'cpu':
         return _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows,
                                          volsym, normals, I, J, offF, offB,
-                                         tables, bary_x, bary_y, w, PSIP, C,
-                                         e)
+                                         tables, bary_x, bary_y, w, PSIP, prof)
     if P == 0:
         return
     lib = kernels.library()
@@ -445,18 +447,18 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(I), p(J), p(offF),
         p(offB), p(dofNode), p(treePos), p(indptrT), p(tStart), p(bary_x),
-        p(bary_y), p(w), p(PSIP), Q, float(C), float(e), kernels.stream()))
+        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof), kernels.stream()))
 
 
 def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
                               normals, I, J, offF, offB, tables, bary_x,
-                              bary_y, w, PSIP, C, e):
+                              bary_y, w, PSIP, prof):
     """Plain PyTorch version of :func:`panel_scatter_tree` (any device)."""
     nnz = data.shape[0] - 1
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, C, e)
+                           bary_x, bary_y, w, PSIP, prof)
         slots = _treeSlots(dofRows[sl], I[sl], J[sl], offF[sl], offB[sl],
                            tables, nnz)
         _addSlots(data, slots.reshape(-1), M.reshape(-1))
@@ -465,7 +467,7 @@ def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
 # ------------------------------------------------------------------ K2 ----
 
 def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
-                 C, e):
+                 prof):
     """One distance window of the cell-pair grid into A [N, N]: every
     ordered pair (c1, c2) with t_lo <= d2f32(c1, c2) < t_hi adds
 
@@ -488,7 +490,7 @@ def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
         raise ValueError('grid_distant: shape mismatch')
     if A.device.type == 'cpu':
         return _grid_distant_plain(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw,
-                                   w, t_lo, t_hi, C, e)
+                                   w, t_lo, t_hi, prof)
     R = torch.zeros((nC, Q), dtype=torch.float64, device=A.device)
     lib = kernels.library()
     kernels.launches['grid_distant'] += 1
@@ -496,7 +498,7 @@ def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
         kernels.ptr(A), A.shape[0], kernels.ptr(X), Q, dim, kernels.ptr(ccf),
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(PhiXw),
         kernels.ptr(PhiX), kernels.ptr(PsiYw), kernels.ptr(w),
-        float(t_lo), float(t_hi), float(C), float(e), kernels.ptr(R),
+        float(t_lo), float(t_hi), *profileArgs(prof), kernels.ptr(R),
         kernels.stream()))
     # the C entry point launches the window pass and the diagonal pass
     kernels.deviceLaunches['grid_distant'] += 2 if nC > 0 else 0
@@ -513,7 +515,7 @@ def _d2f32(ccf, rc):
 
 
 def _grid_distant_plain(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w,
-                        t_lo, t_hi, C, e):
+                        t_lo, t_hi, prof):
     """Plain PyTorch version of :func:`grid_distant` (any device)."""
     nC, Q, dim = X.shape
     dpe = dofs.shape[1]
@@ -525,7 +527,7 @@ def _grid_distant_plain(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w,
         i1, c2 = torch.nonzero((d2 >= t_lo) & (d2 < t_hi), as_tuple=True)
         c1 = rc[i1]
         r2 = ((X[c2][:, None, :, :] - X[c1][:, :, None, :]) ** 2).sum(-1)
-        G = radialEval(r2, C, e) * (vols[c2] * vols[c1])[:, None, None]
+        G = radialEval(r2, prof) * (vols[c2] * vols[c1])[:, None, None]
         cross = 2.0 * torch.einsum('aq,pqr,br->pab', PhiXw, G, PsiYw)
         p = c1.shape[0]
         rows = dofs[c1][:, :, None].expand(p, dpe, dpe).reshape(-1)
@@ -541,7 +543,7 @@ def _grid_distant_plain(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w,
 # ------------------------------------------------------------------ K3 ----
 
 def grid_boundary(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr, exclIdx,
-                  PhiXw, PhiX, C, e, useNormals):
+                  PhiXw, PhiX, prof, useNormals):
     """Zero-exterior surface term into A [N, N]: for each cell c
 
         R[c,q] = vol[c] sum_{s not in excl(c)} sum_r gamma(|x-y|^2)
@@ -567,7 +569,7 @@ def grid_boundary(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr, exclIdx,
         raise ValueError('grid_boundary: shape mismatch')
     if A.device.type == 'cpu':
         return _grid_boundary_plain(A, X, vols, dofs, Ysurf, svolw2, normals,
-                                    exclPtr, exclIdx, PhiXw, PhiX, C, e,
+                                    exclPtr, exclIdx, PhiXw, PhiX, prof,
                                     useNormals)
     lib = kernels.library()
     kernels.launches['grid_boundary'] += 1
@@ -577,12 +579,12 @@ def grid_boundary(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr, exclIdx,
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(Ysurf),
         kernels.ptr(svolw2), kernels.ptr(normals), S, Q2,
         kernels.ptr(exclPtr), kernels.ptr(exclIdx), kernels.ptr(PhiXw),
-        kernels.ptr(PhiX), float(C), float(e), int(bool(useNormals)),
+        kernels.ptr(PhiX), *profileArgs(prof), int(bool(useNormals)),
         kernels.stream()))
 
 
 def _grid_boundary_plain(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr,
-                         exclIdx, PhiXw, PhiX, C, e, useNormals):
+                         exclIdx, PhiXw, PhiX, prof, useNormals):
     """Plain PyTorch version of :func:`grid_boundary` (any device)."""
     nC, Q1, dim = X.shape
     S, Q2, _ = Ysurf.shape
@@ -598,7 +600,7 @@ def _grid_boundary_plain(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr,
         hi = min(s + Ct, nC)
         dd = Yf[None, None, :, :] - X[s:hi, :, None, :]  # y - x [ct,Q1,M,dim]
         r2 = (dd * dd).sum(-1)
-        g = radialEval(r2, C, e)
+        g = radialEval(r2, prof)
         if useNormals:
             pos = r2 > 0
             fac = torch.einsum('md,xqmd->xqm', nf, dd) \
@@ -636,8 +638,9 @@ def near_enum(cum, offI, offJ, n2, IA, JA, ncArr, cells, cellNodes,
     Returns keys int8 [T], pT int32 [T] (p of each element) and the key
     histogram int32 [128].  cum [nP+1], offI, offJ, n2, IA, JA [nP],
     ncArr, cells [C, nv], cellNodes [C, dpe] int32; centers [dim, C] and
-    logh [C] float32; consts = (s, c, logH0) float32 scalars of the 2D order
-    model (panels.distantOrders).  All float32 steps round as the plain
+    logh [C] float32, dim 1 or 2; consts the float32 scalars of the order
+    model of that dimension (panels.distantOrders): (s, c, logH0) in 2D,
+    (sval, c, logH0) in 1D.  All float32 steps round as the plain
     version's separate operations do (no contraction into FMAs).
 
     Kernel K5 (kernels/csrc/near_enum.cu) on CUDA tensors, the plain version
@@ -649,8 +652,9 @@ def near_enum(cum, offI, offJ, n2, IA, JA, ncArr, cells, cellNodes,
     dim, C = centers.shape
     if cum.shape != (nP + 1,) or any(a.shape != (nP,) for a in (
             offI, offJ, n2, JA)) or cells.shape[0] != C \
-            or cellNodes.shape[0] != C or logh.shape != (C,) or dim != 2:
-        raise ValueError('near_enum: shape mismatch (2D meshes only)')
+            or cellNodes.shape[0] != C or logh.shape != (C,) \
+            or dim not in (1, 2):
+        raise ValueError('near_enum: shape mismatch (1D and 2D meshes)')
     T = int(cum[-1])
     if dev.type == 'cpu':
         return _near_enum_plain(cum, offI, offJ, n2, IA, JA, ncArr, cells,
@@ -668,7 +672,7 @@ def near_enum(cum, offI, offJ, n2, IA, JA, ncArr, cells, cellNodes,
     kernels.check(lib.near_enum(
         p(keys), p(pT), p(hist), p(cum), nP, p(offI), p(offJ), p(n2), p(IA),
         p(JA), p(ncArr), p(cells), cells.shape[1], p(cellNodes),
-        cellNodes.shape[1], p(centers), C, p(logh), s, c, lH0, T,
+        cellNodes.shape[1], p(centers), dim, C, p(logh), s, c, lH0, T,
         kernels.stream()))
     return keys, pT, hist
 
@@ -677,11 +681,9 @@ def _enumKeys(a, b, I, J, cellsL, nodesL, centers, logh, consts):
     """Snapped float32 order of elements (a, b) of cluster pairs (I, J)
     (int64 [T] each), or ENUM_SENTINEL where the element is no distant
     quadrature work: the rules of K5, K11 and K12 (kernels/csrc/common.cuh
-    nearValid and orderKey), plain."""
+    nearValid and orderKey; the order model of the dimension of centers
+    [dim, C]), plain."""
     dev = a.device
-    s, c, lH0 = (np.float32(v) for v in consts)
-    sm1 = float(s - np.float32(1.0))
-    s, c, lH0 = float(s), float(c), float(lH0)
     ca, cb = cellsL[a], cellsL[b]
     share = (ca[:, :, None] == cb[:, None, :]).any(2).any(1)
     dup = (nodesL[b] == I[:, None]).any(1) & \
@@ -694,12 +696,24 @@ def _enumKeys(a, b, I, J, cellsL, nodesL, centers, logh, consts):
     logd = 0.5 * torch.log(torch.clamp_min(r2c, 1e-38))
     lh1, lh2 = logh[a], logh[b]
     ldh1, ldh2 = logd - lh1, logd - lh2
-    l1, l2 = (lh1 - lH0).abs(), (lh2 - lH0).abs()
-    lmin = torch.maximum(l1, l2)
-    o1 = torch.ceil((c + sm1 * l2 + lmin - s * ldh2)
-                    / (ldh1.clamp_min(0.0) + 0.4))
-    o2 = torch.ceil((c + sm1 * l1 + lmin - s * ldh1)
-                    / (ldh2.clamp_min(0.0) + 0.4))
+    s, c, lH0 = (np.float32(v) for v in consts)
+    l1, l2 = (lh1 - float(lH0)).abs(), (lh2 - float(lH0)).abs()
+    if centers.shape[0] == 1:
+        # 1D (pynucleus_tpu/nl/assembly.py:1248-1257): s2 = 2 sval and
+        # 2 sval - 1 in float32, as the JAX program forms them
+        s2 = s * np.float32(2.0)
+        s2m1 = float(s2 - np.float32(1.0))
+        o1 = torch.ceil((float(c) + s2m1 * l2 - float(s2) * ldh2)
+                        / (ldh1.clamp_min(0.0) + 0.8))
+        o2 = torch.ceil((float(c) + s2m1 * l1 - float(s2) * ldh1)
+                        / (ldh2.clamp_min(0.0) + 0.8))
+    else:
+        sm1 = float(s - np.float32(1.0))
+        lmin = torch.maximum(l1, l2)
+        o1 = torch.ceil((float(c) + sm1 * l2 + lmin - float(s) * ldh2)
+                        / (ldh1.clamp_min(0.0) + 0.4))
+        o2 = torch.ceil((float(c) + sm1 * l1 + lmin - float(s) * ldh1)
+                        / (ldh2.clamp_min(0.0) + 0.4))
     o = torch.maximum(torch.maximum(o1, o2), torch.tensor(
         2.0, dtype=torch.float32, device=dev)).clamp(2.0, 120.0)
     o = o.to(torch.int32)
@@ -755,7 +769,7 @@ def _checkEnumTables(name, ints, floats):
 
 def near_enum_quad(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
                    ncArr, vertices, cells, vols, dofs, tables, bary_x, bary_y,
-                   w, PSIP, C, e):
+                   w, PSIP, prof):
     """Phase 2 of the device near-field enumeration for one order: each
     element id t of ``ids`` (int32, from keys == order) is decoded to its
     cluster pair p = pT[t] and cells (c1, c2) as in :func:`near_enum`; its
@@ -782,7 +796,7 @@ def near_enum_quad(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
         return _near_enum_quad_plain(data, ids, pT, cum, offI, offJ, n2, IA,
                                      JA, offF, offB, ncArr, vertices, cells,
                                      vols, dofs, tables, bary_x, bary_y, w,
-                                     PSIP, C, e)
+                                     PSIP, prof)
     n = ids.shape[0]
     if n == 0:
         return
@@ -796,7 +810,7 @@ def near_enum_quad(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
         p(offJ), p(n2), p(IA), p(JA), p(offF), p(offB), p(ncArr),
         p(vertices), vertices.shape[1], p(cells), nv, p(vols), p(dofs),
         dofs.shape[1], p(dofNode), p(treePos), p(indptrT), p(tStart),
-        p(bary_x), p(bary_y), p(w), p(PSIP), Q, float(C), float(e),
+        p(bary_x), p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
         kernels.stream()))
 
 
@@ -813,14 +827,14 @@ def _decodeEnum(ids, pT, cum, offI, offJ, n2, ncArr):
 
 def _near_enum_quad_plain(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF,
                           offB, ncArr, vertices, cells, vols, dofs, tables,
-                          bary_x, bary_y, w, PSIP, C, e):
+                          bary_x, bary_y, w, PSIP, prof):
     """Plain PyTorch version of :func:`near_enum_quad` (any device)."""
     nnz = data.shape[0] - 1
     for sl in _plainChunks(ids.shape[0], w.shape[0]):
         p, c1, c2 = _decodeEnum(ids[sl], pT, cum, offI, offJ, n2, ncArr)
         M = _panelMatrices(vertices, cells[c1], cells[c2],
                            vols[c1] * vols[c2] * 2.0, None, bary_x, bary_y, w,
-                           PSIP, C, e)
+                           PSIP, prof)
         dr = torch.cat([dofs[c1], dofs[c2]], dim=1)
         slots = _treeSlots(dr, IA[p], JA[p], offF[p], offB[p], tables, nnz)
         _addSlots(data, slots.reshape(-1), M.reshape(-1))
@@ -828,12 +842,12 @@ def _near_enum_quad_plain(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF,
 
 # ------------------------------------------------------------------ K7 ----
 
-def far_field(gi, gj, C, e):
+def far_field(gi, gj, prof):
     """Far-field blocks K[p, a, b] = gamma(|gi[p, a] - gj[p, b]|^2) for the
     Chebyshev grids gi, gj [P, M, dim] float64 of the far cluster pairs;
-    gamma(r2) = C r2^e as in K1.  Kernel K7 (kernels/csrc/far_field.cu) on
-    CUDA tensors, the plain version on CPU tensors.  Replaces
-    _farFieldBlocks."""
+    gamma the radial profile ``prof`` as in K1.  Kernel K7
+    (kernels/csrc/far_field.cu) on CUDA tensors, the plain version on CPU
+    tensors.  Replaces _farFieldBlocks."""
     for t in (gi, gj):
         if t.dtype != torch.float64 or not t.is_contiguous() \
                 or t.device != gi.device or t.dim() != 3:
@@ -843,7 +857,7 @@ def far_field(gi, gj, C, e):
         raise ValueError('far_field: shape mismatch')
     P, M, dim = gi.shape
     if gi.device.type == 'cpu':
-        return _far_field_plain(gi, gj, C, e)
+        return _far_field_plain(gi, gj, prof)
     K = torch.empty((P, M, M), dtype=torch.float64, device=gi.device)
     if P == 0:
         return K
@@ -852,14 +866,14 @@ def far_field(gi, gj, C, e):
     kernels.deviceLaunches['far_field'] += 1
     kernels.check(lib.far_field(
         kernels.ptr(K), kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
-        float(C), float(e), kernels.stream()))
+        *profileArgs(prof), kernels.stream()))
     return K
 
 
-def _far_field_plain(gi, gj, C, e):
+def _far_field_plain(gi, gj, prof):
     """Plain PyTorch version of :func:`far_field` (any device)."""
     r2 = ((gi[:, :, None, :] - gj[:, None, :, :]) ** 2).sum(-1)
-    return radialEval(r2, C, e)
+    return radialEval(r2, prof)
 
 
 # ------------------------------------------------------------- K11, K12 ----
@@ -924,8 +938,9 @@ def block_near_count(offI, offJ, n1, n2, IA, JA, ncArr, cells, cellNodes,
     dim, C = centers.shape
     if any(a.shape != (nP,) for a in (offI, offJ, n1, n2, JA)) \
             or cells.shape[0] != C or cellNodes.shape[0] != C \
-            or logh.shape != (C,) or dim != 2:
-        raise ValueError('block_near_count: shape mismatch (2D meshes only)')
+            or logh.shape != (C,) or dim not in (1, 2):
+        raise ValueError('block_near_count: shape mismatch (1D and 2D '
+                         'meshes)')
     dev = IA.device
     if dev.type == 'cpu':
         return _block_near_count_plain(offI, offJ, n1, n2, IA, JA, ncArr,
@@ -942,7 +957,7 @@ def block_near_count(offI, offJ, n1, n2, IA, JA, ncArr, cells, cellNodes,
     kernels.check(lib.block_near_count(
         p(counts), nP, p(offI), p(offJ), p(n1), p(n2), p(IA), p(JA),
         p(ncArr), p(cells), cells.shape[1], p(cellNodes), cellNodes.shape[1],
-        p(centers), C, p(logh), s, c, lH0, kernels.stream()))
+        p(centers), dim, C, p(logh), s, c, lH0, kernels.stream()))
     return counts
 
 
@@ -970,7 +985,7 @@ def _block_near_count_plain(offI, offJ, n1, n2, IA, JA, ncArr, cells,
 
 
 def block_near_quad(data, pairs, ncArr, cells, cellNodes, centers, logh,
-                    consts, vertices, vols, dofs, treePos, rules, C, e):
+                    consts, vertices, vols, dofs, treePos, rules, prof):
     """Block near-field quadrature of the near cluster pairs p into the
     tree-ordered CSR data [nnz+1]:
 
@@ -1014,7 +1029,7 @@ def block_near_quad(data, pairs, ncArr, cells, cellNodes, centers, logh,
     if data.device.type == 'cpu':
         return _block_near_quad_plain(data, pairs, ncArr, cells, cellNodes,
                                       centers, logh, consts, vertices, vols,
-                                      dofs, treePos, rules, C, e)
+                                      dofs, treePos, rules, prof)
     if nP == 0 or not rules:
         return
     # the rules in one table, class k = order / 2 - 1
@@ -1034,15 +1049,15 @@ def block_near_quad(data, pairs, ncArr, cells, cellNodes, centers, logh,
     s, c, lH0 = (float(np.float32(v)) for v in consts)
     kernels.check(lib.block_near_quad(
         p(data), nP, *(p(a) for a in pairs), maxBlock, p(ncArr), p(cells),
-        nv, p(cellNodes), dpe, p(centers), centers.shape[1], p(logh), s, c,
-        lH0, p(vertices), vertices.shape[1], p(vols), p(dofs), p(treePos),
-        p(table), kernels.i32array(ruleQ), kernels.i64array(ruleOff),
-        float(C), float(e), kernels.stream()))
+        nv, p(cellNodes), dpe, p(centers), centers.shape[0], centers.shape[1],
+        p(logh), s, c, lH0, p(vertices), vertices.shape[1], p(vols), p(dofs),
+        p(treePos), p(table), kernels.i32array(ruleQ), kernels.i64array(ruleOff),
+        *profileArgs(prof), kernels.stream()))
 
 
 def _block_near_quad_plain(data, pairs, ncArr, cells, cellNodes, centers,
                            logh, consts, vertices, vols, dofs, treePos, rules,
-                           C, e):
+                           prof):
     """Plain PyTorch version of :func:`block_near_quad` (any device)."""
     (offI, offJ, n1, n2, IA, JA, tSI, tSJ, baseF, baseB, LI, LJ, _,
      _) = (a.long() for a in pairs)
@@ -1058,7 +1073,7 @@ def _block_near_quad_plain(data, pairs, ncArr, cells, cellNodes, centers,
                 k, ka, kb = q[sel[s2]], a[sel[s2]], b[sel[s2]]
                 M = _panelMatrices(vertices, cellsL[ka], cellsL[kb],
                                    vols[ka] * vols[kb] * 2.0, None, bx, by,
-                                   w, PSIP, C, e)
+                                   w, PSIP, prof)
                 dr = torch.cat([dofs[ka], dofs[kb]], dim=1)
                 node = torch.cat([nodesL[ka], nodesL[kb]], dim=1)
                 tp = treePos.long()[dr.clamp_min(0)]
@@ -1078,7 +1093,7 @@ def _block_near_quad_plain(data, pairs, ncArr, cells, cellNodes, centers,
 # ------------------------------------------------------------------ K13 ----
 
 def tree_csr_quad(data, c1, c2, IA, JA, offF, offB, sf, vertices, cells,
-                  vols, dofs, tables, bary_x, bary_y, w, PSIP, C, e):
+                  vols, dofs, tables, bary_x, bary_y, w, PSIP, prof):
     """Quadrature of a host-made element list into tree slots: element k,
     the cell pair (c1[k], c2[k]) under cluster pair (IA[k], JA[k]) with
     block offsets (offF[k], offB[k]), adds its local matrix (K1's
@@ -1102,7 +1117,7 @@ def tree_csr_quad(data, c1, c2, IA, JA, offF, offB, sf, vertices, cells,
     if data.device.type == 'cpu':
         return _tree_csr_quad_plain(data, c1, c2, IA, JA, offF, offB, sf,
                                     vertices, cells, vols, dofs, tables,
-                                    bary_x, bary_y, w, PSIP, C, e)
+                                    bary_x, bary_y, w, PSIP, prof)
     if P == 0:
         return
     lib = kernels.library()
@@ -1114,20 +1129,20 @@ def tree_csr_quad(data, c1, c2, IA, JA, offF, offB, sf, vertices, cells,
         p(data), data.shape[0] - 1, p(c1), p(c2), p(IA), p(JA), p(offF),
         p(offB), p(sf), P, p(vertices), vertices.shape[1], p(cells), nv,
         p(vols), p(dofs), dofs.shape[1], p(dofNode), p(treePos), p(indptrT),
-        p(tStart), p(bary_x), p(bary_y), p(w), p(PSIP), Q, float(C),
-        float(e), kernels.stream()))
+        p(tStart), p(bary_x), p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
+        kernels.stream()))
 
 
 def _tree_csr_quad_plain(data, c1, c2, IA, JA, offF, offB, sf, vertices,
                          cells, vols, dofs, tables, bary_x, bary_y, w, PSIP,
-                         C, e):
+                         prof):
     """Plain PyTorch version of :func:`tree_csr_quad` (any device)."""
     nnz = data.shape[0] - 1
     for sl in _plainChunks(c1.shape[0], w.shape[0]):
         a, b = c1[sl].long(), c2[sl].long()
         M = _panelMatrices(vertices, cells[a], cells[b],
                            vols[a] * vols[b] * sf[sl], None, bary_x, bary_y,
-                           w, PSIP, C, e)
+                           w, PSIP, prof)
         dr = torch.cat([dofs[a], dofs[b]], dim=1)
         slots = _treeSlots(dr, IA[sl], JA[sl], offF[sl], offB[sl], tables,
                            nnz)
@@ -1138,6 +1153,16 @@ def _tree_csr_quad_plain(data, c1, c2, IA, JA, offF, offB, sf, vertices,
 
 # the targets of the cut-pair kernels, in the order of their C enum
 CUT_TARGETS = ('dense', 'slots', 'cross')
+
+
+def _powerProfile(name, prof):
+    """(C, e) of the power profile C r2^e, the only one K14 and K15
+    evaluate; any other profile raises."""
+    code, C, e, _ = profileArgs(prof)
+    if code != POWER:
+        raise NotImplementedError(f'{name}: the power profile C r2^e only '
+                                  f'(profile code {code})')
+    return C, e
 
 
 def _cutCheck(name, out, target, index, vertices, vi1, vi2, vols1, floats,
@@ -1194,7 +1219,7 @@ def _launchCut(name, out, target, index, P, *args):
 
 
 def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
-          horizon, C, e):
+          horizon, prof):
     """1D pairs cut by the horizon, by exact interval clipping (P1).  For
     pair p (cells vi1[p], vi2[p] [P, 2]) and the Gauss nodes tq, ur of
     [0, 1] with weights wq, wr:
@@ -1207,7 +1232,8 @@ def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
     added at ``target``: 'dense' A [N, N] (index dofRows [P, 4] int64, both
     dofs >= 0), 'slots' CSR data [nnz+1] (index slots [P, 16] int32, in
     [0, nnz)), 'cross' A_BC [N, NB] (index dofRows; interior row, boundary
-    column -d-1).  delta = horizon, gamma(r2) = C r2^e (0 at r2 = 0).
+    column -d-1).  delta = horizon, gamma the power profile ``prof``
+    (C r2^e, 0 at r2 = 0); any other profile raises NotImplementedError.
 
     Kernel K14 (kernels/csrc/cut_cells.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces pynucleus_tpu/nl/assembly.py
@@ -1215,17 +1241,17 @@ def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
     both orderings of an unordered pair as rows, and so does the caller."""
     P = _cutCheck('cut1d', out, target, index, vertices, vi1, vi2, vols1,
                   (tq, wq, ur, wr), 16)
+    C, e = _powerProfile('cut1d', prof)
     if vertices.shape[1] != 1 or vi1.shape[1] != 2:
         raise ValueError('cut1d: segments in 1D (P1) expected')
     if out.device.type == 'cpu':
         return _cut1d_plain(out, target, index, vertices, vi1, vi2, vols1, tq,
-                            wq, ur, wr, horizon, C, e)
+                            wq, ur, wr, horizon, prof)
     _launchCut('cut1d', out, target, index, P, vertices, vi1, vi2, vols1,
-               tq, wq, tq.shape[0], ur, wr, ur.shape[0], float(horizon),
-               float(C), float(e))
+               tq, wq, tq.shape[0], ur, wr, ur.shape[0], float(horizon), C, e)
 
 
-def _cut1dMatrices(vertices, vi1, vi2, vols1, tq, wq, ur, wr, horizon, C, e):
+def _cut1dMatrices(vertices, vi1, vi2, vols1, tq, wq, ur, wr, horizon, prof):
     """Local matrices M [P, 16] of 1D cut pairs (K14's body, plain; the
     arithmetic of _bucket_cut1d)."""
     v10, v11 = vertices[vi1[:, 0], 0], vertices[vi1[:, 1], 0]
@@ -1240,7 +1266,7 @@ def _cut1dMatrices(vertices, vi1, vi2, vols1, tq, wq, ur, wr, horizon, C, e):
     t2 = (y - v20[:, None, None]) / (v21 - v20)[:, None, None]
     PHIy = torch.stack([1 - t2, t2], dim=-1)                     # [P,Qx,Qy,2]
     PHIx = torch.stack([1 - tq, tq], dim=-1)                     # [Qx, 2]
-    g = radialEval((x[:, :, None] - y) ** 2, C, e)
+    g = radialEval((x[:, :, None] - y) ** 2, prof)
     wfac = (wq[None, :, None] * wr[None, None, :]) * ln[:, :, None] \
         * vols1[:, None, None]
     PSI = torch.cat([PHIx[None, :, None, :].expand(PHIy.shape), -PHIy], -1)
@@ -1249,16 +1275,16 @@ def _cut1dMatrices(vertices, vi1, vi2, vols1, tq, wq, ur, wr, horizon, C, e):
 
 
 def _cut1d_plain(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur,
-                 wr, horizon, C, e):
+                 wr, horizon, prof):
     """Plain PyTorch version of :func:`cut1d` (any device)."""
     for sl in _plainChunks(vi1.shape[0], tq.shape[0] * ur.shape[0]):
         M = _cut1dMatrices(vertices, vi1[sl], vi2[sl], vols1[sl], tq, wq, ur,
-                           wr, horizon, C, e)
+                           wr, horizon, prof)
         _cutScatterPlain(out, target, index[sl], M, 4)
 
 
 def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
-                thetas, wtheta, rq, wr, horizon, inter, C, e):
+                thetas, wtheta, rq, wr, horizon, inter, prof):
     """2D pairs cut by the horizon, by exact polar clipping (P1, symmetric
     kernels, unordered pairs).  For pair p (triangles vi1[p], vi2[p]
     [P, 3]) and each node x of the cell-1 rule (bary_x [3, Qx], wx [Qx]):
@@ -1282,6 +1308,7 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     carried over) and the host add of its matrices."""
     P = _cutCheck('cut2d_polar', out, target, index, vertices, vi1, vi2,
                   vols1, (bary_x, wx, thetas, wtheta, rq, wr), 36)
+    C, e = _powerProfile('cut2d_polar', prof)
     Qx = wx.shape[0]
     if vertices.shape[1] != 2 or vi1.shape[1] != 3 \
             or bary_x.shape != (3, Qx):
@@ -1292,12 +1319,12 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     if out.device.type == 'cpu':
         return _cut2d_polar_plain(out, target, index, vertices, vi1, vi2,
                                   vols1, bary_x, wx, thetas, wtheta, rq, wr,
-                                  horizon, inter, C, e)
+                                  horizon, inter, prof)
     if Qx > 32:
         raise ValueError('cut2d_polar: at most 32 x nodes')
     _launchCut('cut2d_polar', out, target, index, P, vertices, vi1, vi2,
                vols1, bary_x, wx, Qx, thetas, wtheta, thetas.shape[0], rq, wr,
-               rq.shape[0], float(horizon), int(inter), float(C), float(e))
+               rq.shape[0], float(horizon), int(inter), C, e)
 
 
 def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
@@ -1353,7 +1380,7 @@ def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
 
 
 def _cut2dMatrices(vertices, vi1, vi2, vols1, bary_x, wx, thetas, wtheta,
-                   rq, wr, horizon, inter, C, e):
+                   rq, wr, horizon, inter, prof):
     """Local matrices M [P, 36] of 2D cut pairs (K15's body, plain; the
     arithmetic of _bucket_cut2d_polar)."""
     x, d, wth, rLo, rHi, _ = _cut2dRays(vertices, vi1, vi2, bary_x, thetas,
@@ -1363,7 +1390,7 @@ def _cut2dMatrices(vertices, vi1, vi2, vols1, bary_x, wx, thetas, wtheta,
     r = rLo[..., None] + (rHi - rLo)[..., None] * rq             # [P,Qx,T,Qr]
     wrad = (rHi - rLo)[..., None] * wr
     y = x[:, :, None, None, :] + r[..., None] * d[:, :, :, None, :]
-    g = radialEval(r ** 2, C, e)
+    g = radialEval(r ** 2, prof)
     span = torch.stack([v2[:, 1] - v2[:, 0], v2[:, 2] - v2[:, 0]], dim=2)
     det = span[:, 0, 0] * span[:, 1, 1] - span[:, 0, 1] * span[:, 1, 0]
     inv = torch.stack([
@@ -1385,13 +1412,13 @@ def _cut2dMatrices(vertices, vi1, vi2, vols1, bary_x, wx, thetas, wtheta,
 
 
 def _cut2d_polar_plain(out, target, index, vertices, vi1, vi2, vols1, bary_x,
-                       wx, thetas, wtheta, rq, wr, horizon, inter, C, e):
+                       wx, thetas, wtheta, rq, wr, horizon, inter, prof):
     """Plain PyTorch version of :func:`cut2d_polar` (any device)."""
     S = 8 if inter == 2 else 4
     nodes = wx.shape[0] * S * thetas.shape[0] * rq.shape[0]
     for sl in _plainChunks(vi1.shape[0], 4 * nodes):
         M = _cut2dMatrices(vertices, vi1[sl], vi2[sl], vols1[sl], bary_x, wx,
-                           thetas, wtheta, rq, wr, horizon, inter, C, e)
+                           thetas, wtheta, rq, wr, horizon, inter, prof)
         _cutScatterPlain(out, target, index[sl], M, 6)
 
 
@@ -1416,9 +1443,9 @@ class DeviceDenseAccumulator:
         self.A = torch.zeros((N, N), dtype=TREAL, device=device)
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, C, e, indicator):
+                  tables, prof, indicator):
         panel_scatter(self.A, vertices, vi1, vi2, dofRows, volsym, normals,
-                      *tables, C, e, indicator=indicator)
+                      *tables, prof, indicator=indicator)
 
     def cutTarget(self, dofRows):
         """(out, target, index) of K14 and K15 for local dofs dofRows."""
@@ -1438,9 +1465,9 @@ class DeviceCrossAccumulator(DeviceDenseAccumulator):
         self.A = torch.zeros((N, NB), dtype=TREAL, device=device)
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, C, e, indicator):
+                  tables, prof, indicator):
         panel_scatter_cross(self.A, vertices, vi1, vi2, dofRows, volsym,
-                            normals, *tables, C, e, indicator=indicator)
+                            normals, *tables, prof, indicator=indicator)
 
     def cutTarget(self, dofRows):
         return self.A, 'cross', dofRows
@@ -1488,10 +1515,10 @@ class DeviceCSRAccumulator:
         return out
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, C, e, indicator):
+                  tables, prof, indicator):
         panel_scatter_slots(self.data, vertices, vi1, vi2,
                             self.slots(dofRows), volsym, normals, *tables,
-                            C, e, indicator=indicator)
+                            prof, indicator=indicator)
 
     def cutTarget(self, dofRows):
         return self.data, 'slots', self.slots(dofRows)
@@ -1520,10 +1547,10 @@ class _BucketRunner:
         return _upload(a, self.device, dtype)
 
     def _launch(self, acc, rule, PSI, vi1, vi2, dofRows, volsym, normals):
-        C, e = self.kernel.radialParams()
+        prof = self.kernel.profileParams()
         acc.addPanels(self.vertices, vi1, vi2, dofRows, volsym,
                       normals if self.useNormals else None,
-                      self.ruleTables(rule, PSI), C, e,
+                      self.ruleTables(rule, PSI), prof,
                       self.kernel.indicatorParams())
 
     def runNatural(self, acc, rule, PSI, di, dj, symfac):
@@ -1558,12 +1585,12 @@ class _BucketRunner:
         """Explicit pairs into CSR data at host slots [P, nPSI^2]."""
         if len(vertIdx1) == 0:
             return
-        C, e = self.kernel.radialParams()
+        prof = self.kernel.profileParams()
         panel_scatter_slots(acc.data, self.vertices,
                             self._t(vertIdx1, TINDEX),
                             self._t(vertIdx2, TINDEX), self._t(slots, TI32),
                             self._t(volsym), None,
-                            *self.ruleTables(rule, PSI), C, e)
+                            *self.ruleTables(rule, PSI), prof)
 
     def runTree(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
                 normals, I, J, offF, offB):
@@ -1571,13 +1598,13 @@ class _BucketRunner:
         arithmetic tree slots."""
         if len(vertIdx1) == 0:
             return
-        C, e = self.kernel.radialParams()
+        prof = self.kernel.profileParams()
         panel_scatter_tree(
             acc.data, self.vertices, self._t(vertIdx1, TINDEX),
             self._t(vertIdx2, TINDEX), self._t(dofRows, TINDEX),
             self._t(volsym), self._t(normals) if self.useNormals else None,
             *(self._t(a, TI32) for a in (I, J, offF, offB)), acc.tables,
-            *self.ruleTables(rule, PSI), C, e)
+            *self.ruleTables(rule, PSI), prof)
 
 
 class _PatternMaskLookup:
@@ -1672,8 +1699,9 @@ NEAR_ENGINES = ('block', 'flat', 'host')
 class nonlocalBuilder:
     """Assembly of a symmetric constant-coefficient kernel (port of
     pynucleus_tpu/nl/assembly.py nonlocalBuilder).  Infinite horizon (the
-    fractional kernel, zero exterior): getDense on the grid path, getH2 with
-    the device-CSR near field.  Finite horizon (fractional, indicator and
+    fractional, gaussian and exponential kernels, zero exterior): getDense
+    on the grid path, getH2 with the device-CSR near field, on the interval
+    and in 2D.  Finite horizon (fractional, indicator and
     peridynamic kernels; ball2 and ballInf interactions): getDense and
     getSparse on the per-pair path, every cell pair classified
     (classifyPairsDense) with the pairs cut by the horizon through K14 (1D)
@@ -1855,7 +1883,7 @@ class nonlocalBuilder:
             raise NotImplementedError(
                 f'cut pairs of {kernel.interaction!r}: ball1, ellipse and '
                 'the indicator fallback are not ported')
-        C, e = kernel.radialParams()
+        prof = kernel.profileParams()
         horizon = kernel.horizonValue
         t = runner._t
         for order in np.unique(orders):
@@ -1870,7 +1898,7 @@ class nonlocalBuilder:
                     [runner.dofs[iiA], runner.dofs[jjA]], dim=1))
                 cut1d(out, target, index, runner.vertices, runner.cells[iiA],
                       runner.cells[jjA], runner.vols[iiA], t(tq), t(wq),
-                      t(ur), t(wr), horizon, C, e)
+                      t(ur), t(wr), horizon, prof)
                 continue
             oX = max(int(order) // 2, 4)
             bary_x, wx = simplexDuffy(oX, 2)
@@ -1881,7 +1909,7 @@ class nonlocalBuilder:
             cut2d_polar(out, target, index, runner.vertices, runner.cells[ii],
                         runner.cells[jj], runner.vols[ii], t(bary_x.T),
                         t(wx), t(thetas), t(wtheta), t(rq), t(wr), horizon,
-                        inter, C, e)
+                        inter, prof)
 
     def _runDistantGrid(self, acc, cuts):
         """One K2 launch per distance window (order, t_lo, t_hi) of the
@@ -1897,14 +1925,14 @@ class nonlocalBuilder:
         ccf = t(cc32, torch.float32)
         vols = t(mesh.simplexVolumes())
         dofs = t(dm.dofs, TINDEX)
-        C, e = self.kernel.radialParams()
+        prof = self.kernel.profileParams()
         for o, t_lo, t_hi in cuts:
             b1, w1 = simplexCompact(o, mdim)
             Phi = dm.evalPhi(b1)                           # [dpe, Q1]
             grid_distant(acc.A, t(np.einsum('qk,ckd->cqd', b1, V)), ccf,
                          vols, dofs, t(Phi * w1[None, :]), t(Phi),
                          t(-Phi * w1[None, :]), t(w1),
-                         np.float32(t_lo), np.float32(t_hi), C, e)
+                         np.float32(t_lo), np.float32(t_hi), prof)
 
     # ------------------------------------------------------ zero exterior
     def _addZeroExterior(self, acc):
@@ -2011,13 +2039,13 @@ class nonlocalBuilder:
         def t(a, dtype=TREAL):
             return _upload(a, self.device, dtype)
 
-        C_, e = bkernel.radialParams()
+        prof = bkernel.profileParams()
         grid_boundary(acc.A, t(np.einsum('qk,ckd->cqd', b1, V)),
                       t(mesh.simplexVolumes()), t(dm.dofs, TINDEX),
                       t(np.einsum('qk,skd->sqd', b2, SV)),
                       t(svols[:, None] * w2[None, :]), t(normals),
                       t(exclPtr, TINDEX), t(exclIdx, TINDEX),
-                      t(Phi * w1[None, :]), t(Phi), C_, e, useNormals)
+                      t(Phi * w1[None, :]), t(Phi), prof, useNormals)
 
     # ---------------------------------------------------------------- H2
     def _lap(self, name, t0):
@@ -2300,8 +2328,9 @@ class nonlocalBuilder:
         pairs that share a cell: the diagonal mass from outside each pair's
         cell union, as a Gauss-theorem integral over the union's boundary
         facets, for the cells of the union's intersection that hold dofs of
-        both nodes (the batched 2D branch of pynucleus_tpu's
-        _assembleNearField, nl/assembly.py:3217-3318).  None if empty."""
+        both nodes (pynucleus_tpu's _assembleNearField: its batched 2D
+        branch, nl/assembly.py:3217-3318, and in 1D its per-pair loop,
+        :3319-3352, see :func:`_unionSurfaceLoop`).  None if empty."""
         from .h2 import _aranges
         mesh, dofs = self.mesh, self.dm.dofs
         C = mesh.num_cells
@@ -2322,6 +2351,9 @@ class nonlocalBuilder:
         pairsAdj = IJ[touchPair]
         if not len(pairsAdj):
             return None
+        if mesh.manifold_dim == 1:
+            return _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff,
+                                     ncArr, dofNode)
         rA = nodeRow[pairsAdj[:, 0]]
         rB = nodeRow[pairsAdj[:, 1]]
         same = pairsAdj[:, 0] == pairsAdj[:, 1]
@@ -2439,16 +2471,25 @@ class nonlocalBuilder:
         centers = mesh.vertices[cells].mean(axis=1)
         logh32 = np.log(_cellDiameter(mesh.vertices, cells)).astype(
             np.float32)
+        # the order model's constants (pynucleus_tpu/nl/assembly.py
+        # :3490-3502)
+        if mesh.manifold_dim == 1:
+            consts = (np.float32(max(info['smin'], info['smax'])),
+                      np.float32((info['target_order'] + 2.0)
+                                 * np.log(info['num_dofs'] * info['H0'])))
+        else:
+            consts = (np.float32(max(-0.5 * (kernel.max_singularity + 2),
+                                     0.0)),
+                      np.float32((0.5 * info['target_order'] + 0.5)
+                                 * np.log(info['num_dofs'] * info['H0'] ** 2)))
         return SimpleNamespace(
-            ncArr=_upload(nf.ncArr, dev, TI32), cells=_upload(cells, dev, TI32),
+            ncArr=_upload(nf.ncArr, dev, TI32),
+            cells=_upload(cells, dev, TI32),
             cellNodes=_upload(nf.cellNodes, dev, TI32),
             centers=_upload(np.ascontiguousarray(centers.T), dev,
                             torch.float32),
             logh=_upload(logh32, dev, torch.float32),
-            consts=(np.float32(max(-0.5 * (kernel.max_singularity + 2), 0.0)),
-                    np.float32((0.5 * info['target_order'] + 0.5)
-                               * np.log(info['num_dofs'] * info['H0'] ** 2)),
-                    np.float32(np.log(info['H0']))),
+            consts=consts + (np.float32(np.log(info['H0'])),),
             runner=_BucketRunner(mesh, self.dm, kernel, dev))
 
     def _pairOffsets(self, nf, IJ):
@@ -2492,11 +2533,11 @@ class nonlocalBuilder:
                 rules[o] = runner.ruleTables(
                     rule, rule.buildPSI(dm, nSharedVertices=0))
         sel = np.nonzero(counts[:, :len(BLOCK_ORDERS)].any(axis=1))[0]
-        C, e = self.kernel.radialParams()
+        prof = self.kernel.profileParams()
         block_near_quad(acc.data,
                         tuple(_upload(a[sel], self.device, TI32)
                               for a in pairs), *tabs, runner.vertices,
-                        runner.vols, runner.dofs, acc.tables[1], rules, C, e)
+                        runner.vols, runner.dofs, acc.tables[1], rules, prof)
         return counts[:, -1] > 0
 
     def _runNearDistantDeviceEnum(self, acc, nf, enum, IJ, minOrder):
@@ -2520,7 +2561,7 @@ class nonlocalBuilder:
         offI, offJ, n2D, IA, JA, offFD, offBD = (i32(a) for a in (
             ncOff[rIp], ncOff[rJp], n2v, IJ[:, 0], IJ[:, 1], offF, offB))
         runner = enum.runner
-        C, e = kernel.radialParams()
+        prof = kernel.profileParams()
         rules = {}
         cumTot = np.zeros(len(tot) + 1, dtype=np.int64)
         cumTot[1:] = np.cumsum(tot)
@@ -2553,7 +2594,7 @@ class nonlocalBuilder:
                 near_enum_quad(acc.data, ids, pT, *seg, offFD[sl],
                                offBD[sl], enum.ncArr, runner.vertices,
                                runner.cells, runner.vols, runner.dofs,
-                               acc.tables, *rules[o], C, e)
+                               acc.tables, *rules[o], prof)
             q0 = q1
 
     def _runNearDistantTree(self, acc, nf, info, adjK):
@@ -2623,7 +2664,7 @@ class nonlocalBuilder:
             return lo, hi, pidx, orders
 
         runner = _BucketRunner(mesh, dm, kernel, dev)
-        Cg, e = kernel.radialParams()
+        prof = kernel.profileParams()
         rules = {}
         p0 = 0
         while p0 < len(IJ):
@@ -2656,7 +2697,7 @@ class nonlocalBuilder:
                         lo, hi, IJ[pidx, 0], IJ[pidx, 1], offF, offB)),
                     _upload(np.full(sl.stop - sl.start, 2.0), dev),
                     runner.vertices, runner.cells, runner.vols, runner.dofs,
-                    acc.tables, *rules[o], Cg, e)
+                    acc.tables, *rules[o], prof)
             p0 = p1
 
     def _runUnionSurface(self, acc, surf, nodeRow, nNear, ordKeysS,
@@ -2664,17 +2705,21 @@ class nonlocalBuilder:
         """Boundary-kernel quadrature of the union-surface items through K1
         into tree slots, each item masked to its cluster pair's
         (I x J) u (J x I) entries on the device (pynucleus_tpu's
-        _runUnionSurface for constant-order 2D kernels: no jump facets, no
-        y nudge, sign +1)."""
+        _runUnionSurface for constant-order kernels: no jump facets, no
+        y nudge, sign +1).  In 1D the facets are vertices (nv2 = 1) and the
+        n.(y-x)/|y-x| orientation factor of the boundary kernel is folded
+        into each item's weight, as the JAX package does; 2D evaluates it
+        per quadrature point."""
         dm, mesh, kernel = self.dm, self.mesh, self.kernel
         dofs = dm.dofs
         cells = mesh.cells
         vols = mesh.simplexVolumes()
         verts = mesh.vertices
-        detfac = 2.0
+        mdim = mesh.manifold_dim
+        detfac = {1: 1.0, 2: 2.0}[mdim]
         bkernel = kernel.getModifiedKernel(horizon=np.inf).getBoundaryKernel()
         runner = _BucketRunner(mesh, dm, bkernel, self.device,
-                               useNormals=True)
+                               useNormals=mdim >= 2)
         from .quad_singular_2d import (boundaryEdgeRule2DSS,
                                        boundaryVertexRule2DSS)
         # the rules of the zero-exterior term (boundaryOrderModelParams)
@@ -2691,7 +2736,7 @@ class nonlocalBuilder:
         S = len(cellNos)
         facCenters = verts[facets].mean(axis=1)
         svols = np.linalg.norm(verts[facets[:, 1]] - verts[facets[:, 0]],
-                               axis=1)
+                               axis=1) if facets.shape[1] >= 2 else np.ones(S)
         # shared-vertex signature of each item as one small integer: bit
         # 2a+b says cell vertex a is facet vertex b.  A handful of codes
         # occur, so each code's permutations are worked out once and its
@@ -2722,6 +2767,10 @@ class nonlocalBuilder:
                 vi2 = facets[sel]
                 dr = dofs[cs]
             vs = (detfac * vols[cs] if useDet else vols[cs]) * svols[sel]
+            if mdim == 1:
+                p0 = verts[facets[sel, 0], 0]
+                c0 = verts[cells[cs], 0].mean(axis=1)
+                vs = vs * np.sign(normals[sel, 0] * (p0 - c0))
             runner.runTree(acc, rule, rule.buildPSI(dm, boundary=True), vi1,
                            vi2, dr, vs, normals[sel], Iids[sel], Jids[sel],
                            offFall[sel], offBall[sel])
@@ -2730,7 +2779,9 @@ class nonlocalBuilder:
         for c, (nS, perm1, perm2) in permLut.items():
             if nS == 0:
                 continue
-            if nS == 2:
+            if mdim == 1:
+                rule = boundaryVertexRule1D(sigb, qd)
+            elif nS == 2:
                 sig_eff = sigb if sigb > -1 + 1e-3 else 2.0 + sigb
                 rule = boundaryEdgeRule2DSS(sig_eff, qd, qd)
             else:
@@ -2746,7 +2797,8 @@ class nonlocalBuilder:
             d = np.linalg.norm(verts[cells].mean(axis=1)[cs]
                                - facCenters[distSel], axis=1)
             h1 = _cellDiameter(verts, cells)[cs]
-            h2 = svols[distSel]
+            h2 = svols[distSel] if mdim >= 2 \
+                else np.full(len(distSel), mpb['hmin'])
             sv = max(0.5 * (-bkernel.min_singularity), 0.0)
             lognH = np.log(mpb['num_dofs'] * mpb['H0'])
             c0 = (mpb['target_order'] + 1.0) * lognH
@@ -2759,7 +2811,7 @@ class nonlocalBuilder:
             orders = np.maximum(np.maximum(o1, o2), 2).astype(np.int64)
             orders = np.minimum(((orders + 1) // 2) * 2, 24)
             for order in np.unique(orders):
-                runBucket(boundaryDistantRule(int(order), 2, 1),
+                runBucket(boundaryDistantRule(int(order), mdim, mdim - 1),
                           distSel[orders == order], useDet=False)
 
     # ------------------------------------------------------------ formats
@@ -2859,16 +2911,15 @@ class nonlocalBuilder:
     def getH2(self):
         """Hierarchical operator: cluster tree, Chebyshev far field (K7),
         exact near field (K1 and the nearEngine's kernels) (pynucleus_tpu's
-        getH2 with the device-CSR near field).  2D meshes, zero
+        getH2 with the device-CSR near field).  1D and 2D meshes, zero
         exterior.  A finite horizon delegates to getSparse, as the JAX
         package does: the operator is sparse."""
         if self.kernel.finiteHorizon:
             return self.getSparse()
         from .h2 import H2Matrix
-        if self.mesh.manifold_dim != 2:
-            raise NotImplementedError('the port assembles H2 operators on 2D '
-                                      'meshes only (the 1D union-surface '
-                                      'loop is not ported)')
+        if self.mesh.manifold_dim not in (1, 2):
+            raise NotImplementedError('the port assembles H2 operators on 1D '
+                                      'and 2D meshes only')
         if not self.zeroExterior:
             raise NotImplementedError('H2 with zeroExterior=False')
         dev = self.device
@@ -2880,11 +2931,11 @@ class nonlocalBuilder:
         t0 = time.perf_counter()
         M = plan['M']
         if plan['farGi'] is not None:
-            C, e = self.kernel.radialParams()
+            prof = self.kernel.profileParams()
             # cross terms -u(x)v(y) carry factor -2 (both orderings of the
             # ordered cluster pair; ref clusterMethodCy.pyx:2216)
             Kall = far_field(_upload(plan['farGi'], dev),
-                             _upload(plan['farGj'], dev), C, e).mul_(-2.0)
+                             _upload(plan['farGj'], dev), prof).mul_(-2.0)
         else:
             Kall = torch.zeros((0, M, M), dtype=TREAL, device=dev)
         t0 = self._lap('far field', t0)
@@ -2905,6 +2956,75 @@ class nonlocalBuilder:
         op.diagonal  # built now: its host work belongs to the set-up
         self._lap('near operator set-up', t0)
         return op
+
+
+def _cellSetBoundary1D(mesh, cellSet):
+    """Facets (the end vertices [F, 1]) of the union of the 1D cells
+    cellSet, with outward normals [F, dim] (pynucleus_tpu/nl/assembly.py
+    _cellSetBoundary, its 1D branch)."""
+    cells = mesh.cells[np.asarray(cellSet)]
+    verts = mesh.vertices
+    f = cells.ravel()
+    uniq, counts = np.unique(f, return_counts=True)
+    bnd = uniq[counts == 1]
+    facets = bnd.reshape(-1, 1)
+    normals = np.zeros((len(bnd), mesh.dim))
+    for k, v in enumerate(bnd):
+        # outward = away from the owning cell's center
+        own = cells[(cells == v).any(axis=1)][0]
+        other = own[own != v][0]
+        d = verts[v] - verts[other]
+        normals[k] = d / np.linalg.norm(d)
+    return facets.astype(np.int64), normals
+
+
+def _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff, ncArr, dofNode):
+    """The union-surface items of the cluster pairs pairsAdj, one pair at a
+    time: the per-pair loop of pynucleus_tpu's _assembleNearField
+    (nl/assembly.py:3322-3352, constant-order kernels: no jump facets),
+    code-identical so that the items equal the JAX package's array for
+    array.  Returns (cells, facets, normals, I, J) or None."""
+    sp_cell, sp_fac, sp_nrm, sp_I, sp_J = [], [], [], [], []
+
+    def nodeCells(nid):
+        r = nodeRow[nid]
+        return ncArr[ncOff[r]:ncOff[r + 1]]
+
+    for (I, J) in pairsAdj:
+        cells1 = nodeCells(I)
+        cells2 = nodeCells(J)
+        if I == J:
+            U = inter = cells1
+        else:
+            # both lists are sorted-unique: one unique gives union AND
+            # (count==2) intersection
+            U, ucnt = np.unique(np.concatenate([cells1, cells2]),
+                                return_counts=True)
+            inter = U[ucnt == 2]
+
+        # --- surface of the union (diagonal mass from outside U)
+        if len(inter):
+            facets, normals = _cellSetBoundary1D(mesh, U)
+            gdS = dofs[inter]                           # [nI, dpe]
+            validS = gdS >= 0
+            gvalS = np.where(validS, gdS, 0)
+            rIS = (dofNode[gvalS] == I) & validS
+            rJS = (dofNode[gvalS] == J) & validS
+            keepIdx = np.nonzero(rIS.any(axis=1) & rJS.any(axis=1))[0]
+            nK = len(keepIdx)
+            F = len(facets)
+            if nK and F:
+                cK = inter[keepIdx]
+                sp_cell.append(np.repeat(cK, F))
+                sp_fac.append(np.tile(facets, (nK, 1)))
+                sp_nrm.append(np.tile(normals, (nK, 1)))
+                sp_I.append(np.full(nK * F, I, dtype=np.int64))
+                sp_J.append(np.full(nK * F, J, dtype=np.int64))
+    if not sp_cell:
+        return None
+    return (np.concatenate(sp_cell), np.concatenate(sp_fac, axis=0),
+            np.concatenate(sp_nrm, axis=0), np.concatenate(sp_I),
+            np.concatenate(sp_J))
 
 
 # explicit-slot pairs per K1 launch (bounds the host slot arrays)

@@ -1,15 +1,17 @@
 """Nonlocal problems: the fractional Laplacian on the interval and the disc
-(infinite horizon) and the finite-horizon nonlocal Poisson problems on the
-interval and the square with an interaction collar.
+(infinite horizon), the finite-horizon nonlocal Poisson problems on the
+interval and the square with an interaction collar, and the gaussian and
+exponential kernels' problems of an infinite horizon.
 
 Port of pynucleus_tpu/nl/problems.py as plain functions (the ``@generates``
 DAG of the JAX package's drivers is not ported): the infinite-horizon
 ``problem constant`` of fractionalLaplacianProblem; nonlocalMeshFactory's
 'interval' and 'square' entries with their indicators
-(intervalIndicators, squareIndicators, :44-168); processKernel (:214-236);
-nonlocalPoissonProblem (:416-566) with the ``poly-Dirichlet`` and
-``constant`` problems (``poly-Neumann`` needs the Sum operator and is not
-ported).
+(intervalIndicators, squareIndicators, :44-168), with the collar for a
+finite horizon and the plain domain for an infinite one; processKernel
+(:214-236); nonlocalPoissonProblem (:416-566) with the ``poly-Dirichlet``,
+``constant``, ``gaussian`` and ``exponential`` problems (``poly-Neumann``
+needs the Sum operator and is not ported).
 """
 from __future__ import annotations
 
@@ -17,18 +19,20 @@ import numpy as np
 from scipy.special import gamma as Gamma
 
 from ..fem.meshes import (simpleInterval, circle, intervalWithInteraction,
-                          squareWithInteractions, PHYSICAL, NO_BOUNDARY)
+                          squareWithInteractions, uniformSquare, PHYSICAL,
+                          NO_BOUNDARY)
 from ..fem.dofmaps import P1_DoFMap
 from ..fem.functions import (constant, Lambda, squareIndicator,
                              solFractional)
 from .kernels import (constFractionalOrder, getFractionalKernel,
-                      getIntegrableKernel, ball2, ballInf, FRACTIONAL)
+                      getIntegrableKernel, ball2, ballInf, FRACTIONAL,
+                      GAUSSIAN, EXPONENTIAL)
 
 __all__ = ['parseFractionalOrder', 'defaultNoRef',
            'fractionalLaplacianProblem', 'nonlocalMesh', 'processKernel',
            'nonlocalPoissonProblem', 'defaultNoRefNonlocal', 'DIRICHLET',
            'NEUMANN', 'HOMOGENEOUS_DIRICHLET', 'HOMOGENEOUS_NEUMANN',
-           'KERNEL_TYPES']
+           'KERNEL_TYPES', 'PROBLEMS']
 
 # boundary condition enums (pynucleus_tpu/nl/problems.py)
 DIRICHLET = 0
@@ -125,12 +129,15 @@ def squareIndicators(ax=-1.0, ay=-1.0, bx=1.0, by=1.0):
     return domainIndicator, boundaryIndicator, interactionIndicator
 
 
-# name -> (dim, mesh with collar, indicators, domain parameters)
+# name -> (dim, mesh with collar, indicators, domain parameters, plain
+# mesh and its parameters)
 _DOMAINS = {
     'interval': (1, intervalWithInteraction, intervalIndicators,
+                 {'a': -1.0, 'b': 1.0}, simpleInterval,
                  {'a': -1.0, 'b': 1.0}),
     'square': (2, squareWithInteractions, squareIndicators,
-               {'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}),
+               {'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}, uniformSquare,
+               {'N': 2, 'M': 2, 'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}),
 }
 
 
@@ -143,39 +150,51 @@ def _domain(name):
 
 def nonlocalMesh(domain, kernel, boundaryCondition):
     """(mesh, info) of pynucleus_tpu/nl/problems.py nonlocalMeshFactory
-    .build for the finite-horizon boundary conditions: the domain with its
-    interaction collar of width horizon, and the domain, boundary and
-    interaction indicators."""
-    dim, meshCollar, indicators, params = _domain(domain)
+    .build (:59-120): for a finite horizon the domain with its interaction
+    collar of width horizon (no exterior term); for an infinite one, with a
+    homogeneous Dirichlet condition, the plain domain, tag PHYSICAL and the
+    zero-exterior term; and the domain, boundary and interaction
+    indicators."""
+    dim, meshCollar, indicators, params, meshPlain, paramsPlain = \
+        _domain(domain)
     horizonValue = kernel.horizonValue
-    if not 0 < horizonValue < np.inf:
-        raise NotImplementedError('a finite horizon is expected')
+    if not horizonValue > 0:
+        raise NotImplementedError('a positive horizon is expected')
     if boundaryCondition == HOMOGENEOUS_DIRICHLET:
         tag = PHYSICAL
     elif boundaryCondition == DIRICHLET:
+        if horizonValue == np.inf:
+            raise NotImplementedError(
+                'inhomogeneous Dirichlet for infinite horizon')
         tag = NO_BOUNDARY
     else:
         raise NotImplementedError(f'boundary condition {boundaryCondition}')
+    zeroExterior = horizonValue == np.inf
     domainIndicator, boundaryIndicator, interactionIndicator = indicators()
-    mesh = meshCollar(horizon=horizonValue, **params)
+    if zeroExterior:
+        mesh = meshPlain(**paramsPlain)
+    else:
+        mesh = meshCollar(horizon=horizonValue, **params)
     while P1_DoFMap(mesh, tag, device='cpu').num_dofs == 0:
         mesh = mesh.refine()
     return mesh, {'domain': domainIndicator, 'boundary': boundaryIndicator,
                   'interaction': interactionIndicator, 'tag': tag,
-                  'zeroExterior': False}
+                  'zeroExterior': zeroExterior}
 
 
 # the driver's kernel types: the fractional kernel and the integrable ones
 KERNEL_TYPES = ('fractional', 'constant', 'indicator', 'inverseDistance',
-                'peridynamic')
+                'peridynamic', 'gaussian', 'exponential')
 
 
 def processKernel(domain, kernelType, s, horizon, interaction='ball2',
-                  normalized=True):
+                  normalized=True, gaussianVariance=1.0, exponentialRate=1.0):
     """The kernel of the driver's flags (pynucleus_tpu/nl/problems.py
     processKernel): a finite horizon takes the ball2 or ballInf
-    interaction (ball2 for any other name), 'constant' is the indicator
-    kernel and 'inverseDistance' the peridynamic one."""
+    interaction (ball2 for any other name, 'fullSpace' included), an
+    infinite one the full space; 'constant' is the indicator kernel and
+    'inverseDistance' the peridynamic one; the gaussian kernel takes its
+    variance, the exponential one its rate."""
     dim = _domain(domain)[0]
     inter = None
     if horizon != np.inf:
@@ -190,7 +209,9 @@ def processKernel(domain, kernelType, s, horizon, interaction='ball2',
     kname = {'constant': 'indicator',
              'inverseDistance': 'peridynamic'}.get(kernelType, kernelType)
     return getIntegrableKernel(dim, kname, horizon, interaction=inter,
-                               normalized=normalized)
+                               normalized=normalized,
+                               gaussian_variance=gaussianVariance,
+                               exponentialRate=exponentialRate)
 
 
 def defaultNoRefNonlocal(domain):
@@ -198,23 +219,31 @@ def defaultNoRefNonlocal(domain):
     return {'interval': 8, 'square': 2, 'disc': 4}[domain]
 
 
+PROBLEMS = ('poly-Dirichlet', 'constant', 'gaussian', 'exponential')
+
+
 def nonlocalPoissonProblem(domain, kernelType='constant', s='const(0.4)',
                            horizon=0.2, interaction='ball2', normalized=True,
-                           problem='poly-Dirichlet'):
-    """Finite-horizon nonlocal Poisson problem: a dict with the kernel, the
-    coarse mesh with its collar, the dof tag (the domain indicator), the
-    boundary condition, rhs, Dirichlet data and analytic solution.
+                           problem='poly-Dirichlet', gaussianVariance=1.0,
+                           exponentialRate=1.0):
+    """Nonlocal Poisson problem: a dict with the kernel, the coarse mesh
+    (with its collar for a finite horizon), the dof tag (the domain
+    indicator), the boundary condition, rhs, Dirichlet data and analytic
+    solution.
 
     poly-Dirichlet is the quadratic patch test: for any normalized kernel
     the nonlocal operator reproduces -Laplacian on quadratics, so
     u = 1 - |x|^2, extended into the collar as Dirichlet data, is solved to
-    machine precision."""
+    machine precision.  gaussian and exponential are the manufactured
+    solutions exp(-x^2 / (2 variance)) and exp(-rate |x|) of the
+    infinite-horizon gaussian and exponential kernels on the interval
+    (pynucleus_tpu/nl/problems.py:540-564), homogeneous Dirichlet."""
     kernel = processKernel(domain, kernelType, s, horizon, interaction,
-                           normalized)
+                           normalized, gaussianVariance, exponentialRate)
     dim = kernel.dim
     if problem == 'poly-Dirichlet':
         boundaryCondition = DIRICHLET
-    elif problem == 'constant':
+    elif problem in ('constant', 'gaussian', 'exponential'):
         boundaryCondition = HOMOGENEOUS_DIRICHLET
     else:
         raise NotImplementedError(f'problem {problem!r} (poly-Neumann needs '
@@ -236,7 +265,31 @@ def nonlocalPoissonProblem(domain, kernelType='constant', s='const(0.4)',
         if kernel.kernelType != FRACTIONAL or hasattr(kernel.s, 'value'):
             out['analyticSolution'] = Lambda(
                 lambda x: 1 - np.sum(np.asarray(x) ** 2))
-    else:
+    elif problem == 'constant':
         out['problemDescription'] = 'constant forcing, homogeneous collar'
         out['rhs'] = constant(1.0)
+    elif problem == 'gaussian':
+        # manufactured Gaussian solution for the infinite-horizon Gaussian
+        # kernel (the Dirichlet data is approximated by zero, valid for
+        # small variance)
+        gv = kernel.variance if (kernel.kernelType == GAUSSIAN
+                                 and not kernel.finiteHorizon) else 1.0
+        out['problemDescription'] = 'gaussian forcing, homogeneous collar'
+        out['rhs'] = Lambda(
+            lambda x: np.exp(-0.5 * x[0] ** 2 / gv)
+            - np.exp(-0.25 * x[0] ** 2 / gv) / np.sqrt(2.0))
+        if kernel.kernelType == GAUSSIAN and not kernel.finiteHorizon:
+            out['analyticSolution'] = Lambda(
+                lambda x: np.exp(-0.5 * x[0] ** 2 / gv))
+    else:
+        er = kernel.exponentParam if (kernel.kernelType == EXPONENTIAL
+                                      and not kernel.finiteHorizon) else 1.0
+        scal = kernel.scalingValue
+        out['problemDescription'] = 'exponential forcing, homogeneous collar'
+        out['rhs'] = Lambda(
+            lambda x: np.exp(-er * abs(x[0]))
+            * (1.0 / er - abs(x[0])) * scal * 2.0)
+        if kernel.kernelType == EXPONENTIAL and not kernel.finiteHorizon:
+            out['analyticSolution'] = Lambda(
+                lambda x: np.exp(-er * abs(x[0])))
     return out

@@ -19,6 +19,7 @@ from pynucleus_tpu.nl.panels import classifyPairsDenseGrid, \
 
 from pynucleus_tpu_torch.nl import assembly as tasm
 from pynucleus_tpu_torch.nl.kernels import getFractionalKernel as tKernel
+from pynucleus_tpu_torch.nl.kernels import Profile
 
 TOL = 1e-13
 
@@ -64,11 +65,11 @@ def test_grid_distant_vs_grid_distant_pass(disc, window):
         jnp.float32(t_lo), jnp.float32(t_hi), kernel=kj,
         nTiles=-(-C // Ct), Ct=Ct)
     At = torch.zeros((N, N), dtype=torch.float64)
-    C_, e = kt.radialParams()
+    prof = kt.profileParams()
     tasm.grid_distant(At, _t(X), _t(cc32, torch.float32),
                       _t(m.simplexVolumes()), _t(dm.dofs, torch.int64),
                       _t(Phi * w1), _t(Phi), _t(-Phi * w1), _t(w1),
-                      np.float32(t_lo), np.float32(t_hi), C_, e)
+                      np.float32(t_lo), np.float32(t_hi), prof)
     _assertClose(At.numpy(), np.asarray(Aj)[:N, :N])
 
 
@@ -128,12 +129,12 @@ def test_grid_boundary_vs_grid_boundary_blocks(disc):
     key = np.unique(mi.astype(np.int64) * S + mj)
     exclPtr = np.searchsorted(key // S, np.arange(C + 1))
     At = torch.zeros((N, N), dtype=torch.float64)
-    C_, e = kt.getBoundaryKernel().radialParams()
+    prof = kt.getBoundaryKernel().profileParams()
     tasm.grid_boundary(At, _t(X), _t(m.simplexVolumes()),
                        _t(dm.dofs, torch.int64), _t(Ysurf), _t(svolw2),
                        _t(surface.normals), _t(exclPtr, torch.int64),
                        _t(key % S, torch.int64), _t(Phi * w1), _t(Phi),
-                       C_, e, True)
+                       prof, True)
     _assertClose(At.numpy(), np.asarray(Aj)[:N, :N])
 
 
@@ -146,7 +147,7 @@ def test_grid_wrappers_validate_inputs():
                           torch.zeros((2, 3), dtype=torch.int64),
                           *(torch.ones((3, 3), dtype=torch.float64),) * 3,
                           torch.ones(3, dtype=torch.float64),
-                          0.0, 1.0, 1.0, -1.0)
+                          0.0, 1.0, Profile(0, 1.0, -1.0, 0.0))
     with pytest.raises(ValueError, match='contiguous square'):
         tasm.grid_distant(torch.zeros((3, 4), dtype=torch.float64), X,
                           torch.zeros((2, 2), dtype=torch.float32),
@@ -154,4 +155,4 @@ def test_grid_wrappers_validate_inputs():
                           torch.zeros((2, 3), dtype=torch.int64),
                           *(torch.ones((3, 3), dtype=torch.float64),) * 3,
                           torch.ones(3, dtype=torch.float64),
-                          0.0, 1.0, 1.0, -1.0)
+                          0.0, 1.0, Profile(0, 1.0, -1.0, 0.0))

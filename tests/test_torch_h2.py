@@ -86,9 +86,9 @@ def test_far_field_plain_matches_jax(plans):
     K = np.asarray(jasm._farFieldBlocks(jnp.asarray(pj['farGi']),
                                         jnp.asarray(pj['farGj']),
                                         kernel=jKernel(2, 0.75)))
-    C, e = tk.radialParams()
+    prof = tk.profileParams()
     got = tasm.far_field(torch.as_tensor(pt['farGi']),
-                         torch.as_tensor(pt['farGj']), C, e).numpy()
+                         torch.as_tensor(pt['farGj']), prof).numpy()
     P = got.shape[0]
     np.testing.assert_allclose(got, K[:P], rtol=1e-14, atol=0)
 
@@ -221,6 +221,12 @@ def test_h2_driver_matches_jax_driver(noRef):
 
 
 def test_h2_interval_raises():
+    """The interval runs in H2 with the zero exterior; the regional
+    operator (zeroExterior=False, its union surfaces minus the exterior
+    term) is not ported and raises."""
+    m = jfem.simpleInterval(-1.0, 1.0)
+    for _ in range(4):
+        m = m.refine()
+    _, tdm, tk = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
     with pytest.raises(NotImplementedError):
-        tMain(['--domain', 'interval', '--matrixFormat', 'H2', '--noRef',
-               '3', '--device', 'cpu'], quiet=True)
+        tasm.nonlocalBuilder(tdm, tk, zeroExterior=False).getH2()

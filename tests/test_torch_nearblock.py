@@ -163,7 +163,7 @@ def _rules(orders, tdm):
 
 
 def test_block_near_quad_vs_jax(jax):
-    C, e = jax['tk'].radialParams()
+    prof = jax['tk'].profileParams()
     orders = set()
     for args, statics in jax['block']['_block_near_quad']:
         ref = np.asarray(jasm._block_near_quad(
@@ -172,8 +172,8 @@ def test_block_near_quad_vs_jax(jax):
         o = statics['order']
         orders.add(o)
         got = torch.zeros(n, dtype=torch.float64)
-        tasm.block_near_quad(got, pairs, *tabs, _rules([o], jax['tdm']), C,
-                             e)
+        tasm.block_near_quad(got, pairs, *tabs, _rules([o], jax['tdm']),
+                             prof)
         _assertData(got.numpy()[:-1], ref[:-1])
     assert len(orders) >= 2
 
@@ -181,22 +181,22 @@ def test_block_near_quad_vs_jax(jax):
 def test_block_near_quad_orders_in_one_call(jax):
     """All orders of a recorded pair set in one call, as the build makes
     it, equal the per-order calls."""
-    C, e = jax['tk'].radialParams()
+    prof = jax['tk'].profileParams()
     args, _ = max(jax['block']['_block_near_quad'],
                   key=lambda c: int((c[0][14] >= 0).sum()))
     n, pairs, tabs = _blockArgs(args, jax)
     one = torch.zeros(n, dtype=torch.float64)
     tasm.block_near_quad(one, pairs, *tabs, _rules(tasm.BLOCK_ORDERS,
-                                                   jax['tdm']), C, e)
+                                                   jax['tdm']), prof)
     each = torch.zeros(n, dtype=torch.float64)
     for o in tasm.BLOCK_ORDERS:
-        tasm.block_near_quad(each, pairs, *tabs, _rules([o], jax['tdm']), C,
-                             e)
+        tasm.block_near_quad(each, pairs, *tabs, _rules([o], jax['tdm']),
+                             prof)
     _assertData(one.numpy()[:-1], each.numpy()[:-1])
 
 
 def test_tree_csr_scan_vs_tree_csr_quad(jax):
-    C, e = jax['tk'].radialParams()
+    prof = jax['tk'].profileParams()
     calls = jax['host']['_bucket_tree_csr_scan']
     for args, statics in calls:
         (data, vertices, cells, vols, dofs, treePos, dofNode, indptrT,
@@ -211,7 +211,7 @@ def test_tree_csr_scan_vs_tree_csr_quad(jax):
             _t(sf.reshape(-1)[real]), _t(vertices), _t(cells, torch.int64),
             _t(vols), _t(dofs, torch.int64),
             tuple(_i32(a) for a in (dofNode, treePos, indptrT, tStart)),
-            _t(bx), _t(by), _t(w), _t(PSIP), C, e)
+            _t(bx), _t(by), _t(w), _t(PSIP), prof)
         _assertData(got.numpy()[:-1], ref[:-1])
     assert len(calls) >= 2
 
@@ -291,9 +291,11 @@ def test_block_near_quad_validates_inputs(jax):
             torch.zeros(1, dtype=torch.float64),
             torch.zeros((1, 3), dtype=torch.int64), z)
     with pytest.raises(ValueError, match='orders'):
-        tasm.block_near_quad(*args, _rules([16], jax['tdm']), 1.0, -1.75)
+        tasm.block_near_quad(*args, _rules([16], jax['tdm']),
+                             jax['tk'].profileParams())
     with pytest.raises(ValueError, match='14'):
-        tasm.block_near_quad(args[0], (z,) * 12, *args[2:], {}, 1.0, -1.75)
+        tasm.block_near_quad(args[0], (z,) * 12, *args[2:], {},
+                             jax['tk'].profileParams())
 
 
 def test_driver_passes_params_to_every_level(monkeypatch):

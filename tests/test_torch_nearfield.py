@@ -111,7 +111,7 @@ def _tables(args):
 
 def test_masked_csr_scan_vs_panel_scatter_slots(recorded):
     m, dm, H, record, tk = recorded
-    C, e = tk.radialParams()
+    prof = tk.profileParams()
     for args, statics in record['_bucket_masked_csr_scan']:
         (data, vertices, cells, vols, di, dj, sf, slots, bx, by, w,
          PSIP) = args
@@ -125,13 +125,13 @@ def test_masked_csr_scan_vs_panel_scatter_slots(recorded):
             _t(cells[dj], torch.int64),
             _t(slots.reshape(len(di), -1), torch.int32),
             _t(vols[di] * vols[dj] * sf), None, _t(bx), _t(by), _t(w),
-            _t(PSIP), C, e)
+            _t(PSIP), prof)
         _assertData(got.numpy()[:-1], ref[:-1])
 
 
 def test_surface_tree_scan_vs_panel_scatter_tree(recorded):
     m, dm, H, record, tk = recorded
-    C, e = tk.getBoundaryKernel().radialParams()
+    prof = tk.getBoundaryKernel().profileParams()
     for args, statics in record['_bucket_surface_tree_scan']:
         (data, vertices, dofNode, treePos, indptrT, tStart, vi1, vi2, dr, vs,
          nm, yo, I, J, offF, offB, bx, by, w, PSIP) = args
@@ -147,7 +147,7 @@ def test_surface_tree_scan_vs_panel_scatter_tree(recorded):
             _t(flat(vs)), _t(flat(nm)),
             *(_t(flat(a), torch.int32) for a in (I, J, offF, offB)),
             _tables((dofNode, treePos, indptrT, tStart)), _t(bx), _t(by),
-            _t(w), _t(PSIP), C, e)
+            _t(w), _t(PSIP), prof)
         _assertData(got.numpy()[:-1], ref[:-1])
 
 
@@ -177,7 +177,7 @@ def test_enum_phase1_vs_near_enum(recorded):
 
 def test_enum_phase2_vs_near_enum_quad(recorded):
     m, dm, H, record, tk = recorded
-    C, e = tk.radialParams()
+    prof = tk.profileParams()
     orders = set()
     for args, statics in record['_enum_phase2']:
         (data, keys, pT, cum, offI, offJ, n2, IA, JA, offF, offB, ncArr,
@@ -196,7 +196,7 @@ def test_enum_phase2_vs_near_enum_quad(recorded):
             _t(vertices), _t(cells, torch.int64), _t(vols),
             _t(dofs, torch.int64),
             _tables((dofNode, treePos, indptrT, tStart)), _t(bx), _t(by),
-            _t(w), _t(PSIP), C, e)
+            _t(w), _t(PSIP), prof)
         _assertData(got.numpy()[:-1], ref[:-1])
     assert len(orders) >= 2
 
@@ -269,7 +269,7 @@ def test_near_enum_validates_inputs():
         tasm.near_enum(z, z[:1], z[:1], z[:1], z[:1], z[:1], z,
                        torch.zeros((2, 2), dtype=torch.int32),
                        torch.zeros((2, 2), dtype=torch.int32),
-                       torch.zeros((1, 2)), torch.zeros(2), (0.75, 1.0, 0.0))
+                       torch.zeros((3, 2)), torch.zeros(2), (0.75, 1.0, 0.0))
 
 
 def test_enumeration_segments_do_not_change_the_near_data(recorded):

@@ -118,7 +118,7 @@ def test_cut1d_matches_jax(kernelType):
     interval at noRef 3 (both orderings, as _runCutPairs passes them)."""
     mesh, dm, k, tdm, tk = jaxProblem('interval', 3, kernelType)
     ci, cj, orders = jClassify(dm, k)['cut']
-    C, e = tk.radialParams()
+    prof = tk.profileParams()
     vols = mesh.simplexVolumes()
     total = 0
     for order in np.unique(orders):
@@ -133,8 +133,8 @@ def test_cut1d_matches_jax(kernelType):
         tq2, wq2 = gauss01(int(order))
         Mt = _cut1dMatrices(t(mesh.vertices), t(mesh.cells[iiA], torch.int64),
                             t(mesh.cells[jjA], torch.int64), t(vols[iiA]),
-                            t(tq2), t(wq2), t(tq2), t(wq2), HORIZON, C,
-                            e).numpy()
+                            t(tq2), t(wq2), t(tq2), t(wq2), HORIZON,
+                            prof).numpy()
         assert np.abs(Mt - Mj).max() <= 1e-13 * np.abs(Mj).max()
         total += len(iiA)
     assert total > 0
@@ -146,7 +146,7 @@ def test_cut2d_polar_matches_jax(interaction):
     noRef 0 cut pairs, order by order with the rules of _runCutPairs."""
     mesh, dm, k, tdm, tk = jaxProblem('square', 0, 'constant', interaction)
     ci, cj, orders = jClassify(dm, k)['cut']
-    C, e = tk.radialParams()
+    prof = tk.profileParams()
     vols = mesh.simplexVolumes()
     for order in np.unique(orders):
         sel = orders == order
@@ -164,7 +164,7 @@ def test_cut2d_polar_matches_jax(interaction):
         Mt = _cut2dMatrices(t(mesh.vertices), t(mesh.cells[ii], torch.int64),
                             t(mesh.cells[jj], torch.int64), t(vols[ii]),
                             t(tbx.T), t(twx), t(th), t(wth), t(rq), t(wr),
-                            HORIZON, tk.interaction.code, C, e).numpy()
+                            HORIZON, tk.interaction.code, prof).numpy()
         assert np.abs(Mt - Mj).max() <= 1e-13 * np.abs(Mj).max(), order
 
 

@@ -28,6 +28,7 @@ from pynucleus_tpu.nl.quad_singular_2d import (edgeRule2DSS, vertexRule2DSS,
 
 from pynucleus_tpu_torch.nl import assembly as tasm
 from pynucleus_tpu_torch.nl.kernels import getFractionalKernel as tKernel
+from pynucleus_tpu_torch.nl.kernels import Profile
 
 TOL = 1e-13
 
@@ -47,12 +48,12 @@ def _t(a, dtype=torch.float64):
 
 def _port(N, vertices, vi1, vi2, dr, vs, nm, rule, PSI, kernel):
     A = torch.zeros((N, N), dtype=torch.float64)
-    C, e = kernel.radialParams()
+    prof = kernel.profileParams()
     tasm.panel_scatter(A, _t(vertices), _t(vi1, torch.int64),
                        _t(vi2, torch.int64), _t(dr, torch.int64), _t(vs),
                        None if nm is None else _t(nm), _t(rule.bary_x),
                        _t(rule.bary_y), _t(rule.w), _t(jasm._psi_prod(PSI)),
-                       C, e)
+                       prof)
     return A.numpy()
 
 
@@ -210,13 +211,15 @@ def test_panel_scatter_validates_inputs(disc):
         tasm.panel_scatter(A, v, i2, i2, i2, torch.ones(1, dtype=torch.float64),
                            None, torch.ones((3, 2), dtype=torch.float64),
                            torch.ones((3, 2), dtype=torch.float64), w,
-                           torch.ones((2, 4), dtype=torch.float64), 1.0, -1.0)
+                           torch.ones((2, 4), dtype=torch.float64),
+                           Profile(0, 1.0, -1.0, 0.0))
     with pytest.raises(ValueError, match='int64'):
         tasm.panel_scatter(A, v, i2.int(), i2, i2,
                            torch.ones(1, dtype=torch.float64), None,
                            torch.ones((3, 2), dtype=torch.float64),
                            torch.ones((3, 2), dtype=torch.float64), w,
-                           torch.ones((2, 9), dtype=torch.float64), 1.0, -1.0)
+                           torch.ones((2, 9), dtype=torch.float64),
+                           Profile(0, 1.0, -1.0, 0.0))
 
 
 @pytest.mark.cuda
