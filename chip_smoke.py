@@ -95,6 +95,20 @@ result line):
      V-cycle, peak device memory, an L2 error below noRef 12's, and K1's
      CSR targets, K5, K6, K7, K11 and K12 (their largest calls) against
      their plain versions at its shapes.
+ 13. variable-order and nonsymmetric kernels on the interval
+     (runFractional): the six lines of tests/test_drivers_fractional.py
+     :121-167 at noRef 6 (varconst, constantNonSym and twoDomainNonSym;
+     dense and H2; cg-jacobi, gmres-jacobi, lu and gmres-mg; each a path
+     of its own) against their pins and the pinned JAX outputs; H2 and its
+     transpose against dense at noRef 12 (8,191 dofs; the transposed apply
+     a path of its own, eT < max(1e-5, 3 eFwd), tests/test_h2_transpose.py
+     :33); the full-width line, twoDomainNonSym gmres-mg H2 at noRef 14
+     (15 levels, 32,767 dofs; a path; noRef 12 instead if its host set-up
+     exceeds 300 s): iterations, errors, per-level build parts, cold and
+     warm solve, ms per V-cycle, peak device memory; then K1 with the order
+     codes (dense target; tree, dense and slots targets with the y shift),
+     K7 with them, K19 (dense and slots targets) and K20 (noRef 12 and
+     every level of the full-width line) against their plain versions.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -239,6 +253,11 @@ KERNEL_INFO = {
     'bicgstab_update': ('triton',
                         'pynucleus_tpu_torch/kernels/bicgstab_update.py',
                         'pynucleus_tpu/base/solvers.py:503'),
+    'panel_scatter_nonsym': (
+        'cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym.cu',
+        'pynucleus_tpu/nl/assembly.py:424'),
+    'h2_matvec_T': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/h2_matvec.cu',
+                    'pynucleus_tpu/nl/h2.py:910'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -291,6 +310,14 @@ COMPARED_AT = {
     'gmres_arnoldi': 'the Poisson square at noRef 9: one restart cycle of 10 '
                      'steps and the combine, per cycle',
     'bicgstab_update': 'the Poisson square at noRef 9: 10 iterations',
+    'panel_scatter_nonsym': 'interval twoDomainNonSym(0.25,0.75) and '
+                            'constantNonSym(0.25): the dense target on all '
+                            'calls of the noRef 6 dense builds and the '
+                            'largest of noRef 12, the slots target on the '
+                            'largest call of the noRef 14 gmres-mg H2 line',
+    'h2_matvec_T': 'interval twoDomainNonSym(0.25,0.75): noRef 12, and '
+                   'every level of the noRef 14 gmres-mg H2 line, timed on '
+                   'the finest, per apply',
 }
 
 
@@ -548,12 +575,23 @@ def compare_h2_build(recs):
         f'{plain_ms:.3f} ms')
     out['near_enum'] = result(0.0, ms, plain_ms, work)
 
+    out['far_field'] = compare_far_field(recs['far_field'].calls)
+    return out
+
+
+def compare_far_field(calls, label='far_field'):
+    """K7 on recorded calls (gi, gj, profile[, order]) against its plain
+    version, each after an untimed warm-up call; per entry r^2 and one
+    profile evaluation (a variable order's VO_EVAL_OPS)."""
+    import pynucleus_tpu_torch.nl.assembly as asm
     worst = ms = plain_ms = 0.0
     work = []
-    for args, kw in recs['far_field'].calls:
+    for args, kw in calls:
         P, M, dim = args[0].shape
+        order = args[3] if len(args) > 3 else kw.get('order')
         work.append((nbytes(args[:2]) + 8 * P * M * M,
-                     P * M * M * (3 * dim + 1), F64_PEAK))
+                     P * M * M * (3 * dim + (VO_EVAL_OPS if order is not None
+                                             else 1)), F64_PEAK))
         asm.far_field(*args, **kw), asm._far_field_plain(*args, **kw)
         got, ref = [], []
         ms += timed(lambda: got.append(asm.far_field(*args, **kw)))
@@ -562,12 +600,11 @@ def compare_h2_build(recs):
         err = float((got[0] - ref[0]).abs().max())
         scale = float(ref[0].abs().max())
         if not (scale > 0 and err <= TOL_KERNEL * scale):
-            raise AssertionError(f'far_field: max err {err} (max {scale})')
+            raise AssertionError(f'{label}: max err {err} (max {scale})')
         worst = max(worst, err)
-    log(f"  far_field: {len(recs['far_field'].calls)} calls, max abs err "
+    log(f"  {label}: {len(calls)} calls, max abs err "
         f'{worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
-    out['far_field'] = result(worst, ms, plain_ms, work)
-    return out
+    return result(worst, ms, plain_ms, work)
 
 
 # per element of the near field's order model: the cell-pair validity (9
@@ -690,7 +727,7 @@ def h2_matvec_work(H):
     A = H.Anear
     b = 16 * H.num_rows + nbytes(
         A.perm, A.rowNode, A.indptrT, A.tStartRow, A.tLen, A.rowLen,
-        A.tmplStart, A.tmplAll, A.dataZ, H.leafPhi, H.leafNode, H.T,
+        A.tmplStart, A.tmplAll, A.dataZ, H.leafPhi, H.leafNode, H.Ttr,
         H.parent, H.Kall, H.src, H.dst)
     M = H.M
     ops = 2 * A.nnz + 4 * H.L * H.nbar * M + 4 * M * M * H.nNodes \
@@ -2266,6 +2303,443 @@ def phase12():
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 13
+
+def _vo_argv(s, problem, solver, fmt):
+    return ['--domain', 'interval', '--s', s, '--problem', problem,
+            '--element', 'P1', '--solverType', solver, '--matrixFormat', fmt]
+
+
+LR = 'twoDomainNonSym(0.25,0.75)'
+# tests/test_drivers_fractional.py:121-167 (VARIABLE_CONFIGS): argv, the
+# pinned reference values (rtol 3e-2), and the JAX package's outputs of
+# the same driver line (default noRef 6, 127 dofs; CPU, float64) with its
+# iterations, held to TOL_INTERVAL_JAX relative and +-1 iteration.
+VARIABLE_LINES = (
+    ('varconst', _vo_argv('varconst(0.75)', 'constant', 'cg-jacobi', 'dense'),
+     {'Hs error': 0.041842962898268554, 'L2 error': 0.0014584869817160686,
+      'Linf error interpolated': 0.0009870492444583046},
+     {'L2 error': 0.0014584876514333886,
+      'L2 error interpolated': 0.0010892434381019561,
+      'Linf error interpolated': 0.0009870496485860358,
+      'Hs error': 0.04184297753455954}, 41),
+    ('constantNonSym', _vo_argv('constantNonSym(0.25)', 'constant',
+                                'gmres-jacobi', 'dense'),
+     {'Hs error': 0.09611243700814974, 'L2 error': 0.0266553185536795,
+      'Linf error interpolated': 0.04664216828925677},
+     {'L2 error': 0.026655322723040574,
+      'L2 error interpolated': 0.008022626666842203,
+      'Linf error interpolated': 0.04664203600833766,
+      'Hs error': 0.09611246910485544}, 9),
+    ('twoDomainNonSym', _vo_argv(LR, 'knownSolution', 'lu', 'dense'),
+     {'L2 error': 0.0020560901451394443,
+      'Linf error interpolated': 0.003599161364716205},
+     {'L2 error': 0.0020165419394079244,
+      'L2 error interpolated': 0.0012040812422250483,
+      'Linf error interpolated': 0.0036074442982775012}, 1),
+    ('constantNonSym-H2', _vo_argv('constantNonSym(0.25)', 'constant',
+                                   'gmres-jacobi', 'H2'),
+     {'L2 error': 0.02665532198267176},
+     {'L2 error': 0.026655317676124377,
+      'L2 error interpolated': 0.008022571820942168,
+      'Linf error interpolated': 0.046641894707784626,
+      'Hs error': 0.09611199629077337}, 9),
+    ('twoDomainNonSym-H2-lu', _vo_argv(LR, 'knownSolution', 'lu', 'H2'),
+     {'L2 error': 0.001968154983051443},
+     {'L2 error': 0.0020155700017095396,
+      'L2 error interpolated': 0.001202654921585978,
+      'Linf error interpolated': 0.0036095994277783594}, 1),
+    ('twoDomainNonSym-H2-mg', _vo_argv(LR, 'knownSolution', 'gmres-mg', 'H2'),
+     {'L2 error': 0.001968148149500615},
+     {'L2 error': 0.002015603941010537,
+      'L2 error interpolated': 0.0012026945043101618,
+      'Linf error interpolated': 0.0036093081028042984}, 5))
+# the kernels each of those paths must launch
+VO_DENSE_NONSYM = ('panel_scatter', 'panel_scatter_nonsym',
+                   'panel_scatter:dense', 'panel_scatter_nonsym:dense')
+VO_H2 = ('panel_scatter', 'panel_scatter_nonsym', 'far_field', 'h2_matvec',
+         'panel_scatter:tree', 'panel_scatter_nonsym:slots')
+VO_PATHS = {
+    'varconst': DENSE_PATH,
+    'constantNonSym': VO_DENSE_NONSYM + ('gmres_arnoldi',),
+    'twoDomainNonSym': VO_DENSE_NONSYM,
+    'constantNonSym-H2': VO_H2 + ('gmres_arnoldi',),
+    'twoDomainNonSym-H2-lu': VO_H2,
+    'twoDomainNonSym-H2-mg': VO_H2 + ('gmres_arnoldi', 'csr_spmv',
+                                      'jacobi_smooth')}
+VO_TRANSPOSE_PATH = VO_H2 + ('h2_matvec_T',)
+VO_NOREF = 14
+VO_CHECK_NOREF = 12
+# the L2 error of twoDomainNonSym(0.25,0.75) knownSolution lu H2 at noRef
+# VO_CHECK_NOREF: the JAX driver's (drivers/runFractional.py on the CPU,
+# float64).  Far above the dense line's: the JAX package's H2 fault of a
+# variable order (ROADMAP.md section C), which the port mirrors; held to
+# TOL_INTERVAL_JAX relative
+JAX_VO_CHECK_H2_L2 = 0.09597993396216485
+# the full-width line's host set-up limit: above it noRef 12 is run instead
+VO_HOST_LIMIT = 300.0
+# operations of one variable-order kernel evaluation (two pow, two lgamma,
+# an exp, a division and about ten products and sums)
+VO_EVAL_OPS = 16
+_VO_FULL = (f'the noRef {VO_NOREF} twoDomainNonSym(0.25,0.75) gmres-mg H2 '
+            'line (15 levels, 32,767 dofs)')
+VO_COMPARED_AT = {
+    'panel_scatter': (
+        'interval, twoDomainNonSym(0.25,0.75) (order code 2) and '
+        'constantNonSym(0.25) (code 1): the dense target on the '
+        f'zero-exterior calls of the noRef 6 and {VO_CHECK_NOREF} dense '
+        'builds; the tree target (y shift) on all calls of the noRef '
+        f'{VO_CHECK_NOREF} H2 build, its pairs also through the dense and '
+        f'the slots targets, and on all calls of {_VO_FULL}'),
+    'far_field': ('all calls of the noRef 6 H2 builds of twoDomainNonSym '
+                  f'and constantNonSym, and the largest of {_VO_FULL}'),
+    'h2_matvec': f'every level of {_VO_FULL}, timed on the finest, per apply',
+    'csr_spmv': (f'{_VO_FULL}: P x and P^T r of its finest level, per pair '
+                 'of products'),
+    'jacobi_smooth': f'{_VO_FULL}: its three modes at the finest size, per set',
+    'gmres_arnoldi': (f'{_VO_FULL}: one cycle of the solve\'s iterations on '
+                      'the finest operator and right-hand side, per cycle'),
+}
+
+
+def vo_main_path(argv, path):
+    """run_main_path of a variable-order line on the card at noRef
+    ``argv``'s; its errors must be finite."""
+    return run_main_path(argv + ['--device', 'cuda', '--maxiter',
+                                 str(MG_MAXITER)], path)
+
+
+def check_variable_line(label, out, pins, jaxOut, its):
+    """The pinned reference values (rtol 3e-2) and the JAX outputs
+    (TOL_INTERVAL_JAX relative), iterations within +-1."""
+    res, errs = out['results'].toDict(), out['errors'].toDict()
+    bad = [f'{k}: {errs[k]} vs pin {v}' for k, v in pins.items()
+           if not abs(errs[k] - v) <= RTOL_ERRORS * abs(v)]
+    bad += [f'{k}: {errs[k]} vs JAX {v}' for k, v in jaxOut.items()
+            if not abs(errs[k] - v) <= TOL_INTERVAL_JAX * abs(v)]
+    if ('Hs error' in errs) != ('Hs error' in jaxOut):
+        bad.append('the Hs error is reported where the JAX driver does not '
+                   'report it, or the other way round')
+    if res['dofs'] != 127 or abs(res['iterations'] - its) > 1:
+        bad.append(f"dofs {res['dofs']}, iterations {res['iterations']} vs "
+                   f'127, {its}')
+    if bad:
+        raise AssertionError(f'{label}: ' + '; '.join(bad))
+    log(f"  {label}: iterations {res['iterations']}, L2 error "
+        f"{errs['L2 error']:.9e}: the pins (rtol {RTOL_ERRORS}) and the JAX "
+        f'outputs (rtol {TOL_INTERVAL_JAX})')
+
+
+def nonsym_work(args):
+    """K19 on recorded args (N or nnz+1, vertices, vi1, vi2, index, volsym,
+    bary_x, bary_y, w, PHIxPSI, PHIyPSI, profile, order): per pair and node
+    the positions, r^2, two kernel evaluations and 2 nPSI^2 multiply-adds
+    each way; the touched entries read and written once."""
+    vertices, vi1, vi2 = args[1], args[2], args[3]
+    w, PX = args[8], args[9]
+    P, Q, nn, dim = vi1.shape[0], w.shape[0], PX.shape[1], vertices.shape[1]
+    ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim + 4
+                   + 2 * VO_EVAL_OPS + 4 * nn)
+    return (nbytes(args[1:11]) + 16 * P * nn, ops, F64_PEAK)
+
+
+def panel_order_work(args):
+    """panel_work with a variable order's evaluation per node."""
+    b, ops, peak = panel_work(args)
+    return (b, ops + args[2].shape[0] * args[-3].shape[0] * VO_EVAL_OPS,
+            peak)
+
+
+def compare_h2_matvec_T(H, reps=10, label=''):
+    """K20: ``reps`` transposed applies each way after an untimed one;
+    returns the result() per apply."""
+    import torch
+    from pynucleus_tpu_torch.nl import h2
+    x = torch.randn(H.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(1))
+    yk = torch.empty_like(x)
+    h2.h2_matvec_T(H, x, out=yk), h2._h2_matvec_T_plain(H, x)
+    ms = timed(lambda: [h2.h2_matvec_T(H, x, out=yk) for _ in range(reps)])
+    yp = []
+    plain_ms = timed(lambda: [yp.append(h2._h2_matvec_T_plain(H, x))
+                              for _ in range(reps)])
+    err = float((yk - yp[-1]).abs().max())
+    scale = float(yp[-1].abs().max())
+    if not (scale > 0 and err <= TOL_KERNEL * scale):
+        raise AssertionError(f'h2_matvec_T: max err {err} (max {scale})')
+    log(f'  h2_matvec_T{label}: {reps} applies, max abs err {err:.3e} (rel '
+        f'{err / scale:.3e}), kernel {ms / reps:.3f} ms, plain '
+        f'{plain_ms / reps:.3f} ms per apply')
+    # the work of K8's apply, plus the atomics of the column scatter
+    b, ops, peak = h2_matvec_work(H)
+    return result(err, ms / reps, plain_ms / reps,
+                  [(b, ops + H.Anear.nnz, peak)])
+
+
+def _k19_plain(target):
+    import pynucleus_tpu_torch.nl.assembly as asm
+
+    def plain(out, vertices, vi1, vi2, index, *rest):
+        return asm._panel_scatter_nonsym_plain(out, target, index, vertices,
+                                               vi1, vi2, *rest)
+    return plain
+
+
+def _k1_synthetic(calls, N):
+    """K1's dense and slots targets with an order and a y shift on the
+    pairs of recorded tree-target calls: their dof rows into one dense
+    [N, N] A, and every local entry of every call into a slot of its own of
+    one CSR data vector."""
+    import torch
+    dense, slots = [], []
+    total = sum(c[0][4].shape[0] * c[0][4].shape[1] ** 2 for c in calls)
+    off = 0
+    for (shape, *a), kw in calls:
+        (vertices, vi1, vi2, dofRows, volsym, normals, I, J, offF, offB,
+         tables, bary_x, bary_y, w, PSIP, prof) = a
+        P, n = dofRows.shape
+        dense.append((((N, N), vertices, vi1, vi2, dofRows, volsym, normals,
+                       bary_x, bary_y, w, PSIP, prof), kw))
+        sl = torch.arange(off, off + P * n * n, dtype=torch.int32,
+                          device=dofRows.device).reshape(P, n * n)
+        off += P * n * n
+        slots.append((((total + 1,), vertices, vi1, vi2, sl, volsym,
+                       normals, bary_x, bary_y, w, PSIP, prof), kw))
+    return dense, slots
+
+
+def phase13():
+    """Variable-order and nonsymmetric kernels on the interval: the six
+    VARIABLE_CONFIGS lines at noRef 6 (each a path), H2 and its transpose
+    against dense at noRef VO_CHECK_NOREF (a path: the transposed apply),
+    the full-width line (twoDomainNonSym gmres-mg H2 at noRef VO_NOREF, a
+    path) with its build parts, solves, V-cycle and peak memory, and K1
+    (order codes, dense, slots and tree targets with the y shift), K7,
+    K19 and K20 against their plain versions.  Returns the launch counts
+    of its paths, the comparisons and the summary."""
+    import contextlib
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.drivers.runFractional import main
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
+    log('phase 13: variable-order and nonsymmetric kernels on the interval '
+        '(varconst, constantNonSym, twoDomainNonSym)')
+    counts = {}
+    k1dense, k7, k19dense = [], [], []
+    for label, argv, pins, jaxOut, its in VARIABLE_LINES:
+        with ArgRecorder(asm, 'panel_scatter', dataFirst=True) as r1, \
+                ArgRecorder(asm, 'far_field') as r7, \
+                ArgRecorder(asm, 'panel_scatter_nonsym', dataFirst=True) \
+                as r19:
+            out, counts[label] = vo_main_path(argv, VO_PATHS[label])
+        check_variable_line(label, out, pins, jaxOut, its)
+        if label != 'varconst':
+            k1dense += r1.calls
+            k7 += r7.calls
+            k19dense += r19.calls
+        del out
+
+    prob = fractionalLaplacianProblem('interval', LR, 'knownSolution')
+    log(f'  H2 and its transpose against dense at noRef {VO_CHECK_NOREF} '
+        '(the transposed apply a path of its own)')
+    from pynucleus_tpu_torch.nl.discretized import buildMeshHierarchy
+    meshes, dms, _ = buildMeshHierarchy(prob['mesh'], 'lu', prob['tag'],
+                                        VO_CHECK_NOREF, 'P1', 'cuda')
+    dmC = dms[-1]
+    del meshes
+    with ArgRecorder(asm, 'panel_scatter', dataFirst=True) as r1, \
+            ArgRecorder(asm, 'panel_scatter_nonsym', dataFirst=True,
+                        size=lambda A, v, vi1, *a: vi1.shape[0]) as r19:
+        D = asm.assembleNonlocal(dmC, prob['kernel'], matrixFormat='dense',
+                                 device='cuda').data
+    torch.cuda.synchronize()
+    k1dense += r1.calls
+    k19dense += r19.calls
+    torch.cuda.empty_cache()
+    kernels.resetLaunches()
+    # K1's tree target with the y shift: all calls of this build (the two
+    # runs over a jump facet nearly cancel in a slot, so one call alone can
+    # leave sums far below its items' size)
+    with ArgRecorder(asm, 'panel_scatter_tree', dataFirst=True) as rTree:
+        H = asm.assembleNonlocal(dmC, prob['kernel'], matrixFormat='H2',
+                                 device='cuda')
+    x = torch.sin(torch.linspace(-1.0, 1.0, dmC.num_dofs,
+                                 dtype=torch.float64, device='cuda'))
+    yF, yT = H.matvec(x), H.T.matvec(x)
+    torch.cuda.synchronize()
+    counts['transpose'] = dict(kernels.launches)
+    counts['transpose']['device'] = dict(kernels.deviceLaunches)
+    for k in VO_TRANSPOSE_PATH:
+        if counts['transpose'][k] <= 0:
+            raise AssertionError(f'kernel {k} was not launched by the '
+                                 'transposed-apply path')
+    eFwd = float(torch.linalg.norm(yF - D @ x))
+    eT = float(torch.linalg.norm(yT - D.T @ x))
+    if not (eT < max(1e-5, 3.0 * eFwd)
+            and eFwd <= TOL_H2_DENSE * float(torch.linalg.norm(D @ x))):
+        raise AssertionError(f'H2 vs dense at noRef {VO_CHECK_NOREF}: eFwd '
+                             f'{eFwd}, eT {eT}')
+    log(f'  {dmC.num_dofs} dofs, dense {D.numel() * 8 / 1e6:.0f} MB: '
+        f'|H x - A x| {eFwd:.3e}, |H^T x - A^T x| {eT:.3e} (< max(1e-5, '
+        f'3 eFwd), tests/test_h2_transpose.py:33); relative '
+        f'{eFwd / float(torch.linalg.norm(D @ x)):.3e} and '
+        f'{eT / float(torch.linalg.norm(D.T @ x)):.3e}')
+    # the solutions of both operators by LU: their errors (the JAX package
+    # gives the H2 line a larger error than the dense one from noRef 8 on,
+    # ROADMAP.md section C; the port follows it)
+    from pynucleus_tpu_torch.nl.discretized import modelErrors
+    bC = assembleRHS(dmC, prob['rhs'], qOrder=3)
+    checkErrs = {}
+    for what, Ad in (('dense', D), ('H2', torch.as_tensor(
+            H.toarray(), dtype=torch.float64, device='cuda'))):
+        lu, piv = torch.linalg.lu_factor(Ad)
+        u = torch.linalg.lu_solve(lu, piv, bC.data[:, None])[:, 0]
+        checkErrs[what] = modelErrors(dmC, u, bC.data,
+                                      prob['analyticSolution'],
+                                      prob['exactL2Squared'], None)
+        del Ad, lu, piv
+    log(f'  noRef {VO_CHECK_NOREF} lu: L2 error dense '
+        f"{checkErrs['dense']['L2 error']:.6e}, H2 "
+        f"{checkErrs['H2']['L2 error']:.9e}; L2 error interpolated dense "
+        f"{checkErrs['dense']['L2 error interpolated']:.6e}, H2 "
+        f"{checkErrs['H2']['L2 error interpolated']:.6e}")
+    eH2 = checkErrs['H2']['L2 error']
+    if not abs(eH2 - JAX_VO_CHECK_H2_L2) <= \
+            TOL_INTERVAL_JAX * JAX_VO_CHECK_H2_L2:
+        raise AssertionError(f'noRef {VO_CHECK_NOREF} H2 lu: L2 error {eH2} '
+                             f'vs the JAX driver {JAX_VO_CHECK_H2_L2}')
+    log(f'  the H2 lu L2 error is the JAX driver\'s {JAX_VO_CHECK_H2_L2:.9e} '
+        f'(rtol {TOL_INTERVAL_JAX})')
+    k20 = [compare_h2_matvec_T(H, label=f' noRef {VO_CHECK_NOREF}')]
+    tree = rTree.calls
+    k1d, k1s = _k1_synthetic(tree, dmC.num_dofs)
+    del D, H, yF, yT, dmC, dms
+    torch.cuda.empty_cache()
+
+    # the full-width line
+    noRef = VO_NOREF
+    # K1's tree target: all calls (the two runs over a jump facet nearly
+    # cancel in a slot, so the calls of a level are compared together)
+    recNames = {'far_field': (lambda gi, *a: gi.shape[0], False),
+                'panel_scatter_nonsym_slots': (
+                    lambda d, v, vi1, *a: vi1.shape[0], True),
+                'panel_scatter_tree': (None, True)}
+    while True:
+        log(f'  the full-width line: {LR} knownSolution gmres-mg H2 at '
+            f'noRef {noRef}')
+        with contextlib.ExitStack() as stack:
+            recs = {n: stack.enter_context(ArgRecorder(asm, n, dataFirst=df,
+                                                       size=size))
+                    for n, (size, df) in recNames.items()}
+            out, counts['full'] = vo_main_path(
+                _vo_argv(LR, 'knownSolution', 'gmres-mg', 'H2')
+                + ['--noRef', str(noRef)], VO_PATHS['twoDomainNonSym-H2-mg'])
+        # the build parts but the far field (K7), the operator's set-up and
+        # the split (a part of the plan), on every level
+        host = sum(v for p in out['levelParts'].values() for k, v in p.items()
+                   if k not in ('far field', 'near operator set-up',
+                                'plan (split leaves)'))
+        if host <= VO_HOST_LIMIT or noRef == VO_CHECK_NOREF:
+            break
+        log(f'  host set-up {host:.1f} s > {VO_HOST_LIMIT} s: noRef '
+            f'{VO_CHECK_NOREF} instead')
+        noRef = VO_CHECK_NOREF
+        del out
+    errs = out['errors'].toDict()
+    hierarchy, tim = out['hierarchy'], out['timers'].toDict()
+    for k in range(len(hierarchy)):
+        parts = out['levelParts'][k]
+        log(f"  level {k}: {hierarchy[k]['A'].num_rows} dofs, assembly "
+            f"{tim[f'assembly level {k} seconds']:.3f} s: " + ', '.join(
+                f'{p} {v:.3f}' for p, v in parts.items()))
+    M = out['solver'].prec
+    b = torch.randn(M.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(14))
+    z = torch.empty_like(b)
+    M.matvec(b, out=z)
+    perCycle = timed(lambda: [M.matvec(b, out=z) for _ in range(10)]) / 10
+    solver, dm = out['solver'], out['dm']
+    rhs = assembleRHS(dm, prob['rhs'], qOrder=3).data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.solve(rhs)
+    torch.cuda.synchronize()
+    tWarm = time.perf_counter() - t0
+    summary = {'noRef': noRef, 'dofs': dm.num_dofs,
+               'levels': len(hierarchy),
+               'iterations': out['results'].toDict()['iterations'],
+               'L2_error': errs['L2 error'],
+               'Linf_error_interpolated': errs['Linf error interpolated'],
+               'assembly_s': tim['assembly seconds'],
+               'finest_level_parts_s': out['levelParts'][len(hierarchy) - 1],
+               'host_setup_s': host,
+               'solve_s': tim['solve seconds'], 'warm_solve_s': tWarm,
+               'vcycle_ms': perCycle,
+               'explicit_residual': tim['explicit residual'],
+               'peak_GiB': torch.cuda.max_memory_allocated() / 2 ** 30,
+               'noRef12_lu_errors': checkErrs}
+    log(f'  summary: {json.dumps(summary)}')
+    # finite errors of a converged solve (run_main_path) with the expected
+    # dofs; the line is held to the JAX outputs at noRef 6 above
+    if dm.num_dofs != 2 ** (noRef + 1) - 1 or not all(
+            v == v and v >= 0 and v != float('inf') for v in errs.values()):
+        raise AssertionError(f'noRef {noRef}: dofs {dm.num_dofs}, {errs}')
+    log(f'  kernels against their plain versions at the noRef {noRef} shapes '
+        '(the largest call of each, K1 all its tree-target calls; K8 and K20 '
+        'on every level, timed on the finest; K9 on the finest P, K10 at '
+        'the finest size, K17 on the finest operator and right-hand side, '
+        'one cycle of the solve\'s iterations)')
+    last = len(hierarchy) - 1
+    k8 = [compare_h2_matvec(lv['A'], reps=10 if k == last else 1,
+                            label=f' level {k}')
+          for k, lv in enumerate(hierarchy)]
+    k20 += [compare_h2_matvec_T(lv['A'], reps=10 if k == last else 1,
+                                label=f' level {k}')
+            for k, lv in enumerate(hierarchy)]
+    A, P = hierarchy[-1]['A'], hierarchy[-1]['P']
+    cmp = {'h2_matvec': dict(k8[-1], err=max(r['err'] for r in k8)),
+           'csr_spmv': compare_csr_spmv(P),
+           'jacobi_smooth': compare_jacobi_smooth(P.num_rows),
+           'gmres_arnoldi': compare_gmres_arnoldi(
+               A, rhs, restart=max(summary['iterations'], 1))}
+    del out, hierarchy, M, solver, z, A, P
+    torch.cuda.empty_cache()
+    k7 += recs['far_field'].calls
+    cmp.update({'h2_matvec_T': dict(k20[-1], err=max(r['err'] for r in k20)),
+                'far_field': compare_far_field(k7, 'far_field (orders)')})
+    k1 = [compare_target_kernel('panel_scatter (order, dense)', k1dense,
+                                asm.panel_scatter, asm._panel_scatter_plain,
+                                panel_order_work),
+          compare_target_kernel('panel_scatter (order, tree, y shift)', tree,
+                                asm.panel_scatter_tree,
+                                asm._panel_scatter_tree_plain,
+                                panel_order_work),
+          compare_target_kernel(f'panel_scatter (order, tree, y shift, noRef '
+                                f'{noRef})', recs['panel_scatter_tree'].calls,
+                                asm.panel_scatter_tree,
+                                asm._panel_scatter_tree_plain,
+                                panel_order_work),
+          compare_target_kernel('panel_scatter (order, dense, y shift)', k1d,
+                                asm.panel_scatter, asm._panel_scatter_plain,
+                                panel_order_work),
+          compare_target_kernel('panel_scatter (order, slots, y shift)', k1s,
+                                asm.panel_scatter_slots,
+                                asm._panel_scatter_slots_plain,
+                                panel_order_work)]
+    cmp['panel_scatter'] = merge(*k1)
+    cmp['panel_scatter_nonsym'] = merge(
+        compare_target_kernel('panel_scatter_nonsym (dense)', k19dense,
+                              asm.panel_scatter_nonsym, _k19_plain('dense'),
+                              nonsym_work),
+        compare_target_kernel('panel_scatter_nonsym (slots)',
+                              recs['panel_scatter_nonsym_slots'].calls,
+                              asm.panel_scatter_nonsym_slots,
+                              _k19_plain('slots'), nonsym_work))
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -2307,6 +2781,7 @@ def main():
     countsI, countsS, cmp10 = phase10()
     countsG, cmp11 = phase11()
     counts12, cmp12, _ = phase12()
+    counts13, cmp13, summary13 = phase13()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -2339,8 +2814,17 @@ def main():
               f'h2_cg_jacobi_gaussian_interval_noRef{SMOOTH_NOREF}',
               counts12['gaussian14']),
              (MG_PATH, f'h2_cg_mg_interval_noRef{INTERVAL_NOREF}',
-              counts12['mg16']))
+              counts12['mg16'])) + tuple(
+        (VO_PATHS[label], f'interval_{label}_noRef6', counts13[label])
+        for label, *_ in VARIABLE_LINES) + (
+        (VO_TRANSPOSE_PATH, f'h2_transpose_interval_noRef{VO_CHECK_NOREF}',
+         counts13['transpose']),
+        (VO_PATHS['twoDomainNonSym-H2-mg'],
+         f"h2_gmres_mg_twoDomainNonSym_noRef{summary13['noRef']}",
+         counts13['full']))
     table = []
+    cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
+    cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
         c = cmp[name]
@@ -2372,7 +2856,19 @@ def main():
                 'plain_ms': c12['plain_ms'], 'bound_ms': ims,
                 'bound_by': iby, 'library_ms': c12['library_ms'],
                 'compared_at': INTERVAL_COMPARED_AT}
+        if name in cmp13:
+            # K1 and K7 with the variable orders' codes (and K1's y shift),
+            # K8, K9, K10 and K17 at the shapes of the gmres-mg H2 line
+            c13 = cmp13[name]
+            vms, vby = bound(c13['work'])
+            row['at_varorder'] = {
+                'max_abs_err': c13['err'], 'ms': c13['ms'],
+                'plain_ms': c13['plain_ms'], 'bound_ms': vms,
+                'bound_by': vby, 'library_ms': c13['library_ms'],
+                'compared_at': VO_COMPARED_AT[name]}
         split = {'panel_scatter': ('launches_by_target', kernels.K1_TARGETS),
+                 'panel_scatter_nonsym': ('launches_by_target',
+                                          kernels.K19_TARGETS),
                  'pcg_update': ('launches_by_form', kernels.K4_FORMS)}
         if name in split:
             key, names = split[name]

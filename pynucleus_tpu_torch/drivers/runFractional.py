@@ -9,7 +9,9 @@ LU, GMRES or BiCGStab.
 
 Port of drivers/runFractional.py for the dense and H2 formats (the
 interval and the disc), with the solvers of ``SOLVER_TYPES`` (the JAX
-driver takes any registered name).  It runs on the card unless ``--device cpu`` asks for the CPU;
+driver takes any registered name).  ``--s`` takes const(s), varconst(s),
+constantNonSym(s) and twoDomainNonSym(sl,sr) (the latter two on the
+interval); ``--problem`` constant or, on the interval, knownSolution.  It runs on the card unless ``--device cpu`` asks for the CPU;
 asking for the card without one raises.  With a multigrid solver every
 level noRef 0 ... N is assembled in the requested format, as in the JAX
 package.  It prints the same ``results`` and ``errors`` labels as the JAX
@@ -42,7 +44,8 @@ def parser():
     p.add_argument('--domain', default='interval',
                    choices=['interval', 'disc'])
     p.add_argument('--s', default='const(0.75)')
-    p.add_argument('--problem', default='constant', choices=['constant'])
+    p.add_argument('--problem', default='constant',
+                   choices=['constant', 'knownSolution'])
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--solverType', default='cg-jacobi', choices=SOLVER_TYPES)
     p.add_argument('--matrixFormat', default='dense', choices=['dense', 'H2'])

@@ -28,6 +28,7 @@ from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
                          interactionFactory)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
+from .nl.problems import parseFractionalOrder
 from .base.linear_operators import CSR_LinearOperator
 
 __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
@@ -47,7 +48,11 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     of variance ``gaussianVariance`` or the exponential one of rate
     ``exponentialRate``; of a finite ``horizon`` the fractional, indicator
     ('constant') or peridynamic ('inverseDistance') kernel with the ball2
-    or ballInf ``interaction`` (nl.problems processKernel)."""
+    or ballInf ``interaction`` (nl.problems processKernel).  The order s is
+    a number or a string of nl.problems.parseFractionalOrder
+    ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)', ...)."""
+    if isinstance(s, str):
+        s = parseFractionalOrder(s)
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
@@ -76,7 +81,7 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
 
 def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
                  perm, N, leafDofs, leafPhi, leafLvl, leafPos, levels,
-                 device='cuda'):
+                 device='cuda', symmetric=True):
     """The port's H2Matrix from numpy arrays.
 
     Near field: the tree-ordered data [nnz] and its structure (the fields
@@ -85,7 +90,9 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
     -1), leafPhi [L, nbar, M], each leaf's level and position.  levels:
     one mapping per level with 'size' and, where present, 'T' [size, M, M],
     'parentIdx' [size], 'K' [p, M, M] (with the -2 factor), 'src' and
-    'dst' [p], as the JAX package's H2Matrix.levels hold them."""
+    'dst' [p], as the JAX package's H2Matrix.levels hold them.
+    ``symmetric`` as the JAX operator's flag: a nonsymmetric operator's
+    ``.T`` applies the transpose (K20)."""
     dev = getDevice(device)
     dataT = np.array(dataT, dtype=np.float64)
     dataZ = torch.zeros(len(dataT) + 1, dtype=torch.float64, device=dev)
@@ -112,7 +119,8 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
     return H2Matrix(near, torch.as_tensor(np.asarray(leafPhi,
                                                      dtype=np.float64),
                                           device=dev),
-                    (leafLvl, leafPos), lv, Kall, N, leafDofs)
+                    (leafLvl, leafPos), lv, Kall, N, leafDofs,
+                    symmetric=symmetric)
 
 
 def csrFromArrays(indptr, indices, data, shape, device='cuda'):

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Eighteen kernels carry the port's device work:
+Twenty kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -44,35 +44,49 @@ Eighteen kernels carry the port's device work:
                                              normalisation; x += Z y
   K18 bicgstab_update (bicgstab_update.py,   BiCGStab's vector passes
                     Triton)                  around its applies
+  K19 panel_scatter_nonsym                   nonsymmetric local matrices of
+                    (csrc/panel_scatter_nonsym.cu)  explicit pairs,
+                                             t1 PHIxPSI - t2 PHIyPSI with
+                                             t1 = gamma(x, y), t2 = gamma(y, x),
+                                             into dense A or CSR data at
+                                             explicit (entry-masked) slots
+  K20 h2_matvec_T   (csrc/h2_matvec.cu)      transposed H2 apply of a
+                    nonsymmetric operator: K8's sweeps, the far blocks
+                    transposed with source and target swapped, the near
+                    data read in place and scattered by column
 
-The quadrature kernels (K1, K2, K3, K6, K7, K12, K13) evaluate the
+The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
 gaussian, the exponential and their boundary forms) in one device
 function, common.cuh radial<code>(); each is compiled once per profile
-code and its launcher picks the instance.  K14 and K15 take the power
-profile only.
+code and its launcher picks the instance.  K1, K7 and K19 also take a
+variable fractional order (nl/kernels.py OrderParams: constantNonSym,
+leftRight), s(x, y) and its normalization per node in common.cuh
+kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
+seven profiles without an order, the power profile with each order).
+K14 and K15 take the power profile only.
 K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
 dimension of their centers says.
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
-package has the program they replace: K1-K3, K5-K7 and K11-K15 in
-nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 in nl/h2.py, K9 in
-base/linear_operators.py, K10 in multilevel/gmg.py, K16 in
-fem/assembly.py.  A wrapper runs the
-plain version only for tensors on the CPU; on a CUDA tensor it launches
-its kernel or raises.
+package has the program they replace: K1-K3, K5-K7, K11-K15 and K19 in
+nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20 in
+nl/h2.py, K9 in base/linear_operators.py, K10 in multilevel/gmg.py, K16
+in fem/assembly.py.  A wrapper runs the plain version only for tensors on
+the CPU; on a CUDA tensor it launches its kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
 plain int each, bumped by the wrapper where it launches).  K1's four
 scatter targets are also counted apart, under ``panel_scatter:dense``,
-``:slots``, ``:tree`` and ``:cross``, and K4's two forms under
+``:slots``, ``:tree`` and ``:cross``, K19's two under
+``panel_scatter_nonsym:dense`` and ``:slots``, and K4's two forms under
 ``pcg_update:jacobi`` and ``:general``.  ``deviceLaunches`` counts, per
-kernel, the CUDA
-launches those calls made: one per call, except for K2 (two), K4 (three
-in the Jacobi form, four in the general form), K8 (one per pass that
-has work, as the C entry point reports: at most 2 nLvl + 2 for an
-operator of nLvl levels), K17 (j + 3 for Arnoldi step j, two to start a
-cycle, one to combine) and K18 (two per call).  ``resetLaunches`` zeroes both.
+kernel, the CUDA launches those calls made: one per call, except for K2
+(two), K4 (three in the Jacobi form, four in the general form), K8 (one
+per pass that has work, as the C entry point reports: at most 2 nLvl + 2
+for an operator of nLvl levels), K20 (the same way, at most 2 nLvl + 3),
+K17 (j + 3 for Arnoldi step j, two to start a cycle, one to combine) and
+K18 (two per call).  ``resetLaunches`` zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
@@ -92,11 +106,13 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
            'csr_spmv', 'jacobi_smooth', 'block_near_count', 'block_near_quad',
            'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
-           'gmres_arnoldi', 'bicgstab_update')
+           'gmres_arnoldi', 'bicgstab_update', 'panel_scatter_nonsym',
+           'h2_matvec_T')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross')
+K19_TARGETS = ('panel_scatter_nonsym:dense', 'panel_scatter_nonsym:slots')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
-launches = {k: 0 for k in KERNELS + K1_TARGETS + K4_FORMS}
+launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS}
 deviceLaunches = {k: 0 for k in KERNELS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -104,7 +120,8 @@ CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
-           'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu')
+           'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
+           'panel_scatter_nonsym.cu')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',)}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -174,13 +191,17 @@ def _declare(lib):
     F = ctypes.c_float
     # a radial profile: code, C, e, a (nl/kernels.py Profile)
     PROF = (I, D, D, D)
+    # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
+    # exponent base, boundary (nl/kernels.py orderArgs)
+    ORD = (I, D, D, D, D, D, D, D, D, I)
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile (code, C, e, a),
-        # inter, h2, stream
+        # inter, h2, order, yShift, stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, *PROF, I, D, P],
-        # A_BC, NB, then as panel_scatter
+                          P, P, P, P, I, *PROF, I, D, *ORD, P, P],
+        # A_BC, NB, then as panel_scatter up to h2 (a finite horizon: no
+        # variable order, no y shift), stream
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                                 P, P, P, P, I, *PROF, I, D, P],
         # A, N, X, Q, dim, ccf, vols, dofs, dpe, C, PhiXw, PhiX, PsiYw, w,
@@ -192,9 +213,17 @@ def _declare(lib):
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, *PROF, I, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, profile, inter, h2, stream
+        # normals, P, bary_x, bary_y, w, PSIP, Q, profile, inter, h2, order,
+        # yShift, stream
         'panel_scatter_slots': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, *PROF, I, D, P],
+                                P, P, P, P, I, *PROF, I, D, *ORD, P, P],
+        # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym, P,
+        # bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, profile, order, stream
+        'panel_scatter_nonsym': [P, L, P, I, P, I, P, I, P, I, P, L,
+                                 P, P, P, P, P, I, *PROF, *ORD, P],
+        # data, nnz, then as panel_scatter_nonsym with slots for dofRows
+        'panel_scatter_nonsym_slots': [P, L, P, I, P, I, P, I, P, I, P, L,
+                                       P, P, P, P, P, I, *PROF, *ORD, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
@@ -205,10 +234,10 @@ def _declare(lib):
                         I, D, I, D, D, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
-        # tStart, bary_x, bary_y, w, PSIP, Q, profile, stream
+        # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, stream
         'panel_scatter_tree': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                                P, P, P, P, P, P, P, P, P, P, P, P, I, *PROF,
-                               P],
+                               *ORD, P, P],
         # keys, pT, hist, cum, nP, offI, offJ, n2, IA, JA, ncArr, cells, nv,
         # cellNodes, dpe, centers, dim, C, logh, s, c, logH0, T, stream
         'near_enum': [P, P, P, P, I, P, P, P, P, P, P, P, I, P, I, P, I, I,
@@ -237,8 +266,8 @@ def _declare(lib):
                             I, P, P, I, P, I, P, I, I, P, F, F, F, P, I, P,
                             P, P, P, ctypes.POINTER(ctypes.c_int),
                             ctypes.POINTER(ctypes.c_longlong), *PROF, P],
-        # K, gi, gj, P, M, dim, profile, stream
-        'far_field': [P, P, P, L, I, I, *PROF, P],
+        # K, gi, gj, P, M, dim, profile, order, stream
+        'far_field': [P, P, P, L, I, I, *PROF, *ORD, P],
         # y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode, indptrT,
         # tStartRow, tLen, rowLen, tmplStart, tmplAll, data, leafPhi,
         # leafNode, T, parent, levelOff (host), nLvl, K, src, dst, nFar,
@@ -246,6 +275,10 @@ def _declare(lib):
         'h2_matvec': [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P, P, P,
                       P, P, P, P, P, I, P, P, P, L,
                       ctypes.POINTER(ctypes.c_int), P],
+        # y, x, xt, coef, far, yt, then as h2_matvec from Nt on
+        'h2_matvec_T': [P, P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P,
+                        P, P, P, P, P, P, P, I, P, P, P, L,
+                        ctypes.POINTER(ctypes.c_int), P],
         # y, indptr, indices, data, x, nRows, accumulate, stream
         'csr_spmv': [P, P, P, P, P, I, I, P],
         # data, vals, order, offsets, nnz, stream

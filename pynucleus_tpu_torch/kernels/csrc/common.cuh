@@ -84,6 +84,84 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
         default: return static_cast<int>(cudaErrorInvalidValue);    \
     }
 
+// A variable fractional order (pynucleus_tpu_torch/nl/kernels.py
+// OrderParams and its codes): ORDER_NONE, the kernel is its radial profile;
+// ORDER_CONST, s(x, y) = sll; ORDER_LEFT_RIGHT, sll / srr / slr / srl by
+// the sides x[0] < interface and y[0] < interface (strict, as
+// pynucleus_tpu/nl/kernels.py leftRightFractionalOrder.jaxEval).  piD2 =
+// pi^(d/2), halfDim = d/2 and eBase (-d/2, or (1-d)/2 for the boundary
+// kernel) are the host values of the JAX expression's Python floats.
+enum OrderCode { ORDER_NONE = 0, ORDER_CONST = 1, ORDER_LEFT_RIGHT = 2 };
+
+struct Order {
+    int code;
+    double sll, srr, slr, srl, interface;
+    double piD2, halfDim, eBase;
+    int boundary;
+};
+
+template <int OC>
+__device__ __forceinline__ double orderAt(const double* x, const double* y,
+                                          const Order& o) {
+    if constexpr (OC == ORDER_CONST) {
+        return o.sll;
+    } else {
+        static_assert(OC == ORDER_LEFT_RIGHT, "unknown order code");
+        const bool xl = x[0] < o.interface, yl = y[0] < o.interface;
+        return (xl && yl) ? o.sll : ((!xl && !yl) ? o.srr
+                                                  : (xl ? o.slr : o.srl));
+    }
+}
+
+// gamma(x, y) at r2 = |x-y|^2, exactly 0 at r2 == 0: the radial profile PC
+// (radial<PC>) for OC == ORDER_NONE, else the variable-order fractional
+// kernel of pynucleus_tpu/nl/kernels.py FractionalKernel.evalXY (infinite
+// horizon) with s = s(x, y):
+//   C = 2^(2s) s / pi^(d/2) * 0.5 * exp(lgamma(s + d/2) - lgamma(1 - s))
+//   gamma = C r2^(-d/2 - s)   or  (C/s) r2^((1-d)/2 - s)  (boundary kernel)
+// each operation in the plain version's order (nl/kernels.py evalXY),
+// rounded on its own; pow, exp and lgamma are CUDA's double functions.
+template <int PC, int OC>
+__device__ __forceinline__ double kernelXY(double r2, const double* x,
+                                           const double* y, const Profile& p,
+                                           const Order& o) {
+    if constexpr (OC == ORDER_NONE) {
+        return radial<PC>(r2, p);
+    } else {
+        if (!(r2 > 0.0)) return 0.0;
+        const double s = orderAt<OC>(x, y, o);
+        const double C = __dmul_rn(
+            __dmul_rn(__ddiv_rn(__dmul_rn(pow(2.0, __dmul_rn(2.0, s)), s),
+                                o.piD2),
+                      0.5),
+            exp(__dsub_rn(lgamma(__dadd_rn(s, o.halfDim)),
+                          lgamma(__dsub_rn(1.0, s)))));
+        const double rp = pow(r2, __dsub_rn(o.eBase, s));
+        return o.boundary ? __dmul_rn(__ddiv_rn(C, s), rp) : __dmul_rn(C, rp);
+    }
+}
+
+// Runs the statements ... with the compile-time constants PC (profile) and
+// OC (order) equal to the runtime codes: every profile without an order,
+// the power profile with each variable order (a variable order is a
+// fractional kernel); anything else returns cudaErrorInvalidValue from the
+// enclosing launcher.
+#define KERNEL_SWITCH(pcode, ocode, ...)                                  \
+    if ((ocode) == ORDER_NONE) {                                          \
+        constexpr int OC = ORDER_NONE;                                    \
+        PROFILE_SWITCH(pcode, __VA_ARGS__)                                \
+    } else if ((ocode) == ORDER_CONST && (pcode) == PROFILE_POWER) {      \
+        constexpr int OC = ORDER_CONST;                                   \
+        constexpr int PC = PROFILE_POWER;                                 \
+        __VA_ARGS__;                                                      \
+    } else if ((ocode) == ORDER_LEFT_RIGHT && (pcode) == PROFILE_POWER) { \
+        constexpr int OC = ORDER_LEFT_RIGHT;                              \
+        constexpr int PC = PROFILE_POWER;                                 \
+        __VA_ARGS__;                                                      \
+    } else {                                                              \
+        return static_cast<int>(cudaErrorInvalidValue);                   \
+    }
+
 __device__ __forceinline__ double warpSum(double v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
@@ -229,37 +307,55 @@ __device__ __forceinline__ bool inBall(int code, const double* x,
     return code == 1 ? r2 < h2 : __dmul_rn(m, m) < h2;
 }
 
+// Quadrature node q of a pair: x_q = sum_a bary_x[a,q] v1[a] and y_q =
+// sum_a bary_y[a,q] v2[a] (+ ysh [dim], or nullptr) into x, y [dim];
+// returns r2 = |x_q - y_q|^2.  The node geometry of K1 (panelQuad) and K19.
+__device__ __forceinline__ double panelNode(
+    double x[MAXDIM], double y[MAXDIM], double v1[MAXNV][MAXDIM], int nv1,
+    double v2[MAXNV][MAXDIM], int nv2, int dim,
+    const double* __restrict__ bary_x, const double* __restrict__ bary_y,
+    int Q, int q, const double* ysh) {
+    double r2 = 0.0;
+    for (int d = 0; d < dim; ++d) {
+        double xd = 0.0, yd = 0.0;
+        for (int a = 0; a < nv1; ++a) xd += bary_x[a * Q + q] * v1[a][d];
+        for (int a = 0; a < nv2; ++a) yd += bary_y[a * Q + q] * v2[a][d];
+        if (ysh != nullptr) yd = __dadd_rn(yd, ysh[d]);
+        x[d] = xd;
+        y[d] = yd;
+        const double dd = xd - yd;
+        r2 += dd * dd;
+    }
+    return r2;
+}
+
 // K1's quadrature body, shared by its scatter targets and by K6, K12 and
 // K13:
 // lanes lane, lane+nl, ... of the pair's Q nodes accumulate
-//   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v]
-//   t_q = gamma(|x_q-y_q|^2) w_q (* n.(y_q-x_q)/|y_q-x_q|)
+//   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v] (+ ysh)
+//   t_q = gamma(x_q, y_q) w_q (* n.(y_q-x_q)/|y_q-x_q|)
 //         (* chi(x_q, y_q) for a finite horizon, inter != 0) volsym
 //   acc[k] += t_q PSIP[q, k]
-// (acc zeroed here); the caller reduces across its nl lanes.
-template <int NN, int PC>
+// (acc zeroed here); the caller reduces across its nl lanes.  gamma is
+// kernelXY<PC, OC>: the radial profile, or a variable order's kernel;
+// ysh [dim] (or nullptr) shifts the y nodes of a variable-order surface
+// item to one side of an order jump.
+template <int NN, int PC, int OC = ORDER_NONE>
 __device__ __forceinline__ void panelQuad(
     double acc[NN], double v1[MAXNV][MAXDIM], int nv1,
     double v2[MAXNV][MAXDIM], int nv2, int dim,
     const double* nrm /* [dim] or nullptr */, double vs,
     const double* __restrict__ bary_x, const double* __restrict__ bary_y,
     const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
-    const Profile& pf, int lane, int nl, int inter = 0, double h2 = 0.0) {
+    const Profile& pf, int lane, int nl, int inter = 0, double h2 = 0.0,
+    const Order od = Order{}, const double* ysh = nullptr) {
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = 0.0;
     for (int q = lane; q < Q; q += nl) {
         double x[MAXDIM], y[MAXDIM];
-        double r2 = 0.0;
-        for (int d = 0; d < dim; ++d) {
-            double xd = 0.0, yd = 0.0;
-            for (int a = 0; a < nv1; ++a) xd += bary_x[a * Q + q] * v1[a][d];
-            for (int a = 0; a < nv2; ++a) yd += bary_y[a * Q + q] * v2[a][d];
-            x[d] = xd;
-            y[d] = yd;
-            const double dd = xd - yd;
-            r2 += dd * dd;
-        }
-        double t = radial<PC>(r2, pf) * w[q];
+        const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
+                                    bary_y, Q, q, ysh);
+        double t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
         if (!inBall(inter, x, y, dim, h2)) t = 0.0;
         if (nrm != nullptr) {
             double fac = 0.0;

@@ -1,20 +1,21 @@
 // K7 far_field: kernel blocks of the H2 far field on Chebyshev grids.
 //
 // Replaces pynucleus_tpu/nl/assembly.py:_farFieldBlocks:
-//   K[p, a, b] = gamma(|gi[p, a] - gj[p, b]|^2),  gi, gj [P, M, dim]
-// with gamma the kernel's radial profile (common.cuh radial), the same as
-// K1's (getH2 scales the result by -2).  One thread per entry; the M <= 64 grid points of a pair
+//   K[p, a, b] = gamma(gi[p, a], gj[p, b]),  gi, gj [P, M, dim]
+// with gamma the kernel's radial profile or its variable fractional order
+// (kernel.jaxEval -> evalXY; common.cuh kernelXY), the same as K1's (getH2
+// scales the result by -2).  One thread per entry; the M <= 64 grid points of a pair
 // stay in L1/L2.  Bound on the card: the float64 pow per entry (compute);
 // the output, 8 B per entry, is the only large traffic (343 MB at 17,852
 // pairs of M = 49).
 
 #include "common.cuh"
 
-template <int PC>
+template <int PC, int OC>
 __global__ void __launch_bounds__(256)
 far_field_kernel(double* __restrict__ K, const double* __restrict__ gi,
                  const double* __restrict__ gj, long long total, int M,
-                 int dim, Profile pf) {
+                 int dim, Profile pf, Order od) {
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= total) return;
     const long long MM = (long long)M * M;
@@ -28,19 +29,25 @@ far_field_kernel(double* __restrict__ K, const double* __restrict__ gi,
         const double dd = x[d] - y[d];
         r2 += dd * dd;
     }
-    K[idx] = radial<PC>(r2, pf);
+    K[idx] = kernelXY<PC, OC>(r2, x, y, pf, od);
 }
 
 EXPORT int far_field(double* K, const double* gi, const double* gj,
                      long long P, int M, int dim, int pcode, double C,
-                     double e, double a, cudaStream_t stream) {
+                     double e, double a, int ocode, double sll, double srr,
+                     double slr, double srl, double iface, double piD2,
+                     double halfDim, double eBase, int boundary,
+                     cudaStream_t stream) {
     const long long total = P * M * M;
     if (total <= 0) return 0;
     const int threads = 256;
     const long long blocks = (total + threads - 1) / threads;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    PROFILE_SWITCH(pcode, far_field_kernel<PC><<<(unsigned)blocks, threads,
-                                                 0, stream>>>(
-        K, gi, gj, total, M, dim, Profile{pcode, C, e, a}))
+    const Order od{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
+                   boundary};
+    KERNEL_SWITCH(pcode, ocode,
+                  far_field_kernel<PC, OC><<<(unsigned)blocks, threads, 0,
+                                             stream>>>(
+                      K, gi, gj, total, M, dim, Profile{pcode, C, e, a}, od))
     return static_cast<int>(cudaGetLastError());
 }

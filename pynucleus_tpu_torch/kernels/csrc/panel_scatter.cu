@@ -7,9 +7,15 @@
 // _bucket_rows_scatter_scan, _bucket_masked_csr_scan and
 // _bucket_surface_tree_scan.  For pair p with simplices vi1[p], vi2[p]:
 //   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
-//   t_q = gamma(|x_q-y_q|^2) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
+//         (+ yShift[p], a variable order's surface items)
+//   t_q = gamma(x_q, y_q) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
 //         (* chi(x_q, y_q), the interaction indicator of a finite horizon)
 //   M[I,J] = sum_q t_q PSIP[q, I*nPSI+J]
+// gamma is the kernel's radial profile or, for a variable fractional order
+// (constantNonSym, leftRight: pynucleus_tpu/nl/kernels.py
+// FractionalKernel.evalXY, reached through _radial_eval), s(x, y) and its
+// normalization per node (common.cuh kernelXY); the kernel is a template on
+// both codes and each launcher switches once (KERNEL_SWITCH).
 // One quadrature body (common.cuh panelQuad), four epilogues:
 //   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
 //          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
@@ -33,7 +39,7 @@
 
 enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3 };
 
-template <int NPSI, int TARGET, int PC>
+template <int NPSI, int TARGET, int PC, int OC>
 __global__ void __launch_bounds__(256)
 panel_scatter_kernel(double* __restrict__ out,
                      long long N /* dense: N; CSR: nnz; cross: NB */,
@@ -51,7 +57,8 @@ panel_scatter_kernel(double* __restrict__ out,
                      const double* __restrict__ bary_y,
                      const double* __restrict__ w,
                      const double* __restrict__ PSIP, int Q,
-                     Profile pf, int inter, double h2) {
+                     Profile pf, int inter, double h2, Order od,
+                     const double* __restrict__ yShift) {
     constexpr int NN = NPSI * NPSI;
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
@@ -65,9 +72,11 @@ panel_scatter_kernel(double* __restrict__ out,
         for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
 
     double acc[NN];
-    panelQuad<NN, PC>(acc, v1, nv1, v2, nv2, dim,
-                      normals != nullptr ? nrm : nullptr, volsym[pair], bary_x,
-                      bary_y, w, PSIP, Q, pf, lane, 32, inter, h2);
+    panelQuad<NN, PC, OC>(acc, v1, nv1, v2, nv2, dim,
+                          normals != nullptr ? nrm : nullptr, volsym[pair],
+                          bary_x, bary_y, w, PSIP, Q, pf, lane, 32, inter, h2,
+                          od, yShift != nullptr ? yShift + pair * dim
+                                                : nullptr);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
@@ -112,7 +121,8 @@ static int launchPanel(double* out, long long N, const double* vertices,
                        const int* offF, const int* offB, TreeTables tt,
                        const double* bary_x, const double* bary_y,
                        const double* w, const double* PSIP, int Q, Profile pf,
-                       int inter, double h2, cudaStream_t stream) {
+                       int inter, double h2, Order od, const double* yShift,
+                       cudaStream_t stream) {
     if (P <= 0) return 0;
     if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -120,12 +130,12 @@ static int launchPanel(double* out, long long N, const double* vertices,
     const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
 #define LAUNCH(NP)                                                          \
-    panel_scatter_kernel<NP, TARGET, PC><<<(unsigned)blocks, threads, 0,   \
-                                           stream>>>(                      \
+    panel_scatter_kernel<NP, TARGET, PC, OC><<<(unsigned)blocks, threads, 0, \
+                                               stream>>>(                    \
         out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
         normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, pf,  \
-        inter, h2)
-    PROFILE_SWITCH(pf.code, switch (nPSI) {
+        inter, h2, od, yShift)
+    KERNEL_SWITCH(pf.code, od.code, switch (nPSI) {
         case 2: LAUNCH(2); break;
         case 3: LAUNCH(3); break;
         case 4: LAUNCH(4); break;
@@ -145,12 +155,18 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, int pcode, double C,
                          double e, double a, int inter, double h2,
-                         cudaStream_t stream) {
+                         int ocode, double sll, double srr, double slr,
+                         double srl, double iface, double piD2,
+                         double halfDim, double eBase, int boundary,
+                         const double* yShift, cudaStream_t stream) {
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2, stream);
+                              Profile{pcode, C, e, a}, inter, h2,
+                              Order{ocode, sll, srr, slr, srl, iface, piD2,
+                                    halfDim, eBase, boundary},
+                              yShift, stream);
 }
 
 EXPORT int panel_scatter_cross(double* A, long long NB,
@@ -168,7 +184,8 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2, stream);
+                              Profile{pcode, C, e, a}, inter, h2, Order{},
+                              nullptr, stream);
 }
 
 EXPORT int panel_scatter_slots(double* data, long long nnz,
@@ -181,12 +198,18 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, int pcode, double C,
                                double e, double a, int inter, double h2,
-                               cudaStream_t stream) {
+                               int ocode, double sll, double srr, double slr,
+                               double srl, double iface, double piD2,
+                               double halfDim, double eBase, int boundary,
+                               const double* yShift, cudaStream_t stream) {
     return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2, stream);
+                              Profile{pcode, C, e, a}, inter, h2,
+                              Order{ocode, sll, srr, slr, srl, iface, piD2,
+                                    halfDim, eBase, boundary},
+                              yShift, stream);
 }
 
 EXPORT int panel_scatter_tree(double* data, long long nnz,
@@ -202,11 +225,17 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               const double* bary_x, const double* bary_y,
                               const double* w, const double* PSIP, int Q,
                               int pcode, double C, double e, double a,
-                              cudaStream_t stream) {
+                              int ocode, double sll, double srr, double slr,
+                              double srl, double iface, double piD2,
+                              double halfDim, double eBase, int boundary,
+                              const double* yShift, cudaStream_t stream) {
     return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P, I,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
                              bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a}, 0, 0.0, stream);
+                             Profile{pcode, C, e, a}, 0, 0.0,
+                             Order{ocode, sll, srr, slr, srl, iface, piD2,
+                                   halfDim, eBase, boundary},
+                             yShift, stream);
 }

@@ -1,0 +1,161 @@
+// K19 panel_scatter_nonsym: batched panel quadrature of the nonsymmetric
+// local matrices of explicit element pairs, scattered into the dense
+// operator or into CSR data at explicit slots.
+//
+// Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib_nonsym (with the
+// dense scatter of DenseAccumulator.add, and the per-pair entry-mask adds
+// into the H2 near field's tree CSR of _runPairBuckets).  For pair p:
+//   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
+//   t1_q = gamma(x_q, y_q) w_q volsym[p],  t2_q = gamma(y_q, x_q) w_q volsym[p]
+//   M[k] = sum_q t1_q PHIxPSI[q, k] - sum_q t2_q PHIyPSI[q, k]
+// with gamma the kernel's radial profile or its variable fractional order
+// (common.cuh kernelXY; both orderings share r2 and the node geometry of
+// K1, common.cuh panelNode), two epilogues:
+//   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I*nPSI+J]   for both dofs >= 0
+//   SLOTS  data[slots[p, k]] += M[k]                      for 0 <= slot < nnz
+//          (the host masks a pair's entries by its cluster pairs: a masked
+//          entry has no slot)
+//
+// Design: as K1, one warp per pair with lanes striding over the Q nodes;
+// both accumulators (2 nPSI^2 doubles, 32 for the 1D P1 pairs) stay in
+// registers, a warp butterfly reduces each, and one atomicAdd(double) per
+// entry adds M = acc1 - acc2, the order of the JAX program's two products
+// and their difference.  Bound on the card: a variable order's two kernel
+// evaluations per node (two pow, two lgamma and an exp each) and the
+// 2 nPSI^2 FMAs (compute).
+
+#include "common.cuh"
+
+enum NonsymTarget { NS_DENSE = 0, NS_SLOTS = 1 };
+
+template <int NPSI, int TARGET, int PC, int OC>
+__global__ void __launch_bounds__(256)
+panel_scatter_nonsym_kernel(double* __restrict__ out,
+                            long long N /* dense: N; slots: nnz */,
+                            const double* __restrict__ vertices, int dim,
+                            const long long* __restrict__ vi1, int nv1,
+                            const long long* __restrict__ vi2, int nv2,
+                            const long long* __restrict__ dofRows,
+                            const int* __restrict__ slots,
+                            const double* __restrict__ volsym, long long P,
+                            const double* __restrict__ bary_x,
+                            const double* __restrict__ bary_y,
+                            const double* __restrict__ w,
+                            const double* __restrict__ PHIxPSI,
+                            const double* __restrict__ PHIyPSI, int Q,
+                            Profile pf, Order od) {
+    constexpr int NN = NPSI * NPSI;
+    const int lane = threadIdx.x & 31;
+    const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
+                           + (threadIdx.x >> 5);
+    if (pair >= P) return;  // uniform across the warp
+
+    double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
+    loadSimplex(v1, vertices, vi1 + pair * nv1, nv1, dim);
+    loadSimplex(v2, vertices, vi2 + pair * nv2, nv2, dim);
+    const double vs = volsym[pair];
+
+    double acc1[NN], acc2[NN];
+#pragma unroll
+    for (int k = 0; k < NN; ++k) acc1[k] = acc2[k] = 0.0;
+    for (int q = lane; q < Q; q += 32) {
+        double x[MAXDIM], y[MAXDIM];
+        const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
+                                    bary_y, Q, q, nullptr);
+        const double t1 = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q] * vs;
+        const double t2 = kernelXY<PC, OC>(r2, y, x, pf, od) * w[q] * vs;
+        const double* px = PHIxPSI + (long long)q * NN;
+        const double* py = PHIyPSI + (long long)q * NN;
+#pragma unroll
+        for (int k = 0; k < NN; ++k) {
+            acc1[k] += t1 * __ldg(px + k);
+            acc2[k] += t2 * __ldg(py + k);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < NN; ++k) {
+        acc1[k] = warpSum(acc1[k]);
+        acc2[k] = warpSum(acc2[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < NN; ++k) {
+        if ((k & 31) != lane) continue;
+        const double m = acc1[k] - acc2[k];
+        if (TARGET == NS_DENSE) {
+            const long long* dr = dofRows + pair * NPSI;
+            const long long r = dr[k / NPSI], c = dr[k % NPSI];
+            if (r >= 0 && c >= 0) atomicAdd(out + r * N + c, m);
+        } else {
+            const long long s = slots[pair * NN + k];
+            if (s >= 0 && s < N) atomicAdd(out + s, m);
+        }
+    }
+}
+
+template <int TARGET>
+static int launchNonsym(double* out, long long N, const double* vertices,
+                        int dim, const long long* vi1, int nv1,
+                        const long long* vi2, int nv2,
+                        const long long* dofRows, const int* slots, int nPSI,
+                        const double* volsym, long long P,
+                        const double* bary_x, const double* bary_y,
+                        const double* w, const double* PHIxPSI,
+                        const double* PHIyPSI, int Q, Profile pf, Order od,
+                        cudaStream_t stream) {
+    if (P <= 0) return 0;
+    if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 256;
+    const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+#define LAUNCH(NP)                                                           \
+    panel_scatter_nonsym_kernel<NP, TARGET, PC, OC>                          \
+        <<<(unsigned)blocks, threads, 0, stream>>>(                          \
+            out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots,       \
+            volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, pf, od)
+    KERNEL_SWITCH(pf.code, od.code, switch (nPSI) {
+        case 2: LAUNCH(2); break;
+        case 3: LAUNCH(3); break;
+        case 4: LAUNCH(4); break;
+        case 6: LAUNCH(6); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    })
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
+}
+
+EXPORT int panel_scatter_nonsym(
+    double* A, long long N, const double* vertices, int dim,
+    const long long* vi1, int nv1, const long long* vi2, int nv2,
+    const long long* dofRows, int nPSI, const double* volsym, long long P,
+    const double* bary_x, const double* bary_y, const double* w,
+    const double* PHIxPSI, const double* PHIyPSI, int Q, int pcode, double C,
+    double e, double a, int ocode, double sll, double srr, double slr,
+    double srl, double iface, double piD2, double halfDim, double eBase,
+    int boundary, cudaStream_t stream) {
+    return launchNonsym<NS_DENSE>(
+        A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nullptr, nPSI,
+        volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q,
+        Profile{pcode, C, e, a},
+        Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
+              boundary},
+        stream);
+}
+
+EXPORT int panel_scatter_nonsym_slots(
+    double* data, long long nnz, const double* vertices, int dim,
+    const long long* vi1, int nv1, const long long* vi2, int nv2,
+    const int* slots, int nPSI, const double* volsym, long long P,
+    const double* bary_x, const double* bary_y, const double* w,
+    const double* PHIxPSI, const double* PHIyPSI, int Q, int pcode, double C,
+    double e, double a, int ocode, double sll, double srr, double slr,
+    double srl, double iface, double piD2, double halfDim, double eBase,
+    int boundary, cudaStream_t stream) {
+    return launchNonsym<NS_SLOTS>(
+        data, nnz, vertices, dim, vi1, nv1, vi2, nv2, nullptr, slots, nPSI,
+        volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q,
+        Profile{pcode, C, e, a},
+        Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
+              boundary},
+        stream);
+}

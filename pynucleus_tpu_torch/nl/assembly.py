@@ -1,8 +1,16 @@
 """Nonlocal operator assembly on the device, dense, sparse and H2; kernels
-K1-K3, K5-K7 and K11-K15.
+K1-K3, K5-K7, K11-K15 and K19.
 
-Port of the symmetric constant-coefficient paths of
-pynucleus_tpu/nl/assembly.py.  Infinite horizon (the fractional,
+Port of the constant-coefficient paths of pynucleus_tpu/nl/assembly.py
+and, on the interval, of its variable-order and nonsymmetric fractional
+kernels (constantNonSym, leftRight): the per-pair path of _runPairBuckets
+(rules per singularity, the nonsymmetric local matrices for both
+orderings, the split of touching panels whose two orderings have
+different singularities), the zero-exterior term with the variable
+boundary kernel, and in H2 the cluster tree split at the order jumps, the
+near field through the per-pair legacy path with entry masks, the union
+surfaces with the jump facets (y shifted to either side) and the far field
+with the variable order.  Infinite horizon (the fractional,
 gaussian and exponential kernels, 1D and 2D): getDense with the cell-pair
 grid (``params={'denseGrid': True}``) and getH2 with the device-CSR near
 field (``params={'forceDeviceCSR': True}``) and the JAX package's default
@@ -43,6 +51,9 @@ pattern exactly as the JAX package does; the device work is:
                      interval clipping (dense, CSR slots or A_BC)
   K15 cut2d_polar    finite horizon, 2D: pairs cut by the horizon, polar
                      rays clipped to the cell and the ball2 or ballInf ball
+  K19 panel_scatter_nonsym  the nonsymmetric local matrices of a variable
+                     or nonsymmetric order's pairs, into a dense A or into
+                     the H2 near field at entry-masked slots
 
 Each kernel has a wrapper and a plain PyTorch version here.  The wrapper
 runs the plain version only for CPU tensors; on CUDA tensors it launches
@@ -82,13 +93,14 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
                      boundaryOrderModelParams)
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
-from .kernels import radialEval, profileArgs, POWER
+from .kernels import radialEval, profileArgs, POWER, evalXY, orderArgs
 
 __all__ = ['nonlocalBuilder', 'assembleNonlocal', 'panel_scatter',
            'panel_scatter_slots', 'panel_scatter_tree',
            'panel_scatter_cross', 'cut1d', 'cut2d_polar', 'grid_distant',
            'grid_boundary', 'near_enum', 'near_enum_quad', 'far_field',
            'block_near_count', 'block_near_quad', 'tree_csr_quad',
+           'panel_scatter_nonsym', 'panel_scatter_nonsym_slots',
            'NEAR_ENGINES']
 
 TI32 = torch.int32
@@ -159,10 +171,11 @@ def _indicatorArgs(indicator):
 # ------------------------------------------------------------------ K1 ----
 
 def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
-                  bary_x, bary_y, w, PSIP, prof, indicator=None):
+                  bary_x, bary_y, w, PSIP, prof, indicator=None, order=None,
+                  yShift=None):
     """Panel quadrature of explicit pairs, scattered into A [N, N]:
 
-        M[p] = sum_q gamma(|x_q - y_q|^2) w_q volsym[p]
+        M[p] = sum_q gamma(x_q, y_q) w_q volsym[p]
                      (* n_p.(y_q-x_q)/|y_q-x_q|) (* chi(x_q, y_q)) PSIP[q]
         A[dofRows[p,I], dofRows[p,J]] += M[p, I*nPSI+J]  (both dofs >= 0)
 
@@ -172,31 +185,50 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
     profile ``prof`` (nl.kernels.Profile, evaluated as nl.kernels.radialEval);
     indicator (code, h2) the interaction indicator chi of a finite horizon
     (code 1: |x-y|^2 < h2, ball2; code 2: max|x_d-y_d|^2 < h2, ballInf), or
-    None.
+    None.  gamma(x, y) is nl.kernels.evalXY: the profile, or with ``order``
+    (nl.kernels.OrderParams) a variable fractional order's kernel; yShift
+    [P, dim] (or None) is added to pair p's y nodes (useYShift of the JAX
+    program: the side of an order jump of a surface item).
 
     Kernel K1 (kernels/csrc/panel_scatter.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _bucket_contrib + _device_scatter_rows,
     _bucket_natural_scatter_scan and _bucket_rows_scatter_scan."""
     _check('panel_scatter', A,
-           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP),
+           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
+                   yShift),
            ints=(vi1, vi2, dofRows))
     P, _, _ = _panelArgs('panel_scatter', None, vertices, vi1, vi2, volsym,
-                         normals, bary_x, bary_y, w, PSIP, dofRows.shape[1])
+                         normals, bary_x, bary_y, w, PSIP, dofRows.shape[1],
+                         yShift)
     if dofRows.shape[0] != P:
         raise ValueError('panel_scatter: shape mismatch')
     if A.device.type == 'cpu':
         return _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym,
                                     normals, bary_x, bary_y, w, PSIP, prof,
-                                    indicator)
+                                    indicator, order, yShift)
     _launchDofTarget('panel_scatter', 'dense', A, A.shape[0], vertices, vi1,
                      vi2, dofRows, volsym, normals, bary_x, bary_y, w, PSIP,
-                     prof, indicator)
+                     prof, indicator, *orderArgs(order), _opt(yShift))
+
+
+def _orderKw(order, yShift=None):
+    """The keyword arguments of a variable order and a y shift where given
+    (a constant-order kernel's calls keep K1's and K7's plain signatures)."""
+    return {k: v for k, v in (('order', order), ('yShift', yShift))
+            if v is not None}
+
+
+def _opt(t):
+    """Pointer of an optional tensor argument (None: a null pointer)."""
+    return kernels.ptr(t) if t is not None else None
 
 
 def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
-                     normals, bary_x, bary_y, w, PSIP, prof, indicator):
+                     normals, bary_x, bary_y, w, PSIP, prof, indicator,
+                     *orderTail):
     """K1 into a dof-indexed target (dense A [N, N], or A_BC [N, NB] with N
-    the column count NB)."""
+    the column count NB); ``orderTail`` the dense target's order arguments
+    and y shift (the cross target, a finite horizon, has none)."""
     P, nPSI = dofRows.shape
     if P == 0:
         return
@@ -210,7 +242,7 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(bary_x),
         p(bary_y), p(w), p(PSIP), w.shape[0], *profileArgs(prof),
-        *_indicatorArgs(indicator), kernels.stream()))
+        *_indicatorArgs(indicator), *orderTail, kernels.stream()))
 
 
 def panel_scatter_cross(A, vertices, vi1, vi2, dofRows, volsym, normals,
@@ -259,13 +291,15 @@ def _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows, volsym,
 
 
 def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
-                   PSIP, prof, indicator=None):
+                   PSIP, prof, indicator=None, order=None, yShift=None):
     """Local matrices M [P, nPSI^2] of explicit pairs (K1's quadrature body,
     plain); the caller bounds P."""
     x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
     y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
+    if yShift is not None:
+        y = y + yShift[:, None, :]
     r2 = ((x - y) ** 2).sum(-1)
-    t = radialEval(r2, prof) * w[None, :]
+    t = evalXY(x, y, r2, prof, order) * w[None, :]
     code, h2 = _indicatorArgs(indicator)
     if code == 1:
         t = t * (r2 < h2)
@@ -286,13 +320,15 @@ def _plainChunks(P, Q):
 
 
 def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
-                         bary_x, bary_y, w, PSIP, prof, indicator=None):
+                         bary_x, bary_y, w, PSIP, prof, indicator=None,
+                         order=None, yShift=None):
     """Plain PyTorch version of :func:`panel_scatter` (any device)."""
     P, nPSI = dofRows.shape
     for sl in _plainChunks(P, w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, prof, indicator)
+                           bary_x, bary_y, w, PSIP, prof, indicator, order,
+                           None if yShift is None else yShift[sl])
         dr = dofRows[sl]
         p = dr.shape[0]
         rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(-1)
@@ -301,7 +337,7 @@ def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
 
 
 def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
-               bary_y, w, PSIP, nPSI):
+               bary_y, w, PSIP, nPSI, yShift=None):
     """Shape checks of K1's targets (``data``: the CSR data, whose slots
     are int32, or None for a dof-indexed target); returns (P, Q, dim)."""
     P, Q, dim = vi1.shape[0], w.shape[0], vertices.shape[1]
@@ -309,7 +345,8 @@ def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
             or bary_x.shape != (vi1.shape[1], Q) \
             or bary_y.shape != (vi2.shape[1], Q) \
             or PSIP.shape != (Q, nPSI * nPSI) \
-            or (normals is not None and normals.shape != (P, dim)):
+            or (normals is not None and normals.shape != (P, dim)) \
+            or (yShift is not None and yShift.shape != (P, dim)):
         raise ValueError(f'{name}: shape mismatch')
     if data is not None and data.shape[0] - 1 >= (1 << 31):
         raise ValueError(f'{name}: int32 slots need nnz < 2^31')
@@ -317,7 +354,8 @@ def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
 
 
 def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
-                        bary_x, bary_y, w, PSIP, prof, indicator=None):
+                        bary_x, bary_y, w, PSIP, prof, indicator=None,
+                        order=None, yShift=None):
     """K1 into CSR data at explicit slots: with M[p] as in
     :func:`panel_scatter`,
 
@@ -328,19 +366,23 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
     version on CPU tensors.  Replaces _bucket_masked_csr_scan (the
     identical-cell bucket) and the host adds of _bucket_contrib's
     touching-pair matrices (DeviceCSRAccumulator.add, and CSRAccumulator.add
-    of the sparse format); ``indicator`` as in :func:`panel_scatter`."""
+    of the sparse format); ``indicator``, ``order`` and ``yShift`` as in
+    :func:`panel_scatter`."""
     _check('panel_scatter_slots', data, flat=True,
-           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP),
+           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
+                   yShift),
            ints=(vi1, vi2), i32=(slots,))
     nPSI = int(round(slots.shape[1] ** 0.5))
     P, Q, dim = _panelArgs('panel_scatter_slots', data, vertices, vi1, vi2,
-                           volsym, normals, bary_x, bary_y, w, PSIP, nPSI)
+                           volsym, normals, bary_x, bary_y, w, PSIP, nPSI,
+                           yShift)
     if slots.shape != (P, nPSI * nPSI):
         raise ValueError('panel_scatter_slots: slots must be [P, nPSI^2]')
     if data.device.type == 'cpu':
         return _panel_scatter_slots_plain(data, vertices, vi1, vi2, slots,
                                           volsym, normals, bary_x, bary_y,
-                                          w, PSIP, prof, indicator)
+                                          w, PSIP, prof, indicator, order,
+                                          yShift)
     if P == 0:
         return
     lib = kernels.library()
@@ -353,7 +395,8 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
         p(vi2), vi2.shape[1], p(slots), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(bary_x),
         p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
-        *_indicatorArgs(indicator), kernels.stream()))
+        *_indicatorArgs(indicator), *orderArgs(order), _opt(yShift),
+        kernels.stream()))
 
 
 def _addSlots(data, slots, vals):
@@ -364,12 +407,13 @@ def _addSlots(data, slots, vals):
 
 def _panel_scatter_slots_plain(data, vertices, vi1, vi2, slots, volsym,
                                normals, bary_x, bary_y, w, PSIP, prof,
-                               indicator=None):
+                               indicator=None, order=None, yShift=None):
     """Plain PyTorch version of :func:`panel_scatter_slots` (any device)."""
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, prof, indicator)
+                           bary_x, bary_y, w, PSIP, prof, indicator, order,
+                           None if yShift is None else yShift[sl])
         _addSlots(data, slots[sl].reshape(-1), M.reshape(-1))
 
 
@@ -408,7 +452,7 @@ def _checkTables(name, data, tables):
 
 def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
                        I, J, offF, offB, tables, bary_x, bary_y, w, PSIP,
-                       prof):
+                       prof, order=None, yShift=None):
     """K1 into CSR data at arithmetic tree slots: with M[p] as in
     :func:`panel_scatter` and the slot of local entry (a, b) of pair p from
     its cluster pair (I[p], J[p]) and block offsets (offF[p], offB[p])
@@ -417,23 +461,27 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         data[slot(p, a, b)] += M[p, a*nPSI+b]     (dump slot skipped)
 
     dofRows [P, nPSI] int64; I, J, offF, offB [P] int32; tables = (dofNode
-    [N], treePos [N], indptrT [Nt+1], tStart [nodes]) int32.  Kernel K1 on
-    CUDA tensors, the plain version on CPU tensors.  Replaces
-    _bucket_surface_tree_scan."""
+    [N], treePos [N], indptrT [Nt+1], tStart [nodes]) int32; ``order`` and
+    ``yShift`` as in :func:`panel_scatter`.  Kernel K1 on CUDA tensors, the
+    plain version on CPU tensors.  Replaces _bucket_surface_tree_scan (with
+    useYShift for a variable order's items)."""
     _checkTables('panel_scatter_tree', data, tables)
     _check('panel_scatter_tree', data, flat=True,
-           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP),
+           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
+                   yShift),
            ints=(vi1, vi2, dofRows), i32=(I, J, offF, offB))
     nPSI = dofRows.shape[1]
     P, Q, dim = _panelArgs('panel_scatter_tree', data, vertices, vi1, vi2,
-                           volsym, normals, bary_x, bary_y, w, PSIP, nPSI)
+                           volsym, normals, bary_x, bary_y, w, PSIP, nPSI,
+                           yShift)
     if dofRows.shape[0] != P or any(a.shape != (P,) for a in (I, J, offF,
                                                               offB)):
         raise ValueError('panel_scatter_tree: shape mismatch')
     if data.device.type == 'cpu':
         return _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows,
                                          volsym, normals, I, J, offF, offB,
-                                         tables, bary_x, bary_y, w, PSIP, prof)
+                                         tables, bary_x, bary_y, w, PSIP, prof,
+                                         order, yShift)
     if P == 0:
         return
     lib = kernels.library()
@@ -447,21 +495,156 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(I), p(J), p(offF),
         p(offB), p(dofNode), p(treePos), p(indptrT), p(tStart), p(bary_x),
-        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof), kernels.stream()))
+        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof), *orderArgs(order),
+        _opt(yShift), kernels.stream()))
 
 
 def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
                               normals, I, J, offF, offB, tables, bary_x,
-                              bary_y, w, PSIP, prof):
+                              bary_y, w, PSIP, prof, order=None, yShift=None):
     """Plain PyTorch version of :func:`panel_scatter_tree` (any device)."""
     nnz = data.shape[0] - 1
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
-                           bary_x, bary_y, w, PSIP, prof)
+                           bary_x, bary_y, w, PSIP, prof, None, order,
+                           None if yShift is None else yShift[sl])
         slots = _treeSlots(dofRows[sl], I[sl], J[sl], offF[sl], offB[sl],
                            tables, nnz)
         _addSlots(data, slots.reshape(-1), M.reshape(-1))
+
+
+# ------------------------------------------------------------------ K19 ---
+
+def _phiPsi(PHI, PSI):
+    """PHIxPSI [Q, n^2] = PHI[I, q] PSI[J, q] at column I*n+J."""
+    n, Q = PSI.shape
+    return (PHI[:, None, :] * PSI[None, :, :]).reshape(n * n, Q).T.copy()
+
+
+def _nonsymArgs(name, out, vertices, vi1, vi2, volsym, bary_x, bary_y, w,
+                PHIxPSI, PHIyPSI, nPSI, ints, i32=()):
+    """Checks of K19's arguments; returns (P, Q, dim)."""
+    _check(name, out, flat=out.dim() == 1,
+           floats=(vertices, volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI),
+           ints=(vi1, vi2) + ints, i32=i32)
+    P, Q, dim = _panelArgs(name, None, vertices, vi1, vi2, volsym, None,
+                           bary_x, bary_y, w, PHIxPSI, nPSI)
+    if PHIyPSI.shape != PHIxPSI.shape:
+        raise ValueError(f'{name}: shape mismatch')
+    return P, Q, dim
+
+
+def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
+                         bary_y, w, PHIxPSI, PHIyPSI, prof, order=None):
+    """Nonsymmetric local matrices of explicit pairs, scattered into A
+    [N, N]:
+
+        t1_q = gamma(x_q, y_q) w_q volsym[p],  t2_q = gamma(y_q, x_q) w_q
+        volsym[p]
+        M[p] = t1 @ PHIxPSI - t2 @ PHIyPSI
+        A[dofRows[p,I], dofRows[p,J]] += M[p, I*nPSI+J]  (both dofs >= 0)
+
+    with x_q, y_q, gamma (``prof``, ``order``) as in :func:`panel_scatter`;
+    PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi` of the rule's buildPHI
+    and buildPSI).  Kernel K19 (kernels/csrc/panel_scatter_nonsym.cu) on
+    CUDA tensors, the plain version on CPU tensors.  Replaces
+    _bucket_contrib_nonsym with DenseAccumulator.add."""
+    P, Q, dim = _nonsymArgs('panel_scatter_nonsym', A, vertices, vi1, vi2,
+                            volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
+                            dofRows.shape[1], (dofRows,))
+    if dofRows.shape[0] != P:
+        raise ValueError('panel_scatter_nonsym: shape mismatch')
+    if A.device.type == 'cpu':
+        return _panel_scatter_nonsym_plain(A, 'dense', dofRows, vertices, vi1,
+                                           vi2, volsym, bary_x, bary_y, w,
+                                           PHIxPSI, PHIyPSI, prof, order)
+    _launchNonsym('panel_scatter_nonsym', 'dense', A, A.shape[0], dofRows,
+                  vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
+                  PHIyPSI, prof, order)
+
+
+def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
+                               bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof,
+                               order=None):
+    """K19 into CSR data at explicit slots: with M[p] as in
+    :func:`panel_scatter_nonsym`,
+
+        data[slots[p, k]] += M[p, k]      for 0 <= slots[p, k] < nnz
+
+    data [nnz+1] float64 (slot nnz, the dump slot, and negative slots are
+    skipped); slots [P, nPSI^2] int32, the host's per-pair entry masks
+    folded in (a masked entry has the dump slot).  Kernel K19 on CUDA
+    tensors, the plain version on CPU tensors.  Replaces the masked adds of
+    _bucket_contrib_nonsym's matrices into the H2 near field."""
+    nPSI = int(round(slots.shape[1] ** 0.5))
+    P, Q, dim = _nonsymArgs('panel_scatter_nonsym_slots', data, vertices,
+                            vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
+                            PHIyPSI, nPSI, (), (slots,))
+    if slots.shape != (P, nPSI * nPSI):
+        raise ValueError('panel_scatter_nonsym_slots: slots must be '
+                         '[P, nPSI^2]')
+    if data.shape[0] - 1 >= (1 << 31):
+        raise ValueError('panel_scatter_nonsym_slots: int32 slots need '
+                         'nnz < 2^31')
+    if data.device.type == 'cpu':
+        return _panel_scatter_nonsym_plain(data, 'slots', slots, vertices,
+                                           vi1, vi2, volsym, bary_x, bary_y,
+                                           w, PHIxPSI, PHIyPSI, prof, order)
+    _launchNonsym('panel_scatter_nonsym_slots', 'slots', data,
+                  data.shape[0] - 1, slots, vertices, vi1, vi2, volsym,
+                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order)
+
+
+def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
+                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order):
+    P = vi1.shape[0]
+    if P == 0:
+        return
+    lib = kernels.library()
+    kernels.launches['panel_scatter_nonsym'] += 1
+    kernels.deviceLaunches['panel_scatter_nonsym'] += 1
+    kernels.launches['panel_scatter_nonsym:' + target] += 1
+    p = kernels.ptr
+    nPSI = index.shape[1] if target == 'dense' else \
+        int(round(index.shape[1] ** 0.5))
+    kernels.check(getattr(lib, fn)(
+        p(out), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
+        p(vi2), vi2.shape[1], p(index), nPSI, p(volsym), P, p(bary_x),
+        p(bary_y), p(w), p(PHIxPSI), p(PHIyPSI), w.shape[0],
+        *profileArgs(prof), *orderArgs(order), kernels.stream()))
+
+
+def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
+                    PHIyPSI, prof, order):
+    """M [P, nPSI^2] of explicit pairs (K19's body, plain), in the order of
+    pynucleus_tpu/nl/assembly.py _bucket_contrib_nonsym."""
+    x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
+    y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
+    r2 = ((x - y) ** 2).sum(-1)
+    t1 = evalXY(x, y, r2, prof, order) * w[None, :]
+    t2 = evalXY(y, x, r2, prof, order) * w[None, :]
+    t1 = t1 * volsym[:, None]
+    t2 = t2 * volsym[:, None]
+    return t1 @ PHIxPSI - t2 @ PHIyPSI
+
+
+def _panel_scatter_nonsym_plain(out, target, index, vertices, vi1, vi2,
+                                volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
+                                prof, order=None):
+    """Plain PyTorch version of K19 (any device): target 'dense' (index:
+    dofRows) or 'slots' (index: slots)."""
+    for sl in _plainChunks(vi1.shape[0], w.shape[0]):
+        M = _nonsymMatrices(vertices, vi1[sl], vi2[sl], volsym[sl], bary_x,
+                            bary_y, w, PHIxPSI, PHIyPSI, prof, order)
+        if target == 'slots':
+            _addSlots(out, index[sl].reshape(-1), M.reshape(-1))
+            continue
+        dr = index[sl]
+        p, n = dr.shape
+        rows = dr[:, :, None].expand(p, n, n).reshape(-1)
+        cols = dr[:, None, :].expand(p, n, n).reshape(-1)
+        _scatterBlocks(out, rows, cols, M.reshape(-1))
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -842,12 +1025,13 @@ def _near_enum_quad_plain(data, ids, pT, cum, offI, offJ, n2, IA, JA, offF,
 
 # ------------------------------------------------------------------ K7 ----
 
-def far_field(gi, gj, prof):
-    """Far-field blocks K[p, a, b] = gamma(|gi[p, a] - gj[p, b]|^2) for the
+def far_field(gi, gj, prof, order=None):
+    """Far-field blocks K[p, a, b] = gamma(gi[p, a], gj[p, b]) for the
     Chebyshev grids gi, gj [P, M, dim] float64 of the far cluster pairs;
-    gamma the radial profile ``prof`` as in K1.  Kernel K7
+    gamma the radial profile ``prof``, or with ``order`` a variable
+    fractional order's kernel, as in K1 (nl.kernels.evalXY).  Kernel K7
     (kernels/csrc/far_field.cu) on CUDA tensors, the plain version on CPU
-    tensors.  Replaces _farFieldBlocks."""
+    tensors.  Replaces _farFieldBlocks (kernel.jaxEval)."""
     for t in (gi, gj):
         if t.dtype != torch.float64 or not t.is_contiguous() \
                 or t.device != gi.device or t.dim() != 3:
@@ -857,7 +1041,7 @@ def far_field(gi, gj, prof):
         raise ValueError('far_field: shape mismatch')
     P, M, dim = gi.shape
     if gi.device.type == 'cpu':
-        return _far_field_plain(gi, gj, prof)
+        return _far_field_plain(gi, gj, prof, order)
     K = torch.empty((P, M, M), dtype=torch.float64, device=gi.device)
     if P == 0:
         return K
@@ -866,14 +1050,14 @@ def far_field(gi, gj, prof):
     kernels.deviceLaunches['far_field'] += 1
     kernels.check(lib.far_field(
         kernels.ptr(K), kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
-        *profileArgs(prof), kernels.stream()))
+        *profileArgs(prof), *orderArgs(order), kernels.stream()))
     return K
 
 
-def _far_field_plain(gi, gj, prof):
+def _far_field_plain(gi, gj, prof, order=None):
     """Plain PyTorch version of :func:`far_field` (any device)."""
-    r2 = ((gi[:, :, None, :] - gj[:, None, :, :]) ** 2).sum(-1)
-    return radialEval(r2, prof)
+    x, y = gi[:, :, None, :], gj[:, None, :, :]
+    return evalXY(x, y, ((x - y) ** 2).sum(-1), prof, order)
 
 
 # ------------------------------------------------------------- K11, K12 ----
@@ -1443,9 +1627,15 @@ class DeviceDenseAccumulator:
         self.A = torch.zeros((N, N), dtype=TREAL, device=device)
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, prof, indicator):
+                  tables, prof, indicator, order=None):
         panel_scatter(self.A, vertices, vi1, vi2, dofRows, volsym, normals,
-                      *tables, prof, indicator=indicator)
+                      *tables, prof, indicator=indicator, **_orderKw(order))
+
+    def addNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, prof,
+                  order):
+        """K19 into A; tables = (bary_x, bary_y, w, PHIxPSI, PHIyPSI)."""
+        panel_scatter_nonsym(self.A, vertices, vi1, vi2, dofRows, volsym,
+                             *tables, prof, order)
 
     def cutTarget(self, dofRows):
         """(out, target, index) of K14 and K15 for local dofs dofRows."""
@@ -1515,10 +1705,10 @@ class DeviceCSRAccumulator:
         return out
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, prof, indicator):
+                  tables, prof, indicator, order=None):
         panel_scatter_slots(self.data, vertices, vi1, vi2,
                             self.slots(dofRows), volsym, normals, *tables,
-                            prof, indicator=indicator)
+                            prof, indicator=indicator, **_orderKw(order))
 
     def cutTarget(self, dofRows):
         return self.data, 'slots', self.slots(dofRows)
@@ -1551,7 +1741,8 @@ class _BucketRunner:
         acc.addPanels(self.vertices, vi1, vi2, dofRows, volsym,
                       normals if self.useNormals else None,
                       self.ruleTables(rule, PSI), prof,
-                      self.kernel.indicatorParams())
+                      self.kernel.indicatorParams(),
+                      **_orderKw(self.kernel.orderParams()))
 
     def runNatural(self, acc, rule, PSI, di, dj, symfac):
         """Pairs given as cell ids (id buckets, distant corrections): the
@@ -1592,10 +1783,43 @@ class _BucketRunner:
                             self._t(volsym), None,
                             *self.ruleTables(rule, PSI), prof)
 
+    def runPairs(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
+                 entryMask=None, *, PHI):
+        """Explicit pairs of a nonsymmetric kernel, their local matrices
+        with PHI = (PHIx, PHIy) through K19, into the dense operator or
+        into the H2 near field's tree CSR at host slots, entries outside
+        ``entryMask`` [P, nPSI, nPSI] dropped (pynucleus_tpu/nl/assembly.py
+        _BucketRunner.run with entryMask and PHI)."""
+        P = len(vertIdx1)
+        if P == 0:
+            return
+        prof, order = self.kernel.profileParams(), self.kernel.orderParams()
+        tables = (*(self._t(a) for a in (rule.bary_x, rule.bary_y, rule.w)),
+                  self._t(_phiPsi(PHI[0], PSI)),
+                  self._t(_phiPsi(PHI[1], PSI)))
+        if not isinstance(acc, DeviceTreeCSRAccumulator):
+            if entryMask is not None:
+                raise ValueError('entry masks need the tree CSR target')
+            acc.addNonsym(self.vertices, self._t(vertIdx1, TINDEX),
+                          self._t(vertIdx2, TINDEX),
+                          self._t(dofRows, TINDEX), self._t(volsym), tables,
+                          prof, order)
+            return
+        n = PSI.shape[0]
+        for s in range(0, P, _HOST_PAIRS):
+            sl = slice(s, s + _HOST_PAIRS)
+            em = np.ones((len(dofRows[sl]), n, n), dtype=bool) \
+                if entryMask is None else entryMask[sl]
+            panel_scatter_nonsym_slots(
+                acc.data, self.vertices, self._t(vertIdx1[sl], TINDEX),
+                self._t(vertIdx2[sl], TINDEX),
+                self._t(acc.maskedSlots(dofRows[sl], em), TI32),
+                self._t(volsym[sl]), *tables, prof, order)
+
     def runTree(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
-                normals, I, J, offF, offB):
+                normals, I, J, offF, offB, yShift=None):
         """Explicit pairs owned by cluster pairs (I, J) into CSR data at
-        arithmetic tree slots."""
+        arithmetic tree slots; yShift [P, dim] shifts the y nodes."""
         if len(vertIdx1) == 0:
             return
         prof = self.kernel.profileParams()
@@ -1604,7 +1828,9 @@ class _BucketRunner:
             self._t(vertIdx2, TINDEX), self._t(dofRows, TINDEX),
             self._t(volsym), self._t(normals) if self.useNormals else None,
             *(self._t(a, TI32) for a in (I, J, offF, offB)), acc.tables,
-            *self.ruleTables(rule, PSI), prof)
+            *self.ruleTables(rule, PSI), prof,
+            **_orderKw(self.kernel.orderParams(),
+                       self._t(yShift) if yShift is not None else None))
 
 
 class _PatternMaskLookup:
@@ -1697,8 +1923,11 @@ NEAR_ENGINES = ('block', 'flat', 'host')
 
 
 class nonlocalBuilder:
-    """Assembly of a symmetric constant-coefficient kernel (port of
-    pynucleus_tpu/nl/assembly.py nonlocalBuilder).  Infinite horizon (the
+    """Assembly of a nonlocal kernel (port of pynucleus_tpu/nl/assembly.py
+    nonlocalBuilder).  A variable or nonsymmetric fractional order
+    (``general``: constantNonSym, leftRight) takes the per-pair path on the
+    interval, dense and H2, as the JAX package does; on other meshes it
+    raises.  Infinite horizon (the
     fractional, gaussian and exponential kernels, zero exterior): getDense
     on the grid path, getH2 with the device-CSR near field, on the interval
     and in 2D.  Finite horizon (fractional, indicator and
@@ -1730,11 +1959,21 @@ class nonlocalBuilder:
         self.zeroExterior = False if kernel.finiteHorizon else zeroExterior
         self.device = getDevice(device if device is not None else dm.device)
         self.timers = {}
-        if kernel.variable or kernel.variableHorizon or not kernel.symmetric \
-                or kernel.isComplex or kernel.phi is not None \
-                or kernel.complement:
-            raise NotImplementedError('the port assembles symmetric '
-                                      'constant-coefficient kernels only')
+        if kernel.variableHorizon or kernel.isComplex \
+                or kernel.phi is not None or kernel.complement:
+            raise NotImplementedError('the port assembles kernels without a '
+                                      'variable horizon, two-point weights, '
+                                      'complement or complex values only')
+        # a variable or nonsymmetric order: the per-pair path
+        self.general = kernel.variable or not kernel.symmetric
+        if self.general and self.mesh.manifold_dim != 1:
+            raise NotImplementedError('variable and nonsymmetric orders are '
+                                      'ported on the interval only')
+        if self.general and kernel.symmetric:
+            # the symmetric variable orders are the 2D ones (innerOuter,
+            # islands, layers, ...): not ported
+            raise NotImplementedError('symmetric variable orders are not '
+                                      'ported')
         self.nearEngine = self.params.get('nearEngine', 'block')
         if self.nearEngine not in NEAR_ENGINES:
             raise ValueError(f'nearEngine {self.nearEngine!r}: one of '
@@ -1828,6 +2067,8 @@ class nonlocalBuilder:
         The grid passes need nothing but the classification, so they go
         first: the card works through them while the host builds the
         buckets."""
+        if self.general:
+            return self._runPairBucketsGeneral(acc, info)
         if 'gridPasses' in info:
             self._runDistantGrid(acc, info['gridPasses'])
         dm, mesh = self.dm, self.mesh
@@ -1866,6 +2107,200 @@ class nonlocalBuilder:
         ci, cj, cutOrders = info['cut']
         if len(ci):
             self._runCutPairs(acc, runner, ci, cj, cutOrders)
+
+    # ------------------------------------ variable and nonsymmetric orders
+    def _makeSplitRuleFor(self, sing, quad_order_diagonal, nS):
+        """Touching-panel rule with cancellation=1 for the one-sided terms
+        of mixed-singularity nonsymmetric panels
+        (pynucleus_tpu/nl/assembly.py _makeSplitRuleFor, 1D)."""
+        p = max(self.dm.polynomialOrder, 1)
+        return vertexRule1D(sing, quad_order_diagonal, 2 * p,
+                            continuous=self.dm.polynomialOrder >= 1,
+                            cancellation=1.0)
+
+    def _pairSingularities(self, pi, pj):
+        """Per-pair kernel singularity from the order at the cell centers
+        (pynucleus_tpu/nl/assembly.py:2080-2089)."""
+        kernel = self.kernel
+        if not kernel.variable:
+            return np.full(len(pi), kernel.getSingularityValue())
+        mesh = self.mesh
+        centers = mesh.vertices[mesh.cells].mean(axis=1)
+        sv = kernel.s(centers[pi], centers[pj])
+        return (1.0 if kernel.boundary else 0.0) - kernel.dim \
+            - 2 * np.asarray(sv)
+
+    def _touchingGroups(self, pairs, sharedInfo):
+        """Touching pairs grouped by (#shared vertices, singularity of
+        gamma(x, y), singularity of gamma(y, x)), in the JAX package's order
+        of first occurrence (nl/assembly.py:2175-2187): {key: [pair
+        indices]}.  sharedInfo is (lut, group) of _sharedVertices."""
+        byKey = {}
+        if not len(pairs):
+            return byKey
+        lut, group = sharedInfo
+        sings12 = self._pairSingularities(pairs[:, 0], pairs[:, 1])
+        sings21 = self._pairSingularities(pairs[:, 1], pairs[:, 0])
+        for k in range(len(pairs)):
+            key = (lut[group[k]][0], round(float(sings12[k]), 12),
+                   round(float(sings21[k]), 12))
+            byKey.setdefault(key, []).append(k)
+        return byKey
+
+    def _runPairBucketsGeneral(self, acc, info, maskLookup=None):
+        """Identical, touching and distant buckets of a nonsymmetric
+        kernel (pynucleus_tpu/nl/assembly.py _runPairBuckets, its general
+        branch, :2097-2340, code-identical in what goes where): per-bucket
+        rules by singularity; the local matrices (K19) for BOTH orderings
+        with factor 1, and the touching
+        panels whose two orderings have different singularities in two
+        passes with the cancellation-1 rules (the JAX package's deliberate
+        deviation from the reference, :2165-2175); ``maskLookup``
+        (_PatternMaskLookup) masks each entry to its cluster pairs for the
+        H2 near field."""
+        dm, kernel, mesh = self.dm, self.kernel, self.mesh
+        vols = mesh.simplexVolumes()
+        cells = mesh.cells
+        dofs = dm.dofs
+        dpe = dm.dofs_per_element
+        mdim = mesh.manifold_dim
+        runner = _BucketRunner(mesh, dm, kernel, self.device)
+        detfac = {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
+        dets = vols * detfac
+        qd = info['quad_order_diagonal']
+        ruleCache = {}
+
+        def rulesFor(sing):
+            key = round(float(sing), 12)
+            if key not in ruleCache:
+                ruleCache[key] = self._makeRulesFor(sing, qd)
+            return ruleCache[key]
+
+        # --- identical-cell panels, grouped by singularity
+        ids = info['id']
+        if len(ids):
+            sings = self._pairSingularities(ids, ids)
+            for sing in np.unique(np.round(sings, 12)):
+                idsS = ids[np.isclose(sings, sing)]
+                ruleId = rulesFor(sing)['ruleId']
+                PSI = ruleId.buildPSI(dm, nSharedVertices=mdim + 1)
+                PHI = ruleId.buildPHI(dm, nSharedVertices=mdim + 1)
+                em = None
+                if maskLookup is not None:
+                    em = maskLookup.lookup(idsS, idsS)[:, :dpe, :dpe]
+                runner.runPairs(acc, ruleId, PSI, cells[idsS], cells[idsS],
+                                dofs[idsS], dets[idsS] ** 2, entryMask=em,
+                                PHI=PHI)
+
+        # --- touching panels, grouped by (#shared vertices, singularity of
+        # gamma(x,y), singularity of gamma(y,x))
+        pairs, sharedInfo = info['touching']
+        lut, group = sharedInfo if len(pairs) else ([], None)
+        for (nS, sing, sing21), idxs in self._touchingGroups(
+                pairs, sharedInfo).items():
+            rules = rulesFor(sing)
+            rule = rules['ruleVertex'] if (mdim == 1 or nS == 1) \
+                else rules['ruleEdge']
+            PSI = rule.buildPSI(dm, nSharedVertices=nS)
+            PHI = rule.buildPHI(dm, nSharedVertices=nS)
+            sharedMask = rule.sharedDofMask(dm, nS)
+            P = len(idxs)
+            nv = mdim + 1
+            # both orderings: rows [0, P) (i, j), rows [P, 2P) (j, i)
+            vi1 = np.zeros((2 * P, nv), dtype=np.int64)
+            vi2 = np.zeros((2 * P, nv), dtype=np.int64)
+            dr = np.zeros((2 * P, 2 * dpe), dtype=np.int64)
+            vs = np.zeros(2 * P)
+            em = np.zeros((2 * P, 2 * dpe, 2 * dpe), dtype=bool) \
+                if maskLookup is not None else None
+            idxsArr = np.asarray(idxs)
+            ii = pairs[idxsArr, 0]
+            jj = pairs[idxsArr, 1]
+            sigInv = group[idxsArr]
+            baseMask = maskLookup.lookup(ii, jj) \
+                if maskLookup is not None else None
+            for g in np.unique(sigInv):
+                gsel = np.nonzero(sigInv == g)[0]
+                _, perm1, perm2 = lut[g]
+                ld1 = permuteLocalDofs(dm, perm1)
+                ld2 = permuteLocalDofs(dm, perm2)
+                gi, gj = ii[gsel], jj[gsel]
+                vi1[gsel] = cells[gi][:, perm1]
+                vi2[gsel] = cells[gj][:, perm2]
+                dr[np.ix_(gsel, np.arange(dpe))] = dofs[gi][:, ld1]
+                drj = dofs[gj][:, ld2].copy()
+                drj[:, sharedMask] = DROP
+                dr[np.ix_(gsel, dpe + np.arange(dpe))] = drj
+                vs[gsel] = dets[gi] * dets[gj]
+                if em is not None:
+                    ldFull = np.concatenate([ld1, dpe + ld2])
+                    em[gsel] = baseMask[gsel][:, ldFull][:, :, ldFull]
+                o2 = P + gsel
+                vi1[o2] = cells[gj][:, perm2]
+                vi2[o2] = cells[gi][:, perm1]
+                dr[np.ix_(o2, np.arange(dpe))] = dofs[gj][:, ld2]
+                dri = dofs[gi][:, ld1].copy()
+                dri[:, sharedMask] = DROP
+                dr[np.ix_(o2, dpe + np.arange(dpe))] = dri
+                vs[o2] = dets[gi] * dets[gj]
+                if em is not None:
+                    ldFull2 = np.concatenate([dpe + ld2, ld1])
+                    em[o2] = baseMask[gsel][:, ldFull2][:, :, ldFull2]
+            if sing == sing21:
+                runner.runPairs(acc, rule, PSI, vi1, vi2, dr, vs,
+                                entryMask=em, PHI=PHI)
+                continue
+            # mixed-singularity nonsymmetric panel: each one-sided term with
+            # its own matched rule, cancellation 1
+            splitRules = {}
+
+            def splitRule(sg):
+                if sg not in splitRules:
+                    r = self._makeSplitRuleFor(sg, qd, nS)
+                    ph = r.buildPHI(dm, nSharedVertices=nS)
+                    splitRules[sg] = (r, r.buildPSI(dm, nSharedVertices=nS),
+                                      ph, np.zeros_like(ph[0]))
+                return splitRules[sg]
+
+            sA, sB = slice(0, P), slice(P, 2 * P)
+            for rows in (sA, sB):
+                emR = em[rows] if em is not None else None
+                s12 = sing if rows is sA else sing21
+                s21 = sing21 if rows is sA else sing
+                r1, ps1, ph1, z1 = splitRule(s12)
+                runner.runPairs(acc, r1, ps1, vi1[rows], vi2[rows], dr[rows],
+                                vs[rows], entryMask=emR, PHI=(ph1[0], z1))
+                r2, ps2, ph2, z2 = splitRule(s21)
+                runner.runPairs(acc, r2, ps2, vi1[rows], vi2[rows], dr[rows],
+                                vs[rows], entryMask=emR, PHI=(z2, ph2[1]))
+
+        # --- distant panels, bucketed by quad order (high orders merged)
+        di, dj, orders = info['distant']
+        if len(orders):
+            omax = int(orders.max())
+            orders = np.where(orders > 16, omax, orders)
+            orders = np.where((orders > 8) & (orders <= 16),
+                              min(16, omax), orders)
+        for order in np.unique(orders):
+            sel = orders == order
+            ii, jj = di[sel], dj[sel]
+            rule = distantRule(int(order), mdim)
+            PSI = rule.buildPSI(dm, nSharedVertices=0)
+            PHI = rule.buildPHI(dm, nSharedVertices=0)
+            iiA = np.concatenate([ii, jj])
+            jjA = np.concatenate([jj, ii])
+            dr = np.concatenate([dofs[iiA], dofs[jjA]], axis=1)
+            vs = vols[iiA] * vols[jjA]
+            em = None
+            if maskLookup is not None and len(iiA):
+                em = maskLookup.lookup(iiA, jjA).copy()
+                swapped = iiA > jjA
+                if swapped.any():
+                    # natural mask is (lo, hi)-ordered; swap the blocks
+                    em[swapped] = np.roll(np.roll(em[swapped], -dpe, axis=1),
+                                          -dpe, axis=2)
+            runner.runPairs(acc, rule, PSI, cells[iiA], cells[jjA], dr, vs,
+                            entryMask=em, PHI=PHI)
 
     def _runCutPairs(self, acc, runner, ci, cj, orders):
         """Pairs cut by the horizon, one launch per quadrature order: in 1D
@@ -1942,9 +2377,12 @@ class nonlocalBuilder:
         surface = mesh.get_surface_mesh()
         bkernel = self.kernel.getModifiedKernel(horizon=np.inf) \
             .getBoundaryKernel()
+        # a variable boundary kernel has no grid pass: every surface pair
+        # goes through K1 (the JAX package's gridOK)
+        gridOK = not bkernel.variable
         binfo = classifyBoundaryPairs(
             dm, surface, bkernel, target_order=self.params.get('target_order'),
-            correctionsOnly=True)
+            correctionsOnly=gridOK)
         vols = mesh.simplexVolumes()
         svols = surface.simplexVolumes()
         cells, scells = mesh.cells, surface.cells
@@ -1961,11 +2399,21 @@ class nonlocalBuilder:
         # number of shared vertices (2D: vertex vs edge panels)
         tpairs, perms = binfo['touching']
         qd = binfo['quad_order_diagonal']
-        sigb = bkernel.getSingularityValue()
+        if bkernel.variable and len(tpairs):
+            # a rule matched to each pair's exponent, from the order at
+            # (cell center, surface center) (nl/assembly.py:4452-4466)
+            ccen = mesh.vertices[cells].mean(axis=1)
+            scen = mesh.vertices[scells].reshape(
+                len(scells), -1, mesh.dim).mean(axis=1)
+            sigbs = 1.0 - bkernel.dim - 2.0 * np.asarray(
+                bkernel.s(ccen[tpairs[:, 0]], scen[tpairs[:, 1]]))
+        else:
+            sigbs = np.full(len(tpairs), bkernel.getSingularityValue())
         byShared = {}
         for k in range(len(tpairs)):
-            byShared.setdefault(perms[k][0], []).append(k)
-        for nS, idxs in byShared.items():
+            byShared.setdefault((perms[k][0], round(float(sigbs[k]), 12)),
+                                []).append(k)
+        for (nS, sigb), idxs in byShared.items():
             if mdim == 1:
                 rule = boundaryVertexRule1D(sigb, qd)
             else:
@@ -1996,8 +2444,10 @@ class nonlocalBuilder:
             runner.run(acc, rule, PHI, vi1, vi2, dr, vs, normals=nm)
 
         # everything but the touching pairs and the order>4 corrections
+        # (all distant pairs without the grid)
         di, dj, orders = binfo['distant']
-        self._runBoundaryGrid(acc, surface, bkernel, di, dj, tpairs)
+        if gridOK:
+            self._runBoundaryGrid(acc, surface, bkernel, di, dj, tpairs)
         for order in np.unique(orders):
             sel = orders == order
             ii, jj = di[sel], dj[sel]
@@ -2085,6 +2535,11 @@ class nonlocalBuilder:
 
         # ---- tree + admissibility
         nodes = buildClusterTree(dm, minSize)
+        if kernel.variable:
+            from .h2 import splitLeavesByKernelBlocks
+            t0 = time.perf_counter()
+            nodes = splitLeavesByKernelBlocks(nodes, dm, kernel)
+            self.timers['plan (split leaves)'] = time.perf_counter() - t0
         Pfar, Pnear = admissibleClusters(
             nodes, eta, m, dim,
             minFarFieldBlockSize=self.params.get('minFarFieldBlockSize'))
@@ -2293,6 +2748,24 @@ class nonlocalBuilder:
                                        nodeRow, nNear, ordKeysS, blockOffS,
                                        indptrT, tStartOfNode)
         t0 = self._lap('near pattern', t0)
+        if self.general:
+            # a variable or nonsymmetric order: the per-pair path with entry
+            # masks (K1, K19) for the singular pairs, the near cluster pairs'
+            # distant cell pairs and the union surfaces with the order jumps
+            self._runPairBucketsGeneral(acc, info, maskLookup=pairMasks)
+            t0 = self._lap('singular', t0)
+            self._runNearDistantLegacy(acc, IJ, nodeRow, ncArr, ncOff,
+                                       pairMasks)
+            t0 = self._lap('legacy pairs', t0)
+            if surf is not None:
+                self._runUnionSurface(acc, surf, nodeRow, nNear, ordKeysS,
+                                      blockOffS)
+            t0 = self._lap('surfaces', t0)
+            meta = TreeNearMeta(indptrT, tmplAll, tmplStart, tStartRow, tLen,
+                                rowLen, perm, N)
+            op = TreeNearOperator(acc.data, meta)
+            self._lap('near operator set-up', t0)
+            return op
         self._runNearSingular(acc, info, pairMasks)
         t0 = self._lap('singular', t0)
         nf = SimpleNamespace(IJ=IJ, nodeRow=nodeRow, nNear=nNear, ncArr=ncArr,
@@ -2323,8 +2796,80 @@ class nonlocalBuilder:
         self._lap('near operator set-up', t0)
         return op
 
+    def _runNearDistantLegacy(self, acc, IJ, nodeRow, ncArr, ncOff,
+                              pairMasks):
+        """The distant cell pairs of the near cluster pairs of a
+        nonsymmetric or variable kernel: the cell products of every near
+        cluster pair, deduplicated globally, classified (classifyPairList)
+        and run through the per-pair entry-mask path (both orderings)
+        (pynucleus_tpu/nl/assembly.py:3895-3935 _runNearDistantLegacy).
+        The host classification is timed as 'legacy classification'."""
+        dm, mesh, kernel = self.dm, self.mesh, self.kernel
+        t0 = time.perf_counter()
+        C = mesh.num_cells
+        rIp = nodeRow[IJ[:, 0]]
+        rJp = nodeRow[IJ[:, 1]]
+        n1 = ncOff[rIp + 1] - ncOff[rIp]
+        n2 = ncOff[rJp + 1] - ncOff[rJp]
+        tot = n1 * n2
+        cum = np.cumsum(tot)
+        keyChunks = []
+        CHUNK = 1 << 25
+        p0 = 0
+        while p0 < len(IJ):
+            p1 = min(int(np.searchsorted(cum, (cum[p0 - 1] if p0 else 0)
+                                         + CHUNK)) + 1, len(IJ))
+            p1 = max(p1, p0 + 1)
+            totc = tot[p0:p1]
+            T = int(totc.sum())
+            if T:
+                pe = np.repeat(np.arange(p0, p1), totc)
+                off = np.repeat(np.cumsum(totc) - totc, totc)
+                loc = np.arange(T) - off
+                aa = ncArr[ncOff[rIp[pe]] + loc // n2[pe]]
+                bb = ncArr[ncOff[rJp[pe]] + loc % n2[pe]]
+                keyChunks.append(np.unique(
+                    np.minimum(aa, bb) * C + np.maximum(aa, bb)))
+            p0 = p1
+        allKeys = np.unique(np.concatenate(keyChunks)) if keyChunks \
+            else np.zeros(0, dtype=np.int64)
+        info2 = classifyPairList(
+            dm, kernel, allKeys // C, allKeys % C,
+            target_order=self.params.get('target_order'))
+        info2['id'] = np.zeros(0, dtype=np.int64)
+        info2['touching'] = (np.zeros((0, 2), dtype=np.int64), ([], None))
+        self.timers['legacy classification'] = \
+            self.timers.get('legacy classification', 0.0) \
+            + time.perf_counter() - t0
+        self._runPairBucketsGeneral(acc, info2, maskLookup=pairMasks)
+
+    def _getKernelJumps(self):
+        """Interior facets where the cell-centered order jumps:
+        [(facetVerts, unitNormal, cell1, cell2)] (pynucleus_tpu/nl/
+        assembly.py:4160 _getKernelJumps, its 1D branch)."""
+        if hasattr(self, '_jumps'):
+            return self._jumps
+        mesh, kernel = self.mesh, self.kernel
+        centers = mesh.vertices[mesh.cells].mean(axis=1)
+        sDiag = np.asarray(kernel.s(centers, centers)).reshape(-1)
+        cells = mesh.cells
+        if mesh.manifold_dim != 1:
+            raise NotImplementedError('order jumps: the interval only')
+        out = []
+        order = np.argsort(centers[:, 0])
+        # facet between consecutive cells sharing a vertex
+        vertSets = [set(int(v) for v in cells[c]) for c in range(len(cells))]
+        for a, b in zip(order[:-1], order[1:]):
+            shared = vertSets[a] & vertSets[b]
+            if shared and abs(sDiag[a] - sDiag[b]) > 1e-12:
+                v = shared.pop()
+                out.append((np.array([v], dtype=np.int64),
+                            np.array([1.0]), int(a), int(b)))
+        self._jumps = out
+        return out
+
     def _unionSurfaceItems(self, IJ, nL, nodeRow, ncOff, ncArr, dofNode):
-        """Surface items (cell, facet, normal, I, J) of the near cluster
+        """Surface items (cell, facet, normal, I, J, sgn) of the near cluster
         pairs that share a cell: the diagonal mass from outside each pair's
         cell union, as a Gauss-theorem integral over the union's boundary
         facets, for the cells of the union's intersection that hold dofs of
@@ -2352,8 +2897,9 @@ class nonlocalBuilder:
         if not len(pairsAdj):
             return None
         if mesh.manifold_dim == 1:
+            jumps = self._getKernelJumps() if self.kernel.variable else []
             return _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff,
-                                     ncArr, dofNode)
+                                     ncArr, dofNode, jumps)
         rA = nodeRow[pairsAdj[:, 0]]
         rB = nodeRow[pairsAdj[:, 1]]
         same = pairsAdj[:, 0] == pairsAdj[:, 1]
@@ -2423,7 +2969,7 @@ class nonlocalBuilder:
         posF = np.repeat(facOff[kPid], rep) + _aranges(rep)
         return (np.repeat(kCell, rep), bFac[posF], nrm[posF],
                 np.repeat(pairsAdj[kPid, 0], rep),
-                np.repeat(pairsAdj[kPid, 1], rep))
+                np.repeat(pairsAdj[kPid, 1], rep), np.ones(int(rep.sum())))
 
     def _runNearSingular(self, acc, info, pairMasks):
         """Identical-cell and touching panels of the near field through K1
@@ -2705,11 +3251,15 @@ class nonlocalBuilder:
         """Boundary-kernel quadrature of the union-surface items through K1
         into tree slots, each item masked to its cluster pair's
         (I x J) u (J x I) entries on the device (pynucleus_tpu's
-        _runUnionSurface for constant-order kernels: no jump facets, no
-        y nudge, sign +1).  In 1D the facets are vertices (nv2 = 1) and the
-        n.(y-x)/|y-x| orientation factor of the boundary kernel is folded
-        into each item's weight, as the JAX package does; 2D evaluates it
-        per quadrature point."""
+        _runUnionSurface, nl/assembly.py:4208-4340).  In 1D the facets are
+        vertices (nv2 = 1) and the n.(y-x)/|y-x| orientation factor of the
+        boundary kernel is folded into each item's weight, as the JAX
+        package does; 2D evaluates it per quadrature point.  Each item
+        carries sgn (+1, or -1 for the second run over a jump facet) as a
+        weight; for a variable order its y nodes are shifted by
+        sgn 1e-9 normal (the side of the jump whose order applies) and its
+        rule is matched to the order frozen at (cell center, shifted facet
+        center)."""
         dm, mesh, kernel = self.dm, self.mesh, self.kernel
         dofs = dm.dofs
         cells = mesh.cells
@@ -2728,7 +3278,9 @@ class nonlocalBuilder:
         qd = mpb['quad_order_diagonal']
         sigb = bkernel.getSingularityValue()
 
-        cellNos, facets, normals, Iids, Jids = surf
+        cellNos, facets, normals, Iids, Jids, sgns = surf
+        needShift = kernel.variable
+        epsShift = 1e-9
         rIs = nodeRow[Iids]
         rJs = nodeRow[Jids]
         offFall = blockOffS[np.searchsorted(ordKeysS, rIs * nNear + rJs)]
@@ -2737,6 +3289,15 @@ class nonlocalBuilder:
         facCenters = verts[facets].mean(axis=1)
         svols = np.linalg.norm(verts[facets[:, 1]] - verts[facets[:, 0]],
                                axis=1) if facets.shape[1] >= 2 else np.ones(S)
+        if kernel.variable:
+            # the boundary singularity of each item from the order at (cell
+            # center, shifted facet center)
+            yc = facCenters + sgns[:, None] * epsShift * normals
+            sv = np.asarray(kernel.s(verts[cells[cellNos]].mean(axis=1),
+                                     yc)).reshape(-1)
+            sings = np.round(1.0 - mesh.dim - 2.0 * sv, 12)
+        else:
+            sings = np.full(S, sigb)
         # shared-vertex signature of each item as one small integer: bit
         # 2a+b says cell vertex a is facet vertex b.  A handful of codes
         # occur, so each code's permutations are worked out once and its
@@ -2766,27 +3327,33 @@ class nonlocalBuilder:
                 vi1 = cells[cs]
                 vi2 = facets[sel]
                 dr = dofs[cs]
-            vs = (detfac * vols[cs] if useDet else vols[cs]) * svols[sel]
+            vs = (detfac * vols[cs] if useDet else vols[cs]) * svols[sel] \
+                * sgns[sel]
             if mdim == 1:
                 p0 = verts[facets[sel, 0], 0]
                 c0 = verts[cells[cs], 0].mean(axis=1)
                 vs = vs * np.sign(normals[sel, 0] * (p0 - c0))
+            yOff = sgns[sel, None] * epsShift * normals[sel] \
+                if needShift else None
             runner.runTree(acc, rule, rule.buildPSI(dm, boundary=True), vi1,
                            vi2, dr, vs, normals[sel], Iids[sel], Jids[sel],
-                           offFall[sel], offBall[sel])
+                           offFall[sel], offBall[sel], yShift=yOff)
 
-        # touching items, one bucket per shared-vertex signature
+        # touching items, one bucket per shared-vertex signature and
+        # singularity
         for c, (nS, perm1, perm2) in permLut.items():
             if nS == 0:
                 continue
-            if mdim == 1:
-                rule = boundaryVertexRule1D(sigb, qd)
-            elif nS == 2:
-                sig_eff = sigb if sigb > -1 + 1e-3 else 2.0 + sigb
-                rule = boundaryEdgeRule2DSS(sig_eff, qd, qd)
-            else:
-                rule = boundaryVertexRule2DSS(sigb, qd, qd)
-            runBucket(rule, np.nonzero(code == c)[0], perm1, perm2)
+            selC = np.nonzero(code == c)[0]
+            for sig in np.unique(sings[selC]):
+                if mdim == 1:
+                    rule = boundaryVertexRule1D(sig, qd)
+                elif nS == 2:
+                    sig_eff = sig if sig > -1 + 1e-3 else 2.0 + sig
+                    rule = boundaryEdgeRule2DSS(sig_eff, qd, qd)
+                else:
+                    rule = boundaryVertexRule2DSS(sig, qd, qd)
+                runBucket(rule, selC[sings[selC] == sig], perm1, perm2)
 
         # distant items: per-item order from the boundary model (per-cell
         # centers and diameters computed once)
@@ -2830,8 +3397,11 @@ class nonlocalBuilder:
 
     def getDense(self):
         """Dense [N, N] operator: the grid path for an infinite horizon,
-        every cell pair classified for a finite one."""
-        if self.kernel.finiteHorizon:
+        every cell pair classified for a finite one and for a variable or
+        nonsymmetric order."""
+        if self.kernel.finiteHorizon or self.general:
+            # the grid path takes symmetric radial kernels only
+            # (pynucleus_tpu/nl/assembly.py _gridEligible)
             info = self._classifyAll()
         else:
             info = classifyPairsDenseGrid(
@@ -2935,7 +3505,9 @@ class nonlocalBuilder:
             # cross terms -u(x)v(y) carry factor -2 (both orderings of the
             # ordered cluster pair; ref clusterMethodCy.pyx:2216)
             Kall = far_field(_upload(plan['farGi'], dev),
-                             _upload(plan['farGj'], dev), prof).mul_(-2.0)
+                             _upload(plan['farGj'], dev), prof,
+                             **_orderKw(self.kernel.orderParams())
+                             ).mul_(-2.0)
         else:
             Kall = torch.zeros((0, M, M), dtype=TREAL, device=dev)
         t0 = self._lap('far field', t0)
@@ -2952,7 +3524,8 @@ class nonlocalBuilder:
             levels.append(lv)
         op = H2Matrix(Anear, _upload(plan['leafPhi'], dev),
                       (plan['lvlIdx'], plan['posIdx']), levels, Kall,
-                      self.dm.num_dofs, plan['leafDofs'])
+                      self.dm.num_dofs, plan['leafDofs'],
+                      symmetric=self.kernel.symmetric)
         op.diagonal  # built now: its host work belongs to the set-up
         self._lap('near operator set-up', t0)
         return op
@@ -2978,13 +3551,20 @@ def _cellSetBoundary1D(mesh, cellSet):
     return facets.astype(np.int64), normals
 
 
-def _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff, ncArr, dofNode):
+def _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff, ncArr, dofNode,
+                      jumps=()):
     """The union-surface items of the cluster pairs pairsAdj, one pair at a
     time: the per-pair loop of pynucleus_tpu's _assembleNearField
-    (nl/assembly.py:3322-3352, constant-order kernels: no jump facets),
-    code-identical so that the items equal the JAX package's array for
-    array.  Returns (cells, facets, normals, I, J) or None."""
-    sp_cell, sp_fac, sp_nrm, sp_I, sp_J = [], [], [], [], []
+    (nl/assembly.py:3322-3375), with the jump facets of a variable order
+    (``jumps``, nonlocalBuilder._getKernelJumps) outside each union, twice
+    with sgn = +1 and -1, code-identical so that the items equal the JAX
+    package's array for array.  Returns (cells, facets, normals, I, J, sgn)
+    or None."""
+    sp_cell, sp_fac, sp_nrm, sp_I, sp_J, sp_sgn = [], [], [], [], [], []
+    if len(jumps):
+        jF = np.stack([np.asarray(j[0]) for j in jumps]).astype(np.int64)
+        jN = np.stack([np.asarray(j[1]) for j in jumps])
+        jC = np.array([[j[2], j[3]] for j in jumps], dtype=np.int64)
 
     def nodeCells(nid):
         r = nodeRow[nid]
@@ -3020,11 +3600,27 @@ def _unionSurfaceLoop(mesh, dofs, pairsAdj, nodeRow, ncOff, ncArr, dofNode):
                 sp_nrm.append(np.tile(normals, (nK, 1)))
                 sp_I.append(np.full(nK * F, I, dtype=np.int64))
                 sp_J.append(np.full(nK * F, J, dtype=np.int64))
+                sp_sgn.append(np.ones(nK * F))
+                # jump facets strictly inside U^c: two runs with the order
+                # evaluated on either side (ref assembleClusters
+                # pxi:2032-2108)
+                if len(jumps):
+                    outside = ~(np.isin(jC[:, 0], U) | np.isin(jC[:, 1], U))
+                    jIdx = np.nonzero(outside)[0]
+                    nJ = len(jIdx)
+                    if nJ:
+                        for sgn in (1.0, -1.0):
+                            sp_cell.append(np.repeat(cK, nJ))
+                            sp_fac.append(np.tile(jF[jIdx], (nK, 1)))
+                            sp_nrm.append(np.tile(jN[jIdx], (nK, 1)))
+                            sp_I.append(np.full(nK * nJ, I, dtype=np.int64))
+                            sp_J.append(np.full(nK * nJ, J, dtype=np.int64))
+                            sp_sgn.append(np.full(nK * nJ, sgn))
     if not sp_cell:
         return None
     return (np.concatenate(sp_cell), np.concatenate(sp_fac, axis=0),
             np.concatenate(sp_nrm, axis=0), np.concatenate(sp_I),
-            np.concatenate(sp_J))
+            np.concatenate(sp_J), np.concatenate(sp_sgn))
 
 
 # explicit-slot pairs per K1 launch (bounds the host slot arrays)

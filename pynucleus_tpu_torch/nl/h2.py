@@ -1,12 +1,14 @@
 """Hierarchical (H2) operator of the port; kernel K8.
 
-Port of pynucleus_tpu/nl/h2.py for the symmetric constant-order path:
+Port of pynucleus_tpu/nl/h2.py for the infinite-horizon kernels, with the
+split of the tree at a variable order's jumps and the transposed apply of
+a nonsymmetric operator:
 
   host (numpy, carried over unchanged so both packages build the same tree,
   the same admissible pairs and the same tree-ordered near-field layout):
       chebyshevPoints, batchedChebyshevGrids, _chebLagrange01,
       batchedLagrangeEval, treeNode, dofSupportBoxes, buildClusterTree,
-      admissibleClusters
+      splitLeavesByKernelBlocks, admissibleClusters
   device (tensors):
       TreeNearOperator   the tree-ordered near field: data [nnz+1] float64
                          (slot nnz is the dump slot of the assembly) and the
@@ -15,6 +17,9 @@ Port of pynucleus_tpu/nl/h2.py for the symmetric constant-order path:
       h2_matvec          the whole H2 apply, kernel K8
                          (kernels/csrc/h2_matvec.cu), beside its plain
                          PyTorch version
+      h2_matvec_T        the transposed apply of a nonsymmetric H2Matrix
+                         (H.T), kernel K20 (kernels/csrc/h2_matvec.cu),
+                         beside its plain version
 
 Node numbering of the device arrays: the tree's nodes are stored level-major
 (level 0 first), so node ``pos`` of level ``ell`` is row
@@ -22,7 +27,10 @@ Node numbering of the device arrays: the tree's nodes are stored level-major
 operator requires the FUSED tree layout of the JAX package (h2.py:765-777):
 the near field's node list is the leaf list and every dof lies in exactly
 one leaf, so one global->tree gather and one tree->global scatter serve
-both the far and the near field.
+both the far and the near field.  The layout still holds once a variable
+order's leaves are split (the near nodes are then the new leaves, in node
+order; the JAX package's fusedTree flag is True for them, checked in
+tests/test_torch_varorder.py); H2Matrix raises where it does not.
 """
 from __future__ import annotations
 
@@ -37,8 +45,8 @@ from ..base.linear_operators import LinearOperator
 
 __all__ = ['chebyshevPoints', 'batchedChebyshevGrids', 'batchedLagrangeEval',
            'treeNode', 'dofSupportBoxes', 'buildClusterTree',
-           'admissibleClusters', 'TreeNearMeta', 'TreeNearOperator',
-           'H2Matrix', 'h2_matvec']
+           'splitLeavesByKernelBlocks', 'admissibleClusters', 'TreeNearMeta',
+           'TreeNearOperator', 'H2Matrix', 'h2_matvec', 'h2_matvec_T']
 
 
 # ------------------------------------------------------------- Chebyshev ---
@@ -117,6 +125,7 @@ class treeNode:
     box: np.ndarray           # [dim, 2]
     parent: int = -1
     children: list = field(default_factory=list)
+    mixed: bool = False       # an order jump in its box: never far field
 
     @property
     def isLeaf(self):
@@ -179,6 +188,63 @@ def buildClusterTree(dm, minSize, maxLevels=200):
     return nodes
 
 
+def splitLeavesByKernelBlocks(nodes, dm, kernel):
+    """For a spatially varying order, split each leaf into sub-leaves of
+    constant order so far-field boxes never straddle an order jump; dofs
+    whose support spans the jump form 'mixed' interface nodes that stay in
+    the near field (pynucleus_tpu/nl/h2.py:243-300, code-identical)."""
+    mesh = dm.mesh
+    centers = mesh.vertices[mesh.cells].mean(axis=1)
+    sDiag = np.round(np.asarray(kernel.s(centers, centers)).reshape(-1), 12)
+    if np.unique(sDiag).shape[0] <= 1:
+        return nodes
+    N = dm.num_dofs
+    INTERFACE = np.nan
+    dofOrder = np.full(N, np.inf)
+    isInterface = np.zeros(N, dtype=bool)
+    d = dm.dofs
+    for c in range(mesh.num_cells):
+        for l in range(d.shape[1]):
+            i = d[c, l]
+            if i < 0:
+                continue
+            if dofOrder[i] == np.inf:
+                dofOrder[i] = sDiag[c]
+            elif dofOrder[i] != sDiag[c]:
+                isInterface[i] = True
+    lo, hi = dofSupportBoxes(dm)
+
+    def makeBox(idx):
+        return np.stack([lo[idx].min(axis=0), hi[idx].max(axis=0)], axis=1)
+
+    # an s-impure box (dofs of several order blocks, or interface dofs)
+    # is never far-field admissible, at any level
+    for nd in nodes:
+        dKeys = np.where(isInterface[nd.dofs], INTERFACE, dofOrder[nd.dofs])
+        nd.mixed = bool(isInterface[nd.dofs].any()
+                        or np.unique(dKeys[~np.isnan(dKeys)]).shape[0] > 1)
+
+    for nid in range(len(nodes)):
+        nd = nodes[nid]
+        if not nd.isLeaf:
+            continue
+        keys = np.where(isInterface[nd.dofs], INTERFACE, dofOrder[nd.dofs])
+        uniqKeys = sorted(set(keys.tolist()), key=lambda v: (np.isnan(v), v))
+        if len(uniqKeys) <= 1:
+            nd.mixed = bool(isInterface[nd.dofs].any())
+            continue
+        children = []
+        for key in uniqKeys:
+            sel = np.isnan(keys) if np.isnan(key) else (keys == key)
+            sub = nd.dofs[sel]
+            child = treeNode(len(nodes), nd.level + 1, sub, makeBox(sub),
+                             nd.id, mixed=bool(np.isnan(key)))
+            nodes.append(child)
+            children.append(child.id)
+        nd.children = children
+    return nodes
+
+
 def _aranges(reps):
     """Concatenated [0..r) ranges for each r in reps (ragged arange)."""
     reps = np.asarray(reps)
@@ -191,10 +257,11 @@ def admissibleClusters(nodes, eta, interpolation_order, dim,
                        minFarFieldBlockSize=None):
     """Dual-tree traversal -> (Pfar per level, Pnear leaf pairs)
     (ref getAdmissibleClusters clusterMethodCy.pyx:4046, queryAdmissibility
-    :4008) for infinite-horizon constant-order kernels (the JAX package's
-    horizon screening and order-jump nodes do not arise).  Far pairs need
-    equal levels (the level-batched far apply indexes both coefficients
-    within one level)."""
+    :4008) for infinite-horizon kernels (the JAX package's horizon screening
+    does not arise); a 'mixed' node (an order jump in its box,
+    :func:`splitLeavesByKernelBlocks`) is never far.  Far pairs need equal
+    levels (the level-batched far apply indexes both coefficients within
+    one level)."""
     M = interpolation_order ** dim
     ffSize = minFarFieldBlockSize if minFarFieldBlockSize is not None \
         else M * M
@@ -205,6 +272,7 @@ def admissibleClusters(nodes, eta, interpolation_order, dim,
     diam = np.linalg.norm(hi - lo, axis=1)
     nDofs = np.fromiter((len(nd.dofs) for nd in nodes), np.int64, nN)
     isLeaf = np.fromiter((nd.isLeaf for nd in nodes), bool, nN)
+    mixed = np.fromiter((nd.mixed for nd in nodes), bool, nN)
     level = np.fromiter((nd.level for nd in nodes), np.int64, nN)
     cnt = np.fromiter((len(nd.children) for nd in nodes), np.int64, nN)
     childArr = np.concatenate(
@@ -230,7 +298,8 @@ def admissibleClusters(nodes, eta, interpolation_order, dim,
         # pairs below the (m^dim)^2 block size need strong separation
         etaEff = np.where(sizeProd >= M * M, eta, 0.5)
         admissible = (etaEff * dist >= np.maximum(diam[ii], diam[jj])) \
-            & (ffSize <= sizeProd) & (level[ii] == level[jj])
+            & (ffSize <= sizeProd) & ~mixed[ii] & ~mixed[jj] \
+            & (level[ii] == level[jj])
         farI.append(ii[admissible])
         farJ.append(jj[admissible])
         bothLeaf = isLeaf[ii] & isLeaf[jj]
@@ -397,19 +466,24 @@ class H2Matrix(LinearOperator):
                   its i-th dof in tree order
       leafLevelPos (lvlIdx, posIdx) of each leaf
       levels      list over levels of dicts: 'size', and for ell > 0 'T'
-                  [size, M, M] (child -> parent transfer) and 'parentIdx'
+                  [size, M, M] (child -> parent transfer, kept as ``Ttr``:
+                  ``T`` is the transpose) and 'parentIdx'
                   [size]; far pairs of the level are rows
                   farOff : farOff + farCount of Kall with 'src'/'dst'
                   positions (numpy or tensors)
       Kall        [Pfar, M, M] float64 far blocks (with the -2 factor),
                   level by level
       leafDofs    [L, nbar] host array (pad -1), to check the fused layout
+      symmetric   False for a nonsymmetric kernel: ``.T`` is then the
+                  transposed operator (K20), else the operator itself
 
     Raises if the near field's tree layout is not the leaf layout."""
 
     def __init__(self, Anear, leafPhi, leafLevelPos, levels, Kall, num_rows,
-                 leafDofs):
+                 leafDofs, symmetric=True):
         dev = Anear.device
+        self.symmetric = bool(symmetric)
+        self._T = None
         m = Anear.meta
         self.Anear = Anear
         self.num_rows = self.num_columns = int(num_rows)
@@ -459,7 +533,7 @@ class H2Matrix(LinearOperator):
                                      'level by level in Kall')
                 src.append(a + _np(lv['src']))
                 dst.append(a + _np(lv['dst']))
-        self.T = Tall
+        self.Ttr = Tall
         self.parent = i32(parent)
         self.src = i32(np.concatenate(src) if src else np.zeros(0))
         self.dst = i32(np.concatenate(dst) if dst else np.zeros(0))
@@ -468,6 +542,7 @@ class H2Matrix(LinearOperator):
             raise ValueError('H2Matrix: Kall must hold one [M, M] block per '
                              'far pair')
         self._work = None       # K8's xt, coef, far, made at its first apply
+        self._workT = None      # K20's yt
 
     @property
     def device(self):
@@ -480,10 +555,46 @@ class H2Matrix(LinearOperator):
     def diagonal(self):
         return self.Anear.diagonal
 
+    @property
+    def T(self):
+        """The transpose: the operator itself if symmetric, else its
+        transposed apply (pynucleus_tpu/nl/h2.py H2Matrix.T), with
+        ``H.T.T is H``."""
+        if self.symmetric:
+            return self
+        if self._T is None:
+            self._T = _H2Transpose(self)
+        return self._T
+
     def __repr__(self):
         return (f'<H2Matrix {self.num_rows}x{self.num_columns} '
                 f'nnz_near={self.Anear.nnz} farPairs={self.Kall.shape[0]} '
                 f'levels={self.nLvl} M={self.M}>')
+
+
+class _H2Transpose(LinearOperator):
+    """Transposed apply of a nonsymmetric H2 operator (pynucleus_tpu/nl/
+    h2.py _H2Transpose): the same arrays, applied by K20."""
+
+    def __init__(self, op):
+        self.op = op
+        self.num_rows = op.num_columns
+        self.num_columns = op.num_rows
+
+    @property
+    def device(self):
+        return self.op.device
+
+    def matvec(self, x, out=None):
+        return h2_matvec_T(self.op, x, out=out)
+
+    @property
+    def T(self):
+        return self.op
+
+    @property
+    def diagonal(self):
+        return self.op.diagonal
 
 
 def _np(a):
@@ -493,6 +604,32 @@ def _np(a):
 
 
 # ------------------------------------------------------------------ K8 ----
+
+def _checkApply(name, op, x, out):
+    N = op.num_rows
+    if x.dtype != torch.float64 or x.shape != (N,) or not x.is_contiguous() \
+            or x.device != op.device:
+        raise ValueError(f'{name}: x must be contiguous float64 [{N}] on '
+                         f'{op.device}')
+    if out is None:
+        out = torch.empty_like(x)
+    elif out.dtype != torch.float64 or out.shape != (N,) \
+            or not out.is_contiguous() or out.device != x.device:
+        raise ValueError(f'{name}: out must match x')
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {x.device}')
+    return out
+
+
+def _work(op, dev):
+    if op._work is None:
+        op._work = (torch.empty(op.Anear.Nt, dtype=torch.float64, device=dev),
+                    torch.empty((op.nNodes, op.M), dtype=torch.float64,
+                                device=dev),
+                    torch.empty((op.nNodes, op.M), dtype=torch.float64,
+                                device=dev))
+    return op._work
+
 
 def h2_matvec(op, x, out=None):
     """y = A x for an H2Matrix in its fused tree layout:
@@ -509,30 +646,13 @@ def h2_matvec(op, x, out=None):
     and level that has work) on CUDA tensors, the plain version on CPU tensors.  Replaces
     pynucleus_tpu/nl/h2.py:_h2_matvec with TreeNearOperator._x2,
     _matvec_tree and _scatter_tree."""
-    N = op.num_rows
-    if x.dtype != torch.float64 or x.shape != (N,) or not x.is_contiguous() \
-            or x.device != op.device:
-        raise ValueError(f'h2_matvec: x must be contiguous float64 [{N}] on '
-                         f'{op.device}')
-    if out is None:
-        out = torch.empty_like(x)
-    elif out.dtype != torch.float64 or out.shape != (N,) \
-            or not out.is_contiguous() or out.device != x.device:
-        raise ValueError('h2_matvec: out must match x')
+    out = _checkApply('h2_matvec', op, x, out)
     if x.device.type == 'cpu':
         out.copy_(_h2_matvec_plain(op, x))
         return out
-    if x.device.type != 'cuda':
-        raise ValueError(f'h2_matvec: unsupported device {x.device}')
     A = op.Anear
     M = op.M
-    if op._work is None:
-        op._work = (torch.empty(A.Nt, dtype=torch.float64, device=x.device),
-                    torch.empty((op.nNodes, M), dtype=torch.float64,
-                                device=x.device),
-                    torch.empty((op.nNodes, M), dtype=torch.float64,
-                                device=x.device))
-    xt, coef, far = op._work
+    xt, coef, far = _work(op, x.device)
     lib = kernels.library()
     kernels.launches['h2_matvec'] += 1
     P = kernels.ptr
@@ -541,7 +661,7 @@ def h2_matvec(op, x, out=None):
         P(out), P(x), P(xt), P(coef), P(far), A.Nt, op.L, op.nbar, M,
         P(A.perm), P(A.rowNode), P(A.indptrT), P(A.tStartRow), P(A.tLen),
         P(A.rowLen), P(A.tmplStart), P(A.tmplAll), P(A.dataZ),
-        P(op.leafPhi), P(op.leafNode), P(op.T), P(op.parent),
+        P(op.leafPhi), P(op.leafNode), P(op.Ttr), P(op.parent),
         kernels.i64array(op.levelOff), op.nLvl, P(op.Kall), P(op.src),
         P(op.dst), op.Kall.shape[0], ctypes.byref(launched),
         kernels.stream())
@@ -569,7 +689,7 @@ def _h2_matvec_plain(op, x):
     off = op.levelOff
     for ell in range(op.nLvl - 1, 0, -1):
         a, b = int(off[ell]), int(off[ell + 1])
-        up = torch.einsum('nij,nj->ni', op.T[a:b], coef[a:b])
+        up = torch.einsum('nij,nj->ni', op.Ttr[a:b], coef[a:b])
         coef.index_add_(0, parent[a:b], up)
     far = torch.zeros_like(coef)
     if op.Kall.shape[0]:
@@ -578,11 +698,91 @@ def _h2_matvec_plain(op, x):
                                     coef[op.src.long()]))
     for ell in range(1, op.nLvl):
         a, b = int(off[ell]), int(off[ell + 1])
-        far[a:b] += torch.einsum('nji,nj->ni', op.T[a:b], far[parent[a:b]])
+        far[a:b] += torch.einsum('nji,nj->ni', op.Ttr[a:b], far[parent[a:b]])
     yvals = torch.einsum('lnm,lm->ln', op.leafPhi, far[leafNode])
     rows, cols = A.rowsCols()
     yt = yvals.reshape(-1)[padIdx]
     yt.index_add_(0, rows, A.dataT * xt[cols])
+    y = torch.empty_like(x)
+    y[perm] = yt
+    return y
+
+
+# ------------------------------------------------------------------ K20 ---
+
+def h2_matvec_T(op, x, out=None):
+    """y = A^T x for an H2Matrix in its fused tree layout (a nonsymmetric
+    operator's transpose; on a symmetric one it equals :func:`h2_matvec`):
+    K8's moments and up sweep, then
+
+      o[src(p)] += Kall[p]^T c[dst(p)]       far field, src and dst swapped
+      o[n] += T[n]^T o[parent(n)]            level by level, coarsest first
+      yt[tmpl(c)] += data[t, c] xt[t]        the near field by columns
+      y[perm[t]] = yt[t] + leafPhi[l, i] . o[leaf]
+
+    Kernel K20 (kernels/csrc/h2_matvec.cu h2_matvec_T: K8's near data read
+    in place and scattered by column with atomics) on CUDA tensors, the
+    plain version on CPU tensors.  Replaces pynucleus_tpu/nl/h2.py
+    :_h2_matvec_T with TreeNearOperator.rmatvec."""
+    out = _checkApply('h2_matvec_T', op, x, out)
+    if x.device.type == 'cpu':
+        out.copy_(_h2_matvec_T_plain(op, x))
+        return out
+    A = op.Anear
+    xt, coef, far = _work(op, x.device)
+    if op._workT is None:
+        op._workT = torch.empty(A.Nt, dtype=torch.float64, device=x.device)
+    lib = kernels.library()
+    kernels.launches['h2_matvec_T'] += 1
+    P = kernels.ptr
+    launched = ctypes.c_int(0)
+    err = lib.h2_matvec_T(
+        P(out), P(x), P(xt), P(coef), P(far), P(op._workT), A.Nt, op.L,
+        op.nbar, op.M, P(A.perm), P(A.rowNode), P(A.indptrT),
+        P(A.tStartRow), P(A.tLen), P(A.rowLen), P(A.tmplStart),
+        P(A.tmplAll), P(A.dataZ), P(op.leafPhi), P(op.leafNode), P(op.Ttr),
+        P(op.parent), kernels.i64array(op.levelOff), op.nLvl, P(op.Kall),
+        P(op.src), P(op.dst), op.Kall.shape[0], ctypes.byref(launched),
+        kernels.stream())
+    kernels.deviceLaunches['h2_matvec_T'] += launched.value
+    kernels.check(err)
+    return out
+
+
+def _h2_matvec_T_plain(op, x):
+    """Plain PyTorch version of :func:`h2_matvec_T` (any device)."""
+    A = op.Anear
+    M, nbar = op.M, op.nbar
+    perm = A.perm.long()
+    xt = x[perm]
+    rowNode = A.rowNode.long()
+    padIdx = rowNode * nbar + (torch.arange(A.Nt, device=x.device)
+                               - A.tStartRow.long()[rowNode])
+    x2 = torch.zeros(op.L * nbar, dtype=x.dtype, device=x.device)
+    x2[padIdx] = xt
+    cLeaf = torch.einsum('lnm,ln->lm', op.leafPhi, x2.view(op.L, nbar))
+    coef = torch.zeros((op.nNodes, M), dtype=x.dtype, device=x.device)
+    leafNode = op.leafNode.long()
+    coef[leafNode] = cLeaf
+    parent = op.parent.long()
+    off = op.levelOff
+    for ell in range(op.nLvl - 1, 0, -1):
+        a, b = int(off[ell]), int(off[ell + 1])
+        up = torch.einsum('nij,nj->ni', op.Ttr[a:b], coef[a:b])
+        coef.index_add_(0, parent[a:b], up)
+    far = torch.zeros_like(coef)
+    if op.Kall.shape[0]:
+        # A^T: pair (dst, src, K) acts as (src, dst, K^T)
+        far.index_add_(0, op.src.long(),
+                       torch.einsum('pji,pj->pi', op.Kall,
+                                    coef[op.dst.long()]))
+    for ell in range(1, op.nLvl):
+        a, b = int(off[ell]), int(off[ell + 1])
+        far[a:b] += torch.einsum('nji,nj->ni', op.Ttr[a:b], far[parent[a:b]])
+    yvals = torch.einsum('lnm,lm->ln', op.leafPhi, far[leafNode])
+    rows, cols = A.rowsCols()
+    yt = yvals.reshape(-1)[padIdx]
+    yt.index_add_(0, cols, A.dataT * xt[rows])
     y = torch.empty_like(x)
     y[perm] = yt
     return y

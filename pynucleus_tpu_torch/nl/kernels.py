@@ -27,6 +27,16 @@ The profiles (r = sqrt(r2)):
                      2D: C exp(-a r2) / (2 a r)
   EXPONENTIAL_BOUNDARY  1D: C/a exp(-a r);  2D: C exp(-a r) (r/a + 1/a^2) / r
 
+The fractional orders (:115-204): const, and varconst, constantNonSym and
+leftRight (twoDomain, twoDomainNonSym), registered by name as
+:data:`fractionalOrderFactory` does there.  A variable order (constantNonSym,
+leftRight: ``kernel.variable``) is evaluated per quadrature node,
+s(x, y) and the normalization C(d, s) of an infinite horizon
+(FractionalKernel.evalXY, :1290-1330), by :func:`evalXY` and, on the card,
+common.cuh kernelXY() from the order's :class:`OrderParams`; constantNonSym
+and leftRight are nonsymmetric.  A variable order with a finite horizon
+raises NotImplementedError.
+
 The tempered fractional, log-inverse-distance, monomial and polynomial
 profiles (:1095-1096, :1122-1128) are not ported.
 """
@@ -38,7 +48,10 @@ import numpy as np
 import torch
 from scipy.special import gamma as Gamma
 
-__all__ = ['constFractionalOrder', 'Kernel', 'FractionalKernel',
+__all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
+           'constantNonSymFractionalOrder', 'leftRightFractionalOrder',
+           'fractionalOrderFactory', 'OrderParams', 'evalXY', 'orderEval',
+           'Kernel', 'FractionalKernel',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
            'fullSpace', 'ball2', 'ballInf', 'interactionFactory',
@@ -72,12 +85,33 @@ class Profile(NamedTuple):
     a: float
 
 
-class constFractionalOrder:
-    symmetric = True
+# fractional order codes, shared with kernels/csrc/common.cuh kernelXY()
+ORDER_NONE = 0          # the kernel is its radial profile
+ORDER_CONST = 1         # s(x, y) = sll, normalized per node
+ORDER_LEFT_RIGHT = 2    # sll / srr / slr / srl by the sides of x and y
+ORDER_CODES = range(3)
 
-    def __init__(self, s):
-        self.value = float(s)
-        self.smin = self.smax = self.value
+
+class OrderParams(NamedTuple):
+    """A variable fractional order as the device kernels take it: its code
+    and values (sll, srr, slr, srl, interface; a constant order has all four
+    values equal), the dimension d of the normalization C(d, s) and whether
+    the kernel is the boundary kernel C(s)/s r^(1-d-2s)."""
+    code: int
+    sll: float
+    srr: float
+    slr: float
+    srl: float
+    interface: float
+    dim: int
+    boundary: bool
+
+
+class fractionalOrderBase:
+    """s(x, y) (pynucleus_tpu/nl/kernels.py fractionalOrderBase): host
+    evaluation ``__call__`` on [..., dim] arrays, its bounds ``min`` and
+    ``max``, and ``orderParams`` for the device kernels."""
+    symmetric = True
 
     @property
     def min(self):
@@ -87,8 +121,94 @@ class constFractionalOrder:
     def max(self):
         return self.smax
 
+
+class constFractionalOrder(fractionalOrderBase):
+    def __init__(self, s):
+        self.value = float(s)
+        self.smin = self.smax = self.value
+
+    def __call__(self, X, Y):
+        return np.full(np.asarray(X).shape[:-1], self.value)
+
+    def _key(self):
+        return (type(self).__name__, self.value)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_CONST, self.value, self.value, self.value,
+                           self.value, 0.0, dim, boundary)
+
     def __repr__(self):
         return f'const({self.value})'
+
+
+class variableConstFractionalOrder(constFractionalOrder):
+    """Constant value treated as variable (pynucleus_tpu/nl/kernels.py
+    variableConstFractionalOrder): the kernel stays a radial profile
+    (FractionalKernel.variable is False), only ``variableOrder`` is set."""
+
+    def __repr__(self):
+        return f'varconst({self.value})'
+
+
+class constantNonSymFractionalOrder(constFractionalOrder):
+    """Constant value on the nonsymmetric path (pynucleus_tpu/nl/kernels.py
+    constantNonSymFractionalOrder): s(x, y) and its normalization are
+    evaluated per quadrature node."""
+    symmetric = False
+
+    def __repr__(self):
+        return f'constantNonSym({self.value})'
+
+
+class leftRightFractionalOrder(fractionalOrderBase):
+    """s = sll if x, y < interface, srr if both are not, slr / srl across
+    (pynucleus_tpu/nl/kernels.py leftRightFractionalOrder).  The side of a
+    point is the strict comparison x[0] < interface, as there."""
+    symmetric = False
+
+    def __init__(self, sll, srr, slr=None, srl=None, interface=0.0):
+        self.sll, self.srr = sll, srr
+        self._tied = slr is None and srl is None
+        self.slr = slr if slr is not None else sll
+        self.srl = srl if srl is not None else srr
+        self.interface = interface
+        self.smin = min(sll, srr, self.slr, self.srl)
+        self.smax = max(sll, srr, self.slr, self.srl)
+
+    def __call__(self, X, Y):
+        X = np.atleast_2d(X)
+        Y = np.atleast_2d(Y)
+        xl = X[..., 0] < self.interface
+        yl = Y[..., 0] < self.interface
+        return np.where(xl & yl, self.sll,
+                        np.where(~xl & ~yl, self.srr,
+                                 np.where(xl, self.slr, self.srl)))
+
+    def _key(self):
+        return (type(self).__name__, self.sll, self.srr, self.slr, self.srl,
+                self.interface, self._tied)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_LEFT_RIGHT, self.sll, self.srr, self.slr,
+                           self.srl, self.interface, dim, boundary)
+
+    def __repr__(self):
+        if self.slr != self.sll or self.srl != self.srr:
+            return (f'twoDomain({self.sll},{self.srr},'
+                    f'{self.slr},{self.srl})')
+        return f'twoDomain({self.sll},{self.srr})'
+
+
+# name -> order (pynucleus_tpu/nl/kernels.py:564-569 fractionalOrderFactory,
+# the entries ported)
+fractionalOrderFactory = {
+    'const': constFractionalOrder,
+    'varconst': variableConstFractionalOrder,
+    'constantNonSym': constantNonSymFractionalOrder,
+    'twoDomain': leftRightFractionalOrder,
+    'twoDomainNonSym': leftRightFractionalOrder,
+    'leftRight': leftRightFractionalOrder,
+}
 
 
 # ------------------------------------------------------------- interactions
@@ -264,6 +384,12 @@ class Kernel:
         raise NotImplementedError(
             'boundary kernel not defined for ' + str(self.kernelType))
 
+    def orderParams(self):
+        """The variable fractional order of the kernel (:class:`OrderParams`)
+        that the device kernels evaluate per node, or None for a radial
+        profile."""
+        return None
+
     def indicatorParams(self):
         """(code, horizon^2) of the interaction indicator that the panel
         quadrature (K1) applies per node, or None for an infinite horizon."""
@@ -287,28 +413,51 @@ class Kernel:
 
 class FractionalKernel(Kernel):
     """gamma(x,y) = scaling * |x-y|^{singularity}, singularity = -d-2s
-    (boundary kernel: 1-d-2s), constant order."""
+    (boundary kernel: 1-d-2s) for a constant order s; for a variable one
+    (``variable``: constantNonSym, leftRight) gamma(x, y) = C(d, s)
+    |x-y|^(-d-2s) with s = s(x, y) and C(d, s) evaluated per quadrature node
+    (pynucleus_tpu/nl/kernels.py:1249-1330 FractionalKernel).  A varconst
+    order sets ``variableOrder`` but stays a radial profile."""
 
     def __init__(self, dim, s, horizon=np.inf, interaction=None, scaling=None,
                  normalized=True, boundary=False):
-        if not isinstance(s, constFractionalOrder):
+        if not isinstance(s, fractionalOrderBase):
             s = constFractionalOrder(s)
         self.s = s
+        self.variableOrder = type(s) is not constFractionalOrder
+        sval = s.value if hasattr(s, 'value') else 0.5 * (s.min + s.max)
         if scaling is None:
             scaling = constantFractionalLaplacianScaling(
-                dim, s.value, float(horizon)) if normalized else 0.5
+                dim, sval, float(horizon)) if normalized else 0.5
         super().__init__(dim, FRACTIONAL, horizon, interaction, scaling,
-                         (1 if boundary else 0) - dim - 2 * s.value,
+                         (1 if boundary else 0) - dim - 2 * sval,
                          boundary=boundary)
+        self.symmetric = s.symmetric
+        self.variable = self.variableOrder and not isinstance(
+            s, variableConstFractionalOrder)
+        if self.variable and self.horizonValue != np.inf:
+            raise NotImplementedError('a variable order with a finite '
+                                      'horizon')
         self.min_singularity = (1 if boundary else 0) - dim - 2 * s.max
         self.max_singularity = (1 if boundary else 0) - dim - 2 * s.min
 
+    @property
+    def sValue(self):
+        return self.s.value
+
+    def orderParams(self):
+        """The variable order's :class:`OrderParams`, or None."""
+        if not self.variable:
+            return None
+        return self.s.orderParams(self.dim, self.boundary)
+
     def getBoundaryKernel(self):
         """Kernel of the Gauss-theorem surface term: scaling / s and
-        singularity 1-d-2s."""
+        singularity 1-d-2s (a variable order evaluates C(s)/s per node)."""
+        scal = self.scalingValue / self.s.value \
+            if hasattr(self.s, 'value') else 1.0
         return FractionalKernel(self.dim, self.s, horizon=self.horizonValue,
-                                scaling=self.scalingValue / self.s.value,
-                                boundary=True)
+                                scaling=scal, boundary=True)
 
 
 def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
@@ -380,4 +529,65 @@ def radialEval(r2, prof):
     else:
         r = torch.sqrt(r2s)
         val = C * torch.exp(-a * r) * (r / a + 1.0 / a ** 2) / r
+    return torch.where(pos, val, 0.0)
+
+
+def orderArgs(order):
+    """(code, sll, srr, slr, srl, interface, piD2, halfDim, eBase, boundary)
+    of an :class:`OrderParams` (or None) as the C entry points take them:
+    pi^(d/2), d/2 and the exponent base (-d/2, or (1-d)/2 for the boundary
+    kernel) are formed here on the host, as the JAX expression forms them
+    from Python floats."""
+    if order is None:
+        return (ORDER_NONE, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0)
+    if not isinstance(order, OrderParams) or int(order.code) not in \
+            ORDER_CODES:
+        raise ValueError(f'an OrderParams is expected, got {order!r}')
+    d = order.dim
+    eBase = 0.5 * (1.0 - d) if order.boundary else -0.5 * d
+    return (int(order.code), float(order.sll), float(order.srr),
+            float(order.slr), float(order.srl), float(order.interface),
+            float(np.pi ** (0.5 * d)), float(0.5 * d), float(eBase),
+            int(bool(order.boundary)))
+
+
+def orderEval(x, y, order):
+    """s(x, y) [...] of an :class:`OrderParams` at x, y [..., dim]."""
+    if order.code == ORDER_CONST:
+        return torch.full(torch.broadcast_shapes(x.shape[:-1], y.shape[:-1]),
+                          float(order.sll), dtype=x.dtype, device=x.device)
+    xl = x[..., 0] < order.interface
+    yl = y[..., 0] < order.interface
+
+    def v(a):
+        return torch.tensor(float(a), dtype=x.dtype, device=x.device)
+    return torch.where(xl & yl, v(order.sll),
+                       torch.where(~xl & ~yl, v(order.srr),
+                                   torch.where(xl, v(order.slr),
+                                               v(order.srl))))
+
+
+def evalXY(x, y, r2, prof, order=None):
+    """gamma(x, y) from positions x, y [..., dim] and r2 = |x-y|^2, exactly 0
+    where r2 == 0: the radial profile ``prof`` (:func:`radialEval`) if
+    ``order`` is None, else the variable-order fractional kernel of
+    pynucleus_tpu/nl/kernels.py FractionalKernel.evalXY (infinite horizon),
+    the same operations in the same order:
+
+        C = 2^(2s) s / pi^(d/2) * 0.5 * exp(lgamma(s + d/2) - lgamma(1 - s))
+        gamma = C r2^(-d/2 - s), or (C/s) r2^((1-d)/2 - s) (boundary)
+
+    with s = s(x, y) (:func:`orderEval`) and torch.lgamma for gammaln."""
+    if order is None:
+        return radialEval(r2, prof)
+    _, _, _, _, _, _, piD2, halfDim, eBase, boundary = orderArgs(order)
+    pos = r2 > 0
+    r2s = torch.where(pos, r2, 1.0)
+    sv = orderEval(x, y, order)
+    C = (2.0 ** (2 * sv) * sv / piD2 * 0.5 *
+         torch.exp(torch.lgamma(sv + halfDim) - torch.lgamma(1.0 - sv)))
+    if boundary:
+        val = (C / sv) * r2s ** (eBase - sv)
+    else:
+        val = C * r2s ** (eBase - sv)
     return torch.where(pos, val, 0.0)

@@ -5,7 +5,8 @@ exponential kernels' problems of an infinite horizon.
 
 Port of pynucleus_tpu/nl/problems.py as plain functions (the ``@generates``
 DAG of the JAX package's drivers is not ported): the infinite-horizon
-``problem constant`` of fractionalLaplacianProblem; nonlocalMeshFactory's
+``problem constant`` and, on the interval, ``knownSolution`` of
+fractionalLaplacianProblem, for the orders of parseFractionalOrder; nonlocalMeshFactory's
 'interval' and 'square' entries with their indicators
 (intervalIndicators, squareIndicators, :44-168), with the collar for a
 finite horizon and the plain domain for an infinite one; processKernel
@@ -24,7 +25,9 @@ from ..fem.meshes import (simpleInterval, circle, intervalWithInteraction,
 from ..fem.dofmaps import P1_DoFMap
 from ..fem.functions import (constant, Lambda, squareIndicator,
                              solFractional)
-from .kernels import (constFractionalOrder, getFractionalKernel,
+from .kernels import (constFractionalOrder, variableConstFractionalOrder,
+                      constantNonSymFractionalOrder, leftRightFractionalOrder,
+                      getFractionalKernel,
                       getIntegrableKernel, ball2, ballInf, FRACTIONAL,
                       GAUSSIAN, EXPONENTIAL)
 
@@ -42,11 +45,22 @@ HOMOGENEOUS_NEUMANN = 3
 
 
 def parseFractionalOrder(sArg):
-    """'const(0.75)' (or a number) -> constFractionalOrder."""
+    """'const(0.75)', 'varconst(0.75)', 'constantNonSym(0.25)',
+    'twoDomainNonSym(0.25,0.75)' or 'twoDomain(0.25,0.75)' (or a number)
+    -> the fractional order (pynucleus_tpu/nl/problems.py
+    parseFractionalOrder)."""
     if isinstance(sArg, (int, float)):
         return constFractionalOrder(float(sArg))
-    if sArg.startswith('const(') and sArg.endswith(')'):
-        return constFractionalOrder(float(sArg[len('const('):-1]))
+    for name, builder in [
+            ('const', lambda v: constFractionalOrder(v[0])),
+            ('varconst', lambda v: variableConstFractionalOrder(v[0])),
+            ('constantNonSym', lambda v: constantNonSymFractionalOrder(v[0])),
+            ('twoDomainNonSym',
+             lambda v: leftRightFractionalOrder(v[0], v[1])),
+            ('twoDomain', lambda v: leftRightFractionalOrder(v[0], v[1]))]:
+        if sArg.startswith(name + '('):
+            inner = sArg[len(name) + 1:-1]
+            return builder([float(t) for t in inner.split(',') if t.strip()])
     raise NotImplementedError(sArg)
 
 
@@ -75,36 +89,60 @@ def _coarseMesh(domain):
 
 
 def fractionalLaplacianProblem(domain, s, problem='constant'):
-    """(-Delta)^s u = 1 on the unit ball, u = 0 outside.  Returns a dict
-    with kernel, rhs, analyticSolution, exactL2Squared, exactHsSquared,
-    the coarse mesh, the dof tag and zeroExterior."""
-    if problem != 'constant':
-        raise NotImplementedError(problem)
+    """(-Delta)^s u = f on the unit ball, u = 0 outside
+    (pynucleus_tpu/nl/problems.py fractionalLaplacianProblem): 'constant'
+    (f = 1; the analytic solution and the exact norms of a constant order,
+    none for a leftRight order, as there) or, on the interval,
+    'knownSolution' (u = (1 - x^2)^beta, beta = 0.7, f from scipy's hyp2f1
+    on the host with s(x, x) per point, :323-338).  Returns a dict with
+    kernel, rhs, analyticSolution, exactL2Squared, exactHsSquared, the
+    coarse mesh, the dof tag and zeroExterior."""
     dim = {'interval': 1, 'disc': 2}[domain]
     sFun = parseFractionalOrder(s)
-    sval = sFun.value
-    radius = 1.0
     kernel = getFractionalKernel(dim, sFun)
-    C = 2.0 ** (-2 * sval) * Gamma(dim / 2.) \
-        / Gamma((dim + 2 * sval) / 2.) / Gamma(1. + sval)
-    if domain == 'interval':
-        exactHsSquared = C * np.sqrt(np.pi) * Gamma(sval + 1) \
-            / Gamma(sval + 1.5)
-        exactL2Squared = C ** 2 * np.sqrt(np.pi) \
-            * Gamma(1 + 2 * sval) / Gamma(1.5 + 2 * sval) * radius ** 2
-    else:
-        exactHsSquared = C * np.pi * radius ** (2 - 2 * sval) / (sval + 1)
-        exactL2Squared = C ** 2 * np.pi / (1 + 2 * sval) * radius ** 2
-    return {'kernel': kernel,
-            'dim': dim,
-            'rhs': constant(1.0),
-            'analyticSolution': solFractional(sval, dim, radius),
-            'exactL2Squared': exactL2Squared,
-            'exactHsSquared': exactHsSquared,
-            'mesh': _coarseMesh(domain),
-            'tag': PHYSICAL,
-            'zeroExterior': True,
-            'problemDescription': 'constant rhs, homogeneous Dirichlet'}
+    radius = 1.0
+    sval = sFun.value if hasattr(sFun, 'value') else None
+    out = {'kernel': kernel, 'dim': dim, 'mesh': _coarseMesh(domain),
+           'tag': PHYSICAL, 'zeroExterior': True, 'analyticSolution': None,
+           'exactL2Squared': None, 'exactHsSquared': None}
+    if problem == 'constant':
+        out['rhs'] = constant(1.0)
+        out['problemDescription'] = 'constant rhs, homogeneous Dirichlet'
+        if sval is not None:
+            C = 2.0 ** (-2 * sval) * Gamma(dim / 2.) \
+                / Gamma((dim + 2 * sval) / 2.) / Gamma(1. + sval)
+            if domain == 'interval':
+                out['exactHsSquared'] = C * np.sqrt(np.pi) \
+                    * Gamma(sval + 1) / Gamma(sval + 1.5)
+                out['exactL2Squared'] = C ** 2 * np.sqrt(np.pi) \
+                    * Gamma(1 + 2 * sval) / Gamma(1.5 + 2 * sval) \
+                    * radius ** 2
+            else:
+                out['exactHsSquared'] = C * np.pi \
+                    * radius ** (2 - 2 * sval) / (sval + 1)
+                out['exactL2Squared'] = C ** 2 * np.pi / (1 + 2 * sval) \
+                    * radius ** 2
+            out['analyticSolution'] = solFractional(sval, dim, radius)
+        return out
+    if problem == 'knownSolution' and domain == 'interval':
+        from scipy.special import hyp2f1
+        beta = 0.7
+
+        def fun(x):
+            # pointwise s(x, x) for variable orders
+            sv = float(np.asarray(sFun(np.asarray(x)[None, :],
+                                       np.asarray(x)[None, :]))[0])
+            return (2.0 ** (2 * sv) * Gamma(sv + 0.5) * Gamma(beta + 1.)
+                    / np.sqrt(np.pi) / Gamma(beta + 1. - sv)
+                    * hyp2f1(sv + 0.5, -beta + sv, 0.5, x[0] ** 2))
+        out['rhs'] = Lambda(fun)
+        out['problemDescription'] = 'known analytic solution'
+        out['analyticSolution'] = Lambda(
+            lambda x: max(1. - x[0] ** 2, 0.) ** beta)
+        out['exactL2Squared'] = np.sqrt(np.pi) * Gamma(1 + 2 * beta) \
+            / Gamma(1.5 + 2 * beta) * radius ** 2
+        return out
+    raise NotImplementedError((domain, problem))
 
 
 # ------------------------------------------------------ finite horizon ----

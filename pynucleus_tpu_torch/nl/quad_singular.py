@@ -1,8 +1,9 @@
 """Singularity-cancelling quadrature rules for element pairs (host build).
 
 Carried over from pynucleus_tpu/nl/quad_singular.py (1D singular rules and
-the distant tensor rules), without the log-correction tables of the
-s-derivative kernels, which the port does not assemble yet.
+the distant tensor rules, and the nonsymmetric tables buildPHI), without
+the log-correction tables of the s-derivative kernels, which the port does
+not assemble yet.
 
 Each rule is reduced to STATIC tables for the batched device kernel:
     bary_x [nv1, Q], bary_y [nv2, Q], w [Q], PSI [nPSI, Q]
@@ -73,6 +74,28 @@ class PanelRule:
             PSI[dpe:][mask] = 0.0
         return PSI
 
+    def buildPHI(self, dm, nSharedVertices=0):
+        """(PHIx, PHIy) [nPSI, Q] of the nonsymmetric local matrix
+        (pynucleus_tpu/nl/quad_singular.py _buildPHI):
+          contrib[I,J] = sum_q w [g1(q) PHIx[I,q] - g2(q) PHIy[I,q]]
+                                 * (PHIx[J,q] - PHIy[J,q])
+        in buildPSI's row order (cell1 dofs, then cell2 dofs; shared dofs on
+        the cell1 row, cell2 duplicates zero)."""
+        phi_x = dm.evalPhi(self.bary_x.T)
+        phi_y = dm.evalPhi(self.bary_y.T)
+        dpe = phi_x.shape[0]
+        mask = self.sharedDofMask(dm, nSharedVertices)
+        if mask.all():
+            return phi_x, phi_y
+        PHIx = np.zeros((2 * dpe, self.num_nodes))
+        PHIy = np.zeros((2 * dpe, self.num_nodes))
+        PHIx[:dpe] = phi_x
+        PHIy[dpe:] = phi_y
+        if mask.any():
+            PHIy[:dpe][mask] = phi_y[mask]
+            PHIy[dpe:][mask] = 0.0
+        return PHIx, PHIy
+
 
 # --------------------------------------------------------------------- 1D --
 
@@ -92,10 +115,19 @@ def sameCellRule1D(singularity, order):
     return PanelRule(bary_x, bary_y, weights, 'sameCell1D')
 
 
-def vertexRule1D(singularity, order_sing, order_reg, continuous=True):
+def vertexRule1D(singularity, order_sing, order_reg, continuous=True,
+                 cancellation=None):
     """Common-vertex panel, 1D.  Shared vertex is local 0 of BOTH permuted
-    simplices.  sigma = 2+sing for continuous elements, 0+sing for P0."""
-    sigma = (2.0 if continuous else 0.0) + singularity
+    simplices.  sigma = 2+sing for continuous elements, 0+sing for P0.
+
+    ``cancellation`` overrides the vanishing-order count: the one-sided
+    terms of a nonsymmetric kernel whose two orderings have different
+    singular exponents carry one vanishing factor only, so their split
+    evaluation uses cancellation=1 (pynucleus_tpu/nl/quad_singular.py
+    vertexRule1D)."""
+    if cancellation is None:
+        cancellation = 2.0 if continuous else 0.0
+    sigma = cancellation + singularity
     x0, w0 = gaussJacobi01(order_reg, 1.0 + sigma, 0.0)
     x1, w1 = gauss01(order_sing)
     nodes, w = tensorRule((x0, w0), (x1, w1))

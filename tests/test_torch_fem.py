@@ -62,6 +62,9 @@ def test_port_imports_no_jax():
             'pynucleus_tpu_torch.drivers.runFractional, '
             'pynucleus_tpu_torch.drivers.runNonlocal, '
             'pynucleus_tpu_torch.nl.problems, '
+            'pynucleus_tpu_torch.nl.kernels, '
+            'pynucleus_tpu_torch.nl.quad_singular, '
+            'pynucleus_tpu_torch.kernels, '
             'pynucleus_tpu_torch.kernels.pcg_update, '
             'pynucleus_tpu_torch.kernels.jacobi_smooth, '
             'pynucleus_tpu_torch.multilevel.gmg, '

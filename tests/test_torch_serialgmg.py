@@ -146,8 +146,8 @@ def test_csr_scatter_plain_matches_segment_sum():
 def test_cpu_wrappers_count_no_launch():
     """K16-K18 are registered, and on CPU tensors run their plain
     versions: no count moves."""
-    assert kernels.KERNELS[-3:] == ('csr_scatter', 'gmres_arnoldi',
-                                    'bicgstab_update')
+    assert kernels.KERNELS[15:18] == ('csr_scatter', 'gmres_arnoldi',
+                                      'bicgstab_update')
     assert 'csr_scatter.cu' in kernels.SOURCES
     kernels.resetLaunches()
     tMain(['--domain', 'interval', '--noRef', '3', '--device', 'cpu'],
