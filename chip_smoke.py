@@ -109,6 +109,20 @@ result line):
      codes (dense target; tree, dense and slots targets with the y shift),
      K7 with them, K19 (dense and slots targets) and K20 (noRef 12 and
      every level of the full-width line) against their plain versions.
+ 14. the s-derivative operators (nonlocalBuilder with getFractionalKernel(d,
+     s, derivative=k)): d^2/ds^2 of s = 0.75 on the disc at noRef 5, dense
+     (getDenseVector) and H2 (getH2Vector), and the three vector lines of
+     leftRight on the interval at noRef 6 (getDenseVector, matvec,
+     matvecTrans; each a path of its own) against the pinned JAX outputs;
+     the vector kernel against central differences of the dense operators
+     in (sll, srr) at noRef 8 (5e-4); dA/ds H2 against dense on the disc at
+     noRef 6 (5e-4); the full-width lines, dA/ds of the flagship disc at
+     noRef 7 (getH2Vector: build parts, its device time from a second build
+     under torch.profiler, apply and transposed apply, peak memory) and d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 12
+     (8,191 dofs, [8191, 8191, 4]; noRef 11 if its host classification
+     exceeds 300 s; each a path); then K21, K22, K23 (against torch.einsum
+     too) and the power-log profile in K1, K2, K3, K6 (where called), K7
+     and K12 against their plain versions.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -258,6 +272,15 @@ KERNEL_INFO = {
         'pynucleus_tpu/nl/assembly.py:424'),
     'h2_matvec_T': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/h2_matvec.cu',
                     'pynucleus_tpu/nl/h2.py:910'),
+    'panel_scatter_vec': (
+        'cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_vec.cu',
+        'pynucleus_tpu/nl/assembly.py:457'),
+    'panel_scatter_nonsym_vec': (
+        'cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_vec.cu',
+        'pynucleus_tpu/nl/assembly.py:484'),
+    'vector_matvec': ('cuda',
+                      'pynucleus_tpu_torch/kernels/csrc/vector_matvec.cu',
+                      'pynucleus_tpu/base/linear_operators.py:156'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -2740,6 +2763,478 @@ def phase13():
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 14
+
+# JAX package outputs, run on the CPU in float64 (getDenseVector and getH2
+# of nl/assembly.py nonlocalBuilder on the drivers' meshes, x = numpy
+# RandomState(14) standard_normal(N)): the interval at noRef 6 (127 dofs),
+# per vector line the Frobenius norm of each component and the norms of
+# matvec(x) and matvecTrans(x); the disc at noRef 5 (4465 dofs), d^2/ds^2
+# of s = 0.75, the norms of A x for the dense operator (params={'denseGrid':
+# True}, the grid path, as the port's default) and the H2 operator.  Held
+# to TOL_DERIV_JAX relative.
+JAX_VECTOR_NOREF6 = {
+    'LR2-d1': {'components': [6.517508709957474, 924.1232194495659],
+               'matvec': 841.291904101015,
+               'matvecTrans': 840.3457653651976},
+    'LR2-d2': {'components': [61.4617095320536, 0.0, 0.0,
+                              9635.573930541792],
+               'matvec': 8835.391851993249,
+               'matvecTrans': 8822.673328452054},
+    'LR4-d1': {'components': [6.387706986956925, 922.987548784992,
+                              1.5734508825023479, 8.90777776800417],
+               'matvec': 840.1892407230822,
+               'matvecTrans': 840.0775999682043}}
+JAX_DISC5_D2 = {'dense': 2142.6239279254646, 'H2': 2142.6968773060808}
+TOL_DERIV_JAX = 1e-6
+DERIV_PIN_NOREF = 5
+DERIV_VECTOR_PIN_NOREF = 6
+# the three vector lines: leftRight parameters and derivative
+DERIV_VECTOR_LINES = (('LR2-d1', (0.25, 0.75), 1), ('LR2-d2', (0.25, 0.75), 2),
+                      ('LR4-d1', (0.25, 0.75, 0.4, 0.6), 1))
+# the finite-difference check (tests/test_vector_assembly.py:59-80): order
+# leftRight(0.3, 0.6), step 1e-5, at noRef DERIV_FD_NOREF
+DERIV_FD_NOREF = 8
+TOL_DERIV_FD = 5e-4
+# dA/ds of s = 0.75 on the disc: H2 against dense at noRef
+# DERIV_CHECK_NOREF, the full-width line at DERIV_NOREF
+DERIV_CHECK_NOREF = 6
+TOL_DERIV_H2 = 5e-4
+DERIV_NOREF = 7
+# d^2A/ds^2 of leftRight(0.25, 0.75), dense vector on the interval at
+# DERIV_VECTOR_NOREF; DERIV_VECTOR_FALLBACK if its host set-up exceeds
+# DERIV_HOST_LIMIT seconds
+DERIV_VECTOR_NOREF = 12
+DERIV_VECTOR_FALLBACK = 11
+DERIV_HOST_LIMIT = 300.0
+# the kernels each path of phase 14 must launch
+DERIV_DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary',
+                    'vector_matvec', 'panel_scatter:dense',
+                    'vector_matvec:apply')
+DERIV_H2_PATH = ('panel_scatter', 'far_field', 'h2_matvec', 'near_enum',
+                 'near_enum_quad', 'block_near_count', 'block_near_quad',
+                 'panel_scatter:slots', 'panel_scatter:tree')
+DERIV_VEC_PATH = ('panel_scatter_vec', 'panel_scatter_nonsym_vec',
+                  'vector_matvec', 'vector_matvec:apply',
+                  'vector_matvec:transposed')
+# operations of one vector-kernel node term (side, pow, log, the power-log
+# polynomial and the log correction)
+VEC_TERM_OPS = 14
+DERIV_COMPARED_AT = {
+    'panel_scatter': 'disc noRef 5, d^2/ds^2 of s = 0.75 (power-log '
+                     'profile): the dense target (a dense build) and the CSR '
+                     'targets (an H2 build), all calls',
+    'grid_distant': 'disc noRef 5, d^2/ds^2 of s = 0.75, all calls',
+    'grid_boundary': 'disc noRef 5, d^2/ds^2 of s = 0.75',
+    'near_enum_quad': 'disc noRef 5, d^2/ds^2 of s = 0.75, all calls',
+    'far_field': 'disc noRef 5, d^2/ds^2 of s = 0.75, all calls',
+    'block_near_quad': 'disc noRef 5, d^2/ds^2 of s = 0.75, all calls',
+}
+COMPARED_AT.update({
+    'panel_scatter_vec': 'interval, the three vector lines at noRef 6 and '
+                         'leftRight(0.25, 0.75) d^2/ds^2 at noRef 12: all '
+                         'calls',
+    'panel_scatter_nonsym_vec': 'interval, the three vector lines at noRef 6 '
+                                '(all calls) and leftRight(0.25, 0.75) '
+                                'd^2/ds^2 at noRef 12 (its largest call)',
+    'vector_matvec': 'interval, leftRight(0.25, 0.75) d^2/ds^2 at noRef 12 '
+                     '(8,191 x 8,191 x 4): one apply and one transposed '
+                     'apply, per pair, library torch.einsum'})
+
+
+def count_path(label, path, fn):
+    """Runs fn() as a main path: every launch count set to 0 just before
+    and read just after; each kernel of ``path`` must have launched.
+    Returns (fn's result, the counts)."""
+    import torch
+    from pynucleus_tpu_torch import kernels
+    torch.cuda.synchronize()
+    kernels.resetLaunches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    counts['device'] = dict(kernels.deviceLaunches)
+    for k in path:
+        if counts[k] <= 0:
+            raise AssertionError(f'kernel {k} was not launched by the '
+                                 f'{label} path')
+    return out, counts
+
+
+def vec_work(args):
+    """K21 or K22 on recorded args (N, vertices, vi1, vi2, dofRows, volsym,
+    bary_x, bary_y, w, P1[, P2], vp, logTables): per pair and node the
+    positions, r^2, the node term (twice for K22) and V nPSI^2
+    multiply-adds each way; the touched entries of A [N, N, V] read and
+    written once (at most all of A, however many pairs share them)."""
+    (shape, vertices, vi1, vi2, dofRows, volsym, bx, by, w, P1, *rest) = args
+    ways = 2 if len(rest) == 3 else 1
+    V = rest[-2].grads.shape[1]
+    P, Q, nn, dim = vi1.shape[0], w.shape[0], P1.shape[1], vertices.shape[1]
+    ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim
+                   + ways * (VEC_TERM_OPS + 2 * V * nn))
+    touched = min(P * nn, shape[0] * shape[1]) * V
+    return (nbytes(args[1:]) + 16 * touched, ops, F64_PEAK)
+
+
+def _vec_plain(nonsym):
+    import pynucleus_tpu_torch.nl.assembly as asm
+    return asm._panel_scatter_nonsym_vec_plain if nonsym else \
+        asm._panel_scatter_vec_plain
+
+
+def compare_vector_matvec(A, reps=10):
+    """K23: ``reps`` applies and transposed applies of the dense vector
+    operator's data A [N, M, V] each way, after an untimed one, and one
+    torch.einsum call each way; returns the result() per pair of applies."""
+    import torch
+    from pynucleus_tpu_torch.base.linear_operators import (
+        vector_matvec, _vector_matvec_plain)
+    N, M, V = A.shape
+    x = torch.randn(N, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(23))
+    worst = ms = plain_ms = lib_ms = 0.0
+    for trans, eq in ((False, 'nmk,m->nk'), (True, 'nmk,n->mk')):
+        vector_matvec(A, x, trans), _vector_matvec_plain(A, x, trans)
+        torch.einsum(eq, A, x)
+        got, ref = [], []
+        ms += timed(lambda: [got.append(vector_matvec(A, x, trans))
+                             for _ in range(reps)]) / reps
+        plain_ms += timed(lambda: [ref.append(_vector_matvec_plain(A, x,
+                                                                   trans))
+                                   for _ in range(reps)]) / reps
+        lib_ms += timed(lambda: [torch.einsum(eq, A, x)
+                                 for _ in range(reps)]) / reps
+        err = float((got[-1] - ref[-1]).abs().max())
+        scale = float(ref[-1].abs().max())
+        if not (scale > 0 and err <= TOL_KERNEL * scale):
+            raise AssertionError(f'vector_matvec (trans={trans}): max err '
+                                 f'{err} (max {scale})')
+        worst = max(worst, err)
+    log(f'  vector_matvec: [{N}, {M}, {V}], apply and transposed apply, max '
+        f'abs err {worst:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, '
+        f'torch.einsum {lib_ms:.3f} ms per pair')
+    b = 2 * (nbytes(A) + 8 * N + 8 * max(N, M) * V)
+    return result(worst, ms, plain_ms, [(b, 4 * N * M * V, F64_PEAK)],
+                  library_ms=lib_ms)
+
+
+def _seeded(n):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.RandomState(14).standard_normal(n),
+                           device='cuda')
+
+
+def _relclose(got, ref, tol):
+    return abs(got - ref) <= tol * abs(ref)
+
+
+def phase14():
+    """The s-derivative operators: the constant order's d^2/ds^2 on the
+    disc at noRef 5, dense and H2, and the three vector lines on the
+    interval at noRef 6 against the pinned JAX outputs (each a path); the
+    finite-difference check of the vector kernel at noRef DERIV_FD_NOREF
+    and dA/ds H2 against dense on the disc at noRef DERIV_CHECK_NOREF; the
+    full-width lines (dA/ds of the flagship disc at noRef DERIV_NOREF with
+    getH2Vector, d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef
+    DERIV_VECTOR_NOREF; each a path), and K21, K22, K23 and the power-log
+    profile in K1, K2, K3, K6 (where called), K7 and K12 against their plain
+    versions.  Returns the launch counts of its paths, the comparisons of
+    K21-K23, those of the power-log profile and the summary."""
+    import contextlib
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.nl.discretized import buildMeshHierarchy
+    from pynucleus_tpu_torch.nl.kernels import (getFractionalKernel,
+                                                leftRightFractionalOrder)
+    from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
+    log('phase 14: the s-derivative operators (dA/ds, d^2A/ds^2)')
+    counts, summary = {}, {}
+
+    def level(domain, noRef):
+        """The dofmap of the driver's mesh of ``domain`` at noRef."""
+        prob = fractionalLaplacianProblem(domain, 'const(0.75)')
+        _, dms, _ = buildMeshHierarchy(prob['mesh'], 'lu', prob['tag'],
+                                       noRef, 'P1', 'cuda')
+        return dms[-1]
+
+    def disc(noRef):
+        return level('disc', noRef)
+
+    def interval(noRef):
+        return level('interval', noRef)
+
+    # --- the constant order's d^2/ds^2 on the disc at noRef 5
+    dm5 = disc(DERIV_PIN_NOREF)
+    k2 = getFractionalKernel(2, 0.75, derivative=2)
+    x5 = _seeded(dm5.num_dofs)
+    with ArgRecorder(asm, 'panel_scatter', dataFirst=True) as r1, \
+            ArgRecorder(asm, 'grid_distant', dataFirst=True) as r2, \
+            ArgRecorder(asm, 'grid_boundary', dataFirst=True) as r3:
+        y, counts['disc5_dense'] = count_path(
+            'disc noRef 5 d2 dense', DERIV_DENSE_PATH,
+            lambda: asm.nonlocalBuilder(dm5, k2).getDenseVector().matvec(x5))
+    got = float(torch.linalg.norm(y))
+    if not _relclose(got, JAX_DISC5_D2['dense'], TOL_DERIV_JAX):
+        raise AssertionError(f'disc noRef 5 d2 dense: |A x| {got} vs JAX '
+                             f"{JAX_DISC5_D2['dense']}")
+    log(f'  disc noRef 5, d^2/ds^2 of s = 0.75, dense: |A x| {got:.12e}, '
+        f'the JAX output (rtol {TOL_DERIV_JAX})')
+    names = asm.__dict__
+    (got, counts['disc5_h2']), recs = record_h2_build(lambda: count_path(
+        'disc noRef 5 d2 H2', DERIV_H2_PATH,
+        lambda: float(torch.linalg.norm(asm.nonlocalBuilder(dm5, k2)
+                                        .getH2Vector().matvec(x5)))),
+        H2_BUILD + ENGINE_KERNELS[:2])
+    if not _relclose(got, JAX_DISC5_D2['H2'], TOL_DERIV_JAX):
+        raise AssertionError(f'disc noRef 5 d2 H2: |H x| {got} vs JAX '
+                             f"{JAX_DISC5_D2['H2']}")
+    log(f'  disc noRef 5, d^2/ds^2 of s = 0.75, H2 (getH2Vector): |H x| '
+        f'{got:.12e}, the JAX output (rtol {TOL_DERIV_JAX})')
+    log('  the power-log profile in the kernels against their plain versions '
+        '(these two builds)')
+    prof = {}
+    for n in H2_CSR:
+        if recs[n].calls:
+            prof[n] = compare_target_kernel(
+                n + ' (power-log)', recs[n].calls, names[n],
+                names['_' + n + '_plain'],
+                enum_quad_work if n == 'near_enum_quad' else panel_work)
+    if not (recs['panel_scatter_slots'].calls
+            and recs['panel_scatter_tree'].calls and recs['far_field'].calls
+            and (recs['block_near_quad'].calls
+                 or recs['near_enum_quad'].calls)):
+        raise AssertionError('the H2 build made no call of K1 (slots, tree), '
+                             'K7, or K6 or K12')
+    prof['far_field'] = compare_far_field(recs['far_field'].calls,
+                                          'far_field (power-log)')
+    if recs['block_near_quad'].calls:
+        prof['block_near_quad'] = compare_target_kernel(
+            'block_near_quad (power-log)', recs['block_near_quad'].calls,
+            asm.block_near_quad, asm._block_near_quad_plain, block_quad_work)
+    for name, calls, work in (('panel_scatter', r1.calls, panel_work),
+                              ('grid_distant', r2.calls, grid_distant_work),
+                              ('grid_boundary', r3.calls,
+                               grid_boundary_work)):
+        c = compare_target_kernel(f'{name} (power-log, dense)', calls,
+                                  names[name], names['_' + name + '_plain'],
+                                  work)
+        prof[name] = merge(c, *(prof.pop(n) for n in ('panel_scatter_slots',
+                                                      'panel_scatter_tree')
+                                if name == 'panel_scatter'))
+    del recs, r1, r2, r3, dm5, y
+    torch.cuda.empty_cache()
+
+    # --- the vector lines on the interval at noRef 6
+    dm6 = interval(DERIV_VECTOR_PIN_NOREF)
+    x6 = _seeded(dm6.num_dofs)
+    k21, k22 = [], []
+    for label, sv, d in DERIV_VECTOR_LINES:
+        kv = getFractionalKernel(1, leftRightFractionalOrder(*sv),
+                                 derivative=d)
+
+        def line():
+            A = asm.nonlocalBuilder(dm6, kv).getDenseVector()
+            return A, A.matvec(x6), A.matvecTrans(x6)
+        with ArgRecorder(asm, 'panel_scatter_vec', dataFirst=True) as rv, \
+                ArgRecorder(asm, 'panel_scatter_nonsym_vec',
+                            dataFirst=True) as rn:
+            (A, y, yT), counts[label] = count_path(
+                f'interval noRef 6 {label}', DERIV_VEC_PATH, line)
+        k21 += rv.calls
+        k22 += rn.calls
+        ref = JAX_VECTOR_NOREF6[label]
+        got = {'components': [float(torch.linalg.norm(A.data[:, :, v]))
+                              for v in range(A.vectorSize)],
+               'matvec': float(torch.linalg.norm(y)),
+               'matvecTrans': float(torch.linalg.norm(yT))}
+        bad = [f'{k}: {got[k]} vs {ref[k]}' for k in ('matvec', 'matvecTrans')
+               if not _relclose(got[k], ref[k], TOL_DERIV_JAX)]
+        bad += [f'component {v}: {a} vs {b}' for v, (a, b) in enumerate(
+            zip(got['components'], ref['components']))
+            if not (len(got['components']) == len(ref['components'])
+                    and _relclose(a, b, TOL_DERIV_JAX))]
+        if bad:
+            raise AssertionError(f'{label}: ' + '; '.join(bad))
+        log(f"  interval noRef 6 {label}: V {A.vectorSize}, |matvec| "
+            f"{got['matvec']:.12e}, |matvecTrans| {got['matvecTrans']:.12e}: "
+            f'the JAX outputs (rtol {TOL_DERIV_JAX})')
+        if d == 2:
+            P = int(round(A.vectorSize ** 0.5))
+            H = A.data.reshape(A.num_rows, A.num_rows, P, P)
+            sym = float((H[:, :, 0, 1] - H[:, :, 1, 0]).abs().max()
+                        / H.abs().max())
+            if not sym <= 1e-10:
+                raise AssertionError(f'{label}: components (0,1) and (1,0) '
+                                     f'differ by {sym}')
+            log(f'  {label}: components (0,1) and (1,0) within {sym:.2e}')
+        del A, y, yT
+
+    # --- the finite-difference check
+    log(f'  d/dp of leftRight(0.3, 0.6) at noRef {DERIV_FD_NOREF} against '
+        'central differences of the dense operators (step 1e-5)')
+    dmF = interval(DERIV_FD_NOREF)
+    kv = getFractionalKernel(1, leftRightFractionalOrder(0.3, 0.6),
+                             derivative=1)
+    arr = asm.nonlocalBuilder(dmF, kv).getDenseVector().data
+    eps = 1e-5
+
+    def plain(a, b):
+        return asm.nonlocalBuilder(dmF, getFractionalKernel(
+            1, leftRightFractionalOrder(a, b))).getDense().data
+    fdErr = []
+    for q, (da, db) in enumerate(((eps, 0.0), (0.0, eps))):
+        fd = (plain(0.3 + da, 0.6 + db) - plain(0.3 - da, 0.6 - db)) \
+            / (2 * eps)
+        fdErr.append(float((arr[:, :, q] - fd).abs().max() / fd.abs().max()))
+    if not max(fdErr) < TOL_DERIV_FD:
+        raise AssertionError(f'finite differences: {fdErr}')
+    log(f'  components 0, 1 against the differences: {fdErr[0]:.3e}, '
+        f'{fdErr[1]:.3e} of the largest entry (< {TOL_DERIV_FD})')
+    summary['fd_rel_err'] = fdErr
+    del arr, dmF, dm6
+    torch.cuda.empty_cache()
+
+    # --- dA/ds of s = 0.75 on the disc: H2 against dense
+    k1 = getFractionalKernel(2, 0.75, derivative=1)
+    dmC = disc(DERIV_CHECK_NOREF)
+    xC = _seeded(dmC.num_dofs)
+    yD = asm.nonlocalBuilder(dmC, k1).getDenseVector().matvec(xC)
+    yH = asm.nonlocalBuilder(dmC, k1).getH2Vector().matvec(xC)
+    rel = float(torch.linalg.norm(yH - yD) / torch.linalg.norm(yD))
+    if not rel < TOL_DERIV_H2:
+        raise AssertionError(f'disc noRef {DERIV_CHECK_NOREF} dA/ds: H2 vs '
+                             f'dense {rel}')
+    log(f'  disc noRef {DERIV_CHECK_NOREF} ({dmC.num_dofs} dofs), dA/ds: H2 '
+        f'against dense {rel:.4e} relative on one apply (< {TOL_DERIV_H2})')
+    summary['disc_check'] = {'noRef': DERIV_CHECK_NOREF,
+                             'dofs': dmC.num_dofs, 'h2_vs_dense': rel}
+    del yD, yH, dmC
+    torch.cuda.empty_cache()
+
+    # --- the full-width line: dA/ds of the flagship disc in H2
+    log(f'  the full-width line: dA/ds of s = 0.75 on the disc at noRef '
+        f'{DERIV_NOREF}, getH2Vector')
+    dm7 = disc(DERIV_NOREF)
+    torch.cuda.reset_peak_memory_stats()
+
+    def flagship():
+        b = asm.nonlocalBuilder(dm7, k1)
+        t0 = time.perf_counter()
+        H = b.getH2Vector()
+        torch.cuda.synchronize()
+        tB = time.perf_counter() - t0
+        return (H, tB, b.timers, timed(lambda: H.matvec(x7)),
+                timed(lambda: H.matvecTrans(x7)))
+    x7 = _seeded(dm7.num_dofs)
+    (H, tBuild, parts, first, firstT), counts['disc7_h2'] = count_path(
+        f'disc noRef {DERIV_NOREF} dA/ds H2', DERIV_H2_PATH, flagship)
+    ms = timed(lambda: [H.matvec(x7) for _ in range(10)]) / 10
+    msT = timed(lambda: [H.matvecTrans(x7) for _ in range(10)]) / 10
+    y7 = H.matvec(x7)
+    if not (y7.shape == (dm7.num_dofs, 1) and bool(torch.isfinite(y7).all())):
+        raise AssertionError(f'noRef {DERIV_NOREF}: H x {y7.shape}')
+    peak = torch.cuda.max_memory_allocated()
+    del H
+    torch.cuda.empty_cache()
+    # the device part of the build: a second build under torch.profiler
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as profiled:
+        t0 = time.perf_counter()
+        asm.nonlocalBuilder(dm7, k1).getH2Vector()
+        torch.cuda.synchronize()
+        tProf = time.perf_counter() - t0
+    dev = {}
+    for ev in profiled.key_averages():
+        t = getattr(ev, 'device_time_total', None)
+        if t is None:
+            t = getattr(ev, 'cuda_time_total', 0)
+        if t and ev.device_type.name == 'CUDA':
+            dev[ev.key[:48]] = dev.get(ev.key[:48], 0.0) + t / 1e3
+    devMs = sum(dev.values())
+    summary['disc_full'] = {
+        'noRef': DERIV_NOREF, 'dofs': dm7.num_dofs, 'build_s': tBuild,
+        'parts_s': {k: round(v, 4) for k, v in parts.items()},
+        'profiled_build_s': tProf, 'device_ms': devMs,
+        'device_busy_share': devMs / 1e3 / tProf,
+        'device_ms_by_kernel': dict(sorted(dev.items(),
+                                           key=lambda kv: -kv[1])[:8]),
+        'matvec_ms_first': first, 'matvec_ms': ms,
+        'matvecTrans_ms_first': firstT, 'matvecTrans_ms': msT,
+        'peak_GiB': peak / 2 ** 30, 'norm_Hx': float(torch.linalg.norm(y7))}
+    log(f"  summary: {json.dumps(summary['disc_full'])}")
+    del y7, dm7
+    torch.cuda.empty_cache()
+
+    # --- the full-width line: d^2A/ds^2 of leftRight(0.25, 0.75), dense
+    kv = getFractionalKernel(1, leftRightFractionalOrder(0.25, 0.75),
+                             derivative=2)
+    noRef = DERIV_VECTOR_NOREF
+    while True:
+        log(f'  the full-width line: d^2A/ds^2 of leftRight(0.25, 0.75) on '
+            f'the interval at noRef {noRef}, getDenseVector')
+        dmV = interval(noRef)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        def vectorLine():
+            b = asm.nonlocalBuilder(dmV, kv)
+            t0 = time.perf_counter()
+            b._classifyAll()
+            tCls = time.perf_counter() - t0
+            A = b.getDenseVector()
+            torch.cuda.synchronize()
+            return A, tCls, time.perf_counter() - t0
+
+        def apply():
+            A, tCls, tAll = vectorLine()
+            return A, tCls, tAll, A.matvec(xV), A.matvecTrans(xV)
+        xV = _seeded(dmV.num_dofs)
+        (A, tCls, tAll, y, yT), counts['vector_full'] = count_path(
+            f'interval noRef {noRef} d2 vector', DERIV_VEC_PATH, apply)
+        peak = torch.cuda.max_memory_allocated()
+        if tCls <= DERIV_HOST_LIMIT or noRef == DERIV_VECTOR_FALLBACK:
+            break
+        log(f'  host classification {tCls:.1f} s > {DERIV_HOST_LIMIT} s: '
+            f'noRef {DERIV_VECTOR_FALLBACK} instead')
+        noRef = DERIV_VECTOR_FALLBACK
+        del A, y, yT
+    if not (bool(torch.isfinite(y).all()) and bool(torch.isfinite(yT).all())):
+        raise AssertionError(f'noRef {noRef} vector line: non-finite apply')
+    summary['vector_full'] = {
+        'noRef': noRef, 'dofs': dmV.num_dofs, 'V': A.vectorSize,
+        'GB': A.data.numel() * 8 / 1e9, 'build_s': tAll,
+        'host_classification_s': tCls, 'peak_GiB': peak / 2 ** 30,
+        'norm_matvec': float(torch.linalg.norm(y)),
+        'norm_matvecTrans': float(torch.linalg.norm(yT))}
+    log(f"  summary: {json.dumps(summary['vector_full'])}")
+    del y, yT
+    log(f'  K21, K22 and K23 against their plain versions (the noRef 6 lines '
+        f'and noRef {noRef}, its calls recorded in a second build)')
+    cmp = {'vector_matvec': compare_vector_matvec(A.data)}
+    del A
+    torch.cuda.empty_cache()
+    with ArgRecorder(asm, 'panel_scatter_vec', dataFirst=True) as rv, \
+            ArgRecorder(asm, 'panel_scatter_nonsym_vec', dataFirst=True,
+                        size=lambda A, v, vi1, *a: vi1.shape[0]) as rn:
+        asm.nonlocalBuilder(dmV, kv).getDenseVector()
+    k21 += rv.calls
+    k22 += rn.calls
+    del dmV
+    torch.cuda.empty_cache()
+    cmp['panel_scatter_vec'] = compare_target_kernel(
+        'panel_scatter_vec', k21, asm.panel_scatter_vec, _vec_plain(False),
+        vec_work)
+    cmp['panel_scatter_nonsym_vec'] = compare_target_kernel(
+        'panel_scatter_nonsym_vec', k22, asm.panel_scatter_nonsym_vec,
+        _vec_plain(True), vec_work)
+    torch.cuda.empty_cache()
+    return counts, cmp, prof, summary
+
+
 def main():
     try:
         import torch
@@ -2782,6 +3277,7 @@ def main():
     countsG, cmp11 = phase11()
     counts12, cmp12, _ = phase12()
     counts13, cmp13, summary13 = phase13()
+    counts14, cmp14, prof14, summary14 = phase14()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -2821,10 +3317,20 @@ def main():
          counts13['transpose']),
         (VO_PATHS['twoDomainNonSym-H2-mg'],
          f"h2_gmres_mg_twoDomainNonSym_noRef{summary13['noRef']}",
-         counts13['full']))
+         counts13['full']),
+        (DERIV_DENSE_PATH, 'd2_dense_disc_noRef5', counts14['disc5_dense']),
+        (DERIV_H2_PATH, 'd2_h2_disc_noRef5', counts14['disc5_h2'])) + tuple(
+        (DERIV_VEC_PATH, f'vector_{label}_interval_noRef6', counts14[label])
+        for label, *_ in DERIV_VECTOR_LINES) + (
+        (DERIV_H2_PATH, f"d1_h2_disc_noRef{summary14['disc_full']['noRef']}",
+         counts14['disc7_h2']),
+        (DERIV_VEC_PATH,
+         f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
+         counts14['vector_full']))
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
+    cmp.update(cmp14)
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
         c = cmp[name]
@@ -2866,15 +3372,26 @@ def main():
                 'plain_ms': c13['plain_ms'], 'bound_ms': vms,
                 'bound_by': vby, 'library_ms': c13['library_ms'],
                 'compared_at': VO_COMPARED_AT[name]}
+        if name in prof14:
+            # the power-log profile of the s-derivatives of a constant order
+            c14 = prof14[name]
+            dms, dby = bound(c14['work'])
+            row['at_derivative'] = {
+                'max_abs_err': c14['err'], 'ms': c14['ms'],
+                'plain_ms': c14['plain_ms'], 'bound_ms': dms,
+                'bound_by': dby, 'library_ms': c14['library_ms'],
+                'compared_at': DERIV_COMPARED_AT[name]}
         split = {'panel_scatter': ('launches_by_target', kernels.K1_TARGETS),
                  'panel_scatter_nonsym': ('launches_by_target',
                                           kernels.K19_TARGETS),
-                 'pcg_update': ('launches_by_form', kernels.K4_FORMS)}
+                 'pcg_update': ('launches_by_form', kernels.K4_FORMS),
+                 'vector_matvec': ('launches_by_form', kernels.K23_FORMS)}
         if name in split:
             key, names = split[name]
             row[key] = {t.split(':')[1]: sum(counts[t] for *_, counts in paths)
                         for t in names}
         table.append(row)
+    log(f'phase 14 summary: {json.dumps(summary14)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,12 +1,15 @@
-"""Dense, diagonal and CSR linear operators on tensors; kernel K9.
+"""Dense, diagonal and CSR linear operators on tensors, and the
+vector-valued operators; kernels K9 and K23.
 
-Port of Dense_LinearOperator, Diagonal_LinearOperator and
-CSR_LinearOperator of pynucleus_tpu/base/linear_operators.py.  The dense
-matvec is ``torch.mv``: the plain large product the JAX package leaves to
-XLA (``A.data @ x``).  The CSR matvec is kernel K9 :func:`csr_spmv`.
-Every operator's ``matvec(x, out=None)`` writes into ``out`` when given
-(the CG loop and the V-cycle reuse their buffers); the H2 operator is
-nl/h2.py H2Matrix.
+Port of Dense_LinearOperator, Diagonal_LinearOperator, CSR_LinearOperator,
+VectorLinearOperator, Dense_VectorLinearOperator and
+H2_VectorLinearOperator of pynucleus_tpu/base/linear_operators.py.  The
+dense matvec is ``torch.mv``: the plain large product the JAX package
+leaves to XLA (``A.data @ x``).  The CSR matvec is kernel K9
+:func:`csr_spmv`, the dense vector operator's apply and transposed apply
+kernel K23 :func:`vector_matvec`.  Every scalar operator's ``matvec(x,
+out=None)`` writes into ``out`` when given (the CG loop and the V-cycle
+reuse their buffers); the H2 operator is nl/h2.py H2Matrix.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from .. import kernels
 from ..config import getDevice
 
 __all__ = ['LinearOperator', 'Dense_LinearOperator', 'Diagonal_LinearOperator',
-           'CSR_LinearOperator', 'csr_spmv']
+           'CSR_LinearOperator', 'csr_spmv', 'VectorLinearOperator',
+           'Dense_VectorLinearOperator', 'H2_VectorLinearOperator',
+           'vector_matvec']
 
 
 class LinearOperator:
@@ -252,3 +257,128 @@ class CSR_LinearOperator(LinearOperator):
         A = A.tocsr()
         return CSR_LinearOperator(A.indptr, A.indices, A.data,
                                   num_columns=A.shape[1], device=device)
+
+
+# ----------------------------------------------------- vector operators ----
+
+class VectorLinearOperator:
+    """Operator with vector-valued entries: matvec maps x [M] to y [N, V]
+    (pynucleus_tpu/base/linear_operators.py VectorLinearOperator: the
+    s-derivative operators, whose entries have kernel.valueSize
+    components)."""
+
+    def __init__(self, num_rows, num_columns, vectorSize):
+        self.num_rows = num_rows
+        self.num_columns = num_columns
+        self.vectorSize = vectorSize
+
+    def __call__(self, x, trans=False):
+        return self.matvecTrans(x) if trans else self.matvec(x)
+
+
+class Dense_VectorLinearOperator(VectorLinearOperator):
+    """data [N, M, V] float64 on its device; matvec and matvecTrans are
+    kernel K23 (:func:`vector_matvec`)."""
+
+    def __init__(self, data):
+        self.data = data
+        super().__init__(*data.shape)
+
+    @property
+    def device(self):
+        return self.data.device
+
+    def matvec(self, x):
+        return vector_matvec(self.data, x)
+
+    def matvecTrans(self, x):
+        return vector_matvec(self.data, x, trans=True)
+
+    def toarray(self):
+        return self.data.detach().cpu().numpy()
+
+    def __add__(self, other):
+        return Dense_VectorLinearOperator(self.data + other.data)
+
+    def __mul__(self, fac):
+        return Dense_VectorLinearOperator(fac * self.data)
+
+    __rmul__ = __mul__
+
+    def __repr__(self):
+        return (f'<Dense_VectorLinearOperator {self.num_rows}x'
+                f'{self.num_columns}x{self.vectorSize}>')
+
+
+class H2_VectorLinearOperator(VectorLinearOperator):
+    """One H2 operator per value component: the apply stacks theirs, the
+    transposed apply stacks their transposes' (a symmetric operator's
+    ``T`` is itself)."""
+
+    def __init__(self, components):
+        self.components = list(components)
+        c0 = self.components[0]
+        super().__init__(c0.num_rows, c0.num_columns, len(self.components))
+
+    def matvec(self, x):
+        return torch.stack([c.matvec(x) for c in self.components], dim=1)
+
+    def matvecTrans(self, x):
+        return torch.stack([c.T.matvec(x) for c in self.components], dim=1)
+
+
+# ------------------------------------------------------------------ K23 ---
+
+def vector_matvec(A, x, trans=False):
+    """y [N, V] with y[n, k] = sum_m A[n, m, k] x[m] (``trans``: y [M, V],
+    y[m, k] = sum_n A[n, m, k] x[n]) for A [N, M, V] and x float64,
+    contiguous, on one device.
+
+    Kernel K23 (kernels/csrc/vector_matvec.cu) on CUDA tensors, the plain
+    version on CPU tensors.  Replaces
+    pynucleus_tpu/base/linear_operators.py:156
+    Dense_VectorLinearOperator.matvec and :159 matvecTrans."""
+    if A.dim() != 3 or A.dtype != torch.float64 or not A.is_contiguous():
+        raise ValueError('vector_matvec: A must be a contiguous float64 '
+                         '[N, M, V] tensor')
+    N, M, V = A.shape
+    n = N if trans else M
+    if x.dtype != torch.float64 or x.shape != (n,) or not x.is_contiguous() \
+            or x.device != A.device:
+        raise ValueError(f'vector_matvec: x must be a contiguous float64 [{n}]'
+                         f' on {A.device}')
+    if A.device.type == 'cpu':
+        return _vector_matvec_plain(A, x, trans)
+    if A.device.type != 'cuda':
+        raise ValueError(f'vector_matvec: unsupported device {A.device}')
+    y = torch.zeros((M if trans else N, V), dtype=torch.float64,
+                    device=A.device)
+    lib = kernels.library()
+    kernels.launches['vector_matvec'] += 1
+    kernels.deviceLaunches['vector_matvec'] += 1
+    kernels.launches['vector_matvec:transposed' if trans else
+                     'vector_matvec:apply'] += 1
+    p = kernels.ptr
+    fn = lib.vector_matvec_T if trans else lib.vector_matvec
+    kernels.check(fn(p(y), p(A), p(x), N, M, V, kernels.stream()))
+    return y
+
+
+# rows of A per step of the plain version (bounds its [rows, M, V]
+# intermediate)
+_PLAIN_ENTRIES = 1 << 24
+
+
+def _vector_matvec_plain(A, x, trans=False):
+    """Plain PyTorch version of :func:`vector_matvec` (any device): the
+    products summed over m (over n for ``trans``), a block of rows at a
+    time."""
+    N, M, V = A.shape
+    step = max(_PLAIN_ENTRIES // max(M * V, 1), 1)
+    if not trans:
+        return torch.cat([(A[s:s + step] * x[None, :, None]).sum(1)
+                          for s in range(0, N, step)])
+    y = torch.zeros((M, V), dtype=A.dtype, device=A.device)
+    for s in range(0, N, step):
+        y += (A[s:s + step] * x[s:s + step, None, None]).sum(0)
+    return y

@@ -1,9 +1,9 @@
 """Host-side quadrature rule construction (numpy/scipy).
 
-Carried over from pynucleus_tpu/fem/quadrature.py (without the log-moment
-weights of the s-derivative kernels): rules are built once on the host and
-copied to the device as static tables, so the port and the JAX package
-quadrature with bit-identical nodes and weights.
+Carried over from pynucleus_tpu/fem/quadrature.py, with the log-moment
+weights of the s-derivative kernels (logWeights): rules are built once on
+the host and copied to the device as static tables, so the port and the
+JAX package quadrature with bit-identical nodes and weights.
 
 Conventions:
   - 1D rules: nodes/weights on [0,1].
@@ -17,7 +17,7 @@ import numpy as np
 from scipy.special import roots_jacobi, roots_legendre
 
 __all__ = ['gauss01', 'gaussJacobi01', 'simplexDuffy', 'tensorRule',
-           'simplexCompact']
+           'simplexCompact', 'shiftedLegendreVandermonde', 'logWeights']
 
 
 def gauss01(order):
@@ -35,6 +35,64 @@ def gaussJacobi01(order, alpha, beta):
     x = (t + 1.0) / 2.0
     w = w * 0.5 ** (alpha + beta + 1.0)
     return x, w
+
+
+def shiftedLegendreVandermonde(x, n):
+    """[n, len(x)] table of shifted Legendre polynomials P~_k(x) on [0,1]
+    (stable three-term recurrence)."""
+    x = np.asarray(x, dtype=np.float64)
+    V = np.zeros((n, x.shape[0]))
+    V[0] = 1.0
+    if n > 1:
+        t = 2.0 * x - 1.0
+        V[1] = t
+        for k in range(1, n - 1):
+            V[k + 1] = ((2 * k + 1) * t * V[k] - k * V[k - 1]) / (k + 1)
+    return V
+
+
+def _shiftedLegendreMomentDerivs(beta, n):
+    """(mu, mu', mu'') of mu_k(beta) = int_0^1 x^beta P~_k(x) dx
+    = prod_{j<k}(beta-j) / prod_{j=1..k+1}(beta+j), derivatives wrt beta,
+    computed with dual-number products (safe at beta near integers)."""
+    mu = np.zeros(n)
+    d1 = np.zeros(n)
+    d2 = np.zeros(n)
+    for k in range(n):
+        # numerator: prod (beta - j), j = 0..k-1; track (f, f', f'')
+        f, fp, fpp = 1.0, 0.0, 0.0
+        for j in range(k):
+            a = beta - j
+            f, fp, fpp = f * a, fp * a + f, fpp * a + 2.0 * fp
+        # denominator: prod (beta + j), j = 1..k+1
+        g, gp, gpp = 1.0, 0.0, 0.0
+        for j in range(1, k + 2):
+            a = beta + j
+            g, gp, gpp = g * a, gp * a + g, gpp * a + 2.0 * gp
+        # quotient rule for f/g and its two derivatives
+        mu[k] = f / g
+        d1[k] = (fp * g - f * gp) / g ** 2
+        d2[k] = (fpp * g ** 2 - 2 * fp * gp * g - f * gpp * g
+                 + 2 * f * gp ** 2) / g ** 3
+    return mu, d1, d2
+
+
+def logWeights(nodes, beta, logorder=1):
+    """Weights u on the GIVEN nodes such that
+        sum_q u_q f(x_q)  ~=  int_0^1 x^beta (ln x)^logorder f(x) dx
+    for smooth f (moment matching against shifted Legendre polynomials;
+    the log-moments are d^m/dbeta^m of the closed-form power moments).
+    Used to integrate the log|x-y| factors of s-derivative kernels EXACTLY
+    through the singularity-cancellation rules (the reference reaches the
+    same accuracy implicitly because its per-s Gauss-Jacobi rules track s;
+    ref kernelNormalization.pyx:363-380 evaluates the log factor
+    pointwise)."""
+    x = np.asarray(nodes, dtype=np.float64)
+    n = x.shape[0]
+    V = shiftedLegendreVandermonde(x, n)
+    mu, d1, d2 = _shiftedLegendreMomentDerivs(float(beta), n)
+    m = d1 if logorder == 1 else d2
+    return np.linalg.solve(V, m)
 
 
 def tensorRule(*rules):

@@ -13,7 +13,10 @@ builds the port's CSR operator, such as a JAX package prolongation, so
 that a multigrid cycle can run on operators identical to the JAX
 package's; ``csrHierarchyFromArrays`` builds a level list of CSR
 operators and prolongations, such as a JAX package stiffness hierarchy,
-for the port's multigrid and Krylov solvers.  Like every entry point of the port they build on the card
+for the port's multigrid and Krylov solvers; ``denseVectorFromArrays``
+builds the port's dense vector operator from the data of one, such as a
+JAX package Dense_VectorLinearOperator, so that its apply can be checked on
+its own.  Like every entry point of the port they build on the card
 unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -26,19 +29,20 @@ from .config import getDevice
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
-                         interactionFactory)
+                         interactionFactory, leftRightFractionalOrder)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .nl.problems import parseFractionalOrder
-from .base.linear_operators import CSR_LinearOperator
+from .base.linear_operators import (CSR_LinearOperator,
+                                    Dense_VectorLinearOperator)
 
 __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
-           'csrHierarchyFromArrays']
+           'csrHierarchyFromArrays', 'denseVectorFromArrays']
 
 
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
                kernelType='fractional', horizon=np.inf, interaction='ball2',
                normalized=True, interior=None, gaussianVariance=1.0,
-               exponentialRate=1.0):
+               exponentialRate=1.0, derivative=0):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
     P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
     with ``interior`` (a boolean mask of the vertices) the interior
@@ -49,10 +53,16 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     ``exponentialRate``; of a finite ``horizon`` the fractional, indicator
     ('constant') or peridynamic ('inverseDistance') kernel with the ball2
     or ballInf ``interaction`` (nl.problems processKernel).  The order s is
-    a number or a string of nl.problems.parseFractionalOrder
-    ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)', ...)."""
+    a number, a string of nl.problems.parseFractionalOrder
+    ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)', ...) or the
+    parameters (sll, srr[, slr, srl]) of a leftRight order.  With
+    ``derivative`` (1 or 2) the fractional kernel of an infinite horizon is
+    its s-derivative (normalized as given): a vector kernel for an order of
+    several parameters."""
     if isinstance(s, str):
         s = parseFractionalOrder(s)
+    elif isinstance(s, (tuple, list)):
+        s = leftRightFractionalOrder(*s)
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
@@ -65,6 +75,9 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
         if kernelType != 'fractional':
             raise NotImplementedError(f'{kernelType} with an infinite '
                                       'horizon')
+        if derivative:
+            return mesh, dm, getFractionalKernel(dim, s, normalized=normalized,
+                                                 derivative=derivative)
         return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
     inter = interactionFactory[interaction]()
     if kernelType == 'fractional':
@@ -145,3 +158,9 @@ def csrHierarchyFromArrays(As, Ps, device='cuda'):
             entry['R'] = entry['P'].T
         hierarchy.append(entry)
     return hierarchy
+
+
+def denseVectorFromArrays(data, device='cuda'):
+    """The port's Dense_VectorLinearOperator of data [N, M, V] (float64)."""
+    return Dense_VectorLinearOperator(torch.as_tensor(
+        np.array(data, dtype=np.float64), device=getDevice(device)))

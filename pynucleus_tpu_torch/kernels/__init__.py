@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Twenty kernels carry the port's device work:
+Twenty-three kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -54,12 +54,24 @@ Twenty kernels carry the port's device work:
                     nonsymmetric operator: K8's sweeps, the far blocks
                     transposed with source and target swapped, the near
                     data read in place and scattered by column
+  K21 panel_scatter_vec (csrc/panel_scatter_vec.cu)  vector-valued local
+                    matrices [nPSI^2, V] of explicit pairs of a vector
+                    s-derivative kernel (the zero-exterior term), with the
+                    singular rules' log correction, into dense A [N, N, V]
+  K22 panel_scatter_nonsym_vec (csrc/panel_scatter_vec.cu)  the
+                    nonsymmetric vector-valued local matrices of every pair
+                    bucket of a vector kernel, into dense A [N, N, V]
+  K23 vector_matvec (csrc/vector_matvec.cu)  apply and transposed apply of
+                    a dense vector operator [N, M, V]
 
 The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
-gaussian, the exponential and their boundary forms) in one device
-function, common.cuh radial<code>(); each is compiled once per profile
-code and its launcher picks the instance.  K1, K7 and K19 also take a
+gaussian, the exponential, their boundary forms and the power-log
+r2^e (C + C1 ln r2 + C2 ln^2 r2) of the s-derivatives of a constant order)
+in one device function, common.cuh radial<code>(); each is compiled once
+per profile code (eight) and its launcher picks the instance.  K21 and K22
+evaluate a vector kernel from its per-side table (nl/kernels.py
+VectorParams).  K1, K7 and K19 also take a
 variable fractional order (nl/kernels.py OrderParams: constantNonSym,
 leftRight), s(x, y) and its normalization per node in common.cuh
 kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
@@ -69,18 +81,20 @@ K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
 dimension of their centers says.
 
 Their wrappers, each beside its plain PyTorch version, live where the JAX
-package has the program they replace: K1-K3, K5-K7, K11-K15 and K19 in
-nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20 in
-nl/h2.py, K9 in base/linear_operators.py, K10 in multilevel/gmg.py, K16
-in fem/assembly.py.  A wrapper runs the plain version only for tensors on
-the CPU; on a CUDA tensor it launches its kernel or raises.
+package has the program they replace: K1-K3, K5-K7, K11-K15, K19, K21
+and K22 in nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20
+in nl/h2.py, K9 and K23 in base/linear_operators.py, K10 in
+multilevel/gmg.py, K16 in fem/assembly.py.  A wrapper runs the plain
+version only for tensors on the CPU; on a CUDA tensor it launches its
+kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
 plain int each, bumped by the wrapper where it launches).  K1's four
 scatter targets are also counted apart, under ``panel_scatter:dense``,
 ``:slots``, ``:tree`` and ``:cross``, K19's two under
-``panel_scatter_nonsym:dense`` and ``:slots``, and K4's two forms under
-``pcg_update:jacobi`` and ``:general``.  ``deviceLaunches`` counts, per
+``panel_scatter_nonsym:dense`` and ``:slots``, K4's two forms under
+``pcg_update:jacobi`` and ``:general``, and K23's under
+``vector_matvec:apply`` and ``:transposed``.  ``deviceLaunches`` counts, per
 kernel, the CUDA launches those calls made: one per call, except for K2
 (two), K4 (three in the Jacobi form, four in the general form), K8 (one
 per pass that has work, as the C entry point reports: at most 2 nLvl + 2
@@ -90,9 +104,10 @@ K18 (two per call).  ``resetLaunches`` zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
-ctypes); only sources in this directory are used.  cut_cells.cu is
-compiled with -fmad=false (its branch decisions must round as the plain
-versions' separate operations do).
+ctypes); only sources in this directory are used.  cut_cells.cu and
+panel_scatter_vec.cu are compiled with -fmad=false (the branch decisions
+of the one and the sums of the other must round as the plain versions'
+separate operations do).
 """
 from __future__ import annotations
 
@@ -107,12 +122,15 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'csr_spmv', 'jacobi_smooth', 'block_near_count', 'block_near_quad',
            'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
            'gmres_arnoldi', 'bicgstab_update', 'panel_scatter_nonsym',
-           'h2_matvec_T')
+           'h2_matvec_T', 'panel_scatter_vec', 'panel_scatter_nonsym_vec',
+           'vector_matvec')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross')
 K19_TARGETS = ('panel_scatter_nonsym:dense', 'panel_scatter_nonsym:slots')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
-launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS}
+K23_FORMS = ('vector_matvec:apply', 'vector_matvec:transposed')
+launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
+            + K23_FORMS}
 deviceLaunches = {k: 0 for k in KERNELS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -121,9 +139,11 @@ BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
-           'panel_scatter_nonsym.cu')
+           'panel_scatter_nonsym.cu', 'panel_scatter_vec.cu',
+           'vector_matvec.cu')
 # flags of one source on top of NVCC_FLAGS
-SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',)}
+SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
+                'panel_scatter_vec.cu': ('-fmad=false',)}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -189,8 +209,8 @@ def _declare(lib):
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
     F = ctypes.c_float
-    # a radial profile: code, C, e, a (nl/kernels.py Profile)
-    PROF = (I, D, D, D)
+    # a radial profile: code, C, e, a, C1, C2 (nl/kernels.py Profile)
+    PROF = (I, D, D, D, D, D)
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
     # exponent base, boundary (nl/kernels.py orderArgs)
     ORD = (I, D, D, D, D, D, D, D, D, I)
@@ -224,6 +244,17 @@ def _declare(lib):
         # data, nnz, then as panel_scatter_nonsym with slots for dofRows
         'panel_scatter_nonsym_slots': [P, L, P, I, P, I, P, I, P, I, P, L,
                                        P, P, P, P, P, I, *PROF, *ORD, P],
+        # A, N, V, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
+        # P, bary_x, bary_y, w, PSIP, Q, table, interface, lnEta, cw1, cw2,
+        # stream
+        'panel_scatter_vec': [P, L, I, P, I, P, I, P, I, P, I, P, L, P, P, P,
+                              P, I, P, D, P, P, P, P],
+        # as panel_scatter_vec with PHIxPSI, PHIyPSI for PSIP
+        'panel_scatter_nonsym_vec': [P, L, I, P, I, P, I, P, I, P, I, P, L,
+                                     P, P, P, P, P, I, P, D, P, P, P, P],
+        # y, A, x, N, M, V, stream (both directions)
+        'vector_matvec': [P, P, P, L, L, I, P],
+        'vector_matvec_T': [P, P, P, L, L, I, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],

@@ -11,7 +11,8 @@
 // its codes): the power C r2^e (the constant-order fractional kernel and
 // its boundary kernel, the indicator and peridynamic kernels) and the
 // smooth kernels of pynucleus_tpu/nl/kernels.py:_radialJax with their
-// boundary forms.
+// boundary forms, and the power-log profile of the s-derivatives of a
+// constant fractional order (DerivativeFractionalKernel._radialJax).
 enum ProfileCode {
     PROFILE_POWER = 0,          // C r2^e
     PROFILE_GAUSSIAN = 1,       // C exp(-a r2)
@@ -19,12 +20,13 @@ enum ProfileCode {
     PROFILE_GAUSSIAN_B1 = 3,    // C 1/2 sqrt(pi/a) erfc(sqrt(a) r)
     PROFILE_GAUSSIAN_B2 = 4,    // C exp(-a r2) / (2 a r)
     PROFILE_EXPONENTIAL_B1 = 5, // C/a exp(-a r)
-    PROFILE_EXPONENTIAL_B2 = 6  // C exp(-a r) (r/a + 1/a^2) / r
+    PROFILE_EXPONENTIAL_B2 = 6, // C exp(-a r) (r/a + 1/a^2) / r
+    PROFILE_POWER_LOG = 7       // r2^e (C + C1 ln r2 + C2 ln^2 r2)
 };
 
 struct Profile {
     int code;
-    double C, e, a;
+    double C, e, a, C1, C2;
 };
 
 // gamma(r2) of the profile PC (a ProfileCode, fixed when the kernel is
@@ -34,7 +36,7 @@ struct Profile {
 // kernel that evaluates a kernel shares it.  Each operation is the plain
 // version's (nl/kernels.py radialEval), in its order and rounded on its own
 // (the _rn intrinsics keep nvcc from contracting a product into an FMA);
-// exp, pow and erfc are CUDA's double-precision functions.
+// exp, pow, log and erfc are CUDA's double-precision functions.
 template <int PC>
 __device__ __forceinline__ double radial(double r2, const Profile& p) {
     if (!(r2 > 0.0)) return 0.0;
@@ -54,6 +56,11 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
     } else if constexpr (PC == PROFILE_EXPONENTIAL_B1) {
         return __dmul_rn(__ddiv_rn(p.C, p.a),
                          exp(__dmul_rn(-p.a, sqrt(r2))));
+    } else if constexpr (PC == PROFILE_POWER_LOG) {
+        const double L = log(r2);
+        const double poly = __dadd_rn(__dadd_rn(p.C, __dmul_rn(p.C1, L)),
+                                      __dmul_rn(p.C2, __dmul_rn(L, L)));
+        return __dmul_rn(pow(r2, p.e), poly);
     } else {
         static_assert(PC == PROFILE_EXPONENTIAL_B2, "unknown profile code");
         const double r = sqrt(r2);
@@ -81,6 +88,7 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
         PROFILE_CASE(PROFILE_GAUSSIAN_B2, __VA_ARGS__)              \
         PROFILE_CASE(PROFILE_EXPONENTIAL_B1, __VA_ARGS__)           \
         PROFILE_CASE(PROFILE_EXPONENTIAL_B2, __VA_ARGS__)           \
+        PROFILE_CASE(PROFILE_POWER_LOG, __VA_ARGS__)                \
         default: return static_cast<int>(cudaErrorInvalidValue);    \
     }
 

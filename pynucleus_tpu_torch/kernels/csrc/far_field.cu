@@ -34,8 +34,9 @@ far_field_kernel(double* __restrict__ K, const double* __restrict__ gi,
 
 EXPORT int far_field(double* K, const double* gi, const double* gj,
                      long long P, int M, int dim, int pcode, double C,
-                     double e, double a, int ocode, double sll, double srr,
-                     double slr, double srl, double iface, double piD2,
+                     double e, double a, double C1, double C2, int ocode,
+                     double sll, double srr, double slr, double srl,
+                     double iface, double piD2,
                      double halfDim, double eBase, int boundary,
                      cudaStream_t stream) {
     const long long total = P * M * M;
@@ -48,6 +49,7 @@ EXPORT int far_field(double* K, const double* gi, const double* gj,
     KERNEL_SWITCH(pcode, ocode,
                   far_field_kernel<PC, OC><<<(unsigned)blocks, threads, 0,
                                              stream>>>(
-                      K, gi, gj, total, M, dim, Profile{pcode, C, e, a}, od))
+                      K, gi, gj, total, M, dim,
+                      Profile{pcode, C, e, a, C1, C2}, od))
     return static_cast<int>(cudaGetLastError());
 }

@@ -111,7 +111,8 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
                          long long S, int Q2, const long long* exclPtr,
                          const long long* exclIdx, const double* PhiXw,
                          const double* PhiX, int pcode, double Cg, double e,
-                         double a, int useNormals, cudaStream_t stream) {
+                         double a, double C1, double C2, int useNormals,
+                         cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM || C > 2147483647LL)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -120,8 +121,8 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
         grid_boundary_kernel<QQ, DD, PC>                                    \
             <<<(unsigned)C, BOUNDARY_THREADS, 0, stream>>>(                 \
                 A, N, X, dim, vols, dofs, Ysurf, svolw2, normals, S, Q2,    \
-                exclPtr, exclIdx, PhiXw, PhiX, Profile{pcode, Cg, e, a},   \
-                useNormals);                                                \
+                exclPtr, exclIdx, PhiXw, PhiX,                              \
+                Profile{pcode, Cg, e, a, C1, C2}, useNormals);              \
         return static_cast<int>(cudaGetLastError());                        \
     }
     // order-4 cell rules: 6 triangle nodes (2D P1), 3 Gauss nodes (1D P1)

@@ -266,14 +266,16 @@ EXPORT int grid_distant(double* A, long long N, const double* X, int Q,
                         const double* PhiXw, const double* PhiX,
                         const double* PsiYw, const double* w, float t_lo,
                         float t_hi, int pcode, double Cg, double e,
-                        double a, double* R, cudaStream_t stream) {
+                        double a, double C1, double C2, double* R,
+                        cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM) return static_cast<int>(cudaErrorInvalidValue);
 #define CASE(QQ, DD)                                                       \
     if (Q == QQ && dpe == DD)                                              \
         return launchGrid<QQ, DD, PC>(A, N, X, dim, ccf, vols, dofs, C,    \
                                       PhiXw, PhiX, PsiYw, w, t_lo, t_hi,   \
-                                      Profile{pcode, Cg, e, a}, R, stream);
+                                      Profile{pcode, Cg, e, a, C1, C2}, R, \
+                                      stream);
     // 2D P1 (dpe 3): compact triangle rules of orders 2, 4, 6, 8; 1D P1
     // (dpe 2): Gauss rules of orders 2, 4, 6, 8
     PROFILE_SWITCH(pcode, CASE(3, 3) CASE(6, 3) CASE(12, 3) CASE(16, 3)

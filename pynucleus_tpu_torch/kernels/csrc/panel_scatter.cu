@@ -154,7 +154,8 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          long long P, const double* bary_x,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, int pcode, double C,
-                         double e, double a, int inter, double h2,
+                         double e, double a,
+                         double C1, double C2, int inter, double h2,
                          int ocode, double sll, double srr, double slr,
                          double srl, double iface, double piD2,
                          double halfDim, double eBase, int boundary,
@@ -163,7 +164,7 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2,
+                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
                               yShift, stream);
@@ -178,14 +179,15 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                                long long P, const double* bary_x,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, int pcode, double C,
-                               double e, double a, int inter, double h2,
+                               double e, double a,
+                               double C1, double C2, int inter, double h2,
                                cudaStream_t stream) {
     return launchPanel<CROSS>(A, NB, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2, Order{},
-                              nullptr, stream);
+                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
+                              Order{}, nullptr, stream);
 }
 
 EXPORT int panel_scatter_slots(double* data, long long nnz,
@@ -197,7 +199,8 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                long long P, const double* bary_x,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, int pcode, double C,
-                               double e, double a, int inter, double h2,
+                               double e, double a,
+                               double C1, double C2, int inter, double h2,
                                int ocode, double sll, double srr, double slr,
                                double srl, double iface, double piD2,
                                double halfDim, double eBase, int boundary,
@@ -206,7 +209,7 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a}, inter, h2,
+                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
                               yShift, stream);
@@ -225,6 +228,7 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               const double* bary_x, const double* bary_y,
                               const double* w, const double* PSIP, int Q,
                               int pcode, double C, double e, double a,
+                              double C1, double C2,
                               int ocode, double sll, double srr, double slr,
                               double srl, double iface, double piD2,
                               double halfDim, double eBase, int boundary,
@@ -234,7 +238,7 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
                              bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a}, 0, 0.0,
+                             Profile{pcode, C, e, a, C1, C2}, 0, 0.0,
                              Order{ocode, sll, srr, slr, srl, iface, piD2,
                                    halfDim, eBase, boundary},
                              yShift, stream);

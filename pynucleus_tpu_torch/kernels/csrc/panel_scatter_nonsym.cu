@@ -130,13 +130,14 @@ EXPORT int panel_scatter_nonsym(
     const long long* dofRows, int nPSI, const double* volsym, long long P,
     const double* bary_x, const double* bary_y, const double* w,
     const double* PHIxPSI, const double* PHIyPSI, int Q, int pcode, double C,
-    double e, double a, int ocode, double sll, double srr, double slr,
+    double e, double a,
+    double C1, double C2, int ocode, double sll, double srr, double slr,
     double srl, double iface, double piD2, double halfDim, double eBase,
     int boundary, cudaStream_t stream) {
     return launchNonsym<NS_DENSE>(
         A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nullptr, nPSI,
         volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q,
-        Profile{pcode, C, e, a},
+        Profile{pcode, C, e, a, C1, C2},
         Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
               boundary},
         stream);
@@ -148,13 +149,14 @@ EXPORT int panel_scatter_nonsym_slots(
     const int* slots, int nPSI, const double* volsym, long long P,
     const double* bary_x, const double* bary_y, const double* w,
     const double* PHIxPSI, const double* PHIyPSI, int Q, int pcode, double C,
-    double e, double a, int ocode, double sll, double srr, double slr,
+    double e, double a,
+    double C1, double C2, int ocode, double sll, double srr, double slr,
     double srl, double iface, double piD2, double halfDim, double eBase,
     int boundary, cudaStream_t stream) {
     return launchNonsym<NS_SLOTS>(
         data, nnz, vertices, dim, vi1, nv1, vi2, nv2, nullptr, slots, nPSI,
         volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q,
-        Profile{pcode, C, e, a},
+        Profile{pcode, C, e, a, C1, C2},
         Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
               boundary},
         stream);

@@ -1,5 +1,5 @@
 """Nonlocal operator assembly on the device, dense, sparse and H2; kernels
-K1-K3, K5-K7, K11-K15 and K19.
+K1-K3, K5-K7, K11-K15, K19, K21 and K22.
 
 Port of the constant-coefficient paths of pynucleus_tpu/nl/assembly.py
 and, on the interval, of its variable-order and nonsymmetric fractional
@@ -10,9 +10,14 @@ different singularities), the zero-exterior term with the variable
 boundary kernel, and in H2 the cluster tree split at the order jumps, the
 near field through the per-pair legacy path with entry masks, the union
 surfaces with the jump facets (y shifted to either side) and the far field
-with the variable order.  Infinite horizon (the fractional,
+with the variable order.  The s-derivative kernels of an infinite horizon:
+of a constant order (the power-log profile) on every path below, of a
+leftRight order (a vector kernel, on the interval) through getDenseVector,
+the per-pair path with the vector local matrices and the singular rules'
+log correction.  Infinite horizon (the fractional,
 gaussian and exponential kernels, 1D and 2D): getDense with the cell-pair
-grid (``params={'denseGrid': True}``) and getH2 with the device-CSR near
+grid (``params={'denseGrid': True}``, the default; ``False`` classifies
+every cell pair and runs each through K1) and getH2 with the device-CSR near
 field (``params={'forceDeviceCSR': True}``) and the JAX package's default
 near-field engine: the block engine for orders up to 8 and the flat
 device enumeration for the pairs that also hold higher orders.  Every
@@ -54,6 +59,12 @@ pattern exactly as the JAX package does; the device work is:
   K19 panel_scatter_nonsym  the nonsymmetric local matrices of a variable
                      or nonsymmetric order's pairs, into a dense A or into
                      the H2 near field at entry-masked slots
+  K21 panel_scatter_vec  vector-valued local matrices [nPSI^2, V] of a
+                     vector kernel's zero-exterior pairs, with the singular
+                     rules' log correction, into a dense A [N, N, V]
+  K22 panel_scatter_nonsym_vec  the nonsymmetric vector-valued local
+                     matrices of a vector kernel's pair buckets, into a dense
+                     A [N, N, V]
 
 Each kernel has a wrapper and a plain PyTorch version here.  The wrapper
 runs the plain version only for CPU tensors; on CUDA tensors it launches
@@ -61,6 +72,8 @@ the kernel (kernels/csrc/*.cu) or raises.  The dense accumulator is an
 [N, N] float64 tensor on the device; boundary dofs (-d-1) and DROP are
 skipped by the kernels, which replaces the JAX dump row N.  The CSR
 accumulators are data [nnz+1] float64 whose slot nnz is the dump slot; the
+dense vector accumulator is an [N, N, V] float64 tensor on the device (the
+JAX package's host np.add.at into [N+1, N+1, V] is not carried over); the
 sparse format's slots are searched on the device (the JAX package's host
 np.add.at of CSRAccumulator is not carried over).  A_BC is an [N, NB]
 float64 tensor on the device.
@@ -93,7 +106,10 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
                      boundaryOrderModelParams)
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
-from .kernels import radialEval, profileArgs, POWER, evalXY, orderArgs
+from .kernels import (radialEval, profileArgs, POWER, evalXY, orderArgs,
+                      vectorTerms)
+from ..base.linear_operators import (Dense_VectorLinearOperator,
+                                     H2_VectorLinearOperator)
 
 __all__ = ['nonlocalBuilder', 'assembleNonlocal', 'panel_scatter',
            'panel_scatter_slots', 'panel_scatter_tree',
@@ -101,7 +117,7 @@ __all__ = ['nonlocalBuilder', 'assembleNonlocal', 'panel_scatter',
            'grid_boundary', 'near_enum', 'near_enum_quad', 'far_field',
            'block_near_count', 'block_near_quad', 'tree_csr_quad',
            'panel_scatter_nonsym', 'panel_scatter_nonsym_slots',
-           'NEAR_ENGINES']
+           'panel_scatter_vec', 'panel_scatter_nonsym_vec', 'NEAR_ENGINES']
 
 TI32 = torch.int32
 
@@ -131,16 +147,22 @@ def _check(name, A, floats=(), ints=(), f32=(), i32=(), flat=False,
             'data must be a contiguous float64 vector' if flat else
             'A must be a contiguous ' + ('square ' if square else '')
             + 'float64 tensor'))
+    _checkTensors(name, A.device, floats, ints, f32, i32)
+
+
+def _checkTensors(name, device, floats=(), ints=(), f32=(), i32=()):
+    """Each tensor of the groups (None skipped) contiguous, of the group's
+    dtype, on ``device`` (the CPU or a card)."""
     for group, dt in ((floats, torch.float64), (ints, torch.int64),
                       (f32, torch.float32), (i32, torch.int32)):
         for t in group:
             if t is None:
                 continue
-            if t.device != A.device or t.dtype != dt or not t.is_contiguous():
+            if t.device != device or t.dtype != dt or not t.is_contiguous():
                 raise ValueError(f'{name}: expected contiguous {dt} on '
-                                 f'{A.device}, got {t.dtype} on {t.device}')
-    if A.device.type not in ('cpu', 'cuda'):
-        raise ValueError(f'{name}: unsupported device {A.device}')
+                                 f'{device}, got {t.dtype} on {t.device}')
+    if device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'{name}: unsupported device {device}')
 
 
 def _scatterBlocks(A, rows, cols, vals):
@@ -645,6 +667,179 @@ def _panel_scatter_nonsym_plain(out, target, index, vertices, vi1, vi2,
         rows = dr[:, :, None].expand(p, n, n).reshape(-1)
         cols = dr[:, None, :].expand(p, n, n).reshape(-1)
         _scatterBlocks(out, rows, cols, M.reshape(-1))
+
+
+# ------------------------------------------------------------ K21, K22 ---
+
+def panel_scatter_vec(A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y,
+                      w, PSIP, vp, logTables=None):
+    """Vector-valued panel quadrature of explicit pairs, scattered into A
+    [N, N, V]: with x_q, y_q as in :func:`panel_scatter`,
+
+        T_q = (g_q w_q (+ cw1_q (b_q + 2 c_q lnR_q) + cw2_q c_q)) volsym[p]
+        M[p, k, v] = sum_q T_q G[side_q, v] PSIP[q, k]
+        A[dofRows[p,I], dofRows[p,J], v] += M[p, I*nPSI+J, v]
+                                                       (both dofs >= 0)
+
+    (g, b, c, side) = nl.kernels.vectorTerms(x_q, y_q, r2_q, vp) of the
+    vector kernel's table vp (nl.kernels.VectorParams), G = vp.grads and
+    lnR_q = ln|x_q - y_q| - lnEta_q; logTables = (lnEta, cw1, cw2) [Q] of
+    a singular rule, or None (no log correction).  Kernel K21
+    (kernels/csrc/panel_scatter_vec.cu) on CUDA tensors, the plain version
+    on CPU tensors.  Replaces _bucket_contrib_vec (with _vec_eval and
+    _log_extra_scalar) and VectorDenseAccumulator.add."""
+    _vecArgs('panel_scatter_vec', A, vertices, vi1, vi2, dofRows, volsym,
+             bary_x, bary_y, w, PSIP, None, vp, logTables)
+    if A.device.type == 'cpu':
+        return _panel_scatter_vec_plain(A, vertices, vi1, vi2, dofRows,
+                                        volsym, bary_x, bary_y, w, PSIP, vp,
+                                        logTables)
+    _launchVec('panel_scatter_vec', A, vertices, vi1, vi2, dofRows, volsym,
+               bary_x, bary_y, w, PSIP, None, vp, logTables)
+
+
+def panel_scatter_nonsym_vec(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
+                             bary_y, w, PHIxPSI, PHIyPSI, vp, logTables=None):
+    """The nonsymmetric vector-valued local matrices of explicit pairs,
+    scattered into A [N, N, V]: with T_q(x, y) and G as in
+    :func:`panel_scatter_vec`,
+
+        M[p, k, v] = sum_q T_q(x_q, y_q) G[side(x_q, y_q), v] PHIxPSI[q, k]
+                   - sum_q T_q(y_q, x_q) G[side(y_q, x_q), v] PHIyPSI[q, k]
+        A[dofRows[p,I], dofRows[p,J], v] += M[p, I*nPSI+J, v]
+
+    Kernel K22 (kernels/csrc/panel_scatter_vec.cu) on CUDA tensors, the
+    plain version on CPU tensors.  Replaces _bucket_contrib_nonsym_vec
+    (with _log_extra_scalar) and VectorDenseAccumulator.add."""
+    _vecArgs('panel_scatter_nonsym_vec', A, vertices, vi1, vi2, dofRows,
+             volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI, vp, logTables)
+    if A.device.type == 'cpu':
+        return _panel_scatter_nonsym_vec_plain(
+            A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y, w,
+            PHIxPSI, PHIyPSI, vp, logTables)
+    _launchVec('panel_scatter_nonsym_vec', A, vertices, vi1, vi2, dofRows,
+               volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI, vp, logTables)
+
+
+def _vecArgs(name, A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y,
+             w, P1, P2, vp, logTables):
+    """Checks of K21's and K22's arguments (P2 None for K21)."""
+    if A.dim() != 3 or A.shape[0] != A.shape[1] \
+            or A.dtype != torch.float64 or not A.is_contiguous():
+        raise ValueError(f'{name}: A must be a contiguous float64 [N, N, V] '
+                         'tensor')
+    _checkTensors(name, A.device,
+                  floats=(vertices, volsym, bary_x, bary_y, w, P1, P2)
+                  + tuple(logTables or ()), ints=(vi1, vi2, dofRows))
+    P, Q, _ = _panelArgs(name, None, vertices, vi1, vi2, volsym, None, bary_x,
+                         bary_y, w, P1, dofRows.shape[1])
+    if dofRows.shape[0] != P or (P2 is not None and P2.shape != P1.shape) \
+            or np.shape(vp.grads) != (4, A.shape[2]) \
+            or np.shape(vp.coefs) != (4, 6) \
+            or (logTables is not None
+                and any(t.shape != (Q,) for t in logTables)):
+        raise ValueError(f'{name}: shape mismatch')
+
+
+def _launchVec(fn, A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y, w,
+               P1, P2, vp, logTables):
+    P, nPSI = dofRows.shape
+    if P == 0:
+        return
+    table = torch.as_tensor(vp.table(), dtype=TREAL, device=A.device)
+    lib = kernels.library()
+    kernels.launches[fn] += 1
+    kernels.deviceLaunches[fn] += 1
+    p = kernels.ptr
+    logs = [p(t) for t in logTables] if logTables is not None else \
+        [None] * 3
+    kernels.check(getattr(lib, fn)(
+        p(A), A.shape[0], A.shape[2], p(vertices), vertices.shape[1], p(vi1),
+        vi1.shape[1], p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym), P,
+        p(bary_x), p(bary_y), p(w), p(P1),
+        *([p(P2)] if P2 is not None else []), w.shape[0], p(table),
+        float(vp.interface), *logs, kernels.stream()))
+
+
+def _vecNodeTerms(x, y, r2, w, vp, logTables):
+    """T [P, Q] (before volsym) and G [P, Q, V] of K21 and K22 at the node
+    pairs (x, y), in the order of the JAX program's operations."""
+    val, b, c, side = vectorTerms(x, y, r2, vp)
+    t = val * w[None, :]
+    if logTables is not None:
+        lnEta, cw1, cw2 = logTables
+        lnR = 0.5 * torch.log(torch.where(r2 > 0, r2, 1.0)) - lnEta[None, :]
+        t = t + (cw1[None, :] * (b + 2.0 * c * lnR) + cw2[None, :] * c)
+    return t, torch.as_tensor(vp.grads, dtype=r2.dtype,
+                              device=r2.device)[side]
+
+
+def _nodesInOrder(vertices, vi, bary):
+    """Nodes [P, Q, dim] = sum_a bary[a, q] vertices[vi[p, a]], summed over
+    a in order from 0, as common.cuh panelNode sums them."""
+    x = torch.zeros((vi.shape[0], bary.shape[1], vertices.shape[1]),
+                    dtype=vertices.dtype, device=vertices.device)
+    for a in range(vi.shape[1]):
+        x = x + bary[a][None, :, None] * vertices[vi[:, a]][:, None, :]
+    return x
+
+
+def _vecMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, P1, P2, vp,
+                 logTables):
+    """M [P, nPSI^2, V] of explicit pairs (K21's body with P2 None, else
+    K22's; plain).  The node geometry and the sums over the nodes run in
+    the kernels' order: the log-corrected sums of the singular rules cancel
+    about four digits, so another order (a matrix product's) moves their
+    result by about 1e-12 of the largest entry."""
+    x = _nodesInOrder(vertices, vi1, bary_x)
+    y = _nodesInOrder(vertices, vi2, bary_y)
+    r2 = torch.zeros_like(x[..., 0])
+    for d in range(x.shape[2]):
+        r2 = r2 + (x[..., d] - y[..., d]) * (x[..., d] - y[..., d])
+    terms = [(_vecNodeTerms(x, y, r2, w, vp, logTables), P1)]
+    if P2 is not None:
+        terms.append((_vecNodeTerms(y, x, r2, w, vp, logTables), P2))
+    sums = []
+    for (t, G), PP in terms:
+        tG = (t * volsym[:, None])[..., None] * G              # [P, Q, V]
+        acc = torch.zeros((t.shape[0], PP.shape[1], G.shape[2]),
+                          dtype=t.dtype, device=t.device)
+        for q in range(PP.shape[0]):
+            acc = acc + tG[:, q, None, :] * PP[q][None, :, None]
+        sums.append(acc)
+    return sums[0] if P2 is None else sums[0] - sums[1]
+
+
+def _vec_plain(A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y, w, P1,
+               P2, vp, logTables):
+    P, n = dofRows.shape
+    V = A.shape[2]
+    for sl in _plainChunks(P, max(w.shape[0], n * n) * V):
+        M = _vecMatrices(vertices, vi1[sl], vi2[sl], volsym[sl], bary_x,
+                         bary_y, w, P1, P2, vp, logTables)
+        dr = dofRows[sl]
+        p = dr.shape[0]
+        rows = dr[:, :, None].expand(p, n, n).reshape(-1)
+        cols = dr[:, None, :].expand(p, n, n).reshape(-1)
+        ok = (rows >= 0) & (cols >= 0)
+        A.index_put_((rows[ok], cols[ok]), M.reshape(-1, V)[ok],
+                     accumulate=True)
+
+
+def _panel_scatter_vec_plain(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
+                             bary_y, w, PSIP, vp, logTables=None):
+    """Plain PyTorch version of :func:`panel_scatter_vec` (any device)."""
+    _vec_plain(A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y, w,
+               PSIP, None, vp, logTables)
+
+
+def _panel_scatter_nonsym_vec_plain(A, vertices, vi1, vi2, dofRows, volsym,
+                                    bary_x, bary_y, w, PHIxPSI, PHIyPSI, vp,
+                                    logTables=None):
+    """Plain PyTorch version of :func:`panel_scatter_nonsym_vec` (any
+    device)."""
+    _vec_plain(A, vertices, vi1, vi2, dofRows, volsym, bary_x, bary_y, w,
+               PHIxPSI, PHIyPSI, vp, logTables)
 
 
 # ------------------------------------------------------------------ K2 ----
@@ -1342,7 +1537,7 @@ CUT_TARGETS = ('dense', 'slots', 'cross')
 def _powerProfile(name, prof):
     """(C, e) of the power profile C r2^e, the only one K14 and K15
     evaluate; any other profile raises."""
-    code, C, e, _ = profileArgs(prof)
+    code, C, e = profileArgs(prof)[:3]
     if code != POWER:
         raise NotImplementedError(f'{name}: the power profile C r2^e only '
                                   f'(profile code {code})')
@@ -1645,6 +1840,29 @@ class DeviceDenseAccumulator:
         return Dense_LinearOperator(self.A)
 
 
+class DeviceVectorDenseAccumulator:
+    """Dense vector operator [N, N, V] float64 on the device (K21, K22 into
+    A; pynucleus_tpu/nl/assembly.py VectorDenseAccumulator)."""
+
+    def __init__(self, N, V, device):
+        self.A = torch.zeros((N, N, V), dtype=TREAL, device=device)
+
+    def addVecPanels(self, vertices, vi1, vi2, dofRows, volsym, tables, vp,
+                     logTables):
+        """K21; tables = (bary_x, bary_y, w, PSIP)."""
+        panel_scatter_vec(self.A, vertices, vi1, vi2, dofRows, volsym,
+                          *tables, vp, logTables)
+
+    def addVecNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, vp,
+                     logTables):
+        """K22; tables = (bary_x, bary_y, w, PHIxPSI, PHIyPSI)."""
+        panel_scatter_nonsym_vec(self.A, vertices, vi1, vi2, dofRows, volsym,
+                                 *tables, vp, logTables)
+
+    def result(self):
+        return Dense_VectorLinearOperator(self.A)
+
+
 class DeviceCrossAccumulator(DeviceDenseAccumulator):
     """The interior x boundary coupling A_BC [N, NB] float64 on the device
     (pynucleus_tpu/nl/assembly.py BCAccumulator): entries of an interior row
@@ -1722,7 +1940,9 @@ class DeviceCSRAccumulator:
 class _BucketRunner:
     """Mesh data on the device and K1 launches for explicit or
     natural-order (cell-id) pair buckets, into the accumulator's target;
-    a finite-horizon kernel's interaction indicator goes with them."""
+    a finite-horizon kernel's interaction indicator goes with them.  A
+    vector kernel's (valueSize > 1) buckets go through K21 and K22 into
+    the vector accumulator instead."""
 
     def __init__(self, mesh, dm, kernel, device, useNormals=False):
         self.device = device
@@ -1732,11 +1952,31 @@ class _BucketRunner:
         self.cells = self._t(mesh.cells, TINDEX)
         self.dofs = self._t(dm.dofs, TINDEX)
         self.vols = self._t(mesh.simplexVolumes())
+        self.vector = kernel.vectorParams() \
+            if getattr(kernel, 'valueSize', 1) > 1 else None
 
     def _t(self, a, dtype=TREAL):
         return _upload(a, self.device, dtype)
 
+    def logTables(self, rule):
+        """(lnEta, cw1, cw2) of the rule on the device where its buckets
+        take the log correction (pynucleus_tpu/nl/assembly.py useLogCorr:
+        the rule has the tables, the kernel a derivative and log
+        coefficients), else None."""
+        if getattr(rule, 'cw1', None) is None \
+                or not getattr(self.kernel, 'derivative', 0) \
+                or not hasattr(self.kernel, 'evalLogCoeffs'):
+            return None
+        return tuple(self._t(a) for a in (rule.lnEta, rule.cw1, rule.cw2))
+
     def _launch(self, acc, rule, PSI, vi1, vi2, dofRows, volsym, normals):
+        if self.vector is not None:
+            if self.useNormals:
+                raise NotImplementedError('vector kernels in 2D')
+            acc.addVecPanels(self.vertices, vi1, vi2, dofRows, volsym,
+                             self.ruleTables(rule, PSI), self.vector,
+                             self.logTables(rule))
+            return
         prof = self.kernel.profileParams()
         acc.addPanels(self.vertices, vi1, vi2, dofRows, volsym,
                       normals if self.useNormals else None,
@@ -1789,7 +2029,8 @@ class _BucketRunner:
         with PHI = (PHIx, PHIy) through K19, into the dense operator or
         into the H2 near field's tree CSR at host slots, entries outside
         ``entryMask`` [P, nPSI, nPSI] dropped (pynucleus_tpu/nl/assembly.py
-        _BucketRunner.run with entryMask and PHI)."""
+        _BucketRunner.run with entryMask and PHI); a vector kernel's
+        through K22 into the dense vector operator."""
         P = len(vertIdx1)
         if P == 0:
             return
@@ -1797,6 +2038,15 @@ class _BucketRunner:
         tables = (*(self._t(a) for a in (rule.bary_x, rule.bary_y, rule.w)),
                   self._t(_phiPsi(PHI[0], PSI)),
                   self._t(_phiPsi(PHI[1], PSI)))
+        if self.vector is not None:
+            if entryMask is not None:
+                raise NotImplementedError('vector kernels: the dense target '
+                                          'only')
+            acc.addVecNonsym(self.vertices, self._t(vertIdx1, TINDEX),
+                             self._t(vertIdx2, TINDEX),
+                             self._t(dofRows, TINDEX), self._t(volsym), tables,
+                             self.vector, self.logTables(rule))
+            return
         if not isinstance(acc, DeviceTreeCSRAccumulator):
             if entryMask is not None:
                 raise ValueError('entry masks need the tree CSR target')
@@ -1964,6 +2214,12 @@ class nonlocalBuilder:
             raise NotImplementedError('the port assembles kernels without a '
                                       'variable horizon, two-point weights, '
                                       'complement or complex values only')
+        if getattr(kernel, 'derivative', 0) and kernel.variable \
+                and getattr(kernel, 'valueSize', 1) == 1:
+            # pynucleus_tpu's scalar programs with useLogCorr (:91, :424)
+            raise NotImplementedError('the component kernels of a vector '
+                                      'kernel: the log correction of the '
+                                      'scalar kernels is not ported')
         # a variable or nonsymmetric order: the per-pair path
         self.general = kernel.variable or not kernel.symmetric
         if self.general and self.mesh.manifold_dim != 1:
@@ -1983,7 +2239,9 @@ class nonlocalBuilder:
     def _makeRulesFor(self, sing, quad_order_diagonal):
         dm, mesh = self.dm, self.mesh
         mdim = mesh.manifold_dim
-        p = max(dm.polynomialOrder, 1)
+        # s-derivative kernels carry extra ln|x-y| factors: the singular
+        # rules' order goes up by 4 per derivative (nl/assembly.py:2026-2029)
+        p = max(dm.polynomialOrder, 1) + self._orderBump()
         continuous = dm.polynomialOrder >= 1
         out = {}
         if mdim == 1:
@@ -2008,6 +2266,9 @@ class nonlocalBuilder:
                                                continuous=continuous,
                                                radialOrder=radial)
         return out
+
+    def _orderBump(self):
+        return 4 * int(getattr(self.kernel, 'derivative', 0) or 0)
 
     # ----------------------------------------------------------- buckets
     def _touchingBuckets(self, info, rules):
@@ -2113,7 +2374,7 @@ class nonlocalBuilder:
         """Touching-panel rule with cancellation=1 for the one-sided terms
         of mixed-singularity nonsymmetric panels
         (pynucleus_tpu/nl/assembly.py _makeSplitRuleFor, 1D)."""
-        p = max(self.dm.polynomialOrder, 1)
+        p = max(self.dm.polynomialOrder, 1) + self._orderBump()
         return vertexRule1D(sing, quad_order_diagonal, 2 * p,
                             continuous=self.dm.polynomialOrder >= 1,
                             cancellation=1.0)
@@ -2377,9 +2638,11 @@ class nonlocalBuilder:
         surface = mesh.get_surface_mesh()
         bkernel = self.kernel.getModifiedKernel(horizon=np.inf) \
             .getBoundaryKernel()
-        # a variable boundary kernel has no grid pass: every surface pair
-        # goes through K1 (the JAX package's gridOK)
-        gridOK = not bkernel.variable
+        # a variable boundary kernel, and the per-pair dense path, have no
+        # grid pass: every surface pair goes through K1 or K21 (the JAX
+        # package's gridOK; its per-pair path is its CPU default)
+        gridOK = not bkernel.variable and \
+            self.params.get('denseGrid') is not False
         binfo = classifyBoundaryPairs(
             dm, surface, bkernel, target_order=self.params.get('target_order'),
             correctionsOnly=gridOK)
@@ -3395,11 +3658,19 @@ class nonlocalBuilder:
             self.dm.__dict__['_pairClassification'] = memo
         return memo[1]
 
+    def _scalarKernel(self, what):
+        if getattr(self.kernel, 'valueSize', 1) > 1:
+            raise TypeError(f'{what}: a vector-valued kernel, use '
+                            'getDenseVector')
+
     def getDense(self):
-        """Dense [N, N] operator: the grid path for an infinite horizon,
-        every cell pair classified for a finite one and for a variable or
-        nonsymmetric order."""
-        if self.kernel.finiteHorizon or self.general:
+        """Dense [N, N] operator: the grid path for an infinite horizon
+        (unless ``params={'denseGrid': False}``), every cell pair classified
+        for a finite one, for a variable or nonsymmetric order and without
+        the grid."""
+        self._scalarKernel('getDense')
+        if self.kernel.finiteHorizon or self.general \
+                or self.params.get('denseGrid') is False:
             # the grid path takes symmetric radial kernels only
             # (pynucleus_tpu/nl/assembly.py _gridEligible)
             info = self._classifyAll()
@@ -3484,6 +3755,7 @@ class nonlocalBuilder:
         getH2 with the device-CSR near field).  1D and 2D meshes, zero
         exterior.  A finite horizon delegates to getSparse, as the JAX
         package does: the operator is sparse."""
+        self._scalarKernel('getH2')
         if self.kernel.finiteHorizon:
             return self.getSparse()
         from .h2 import H2Matrix
@@ -3529,6 +3801,52 @@ class nonlocalBuilder:
         op.diagonal  # built now: its host work belongs to the set-up
         self._lap('near operator set-up', t0)
         return op
+
+    # ------------------------------------------------------------ vector
+    def _componentKernels(self):
+        """The scalar kernel of each of the kernel's valueSize components (a
+        constant-order derivative kernel is its own one component)."""
+        if getattr(self.kernel, 'valueSize', 1) > 1:
+            return self.kernel.componentKernels()
+        return [self.kernel]
+
+    def _componentBuilder(self, kernel):
+        return nonlocalBuilder(self.dm, kernel, params=dict(self.params),
+                               zeroExterior=self.zeroExterior,
+                               device=self.device)
+
+    def getDenseVector(self):
+        """Dense vector-valued operator [N, N, V] (pynucleus_tpu/nl/assembly.py
+        getDenseVector).  A kernel of several components (the vector
+        s-derivative kernels of a leftRight order) in one pass: every cell
+        pair classified, the pair buckets through K22 and the zero-exterior
+        term through K21; a kernel of one component as its getDense."""
+        V = getattr(self.kernel, 'valueSize', 1)
+        if V == 1:
+            return Dense_VectorLinearOperator(
+                self._componentBuilder(self.kernel).getDense().data[:, :, None]
+                .contiguous())
+        acc = DeviceVectorDenseAccumulator(self.dm.num_dofs, V, self.device)
+        self._runPairBuckets(acc, self._classifyAll())
+        if self.zeroExterior:
+            self._addZeroExterior(acc)
+        return acc.result()
+
+    def getH2Vector(self):
+        """Vector-valued H2 operator: one getH2 per component
+        (pynucleus_tpu/nl/assembly.py getH2Vector), of a kernel of one
+        component; ``timers`` holds its build parts.  A multi-parameter
+        order raises NotImplementedError (its component kernels need the
+        log correction inside K1, K19 and K7)."""
+        if getattr(self.kernel, 'valueSize', 1) > 1:
+            raise NotImplementedError('getH2Vector of a multi-parameter '
+                                      'order is not ported')
+        comps = []
+        for k in self._componentKernels():
+            b = self._componentBuilder(k)
+            comps.append(b.getH2())
+            self.timers = b.timers
+        return H2_VectorLinearOperator(comps)
 
 
 def _cellSetBoundary1D(mesh, cellSet):

@@ -26,6 +26,8 @@ The profiles (r = sqrt(r2)):
   GAUSSIAN_BOUNDARY  1D: C 1/2 sqrt(pi/a) erfc(sqrt(a) r)
                      2D: C exp(-a r2) / (2 a r)
   EXPONENTIAL_BOUNDARY  1D: C/a exp(-a r);  2D: C exp(-a r) (r/a + 1/a^2) / r
+  POWER_LOG          r2^e (C + C1 ln r2 + C2 ln^2 r2)   (the s-derivatives
+                                  of a constant order, below)
 
 The fractional orders (:115-204): const, and varconst, constantNonSym and
 leftRight (twoDomain, twoDomainNonSym), registered by name as
@@ -37,8 +39,25 @@ common.cuh kernelXY() from the order's :class:`OrderParams`; constantNonSym
 and leftRight are nonsymmetric.  A variable order with a finite horizon
 raises NotImplementedError.
 
-The tempered fractional, log-inverse-distance, monomial and polynomial
-profiles (:1095-1096, :1122-1128) are not ported.
+The s-derivatives of the fractional kernel (:1437-1675, getFractionalKernel
+with ``derivative``), of an infinite horizon:
+
+  DerivativeFractionalKernel  d^k/ds^k (k = 1, 2) of C(s) r2^(-d/2-s) (the
+        boundary kernel: of C(s)/s r2^((1-d)/2-s)) for a constant order: the
+        POWER_LOG profile, its coefficients formed on the host from C(s),
+        C'(s) and C''(s) (closed form, scipy's digamma and trigamma)
+  VectorFractionalKernel  of a leftRight order with 2 or 4 parameters:
+        component q of derivative 1 is d gamma/ds * ds/dp_q, of derivative 2
+        d^2 gamma/ds^2 * ds/dp_i ds/dp_j (valueSize P or P^2), with the
+        coefficients of ln|x-y| and ln^2|x-y| of the singular rules' log
+        correction (evalLogCoeffs); the device kernels take it as
+        :class:`VectorParams`, per side of the order a row of coefficients
+        and the side's parameter gradient, and evaluate it as
+        :func:`vectorTerms` does (pow and log only)
+
+A finite horizon, tempered kernels and two-point weights (phi) raise
+NotImplementedError.  The tempered fractional, log-inverse-distance,
+monomial and polynomial profiles (:1095-1096, :1122-1128) are not ported.
 """
 from __future__ import annotations
 
@@ -46,7 +65,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from scipy.special import gamma as Gamma
+from scipy.special import gamma as Gamma, gammaln, digamma, polygamma
 
 __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'constantNonSymFractionalOrder', 'leftRightFractionalOrder',
@@ -56,7 +75,9 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
            'fullSpace', 'ball2', 'ballInf', 'interactionFactory',
            'radialEval', 'Profile', 'FRACTIONAL', 'INDICATOR',
-           'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER']
+           'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER', 'POWER_LOG',
+           'DerivativeFractionalKernel', 'VectorFractionalKernel',
+           'VectorParams', 'vectorTerms', 'vectorEval', 'vectorLogCoeffs']
 
 FRACTIONAL = 'fractional'
 INDICATOR = 'indicator'
@@ -72,17 +93,21 @@ GAUSSIAN_BOUNDARY_1D = 3
 GAUSSIAN_BOUNDARY_2D = 4
 EXPONENTIAL_BOUNDARY_1D = 5
 EXPONENTIAL_BOUNDARY_2D = 6
-PROFILE_CODES = range(7)
+POWER_LOG = 7
+PROFILE_CODES = range(8)
 
 
 class Profile(NamedTuple):
     """A kernel's radial profile as the device kernels take it: its code
-    and the parameters C (scaling), e (the power's exponent of r2) and a
-    (the gaussian's or exponential's rate)."""
+    and the parameters C (scaling), e (the power's exponent of r2), a (the
+    gaussian's or exponential's rate) and C1, C2 (the POWER_LOG profile's
+    coefficients of ln r2 and ln^2 r2)."""
     code: int
     C: float
     e: float
     a: float
+    C1: float = 0.0
+    C2: float = 0.0
 
 
 # fractional order codes, shared with kernels/csrc/common.cuh kernelXY()
@@ -110,8 +135,10 @@ class OrderParams(NamedTuple):
 class fractionalOrderBase:
     """s(x, y) (pynucleus_tpu/nl/kernels.py fractionalOrderBase): host
     evaluation ``__call__`` on [..., dim] arrays, its bounds ``min`` and
-    ``max``, and ``orderParams`` for the device kernels."""
+    ``max``, its number of parameters, and ``orderParams`` for the device
+    kernels."""
     symmetric = True
+    numParameters = 1
 
     @property
     def min(self):
@@ -168,7 +195,10 @@ class leftRightFractionalOrder(fractionalOrderBase):
 
     def __init__(self, sll, srr, slr=None, srl=None, interface=0.0):
         self.sll, self.srr = sll, srr
+        # tied cross-values (slr = sll, srl = srr) leave two parameters,
+        # explicit ones four
         self._tied = slr is None and srl is None
+        self.numParameters = 2 if self._tied else 4
         self.slr = slr if slr is not None else sll
         self.srl = srl if srl is not None else srr
         self.interface = interface
@@ -183,6 +213,20 @@ class leftRightFractionalOrder(fractionalOrderBase):
         return np.where(xl & yl, self.sll,
                         np.where(~xl & ~yl, self.srr,
                                  np.where(xl, self.slr, self.srl)))
+
+    def evalGrad(self, x, y):
+        """ds/dp [..., numParameters] at x, y [..., dim]
+        (pynucleus_tpu/nl/kernels.py evalGradJax): the indicator of the
+        side pair, the cross sides folded into sll and srr when tied."""
+        xl = x[..., 0] < self.interface
+        yl = y[..., 0] < self.interface
+        ll = (xl & yl).to(x.dtype)
+        rr = (~xl & ~yl).to(x.dtype)
+        lr = (xl & ~yl).to(x.dtype)
+        rl = (~xl & yl).to(x.dtype)
+        if self._tied:
+            return torch.stack([ll + lr, rr + rl], dim=-1)
+        return torch.stack([ll, rr, lr, rl], dim=-1)
 
     def _key(self):
         return (type(self).__name__, self.sll, self.srr, self.slr, self.srl,
@@ -460,11 +504,291 @@ class FractionalKernel(Kernel):
                                 scaling=scal, boundary=True)
 
 
+# -------------------------------------------------------- s-derivatives
+
+def _prefactorDerivatives(dim, s, normalized, boundary):
+    """(P, P', P'') at s of the prefactor P = C(s) of an infinite horizon,
+    or C(s)/s for the boundary kernel (pynucleus_tpu/nl/kernels.py
+    VectorFractionalKernel._prefactor, :1561-1576; an unnormalized kernel
+    has C = 1/2), on the host in float64.  C is the JAX expression; the
+    derivatives come from those of ln P in closed form,
+
+        (ln C)'  = 2 ln 2 + 1/s + digamma(s + d/2) + digamma(1 - s)
+        (ln C)'' = -1/s^2 + trigamma(s + d/2) - trigamma(1 - s)
+
+    (ln(C/s) adds -1/s and +1/s^2), P' = P (ln P)', P'' = P ((ln P)'^2 +
+    (ln P)'').  The JAX package differentiates the expression with jvp;
+    scipy's digamma and trigamma agree with its derivatives of gammaln to
+    rounding, torch's trigamma (polygamma(1, .)) is less accurate."""
+    s = float(s)
+    if normalized:
+        C = (2.0 ** (2 * s) * s / np.pi ** (0.5 * dim) * 0.5 *
+             np.exp(gammaln(s + 0.5 * dim) - gammaln(1.0 - s)))
+        a1 = 2.0 * np.log(2.0) + 1.0 / s + digamma(s + 0.5 * dim) \
+            + digamma(1.0 - s)
+        a2 = -1.0 / s ** 2 + polygamma(1, s + 0.5 * dim) \
+            - polygamma(1, 1.0 - s)
+    else:
+        C, a1, a2 = 0.5, 0.0, 0.0
+    if boundary:
+        C, a1, a2 = C / s, a1 - 1.0 / s, a2 + 1.0 / s ** 2
+    return float(C), float(C * a1), float(C * (a1 * a1 + a2))
+
+
+def _exponentBase(dim, boundary):
+    """-d/2, or (1-d)/2 for the boundary kernel: r2's exponent is this
+    minus s."""
+    return 0.5 * (1.0 - dim) if boundary else -0.5 * dim
+
+
+def _checkDerivative(horizon, derivative):
+    if float(horizon) != np.inf:
+        raise NotImplementedError('s-derivative kernels of a finite horizon '
+                                  'are not ported')
+    if int(derivative) not in (1, 2):
+        raise NotImplementedError(f'derivative {derivative}: 1 or 2')
+
+
+class DerivativeFractionalKernel(FractionalKernel):
+    """d^k/ds^k (k = ``derivative``, 1 or 2) of the fractional kernel of a
+    constant order s, infinite horizon (pynucleus_tpu/nl/kernels.py
+    DerivativeFractionalKernel): g(s) = C(s) r2^(-d/2-s), or C(s)/s
+    r2^((1-d)/2-s) for the boundary kernel, so
+
+        g'  = r2^e (C'  - C ln r2)
+        g'' = r2^e (C'' - 2 C' ln r2 + C ln^2 r2),     e = -d/2-s
+
+    the POWER_LOG profile (:meth:`profileParams`), evaluated by
+    :meth:`radial`.  valueSize 1."""
+
+    def __init__(self, dim, s, horizon=np.inf, interaction=None,
+                 normalized=True, boundary=False, derivative=1):
+        _checkDerivative(horizon, derivative)
+        super().__init__(dim, s, horizon, interaction, normalized=normalized,
+                         boundary=boundary)
+        if self.variable:
+            raise NotImplementedError('derivative kernels of a variable '
+                                      'order: a leftRight order gives a '
+                                      'vector kernel')
+        self.derivative = int(derivative)
+        self.normalized = normalized
+        self.valueSize = 1
+
+    def radial(self, r2):
+        """g^(k)(r2) [...] (the JAX _radialJax), 0 where r2 == 0 (as
+        _radial_eval)."""
+        return radialEval(r2, self.profileParams())
+
+    def profileParams(self):
+        """Profile(POWER_LOG, C0, e, 0, C1, C2): g^(k) = r2^e (C0 + C1 ln r2
+        + C2 ln^2 r2) from C, C', C'' at s."""
+        C, dC, d2C = _prefactorDerivatives(self.dim, self.sValue,
+                                           self.normalized, self.boundary)
+        e = _exponentBase(self.dim, self.boundary) - self.sValue
+        if self.derivative == 1:
+            return Profile(POWER_LOG, dC, e, 0.0, -C, 0.0)
+        return Profile(POWER_LOG, d2C, e, 0.0, -2.0 * dC, C)
+
+    def getBoundaryKernel(self):
+        """d^k/ds^k of the boundary kernel C(s)/s r2^((1-d)/2-s), the
+        s-derivative taken of it as a whole."""
+        return DerivativeFractionalKernel(
+            self.dim, self.s, horizon=self.horizonValue,
+            normalized=self.normalized, boundary=True,
+            derivative=self.derivative)
+
+
+class VectorParams(NamedTuple):
+    """A vector kernel of a leftRight order as the device kernels take it.
+    Sides in the order ll, rr, lr, rl (x left and y left, both right, x left
+    only, y left only; left is x[0] < interface): ``coefs`` [4, 6] the row
+    (c0, c1, c2, b, c, e) of each side and ``grads`` [4, V] its gradient
+    row (0 or 1) of the V components.  At r2 > 0 on side sigma, with rad =
+    r2^e and L = ln r2, component v is
+
+        value  rad (c0 + c1 L + c2 L^2) G[sigma, v]
+        log coefficients of ln r and ln^2 r  (b rad G, c rad G)."""
+    coefs: np.ndarray
+    grads: np.ndarray
+    interface: float
+
+    def table(self):
+        """The flat float64 table [4*6 + 4*V] of the C entry points."""
+        return np.concatenate([np.ravel(self.coefs), np.ravel(self.grads)])
+
+
+def vectorSide(x, y, interface):
+    """The side index [...] of each node pair: 0 ll, 1 rr, 2 lr, 3 rl."""
+    xl = x[..., 0] < interface
+    yl = y[..., 0] < interface
+    return torch.where(xl & yl, 0, torch.where(~xl & ~yl, 1,
+                                               torch.where(xl, 2, 3)))
+
+
+def vectorTerms(x, y, r2, vp):
+    """(value, b, c, side) [...] of :class:`VectorParams` vp at nodes x, y
+    [..., dim] with r2 = |x-y|^2: the scalar factors of all components
+    (component v is the factor times vp.grads[side, v]), exactly 0 where
+    r2 == 0.  The operations of common.cuh vecTerms, in its order."""
+    side = vectorSide(x, y, vp.interface)
+    cf = torch.as_tensor(vp.coefs, dtype=r2.dtype, device=r2.device)[side]
+    pos = r2 > 0
+    r2s = torch.where(pos, r2, 1.0)
+    rad = r2s ** cf[..., 5]
+    L = torch.log(r2s)
+    val = rad * ((cf[..., 0] + cf[..., 1] * L) + cf[..., 2] * (L * L))
+    return (torch.where(pos, val, 0.0),
+            torch.where(pos, cf[..., 3] * rad, 0.0),
+            torch.where(pos, cf[..., 4] * rad, 0.0), side)
+
+
+def _grads(vp, side, dtype):
+    return torch.as_tensor(vp.grads, dtype=dtype, device=side.device)[side]
+
+
+def vectorEval(x, y, r2, vp):
+    """All components [..., V] of :class:`VectorParams` vp at x, y."""
+    val, _, _, side = vectorTerms(x, y, r2, vp)
+    return val[..., None] * _grads(vp, side, r2.dtype)
+
+
+def vectorLogCoeffs(x, y, r2, vp):
+    """The log coefficients (b, c) [..., V] of vp at x, y."""
+    _, b, c, side = vectorTerms(x, y, r2, vp)
+    G = _grads(vp, side, r2.dtype)
+    return b[..., None] * G, c[..., None] * G
+
+
+class VectorFractionalKernel(FractionalKernel):
+    """The vector-valued s-derivative kernel of a multi-parameter order,
+    infinite horizon (pynucleus_tpu/nl/kernels.py VectorFractionalKernel):
+    of the leftRight order with 2 (tied) or 4 parameters, component q of
+    derivative 1 is d gamma/ds (x, y; s(x, y)) * ds/dp_q (x, y), of
+    derivative 2 d^2 gamma/ds^2 * ds/dp_i ds/dp_j at q = i P + j
+    (valueSize P or P^2).  :meth:`vectorParams` is the per-side table that
+    :meth:`evalComponents` and :meth:`evalLogCoeffs` and the device kernels
+    (K21, K22) evaluate.  Nonsymmetric and variable."""
+
+    def __init__(self, dim, s, horizon=np.inf, interaction=None,
+                 normalized=True, boundary=False, derivative=1):
+        _checkDerivative(horizon, derivative)
+        if not isinstance(s, leftRightFractionalOrder):
+            raise NotImplementedError(f'vector kernels of the order {s!r}: '
+                                      'the leftRight order only')
+        super().__init__(dim, s, horizon, interaction, normalized=normalized,
+                         boundary=boundary)
+        self.derivative = int(derivative)
+        self.normalized = normalized
+        P = int(s.numParameters)
+        self.valueSize = P if self.derivative == 1 else P * P
+        self.symmetric = False
+        self.variable = True
+
+    def _outer(self, grad, shape):
+        return (grad[..., :, None] * grad[..., None, :]).reshape(
+            shape + (self.valueSize,))
+
+    def evalComponents(self, x, y, r2):
+        """All valueSize components [..., V] at x, y [..., dim] with r2 =
+        |x-y|^2 (evalComponentsJax), 0 where r2 == 0."""
+        return vectorEval(x, y, r2, self.vectorParams())
+
+    def evalLogCoeffs(self, x, y, r2):
+        """(b, c) [..., V]: the coefficients of ln|x-y| and ln^2|x-y| in
+        the integrand (evalLogCoeffsJax): derivative 1 b = -2 gamma, c = 0;
+        derivative 2 b = -4 C'(s) r^alpha, c = 4 gamma (gamma = C(s)
+        r^alpha, alpha' = -2)."""
+        return vectorLogCoeffs(x, y, r2, self.vectorParams())
+
+    def vectorParams(self):
+        """The :class:`VectorParams` of the kernel: per side its order
+        value's C, C', C'' and exponent, and its gradient row (evalGrad at
+        a point pair of the side)."""
+        s = self.s
+        e0 = _exponentBase(self.dim, self.boundary)
+        coefs = []
+        for sv in (s.sll, s.srr, s.slr, s.srl):
+            C, dC, d2C = _prefactorDerivatives(self.dim, sv, self.normalized,
+                                               self.boundary)
+            if self.derivative == 1:
+                coefs.append((dC, -C, 0.0, -2.0 * C, 0.0, e0 - sv))
+            else:
+                coefs.append((d2C, -2.0 * dC, C, -4.0 * dC, 4.0 * C, e0 - sv))
+        iface = float(s.interface)
+        left, right = iface - 1.0, iface + 1.0
+        xs = torch.tensor([[left], [right], [left], [right]],
+                          dtype=torch.float64)
+        ys = torch.tensor([[left], [right], [right], [left]],
+                          dtype=torch.float64)
+        grad = s.evalGrad(xs, ys)
+        if self.derivative == 2:
+            grad = self._outer(grad, (4,))
+        return VectorParams(np.array(coefs), grad.numpy(), iface)
+
+    def evalXY(self, x, y, r2):
+        raise TypeError('vector-valued kernel: use evalComponents (scalar '
+                        'assembly paths take valueSize 1)')
+
+    def componentKernels(self):
+        """The scalar kernel of each component."""
+        return [_ComponentFractionalKernel(self, q)
+                for q in range(self.valueSize)]
+
+    def getBoundaryKernel(self):
+        return VectorFractionalKernel(
+            self.dim, self.s, horizon=self.horizonValue,
+            normalized=self.normalized, boundary=True,
+            derivative=self.derivative)
+
+
+class _ComponentFractionalKernel(FractionalKernel):
+    """Scalar view of component q of a :class:`VectorFractionalKernel`
+    (pynucleus_tpu/nl/kernels.py _ComponentFractionalKernel), with the
+    parent's derivative (the quadrature-order bump).  Its assembly needs
+    the log correction inside the scalar kernels (K1, K19, K7): not ported,
+    the builder raises."""
+
+    def __init__(self, parent, q):
+        super().__init__(parent.dim, parent.s, horizon=parent.horizonValue,
+                         normalized=parent.normalized,
+                         boundary=parent.boundary)
+        self.parent = parent
+        self.q = int(q)
+        self.symmetric = False
+        self.variable = True
+        self.derivative = parent.derivative
+
+    def evalXY(self, x, y, r2):
+        return self.parent.evalComponents(x, y, r2)[..., self.q]
+
+    def evalLogCoeffs(self, x, y, r2):
+        b, c = self.parent.evalLogCoeffs(x, y, r2)
+        return b[..., self.q], c[..., self.q]
+
+    def getBoundaryKernel(self):
+        return _ComponentFractionalKernel(self.parent.getBoundaryKernel(),
+                                          self.q)
+
+
 def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
-                        scaling=None, normalized=True):
+                        scaling=None, normalized=True, derivative=0, phi=None,
+                        temperedLambda=0.0):
+    """The fractional kernel of order s; with ``derivative`` (1 or 2) its
+    s-derivative: a :class:`VectorFractionalKernel` for an order of several
+    parameters, else a :class:`DerivativeFractionalKernel`."""
+    if phi is not None or temperedLambda != 0.0:
+        raise NotImplementedError('two-point weights (phi) and tempered '
+                                  'kernels are not ported')
+    if not isinstance(s, fractionalOrderBase):
+        s = constFractionalOrder(s)
     hv = float(horizon)
     if interaction is None:
         interaction = fullSpace() if hv == np.inf else ball2()
+    if derivative:
+        cls = VectorFractionalKernel if s.numParameters > 1 else \
+            DerivativeFractionalKernel
+        return cls(dim, s, hv, interaction, normalized=normalized,
+                   derivative=derivative)
     return FractionalKernel(dim, s, hv, interaction, scaling,
                             normalized=normalized)
 
@@ -497,12 +821,13 @@ def getIntegrableKernel(dim, kernel, horizon, interaction=None, scaling=None,
 
 
 def profileArgs(prof):
-    """(code, C, e, a) of a :class:`Profile` as the C entry points take
-    them; anything else (such as a bare (C, e)) raises."""
+    """(code, C, e, a, C1, C2) of a :class:`Profile` as the C entry points
+    take them; anything else (such as a bare (C, e)) raises."""
     if not isinstance(prof, Profile) or int(prof.code) not in PROFILE_CODES:
-        raise ValueError(f'a radial Profile (code, C, e, a) is expected, got '
-                         f'{prof!r}')
-    return int(prof.code), float(prof.C), float(prof.e), float(prof.a)
+        raise ValueError(f'a radial Profile (code, C, e, a, C1, C2) is '
+                         f'expected, got {prof!r}')
+    return (int(prof.code), float(prof.C), float(prof.e), float(prof.a),
+            float(prof.C1), float(prof.C2))
 
 
 def radialEval(r2, prof):
@@ -510,7 +835,7 @@ def radialEval(r2, prof):
     exactly 0 where r2 == 0 (coincident quadrature points of the singular
     rules), as pynucleus_tpu/nl/assembly.py _radial_eval evaluates
     Kernel._radialJax: the same operations in the same order."""
-    code, C, e, a = profileArgs(prof)
+    code, C, e, a, C1, C2 = profileArgs(prof)
     pos = r2 > 0
     r2s = torch.where(pos, r2, 1.0)
     if code == POWER:
@@ -526,6 +851,9 @@ def radialEval(r2, prof):
         val = C * torch.exp(-a * r2s) / (2.0 * a * torch.sqrt(r2s))
     elif code == EXPONENTIAL_BOUNDARY_1D:
         val = C / a * torch.exp(-a * torch.sqrt(r2s))
+    elif code == POWER_LOG:
+        L = torch.log(r2s)
+        val = r2s ** e * ((C + C1 * L) + C2 * (L * L))
     else:
         r = torch.sqrt(r2s)
         val = C * torch.exp(-a * r) * (r / a + 1.0 / a ** 2) / r

@@ -1,9 +1,9 @@
 """Singularity-cancelling quadrature rules for element pairs (host build).
 
 Carried over from pynucleus_tpu/nl/quad_singular.py (1D singular rules and
-the distant tensor rules, and the nonsymmetric tables buildPHI), without
-the log-correction tables of the s-derivative kernels, which the port does
-not assemble yet.
+the distant tensor rules, the nonsymmetric tables buildPHI and the 1D
+singular rules' log-correction tables lnEta, cw1 and cw2 of the
+s-derivative kernels).
 
 Each rule is reduced to STATIC tables for the batched device kernel:
     bary_x [nv1, Q], bary_y [nv2, Q], w [Q], PSI [nPSI, Q]
@@ -20,20 +20,34 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..fem.quadrature import gauss01, gaussJacobi01, tensorRule, simplexCompact
+from ..fem.quadrature import (gauss01, gaussJacobi01, tensorRule,
+                              simplexCompact, logWeights)
 
 __all__ = ['PanelRule', 'sameCellRule1D', 'vertexRule1D', 'distantRule',
            'boundaryVertexRule1D', 'boundaryDistantRule']
 
 
 class PanelRule:
-    """Static tables for one panel class."""
+    """Static tables for one panel class.
 
-    def __init__(self, bary_x, bary_y, w, name=''):
+    Singular rules may carry log-correction tables for s-derivative kernels
+    (whose integrand has extra ln|x-y| factors that the plain Gauss-Jacobi
+    weight does not absorb): ``lnEta`` [Q] = ln of the radial variable(s)
+    product per node, and ``cw1``/``cw2`` [Q] such that for an integrand
+    F = a + b ln r (+ c ln^2 r) with a,b,c sharing the rule's power-law
+    singularity, sum_q w_q F_q + cw1_q (b_q + 2 c_q lnR_q) + cw2_q c_q
+    integrates the log factors exactly (lnR = ln r - lnEta is smooth)."""
+
+    def __init__(self, bary_x, bary_y, w, name='', lnEta=None, cw1=None,
+                 cw2=None):
         self.bary_x = np.ascontiguousarray(bary_x)   # [nv1, Q]
         self.bary_y = np.ascontiguousarray(bary_y)   # [nv2, Q]
         self.w = np.ascontiguousarray(w)             # [Q]
         self.name = name
+        self.lnEta = lnEta
+        self.cw1 = cw1
+        self.cw2 = cw2
+
 
     @property
     def num_nodes(self):
@@ -100,8 +114,9 @@ class PanelRule:
 # --------------------------------------------------------------------- 1D --
 
 def sameCellRule1D(singularity, order):
-    """Identical-cell panel, 1D.  ``singularity`` is the kernel exponent
-    (-1-2s); the integrand cancels 2 orders, sigma = 2 + singularity."""
+    """Identical-cell panel, 1D (ref fractionalLaplacian1D.pyx:48-82).
+    ``singularity`` is the kernel exponent (-1-2s); the integrand cancels 2
+    orders, sigma = 2 + singularity."""
     sigma = 2.0 + singularity
     x0, w0 = gaussJacobi01(order, 1.0 + sigma, 0.0)
     x1, w1 = gaussJacobi01(order, sigma, 0.0)
@@ -111,20 +126,46 @@ def sameCellRule1D(singularity, order):
     y = eta0
     bary_x = np.stack([1 - x, x], axis=0)
     bary_y = np.stack([1 - y, y], axis=0)
-    weights = 2.0 * w * (eta0 * eta1) ** (-sigma)
-    return PanelRule(bary_x, bary_y, weights, 'sameCell1D')
+    comp = (eta0 * eta1) ** (-sigma)
+    weights = 2.0 * w * comp
+    # log-correction tables: |x-y| = eta0*eta1*h, weight exponents
+    # (1+sigma, sigma) per axis
+    u0 = logWeights(x0, 1.0 + sigma, 1)
+    u1 = logWeights(x1, sigma, 1)
+    v0 = logWeights(x0, 1.0 + sigma, 2)
+    v1 = logWeights(x1, sigma, 2)
+    lnEta = np.log(eta0) + np.log(eta1)
+    wlog1 = _tensorW((x0, u0), (x1, w1)) + _tensorW((x0, w0), (x1, u1))
+    wlog2 = (_tensorW((x0, v0), (x1, w1)) + 2.0 * _tensorW((x0, u0), (x1, u1))
+             + _tensorW((x0, w0), (x1, v1)))
+    cw1 = 2.0 * wlog1 * comp - weights * lnEta
+    cw2 = 2.0 * wlog2 * comp - weights * lnEta ** 2
+    return PanelRule(bary_x, bary_y, weights, 'sameCell1D',
+                     lnEta=lnEta, cw1=cw1, cw2=cw2)
+
+
+def _tensorW(*rules):
+    """Tensor-product weights only (same node ordering as tensorRule)."""
+    w = np.ones(1)
+    wg = np.meshgrid(*[r[1] for r in rules], indexing='ij')
+    w = np.ones(wg[0].size)
+    for g in wg:
+        w = w * g.ravel()
+    return w
 
 
 def vertexRule1D(singularity, order_sing, order_reg, continuous=True,
                  cancellation=None):
-    """Common-vertex panel, 1D.  Shared vertex is local 0 of BOTH permuted
-    simplices.  sigma = 2+sing for continuous elements, 0+sing for P0.
+    """Common-vertex panel, 1D (ref fractionalLaplacian1D.pyx:83-141).
+    Shared vertex is local 0 of BOTH permuted simplices.  sigma = 2+sing for
+    continuous elements, 0+sing for P0.
 
     ``cancellation`` overrides the vanishing-order count: the one-sided
-    terms of a nonsymmetric kernel whose two orderings have different
-    singular exponents carry one vanishing factor only, so their split
-    evaluation uses cancellation=1 (pynucleus_tpu/nl/quad_singular.py
-    vertexRule1D)."""
+    terms of a nonsym kernel whose two orderings have DIFFERENT singular
+    exponents (variable order with a jump interface) only carry ONE
+    vanishing factor (the trial difference), so their split evaluation uses
+    cancellation=1 (the reference's combined rule assumes 2 across elements,
+    fractionalLaplacian1D.pyx:216, which under-resolves such panels)."""
     if cancellation is None:
         cancellation = 2.0 if continuous else 0.0
     sigma = cancellation + singularity
@@ -138,8 +179,21 @@ def vertexRule1D(singularity, order_sing, order_reg, continuous=True,
         xs.append(np.stack([1 - x, x], axis=0))
         ys.append(np.stack([1 - y, y], axis=0))
         ws.append(w * eta0 ** (-sigma))
-    return PanelRule(np.concatenate(xs, axis=1), np.concatenate(ys, axis=1),
-                     np.concatenate(ws), 'vertex1D')
+    bary_x = np.concatenate(xs, axis=1)
+    bary_y = np.concatenate(ys, axis=1)
+    weights = np.concatenate(ws)
+    # log correction: |x-y| scales with eta0 only (radial variable)
+    u0 = logWeights(x0, 1.0 + sigma, 1)
+    v0 = logWeights(x0, 1.0 + sigma, 2)
+    comp = eta0 ** (-sigma)
+    lnEta1 = np.log(eta0)
+    cw1s = _tensorW((x0, u0), (x1, w1)) * comp - w * comp * lnEta1
+    cw2s = _tensorW((x0, v0), (x1, w1)) * comp - w * comp * lnEta1 ** 2
+    lnEta = np.concatenate([lnEta1, lnEta1])
+    cw1 = np.concatenate([cw1s, cw1s])
+    cw2 = np.concatenate([cw2s, cw2s])
+    return PanelRule(bary_x, bary_y, weights, 'vertex1D',
+                     lnEta=lnEta, cw1=cw1, cw2=cw2)
 
 
 def distantRule(order, mdim1, mdim2=None):
@@ -157,18 +211,27 @@ def distantRule(order, mdim1, mdim2=None):
 
 
 def boundaryVertexRule1D(singularity, order):
-    """Cell x touching-boundary-vertex panel.  singularity here is the
+    """Cell x touching-boundary-vertex panel (ref
+    fractionalLaplacian1D.pyx:144-179,671-709).  singularity here is the
     BOUNDARY kernel exponent (1-d-2s = -2s in 1D)."""
     if singularity > -1.0 + 1e-3:
         sigma = singularity
     else:
         sigma = 2.0 + singularity
-    # at least 8 nodes: the JAX package raises tiny-mesh diagonal orders
-    # the same way, and the node tables must agree
+    # floor: the moment-matched log-correction weights (cw1/cw2) only
+    # integrate smooth factors up to degree n-1, so tiny-mesh diagonal
+    # orders (the reference formula can give 2) would break s-derivative
+    # kernels; a handful of extra nodes on the few boundary panels is free
     eta, w = gaussJacobi01(max(order, 8), sigma, 0.0)
     bary_x = np.stack([1 - eta, eta], axis=0)
     bary_y = np.ones((1, len(eta)))
-    return PanelRule(bary_x, bary_y, w * eta ** (-sigma), 'bndVertex1D')
+    comp = eta ** (-sigma)
+    weights = w * comp
+    lnEta = np.log(eta)
+    cw1 = logWeights(eta, sigma, 1) * comp - weights * lnEta
+    cw2 = logWeights(eta, sigma, 2) * comp - weights * lnEta ** 2
+    return PanelRule(bary_x, bary_y, weights, 'bndVertex1D',
+                     lnEta=lnEta, cw1=cw1, cw2=cw2)
 
 
 def boundaryDistantRule(order, mdim1, mdim2):

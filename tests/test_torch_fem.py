@@ -69,7 +69,15 @@ def test_port_imports_no_jax():
             'pynucleus_tpu_torch.kernels.jacobi_smooth, '
             'pynucleus_tpu_torch.multilevel.gmg, '
             'pynucleus_tpu_torch.nl.discretized, '
-            'pynucleus_tpu_torch.base.linear_operators, sys; '
+            'pynucleus_tpu_torch.base.linear_operators, '
+            'pynucleus_tpu_torch.fem.quadrature, sys; '
+            'from pynucleus_tpu_torch.base.linear_operators import '
+            'vector_matvec, Dense_VectorLinearOperator, '
+            'H2_VectorLinearOperator; '
+            'from pynucleus_tpu_torch.nl.assembly import panel_scatter_vec, '
+            'panel_scatter_nonsym_vec; '
+            'from pynucleus_tpu_torch.nl.kernels import '
+            'DerivativeFractionalKernel, VectorFractionalKernel; '
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)
