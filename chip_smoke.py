@@ -123,12 +123,26 @@ result line):
      exceeds 300 s; each a path); then K21, K22, K23 (against torch.einsum
      too) and the power-log profile in K1, K2, K3, K6 (where called), K7
      and K12 against their plain versions.
+ 15. the Helmholtz path (drivers/runHelmholtz.py: S - omega^2 M + i omega
+     M_B with impedance conditions, GMRES right-preconditioned by one
+     V-cycle of the complex-shifted Laplacian, all complex128): the
+     interval's wave and greens lines and the full-width square (noRef 8,
+     4 levels, 66,049 dofs; each a path of its own) against the JAX
+     driver's pinned outputs (numIter equal, the rest 1e-6 relative, the
+     solution's L2 norm 1 within 1e-5), with the host set-up parts, the
+     multigrid set-up, the solve, a V-cycle, a warm GMRES solve per step
+     and the peak device memory; then K9's, K10's and K17's complex
+     variants against their plain versions at the square's shapes (the
+     finest A, P and P^T on complex vectors; n 66,049; one GMRES cycle of
+     10 steps and the combine), with torch.sparse, torch.sub and
+     torch.addmv beside them.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
 against their plain versions.
-The last lines are the kernel table (JSON: per kernel its launches on the
-main paths and the CUDA launches those made, the largest error against
+The last lines are the kernel table (JSON: per kernel, and per complex
+variant of K9, K10 and K17, its launches on the main paths and the CUDA
+launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
 could take for the same work and what bounds it, and the time of one
 PyTorch library call computing the same function where there is one),
@@ -781,22 +795,24 @@ def compare_h2_matvec(H, reps=10, label=''):
     return result(err, ms / reps, plain_ms / reps, [h2_matvec_work(H)])
 
 
-def compare_csr_spmv(P, reps=10):
-    """K9 on a prolongation P and its transpose: y = A x and y += A x
-    against the plain version; then ``reps`` products y = P x and
-    y = P^T r each way and through one torch.sparse CSR product (the
-    library's yardstick, never used by the port), after an untimed call
-    of each.  Returns the result() per pair of products."""
+def compare_csr_spmv(P, reps=10, dtype=None, extra=()):
+    """K9 on a prolongation P and its transpose (and on the operators
+    ``extra``): y = A x and y += A x against the plain version; then
+    ``reps`` products y = A x each way and through one torch.sparse CSR
+    product (the library's yardstick, never used by the port), after an
+    untimed call of each.  x is float64, or ``dtype`` (complex128: K9's
+    complex variant, the library product on the data cast to it).
+    Returns the result() per set of products."""
     import torch
     from pynucleus_tpu_torch.base.linear_operators import (csr_spmv,
                                                            _csr_spmv_plain)
+    dtype = dtype or torch.float64
     g = torch.Generator('cuda').manual_seed(2)
     worst = ms = plain_ms = lib_ms = 0.0
     work = []
-    for A in (P, P.transposed()):
+    for A in (P, P.transposed()) + tuple(extra):
         def vec(n):
-            return torch.randn(n, dtype=torch.float64, device='cuda',
-                               generator=g)
+            return torch.randn(n, dtype=dtype, device='cuda', generator=g)
         x, y0 = vec(A.num_columns), vec(A.num_rows)
         args = (A.indptr, A.indices, A.data, x)
         for acc in (False, True):
@@ -808,7 +824,7 @@ def compare_csr_spmv(P, reps=10):
             if not (scale > 0 and err <= TOL_KERNEL * scale):
                 raise AssertionError(f'csr_spmv: max err {err} (max {scale})')
             worst = max(worst, err)
-        S = torch.sparse_csr_tensor(A.indptr, A.indices, A.data,
+        S = torch.sparse_csr_tensor(A.indptr, A.indices, A.data.to(dtype),
                                     size=A.shape)
         yl = torch.mv(S, x)
         csr_spmv(*args, out=yk)
@@ -821,33 +837,49 @@ def compare_csr_spmv(P, reps=10):
         plain_ms += timed(lambda: [_csr_spmv_plain(*args, yp)
                                    for _ in range(reps)]) / reps
         lib_ms += timed(lambda: [torch.mv(S, x) for _ in range(reps)]) / reps
+        # a real product 2 operations an entry, a real entry times a complex
+        # value 4, a complex product 8
+        opsPerEntry = 2 * (1 + x.is_complex()) * (1 + A.data.is_complex())
         work.append((nbytes(A.indptr, A.indices, A.data, x)
-                     + 8 * A.num_rows, 2 * A.nnz, F64_PEAK))
-    log(f'  csr_spmv: P {tuple(P.shape)} and P^T, nnz {P.nnz}, max abs err '
-        f'{worst:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'torch.sparse {lib_ms:.4f} ms per pair of products')
+                     + x.element_size() * A.num_rows, opsPerEntry * A.nnz,
+                     F64_PEAK))
+    log(f'  csr_spmv ({dtype}): P {tuple(P.shape)} and P^T, nnz {P.nnz}'
+        + ''.join(f', A {tuple(A.shape)} nnz {A.nnz} ({A.data.dtype})'
+                  for A in extra)
+        + f', max abs err {worst:.3e}, kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, torch.sparse {lib_ms:.4f} ms per set of '
+        'products')
     return result(worst, ms, plain_ms, work, lib_ms)
 
 
-def compare_jacobi_smooth(n, reps=10):
-    """K10: its three modes on random vectors [n] against the plain
-    version, ``reps`` passes of each mode each way after an untimed one;
-    returns the result() per set of three passes, with the time of the
-    library call of the residual mode, one torch.sub (never used by the
-    port), beside that mode's own."""
+def compare_jacobi_smooth(n, reps=10, dtype=None):
+    """K10: its three modes on random vectors [n] (float64, or ``dtype``:
+    complex128, the complex variant) against the plain version, ``reps``
+    passes of each mode each way after an untimed one; returns the result()
+    per set of three passes, with the time of the library call of the
+    residual mode, one torch.sub (never used by the port), beside that
+    mode's own."""
     import torch
     from pynucleus_tpu_torch.multilevel.gmg import (jacobi_smooth,
                                                     _jacobi_smooth_plain)
+    dtype = dtype or torch.float64
+    cplx = dtype.is_complex
     g = torch.Generator('cuda').manual_seed(3)
-    b, Ax, x0 = (torch.randn(n, dtype=torch.float64, device='cuda',
-                             generator=g) for _ in range(3))
+    b, Ax, x0 = (torch.randn(n, dtype=dtype, device='cuda', generator=g)
+                 for _ in range(3))
     Dinv = torch.rand(n, dtype=torch.float64, device='cuda', generator=g) \
         + 0.5
+    if cplx:
+        Dinv = torch.complex(Dinv, torch.rand(n, dtype=torch.float64,
+                                              device='cuda', generator=g))
     om = torch.tensor([2.0 / 3.0], dtype=torch.float64, device='cuda')
     worst = ms = plain_ms = 0.0
     work = []
-    for mode, (nvec, ops) in (('zero', (3, 2)), ('residual', (3, 1)),
-                              ('update', (5, 4))):
+    # vectors read or written, and operations (a complex product 6, a
+    # complex sum 2, a real times a complex 2)
+    modes = (('zero', 3, 8 if cplx else 2), ('residual', 3, 2 if cplx else 1),
+             ('update', 5, 12 if cplx else 4))
+    for mode, nvec, ops in modes:
         xk, xp = x0.clone(), x0.clone()
         jacobi_smooth(mode, xk, b, Ax=Ax, Dinv=Dinv, omega=om)
         _jacobi_smooth_plain(mode, xp, b, Ax=Ax, Dinv=Dinv, omega=om)
@@ -862,15 +894,15 @@ def compare_jacobi_smooth(n, reps=10):
         plain_ms += timed(lambda: [_jacobi_smooth_plain(
             mode, xp, b, Ax=Ax, Dinv=Dinv, omega=om)
             for _ in range(reps)]) / reps
-        work.append((8 * nvec * n, ops * n, F64_PEAK))
+        work.append((b.element_size() * nvec * n, ops * n, F64_PEAK))
     torch.sub(b, Ax, out=xp)
     lib_ms = timed(lambda: [torch.sub(b, Ax, out=xp)
                             for _ in range(reps)]) / reps
     res_ms = timed(lambda: [jacobi_smooth('residual', xk, b, Ax=Ax)
                             for _ in range(reps)]) / reps
-    log(f'  jacobi_smooth: n {n}, three modes, max abs err {worst:.3e}, '
-        f'kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per set; residual '
-        f'mode {res_ms:.4f} ms, torch.sub {lib_ms:.4f} ms')
+    log(f'  jacobi_smooth ({dtype}): n {n}, three modes, max abs err '
+        f'{worst:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per set; '
+        f'residual mode {res_ms:.4f} ms, torch.sub {lib_ms:.4f} ms')
     r = result(worst, ms, plain_ms, work, lib_ms)
     r['residual_ms'] = res_ms
     return r
@@ -1714,14 +1746,16 @@ def compare_gmres_arnoldi(A, b, restart=10):
     combine x0 + V y, each call made by the kernel and by the plain
     version on copies of the same state (the cycle goes on from the
     kernel's), compared to 1e-12 of the largest entry and timed with CUDA
-    events; and the combine's library yardstick, one torch.addmv.  Returns
-    the result() per cycle."""
+    events; and the combine's library yardstick, one torch.addmv.  In b's
+    type: float64, or complex128 (K17's complex variant, complex y).
+    Returns the result() per cycle."""
     import numpy as np
     import torch
     from pynucleus_tpu_torch.base import solvers as S
     n = b.shape[0]
-    V = torch.empty((restart + 1, n), dtype=torch.float64, device='cuda')
-    h = torch.zeros(restart + 1, dtype=torch.float64, device='cuda')
+    cplx = b.is_complex()
+    V = torch.empty((restart + 1, n), dtype=b.dtype, device='cuda')
+    h = torch.zeros(restart + 1, dtype=b.dtype, device='cuda')
     guards = torch.tensor([0.0, 1e-300], dtype=torch.float64, device='cuda')
     w = b.clone()
     worst = ms = plain_ms = 0.0
@@ -1743,12 +1777,16 @@ def compare_gmres_arnoldi(A, b, restart=10):
         worst = max(worst, err)
         # V[0..j] and w read, w and V[j+1] written (the start: w read,
         # V[0] written); 4 n operations a Gram-Schmidt term, 3 n for the
-        # norm and the division
-        work.append((8 * n * (j + 4 if j >= 0 else 2),
-                     4 * n * (j + 1) + 3 * n, F64_PEAK))
-    y = torch.as_tensor(np.random.default_rng(11).normal(size=restart),
-                        device='cuda')
-    x0 = torch.randn(n, dtype=torch.float64, device='cuda',
+        # norm and the division (complex: 16 n and 6 n)
+        work.append((b.element_size() * n * (j + 4 if j >= 0 else 2),
+                     (16 if cplx else 4) * n * (j + 1)
+                     + (6 if cplx else 3) * n, F64_PEAK))
+    rng = np.random.default_rng(11)
+    y = rng.normal(size=restart)
+    if cplx:
+        y = y + 1j * rng.normal(size=restart)
+    y = torch.as_tensor(y, device='cuda')
+    x0 = torch.randn(n, dtype=b.dtype, device='cuda',
                      generator=torch.Generator('cuda').manual_seed(12))
     xk, xp = x0.clone(), x0.clone()
     cms = timed(lambda: S.gmres_combine(xk, V, y))
@@ -1762,8 +1800,11 @@ def compare_gmres_arnoldi(A, b, restart=10):
     lib_ms = timed(lambda: torch.addmv(x0, Vt, y))
     ms += cms
     plain_ms += cplain
-    work.append((8 * n * (restart + 2), 2 * n * restart + n, F64_PEAK))
-    log(f'  gmres_arnoldi: one cycle of {restart} steps on n {n} (start, '
+    work.append((b.element_size() * n * (restart + 2),
+                 (8 if cplx else 2) * n * restart + (2 if cplx else 1) * n,
+                 F64_PEAK))
+    log(f'  gmres_arnoldi ({b.dtype}): one cycle of {restart} steps on n {n} '
+        '(start, '
         f'steps, combine), max abs err {worst:.3e}, kernel {ms:.4f} ms, plain '
         f'{plain_ms:.4f} ms; combine {cms:.4f} ms, torch.addmv {lib_ms:.4f} '
         'ms')
@@ -3235,6 +3276,158 @@ def phase14():
     return counts, cmp, prof, summary
 
 
+# ---------------------------------------------------------------- phase 15
+
+# JAX package outputs of `drivers/runHelmholtz.py --domain D [--problem
+# P]`, run on the CPU in float64 (the results group, to full precision)
+JAX_HELMHOLTZ = {
+    ('interval', 'wave'): {'DoFs': 129, 'numIter': 23,
+                           'res': 4.38928474391897e-06,
+                           'solution L2 norm': 0.9999999758530215,
+                           'L2 error': 1.5359002813128508e-06},
+    ('interval', 'greens'): {'DoFs': 129, 'numIter': 11,
+                             'res': 7.5679531697032636e-06,
+                             'solution L2 norm': 0.00027988735977089665},
+    ('square', 'wave'): {'DoFs': 66049, 'numIter': 26,
+                         'res': 9.518279657696444e-06,
+                         'solution L2 norm': 1.0000000471161223,
+                         'L2 error': 1.0066312136028506e-05},
+}
+# the pinned outputs are held to 1e-6 relative (numIter equal), and the
+# square's solution L2 norm to 1 within 1e-5 (tests/test_helmholtz.py)
+TOL_HELMHOLTZ = 1e-6
+HELMHOLTZ_PATH = ('csr_scatter', 'csr_spmv:complex', 'jacobi_smooth:complex',
+                  'gmres_arnoldi:complex')
+COMPLEX_INFO = {
+    'csr_spmv:complex': KERNEL_INFO['csr_spmv'],
+    'jacobi_smooth:complex': KERNEL_INFO['jacobi_smooth'],
+    'gmres_arnoldi:complex': KERNEL_INFO['gmres_arnoldi'],
+}
+COMPLEX_COMPARED_AT = {
+    'csr_spmv:complex': 'the Helmholtz square (66,049 dofs): the finest '
+                        'complex operator A and the real P and P^T of '
+                        'levels 16,641 -> 66,049 on complex vectors, per '
+                        'set of three products',
+    'jacobi_smooth:complex': 'the Helmholtz square: n 66,049, its three '
+                             'modes, per set',
+    'gmres_arnoldi:complex': 'the Helmholtz square: one restart cycle of 10 '
+                             'steps on the complex A and the combine, per '
+                             'cycle',
+}
+
+
+def helmholtz_argv(domain, problem='wave'):
+    return ['--domain', domain, '--problem', problem, '--device', 'cuda']
+
+
+def check_helmholtz(out, domain, problem):
+    """The driver's results against the pinned JAX outputs: DoFs and
+    numIter equal, the rest within TOL_HELMHOLTZ relative; the square's
+    solution L2 norm within 1e-5 of 1, the interval's wave line the
+    reference cache (tests/test_helmholtz.py:11-17)."""
+    ref = JAX_HELMHOLTZ[(domain, problem)]
+    r = out['results'].toDict()
+    bad = []
+    if out['info'].toDict()['DoFs'] != ref['DoFs']:
+        bad.append(f"DoFs {out['info'].toDict()['DoFs']}")
+    if r['numIter'] != ref['numIter']:
+        bad.append(f"numIter {r['numIter']} != JAX {ref['numIter']}")
+    rel = {}
+    for label in ('res', 'solution L2 norm', 'L2 error'):
+        if label in ref:
+            rel[label] = abs(r[label] - ref[label]) / abs(ref[label])
+            if rel[label] > TOL_HELMHOLTZ:
+                bad.append(f'{label} {r[label]} vs JAX {ref[label]}')
+    if problem == 'wave' and not abs(r['solution L2 norm'] - 1.0) <= 1e-5:
+        bad.append(f"solution L2 norm {r['solution L2 norm']} not 1")
+    if (domain, problem) == ('interval', 'wave') and not (
+            abs(r['numIter'] - 24) <= 1 and r['L2 error'] < 5e-6):
+        bad.append('the reference cache')
+    log(f'  {domain} {problem}: {json.dumps(r)} (relative to JAX: '
+        f'{json.dumps(rel)})')
+    if bad:
+        raise AssertionError(f'runHelmholtz {domain} {problem}: '
+                             + '; '.join(bad))
+    return rel
+
+
+def phase15():
+    """The Helmholtz path (runHelmholtz, complex128): K9, K10 and K17's
+    complex variants against their plain versions at the square's shapes;
+    the interval's wave and greens lines and the square (66,049 dofs; each
+    a path) against the pinned JAX outputs, with the square's host set-up
+    parts, multigrid set-up, solve, a V-cycle, a GMRES step and the peak
+    memory.  Returns the launch counts, the comparisons and a summary."""
+    import torch
+    from pynucleus_tpu_torch.drivers.runHelmholtz import main
+    log('phase 15: the Helmholtz path (runHelmholtz, complex128 GMRES with '
+        'a complex-shifted V-cycle)')
+    counts = {}
+    for problem in ('wave', 'greens'):
+        out, counts[f'interval_{problem}'] = count_path(
+            f'interval {problem}', HELMHOLTZ_PATH,
+            lambda: main(helmholtz_argv('interval', problem), quiet=True))
+        check_helmholtz(out, 'interval', problem)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out, counts['square'] = count_path(
+        'square wave', HELMHOLTZ_PATH,
+        lambda: main(helmholtz_argv('square'), quiet=True))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for label, c in counts.items():
+        for k in ('csr_spmv', 'jacobi_smooth', 'gmres_arnoldi'):
+            # every launch of the paths is a complex one: the device counts
+            # are the complex variants'
+            if c[k] != c[k + ':complex']:
+                raise AssertionError(f'{k}: real launches on the Helmholtz '
+                                     f'path {label}')
+    log('  launches: ' + json.dumps({k: counts['square'][k]
+                                     for k in HELMHOLTZ_PATH}))
+    rel = check_helmholtz(out, 'square', 'wave')
+    tim = out['timers'].toDict()
+    log('  the square (s): ' + ', '.join(
+        f'{k[:-len(" seconds")]} {v:.4f}' for k, v in tim.items()
+        if k.endswith(' seconds')) + f'; the driver {wall:.3f} s, peak '
+        f'device memory {peak / 2**30:.3f} GiB')
+    ml, b, gm, A = out['ml'], out['b'], out['gmres'], out['A']
+    M = ml.asPreconditioner()
+    z = torch.empty_like(b)
+    M.matvec(b, out=z)
+    vcycle = timed(lambda: [M.matvec(b, out=z) for _ in range(10)]) / 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gm.solve(b)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    steps = len(gm.residuals) - 1
+    log(f'  V-cycle ({len(ml.levels.As)} levels, 2+2 sweeps) {vcycle:.4f} ms '
+        f'(CUDA events over 10); warm GMRES solve {warm:.4f} s, {steps} '
+        f'steps, {warm / steps * 1e3:.3f} ms a step')
+    summary = {'dofs': A.num_rows, 'levels': len(ml.levels.As),
+               'numIter': out['results'].toDict()['numIter'],
+               'wall_s': wall, 'timers_s': {k: v for k, v in tim.items()
+                                            if k.endswith(' seconds')},
+               'peak_GiB': peak / 2**30, 'vcycle_ms': vcycle,
+               'warm_solve_s': warm, 'ms_per_step': warm / steps * 1e3,
+               'relative_to_jax': rel}
+    P = out['hierarchy'][-1]['P']
+    del out, M, z, gm
+    torch.cuda.empty_cache()
+    log('  complex kernels against their plain versions at the square\'s '
+        'shapes')
+    cmp = {'csr_spmv:complex': compare_csr_spmv(P, dtype=torch.complex128,
+                                                extra=(A,)),
+           'jacobi_smooth:complex': compare_jacobi_smooth(
+               A.num_rows, dtype=torch.complex128),
+           'gmres_arnoldi:complex': compare_gmres_arnoldi(A, b)}
+    k17 = cmp['gmres_arnoldi:complex']
+    summary['k17_ms_per_step'] = (k17['ms'] - k17['combine_ms']) / 10
+    log(f'  summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -3278,6 +3471,7 @@ def main():
     counts12, cmp12, _ = phase12()
     counts13, cmp13, summary13 = phase13()
     counts14, cmp14, prof14, summary14 = phase14()
+    counts15, cmp15, summary15 = phase15()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -3391,7 +3585,32 @@ def main():
             row[key] = {t.split(':')[1]: sum(counts[t] for *_, counts in paths)
                         for t in names}
         table.append(row)
+    # the complex variants of K9, K10 and K17 on the Helmholtz paths (every
+    # K9, K10 and K17 launch there is a complex one, phase 15 checks)
+    helmholtz = (('interval_wave', 'helmholtz_interval_wave_noRef7'),
+                 ('interval_greens', 'helmholtz_interval_greens_noRef7'),
+                 ('square', 'helmholtz_square_wave_noRef8'))
+    for name in kernels.COMPLEX:
+        route, src, replaces = COMPLEX_INFO[name]
+        c = cmp15[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts15[key][name] for key, label in helmholtz}
+        row = {'name': name, 'route': route, 'source': src,
+               'replaces': replaces, 'launches': sum(byPath.values()),
+               'max_abs_err': c['err'], 'ms': c['ms'],
+               'plain_ms': c['plain_ms'], 'bound_ms': bms, 'bound_by': by,
+               'library_ms': c['library_ms'],
+               'launches_by_path': byPath,
+               'device_launches': sum(
+                   counts15[key]['device'][name.split(':')[0]]
+                   for key, _ in helmholtz),
+               'compared_at': COMPLEX_COMPARED_AT[name]}
+        row.update({k: v for k, v in c.items()
+                    if k not in ('err', 'ms', 'plain_ms', 'work',
+                                 'library_ms')})
+        table.append(row)
     log(f'phase 14 summary: {json.dumps(summary14)}')
+    log(f'phase 15 summary: {json.dumps(summary15)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

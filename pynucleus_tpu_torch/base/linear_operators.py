@@ -97,33 +97,48 @@ class Diagonal_LinearOperator(LinearOperator):
 
 # ------------------------------------------------------------------ K9 ----
 
+# the value types K9 takes: (data, x) -> the code of its C entry point
+_SPMV_TYPES = {(torch.float64, torch.float64): 0,
+               (torch.float64, torch.complex128): 1,
+               (torch.complex128, torch.complex128): 2}
+
+
 def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
     """y = A x (``accumulate``: y += A x) for the CSR matrix A given by
-    indptr [nRows+1], indices [nnz] int32 and data [nnz] float64; x
-    [nCols] float64.  Writes into ``out`` [nRows] when given, else into a
+    indptr [nRows+1], indices [nnz] int32 and data [nnz]; x [nCols].  data
+    and x are float64, or x is complex128 and data float64 or complex128
+    (a real prolongation applied to a complex vector, a complex operator);
+    y has x's type.  Writes into ``out`` [nRows] when given, else into a
     new vector (zero-filled first with ``accumulate``), and returns it.
 
-    Kernel K9 (kernels/csrc/csr_spmv.cu) on CUDA tensors, the plain version
-    on CPU tensors.  Replaces the gather + segment-sum of
+    Kernel K9 (kernels/csrc/csr_spmv.cu; the complex variant its
+    double2 instances) on CUDA tensors, the plain version on CPU tensors.
+    Replaces the gather + segment-sum of
     pynucleus_tpu/base/linear_operators.py:310 CSR_LinearOperator.matvec
     and, on the CSR of the transpose, :314 rmatvec."""
     nRows = indptr.shape[0] - 1
     dev = x.device
-    for t, dt in ((indptr, torch.int32), (indices, torch.int32),
-                  (data, torch.float64), (x, torch.float64)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
-                or t.dim() != 1:
-            raise ValueError(f'csr_spmv: expected a contiguous {dt} vector '
-                             f'on {dev}, got {t.dtype} {tuple(t.shape)} on '
-                             f'{t.device}')
+    types = _SPMV_TYPES.get((data.dtype, x.dtype))
+    if types is None:
+        raise ValueError(f'csr_spmv: data {data.dtype} and x {x.dtype}: '
+                         'expected float64 and float64, float64 and '
+                         'complex128, or complex128 and complex128')
+    for t in (indptr, indices, data, x):
+        if t.device != dev or not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(f'csr_spmv: expected contiguous vectors on '
+                             f'{dev}, got {tuple(t.shape)} on {t.device}')
+    for t in (indptr, indices):
+        if t.dtype != torch.int32:
+            raise ValueError(f'csr_spmv: expected int32 indptr and indices, '
+                             f'got {t.dtype}')
     if indices.shape != data.shape:
         raise ValueError('csr_spmv: indices and data differ in length')
     if out is None:
         out = (torch.zeros if accumulate else torch.empty)(
-            nRows, dtype=torch.float64, device=dev)
-    elif out.dtype != torch.float64 or out.shape != (nRows,) \
+            nRows, dtype=x.dtype, device=dev)
+    elif out.dtype != x.dtype or out.shape != (nRows,) \
             or not out.is_contiguous() or out.device != dev:
-        raise ValueError(f'csr_spmv: out must be a contiguous float64 '
+        raise ValueError(f'csr_spmv: out must be a contiguous {x.dtype} '
                          f'[{nRows}] on {dev}')
     if dev.type == 'cpu':
         _csr_spmv_plain(indptr, indices, data, x, out, accumulate)
@@ -132,12 +147,20 @@ def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
         raise ValueError(f'csr_spmv: unsupported device {dev}')
     if nRows == 0:
         return out
+    if types:
+        # complex values are read as double2: 16-byte aligned
+        for t in (data, x, out):
+            if t.is_complex() and t.data_ptr() % 16:
+                raise ValueError('csr_spmv: a complex128 vector not aligned '
+                                 'to 16 bytes')
     lib = kernels.library()
     kernels.launches['csr_spmv'] += 1
     kernels.deviceLaunches['csr_spmv'] += 1
+    if types:
+        kernels.launches['csr_spmv:complex'] += 1
     p = kernels.ptr
     kernels.check(lib.csr_spmv(p(out), p(indptr), p(indices), p(data), p(x),
-                               nRows, int(bool(accumulate)),
+                               nRows, int(bool(accumulate)), types,
                                kernels.stream()))
     return out
 
@@ -149,7 +172,7 @@ def _csr_spmv_plain(indptr, indices, data, x, out, accumulate=False):
     ip = indptr.long()
     rowids = torch.repeat_interleave(torch.arange(nRows, device=x.device),
                                      ip[1:] - ip[:-1])
-    y = torch.zeros(nRows, dtype=torch.float64, device=x.device)
+    y = torch.zeros(nRows, dtype=x.dtype, device=x.device)
     y.index_add_(0, rowids, data * x[indices.long()])
     if accumulate:
         out.add_(y)
@@ -160,7 +183,8 @@ def _csr_spmv_plain(indptr, indices, data, x, out, accumulate=False):
 
 class CSR_LinearOperator(LinearOperator):
     """CSR operator on the device: int32 ``indptr``/``indices`` and float64
-    ``data``, with host copies of the three arrays for set-up logic.
+    or complex128 ``data``, with host copies of the three arrays for set-up
+    logic.
 
     ``T`` is a second CSR_LinearOperator, of the transpose, built once on
     the host (scipy ``.T.tocsr()``) at the first use of ``T`` or
@@ -172,7 +196,8 @@ class CSR_LinearOperator(LinearOperator):
         dev = getDevice(device)
         self.indptrH = np.array(indptr, dtype=np.int32)
         self.indicesH = np.array(indices, dtype=np.int32)
-        self._dataH = np.array(data, dtype=np.float64)
+        self._dataH = np.array(data, dtype=np.complex128
+                               if np.iscomplexobj(data) else np.float64)
         self.num_rows = len(self.indptrH) - 1
         self.num_columns = int(num_columns) if num_columns is not None \
             else self.num_rows
@@ -184,8 +209,8 @@ class CSR_LinearOperator(LinearOperator):
     @classmethod
     def fromDevice(cls, indptr, indices, data, num_columns=None):
         """The operator of host indptr and indices and of ``data``, a
-        float64 tensor already on its device (assembled there); the host
-        copy of the data is made at its first use (``dataH``)."""
+        tensor already on its device (assembled there); the host copy of
+        the data is made at its first use (``dataH``)."""
         A = object.__new__(cls)
         dev = data.device
         A.indptrH = np.array(indptr, dtype=np.int32)
@@ -203,7 +228,7 @@ class CSR_LinearOperator(LinearOperator):
     @property
     def dataH(self):
         if self._dataH is None:
-            self._dataH = self.data.detach().cpu().numpy().astype(np.float64)
+            self._dataH = self.data.detach().cpu().numpy()
         return self._dataH
 
     @property
@@ -243,7 +268,7 @@ class CSR_LinearOperator(LinearOperator):
                              shape=self.shape)
 
     def toarray(self):
-        A = np.zeros(self.shape, dtype=np.float64)
+        A = np.zeros(self.shape, dtype=self.dataH.dtype)
         rows = np.repeat(np.arange(self.num_rows), np.diff(self.indptrH))
         np.add.at(A, (rows, self.indicesH), self.dataH)
         return A

@@ -3,7 +3,8 @@ kernels K4, K17 and K18.
 
 Port of lu_solver, jacobi_solver, cg_solver, gmres_solver,
 bicgstab_solver and solverFactory of pynucleus_tpu/base/solvers.py, for
-real float64 systems (the complex path is not ported).  The CG keeps
+real float64 systems, and for complex128 ones in GMRES (runHelmholtz; the
+complex branch of BiCGStab is not ported).  The CG keeps
 ``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
 (sqrt(r.r) with use2norm) against an absolute tolerance, the residual
 history, and the reference's iteration convention (the loop index at the
@@ -22,13 +23,14 @@ GMRES (``_gmres_cycle``, right-preconditioned, restarted) runs each
 Arnoldi step as ``z = M V[j]`` (into Z[j]), ``w = A z`` and one call of
 kernel K17 :func:`gmres_arnoldi` (modified Gram-Schmidt in the JAX
 package's order, the norm, V[j+1]); the host reads the Hessenberg column,
-applies the Givens rotations in float64 and stops at the JAX package's
-test, which is equivalent to its masking of the remaining steps.  The back
-substitution is host float64 and ``x0 + Z y`` is K17's
-:func:`gmres_combine`.  BiCGStab (``_bicgstab_core``) runs its vector work
-through kernel K18 :func:`bicgstab_update` around its two applies and two
-preconditioner applies, its scalars on the device; the host reads ||r||
-once per iteration.
+applies the complex-safe Givens rotations (the classical ones for real
+data) and stops at the JAX package's test, which is equivalent to its
+masking of the remaining steps.  The back substitution is on the host and
+``x0 + Z y`` is K17's :func:`gmres_combine`; a complex128 system runs
+K17's and the operators' complex variants.  BiCGStab (``_bicgstab_core``)
+runs its vector work through kernel K18 :func:`bicgstab_update` around its
+two applies and two preconditioner applies, its scalars on the device; the
+host reads ||r|| once per iteration.
 """
 from __future__ import annotations
 
@@ -156,40 +158,47 @@ def gmres_arnoldi(V, w, h, j, guard):
     """One Arnoldi step of GMRES, in place, after ``w = A z``: for i = 0..j
     (modified Gram-Schmidt, in this order)
 
-        h[i] = V[i].w;  w -= h[i] V[i]
+        h[i] = V[i]^H w;  w -= h[i] V[i]
 
     then h[j+1] = ||w|| and V[j+1] = w / h[j+1] where h[j+1] > guard, else
     w.  With j = -1 it starts a cycle: h[0] = ||w||, V[0] = w / h[0] where
-    h[0] > guard, else w.  V [restart+1, n] and w [n] float64 on one
-    device, h float64 [>= j+2], guard a float64 tensor [1] there (0 to
-    start a cycle, 1e-300 for a step, as the JAX package's guards).
+    h[0] > guard, else w.  V [restart+1, n], w [n] and h [>= j+2] on one
+    device, all float64 or all complex128 (the dot conjugates V[i], as
+    jnp.vdot); guard a float64 tensor [1] there (0 to start a cycle,
+    1e-300 for a step, as the JAX package's guards).
 
-    Kernel K17 (Triton, kernels/gmres_arnoldi.py) on CUDA tensors, the
-    plain version on CPU tensors.  Replaces the vector work of one step
-    of pynucleus_tpu/base/solvers.py:365 _gmres_cycle (lines 390-403)."""
+    Kernel K17 (Triton, kernels/gmres_arnoldi.py; its complex variant for
+    complex128) on CUDA tensors, the plain version on CPU tensors.
+    Replaces the vector work of one step of
+    pynucleus_tpu/base/solvers.py:365 _gmres_cycle (lines 390-403)."""
     _checkBasis('gmres_arnoldi', V, w, j + 2)
-    for t, k in ((h, j + 2), (guard, 1)):
-        if t.device != w.device or t.dtype != torch.float64 \
+    for t, k, dt in ((h, j + 2, w.dtype), (guard, 1, torch.float64)):
+        if t.device != w.device or t.dtype != dt \
                 or not t.is_contiguous() or t.dim() != 1 or t.shape[0] < k:
-            raise ValueError('gmres_arnoldi: h and guard must be float64 '
-                             f'vectors on {w.device}')
+            raise ValueError(f'gmres_arnoldi: h must be a {w.dtype} and '
+                             f'guard a float64 vector on {w.device}')
     if w.device.type == 'cpu':
         return _gmres_arnoldi_plain(V, w, h, j, guard)
     from ..kernels import gmres_arnoldi as k17
-    parts = torch.empty((2, -(-w.shape[0] // k17.BLOCK)), dtype=torch.float64,
-                        device=w.device)
+    # two rows of partial sums (a complex variant's: Re, then Im)
+    parts = torch.empty((2, (2 if w.is_complex() else 1)
+                         * -(-w.shape[0] // k17.BLOCK)),
+                        dtype=torch.float64, device=w.device)
     kernels.launches['gmres_arnoldi'] += 1
+    if w.is_complex():
+        kernels.launches['gmres_arnoldi:complex'] += 1
     kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_step(
         V, w, h, j, guard, parts)
 
 
 def _checkBasis(name, B, x, rows):
     n = x.shape[0]
+    dtype = x.dtype if x.dtype == torch.complex128 else torch.float64
     for t in (B, x):
-        if t.device != x.device or t.dtype != torch.float64 \
+        if t.device != x.device or t.dtype != dtype \
                 or not t.is_contiguous():
-            raise ValueError(f'{name}: float64 contiguous tensors on one '
-                             'device expected')
+            raise ValueError(f'{name}: contiguous tensors on one device, all '
+                             'float64 or all complex128, expected')
     if x.dim() != 1 or B.dim() != 2 or B.shape[1] != n or B.shape[0] < rows:
         raise ValueError(f'{name}: shape mismatch')
     if x.device.type not in ('cpu', 'cuda'):
@@ -199,10 +208,10 @@ def _checkBasis(name, B, x, rows):
 def _gmres_arnoldi_plain(V, w, h, j, guard):
     """Plain PyTorch version of :func:`gmres_arnoldi` (any device)."""
     for i in range(j + 1):
-        hi = torch.dot(V[i], w)
+        hi = torch.vdot(V[i], w)
         w.sub_(hi * V[i])
         h[i] = hi
-    nrm = torch.sqrt(torch.dot(w, w))
+    nrm = torch.sqrt(torch.vdot(w, w).real)
     V[j + 1] = torch.where(nrm > guard, w / nrm, w)
     h[j + 1] = nrm
 
@@ -210,18 +219,20 @@ def _gmres_arnoldi_plain(V, w, h, j, guard):
 def gmres_combine(x, B, y):
     """x += sum_k y[k] B[k] over the len(y) first rows of B, in place
     (x0 + Z y at the end of a GMRES cycle, Z the preconditioned basis or
-    V); y float64 on x's device.  Kernel K17's combine mode on CUDA
-    tensors, the plain version on CPU tensors.  Replaces ``Z.T @ y``
-    (pynucleus_tpu/base/solvers.py:450)."""
+    V); y of x's type (float64 or complex128) on x's device.  Kernel K17's
+    combine mode on CUDA tensors, the plain version on CPU tensors.
+    Replaces ``Z.T @ y`` (pynucleus_tpu/base/solvers.py:450)."""
     _checkBasis('gmres_combine', B, x, y.shape[0])
-    if y.device != x.device or y.dtype != torch.float64 or y.dim() != 1:
-        raise ValueError(f'gmres_combine: y must be float64 on {x.device}')
+    if y.device != x.device or y.dtype != x.dtype or y.dim() != 1:
+        raise ValueError(f'gmres_combine: y must be {x.dtype} on {x.device}')
     if x.device.type == 'cpu':
         return _gmres_combine_plain(x, B, y)
     if y.shape[0] == 0:
         return x
     from ..kernels import gmres_arnoldi as k17
     kernels.launches['gmres_arnoldi'] += 1
+    if x.is_complex():
+        kernels.launches['gmres_arnoldi:complex'] += 1
     kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_combine(
         x, B, y.contiguous())
     return x
@@ -432,7 +443,8 @@ class gmres_solver(krylov_solver):
     """Restarted GMRES (pynucleus_tpu/base/solvers.py:454): cycles of
     ``maxIter`` Arnoldi steps (the restart length), at most ``restarts``
     of them, right-preconditioned (flexible, Z kept) by ``prec``, from
-    x0 = 0 against an absolute tolerance.  ``residuals`` starts with
+    x0 = 0 against an absolute tolerance, in b's type (float64 or
+    complex128).  ``residuals`` starts with
     ||b - A x0|| and holds each step's Givens estimate; ``iterations`` is
     the number of steps, less one when converged; ``explicitResidual`` is
     ||b - A x|| at the end."""
@@ -444,13 +456,12 @@ class gmres_solver(krylov_solver):
         self.flexible = True
 
     def solve(self, b):
-        _realVector('gmres', b)
         A, M, tol = self.A, self.prec, self.tolerance
         restart = self.maxIter if self.maxIter > 0 else 20
         n, dev = b.shape[0], b.device
 
         def vec(*shape):
-            return torch.empty(shape, dtype=torch.float64, device=dev)
+            return torch.empty(shape, dtype=b.dtype, device=dev)
         x, w, Ax, h = vec(n).zero_(), vec(n), vec(n), vec(restart + 1)
         V = vec(restart + 1, n)
         Z = vec(restart, n) if M is not None else None
@@ -462,7 +473,7 @@ class gmres_solver(krylov_solver):
             A.matvec(x, out=Ax)
             torch.sub(b, Ax, out=w)
             gmres_arnoldi(V, w, h, -1, guards[:1])
-            beta = float(h[0])
+            beta = float(h[0].real)
             if residuals is None:
                 residuals = [beta]
             resnorm, k, hist = self._cycle(A, M, V, Z, w, h, guards[1:],
@@ -481,11 +492,15 @@ class gmres_solver(krylov_solver):
     @staticmethod
     def _cycle(A, M, V, Z, w, h, guard, beta, restart, tol, x):
         """The Arnoldi steps of one cycle from V[0] (x is x0, updated in
-        place); the Givens rotations of the Hessenberg columns (real case
-        of solvers.py:409-426) and the back substitution (:444-449) in
-        host float64.  Returns (resnorm, steps, the steps' residual
+        place); the complex-safe Givens rotations of the Hessenberg columns
+        (solvers.py:406-424: G = [[c, s], [-conj(s), conj(c)]] with
+        c = conj(a)/r, s = conj(b)/r, r = sqrt(|a|^2 + |b|^2), which for
+        real data is the classical rotation, operation for operation) and
+        the back substitution (:444-449) on the host, in float64 or
+        complex128 as h.  Returns (resnorm, steps, the steps' residual
         estimates)."""
-        H = np.zeros((restart + 1, restart))
+        H = np.zeros((restart + 1, restart),
+                     dtype=np.complex128 if h.is_complex() else np.float64)
         cs, sn = [1.0] * restart, [0.0] * restart
         g = [0.0] * (restart + 1)
         g[0] = beta
@@ -496,16 +511,21 @@ class gmres_solver(krylov_solver):
             z = V[j] if M is None else M.matvec(V[j], out=Z[j])
             A.matvec(z, out=w)
             gmres_arnoldi(V, w, h, j, guard)
+            # Python floats for real h, complex for complex h; conjugate()
+            # of a float is the float
             hc = h[:j + 2].tolist()
             for i in range(j):
                 hi = cs[i] * hc[i] + sn[i] * hc[i + 1]
-                hc[i + 1] = -sn[i] * hc[i] + cs[i] * hc[i + 1]
+                hc[i + 1] = -sn[i].conjugate() * hc[i] \
+                    + cs[i].conjugate() * hc[i + 1]
                 hc[i] = hi
-            denom = np.sqrt(hc[j] * hc[j] + hc[j + 1] * hc[j + 1])
-            c = hc[j] / denom if denom > 0 else 1.0
-            s_ = hc[j + 1] / denom if denom > 0 else 0.0
+            a, b_ = hc[j], hc[j + 1]
+            denom = np.sqrt((a.real * a.real + a.imag * a.imag)
+                            + (b_.real * b_.real + b_.imag * b_.imag))
+            c = a.conjugate() / denom if denom > 0 else 1.0
+            s_ = b_.conjugate() / denom if denom > 0 else 0.0
             hc[j], hc[j + 1] = denom, 0.0
-            g[j + 1] = -s_ * g[j]
+            g[j + 1] = -s_.conjugate() * g[j]
             g[j] = c * g[j]
             H[:j + 2, j] = hc
             cs[j], sn[j] = c, s_
@@ -514,7 +534,8 @@ class gmres_solver(krylov_solver):
             k = j + 1
         if k > 0:
             from scipy.linalg import solve_triangular
-            y = solve_triangular(H[:k, :k], np.asarray(g[:k]), lower=False)
+            y = solve_triangular(H[:k, :k], np.asarray(g[:k], dtype=H.dtype),
+                                 lower=False)
             gmres_combine(x, V if M is None else Z,
                           torch.as_tensor(y, device=x.device))
         return resnorm, k, hist

@@ -8,8 +8,11 @@ the nnz slot of every local entry.  The sum of the local values into CSR
 data runs on the dofmap's device: kernel K16 :func:`csr_scatter` replaces
 scatterToCSR's segment sum.  It reads the contributions in an order the
 host makes once per dofmap (:func:`scatterPlan`): the kept ones sorted by
-slot, stably, with each slot's range in ``offsets``.  The load vector is a
-host sum, as in the JAX package.
+slot, stably, with each slot's range in ``offsets``.  The load vector
+(complex for a complex right-hand side), the boundary mass matrix and the
+boundary load vector (assembleSurfaceMass, assembleSurfaceRHS: the
+impedance condition of runHelmholtz) are host sums, as in the JAX
+package.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ from .dofmaps import DoFMap, fe_vector
 from .quadrature import simplexDuffy
 
 __all__ = ['assembleMass', 'assembleStiffness', 'localStiffness',
-           'assembleRHS', 'buildSparsityPattern', 'scatterPlan',
-           'scatterToCSR', 'csr_scatter']
+           'assembleRHS', 'assembleSurfaceMass', 'assembleSurfaceRHS',
+           'buildSparsityPattern', 'scatterPlan', 'scatterToCSR',
+           'csr_scatter']
 
 
 def _geometry(mesh):
@@ -249,8 +253,9 @@ def localStiffness(dm: DoFMap):
 
 
 def assembleRHS(dm: DoFMap, fun, qOrder=None):
-    """Load vector b_i = int f phi_i, on the dofmap's device.  The default
-    quadrature orders are the JAX package's (1D P1 -> 3, 2D P1 -> 2)."""
+    """Load vector b_i = int f phi_i, on the dofmap's device, complex128
+    for a complex f, else float64.  The default quadrature orders are the
+    JAX package's (1D P1 -> 3, 2D P1 -> 2)."""
     mesh = dm.mesh
     m = mesh.manifold_dim
     if qOrder is None:
@@ -262,8 +267,105 @@ def assembleRHS(dm: DoFMap, fun, qOrder=None):
     fvals = np.asarray(fun(X.reshape(-1, mesh.dim))).reshape(X.shape[:2])
     vol, _ = _geometry(mesh)
     bloc = np.einsum('c,q,cq,iq->ci', vol, w, fvals, PHI)
-    b = np.zeros(dm.num_dofs, dtype=REAL)
+    b = np.zeros(dm.num_dofs,
+                 dtype=np.complex128 if np.iscomplexobj(fvals) else REAL)
     d = dm.dofs
     mask = d >= 0
     np.add.at(b, d[mask], bloc[mask])
     return fe_vector(torch.as_tensor(b, device=dm.device), dm)
+
+
+# -------------------------------------------------- the physical boundary --
+
+def _vertexDofMap(dm: DoFMap):
+    """vertex id -> volume dof (interior >= 0; boundary < 0): P1 keeps the
+    vertex dofs in the leading local slots."""
+    nv = dm.mesh.manifold_dim + 1
+    vdof = np.full(dm.mesh.num_vertices, np.iinfo(np.int64).min,
+                   dtype=np.int64)
+    vdof[dm.mesh.cells[:, :nv].reshape(-1)] = dm.dofs[:, :nv].reshape(-1)
+    return vdof
+
+
+def _boundaryFacets(mesh):
+    """The boundary facets: vertices [F, 1] of an interval, edges [F, 2]
+    of a 2D mesh (the port has no 3D mesh)."""
+    m = mesh.manifold_dim
+    if m == 1:
+        return mesh.boundaryVertices.reshape(-1, 1)
+    if m == 2:
+        return mesh.boundaryEdges
+    raise NotImplementedError(f'boundary facets of a {m}D mesh')
+
+
+def assembleSurfaceMass(dm: DoFMap, facets=None):
+    """Boundary mass matrix MB_ij = int_{boundary} phi_i phi_j over the
+    physical boundary facets, in volume dof numbering (P1), as a scipy CSR
+    matrix on the host.  Port of pynucleus_tpu/fem/assembly.py:363."""
+    assert dm.polynomialOrder == 1, 'surface mass implemented for P1'
+    mesh = dm.mesh
+    m = mesh.manifold_dim
+    if facets is None:
+        facets = _boundaryFacets(mesh)
+    vdof = _vertexDofMap(dm)
+    N = dm.num_dofs
+    if m == 1:
+        # the boundary of an interval: point masses
+        ii = vdof[facets.reshape(-1)]
+        ii = ii[ii >= 0]
+        return sp.coo_matrix((np.ones(len(ii)), (ii, ii)),
+                             shape=(N, N)).tocsr()
+    if m != 2:
+        raise NotImplementedError(f'surface mass of a {m}D mesh')
+    V = mesh.vertices[facets]                     # [F, m, dim]
+    meas = np.linalg.norm(V[:, 1] - V[:, 0], axis=1)
+    loc = np.array([[2.0, 1.0], [1.0, 2.0]]) / 6.0
+    dr = vdof[facets]                             # [F, m]
+    rows, cols, vals = [], [], []
+    for a in range(facets.shape[1]):
+        for b_ in range(facets.shape[1]):
+            r, c = dr[:, a], dr[:, b_]
+            keep = (r >= 0) & (c >= 0)
+            rows.append(r[keep])
+            cols.append(c[keep])
+            vals.append(meas[keep] * loc[a, b_])
+    return sp.coo_matrix((np.concatenate(vals),
+                          (np.concatenate(rows), np.concatenate(cols))),
+                         shape=(N, N)).tocsr()
+
+
+def assembleSurfaceRHS(dm: DoFMap, fun, facets=None, qOrder=3):
+    """Boundary load vector b_i = int_{boundary} g phi_i (P1; g evaluated
+    one point at a time, complex values kept) as a complex128 host array.
+    Port of pynucleus_tpu/fem/assembly.py:404."""
+    assert dm.polynomialOrder == 1
+    mesh = dm.mesh
+    m = mesh.manifold_dim
+    if facets is None:
+        facets = _boundaryFacets(mesh)
+    vdof = _vertexDofMap(dm)
+    b = np.zeros(dm.num_dofs, dtype=np.complex128)
+
+    def ev(x):
+        return complex(np.asarray(fun(x)).ravel()[0])
+
+    if m == 1:
+        for v in facets.reshape(-1):
+            i = vdof[v]
+            if i >= 0:
+                b[i] += ev(mesh.vertices[v])
+        return b
+    if m != 2:
+        raise NotImplementedError(f'surface load of a {m}D mesh')
+    bary, w = simplexDuffy(qOrder, m - 1)         # facet simplex
+    V = mesh.vertices[facets]                     # [F, m, dim]
+    X = np.einsum('qk,fkd->fqd', bary, V)
+    gv = np.asarray([ev(x) for x in X.reshape(-1, mesh.dim)],
+                    dtype=np.complex128).reshape(X.shape[0], X.shape[1])
+    meas = np.linalg.norm(V[:, 1] - V[:, 0], axis=1)
+    # P1 facet shape functions = barycentric coordinates
+    bloc = np.einsum('f,q,fq,qk->fk', meas, w, gv, bary)
+    dr = vdof[facets]
+    keep = dr >= 0
+    np.add.at(b, dr[keep], bloc[keep])
+    return b

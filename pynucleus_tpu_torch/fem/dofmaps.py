@@ -48,7 +48,11 @@ class DoFMap:
         return coords
 
     def interpolate(self, fun):
-        vals = np.asarray(fun(self.getDoFCoordinates()), dtype=np.float64)
+        """The function's values at the dof nodes: complex128 for a
+        complex function, else float64."""
+        vals = np.asarray(fun(self.getDoFCoordinates()))
+        if not np.iscomplexobj(vals):
+            vals = vals.astype(np.float64)
         return fe_vector(torch.as_tensor(vals, device=self.device), self)
 
     def getComplementDoFMap(self):

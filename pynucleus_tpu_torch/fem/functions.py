@@ -83,13 +83,17 @@ class constant(function):
 
 
 class Lambda(function):
-    """Wrap a per-point python callable f(x) with x [dim]."""
+    """Wrap a per-point python callable f(x) with x [dim]; complex values
+    stay complex (complex128), others are float64."""
 
     def __init__(self, fun):
         self.fun = fun
 
     def eval(self, X):
-        return np.array([self.fun(x) for x in X], dtype=np.float64)
+        vals = np.array([self.fun(x) for x in X])
+        if np.iscomplexobj(vals):
+            return vals.astype(np.complex128)
+        return vals.astype(np.float64)
 
 
 class squareIndicator(function):

@@ -12,8 +12,9 @@ H2Matrix, so that its apply can be checked on its own; ``csrFromArrays``
 builds the port's CSR operator, such as a JAX package prolongation, so
 that a multigrid cycle can run on operators identical to the JAX
 package's; ``csrHierarchyFromArrays`` builds a level list of CSR
-operators and prolongations, such as a JAX package stiffness hierarchy,
-for the port's multigrid and Krylov solvers; ``denseVectorFromArrays``
+operators and prolongations, such as a JAX package stiffness hierarchy or
+a complex-shifted Helmholtz one (complex128 data), for the port's
+multigrid and Krylov solvers; ``denseVectorFromArrays``
 builds the port's dense vector operator from the data of one, such as a
 JAX package Dense_VectorLinearOperator, so that its apply can be checked on
 its own.  Like every entry point of the port they build on the card
@@ -138,7 +139,8 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
 
 def csrFromArrays(indptr, indices, data, shape, device='cuda'):
     """The port's CSR_LinearOperator of shape (rows, columns) from the CSR
-    arrays indptr [rows+1], indices and data [nnz]."""
+    arrays indptr [rows+1], indices and data [nnz] (float64, or complex128
+    for complex data, such as a complex-shifted Helmholtz level)."""
     if len(indptr) != shape[0] + 1:
         raise ValueError('csrFromArrays: indptr must have rows + 1 entries')
     return CSR_LinearOperator(indptr, indices, data, num_columns=shape[1],
@@ -149,7 +151,8 @@ def csrHierarchyFromArrays(As, Ps, device='cuda'):
     """The port's level list [{'A'}, {'A', 'P', 'R'}, ...], coarse to fine,
     from CSR arrays: As[l] and Ps[l] (l >= 1; Ps[0] is ignored) each a
     tuple (indptr, indices, data, shape) as for :func:`csrFromArrays`; R is
-    the CSR of P's transpose."""
+    the CSR of P's transpose.  The operators keep their data's type: real
+    prolongations between complex128 levels make a complex hierarchy."""
     hierarchy = []
     for lvl, A in enumerate(As):
         entry = {'A': csrFromArrays(*A, device=device)}

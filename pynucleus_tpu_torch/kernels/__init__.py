@@ -23,9 +23,11 @@ Twenty-three kernels carry the port's device work:
   K8 h2_matvec      (csrc/h2_matvec.cu)      H2 apply (a sequence of
                     launches per call)
   K9 csr_spmv       (csrc/csr_spmv.cu)       CSR apply y = A x or y += A x
-                    (multigrid prolongation and restriction)
+                    (multigrid prolongation and restriction); float64,
+                    and complex128 x with float64 or complex128 data
   K10 jacobi_smooth (jacobi_smooth.py,       damped-Jacobi vector pass of
-                    Triton)                  the V-cycle, three modes
+                    Triton)                  the V-cycle, three modes;
+                                             float64 or complex128
   K11 block_near_count (csrc/near_block.cu)  H2 block near-field engine:
                     element counts per cluster pair and order class
   K12 block_near_quad (csrc/near_block.cu)   H2 block near-field engine:
@@ -41,7 +43,8 @@ Twenty-three kernels carry the port's device work:
                     over its host-sorted contributions
   K17 gmres_arnoldi (gmres_arnoldi.py,       GMRES: one Arnoldi step's
                     Triton)                  modified Gram-Schmidt and
-                                             normalisation; x += Z y
+                                             normalisation; x += Z y;
+                                             float64 or complex128
   K18 bicgstab_update (bicgstab_update.py,   BiCGStab's vector passes
                     Triton)                  around its applies
   K19 panel_scatter_nonsym                   nonsymmetric local matrices of
@@ -94,7 +97,10 @@ scatter targets are also counted apart, under ``panel_scatter:dense``,
 ``:slots``, ``:tree`` and ``:cross``, K19's two under
 ``panel_scatter_nonsym:dense`` and ``:slots``, K4's two forms under
 ``pcg_update:jacobi`` and ``:general``, and K23's under
-``vector_matvec:apply`` and ``:transposed``.  ``deviceLaunches`` counts, per
+``vector_matvec:apply`` and ``:transposed``, and the complex128 variants
+of K9, K10 and K17 (their own template instances and Triton kernels) also
+under ``csr_spmv:complex``, ``jacobi_smooth:complex`` and
+``gmres_arnoldi:complex``.  ``deviceLaunches`` counts, per
 kernel, the CUDA launches those calls made: one per call, except for K2
 (two), K4 (three in the Jacobi form, four in the general form), K8 (one
 per pass that has work, as the C entry point reports: at most 2 nLvl + 2
@@ -129,8 +135,10 @@ K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
 K19_TARGETS = ('panel_scatter_nonsym:dense', 'panel_scatter_nonsym:slots')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
 K23_FORMS = ('vector_matvec:apply', 'vector_matvec:transposed')
+COMPLEX = ('csr_spmv:complex', 'jacobi_smooth:complex',
+           'gmres_arnoldi:complex')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS}
+            + K23_FORMS + COMPLEX}
 deviceLaunches = {k: 0 for k in KERNELS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -310,8 +318,9 @@ def _declare(lib):
         'h2_matvec_T': [P, P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P,
                         P, P, P, P, P, P, P, I, P, P, P, L,
                         ctypes.POINTER(ctypes.c_int), P],
-        # y, indptr, indices, data, x, nRows, accumulate, stream
-        'csr_spmv': [P, P, P, P, P, I, I, P],
+        # y, indptr, indices, data, x, nRows, accumulate, value types
+        # (0 float64, 1 float64 data and complex128 x, 2 complex128), stream
+        'csr_spmv': [P, P, P, P, P, I, I, I, P],
         # data, vals, order, offsets, nnz, stream
         'csr_scatter': [P, P, P, P, I, P],
     }

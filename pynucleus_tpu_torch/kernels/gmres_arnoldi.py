@@ -25,6 +25,14 @@ another program of the same launch still reads.  Bound on the card:
 memory (step j reads and writes w j+2 times and reads each V[i] once, no
 reuse between the dependent launches) plus j+3 launches.
 
+The complex variant (complex128 V, w, h and y: runHelmholtz's GMRES) is
+a second set of the same four kernels.  Triton has no complex type: they
+read the float64 views [n, 2] (re at 2 i, im at 2 i + 1) and write the
+complex products out by hand.  A dot V[i]^H w (conjugated, as jnp.vdot)
+is two real partial sums per program, of Re and of Im, kept in the two
+halves of a row of partials and reduced in the same order as the real
+ones; the norm sums |w|^2; the combine takes complex y.
+
 ``triton`` is imported inside the launching functions, so that this
 module imports on machines without it.
 """
@@ -101,23 +109,121 @@ def _build():
         x = tl.load(x_ptr + offs, mask=m, other=0.0)
         tl.store(x_ptr + offs, x + acc, mask=m)
 
-    return _dot_kernel, _mgs_kernel, _normalize_kernel, _combine_kernel
+    # ---- the complex variant: float64 views, re at 2 i, im at 2 i + 1;
+    # a row of partials holds the Re sums in [0, nparts), the Im sums in
+    # [nparts, 2 nparts)
+
+    @triton.jit
+    def _dot_complex_kernel(a_ptr, b_ptr, part_ptr, n, nparts,
+                            BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        ar = tl.load(a_ptr + 2 * offs, mask=m, other=0.0)
+        ai = tl.load(a_ptr + 2 * offs + 1, mask=m, other=0.0)
+        br = tl.load(b_ptr + 2 * offs, mask=m, other=0.0)
+        bi = tl.load(b_ptr + 2 * offs + 1, mask=m, other=0.0)
+        tl.store(part_ptr + pid, tl.sum(ar * br + ai * bi, axis=0))
+        tl.store(part_ptr + nparts + pid, tl.sum(ar * bi - ai * br, axis=0))
+
+    @triton.jit(do_not_specialize=['i'])
+    def _mgs_complex_kernel(w_ptr, vi_ptr, vnext_ptr, partin_ptr,
+                            partout_ptr, h_ptr, i, n, nparts,
+                            LAST: tl.constexpr, BLOCK: tl.constexpr,
+                            NPART: tl.constexpr):
+        pid = tl.program_id(0)
+        k = tl.arange(0, NPART)
+        hr = tl.sum(tl.load(partin_ptr + k, mask=k < nparts, other=0.0),
+                    axis=0)
+        hi = tl.sum(tl.load(partin_ptr + nparts + k, mask=k < nparts,
+                            other=0.0), axis=0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        wr = tl.load(w_ptr + 2 * offs, mask=m, other=0.0)
+        wi = tl.load(w_ptr + 2 * offs + 1, mask=m, other=0.0)
+        vr = tl.load(vi_ptr + 2 * offs, mask=m, other=0.0)
+        vi = tl.load(vi_ptr + 2 * offs + 1, mask=m, other=0.0)
+        wr = wr - (hr * vr - hi * vi)
+        wi = wi - (hr * vi + hi * vr)
+        tl.store(w_ptr + 2 * offs, wr, mask=m)
+        tl.store(w_ptr + 2 * offs + 1, wi, mask=m)
+        if LAST:
+            tl.store(partout_ptr + pid, tl.sum(wr * wr + wi * wi, axis=0))
+            tl.store(partout_ptr + nparts + pid, 0.0)
+        else:
+            nr = tl.load(vnext_ptr + 2 * offs, mask=m, other=0.0)
+            ni = tl.load(vnext_ptr + 2 * offs + 1, mask=m, other=0.0)
+            tl.store(partout_ptr + pid, tl.sum(nr * wr + ni * wi, axis=0))
+            tl.store(partout_ptr + nparts + pid,
+                     tl.sum(nr * wi - ni * wr, axis=0))
+        if pid == 0:
+            tl.store(h_ptr + 2 * i, hr)
+            tl.store(h_ptr + 2 * i + 1, hi)
+
+    @triton.jit(do_not_specialize=['slot'])
+    def _normalize_complex_kernel(w_ptr, out_ptr, partin_ptr, h_ptr,
+                                  guard_ptr, slot, n, nparts,
+                                  BLOCK: tl.constexpr, NPART: tl.constexpr):
+        pid = tl.program_id(0)
+        k = tl.arange(0, NPART)
+        nrm = tl.sqrt(tl.sum(tl.load(partin_ptr + k, mask=k < nparts,
+                                     other=0.0), axis=0))
+        guard = tl.load(guard_ptr)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        wr = tl.load(w_ptr + 2 * offs, mask=m, other=0.0)
+        wi = tl.load(w_ptr + 2 * offs + 1, mask=m, other=0.0)
+        keep = nrm > guard
+        tl.store(out_ptr + 2 * offs, tl.where(keep, wr / nrm, wr), mask=m)
+        tl.store(out_ptr + 2 * offs + 1, tl.where(keep, wi / nrm, wi),
+                 mask=m)
+        if pid == 0:
+            tl.store(h_ptr + 2 * slot, nrm)
+            tl.store(h_ptr + 2 * slot + 1, 0.0)
+
+    @triton.jit
+    def _combine_complex_kernel(x_ptr, b_ptr, y_ptr, nvec, n,
+                                BLOCK: tl.constexpr):
+        pid = tl.program_id(0)
+        offs = pid * BLOCK + tl.arange(0, BLOCK)
+        m = offs < n
+        accr = tl.zeros((BLOCK,), dtype=tl.float64)
+        acci = tl.zeros((BLOCK,), dtype=tl.float64)
+        for kk in range(0, nvec):
+            row = b_ptr + kk.to(tl.int64) * (2 * n)
+            yr = tl.load(y_ptr + 2 * kk)
+            yi = tl.load(y_ptr + 2 * kk + 1)
+            br = tl.load(row + 2 * offs, mask=m, other=0.0)
+            bi = tl.load(row + 2 * offs + 1, mask=m, other=0.0)
+            accr += yr * br - yi * bi
+            acci += yr * bi + yi * br
+        xr = tl.load(x_ptr + 2 * offs, mask=m, other=0.0)
+        xi = tl.load(x_ptr + 2 * offs + 1, mask=m, other=0.0)
+        tl.store(x_ptr + 2 * offs, xr + accr, mask=m)
+        tl.store(x_ptr + 2 * offs + 1, xi + acci, mask=m)
+
+    return ((_dot_kernel, _mgs_kernel, _normalize_kernel, _combine_kernel),
+            (_dot_complex_kernel, _mgs_complex_kernel,
+             _normalize_complex_kernel, _combine_complex_kernel))
 
 
-def _kernelsAndGrid(n):
+def _kernelsAndGrid(n, isComplex=False):
     global _kernels
     import triton
     if _kernels is None:
         _kernels = _build()
     nparts = triton.cdiv(n, BLOCK)
-    return _kernels, nparts, triton.next_power_of_2(nparts)
+    return _kernels[int(isComplex)], nparts, triton.next_power_of_2(nparts)
 
 
 def launch_step(V, w, h, j, guard, parts):
     """Step j >= 0 (MGS of w against V[0..j], then V[j+1]), or the start
     of a cycle for j = -1 (V[0] = w / ||w||), on the current stream;
-    ``parts`` is float64 scratch [2, nparts], nparts = cdiv(n, BLOCK).
-    Returns the number of launches."""
+    ``parts`` is float64 scratch [2, nparts] (complex128 V, w and h:
+    [2, 2 nparts]), nparts = cdiv(n, BLOCK).  Returns the number of
+    launches."""
+    if w.is_complex():
+        return _launch_step_complex(V, w, h, j, guard, parts)
     n = w.shape[0]
     (dot_k, mgs_k, norm_k, _), nparts, NPART = _kernelsAndGrid(n)
     grid = (nparts,)
@@ -132,9 +238,31 @@ def launch_step(V, w, h, j, guard, parts):
     return j + 3 if j >= 0 else 2
 
 
+def _launch_step_complex(V, w, h, j, guard, parts):
+    """:func:`launch_step` of the complex variant, on the float64 views."""
+    import torch
+    n = w.shape[0]
+    (dot_k, mgs_k, norm_k, _), nparts, NPART = _kernelsAndGrid(n, True)
+    grid = (nparts,)
+    V, w, h = (torch.view_as_real(t) for t in (V, w, h))
+    dot_k[grid](w if j < 0 else V[0], w, parts[0], n, nparts, BLOCK=BLOCK)
+    for i in range(j + 1):
+        last = i == j
+        mgs_k[grid](w, V[i], w if last else V[i + 1], parts[i % 2],
+                    parts[(i + 1) % 2], h, i, n, nparts, LAST=last,
+                    BLOCK=BLOCK, NPART=NPART)
+    norm_k[grid](w, V[j + 1], parts[(j + 1) % 2], h, guard, j + 1, n, nparts,
+                 BLOCK=BLOCK, NPART=NPART)
+    return j + 3 if j >= 0 else 2
+
+
 def launch_combine(x, B, y):
-    """x += sum_k y[k] B[k] over the len(y) rows of B; returns 1."""
+    """x += sum_k y[k] B[k] over the len(y) rows of B (the complex variant
+    for complex128 x, B and y); returns 1."""
+    import torch
     n = x.shape[0]
-    (_, _, _, comb_k), nparts, _ = _kernelsAndGrid(n)
+    (_, _, _, comb_k), nparts, _ = _kernelsAndGrid(n, x.is_complex())
+    if x.is_complex():
+        x, B, y = (torch.view_as_real(t) for t in (x, B, y))
     comb_k[(nparts,)](x, B, y, y.shape[0], n, BLOCK=BLOCK)
     return 1

@@ -19,7 +19,11 @@ host walks the levels and each step is a launch on the level's device:
                                    lu_solve there, a library LU too)
 
 Every level keeps its work vectors, made at set-up (FMG's at its first
-use), so a cycle allocates only the coarsest level's solution.  FMG
+use), so a cycle allocates only the coarsest level's solution.  Complex
+levels (complex128 operators with float64 prolongations, runHelmholtz's
+complex-shifted Laplacian) run the same steps on complex128 vectors:
+K9's and K10's complex variants, a complex inverse diagonal and a complex
+coarse LU.  FMG
 composes the same steps: the chain of P^T (K9), the coarse LU, then per
 level P (K9), the residual (the level's matvec and K10) and a cycle.  Not
 ported (ROADMAP A9): the Chebyshev and ILU smoothers and ``_mg_solve``.
@@ -112,9 +116,11 @@ def jacobi_smooth(mode, x, b, Ax=None, Dinv=None, omega=None):
         'residual'  x = b - Ax
         'update'    x = x + omega * (Dinv * (b - Ax))
 
-    float64 vectors [n] on one device; ``omega`` a float64 tensor [1]
-    there.  Kernel K10 (Triton, kernels/jacobi_smooth.py) on CUDA tensors,
-    the plain version on CPU tensors.  Replaces the Jacobi arithmetic of
+    vectors [n] on one device, all float64 or all complex128 (the
+    complex-shifted Laplacian's levels); ``omega`` a float64 tensor [1]
+    there.  Kernel K10 (Triton, kernels/jacobi_smooth.py; its complex
+    variant for complex128) on CUDA tensors, the plain version on CPU
+    tensors.  Replaces the Jacobi arithmetic of
     pynucleus_tpu/multilevel/gmg.py:_vcycle (lines 216-218, 220,
     235-236)."""
     if mode not in _K10_MODES:
@@ -122,11 +128,13 @@ def jacobi_smooth(mode, x, b, Ax=None, Dinv=None, omega=None):
     n = x.shape[0]
     need = {'zero': (b, Dinv), 'residual': (b, Ax),
             'update': (b, Ax, Dinv)}[mode]
+    dtype = x.dtype if x.dtype == torch.complex128 else torch.float64
     for t in (x,) + need:
-        if t is None or t.dtype != torch.float64 or t.shape != (n,) \
+        if t is None or t.dtype != dtype or t.shape != (n,) \
                 or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f'jacobi_smooth ({mode}): contiguous float64 '
-                             f'vectors [{n}] on {x.device} expected')
+            raise ValueError(f'jacobi_smooth ({mode}): contiguous {dtype} '
+                             f'vectors [{n}] on {x.device} expected (all '
+                             'float64 or all complex128)')
     if mode != 'residual' and (omega is None or omega.shape != (1,)
                                or omega.dtype != torch.float64
                                or omega.device != x.device):
@@ -141,6 +149,8 @@ def jacobi_smooth(mode, x, b, Ax=None, Dinv=None, omega=None):
     from ..kernels import jacobi_smooth as k10
     kernels.launches['jacobi_smooth'] += 1
     kernels.deviceLaunches['jacobi_smooth'] += 1
+    if x.is_complex():
+        kernels.launches['jacobi_smooth:complex'] += 1
     k10.launch(k10.MODES[mode], x, b, b if Ax is None else Ax,
                b if Dinv is None else Dinv, b if omega is None else omega)
     return x
@@ -190,6 +200,8 @@ class _mgLevels:
                  preSteps=1, postSteps=1):
         self.As, self.Ps, self.Dinvs = As, Ps, Dinvs
         self.dev = As[-1].device
+        # the levels' value type: complex128 for complex operators
+        self.dtype = Dinvs[-1].dtype
         self.omegaT = torch.tensor([omega], dtype=torch.float64,
                                    device=self.dev)
         self.preSteps, self.postSteps = preSteps, postSteps
@@ -202,7 +214,7 @@ class _mgLevels:
         self._fmg = None
 
     def _vec(self, k):
-        return torch.empty(k, dtype=torch.float64, device=self.dev)
+        return torch.empty(k, dtype=self.dtype, device=self.dev)
 
     def fmgWork(self):
         """FMG's vectors of every level below the finest (its right-hand
@@ -325,8 +337,11 @@ class multigrid(iterative_solver):
             As.append(A_)
             Ps.append(lvl.get('P', None) if lvlNo > 0 else None)
             Dinvs.append((1.0 / A_.diagonal).contiguous())
-        A0 = torch.as_tensor(levels[0]['A'].toarray(), dtype=torch.float64,
-                             device=As[-1].device)
+        # a complex coarse matrix keeps its type (the complex-shifted
+        # Laplacian's levels): the LU is complex then
+        A0 = torch.as_tensor(levels[0]['A'].toarray(), device=As[-1].device)
+        if not A0.is_complex():
+            A0 = A0.to(torch.float64)
         lu, piv = torch.linalg.lu_factor(A0)
         self.levels = _mgLevels(As, Ps, Dinvs, lu, piv, omega, pre, post)
         self.initialized = True
