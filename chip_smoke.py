@@ -136,19 +136,37 @@ result line):
      finest A, P and P^T on complex vectors; n 66,049; one GMRES cycle of
      10 steps and the combine), with torch.sparse, torch.sub and
      torch.addmv beside them.
+ 16. the complex Greens kernels (nonlocalBuilder with greens2D, lambda
+     -3j, on the square, P1, Dirichlet; complex128 throughout): at noRef 5
+     (961 dofs), infinite horizon and horizon 0.45 (ball2), getDense,
+     getDiagonal, GMRES and BiCGStab against the JAX package's pinned
+     outputs (||A||_F, trace, ||A v|| and A v[:4] to 1e-11 relative; GMRES
+     iterations equal and ||x|| to 1e-8; BiCGStab iterations +-1 and ||x||
+     to 1e-6); then the full-width lines, noRef 6 (8,192 cells, 3,969
+     dofs; each horizon a path): the host classification (seconds, peak
+     host memory), getDense and getDiagonal, both solves to a relative
+     residual below 1e-7, getDiagonal against diag(A) to 1e-10, the dense
+     apply and the peak device memory; the device time per kernel of a
+     second build under torch.profiler, during which the calls of K1's
+     complex dense and diagonal targets and of K15's complex variant are
+     recorded; then those and K18's complex variant (10 iterations on the
+     horizon-0.45 operator) against their plain versions at these shapes.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
 against their plain versions.
 The last lines are the kernel table (JSON: per kernel, and per complex
-variant of K9, K10 and K17, its launches on the main paths and the CUDA
+variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18, its
+launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
 could take for the same work and what bounds it, and the time of one
 PyTorch library call computing the same function where there is one),
 the card's name and power limit, and {"ok": true, "device": {...}}.
 """
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -527,13 +545,16 @@ def record_h2_build(build, names=H2_BUILD, largestOnly=False):
     return H, recs
 
 
-def compare_target_kernel(name, calls, kernel, plain, work):
+def compare_target_kernel(name, calls, kernel, plain, work, dtype=None,
+                          csr=True):
     """Recorded calls of a kernel that adds into its first argument
-    (recorded by its shape: dense A, A_BC or CSR data [nnz+1]) through the
-    kernel and through the plain version, the calls of one shape all into
-    one zero tensor each way (after an untimed warm-up call of each); CSR
-    data compared on its nnz real slots.  Returns the result() with
-    ``work(args)`` of each call's recorded args."""
+    (recorded by its shape: dense A, A_BC or CSR data [nnz+1]; with
+    ``csr=False`` a vector target is the diagonal [N]) through the kernel
+    and through the plain version, the calls of one shape all into one zero
+    tensor of ``dtype`` (float64 by default) each way (after an untimed
+    warm-up call of each); CSR data compared on its nnz real slots.
+    Returns the result() with ``work(args)`` of each call's recorded
+    args."""
     import torch
     byShape = {}
     for c in calls:
@@ -541,7 +562,7 @@ def compare_target_kernel(name, calls, kernel, plain, work):
     dev = next(a.device for a in calls[0][0] if isinstance(a, torch.Tensor))
     worst_abs = worst_rel = ms = plain_ms = 0.0
     for shape, group in byShape.items():
-        Dk = torch.zeros(shape, dtype=torch.float64, device=dev)
+        Dk = torch.zeros(shape, dtype=dtype or torch.float64, device=dev)
         Dp = torch.zeros_like(Dk)
         (_, *args0), kw0 = group[0]
         kernel(torch.zeros_like(Dk), *args0, **kw0)
@@ -549,7 +570,7 @@ def compare_target_kernel(name, calls, kernel, plain, work):
         for (_, *args), kw in group:
             ms += timed(lambda: kernel(Dk, *args, **kw))
             plain_ms += timed(lambda: plain(Dp, *args, **kw))
-        if len(shape) == 1:
+        if len(shape) == 1 and csr:
             Dk, Dp = Dk[:-1], Dp[:-1]
         err = float((Dk - Dp).abs().max())
         scale = float(Dp.abs().max())
@@ -1420,20 +1441,28 @@ def run_nonlocal_path(argv, path):
 def cut1d_work(args):
     """K14 on recorded args (shape, target, index, vertices, vi1, vi2,
     vols1, tq, wq, ur, wr, horizon, profile): every (x, y) node product of
-    every pair; inputs read once, the 16 entries of a pair read and
-    written once."""
+    every pair; inputs read once, the 16 entries of a pair (4 for the
+    diagonal target, whose nodes need 4 of the 10 multiply-adds) read and
+    written once, at most the whole target."""
     P = args[4].shape[0]
     Q = args[7].shape[0] * args[9].shape[0]
-    return (nbytes(args[2:]) + 16 * 16 * P, CUT1D_NODE_OPS * P * Q, F64_PEAK)
+    diag = args[1] == 'diag'
+    ops = (CUT1D_NODE_OPS - (12 if diag else 0)) * P * Q
+    touched = min((4 if diag else 16) * P, math.prod(args[0]))
+    return (nbytes(args[2:]) + 16 * touched, ops, F64_PEAK)
 
 
-def cut2d_work(args):
+def cut2d_work(args, cplx=False):
     """K15 on recorded args (shape, target, index, vertices, vi1, vi2,
     vols1, bary_x, wx, thetas, wtheta, rq, wr, horizon, inter, profile): the
     window of every x node, every ray, and the radial nodes of the rays
     that hit the cell in this run's data (counted by the plain version's
-    ray part, chunked); inputs read once, the 36 entries of a pair read
-    and written once."""
+    ray part, chunked), with the 21 sums of the triangle at each (the 6 of
+    the diagonal for the diagonal target); inputs read once, the 36
+    entries of a pair (6 for the diagonal target) read and written once,
+    at most the whole target, however many pairs share them.  ``cplx``:
+    the complex variant, with the Bessel pair and complex sums at each
+    radial node, and complex entries (16 B)."""
     import pynucleus_tpu_torch.nl.assembly as asm
     (vertices, vi1, vi2, bary_x, thetas, wtheta, horizon,
      inter) = args[3], args[4], args[5], args[7], args[9], args[10], \
@@ -1445,9 +1474,15 @@ def cut2d_work(args):
                               wtheta, horizon, inter)[-1]
         rays += hits.numel()
         hitRays += int(hits.sum())
+    diag = args[1] == 'diag'
+    # the node's 21 multiply-adds (42 operations), twice as many complex
+    sums = 6 if diag else 21
+    node = CUT2D_NODE_OPS - 42 + (4 if cplx else 2) * sums \
+        + (BESSEL_OPS if cplx else 0)
     ops = CUT2D_XNODE_OPS * P * Qx + CUT2D_RAY_OPS * rays \
-        + CUT2D_NODE_OPS * hitRays * Qr
-    return (nbytes(args[2:]) + 16 * 36 * P, ops, F64_PEAK)
+        + node * hitRays * Qr
+    touched = min((6 if diag else 36) * P, math.prod(args[0]))
+    return (nbytes(args[2:]) + (32 if cplx else 16) * touched, ops, F64_PEAK)
 
 
 def phase10():
@@ -1818,20 +1853,23 @@ def compare_bicgstab_update(A, b, iters=10):
     (no preconditioner): each of its calls made by the kernel and by the
     plain version on copies of the same state (the iteration goes on from
     the kernel's), vectors and scalars compared to 1e-12 of their largest
-    entry and timed with CUDA events.  Returns the result() per
-    ``iters`` iterations."""
+    entry and timed with CUDA events.  In b's type: float64, or complex128
+    (K18's complex variant).  Returns the result() per ``iters``
+    iterations."""
     import torch
     from pynucleus_tpu_torch.base import solvers as S
     x = torch.zeros_like(b)
     r, r0 = b.clone(), b.clone()
     p, v, s, t = (torch.zeros_like(b) for _ in range(4))
-    scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=torch.float64,
+    scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=b.dtype,
                         device='cuda')
     n = b.shape[0]
     # inputs read and outputs written once: direction r0, r, p, v -> p;
-    # step r0, v, r -> s; update t, s, x, p -> x, r (ph = p, sh = s)
+    # step r0, v, r -> s; update t, s, x, p -> x, r (ph = p, sh = s); a
+    # complex multiply-add is four real ones
     nvec = {'direction': 5, 'step': 4, 'update': 6}
     nops = {'direction': 9, 'step': 4, 'update': 10}
+    cops = 4 if b.is_complex() else 1
     worst = ms = plain_ms = worstScal = 0.0
     work = []
     for it in range(iters):
@@ -1855,10 +1893,12 @@ def compare_bicgstab_update(A, b, iters=10):
                                      f'err {err}, scalars {serr}')
             worst = max(worst, err)
             worstScal = max(worstScal, serr)
-            work.append((8 * n * nvec[mode], nops[mode] * n, F64_PEAK))
-    log(f'  bicgstab_update: {iters} iterations on n {n}, max abs err '
-        f'{worst:.3e} (scalars: relative {worstScal:.2e}), kernel {ms:.4f} '
-        f'ms, plain {plain_ms:.4f} ms (||r|| {float(scal[4]):.3e})')
+            work.append((b.element_size() * n * nvec[mode],
+                         cops * nops[mode] * n, F64_PEAK))
+    log(f'  bicgstab_update ({b.dtype}): {iters} iterations on n {n}, max '
+        f'abs err {worst:.3e} (scalars: relative {worstScal:.2e}), kernel '
+        f'{ms:.4f} ms, plain {plain_ms:.4f} ms (||r|| '
+        f'{float(scal[4].real):.3e})')
     return result(worst, ms, plain_ms, work)
 
 
@@ -3298,11 +3338,6 @@ JAX_HELMHOLTZ = {
 TOL_HELMHOLTZ = 1e-6
 HELMHOLTZ_PATH = ('csr_scatter', 'csr_spmv:complex', 'jacobi_smooth:complex',
                   'gmres_arnoldi:complex')
-COMPLEX_INFO = {
-    'csr_spmv:complex': KERNEL_INFO['csr_spmv'],
-    'jacobi_smooth:complex': KERNEL_INFO['jacobi_smooth'],
-    'gmres_arnoldi:complex': KERNEL_INFO['gmres_arnoldi'],
-}
 COMPLEX_COMPARED_AT = {
     'csr_spmv:complex': 'the Helmholtz square (66,049 dofs): the finest '
                         'complex operator A and the real P and P^T of '
@@ -3428,6 +3463,421 @@ def phase15():
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 16
+
+# JAX package outputs for the complex Greens systems on the square
+# (meshFactory('square', N=2) refined 5 times, 961 dofs; greens2D, lambda
+# -3j, scaling 1), printed by scripts/pin_greens_jax.py on the CPU in
+# float64: ||A||_F, trace A, ||A v|| and A v[:4] (v = N(0,1) + i N(0,1),
+# numpy default_rng(7)), and GMRES and BiCGStab (tolerance 1e-9, maxIter
+# 300) on the load of tests/test_complex_kernels.py:141-142
+JAX_GREENS = {
+    'inf': {'dofs': 961, 'fro': 0.017148733378131668,
+            'trace': (-0.1996025187744821, 0.4318465882786291),
+            'Av_norm': 0.02391375953153697,
+            'Av4': ((-0.0001876123313067591, -0.0004192064420527932),
+                    (0.00013280403542498774, 0.0008050107885264486),
+                    (0.0005752650481650249, 0.0001495315473655878),
+                    (-0.00010084342913958057, -0.0006196227313100392)),
+            'gmres': (42, 789154.0701518062),
+            'bicgstab': (25, 789154.0701518168)},
+    'h045': {'dofs': 961, 'fro': 0.011623362445326814,
+             'trace': (0.0468629091511512, 0.3199937792067557),
+             'Av_norm': 0.016258680351081498,
+             'Av4': ((-0.00017623989913001054, 1.6861195206688755e-05),
+                     (0.0003326299218922338, 5.112392581751349e-05),
+                     (0.00032325576086731956, -0.00011435915510595168),
+                     (-0.00028936039917827334, -0.00020228157284510228)),
+             'gmres': (38, 1508777.0006265915),
+             'bicgstab': (22, 1508777.0006265831)},
+}
+GREENS_LAMBDA = -3.0j
+GREENS_HORIZONS = (('inf', float('inf')), ('h045', 0.45))
+GREENS_PIN_NOREF = 5
+GREENS_NOREF = 6
+# the pinned operator numbers to 1e-11 relative; GMRES iterations equal and
+# ||x|| to 1e-8, BiCGStab iterations +-1 and ||x|| to 1e-6 (its residual
+# jumps); on the full-width line relative residuals below 1e-7
+# (tests/test_complex_kernels.py:147) and getDiagonal = diag(A) to 1e-10
+# (:94)
+TOL_GREENS_PIN = 1e-11
+TOL_GREENS_X = {'gmres': 1e-8, 'bicgstab': 1e-6}
+TOL_GREENS_RES = 1e-7
+TOL_GREENS_DIAG = 1e-10
+GREENS_SOLVERS = ('gmres', 'bicgstab')
+GREENS_PATH = ('panel_scatter:complex', 'panel_scatter:complex_diag',
+               'gmres_arnoldi:complex', 'bicgstab_update:complex')
+GREENS_PATHS = {'inf': GREENS_PATH,
+                'h045': GREENS_PATH + ('cut2d_polar:complex',)}
+# operations of the A&S Bessel pair at one node (a branch's two rational
+# polynomials and its log, or cos, sin and sqrt, each counted as one) and
+# of greens2D around it
+BESSEL_OPS = 40
+GREENS_COMPARED_AT = {
+    'panel_scatter:complex': f'the Greens square at noRef {GREENS_NOREF} '
+                             '(3,969 dofs, infinite horizon): the largest '
+                             'call of getDense (dense target)',
+    'panel_scatter:complex_diag': f'the Greens square at noRef '
+                                  f'{GREENS_NOREF}, infinite horizon: the '
+                                  'largest call of getDiagonal (diagonal '
+                                  'target)',
+    'cut2d_polar:complex': f'the Greens square at noRef {GREENS_NOREF}, '
+                           'horizon 0.45: every call of getDense (dense '
+                           'target) and getDiagonal (diagonal target)',
+    'bicgstab_update:complex': f'the Greens square at noRef {GREENS_NOREF}, '
+                               'horizon 0.45: 10 iterations on the dense '
+                               'operator',
+}
+
+
+def greens_square(noRef, horizon):
+    """(dm, kernel) of the Greens square on the card: uniformSquare(N=2)
+    refined noRef times, P1 with Dirichlet dofs, greens2D of
+    GREENS_LAMBDA."""
+    from pynucleus_tpu_torch.fem.meshes import uniformSquare
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.nl.kernels import getComplexKernel
+    mesh = uniformSquare(N=2)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    return P1_DoFMap(mesh, device='cuda'), getComplexKernel(
+        2, greensLambda=GREENS_LAMBDA, horizon=horizon, scaling=1.0)
+
+
+def greens_load(n):
+    """The load of tests/test_complex_kernels.py:141-142 on the card."""
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.RandomState(0).rand(n)
+                           + 1j * np.random.RandomState(1).rand(n),
+                           device='cuda')
+
+
+def greens_solves(A, b):
+    """GMRES and BiCGStab (no preconditioner, tolerance 1e-9, maxIter 300)
+    on A x = b: {name: (iterations, x, seconds, relative residual)}."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    out = {}
+    for name in GREENS_SOLVERS:
+        s = solverFactory.build(name, A=A, setup=True)
+        s.tolerance, s.maxIter = 1e-9, 300
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res = float(torch.linalg.norm(A.matvec(x) - b)
+                    / torch.linalg.norm(b))
+        out[name] = (s.iterations, x, secs, res)
+    return out
+
+
+def check_greens_pins(label, A, d, solves):
+    """The noRef 5 operator and solves against the pinned JAX outputs."""
+    import numpy as np
+    import torch
+    ref = JAX_GREENS[label]
+    n = A.num_rows
+    rng = np.random.default_rng(7)
+    v = torch.as_tensor(rng.standard_normal(n)
+                        + 1j * rng.standard_normal(n), device='cuda')
+    Av = A.matvec(v).cpu().numpy()
+    tr = complex(torch.trace(A.data))
+    got = {'fro': float(torch.linalg.norm(A.data)),
+           'Av_norm': float(np.linalg.norm(Av))}
+    bad = []
+    if n != ref['dofs']:
+        bad.append(f'dofs {n}')
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    rel['trace'] = abs(tr - complex(*ref['trace'])) / abs(complex(
+        *ref['trace']))
+    av4 = np.array([complex(*z) for z in ref['Av4']])
+    rel['Av4'] = float(np.abs(Av[:4] - av4).max() / np.abs(av4).max())
+    bad += [f'{k} {v:.2e}' for k, v in rel.items() if not v <= TOL_GREENS_PIN]
+    derr = float((d.diagonal - torch.diagonal(A.data)).abs().max()
+                 / torch.diagonal(A.data).abs().max())
+    if not derr <= TOL_GREENS_DIAG:
+        bad.append(f'getDiagonal vs diag(A) {derr:.2e}')
+    its = {}
+    for name, (it, x, _, res) in solves.items():
+        refIt, refNorm = ref[name]
+        xn = float(torch.linalg.norm(x))
+        rel[f'{name}_x_norm'] = abs(xn - refNorm) / refNorm
+        its[name] = it
+        if (it != refIt if name == 'gmres' else abs(it - refIt) > 1) \
+                or not rel[f'{name}_x_norm'] <= TOL_GREENS_X[name] \
+                or not res <= TOL_GREENS_RES:
+            bad.append(f'{name}: {it} iterations (JAX {refIt}), ||x|| {xn} '
+                       f'(JAX {refNorm}), residual {res:.2e}')
+    log(f'  {label} noRef {GREENS_PIN_NOREF}: iterations {its}, relative to '
+        f'JAX {json.dumps(rel)}; diag(A) {derr:.2e}')
+    if bad:
+        raise AssertionError(f'Greens square {label}: ' + '; '.join(bad))
+    return rel
+
+
+def greens_line(label, horizon, noRef):
+    """The full-width line of one horizon: the host classification (timed,
+    its peak host memory by tracemalloc), getDense and getDiagonal (timed
+    to a synchronize), GMRES and BiCGStab, the dense apply (CUDA events
+    over 10).  Returns (summary, A, b)."""
+    import tracemalloc
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = greens_square(noRef, horizon)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = nonlocalBuilder(dm, kernel)
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    info = b._classifyAll()
+    tClass = time.perf_counter() - t0
+    hostPeak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    t0 = time.perf_counter()
+    A = b.getDense()
+    torch.cuda.synchronize()
+    tDense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d = b.getDiagonal()
+    torch.cuda.synchronize()
+    tDiag = time.perf_counter() - t0
+    n = A.num_rows
+    rhs = greens_load(n)
+    solves = greens_solves(A, rhs)
+    x = torch.empty_like(rhs)
+    apply_ms = timed(lambda: [A.matvec(rhs, out=x) for _ in range(10)]) / 10
+    peak = torch.cuda.max_memory_allocated()
+    derr = float((d.diagonal - torch.diagonal(A.data)).abs().max()
+                 / torch.diagonal(A.data).abs().max())
+    ci, cj, _ = info['cut']
+    summary = {
+        'noRef': noRef, 'cells': dm.mesh.num_cells, 'dofs': n,
+        'pairs': {'identical': len(info['id']),
+                  'touching': len(info['touching'][0]),
+                  'distant': len(info['distant'][0]), 'cut': len(ci)},
+        'classification_s': tClass,
+        'classification_peak_host_GiB': hostPeak / 2 ** 30,
+        'getDense_s': tDense, 'getDiagonal_s': tDiag,
+        'solves': {k: {'iterations': it, 'seconds': secs,
+                       'relative_residual': res,
+                       'x_norm': float(torch.linalg.norm(xs))}
+                   for k, (it, xs, secs, res) in solves.items()},
+        'apply_ms': apply_ms, 'peak_device_GiB': peak / 2 ** 30,
+        'diag_vs_A': derr}
+    bad = [f'{k} residual {v[3]:.2e}' for k, v in solves.items()
+           if not v[3] <= TOL_GREENS_RES]
+    if not derr <= TOL_GREENS_DIAG:
+        bad.append(f'getDiagonal vs diag(A) {derr:.2e}')
+    if not bool(torch.isfinite(torch.view_as_real(A.data)).all()):
+        bad.append('non-finite entries')
+    if bad:
+        raise AssertionError(f'Greens square {label} noRef {noRef}: '
+                             + '; '.join(bad))
+    log(f'  {label} noRef {noRef}: {json.dumps(summary)}')
+    return summary, (b, A, rhs)
+
+
+def greens_device_ms(b):
+    """Device milliseconds per kernel of a second getDense and getDiagonal
+    of the builder b (its classification kept), under torch.profiler."""
+    import torch
+    from torch.profiler import profile, ProfilerActivity
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b.getDense()
+        b.getDiagonal()
+        torch.cuda.synchronize()
+    dev = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, 'device_time_total', None)
+        if t is None:
+            t = getattr(ev, 'cuda_time_total', 0)
+        if t and ev.device_type.name == 'CUDA':
+            dev[ev.key[:48]] = dev.get(ev.key[:48], 0.0) + t / 1e3
+    return dict(sorted(dev.items(), key=lambda kv: -kv[1])[:6])
+
+
+def panel_work_dof(args, cplx=False):
+    """K1's dense or diagonal target on recorded args (shape, vertices,
+    vi1, vi2, dofRows, volsym, normals (None), bary_x, bary_y, w, PSIP,
+    profile), counting in this run's data the entries the target takes
+    (dense: both dofs >= 0; diagonal: row dof = column dof >= 0): per pair
+    with such an entry and node the positions, r^2 and the profile (one
+    pow, exp or erfc; ``cplx``: the Bessel pair and greens2D), per entry
+    and node a multiply-add (complex: 4 operations); inputs read once, the
+    entries (complex: 16 B) read and written once, at most the whole
+    target, however many pairs share them."""
+    shape, vertices, vi1, vi2, dofRows = args[:5]
+    Q, dim = args[-3].shape[0], vertices.shape[1]
+    r, c = dofRows[:, :, None], dofRows[:, None, :]
+    takes = (r >= 0) & (c >= 0) if len(shape) == 2 else (r >= 0) & (r == c)
+    perPair = takes.sum((1, 2))
+    entries, pairs = int(perPair.sum()), int((perPair > 0).sum())
+    ops = Q * (pairs * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim
+                        + (BESSEL_OPS if cplx else 3))
+               + (4 if cplx else 2) * entries)
+    return (nbytes(args[1:]) + (32 if cplx else 16)
+            * min(entries, math.prod(shape)), ops, F64_PEAK)
+
+
+# getDiagonal of a real kernel of a finite horizon (the constant kernel of
+# order 0.75 with the ball2 indicator), whose per-pair path runs K1's,
+# K14's and K15's real diagonal targets: (dimension, noRef, horizon)
+REAL_DIAG_LINES = ((1, 5, 0.2), (2, 3, 0.45))
+REAL_DIAG_COMPARED_AT = {
+    'panel_scatter': 'the real diagonal target: getDiagonal of the constant '
+                     'kernel (s 0.75, ball2) on the interval at noRef 5 '
+                     '(horizon 0.2) and the square at noRef 3 (horizon '
+                     '0.45), all calls',
+    'cut1d': 'the real diagonal target: getDiagonal of the constant kernel '
+             'on the interval at noRef 5 (horizon 0.2), all calls',
+    'cut2d_polar': 'the real diagonal target: getDiagonal of the constant '
+                   'kernel on the square at noRef 3 (horizon 0.45), all '
+                   'calls',
+}
+
+
+def check_real_diagonals():
+    """The real diagonal targets of K1, K14 and K15 on the lines of
+    REAL_DIAG_LINES: each getDiagonal against diag(getDense) (to
+    TOL_GREENS_DIAG), each kernel's recorded calls against its plain
+    version.  Returns {kernel: result()}."""
+    import contextlib
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval, uniformSquare
+    from pynucleus_tpu_torch.interop import fromArrays
+    names = {'panel_scatter': 'panel_scatter_diag', 'cut1d': 'cut1d',
+             'cut2d_polar': 'cut2d_polar'}
+    calls = {k: [] for k in names}
+    for dim, noRef, horizon in REAL_DIAG_LINES:
+        mesh = simpleInterval(-1.0, 1.0) if dim == 1 else uniformSquare(N=2)
+        for _ in range(noRef):
+            mesh = mesh.refine()
+        _, dm, kernel = fromArrays(
+            np.asarray(mesh.vertices), np.asarray(mesh.cells), 0.75, dim,
+            device='cuda', kernelType='constant', horizon=horizon)
+        b = asm.nonlocalBuilder(dm, kernel)
+        with contextlib.ExitStack() as stack:
+            recs = {k: stack.enter_context(ArgRecorder(asm, n, dataFirst=True))
+                    for k, n in names.items()}
+            d = b.getDiagonal().diagonal
+        for k, rec in recs.items():
+            calls[k] += [c for c in rec.calls if k == 'panel_scatter'
+                         or c[0][1] == 'diag']
+        dA = torch.diagonal(b.getDense().data)
+        err = float((d - dA).abs().max() / dA.abs().max())
+        log(f'  real getDiagonal, dim {dim} noRef {noRef} horizon '
+            f'{horizon}: {d.numel()} dofs, vs diag(getDense) {err:.2e}')
+        if not err <= TOL_GREENS_DIAG:
+            raise AssertionError(f'real getDiagonal dim {dim}: {err:.2e} '
+                                 'from diag(getDense)')
+    work = {'panel_scatter': panel_work_dof, 'cut1d': cut1d_work,
+            'cut2d_polar': cut2d_work}
+    out = {}
+    for k, n in names.items():
+        if not calls[k]:
+            raise AssertionError(f'{n}: getDiagonal made no call of its '
+                                 'diagonal target')
+        out[k] = compare_target_kernel(
+            f'{n} (real, diagonal target)', calls[k], getattr(asm, n),
+            getattr(asm, f'_{n}_plain'), work[k], csr=False)
+    return out
+
+
+# the size of a recorded K1 call: pairs x nodes
+def _k1_size(A, V, vi1, vi2, *a, **k):
+    return vi1.shape[0] * a[-3].shape[0]
+
+
+def phase16():
+    """The complex Greens kernels: noRef 5 against the pinned JAX outputs
+    (both horizons), the full-width lines at noRef 6 (each a path), then K1's
+    complex dense and diagonal targets, K15's and K18's complex variants
+    against their plain versions at those shapes; the real diagonal targets
+    of K1, K14 and K15 (check_real_diagonals).  Returns the launch counts,
+    the comparisons of the complex variants and of the real diagonal
+    targets, and a summary."""
+    import contextlib
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    log('phase 16: the complex Greens kernels (greens2D, lambda -3j, '
+        'complex128)')
+    summary = {'pins': {}}
+    for label, hor in GREENS_HORIZONS:
+        dm, kernel = greens_square(GREENS_PIN_NOREF, hor)
+        b = nonlocalBuilder(dm, kernel)
+        A, d = b.getDense(), b.getDiagonal()
+        summary['pins'][label] = check_greens_pins(
+            label, A, d, greens_solves(A, greens_load(A.num_rows)))
+        del A, d, b
+    counts, lines = {}, {}
+    for label, hor in GREENS_HORIZONS:
+        (summary[label], lines[label]), counts[label] = count_path(
+            f'Greens {label} noRef {GREENS_NOREF}', GREENS_PATHS[label],
+            lambda: greens_line(label, hor, GREENS_NOREF))
+        for k in ('panel_scatter', 'bicgstab_update', 'gmres_arnoldi',
+                  'cut2d_polar'):
+            # every launch of these paths is a complex one
+            real = counts[label][k] - sum(counts[label][c]
+                                          for c in kernels.COMPLEX
+                                          if c.split(':')[0] == k)
+            if real:
+                raise AssertionError(f'{k}: {real} real launches on the '
+                                     f'Greens path {label}')
+        summary[label]['launches'] = {k: counts[label][k]
+                                      for k in GREENS_PATHS[label]}
+    # a second getDense and getDiagonal of each line (its classification
+    # kept) under torch.profiler, with the calls of its complex kernels
+    # recorded for the comparisons below
+    recorded = {}
+    for label, names in (('inf', ('panel_scatter', 'panel_scatter_diag')),
+                         ('h045', ('cut2d_polar',))):
+        with contextlib.ExitStack() as stack:
+            recs = {n: stack.enter_context(ArgRecorder(
+                asm, n, dataFirst=True,
+                size=None if n == 'cut2d_polar' else _k1_size))
+                for n in names}
+            summary[label]['device_ms_by_kernel'] = greens_device_ms(
+                lines[label][0])
+        recorded.update(recs)
+        log(f"  {label}: launches {summary[label]['launches']}; device ms "
+            f"{json.dumps(summary[label]['device_ms_by_kernel'])} (a second "
+            'getDense and getDiagonal under torch.profiler)')
+    log('  complex kernels against their plain versions at the noRef '
+        f'{GREENS_NOREF} shapes')
+    cmp = {'panel_scatter:complex': compare_target_kernel(
+        'panel_scatter (complex, dense)', recorded['panel_scatter'].calls,
+        asm.panel_scatter, asm._panel_scatter_plain,
+        functools.partial(panel_work_dof, cplx=True),
+        dtype=torch.complex128)}
+    cmp['panel_scatter:complex_diag'] = compare_target_kernel(
+        'panel_scatter_diag (complex)', recorded['panel_scatter_diag'].calls,
+        asm.panel_scatter_diag, asm._panel_scatter_diag_plain,
+        functools.partial(panel_work_dof, cplx=True),
+        dtype=torch.complex128, csr=False)
+    cutCalls = recorded['cut2d_polar'].calls
+    cmp['cut2d_polar:complex'] = merge(*(compare_target_kernel(
+        f'cut2d_polar (complex, {t})',
+        [c for c in cutCalls if c[0][1] == t], asm.cut2d_polar,
+        asm._cut2d_polar_plain, functools.partial(cut2d_work, cplx=True),
+        dtype=torch.complex128,
+        csr=False) for t in ('dense', 'diag')))
+    _, A, rhs = lines['h045']
+    cmp['bicgstab_update:complex'] = compare_bicgstab_update(A, rhs)
+    del lines, recorded, cutCalls, A, rhs
+    torch.cuda.empty_cache()
+    log('  the real diagonal targets of K1, K14 and K15')
+    diag = check_real_diagonals()
+    log(f'phase 16 summary: {json.dumps(summary)}')
+    return counts, cmp, diag, summary
+
+
 def main():
     try:
         import torch
@@ -3472,6 +3922,7 @@ def main():
     counts13, cmp13, summary13 = phase13()
     counts14, cmp14, prof14, summary14 = phase14()
     counts15, cmp15, summary15 = phase15()
+    counts16, cmp16, diag16, summary16 = phase16()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -3545,36 +3996,25 @@ def main():
         row.update({k: v for k, v in c.items()
                     if k not in ('err', 'ms', 'plain_ms', 'work',
                                  'library_ms')})
-        if name in cmp12:
-            # the same kernel with the gaussian and exponential profiles at
-            # the smooth lines' shapes and, for K1, K4-K12, at the noRef 16
-            # line's
-            c12 = cmp12[name]
-            ims, iby = bound(c12['work'])
-            row['at_interval'] = {
-                'max_abs_err': c12['err'], 'ms': c12['ms'],
-                'plain_ms': c12['plain_ms'], 'bound_ms': ims,
-                'bound_by': iby, 'library_ms': c12['library_ms'],
-                'compared_at': INTERVAL_COMPARED_AT}
-        if name in cmp13:
-            # K1 and K7 with the variable orders' codes (and K1's y shift),
-            # K8, K9, K10 and K17 at the shapes of the gmres-mg H2 line
-            c13 = cmp13[name]
-            vms, vby = bound(c13['work'])
-            row['at_varorder'] = {
-                'max_abs_err': c13['err'], 'ms': c13['ms'],
-                'plain_ms': c13['plain_ms'], 'bound_ms': vms,
-                'bound_by': vby, 'library_ms': c13['library_ms'],
-                'compared_at': VO_COMPARED_AT[name]}
-        if name in prof14:
-            # the power-log profile of the s-derivatives of a constant order
-            c14 = prof14[name]
-            dms, dby = bound(c14['work'])
-            row['at_derivative'] = {
-                'max_abs_err': c14['err'], 'ms': c14['ms'],
-                'plain_ms': c14['plain_ms'], 'bound_ms': dms,
-                'bound_by': dby, 'library_ms': c14['library_ms'],
-                'compared_at': DERIV_COMPARED_AT[name]}
+        # the same kernel at other shapes: with the gaussian and exponential
+        # profiles at the smooth lines' shapes and, for K1, K4-K12, at the
+        # noRef 16 line's; K1 and K7 with the variable orders' codes (and
+        # K1's y shift), K8, K9, K10 and K17 at the shapes of the gmres-mg
+        # H2 line; with the power-log profile of the s-derivatives of a
+        # constant order; K1's, K14's and K15's real diagonal targets
+        for key, cX, at in (
+                ('at_interval', cmp12, INTERVAL_COMPARED_AT),
+                ('at_varorder', cmp13, VO_COMPARED_AT),
+                ('at_derivative', prof14, DERIV_COMPARED_AT),
+                ('at_diagonal', diag16, REAL_DIAG_COMPARED_AT)):
+            if name in cX:
+                cx = cX[name]
+                xms, xby = bound(cx['work'])
+                row[key] = {
+                    'max_abs_err': cx['err'], 'ms': cx['ms'],
+                    'plain_ms': cx['plain_ms'], 'bound_ms': xms,
+                    'bound_by': xby, 'library_ms': cx['library_ms'],
+                    'compared_at': at if isinstance(at, str) else at[name]}
         split = {'panel_scatter': ('launches_by_target', kernels.K1_TARGETS),
                  'panel_scatter_nonsym': ('launches_by_target',
                                           kernels.K19_TARGETS),
@@ -3585,32 +4025,42 @@ def main():
             row[key] = {t.split(':')[1]: sum(counts[t] for *_, counts in paths)
                         for t in names}
         table.append(row)
-    # the complex variants of K9, K10 and K17 on the Helmholtz paths (every
-    # K9, K10 and K17 launch there is a complex one, phase 15 checks)
+    # the complex variants: of K9, K10 and K17 on the Helmholtz paths, of
+    # K1 (dense and diagonal targets), K15 and K18 on the Greens lines
+    # (every launch of these kernels there is a complex one, phases 15 and
+    # 16 check); the CUDA launches of a variant are its share of its
+    # kernel's
     helmholtz = (('interval_wave', 'helmholtz_interval_wave_noRef7'),
                  ('interval_greens', 'helmholtz_interval_greens_noRef7'),
                  ('square', 'helmholtz_square_wave_noRef8'))
-    for name in kernels.COMPLEX:
-        route, src, replaces = COMPLEX_INFO[name]
-        c = cmp15[name]
-        bms, by = bound(c['work'])
-        byPath = {label: counts15[key][name] for key, label in helmholtz}
-        row = {'name': name, 'route': route, 'source': src,
-               'replaces': replaces, 'launches': sum(byPath.values()),
-               'max_abs_err': c['err'], 'ms': c['ms'],
-               'plain_ms': c['plain_ms'], 'bound_ms': bms, 'bound_by': by,
-               'library_ms': c['library_ms'],
-               'launches_by_path': byPath,
-               'device_launches': sum(
-                   counts15[key]['device'][name.split(':')[0]]
-                   for key, _ in helmholtz),
-               'compared_at': COMPLEX_COMPARED_AT[name]}
-        row.update({k: v for k, v in c.items()
-                    if k not in ('err', 'ms', 'plain_ms', 'work',
-                                 'library_ms')})
-        table.append(row)
+    greens = (('inf', f'greens_inf_noRef{GREENS_NOREF}'),
+              ('h045', f'greens_h045_noRef{GREENS_NOREF}'))
+    for cmpX, countsX, lines, comparedAt in (
+            (cmp15, counts15, helmholtz, COMPLEX_COMPARED_AT),
+            (cmp16, counts16, greens, GREENS_COMPARED_AT)):
+        for name in comparedAt:
+            base = name.split(':')[0]
+            route, src, replaces = KERNEL_INFO[base]
+            c = cmpX[name]
+            bms, by = bound(c['work'])
+            byPath = {label: countsX[key][name] for key, label in lines}
+            device = sum(countsX[key]['device'][base] * countsX[key][name]
+                         // countsX[key][base]
+                         for key, _ in lines if countsX[key][base])
+            row = {'name': name, 'route': route, 'source': src,
+                   'replaces': replaces, 'launches': sum(byPath.values()),
+                   'max_abs_err': c['err'], 'ms': c['ms'],
+                   'plain_ms': c['plain_ms'], 'bound_ms': bms, 'bound_by': by,
+                   'library_ms': c['library_ms'],
+                   'launches_by_path': byPath, 'device_launches': device,
+                   'compared_at': comparedAt[name]}
+            row.update({k: v for k, v in c.items()
+                        if k not in ('err', 'ms', 'plain_ms', 'work',
+                                     'library_ms')})
+            table.append(row)
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
+    log(f'phase 16 summary: {json.dumps(summary16)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

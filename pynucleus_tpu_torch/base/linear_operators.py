@@ -5,7 +5,8 @@ Port of Dense_LinearOperator, Diagonal_LinearOperator, CSR_LinearOperator,
 VectorLinearOperator, Dense_VectorLinearOperator and
 H2_VectorLinearOperator of pynucleus_tpu/base/linear_operators.py.  The
 dense matvec is ``torch.mv``: the plain large product the JAX package
-leaves to XLA (``A.data @ x``).  The CSR matvec is kernel K9
+leaves to XLA (``A.data @ x``); the dense and diagonal operators take
+float64 or complex128 data (the complex Greens operators).  The CSR matvec is kernel K9
 :func:`csr_spmv`, the dense vector operator's apply and transposed apply
 kernel K23 :func:`vector_matvec`.  Every scalar operator's ``matvec(x,
 out=None)`` writes into ``out`` when given (the CG loop and the V-cycle

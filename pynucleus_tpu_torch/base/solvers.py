@@ -3,8 +3,8 @@ kernels K4, K17 and K18.
 
 Port of lu_solver, jacobi_solver, cg_solver, gmres_solver,
 bicgstab_solver and solverFactory of pynucleus_tpu/base/solvers.py, for
-real float64 systems, and for complex128 ones in GMRES (runHelmholtz; the
-complex branch of BiCGStab is not ported).  The CG keeps
+real float64 systems, and for complex128 ones in LU, GMRES (runHelmholtz)
+and BiCGStab (the complex Greens operators).  The CG keeps
 ``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
 (sqrt(r.r) with use2norm) against an absolute tolerance, the residual
 history, and the reference's iteration convention (the loop index at the
@@ -30,7 +30,8 @@ masking of the remaining steps.  The back substitution is on the host and
 K17's and the operators' complex variants.  BiCGStab (``_bicgstab_core``)
 runs its vector work through kernel K18 :func:`bicgstab_update` around its
 two applies and two preconditioner applies, its scalars on the device; the
-host reads ||r|| once per iteration.
+host reads ||r|| once per iteration; a complex128 system runs K18's
+complex variant, whose dots conjugate their first argument (jnp.vdot).
 """
 from __future__ import annotations
 
@@ -264,21 +265,25 @@ def bicgstab_update(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
                      x += alpha ph + omega sh;  r = s - omega t;
                      scal[3] = omega
 
-    float64 vectors [n] on one device (ph may be p and sh s, without a
-    preconditioner); scal float64 [5] there, starting as (1, 1, 1, 1, 0).
-    Kernel K18 (Triton, kernels/bicgstab_update.py) on CUDA tensors, the
-    plain version on CPU tensors.  Replaces the vector work of
-    _bicgstab_core's loop body."""
+    vectors [n] on one device (ph may be p and sh s, without a
+    preconditioner), all float64 or all complex128 (the complex variant:
+    a.b is the conjugated a^H b of jnp.vdot and ||r|| = sqrt(r^H r), the
+    divisions complex); scal [5] of their type there, starting as (1, 1, 1,
+    1, 0).  Kernel K18 (Triton, kernels/bicgstab_update.py; its complex
+    variant for complex128) on CUDA tensors, the plain version on CPU
+    tensors.  Replaces the vector work of _bicgstab_core's loop body."""
     if mode not in BICGSTAB_MODES:
         raise ValueError(f'bicgstab_update: mode must be one of '
                          f'{BICGSTAB_MODES}')
     vecs = (x, r, r0, p, v, s, t, ph, sh)
     n = x.shape[0]
+    dtype = torch.complex128 if x.is_complex() else torch.float64
     for q in vecs + (scal,):
-        if q.device != x.device or q.dtype != torch.float64 \
+        if q.device != x.device or q.dtype != dtype \
                 or not q.is_contiguous():
-            raise ValueError('bicgstab_update: float64 contiguous tensors on '
-                             'one device expected')
+            raise ValueError('bicgstab_update: contiguous tensors on one '
+                             'device, all float64 or all complex128, '
+                             'expected')
     if any(q.shape != (n,) for q in vecs) or scal.shape != (5,):
         raise ValueError('bicgstab_update: shape mismatch')
     if x.device.type == 'cpu':
@@ -287,30 +292,41 @@ def bicgstab_update(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
     if x.device.type != 'cuda':
         raise ValueError(f'bicgstab_update: unsupported device {x.device}')
     from ..kernels import bicgstab_update as k18
-    parts = torch.empty((5, -(-n // k18.BLOCK)), dtype=torch.float64,
-                        device=x.device)
+    cplx = x.is_complex()
+    if cplx:
+        # the float64 views of complex128 vectors: 16-byte aligned
+        for q in vecs + (scal,):
+            if q.data_ptr() % 16:
+                raise ValueError('bicgstab_update: a complex128 vector not '
+                                 'aligned to 16 bytes')
+    parts = torch.empty((5, (2 if cplx else 1) * -(-n // k18.BLOCK)),
+                        dtype=torch.float64, device=x.device)
     kernels.launches['bicgstab_update'] += 1
+    if cplx:
+        kernels.launches['bicgstab_update:complex'] += 1
     kernels.deviceLaunches['bicgstab_update'] += k18.launch(
         mode, x, r, r0, p, v, s, t, ph, sh, scal, parts, it)
 
 
 def _bicgstab_update_plain(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
     """Plain PyTorch version of :func:`bicgstab_update` (any device); its
-    dot products are taken where they are used."""
+    dot products are taken where they are used, conjugated (torch.vdot)
+    for complex vectors."""
     old, new = it % 2, 1 - it % 2
+    dot = torch.vdot if x.is_complex() else torch.dot
     if mode == 'direction':
-        rho_new = torch.dot(r0, r)
+        rho_new = dot(r0, r)
         omega = scal[3].clone()
         beta = (rho_new / scal[old]) * (scal[2] / omega)
         p.copy_(r + beta * (p - omega * v))
         scal[new] = rho_new
-        scal[4] = torch.sqrt(torch.dot(r, r))
+        scal[4] = torch.sqrt(dot(r, r).real)
     elif mode == 'step':
-        alpha = scal[new] / torch.dot(r0, v)
+        alpha = scal[new] / dot(r0, v)
         torch.sub(r, alpha * v, out=s)
         scal[2] = alpha
     elif mode == 'update':
-        omega = torch.dot(t, s) / torch.dot(t, t)
+        omega = dot(t, s) / dot(t, t)
         x.add_(scal[2] * ph).add_(omega * sh)
         torch.sub(s, omega * t, out=r)
         scal[3] = omega
@@ -434,11 +450,6 @@ class cg_solver(krylov_solver):
         return x
 
 
-def _realVector(name, b):
-    if b.is_complex():
-        raise NotImplementedError(f'{name}: complex systems are not ported')
-
-
 class gmres_solver(krylov_solver):
     """Restarted GMRES (pynucleus_tpu/base/solvers.py:454): cycles of
     ``maxIter`` Arnoldi steps (the restart length), at most ``restarts``
@@ -543,16 +554,15 @@ class gmres_solver(krylov_solver):
 
 class bicgstab_solver(krylov_solver):
     """BiCGStab (pynucleus_tpu/base/solvers.py:538) from x0 = 0 against an
-    absolute tolerance on ||r||, preconditioned by ``prec`` if set;
-    ``iterations`` is the JAX package's count (one less when it stopped
-    early), ``residuals`` the final ||r||."""
+    absolute tolerance on ||r||, preconditioned by ``prec`` if set, in b's
+    type (float64 or complex128); ``iterations`` is the JAX package's count
+    (one less when it stopped early), ``residuals`` the final ||r||."""
 
     def __init__(self, A=None):
         super().__init__(A)
         self.maxIter = 200
 
     def solve(self, b):
-        _realVector('bicgstab', b)
         A, M, tol = self.A, self.prec, self.tolerance
         maxiter = self.maxIter
         x = torch.zeros_like(b)
@@ -563,7 +573,7 @@ class bicgstab_solver(krylov_solver):
         A.matvec(x, out=t)
         torch.sub(b, t, out=r)
         r0.copy_(r)
-        scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=torch.float64,
+        scal = torch.tensor([1.0, 1.0, 1.0, 1.0, 0.0], dtype=b.dtype,
                             device=b.device)
         vecs = (x, r, r0, p, v, s, t, ph, sh)
         k = 0
@@ -571,7 +581,7 @@ class bicgstab_solver(krylov_solver):
             # the direction of iteration k (unused if the loop stops here)
             # and ||r|| of the iterate so far
             bicgstab_update('direction', *vecs, scal, k)
-            resnorm = float(scal[4])
+            resnorm = float(scal[4].real)
             if not (resnorm > tol and k < maxiter):
                 break
             if M is not None:

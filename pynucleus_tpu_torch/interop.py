@@ -6,7 +6,8 @@ order), and for an assembled H2 operator its tree-ordered near field,
 leaf data and per-level far-field data.  ``fromArrays`` builds the port's
 mesh, P1 dofmap and kernel from numpy arrays, such as the
 ``vertices``/``cells`` of a JAX package mesh, so that both packages
-assemble on the identical mesh; ``h2FromArrays`` builds the port's
+assemble on the identical mesh (the kernel parameters include the complex
+Greens kernels' type and greensLambda); ``h2FromArrays`` builds the port's
 H2Matrix from the arrays of an H2 operator, such as those of a JAX package
 H2Matrix, so that its apply can be checked on its own; ``csrFromArrays``
 builds the port's CSR operator, such as a JAX package prolongation, so
@@ -30,7 +31,8 @@ from .config import getDevice
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
-                         interactionFactory, leftRightFractionalOrder)
+                         getComplexKernel, interactionFactory,
+                         leftRightFractionalOrder, GREENS_2D, GREENS_3D)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .nl.problems import parseFractionalOrder
 from .base.linear_operators import (CSR_LinearOperator,
@@ -43,7 +45,7 @@ __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
                kernelType='fractional', horizon=np.inf, interaction='ball2',
                normalized=True, interior=None, gaussianVariance=1.0,
-               exponentialRate=1.0, derivative=0):
+               exponentialRate=1.0, derivative=0, greensLambda=1.0j):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
     P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
     with ``interior`` (a boolean mask of the vertices) the interior
@@ -59,7 +61,10 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     parameters (sll, srr[, slr, srl]) of a leftRight order.  With
     ``derivative`` (1 or 2) the fractional kernel of an infinite horizon is
     its s-derivative (normalized as given): a vector kernel for an order of
-    several parameters."""
+    several parameters.  ``kernelType`` 'greens2D' or 'greens3D' is the
+    complex Greens kernel of ``greensLambda`` (s unused; scaling 1 unless
+    given), of an infinite or a finite ``horizon`` (ball2 unless
+    ``interaction`` names another ball)."""
     if isinstance(s, str):
         s = parseFractionalOrder(s)
     elif isinstance(s, (tuple, list)):
@@ -67,6 +72,12 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
+    if kernelType in (GREENS_2D, GREENS_3D):
+        return mesh, dm, getComplexKernel(
+            dim, kernel=kernelType, greensLambda=greensLambda,
+            horizon=horizon, scaling=1.0 if scaling is None else scaling,
+            interaction=None if horizon == np.inf
+            else interactionFactory[interaction]())
     if horizon == np.inf:
         if kernelType in ('gaussian', 'exponential'):
             return mesh, dm, getIntegrableKernel(

@@ -5,8 +5,10 @@ Twenty-three kernels carry the port's device work:
   K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
                     horizon), scattered into dense A, into CSR data at
-                    explicit or arithmetic tree slots, or into the interior
-                    x boundary coupling A_BC
+                    explicit or arithmetic tree slots, into the interior
+                    x boundary coupling A_BC, or into the diagonal alone;
+                    its complex variant (the greens2D profile) into a
+                    complex128 dense A or diagonal
   K2 grid_distant   (csrc/grid_distant.cu)   cell-pair grid over one f32
                     distance window (dense)
   K3 grid_boundary  (csrc/grid_boundary.cu)  zero-exterior surface term
@@ -37,7 +39,8 @@ Twenty-three kernels carry the port's device work:
   K14 cut1d         (csrc/cut_cells.cu)      1D pairs cut by the horizon:
                     exact interval clipping
   K15 cut2d_polar   (csrc/cut_cells.cu)      2D pairs cut by the horizon:
-                    kink-split polar rays clipped to the cell and the ball
+                    kink-split polar rays clipped to the cell and the ball;
+                    the power profile, or the complex greens2D one
   K16 csr_scatter   (csrc/csr_scatter.cu)    local stiffness and mass
                     matrices summed into CSR data, one thread per slot
                     over its host-sorted contributions
@@ -46,7 +49,8 @@ Twenty-three kernels carry the port's device work:
                                              normalisation; x += Z y;
                                              float64 or complex128
   K18 bicgstab_update (bicgstab_update.py,   BiCGStab's vector passes
-                    Triton)                  around its applies
+                    Triton)                  around its applies; float64
+                                             or complex128
   K19 panel_scatter_nonsym                   nonsymmetric local matrices of
                     (csrc/panel_scatter_nonsym.cu)  explicit pairs,
                                              t1 PHIxPSI - t2 PHIyPSI with
@@ -79,7 +83,10 @@ variable fractional order (nl/kernels.py OrderParams: constantNonSym,
 leftRight), s(x, y) and its normalization per node in common.cuh
 kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
 seven profiles without an order, the power profile with each order).
-K14 and K15 take the power profile only.
+K14 and K15 take the power profile only, K15 also the complex one.  The
+complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
+functions of pynucleus_tpu/nl/kernels.py _bessel_j0y0) has its own
+instances: K1's complex variant (dense and diagonal targets) and K15's.
 K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
 dimension of their centers says.
 
@@ -92,21 +99,24 @@ version only for tensors on the CPU; on a CUDA tensor it launches its
 kernel or raises.
 
 ``launches`` counts, per kernel, the wrapper calls that launched it (a
-plain int each, bumped by the wrapper where it launches).  K1's four
+plain int each, bumped by the wrapper where it launches).  K1's five
 scatter targets are also counted apart, under ``panel_scatter:dense``,
-``:slots``, ``:tree`` and ``:cross``, K19's two under
+``:slots``, ``:tree``, ``:cross`` and ``:diag``, K19's two under
 ``panel_scatter_nonsym:dense`` and ``:slots``, K4's two forms under
 ``pcg_update:jacobi`` and ``:general``, and K23's under
 ``vector_matvec:apply`` and ``:transposed``, and the complex128 variants
-of K9, K10 and K17 (their own template instances and Triton kernels) also
-under ``csr_spmv:complex``, ``jacobi_smooth:complex`` and
-``gmres_arnoldi:complex``.  ``deviceLaunches`` counts, per
-kernel, the CUDA launches those calls made: one per call, except for K2
-(two), K4 (three in the Jacobi form, four in the general form), K8 (one
-per pass that has work, as the C entry point reports: at most 2 nLvl + 2
-for an operator of nLvl levels), K20 (the same way, at most 2 nLvl + 3),
-K17 (j + 3 for Arnoldi step j, two to start a cycle, one to combine) and
-K18 (two per call).  ``resetLaunches`` zeroes both.
+of K9, K10, K17, K15 and K18 (their own template instances and Triton
+kernels) also under ``csr_spmv:complex``, ``jacobi_smooth:complex``,
+``gmres_arnoldi:complex``, ``cut2d_polar:complex`` and
+``bicgstab_update:complex``, K1's under ``panel_scatter:complex`` (dense
+target) and ``panel_scatter:complex_diag`` (diagonal target).
+``deviceLaunches`` counts, per kernel, the CUDA launches those calls
+made: one per call, except for K2 (two), K4 (three in the Jacobi form,
+four in the general form), K8 (one per pass that has work, as the C entry
+point reports: at most 2 nLvl + 2 for an operator of nLvl levels), K20
+(the same way, at most 2 nLvl + 3), K17 (j + 3 for Arnoldi step j, two to
+start a cycle, one to combine) and K18 (two per call).  ``resetLaunches``
+zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
@@ -131,12 +141,15 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'h2_matvec_T', 'panel_scatter_vec', 'panel_scatter_nonsym_vec',
            'vector_matvec')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
-              'panel_scatter:tree', 'panel_scatter:cross')
+              'panel_scatter:tree', 'panel_scatter:cross',
+              'panel_scatter:diag')
 K19_TARGETS = ('panel_scatter_nonsym:dense', 'panel_scatter_nonsym:slots')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
 K23_FORMS = ('vector_matvec:apply', 'vector_matvec:transposed')
 COMPLEX = ('csr_spmv:complex', 'jacobi_smooth:complex',
-           'gmres_arnoldi:complex')
+           'gmres_arnoldi:complex', 'panel_scatter:complex',
+           'panel_scatter:complex_diag', 'cut2d_polar:complex',
+           'bicgstab_update:complex')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
             + K23_FORMS + COMPLEX}
 deviceLaunches = {k: 0 for k in KERNELS}
@@ -232,6 +245,9 @@ def _declare(lib):
         # variable order, no y shift), stream
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                                 P, P, P, P, I, *PROF, I, D, P],
+        # d, N, then as panel_scatter_cross
+        'panel_scatter_diag': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                               P, P, P, P, I, *PROF, I, D, P],
         # A, N, X, Q, dim, ccf, vols, dofs, dpe, C, PhiXw, PhiX, PsiYw, w,
         # t_lo, t_hi, profile, R, stream
         'grid_distant': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
@@ -267,10 +283,10 @@ def _declare(lib):
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P,
-        # bary_x, wx, Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter, C,
-        # e, stream
+        # bary_x, wx, Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter,
+        # profile code, C, e, a, stream
         'cut2d_polar': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, P, P,
-                        I, D, I, D, D, P],
+                        I, D, I, I, D, D, D, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
         # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, stream

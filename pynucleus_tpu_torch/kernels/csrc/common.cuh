@@ -21,7 +21,8 @@ enum ProfileCode {
     PROFILE_GAUSSIAN_B2 = 4,    // C exp(-a r2) / (2 a r)
     PROFILE_EXPONENTIAL_B1 = 5, // C/a exp(-a r)
     PROFILE_EXPONENTIAL_B2 = 6, // C exp(-a r) (r/a + 1/a^2) / r
-    PROFILE_POWER_LOG = 7       // r2^e (C + C1 ln r2 + C2 ln^2 r2)
+    PROFILE_POWER_LOG = 7,      // r2^e (C + C1 ln r2 + C2 ln^2 r2)
+    PROFILE_GREENS_2D = 8       // C (-Y0(a r) + i J0(a r)), complex: radialC
 };
 
 struct Profile {
@@ -69,6 +70,69 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
         return __ddiv_rn(__dmul_rn(__dmul_rn(p.C, exp(__dmul_rn(-p.a, r))), t),
                          r);
     }
+}
+
+// p = c[n-1]; p = c[k] + t p for k = n-2 .. 0, each operation rounded on
+// its own: the Horner order of the JAX expressions
+// c0 + t*(c1 + t*(... + t*c[n-1])).
+template <int NC>
+__device__ __forceinline__ double hornerRN(double t, const double (&c)[NC]) {
+    double p = c[NC - 1];
+#pragma unroll
+    for (int k = NC - 2; k >= 0; --k) p = __dadd_rn(c[k], __dmul_rn(t, p));
+    return p;
+}
+
+// J0(x), Y0(x) for x > 0: pynucleus_tpu/nl/kernels.py _bessel_j0y0, the
+// Abramowitz & Stegun 9.4.1-9.4.3 rational approximations (about 1e-7
+// from the exact functions) with their coefficients, the 1e-30 floor, the
+// series in t = (x/3)^2 for x <= 3 and the modulus and phase form beyond
+// (u = 3/x, the JAX literal 0.78539816 for pi/4), each operation in the
+// order of the JAX expression and of the plain version (nl/kernels.py
+// besselJ0Y0), rounded on its own.  It is that approximation, not a better
+// one: the port is held to the JAX program, not to the exact functions.
+__device__ __forceinline__ void besselJ0Y0(double x, double& j0,
+                                           double& y0) {
+    const double xs = x > 1e-30 ? x : 1e-30;
+    if (xs <= 3.0) {
+        const double q = __ddiv_rn(xs, 3.0);
+        const double t = __dmul_rn(q, q);
+        const double cj[7] = {1.0, -2.2499997, 1.2656208, -0.3163866,
+                              0.0444479, -0.0039444, 0.0002100};
+        const double cy[7] = {0.36746691, 0.60559366, -0.74350384,
+                              0.25300117, -0.04261214, 0.00427916,
+                              -0.00024846};
+        j0 = hornerRN(t, cj);
+        // (2 / pi) as the Python float 2.0 / np.pi
+        y0 = __dadd_rn(__dmul_rn(__dmul_rn(0.6366197723675814,
+                                           log(__dmul_rn(0.5, xs))),
+                                 j0),
+                       hornerRN(t, cy));
+    } else {
+        const double u = __ddiv_rn(3.0, xs);
+        const double cf[7] = {0.79788456, -0.00000077, -0.00552740,
+                              -0.00009512, 0.00137237, -0.00072805,
+                              0.00014476};
+        const double ct[6] = {-0.04166397, -0.00003954, 0.00262573,
+                              -0.00054125, -0.00029333, 0.00013558};
+        const double f = hornerRN(u, cf);
+        const double th = __dadd_rn(__dsub_rn(xs, 0.78539816),
+                                    __dmul_rn(u, hornerRN(u, ct)));
+        const double rsqrt = __ddiv_rn(1.0, sqrt(xs));
+        j0 = __dmul_rn(__dmul_rn(f, cos(th)), rsqrt);
+        y0 = __dmul_rn(__dmul_rn(f, sin(th)), rsqrt);
+    }
+}
+
+// The complex profile PROFILE_GREENS_2D, C i H0^(1)(a r) = C (-Y0(a r) +
+// i J0(a r)) as (re, im), exactly 0 at r2 == 0 as radial<PC>: the greens2D
+// kernel of pynucleus_tpu/nl/kernels.py ComplexKernel._radialJax through
+// _radial_eval, a the wavenumber -Im(greensLambda).
+__device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
+    if (!(r2 > 0.0)) return make_double2(0.0, 0.0);
+    double j0, y0;
+    besselJ0Y0(__dmul_rn(p.a, sqrt(r2)), j0, y0);
+    return make_double2(__dmul_rn(p.C, -y0), __dmul_rn(p.C, j0));
 }
 
 // Runs the statements ... with the compile-time constant PC equal to the
@@ -347,7 +411,9 @@ __device__ __forceinline__ double panelNode(
 // (acc zeroed here); the caller reduces across its nl lanes.  gamma is
 // kernelXY<PC, OC>: the radial profile, or a variable order's kernel;
 // ysh [dim] (or nullptr) shifts the y nodes of a variable-order surface
-// item to one side of an order jump.
+// item to one side of an order jump.  The complex profile
+// PROFILE_GREENS_2D (radialC) keeps the real parts of t_q and M in acc and
+// the imaginary ones in acci [NN] (no normals, no order, no shift).
 template <int NN, int PC, int OC = ORDER_NONE>
 __device__ __forceinline__ void panelQuad(
     double acc[NN], double v1[MAXNV][MAXDIM], int nv1,
@@ -356,27 +422,51 @@ __device__ __forceinline__ void panelQuad(
     const double* __restrict__ bary_x, const double* __restrict__ bary_y,
     const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
     const Profile& pf, int lane, int nl, int inter = 0, double h2 = 0.0,
-    const Order od = Order{}, const double* ysh = nullptr) {
+    const Order od = Order{}, const double* ysh = nullptr,
+    double* acci = nullptr) {
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = 0.0;
-    for (int q = lane; q < Q; q += nl) {
-        double x[MAXDIM], y[MAXDIM];
-        const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
-                                    bary_y, Q, q, ysh);
-        double t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
-        if (!inBall(inter, x, y, dim, h2)) t = 0.0;
-        if (nrm != nullptr) {
-            double fac = 0.0;
-            if (r2 > 0.0) {
-                for (int d = 0; d < dim; ++d) fac += nrm[d] * (y[d] - x[d]);
-                fac /= sqrt(r2);
-            }
-            t *= fac;
-        }
-        t *= vs;
-        const double* ps = PSIP + (long long)q * NN;
+    if constexpr (PC == PROFILE_GREENS_2D) {
 #pragma unroll
-        for (int k = 0; k < NN; ++k) acc[k] += t * __ldg(ps + k);
+        for (int k = 0; k < NN; ++k) acci[k] = 0.0;
+        for (int q = lane; q < Q; q += nl) {
+            double x[MAXDIM], y[MAXDIM];
+            const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
+                                        bary_y, Q, q, nullptr);
+            const double2 g = radialC(r2, pf);
+            double tr = g.x * w[q], ti = g.y * w[q];
+            if (!inBall(inter, x, y, dim, h2)) tr = ti = 0.0;
+            tr *= vs;
+            ti *= vs;
+            const double* ps = PSIP + (long long)q * NN;
+#pragma unroll
+            for (int k = 0; k < NN; ++k) {
+                const double c = __ldg(ps + k);
+                acc[k] += tr * c;
+                acci[k] += ti * c;
+            }
+        }
+    } else {
+        for (int q = lane; q < Q; q += nl) {
+            double x[MAXDIM], y[MAXDIM];
+            const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
+                                        bary_y, Q, q, ysh);
+            double t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
+            if (!inBall(inter, x, y, dim, h2)) t = 0.0;
+            if (nrm != nullptr) {
+                double fac = 0.0;
+                if (r2 > 0.0) {
+                    for (int d = 0; d < dim; ++d)
+                        fac += nrm[d] * (y[d] - x[d]);
+                    fac /= sqrt(r2);
+                }
+                t *= fac;
+            }
+            t *= vs;
+            const double* ps = PSIP + (long long)q * NN;
+#pragma unroll
+            for (int k = 0; k < NN; ++k) acc[k] += t * __ldg(ps + k);
+        }
     }
 }
 

@@ -40,6 +40,14 @@
 // pow per node and the (2 dpe)^2 FMAs per node (K15 also two trig calls
 // and three ray-edge solves per ray); atomics are (2 dpe)^2 per pair.
 //
+// Targets: dense A, CSR slots, A_BC (cross) and the diagonal alone (DIAG:
+// d[r] += M[i,j] where dofRows[p,i] = dofRows[p,j] = r >= 0, the
+// _DiagAccumulator of getDiagonal).  K15 takes the kernel's profile: the
+// power C r2^e, or the complex GREENS_2D profile (common.cuh radialC, the
+// greens2D kernel of ComplexKernel): then W and M are complex, kept as re
+// and im sums of the upper triangle (21 each), and added into the float64
+// view of a complex128 dense A or diagonal (re at 2 k, im at 2 k + 1).
+//
 // This file is compiled with -fmad=false: the window ends, the order of
 // the kink candidates, the edge hits and the clipped interval decide the
 // integration domain, and a contracted multiply-add could round a
@@ -47,7 +55,7 @@
 // operations.
 #include "common.cuh"
 
-enum CutTarget { CUT_DENSE = 0, CUT_SLOTS = 1, CUT_CROSS = 2 };
+enum CutTarget { CUT_DENSE = 0, CUT_SLOTS = 1, CUT_CROSS = 2, CUT_DIAG = 3 };
 
 // Adds the warp-reduced symmetric local matrix of one pair, held as its
 // upper triangle up[] (row-major over i <= j), at the pair's target:
@@ -69,6 +77,9 @@ __device__ __forceinline__ void cutScatter(double* __restrict__ out,
         if (TARGET == CUT_SLOTS) {
             const long long s = slots[k];
             if (s >= 0 && s < N) atomicAdd(out + s, v);
+        } else if (TARGET == CUT_DIAG) {
+            const long long r = dr[i];
+            if (r >= 0 && r == dr[j]) atomicAdd(out + r, v);
         } else {
             const long long r = dr[i], c = dr[j];
             if (TARGET == CUT_DENSE) {
@@ -76,6 +87,37 @@ __device__ __forceinline__ void cutScatter(double* __restrict__ out,
             } else if (r >= 0 && c < 0 && c > DROP_HALF) {
                 atomicAdd(out + r * N - c - 1, v);
             }
+        }
+    }
+}
+
+// The complex form of cutScatter, for the DENSE and DIAG targets: the
+// upper triangles re[] and im[] added into the float64 view of a
+// complex128 dense A [N, N] or diagonal [N].
+template <int N2, int TARGET>
+__device__ __forceinline__ void cutScatterC(double* __restrict__ out,
+                                            long long N,
+                                            const long long* __restrict__ dr,
+                                            const double* re,
+                                            const double* im, int lane) {
+    static_assert(TARGET == CUT_DENSE || TARGET == CUT_DIAG,
+                  "complex cut pairs: dense or diagonal target");
+#pragma unroll
+    for (int k = 0; k < N2 * N2; ++k) {
+        if ((k & 31) != lane) continue;
+        const int i = k / N2, j = k % N2;
+        const int a = i < j ? i : j, b = i < j ? j : i;
+        const int u = a * N2 - a * (a - 1) / 2 + (b - a);
+        const long long r = dr[i], c = dr[j];
+        long long at = -1;
+        if (TARGET == CUT_DENSE) {
+            if (r >= 0 && c >= 0) at = r * N + c;
+        } else if (r >= 0 && r == c) {
+            at = r;
+        }
+        if (at >= 0) {
+            atomicAdd(out + 2 * at, re[u]);
+            atomicAdd(out + 2 * at + 1, im[u]);
         }
     }
 }
@@ -159,7 +201,7 @@ __device__ __forceinline__ double mod2pi(double a) {
     return m;
 }
 
-template <int TARGET>
+template <int TARGET, bool CPLX>
 __global__ void __launch_bounds__(CUT_WARPS * 32)
 cut2d_polar_kernel(double* __restrict__ out, long long N,
                    const double* __restrict__ vertices,
@@ -174,9 +216,8 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
                    const double* __restrict__ wtheta, int Qt,
                    const double* __restrict__ rq,
                    const double* __restrict__ wr, int Qr, double horizon,
-                   int inter, double C, double e) {
+                   int inter, Profile pf) {
     constexpr int N2 = 6, NU = N2 * (N2 + 1) / 2;
-    const Profile pf{PROFILE_POWER, C, e, 0.0};
     __shared__ double bnd[CUT_WARPS][MAXQX][MAXB];
     __shared__ double xs[CUT_WARPS][MAXQX][2];
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -242,9 +283,13 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
     const double i00 = e2y / det, i01 = -e2x / det;
     const double i10 = -e1y / det, i11 = e1x / det;
 
-    double acc[NU];
+    double acc[NU], acci[CPLX ? NU : 1];
 #pragma unroll
     for (int u = 0; u < NU; ++u) acc[u] = 0.0;
+    if constexpr (CPLX) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u) acci[u] = 0.0;
+    }
     const int T = S * Qt;
     for (int k = lane; k < Qx * T; k += 32) {
         const int ix = k / T, rem = k % T, sg = rem / Qt, it = rem % Qt;
@@ -287,22 +332,36 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
             const double r = rLo + len * rq[ir];
             const double wrad = len * wr[ir];
             const double y0 = x0 + r * d0, y1 = x1 + r * d1;
-            const double W =
-                (((radial<PROFILE_POWER>(r * r, pf) * r) * wrad) * wth) * wxa;
             const double rel0 = y0 - v2[0][0], rel1 = y1 - v2[0][1];
             const double xi0 = rel0 * i00 + rel1 * i01;
             const double xi1 = rel0 * i10 + rel1 * i11;
             psi[3] = -(1.0 - (xi0 + xi1));
             psi[4] = -xi0;
             psi[5] = -xi1;
-            addOuter<N2>(acc, psi, W);
+            if constexpr (CPLX) {
+                const double2 g = radialC(r * r, pf);
+                addOuter<N2>(acc, psi, (((g.x * r) * wrad) * wth) * wxa);
+                addOuter<N2>(acci, psi, (((g.y * r) * wrad) * wth) * wxa);
+            } else {
+                const double W =
+                    (((radial<PROFILE_POWER>(r * r, pf) * r) * wrad) * wth)
+                    * wxa;
+                addOuter<N2>(acc, psi, W);
+            }
         }
     }
     const double fac = 2.0 * vols1[pair];
 #pragma unroll
     for (int u = 0; u < NU; ++u) acc[u] = warpSum(acc[u]) * fac;
-    cutScatter<N2, TARGET>(out, N, dofRows + pair * N2,
-                           slots + pair * N2 * N2, acc, lane);
+    if constexpr (CPLX) {
+#pragma unroll
+        for (int u = 0; u < NU; ++u) acci[u] = warpSum(acci[u]) * fac;
+        cutScatterC<N2, TARGET>(out, N, dofRows + pair * N2, acc, acci,
+                                lane);
+    } else {
+        cutScatter<N2, TARGET>(out, N, dofRows + pair * N2,
+                               slots + pair * N2 * N2, acc, lane);
+    }
 }
 
 // ---------------------------------------------------------- entry points --
@@ -326,12 +385,15 @@ EXPORT int cut1d(double* out, long long N, int target,
         case CUT_DENSE: LAUNCH(CUT_DENSE); break;
         case CUT_SLOTS: LAUNCH(CUT_SLOTS); break;
         case CUT_CROSS: LAUNCH(CUT_CROSS); break;
+        case CUT_DIAG: LAUNCH(CUT_DIAG); break;
         default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
 
+// out: float64 (the power profile), or the float64 view of a complex128
+// dense A or diagonal (the GREENS_2D profile: targets dense and diagonal).
 EXPORT int cut2d_polar(double* out, long long N, int target,
                        const double* vertices, const long long* vi1,
                        const long long* vi2, const double* vols1,
@@ -339,22 +401,35 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
                        long long P, const double* bary_x, const double* wx,
                        int Qx, const double* thetas, const double* wtheta,
                        int Qt, const double* rq, const double* wr, int Qr,
-                       double horizon, int inter, double C, double e,
-                       cudaStream_t stream) {
+                       double horizon, int inter, int pcode, double C,
+                       double e, double a, cudaStream_t stream) {
     if (P <= 0) return 0;
     if (Qx > MAXQX || (inter != 1 && inter != 2))
         return static_cast<int>(cudaErrorInvalidValue);
     const long long blocks = (P + CUT_WARPS - 1) / CUT_WARPS;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH(T)                                                           \
-    cut2d_polar_kernel<T><<<(unsigned)blocks, CUT_WARPS * 32, 0, stream>>>( \
+    const Profile pf{pcode, C, e, a};
+#define LAUNCH(T, CX)                                                       \
+    cut2d_polar_kernel<T, CX><<<(unsigned)blocks, CUT_WARPS * 32, 0,        \
+                                stream>>>(                                  \
         out, N, vertices, vi1, vi2, vols1, dofRows, slots, P, bary_x, wx,   \
-        Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter, C, e)
-    switch (target) {
-        case CUT_DENSE: LAUNCH(CUT_DENSE); break;
-        case CUT_SLOTS: LAUNCH(CUT_SLOTS); break;
-        case CUT_CROSS: LAUNCH(CUT_CROSS); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
+        Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter, pf)
+    if (pcode == PROFILE_GREENS_2D) {
+        switch (target) {
+            case CUT_DENSE: LAUNCH(CUT_DENSE, true); break;
+            case CUT_DIAG: LAUNCH(CUT_DIAG, true); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    } else if (pcode == PROFILE_POWER) {
+        switch (target) {
+            case CUT_DENSE: LAUNCH(CUT_DENSE, false); break;
+            case CUT_SLOTS: LAUNCH(CUT_SLOTS, false); break;
+            case CUT_CROSS: LAUNCH(CUT_CROSS, false); break;
+            case CUT_DIAG: LAUNCH(CUT_DIAG, false); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    } else {
+        return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());

@@ -27,17 +27,32 @@
 //   CROSS  A[dofRows[p,I], -dofRows[p,J]-1] += M[I,J]  for an interior row
 //          (>= 0) and a boundary column (DROP_HALF < c < 0): A_BC [N, NB]
 //          of pynucleus_tpu/nl/assembly.py:getDenseCross / BCAccumulator
+//   DIAG   d[r] += M[I,J] where r = dofRows[p,I] = dofRows[p,J] >= 0: the
+//          diagonal alone (pynucleus_tpu/nl/assembly.py _DiagAccumulator
+//          of getDiagonal); radial profiles without a variable order
+//
+// The complex variant is the instance of the complex GREENS_2D profile
+// (PC == PROFILE_GREENS_2D; common.cuh radialC, the A&S Bessel functions
+// of ComplexKernel._radialJax): t_q and M are complex, kept as separate re
+// and im sums (2 nPSI^2 doubles a lane, panelQuad's acc and acci), reduced
+// the same way and added into the float64 view of the complex128 target
+// (re at 2 k, im at 2 k + 1) with two atomicAdd(double) each; its targets
+// are DENSE and DIAG (the complex DenseAccumulator and _DiagAccumulator of
+// getDense and getDiagonal), triangles only (nPSI 3 or 6).  No normals and
+// no variable order: a complex kernel has no zero-exterior term.
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
 // leave lanes idle), the nPSI^2 local entries kept in registers, a warp
 // butterfly reduction per entry, then one atomicAdd(double) per entry.
 // Bound on the card: float64 pow per node and the nPSI^2 FMAs per node
-// (compute); atomics are nPSI^2 per pair, negligible against Q >= 30.
+// (compute); atomics are nPSI^2 per pair, negligible against Q >= 30.  The
+// complex variant: the Bessel branch per node (a log, or a cos, a sin and
+// a sqrt, and four rational polynomials) and 2 nPSI^2 FMAs per node.
 
 #include "common.cuh"
 
-enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3 };
+enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3, DIAG = 4 };
 
 template <int NPSI, int TARGET, int PC, int OC>
 __global__ void __launch_bounds__(256)
@@ -60,6 +75,9 @@ panel_scatter_kernel(double* __restrict__ out,
                      Profile pf, int inter, double h2, Order od,
                      const double* __restrict__ yShift) {
     constexpr int NN = NPSI * NPSI;
+    constexpr bool CPLX = PC == PROFILE_GREENS_2D;
+    static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
+                  "the complex profile scatters into dense A or the diagonal");
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
@@ -71,15 +89,36 @@ panel_scatter_kernel(double* __restrict__ out,
     if (normals != nullptr)
         for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
 
-    double acc[NN];
+    double acc[NN], acci[CPLX ? NN : 1];
     panelQuad<NN, PC, OC>(acc, v1, nv1, v2, nv2, dim,
                           normals != nullptr ? nrm : nullptr, volsym[pair],
                           bary_x, bary_y, w, PSIP, Q, pf, lane, 32, inter, h2,
                           od, yShift != nullptr ? yShift + pair * dim
-                                                : nullptr);
+                                                : nullptr, acci);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
+    if constexpr (CPLX) {
+#pragma unroll
+        for (int k = 0; k < NN; ++k) acci[k] = warpSum(acci[k]);
+        const long long* dr = dofRows + pair * NPSI;
+#pragma unroll
+        for (int k = 0; k < NN; ++k) {
+            if ((k & 31) != lane) continue;
+            const long long r = dr[k / NPSI], c = dr[k % NPSI];
+            long long at = -1;
+            if (TARGET == DENSE) {
+                if (r >= 0 && c >= 0) at = r * N + c;
+            } else if (r >= 0 && r == c) {
+                at = r;
+            }
+            if (at >= 0) {
+                atomicAdd(out + 2 * at, acc[k]);
+                atomicAdd(out + 2 * at + 1, acci[k]);
+            }
+        }
+        return;
+    }
     if (TARGET == TREE) {
         long long dr[NPSI];
 #pragma unroll
@@ -100,6 +139,10 @@ panel_scatter_kernel(double* __restrict__ out,
             const long long r = dr[k / NPSI], c = dr[k % NPSI];
             if (r >= 0 && c < 0 && c > DROP_HALF)
                 atomicAdd(out + r * N - c - 1, acc[k]);
+        } else if (TARGET == DIAG) {
+            const long long* dr = dofRows + pair * NPSI;
+            const long long r = dr[k / NPSI];
+            if (r >= 0 && r == dr[k % NPSI]) atomicAdd(out + r, acc[k]);
         } else {
             const long long s = slots[pair * NN + k];
             if (s >= 0 && s < N) atomicAdd(out + s, acc[k]);
@@ -135,17 +178,47 @@ static int launchPanel(double* out, long long N, const double* vertices,
         out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
         normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, pf,  \
         inter, h2, od, yShift)
-    KERNEL_SWITCH(pf.code, od.code, switch (nPSI) {
-        case 2: LAUNCH(2); break;
-        case 3: LAUNCH(3); break;
-        case 4: LAUNCH(4); break;
-        case 6: LAUNCH(6); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    })
+#define NPSI_SWITCH                                                    \
+    switch (nPSI) {                                                     \
+        case 2: LAUNCH(2); break;                                       \
+        case 3: LAUNCH(3); break;                                       \
+        case 4: LAUNCH(4); break;                                       \
+        case 6: LAUNCH(6); break;                                       \
+        default: return static_cast<int>(cudaErrorInvalidValue);       \
+    }
+    if (pf.code == PROFILE_GREENS_2D) {
+        // the complex profile (out the float64 view of a complex128
+        // target): dense A or the diagonal, triangles (nPSI 3 for an
+        // identical cell, else 6), no order, no normals, no shift
+        if constexpr (TARGET == DENSE || TARGET == DIAG) {
+            if (od.code != ORDER_NONE || normals != nullptr
+                || yShift != nullptr)
+                return static_cast<int>(cudaErrorInvalidValue);
+            constexpr int PC = PROFILE_GREENS_2D, OC = ORDER_NONE;
+            switch (nPSI) {
+                case 3: LAUNCH(3); break;
+                case 6: LAUNCH(6); break;
+                default: return static_cast<int>(cudaErrorInvalidValue);
+            }
+        } else {
+            return static_cast<int>(cudaErrorInvalidValue);
+        }
+    } else if constexpr (TARGET == DIAG) {
+        // the diagonal of a radial profile: no variable order instances
+        if (od.code != ORDER_NONE)
+            return static_cast<int>(cudaErrorInvalidValue);
+        constexpr int OC = ORDER_NONE;
+        PROFILE_SWITCH(pf.code, NPSI_SWITCH)
+    } else {
+        KERNEL_SWITCH(pf.code, od.code, NPSI_SWITCH)
+    }
+#undef NPSI_SWITCH
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
 
+// A: dense [N, N]; with pcode PROFILE_GREENS_2D the float64 view of a
+// complex128 A (and of a complex128 d [N] in panel_scatter_diag).
 EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          int dim, const long long* vi1, int nv1,
                          const long long* vi2, int nv2,
@@ -168,6 +241,25 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
                               yShift, stream);
+}
+
+EXPORT int panel_scatter_diag(double* d, long long N,
+                              const double* vertices, int dim,
+                              const long long* vi1, int nv1,
+                              const long long* vi2, int nv2,
+                              const long long* dofRows, int nPSI,
+                              const double* volsym, const double* normals,
+                              long long P, const double* bary_x,
+                              const double* bary_y, const double* w,
+                              const double* PSIP, int Q, int pcode, double C,
+                              double e, double a, double C1, double C2,
+                              int inter, double h2, cudaStream_t stream) {
+    return launchPanel<DIAG>(d, N, vertices, dim, vi1, nv1, vi2, nv2,
+                             dofRows, nullptr, nPSI, volsym, normals, P,
+                             nullptr, nullptr, nullptr, nullptr,
+                             TreeTables{}, bary_x, bary_y, w, PSIP, Q,
+                             Profile{pcode, C, e, a, C1, C2}, inter, h2,
+                             Order{}, nullptr, stream);
 }
 
 EXPORT int panel_scatter_cross(double* A, long long NB,

@@ -97,7 +97,8 @@ import torch
 
 from .. import kernels
 from ..config import TREAL, TINDEX, getDevice
-from ..base.linear_operators import Dense_LinearOperator, CSR_LinearOperator
+from ..base.linear_operators import (Dense_LinearOperator, CSR_LinearOperator,
+                                     Diagonal_LinearOperator)
 from ..fem.quadrature import simplexCompact
 from .panels import (classifyPairsDense, classifyPairsDenseGrid,
                      classifyBoundaryPairs,
@@ -107,7 +108,7 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
 from .kernels import (radialEval, profileArgs, POWER, evalXY, orderArgs,
-                      vectorTerms)
+                      vectorTerms, COMPLEX_PROFILES, GREENS_2D_PROFILE)
 from ..base.linear_operators import (Dense_VectorLinearOperator,
                                      H2_VectorLinearOperator)
 
@@ -136,18 +137,41 @@ def _psi_prod(PSI):
 
 
 def _check(name, A, floats=(), ints=(), f32=(), i32=(), flat=False,
-           square=True):
+           square=True, dtype=torch.float64):
     """Device, dtype and contiguity checks shared by the wrappers; A is the
     dense [N, N] accumulator (with square=False the cross accumulator
-    [N, NB]), or with flat=True the CSR data [nnz+1]."""
-    if A.dtype != torch.float64 or not A.is_contiguous() or (
+    [N, NB]), or with flat=True the CSR data [nnz+1] or the diagonal [N],
+    of ``dtype`` (complex128: a complex profile's target)."""
+    if A.dtype != dtype or not A.is_contiguous() or (
             A.dim() != 1 if flat else
             (A.dim() != 2 or (square and A.shape[0] != A.shape[1]))):
+        kind = str(dtype).split('.')[-1]
         raise ValueError(f'{name}: ' + (
-            'data must be a contiguous float64 vector' if flat else
+            f'data must be a contiguous {kind} vector' if flat else
             'A must be a contiguous ' + ('square ' if square else '')
-            + 'float64 tensor'))
+            + f'{kind} tensor'))
     _checkTensors(name, A.device, floats, ints, f32, i32)
+
+
+def _valueType(name, prof, normals=None, order=None, yShift=None):
+    """The target's dtype for the profile ``prof``: complex128 for a complex
+    one (GREENS_2D on the card; GREENS_3D in the plain versions), which
+    takes no normals, variable order or y shift; else float64."""
+    if int(prof.code) not in COMPLEX_PROFILES:
+        return torch.float64
+    if normals is not None or order is not None or yShift is not None:
+        raise ValueError(f'{name}: a complex profile takes no normals, '
+                         'variable order or y shift')
+    return torch.complex128
+
+
+def _aligned(name, *ts):
+    """Complex128 tensors on the card are written as pairs of doubles of a
+    double2: 16-byte aligned, as K9's complex variant asks."""
+    for t in ts:
+        if t.is_complex() and t.data_ptr() % 16:
+            raise ValueError(f'{name}: a complex128 tensor not aligned to 16 '
+                             'bytes')
 
 
 def _checkTensors(name, device, floats=(), ints=(), f32=(), i32=()):
@@ -215,10 +239,11 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
     Kernel K1 (kernels/csrc/panel_scatter.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _bucket_contrib + _device_scatter_rows,
     _bucket_natural_scatter_scan and _bucket_rows_scatter_scan."""
+    dtype = _valueType('panel_scatter', prof, normals, order, yShift)
     _check('panel_scatter', A,
            floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
                    yShift),
-           ints=(vi1, vi2, dofRows))
+           ints=(vi1, vi2, dofRows), dtype=dtype)
     P, _, _ = _panelArgs('panel_scatter', None, vertices, vi1, vi2, volsym,
                          normals, bary_x, bary_y, w, PSIP, dofRows.shape[1],
                          yShift)
@@ -248,16 +273,23 @@ def _opt(t):
 def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
                      normals, bary_x, bary_y, w, PSIP, prof, indicator,
                      *orderTail):
-    """K1 into a dof-indexed target (dense A [N, N], or A_BC [N, NB] with N
-    the column count NB); ``orderTail`` the dense target's order arguments
-    and y shift (the cross target, a finite horizon, has none)."""
+    """K1 into a dof-indexed target (dense A [N, N], A_BC [N, NB] with N
+    the column count NB, or the diagonal [N]); ``orderTail`` the dense
+    target's order arguments and y shift (the cross and diagonal targets
+    have none).  A complex128 target (the GREENS_2D profile) is passed as
+    its float64 view."""
     P, nPSI = dofRows.shape
     if P == 0:
         return
+    if A.is_complex():
+        _aligned(fn, A)
     lib = kernels.library()
     kernels.launches['panel_scatter'] += 1
     kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:' + target] += 1
+    if A.is_complex():
+        kernels.launches['panel_scatter:complex'
+                         + ('' if target == 'dense' else '_diag')] += 1
     p = kernels.ptr
     kernels.check(getattr(lib, fn)(
         p(A), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
@@ -265,6 +297,58 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
         p(normals) if normals is not None else None, P, p(bary_x),
         p(bary_y), p(w), p(PSIP), w.shape[0], *profileArgs(prof),
         *_indicatorArgs(indicator), *orderTail, kernels.stream()))
+
+
+def panel_scatter_diag(d, vertices, vi1, vi2, dofRows, volsym, normals,
+                       bary_x, bary_y, w, PSIP, prof, indicator=None):
+    """K1 into the diagonal d [N] alone: with M[p] as in
+    :func:`panel_scatter`,
+
+        d[r] += M[p, I*nPSI+J]  where r = dofRows[p,I] = dofRows[p,J] >= 0
+
+    as pynucleus_tpu/nl/assembly.py _DiagAccumulator.add keeps them
+    (getDiagonal).  d is float64, or complex128 for the complex GREENS_2D
+    profile (its complex variant); radial profiles only (no variable order,
+    no y shift).  Kernel K1 on CUDA tensors, the plain version on CPU
+    tensors.  Replaces the runs of _bucket_contrib into _DiagAccumulator."""
+    dtype = _valueType('panel_scatter_diag', prof, normals)
+    _check('panel_scatter_diag', d,
+           floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP),
+           ints=(vi1, vi2, dofRows), flat=True, dtype=dtype)
+    P, _, _ = _panelArgs('panel_scatter_diag', None, vertices, vi1, vi2,
+                         volsym, normals, bary_x, bary_y, w, PSIP,
+                         dofRows.shape[1])
+    if dofRows.shape[0] != P:
+        raise ValueError('panel_scatter_diag: shape mismatch')
+    if d.device.type == 'cpu':
+        return _panel_scatter_diag_plain(d, vertices, vi1, vi2, dofRows,
+                                         volsym, normals, bary_x, bary_y, w,
+                                         PSIP, prof, indicator)
+    _launchDofTarget('panel_scatter_diag', 'diag', d, d.shape[0], vertices,
+                     vi1, vi2, dofRows, volsym, normals, bary_x, bary_y, w,
+                     PSIP, prof, indicator)
+
+
+def _scatterDiag(d, rows, cols, vals):
+    """d[rows] += vals where rows == cols >= 0 (plain versions)."""
+    ok = (rows == cols) & (rows >= 0)
+    d.index_add_(0, rows[ok], vals[ok])
+
+
+def _panel_scatter_diag_plain(d, vertices, vi1, vi2, dofRows, volsym,
+                              normals, bary_x, bary_y, w, PSIP, prof,
+                              indicator=None):
+    """Plain PyTorch version of :func:`panel_scatter_diag` (any device)."""
+    P, nPSI = dofRows.shape
+    for sl in _plainChunks(P, w.shape[0]):
+        M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
+                           None if normals is None else normals[sl],
+                           bary_x, bary_y, w, PSIP, prof, indicator)
+        dr = dofRows[sl]
+        p = dr.shape[0]
+        rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(-1)
+        cols = dr[:, None, :].expand(p, nPSI, nPSI).reshape(-1)
+        _scatterDiag(d, rows, cols, M.reshape(-1))
 
 
 def panel_scatter_cross(A, vertices, vi1, vi2, dofRows, volsym, normals,
@@ -333,7 +417,9 @@ def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
         fac = torch.einsum('pd,pqd->pq', normals, y - x) \
             / torch.sqrt(torch.where(pos, r2, 1.0))
         t = t * torch.where(pos, fac, 0.0)
-    return (t * volsym[:, None]) @ PSIP
+    # a complex profile's t: the real PSIP in its type (as t @ PSIP promotes
+    # it in the JAX program)
+    return (t * volsym[:, None]) @ PSIP.to(t.dtype)
 
 
 def _plainChunks(P, Q):
@@ -1531,7 +1617,7 @@ def _tree_csr_quad_plain(data, c1, c2, IA, JA, offF, offB, sf, vertices,
 # ------------------------------------------------------------ K14, K15 ----
 
 # the targets of the cut-pair kernels, in the order of their C enum
-CUT_TARGETS = ('dense', 'slots', 'cross')
+CUT_TARGETS = ('dense', 'slots', 'cross', 'diag')
 
 
 def _powerProfile(name, prof):
@@ -1545,17 +1631,21 @@ def _powerProfile(name, prof):
 
 
 def _cutCheck(name, out, target, index, vertices, vi1, vi2, vols1, floats,
-              nn):
+              nn, dtype=torch.float64):
     """Checks of K14's and K15's arguments; returns P.  index is dofRows
-    [P, n] int64 for 'dense' and 'cross', slots [P, n*n] int32 for
-    'slots'."""
+    [P, n] int64 for 'dense', 'cross' and 'diag', slots [P, n*n] int32 for
+    'slots'; out of ``dtype`` (complex128: the dense or diagonal target of
+    a complex profile)."""
     if target not in CUT_TARGETS:
         raise ValueError(f'{name}: target {target!r}, one of {CUT_TARGETS}')
+    if dtype != torch.float64 and target not in ('dense', 'diag'):
+        raise ValueError(f'{name}: a complex profile has the dense and the '
+                         'diagonal target only')
     slots = target == 'slots'
-    _check(name, out, flat=slots, square=target == 'dense',
-           floats=(vertices, vols1) + floats,
+    _check(name, out, flat=target in ('slots', 'diag'),
+           square=target == 'dense', floats=(vertices, vols1) + floats,
            ints=(vi1, vi2) + (() if slots else (index,)),
-           i32=(index,) if slots else ())
+           i32=(index,) if slots else (), dtype=dtype)
     P = vi1.shape[0]
     n = int(round(nn ** 0.5))
     if vi2.shape != vi1.shape or vols1.shape != (P,) \
@@ -1574,8 +1664,8 @@ def _cutScatterPlain(out, target, index, M, n):
     p = index.shape[0]
     rows = index[:, :, None].expand(p, n, n).reshape(-1)
     cols = index[:, None, :].expand(p, n, n).reshape(-1)
-    (_scatterBlocks if target == 'dense' else _scatterCross)(
-        out, rows, cols, M.reshape(-1))
+    {'dense': _scatterBlocks, 'cross': _scatterCross,
+     'diag': _scatterDiag}[target](out, rows, cols, M.reshape(-1))
 
 
 def _launchCut(name, out, target, index, P, *args):
@@ -1586,8 +1676,11 @@ def _launchCut(name, out, target, index, P, *args):
     lib = kernels.library()
     kernels.launches[name] += 1
     kernels.deviceLaunches[name] += 1
+    if out.is_complex():
+        _aligned(name, out)
+        kernels.launches[name + ':complex'] += 1
     slots = target == 'slots'
-    N = out.shape[0] - 1 if slots else out.shape[1]
+    N = out.shape[0] - 1 if slots else out.shape[-1]
     p = kernels.ptr
     kernels.check(getattr(lib, name)(
         p(out), N, CUT_TARGETS.index(target),
@@ -1611,8 +1704,10 @@ def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
     added at ``target``: 'dense' A [N, N] (index dofRows [P, 4] int64, both
     dofs >= 0), 'slots' CSR data [nnz+1] (index slots [P, 16] int32, in
     [0, nnz)), 'cross' A_BC [N, NB] (index dofRows; interior row, boundary
-    column -d-1).  delta = horizon, gamma the power profile ``prof``
-    (C r2^e, 0 at r2 = 0); any other profile raises NotImplementedError.
+    column -d-1), 'diag' the diagonal d [N] (index dofRows; the entries of
+    equal row and column dofs >= 0).  delta = horizon, gamma the power
+    profile ``prof`` (C r2^e, 0 at r2 = 0); any other profile raises
+    NotImplementedError.
 
     Kernel K14 (kernels/csrc/cut_cells.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces pynucleus_tpu/nl/assembly.py
@@ -1678,16 +1773,23 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
         psi = [phi1(x); -phi2(y)],  y = x + r d
 
     added at ``target`` as in :func:`cut1d` (index dofRows [P, 6] int64 or
-    slots [P, 36] int32).
+    slots [P, 36] int32).  gamma is the power profile C r2^e, or the complex
+    GREENS_2D profile (greens2D; its complex variant): then W and M are
+    complex and ``out`` a complex128 dense A or diagonal.
 
     Kernel K15 (kernels/csrc/cut_cells.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces pynucleus_tpu/nl/assembly.py
     _bucket_cut2d_polar (its P1 case: the shape functions are the
     barycentrics; the TPU-only clamp of the barycentrics to 1e-30 is not
     carried over) and the host add of its matrices."""
+    code = int(prof.code)
+    dtype = _valueType('cut2d_polar', prof)
+    if code not in (POWER, GREENS_2D_PROFILE):
+        raise NotImplementedError(f'cut2d_polar: the power profile C r2^e '
+                                  'and the complex GREENS_2D profile only '
+                                  f'(profile code {code})')
     P = _cutCheck('cut2d_polar', out, target, index, vertices, vi1, vi2,
-                  vols1, (bary_x, wx, thetas, wtheta, rq, wr), 36)
-    C, e = _powerProfile('cut2d_polar', prof)
+                  vols1, (bary_x, wx, thetas, wtheta, rq, wr), 36, dtype)
     Qx = wx.shape[0]
     if vertices.shape[1] != 2 or vi1.shape[1] != 3 \
             or bary_x.shape != (3, Qx):
@@ -1703,7 +1805,8 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
         raise ValueError('cut2d_polar: at most 32 x nodes')
     _launchCut('cut2d_polar', out, target, index, P, vertices, vi1, vi2,
                vols1, bary_x, wx, Qx, thetas, wtheta, thetas.shape[0], rq, wr,
-               rq.shape[0], float(horizon), int(inter), C, e)
+               rq.shape[0], float(horizon), int(inter),
+               *profileArgs(prof)[:4])
 
 
 def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
@@ -1778,9 +1881,11 @@ def _cut2dMatrices(vertices, vi1, vi2, vols1, bary_x, wx, thetas, wtheta,
         / det[:, None, None]
     xi = torch.einsum('pqtrd,ped->pqtre', y - v2[:, None, None, None, 0, :],
                       inv)
-    PHI2 = torch.cat([1.0 - xi.sum(-1, keepdim=True), xi], -1)
     W = (g * r * wrad) * wth[..., None]
     W = W * wx[None, :, None, None]
+    # a complex profile's W: the real shape functions in its type
+    PHI2 = torch.cat([1.0 - xi.sum(-1, keepdim=True), xi], -1).to(W.dtype)
+    bary_x = bary_x.to(W.dtype)
     s11 = torch.einsum('pqtr,iq,jq->pij', W, bary_x, bary_x)
     s12 = -torch.einsum('pqtr,iq,pqtrj->pij', W, bary_x, PHI2)
     s22 = torch.einsum('pqtr,pqtri,pqtrj->pij', W, PHI2, PHI2)
@@ -1815,11 +1920,13 @@ def _upload(a, device, dtype=TREAL):
 
 
 class DeviceDenseAccumulator:
-    """Dense [N, N] float64 operator on the device (K1, K14, K15 into A)."""
+    """Dense [N, N] operator on the device (K1, K14, K15 into A): float64,
+    or complex128 for a complex kernel (the complex DenseAccumulator of
+    pynucleus_tpu/nl/assembly.py getDense)."""
 
-    def __init__(self, N, device):
+    def __init__(self, N, device, dtype=TREAL):
         self.N = N
-        self.A = torch.zeros((N, N), dtype=TREAL, device=device)
+        self.A = torch.zeros((N, N), dtype=dtype, device=device)
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
                   tables, prof, indicator, order=None):
@@ -1838,6 +1945,33 @@ class DeviceDenseAccumulator:
 
     def result(self):
         return Dense_LinearOperator(self.A)
+
+
+class DeviceDiagAccumulator:
+    """The diagonal [N] of the dense operator on the device, float64 or
+    complex128 (pynucleus_tpu/nl/assembly.py _DiagAccumulator of
+    getDiagonal): the diagonal targets of K1 and of K14, K15.  The
+    nonsymmetric local matrices (K19) have no diagonal target."""
+
+    def __init__(self, N, device, dtype=TREAL):
+        self.d = torch.zeros(N, dtype=dtype, device=device)
+
+    def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
+                  tables, prof, indicator, order=None):
+        if order is not None:
+            raise NotImplementedError('getDiagonal of a variable order')
+        panel_scatter_diag(self.d, vertices, vi1, vi2, dofRows, volsym,
+                           normals, *tables, prof, indicator=indicator)
+
+    def addNonsym(self, *args):
+        raise NotImplementedError('getDiagonal of a nonsymmetric or variable '
+                                  'order')
+
+    def cutTarget(self, dofRows):
+        return self.d, 'diag', dofRows
+
+    def result(self):
+        return Diagonal_LinearOperator(self.d)
 
 
 class DeviceVectorDenseAccumulator:
@@ -2205,15 +2339,23 @@ class nonlocalBuilder:
         self.mesh = dm.mesh
         self.kernel = kernel
         self.params = params or {}
-        # a finite horizon has no exterior term (as in the JAX package)
-        self.zeroExterior = False if kernel.finiteHorizon else zeroExterior
+        # a finite horizon has no exterior term (as in the JAX package), nor
+        # has a complex (Greens) kernel, which has no boundary kernel: its
+        # bilinear form is the double integral alone (nl/assembly.py:2003)
+        self.zeroExterior = False if kernel.finiteHorizon \
+            or kernel.isComplex else zeroExterior
         self.device = getDevice(device if device is not None else dm.device)
         self.timers = {}
-        if kernel.variableHorizon or kernel.isComplex \
-                or kernel.phi is not None or kernel.complement:
+        if kernel.variableHorizon or kernel.phi is not None \
+                or kernel.complement:
             raise NotImplementedError('the port assembles kernels without a '
-                                      'variable horizon, two-point weights, '
-                                      'complement or complex values only')
+                                      'variable horizon, two-point weights '
+                                      'or complement only')
+        if kernel.isComplex and (self.mesh.manifold_dim != 2 or int(
+                kernel.profileParams().code) != GREENS_2D_PROFILE):
+            # 3D assembly raises in the JAX package as well
+            raise NotImplementedError('complex kernels: greens2D on 2D '
+                                      'meshes only')
         if getattr(kernel, 'derivative', 0) and kernel.variable \
                 and getattr(kernel, 'valueSize', 1) == 1:
             # pynucleus_tpu's scalar programs with useLogCorr (:91, :424)
@@ -3663,25 +3805,54 @@ class nonlocalBuilder:
             raise TypeError(f'{what}: a vector-valued kernel, use '
                             'getDenseVector')
 
+    def _dtype(self):
+        """The operator's value type: complex128 for a complex kernel."""
+        return torch.complex128 if self.kernel.isComplex else TREAL
+
+    def _realKernel(self, what):
+        if self.kernel.isComplex:
+            raise NotImplementedError(f'{what} of a complex kernel: the JAX '
+                                      'package has getDense and getDiagonal '
+                                      'only')
+
     def getDense(self):
         """Dense [N, N] operator: the grid path for an infinite horizon
         (unless ``params={'denseGrid': False}``), every cell pair classified
-        for a finite one, for a variable or nonsymmetric order and without
-        the grid."""
+        for a finite one, for a variable or nonsymmetric order, for a
+        complex kernel (complex128) and without the grid."""
         self._scalarKernel('getDense')
         if self.kernel.finiteHorizon or self.general \
+                or self.kernel.isComplex \
                 or self.params.get('denseGrid') is False:
-            # the grid path takes symmetric radial kernels only
+            # the grid path takes real symmetric radial kernels only
             # (pynucleus_tpu/nl/assembly.py _gridEligible)
             info = self._classifyAll()
         else:
             info = classifyPairsDenseGrid(
                 self.dm, self.kernel,
                 target_order=self.params.get('target_order'))
-        acc = DeviceDenseAccumulator(self.dm.num_dofs, self.device)
+        acc = DeviceDenseAccumulator(self.dm.num_dofs, self.device,
+                                     self._dtype())
         self._runPairBuckets(acc, info)
         if self.zeroExterior:
             self._addZeroExterior(acc)
+        return acc.result()
+
+    def getDiagonal(self):
+        """The diagonal of the dense operator without forming it
+        (pynucleus_tpu/nl/assembly.py getDiagonal): every cell pair
+        classified, the pair buckets into the diagonal targets of K1, K14
+        and K15 (complex128 for a complex kernel), as a
+        Diagonal_LinearOperator.  The zero-exterior term of a real kernel
+        of an infinite horizon (the surface term, K3 in getDense) and the
+        nonsymmetric local matrices (K19) raise NotImplementedError."""
+        self._scalarKernel('getDiagonal')
+        if self.zeroExterior:
+            raise NotImplementedError('getDiagonal with the zero-exterior '
+                                      'term is not ported')
+        acc = DeviceDiagAccumulator(self.dm.num_dofs, self.device,
+                                    self._dtype())
+        self._runPairBuckets(acc, self._classifyAll())
         return acc.result()
 
     def getSparse(self):
@@ -3691,6 +3862,7 @@ class nonlocalBuilder:
         filled by K1 (identical, touching and distant pairs) and K14/K15
         (cut pairs) at slots searched on the device.  ``timers``: the host
         classification and pattern, then the device fill (synchronised)."""
+        self._realKernel('getSparse')
         if not self.kernel.finiteHorizon:
             raise NotImplementedError('the sparse format requires a finite '
                                       'horizon')
@@ -3741,6 +3913,7 @@ class nonlocalBuilder:
         constraint on the collar of a finite horizon
         (pynucleus_tpu/nl/assembly.py getDenseCross with BCAccumulator):
         the same buckets as getSparse into the cross target."""
+        self._realKernel('getDenseCross')
         if not self.kernel.finiteHorizon:
             raise NotImplementedError('getDenseCross: finite horizon only '
                                       '(no zero-exterior term)')
@@ -3756,6 +3929,7 @@ class nonlocalBuilder:
         exterior.  A finite horizon delegates to getSparse, as the JAX
         package does: the operator is sparse."""
         self._scalarKernel('getH2')
+        self._realKernel('getH2')
         if self.kernel.finiteHorizon:
             return self.getSparse()
         from .h2 import H2Matrix

@@ -55,6 +55,14 @@ with ``derivative``), of an infinite horizon:
         and the side's parameter gradient, and evaluate it as
         :func:`vectorTerms` does (pow and log only)
 
+The complex Greens-function kernels (ComplexKernel, :1761-1834, with the
+Bessel functions _bessel_j0y0, :56): greens2D, C i H0^(1)(lam r) =
+C (-Y0(lam r) + i J0(lam r)) with lam = -Im(greensLambda), the GREENS_2D
+profile (complex128 values; J0 and Y0 from the A&S 9.4.1-9.4.3 rational
+approximations of :func:`besselJ0Y0`, as the JAX program, not scipy's);
+greens3D, C exp(-greensLambda r) / r, the GREENS_3D profile, evaluated
+by :func:`radialEval` only (3D assembly raises in both packages).
+
 A finite horizon, tempered kernels and two-point weights (phi) raise
 NotImplementedError.  The tempered fractional, log-inverse-distance,
 monomial and polynomial profiles (:1095-1096, :1122-1128) are not ported.
@@ -77,13 +85,18 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'radialEval', 'Profile', 'FRACTIONAL', 'INDICATOR',
            'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER', 'POWER_LOG',
            'DerivativeFractionalKernel', 'VectorFractionalKernel',
-           'VectorParams', 'vectorTerms', 'vectorEval', 'vectorLogCoeffs']
+           'VectorParams', 'vectorTerms', 'vectorEval', 'vectorLogCoeffs',
+           'ComplexKernel', 'getComplexKernel', 'getKernel', 'besselJ0Y0',
+           'GREENS_2D', 'GREENS_3D', 'GREENS_2D_PROFILE',
+           'GREENS_3D_PROFILE', 'COMPLEX_PROFILES']
 
 FRACTIONAL = 'fractional'
 INDICATOR = 'indicator'
 PERIDYNAMIC = 'peridynamic'
 GAUSSIAN = 'gaussian'
 EXPONENTIAL = 'exponential'
+GREENS_2D = 'greens2D'
+GREENS_3D = 'greens3D'
 
 # radial profile codes, shared with kernels/csrc/common.cuh radial()
 POWER = 0
@@ -94,13 +107,20 @@ GAUSSIAN_BOUNDARY_2D = 4
 EXPONENTIAL_BOUNDARY_1D = 5
 EXPONENTIAL_BOUNDARY_2D = 6
 POWER_LOG = 7
-PROFILE_CODES = range(8)
+# the complex profiles (complex128 values): greens2D C (-Y0 + i J0)(a r)
+# and, for the host and the plain versions only, greens3D C exp(-lam r)/r
+# with lam = a + i e
+GREENS_2D_PROFILE = 8
+GREENS_3D_PROFILE = 9
+PROFILE_CODES = range(10)
+COMPLEX_PROFILES = (GREENS_2D_PROFILE, GREENS_3D_PROFILE)
 
 
 class Profile(NamedTuple):
     """A kernel's radial profile as the device kernels take it: its code
     and the parameters C (scaling), e (the power's exponent of r2), a (the
-    gaussian's or exponential's rate) and C1, C2 (the POWER_LOG profile's
+    gaussian's or exponential's rate; greens2D's wavenumber lam; greens3D's
+    Re lam, with e its Im lam) and C1, C2 (the POWER_LOG profile's
     coefficients of ln r2 and ln^2 r2)."""
     code: int
     C: float
@@ -820,6 +840,96 @@ def getIntegrableKernel(dim, kernel, horizon, interaction=None, scaling=None,
                   exponentParam=exponentParam, variance=gaussian_variance)
 
 
+class ComplexKernel(Kernel):
+    """The complex Greens-function kernels (pynucleus_tpu/nl/kernels.py
+    ComplexKernel, :1761-1834):
+
+        greens2D  gamma(x, y) = C i H0^(1)(lam |x-y|), lam =
+                  -Im(greensLambda); singularity 0 (log-integrable, the
+                  declared value of both packages: the s = 0 singular rules)
+        greens3D  gamma(x, y) = C exp(-greensLambda |x-y|) / |x-y|,
+                  complex greensLambda; singularity -1
+
+    times the interaction indicator of a finite horizon (ball2 by
+    default).  The device kernels evaluate the GREENS_2D profile (complex
+    K1 and K15); greens3D is a profile of the host and the plain versions
+    (3D assembly raises).  It has no boundary kernel, so no zero-exterior
+    term (the builder's bilinear form is the double integral alone)."""
+
+    isComplex = True
+
+    def __init__(self, dim, kernelType, horizon=np.inf, interaction=None,
+                 scaling=1.0, greensLambda=1.0j):
+        if kernelType == GREENS_2D:
+            if dim != 2:
+                raise ValueError('greens2D kernel needs dim=2')
+            sing = 0.0
+        elif kernelType == GREENS_3D:
+            if dim != 3:
+                raise ValueError('greens3D kernel needs dim=3')
+            sing = -1.0
+        else:
+            raise NotImplementedError(kernelType)
+        hv = float(horizon)
+        if interaction is None:
+            interaction = fullSpace() if hv == np.inf else ball2()
+        super().__init__(dim, kernelType, hv, interaction, float(scaling),
+                         sing)
+        self.greensLambda = complex(greensLambda)
+
+    def profileParams(self):
+        lam, C = self.greensLambda, self.scalingValue
+        if self.kernelType == GREENS_2D:
+            return Profile(GREENS_2D_PROFILE, C, 0.0, -lam.imag)
+        return Profile(GREENS_3D_PROFILE, C, lam.imag, lam.real)
+
+    def __call__(self, x, y):
+        """Host evaluation with scipy's exact Bessel functions (the JAX
+        package's __call__): 0 beyond a finite horizon."""
+        x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+        y = np.atleast_2d(np.asarray(y, dtype=np.float64))
+        r = float(np.sqrt(((x - y) ** 2).sum()))
+        C = self.scalingValue
+        if self.finiteHorizon and r > self.horizonValue:
+            return 0.0j
+        if self.kernelType == GREENS_2D:
+            from scipy.special import hankel1
+            val = C * 1j * hankel1(0.0, -self.greensLambda.imag * r)
+        else:
+            val = C * np.exp(-self.greensLambda * r) / r
+        return complex(val)
+
+    def getBoundaryKernel(self):
+        raise NotImplementedError('boundary kernel not defined for complex '
+                                  'kernels')
+
+    def __repr__(self):
+        return (f'kernel({self.kernelType}, d={self.dim}, '
+                f'horizon={self.horizonValue}, C={self.scalingValue:.6g}, '
+                f'lambda={self.greensLambda})')
+
+
+def getComplexKernel(dim, kernel=GREENS_2D, greensLambda=1.0j,
+                     horizon=np.inf, interaction=None, scaling=1.0,
+                     phi=None):
+    """The complex Greens kernel ``kernel`` (GREENS_2D or GREENS_3D)."""
+    if phi is not None:
+        raise NotImplementedError('two-point weights (phi) are not ported')
+    return ComplexKernel(dim, kernel, horizon=horizon,
+                         interaction=interaction, scaling=scaling,
+                         greensLambda=greensLambda)
+
+
+def getKernel(dim, kernel=FRACTIONAL, **kwargs):
+    """The kernel of type ``kernel`` (pynucleus_tpu/nl/kernels.py
+    getKernel): fractional, the Greens kernels, or an integrable one."""
+    if kernel == FRACTIONAL:
+        return getFractionalKernel(dim, **kwargs)
+    if kernel in (GREENS_2D, GREENS_3D):
+        return getComplexKernel(dim, kernel=kernel, **kwargs)
+    return getIntegrableKernel(dim, kernel=kernel, **kwargs)
+
+
 def profileArgs(prof):
     """(code, C, e, a, C1, C2) of a :class:`Profile` as the C entry points
     take them; anything else (such as a bare (C, e)) raises."""
@@ -830,14 +940,57 @@ def profileArgs(prof):
             float(prof.C1), float(prof.C2))
 
 
+def besselJ0Y0(x):
+    """J0(x), Y0(x) for x > 0 (x float64): pynucleus_tpu/nl/kernels.py
+    _bessel_j0y0 copied as it is, the Abramowitz & Stegun 9.4.1-9.4.3
+    rational approximations (about 1e-7 from the exact functions): the
+    power series in (x/3)^2 up to 3, the modulus and phase form beyond,
+    the same coefficients, Horner order and 1e-30 floor.  It is the
+    approximation the JAX program evaluates, not a better one (common.cuh
+    besselJ0Y0 is its copy on the card)."""
+    xs = torch.where(x > 1e-30, x, 1e-30)
+    q = xs / 3.0
+    t = q * q
+    j0s = (1.0 + t * (-2.2499997 + t * (1.2656208 + t * (-0.3163866
+           + t * (0.0444479 + t * (-0.0039444 + t * 0.0002100))))))
+    y0s = (2.0 / np.pi) * torch.log(0.5 * xs) * j0s \
+        + (0.36746691 + t * (0.60559366 + t * (-0.74350384 + t * (0.25300117
+           + t * (-0.04261214 + t * (0.00427916 - t * 0.00024846))))))
+    u = 3.0 / torch.clamp(xs, min=3.0)
+    f = (0.79788456 + u * (-0.00000077 + u * (-0.00552740 + u * (-0.00009512
+         + u * (0.00137237 + u * (-0.00072805 + u * 0.00014476))))))
+    th = xs - 0.78539816 + u * (-0.04166397 + u * (-0.00003954
+         + u * (0.00262573 + u * (-0.00054125 + u * (-0.00029333
+         + u * 0.00013558)))))
+    rsqrt = 1.0 / torch.sqrt(xs)
+    j0l = f * torch.cos(th) * rsqrt
+    y0l = f * torch.sin(th) * rsqrt
+    small = xs <= 3.0
+    return torch.where(small, j0s, j0l), torch.where(small, y0s, y0l)
+
+
 def radialEval(r2, prof):
     """gamma(r2) of the radial profile ``prof`` (:class:`Profile`), and
     exactly 0 where r2 == 0 (coincident quadrature points of the singular
     rules), as pynucleus_tpu/nl/assembly.py _radial_eval evaluates
-    Kernel._radialJax: the same operations in the same order."""
+    Kernel._radialJax: the same operations in the same order.  The complex
+    profiles give complex128 values (ComplexKernel._radialJax):
+
+        GREENS_2D  C (-Y0(a r) + i J0(a r))          (besselJ0Y0)
+        GREENS_3D  C exp(-a r) (cos(e r) - i sin(e r)) / r"""
     code, C, e, a, C1, C2 = profileArgs(prof)
     pos = r2 > 0
     r2s = torch.where(pos, r2, 1.0)
+    if code in COMPLEX_PROFILES:
+        r = torch.sqrt(r2s)
+        if code == GREENS_2D_PROFILE:
+            j0, y0 = besselJ0Y0(a * r)
+            val = torch.complex(C * -y0, C * j0)
+        else:
+            mag = C * torch.exp(-a * r)
+            val = torch.complex(mag * torch.cos(e * r) / r,
+                                -(mag * torch.sin(e * r)) / r)
+        return torch.where(pos, val, torch.zeros((), dtype=val.dtype))
     if code == POWER:
         val = C * r2s ** e
     elif code == GAUSSIAN_PROFILE:
