@@ -151,12 +151,36 @@ result line):
      complex dense and diagonal targets and of K15's complex variant are
      recorded; then those and K18's complex variant (10 iterations on the
      horizon-0.45 operator) against their plain versions at these shapes.
+ 17. the finite-horizon cut pairs: runNonlocal's disc with its collar
+     (constant kernel, horizon 0.2, poly-Dirichlet, sparse cg-mg) at noRef
+     3 with ball2 and ballInf against the JAX outputs pinned by
+     scripts/pin_finite_horizon_jax.py, then the full-width line at noRef
+     4 (7,936 cells; a path): dofs, iterations, error, assembly and solve
+     seconds, the finest classification's seconds and peak host memory;
+     ball1 and the ellipse through the library call (the indicator kernel
+     on squareWithInteractions(0, 0, 1, 1, 0.2, h), P1 on every vertex,
+     zeroExterior=False) at h 0.05 against their pins (||A||_F, ||A u||,
+     (A u)[:4] to 1e-11; each a path), ball1 at h 0.025 (6,272 cells; a
+     path): sparse = dense, the patch ratio of
+     tests/test_kernels_extra.py, the classification, getSparse and
+     getDense seconds, the device time per kernel of a second getSparse,
+     the apply; the variable horizon delta(x) on the interval
+     (getFractionalKernel(1, s, horizon=horizonFunction(...))): noRef 6
+     against its pins (a path), getDense = getSparse at noRef 12, and the
+     full-width noRef 13 (8,191 dofs; a path): getSparse, the apply,
+     unpreconditioned GMRES of A u = A 1 to 1e-10 relative, the device
+     time of K19; then K15 and K1 with ball1 and the ellipse and K19 with
+     the indicator and the variable horizon against their plain versions
+     (kernel line rows ``cut2d_polar:ball1`` ... with their launches on
+     these paths).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
 against their plain versions.
-The last lines are the kernel table (JSON: per kernel, and per complex
-variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18, its
+The last lines are the kernel table (JSON: per kernel, per complex
+variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18, and
+per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
+(indicator, variable horizon), its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -437,18 +461,40 @@ def bound(work):
     return tot, ('bytes' if byBytes >= byOps else 'operations')
 
 
+def target_entries(shape, index):
+    """The entries of a K1 or K19 target that the recorded call's local
+    entries reach in this run's data, each counted once at most: a dense
+    [N, N] target's entries of two dofs >= 0, A_BC's [N, NB] of an interior
+    row and a boundary column, CSR data's [nnz+1] of a slot in [0, nnz)
+    (explicit int32 slots) or of two dofs >= 0 (tree slots); at most the
+    whole target (nnz for CSR data), however many pairs share them."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import DROP
+    if index.dtype == torch.int32:
+        nnz = shape[0] - 1
+        return min(int(((index >= 0) & (index < nnz)).sum()), nnz)
+    rows = (index >= 0).sum(1)
+    if len(shape) == 1:
+        return min(int((rows * rows).sum()), shape[0] - 1)
+    cols = rows if shape[0] == shape[1] else \
+        ((index < 0) & (index > DROP // 2)).sum(1)
+    return min(int((rows * cols).sum()), math.prod(shape))
+
+
 def panel_work(args):
-    """K1 (any target) on recorded args (N or nnz+1, vertices, vi1, vi2,
-    ..., w, PSIP, profile): per pair and node the positions, r^2, gamma
-    (one pow, exp or erfc), the normal factor and nPSI^2 multiply-adds;
-    the touched entries are read and written once."""
+    """K1 (any target) on recorded args (the target's shape, vertices, vi1,
+    vi2, dofRows or slots, ..., w, PSIP, profile): per pair and node the
+    positions, r^2, gamma (one pow, exp or erfc), the normal factor and
+    nPSI^2 multiply-adds; inputs read once, the target's entries that the
+    call reaches read and written once (target_entries)."""
     vertices, vi1, vi2, normals = args[1], args[2], args[3], args[6]
     w, PSIP = args[-3], args[-2]
     P, Q, nn, dim = vi1.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1]
     ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim + 3
                    + 2 * nn + (3 * dim + 2 if normals is not None else 0))
-    return (nbytes(args[1:]) + 16 * P * nn, ops, F64_PEAK)
+    return (nbytes(args[1:]) + 16 * target_entries(args[0], args[4]), ops,
+            F64_PEAK)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -2485,6 +2531,8 @@ VO_HOST_LIMIT = 300.0
 # operations of one variable-order kernel evaluation (two pow, two lgamma,
 # an exp, a division and about ten products and sums)
 VO_EVAL_OPS = 16
+# operations of one radial power-profile evaluation (a pow and a product)
+RADIAL_EVAL_OPS = 2
 _VO_FULL = (f'the noRef {VO_NOREF} twoDomainNonSym(0.25,0.75) gmres-mg H2 '
             'line (15 levels, 32,767 dofs)')
 VO_COMPARED_AT = {
@@ -2535,16 +2583,26 @@ def check_variable_line(label, out, pins, jaxOut, its):
 
 
 def nonsym_work(args):
-    """K19 on recorded args (N or nnz+1, vertices, vi1, vi2, index, volsym,
-    bary_x, bary_y, w, PHIxPSI, PHIyPSI, profile, order): per pair and node
-    the positions, r^2, two kernel evaluations and 2 nPSI^2 multiply-adds
-    each way; the touched entries read and written once."""
+    """K19 on recorded args (the target's shape, vertices, vi1, vi2, index,
+    volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI, profile[, order[,
+    indicator[, horizon]]]): per pair and node the positions, r^2, two
+    kernel evaluations (a variable order's or horizon's counted as
+    VO_EVAL_OPS, the radial profile's as RADIAL_EVAL_OPS), the interaction
+    indicator and 2 nPSI^2 multiply-adds each way; inputs read once, the
+    target's entries that the call reaches read and written once
+    (target_entries)."""
     vertices, vi1, vi2 = args[1], args[2], args[3]
     w, PX = args[8], args[9]
     P, Q, nn, dim = vi1.shape[0], w.shape[0], PX.shape[1], vertices.shape[1]
+    order, indicator, horizon = (tuple(args[12:15]) + (None,) * 3)[:3]
+    ind = indicator is not None and int(indicator[0]) != 0
+    evalOps = RADIAL_EVAL_OPS if order is None and horizon is None \
+        else VO_EVAL_OPS
     ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim + 4
-                   + 2 * VO_EVAL_OPS + 4 * nn)
-    return (nbytes(args[1:11]) + 16 * P * nn, ops, F64_PEAK)
+                   + 2 * evalOps + 4 * nn
+                   + (INDICATOR_OPS if ind else 0))
+    return (nbytes(args[1:11]) + 16 * target_entries(args[0], args[4]), ops,
+            F64_PEAK)
 
 
 def panel_order_work(args):
@@ -3679,15 +3737,14 @@ def greens_line(label, horizon, noRef):
     return summary, (b, A, rhs)
 
 
-def greens_device_ms(b):
-    """Device milliseconds per kernel of a second getDense and getDiagonal
-    of the builder b (its classification kept), under torch.profiler."""
+def device_ms_by_kernel(run):
+    """Device milliseconds per kernel (the six largest) of run(), under
+    torch.profiler."""
     import torch
     from torch.profiler import profile, ProfilerActivity
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        b.getDense()
-        b.getDiagonal()
+        run()
         torch.cuda.synchronize()
     dev = {}
     for ev in prof.key_averages():
@@ -3843,8 +3900,9 @@ def phase16():
                 asm, n, dataFirst=True,
                 size=None if n == 'cut2d_polar' else _k1_size))
                 for n in names}
-            summary[label]['device_ms_by_kernel'] = greens_device_ms(
-                lines[label][0])
+            b = lines[label][0]
+            summary[label]['device_ms_by_kernel'] = device_ms_by_kernel(
+                lambda: (b.getDense(), b.getDiagonal()))
         recorded.update(recs)
         log(f"  {label}: launches {summary[label]['launches']}; device ms "
             f"{json.dumps(summary[label]['device_ms_by_kernel'])} (a second "
@@ -3876,6 +3934,533 @@ def phase16():
     diag = check_real_diagonals()
     log(f'phase 16 summary: {json.dumps(summary)}')
     return counts, cmp, diag, summary
+
+
+# ---------------------------------------------------------------- phase 17
+
+# JAX package outputs printed by scripts/pin_finite_horizon_jax.py (the JAX
+# package on the CPU, float64): runNonlocal's disc with its collar at noRef
+# 3 (sparse cg-mg, horizon 0.2; ball2, and ballInf whose reference
+# normalization is not the Laplacian's, hence its error), held as phase 10
+# holds the square: dofs, iterations +-1, the error within rtol 3e-2
+JAX_DISC = {'ball2': {'dofs': 652, 'iterations': 8,
+                      'L2 error interpolated': 6.700082e-03},
+            'ballInf': {'dofs': 652, 'iterations': 7,
+                        'L2 error interpolated': 1.319149}}
+# ball1 (normalized) and the ellipse (1, 0.5; not normalized): the
+# indicator kernel of horizon 0.2 on squareWithInteractions(0, 0, 1, 1,
+# horizon 0.2, h 0.05), P1 on every vertex, getDense (zeroExterior=False);
+# u = x^2 + y^2 at the dofs
+JAX_BALLS = {
+    'ball1': {'dofs': 841, 'fro': 4.9688959339166905,
+              'Au_norm': 0.24162593702890933,
+              'Au4': (0.001281741793866256, 0.0012135224393379708,
+                      0.00382576603848371, 0.0012139050051944908)},
+    'ellipse': {'dofs': 841, 'fro': 0.0020412554646502155,
+                'Au_norm': 0.00010772447195555381,
+                'Au4': (5.097751282889938e-07, 4.242764882901095e-07,
+                        1.4672392160325357e-06, 5.380474531157207e-07)}}
+# the variable horizon delta(x) = 0.1 + 0.05 (x + 1) in [0.1, 0.2], s 0.25,
+# on the interval refined 6 times (interior dofs): getSparse, A v for
+# v = N(0, 1) of numpy default_rng(7), GMRES (tolerance 1e-10, maxIter 500)
+# on A u = A 1
+JAX_VAR_HORIZON = {'dofs': 63, 'fro': 95.59811706975316,
+                   'Av_norm': 80.42724417876033,
+                   'Av4': (4.836684283815838, 5.947150013627837,
+                           -2.720730805426254, -9.86936136257175),
+                   'gmres_iterations': 40, 'x_norm': 7.937253933193434}
+TOL_FH_PIN = 1e-11
+TOL_FH_X = 1e-8
+DISC_PIN_NOREF = 3
+DISC_NOREF = 4
+# name -> (interaction arguments, normalized)
+BALLS = {'ball1': ((), True), 'ellipse': ((1.0, 0.5), False)}
+BALLS_PIN_H = 0.05
+BALLS_H = 0.025
+# the patch ratio of tests/test_kernels_extra.py _patchTest (ball1, the
+# reference's ballInf convention): mean -2 within 5 %, each within 15 %
+BALL1_RATIO = -2.0
+# (c0, c, min, max) of delta(x) = clip(c0 + c x, min, max), and s
+VH_PIN = ((0.15, 0.05, 0.1, 0.2), 0.25)
+VH_CHECK = ((0.25, 0.1, 0.15, 0.35), 0.4)
+VH_PIN_NOREF = 6
+VH_CHECK_NOREF = 12
+VH_NOREF = 13
+TOL_VH_RES = 1e-10
+BALL_PATH = ('panel_scatter', 'cut2d_polar', 'panel_scatter:dense',
+             'panel_scatter:slots')
+VH_PATH = ('panel_scatter_nonsym', 'panel_scatter_nonsym:slots',
+           'panel_scatter_nonsym:var_horizon', 'csr_spmv', 'gmres_arnoldi')
+# operations of an interaction indicator at one node (|x-y| in the ball's
+# norm and the comparison)
+INDICATOR_OPS = 6
+HORIZON_COMPARED_AT = {
+    'cut2d_polar:ball1': f'the ball1 square at h {BALLS_H} (6,272 cells): '
+                         'the largest call of getSparse (CSR slots)',
+    'cut2d_polar:ellipse': f'the ellipse square at h {BALLS_PIN_H}: every '
+                           'call of getDense and getSparse',
+    'panel_scatter:ball1': f'the ball1 square at h {BALLS_H}: the largest '
+                           'calls of the dense and the CSR slots targets',
+    'panel_scatter:ellipse': f'the ellipse square at h {BALLS_PIN_H}: every '
+                             'call of the dense and the CSR slots targets',
+    'panel_scatter_nonsym:var_horizon': f'the variable horizon at noRef '
+                                        f'{VH_NOREF}: its largest getSparse '
+                                        'call (slots) and the largest noRef '
+                                        f'{VH_CHECK_NOREF} getDense call '
+                                        '(dense)',
+}
+
+
+# the JAX programs each variant replaces
+HORIZON_REPLACES = {
+    'cut2d_polar:ball1': 'pynucleus_tpu/nl/assembly.py:511 (ball1: '
+                         ':554-556, nl/kernels.py:815)',
+    'cut2d_polar:ellipse': 'pynucleus_tpu/nl/assembly.py:511 (ellipse: '
+                           'nl/kernels.py:856)',
+    'panel_scatter:ball1': 'pynucleus_tpu/nl/assembly.py:91 (ball1 '
+                           'jaxIndicator, nl/kernels.py:808)',
+    'panel_scatter:ellipse': 'pynucleus_tpu/nl/assembly.py:91 (ellipse '
+                             'jaxIndicator, nl/kernels.py:845)',
+    'panel_scatter_nonsym:var_horizon': 'pynucleus_tpu/nl/assembly.py:424 '
+                                        'on the fallback :2509-2537 '
+                                        '(nl/kernels.py:1384-1398)',
+}
+
+
+def FH17_PATHS(counts17):
+    """The main paths of phase 17: (kernels, label, launch counts)."""
+    return ((NONLOCAL_PATH, f'fh_disc_sparse_cg_mg_noRef{DISC_NOREF}',
+             counts17['disc']),
+            (BALL_PATH, f'ball1_square_h{BALLS_PIN_H}', counts17['ball1_pin']),
+            (BALL_PATH, f'ellipse_square_h{BALLS_PIN_H}',
+             counts17['ellipse_pin']),
+            (BALL_PATH, f'ball1_square_h{BALLS_H}', counts17['ball1']),
+            (VH_PATH, f'var_horizon_interval_noRef{VH_PIN_NOREF}',
+             counts17['vh_pin']),
+            (VH_PATH, f'var_horizon_interval_noRef{VH_NOREF}',
+             counts17['vh']))
+
+
+def check_disc_pin(interaction):
+    """runNonlocal's disc at DISC_PIN_NOREF against the pinned JAX
+    outputs."""
+    from pynucleus_tpu_torch.drivers.runNonlocal import main
+    out = main(nonlocal_argv('disc', DISC_PIN_NOREF, 'sparse', 'cg-mg')
+               + ['--interaction', interaction], quiet=True)
+    res, errs = out['results'].toDict(), out['errors'].toDict()
+    ref = JAX_DISC[interaction]
+    got = errs['L2 error interpolated']
+    if res['dofs'] != ref['dofs'] or \
+            abs(res['iterations'] - ref['iterations']) > 1 or \
+            not abs(got - ref['L2 error interpolated']) \
+            <= RTOL_ERRORS * ref['L2 error interpolated']:
+        raise AssertionError(f'disc noRef {DISC_PIN_NOREF} {interaction}: '
+                             f'{res}, {errs} vs JAX {ref}')
+    log(f"  disc noRef {DISC_PIN_NOREF} {interaction} sparse cg-mg: dofs "
+        f"{res['dofs']}, iterations {res['iterations']}, L2 error "
+        f'interpolated {got:.7e}: the JAX outputs (dofs, iterations +-1, '
+        f'error rtol {RTOL_ERRORS})')
+    return got
+
+
+def disc_line():
+    """The full-width disc (DISC_NOREF, a path): the driver's parts, then
+    the finest classification again under tracemalloc (its peak host
+    memory)."""
+    import tracemalloc
+    from pynucleus_tpu_torch.nl.panels import classifyPairsDense
+    out, counts = run_nonlocal_path(
+        nonlocal_argv('disc', DISC_NOREF, 'sparse', 'cg-mg'), NONLOCAL_PATH)
+    tim, res = out['timers'].toDict(), out['results'].toDict()
+    dm = out['dm']
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    classifyPairsDense(dm, out['kernel'])
+    tClass = time.perf_counter() - t0
+    hostPeak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    summary = {
+        'noRef': DISC_NOREF, 'dofs': res['dofs'],
+        'cells': dm.mesh.num_cells, 'iterations': res['iterations'],
+        'L2 error interpolated':
+            out['errors'].toDict()['L2 error interpolated'],
+        'assembly_s': tim['assembly seconds'],
+        'finest_classification_s': tim[f'assembly level {DISC_NOREF} '
+                                       'classification seconds'],
+        'classification_again_s': tClass,
+        'classification_peak_host_GiB': hostPeak / 2 ** 30,
+        'A_BC_s': tim['A_BC seconds'], 'solve_s': tim['solve seconds'],
+        'peak_device_GiB': out['peak'] / 2 ** 30}
+    return summary, counts
+
+
+def ball_square(name, h, device='cuda'):
+    """(dm, kernel) of the ball ``name`` on squareWithInteractions(0, 0, 1,
+    1, horizon 0.2, h), P1 on every vertex, the indicator kernel of horizon
+    0.2 (BALLS)."""
+    import numpy as np
+    from pynucleus_tpu_torch.fem.meshes import squareWithInteractions
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.nl.kernels import (getIntegrableKernel,
+                                                interactionFactory,
+                                                INDICATOR)
+    args, normalized = BALLS[name]
+    mesh = squareWithInteractions(ax=0, ay=0, bx=1, by=1, horizon=0.2, h=h)
+    dm = P1_DoFMap(mesh, np.ones(mesh.num_vertices, dtype=bool),
+                   device=device)
+    return dm, getIntegrableKernel(2, INDICATOR, 0.2,
+                                   interaction=interactionFactory[name](*args),
+                                   normalized=normalized)
+
+
+def _patch_u(dm):
+    import torch
+    xy = dm.getDoFCoordinates()
+    return xy, torch.as_tensor(xy[:, 0] ** 2 + xy[:, 1] ** 2, device='cuda')
+
+
+def ball_pin_line(name):
+    """getDense and getSparse of the ball at BALLS_PIN_H against the pinned
+    JAX outputs (1e-11 relative) and each other (1e-12)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = ball_square(name, BALLS_PIN_H)
+    b = nonlocalBuilder(dm, kernel, zeroExterior=False)
+    A, S = b.getDense(), b.getSparse()
+    _, u = _patch_u(dm)
+    Au = A.matvec(u).cpu().numpy()
+    ref = JAX_BALLS[name]
+    got = {'fro': float(torch.linalg.norm(A.data)),
+           'Au_norm': float(np.linalg.norm(Au))}
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    rel['Au4'] = float(np.abs(Au[:4] - np.array(ref['Au4'])).max()
+                       / np.abs(ref['Au4']).max())
+    x = torch.randn(A.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(11))
+    rel['sparse_vs_dense'] = float(torch.linalg.norm(S.matvec(x)
+                                                     - A.matvec(x))
+                                   / torch.linalg.norm(A.matvec(x)))
+    bad = [f'{k} {v:.2e}' for k, v in rel.items()
+           if not v <= (TOL_KERNEL if k == 'sparse_vs_dense' else TOL_FH_PIN)]
+    if A.num_rows != ref['dofs']:
+        bad.append(f'dofs {A.num_rows}')
+    log(f'  {name} h {BALLS_PIN_H}: {A.num_rows} dofs, relative to JAX '
+        f'{json.dumps(rel)}')
+    if bad:
+        raise AssertionError(f'{name} h {BALLS_PIN_H}: ' + '; '.join(bad))
+    return rel
+
+
+def ball_line(name, h):
+    """The full-width ball square at h (a path): the host classification
+    (seconds, peak host memory), getSparse and getDense (seconds to a
+    synchronize), sparse = dense, the patch ratio of tests/
+    test_kernels_extra.py on interior dofs, the sparse apply (CUDA events
+    over 10).  Returns (summary, builder)."""
+    import tracemalloc
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import assembleMass
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = ball_square(name, h)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = nonlocalBuilder(dm, kernel, zeroExterior=False)
+    tracemalloc.start()
+    t0 = time.perf_counter()
+    info = b._classifyAll()
+    tClass = time.perf_counter() - t0
+    hostPeak = tracemalloc.get_traced_memory()[1]
+    tracemalloc.stop()
+    t0 = time.perf_counter()
+    S = b.getSparse()
+    torch.cuda.synchronize()
+    tSparse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = b.getDense()
+    torch.cuda.synchronize()
+    tDense = time.perf_counter() - t0
+    x = torch.randn(A.num_rows, dtype=torch.float64, device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(12))
+    y = torch.empty_like(x)
+    apply_ms = timed(lambda: [S.matvec(x, out=y) for _ in range(10)]) / 10
+    sparseErr = float((csr_to_dense(S, A.data) - A.data).abs().max()
+                      / A.data.abs().max())
+    xy, u = _patch_u(dm)
+    r = A.matvec(u).cpu().numpy()
+    lumped = np.asarray(assembleMass(dm).toarray()).sum(axis=1)
+    inner = ((xy[:, 0] > 0.2 + 2 * h) & (xy[:, 0] < 1 - 0.2 - 2 * h)
+             & (xy[:, 1] > 0.2 + 2 * h) & (xy[:, 1] < 1 - 0.2 - 2 * h))
+    ratio = r[inner] / lumped[inner]
+    ci, cj, _ = info['cut']
+    summary = {
+        'h': h, 'cells': dm.mesh.num_cells, 'dofs': A.num_rows,
+        'nnz': S.nnz,
+        'pairs': {'identical': len(info['id']),
+                  'touching': len(info['touching'][0]),
+                  'distant': len(info['distant'][0]), 'cut': len(ci)},
+        'classification_s': tClass,
+        'classification_peak_host_GiB': hostPeak / 2 ** 30,
+        'getSparse_s': tSparse, 'getDense_s': tDense,
+        'sparse_vs_dense': sparseErr, 'apply_ms': apply_ms,
+        'patch_ratio_mean': float(ratio.mean()),
+        'patch_ratio_range': (float(ratio.min()), float(ratio.max())),
+        'interior_dofs': int(inner.sum()),
+        'peak_device_GiB': torch.cuda.max_memory_allocated() / 2 ** 30}
+    bad = []
+    if not sparseErr <= TOL_KERNEL:
+        bad.append(f'sparse vs dense {sparseErr:.2e}')
+    if not abs(ratio.mean() - BALL1_RATIO) < 5e-2 * abs(BALL1_RATIO) or \
+            not np.all(np.abs(ratio - BALL1_RATIO)
+                       <= 15e-2 * abs(BALL1_RATIO)):
+        bad.append(f'patch ratio mean {ratio.mean()}, range '
+                   f'[{ratio.min()}, {ratio.max()}]')
+    if bad:
+        raise AssertionError(f'{name} h {h}: ' + '; '.join(bad))
+    log(f'  {name} h {h}: {json.dumps(summary)}')
+    return summary, b
+
+
+def vh_interval(noRef, horizon, s):
+    """(dm, kernel) of the variable horizon on the interval refined noRef
+    times, interior dofs."""
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.nl.kernels import (getFractionalKernel,
+                                                horizonFunction)
+    mesh = simpleInterval(-1.0, 1.0)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    return P1_DoFMap(mesh, device='cuda'), getFractionalKernel(
+        1, s, horizon=horizonFunction(*horizon))
+
+
+def vh_gmres(A, b, tol):
+    """Unpreconditioned GMRES on A x = b (one cycle of at most 5,000 Arnoldi
+    steps, tolerance tol on the residual): (iterations, x, seconds,
+    relative residual)."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    s = solverFactory.build('gmres', A=A, setup=True)
+    s.tolerance, s.maxIter = tol, 5000
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return s.iterations, x, secs, float(torch.linalg.norm(A.matvec(x) - b)
+                                        / torch.linalg.norm(b))
+
+
+def vh_pin_line():
+    """getSparse of the variable horizon at VH_PIN_NOREF and GMRES against
+    the pinned JAX outputs."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = vh_interval(VH_PIN_NOREF, *VH_PIN)
+    A = nonlocalBuilder(dm, kernel).getSparse()
+    n = A.num_rows
+    v = torch.as_tensor(np.random.default_rng(7).standard_normal(n),
+                        device='cuda')
+    Av = A.matvec(v).cpu().numpy()
+    ref = JAX_VAR_HORIZON
+    its, x, _, res = vh_gmres(A, A.matvec(torch.ones_like(v)), 1e-10)
+    got = {'fro': float(torch.linalg.norm(A.data)),
+           'Av_norm': float(np.linalg.norm(Av)),
+           'x_norm': float(torch.linalg.norm(x))}
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    rel['Av4'] = float(np.abs(Av[:4] - np.array(ref['Av4'])).max()
+                       / np.abs(ref['Av4']).max())
+    bad = [f'{k} {v:.2e}' for k, v in rel.items()
+           if not v <= (TOL_FH_X if k == 'x_norm' else TOL_FH_PIN)]
+    if n != ref['dofs'] or abs(its - ref['gmres_iterations']) > 1:
+        bad.append(f'dofs {n}, GMRES iterations {its} (JAX '
+                   f"{ref['gmres_iterations']})")
+    log(f'  variable horizon noRef {VH_PIN_NOREF}: {n} dofs, GMRES {its} '
+        f'iterations, relative to JAX {json.dumps(rel)}')
+    if bad:
+        raise AssertionError('variable horizon pins: ' + '; '.join(bad))
+    return rel
+
+
+def vh_check():
+    """getDense against getSparse of the second variable horizon at
+    VH_CHECK_NOREF (entries, 1e-12 of the largest)."""
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = vh_interval(VH_CHECK_NOREF, *VH_CHECK)
+    b = nonlocalBuilder(dm, kernel)
+    D, S = b.getDense(), b.getSparse()
+    err = float((csr_to_dense(S, D.data) - D.data).abs().max()
+                / D.data.abs().max())
+    log(f'  variable horizon noRef {VH_CHECK_NOREF} (s {VH_CHECK[1]}): '
+        f'{D.num_rows} dofs, getDense vs getSparse {err:.2e}')
+    if not err <= TOL_KERNEL:
+        raise AssertionError(f'variable horizon noRef {VH_CHECK_NOREF}: '
+                             f'dense vs sparse {err:.2e}')
+    return err
+
+
+def vh_line():
+    """The full-width variable horizon (VH_NOREF, a path): getSparse (host
+    classification and pattern, device fill), the apply (CUDA events over
+    10), unpreconditioned GMRES of A u = A 1 to TOL_VH_RES relative, the
+    peak device memory.  Returns (summary, builder)."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, kernel = vh_interval(VH_NOREF, *VH_PIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    b = nonlocalBuilder(dm, kernel)
+    t0 = time.perf_counter()
+    A = b.getSparse()
+    torch.cuda.synchronize()
+    tSparse = time.perf_counter() - t0
+    ones = torch.ones(A.num_rows, dtype=torch.float64, device='cuda')
+    rhs = A.matvec(ones)
+    y = torch.empty_like(rhs)
+    apply_ms = timed(lambda: [A.matvec(ones, out=y) for _ in range(10)]) / 10
+    its, x, secs, res = vh_gmres(A, rhs, TOL_VH_RES
+                                 * float(torch.linalg.norm(rhs)))
+    summary = {'noRef': VH_NOREF, 'cells': dm.mesh.num_cells,
+               'dofs': A.num_rows, 'nnz': A.nnz,
+               'getSparse_s': tSparse, 'parts_s': dict(b.timers),
+               'apply_ms': apply_ms, 'gmres_iterations': its,
+               'gmres_s': secs, 'relative_residual': res,
+               'error_vs_1': float(torch.linalg.norm(x - ones)
+                                   / torch.linalg.norm(ones)),
+               'peak_device_GiB': torch.cuda.max_memory_allocated() / 2 ** 30}
+    if not res <= TOL_VH_RES * 1.01 or not bool(torch.isfinite(A.data).all()):
+        raise AssertionError(f'variable horizon noRef {VH_NOREF}: '
+                             f'{json.dumps(summary)}')
+    log(f'  variable horizon noRef {VH_NOREF}: {json.dumps(summary)}')
+    return summary, b
+
+
+def csr_to_dense(S, like):
+    """The CSR operator S as a dense tensor of like's shape and device."""
+    import torch
+    D = torch.zeros_like(like)
+    D[torch.repeat_interleave(torch.arange(S.num_rows, device=like.device),
+                              torch.diff(S.indptr.long())),
+      S.indices.long()] = S.data
+    return D
+
+
+def _k19_size(A, V, vi1, vi2, index, volsym, bary_x, bary_y, w, *a):
+    """The size of a recorded K19 call: pairs x nodes."""
+    return vi1.shape[0] * w.shape[0]
+
+
+# K19 with the ball2 indicator alone (no order, no variable horizon): an
+# instance that no path of the port runs, checked on the variable horizon's
+# calls
+RADIAL_INDICATOR_COMPARED_AT = (
+    f'off the main path (no caller gives K19 an indicator without an order '
+    f'or a variable horizon; the launches are var_horizon\'s): the '
+    f'var_horizon calls (the noRef {VH_NOREF} getSparse call and the noRef '
+    f'{VH_CHECK_NOREF} getDense call) with the horizon dropped, the radial '
+    f'power profile and the ball2 indicator')
+
+
+def _radial_k19(calls):
+    """K19 calls with the variable horizon dropped (the radial power
+    profile and the interaction indicator alone)."""
+    return [((*args[:12], None, args[13], None), kw) for args, kw in calls]
+
+
+def phase17():
+    """The finite-horizon cut pairs: the disc with its collar (runNonlocal,
+    pins at noRef 3, the full-width noRef 4 line), ball1 and the ellipse
+    through the library call (pins at h 0.05, ball1 at h 0.025 with its
+    patch ratio), the variable horizon on the interval (pins at noRef 6,
+    dense = sparse at noRef 12, the full-width noRef 13 line with GMRES);
+    each full-width line and pin line a path.  Then K15 and K1 with ball1
+    and the ellipse and K19 with the variable horizon (and with its
+    indicator alone) against their plain versions.  Returns the launch
+    counts of the paths, the comparisons of the variants and a summary."""
+    import contextlib
+    import pynucleus_tpu_torch.nl.assembly as asm
+    log('phase 17: the finite-horizon cut pairs (the disc with its collar, '
+        'ball1, the ellipse, the variable horizon)')
+    summary = {'disc_pins': {i: check_disc_pin(i) for i in JAX_DISC}}
+    counts = {}
+    summary['disc'], counts['disc'] = disc_line()
+
+    def recorders(stack, names, largest):
+        sizes = {'panel_scatter': _k1_size, 'panel_scatter_slots': _k1_size,
+                 'cut2d_polar': lambda o, t, i, v, vi1, *a, **k: vi1.shape[0],
+                 'panel_scatter_nonsym': _k19_size,
+                 'panel_scatter_nonsym_slots': _k19_size}
+        return {n: stack.enter_context(ArgRecorder(
+            asm, n, dataFirst=True, size=sizes[n] if largest else None))
+            for n in names}
+    k1k15 = ('panel_scatter', 'panel_scatter_slots', 'cut2d_polar')
+    recs = {}
+    summary['ball_pins'] = {}
+    for name in BALLS:
+        with contextlib.ExitStack() as stack:
+            rec = recorders(stack, k1k15, largest=False)
+            summary['ball_pins'][name], counts[name + '_pin'] = count_path(
+                f'{name} h {BALLS_PIN_H}', BALL_PATH
+                + ('panel_scatter:' + name, 'cut2d_polar:' + name),
+                lambda: ball_pin_line(name))
+        recs[name] = rec
+    with contextlib.ExitStack() as stack:
+        recs['ball1'] = recorders(stack, k1k15, largest=True)
+        (summary['ball1'], b), counts['ball1'] = count_path(
+            f'ball1 h {BALLS_H}', BALL_PATH + ('panel_scatter:ball1',
+                                               'cut2d_polar:ball1'),
+            lambda: ball_line('ball1', BALLS_H))
+    summary['ball1']['device_ms_by_kernel'] = device_ms_by_kernel(
+        b.getSparse)
+    log(f"  ball1 h {BALLS_H}: device ms of a second getSparse "
+        f"{json.dumps(summary['ball1']['device_ms_by_kernel'])}")
+    del b
+
+    (summary['vh_pins'], counts['vh_pin']) = count_path(
+        f'variable horizon noRef {VH_PIN_NOREF}', VH_PATH, vh_pin_line)
+    with contextlib.ExitStack() as stack:
+        k19d = recorders(stack, ('panel_scatter_nonsym',), largest=True)
+        summary['vh_check'] = vh_check()
+    with contextlib.ExitStack() as stack:
+        k19s = recorders(stack, ('panel_scatter_nonsym_slots',), largest=True)
+        (summary['vh'], b), counts['vh'] = count_path(
+            f'variable horizon noRef {VH_NOREF}', VH_PATH, vh_line)
+    summary['vh']['device_ms_by_kernel'] = device_ms_by_kernel(b.getSparse)
+    log(f"  variable horizon noRef {VH_NOREF}: device ms of a second "
+        f"getSparse {json.dumps(summary['vh']['device_ms_by_kernel'])}")
+    del b
+
+    log('  the finite-horizon variants against their plain versions')
+    cmp = {}
+    for name, at in (('ball1', 'ball1'), ('ellipse', 'ellipse')):
+        r = recs[at]
+        cmp['cut2d_polar:' + name] = compare_target_kernel(
+            f'cut2d_polar ({name})', r['cut2d_polar'].calls, asm.cut2d_polar,
+            asm._cut2d_polar_plain, cut2d_work)
+        cmp['panel_scatter:' + name] = merge(
+            compare_target_kernel(f'panel_scatter ({name}, dense)',
+                                  r['panel_scatter'].calls, asm.panel_scatter,
+                                  asm._panel_scatter_plain, panel_work),
+            compare_target_kernel(f'panel_scatter ({name}, slots)',
+                                  r['panel_scatter_slots'].calls,
+                                  asm.panel_scatter_slots,
+                                  asm._panel_scatter_slots_plain, panel_work))
+    dense, slots = k19d['panel_scatter_nonsym'].calls, \
+        k19s['panel_scatter_nonsym_slots'].calls
+    for key, conv in (('var_horizon', list), ('radial_indicator',
+                                              _radial_k19)):
+        cmp['panel_scatter_nonsym:' + key] = merge(
+            compare_target_kernel(f'panel_scatter_nonsym ({key}, dense)',
+                                  conv(dense), asm.panel_scatter_nonsym,
+                                  _k19_plain('dense'), nonsym_work),
+            compare_target_kernel(f'panel_scatter_nonsym ({key}, slots)',
+                                  conv(slots), asm.panel_scatter_nonsym_slots,
+                                  _k19_plain('slots'), nonsym_work))
+    log(f'phase 17 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
 
 
 def main():
@@ -3923,6 +4508,7 @@ def main():
     counts14, cmp14, prof14, summary14 = phase14()
     counts15, cmp15, summary15 = phase15()
     counts16, cmp16, diag16, summary16 = phase16()
+    counts17, cmp17, summary17 = phase17()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -3971,7 +4557,7 @@ def main():
          counts14['disc7_h2']),
         (DERIV_VEC_PATH,
          f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
-         counts14['vector_full']))
+         counts14['vector_full'])) + FH17_PATHS(counts17)
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
@@ -4028,8 +4614,7 @@ def main():
     # the complex variants: of K9, K10 and K17 on the Helmholtz paths, of
     # K1 (dense and diagonal targets), K15 and K18 on the Greens lines
     # (every launch of these kernels there is a complex one, phases 15 and
-    # 16 check); the CUDA launches of a variant are its share of its
-    # kernel's
+    # 16 check); the CUDA launches of a variant counted where it launched
     helmholtz = (('interval_wave', 'helmholtz_interval_wave_noRef7'),
                  ('interval_greens', 'helmholtz_interval_greens_noRef7'),
                  ('square', 'helmholtz_square_wave_noRef8'))
@@ -4044,9 +4629,7 @@ def main():
             c = cmpX[name]
             bms, by = bound(c['work'])
             byPath = {label: countsX[key][name] for key, label in lines}
-            device = sum(countsX[key]['device'][base] * countsX[key][name]
-                         // countsX[key][base]
-                         for key, _ in lines if countsX[key][base])
+            device = sum(countsX[key]['device'][name] for key, _ in lines)
             row = {'name': name, 'route': route, 'source': src,
                    'replaces': replaces, 'launches': sum(byPath.values()),
                    'max_abs_err': c['err'], 'ms': c['ms'],
@@ -4058,9 +4641,40 @@ def main():
                         if k not in ('err', 'ms', 'plain_ms', 'work',
                                      'library_ms')})
             table.append(row)
+    # the finite-horizon variants of phase 17: K1 and K15 with ball1 and
+    # the ellipse, K19 with the variable horizon (and, off the path, with
+    # its indicator alone); the CUDA launches of a variant counted where it
+    # launched
+    for name in HORIZON_COMPARED_AT:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        c = cmp17[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for path, label, counts
+                  in FH17_PATHS(counts17) if counts[name]}
+        device = sum(counts['device'][name]
+                     for _, _, counts in FH17_PATHS(counts17))
+        row = {
+            'name': name, 'route': route, 'source': src,
+            'replaces': HORIZON_REPLACES[name], 'launches':
+            sum(byPath.values()), 'max_abs_err': c['err'], 'ms': c['ms'],
+            'plain_ms': c['plain_ms'], 'bound_ms': bms, 'bound_by': by,
+            'library_ms': c['library_ms'], 'launches_by_path': byPath,
+            'device_launches': device,
+            'compared_at': HORIZON_COMPARED_AT[name]}
+        if name == 'panel_scatter_nonsym:var_horizon':
+            cx = cmp17['panel_scatter_nonsym:radial_indicator']
+            xms, xby = bound(cx['work'])
+            row['at_radial_indicator'] = {
+                'max_abs_err': cx['err'], 'ms': cx['ms'],
+                'plain_ms': cx['plain_ms'], 'bound_ms': xms,
+                'bound_by': xby, 'library_ms': cx['library_ms'],
+                'compared_at': RADIAL_INDICATOR_COMPARED_AT}
+        table.append(row)
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
+    log(f'phase 17 summary: {json.dumps(summary17)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

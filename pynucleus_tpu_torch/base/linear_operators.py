@@ -158,7 +158,7 @@ def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
     kernels.launches['csr_spmv'] += 1
     kernels.deviceLaunches['csr_spmv'] += 1
     if types:
-        kernels.launches['csr_spmv:complex'] += 1
+        kernels.countVariant('csr_spmv:complex')
     p = kernels.ptr
     kernels.check(lib.csr_spmv(p(out), p(indptr), p(indices), p(data), p(x),
                                nRows, int(bool(accumulate)), types,

@@ -186,10 +186,10 @@ def gmres_arnoldi(V, w, h, j, guard):
                          * -(-w.shape[0] // k17.BLOCK)),
                         dtype=torch.float64, device=w.device)
     kernels.launches['gmres_arnoldi'] += 1
+    n = k17.launch_step(V, w, h, j, guard, parts)
+    kernels.deviceLaunches['gmres_arnoldi'] += n
     if w.is_complex():
-        kernels.launches['gmres_arnoldi:complex'] += 1
-    kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_step(
-        V, w, h, j, guard, parts)
+        kernels.countVariant('gmres_arnoldi:complex', n)
 
 
 def _checkBasis(name, B, x, rows):
@@ -232,10 +232,10 @@ def gmres_combine(x, B, y):
         return x
     from ..kernels import gmres_arnoldi as k17
     kernels.launches['gmres_arnoldi'] += 1
+    n = k17.launch_combine(x, B, y.contiguous())
+    kernels.deviceLaunches['gmres_arnoldi'] += n
     if x.is_complex():
-        kernels.launches['gmres_arnoldi:complex'] += 1
-    kernels.deviceLaunches['gmres_arnoldi'] += k17.launch_combine(
-        x, B, y.contiguous())
+        kernels.countVariant('gmres_arnoldi:complex', n)
     return x
 
 
@@ -302,10 +302,10 @@ def bicgstab_update(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):
     parts = torch.empty((5, (2 if cplx else 1) * -(-n // k18.BLOCK)),
                         dtype=torch.float64, device=x.device)
     kernels.launches['bicgstab_update'] += 1
+    n = k18.launch(mode, x, r, r0, p, v, s, t, ph, sh, scal, parts, it)
+    kernels.deviceLaunches['bicgstab_update'] += n
     if cplx:
-        kernels.launches['bicgstab_update:complex'] += 1
-    kernels.deviceLaunches['bicgstab_update'] += k18.launch(
-        mode, x, r, r0, p, v, s, t, ph, sh, scal, parts, it)
+        kernels.countVariant('bicgstab_update:complex', n)
 
 
 def _bicgstab_update_plain(mode, x, r, r0, p, v, s, t, ph, sh, scal, it):

@@ -7,7 +7,10 @@ exterior (dense or H2).
         --kernelType constant --horizon 0.2 --problem poly-Dirichlet \\
         --element P1 --solverType cg-mg|lu|mg|cg-jacobi|gmres-mg|... \\
         --matrixFormat sparse [--noRef N] \\
-        [--interaction ball2|ballInf] [--device cuda|cpu]
+        [--interaction ball2|ballInf|ellipse] [--device cuda|cpu]
+    python -m pynucleus_tpu_torch.drivers.runNonlocal --domain disc \\
+        --kernelType constant --horizon 0.2 --problem poly-Dirichlet \\
+        --element P1 --solverType cg-mg --matrixFormat sparse [--noRef N]
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain interval \\
         --kernelType gaussian --problem gaussian --gaussianVariance 0.1 \\
         --interaction fullSpace --horizon inf --solverType lu \\
@@ -17,11 +20,13 @@ Port of drivers/runNonlocal.py (pynucleus_tpu/nl/problems.py
 nonlocalPoissonProblem and nl/discretized.py discretizedNonlocalProblem)
 with the flags and defaults of the JAX driver: kernelType constant,
 horizon 0.2, s const(0.4), interaction ball2, gaussianVariance and
-exponentialRate 1, noRef 8 on the interval and 2 on the square.  The
-interval and the square take the poly-Dirichlet and constant problems, the
-interval also the gaussian and exponential ones; poly-Neumann (the Sum
-operator), the disc with a collar and a finite-horizon gaussian or
-exponential kernel are not ported.  It runs on the card unless ``--device cpu`` asks
+exponentialRate 1, noRef 8 on the interval, 2 on the square and 4 on the
+disc.  The interval, the square and the disc (of radius 1, its collar the
+ring out to 1 + horizon) take the poly-Dirichlet and constant problems,
+the interval also the gaussian and exponential ones; ``--interaction
+ellipse`` is ball2, as the JAX driver maps it.  poly-Neumann (the Sum
+operator) and a finite-horizon gaussian or exponential kernel are not
+ported.  It runs on the card unless ``--device cpu`` asks
 for the CPU; asking for the card without one raises.  With a multigrid
 solver every level noRef 0 ... N is assembled in the requested format.  It
 prints the JAX driver's ``results`` and ``errors`` labels, in float64, and
@@ -49,7 +54,7 @@ def parser():
     p.add_argument('--s', default='const(0.4)')
     p.add_argument('--horizon', type=float, default=0.2)
     p.add_argument('--interaction', default='ball2',
-                   choices=['ball2', 'ballInf', 'fullSpace'])
+                   choices=['ball2', 'ballInf', 'fullSpace', 'ellipse'])
     p.add_argument('--gaussianVariance', type=float, default=1.0)
     p.add_argument('--exponentialRate', type=float, default=1.0)
     p.add_argument('--normalized', dest='normalized', action='store_true',
@@ -57,7 +62,7 @@ def parser():
     p.add_argument('--no-normalized', dest='normalized',
                    action='store_false')
     p.add_argument('--domain', default='interval',
-                   choices=['interval', 'square'])
+                   choices=['interval', 'square', 'disc'])
     p.add_argument('--problem', default='poly-Dirichlet', choices=PROBLEMS)
     p.add_argument('--element', default='P1', choices=['P1'])
     p.add_argument('--noRef', type=int, default=-1)

@@ -2,8 +2,9 @@
 
 Carried over from pynucleus_tpu/fem/meshes.py (host numpy): simpleInterval,
 the disc (circle + radialMeshTransformer), the uniform square and the
-interval and square extended by an interaction collar of width horizon
-(intervalWithInteraction, uniformSquare, squareWithInteractions), red
+interval, square and disc extended by an interaction collar of width
+horizon (intervalWithInteraction, uniformSquare, squareWithInteractions,
+discWithInteraction), red
 refinement, the boundary facets of the default PHYSICAL tag and the
 outward-oriented surface mesh of the zero-exterior term.  Vertex and cell
 numbering are those of the JAX package, so both packages refine to
@@ -20,7 +21,8 @@ NO_BOUNDARY = np.iinfo(np.int32).min
 
 __all__ = ['simplexMesh', 'simpleInterval', 'circle', 'radialMeshTransformer',
            'intervalWithInteraction', 'uniformSquare',
-           'squareWithInteractions', 'PHYSICAL', 'NO_BOUNDARY']
+           'squareWithInteractions', 'discWithInteraction', 'PHYSICAL',
+           'NO_BOUNDARY']
 
 
 class simplexMesh:
@@ -319,3 +321,13 @@ class radialMeshTransformer:
         scale = np.where(onCircle & (rm > 0),
                          target / np.maximum(rm, 1e-300), 1.0)
         newMesh.vertices[newIdx] = center + (mids - center) * scale[:, None]
+
+
+def discWithInteraction(radius=1.0, horizon=0.1, h=0.25):
+    """The disc of radius + horizon (pynucleus_tpu/fem/meshes.py:720): the
+    interaction collar is the ring beyond ``radius``, which no mesh line
+    follows (the domain indicator picks the dofs); refinement projects the
+    boundary nodes onto the outer circle."""
+    m = circle(h=h, radius=radius + horizon)
+    m.transformer = radialMeshTransformer()
+    return m

@@ -31,7 +31,7 @@ from .config import getDevice
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
-                         getComplexKernel, interactionFactory,
+                         getComplexKernel, interactionFactory, horizonFunction,
                          leftRightFractionalOrder, GREENS_2D, GREENS_3D)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .nl.problems import parseFractionalOrder
@@ -54,8 +54,12 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     of order s (normalized unless ``scaling`` is given), the gaussian one
     of variance ``gaussianVariance`` or the exponential one of rate
     ``exponentialRate``; of a finite ``horizon`` the fractional, indicator
-    ('constant') or peridynamic ('inverseDistance') kernel with the ball2
-    or ballInf ``interaction`` (nl.problems processKernel).  The order s is
+    ('constant') or peridynamic ('inverseDistance') kernel with the
+    ``interaction`` ball2, ballInf, ball1 or the ellipse as ('ellipse',
+    aFac, bFac, theta) (nl.kernels.interactionFactory); a ``horizon``
+    (c0, c, min, max) makes the fractional kernel's horizon the affine
+    delta(x) = clip(c0 + c x_0, min, max) (nl.kernels.horizonFunction).
+    The order s is
     a number, a string of nl.problems.parseFractionalOrder
     ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)', ...) or the
     parameters (sll, srr[, slr, srl]) of a leftRight order.  With
@@ -91,7 +95,15 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
             return mesh, dm, getFractionalKernel(dim, s, normalized=normalized,
                                                  derivative=derivative)
         return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
-    inter = interactionFactory[interaction]()
+    if isinstance(horizon, (tuple, list)):
+        if kernelType != 'fractional':
+            raise NotImplementedError('a variable horizon of the '
+                                      f'{kernelType} kernel')
+        return mesh, dm, getFractionalKernel(
+            dim, s, horizon=horizonFunction(*horizon), normalized=normalized)
+    name, *iargs = (interaction,) if isinstance(interaction, str) \
+        else interaction
+    inter = interactionFactory[name](*iargs)
     if kernelType == 'fractional':
         kernel = getFractionalKernel(dim, s, horizon=horizon,
                                      interaction=inter, scaling=scaling,

@@ -39,8 +39,9 @@ Twenty-three kernels carry the port's device work:
   K14 cut1d         (csrc/cut_cells.cu)      1D pairs cut by the horizon:
                     exact interval clipping
   K15 cut2d_polar   (csrc/cut_cells.cu)      2D pairs cut by the horizon:
-                    kink-split polar rays clipped to the cell and the ball;
-                    the power profile, or the complex greens2D one
+                    kink-split polar rays clipped to the cell and the ball
+                    (ball2, ballInf, ball1 or the ellipse); the power
+                    profile, or the complex greens2D one
   K16 csr_scatter   (csrc/csr_scatter.cu)    local stiffness and mass
                     matrices summed into CSR data, one thread per slot
                     over its host-sorted contributions
@@ -56,7 +57,10 @@ Twenty-three kernels carry the port's device work:
                                              t1 PHIxPSI - t2 PHIyPSI with
                                              t1 = gamma(x, y), t2 = gamma(y, x),
                                              into dense A or CSR data at
-                                             explicit (entry-masked) slots
+                                             explicit (entry-masked) slots;
+                                             times the interaction
+                                             indicator of a finite horizon;
+                                             a variable horizon delta(x)
   K20 h2_matvec_T   (csrc/h2_matvec.cu)      transposed H2 apply of a
                     nonsymmetric operator: K8's sweeps, the far blocks
                     transposed with source and target swapped, the near
@@ -82,8 +86,12 @@ VectorParams).  K1, K7 and K19 also take a
 variable fractional order (nl/kernels.py OrderParams: constantNonSym,
 leftRight), s(x, y) and its normalization per node in common.cuh
 kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
-seven profiles without an order, the power profile with each order).
-K14 and K15 take the power profile only, K15 also the complex one.  The
+seven profiles without an order, the power profile with each order);
+K19 also the variable horizon delta(x) of a constant order (its own
+Horizon argument and instances).  K1 and K19 apply the interaction
+indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
+ball1, the ellipse with its map T), K15 clips its rays in the same balls'
+norms.  K14 and K15 take the power profile only, K15 also the complex one.  The
 complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
 functions of pynucleus_tpu/nl/kernels.py _bessel_j0y0) has its own
 instances: K1's complex variant (dense and diagonal targets) and K15's.
@@ -109,9 +117,14 @@ of K9, K10, K17, K15 and K18 (their own template instances and Triton
 kernels) also under ``csr_spmv:complex``, ``jacobi_smooth:complex``,
 ``gmres_arnoldi:complex``, ``cut2d_polar:complex`` and
 ``bicgstab_update:complex``, K1's under ``panel_scatter:complex`` (dense
-target) and ``panel_scatter:complex_diag`` (diagonal target).
-``deviceLaunches`` counts, per kernel, the CUDA launches those calls
-made: one per call, except for K2 (two), K4 (three in the Jacobi form,
+target) and ``panel_scatter:complex_diag`` (diagonal target); the
+finite-horizon variants (HORIZON) under ``panel_scatter:ball1`` and
+``:ellipse`` (K1 with those indicators), ``cut2d_polar:ball1`` and
+``:ellipse``, and ``panel_scatter_nonsym:var_horizon`` (K19's
+variable-horizon instances).
+``deviceLaunches`` counts, per kernel and per complex or finite-horizon
+variant, the CUDA launches those calls made, where they launched: one per
+call, except for K2 (two), K4 (three in the Jacobi form,
 four in the general form), K8 (one per pass that has work, as the C entry
 point reports: at most 2 nLvl + 2 for an operator of nLvl levels), K20
 (the same way, at most 2 nLvl + 3), K17 (j + 3 for Arnoldi step j, two to
@@ -150,9 +163,14 @@ COMPLEX = ('csr_spmv:complex', 'jacobi_smooth:complex',
            'gmres_arnoldi:complex', 'panel_scatter:complex',
            'panel_scatter:complex_diag', 'cut2d_polar:complex',
            'bicgstab_update:complex')
+# the finite-horizon variants: K1 and K15 with the ball1 and ellipse
+# interactions, K19 with the variable horizon
+HORIZON = ('panel_scatter:ball1', 'panel_scatter:ellipse',
+           'cut2d_polar:ball1', 'cut2d_polar:ellipse',
+           'panel_scatter_nonsym:var_horizon')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS + COMPLEX}
-deviceLaunches = {k: 0 for k in KERNELS}
+            + K23_FORMS + COMPLEX + HORIZON}
+deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
@@ -169,6 +187,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
 _lib = None
+
+
+def countVariant(key, device=1):
+    """Counts a wrapper call of a complex or finite-horizon variant
+    (``key``) and the ``device`` CUDA launches it made."""
+    launches[key] += 1
+    deviceLaunches[key] += device
 
 
 def resetLaunches():
@@ -235,19 +260,25 @@ def _declare(lib):
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
     # exponent base, boundary (nl/kernels.py orderArgs)
     ORD = (I, D, D, D, D, D, D, D, D, I)
+    # an interaction indicator: code, h2, T00, T01, T10, T11 (nl/kernels.py
+    # Indicator)
+    IND = (I, D, D, D, D, D)
+    # a variable horizon: on, c0, c, min, max, 2 - 2s, 2s - 2, d,
+    # Gamma(d/2), pi^(d/2), -d/2 - s, normalized (nl/kernels.py horizonArgs)
+    HOR = (I, D, D, D, D, D, D, D, D, D, D, I)
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile (code, C, e, a),
-        # inter, h2, order, yShift, stream
+        # indicator, order, yShift, stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, *PROF, I, D, *ORD, P, P],
-        # A_BC, NB, then as panel_scatter up to h2 (a finite horizon: no
-        # variable order, no y shift), stream
+                          P, P, P, P, I, *PROF, *IND, *ORD, P, P],
+        # A_BC, NB, then as panel_scatter up to the indicator (a finite
+        # horizon: no variable order, no y shift), stream
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, *PROF, I, D, P],
+                                P, P, P, P, I, *PROF, *IND, P],
         # d, N, then as panel_scatter_cross
         'panel_scatter_diag': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                               P, P, P, P, I, *PROF, I, D, P],
+                               P, P, P, P, I, *PROF, *IND, P],
         # A, N, X, Q, dim, ccf, vols, dofs, dpe, C, PhiXw, PhiX, PsiYw, w,
         # t_lo, t_hi, profile, R, stream
         'grid_distant': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
@@ -257,17 +288,20 @@ def _declare(lib):
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, *PROF, I, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
-        # normals, P, bary_x, bary_y, w, PSIP, Q, profile, inter, h2, order,
+        # normals, P, bary_x, bary_y, w, PSIP, Q, profile, indicator, order,
         # yShift, stream
         'panel_scatter_slots': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                P, P, P, P, I, *PROF, I, D, *ORD, P, P],
+                                P, P, P, P, I, *PROF, *IND, *ORD, P, P],
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym, P,
-        # bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, profile, order, stream
+        # bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, profile, indicator, order,
+        # horizon, stream
         'panel_scatter_nonsym': [P, L, P, I, P, I, P, I, P, I, P, L,
-                                 P, P, P, P, P, I, *PROF, *ORD, P],
+                                 P, P, P, P, P, I, *PROF, *IND, *ORD, *HOR,
+                                 P],
         # data, nnz, then as panel_scatter_nonsym with slots for dofRows
         'panel_scatter_nonsym_slots': [P, L, P, I, P, I, P, I, P, I, P, L,
-                                       P, P, P, P, P, I, *PROF, *ORD, P],
+                                       P, P, P, P, P, I, *PROF, *IND, *ORD,
+                                       *HOR, P],
         # A, N, V, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # P, bary_x, bary_y, w, PSIP, Q, table, interface, lnEta, cw1, cw2,
         # stream
@@ -284,9 +318,9 @@ def _declare(lib):
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P,
         # bary_x, wx, Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter,
-        # profile code, C, e, a, stream
+        # T00, T01, T10, T11, profile code, C, e, a, stream
         'cut2d_polar': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, P, P,
-                        I, D, I, I, D, D, D, P],
+                        I, D, I, D, D, D, D, I, D, D, D, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
         # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, stream

@@ -364,19 +364,40 @@ struct EnumTables {
 constexpr long long DROP_HALF = -536870912LL;
 
 // Interaction indicator of a finite horizon at one node pair
-// (pynucleus_tpu/nl/kernels.py jaxIndicator): code 1 ball2, |x-y|^2 < h2;
-// code 2 ballInf, max_d |x_d-y_d|^2 < h2; code 0 the full space.  Products
-// and sums round separately (no FMA), as the plain versions' operations do.
-__device__ __forceinline__ bool inBall(int code, const double* x,
-                                       const double* y, int dim, double h2) {
-    if (code == 0) return true;
-    double r2 = 0.0, m = 0.0;
+// (pynucleus_tpu/nl/kernels.py jaxIndicator; pynucleus_tpu_torch/nl/
+// kernels.py Indicator and indicatorMask): code 1 ball2, |x-y|^2 < h2;
+// code 2 ballInf, max_d |x_d-y_d|^2 < h2; code 3 ball1, (sum_d |x_d-y_d|)^2
+// < h2; code 4 the ellipse (2D), |T (x-y)|^2 < h2 with T = [[t00, t01],
+// [t10, t11]] in the order of jnp.einsum('ij,...j') (t_i0 d_0, then
+// + t_i1 d_1); code 0 the full space.  Every product and sum rounds on its
+// own (no FMA), as the plain versions' operations do.
+struct Inter {
+    int code;
+    double h2;
+    double t00, t01, t10, t11;
+};
+
+__device__ __forceinline__ bool inBall(const Inter& in, const double* x,
+                                       const double* y, int dim) {
+    if (in.code == 0) return true;
+    if (in.code == 4) {
+        const double d0 = __dsub_rn(x[0], y[0]), d1 = __dsub_rn(x[1], y[1]);
+        const double a = __dadd_rn(__dmul_rn(in.t00, d0),
+                                   __dmul_rn(in.t01, d1));
+        const double b = __dadd_rn(__dmul_rn(in.t10, d0),
+                                   __dmul_rn(in.t11, d1));
+        return __dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b)) < in.h2;
+    }
+    double r2 = 0.0, m = 0.0, l1 = 0.0;
     for (int d = 0; d < dim; ++d) {
         const double dd = __dsub_rn(x[d], y[d]);
         r2 = __dadd_rn(r2, __dmul_rn(dd, dd));
         m = fmax(m, fabs(dd));
+        l1 = __dadd_rn(l1, fabs(dd));
     }
-    return code == 1 ? r2 < h2 : __dmul_rn(m, m) < h2;
+    if (in.code == 1) return r2 < in.h2;
+    if (in.code == 2) return __dmul_rn(m, m) < in.h2;
+    return __dmul_rn(l1, l1) < in.h2;
 }
 
 // Quadrature node q of a pair: x_q = sum_a bary_x[a,q] v1[a] and y_q =
@@ -406,7 +427,7 @@ __device__ __forceinline__ double panelNode(
 // lanes lane, lane+nl, ... of the pair's Q nodes accumulate
 //   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v] (+ ysh)
 //   t_q = gamma(x_q, y_q) w_q (* n.(y_q-x_q)/|y_q-x_q|)
-//         (* chi(x_q, y_q) for a finite horizon, inter != 0) volsym
+//         (* chi(x_q, y_q) for a finite horizon, in.code != 0) volsym
 //   acc[k] += t_q PSIP[q, k]
 // (acc zeroed here); the caller reduces across its nl lanes.  gamma is
 // kernelXY<PC, OC>: the radial profile, or a variable order's kernel;
@@ -421,7 +442,7 @@ __device__ __forceinline__ void panelQuad(
     const double* nrm /* [dim] or nullptr */, double vs,
     const double* __restrict__ bary_x, const double* __restrict__ bary_y,
     const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
-    const Profile& pf, int lane, int nl, int inter = 0, double h2 = 0.0,
+    const Profile& pf, int lane, int nl, const Inter in = Inter{},
     const Order od = Order{}, const double* ysh = nullptr,
     double* acci = nullptr) {
 #pragma unroll
@@ -435,7 +456,7 @@ __device__ __forceinline__ void panelQuad(
                                         bary_y, Q, q, nullptr);
             const double2 g = radialC(r2, pf);
             double tr = g.x * w[q], ti = g.y * w[q];
-            if (!inBall(inter, x, y, dim, h2)) tr = ti = 0.0;
+            if (!inBall(in, x, y, dim)) tr = ti = 0.0;
             tr *= vs;
             ti *= vs;
             const double* ps = PSIP + (long long)q * NN;
@@ -452,7 +473,7 @@ __device__ __forceinline__ void panelQuad(
             const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
                                         bary_y, Q, q, ysh);
             double t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
-            if (!inBall(inter, x, y, dim, h2)) t = 0.0;
+            if (!inBall(in, x, y, dim)) t = 0.0;
             if (nrm != nullptr) {
                 double fac = 0.0;
                 if (r2 > 0.0) {

@@ -20,12 +20,15 @@
 //     divisor, as jnp.mod and torch.remainder; C's fmod alone would
 //     follow the dividend);
 //   - kink candidates: the 3 vertex directions, plus the corner directions
-//     (0.25, 0.75, 1.25, 1.75) pi of ballInf; clipped to the window and
+//     (0.25, 0.75, 1.25, 1.75) pi of ballInf or (0, 0.5, 1, 1.5) pi of
+//     ball1 (the ellipse is smooth: none); clipped to the window and
 //     sorted with its ends (at most 9 bounds, 8 segments);
 //   - per segment the Gauss angles (thetas, wtheta); per angle the ray's
 //     entry and exit through the triangle (edge hits with the 1e-14 and
 //     1e-12 thresholds of the JAX program, at least 2 hits), the exit
-//     clipped at delta / |d| (|d| = 1 for ball2, max|d_i| for ballInf);
+//     clipped at delta / |d| (the interaction norm of the direction,
+//     jaxDirNorm: |d|_2 for ball2, max|d_i| for ballInf, |d_0| + |d_1| for
+//     ball1, |T d|_2 for the ellipse, T applied as jnp.einsum does);
 //   - the radial Gauss rule (rq, wr) on [rLo, rHi]; y = x + r d and its
 //     barycentrics in cell 2 (the P1 shape functions);
 //   W = gamma(r^2) r w_r w_theta w_x,  M += W psi psi^T, M *= 2 vol1.
@@ -190,7 +193,7 @@ cut1d_kernel(double* __restrict__ out, long long N,
 
 constexpr int CUT_WARPS = 8;   // warps (pairs) per block
 constexpr int MAXQX = 32;      // x nodes of a cut rule (orders <= 16: 25)
-constexpr int MAXB = 9;        // window ends, 3 vertices, 4 ballInf corners
+constexpr int MAXB = 9;        // window ends, 3 vertices, 4 ball corners
 constexpr double PI_D = 3.141592653589793;
 constexpr double TWO_PI_D = 6.283185307179586;
 
@@ -216,7 +219,7 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
                    const double* __restrict__ wtheta, int Qt,
                    const double* __restrict__ rq,
                    const double* __restrict__ wr, int Qr, double horizon,
-                   int inter, Profile pf) {
+                   Inter in, Profile pf) {
     constexpr int N2 = 6, NU = N2 * (N2 + 1) / 2;
     __shared__ double bnd[CUT_WARPS][MAXQX][MAXB];
     __shared__ double xs[CUT_WARPS][MAXQX][2];
@@ -227,7 +230,9 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
     double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
     loadSimplex(v1, vertices, vi1 + pair * 3, 3, 2);
     loadSimplex(v2, vertices, vi2 + pair * 3, 3, 2);
-    const int nb = inter == 2 ? 9 : 5;  // sorted window bounds
+    // the corner directions of ballInf (code 2) and ball1 (code 3)
+    const bool corners = in.code == 2 || in.code == 3;
+    const int nb = corners ? 9 : 5;  // sorted window bounds
     const int S = nb - 1;               // segments
 
     // the window bounds of each x node, one x node per lane
@@ -254,10 +259,12 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
         bb[0] = thLo;
         for (int a = 0; a < 3; ++a)
             bb[1 + a] = fmin(fmax(angC + dAng[a], thLo), thHi);
-        if (inter == 2) {
-            const double om[4] = {0.25, 0.75, 1.25, 1.75};
+        if (corners) {
+            const double omInf[4] = {0.25, 0.75, 1.25, 1.75};
+            const double om1[4] = {0.0, 0.5, 1.0, 1.5};
             for (int c = 0; c < 4; ++c) {
-                const double rec = angC + mod2pi(om[c] * PI_D - angC + PI_D)
+                const double om = in.code == 2 ? omInf[c] : om1[c];
+                const double rec = angC + mod2pi(om * PI_D - angC + PI_D)
                                    - PI_D;
                 bb[4 + c] = fmin(fmax(rec, thLo), thHi);
             }
@@ -318,8 +325,18 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
             }
         }
         if (hits < 2) continue;  // rLo = rHi = 0: no contribution
-        const double dNorm = inter == 2 ? fmax(fabs(d0), fabs(d1))
-                                        : sqrt(d0 * d0 + d1 * d1);
+        double dNorm;
+        if (in.code == 2) {
+            dNorm = fmax(fabs(d0), fabs(d1));
+        } else if (in.code == 3) {
+            dNorm = fabs(d0) + fabs(d1);
+        } else if (in.code == 4) {
+            const double a = in.t00 * d0 + in.t01 * d1;
+            const double b = in.t10 * d0 + in.t11 * d1;
+            dNorm = sqrt(a * a + b * b);
+        } else {
+            dNorm = sqrt(d0 * d0 + d1 * d1);
+        }
         const double rBall = horizon / fmax(dNorm, 1e-30);
         const double rLo = tIn;
         const double rHi = fmax(fmin(tOut, rBall), rLo);
@@ -401,11 +418,13 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
                        long long P, const double* bary_x, const double* wx,
                        int Qx, const double* thetas, const double* wtheta,
                        int Qt, const double* rq, const double* wr, int Qr,
-                       double horizon, int inter, int pcode, double C,
+                       double horizon, int inter, double t00, double t01,
+                       double t10, double t11, int pcode, double C,
                        double e, double a, cudaStream_t stream) {
     if (P <= 0) return 0;
-    if (Qx > MAXQX || (inter != 1 && inter != 2))
+    if (Qx > MAXQX || inter < 1 || inter > 4)
         return static_cast<int>(cudaErrorInvalidValue);
+    const Inter in{inter, 0.0, t00, t01, t10, t11};
     const long long blocks = (P + CUT_WARPS - 1) / CUT_WARPS;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
     const Profile pf{pcode, C, e, a};
@@ -413,7 +432,7 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
     cut2d_polar_kernel<T, CX><<<(unsigned)blocks, CUT_WARPS * 32, 0,        \
                                 stream>>>(                                  \
         out, N, vertices, vi1, vi2, vols1, dofRows, slots, P, bary_x, wx,   \
-        Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter, pf)
+        Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, in, pf)
     if (pcode == PROFILE_GREENS_2D) {
         switch (target) {
             case CUT_DENSE: LAUNCH(CUT_DENSE, true); break;

@@ -9,7 +9,8 @@
 //   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
 //         (+ yShift[p], a variable order's surface items)
 //   t_q = gamma(x_q, y_q) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
-//         (* chi(x_q, y_q), the interaction indicator of a finite horizon)
+//         (* chi(x_q, y_q), the interaction indicator of a finite horizon:
+//         ball2, ballInf, ball1 or the ellipse, common.cuh inBall)
 //   M[I,J] = sum_q t_q PSIP[q, I*nPSI+J]
 // gamma is the kernel's radial profile or, for a variable fractional order
 // (constantNonSym, leftRight: pynucleus_tpu/nl/kernels.py
@@ -72,7 +73,7 @@ panel_scatter_kernel(double* __restrict__ out,
                      const double* __restrict__ bary_y,
                      const double* __restrict__ w,
                      const double* __restrict__ PSIP, int Q,
-                     Profile pf, int inter, double h2, Order od,
+                     Profile pf, Inter in, Order od,
                      const double* __restrict__ yShift) {
     constexpr int NN = NPSI * NPSI;
     constexpr bool CPLX = PC == PROFILE_GREENS_2D;
@@ -92,9 +93,9 @@ panel_scatter_kernel(double* __restrict__ out,
     double acc[NN], acci[CPLX ? NN : 1];
     panelQuad<NN, PC, OC>(acc, v1, nv1, v2, nv2, dim,
                           normals != nullptr ? nrm : nullptr, volsym[pair],
-                          bary_x, bary_y, w, PSIP, Q, pf, lane, 32, inter, h2,
-                          od, yShift != nullptr ? yShift + pair * dim
-                                                : nullptr, acci);
+                          bary_x, bary_y, w, PSIP, Q, pf, lane, 32, in, od,
+                          yShift != nullptr ? yShift + pair * dim : nullptr,
+                          acci);
 #pragma unroll
     for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
 
@@ -164,7 +165,7 @@ static int launchPanel(double* out, long long N, const double* vertices,
                        const int* offF, const int* offB, TreeTables tt,
                        const double* bary_x, const double* bary_y,
                        const double* w, const double* PSIP, int Q, Profile pf,
-                       int inter, double h2, Order od, const double* yShift,
+                       Inter in, Order od, const double* yShift,
                        cudaStream_t stream) {
     if (P <= 0) return 0;
     if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
@@ -177,7 +178,7 @@ static int launchPanel(double* out, long long N, const double* vertices,
                                                stream>>>(                    \
         out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
         normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, pf,  \
-        inter, h2, od, yShift)
+        in, od, yShift)
 #define NPSI_SWITCH                                                    \
     switch (nPSI) {                                                     \
         case 2: LAUNCH(2); break;                                       \
@@ -229,6 +230,7 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          const double* PSIP, int Q, int pcode, double C,
                          double e, double a,
                          double C1, double C2, int inter, double h2,
+                         double t00, double t01, double t10, double t11,
                          int ocode, double sll, double srr, double slr,
                          double srl, double iface, double piD2,
                          double halfDim, double eBase, int boundary,
@@ -237,7 +239,8 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
+                              Profile{pcode, C, e, a, C1, C2},
+                              Inter{inter, h2, t00, t01, t10, t11},
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
                               yShift, stream);
@@ -253,13 +256,15 @@ EXPORT int panel_scatter_diag(double* d, long long N,
                               const double* bary_y, const double* w,
                               const double* PSIP, int Q, int pcode, double C,
                               double e, double a, double C1, double C2,
-                              int inter, double h2, cudaStream_t stream) {
+                              int inter, double h2, double t00, double t01,
+                              double t10, double t11, cudaStream_t stream) {
     return launchPanel<DIAG>(d, N, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P,
                              nullptr, nullptr, nullptr, nullptr,
                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a, C1, C2}, inter, h2,
-                             Order{}, nullptr, stream);
+                             Profile{pcode, C, e, a, C1, C2},
+                             Inter{inter, h2, t00, t01, t10, t11}, Order{},
+                             nullptr, stream);
 }
 
 EXPORT int panel_scatter_cross(double* A, long long NB,
@@ -273,12 +278,15 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                                const double* PSIP, int Q, int pcode, double C,
                                double e, double a,
                                double C1, double C2, int inter, double h2,
+                               double t00, double t01, double t10,
+                               double t11,
                                cudaStream_t stream) {
     return launchPanel<CROSS>(A, NB, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
+                              Profile{pcode, C, e, a, C1, C2},
+                              Inter{inter, h2, t00, t01, t10, t11},
                               Order{}, nullptr, stream);
 }
 
@@ -293,6 +301,8 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                const double* PSIP, int Q, int pcode, double C,
                                double e, double a,
                                double C1, double C2, int inter, double h2,
+                               double t00, double t01, double t10,
+                               double t11,
                                int ocode, double sll, double srr, double slr,
                                double srl, double iface, double piD2,
                                double halfDim, double eBase, int boundary,
@@ -301,7 +311,8 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2}, inter, h2,
+                              Profile{pcode, C, e, a, C1, C2},
+                              Inter{inter, h2, t00, t01, t10, t11},
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
                               yShift, stream);
@@ -330,7 +341,7 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
                              bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a, C1, C2}, 0, 0.0,
+                             Profile{pcode, C, e, a, C1, C2}, Inter{},
                              Order{ocode, sll, srr, slr, srl, iface, piD2,
                                    halfDim, eBase, boundary},
                              yShift, stream);

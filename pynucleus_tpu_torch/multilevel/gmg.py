@@ -150,7 +150,7 @@ def jacobi_smooth(mode, x, b, Ax=None, Dinv=None, omega=None):
     kernels.launches['jacobi_smooth'] += 1
     kernels.deviceLaunches['jacobi_smooth'] += 1
     if x.is_complex():
-        kernels.launches['jacobi_smooth:complex'] += 1
+        kernels.countVariant('jacobi_smooth:complex')
     k10.launch(k10.MODES[mode], x, b, b if Ax is None else Ax,
                b if Dinv is None else Dinv, b if omega is None else omega)
     return x

@@ -24,7 +24,10 @@ device enumeration for the pairs that also hold higher orders.  Every
 kernel evaluates the kernel's radial profile (nl.kernels.Profile).
 Finite horizon: getDense and getSparse on the per-pair path (the
 general branch of _runPairBuckets, every cell pair classified), getH2 as
-getSparse, and getDenseCross (A_BC of the Dirichlet collar).
+getSparse, and getDenseCross (A_BC of the Dirichlet collar); the ball2,
+ballInf, ball1 and ellipse interactions, and on the interval a variable
+horizon delta(x) (nonsymmetric: K19 with the horizon indicator, its cut
+pairs on the indicator fallback of _runCutPairs).
 ``params={'nearEngine': 'flat'}`` runs the flat engine alone (the JAX
 ``PYNUCLEUS_TPU_BLOCK_NEAR=0``), ``'host'`` the host enumeration (the JAX
 ``PYNUCLEUS_TPU_HOST_ENUM=1``).  Host numpy classifies cell pairs
@@ -55,10 +58,13 @@ pattern exactly as the JAX package does; the device work is:
   K14 cut1d          finite horizon, 1D: pairs cut by the horizon, exact
                      interval clipping (dense, CSR slots or A_BC)
   K15 cut2d_polar    finite horizon, 2D: pairs cut by the horizon, polar
-                     rays clipped to the cell and the ball2 or ballInf ball
+                     rays clipped to the cell and the ball2, ballInf, ball1
+                     or ellipse ball
   K19 panel_scatter_nonsym  the nonsymmetric local matrices of a variable
-                     or nonsymmetric order's pairs, into a dense A or into
-                     the H2 near field at entry-masked slots
+                     or nonsymmetric order's pairs or of a variable
+                     horizon's (times its indicator), into a dense A, into
+                     the sparse format's slots or into the H2 near field
+                     at entry-masked slots
   K21 panel_scatter_vec  vector-valued local matrices [nPSI^2, V] of a
                      vector kernel's zero-exterior pairs, with the singular
                      rules' log correction, into a dense A [N, N, V]
@@ -108,7 +114,10 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
 from .kernels import (radialEval, profileArgs, POWER, evalXY, orderArgs,
-                      vectorTerms, COMPLEX_PROFILES, GREENS_2D_PROFILE)
+                      horizonArgs, vectorTerms, COMPLEX_PROFILES,
+                      GREENS_2D_PROFILE, IDENTITY_T,
+                      BALL2, BALL_INF, BALL1, ELLIPSE, indicatorMask,
+                      dirNorm)
 from ..base.linear_operators import (Dense_VectorLinearOperator,
                                      H2_VectorLinearOperator)
 
@@ -203,15 +212,47 @@ def _scatterCross(A, rows, cols, vals):
 
 
 def _indicatorArgs(indicator):
-    """(code, h2) of an interaction indicator for the C entry points: 0 for
-    none (infinite horizon), 1 ball2, 2 ballInf."""
+    """(code, h2, T00, T01, T10, T11) of an interaction indicator
+    (nl.kernels.Indicator, or a (code, h2) pair of a ball without T) for
+    the C entry points: code 0 for none (infinite horizon), 1 ball2, 2
+    ballInf, 3 ball1, 4 the ellipse."""
     if indicator is None:
-        return 0, 0.0
-    code, h2 = indicator
-    if code not in (0, 1, 2):
-        raise ValueError(f'indicator code {code}: 0, 1 (ball2) or 2 '
-                         '(ballInf)')
-    return int(code), float(h2)
+        return (0, 0.0) + IDENTITY_T
+    code, h2, *T = indicator
+    if code not in range(5) or (code == ELLIPSE and not T):
+        raise ValueError(f'indicator {indicator!r}: code 0 to 4 (ball2, '
+                         'ballInf, ball1, ellipse with its T)')
+    return (int(code), float(h2)) + tuple(float(v) for v in
+                                          (T[0] if T else IDENTITY_T))
+
+
+def _ballKey(code):
+    """The launch-count suffix of the ball1 and ellipse variants of K1 and
+    K15 (interaction code 3 or 4), else None."""
+    return {BALL1: 'ball1', ELLIPSE: 'ellipse'}.get(code)
+
+
+def _countBall(name, indicator):
+    """Counts a launch of K1 with a ball1 or ellipse indicator."""
+    key = _ballKey(0 if indicator is None else int(indicator[0]))
+    if key:
+        kernels.countVariant(f'{name}:{key}')
+
+
+def _interArgs(inter):
+    """(code, T) of K15's interaction: an int code 1-3 (ball2, ballInf,
+    ball1), or an object with ``code`` and ``T`` (an interaction domain or
+    an nl.kernels.Indicator; the ellipse, code 4, needs its T)."""
+    if isinstance(inter, (int, np.integer)):
+        code, T = int(inter), IDENTITY_T
+        if code == ELLIPSE:
+            raise ValueError('cut2d_polar: the ellipse needs its T')
+    else:
+        code, T = int(inter.code), tuple(float(v) for v in inter.T)
+    if code not in (BALL2, BALL_INF, BALL1, ELLIPSE):
+        raise ValueError(f'cut2d_polar: inter {code}: 1 (ball2), 2 '
+                         '(ballInf), 3 (ball1) or 4 (ellipse)')
+    return code, T
 
 
 # ------------------------------------------------------------------ K1 ----
@@ -229,9 +270,10 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
     dofRows [P, nPSI]; volsym [P]; normals [P, dim] or None; bary_x
     [nv1, Q], bary_y [nv2, Q], w [Q], PSIP [Q, nPSI^2]; gamma the radial
     profile ``prof`` (nl.kernels.Profile, evaluated as nl.kernels.radialEval);
-    indicator (code, h2) the interaction indicator chi of a finite horizon
-    (code 1: |x-y|^2 < h2, ball2; code 2: max|x_d-y_d|^2 < h2, ballInf), or
-    None.  gamma(x, y) is nl.kernels.evalXY: the profile, or with ``order``
+    indicator (nl.kernels.Indicator: code, h2, T) the interaction
+    indicator chi of a finite horizon (code 1: |x-y|^2 < h2, ball2; code 2:
+    max|x_d-y_d|^2 < h2, ballInf; code 3: (sum|x_d-y_d|)^2 < h2, ball1;
+    code 4: |T (x-y)|^2 < h2, the ellipse), or None.  gamma(x, y) is nl.kernels.evalXY: the profile, or with ``order``
     (nl.kernels.OrderParams) a variable fractional order's kernel; yShift
     [P, dim] (or None) is added to pair p's y nodes (useYShift of the JAX
     program: the side of an order jump of a surface item).
@@ -288,8 +330,9 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
     kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:' + target] += 1
     if A.is_complex():
-        kernels.launches['panel_scatter:complex'
-                         + ('' if target == 'dense' else '_diag')] += 1
+        kernels.countVariant('panel_scatter:complex'
+                             + ('' if target == 'dense' else '_diag'))
+    _countBall('panel_scatter', indicator)
     p = kernels.ptr
     kernels.check(getattr(lib, fn)(
         p(A), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
@@ -406,12 +449,8 @@ def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
         y = y + yShift[:, None, :]
     r2 = ((x - y) ** 2).sum(-1)
     t = evalXY(x, y, r2, prof, order) * w[None, :]
-    code, h2 = _indicatorArgs(indicator)
-    if code == 1:
-        t = t * (r2 < h2)
-    elif code == 2:
-        m = (x - y).abs().amax(-1)
-        t = t * (m * m < h2)
+    if indicator is not None and int(indicator[0]) != 0:
+        t = t * indicatorMask(x, y, r2, indicator)
     if normals is not None:
         pos = r2 > 0
         fac = torch.einsum('pd,pqd->pq', normals, y - x) \
@@ -497,6 +536,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
     kernels.launches['panel_scatter'] += 1
     kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:slots'] += 1
+    _countBall('panel_scatter', indicator)
     p = kernels.ptr
     kernels.check(lib.panel_scatter_slots(
         p(data), data.shape[0] - 1, p(vertices), dim, p(vi1), vi1.shape[1],
@@ -644,20 +684,25 @@ def _nonsymArgs(name, out, vertices, vi1, vi2, volsym, bary_x, bary_y, w,
 
 
 def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
-                         bary_y, w, PHIxPSI, PHIyPSI, prof, order=None):
+                         bary_y, w, PHIxPSI, PHIyPSI, prof, order=None,
+                         indicator=None, horizon=None):
     """Nonsymmetric local matrices of explicit pairs, scattered into A
     [N, N]:
 
-        t1_q = gamma(x_q, y_q) w_q volsym[p],  t2_q = gamma(y_q, x_q) w_q
-        volsym[p]
+        t1_q = gamma(x_q, y_q) w_q chi(x_q, y_q) volsym[p]
+        t2_q = gamma(y_q, x_q) w_q chi(x_q, y_q) volsym[p]
         M[p] = t1 @ PHIxPSI - t2 @ PHIyPSI
         A[dofRows[p,I], dofRows[p,J]] += M[p, I*nPSI+J]  (both dofs >= 0)
 
-    with x_q, y_q, gamma (``prof``, ``order``) as in :func:`panel_scatter`;
-    PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi` of the rule's buildPHI
-    and buildPSI).  Kernel K19 (kernels/csrc/panel_scatter_nonsym.cu) on
-    CUDA tensors, the plain version on CPU tensors.  Replaces
-    _bucket_contrib_nonsym with DenseAccumulator.add."""
+    with x_q, y_q, gamma (``prof``, ``order``) and the interaction
+    indicator chi of a finite horizon (``indicator``, or None) as in
+    :func:`panel_scatter`; a variable ``horizon`` (nl.kernels.HorizonParams,
+    no order) makes gamma the kernel of variableHorizonFractionalKernel,
+    delta evaluated at gamma's first point: delta(x) in t1, delta(y) in t2.  PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi`
+    of the rule's buildPHI and buildPSI).  Kernel K19
+    (kernels/csrc/panel_scatter_nonsym.cu) on CUDA tensors, the plain
+    version on CPU tensors.  Replaces _bucket_contrib_nonsym with
+    DenseAccumulator.add."""
     P, Q, dim = _nonsymArgs('panel_scatter_nonsym', A, vertices, vi1, vi2,
                             volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
                             dofRows.shape[1], (dofRows,))
@@ -666,15 +711,16 @@ def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
     if A.device.type == 'cpu':
         return _panel_scatter_nonsym_plain(A, 'dense', dofRows, vertices, vi1,
                                            vi2, volsym, bary_x, bary_y, w,
-                                           PHIxPSI, PHIyPSI, prof, order)
+                                           PHIxPSI, PHIyPSI, prof, order,
+                                           indicator, horizon)
     _launchNonsym('panel_scatter_nonsym', 'dense', A, A.shape[0], dofRows,
                   vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
-                  PHIyPSI, prof, order)
+                  PHIyPSI, prof, order, indicator, horizon)
 
 
 def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
                                bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof,
-                               order=None):
+                               order=None, indicator=None, horizon=None):
     """K19 into CSR data at explicit slots: with M[p] as in
     :func:`panel_scatter_nonsym`,
 
@@ -682,9 +728,10 @@ def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
 
     data [nnz+1] float64 (slot nnz, the dump slot, and negative slots are
     skipped); slots [P, nPSI^2] int32, the host's per-pair entry masks
-    folded in (a masked entry has the dump slot).  Kernel K19 on CUDA
-    tensors, the plain version on CPU tensors.  Replaces the masked adds of
-    _bucket_contrib_nonsym's matrices into the H2 near field."""
+    folded in (a masked entry has the dump slot), or the sparse format's
+    slots.  Kernel K19 on CUDA tensors, the plain version on CPU tensors.
+    Replaces the masked adds of _bucket_contrib_nonsym's matrices into the
+    H2 near field and the CSRAccumulator.add of getSparse."""
     nPSI = int(round(slots.shape[1] ** 0.5))
     P, Q, dim = _nonsymArgs('panel_scatter_nonsym_slots', data, vertices,
                             vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
@@ -698,21 +745,29 @@ def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
     if data.device.type == 'cpu':
         return _panel_scatter_nonsym_plain(data, 'slots', slots, vertices,
                                            vi1, vi2, volsym, bary_x, bary_y,
-                                           w, PHIxPSI, PHIyPSI, prof, order)
+                                           w, PHIxPSI, PHIyPSI, prof, order,
+                                           indicator, horizon)
     _launchNonsym('panel_scatter_nonsym_slots', 'slots', data,
                   data.shape[0] - 1, slots, vertices, vi1, vi2, volsym,
-                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order)
+                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order,
+                  indicator, horizon)
 
 
 def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
-                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order):
+                  bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order,
+                  indicator, horizon):
     P = vi1.shape[0]
     if P == 0:
         return
+    if horizon is not None and order is not None:
+        raise NotImplementedError('panel_scatter_nonsym: a variable horizon '
+                                  'takes a constant order')
     lib = kernels.library()
     kernels.launches['panel_scatter_nonsym'] += 1
     kernels.deviceLaunches['panel_scatter_nonsym'] += 1
     kernels.launches['panel_scatter_nonsym:' + target] += 1
+    if horizon is not None:
+        kernels.countVariant('panel_scatter_nonsym:var_horizon')
     p = kernels.ptr
     nPSI = index.shape[1] if target == 'dense' else \
         int(round(index.shape[1] ** 0.5))
@@ -720,18 +775,23 @@ def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
         p(out), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
         p(vi2), vi2.shape[1], p(index), nPSI, p(volsym), P, p(bary_x),
         p(bary_y), p(w), p(PHIxPSI), p(PHIyPSI), w.shape[0],
-        *profileArgs(prof), *orderArgs(order), kernels.stream()))
+        *profileArgs(prof), *_indicatorArgs(indicator), *orderArgs(order),
+        *horizonArgs(horizon), kernels.stream()))
 
 
 def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
-                    PHIyPSI, prof, order):
+                    PHIyPSI, prof, order, indicator=None, horizon=None):
     """M [P, nPSI^2] of explicit pairs (K19's body, plain), in the order of
     pynucleus_tpu/nl/assembly.py _bucket_contrib_nonsym."""
     x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
     y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
     r2 = ((x - y) ** 2).sum(-1)
-    t1 = evalXY(x, y, r2, prof, order) * w[None, :]
-    t2 = evalXY(y, x, r2, prof, order) * w[None, :]
+    t1 = evalXY(x, y, r2, prof, order, horizon) * w[None, :]
+    t2 = evalXY(y, x, r2, prof, order, horizon) * w[None, :]
+    if indicator is not None and int(indicator[0]) != 0:
+        ind = indicatorMask(x, y, r2, indicator)
+        t1 = t1 * ind
+        t2 = t2 * ind
     t1 = t1 * volsym[:, None]
     t2 = t2 * volsym[:, None]
     return t1 @ PHIxPSI - t2 @ PHIyPSI
@@ -739,12 +799,14 @@ def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
 
 def _panel_scatter_nonsym_plain(out, target, index, vertices, vi1, vi2,
                                 volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
-                                prof, order=None):
+                                prof, order=None, indicator=None,
+                                horizon=None):
     """Plain PyTorch version of K19 (any device): target 'dense' (index:
     dofRows) or 'slots' (index: slots)."""
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _nonsymMatrices(vertices, vi1[sl], vi2[sl], volsym[sl], bary_x,
-                            bary_y, w, PHIxPSI, PHIyPSI, prof, order)
+                            bary_y, w, PHIxPSI, PHIyPSI, prof, order,
+                            indicator, horizon)
         if target == 'slots':
             _addSlots(out, index[sl].reshape(-1), M.reshape(-1))
             continue
@@ -1678,7 +1740,7 @@ def _launchCut(name, out, target, index, P, *args):
     kernels.deviceLaunches[name] += 1
     if out.is_complex():
         _aligned(name, out)
-        kernels.launches[name + ':complex'] += 1
+        kernels.countVariant(name + ':complex')
     slots = target == 'slots'
     N = out.shape[0] - 1 if slots else out.shape[-1]
     p = kernels.ptr
@@ -1763,19 +1825,24 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     kernels, unordered pairs).  For pair p (triangles vi1[p], vi2[p]
     [P, 3]) and each node x of the cell-1 rule (bary_x [3, Qx], wx [Qx]):
     the angular window of cell 2 seen from x, split at the vertex
-    directions (and for ballInf, inter == 2, at the corner directions
-    (0.25, 0.75, 1.25, 1.75) pi) into segments, each with the Gauss angles
-    (thetas, wtheta on [0, 1]); per angle the ray x + r d through cell 2,
-    clipped at r = horizon / |d| (|d|: 2-norm for ball2, inter == 1; max
-    norm for ballInf), with the radial Gauss rule (rq, wr) on it:
+    directions (and at the corner directions of ballInf, (0.25, 0.75, 1.25,
+    1.75) pi, or of ball1, (0, 0.5, 1, 1.5) pi) into segments, each with
+    the Gauss angles (thetas, wtheta on [0, 1]); per angle the ray x + r d
+    through cell 2, clipped at r = horizon / |d| in the interaction's norm
+    (nl.kernels.dirNorm: 2-norm for ball2, max norm for ballInf, 1-norm for
+    ball1, |T d|_2 for the ellipse), with the radial Gauss rule (rq, wr) on
+    it:
 
         M[p] = 2 vols1[p] sum W psi psi^T,  W = gamma(r^2) r w_r w_th w_x,
         psi = [phi1(x); -phi2(y)],  y = x + r d
 
     added at ``target`` as in :func:`cut1d` (index dofRows [P, 6] int64 or
-    slots [P, 36] int32).  gamma is the power profile C r2^e, or the complex
-    GREENS_2D profile (greens2D; its complex variant): then W and M are
-    complex and ``out`` a complex128 dense A or diagonal.
+    slots [P, 36] int32).  ``inter`` is the interaction: its code 1 (ball2),
+    2 (ballInf) or 3 (ball1), or an object with ``code`` and ``T`` (an
+    interaction domain, nl.kernels.Indicator), which the ellipse (code 4)
+    needs.  gamma is the power profile C r2^e, or the complex GREENS_2D
+    profile (greens2D; its complex variant): then W and M are complex and
+    ``out`` a complex128 dense A or diagonal.
 
     Kernel K15 (kernels/csrc/cut_cells.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces pynucleus_tpu/nl/assembly.py
@@ -1794,18 +1861,18 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     if vertices.shape[1] != 2 or vi1.shape[1] != 3 \
             or bary_x.shape != (3, Qx):
         raise ValueError('cut2d_polar: triangles in 2D (P1) expected')
-    if inter not in (1, 2):
-        raise ValueError(f'cut2d_polar: inter {inter}: 1 (ball2) or 2 '
-                         '(ballInf)')
+    icode, T = _interArgs(inter)
     if out.device.type == 'cpu':
         return _cut2d_polar_plain(out, target, index, vertices, vi1, vi2,
                                   vols1, bary_x, wx, thetas, wtheta, rq, wr,
                                   horizon, inter, prof)
     if Qx > 32:
         raise ValueError('cut2d_polar: at most 32 x nodes')
+    if _ballKey(icode) and P:
+        kernels.countVariant('cut2d_polar:' + _ballKey(icode))
     _launchCut('cut2d_polar', out, target, index, P, vertices, vi1, vi2,
                vols1, bary_x, wx, Qx, thetas, wtheta, thetas.shape[0], rq, wr,
-               rq.shape[0], float(horizon), int(inter),
+               rq.shape[0], float(horizon), icode, *T,
                *profileArgs(prof)[:4])
 
 
@@ -1815,6 +1882,7 @@ def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
     [P, Qx, T, 2] and angular weights [P, Qx, T] of the T = S Qt rays of
     each x node, the radial interval [rLo, rHi] of each ray, and whether
     the ray hits the triangle (rays without hit contribute nothing)."""
+    icode, Tm = _interArgs(inter)
     v1, v2 = vertices[vi1], vertices[vi2]                        # [P, 3, 2]
     x = torch.einsum('pvd,vq->pqd', v1, bary_x)                  # [P, Qx, 2]
     relC = v2.mean(dim=1)[:, None, :] - x
@@ -1826,11 +1894,11 @@ def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
     thLo = angC + dAng.amin(-1)
     thHi = angC + dAng.amax(-1)
     cand = [angC[..., None] + dAng]
-    if inter == 2:
-        for om in (0.25, 0.75, 1.25, 1.75):
-            rec = angC + torch.remainder(om * np.pi - angC + np.pi,
-                                         2 * np.pi) - np.pi
-            cand.append(rec[..., None])
+    for om in {BALL_INF: (0.25, 0.75, 1.25, 1.75),
+               BALL1: (0.0, 0.5, 1.0, 1.5)}.get(icode, ()):
+        rec = angC + torch.remainder(om * np.pi - angC + np.pi,
+                                     2 * np.pi) - np.pi
+        cand.append(rec[..., None])
     cands = torch.minimum(torch.maximum(torch.cat(cand, -1),
                                         thLo[..., None]), thHi[..., None])
     bnds = torch.sort(torch.cat([thLo[..., None], cands, thHi[..., None]],
@@ -1853,7 +1921,7 @@ def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
     tIn = torch.where(valid, t, np.inf).amin(-1)                 # [P,Qx,T]
     tOut = torch.where(valid, t, -np.inf).amax(-1)
     hits = valid.sum(-1) >= 2
-    dNorm = d.abs().amax(-1) if inter == 2 else torch.sqrt((d ** 2).sum(-1))
+    dNorm = dirNorm(d, icode, Tm)
     rBall = horizon / torch.clamp(dNorm, min=1e-30)
     rLo = torch.where(hits, tIn, 0.0)
     rHi = torch.maximum(torch.where(hits, torch.minimum(tOut, rBall), 0.0),
@@ -1898,7 +1966,7 @@ def _cut2dMatrices(vertices, vi1, vi2, vols1, bary_x, wx, thetas, wtheta,
 def _cut2d_polar_plain(out, target, index, vertices, vi1, vi2, vols1, bary_x,
                        wx, thetas, wtheta, rq, wr, horizon, inter, prof):
     """Plain PyTorch version of :func:`cut2d_polar` (any device)."""
-    S = 8 if inter == 2 else 4
+    S = 8 if _interArgs(inter)[0] in (BALL_INF, BALL1) else 4
     nodes = wx.shape[0] * S * thetas.shape[0] * rq.shape[0]
     for sl in _plainChunks(vi1.shape[0], 4 * nodes):
         M = _cut2dMatrices(vertices, vi1[sl], vi2[sl], vols1[sl], bary_x, wx,
@@ -1934,10 +2002,10 @@ class DeviceDenseAccumulator:
                       *tables, prof, indicator=indicator, **_orderKw(order))
 
     def addNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, prof,
-                  order):
+                  order, indicator=None, horizon=None):
         """K19 into A; tables = (bary_x, bary_y, w, PHIxPSI, PHIyPSI)."""
         panel_scatter_nonsym(self.A, vertices, vi1, vi2, dofRows, volsym,
-                             *tables, prof, order)
+                             *tables, prof, order, indicator, horizon)
 
     def cutTarget(self, dofRows):
         """(out, target, index) of K14 and K15 for local dofs dofRows."""
@@ -2011,6 +2079,10 @@ class DeviceCrossAccumulator(DeviceDenseAccumulator):
         panel_scatter_cross(self.A, vertices, vi1, vi2, dofRows, volsym,
                             normals, *tables, prof, indicator=indicator)
 
+    def addNonsym(self, *args):
+        raise NotImplementedError('getDenseCross of a nonsymmetric kernel '
+                                  '(a variable horizon)')
+
     def cutTarget(self, dofRows):
         return self.A, 'cross', dofRows
 
@@ -2061,6 +2133,13 @@ class DeviceCSRAccumulator:
         panel_scatter_slots(self.data, vertices, vi1, vi2,
                             self.slots(dofRows), volsym, normals, *tables,
                             prof, indicator=indicator, **_orderKw(order))
+
+    def addNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, prof,
+                  order, indicator=None, horizon=None):
+        """K19 into the data at the slots of its local entries."""
+        panel_scatter_nonsym_slots(self.data, vertices, vi1, vi2,
+                                   self.slots(dofRows), volsym, *tables,
+                                   prof, order, indicator, horizon)
 
     def cutTarget(self, dofRows):
         return self.data, 'slots', self.slots(dofRows)
@@ -2116,7 +2195,14 @@ class _BucketRunner:
                       normals if self.useNormals else None,
                       self.ruleTables(rule, PSI), prof,
                       self.kernel.indicatorParams(),
-                      **_orderKw(self.kernel.orderParams()))
+                      **_orderKw(self._k1Order()))
+
+    def _k1Order(self):
+        """The kernel's variable order for K1; a variable horizon has no K1
+        path (its pairs take K19, :meth:`runPairs`)."""
+        if self.kernel.horizonParams() is not None:
+            raise NotImplementedError('a variable horizon: K19 only')
+        return self.kernel.orderParams()
 
     def runNatural(self, acc, rule, PSI, di, dj, symfac):
         """Pairs given as cell ids (id buckets, distant corrections): the
@@ -2181,13 +2267,15 @@ class _BucketRunner:
                              self._t(dofRows, TINDEX), self._t(volsym), tables,
                              self.vector, self.logTables(rule))
             return
+        indicator = self.kernel.indicatorParams()
+        horizon = self.kernel.horizonParams()
         if not isinstance(acc, DeviceTreeCSRAccumulator):
             if entryMask is not None:
                 raise ValueError('entry masks need the tree CSR target')
             acc.addNonsym(self.vertices, self._t(vertIdx1, TINDEX),
                           self._t(vertIdx2, TINDEX),
                           self._t(dofRows, TINDEX), self._t(volsym), tables,
-                          prof, order)
+                          prof, order, indicator, horizon)
             return
         n = PSI.shape[0]
         for s in range(0, P, _HOST_PAIRS):
@@ -2198,7 +2286,8 @@ class _BucketRunner:
                 acc.data, self.vertices, self._t(vertIdx1[sl], TINDEX),
                 self._t(vertIdx2[sl], TINDEX),
                 self._t(acc.maskedSlots(dofRows[sl], em), TI32),
-                self._t(volsym[sl]), *tables, prof, order)
+                self._t(volsym[sl]), *tables, prof, order, indicator,
+                horizon)
 
     def runTree(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
                 normals, I, J, offF, offB, yShift=None):
@@ -2213,7 +2302,7 @@ class _BucketRunner:
             self._t(volsym), self._t(normals) if self.useNormals else None,
             *(self._t(a, TI32) for a in (I, J, offF, offB)), acc.tables,
             *self.ruleTables(rule, PSI), prof,
-            **_orderKw(self.kernel.orderParams(),
+            **_orderKw(self._k1Order(),
                        self._t(yShift) if yShift is not None else None))
 
 
@@ -2309,16 +2398,18 @@ NEAR_ENGINES = ('block', 'flat', 'host')
 class nonlocalBuilder:
     """Assembly of a nonlocal kernel (port of pynucleus_tpu/nl/assembly.py
     nonlocalBuilder).  A variable or nonsymmetric fractional order
-    (``general``: constantNonSym, leftRight) takes the per-pair path on the
-    interval, dense and H2, as the JAX package does; on other meshes it
-    raises.  Infinite horizon (the
+    (``general``: constantNonSym, leftRight) and a variable horizon take
+    the per-pair path on the interval, dense and H2 (a finite horizon:
+    sparse), as the JAX package does; on other meshes they raise.
+    Infinite horizon (the
     fractional, gaussian and exponential kernels, zero exterior): getDense
     on the grid path, getH2 with the device-CSR near field, on the interval
     and in 2D.  Finite horizon (fractional, indicator and
-    peridynamic kernels; ball2 and ballInf interactions): getDense and
-    getSparse on the per-pair path, every cell pair classified
+    peridynamic kernels; ball2, ballInf, ball1 and ellipse interactions):
+    getDense and getSparse on the per-pair path, every cell pair classified
     (classifyPairsDense) with the pairs cut by the horizon through K14 (1D)
-    or K15 (2D); getH2 delegates to getSparse, as the JAX package does;
+    or K15 (2D), a variable horizon's through K19 (the indicator
+    fallback); getH2 delegates to getSparse, as the JAX package does;
     getDenseCross is the interior x collar coupling A_BC of a Dirichlet
     volume constraint.
 
@@ -2346,11 +2437,9 @@ class nonlocalBuilder:
             or kernel.isComplex else zeroExterior
         self.device = getDevice(device if device is not None else dm.device)
         self.timers = {}
-        if kernel.variableHorizon or kernel.phi is not None \
-                or kernel.complement:
-            raise NotImplementedError('the port assembles kernels without a '
-                                      'variable horizon, two-point weights '
-                                      'or complement only')
+        if kernel.phi is not None or kernel.complement:
+            raise NotImplementedError('the port assembles kernels without '
+                                      'two-point weights or complement only')
         if kernel.isComplex and (self.mesh.manifold_dim != 2 or int(
                 kernel.profileParams().code) != GREENS_2D_PROFILE):
             # 3D assembly raises in the JAX package as well
@@ -2362,11 +2451,13 @@ class nonlocalBuilder:
             raise NotImplementedError('the component kernels of a vector '
                                       'kernel: the log correction of the '
                                       'scalar kernels is not ported')
-        # a variable or nonsymmetric order: the per-pair path
+        # a variable or nonsymmetric order, a variable horizon: the per-pair
+        # path
         self.general = kernel.variable or not kernel.symmetric
         if self.general and self.mesh.manifold_dim != 1:
-            raise NotImplementedError('variable and nonsymmetric orders are '
-                                      'ported on the interval only')
+            raise NotImplementedError('variable and nonsymmetric orders and '
+                                      'variable horizons are ported on the '
+                                      'interval only')
         if self.general and kernel.symmetric:
             # the symmetric variable orders are the 2D ones (innerOuter,
             # islands, layers, ...): not ported
@@ -2705,22 +2796,40 @@ class nonlocalBuilder:
             runner.runPairs(acc, rule, PSI, cells[iiA], cells[jjA], dr, vs,
                             entryMask=em, PHI=PHI)
 
+        # --- pairs cut by a finite horizon (the indicator fallback)
+        ci, cj, cutOrders = info.get('cut', (np.zeros(0, dtype=np.int64),) * 3)
+        if len(ci):
+            self._runCutPairs(acc, runner, ci, cj, cutOrders)
+
     def _runCutPairs(self, acc, runner, ci, cj, orders):
-        """Pairs cut by the horizon, one launch per quadrature order: in 1D
-        K14 on both orderings of each pair (factor 1 each: the clipped
-        domain is not symmetric in x and y), in 2D K15 on the unordered
-        pairs (ball2 and ballInf).  The rules are those of
-        pynucleus_tpu/nl/assembly.py _runCutPairs."""
+        """Pairs cut by the horizon, one launch per quadrature order, the
+        branches and rules of pynucleus_tpu/nl/assembly.py _runCutPairs: a
+        symmetric kernel in 2D through K15 on the unordered pairs (exact
+        polar clipping against the ball2, ballInf, ball1 or ellipse norm
+        ball), in 1D through K14 on both orderings of each pair (factor 1
+        each: the clipped domain is not symmetric in x and y); a
+        nonsymmetric kernel (a variable horizon) through the indicator
+        fallback (:2509-2537): K19 with the horizon indicator on the
+        compact=False tensor rules, both orderings, factor 1.  The
+        symmetric branch of the fallback (K1 with factor 2; its only callers
+        are complement kernels, which the builder refuses) raises."""
         from ..fem.quadrature import simplexDuffy, gauss01
         kernel, mesh, dm = self.kernel, self.mesh, self.dm
         if dm.polynomialOrder != 1:
             raise NotImplementedError('cut pairs: P1 only')
         mdim = mesh.manifold_dim
-        inter = kernel.interaction.code
-        if mdim == 2 and inter not in (1, 2):
+        inter = kernel.interaction
+        polar = mdim == 2 and kernel.symmetric \
+            and not kernel.variableHorizon \
+            and inter.code in (BALL2, BALL_INF, BALL1, ELLIPSE)
+        if not kernel.symmetric:
+            self._runCutFallback(acc, runner, ci, cj, orders)
+            return
+        if not polar and mdim != 1:
             raise NotImplementedError(
-                f'cut pairs of {kernel.interaction!r}: ball1, ellipse and '
-                'the indicator fallback are not ported')
+                'the symmetric indicator fallback of cut pairs '
+                '(pynucleus_tpu/nl/assembly.py:2509-2537, factor 2) is not '
+                'ported')
         prof = kernel.profileParams()
         horizon = kernel.horizonValue
         t = runner._t
@@ -2748,6 +2857,29 @@ class nonlocalBuilder:
                         runner.cells[jj], runner.vols[ii], t(bary_x.T),
                         t(wx), t(thetas), t(wtheta), t(rq), t(wr), horizon,
                         inter, prof)
+
+    def _runCutFallback(self, acc, runner, ci, cj, orders):
+        """The nonsymmetric indicator fallback of cut pairs: per order the
+        compact=False tensor rule (the integrand carries the discontinuous
+        horizon indicator, so the point count sets the accuracy), both
+        orderings with factor 1, the local matrices through K19 with the
+        kernel's indicator (pynucleus_tpu/nl/assembly.py:2509-2537)."""
+        dm, mesh = self.dm, self.mesh
+        mdim = mesh.manifold_dim
+        cells, dofs = mesh.cells, dm.dofs
+        vols = mesh.simplexVolumes()
+        for order in np.unique(orders):
+            sel = orders == order
+            ii, jj = ci[sel], cj[sel]
+            rule = distantRule(int(order), mdim, compact=False)
+            PSI = rule.buildPSI(dm, nSharedVertices=0)
+            PHI = rule.buildPHI(dm, nSharedVertices=0)
+            iiA = np.concatenate([ii, jj])
+            jjA = np.concatenate([jj, ii])
+            dr = np.concatenate([dofs[iiA], dofs[jjA]], axis=1)
+            vs = vols[iiA] * vols[jjA]
+            runner.runPairs(acc, rule, PSI, cells[iiA], cells[jjA], dr, vs,
+                            PHI=PHI)
 
     def _runDistantGrid(self, acc, cuts):
         """One K2 launch per distance window (order, t_lo, t_hi) of the

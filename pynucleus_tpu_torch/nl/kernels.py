@@ -4,8 +4,9 @@ finite horizon, the integrable indicator ('constant') and peridynamic
 exponential kernels of an infinite horizon.
 
 Port of the symmetric constant-coefficient part of
-pynucleus_tpu/nl/kernels.py: the interaction domains fullSpace, ball2 and
-ballInf (:717-798), constantFractionalLaplacianScaling (:901),
+pynucleus_tpu/nl/kernels.py: the interaction domains fullSpace, ball2,
+ballInf, ball1 and the ellipse (:717-895, with interactionFactory's
+aliases), constantFractionalLaplacianScaling (:901),
 constantIntegrableScaling (:917) for the indicator, peridynamic, gaussian
 and exponential kernels, Kernel and FractionalKernel (:1031, :1249) with
 the gaussian and exponential boundary kernels (:1182-1199),
@@ -16,7 +17,10 @@ Every kernel here is a radial profile gamma(r2) (Kernel._radialJax,
 device kernels take the profile as :class:`Profile` (code, C, e, a) from
 :meth:`Kernel.profileParams` and evaluate it as :func:`radialEval` does,
 gamma = 0 at r2 = 0 exactly as ``_radial_eval`` (nl/assembly.py) does; the
-indicator comes as (code, horizon^2) from :meth:`Kernel.indicatorParams`.
+indicator comes as an :class:`Indicator` (code, horizon^2, T) from
+:meth:`Kernel.indicatorParams`, evaluated as :func:`indicatorMask` does,
+and K15 clips its rays in the ball's norm of a direction
+(:func:`dirNorm`).
 The profiles (r = sqrt(r2)):
 
   POWER              C r2^e      (fractional, indicator e = 0, peridynamic
@@ -37,7 +41,11 @@ s(x, y) and the normalization C(d, s) of an infinite horizon
 (FractionalKernel.evalXY, :1290-1330), by :func:`evalXY` and, on the card,
 common.cuh kernelXY() from the order's :class:`OrderParams`; constantNonSym
 and leftRight are nonsymmetric.  A variable order with a finite horizon
-raises NotImplementedError.
+raises NotImplementedError.  A variable horizon delta(x) of a constant
+order (variableHorizonFractionalKernel, :1349, with an affine
+:class:`horizonFunction`) is C(delta(x)) |x-y|^(-d-2s) 1{|x-y| <= delta(x)},
+nonsymmetric, evaluated by :func:`evalXY` and K19 from its own
+:class:`HorizonParams` (:meth:`Kernel.horizonParams`).
 
 The s-derivatives of the fractional kernel (:1437-1675, getFractionalKernel
 with ``derivative``), of an infinite horizon:
@@ -63,8 +71,7 @@ approximations of :func:`besselJ0Y0`, as the JAX program, not scipy's);
 greens3D, C exp(-greensLambda r) / r, the GREENS_3D profile, evaluated
 by :func:`radialEval` only (3D assembly raises in both packages).
 
-A finite horizon, tempered kernels and two-point weights (phi) raise
-NotImplementedError.  The tempered fractional, log-inverse-distance,
+Tempered kernels and two-point weights (phi) raise NotImplementedError.  The tempered fractional, log-inverse-distance,
 monomial and polynomial profiles (:1095-1096, :1122-1128) are not ported.
 """
 from __future__ import annotations
@@ -81,7 +88,10 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'Kernel', 'FractionalKernel',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
-           'fullSpace', 'ball2', 'ballInf', 'interactionFactory',
+           'fullSpace', 'ball2', 'ballInf', 'ball1', 'ellipse',
+           'interactionFactory', 'Indicator', 'indicatorMask', 'dirNorm',
+           'horizonFunction', 'variableHorizonFractionalKernel',
+           'HorizonParams', 'horizonArgs',
            'radialEval', 'Profile', 'FRACTIONAL', 'INDICATOR',
            'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER', 'POWER_LOG',
            'DerivativeFractionalKernel', 'VectorFractionalKernel',
@@ -150,6 +160,20 @@ class OrderParams(NamedTuple):
     interface: float
     dim: int
     boundary: bool
+
+
+class HorizonParams(NamedTuple):
+    """A variable horizon as K19 takes it: delta(x) = clip(c0 + c x_0, min,
+    max) of :class:`horizonFunction`, the constant order s, the dimension d
+    of the normalization and whether C is the normalization at delta(x) or
+    1/2 (variableHorizonFractionalKernel.evalXY)."""
+    c0: float
+    c: float
+    min: float
+    max: float
+    s: float
+    dim: int
+    normalized: bool
 
 
 class fractionalOrderBase:
@@ -277,17 +301,35 @@ fractionalOrderFactory = {
 
 # ------------------------------------------------------------- interactions
 
+# interaction codes, shared with kernels/csrc/common.cuh inBall() and K15
+FULL_SPACE, BALL2, BALL_INF, BALL1, ELLIPSE = range(5)
+IDENTITY_T = (1.0, 0.0, 0.0, 1.0)
+
+
+class Indicator(NamedTuple):
+    """The interaction indicator of a finite horizon as the device kernels
+    take it: the ball's code, horizon^2 and, for the ellipse, its map T
+    (row-major T00, T01, T10, T11)."""
+    code: int
+    h2: float
+    T: tuple = IDENTITY_T
+
+
 class interactionDomain:
-    """chi_{N(x)}(y) for the norm ball |x - y| < horizon of one norm.
+    """chi_{N(x)}(y) for the norm ball |x - y| < horizon of one norm
+    (pynucleus_tpu/nl/kernels.py:717-860).
 
     innerRadius2/outerRadius2 give Euclidean radii with ball2(inner) <=
     interaction <= ball2(outer) for the horizon screen.  ``code`` names the
     ball for the kernels and their plain versions, which evaluate its
-    indicator (jaxIndicator) and its norm of ray directions (jaxDirNorm)
-    from it: 0 the full space, 1 ball2 (|x-y|_2), 2 ballInf (|x-y|_inf)."""
+    indicator (:func:`indicatorMask`, jaxIndicator) and its norm of ray
+    directions (:func:`dirNorm`, jaxDirNorm) from it and from ``T``: 0 the
+    full space, 1 ball2 (|x-y|_2), 2 ballInf (|x-y|_inf), 3 ball1
+    (|x-y|_1), 4 the ellipse (|T (x-y)|_2)."""
     complement = False
     symmetric = True
-    code = 0
+    code = FULL_SPACE
+    T = IDENTITY_T
 
     def innerRadius2(self, hv, dim):
         return hv
@@ -303,7 +345,7 @@ class fullSpace(interactionDomain):
 
 class ball2(interactionDomain):
     """Euclidean ball |x-y|_2 < horizon."""
-    code = 1
+    code = BALL2
 
     def __repr__(self):
         return 'ball2'
@@ -311,7 +353,7 @@ class ball2(interactionDomain):
 
 class ballInf(interactionDomain):
     """Max-norm ball |x-y|_inf < horizon."""
-    code = 2
+    code = BALL_INF
 
     def outerRadius2(self, hv, dim):
         return hv * np.sqrt(dim)
@@ -320,8 +362,100 @@ class ballInf(interactionDomain):
         return 'ballInf'
 
 
-interactionFactory = {'fullSpace': fullSpace, 'ball2': ball2,
-                      'ballInf': ballInf}
+class ball1(interactionDomain):
+    """L1 (diamond) ball |x-y|_1 < horizon."""
+    code = BALL1
+
+    def innerRadius2(self, hv, dim):
+        return hv / np.sqrt(dim)
+
+    def __repr__(self):
+        return 'ball1'
+
+
+class ellipse(interactionDomain):
+    """Elliptic interaction |T (x-y)|_2 < horizon with
+    T = diag(1/a, 1/b) . rot(theta) (one of the axes is 1)."""
+    code = ELLIPSE
+
+    def __init__(self, aFac=1.0, bFac=0.5, theta=0.0):
+        assert aFac == 1.0 or bFac == 1.0, \
+            'one of the two axes must be equal to 1'
+        self.aFac, self.bFac, self.theta = float(aFac), float(bFac), \
+            float(theta)
+        c, s = np.cos(self.theta), np.sin(self.theta)
+        self.T = tuple(float(v) for v in (c / self.aFac, -s / self.aFac,
+                                          s / self.bFac, c / self.bFac))
+
+    def innerRadius2(self, hv, dim):
+        return hv * min(self.aFac, self.bFac)
+
+    def outerRadius2(self, hv, dim):
+        return hv * max(self.aFac, self.bFac)
+
+    def __repr__(self):
+        return f'ellipse({self.aFac},{self.bFac},{self.theta})'
+
+
+# name -> interaction, with the aliases of pynucleus_tpu/nl/kernels.py
+# interactionFactory (:879-895; the retriangulation and barycenter names of
+# the reference all take the exact cut-cell clipping)
+interactionFactory = {'fullSpace': fullSpace, 'full': fullSpace}
+for _cls, _aliases in ((ball2, ('ball2', 'ball', 'ball2_retriangulation',
+                                'ball2_barycenter', '2')),
+                       (ballInf, ('ballInf', 'ballInf_retriangulation',
+                                  'ballInf_barycenter', 'inf')),
+                       (ball1, ('ball1', 'ball1_retriangulation',
+                                'ball1_barycenter', '1')),
+                       (ellipse, ('ellipse', 'ellipse_retriangulation',
+                                  'ellipse_barycenter'))):
+    interactionFactory.update(dict.fromkeys(_aliases, _cls))
+
+
+def _ellipseNorm2(d, T):
+    """|T d|_2^2 of directions d [..., 2]: T[i,0] d_0 + T[i,1] d_1, the
+    terms of jnp.einsum('ij,...j->...i', T, d) in its order, each product
+    and sum rounded on its own (XLA's CPU einsum fuses the second product
+    into a multiply-add, so a rotated ellipse's norms differ from the JAX
+    package's by an ulp or two)."""
+    t0 = T[0] * d[..., 0] + T[1] * d[..., 1]
+    t1 = T[2] * d[..., 0] + T[3] * d[..., 1]
+    return t0 * t0 + t1 * t1
+
+
+def indicatorMask(x, y, r2, indicator):
+    """chi(x, y) [...] as a bool tensor of an :class:`Indicator` (or a
+    (code, h2) pair) at x, y [..., dim] with r2 = |x-y|^2, as
+    pynucleus_tpu/nl/kernels.py jaxIndicator evaluates it; None for the
+    full space (code 0)."""
+    code, h2, *T = indicator
+    T = T[0] if T else IDENTITY_T
+    if code == FULL_SPACE:
+        return None
+    if code == BALL2:
+        return r2 < h2
+    if code == BALL_INF:
+        m = (x - y).abs().amax(-1)
+    elif code == BALL1:
+        m = (x - y).abs().sum(-1)
+    elif code == ELLIPSE:
+        return _ellipseNorm2(x - y, T) < h2
+    else:
+        raise ValueError(f'interaction code {code}: 0 to 4')
+    return m * m < h2
+
+
+def dirNorm(d, code, T=IDENTITY_T):
+    """The interaction norm of ray directions d [..., 2] (jaxDirNorm): 2-norm
+    (ball2), max norm (ballInf), 1-norm (ball1) or |T d|_2 (the
+    ellipse)."""
+    if code == BALL_INF:
+        return d.abs().amax(-1)
+    if code == BALL1:
+        return d.abs().sum(-1)
+    if code == ELLIPSE:
+        return torch.sqrt(_ellipseNorm2(d, T))
+    return torch.sqrt((d ** 2).sum(-1))
 
 
 # --------------------------------------------------------------- scalings
@@ -354,6 +488,9 @@ def constantIntegrableScaling(kType, interaction, dim, horizon,
                 return 8.0 / np.pi / horizon ** 4 / 2.0
             if isinstance(interaction, ballInf):
                 return 3.0 / 4.0 / horizon ** 4 / 2.0
+            if isinstance(interaction, ball1):
+                # second moment of the diamond |z|_1 < delta is 2 delta^4/3
+                return 3.0 / horizon ** 4 / 2.0
         raise NotImplementedError((kType, dim))
     if kType == PERIDYNAMIC:
         if dim == 1:
@@ -455,11 +592,18 @@ class Kernel:
         return None
 
     def indicatorParams(self):
-        """(code, horizon^2) of the interaction indicator that the panel
-        quadrature (K1) applies per node, or None for an infinite horizon."""
+        """The interaction :class:`Indicator` (code, horizon^2, T) that the
+        panel quadrature (K1, K19) applies per node, or None for an
+        infinite horizon."""
         if not self.finiteHorizon:
             return None
-        return self.interaction.code, self.horizonValue ** 2
+        return Indicator(self.interaction.code, self.horizonValue ** 2,
+                         tuple(self.interaction.T))
+
+    def horizonParams(self):
+        """The variable horizon delta(x) (:class:`HorizonParams`) that K19
+        evaluates per node, or None for a horizon of one value."""
+        return None
 
     def getModifiedKernel(self, horizon=None):
         """The kernel with the given horizon: the zero-exterior term asks
@@ -522,6 +666,73 @@ class FractionalKernel(Kernel):
             if hasattr(self.s, 'value') else 1.0
         return FractionalKernel(self.dim, self.s, horizon=self.horizonValue,
                                 scaling=scal, boundary=True)
+
+
+class horizonFunction:
+    """A position-dependent horizon delta(x) = clip(c0 + c x_0, min, max),
+    affine in the first coordinate (pynucleus_tpu/nl/kernels.py:1416
+    horizonFunction takes any function; every delta of its tests is of this
+    form).  Any other function raises NotImplementedError."""
+
+    def __init__(self, c0, c, lo=None, hi=None):
+        if callable(c0) or hi is None:
+            # the JAX package's horizonFunction(fn, lo, hi)
+            raise NotImplementedError('a general delta(x): the port takes '
+                                      'the affine clip(c0 + c x_0, min, max)')
+        self.c0, self.c = float(c0), float(c)
+        self.min, self.max = float(lo), float(hi)
+
+    def __call__(self, x):
+        """delta at host points x [..., dim]."""
+        x = np.asarray(x, dtype=np.float64)
+        return np.minimum(np.maximum(self.c0 + self.c * x[..., 0],
+                                     self.min), self.max)
+
+    def eval(self, x):
+        """delta at x [..., dim] (a tensor), each operation as jaxEval:
+        min(max(c0 + c x_0, min), max)."""
+        return torch.clamp(self.c0 + self.c * x[..., 0], self.min, self.max)
+
+    def params(self):
+        return (self.c0, self.c, self.min, self.max)
+
+
+class variableHorizonFractionalKernel(FractionalKernel):
+    """Fractional kernel of a constant order with a position-dependent
+    horizon delta(x) (pynucleus_tpu/nl/kernels.py:1349):
+
+        gamma(x, y) = C(d, s, delta(x)) |x-y|^(-d-2s) 1{|x-y|^2 <= delta(x)^2}
+
+    with the finite-horizon normalization evaluated at delta(x) (or 1/2),
+    times the ball2 indicator of the largest horizon.  Not symmetric: it
+    takes the per-pair path (K19) and the indicator fallback for its cut
+    pairs; the horizon screen brackets pairs with [min delta, max delta].
+    Evaluated per node from :meth:`horizonParams` (:func:`evalXY`)."""
+
+    def __init__(self, dim, s, horizonFun, normalized=True):
+        if not isinstance(horizonFun, horizonFunction):
+            raise NotImplementedError('a general delta(x): the port takes '
+                                      'the affine horizonFunction')
+        self.horizonFun = horizonFun
+        self.horizonMin = horizonFun.min
+        super().__init__(dim, s, horizon=horizonFun.max, interaction=ball2(),
+                         normalized=normalized)
+        if self.variable:
+            raise NotImplementedError('variable horizon with variable order')
+        self.variableHorizon = True
+        self.symmetric = False
+        self.normalized = normalized
+
+    def horizonParams(self):
+        return HorizonParams(*self.horizonFun.params(), self.sValue, self.dim,
+                             self.normalized)
+
+    def getBoundaryKernel(self):
+        raise NotImplementedError('a variable horizon has no exterior term')
+
+    def __repr__(self):
+        return (f'kernel(fractional, d={self.dim}, s={self.sValue}, '
+                f'horizon={self.horizonFun.params()})')
 
 
 # -------------------------------------------------------- s-derivatives
@@ -801,6 +1012,10 @@ def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
                                   'kernels are not ported')
     if not isinstance(s, fractionalOrderBase):
         s = constFractionalOrder(s)
+    if isinstance(horizon, horizonFunction) or callable(horizon):
+        # a function-valued horizon (pynucleus_tpu/nl/kernels.py:1691-1697)
+        return variableHorizonFractionalKernel(dim, s, horizon,
+                                               normalized=normalized)
     hv = float(horizon)
     if interaction is None:
         interaction = fullSpace() if hv == np.inf else ball2()
@@ -1032,6 +1247,25 @@ def orderArgs(order):
             int(bool(order.boundary)))
 
 
+def _horizonConsts(horizon):
+    """The host constants of variableHorizonFractionalKernel.evalXY, formed
+    from Python floats as the JAX expression forms them: 2 - 2s, 2s - 2, d,
+    Gamma(d/2) (scipy's), pi^(d/2) and the exponent -d/2 - s."""
+    s, d = float(horizon.s), int(horizon.dim)
+    return (2.0 - 2.0 * s, 2.0 * s - 2.0, float(d), float(Gamma(0.5 * d)),
+            float(np.pi ** (0.5 * d)), -0.5 * d - s)
+
+
+def horizonArgs(horizon):
+    """(on, c0, c, min, max, 2 - 2s, 2s - 2, d, Gamma(d/2), pi^(d/2),
+    -d/2 - s, normalized) of a :class:`HorizonParams` as K19's entry points
+    take them (on = 0 and zeros for None)."""
+    if horizon is None:
+        return (0,) + (0.0,) * 10 + (0,)
+    return (1, *(float(v) for v in horizon[:4]), *_horizonConsts(horizon),
+            int(bool(horizon.normalized)))
+
+
 def orderEval(x, y, order):
     """s(x, y) [...] of an :class:`OrderParams` at x, y [..., dim]."""
     if order.code == ORDER_CONST:
@@ -1048,7 +1282,7 @@ def orderEval(x, y, order):
                                                v(order.srl))))
 
 
-def evalXY(x, y, r2, prof, order=None):
+def evalXY(x, y, r2, prof, order=None, horizon=None):
     """gamma(x, y) from positions x, y [..., dim] and r2 = |x-y|^2, exactly 0
     where r2 == 0: the radial profile ``prof`` (:func:`radialEval`) if
     ``order`` is None, else the variable-order fractional kernel of
@@ -1058,12 +1292,25 @@ def evalXY(x, y, r2, prof, order=None):
         C = 2^(2s) s / pi^(d/2) * 0.5 * exp(lgamma(s + d/2) - lgamma(1 - s))
         gamma = C r2^(-d/2 - s), or (C/s) r2^((1-d)/2 - s) (boundary)
 
-    with s = s(x, y) (:func:`orderEval`) and torch.lgamma for gammaln."""
+    with s = s(x, y) (:func:`orderEval`) and torch.lgamma for gammaln; with
+    a variable ``horizon`` (:class:`HorizonParams`, no order) the kernel of
+    variableHorizonFractionalKernel.evalXY, delta = delta(x)
+    (:meth:`horizonFunction.eval`):
+
+        C = (2 - 2s) delta^(2s-2) d Gamma(d/2) / pi^(d/2) * 0.5  (or 0.5)
+        gamma = C r2^(-d/2 - s) where r2 <= delta^2, else 0."""
+    pos = r2 > 0
+    r2s = torch.where(pos, r2, 1.0)
+    if horizon is not None:
+        a, e, d, G, piD2, expo = _horizonConsts(horizon)
+        delta = horizonFunction(*horizon[:4]).eval(x)
+        C = a * delta ** e * d * G / piD2 * 0.5 if horizon.normalized \
+            else 0.5
+        val = torch.where(r2s <= delta * delta, C * r2s ** expo, 0.0)
+        return torch.where(pos, val, 0.0)
     if order is None:
         return radialEval(r2, prof)
     _, _, _, _, _, _, piD2, halfDim, eBase, boundary = orderArgs(order)
-    pos = r2 > 0
-    r2s = torch.where(pos, r2, 1.0)
     sv = orderEval(x, y, order)
     C = (2.0 ** (2 * sv) * sv / piD2 * 0.5 *
          torch.exp(torch.lgamma(sv + halfDim) - torch.lgamma(1.0 - sv)))

@@ -484,10 +484,12 @@ def _horizonScreen(verts, cells, centers, di, dj, kernelOrHv):
     horizon-cut (ci, cj); pairs entirely beyond the horizon are dropped
     (ref getPanelType IGNORED, interactionDomains getRelativePosition).
 
-    For non-Euclidean interaction balls (ballInf) the screen uses the
-    enclosed/enclosing Euclidean radii ball2(rIn) <= interaction <=
-    ball2(rOut): pairs with dmin >= rOut cannot interact, pairs with
-    dmax < rIn interact fully, everything between is treated as cut.
+    For non-Euclidean interaction balls (ballInf, ball1, the ellipse) the
+    screen uses the enclosed/enclosing Euclidean radii ball2(rIn) <=
+    interaction <= ball2(rOut): pairs with dmin >= rOut cannot interact,
+    pairs with dmax < rIn interact fully, everything between is treated as
+    cut.  A variable horizon delta(x) brackets the pairs with [min delta,
+    max delta]: rIn from horizonMin, rOut from horizonValue (the largest).
 
     A cheap center-distance screen with cell radii r = max|v - center|
     bounds dc - ri - rj <= dmin <= dmax <= dc + ri + rj, so the exact
@@ -496,7 +498,11 @@ def _horizonScreen(verts, cells, centers, di, dj, kernelOrHv):
     if np.isscalar(kernelOrHv):
         rIn = rOut = kernelOrHv
     elif getattr(kernelOrHv, 'variableHorizon', False):
-        raise NotImplementedError('variable horizon')
+        kernel = kernelOrHv
+        dim = verts.shape[1]
+        inter = kernel.interaction
+        rIn = inter.innerRadius2(kernel.horizonMin, dim)
+        rOut = inter.outerRadius2(kernel.horizonValue, dim)
     else:
         kernel = kernelOrHv
         hv = kernel.horizonValue

@@ -7,9 +7,9 @@ Port of pynucleus_tpu/nl/problems.py as plain functions (the ``@generates``
 DAG of the JAX package's drivers is not ported): the infinite-horizon
 ``problem constant`` and, on the interval, ``knownSolution`` of
 fractionalLaplacianProblem, for the orders of parseFractionalOrder; nonlocalMeshFactory's
-'interval' and 'square' entries with their indicators
-(intervalIndicators, squareIndicators, :44-168), with the collar for a
-finite horizon and the plain domain for an infinite one; processKernel
+'interval', 'square' and 'disc' entries with their indicators
+(intervalIndicators, squareIndicators, radialIndicators, :44-168), with
+the collar for a finite horizon and the plain domain for an infinite one; processKernel
 (:214-236); nonlocalPoissonProblem (:416-566) with the ``poly-Dirichlet``,
 ``constant``, ``gaussian`` and ``exponential`` problems (``poly-Neumann``
 needs the Sum operator and is not ported).
@@ -20,11 +20,11 @@ import numpy as np
 from scipy.special import gamma as Gamma
 
 from ..fem.meshes import (simpleInterval, circle, intervalWithInteraction,
-                          squareWithInteractions, uniformSquare, PHYSICAL,
-                          NO_BOUNDARY)
+                          squareWithInteractions, uniformSquare,
+                          discWithInteraction, PHYSICAL, NO_BOUNDARY)
 from ..fem.dofmaps import P1_DoFMap
 from ..fem.functions import (constant, Lambda, squareIndicator,
-                             solFractional)
+                             radialIndicator, solFractional)
 from .kernels import (constFractionalOrder, variableConstFractionalOrder,
                       constantNonSymFractionalOrder, leftRightFractionalOrder,
                       getFractionalKernel,
@@ -157,6 +157,15 @@ def intervalIndicators(a=-1.0, b=1.0):
     return domainIndicator, boundaryIndicator, interactionIndicator
 
 
+def radialIndicators(radius=1.0):
+    eps = 1e-12
+    domainIndicator = radialIndicator(radius - eps)
+    interactionIndicator = constant(1.0) - radialIndicator(radius + eps)
+    boundaryIndicator = radialIndicator(radius + eps) \
+        - radialIndicator(radius - eps)
+    return domainIndicator, boundaryIndicator, interactionIndicator
+
+
 def squareIndicators(ax=-1.0, ay=-1.0, bx=1.0, by=1.0):
     eps = 1e-12
     domainIndicator = squareIndicator(np.array([ax + eps, ay + eps]),
@@ -176,13 +185,14 @@ _DOMAINS = {
     'square': (2, squareWithInteractions, squareIndicators,
                {'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}, uniformSquare,
                {'N': 2, 'M': 2, 'ax': -1., 'ay': -1., 'bx': 1., 'by': 1.}),
+    'disc': (2, discWithInteraction, radialIndicators, {'radius': 1.0},
+             circle, {'h': 0.78, 'radius': 1.0}),
 }
 
 
 def _domain(name):
     if name not in _DOMAINS:
-        raise NotImplementedError(f'domain {name!r} with a collar (the disc '
-                                  'is not ported)')
+        raise NotImplementedError(f'domain {name!r}')
     return _DOMAINS[name]
 
 
@@ -229,8 +239,9 @@ def processKernel(domain, kernelType, s, horizon, interaction='ball2',
                   normalized=True, gaussianVariance=1.0, exponentialRate=1.0):
     """The kernel of the driver's flags (pynucleus_tpu/nl/problems.py
     processKernel): a finite horizon takes the ball2 or ballInf
-    interaction (ball2 for any other name, 'fullSpace' included), an
-    infinite one the full space; 'constant' is the indicator kernel and
+    interaction (ball2 for any other name, 'fullSpace' and 'ellipse'
+    included: the JAX driver's mapping, mirrored), an infinite one the full
+    space; 'constant' is the indicator kernel and
     'inverseDistance' the peridynamic one; the gaussian kernel takes its
     variance, the exponential one its rate."""
     dim = _domain(domain)[0]

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..fem.quadrature import (gauss01, gaussJacobi01, tensorRule,
-                              simplexCompact, logWeights)
+                              simplexCompact, simplexDuffy, logWeights)
 
 __all__ = ['PanelRule', 'sameCellRule1D', 'vertexRule1D', 'distantRule',
            'boundaryVertexRule1D', 'boundaryDistantRule']
@@ -196,13 +196,18 @@ def vertexRule1D(singularity, order_sing, order_reg, continuous=True,
                      lnEta=lnEta, cw1=cw1, cw2=cw2)
 
 
-def distantRule(order, mdim1, mdim2=None):
+def distantRule(order, mdim1, mdim2=None, compact=True):
     """Tensor product of two compact symmetric simplex rules; the point
-    count enters the pair cost as Q1*Q2."""
+    count enters the pair cost as Q1*Q2.  ``compact=False`` takes the
+    simplexDuffy tensor rules instead (pynucleus_tpu/nl/quad_singular.py
+    distantRule): the pairs of the indicator fallback, whose integrand
+    carries the discontinuous horizon indicator, where the point count sets
+    the accuracy."""
     if mdim2 is None:
         mdim2 = mdim1
-    b1, w1 = simplexCompact(order, mdim1)
-    b2, w2 = simplexCompact(order, mdim2)
+    rule = simplexCompact if compact else simplexDuffy
+    b1, w1 = rule(order, mdim1)
+    b2, w2 = rule(order, mdim2)
     Q1, Q2 = w1.shape[0], w2.shape[0]
     bary_x = np.repeat(b1.T, Q2, axis=1)                  # [nv1, Q1*Q2]
     bary_y = np.tile(b2.T, (1, Q1))                       # [nv2, Q1*Q2]
