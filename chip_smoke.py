@@ -173,14 +173,34 @@ result line):
      the indicator and the variable horizon against their plain versions
      (kernel line rows ``cut2d_polar:ball1`` ... with their launches on
      these paths).
+ 18. the matrix formats of assembleNonlocal (the fractional kernel of order
+     0.25 on nonlocalMesh's interval or square with its collar, the
+     interior dofs): 'H2corrected' (S_inf in H2, the mass, the complement
+     kernel's cross operator; setKernel to horizon 0.3 keeps S_inf) at the
+     interval noRef 3 and 6 and the square noRef 1 against the JAX outputs
+     pinned by scripts/pin_matrix_formats_jax.py (1e-12; CG-Jacobi at noRef
+     6: 32 iterations); the full-width interval at noRef 11 (14,336 cells,
+     10,239 dofs; a path): the build parts, getSparse at horizons 0.4 and
+     0.3 (entries and apply below the JAX package's noRef 7 differences),
+     setKernel's seconds and device time by kernel, CG-Jacobi with it and
+     with getSparse, the applies and the peak device memory; the square at
+     noRef 3 (6,272 cells; a path) the same without the solves; getDiagonal
+     with the zero-exterior term (s 0.6, infinite horizon) on the interval
+     at noRef 12 and the disc at noRef 4 against the diagonal of getDense
+     without the grid; 'sparsified' on the interval at noRef 8 against
+     getSparse (each a path); then K1 with the complement indicator and the
+     block mask and K1's diagonal target on the zero-exterior pairs against
+     their plain versions (kernel line rows ``panel_scatter:complement``
+     and ``panel_scatter:diag_exterior``).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
 against their plain versions.
 The last lines are the kernel table (JSON: per kernel, per complex
-variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18, and
+variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18,
 per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
-(indicator, variable horizon), its
+(indicator, variable horizon), and per matrix-format variant of K1
+(complement, the zero-exterior diagonal), its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -197,6 +217,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # JAX package outputs of `drivers/runFractional.py --domain disc --s
 # 'const(0.75)' --problem constant --element P1 --solverType cg-jacobi
@@ -284,7 +305,7 @@ F64_PEAK = 34e12
 F32_PEAK = 67e12
 
 KERNEL_INFO = {
-    'panel_scatter': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter.cu',
+    'panel_scatter': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter.cuh',
                       'pynucleus_tpu/nl/assembly.py:91'),
     'grid_distant': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/grid_distant.cu',
                      'pynucleus_tpu/nl/assembly.py:131'),
@@ -401,6 +422,11 @@ COMPARED_AT = {
 
 
 def log(*a):
+    """Print a line; a phase's first line ('phase N: ...') gains the
+    seconds since the script started."""
+    if a and isinstance(a[0], str) and a[0].startswith('phase ') \
+            and a[0].split(':')[0][6:].isdigit():
+        a = a + (f'(at {time.perf_counter() - T_START:.1f} s)',)
     print(*a, flush=True)
 
 
@@ -3756,13 +3782,14 @@ def device_ms_by_kernel(run):
     return dict(sorted(dev.items(), key=lambda kv: -kv[1])[:6])
 
 
-def panel_work_dof(args, cplx=False):
+def panel_work_dof(args, cplx=False, mask=None, indicatorOps=0):
     """K1's dense or diagonal target on recorded args (shape, vertices,
     vi1, vi2, dofRows, volsym, normals (None), bary_x, bary_y, w, PSIP,
     profile), counting in this run's data the entries the target takes
-    (dense: both dofs >= 0; diagonal: row dof = column dof >= 0): per pair
-    with such an entry and node the positions, r^2 and the profile (one
-    pow, exp or erfc; ``cplx``: the Bessel pair and greens2D), per entry
+    (dense: both dofs >= 0 and, with ``mask`` [nPSI, nPSI], the local entry
+    kept; diagonal: row dof = column dof >= 0): per pair with such an entry
+    and node the positions, r^2, the profile (one pow, exp or erfc;
+    ``cplx``: the Bessel pair and greens2D) and ``indicatorOps``, per entry
     and node a multiply-add (complex: 4 operations); inputs read once, the
     entries (complex: 16 B) read and written once, at most the whole
     target, however many pairs share them."""
@@ -3770,10 +3797,12 @@ def panel_work_dof(args, cplx=False):
     Q, dim = args[-3].shape[0], vertices.shape[1]
     r, c = dofRows[:, :, None], dofRows[:, None, :]
     takes = (r >= 0) & (c >= 0) if len(shape) == 2 else (r >= 0) & (r == c)
+    if mask is not None:
+        takes &= mask[None]
     perPair = takes.sum((1, 2))
     entries, pairs = int(perPair.sum()), int((perPair > 0).sum())
     ops = Q * (pairs * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim
-                        + (BESSEL_OPS if cplx else 3))
+                        + (BESSEL_OPS if cplx else 3) + indicatorOps)
                + (4 if cplx else 2) * entries)
     return (nbytes(args[1:]) + (32 if cplx else 16)
             * min(entries, math.prod(shape)), ops, F64_PEAK)
@@ -4463,6 +4492,461 @@ def phase17():
     return counts, cmp, summary
 
 
+# ----------------------------------------------------------------- phase 18
+
+# JAX package outputs printed by scripts/pin_matrix_formats_jax.py (the JAX
+# package on the CPU, float64): assembleNonlocal(..., 'H2corrected') of the
+# fractional kernel of order 0.25, horizon 0.4 then (setKernel) 0.3, on
+# nonlocalMeshFactory's interval [-1, 1] and square [-1, 1]^2 with their
+# collars refined noRef times, P1 on the interior dofs: the largest entry,
+# ||A||_F and the trace of toarray, ||A x|| and (A x)[:4] for x_k =
+# cos(0.3 k), diag(A)[:4]; at noRef 6 CG-Jacobi (tolerance 1e-10) on A x =
+# M 1.  Held to 1e-12 (relative; the four values of (A x)[:4] and of
+# diag(A)[:4] to 1e-12 of their largest), the CG to its iterations and
+# ||x|| to 1e-10
+JAX_H2CORRECTED = {
+    'interval3': {
+        'dofs': 39,
+        'delta0.4': {'max_entry': 3.43629131455915, 'fro': 22.483109524235743,
+                     'trace': 134.01534417216843,
+                     'Ax_norm': 15.393511041137403,
+                     'Ax4': (3.0702574256645, 3.4936274390749276,
+                             2.9885848925181144, 2.742768130489105),
+                     'diag4': (3.436290132062319, 3.4362901320623234,
+                               3.436291314559141, 3.4362901320623207)},
+        'delta0.3': {'max_entry': 4.992795249675726, 'fro': 32.918636171391995,
+                     'trace': 194.71898841689614, 'Ax_norm': 22.54704654320238,
+                     'Ax4': (4.437427548353948, 5.121335744762,
+                             4.408153696725973, 4.148154303662659),
+                     'diag4': (4.992793429102758, 4.992793429102763,
+                               4.992795249675712, 4.992793429102759)}},
+    'interval6': {
+        'dofs': 319,
+        'delta0.4': {'max_entry': 1.5006042493905074, 'fro': 27.55500775233263,
+                     'trace': 478.69275552829123,
+                     'Ax_norm': 20.507355299398967,
+                     'Ax4': (1.7264555731578641, 1.232474009564784,
+                             0.9624768543979779, 0.4983947940433392),
+                     'diag4': (1.5006042493904879, 1.5006042493040108,
+                               1.500604249304022, 1.5006042493904974)},
+        'cg_jacobi': {'iterations': 32, 'x_norm': 7.855299249784022},
+        'delta0.3': {'max_entry': 2.273116213938449, 'fro': 41.7905859385917,
+                     'trace': 725.1240722043638, 'Ax_norm': 31.08242042398427,
+                     'Ax4': (2.6403599105640603, 1.849223172481293,
+                             1.4474220882821704, 0.731060503790059),
+                     'diag4': (2.273116213938419, 2.2731162138052787,
+                               2.2731162138052956, 2.2731162139384335)}},
+    'square1': {
+        'dofs': 81,
+        'delta0.4': {'max_entry': 1.6360945791999062,
+                     'fro': 13.342829891418393, 'trace': 116.30113138463994,
+                     'Ax_norm': 8.129482285378522,
+                     'Ax4': (1.214334389681373, 1.1260343489384765,
+                             0.6457998590971235, 0.4483387840988997),
+                     'diag4': (1.4566440834146952, 1.6360945791999044,
+                               1.4375005073709635, 1.4567149908136683)},
+        'delta0.3': {'max_entry': 2.0554760722948706,
+                     'fro': 17.425852255083484, 'trace': 150.46320056522558,
+                     'Ax_norm': 9.97088665226877,
+                     'Ax4': (1.4855642768064476, 1.2912963280789285,
+                             0.6966044008286523, 0.5539447201861578),
+                     'diag4': (1.8906011055449197, 2.0554760722948675,
+                               1.8586688843238446, 1.8907102746272781)}}}
+MF_S, MF_DELTA, MF_DELTA2 = 0.25, 0.4, 0.3
+MF_PINS = (('interval', 3), ('interval', 6), ('square', 1))
+MF_NOREF = 11
+MF_SQUARE_NOREF = 3
+# H2corrected against the exact sparse operator (max entry difference over
+# the largest entry; relative apply difference) in the JAX package
+# (`scripts/pin_matrix_formats_jax.py --table`), below the full-width
+# lines: the interval at noRef 7 at horizon 0.4 (the smaller of its two
+# horizons' differences), which the interval at noRef 11 must fall below at
+# either horizon; the square at noRef 2 at each horizon, which the square
+# at noRef 3 must fall below at that horizon
+_INTERVAL_BAR = {'entries': 1.4647666951596097e-05,
+                 'matvec': 2.0723297528951998e-05}
+MF_BARS = {'interval': {0.4: _INTERVAL_BAR, 0.3: _INTERVAL_BAR},
+           'square': {0.4: {'entries': 0.00016034905597522565,
+                            'matvec': 0.00022231383225516983},
+                      0.3: {'entries': 0.0001778699733906907,
+                            'matvec': 0.0002566527656905752}}}
+TOL_MF_PIN = 1e-12
+TOL_MF_X = 1e-10
+MF_CG_TOL = 1e-10
+# getDiagonal with the zero-exterior term: s, and (domain, noRef)
+MF_DIAG_S = 0.6
+MF_DIAG_LINES = (('interval', 12), ('disc', 4))
+MF_SPARSIFIED_NOREF = 8
+H2C_KERNELS = ('panel_scatter', 'panel_scatter:dense',
+               'panel_scatter:complement', 'h2_matvec', 'csr_spmv',
+               'csr_scatter')
+MF_CG_PATH = H2C_KERNELS + ('pcg_update', 'pcg_update:jacobi')
+MF_LINE_PATH = INTERVAL_LU_PATH + H2C_KERNELS[1:] + ('panel_scatter:slots',)
+MF_LINES = {'interval': (MF_NOREF, MF_LINE_PATH + ('cut1d', 'pcg_update',
+                                                   'pcg_update:jacobi')),
+            'square': (MF_SQUARE_NOREF, MF_LINE_PATH + ('cut2d_polar',))}
+MF_DIAG_PATH = ('panel_scatter', 'panel_scatter:diag',
+                'panel_scatter:diag_exterior', 'panel_scatter:dense')
+MF_SPARSIFIED_PATH = ('panel_scatter', 'panel_scatter:dense',
+                      'panel_scatter:slots', 'cut1d')
+FORMATS_COMPARED_AT = {
+    'panel_scatter:complement': f'the largest calls of the cross operators '
+                                f'of the interval at noRef {MF_NOREF} '
+                                f'(delta {MF_DELTA} and {MF_DELTA2}) and of '
+                                f'the square at noRef {MF_SQUARE_NOREF} '
+                                '(dense target, the block mask)',
+    'panel_scatter:diag_exterior': 'every call of the zero-exterior term of '
+                                   'getDiagonal on the interval at noRef '
+                                   f'{MF_DIAG_LINES[0][1]} and the disc at '
+                                   f'noRef {MF_DIAG_LINES[1][1]} (normals)',
+}
+# the JAX programs each variant replaces
+FORMATS_REPLACES = {
+    'panel_scatter:complement': 'pynucleus_tpu/nl/assembly.py:91 with '
+                                'ball2Complement.jaxIndicator (nl/kernels.py'
+                                ':868-870), from _getComplementCross '
+                                '(:4076-4134)',
+    'panel_scatter:diag_exterior': 'pynucleus_tpu/nl/assembly.py:91 with the '
+                                   'boundary kernel into _DiagAccumulator '
+                                   '(:926) via _addZeroExterior (:4405)',
+}
+
+
+def FORMATS18_PATHS(counts18):
+    """The main paths of phase 18: (kernels, label, launch counts)."""
+    return tuple(
+        (MF_CG_PATH if noRef == 6 else H2C_KERNELS,
+         f'h2corrected_{domain}_noRef{noRef}', counts18[f'{domain}{noRef}'])
+        for domain, noRef in MF_PINS) + tuple(
+        (path, f'h2corrected_{domain}_noRef{noRef}', counts18[domain])
+        for domain, (noRef, path) in MF_LINES.items()) + tuple(
+        (MF_DIAG_PATH, f'diagonal_{domain}_noRef{noRef}',
+                 counts18['diag_' + domain])
+                for domain, noRef in MF_DIAG_LINES) + (
+        (MF_SPARSIFIED_PATH, f'sparsified_interval_noRef{MF_SPARSIFIED_NOREF}',
+         counts18['sparsified']),)
+
+
+def mf_setup(domain, noRef, horizon=MF_DELTA):
+    """(dm, kernel): the fractional kernel of order MF_S and the horizon on
+    nonlocalMesh's domain with its collar (HOMOGENEOUS_DIRICHLET) refined
+    noRef times, P1 on the interior dofs, on the card."""
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.nl.problems import (nonlocalMesh,
+                                                 HOMOGENEOUS_DIRICHLET)
+    kernel = getFractionalKernel(1 if domain == 'interval' else 2, MF_S,
+                                 horizon=horizon)
+    mesh, info = nonlocalMesh(domain, kernel, HOMOGENEOUS_DIRICHLET)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    return P1_DoFMap(mesh, tag=info['domain'], device='cuda'), kernel
+
+
+def h2_dense(H):
+    """The H2 operator H as a dense tensor on the card: H e_j for every j
+    (row j of the result, returned transposed)."""
+    import torch
+    n = H.num_rows
+    D = torch.empty((n, n), dtype=torch.float64, device='cuda')
+    e = torch.zeros(n, dtype=torch.float64, device='cuda')
+    for j in range(n):
+        e[j] = 1.0
+        H.matvec(e, out=D[j])
+        e[j] = 0.0
+    return D.t()
+
+
+def h2c_dense(A, S):
+    """The horizonCorrected A as a dense tensor: facS S - Cross - c_tot M,
+    S the dense S_inf."""
+    return A.facS * S - A.Cross.data - A.c_tot * csr_to_dense(A.mass, S)
+
+
+def _cos(n):
+    import torch
+    return torch.cos(0.3 * torch.arange(n, dtype=torch.float64,
+                                        device='cuda'))
+
+
+def h2c_cg(A, b, maxIter=1000):
+    """CG-Jacobi (tolerance MF_CG_TOL) on A x = b: (iterations, ||x||,
+    seconds)."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    s = solverFactory.build('cg-jacobi', A=A, setup=True)
+    s.tolerance, s.maxIter = MF_CG_TOL, maxIter
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    return s.iterations, float(torch.linalg.norm(x)), \
+        time.perf_counter() - t0
+
+
+def h2c_pin_line(domain, noRef):
+    """H2corrected at delta 0.4 and, after setKernel, 0.3 (S_inf kept)
+    against the pinned JAX outputs; at noRef 6 the CG-Jacobi line."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    dm, kernel = mf_setup(domain, noRef)
+    ref = JAX_H2CORRECTED[f'{domain}{noRef}']
+    A = assembleNonlocal(dm, kernel, matrixFormat='H2corrected')
+    Sinf = A.Sinf
+    S = h2_dense(Sinf)
+    x = _cos(A.num_rows)
+    rel, bad = {}, []
+    if A.num_rows != ref['dofs']:
+        bad.append(f'dofs {A.num_rows}')
+    for delta in (MF_DELTA, MF_DELTA2):
+        if delta != MF_DELTA:
+            A.setKernel(getFractionalKernel(dm.mesh.dim, MF_S,
+                                            horizon=delta))
+            if A.Sinf is not Sinf:
+                bad.append('setKernel rebuilt S_inf')
+        D, Ax = h2c_dense(A, S), A.matvec(x)
+        got = {'max_entry': D.abs().max(), 'fro': torch.linalg.norm(D),
+               'trace': torch.trace(D), 'Ax_norm': torch.linalg.norm(Ax)}
+        r = ref[f'delta{delta}']
+        rd = {k: abs(float(v) - r[k]) / abs(r[k]) for k, v in got.items()}
+        for k, v in (('Ax4', Ax[:4]), ('diag4', A.diagonal[:4])):
+            rd[k] = float(np.abs(v.cpu().numpy() - np.array(r[k])).max()
+                          / np.abs(r[k]).max())
+        rel[f'delta{delta}'] = rd
+        bad += [f'delta {delta} {k} {v:.2e}' for k, v in rd.items()
+                if not v <= TOL_MF_PIN]
+        if delta == MF_DELTA and 'cg_jacobi' in ref:
+            its, xn, _ = h2c_cg(A, A.mass.matvec(torch.ones_like(x)))
+            rel['cg_jacobi'] = {'iterations': its, 'x_norm': xn}
+            cg = ref['cg_jacobi']
+            if its != cg['iterations'] or \
+                    not abs(xn - cg['x_norm']) <= TOL_MF_X * cg['x_norm']:
+                bad.append(f'CG-Jacobi {its} iterations, ||x|| {xn!r} (JAX '
+                           f"{cg['iterations']}, {cg['x_norm']!r})")
+    log(f'  H2corrected {domain} noRef {noRef}: {A.num_rows} dofs, relative '
+        f'to JAX {json.dumps(rel)}')
+    if bad:
+        raise AssertionError(f'H2corrected {domain} noRef {noRef}: '
+                             + '; '.join(bad))
+    return rel
+
+
+def h2c_vs_sparse(A, S, dm, kernel, x):
+    """The port's getSparse of the kernel (seconds to a synchronize) and
+    H2corrected A against it: the largest entry difference over the
+    largest entry, and the relative apply difference on x.  Returns
+    (summary, the sparse operator)."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Asp = nonlocalBuilder(dm, kernel).getSparse()
+    torch.cuda.synchronize()
+    tSparse = time.perf_counter() - t0
+    Dsp = csr_to_dense(Asp, S)
+    entries = float((h2c_dense(A, S) - Dsp).abs().max() / Dsp.abs().max())
+    del Dsp
+    Sx = Asp.matvec(x)
+    return {'getSparse_s': tSparse, 'nnz': Asp.nnz, 'entries': entries,
+            'matvec': float(torch.linalg.norm(A.matvec(x) - Sx)
+                            / torch.linalg.norm(Sx))}, Asp
+
+
+def h2c_line(domain, noRef, solve):
+    """A full-width line (a path): H2corrected built (parts: S_inf, the
+    mass, the cross operator's host classification and the rest), held to
+    the port's getSparse at delta 0.4 and, after setKernel (S_inf kept;
+    under torch.profiler: the device time by kernel), at 0.3, each below
+    MF_BARS; back to 0.4 from the cache; with ``solve`` CG-Jacobi on A x =
+    M 1 with A and with getSparse, the applies (CUDA events over 10) and
+    the peak device memory."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    dm, kernel = mf_setup(domain, noRef)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    b = nonlocalBuilder(dm, kernel)
+    A = b.getH2FiniteHorizon()
+    torch.cuda.synchronize()
+    out = {'noRef': noRef, 'cells': dm.mesh.num_cells, 'dofs': A.num_rows,
+           'build_s': time.perf_counter() - t0, 'parts_s': dict(b.timers)}
+    Sinf = A.Sinf
+    t0 = time.perf_counter()
+    S = h2_dense(Sinf)
+    torch.cuda.synchronize()
+    out['S_inf_dense_s'] = time.perf_counter() - t0
+    x = _cos(A.num_rows)
+    out[f'delta{MF_DELTA}'], Asp = h2c_vs_sparse(A, S, dm, kernel, x)
+    kernel2 = getFractionalKernel(dm.mesh.dim, MF_S, horizon=MF_DELTA2)
+    t0 = time.perf_counter()
+    dev = device_ms_by_kernel(lambda: A.setKernel(kernel2))
+    out['setKernel_s'] = time.perf_counter() - t0
+    out['setKernel_parts_s'] = dict(A.timers)
+    out['setKernel_device_ms_by_kernel'] = dev
+    bad = [] if A.Sinf is Sinf else ['setKernel rebuilt S_inf']
+    out[f'delta{MF_DELTA2}'], _ = h2c_vs_sparse(A, S, dm, kernel2, x)
+    del S
+    A.setKernel(kernel)
+    if A.timers:
+        bad.append('setKernel back to the first horizon missed the cache')
+    if solve:
+        rhs = A.mass.matvec(torch.ones_like(x))
+        for label, op in (('h2corrected', A), ('sparse', Asp)):
+            its, xn, secs = h2c_cg(op, rhs, maxIter=5000)
+            y = torch.empty_like(x)
+            out[label] = {'cg_jacobi_iterations': its, 'x_norm': xn,
+                          'cg_s': secs,
+                          'apply_ms': timed(lambda: [op.matvec(x, out=y)
+                                                     for _ in range(10)])
+                          / 10}
+    out['peak_device_GiB'] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for delta in (MF_DELTA, MF_DELTA2):
+        got = out[f'delta{delta}']
+        bad += [f'delta {delta} {k} {got[k]:.3e} (bar {v:.3e})'
+                for k, v in MF_BARS[domain][delta].items() if not got[k] < v]
+    log(f'  H2corrected {domain} noRef {noRef}: {json.dumps(out)}')
+    if bad:
+        raise AssertionError(f'H2corrected {domain} noRef {noRef}: '
+                             + '; '.join(bad))
+    return out
+
+
+def mf_diag_line(domain, noRef):
+    """getDiagonal with the zero-exterior term (s MF_DIAG_S, infinite
+    horizon; 2D: normals) against the diagonal of getDense without the
+    grid (the same classification), 1e-12 of the largest."""
+    import torch
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval, circle
+    from pynucleus_tpu_torch.nl.assembly import (assembleNonlocal,
+                                                 nonlocalBuilder)
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    mesh = simpleInterval(-1.0, 1.0) if domain == 'interval' else \
+        circle(h=0.78, radius=1.0)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    dm = P1_DoFMap(mesh, device='cuda')
+    kernel = getFractionalKernel(mesh.dim, MF_DIAG_S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = assembleNonlocal(dm, kernel, matrixFormat='diagonal').diagonal
+    torch.cuda.synchronize()
+    tDiag = time.perf_counter() - t0
+    dD = torch.diagonal(nonlocalBuilder(dm, kernel,
+                                        params={'denseGrid': False})
+                        .getDense().data)
+    err = float((d - dD).abs().max() / dD.abs().max())
+    out = {'noRef': noRef, 'cells': mesh.num_cells, 'dofs': dm.num_dofs,
+           'getDiagonal_s': tDiag, 'vs_dense': err}
+    log(f'  diagonal {domain} noRef {noRef}: {json.dumps(out)}')
+    if not err <= TOL_KERNEL:
+        raise AssertionError(f'diagonal {domain} noRef {noRef}: {err:.2e} '
+                             'from getDense')
+    return out
+
+
+def mf_sparsified_line():
+    """'sparsified' of the finite horizon on the interval: a CSR operator
+    whose entries equal getSparse's on the union of the two patterns (1e-12
+    of the largest: atomics add in no fixed order)."""
+    import torch
+    from pynucleus_tpu_torch.base.linear_operators import CSR_LinearOperator
+    from pynucleus_tpu_torch.nl.assembly import (assembleNonlocal,
+                                                 nonlocalBuilder)
+    dm, kernel = mf_setup('interval', MF_SPARSIFIED_NOREF)
+    A = assembleNonlocal(dm, kernel, matrixFormat='sparsified')
+    Asp = nonlocalBuilder(dm, kernel).getSparse()
+    like = torch.zeros((dm.num_dofs, dm.num_dofs), dtype=torch.float64,
+                       device='cuda')
+    DA, DS = csr_to_dense(A, like), csr_to_dense(Asp, like)
+    union = (DA != 0) | (DS != 0)
+    err = float((DA - DS)[union].abs().max() / DS.abs().max())
+    out = {'noRef': MF_SPARSIFIED_NOREF, 'dofs': dm.num_dofs,
+           'csr': isinstance(A, CSR_LinearOperator), 'nnz': A.nnz,
+           'sparse_nnz': Asp.nnz, 'union': int(union.sum()),
+           'vs_getSparse': err}
+    log(f'  sparsified interval noRef {MF_SPARSIFIED_NOREF}: '
+        f'{json.dumps(out)}')
+    if not out['csr'] or not err <= TOL_KERNEL:
+        raise AssertionError(f'sparsified: {json.dumps(out)}')
+    return out
+
+
+def complement_work(args):
+    """K1 with the complement indicator (dense target, the off-diagonal
+    block mask) on recorded args: panel_work_dof on the entries the mask
+    keeps, with the indicator's operations per node."""
+    import torch
+    n = args[4].shape[1]
+    mask = torch.zeros((n, n), dtype=torch.bool, device=args[4].device)
+    mask[:n // 2, n // 2:] = mask[n // 2:, :n // 2] = True
+    return panel_work_dof(args, mask=mask, indicatorOps=INDICATOR_OPS)
+
+
+def _is_exterior(call):
+    """A recorded K1 diagonal-target call of the zero-exterior term: pairs
+    of a cell and a surface simplex (nv2 < nv1)."""
+    (_, _, vi1, vi2, *_), _ = call
+    return vi2.shape[1] < vi1.shape[1]
+
+
+def phase18():
+    """The matrix formats of assembleNonlocal: H2corrected against the
+    pinned JAX outputs (interval noRef 3, 6 with CG-Jacobi, square noRef 1;
+    each a path), the full-width interval (noRef 11, CG-Jacobi) and square
+    (noRef 3) against getSparse at two horizons (each a path), getDiagonal
+    with the zero-exterior term (the interval at noRef 12, the disc at
+    noRef 4; each a path), 'sparsified' (a path); then K1 with the
+    complement indicator and the block mask, and K1's diagonal target on
+    the zero-exterior pairs, against their plain versions.  Returns the
+    launch counts of the paths, the comparisons and a summary."""
+    import pynucleus_tpu_torch.nl.assembly as asm
+    log('phase 18: the matrix formats (H2corrected with a horizon sweep, '
+        'diagonal with the zero-exterior term, sparsified)')
+    counts, summary = {}, {'pins': {}}
+    for domain, noRef in MF_PINS:
+        key = f'{domain}{noRef}'
+        summary['pins'][key], counts[key] = count_path(
+            f'H2corrected {domain} noRef {noRef}',
+            MF_CG_PATH if noRef == 6 else H2C_KERNELS,
+            lambda: h2c_pin_line(domain, noRef))
+    recs = {}
+    for domain, (noRef, path) in MF_LINES.items():
+        with ArgRecorder(asm, 'panel_scatter', dataFirst=True,
+                         size=_k1_size) as recs[domain]:
+            summary[domain], counts[domain] = count_path(
+                f'H2corrected {domain} noRef {noRef}', path,
+                lambda: h2c_line(domain, noRef, domain == 'interval'))
+    with ArgRecorder(asm, 'panel_scatter_diag', dataFirst=True) as diagRec:
+        for domain, noRef in MF_DIAG_LINES:
+            summary['diag_' + domain], counts['diag_' + domain] = count_path(
+                f'diagonal {domain} noRef {noRef}', MF_DIAG_PATH,
+                lambda: mf_diag_line(domain, noRef))
+    summary['sparsified'], counts['sparsified'] = count_path(
+        f'sparsified interval noRef {MF_SPARSIFIED_NOREF}', MF_SPARSIFIED_PATH,
+        mf_sparsified_line)
+
+    log('  the matrix formats\' variants of K1 against their plain versions')
+    cmp = {'panel_scatter:complement': merge(*(compare_target_kernel(
+        f'panel_scatter (complement, {domain})', recs[domain].calls,
+        asm.panel_scatter, asm._panel_scatter_plain, complement_work)
+        for domain in ('interval', 'square')))}
+    exterior = [c for c in diagRec.calls if _is_exterior(c)]
+    if not exterior:
+        raise AssertionError('getDiagonal made no call of the zero-exterior '
+                             'term')
+    cmp['panel_scatter:diag_exterior'] = compare_target_kernel(
+        'panel_scatter_diag (zero-exterior term)', exterior,
+        asm.panel_scatter_diag, asm._panel_scatter_diag_plain,
+        panel_work_dof, csr=False)
+    log(f'phase 18 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -4509,6 +4993,7 @@ def main():
     counts15, cmp15, summary15 = phase15()
     counts16, cmp16, diag16, summary16 = phase16()
     counts17, cmp17, summary17 = phase17()
+    counts18, cmp18, summary18 = phase18()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -4557,7 +5042,8 @@ def main():
          counts14['disc7_h2']),
         (DERIV_VEC_PATH,
          f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
-         counts14['vector_full'])) + FH17_PATHS(counts17)
+         counts14['vector_full'])) + FH17_PATHS(counts17) \
+        + FORMATS18_PATHS(counts18)
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
@@ -4671,10 +5157,31 @@ def main():
                 'bound_by': xby, 'library_ms': cx['library_ms'],
                 'compared_at': RADIAL_INDICATOR_COMPARED_AT}
         table.append(row)
+    # the matrix formats' variants of phase 18: K1 with the complement
+    # indicator and the block mask, K1's diagonal target on the
+    # zero-exterior pairs; the CUDA launches counted where they launched
+    for name in FORMATS_COMPARED_AT:
+        route, src, _ = KERNEL_INFO[name.split(':')[0]]
+        c = cmp18[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in FORMATS18_PATHS(counts18) if counts[name]}
+        table.append({
+            'name': name, 'route': route, 'source': src,
+            'replaces': FORMATS_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in FORMATS18_PATHS(counts18)),
+            'compared_at': FORMATS_COMPARED_AT[name]})
+    log(f'phases 1-18 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
     log(f'phase 17 summary: {json.dumps(summary17)}')
+    log(f'phase 18 summary: {json.dumps(summary18)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

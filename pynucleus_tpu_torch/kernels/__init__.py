@@ -2,9 +2,10 @@
 
 Twenty-three kernels carry the port's device work:
 
-  K1 panel_scatter  (csrc/panel_scatter.cu)  panel quadrature of explicit
+  K1 panel_scatter  (csrc/panel_scatter.cuh) panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
-                    horizon), scattered into dense A, into CSR data at
+                    horizon or of a complement kernel), scattered into
+                    dense A (with a launch-wide entry mask), into CSR data at
                     explicit or arithmetic tree slots, into the interior
                     x boundary coupling A_BC, or into the diagonal alone;
                     its complex variant (the greens2D profile) into a
@@ -90,9 +91,9 @@ seven profiles without an order, the power profile with each order);
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
-ball1, the ellipse with its map T), K15 clips its rays in the same balls'
-norms.  K14 and K15 take the power profile only, K15 also the complex one.  The
-complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
+ball1, the ellipse with its map T; K1 also the complement of ball2), K15
+clips its rays in the same balls' norms.  K14 and K15 take the power
+profile only, K15 also the complex one.  The complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
 functions of pynucleus_tpu/nl/kernels.py _bessel_j0y0) has its own
 instances: K1's complex variant (dense and diagonal targets) and K15's.
 K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
@@ -121,7 +122,10 @@ target) and ``panel_scatter:complex_diag`` (diagonal target); the
 finite-horizon variants (HORIZON) under ``panel_scatter:ball1`` and
 ``:ellipse`` (K1 with those indicators), ``cut2d_polar:ball1`` and
 ``:ellipse``, and ``panel_scatter_nonsym:var_horizon`` (K19's
-variable-horizon instances).
+variable-horizon instances); the matrix formats' variants (FORMATS) under
+``panel_scatter:complement`` (K1 with the complement indicator, code 5)
+and ``panel_scatter:diag_exterior`` (K1's diagonal target on the
+zero-exterior pairs of a cell and a surface simplex).
 ``deviceLaunches`` counts, per kernel and per complex or finite-horizon
 variant, the CUDA launches those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -168,18 +172,24 @@ COMPLEX = ('csr_spmv:complex', 'jacobi_smooth:complex',
 HORIZON = ('panel_scatter:ball1', 'panel_scatter:ellipse',
            'cut2d_polar:ball1', 'cut2d_polar:ellipse',
            'panel_scatter_nonsym:var_horizon')
+# the variants of the matrix formats: K1 with the complement indicator
+# (code 5, the dense target with its entry mask) and K1's diagonal target
+# on the zero-exterior term's pairs of a cell and a surface simplex
+FORMATS = ('panel_scatter:complement', 'panel_scatter:diag_exterior')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS + COMPLEX + HORIZON}
-deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON}
+            + K23_FORMS + COMPLEX + HORIZON + FORMATS}
+deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
-SOURCES = ('panel_scatter.cu', 'grid_distant.cu', 'grid_boundary.cu',
+SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
+           'panel_scatter_cross.cu', 'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
            'panel_scatter_nonsym.cu', 'panel_scatter_vec.cu',
            'vector_matvec.cu')
+HEADERS = ('common.cuh', 'panel_scatter.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
                 'panel_scatter_vec.cu': ('-fmad=false',)}
@@ -216,7 +226,7 @@ def buildLibrary(verbose=False):
     alone had taken 15.0 s."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
-    for name in SOURCES + ('common.cuh',):
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC, name), 'rb') as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -269,9 +279,9 @@ def _declare(lib):
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile (code, C, e, a),
-        # indicator, order, yShift, stream
+        # indicator, order, yShift, entry mask bits (-1: all), stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, *PROF, *IND, *ORD, P, P],
+                          P, P, P, P, I, *PROF, *IND, *ORD, P, L, P],
         # A_BC, NB, then as panel_scatter up to the indicator (a finite
         # horizon: no variable order, no y shift), stream
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,

@@ -369,8 +369,10 @@ constexpr long long DROP_HALF = -536870912LL;
 // code 2 ballInf, max_d |x_d-y_d|^2 < h2; code 3 ball1, (sum_d |x_d-y_d|)^2
 // < h2; code 4 the ellipse (2D), |T (x-y)|^2 < h2 with T = [[t00, t01],
 // [t10, t11]] in the order of jnp.einsum('ij,...j') (t_i0 d_0, then
-// + t_i1 d_1); code 0 the full space.  Every product and sum rounds on its
-// own (no FMA), as the plain versions' operations do.
+// + t_i1 d_1); code 5 the complement of ball2, !(|x-y|^2 < h2) (a
+// complement kernel: pynucleus_tpu/nl/kernels.py ball2Complement
+// .jaxIndicator, r2 >= h2); code 0 the full space.  Every product and sum
+// rounds on its own (no FMA), as the plain versions' operations do.
 struct Inter {
     int code;
     double h2;
@@ -396,13 +398,22 @@ __device__ __forceinline__ bool inBall(const Inter& in, const double* x,
         l1 = __dadd_rn(l1, fabs(dd));
     }
     if (in.code == 1) return r2 < in.h2;
+    if (in.code == 5) return !(r2 < in.h2);
     if (in.code == 2) return __dmul_rn(m, m) < in.h2;
     return __dmul_rn(l1, l1) < in.h2;
 }
 
 // Quadrature node q of a pair: x_q = sum_a bary_x[a,q] v1[a] and y_q =
 // sum_a bary_y[a,q] v2[a] (+ ysh [dim], or nullptr) into x, y [dim];
-// returns r2 = |x_q - y_q|^2.  The node geometry of K1 (panelQuad) and K19.
+// returns r2 = |x_q - y_q|^2.  The node geometry of K1 (panelQuad) and K19,
+// K21, K22.  The vertex sums run in order from a = 0 with the rounding
+// stated here, whatever -fmad the file is built with: FMA, x = fma(b_a,
+// v_a, x), one rounding per term (K1, K6, K12, K13, K19), as the JAX
+// package's einsum rounds them on the CPU and the plain versions'
+// nl/assembly.py _fmaNodes does; this decides the complement indicator at
+// nodes exactly delta apart.  Without FMA, x = x + b_a v_a, the product and
+// the sum each rounded (K21, K22, as nl/assembly.py _nodesInOrder).
+template <bool FMA = true>
 __device__ __forceinline__ double panelNode(
     double x[MAXDIM], double y[MAXDIM], double v1[MAXNV][MAXDIM], int nv1,
     double v2[MAXNV][MAXDIM], int nv2, int dim,
@@ -411,8 +422,12 @@ __device__ __forceinline__ double panelNode(
     double r2 = 0.0;
     for (int d = 0; d < dim; ++d) {
         double xd = 0.0, yd = 0.0;
-        for (int a = 0; a < nv1; ++a) xd += bary_x[a * Q + q] * v1[a][d];
-        for (int a = 0; a < nv2; ++a) yd += bary_y[a * Q + q] * v2[a][d];
+        for (int a = 0; a < nv1; ++a)
+            xd = FMA ? __fma_rn(bary_x[a * Q + q], v1[a][d], xd)
+                     : __dadd_rn(xd, __dmul_rn(bary_x[a * Q + q], v1[a][d]));
+        for (int a = 0; a < nv2; ++a)
+            yd = FMA ? __fma_rn(bary_y[a * Q + q], v2[a][d], yd)
+                     : __dadd_rn(yd, __dmul_rn(bary_y[a * Q + q], v2[a][d]));
         if (ysh != nullptr) yd = __dadd_rn(yd, ysh[d]);
         x[d] = xd;
         y[d] = yd;

@@ -1,225 +1,15 @@
-// K1 panel_scatter: batched panel quadrature of explicit element pairs,
-// scattered into the dense operator, into CSR data (the H2 near field, the
-// sparse format) or into the interior x boundary coupling A_BC.
-//
-// Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib (+ the dense
-// scatter _device_scatter_rows), _bucket_natural_scatter_scan,
-// _bucket_rows_scatter_scan, _bucket_masked_csr_scan and
-// _bucket_surface_tree_scan.  For pair p with simplices vi1[p], vi2[p]:
-//   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
-//         (+ yShift[p], a variable order's surface items)
-//   t_q = gamma(x_q, y_q) w_q volsym[p]  (* n_p.(y_q-x_q)/|y_q-x_q|)
-//         (* chi(x_q, y_q), the interaction indicator of a finite horizon:
-//         ball2, ballInf, ball1 or the ellipse, common.cuh inBall)
-//   M[I,J] = sum_q t_q PSIP[q, I*nPSI+J]
-// gamma is the kernel's radial profile or, for a variable fractional order
-// (constantNonSym, leftRight: pynucleus_tpu/nl/kernels.py
-// FractionalKernel.evalXY, reached through _radial_eval), s(x, y) and its
-// normalization per node (common.cuh kernelXY); the kernel is a template on
-// both codes and each launcher switches once (KERNEL_SWITCH).
-// One quadrature body (common.cuh panelQuad), four epilogues:
-//   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
-//          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
-//   SLOTS  data[slots[p, I*nPSI+J]] += M[I,J]       for 0 <= slot < nnz
-//          (host slots of the identical-cell and touching near pairs)
-//   TREE   data[treeSlot(dofRows[p,I], dofRows[p,J]; I_p, J_p, offF_p,
-//          offB_p)] += M[I,J] (union surfaces; the slot is arithmetic in the
-//          tree-ordered CSR, see common.cuh treeSlot)
-//   CROSS  A[dofRows[p,I], -dofRows[p,J]-1] += M[I,J]  for an interior row
-//          (>= 0) and a boundary column (DROP_HALF < c < 0): A_BC [N, NB]
-//          of pynucleus_tpu/nl/assembly.py:getDenseCross / BCAccumulator
-//   DIAG   d[r] += M[I,J] where r = dofRows[p,I] = dofRows[p,J] >= 0: the
-//          diagonal alone (pynucleus_tpu/nl/assembly.py _DiagAccumulator
-//          of getDiagonal); radial profiles without a variable order
-//
-// The complex variant is the instance of the complex GREENS_2D profile
-// (PC == PROFILE_GREENS_2D; common.cuh radialC, the A&S Bessel functions
-// of ComplexKernel._radialJax): t_q and M are complex, kept as separate re
-// and im sums (2 nPSI^2 doubles a lane, panelQuad's acc and acci), reduced
-// the same way and added into the float64 view of the complex128 target
-// (re at 2 k, im at 2 k + 1) with two atomicAdd(double) each; its targets
-// are DENSE and DIAG (the complex DenseAccumulator and _DiagAccumulator of
-// getDense and getDiagonal), triangles only (nPSI 3 or 6).  No normals and
-// no variable order: a complex kernel has no zero-exterior term.
-//
-// Design: one warp per pair, lanes striding over the Q quadrature nodes
-// (the 2D singular rules have 30-3000 nodes, so a thread per pair would
-// leave lanes idle), the nPSI^2 local entries kept in registers, a warp
-// butterfly reduction per entry, then one atomicAdd(double) per entry.
-// Bound on the card: float64 pow per node and the nPSI^2 FMAs per node
-// (compute); atomics are nPSI^2 per pair, negligible against Q >= 30.  The
-// complex variant: the Bessel branch per node (a log, or a cos, a sin and
-// a sqrt, and four rational polynomials) and 2 nPSI^2 FMAs per node.
+// K1 panel_scatter (panel_scatter.cuh): the C entry points of its dense
+// and diagonal targets.
 
-#include "common.cuh"
-
-enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3, DIAG = 4 };
-
-template <int NPSI, int TARGET, int PC, int OC>
-__global__ void __launch_bounds__(256)
-panel_scatter_kernel(double* __restrict__ out,
-                     long long N /* dense: N; CSR: nnz; cross: NB */,
-                     const double* __restrict__ vertices, int dim,
-                     const long long* __restrict__ vi1, int nv1,
-                     const long long* __restrict__ vi2, int nv2,
-                     const long long* __restrict__ dofRows,
-                     const int* __restrict__ slots,
-                     const double* __restrict__ volsym,
-                     const double* __restrict__ normals, long long P,
-                     const int* __restrict__ I, const int* __restrict__ J,
-                     const int* __restrict__ offF,
-                     const int* __restrict__ offB, TreeTables tt,
-                     const double* __restrict__ bary_x,
-                     const double* __restrict__ bary_y,
-                     const double* __restrict__ w,
-                     const double* __restrict__ PSIP, int Q,
-                     Profile pf, Inter in, Order od,
-                     const double* __restrict__ yShift) {
-    constexpr int NN = NPSI * NPSI;
-    constexpr bool CPLX = PC == PROFILE_GREENS_2D;
-    static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
-                  "the complex profile scatters into dense A or the diagonal");
-    const int lane = threadIdx.x & 31;
-    const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
-                           + (threadIdx.x >> 5);
-    if (pair >= P) return;  // uniform across the warp
-
-    double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM], nrm[MAXDIM];
-    loadSimplex(v1, vertices, vi1 + pair * nv1, nv1, dim);
-    loadSimplex(v2, vertices, vi2 + pair * nv2, nv2, dim);
-    if (normals != nullptr)
-        for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
-
-    double acc[NN], acci[CPLX ? NN : 1];
-    panelQuad<NN, PC, OC>(acc, v1, nv1, v2, nv2, dim,
-                          normals != nullptr ? nrm : nullptr, volsym[pair],
-                          bary_x, bary_y, w, PSIP, Q, pf, lane, 32, in, od,
-                          yShift != nullptr ? yShift + pair * dim : nullptr,
-                          acci);
-#pragma unroll
-    for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
-
-    if constexpr (CPLX) {
-#pragma unroll
-        for (int k = 0; k < NN; ++k) acci[k] = warpSum(acci[k]);
-        const long long* dr = dofRows + pair * NPSI;
-#pragma unroll
-        for (int k = 0; k < NN; ++k) {
-            if ((k & 31) != lane) continue;
-            const long long r = dr[k / NPSI], c = dr[k % NPSI];
-            long long at = -1;
-            if (TARGET == DENSE) {
-                if (r >= 0 && c >= 0) at = r * N + c;
-            } else if (r >= 0 && r == c) {
-                at = r;
-            }
-            if (at >= 0) {
-                atomicAdd(out + 2 * at, acc[k]);
-                atomicAdd(out + 2 * at + 1, acci[k]);
-            }
-        }
-        return;
-    }
-    if (TARGET == TREE) {
-        long long dr[NPSI];
-#pragma unroll
-        for (int i = 0; i < NPSI; ++i) dr[i] = dofRows[pair * NPSI + i];
-        treeScatter<NPSI>(out, N, tt, dr, I[pair], J[pair], offF[pair],
-                          offB[pair], acc, lane);
-        return;
-    }
-#pragma unroll
-    for (int k = 0; k < NN; ++k) {
-        if ((k & 31) != lane) continue;
-        if (TARGET == DENSE) {
-            const long long* dr = dofRows + pair * NPSI;
-            const long long r = dr[k / NPSI], c = dr[k % NPSI];
-            if (r >= 0 && c >= 0) atomicAdd(out + r * N + c, acc[k]);
-        } else if (TARGET == CROSS) {
-            const long long* dr = dofRows + pair * NPSI;
-            const long long r = dr[k / NPSI], c = dr[k % NPSI];
-            if (r >= 0 && c < 0 && c > DROP_HALF)
-                atomicAdd(out + r * N - c - 1, acc[k]);
-        } else if (TARGET == DIAG) {
-            const long long* dr = dofRows + pair * NPSI;
-            const long long r = dr[k / NPSI];
-            if (r >= 0 && r == dr[k % NPSI]) atomicAdd(out + r, acc[k]);
-        } else {
-            const long long s = slots[pair * NN + k];
-            if (s >= 0 && s < N) atomicAdd(out + s, acc[k]);
-        }
-    }
-}
+#include "panel_scatter.cuh"
 
 EXPORT const char* cuda_error_string(int err) {
     return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-template <int TARGET>
-static int launchPanel(double* out, long long N, const double* vertices,
-                       int dim, const long long* vi1, int nv1,
-                       const long long* vi2, int nv2,
-                       const long long* dofRows, const int* slots, int nPSI,
-                       const double* volsym, const double* normals,
-                       long long P, const int* I, const int* J,
-                       const int* offF, const int* offB, TreeTables tt,
-                       const double* bary_x, const double* bary_y,
-                       const double* w, const double* PSIP, int Q, Profile pf,
-                       Inter in, Order od, const double* yShift,
-                       cudaStream_t stream) {
-    if (P <= 0) return 0;
-    if (dim > MAXDIM || nv1 > MAXNV || nv2 > MAXNV)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 256;
-    const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
-    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-#define LAUNCH(NP)                                                          \
-    panel_scatter_kernel<NP, TARGET, PC, OC><<<(unsigned)blocks, threads, 0, \
-                                               stream>>>(                    \
-        out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots, volsym,  \
-        normals, P, I, J, offF, offB, tt, bary_x, bary_y, w, PSIP, Q, pf,  \
-        in, od, yShift)
-#define NPSI_SWITCH                                                    \
-    switch (nPSI) {                                                     \
-        case 2: LAUNCH(2); break;                                       \
-        case 3: LAUNCH(3); break;                                       \
-        case 4: LAUNCH(4); break;                                       \
-        case 6: LAUNCH(6); break;                                       \
-        default: return static_cast<int>(cudaErrorInvalidValue);       \
-    }
-    if (pf.code == PROFILE_GREENS_2D) {
-        // the complex profile (out the float64 view of a complex128
-        // target): dense A or the diagonal, triangles (nPSI 3 for an
-        // identical cell, else 6), no order, no normals, no shift
-        if constexpr (TARGET == DENSE || TARGET == DIAG) {
-            if (od.code != ORDER_NONE || normals != nullptr
-                || yShift != nullptr)
-                return static_cast<int>(cudaErrorInvalidValue);
-            constexpr int PC = PROFILE_GREENS_2D, OC = ORDER_NONE;
-            switch (nPSI) {
-                case 3: LAUNCH(3); break;
-                case 6: LAUNCH(6); break;
-                default: return static_cast<int>(cudaErrorInvalidValue);
-            }
-        } else {
-            return static_cast<int>(cudaErrorInvalidValue);
-        }
-    } else if constexpr (TARGET == DIAG) {
-        // the diagonal of a radial profile: no variable order instances
-        if (od.code != ORDER_NONE)
-            return static_cast<int>(cudaErrorInvalidValue);
-        constexpr int OC = ORDER_NONE;
-        PROFILE_SWITCH(pf.code, NPSI_SWITCH)
-    } else {
-        KERNEL_SWITCH(pf.code, od.code, NPSI_SWITCH)
-    }
-#undef NPSI_SWITCH
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
-}
-
 // A: dense [N, N]; with pcode PROFILE_GREENS_2D the float64 view of a
-// complex128 A (and of a complex128 d [N] in panel_scatter_diag).
+// complex128 A (and of a complex128 d [N] in panel_scatter_diag).  emask:
+// bit I*nPSI+J keeps local entry (I, J) of every pair (-1: all).
 EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          int dim, const long long* vi1, int nv1,
                          const long long* vi2, int nv2,
@@ -234,7 +24,8 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          int ocode, double sll, double srr, double slr,
                          double srl, double iface, double piD2,
                          double halfDim, double eBase, int boundary,
-                         const double* yShift, cudaStream_t stream) {
+                         const double* yShift, long long emask,
+                         cudaStream_t stream) {
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
@@ -243,7 +34,7 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                               Inter{inter, h2, t00, t01, t10, t11},
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
-                              yShift, stream);
+                              yShift, emask, stream);
 }
 
 EXPORT int panel_scatter_diag(double* d, long long N,
@@ -264,85 +55,5 @@ EXPORT int panel_scatter_diag(double* d, long long N,
                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
                              Profile{pcode, C, e, a, C1, C2},
                              Inter{inter, h2, t00, t01, t10, t11}, Order{},
-                             nullptr, stream);
-}
-
-EXPORT int panel_scatter_cross(double* A, long long NB,
-                               const double* vertices, int dim,
-                               const long long* vi1, int nv1,
-                               const long long* vi2, int nv2,
-                               const long long* dofRows, int nPSI,
-                               const double* volsym, const double* normals,
-                               long long P, const double* bary_x,
-                               const double* bary_y, const double* w,
-                               const double* PSIP, int Q, int pcode, double C,
-                               double e, double a,
-                               double C1, double C2, int inter, double h2,
-                               double t00, double t01, double t10,
-                               double t11,
-                               cudaStream_t stream) {
-    return launchPanel<CROSS>(A, NB, vertices, dim, vi1, nv1, vi2, nv2,
-                              dofRows, nullptr, nPSI, volsym, normals, P,
-                              nullptr, nullptr, nullptr, nullptr,
-                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2},
-                              Inter{inter, h2, t00, t01, t10, t11},
-                              Order{}, nullptr, stream);
-}
-
-EXPORT int panel_scatter_slots(double* data, long long nnz,
-                               const double* vertices, int dim,
-                               const long long* vi1, int nv1,
-                               const long long* vi2, int nv2,
-                               const int* slots, int nPSI,
-                               const double* volsym, const double* normals,
-                               long long P, const double* bary_x,
-                               const double* bary_y, const double* w,
-                               const double* PSIP, int Q, int pcode, double C,
-                               double e, double a,
-                               double C1, double C2, int inter, double h2,
-                               double t00, double t01, double t10,
-                               double t11,
-                               int ocode, double sll, double srr, double slr,
-                               double srl, double iface, double piD2,
-                               double halfDim, double eBase, int boundary,
-                               const double* yShift, cudaStream_t stream) {
-    return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
-                              nullptr, slots, nPSI, volsym, normals, P,
-                              nullptr, nullptr, nullptr, nullptr,
-                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2},
-                              Inter{inter, h2, t00, t01, t10, t11},
-                              Order{ocode, sll, srr, slr, srl, iface, piD2,
-                                    halfDim, eBase, boundary},
-                              yShift, stream);
-}
-
-EXPORT int panel_scatter_tree(double* data, long long nnz,
-                              const double* vertices, int dim,
-                              const long long* vi1, int nv1,
-                              const long long* vi2, int nv2,
-                              const long long* dofRows, int nPSI,
-                              const double* volsym, const double* normals,
-                              long long P, const int* I, const int* J,
-                              const int* offF, const int* offB,
-                              const int* dofNode, const int* treePos,
-                              const int* indptrT, const int* tStart,
-                              const double* bary_x, const double* bary_y,
-                              const double* w, const double* PSIP, int Q,
-                              int pcode, double C, double e, double a,
-                              double C1, double C2,
-                              int ocode, double sll, double srr, double slr,
-                              double srl, double iface, double piD2,
-                              double halfDim, double eBase, int boundary,
-                              const double* yShift, cudaStream_t stream) {
-    return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
-                             dofRows, nullptr, nPSI, volsym, normals, P, I,
-                             J, offF, offB,
-                             TreeTables{dofNode, treePos, indptrT, tStart},
-                             bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a, C1, C2}, Inter{},
-                             Order{ocode, sll, srr, slr, srl, iface, piD2,
-                                   halfDim, eBase, boundary},
-                             yShift, stream);
+                             nullptr, -1LL, stream);
 }

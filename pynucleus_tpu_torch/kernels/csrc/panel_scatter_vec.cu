@@ -6,7 +6,7 @@
 // Replace pynucleus_tpu/nl/assembly.py:_bucket_contrib_vec (K21) and
 // :_bucket_contrib_nonsym_vec (K22), with :_vec_eval and the log correction
 // :_log_extra_scalar, and the host np.add.at of VectorDenseAccumulator.add.
-// For pair p and node q (x_q, y_q as K1's, common.cuh panelNode; r2 =
+// For pair p and node q (x_q, y_q: common.cuh panelNode<false>; r2 =
 // |x_q - y_q|^2; side sigma of (x_q, y_q): 0 ll, 1 rr, 2 lr, 3 rl with
 // left x[0] < interface):
 //   T(x, y) = [ r2^e (c0 + c1 L + c2 L^2) w_q
@@ -111,8 +111,8 @@ panel_scatter_vec_kernel(double* __restrict__ A, long long N, int V,
         int s1 = 0, s2 = 0;
         if (q < Q) {
             double x[MAXDIM], y[MAXDIM];
-            const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
-                                        bary_y, Q, q, nullptr);
+            const double r2 = panelNode<false>(x, y, v1, nv1, v2, nv2, dim,
+                                               bary_x, bary_y, Q, q, nullptr);
             s1 = vecSide(x, y, iface);
             t1 = vecTerm(r2, tab + s1 * VEC_COEFS, w[q], lnEta, cw1, cw2, q,
                          vs);

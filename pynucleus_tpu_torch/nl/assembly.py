@@ -27,7 +27,13 @@ general branch of _runPairBuckets, every cell pair classified), getH2 as
 getSparse, and getDenseCross (A_BC of the Dirichlet collar); the ball2,
 ballInf, ball1 and ellipse interactions, and on the interval a variable
 horizon delta(x) (nonsymmetric: K19 with the horizon indicator, its cut
-pairs on the indicator fallback of _runCutPairs).
+pairs on the indicator fallback of _runCutPairs).  The other formats of
+assembleNonlocal: 'sparsified' (getDense, then a CSR operator of its
+nonzero entries), 'diagonal' (getDiagonal, the zero-exterior term's
+surface pairs through K1's diagonal target) and 'H2corrected'
+(getH2FiniteHorizon: :class:`horizonCorrected` of an infinite-horizon H2
+operator, the mass and the complement kernel's cross operator, K1 with
+the complement indicator and a launch-wide entry mask into a dense A).
 ``params={'nearEngine': 'flat'}`` runs the flat engine alone (the JAX
 ``PYNUCLEUS_TPU_BLOCK_NEAR=0``), ``'host'`` the host enumeration (the JAX
 ``PYNUCLEUS_TPU_HOST_ENUM=1``).  Host numpy classifies cell pairs
@@ -35,8 +41,9 @@ pairs on the indicator fallback of _runCutPairs).
 pattern exactly as the JAX package does; the device work is:
 
   K1 panel_scatter   panel quadrature of explicit pairs (times the
-                     interaction indicator of a finite horizon), scattered
-                     into a dense A, into CSR data at explicit slots
+                     interaction indicator of a finite horizon or of a
+                     complement kernel), scattered into a dense A (with a
+                     launch-wide entry mask), into CSR data at explicit slots
                      (identical-cell and touching pairs of the H2 near
                      field; every non-cut pair of the sparse format), at
                      arithmetic tree slots (union surfaces), or into A_BC
@@ -103,7 +110,8 @@ import torch
 
 from .. import kernels
 from ..config import TREAL, TINDEX, getDevice
-from ..base.linear_operators import (Dense_LinearOperator, CSR_LinearOperator,
+from ..base.linear_operators import (LinearOperator, Dense_LinearOperator,
+                                     CSR_LinearOperator,
                                      Diagonal_LinearOperator)
 from ..fem.quadrature import simplexCompact
 from .panels import (classifyPairsDense, classifyPairsDenseGrid,
@@ -116,12 +124,14 @@ from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
 from .kernels import (radialEval, profileArgs, POWER, evalXY, orderArgs,
                       horizonArgs, vectorTerms, COMPLEX_PROFILES,
                       GREENS_2D_PROFILE, IDENTITY_T,
-                      BALL2, BALL_INF, BALL1, ELLIPSE, indicatorMask,
+                      BALL2, BALL_INF, BALL1, ELLIPSE, BALL2_COMPLEMENT,
+                      indicatorMask,
                       dirNorm)
 from ..base.linear_operators import (Dense_VectorLinearOperator,
                                      H2_VectorLinearOperator)
 
-__all__ = ['nonlocalBuilder', 'assembleNonlocal', 'panel_scatter',
+__all__ = ['nonlocalBuilder', 'assembleNonlocal', 'horizonCorrected',
+           'panel_scatter',
            'panel_scatter_slots', 'panel_scatter_tree',
            'panel_scatter_cross', 'cut1d', 'cut2d_polar', 'grid_distant',
            'grid_boundary', 'near_enum', 'near_enum_quad', 'far_field',
@@ -215,25 +225,28 @@ def _indicatorArgs(indicator):
     """(code, h2, T00, T01, T10, T11) of an interaction indicator
     (nl.kernels.Indicator, or a (code, h2) pair of a ball without T) for
     the C entry points: code 0 for none (infinite horizon), 1 ball2, 2
-    ballInf, 3 ball1, 4 the ellipse."""
+    ballInf, 3 ball1, 4 the ellipse, 5 the complement of ball2."""
     if indicator is None:
         return (0, 0.0) + IDENTITY_T
     code, h2, *T = indicator
-    if code not in range(5) or (code == ELLIPSE and not T):
-        raise ValueError(f'indicator {indicator!r}: code 0 to 4 (ball2, '
-                         'ballInf, ball1, ellipse with its T)')
+    if code not in range(6) or (code == ELLIPSE and not T):
+        raise ValueError(f'indicator {indicator!r}: code 0 to 5 (ball2, '
+                         'ballInf, ball1, ellipse with its T, '
+                         'ball2Complement)')
     return (int(code), float(h2)) + tuple(float(v) for v in
                                           (T[0] if T else IDENTITY_T))
 
 
 def _ballKey(code):
-    """The launch-count suffix of the ball1 and ellipse variants of K1 and
-    K15 (interaction code 3 or 4), else None."""
-    return {BALL1: 'ball1', ELLIPSE: 'ellipse'}.get(code)
+    """The launch-count suffix of the ball1, ellipse and complement
+    variants of K1 and K15 (interaction code 3, 4 or 5), else None."""
+    return {BALL1: 'ball1', ELLIPSE: 'ellipse',
+            BALL2_COMPLEMENT: 'complement'}.get(code)
 
 
 def _countBall(name, indicator):
-    """Counts a launch of K1 with a ball1 or ellipse indicator."""
+    """Counts a launch of K1 with a ball1, ellipse or complement
+    indicator."""
     key = _ballKey(0 if indicator is None else int(indicator[0]))
     if key:
         kernels.countVariant(f'{name}:{key}')
@@ -259,7 +272,7 @@ def _interArgs(inter):
 
 def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
                   bary_x, bary_y, w, PSIP, prof, indicator=None, order=None,
-                  yShift=None):
+                  yShift=None, entryMask=None):
     """Panel quadrature of explicit pairs, scattered into A [N, N]:
 
         M[p] = sum_q gamma(x_q, y_q) w_q volsym[p]
@@ -273,12 +286,18 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
     indicator (nl.kernels.Indicator: code, h2, T) the interaction
     indicator chi of a finite horizon (code 1: |x-y|^2 < h2, ball2; code 2:
     max|x_d-y_d|^2 < h2, ballInf; code 3: (sum|x_d-y_d|)^2 < h2, ball1;
-    code 4: |T (x-y)|^2 < h2, the ellipse), or None.  gamma(x, y) is nl.kernels.evalXY: the profile, or with ``order``
-    (nl.kernels.OrderParams) a variable fractional order's kernel; yShift
-    [P, dim] (or None) is added to pair p's y nodes (useYShift of the JAX
-    program: the side of an order jump of a surface item).
+    code 4: |T (x-y)|^2 < h2, the ellipse; code 5: |x-y|^2 >= h2, the
+    complement of ball2), or None.  gamma(x, y) is nl.kernels.evalXY: the
+    profile, or with ``order`` (nl.kernels.OrderParams) a variable
+    fractional order's kernel; yShift [P, dim] (or None) is added to pair
+    p's y nodes (useYShift of the JAX program: the side of an order jump of
+    a surface item).  entryMask (bool [nPSI, nPSI], or None for all) keeps
+    local entry (I, J) of every pair of the launch where it is True: the
+    JAX package's entryMask with DROP rows, one mask for the launch (the
+    complement cross operator keeps the off-diagonal blocks of its local
+    matrices).
 
-    Kernel K1 (kernels/csrc/panel_scatter.cu) on CUDA tensors, the plain
+    Kernel K1 (kernels/csrc/panel_scatter.cuh) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _bucket_contrib + _device_scatter_rows,
     _bucket_natural_scatter_scan and _bucket_rows_scatter_scan."""
     dtype = _valueType('panel_scatter', prof, normals, order, yShift)
@@ -291,13 +310,25 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
                          yShift)
     if dofRows.shape[0] != P:
         raise ValueError('panel_scatter: shape mismatch')
+    emask = _entryBits(entryMask, dofRows.shape[1])
     if A.device.type == 'cpu':
         return _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym,
                                     normals, bary_x, bary_y, w, PSIP, prof,
-                                    indicator, order, yShift)
+                                    indicator, order, yShift, entryMask)
     _launchDofTarget('panel_scatter', 'dense', A, A.shape[0], vertices, vi1,
                      vi2, dofRows, volsym, normals, bary_x, bary_y, w, PSIP,
-                     prof, indicator, *orderArgs(order), _opt(yShift))
+                     prof, indicator, *orderArgs(order), _opt(yShift), emask)
+
+
+def _entryBits(entryMask, nPSI):
+    """K1's launch-wide entry mask as bits: bit I*nPSI+J set where local
+    entry (I, J) is kept (-1: every entry, no mask)."""
+    if entryMask is None:
+        return -1
+    em = np.asarray(entryMask, dtype=bool)
+    if em.shape != (nPSI, nPSI):
+        raise ValueError(f'panel_scatter: entryMask must be [{nPSI}, {nPSI}]')
+    return int(sum(1 << k for k in np.flatnonzero(em.reshape(-1))))
 
 
 def _orderKw(order, yShift=None):
@@ -317,9 +348,11 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
                      *orderTail):
     """K1 into a dof-indexed target (dense A [N, N], A_BC [N, NB] with N
     the column count NB, or the diagonal [N]); ``orderTail`` the dense
-    target's order arguments and y shift (the cross and diagonal targets
-    have none).  A complex128 target (the GREENS_2D profile) is passed as
-    its float64 view."""
+    target's order arguments, y shift and entry mask bits (the cross and
+    diagonal targets have none).  A complex128 target (the GREENS_2D
+    profile) is passed as its float64 view.  The diagonal target's pairs
+    of a cell and a surface simplex (nv2 < nv1: the zero-exterior term of
+    getDiagonal) count as the variant ``panel_scatter:diag_exterior``."""
     P, nPSI = dofRows.shape
     if P == 0:
         return
@@ -333,6 +366,8 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
         kernels.countVariant('panel_scatter:complex'
                              + ('' if target == 'dense' else '_diag'))
     _countBall('panel_scatter', indicator)
+    if target == 'diag' and vi2.shape[1] < vi1.shape[1]:
+        kernels.countVariant('panel_scatter:diag_exterior')
     p = kernels.ptr
     kernels.check(getattr(lib, fn)(
         p(A), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
@@ -442,9 +477,17 @@ def _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows, volsym,
 def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
                    PSIP, prof, indicator=None, order=None, yShift=None):
     """Local matrices M [P, nPSI^2] of explicit pairs (K1's quadrature body,
-    plain); the caller bounds P."""
-    x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
-    y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
+    plain); the caller bounds P.  With the complement indicator the nodes
+    are summed as K1 and the JAX package's einsum round them
+    (:func:`_fmaNodes`): it decides inside the cross operator's ring-cut
+    pairs, at nodes |x-y| = delta to the last bit where the horizon spans
+    whole cells (the pairs of the other indicators in K1 are not cut)."""
+    if indicator is not None and int(indicator[0]) == BALL2_COMPLEMENT:
+        x = _fmaNodes(vertices, vi1, bary_x)
+        y = _fmaNodes(vertices, vi2, bary_y)
+    else:
+        x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
+        y = torch.einsum('pvd,vq->pqd', vertices[vi2], bary_y)
     if yShift is not None:
         y = y + yShift[:, None, :]
     r2 = ((x - y) ** 2).sum(-1)
@@ -468,9 +511,11 @@ def _plainChunks(P, Q):
 
 def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
                          bary_x, bary_y, w, PSIP, prof, indicator=None,
-                         order=None, yShift=None):
+                         order=None, yShift=None, entryMask=None):
     """Plain PyTorch version of :func:`panel_scatter` (any device)."""
     P, nPSI = dofRows.shape
+    keep = None if entryMask is None else torch.as_tensor(
+        np.asarray(entryMask, dtype=bool).reshape(-1), device=A.device)
     for sl in _plainChunks(P, w.shape[0]):
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
@@ -478,9 +523,12 @@ def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
                            None if yShift is None else yShift[sl])
         dr = dofRows[sl]
         p = dr.shape[0]
-        rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(-1)
+        rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(p, -1)
         cols = dr[:, None, :].expand(p, nPSI, nPSI).reshape(-1)
-        _scatterBlocks(A, rows, cols, M.reshape(-1))
+        if keep is not None:
+            # the JAX package's rb = where(entryMask, rb, DROP)
+            rows = torch.where(keep, rows, DROP)
+        _scatterBlocks(A, rows.reshape(-1), cols, M.reshape(-1))
 
 
 def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
@@ -922,9 +970,55 @@ def _vecNodeTerms(x, y, r2, w, vp, logTables):
                               device=r2.device)[side]
 
 
+def _twoProd(a, b):
+    """(p, e) with p = fl(a b) and a b = p + e exactly (Dekker's product
+    with Veltkamp's split; no FMA)."""
+    p = a * b
+    ca = 134217729.0 * a
+    ah = ca - (ca - a)
+    cb = 134217729.0 * b
+    bh = cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _twoSum(a, b):
+    """(s, e) with s = fl(a + b) and a + b = s + e exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma(a, b, c):
+    """a b + c rounded once (as a fused multiply-add), from separately
+    rounded operations: Boldo and Melquiond's emulation, the exact product
+    and sum, their low parts added with rounding to odd, then one rounding
+    to nearest."""
+    ph, pl = _twoProd(a, b)
+    th, tl = _twoSum(c, ph)
+    v, e = _twoSum(tl, pl)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(e > 0, torch.inf, -torch.inf).to(v.dtype)
+    return th + torch.where((e != 0) & even, torch.nextafter(v, toward), v)
+
+
+def _fmaNodes(vertices, vi, bary):
+    """Nodes [P, Q, dim] = sum_a bary[a, q] vertices[vi[p, a]], summed
+    over a in order from 0 with one rounding per term, x = fma(b_a, v_a, x):
+    as common.cuh panelNode<true> sums them for K1 (__fma_rn) and as the
+    JAX package's einsum rounds them on the CPU (torch.einsum rounds as it
+    does only for larger batches)."""
+    V = vertices[vi]
+    x = bary[0][None, :, None] * V[:, 0, None, :]
+    for a in range(1, vi.shape[1]):
+        x = _fma(bary[a][None, :, None], V[:, a, None, :], x)
+    return x
+
+
 def _nodesInOrder(vertices, vi, bary):
     """Nodes [P, Q, dim] = sum_a bary[a, q] vertices[vi[p, a]], summed over
-    a in order from 0, as common.cuh panelNode sums them."""
+    a in order from 0, as common.cuh panelNode<false> sums them for K21
+    and K22."""
     x = torch.zeros((vi.shape[0], bary.shape[1], vertices.shape[1]),
                     dtype=vertices.dtype, device=vertices.device)
     for a in range(vi.shape[1]):
@@ -1991,15 +2085,18 @@ class DeviceDenseAccumulator:
     """Dense [N, N] operator on the device (K1, K14, K15 into A): float64,
     or complex128 for a complex kernel (the complex DenseAccumulator of
     pynucleus_tpu/nl/assembly.py getDense)."""
+    # K3, the zero-exterior term's grid pass, writes into A
+    gridTarget = True
 
     def __init__(self, N, device, dtype=TREAL):
         self.N = N
         self.A = torch.zeros((N, N), dtype=dtype, device=device)
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
-                  tables, prof, indicator, order=None):
+                  tables, prof, indicator, order=None, entryMask=None):
         panel_scatter(self.A, vertices, vi1, vi2, dofRows, volsym, normals,
-                      *tables, prof, indicator=indicator, **_orderKw(order))
+                      *tables, prof, indicator=indicator, entryMask=entryMask,
+                      **_orderKw(order))
 
     def addNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, prof,
                   order, indicator=None, horizon=None):
@@ -2020,6 +2117,7 @@ class DeviceDiagAccumulator:
     complex128 (pynucleus_tpu/nl/assembly.py _DiagAccumulator of
     getDiagonal): the diagonal targets of K1 and of K14, K15.  The
     nonsymmetric local matrices (K19) have no diagonal target."""
+    gridTarget = False      # K3 has no diagonal target
 
     def __init__(self, N, device, dtype=TREAL):
         self.d = torch.zeros(N, dtype=dtype, device=device)
@@ -2032,8 +2130,8 @@ class DeviceDiagAccumulator:
                            normals, *tables, prof, indicator=indicator)
 
     def addNonsym(self, *args):
-        raise NotImplementedError('getDiagonal of a nonsymmetric or variable '
-                                  'order')
+        raise NotImplementedError('the diagonal target of the nonsymmetric '
+                                  'local matrices (K19)')
 
     def cutTarget(self, dofRows):
         return self.d, 'diag', dofRows
@@ -2045,6 +2143,7 @@ class DeviceDiagAccumulator:
 class DeviceVectorDenseAccumulator:
     """Dense vector operator [N, N, V] float64 on the device (K21, K22 into
     A; pynucleus_tpu/nl/assembly.py VectorDenseAccumulator)."""
+    gridTarget = False
 
     def __init__(self, N, V, device):
         self.A = torch.zeros((N, N, V), dtype=TREAL, device=device)
@@ -2069,6 +2168,7 @@ class DeviceCrossAccumulator(DeviceDenseAccumulator):
     """The interior x boundary coupling A_BC [N, NB] float64 on the device
     (pynucleus_tpu/nl/assembly.py BCAccumulator): entries of an interior row
     dof and a boundary column dof -d-1, at column d."""
+    gridTarget = False
 
     def __init__(self, N, NB, device):
         self.N, self.NB = N, NB
@@ -2182,7 +2282,8 @@ class _BucketRunner:
             return None
         return tuple(self._t(a) for a in (rule.lnEta, rule.cw1, rule.cw2))
 
-    def _launch(self, acc, rule, PSI, vi1, vi2, dofRows, volsym, normals):
+    def _launch(self, acc, rule, PSI, vi1, vi2, dofRows, volsym, normals,
+                entryMask=None):
         if self.vector is not None:
             if self.useNormals:
                 raise NotImplementedError('vector kernels in 2D')
@@ -2191,11 +2292,13 @@ class _BucketRunner:
                              self.logTables(rule))
             return
         prof = self.kernel.profileParams()
+        kw = _orderKw(self._k1Order())
+        if entryMask is not None:
+            kw['entryMask'] = entryMask
         acc.addPanels(self.vertices, vi1, vi2, dofRows, volsym,
                       normals if self.useNormals else None,
                       self.ruleTables(rule, PSI), prof,
-                      self.kernel.indicatorParams(),
-                      **_orderKw(self._k1Order()))
+                      self.kernel.indicatorParams(), **kw)
 
     def _k1Order(self):
         """The kernel's variable order for K1; a variable horizon has no K1
@@ -2204,9 +2307,11 @@ class _BucketRunner:
             raise NotImplementedError('a variable horizon: K19 only')
         return self.kernel.orderParams()
 
-    def runNatural(self, acc, rule, PSI, di, dj, symfac):
+    def runNatural(self, acc, rule, PSI, di, dj, symfac, entryMask=None):
         """Pairs given as cell ids (id buckets, distant corrections): the
-        explicit K1 arrays are gathered on the device."""
+        explicit K1 arrays are gathered on the device; entryMask [nPSI,
+        nPSI] (or None) keeps those local entries of every pair (the dense
+        target)."""
         if len(di) == 0:
             return
         di = self._t(di, TINDEX)
@@ -2215,7 +2320,7 @@ class _BucketRunner:
             torch.cat([self.dofs[di], self.dofs[dj]], dim=1)
         vs = self.vols[di] * self.vols[dj] * float(symfac)
         self._launch(acc, rule, PSI, self.cells[di], self.cells[dj],
-                     dr.contiguous(), vs, None)
+                     dr.contiguous(), vs, None, entryMask)
 
     def run(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
             normals=None):
@@ -2437,9 +2542,9 @@ class nonlocalBuilder:
             or kernel.isComplex else zeroExterior
         self.device = getDevice(device if device is not None else dm.device)
         self.timers = {}
-        if kernel.phi is not None or kernel.complement:
+        if kernel.phi is not None:
             raise NotImplementedError('the port assembles kernels without '
-                                      'two-point weights or complement only')
+                                      'two-point weights only')
         if kernel.isComplex and (self.mesh.manifold_dim != 2 or int(
                 kernel.profileParams().code) != GREENS_2D_PROFILE):
             # 3D assembly raises in the JAX package as well
@@ -2811,8 +2916,9 @@ class nonlocalBuilder:
         nonsymmetric kernel (a variable horizon) through the indicator
         fallback (:2509-2537): K19 with the horizon indicator on the
         compact=False tensor rules, both orderings, factor 1.  The
-        symmetric branch of the fallback (K1 with factor 2; its only callers
-        are complement kernels, which the builder refuses) raises."""
+        symmetric branch of the fallback (K1 with factor 2) raises: nothing
+        in the JAX package reaches it (a complement kernel has no finite
+        horizon, so no cut pairs; every 2D ball takes K15)."""
         from ..fem.quadrature import simplexDuffy, gauss01
         kernel, mesh, dm = self.kernel, self.mesh, self.dm
         if dm.polynomialOrder != 1:
@@ -2912,11 +3018,13 @@ class nonlocalBuilder:
         surface = mesh.get_surface_mesh()
         bkernel = self.kernel.getModifiedKernel(horizon=np.inf) \
             .getBoundaryKernel()
-        # a variable boundary kernel, and the per-pair dense path, have no
-        # grid pass: every surface pair goes through K1 or K21 (the JAX
-        # package's gridOK; its per-pair path is its CPU default)
+        # a variable boundary kernel, the per-pair dense path and a target
+        # that K3 cannot write (the diagonal) have no grid pass: every
+        # surface pair goes through K1 or K21 (the JAX package's gridOK; its
+        # per-pair path is its CPU default, its _DiagAccumulator takes no
+        # grid)
         gridOK = not bkernel.variable and \
-            self.params.get('denseGrid') is not False
+            self.params.get('denseGrid') is not False and acc.gridTarget
         binfo = classifyBoundaryPairs(
             dm, surface, bkernel, target_order=self.params.get('target_order'),
             correctionsOnly=gridOK)
@@ -3947,17 +4055,20 @@ class nonlocalBuilder:
                                       'package has getDense and getDiagonal '
                                       'only')
 
-    def getDense(self):
+    def getDense(self, trySparsification=False):
         """Dense [N, N] operator: the grid path for an infinite horizon
         (unless ``params={'denseGrid': False}``), every cell pair classified
         for a finite one, for a variable or nonsymmetric order, for a
-        complex kernel (complex128) and without the grid."""
+        complex or complement kernel (complex128 for a complex one) and
+        without the grid.  With ``trySparsification`` a CSR_LinearOperator
+        of its nonzero entries where they are fewer than 0.9 of all
+        (pynucleus_tpu/nl/assembly.py getDense, the 'sparsified' format)."""
         self._scalarKernel('getDense')
         if self.kernel.finiteHorizon or self.general \
-                or self.kernel.isComplex \
+                or self.kernel.isComplex or self.kernel.complement \
                 or self.params.get('denseGrid') is False:
-            # the grid path takes real symmetric radial kernels only
-            # (pynucleus_tpu/nl/assembly.py _gridEligible)
+            # the grid path takes real symmetric radial kernels of the full
+            # space only (pynucleus_tpu/nl/assembly.py _gridEligible)
             info = self._classifyAll()
         else:
             info = classifyPairsDenseGrid(
@@ -3968,23 +4079,25 @@ class nonlocalBuilder:
         self._runPairBuckets(acc, info)
         if self.zeroExterior:
             self._addZeroExterior(acc)
+        if trySparsification:
+            return _sparsified(acc.A) or acc.result()
         return acc.result()
 
     def getDiagonal(self):
         """The diagonal of the dense operator without forming it
         (pynucleus_tpu/nl/assembly.py getDiagonal): every cell pair
         classified, the pair buckets into the diagonal targets of K1, K14
-        and K15 (complex128 for a complex kernel), as a
-        Diagonal_LinearOperator.  The zero-exterior term of a real kernel
-        of an infinite horizon (the surface term, K3 in getDense) and the
-        nonsymmetric local matrices (K19) raise NotImplementedError."""
+        and K15 (complex128 for a complex kernel), then the zero-exterior
+        term of a real kernel of an infinite horizon, every surface pair
+        through K1's diagonal target (K3 has none), as a
+        Diagonal_LinearOperator.  The nonsymmetric local matrices (K19)
+        raise NotImplementedError."""
         self._scalarKernel('getDiagonal')
-        if self.zeroExterior:
-            raise NotImplementedError('getDiagonal with the zero-exterior '
-                                      'term is not ported')
         acc = DeviceDiagAccumulator(self.dm.num_dofs, self.device,
                                     self._dtype())
         self._runPairBuckets(acc, self._classifyAll())
+        if self.zeroExterior:
+            self._addZeroExterior(acc)
         return acc.result()
 
     def getSparse(self):
@@ -4054,6 +4167,125 @@ class nonlocalBuilder:
         self._runPairBuckets(acc, self._classifyAll())
         return acc.result()
 
+    # pairs of cells per host chunk of the complement cross operator
+    CROSS_CHUNK = 1 << 20
+
+    def _getComplementCross(self):
+        """The cross operator of the complement kernel (pynucleus_tpu/nl/
+        assembly.py _getComplementCross):
+
+            Cross_ij = -2 int int psi_i(x) psi_j(y) gamma(x, y)
+                                 1{|x-y| >= delta}
+
+        (the kernel's scaling carries the sign and the form's 1/2).  Every
+        cell pair (i <= j, triu_indices(C, k=0)) whose largest vertex
+        distance exceeds delta, by the distant rule of its order (even,
+        capped at 16; ring-cut pairs, smallest distance below delta, +4
+        capped at 20 on the compact=False rules), factor 2 on vol_i vol_j,
+        K1 with the complement indicator into the dense target, keeping the
+        off-diagonal blocks of each local matrix (the launch-wide entry
+        mask).  The host decisions are the JAX package's, code-identical,
+        made over the pairs in chunks of rows of at most CROSS_CHUNK pairs
+        (per-pair decisions: the same pairs, orders and rules; a chunk's
+        buckets launch before the next chunk is classified).  ``timers``:
+        'classification', the host seconds of the decisions, and
+        'quadrature', the rest up to a synchronise (uploads, launches, the
+        device)."""
+        from .panels import _pairMinMaxDistance, orderModelParams
+        kernel = self.kernel
+        if not kernel.complement:
+            raise ValueError('_getComplementCross needs a complement kernel')
+        dm, mesh = self.dm, self.mesh
+        cells, verts = mesh.cells, mesh.vertices
+        dpe = dm.dofs_per_element
+        hv = kernel.horizonValue
+        mp = orderModelParams(dm, kernel, self.params.get('target_order'))
+        centers = verts[cells].mean(axis=1)
+        hs = _cellDiameter(verts, cells)
+
+        def classify(iu, ju):
+            """The buckets (order, isCut, ii, jj) of a chunk of pairs."""
+            dmin, dmax = _pairMinMaxDistance(verts, cells, iu, ju)
+            keep = dmax > hv
+            iu, ju, dmin = iu[keep], ju[keep], dmin[keep]
+            cut = dmin < hv
+            buckets = []
+            for isCut in (False, True):
+                sel = cut == isCut
+                ii, jj = iu[sel], ju[sel]
+                if len(ii) == 0:
+                    continue
+                orders = distantOrders(dm, kernel, hs, centers, ii, jj, mp)
+                orders = ((orders + 1) // 2) * 2
+                if isCut:
+                    orders = np.minimum(orders + 4, 20)
+                else:
+                    orders = np.minimum(orders, 16)
+                for order in np.unique(orders):
+                    osel = orders == order
+                    buckets.append((int(order), isCut, ii[osel], jj[osel]))
+            return buckets
+
+        acc = DeviceDenseAccumulator(dm.num_dofs, self.device)
+        runner = _BucketRunner(mesh, dm, kernel, self.device)
+        emBlock = np.zeros((2 * dpe, 2 * dpe), dtype=bool)
+        emBlock[:dpe, dpe:] = True
+        emBlock[dpe:, :dpe] = True
+        rules = {}
+        self.timers = {'classification': 0.0}
+        t0 = time.perf_counter()
+        for iu, ju in _triuChunks(mesh.num_cells, self.CROSS_CHUNK):
+            tc = time.perf_counter()
+            buckets = classify(iu, ju)
+            self.timers['classification'] += time.perf_counter() - tc
+            for order, isCut, oi, oj in buckets:
+                if (order, isCut) not in rules:
+                    # cut pairs sample the indicator: the dense Duffy grid
+                    rule = distantRule(order, mesh.manifold_dim,
+                                       compact=not isCut)
+                    rules[order, isCut] = (rule, rule.buildPSI(
+                        dm, nSharedVertices=0))
+                runner.runNatural(acc, *rules[order, isCut], oi, oj, 2.0,
+                                  entryMask=emBlock)
+        _sync(self.device)
+        self.timers['quadrature'] = time.perf_counter() - t0 \
+            - self.timers['classification']
+        return acc.result()
+
+    def getH2FiniteHorizon(self):
+        """The finite-horizon operator as an infinite-horizon H2 operator
+        with corrections (pynucleus_tpu/nl/assembly.py getH2FiniteHorizon,
+        the 'H2corrected' format): S_inf of the fractional kernel of the
+        same order, infinite horizon, scaling 1/2 and the zero-exterior
+        term, on this dofmap (the interior dofs of a mesh with a collar),
+        in H2; the mass matrix; then :class:`horizonCorrected` set to this
+        kernel.  A variable order raises.  ``timers``: S_inf's build (its
+        parts under 'S_inf parts'), the mass, and the cross operator's
+        classification and quadrature."""
+        kernel = self.kernel
+        if not kernel.finiteHorizon:
+            raise ValueError('H2corrected needs a finite horizon')
+        if not hasattr(getattr(kernel, 's', None), 'value') \
+                or kernel.variable:
+            raise NotImplementedError('H2corrected requires a constant '
+                                      'fractional order')
+        from .kernels import getFractionalKernel
+        from ..fem.assembly import assembleMass
+        infKernel = getFractionalKernel(self.mesh.dim, kernel.s.value,
+                                        horizon=np.inf, scaling=0.5)
+        t0 = time.perf_counter()
+        b = nonlocalBuilder(self.dm, infKernel, params=self.params,
+                            zeroExterior=True, device=self.device)
+        Sinf = b.getH2()
+        t0 = self._lap('S_inf', t0)
+        self.timers['S_inf parts'] = dict(b.timers)
+        mass = assembleMass(self.dm)
+        t0 = self._lap('mass', t0)
+        A = horizonCorrected(self.dm, Sinf, mass)
+        A.setKernel(kernel, params=self.params)
+        self.timers.update({'cross ' + k: v for k, v in A.timers.items()})
+        return A
+
     def getH2(self):
         """Hierarchical operator: cluster tree, Chebyshev far field (K7),
         exact near field (K1 and the nearEngine's kernels) (pynucleus_tpu's
@@ -4064,6 +4296,10 @@ class nonlocalBuilder:
         self._realKernel('getH2')
         if self.kernel.finiteHorizon:
             return self.getSparse()
+        if self.kernel.complement:
+            raise NotImplementedError('H2 of a complement kernel: its '
+                                      'cross operator is dense '
+                                      '(_getComplementCross)')
         from .h2 import H2Matrix
         if self.mesh.manifold_dim not in (1, 2):
             raise NotImplementedError('the port assembles H2 operators on 1D '
@@ -4255,18 +4491,135 @@ ENUM_SEGMENT = 1 << 25
 HOST_ENUM_CHUNK = 1 << 23
 
 
+def _triuChunks(C, chunk):
+    """np.triu_indices(C, k=0) in chunks of whole rows, at most ``chunk``
+    pairs each (a row longer than that alone): (iu, ju) per chunk, the
+    same pairs in the same order."""
+    counts = C - np.arange(C)
+    ends = np.cumsum(counts)
+    i0 = 0
+    while i0 < C:
+        base = ends[i0] - counts[i0]
+        i1 = max(int(np.searchsorted(ends, base + chunk, side='right')),
+                 i0 + 1)
+        rows = np.arange(i0, i1)
+        iu = np.repeat(rows, counts[i0:i1])
+        ju = np.arange(ends[i1 - 1] - base) - np.repeat(
+            ends[i0:i1] - counts[i0:i1] - base - rows, counts[i0:i1])
+        yield iu, ju
+        i0 = i1
+
+
+def _sparsified(A):
+    """A CSR_LinearOperator of the nonzero entries of the dense [N, N]
+    tensor A (row-major, their values as they are) where they are fewer
+    than 0.9 of all, else None (pynucleus_tpu/nl/assembly.py getDense with
+    trySparsification: count_nonzero, then scipy's csr_matrix of the
+    array)."""
+    nnz = int(torch.count_nonzero(A))
+    if not nnz / max(A.numel(), 1) < 0.9:
+        return None
+    rows, cols = torch.nonzero(A, as_tuple=True)
+    indptr = torch.zeros(A.shape[0] + 1, dtype=TINDEX, device=A.device)
+    indptr[1:] = torch.cumsum(torch.bincount(rows, minlength=A.shape[0]), 0)
+    return CSR_LinearOperator.fromDevice(indptr.cpu().numpy(),
+                                         cols.cpu().numpy(), A[rows, cols],
+                                         num_columns=A.shape[1])
+
+
+class horizonCorrected(LinearOperator):
+    """The finite-horizon fractional operator of horizon delta as
+
+        A(delta) = 2 C(delta) S_inf - Cross - c_tot M
+
+    (pynucleus_tpu/nl/assembly.py horizonCorrected): S_inf the
+    infinite-horizon operator of scaling 1/2 (an H2Matrix, K8), Cross the
+    complement kernel's cross operator (dense, nonlocalBuilder
+    ._getComplementCross), M the mass matrix (CSR, K9), facS = 2 C and
+    c_tot = C |S^(d-1)| delta^(-2s) / s.  ``setKernel`` switches delta and
+    C: S_inf is kept, the cross operators are cached by (delta, C, s)
+    rounded to 14 digits.  Its apply, diagonal and toarray are those of
+    the three parts, so the solvers take it as any operator (CG with
+    Jacobi through ``diagonal``)."""
+
+    def __init__(self, dm, Sinf, mass):
+        self.dm = dm
+        self.Sinf = Sinf
+        self.mass = mass
+        self.kernel = None
+        self.num_rows = self.num_columns = dm.num_dofs
+        self.timers = {}
+        self._crossCache = {}
+
+    @property
+    def device(self):
+        return self.Sinf.device
+
+    def setKernel(self, kernel, params=None):
+        """Sets the finite-horizon fractional kernel (a constant order):
+        its cross operator from the cache or built (``timers``: the build's
+        parts, empty on a cache hit), facS and c_tot."""
+        if not hasattr(getattr(kernel, 's', None), 'value'):
+            raise NotImplementedError('horizonCorrected requires a constant '
+                                      'fractional order')
+        self.kernel = kernel
+        hv, C, s = kernel.horizonValue, kernel.scalingValue, kernel.s.value
+        key = (round(hv, 14), round(C, 14), round(s, 14))
+        self.timers = {}
+        if key not in self._crossCache:
+            b = nonlocalBuilder(self.dm, kernel.getComplementKernel(),
+                                params=params, zeroExterior=False,
+                                device=self.device)
+            self._crossCache[key] = b._getComplementCross()
+            self.timers = dict(b.timers)
+        self.Cross = self._crossCache[key]
+        surf = {1: 2.0, 2: 2.0 * np.pi, 3: 4.0 * np.pi}[self.dm.mesh.dim]
+        # c_tot = 2 int_{|z| > delta} C |z|^(-d-2s) dz
+        self.c_tot = C * surf * hv ** (-2.0 * s) / s
+        self.facS = 2.0 * C
+
+    def matvec(self, x, out=None):
+        y = self.Sinf.matvec(x, out=out)
+        y.mul_(self.facS)
+        y.sub_(self.Cross.matvec(x))
+        return y.sub_(self.mass.matvec(x).mul_(self.c_tot))
+
+    @property
+    def diagonal(self):
+        return (self.facS * self.Sinf.diagonal - self.Cross.diagonal
+                - self.c_tot * self.mass.diagonal)
+
+    def toarray(self):
+        return (self.facS * np.asarray(self.Sinf.toarray())
+                - np.asarray(self.Cross.toarray())
+                - self.c_tot * np.asarray(self.mass.toarray()))
+
+    def __repr__(self):
+        return '<horizonCorrected {}x{} delta={}>'.format(
+            self.num_rows, self.num_rows,
+            self.kernel.horizonValue if self.kernel else None)
+
+
 def assembleNonlocal(dm, kernel, matrixFormat='dense', zeroExterior=True,
                      params=None, device=None, timers=None):
-    """Dense, sparse or H2 operator of the kernel.  ``timers``, if a dict,
-    receives the seconds of each H2 or sparse build part."""
+    """The operator of the kernel in ``matrixFormat`` (any case; as
+    pynucleus_tpu/nl/assembly.py assembleNonlocal): 'dense', 'sparsified'
+    (getDense(trySparsification=True)), 'diagonal' (getDiagonal),
+    'sparse', 'H2', or 'H2corrected' (getH2FiniteHorizon, a
+    :class:`horizonCorrected`).  ``timers``, if a dict, receives the
+    seconds of each H2, sparse or H2corrected build part."""
     builder = nonlocalBuilder(dm, kernel, params=params,
                               zeroExterior=zeroExterior, device=device)
     fmt = matrixFormat.lower()
-    if fmt == 'dense':
-        return builder.getDense()
-    if fmt in ('h2', 'sparse'):
-        A = builder.getH2() if fmt == 'h2' else builder.getSparse()
-        if timers is not None:
-            timers.update(builder.timers)
-        return A
-    raise NotImplementedError(matrixFormat)
+    if fmt in ('dense', 'sparsified'):
+        return builder.getDense(trySparsification=fmt == 'sparsified')
+    if fmt == 'diagonal':
+        return builder.getDiagonal()
+    build = {'h2': builder.getH2, 'sparse': builder.getSparse,
+             'h2corrected': builder.getH2FiniteHorizon}.get(fmt)
+    if build is None:
+        raise NotImplementedError(matrixFormat)
+    A = build()
+    if timers is not None:
+        timers.update(builder.timers)
+    return A

@@ -5,8 +5,8 @@ exponential kernels of an infinite horizon.
 
 Port of the symmetric constant-coefficient part of
 pynucleus_tpu/nl/kernels.py: the interaction domains fullSpace, ball2,
-ballInf, ball1 and the ellipse (:717-895, with interactionFactory's
-aliases), constantFractionalLaplacianScaling (:901),
+ballInf, ball1, the ellipse and ball2Complement (:717-895, with
+interactionFactory's aliases), constantFractionalLaplacianScaling (:901),
 constantIntegrableScaling (:917) for the indicator, peridynamic, gaussian
 and exponential kernels, Kernel and FractionalKernel (:1031, :1249) with
 the gaussian and exponential boundary kernels (:1182-1199),
@@ -20,7 +20,10 @@ gamma = 0 at r2 = 0 exactly as ``_radial_eval`` (nl/assembly.py) does; the
 indicator comes as an :class:`Indicator` (code, horizon^2, T) from
 :meth:`Kernel.indicatorParams`, evaluated as :func:`indicatorMask` does,
 and K15 clips its rays in the ball's norm of a direction
-(:func:`dirNorm`).
+(:func:`dirNorm`).  A complement kernel (:meth:`Kernel.getComplementKernel`,
+the interaction ball2Complement) has no finite horizon but the indicator
+|x-y|^2 >= horizon^2 (code 5) in the same place: the cross operator of
+the horizon-corrected format (nl/assembly.py horizonCorrected).
 The profiles (r = sqrt(r2)):
 
   POWER              C r2^e      (fractional, indicator e = 0, peridynamic
@@ -76,6 +79,7 @@ monomial and polynomial profiles (:1095-1096, :1122-1128) are not ported.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import numpy as np
@@ -89,6 +93,7 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
            'fullSpace', 'ball2', 'ballInf', 'ball1', 'ellipse',
+           'ball2Complement',
            'interactionFactory', 'Indicator', 'indicatorMask', 'dirNorm',
            'horizonFunction', 'variableHorizonFractionalKernel',
            'HorizonParams', 'horizonArgs',
@@ -302,7 +307,8 @@ fractionalOrderFactory = {
 # ------------------------------------------------------------- interactions
 
 # interaction codes, shared with kernels/csrc/common.cuh inBall() and K15
-FULL_SPACE, BALL2, BALL_INF, BALL1, ELLIPSE = range(5)
+# (which takes 1-4); code 5 is the complement of ball2
+FULL_SPACE, BALL2, BALL_INF, BALL1, ELLIPSE, BALL2_COMPLEMENT = range(6)
 IDENTITY_T = (1.0, 0.0, 0.0, 1.0)
 
 
@@ -325,7 +331,8 @@ class interactionDomain:
     indicator (:func:`indicatorMask`, jaxIndicator) and its norm of ray
     directions (:func:`dirNorm`, jaxDirNorm) from it and from ``T``: 0 the
     full space, 1 ball2 (|x-y|_2), 2 ballInf (|x-y|_inf), 3 ball1
-    (|x-y|_1), 4 the ellipse (|T (x-y)|_2)."""
+    (|x-y|_1), 4 the ellipse (|T (x-y)|_2), 5 the complement of ball2
+    (|x-y|_2 >= horizon, ``complement``)."""
     complement = False
     symmetric = True
     code = FULL_SPACE
@@ -397,6 +404,16 @@ class ellipse(interactionDomain):
         return f'ellipse({self.aFac},{self.bFac},{self.theta})'
 
 
+class ball2Complement(interactionDomain):
+    """The outside of the Euclidean ball, |x-y|_2 >= horizon: the support
+    of a complement kernel (pynucleus_tpu/nl/kernels.py:863-877)."""
+    complement = True
+    code = BALL2_COMPLEMENT
+
+    def __repr__(self):
+        return 'ball2Complement'
+
+
 # name -> interaction, with the aliases of pynucleus_tpu/nl/kernels.py
 # interactionFactory (:879-895; the retriangulation and barycenter names of
 # the reference all take the exact cut-cell clipping)
@@ -408,7 +425,8 @@ for _cls, _aliases in ((ball2, ('ball2', 'ball', 'ball2_retriangulation',
                        (ball1, ('ball1', 'ball1_retriangulation',
                                 'ball1_barycenter', '1')),
                        (ellipse, ('ellipse', 'ellipse_retriangulation',
-                                  'ellipse_barycenter'))):
+                                  'ellipse_barycenter')),
+                       (ball2Complement, ('ball2Complement',))):
     interactionFactory.update(dict.fromkeys(_aliases, _cls))
 
 
@@ -427,13 +445,15 @@ def indicatorMask(x, y, r2, indicator):
     """chi(x, y) [...] as a bool tensor of an :class:`Indicator` (or a
     (code, h2) pair) at x, y [..., dim] with r2 = |x-y|^2, as
     pynucleus_tpu/nl/kernels.py jaxIndicator evaluates it; None for the
-    full space (code 0)."""
+    full space (code 0).  Code 5 (ball2Complement) is r2 >= h2."""
     code, h2, *T = indicator
     T = T[0] if T else IDENTITY_T
     if code == FULL_SPACE:
         return None
     if code == BALL2:
         return r2 < h2
+    if code == BALL2_COMPLEMENT:
+        return r2 >= h2
     if code == BALL_INF:
         m = (x - y).abs().amax(-1)
     elif code == BALL1:
@@ -441,7 +461,7 @@ def indicatorMask(x, y, r2, indicator):
     elif code == ELLIPSE:
         return _ellipseNorm2(x - y, T) < h2
     else:
-        raise ValueError(f'interaction code {code}: 0 to 4')
+        raise ValueError(f'interaction code {code}: 0 to 5')
     return m * m < h2
 
 
@@ -594,8 +614,9 @@ class Kernel:
     def indicatorParams(self):
         """The interaction :class:`Indicator` (code, horizon^2, T) that the
         panel quadrature (K1, K19) applies per node, or None for an
-        infinite horizon."""
-        if not self.finiteHorizon:
+        infinite horizon (the JAX programs' gate ``finiteHorizon or
+        complement``: a complement kernel's is code 5)."""
+        if not (self.finiteHorizon or self.complement):
             return None
         return Indicator(self.interaction.code, self.horizonValue ** 2,
                          tuple(self.interaction.T))
@@ -605,13 +626,67 @@ class Kernel:
         evaluates per node, or None for a horizon of one value."""
         return None
 
-    def getModifiedKernel(self, horizon=None):
-        """The kernel with the given horizon: the zero-exterior term asks
-        an infinite-horizon kernel for its own; another horizon is not
-        ported."""
+    def getModifiedKernel(self, horizon=None, interaction=None):
+        """The kernel with the given horizon and interaction
+        (pynucleus_tpu/nl/kernels.py:1203-1214): a copy with the interaction
+        and its ``complement`` flag replaced; the scaling, horizon value and
+        profile stay.  The zero-exterior term asks an infinite-horizon
+        kernel for its own horizon; another horizon is not ported."""
         if horizon is not None and float(horizon) != self.horizonValue:
             raise NotImplementedError('changing the horizon of a kernel')
-        return self
+        if interaction is None:
+            return self
+        k = copy.copy(self)
+        k.interaction = interaction
+        k.complement = interaction.complement
+        return k
+
+    def getComplementKernel(self):
+        """The kernel on the complement of its ball2, |x-y| >= horizon
+        (pynucleus_tpu/nl/kernels.py:1216-1218): not a finite horizon, its
+        indicator code 5."""
+        return self.getModifiedKernel(interaction=ball2Complement())
+
+    def eval(self, x, y):
+        """gamma(x, y) [...] at x, y [..., dim] (tensors) times the
+        interaction indicator of a finite horizon or of a complement kernel:
+        pynucleus_tpu/nl/kernels.py Kernel.jaxEval."""
+        r2 = ((x - y) ** 2).sum(-1)
+        val = evalXY(x, y, r2, self.profileParams(), self.orderParams(),
+                     self.horizonParams())
+        ind = self.indicatorParams()
+        if ind is not None:
+            val = val * indicatorMask(x, y, r2, ind)
+        return val
+
+    def __call__(self, x, y):
+        """Pointwise host evaluation gamma(x, y) (pynucleus_tpu/nl/
+        kernels.py Kernel.__call__): 0 beyond a finite horizon (r2 >
+        horizon^2, the Euclidean ball of any interaction) and inside a
+        complement kernel's (r2 < horizon^2).  A point at the horizon
+        exactly keeps its value here and not in :meth:`eval`, as in the
+        JAX package; the other profiles evaluate through :meth:`eval`."""
+        x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+        y = np.atleast_2d(np.asarray(y, dtype=np.float64))
+        r2 = float(((x - y) ** 2).sum())
+        C = self.scalingValue
+        t = self.kernelType
+        if t == FRACTIONAL:
+            if r2 == 0.0:
+                return 0.0
+            val = C * r2 ** (0.5 * self.singularityValue)
+        elif t == INDICATOR:
+            val = C
+        elif t == PERIDYNAMIC:
+            val = C * r2 ** -0.5
+        else:
+            return float(self.eval(torch.as_tensor(x), torch.as_tensor(y))
+                         .reshape(-1)[0])
+        if self.finiteHorizon and r2 > self.horizonValue ** 2:
+            val = 0.0
+        if self.complement and r2 < self.horizonValue ** 2:
+            val = 0.0
+        return float(val)
 
     def __repr__(self):
         return (f'kernel({self.kernelType}, d={self.dim}, '

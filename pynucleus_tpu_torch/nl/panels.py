@@ -518,8 +518,7 @@ def _horizonScreen(verts, cells, centers, di, dj, kernelOrHv):
     sureInside = dc + rsum < rIn           # implies dmax < rIn
     band = ~(sureIgnored | sureInside)
     bi, bj = di[band], dj[band]
-    dmin = _pairMinDistance(verts, cells, bi, bj)
-    dmax = _pairMaxDistance(verts, cells, bi, bj)
+    dmin, dmax = _pairMinMaxDistance(verts, cells, bi, bj)
     keep = dmin < rOut
     cut = keep & (dmax >= rIn)
     bandFull = keep & ~cut
@@ -529,18 +528,28 @@ def _horizonScreen(verts, cells, centers, di, dj, kernelOrHv):
     return di[full], dj[full], bi[cut], bj[cut]
 
 
-def _pairMaxDistance(verts, cells, di, dj):
-    V1 = verts[cells[di]]
-    V2 = verts[cells[dj]]
-    D = V1[:, :, None, :] - V2[:, None, :, :]
-    return np.sqrt((D ** 2).sum(axis=-1)).max(axis=(1, 2))
-
-
-def _pairMinDistance(verts, cells, di, dj):
-    V1 = verts[cells[di]]                                     # [P, nv, dim]
-    V2 = verts[cells[dj]]
-    D = V1[:, :, None, :] - V2[:, None, :, :]
-    return np.sqrt((D ** 2).sum(axis=-1)).min(axis=(1, 2))
+def _pairMinMaxDistance(verts, cells, di, dj):
+    """The smallest and the largest vertex distance of each cell pair (di,
+    dj), equal to pynucleus_tpu/nl/panels.py _pairMinDistance and
+    _pairMaxDistance: each squared distance sums its coordinates in order,
+    and sqrt, being monotone and correctly rounded, takes the extremes of
+    the squares to those of the distances.  One coordinate array at a time
+    over the pairs, and no [P, nv, nv, dim] temporary."""
+    cv = verts[cells].transpose(1, 2, 0)                      # [nv, dim, C]
+    X = [[c[di] for c in v] for v in cv]
+    Y = [[c[dj] for c in v] for v in cv]
+    lo = hi = None
+    for x in X:
+        for y in Y:
+            r2 = (x[0] - y[0]) ** 2
+            for d in range(1, len(x)):
+                r2 += (x[d] - y[d]) ** 2
+            if lo is None:
+                lo, hi = r2, r2.copy()
+            else:
+                np.minimum(lo, r2, out=lo)
+                np.maximum(hi, r2, out=hi)
+    return np.sqrt(lo), np.sqrt(hi)
 
 
 def _boundaryOrderModel(d, h1, h2, sval, c0, H0, horizon, hcut=None):

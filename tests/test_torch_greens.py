@@ -192,8 +192,10 @@ def test_lu_solves_a_complex_dense_operator(greens):
 @pytest.mark.parametrize('dim', [1, 2], ids=['interval', 'square'])
 def test_real_finite_horizon_diagonal_is_the_dense_one(dim):
     """getDiagonal of a real kernel on the per-pair path (a finite horizon:
-    K1's and K14's or K15's real diagonal targets) is diag(getDense); a
-    real kernel of an infinite horizon (its exterior term) raises."""
+    K1's and K14's or K15's real diagonal targets) is diag(getDense); so is
+    a real kernel's of an infinite horizon with its exterior term (every
+    surface pair through K1's diagonal target) against getDense without
+    the grid."""
     if dim == 1:
         from pynucleus_tpu_torch.fem.meshes import simpleInterval
         m = simpleInterval(-1.0, 1.0)
@@ -210,8 +212,9 @@ def test_real_finite_horizon_diagonal_is_the_dense_one(dim):
     assert _rel(d, np.diag(b.getDense().data.numpy())) <= 1e-13
     _, dm, k = fromArrays(np.asarray(m.vertices), np.asarray(m.cells), 0.75,
                           dim, device='cpu')
-    with pytest.raises(NotImplementedError, match='zero-exterior'):
-        tasm.nonlocalBuilder(dm, k).getDiagonal()
+    d = tasm.nonlocalBuilder(dm, k).getDiagonal().diagonal.numpy()
+    D = tasm.nonlocalBuilder(dm, k, params={'denseGrid': False}).getDense()
+    assert _rel(d, np.diag(D.data.numpy())) <= 1e-13
 
 
 def test_complex_refusals():

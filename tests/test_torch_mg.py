@@ -120,7 +120,8 @@ def test_cpu_wrappers_count_no_launch():
     assert not any(kernels.deviceLaunches.values())
     assert set(kernels.deviceLaunches) == set(kernels.KERNELS
                                               + kernels.COMPLEX
-                                              + kernels.HORIZON)
+                                              + kernels.HORIZON
+                                              + kernels.FORMATS)
 
 
 def test_csr_spmv_validates_inputs():
