@@ -27,8 +27,8 @@ result line):
      main path; CG must converge and the L2 error must be below phase 4's.
      Then the H2 kernels against their plain versions as in phase 2, at
      this path's shapes: K8 on its operator; K1's CSR targets (all calls),
-     K5 (the largest segment), K6 (the largest order) and K7 on the
-     recorded calls of a second build of it.  The kernel table holds these
+     K5 (the largest segment), K6 (the largest order) and K7 on their
+     calls, recorded during the run.  The kernel table holds these
      comparisons for K5-K8 and K1's CSR targets.
   7. the H2 CG-MG slice at noRef 5 (6 levels, every one H2) against the
      JAX package's outputs for the same driver line, pinned below
@@ -56,16 +56,14 @@ result line):
      patch lines of tests/test_nonlocal_driver.py at noRef 6 to their
      bounds, the sparse one a path of its own (launch counts reset) whose
      K14 calls are held against the plain version; the square at noRef 2
-     (sparse, cg-mg) against the JAX package's pinned outputs, with K15
-     and K1's cross target held against their plain versions on all its
-     calls; then the full-width line, the square at noRef 3 (sparse
-     cg-mg, 4 levels, 6241 dofs; launch counts reset just before it):
-     per-level assembly seconds with the host classification and pattern
-     and the device fill, iterations, L2 error (below noRef 2's), peak
-     device memory; K15 (its largest call) and K1's cross target (the
-     calls of A_BC) against their plain versions at these shapes; the
-     sparse operator against the dense one (1e-12 relative on a seeded
-     vector).
+     (sparse, cg-mg, 3 levels, 1,521 dofs; launch counts reset just before
+     it) against the JAX package's pinned outputs: per-level assembly
+     seconds with the host classification and pattern and the device
+     fill, iterations, L2 error, peak device memory; K15 and K1's cross
+     target (the calls of A_BC) against their plain versions on all its
+     calls; the sparse operator against the dense one (1e-12 relative on
+     a seeded vector).  (PERF.md holds the square at noRef 3, 6,241 dofs,
+     whose host classification is O(C^2).)
  11. the serial multigrid path (drivers/runSerialGMG.py: Poisson on the
      unit square, P1, MG and FMG V-cycles with two damped-Jacobi sweeps on
      each side, CG, GMRES and BiCGStab, plain and preconditioned by one
@@ -117,12 +115,13 @@ result line):
      the vector kernel against central differences of the dense operators
      in (sll, srr) at noRef 8 (5e-4); dA/ds H2 against dense on the disc at
      noRef 6 (5e-4); the full-width lines, dA/ds of the flagship disc at
-     noRef 7 (getH2Vector: build parts, its device time from a second build
-     under torch.profiler, apply and transposed apply, peak memory) and d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 12
-     (8,191 dofs, [8191, 8191, 4]; noRef 11 if its host classification
-     exceeds 300 s; each a path); then K21, K22, K23 (against torch.einsum
-     too) and the power-log profile in K1, K2, K3, K6 (where called), K7
-     and K12 against their plain versions.
+     noRef 7 (getH2Vector under torch.profiler: build parts and seconds,
+     its device time, apply and transposed apply, peak memory) and
+     d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 12 (8,191 dofs,
+     [8191, 8191, 4]; noRef 11 if its host classification exceeds 300 s;
+     each a path, K21's and K22's calls recorded during it); then K21, K22,
+     K23 (against torch.einsum too) and the power-log profile in K1, K2,
+     K3, K6 (where called), K7 and K12 against their plain versions.
  15. the Helmholtz path (drivers/runHelmholtz.py: S - omega^2 M + i omega
      M_B with impedance conditions, GMRES right-preconditioned by one
      V-cycle of the complex-shifted Laplacian, all complex128): the
@@ -179,8 +178,8 @@ result line):
      kernel's cross operator; setKernel to horizon 0.3 keeps S_inf) at the
      interval noRef 3 and 6 and the square noRef 1 against the JAX outputs
      pinned by scripts/pin_matrix_formats_jax.py (1e-12; CG-Jacobi at noRef
-     6: 32 iterations); the full-width interval at noRef 11 (14,336 cells,
-     10,239 dofs; a path): the build parts, getSparse at horizons 0.4 and
+     6: 32 iterations); the full-width interval at noRef 10 (7,168 cells,
+     5,119 dofs; a path): the build parts, getSparse at horizons 0.4 and
      0.3 (entries and apply below the JAX package's noRef 7 differences),
      setKernel's seconds and device time by kernel, CG-Jacobi with it and
      with getSparse, the applies and the peak device memory; the square at
@@ -192,6 +191,25 @@ result line):
      block mask and K1's diagonal target on the zero-exterior pairs against
      their plain versions (kernel line rows ``panel_scatter:complement``
      and ``panel_scatter:diag_exterior``).
+ 19. operator interpolation over the fractional order and the matrix-free
+     operator: the port's copy of examples/example_operator_interpolation.py
+     (the interval refined 6 times, s in [0.05, 0.95], dense) on its
+     default path (the grid) and on the per-pair path (each a path)
+     against the JAX outputs pinned by
+     scripts/pin_operator_interpolation_jax.py (intervals and nodes exact,
+     weights 1e-15, CG-Jacobi iterations equal, |u|_max 1e-8, the node
+     operators assembled after each set; on the per-pair path, the JAX
+     package's on the CPU, A(s) x 1e-12), its H2 twin at s 0.5
+     (1e-10; a path); the full-width line, the interval refined 13 times
+     (8,191 dofs, 13 intervals of 6 nodes; 12 if its node assemblies would
+     exceed 120 s; a path): per s = 0.75, 0.76, 0.3 the node assemblies'
+     seconds, the stack, CG-Jacobi to 1e-8, the peak device memory, and
+     A(0.75) x against a direct assembly (below 0.1 h^(1/2)); then K24
+     (against torch.einsum too) against its plain version.  Its
+     matrix-free part runs right after phase 11, on phase 11's square
+     while it is alive, and reports under phase 19: the stiffness and mass
+     (a path) against the CSR operators (1e-12), then K25 (apply and
+     diagonal; against K9 and torch.sparse too) against its plain version.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -200,7 +218,7 @@ The last lines are the kernel table (JSON: per kernel, per complex
 variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18,
 per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
 (indicator, variable horizon), and per matrix-format variant of K1
-(complement, the zero-exterior diagonal), its
+(complement, the zero-exterior diagonal), and K24 and K25, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -283,7 +301,8 @@ JAX_H2_MG_NOREF5 = {
 # repo's regression tolerance rtol 3e-2.
 JAX_SQUARE_NOREF2 = {'dofs': 1521, 'iterations': 7,
                      'L2 error interpolated': 3.6939776e-04}
-FH_NOREF = 3
+# the square's line (a path), held to JAX_SQUARE_NOREF2
+FH_NOREF = 2
 # tests/test_nonlocal_driver.py INTERVAL_CONFIGS: (kernel, format, bound)
 INTERVAL_PATCH = (('constant', 'dense', 1e-12), ('constant', 'H2', 1e-12),
                   ('constant', 'sparse', 1e-12),
@@ -358,6 +377,12 @@ KERNEL_INFO = {
     'vector_matvec': ('cuda',
                       'pynucleus_tpu_torch/kernels/csrc/vector_matvec.cu',
                       'pynucleus_tpu/base/linear_operators.py:156'),
+    'interp_matvec': ('cuda',
+                      'pynucleus_tpu_torch/kernels/csrc/interp_matvec.cu',
+                      'pynucleus_tpu/nl/operator_interpolation.py:262'),
+    'matfree_apply': ('cuda',
+                      'pynucleus_tpu_torch/kernels/csrc/matfree_apply.cu',
+                      'pynucleus_tpu/fem/assembly.py:321'),
 }
 # the kernels (and K1 targets) each main path must launch
 DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
@@ -403,8 +428,8 @@ COMPARED_AT = {
                        'flagship (its one call)',
     'tree_csr_quad': 'disc noRef 4, a host-engine build, all calls',
     'cut1d': 'interval noRef 6 (horizon 0.2, sparse), all calls',
-    'cut2d_polar': f'square noRef {FH_NOREF} (horizon 0.2, sparse), its '
-                   'largest call',
+    'cut2d_polar': f'square noRef {FH_NOREF} (horizon 0.2, sparse), all its '
+                   'calls',
     'csr_scatter': 'the Poisson square at noRef 9: the finest stiffness (its '
                    'one call), per call',
     'gmres_arnoldi': 'the Poisson square at noRef 9: one restart cycle of 10 '
@@ -598,10 +623,10 @@ CSR_DATA = H2_CSR + ENGINE_KERNELS[1:]
 
 
 def record_h2_build(build, names=H2_BUILD, largestOnly=False):
-    """Runs ``build()``, an H2 build, with the calls of the wrappers
-    ``names`` recorded; with ``largestOnly`` K5 keeps only its largest
-    segment and K6 only its largest order.  Returns (what build returned,
-    the recorders)."""
+    """Runs ``build()``, an H2 build or a path that makes one, with the
+    calls of the wrappers ``names`` recorded; with ``largestOnly`` K5 keeps
+    only its largest segment and K6 only its largest order.  Returns (what
+    build returned, the recorders)."""
     import contextlib
     import torch
     import pynucleus_tpu_torch.nl.assembly as asm
@@ -1319,31 +1344,25 @@ def phase5(A6, dm6):
 def phase6(errs6):
     """The H2 main path at noRef H2_NOREF, then each of its kernels against
     its plain version at the shapes of that path: K8 on its operator, K1's
-    CSR targets, K5 (largest segment), K6 (largest order) and K7 on the
-    recorded calls of a second build of it.  Returns the launch counts, the
+    CSR targets, K5 (largest segment), K6 (largest order) and K7 on their
+    calls, recorded during the run.  Returns the launch counts, the
     comparisons and the errors."""
     import torch
-    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
-    from pynucleus_tpu_torch.nl.problems import fractionalLaplacianProblem
     log(f'phase 6: H2 slice at noRef {H2_NOREF} (flat near-field engine)')
-    out, counts = run_main_path(slice_argv(H2_NOREF, 'H2', H2_MAXITER),
-                                H2_PATH, FLAT)
+    (out, counts), recs = record_h2_build(
+        lambda: run_main_path(slice_argv(H2_NOREF, 'H2', H2_MAXITER),
+                              H2_PATH, FLAT), largestOnly=True)
     errs = out['errors'].toDict()
     if not errs['L2 error'] < errs6['L2 error']:
         raise AssertionError(f"L2 error {errs['L2 error']} not below dense "
                              f"noRef 6 {errs6['L2 error']}")
-    H, dm = out['A'], out['dm']
+    H = out['A']
     del out
     log(f'  kernels against their plain versions at the noRef {H2_NOREF} '
         'shapes')
     cmp = {'h2_matvec': compare_h2_matvec(H)}
     del H
     torch.cuda.empty_cache()
-    prob = fractionalLaplacianProblem('disc', 'const(0.75)')
-    recs = record_h2_build(lambda: assembleNonlocal(
-        dm, prob['kernel'], matrixFormat='H2',
-        zeroExterior=prob['zeroExterior'], device='cuda', params=FLAT),
-        largestOnly=True)[1]
     cmp.update(compare_h2_build(recs))
     return counts, cmp, errs
 
@@ -1583,44 +1602,26 @@ def phase10():
     cmp['cut1d'] = compare_target_kernel('cut1d', k14.calls, asm.cut1d,
                                          asm._cut1d_plain, cut1d_work)
 
+    log(f'  the full-width line: square noRef {FH_NOREF}, sparse, cg-mg')
     with ArgRecorder(asm, 'cut2d_polar', dataFirst=True) as k15, \
             ArgRecorder(asm, 'panel_scatter_cross', dataFirst=True) as kx:
-        out = main(nonlocal_argv('square', 2, 'sparse', 'cg-mg'),
-                   quiet=True)
+        out, countsS = run_nonlocal_path(
+            nonlocal_argv('square', FH_NOREF, 'sparse', 'cg-mg'),
+            NONLOCAL_PATH)
     res, errs = out['results'].toDict(), out['errors'].toDict()
+    tim = out['timers'].toDict()
     ref = JAX_SQUARE_NOREF2
     got = errs['L2 error interpolated']
     if res['dofs'] != ref['dofs'] or \
             abs(res['iterations'] - ref['iterations']) > 1 or \
             not abs(got - ref['L2 error interpolated']) \
             <= RTOL_ERRORS * ref['L2 error interpolated']:
-        raise AssertionError(f'square noRef 2: {res}, {errs} vs JAX {ref}')
-    log(f"  square noRef 2 sparse cg-mg: dofs {res['dofs']}, iterations "
-        f"{res['iterations']}, L2 error interpolated {got:.7e}: matches the "
-        f'JAX outputs (dofs, iterations +-1, error within rtol '
+        raise AssertionError(f'square noRef {FH_NOREF}: {res}, {errs} vs '
+                             f'JAX {ref}')
+    log(f"  square noRef {FH_NOREF} sparse cg-mg: dofs {res['dofs']}, "
+        f"iterations {res['iterations']}, L2 error interpolated {got:.7e}: "
+        'matches the JAX outputs (dofs, iterations +-1, error within rtol '
         f'{RTOL_ERRORS})')
-    compare_target_kernel('cut2d_polar (noRef 2, all calls)', k15.calls,
-                          asm.cut2d_polar, asm._cut2d_polar_plain,
-                          cut2d_work)
-    compare_target_kernel('panel_scatter_cross (noRef 2, A_BC)', kx.calls,
-                          asm.panel_scatter_cross,
-                          asm._panel_scatter_cross_plain, panel_work)
-    del out, k15, kx
-    torch.cuda.empty_cache()
-
-    log(f'  the full-width line: square noRef {FH_NOREF}, sparse, cg-mg')
-    with ArgRecorder(asm, 'cut2d_polar', dataFirst=True,
-                     size=lambda out, t, i, v, vi1, *a: vi1.shape[0]) as k15, \
-            ArgRecorder(asm, 'panel_scatter_cross', dataFirst=True) as kx:
-        out, countsS = run_nonlocal_path(
-            nonlocal_argv('square', FH_NOREF, 'sparse', 'cg-mg'),
-            NONLOCAL_PATH)
-    tim = out['timers'].toDict()
-    errs = out['errors'].toDict()
-    if not errs['L2 error interpolated'] < got:
-        raise AssertionError(f"noRef {FH_NOREF} L2 error "
-                             f"{errs['L2 error interpolated']} not below "
-                             f'noRef 2 {got}')
     for k in range(FH_NOREF + 1):
         parts = {p: round(tim[f'assembly level {k} {p} seconds'], 3)
                  for p in ('classification', 'pattern', 'quadrature')}
@@ -1654,7 +1655,6 @@ def phase10():
     cmp['cut2d_polar'] = compare_target_kernel(
         'cut2d_polar', k15.calls, asm.cut2d_polar, asm._cut2d_polar_plain,
         cut2d_work)
-    log(f'  cut2d_polar: {k15.largest} pairs in its largest call')
     cmp['panel_scatter_cross'] = compare_target_kernel(
         'panel_scatter_cross (A_BC)', kx.calls, asm.panel_scatter_cross,
         asm._panel_scatter_cross_plain, panel_work)
@@ -2127,7 +2127,7 @@ def phase11():
                'largest_rel_diff': worst, 'bicgstab_spread': spread,
                'warm_solve_s': secs}
     log(f'  summary: {json.dumps(summary)}')
-    return counts, cmp
+    return counts, cmp, {'dm': dm, 'A': A}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -2189,8 +2189,8 @@ INTERVAL_LU_PATH = ('panel_scatter', 'near_enum', 'near_enum_quad',
                     'panel_scatter:tree')
 SMOOTH_CG_PATH = INTERVAL_LU_PATH + ('pcg_update', 'pcg_update:jacobi')
 # the kernels of this slice, held with the smooth profiles (and K1, K5-K7,
-# K11, K12 at the noRef 16 line's shapes), and the solve's kernels K4, K8,
-# K9, K10 at the noRef 16 line's shapes, in the kernel table's
+# K11, K12 at the full-width line's shapes), and the solve's kernels K4,
+# K8, K9, K10 at the full-width line's shapes, in the kernel table's
 # 'at_interval'
 INTERVAL_KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary',
                     'near_enum', 'near_enum_quad', 'far_field',
@@ -2469,7 +2469,7 @@ def phase12():
         asm.block_near_quad, asm._block_near_quad_plain, block_quad_work)
     mg['panel_scatter'] = merge(mg.pop('panel_scatter_slots'),
                                 mg.pop('panel_scatter_tree'))
-    # per kernel: the smooth profiles' comparisons and the noRef 16 line's
+    # per kernel: the smooth profiles' comparisons and the full-width line's
     cmp = {}
     for name in INTERVAL_KERNELS:
         rs = [byProfile[k][name] for k in byProfile if name in byProfile[k]]
@@ -2560,7 +2560,7 @@ VO_EVAL_OPS = 16
 # operations of one radial power-profile evaluation (a pow and a product)
 RADIAL_EVAL_OPS = 2
 _VO_FULL = (f'the noRef {VO_NOREF} twoDomainNonSym(0.25,0.75) gmres-mg H2 '
-            'line (15 levels, 32,767 dofs)')
+            f'line ({VO_NOREF + 1} levels, {2 ** VO_NOREF - 1:,} dofs)')
 VO_COMPARED_AT = {
     'panel_scatter': (
         'interval, twoDomainNonSym(0.25,0.75) (order code 2) and '
@@ -3285,17 +3285,23 @@ def phase14():
     dm7 = disc(DERIV_NOREF)
     torch.cuda.reset_peak_memory_stats()
 
+    # the build runs under torch.profiler for its device part
+    from torch.profiler import profile, ProfilerActivity
+
     def flagship():
         b = asm.nonlocalBuilder(dm7, k1)
-        t0 = time.perf_counter()
-        H = b.getH2Vector()
-        torch.cuda.synchronize()
-        tB = time.perf_counter() - t0
-        return (H, tB, b.timers, timed(lambda: H.matvec(x7)),
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as profiled:
+            t0 = time.perf_counter()
+            H = b.getH2Vector()
+            torch.cuda.synchronize()
+            tB = time.perf_counter() - t0
+        return (H, tB, b.timers, profiled, timed(lambda: H.matvec(x7)),
                 timed(lambda: H.matvecTrans(x7)))
     x7 = _seeded(dm7.num_dofs)
-    (H, tBuild, parts, first, firstT), counts['disc7_h2'] = count_path(
-        f'disc noRef {DERIV_NOREF} dA/ds H2', DERIV_H2_PATH, flagship)
+    (H, tBuild, parts, profiled, first, firstT), counts['disc7_h2'] = \
+        count_path(f'disc noRef {DERIV_NOREF} dA/ds H2', DERIV_H2_PATH,
+                   flagship)
     ms = timed(lambda: [H.matvec(x7) for _ in range(10)]) / 10
     msT = timed(lambda: [H.matvecTrans(x7) for _ in range(10)]) / 10
     y7 = H.matvec(x7)
@@ -3304,14 +3310,6 @@ def phase14():
     peak = torch.cuda.max_memory_allocated()
     del H
     torch.cuda.empty_cache()
-    # the device part of the build: a second build under torch.profiler
-    from torch.profiler import profile, ProfilerActivity
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as profiled:
-        t0 = time.perf_counter()
-        asm.nonlocalBuilder(dm7, k1).getH2Vector()
-        torch.cuda.synchronize()
-        tProf = time.perf_counter() - t0
     dev = {}
     for ev in profiled.key_averages():
         t = getattr(ev, 'device_time_total', None)
@@ -3321,10 +3319,10 @@ def phase14():
             dev[ev.key[:48]] = dev.get(ev.key[:48], 0.0) + t / 1e3
     devMs = sum(dev.values())
     summary['disc_full'] = {
-        'noRef': DERIV_NOREF, 'dofs': dm7.num_dofs, 'build_s': tBuild,
+        'noRef': DERIV_NOREF, 'dofs': dm7.num_dofs,
+        'build_s_under_profiler': tBuild,
         'parts_s': {k: round(v, 4) for k, v in parts.items()},
-        'profiled_build_s': tProf, 'device_ms': devMs,
-        'device_busy_share': devMs / 1e3 / tProf,
+        'device_ms': devMs, 'device_busy_share': devMs / 1e3 / tBuild,
         'device_ms_by_kernel': dict(sorted(dev.items(),
                                            key=lambda kv: -kv[1])[:8]),
         'matvec_ms_first': first, 'matvec_ms': ms,
@@ -3358,8 +3356,12 @@ def phase14():
             A, tCls, tAll = vectorLine()
             return A, tCls, tAll, A.matvec(xV), A.matvecTrans(xV)
         xV = _seeded(dmV.num_dofs)
-        (A, tCls, tAll, y, yT), counts['vector_full'] = count_path(
-            f'interval noRef {noRef} d2 vector', DERIV_VEC_PATH, apply)
+        # K21's and K22's calls (K22's largest) recorded during the run
+        with ArgRecorder(asm, 'panel_scatter_vec', dataFirst=True) as rv, \
+                ArgRecorder(asm, 'panel_scatter_nonsym_vec', dataFirst=True,
+                            size=lambda A, v, vi1, *a: vi1.shape[0]) as rn:
+            (A, tCls, tAll, y, yT), counts['vector_full'] = count_path(
+                f'interval noRef {noRef} d2 vector', DERIV_VEC_PATH, apply)
         peak = torch.cuda.max_memory_allocated()
         if tCls <= DERIV_HOST_LIMIT or noRef == DERIV_VECTOR_FALLBACK:
             break
@@ -3378,14 +3380,10 @@ def phase14():
     log(f"  summary: {json.dumps(summary['vector_full'])}")
     del y, yT
     log(f'  K21, K22 and K23 against their plain versions (the noRef 6 lines '
-        f'and noRef {noRef}, its calls recorded in a second build)')
+        f'and noRef {noRef}, its calls recorded during the run)')
     cmp = {'vector_matvec': compare_vector_matvec(A.data)}
     del A
     torch.cuda.empty_cache()
-    with ArgRecorder(asm, 'panel_scatter_vec', dataFirst=True) as rv, \
-            ArgRecorder(asm, 'panel_scatter_nonsym_vec', dataFirst=True,
-                        size=lambda A, v, vi1, *a: vi1.shape[0]) as rn:
-        asm.nonlocalBuilder(dmV, kv).getDenseVector()
     k21 += rv.calls
     k22 += rn.calls
     del dmV
@@ -4554,13 +4552,13 @@ JAX_H2CORRECTED = {
                                1.8586688843238446, 1.8907102746272781)}}}
 MF_S, MF_DELTA, MF_DELTA2 = 0.25, 0.4, 0.3
 MF_PINS = (('interval', 3), ('interval', 6), ('square', 1))
-MF_NOREF = 11
+MF_NOREF = 10
 MF_SQUARE_NOREF = 3
 # H2corrected against the exact sparse operator (max entry difference over
 # the largest entry; relative apply difference) in the JAX package
 # (`scripts/pin_matrix_formats_jax.py --table`), below the full-width
 # lines: the interval at noRef 7 at horizon 0.4 (the smaller of its two
-# horizons' differences), which the interval at noRef 11 must fall below at
+# horizons' differences), which the interval at noRef MF_NOREF must fall below at
 # either horizon; the square at noRef 2 at each horizon, which the square
 # at noRef 3 must fall below at that horizon
 _INTERVAL_BAR = {'entries': 1.4647666951596097e-05,
@@ -4897,7 +4895,7 @@ def _is_exterior(call):
 def phase18():
     """The matrix formats of assembleNonlocal: H2corrected against the
     pinned JAX outputs (interval noRef 3, 6 with CG-Jacobi, square noRef 1;
-    each a path), the full-width interval (noRef 11, CG-Jacobi) and square
+    each a path), the full-width interval (noRef MF_NOREF, CG-Jacobi) and square
     (noRef 3) against getSparse at two horizons (each a path), getDiagonal
     with the zero-exterior term (the interval at noRef 12, the disc at
     noRef 4; each a path), 'sparsified' (a path); then K1 with the
@@ -4947,6 +4945,497 @@ def phase18():
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 19
+
+# JAX package outputs of scripts/pin_operator_interpolation_jax.py (the
+# line of examples/example_operator_interpolation.py: the interval [-1, 1]
+# refined 6 times, P1, s in [0.05, 0.95], dense; x =
+# RandomState(19).standard_normal(N)), run on the CPU in float64
+JAX_INTERP = {
+    'dofs': 63,
+    'intervals': [
+        [0.05, 0.15836120401337794], [0.15836120401337794, 0.26672240802675584],
+        [0.26672240802675584, 0.37508361204013374],
+        [0.37508361204013374, 0.48344481605351164],
+        [0.48344481605351164, 0.5918060200668895],
+        [0.5918060200668895, 0.6802708023400185],
+        [0.6802708023400185, 0.7495632839733523],
+        [0.7495632839733523, 0.8038385321289602],
+        [0.8038385321289602, 0.8463511178080351],
+        [0.8463511178080351, 0.8796502735472971],
+        [0.8796502735472971, 0.9057327560694882],
+        [0.9057327560694882, 0.9261625801721544],
+        [0.9261625801721544, 0.9421648035997277],
+        [0.9421648035997277, 0.95]],
+    'nodes': [
+        [0.05412425275356907, 0.08344658326316236, 0.12491462075021557,
+         0.15423695125980885],
+        [0.16248545676694703, 0.1918077872765403, 0.2332758247635935,
+         0.26259815527318675],
+        [0.27084666078032493, 0.3001689912899182, 0.3416370287769714,
+         0.37095935928656465],
+        [0.37920786479370283, 0.4085301953032961, 0.4499982327903493,
+         0.47932056329994255],
+        [0.48756906880708073, 0.5168913993166739, 0.5583594368037272,
+         0.5876817673133204],
+        [0.5951730103583485, 0.6191114079415984, 0.6529654144653098,
+         0.6769038120485596],
+        [0.6829080903877097, 0.7016585008024158, 0.728175585510955,
+         0.746925995925661],
+        [0.7516290126046876, 0.7663157889228287, 0.7870860271794837,
+         0.8017728034976248],
+        [0.8054565710769828, 0.816960393865306, 0.8332292560716893,
+         0.8447330788600125],
+        [0.8476184914589612, 0.8566291780710859, 0.8693722132842464,
+         0.8783828998963711],
+        [0.8806429789287248, 0.8877008478402955, 0.89768218177649,
+         0.9047400506880606],
+        [0.9065103199501918, 0.9120385905157097, 0.9198567457259329,
+         0.9253850162914508],
+        [0.9267716285362373, 0.9311017989925726, 0.9372255847793095,
+         0.9415557552356448],
+        [0.942463013006155, 0.9445832018740083, 0.9475816017257193,
+         0.9497017905935726]],
+    'orders': {
+        0.75: {'weights': [1.1997044312904728, -0.28917870919667016,
+                           0.12722254549926731, -0.037748267593069984],
+               'Ax_norm': 52.14580980511108,
+               'Ax4': [-2.9342382919534185, -0.7537119875560429,
+                       -1.488817079347578, -1.6672161439378692],
+               'iterations': 26, 'u_max': 0.7508971971875337,
+               'assembled': 4},
+        0.76: {'weights': [0.2736659279060494, 0.8756801317350374,
+                           -0.20418686134017006, 0.05484080169908314],
+               'Ax_norm': 56.86210388709582,
+               'Ax4': [-3.30082588549797, -0.773698084387719,
+                       -1.6009220323744784, -1.7347370898949501],
+               'iterations': 26, 'u_max': 0.7404090974097841,
+               'assembled': 4},
+        0.3: {'weights': [0.0024026577673837684, 1.0006716247474974,
+                          -0.004061403842153041, 0.0009871213272720236],
+              'Ax_norm': 1.3094022207620848,
+              'Ax4': [0.039345774860839434, -0.06456720666808975,
+                      -0.08133573657964001, -0.12748866362901173],
+              'iterations': 11, 'u_max': 1.1154156989416253,
+              'assembled': 8}},
+    'h2': {'s': 0.5, 'Ax_norm': 6.396086225502587,
+           'Ax4': [-0.05901081696336194, -0.2211665080185936,
+                   -0.2740546803882046, -0.4512429087996733]},
+}
+INTERP_SEED = 19
+TOL_INTERP_W = 1e-15
+TOL_INTERP_AX = 1e-12
+TOL_INTERP_U = 1e-8
+TOL_INTERP_H2 = 1e-10
+INTERP_NOREF = 13
+INTERP_FALLBACK = 12
+# the full-width line's twelve node assemblies must take at most this
+# (seconds); the first interval's six are its measure
+INTERP_NODE_LIMIT = 120.0
+INTERP_ORDERS = (0.75, 0.76, 0.3)
+INTERP_MAXITER = 20000
+INTERP_EXAMPLE_PATH = ('interp_matvec', 'pcg_update', 'pcg_update:jacobi',
+                       'panel_scatter', 'panel_scatter:dense')
+INTERP_PATH = INTERP_EXAMPLE_PATH + ('grid_distant', 'grid_boundary')
+INTERP_H2_PATH = ('h2_matvec', 'panel_scatter', 'far_field')
+MATFREE_PATH = ('matfree_apply', 'matfree_apply:apply',
+                'matfree_apply:diagonal')
+COMPARED_AT['interp_matvec'] = (
+    f'interval noRef {INTERP_NOREF} (noRef {INTERP_FALLBACK} if its node '
+    f'assemblies would exceed {INTERP_NODE_LIMIT:.0f} s): the stack '
+    f'[6, N, N] of s = {INTERP_ORDERS[0]}, per apply')
+COMPARED_AT['matfree_apply'] = (
+    f'the Poisson square at noRef {SERIAL_NOREF}: the stiffness and the '
+    'mass, apply and diagonal, timed per pair of applies')
+
+
+# the example's node operators on the per-pair path, the JAX package's on
+# the CPU, whose outputs JAX_INTERP pins
+PER_PAIR = {'denseGrid': False}
+
+
+def INTERP19_PATHS(counts19):
+    """The main paths of phase 19: (kernels, label, launch counts)."""
+    return ((INTERP_PATH, 'interpolation_example_interval_noRef6',
+             counts19['example']),
+            (INTERP_EXAMPLE_PATH,
+             'interpolation_example_per_pair_interval_noRef6',
+             counts19['example_per_pair']),
+            (INTERP_H2_PATH, 'interpolation_h2_interval_noRef6',
+             counts19['h2']),
+            (INTERP_PATH,
+             f"interpolation_interval_noRef{counts19['noRef']}",
+             counts19['full']),
+            (MATFREE_PATH, f'matrix_free_square_noRef{SERIAL_NOREF}',
+             counts19['matfree']))
+
+
+def _interp_close(label, got, ref, tol):
+    import numpy as np
+    got, ref = np.asarray(got, dtype=float), np.asarray(ref, dtype=float)
+    err = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-300))
+    if not err <= tol:
+        raise AssertionError(f'{label}: {got} against the JAX {ref} '
+                             f'(relative {err:.3e} > {tol})')
+    return err
+
+
+def interp_example_line(params=None):
+    """The port's example at its own size (a path), its node operators
+    assembled with ``params``, against the JAX pins: intervals and nodes
+    exact; per order the weights, the CG-Jacobi iterations, max(u) and the
+    node operators assembled; on the per-pair path (PER_PAIR) A(s) x too
+    (the grid's entries differ from the per-pair ones by up to 3.5e-5)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.examples import example_operator_interpolation
+    A, results = example_operator_interpolation.main(['--device', 'cuda'],
+                                                     params=params)
+    ref = JAX_INTERP
+    if [[float(a), float(b)] for a, b in A.intervals] != ref['intervals'] \
+            or [[float(v) for v in n] for n in A.nodes] != ref['nodes']:
+        raise AssertionError('the intervals or nodes differ from the JAX '
+                             'package\'s')
+    x = torch.as_tensor(np.random.RandomState(INTERP_SEED).standard_normal(
+        A.num_rows), device='cuda')
+    worst = 0.0
+    for r in results:
+        pin = ref['orders'][r['s']]
+        if r['iterations'] != pin['iterations'] \
+                or r['assembled'] != pin['assembled'] \
+                or not abs(r['u_max'] - pin['u_max']) <= TOL_INTERP_U:
+            raise AssertionError(f"s = {r['s']}: {r} against the JAX {pin}")
+        A.set(r['s'])
+        if not np.abs(A._weights - pin['weights']).max() <= TOL_INTERP_W:
+            raise AssertionError(f"s = {r['s']}: weights {A._weights}")
+        if params != PER_PAIR:
+            continue
+        y = A.matvec(x).cpu().numpy()
+        worst = max(worst, _interp_close(
+            f"A({r['s']}) x", [np.linalg.norm(y), *y[:4]],
+            [pin['Ax_norm'], *pin['Ax4']], TOL_INTERP_AX))
+    path = 'per-pair' if params == PER_PAIR else 'default (grid)'
+    log(f"  the example, {path} path: {A.getNumInterpolationNodes()} nodes "
+        f"in {len(A.intervals)} intervals as the JAX package; per s "
+        f"(iterations, |u|_max, assembled): "
+        f"{[(r['s'], r['iterations'], round(r['u_max'], 10), r['assembled']) for r in results]}"
+        + (f', A(s) x within {worst:.2e} of the JAX outputs'
+           if params == PER_PAIR else ''))
+    out = {'results': results}
+    if params == PER_PAIR:
+        out['Ax_rel'] = worst
+    return A, x, out
+
+
+def interp_h2_line(dm, x):
+    """The same kernel in H2 at s = 0.5 (a path) against the JAX output."""
+    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
+    from pynucleus_tpu_torch.nl.kernels import kernelFactory
+    from pynucleus_tpu_torch.nl.operator_interpolation import admissibleSet
+    ref = JAX_INTERP['h2']
+    H = assembleNonlocal(dm, kernelFactory(
+        'fractional', s=admissibleSet([0.05, 0.95]), dim=1),
+        matrixFormat='H2', device='cuda')
+    H.set(ref['s'])
+    y = H.matvec(x).cpu().numpy()
+    import numpy as np
+    err = _interp_close('the H2 twin', [np.linalg.norm(y), *y[:4]],
+                        [ref['Ax_norm'], *ref['Ax4']], TOL_INTERP_H2)
+    log(f"  the H2 twin at s = {ref['s']}: ||A x|| {np.linalg.norm(y):.15e}, "
+        f'within {err:.2e} of the JAX output')
+    return err
+
+
+def interp_line(noRef):
+    """The full-width line on the interval refined noRef times (a path):
+    per order the set, the node assemblies, the stack and CG-Jacobi to
+    1e-8; the peak device memory.  Returns None if the first interval's
+    node assemblies project the twelve beyond INTERP_NODE_LIMIT, else
+    (A, dm, summary)."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval
+    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
+    from pynucleus_tpu_torch.nl.kernels import kernelFactory
+    from pynucleus_tpu_torch.nl.operator_interpolation import admissibleSet
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = simpleInterval(-1.0, 1.0)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    dm = P1_DoFMap(mesh, device='cuda')
+    b = assembleRHS(dm, constant(1.)).data
+    A = assembleNonlocal(dm, kernelFactory(
+        'fractional', s=admissibleSet([0.05, 0.95]), dim=1),
+        matrixFormat='dense', device='cuda')
+    nodes = [len(n) for n in A.nodes]
+    log(f'  interval noRef {noRef}: {dm.num_dofs} dofs, '
+        f'{A.getNumInterpolationNodes()} nodes in {len(nodes)} intervals '
+        f'of {sorted(set(nodes))}')
+    lines = []
+    for s in INTERP_ORDERS:
+        A.set(s)
+        before = sum(d.assembled for ops in A.ops for d in ops)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A._intervalOps()
+        torch.cuda.synchronize()
+        tNodes = time.perf_counter() - t0
+        new = sum(d.assembled for ops in A.ops for d in ops) - before
+        if s == INTERP_ORDERS[0] and tNodes * 2 > INTERP_NODE_LIMIT:
+            log(f'  the first {new} node assemblies took {tNodes:.3f} s: '
+                f'twelve would exceed {INTERP_NODE_LIMIT} s')
+            return None
+        t0 = time.perf_counter()
+        stack = A._denseStack()
+        torch.cuda.synchronize()
+        tStack = time.perf_counter() - t0
+        solver = solverFactory.build('cg-jacobi', A=A, setup=True)
+        solver.maxIter, solver.tolerance = INTERP_MAXITER, 1e-8
+        t0 = time.perf_counter()
+        u = solver.solve(b)
+        torch.cuda.synchronize()
+        tSolve = time.perf_counter() - t0
+        its = solver.iterations
+        if not (solver.residuals[-1] <= solver.tolerance
+                and its < INTERP_MAXITER and torch.isfinite(u).all()):
+            raise AssertionError(f'CG-Jacobi at s = {s} did not converge: '
+                                 f'{solver.residuals[-3:]}')
+        lines.append({'s': s, 'new_nodes': new, 'node_seconds': tNodes,
+                      'stack_seconds': tStack,
+                      'stack_GB': stack.numel() * 8 / 1e9,
+                      'iterations': its, 'solve_seconds': tSolve,
+                      'u_max': float(u.max())})
+        log(f'  s = {s}: {new} node assemblies {tNodes:.3f} s, stack '
+            f'{tuple(stack.shape)} ({stack.numel() * 8 / 1e9:.3f} GB) '
+            f'{tStack:.3f} s, CG-Jacobi {its} iterations in {tSolve:.3f} s, '
+            f'|u|_max {float(u.max()):.8f}')
+    peak = torch.cuda.max_memory_allocated()
+    log(f'  peak device memory {peak / 2**30:.3f} GiB')
+    return A, dm, {'noRef': noRef, 'dofs': dm.num_dofs, 'orders': lines,
+                   'node_seconds': sum(r['node_seconds'] for r in lines),
+                   'peak_GiB': peak / 2**30}
+
+
+def interp_direct_check(A, dm, summary):
+    """A(0.75) x against the operator assembled directly at 0.75: below
+    0.1 h^(1/2) (tests/test_operator_interpolation.py:68-78)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import assembleNonlocal
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    s = INTERP_ORDERS[0]
+    D = assembleNonlocal(dm, getFractionalKernel(1, s), matrixFormat='dense',
+                         device='cuda')
+    A.set(s)
+    x = torch.cos(torch.arange(dm.num_dofs, dtype=torch.float64,
+                               device='cuda'))
+    yD = D.matvec(x)
+    rel = float(torch.linalg.norm(A.matvec(x) - yD) / torch.linalg.norm(yD))
+    bar = 0.1 * float(dm.mesh.h) ** 0.5
+    if not rel < bar:
+        raise AssertionError(f'interpolation error {rel} not below {bar}')
+    log(f'  A({s}) x against the direct operator: relative {rel:.3e} '
+        f'(bar 0.1 h^(1/2) = {bar:.3e})')
+    summary['direct_rel'], summary['direct_bar'] = rel, bar
+    del D
+
+
+def compare_interp_matvec(A, reps=20):
+    """K24 on the full-width line's stack of s = 0.75 against its plain
+    version and torch.einsum (the library's yardstick, never used by the
+    port), each after an untimed call."""
+    import torch
+    from pynucleus_tpu_torch.nl.operator_interpolation import (
+        interp_matvec, _interp_matvec_plain)
+    A.set(INTERP_ORDERS[0])
+    stack = A._denseStack()
+    M1, N, _ = stack.shape
+    w = torch.as_tensor(A._weights, dtype=torch.float64, device='cuda')
+    x = torch.as_tensor(_seeded(N))
+    yk, yp = torch.empty_like(x), torch.empty_like(x)
+    interp_matvec(w, stack, x, out=yk)
+    _interp_matvec_plain(w, stack, x, yp)
+    yl = torch.einsum('m,mnk,k->n', w, stack, x)
+    err = float((yk - yp).abs().max())
+    scale = float(yp.abs().max())
+    if not (scale > 0 and err <= TOL_KERNEL * scale
+            and float((yl - yp).abs().max()) <= TOL_KERNEL * scale):
+        raise AssertionError(f'interp_matvec: max err {err} (max {scale})')
+    ms = timed(lambda: [interp_matvec(w, stack, x, out=yk)
+                        for _ in range(reps)]) / reps
+    plain_ms = timed(lambda: [_interp_matvec_plain(w, stack, x, yp)
+                              for _ in range(reps)]) / reps
+    lib_ms = timed(lambda: [torch.einsum('m,mnk,k->n', w, stack, x)
+                            for _ in range(reps)]) / reps
+    work = [(nbytes(w, stack, x) + 8 * N, 2 * M1 * N * N + 2 * M1 * N,
+             F64_PEAK)]
+    log(f'  interp_matvec: stack {tuple(stack.shape)}, max abs err '
+        f'{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+        f'torch.einsum {lib_ms:.4f} ms, bound {bound(work)[0]:.4f} ms per '
+        'apply')
+    return result(err, ms, plain_ms, work, lib_ms)
+
+
+def matfree_line(dm, A):
+    """matrixFreeOperator(dm, 'stiffness') and 'mass' on phase 11's square
+    (a path: construction, an apply and the diagonal of each) against the
+    CSR operators (A, the stiffness; the mass through K16) applied by K9:
+    1e-12 of the largest entry."""
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import (matrixFreeOperator,
+                                                  assembleMass)
+    x = _seeded(A.num_rows)
+    out, csr = {}, {'stiffness': A, 'mass': assembleMass(dm)}
+    t0 = time.perf_counter()
+    ops = {kind: matrixFreeOperator(dm, kind) for kind in csr}
+    tBuild = time.perf_counter() - t0
+    for kind, op in ops.items():
+        y, d = op.matvec(x), op.diagonal
+        yr, dr = csr[kind].matvec(x), csr[kind].diagonal
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in ((y, yr), (d, dr))]
+        if not max(errs) <= TOL_KERNEL:
+            raise AssertionError(f'matrix-free {kind}: apply / diagonal '
+                                 f'{errs} from the CSR operator')
+        out[kind] = {'apply_rel': errs[0], 'diagonal_rel': errs[1]}
+    torch.cuda.synchronize()
+    log(f'  matrix-free square noRef {SERIAL_NOREF} ({A.num_rows} dofs): '
+        f'construction {tBuild:.3f} s (both), against the CSR operators '
+        f'{out}')
+    out['construction_seconds'] = tBuild
+    return ops, csr, out
+
+
+def compare_matfree_apply(ops, csr, reps=20):
+    """K25 (apply and diagonal) on the square's matrix-free operators
+    against its plain version, its time against K9's on the assembled CSR
+    operator and torch.sparse's (the library's yardstick, never used by
+    the port), each after an untimed call."""
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import (matfree_apply,
+                                                  _matfree_apply_plain)
+    from pynucleus_tpu_torch.base.linear_operators import csr_spmv
+    worst = ms = plain_ms = lib_ms = k9_ms = 0.0
+    work = []
+    for kind, op in ops.items():
+        args = (op._Aloc, op._dofs, op._order, op._offsets)
+        x = _seeded(op.num_rows)
+        for diag in (False, True):
+            yk, yp = torch.empty_like(x), torch.empty_like(x)
+            xx = None if diag else x
+            matfree_apply(*args, xx, out=yk, diagonal=diag)
+            _matfree_apply_plain(*args, x, yp, diag)
+            err = float((yk - yp).abs().max())
+            scale = float(yp.abs().max())
+            if not (scale > 0 and err <= TOL_KERNEL * scale):
+                raise AssertionError(f'matfree_apply ({kind}, diagonal '
+                                     f'{diag}): max err {err} (max {scale})')
+            worst = max(worst, err)
+        ms += timed(lambda: [matfree_apply(*args, x, out=yk)
+                             for _ in range(reps)]) / reps
+        plain_ms += timed(lambda: [_matfree_apply_plain(*args, x, yp, False)
+                                   for _ in range(reps)]) / reps
+        C = csr[kind]
+        S = LibraryCSR(C)
+        S.matvec(x)
+        cargs = (C.indptr, C.indices, C.data, x)
+        k9_ms += timed(lambda: [csr_spmv(*cargs, out=yp)
+                                for _ in range(reps)]) / reps
+        lib_ms += timed(lambda: [S.matvec(x) for _ in range(reps)]) / reps
+        C_, dpe = op._Aloc.shape[:2]
+        # the local matrices, dofs, order and offsets read once, x gathered
+        # once, y written once; per local row dpe multiply-adds
+        work.append((nbytes(*args, x) + 8 * op.num_rows,
+                     2 * C_ * dpe * dpe, F64_PEAK))
+    log(f'  matfree_apply: stiffness and mass, {ops["mass"].num_rows} dofs, '
+        f'max abs err {worst:.3e} (apply and diagonal), kernel {ms:.4f} ms, '
+        f'plain {plain_ms:.4f} ms, K9 on the CSR operators {k9_ms:.4f} ms, '
+        f'torch.sparse {lib_ms:.4f} ms, bound {bound(work)[0]:.4f} ms per '
+        'pair of applies')
+    r = result(worst, ms, plain_ms, work, lib_ms)
+    r['csr_spmv_ms'] = k9_ms
+    return r
+
+
+def serial_square(noRef):
+    """{'dm', 'A'}: runSerialGMG's square at noRef, its dofmap and finest
+    stiffness (phase 19 alone)."""
+    from pynucleus_tpu_torch.drivers.runSerialGMG import main
+    out = main(serial_argv(noRef), quiet=True)
+    return {'dm': out['dm'], 'A': out['hierarchy'][-1]['A']}
+
+
+def phase19_matfree(serial):
+    """Phase 19's matrix-free part on phase 11's square while it is alive
+    (main runs it right after phase 11, so that no later phase holds the
+    square): the mass and stiffness (a path) against the CSR operators,
+    then K25 against its plain version.  ``serial`` holds the square's dm
+    and finest stiffness.  Returns (launch counts, comparison, summary)."""
+    log('phase 19, the matrix-free part: matrixFreeOperator on phase 11\'s '
+        f'square at noRef {SERIAL_NOREF}')
+    (ops, csr, summary), counts = count_path(
+        'matrix-free', MATFREE_PATH,
+        lambda: matfree_line(serial['dm'], serial['A']))
+    return counts, compare_matfree_apply(ops, csr), summary
+
+
+def phase19(matfree=None):
+    """Operator interpolation over the fractional order and the
+    matrix-free FEM operator: the port's example at its own size on its
+    default path and on the per-pair path against the JAX pins (each a
+    path), its H2 twin (a path), the full-width interval at noRef
+    INTERP_NOREF (a path; noRef INTERP_FALLBACK if its node assemblies
+    would exceed INTERP_NODE_LIMIT) with the interpolation error against a
+    direct assembly; then K24 against its plain version.  ``matfree`` is
+    what phase19_matfree returned on phase 11's square (alone: the square
+    is made here and phase19_matfree runs last).  Returns the launch
+    counts, the comparisons and a summary."""
+    import torch
+    log('phase 19: operator interpolation over the fractional order and '
+        'the matrix-free operator')
+    counts, summary = {}, {}
+    (A, x, summary['example']), counts['example'] = count_path(
+        'interpolation example', INTERP_PATH, interp_example_line)
+    del A
+    (A, x, summary['example_per_pair']), counts['example_per_pair'] = \
+        count_path('interpolation example, per pair', INTERP_EXAMPLE_PATH,
+                   lambda: interp_example_line(PER_PAIR))
+    dm6 = A.ops[0][0].dm
+    summary['h2_rel'], counts['h2'] = count_path(
+        'interpolation H2 twin', INTERP_H2_PATH,
+        lambda: interp_h2_line(dm6, x))
+    del A
+    t0 = time.perf_counter()
+    full, counts['full'] = count_path(
+        f'interpolation noRef {INTERP_NOREF}', (),
+        lambda: interp_line(INTERP_NOREF))
+    if full is None:
+        log(f'  the full-width line at noRef {INTERP_FALLBACK} instead')
+        full, counts['full'] = count_path(
+            f'interpolation noRef {INTERP_FALLBACK}', (),
+            lambda: interp_line(INTERP_FALLBACK))
+    for k in INTERP_PATH:
+        if counts['full'][k] <= 0:
+            raise AssertionError(f'kernel {k} was not launched by the '
+                                 'full-width interpolation path')
+    A, dm, summary['full'] = full
+    counts['noRef'] = summary['full']['noRef']
+    interp_direct_check(A, dm, summary['full'])
+    cmp = {'interp_matvec': compare_interp_matvec(A)}
+    summary['full']['line_seconds'] = time.perf_counter() - t0
+    del A, full
+    torch.cuda.empty_cache()
+    if matfree is None:
+        matfree = phase19_matfree(serial_square(SERIAL_NOREF))
+    counts['matfree'], cmp['matfree_apply'], summary['matfree'] = matfree
+    log(f'phase 19 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -4986,7 +5475,9 @@ def main():
     counts8, cmp8 = phase8(errs7)
     counts9 = phase9()
     countsI, countsS, cmp10 = phase10()
-    countsG, cmp11 = phase11()
+    countsG, cmp11, serial = phase11()
+    matfree19 = phase19_matfree(serial)
+    del serial
     counts12, cmp12, _ = phase12()
     counts13, cmp13, summary13 = phase13()
     counts14, cmp14, prof14, summary14 = phase14()
@@ -4994,6 +5485,7 @@ def main():
     counts16, cmp16, diag16, summary16 = phase16()
     counts17, cmp17, summary17 = phase17()
     counts18, cmp18, summary18 = phase18()
+    counts19, cmp19, summary19 = phase19(matfree19)
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -5043,11 +5535,12 @@ def main():
         (DERIV_VEC_PATH,
          f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
          counts14['vector_full'])) + FH17_PATHS(counts17) \
-        + FORMATS18_PATHS(counts18)
+        + FORMATS18_PATHS(counts18) + INTERP19_PATHS(counts19)
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
     cmp.update(cmp14)
+    cmp.update(cmp19)
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
         c = cmp[name]
@@ -5070,7 +5563,7 @@ def main():
                                  'library_ms')})
         # the same kernel at other shapes: with the gaussian and exponential
         # profiles at the smooth lines' shapes and, for K1, K4-K12, at the
-        # noRef 16 line's; K1 and K7 with the variable orders' codes (and
+        # interval's full-width line's; K1 and K7 with the variable orders' codes (and
         # K1's y shift), K8, K9, K10 and K17 at the shapes of the gmres-mg
         # H2 line; with the power-log profile of the s-derivatives of a
         # constant order; K1's, K14's and K15's real diagonal targets
@@ -5091,7 +5584,8 @@ def main():
                  'panel_scatter_nonsym': ('launches_by_target',
                                           kernels.K19_TARGETS),
                  'pcg_update': ('launches_by_form', kernels.K4_FORMS),
-                 'vector_matvec': ('launches_by_form', kernels.K23_FORMS)}
+                 'vector_matvec': ('launches_by_form', kernels.K23_FORMS),
+                 'matfree_apply': ('launches_by_form', kernels.K25_FORMS)}
         if name in split:
             key, names = split[name]
             row[key] = {t.split(':')[1]: sum(counts[t] for *_, counts in paths)
@@ -5176,12 +5670,13 @@ def main():
             'device_launches': sum(counts['device'][name] for _, _, counts
                                    in FORMATS18_PATHS(counts18)),
             'compared_at': FORMATS_COMPARED_AT[name]})
-    log(f'phases 1-18 took {time.perf_counter() - T_START:.1f} s')
+    log(f'phases 1-19 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
     log(f'phase 17 summary: {json.dumps(summary17)}')
     log(f'phase 18 summary: {json.dumps(summary18)}')
+    log(f'phase 19 summary: {json.dumps(summary19)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,4 +1,5 @@
-"""Local FEM assembly: stiffness and mass in CSR, load vector; kernel K16.
+"""Local FEM assembly: stiffness and mass in CSR, load vector, the
+matrix-free operator; kernels K16 and K25.
 
 Port of _geometry, buildSparsityPattern, scatterToCSR, assembleMass,
 assembleStiffness and assembleRHS of pynucleus_tpu/fem/assembly.py (P1,
@@ -12,7 +13,11 @@ slot, stably, with each slot's range in ``offsets``.  The load vector
 (complex for a complex right-hand side), the boundary mass matrix and the
 boundary load vector (assembleSurfaceMass, assembleSurfaceRHS: the
 impedance condition of runHelmholtz) are host sums, as in the JAX
-package.
+package.  :class:`matrixFreeOperator` (mass or stiffness, with an optional
+coefficient averaged per cell) keeps the local matrices on the device and
+applies them with kernel K25 :func:`matfree_apply`, which replaces the
+gather, per-cell einsum and segment sum of the JAX package's jitted
+apply.
 """
 from __future__ import annotations
 
@@ -24,14 +29,14 @@ import torch
 
 from .. import kernels
 from ..config import REAL, INDEX
-from ..base.linear_operators import CSR_LinearOperator
+from ..base.linear_operators import CSR_LinearOperator, LinearOperator
 from .dofmaps import DoFMap, fe_vector
 from .quadrature import simplexDuffy
 
 __all__ = ['assembleMass', 'assembleStiffness', 'localStiffness',
            'assembleRHS', 'assembleSurfaceMass', 'assembleSurfaceRHS',
            'buildSparsityPattern', 'scatterPlan', 'scatterToCSR',
-           'csr_scatter']
+           'csr_scatter', 'matrixFreeOperator', 'matfree_apply']
 
 
 def _geometry(mesh):
@@ -273,6 +278,143 @@ def assembleRHS(dm: DoFMap, fun, qOrder=None):
     mask = d >= 0
     np.add.at(b, d[mask], bloc[mask])
     return fe_vector(torch.as_tensor(b, device=dm.device), dm)
+
+
+# ----------------------------------------------------------------- K25 ----
+
+class matrixFreeOperator(LinearOperator):
+    """Matrix-free mass or stiffness operator: y = A x without assembling A
+    (pynucleus_tpu/fem/assembly.py:284 matrixFreeOperator, ref
+    femCy.matrixFreeOperator:3403).  The local matrices [C, dpe, dpe] are
+    made on the host as the JAX package makes them and kept on the
+    dofmap's device with the cells' dofs and K25's gather order (the kept
+    local rows sorted stably by dof, each dof's range in ``offsets``);
+    :meth:`matvec` and :attr:`diagonal` are kernel K25."""
+
+    def __init__(self, dm: DoFMap, kind='stiffness', coefficient=None,
+                 qOrder=None):
+        mesh = dm.mesh
+        m = mesh.manifold_dim
+        p = max(dm.polynomialOrder, 1)
+        order = qOrder if qOrder is not None else 2 * p + 2
+        bary, w = simplexDuffy(order, m)
+        vol, gradLam = _geometry(mesh)
+        N = dm.num_dofs
+        self.num_rows = self.num_columns = N
+        if kind == 'mass':
+            PHI = dm.evalPhi(bary)
+            Mref = np.einsum('q,iq,jq->ij', w, PHI, PHI)
+            Aloc = vol[:, None, None] * Mref[None, :, :]
+        elif kind == 'stiffness':
+            DPHI = dm.evalGradPhi(bary)
+            Aloc = np.einsum('c,q,iqk,ckd,jql,cld->cij', vol, w,
+                             DPHI, gradLam, DPHI, gradLam, optimize=True)
+        else:
+            raise NotImplementedError(kind)
+        if coefficient is not None:
+            V = mesh.vertices[mesh.cells]
+            X = np.einsum('qk,ckd->cqd', bary, V)
+            cv = np.asarray(coefficient(
+                X.reshape(-1, mesh.dim))).reshape(X.shape[0], -1).mean(axis=1)
+            Aloc = Aloc * cv[:, None, None]
+        dofs = dm.dofs.reshape(-1)
+        if dofs.shape[0] >= 2 ** 31:
+            raise ValueError('matrixFreeOperator: more than 2^31 - 1 local '
+                             'dofs')
+        kept = np.nonzero(dofs >= 0)[0]
+        rows = kept[np.argsort(dofs[kept], kind='stable')]
+        offsets = np.zeros(N + 1, dtype=np.int64)
+        np.cumsum(np.bincount(dofs[kept], minlength=N), out=offsets[1:])
+        dev = dm.device
+        self._Aloc = torch.as_tensor(np.ascontiguousarray(Aloc, dtype=REAL),
+                                     device=dev)
+        self._dofs = torch.as_tensor(np.where(dm.dofs >= 0, dm.dofs, -1)
+                                     .astype(np.int32), device=dev)
+        self._order = torch.as_tensor(rows.astype(np.int32), device=dev)
+        self._offsets = torch.as_tensor(offsets.astype(np.int32), device=dev)
+
+    @property
+    def device(self):
+        return self._Aloc.device
+
+    def matvec(self, x, out=None):
+        return matfree_apply(self._Aloc, self._dofs, self._order,
+                             self._offsets, x, out=out)
+
+    @property
+    def diagonal(self):
+        return matfree_apply(self._Aloc, self._dofs, self._order,
+                             self._offsets, diagonal=True)
+
+
+def matfree_apply(Aloc, dofs, order, offsets, x=None, out=None,
+                  diagonal=False):
+    """y [N] with y[i] = sum over the local rows (c, a) of dof i (the
+    entries order[offsets[i]:offsets[i+1]] = c dpe + a) of
+    sum_b Aloc[c, a, b] x[dofs[c, b]] (a dof < 0 gives 0); ``diagonal``:
+    of Aloc[c, a, a], x not read.  Aloc [C, dpe, dpe] and x [N] float64,
+    dofs [C, dpe], order and offsets [N+1] int32, all contiguous on one
+    device.  Writes into ``out`` [N] when given.
+
+    Kernel K25 (kernels/csrc/matfree_apply.cu) on CUDA tensors, the plain
+    version on CPU tensors.  Replaces pynucleus_tpu/fem/assembly.py:321-328
+    (matrixFreeOperator's mv) and its diagonal (:333-339)."""
+    if Aloc.dim() != 3 or Aloc.dtype != torch.float64 \
+            or not Aloc.is_contiguous() or Aloc.shape[1] != Aloc.shape[2]:
+        raise ValueError('matfree_apply: Aloc must be a contiguous float64 '
+                         '[C, dpe, dpe] tensor')
+    C, dpe, _ = Aloc.shape
+    dev = Aloc.device
+    N = offsets.shape[0] - 1
+    checks = [('dofs', dofs, torch.int32, (C, dpe)),
+              ('order', order, torch.int32, (order.shape[0],)),
+              ('offsets', offsets, torch.int32, (N + 1,))]
+    if not diagonal:
+        checks.append(('x', x, torch.float64, (N,)))
+    for name, t, dt, shape in checks:
+        if not isinstance(t, torch.Tensor) or t.dtype != dt \
+                or t.shape != shape or not t.is_contiguous() \
+                or t.device != dev:
+            raise ValueError(f'matfree_apply: {name} must be a contiguous '
+                             f'{dt} {list(shape)} on {dev}')
+    if out is None:
+        out = torch.empty(N, dtype=torch.float64, device=dev)
+    elif out.dtype != torch.float64 or out.shape != (N,) \
+            or not out.is_contiguous() or out.device != dev:
+        raise ValueError(f'matfree_apply: out must be a contiguous float64 '
+                         f'[{N}] on {dev}')
+    if dev.type == 'cpu':
+        return _matfree_apply_plain(Aloc, dofs, order, offsets, x, out,
+                                    diagonal)
+    if dev.type != 'cuda':
+        raise ValueError(f'matfree_apply: unsupported device {dev}')
+    lib = kernels.library()
+    kernels.launches['matfree_apply'] += 1
+    kernels.deviceLaunches['matfree_apply'] += 1
+    kernels.launches['matfree_apply:diagonal' if diagonal else
+                     'matfree_apply:apply'] += 1
+    p = kernels.ptr
+    kernels.check(lib.matfree_apply(p(out), p(Aloc), p(dofs), p(order),
+                                    p(offsets), p(out if diagonal else x), N,
+                                    dpe, int(diagonal), kernels.stream()))
+    return out
+
+
+def _matfree_apply_plain(Aloc, dofs, order, offsets, x, out, diagonal):
+    """Plain PyTorch version of :func:`matfree_apply` (any device): each
+    local row's value (its product with the gathered x, summed in b order,
+    or its diagonal entry), then each dof's rows added in order as K16's
+    plain version adds a slot's contributions."""
+    C, dpe, _ = Aloc.shape
+    if diagonal:
+        vals = torch.diagonal(Aloc, dim1=1, dim2=2)
+    else:
+        xg = torch.where(dofs >= 0, x[dofs.clamp(min=0).long()], 0.0)
+        vals = torch.zeros((C, dpe), dtype=torch.float64, device=Aloc.device)
+        for b in range(dpe):
+            vals = vals + Aloc[:, :, b] * xg[:, b:b + 1]
+    return _csr_scatter_plain(vals.reshape(-1).contiguous(), order, offsets,
+                              out)
 
 
 # -------------------------------------------------- the physical boundary --

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Twenty-three kernels carry the port's device work:
+Twenty-five kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cuh) panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -75,6 +75,14 @@ Twenty-three kernels carry the port's device work:
                     bucket of a vector kernel, into dense A [N, N, V]
   K23 vector_matvec (csrc/vector_matvec.cu)  apply and transposed apply of
                     a dense vector operator [N, M, V]
+  K24 interp_matvec (csrc/interp_matvec.cu)  apply of an interpolated
+                    operator family over the fractional order: the
+                    weighted sum of a stack [M+1, N, N] of dense node
+                    operators applied to x
+  K25 matfree_apply (csrc/matfree_apply.cu)  matrix-free apply of a finite
+                    element operator from its local matrices [C, dpe, dpe],
+                    one thread per dof over its host-sorted local rows; or
+                    its diagonal
 
 The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
@@ -103,7 +111,8 @@ Their wrappers, each beside its plain PyTorch version, live where the JAX
 package has the program they replace: K1-K3, K5-K7, K11-K15, K19, K21
 and K22 in nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20
 in nl/h2.py, K9 and K23 in base/linear_operators.py, K10 in
-multilevel/gmg.py, K16 in fem/assembly.py.  A wrapper runs the plain
+multilevel/gmg.py, K16 and K25 in fem/assembly.py, K24 in
+nl/operator_interpolation.py.  A wrapper runs the plain
 version only for tensors on the CPU; on a CUDA tensor it launches its
 kernel or raises.
 
@@ -113,7 +122,8 @@ scatter targets are also counted apart, under ``panel_scatter:dense``,
 ``:slots``, ``:tree``, ``:cross`` and ``:diag``, K19's two under
 ``panel_scatter_nonsym:dense`` and ``:slots``, K4's two forms under
 ``pcg_update:jacobi`` and ``:general``, and K23's under
-``vector_matvec:apply`` and ``:transposed``, and the complex128 variants
+``vector_matvec:apply`` and ``:transposed``, K25's under
+``matfree_apply:apply`` and ``:diagonal``, and the complex128 variants
 of K9, K10, K17, K15 and K18 (their own template instances and Triton
 kernels) also under ``csr_spmv:complex``, ``jacobi_smooth:complex``,
 ``gmres_arnoldi:complex``, ``cut2d_polar:complex`` and
@@ -156,13 +166,14 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
            'gmres_arnoldi', 'bicgstab_update', 'panel_scatter_nonsym',
            'h2_matvec_T', 'panel_scatter_vec', 'panel_scatter_nonsym_vec',
-           'vector_matvec')
+           'vector_matvec', 'interp_matvec', 'matfree_apply')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross',
               'panel_scatter:diag')
 K19_TARGETS = ('panel_scatter_nonsym:dense', 'panel_scatter_nonsym:slots')
 K4_FORMS = ('pcg_update:jacobi', 'pcg_update:general')
 K23_FORMS = ('vector_matvec:apply', 'vector_matvec:transposed')
+K25_FORMS = ('matfree_apply:apply', 'matfree_apply:diagonal')
 COMPLEX = ('csr_spmv:complex', 'jacobi_smooth:complex',
            'gmres_arnoldi:complex', 'panel_scatter:complex',
            'panel_scatter:complex_diag', 'cut2d_polar:complex',
@@ -177,7 +188,7 @@ HORIZON = ('panel_scatter:ball1', 'panel_scatter:ellipse',
 # on the zero-exterior term's pairs of a cell and a surface simplex
 FORMATS = ('panel_scatter:complement', 'panel_scatter:diag_exterior')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS + COMPLEX + HORIZON + FORMATS}
+            + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS}
 deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -188,7 +199,7 @@ SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
            'panel_scatter_nonsym.cu', 'panel_scatter_vec.cu',
-           'vector_matvec.cu')
+           'vector_matvec.cu', 'interp_matvec.cu', 'matfree_apply.cu')
 HEADERS = ('common.cuh', 'panel_scatter.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
@@ -323,6 +334,10 @@ def _declare(lib):
         # y, A, x, N, M, V, stream (both directions)
         'vector_matvec': [P, P, P, L, L, I, P],
         'vector_matvec_T': [P, P, P, L, L, I, P],
+        # y, w, A, x, M+1, N, stream
+        'interp_matvec': [P, P, P, P, I, L, P],
+        # y, A, dofs, order, offsets, x, N, dpe, diagonal, stream
+        'matfree_apply': [P, P, P, P, P, P, I, I, I, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],

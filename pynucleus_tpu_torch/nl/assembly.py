@@ -4607,7 +4607,17 @@ def assembleNonlocal(dm, kernel, matrixFormat='dense', zeroExterior=True,
     (getDense(trySparsification=True)), 'diagonal' (getDiagonal),
     'sparse', 'H2', or 'H2corrected' (getH2FiniteHorizon, a
     :class:`horizonCorrected`).  ``timers``, if a dict, receives the
-    seconds of each H2, sparse or H2corrected build part."""
+    seconds of each H2, sparse or H2corrected build part.  A
+    ``RangedFractionalKernel`` gives the interpolated operator family of
+    nl/operator_interpolation.py assembleRangedNonlocal, its node
+    operators in ``matrixFormat`` (pynucleus_tpu/nl/assembly.py:4723-4728).
+    """
+    from .operator_interpolation import (RangedFractionalKernel,
+                                         assembleRangedNonlocal)
+    if isinstance(kernel, RangedFractionalKernel):
+        return assembleRangedNonlocal(dm, kernel, matrixFormat=matrixFormat,
+                                      zeroExterior=zeroExterior,
+                                      params=params, device=device)
     builder = nonlocalBuilder(dm, kernel, params=params,
                               zeroExterior=zeroExterior, device=device)
     fmt = matrixFormat.lower()

@@ -10,7 +10,9 @@ interactionFactory's aliases), constantFractionalLaplacianScaling (:901),
 constantIntegrableScaling (:917) for the indicator, peridynamic, gaussian
 and exponential kernels, Kernel and FractionalKernel (:1031, :1249) with
 the gaussian and exponential boundary kernels (:1182-1199),
-getFractionalKernel (:1681) and getIntegrableKernel (:1728).
+getFractionalKernel (:1681, an admissibleSet order to the ranged kernel
+of nl/operator_interpolation.py), getIntegrableKernel (:1728) and
+kernelFactory (:1853-1856: 'fractional', 'greens2D', 'greens3D').
 
 Every kernel here is a radial profile gamma(r2) (Kernel._radialJax,
 :1089-1121), times the interaction indicator for a finite horizon.  The
@@ -86,6 +88,8 @@ import numpy as np
 import torch
 from scipy.special import gamma as Gamma, gammaln, digamma, polygamma
 
+from ..base.factory import factory
+
 __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'constantNonSymFractionalOrder', 'leftRightFractionalOrder',
            'fractionalOrderFactory', 'OrderParams', 'evalXY', 'orderEval',
@@ -101,7 +105,8 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER', 'POWER_LOG',
            'DerivativeFractionalKernel', 'VectorFractionalKernel',
            'VectorParams', 'vectorTerms', 'vectorEval', 'vectorLogCoeffs',
-           'ComplexKernel', 'getComplexKernel', 'getKernel', 'besselJ0Y0',
+           'ComplexKernel', 'getComplexKernel', 'getKernel', 'kernelFactory',
+           'besselJ0Y0',
            'GREENS_2D', 'GREENS_3D', 'GREENS_2D_PROFILE',
            'GREENS_3D_PROFILE', 'COMPLEX_PROFILES']
 
@@ -1078,10 +1083,19 @@ class _ComponentFractionalKernel(FractionalKernel):
 
 def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
                         scaling=None, normalized=True, derivative=0, phi=None,
-                        temperedLambda=0.0):
+                        temperedLambda=0.0, **kwargs):
     """The fractional kernel of order s; with ``derivative`` (1 or 2) its
     s-derivative: a :class:`VectorFractionalKernel` for an order of several
-    parameters, else a :class:`DerivativeFractionalKernel`."""
+    parameters, else a :class:`DerivativeFractionalKernel`.  An order
+    ranging over an ``admissibleSet`` gives a ``RangedFractionalKernel``
+    (nl/operator_interpolation.py), which takes ``kwargs`` (errorBound,
+    M_min, M_max, xi), as pynucleus_tpu/nl/kernels.py:1685-1688."""
+    from .operator_interpolation import admissibleSet, RangedFractionalKernel
+    if isinstance(s, admissibleSet):
+        return RangedFractionalKernel(dim, s, horizon=horizon,
+                                      normalized=normalized, **kwargs)
+    if kwargs:
+        raise TypeError(f'getFractionalKernel: unexpected {sorted(kwargs)}')
     if phi is not None or temperedLambda != 0.0:
         raise NotImplementedError('two-point weights (phi) and tempered '
                                   'kernels are not ported')
@@ -1218,6 +1232,14 @@ def getKernel(dim, kernel=FRACTIONAL, **kwargs):
     if kernel in (GREENS_2D, GREENS_3D):
         return getComplexKernel(dim, kernel=kernel, **kwargs)
     return getIntegrableKernel(dim, kernel=kernel, **kwargs)
+
+
+kernelFactory = factory()
+kernelFactory.register(FRACTIONAL, getFractionalKernel)
+kernelFactory.register(GREENS_2D, lambda dim, **kw: getComplexKernel(
+    dim, kernel=GREENS_2D, **kw))
+kernelFactory.register(GREENS_3D, lambda dim, **kw: getComplexKernel(
+    dim, kernel=GREENS_3D, **kw))
 
 
 def profileArgs(prof):

@@ -78,6 +78,10 @@ def test_port_imports_no_jax():
             'panel_scatter_nonsym_vec; '
             'from pynucleus_tpu_torch.nl.kernels import '
             'DerivativeFractionalKernel, VectorFractionalKernel; '
+            'import pynucleus_tpu_torch.nl.operator_interpolation, '
+            'pynucleus_tpu_torch.examples.example_operator_interpolation; '
+            'from pynucleus_tpu_torch.fem.assembly import '
+            'matrixFreeOperator; '
             "assert 'jax' not in sys.modules, 'jax imported'")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)

@@ -106,22 +106,34 @@ def test_csr_spmv_plain_matches_jax():
 
 
 def test_cpu_wrappers_count_no_launch():
-    """On CPU tensors K9 and K10 run their plain versions: neither count
-    moves; resetLaunches zeroes both counts."""
+    """On CPU tensors K9, K10, K24 and K25 run their plain versions: no
+    count moves; resetLaunches zeroes both counts."""
     from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.fem.assembly import matfree_apply
+    from pynucleus_tpu_torch.nl.operator_interpolation import interp_matvec
     _, Pt = _jaxP('interval', 2)
     kernels.launches['csr_spmv'] = kernels.deviceLaunches['h2_matvec'] = 5
+    kernels.launches['matfree_apply:diagonal'] = 5
     kernels.resetLaunches()
     x = torch.ones(Pt.num_columns, dtype=torch.float64)
     Pt.matvec(x)
     Pt.rmatvec(torch.ones(Pt.num_rows, dtype=torch.float64))
     tgmg.jacobi_smooth('residual', torch.empty_like(x), x, Ax=x)
+    interp_matvec(torch.ones(2, dtype=torch.float64),
+                  torch.ones((2, 3, 3), dtype=torch.float64),
+                  torch.ones(3, dtype=torch.float64))
+    zero = torch.zeros(1, dtype=torch.int32)
+    matfree_apply(torch.ones((1, 1, 1), dtype=torch.float64),
+                  zero.reshape(1, 1), zero,
+                  torch.tensor([0, 1], dtype=torch.int32),
+                  torch.ones(1, dtype=torch.float64))
     assert not any(kernels.launches.values())
     assert not any(kernels.deviceLaunches.values())
     assert set(kernels.deviceLaunches) == set(kernels.KERNELS
                                               + kernels.COMPLEX
                                               + kernels.HORIZON
                                               + kernels.FORMATS)
+    assert {'interp_matvec', 'matfree_apply'} <= set(kernels.deviceLaunches)
 
 
 def test_csr_spmv_validates_inputs():
