@@ -210,6 +210,24 @@ result line):
      while it is alive, and reports under phase 19: the stiffness and mass
      (a path) against the CSR operators (1e-12), then K25 (apply and
      diagonal; against K9 and torch.sparse too) against its plain version.
+ 20. the multigrid extras, right after phase 11's matrix-free part on
+     phase 11's square: Chebyshev multigrid (3+3 steps, K26) on the
+     interval and the square (noRef 6, 3,969 dofs), the ILU smoother's
+     multigrid and an SSS apply (K27) of a seeded matrix against the JAX
+     outputs pinned by scripts/pin_multigrid_extras_jax.py (a path:
+     iterations exact, max|x| and rho(D^-1 A) per level 1e-10, the apply
+     1e-13); the full-width line (a path) on the square at noRef 9
+     (1,046,529 dofs): the Chebyshev set-up (rho per level), V, FMG_V and
+     CG preconditioned by its V-cycle at phase 11's tolerance, _mg_solve
+     (its iterations equal V's), the SSS operator of tril(A, -1) against
+     the CSR apply (1e-13), a V-cycle by CUDA events; the host smoothers
+     on the square at noRef 7 (65,025 dofs, hierarchyManager; a path): the
+     ILU smoother's multigrid and CG preconditioned by IChol, with their
+     set-up and host seconds; then K26 (its three modes) and K27 (against
+     torch.sparse and K9 on the symmetric CSR too) against their plain
+     versions at the noRef 9 shapes (1e-13 of the largest entry).  Alone:
+     `python -c 'import chip_smoke as c; from pynucleus_tpu_torch import
+     kernels; kernels.library(); c.phase20()'` (it makes the square).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -218,7 +236,7 @@ The last lines are the kernel table (JSON: per kernel, per complex
 variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18,
 per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
 (indicator, variable horizon), and per matrix-format variant of K1
-(complement, the zero-exterior diagonal), and K24 and K25, its
+(complement, the zero-exterior diagonal), and K24-K27, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -2108,7 +2126,8 @@ def phase11():
         f'on the host CPU {res[3]:.7e} (relative {spread[2]:.2e})')
     worst = check_serial(out, SERIAL_NOREF)
     ml, b, dm = out['ml'], out['b'], out['dm']
-    A = out['hierarchy'][-1]['A']
+    hierarchy, tol = out['hierarchy'], ml.tolerance
+    A = hierarchy[-1]['A']
     M = ml.asPreconditioner()
     z = torch.empty_like(b)
     M.matvec(b, out=z)
@@ -2127,7 +2146,8 @@ def phase11():
                'largest_rel_diff': worst, 'bicgstab_spread': spread,
                'warm_solve_s': secs}
     log(f'  summary: {json.dumps(summary)}')
-    return counts, cmp, {'dm': dm, 'A': A}
+    return counts, cmp, {'dm': dm, 'A': A, 'hierarchy': hierarchy, 'b': b,
+                         'tol': tol}
 
 
 # ---------------------------------------------------------------- phase 12
@@ -5362,11 +5382,14 @@ def compare_matfree_apply(ops, csr, reps=20):
 
 
 def serial_square(noRef):
-    """{'dm', 'A'}: runSerialGMG's square at noRef, its dofmap and finest
-    stiffness (phase 19 alone)."""
+    """{'dm', 'A', 'hierarchy', 'b', 'tol'}: runSerialGMG's square at
+    noRef, its dofmap, finest stiffness, level list, load and tolerance
+    (phases 19 and 20 alone)."""
     from pynucleus_tpu_torch.drivers.runSerialGMG import main
     out = main(serial_argv(noRef), quiet=True)
-    return {'dm': out['dm'], 'A': out['hierarchy'][-1]['A']}
+    return {'dm': out['dm'], 'A': out['hierarchy'][-1]['A'],
+            'hierarchy': out['hierarchy'], 'b': out['b'],
+            'tol': out['ml'].tolerance}
 
 
 def phase19_matfree(serial):
@@ -5436,6 +5459,456 @@ def phase19(matfree=None):
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 20
+
+# JAX package outputs of scripts/pin_multigrid_extras_jax.py (CPU, float64):
+# Chebyshev multigrid (3+3 steps, tolerance 1e-10) on the interval [0, 1]
+# refined 2-6 times and on uniformSquare(N=2) refined 1-6 times (the load
+# of the constant 1), rho(D^-1 A) per level; the ILU smoother's multigrid
+# on the interval refined 3-7 times (b = 1); the SSS apply of
+# mgx_seeded_spd() to RandomState(MGX_SSS_SEED + 1)'s normal vector.
+JAX_MG_EXTRAS = {
+    'interval': {'dofs': 63,
+                 'V': {'iterations': 7, 'xmax': 0.12499999999727483},
+                 'FMG_V': {'iterations': 6, 'xmax': 0.1249999999996799},
+                 'rhos': [1.707028426225744, 1.9233798080352242,
+                          1.9529122374550032, 1.9879433970594649,
+                          1.9768338573509454]},
+    'square': {'dofs': 3969,
+               'V': {'iterations': 10, 'xmax': 0.0736571854287482},
+               'FMG_V': {'iterations': 9, 'xmax': 0.07365718547508142},
+               'rhos': [1.0, 1.7068776655260347, 1.8145320215344918,
+                        1.9771156449631122, 1.9852077443987393,
+                        1.9772288856499614]},
+    'ilu': {'dofs': 127, 'V': {'iterations': 1, 'xmax': 15.999999999999684}},
+    'sss': {'n': 2000, 'nnz_L': 7989, 'y_norm': 240.40105984282022,
+            'y4': [-0.3489388009172849, -0.8789471748383955,
+                   2.5526587144986506, -4.28883760064649]},
+}
+# (domain, refinements, first kept level) of each pinned hierarchy
+MGX_HIERARCHIES = {'interval': ('interval', 6, 2),
+                   'square': ('square', 6, 1), 'ilu': ('interval', 7, 3)}
+MGX_TOL = 1e-10
+# runSerialGMG's default --maxiter, for every multigrid and CG-MG solve here
+MGX_MAXITER = 50
+TOL_MGX_PIN = 1e-10
+TOL_MGX_SSS = 1e-13
+MGX_SSS_SEED = 20
+# the host smoothers' square: runSerialGMG's square at noRef 7 (65,025
+# dofs), through hierarchyManager
+MGX_HOST_NOREF = 7
+MGX_ICHOL_MAXITER = 1000
+# phase 11's Jacobi (2+2) counts at noRef 9 beside the Chebyshev ones
+JACOBI_COUNTS = {'V': JAX_SERIAL[SERIAL_NOREF]['iterations'][0],
+                 'FMG_V': JAX_SERIAL[SERIAL_NOREF]['iterations'][1],
+                 'CG': JAX_SERIAL[SERIAL_NOREF]['iterations'][3]}
+MGX_PIN_PATH = ('csr_scatter', 'csr_spmv', 'jacobi_smooth', 'cheb_smooth',
+                'sss_spmv')
+MGX_PATH = ('csr_spmv', 'jacobi_smooth', 'cheb_smooth', 'sss_spmv',
+            'pcg_update', 'pcg_update:general')
+MGX_HOST_PATH = ('csr_scatter', 'csr_spmv', 'jacobi_smooth', 'pcg_update',
+                 'pcg_update:general')
+KERNEL_INFO['cheb_smooth'] = (
+    'cuda', 'pynucleus_tpu_torch/kernels/csrc/cheb_smooth.cu',
+    'pynucleus_tpu/multilevel/gmg.py:170')
+KERNEL_INFO['sss_spmv'] = (
+    'cuda', 'pynucleus_tpu_torch/kernels/csrc/sss_spmv.cu',
+    'pynucleus_tpu/base/linear_operators.py:434')
+COMPARED_AT['cheb_smooth'] = (
+    f'the Poisson square at noRef {SERIAL_NOREF} (n 1,046,529): the step '
+    'mode per call (its 7 vectors), the zero and first modes beside it')
+COMPARED_AT['sss_spmv'] = (
+    f'the Poisson square at noRef {SERIAL_NOREF}: tril(A, -1) of the finest '
+    'stiffness with its diagonal, per apply')
+
+
+def mgx_seeded_spd(n=JAX_MG_EXTRAS['sss']['n'], seed=MGX_SSS_SEED):
+    """The seeded SPD matrix of scripts/pin_multigrid_extras_jax.py
+    seededSPD (numpy and scipy only)."""
+    import numpy as np
+    import scipy.sparse as sp
+    rng = np.random.RandomState(seed)
+    M = sp.random(n, n, density=4.0 / n, random_state=rng, format='csr')
+    M = M + M.T
+    return (M + sp.diags(np.asarray(abs(M).sum(axis=1)).ravel() + 1.0)) \
+        .tocsr()
+
+
+def mgx_levels(domain, noRef, first, device='cuda'):
+    """The port's stiffness levels of the interval [0, 1] or of
+    uniformSquare(N=2) refined ``first`` ... noRef times (K16 on the
+    card), with their prolongations."""
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval, uniformSquare
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.fem.assembly import assembleStiffness
+    from pynucleus_tpu_torch.multilevel.gmg import buildProlongation
+    mesh = simpleInterval(0.0, 1.0) if domain == 'interval' else \
+        uniformSquare(N=2, ax=0., ay=0., bx=1., by=1.)
+    meshes = [mesh]
+    for _ in range(noRef):
+        meshes.append(meshes[-1].refine())
+    levels, dmPrev = [], None
+    for m in meshes[first:]:
+        dm = P1_DoFMap(m, device=device)
+        entry = {'A': assembleStiffness(dm), 'dm': dm}
+        if dmPrev is not None:
+            entry['P'] = buildProlongation(dmPrev, dm)
+        levels.append(entry)
+        dmPrev = dm
+    return levels
+
+
+def mgx_pin_lines(device='cuda'):
+    """The pinned lines (a path): Chebyshev V and FMG_V on the interval
+    and the square, the ILU smoother on its interval, the seeded SSS
+    apply, against JAX_MG_EXTRAS (iterations exact, max|x| and rho per
+    level 1e-10 relative, the apply 1e-13 of its largest entry).  Returns
+    a summary."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.multilevel.gmg import multigrid
+    from pynucleus_tpu_torch.base.linear_operators import SSS_LinearOperator
+    import scipy.sparse as sp
+    out, bad = {}, []
+    for line, spec in MGX_HIERARCHIES.items():
+        ref = JAX_MG_EXTRAS[line]
+        lv = mgx_levels(*spec, device=device)
+        A = lv[-1]['A']
+        if line == 'ilu':
+            b = torch.ones(A.num_rows, dtype=torch.float64, device=device)
+        else:
+            b = assembleRHS(lv[-1]['dm'], constant(1.0)).data
+        got = {'dofs': A.num_rows}
+        if A.num_rows != ref['dofs']:
+            bad.append(f"{line}: {A.num_rows} dofs, JAX {ref['dofs']}")
+        for cycle in ('V',) if line == 'ilu' else ('V', 'FMG_V'):
+            ml = multigrid(lv, smoother=('ilu', {}) if line == 'ilu'
+                           else ('chebyshev', {}))
+            ml.tolerance, ml.maxIter = MGX_TOL, MGX_MAXITER
+            ml.setup()
+            ml.cycle = cycle
+            x = ml.solve(b)
+            xmax = float(x.abs().max())
+            got[cycle] = {'iterations': ml.iterations, 'xmax': xmax}
+            r = ref[cycle]
+            if ml.iterations != r['iterations'] or \
+                    not _relclose(xmax, r['xmax'], TOL_MGX_PIN):
+                bad.append(f'{line} {cycle}: {got[cycle]}, JAX {r}')
+            if line != 'ilu':
+                got['rhos'] = ml.levels.rhos
+                rel = max(abs(a - c) / c for a, c in
+                          zip(ml.levels.rhos, ref['rhos']))
+                got['rhos_rel'] = rel
+                if len(ml.levels.rhos) != len(ref['rhos']) or \
+                        not rel <= TOL_MGX_PIN:
+                    bad.append(f'{line}: rhos {ml.levels.rhos}, JAX '
+                               f"{ref['rhos']}")
+        out[line] = got
+    ref = JAX_MG_EXTRAS['sss']
+    Am = mgx_seeded_spd()
+    L = sp.tril(Am, k=-1).tocsr()
+    S = SSS_LinearOperator(L.indices, L.indptr, L.data, Am.diagonal(),
+                           device=device)
+    x = torch.as_tensor(np.random.RandomState(MGX_SSS_SEED + 1)
+                        .standard_normal(ref['n']), device=device)
+    y = S.matvec(x)
+    yn = float(torch.linalg.norm(y))
+    err4 = max(abs(a - c) for a, c in zip(y[:4].tolist(), ref['y4']))
+    out['sss'] = {'nnz_L': int(L.nnz), 'y_norm': yn, 'y4_abs_err': err4}
+    if L.nnz != ref['nnz_L'] or not _relclose(yn, ref['y_norm'],
+                                               TOL_MGX_SSS) \
+            or not err4 <= TOL_MGX_SSS * float(y.abs().max()):
+        bad.append(f"sss: {out['sss']}, JAX {ref}")
+    log(f'  the pinned lines (JAX_MG_EXTRAS): {json.dumps(out)}')
+    if bad:
+        raise AssertionError('multigrid extras against the JAX pins: '
+                             + '; '.join(bad))
+    return out
+
+
+def _sync_seconds(fn):
+    """(fn's result, its seconds by the host clock to a synchronize)."""
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def mgx_full_line(serial):
+    """The full-width line on phase 11's square (a path): Chebyshev
+    multigrid's set-up (rho of each level by power iteration), V, FMG_V
+    and CG preconditioned by its V-cycle at phase 11's tolerance,
+    _mg_solve from 0 (its iterations must be V's), the SSS operator of
+    tril(A, -1) against the CSR apply (1e-13 of the largest entry).
+    Returns (the multigrid, the SSS operator, a summary)."""
+    import torch
+    import scipy.sparse as sp
+    from pynucleus_tpu_torch.base.linear_operators import SSS_LinearOperator
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    from pynucleus_tpu_torch.multilevel.gmg import multigrid, _mg_solve
+    hierarchy, b, tol = serial['hierarchy'], serial['b'], serial['tol']
+    A = hierarchy[-1]['A']
+    ml = multigrid(hierarchy, smoother=('chebyshev', {}))
+    ml.tolerance, ml.maxIter = tol, MGX_MAXITER
+    _, tSetup = _sync_seconds(ml.setup)
+    summary = {'dofs': A.num_rows, 'levels': len(hierarchy), 'tol': tol,
+               'setup_s': tSetup, 'rhos': ml.levels.rhos}
+    bad = []
+
+    def record(label, x, iterations, secs):
+        # converged: multigrid tests ||b - A x||, CG its preconditioned
+        # norm sqrt(r.M r) (the JAX package's criteria)
+        res = float(torch.linalg.norm(b - A.matvec(x)))
+        summary[label] = {'iterations': iterations, 'residual': res,
+                          'seconds': secs,
+                          'jacobi_iterations': JACOBI_COUNTS[label]}
+        if not (iterations < MGX_MAXITER and (label == 'CG' or res <= tol)):
+            bad.append(f'{label}: {iterations} iterations, residual {res} '
+                       f'(tolerance {tol})')
+    for cycle in ('V', 'FMG_V'):
+        ml.cycle = cycle
+        x, secs = _sync_seconds(lambda: ml.solve(b))
+        record(cycle, x, ml.iterations, secs)
+    cg = solverFactory.build('cg', A=A, setup=True)
+    cg.tolerance, cg.maxIter = tol, MGX_MAXITER
+    cg.setPreconditioner(ml.asPreconditioner())
+    x, secs = _sync_seconds(lambda: cg.solve(b))
+    record('CG', x, max(cg.iterations, 1), secs)
+    (x, k, rn), secs = _sync_seconds(lambda: _mg_solve(
+        ml.levels, b, torch.zeros_like(b), tol, MGX_MAXITER))
+    summary['_mg_solve'] = {'iterations': k, 'rn': rn, 'seconds': secs}
+    if k != summary['V']['iterations']:
+        bad.append(f"_mg_solve: {k} iterations, multigrid.solve "
+                   f"{summary['V']['iterations']}")
+    Ah = A.to_scipy()
+    L = sp.tril(Ah, k=-1).tocsr()
+    S, tS = _sync_seconds(lambda: SSS_LinearOperator(
+        L.indices, L.indptr, L.data, Ah.diagonal(), device=A.device))
+    xs = _seeded(A.num_rows)
+    ys, yr = S.matvec(xs), A.matvec(xs)
+    err = float((ys - yr).abs().max() / yr.abs().max())
+    summary['sss'] = {'nnz_L': int(L.nnz), 'construction_s': tS,
+                      'rel_err_vs_csr': err}
+    if not err <= TOL_MGX_SSS:
+        bad.append(f'SSS apply {err} from the CSR apply')
+    log(f'  Chebyshev (3+3) multigrid, square noRef {SERIAL_NOREF}: '
+        f'{json.dumps(summary)}')
+    if bad:
+        raise AssertionError('Chebyshev multigrid at full width: '
+                             + '; '.join(bad))
+    return ml, S, summary
+
+
+def mgx_host_line(device='cuda', noRef=MGX_HOST_NOREF):
+    """The host smoothers on runSerialGMG's square at noRef (a path):
+    hierarchyManager's levels, the ILU smoother's multigrid (set-up, the
+    solve, its host round trips) and CG preconditioned by IChol, at
+    tolerance 0.5 h^2.  Returns a summary."""
+    import torch
+    from pynucleus_tpu_torch.fem.meshes import uniformSquare
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    from pynucleus_tpu_torch.multilevel import (hierarchyManager,
+                                                paramsForMG, multigrid)
+    hM, tH = _sync_seconds(lambda: hierarchyManager(
+        uniformSquare(N=2, ax=0., ay=0., bx=1., by=1.),
+        paramsForMG(noRef), device=device).setup())
+    levels = hM.getLevelList()
+    A = levels[-1]['A']
+    tol = 0.5 * levels[-1]['mesh'].h ** 2
+    b = assembleRHS(levels[-1]['dm'], constant(1.0)).data
+    summary = {'dofs': A.num_rows, 'levels': len(levels), 'tol': tol,
+               'hierarchy_s': tH}
+    ml = multigrid(levels, smoother=('ilu', {}))
+    ml.tolerance, ml.maxIter = tol, MGX_MAXITER
+    _, tSetup = _sync_seconds(ml.setup)
+    # the host part of each ILU step: its calls and seconds
+    host = {'calls': 0, 'seconds': 0.0}
+    for M in ml.levels.precOps[1:]:
+        def timedFn(v, fn=M._fn):
+            t0 = time.perf_counter()
+            r = fn(v)
+            host['calls'] += 1
+            host['seconds'] += time.perf_counter() - t0
+            return r
+        M._fn = timedFn
+    x, secs = _sync_seconds(lambda: ml.solve(b))
+    res = float(torch.linalg.norm(b - A.matvec(x)))
+    its = ml.iterations
+    summary['ilu_mg'] = {
+        'setup_s': tSetup, 'iterations': its, 'residual': res,
+        'seconds': secs, 'seconds_per_cycle': secs / max(its, 1),
+        'host_round_trips': host['calls'],
+        'host_solve_seconds': host['seconds']}
+    cg = solverFactory.build('cg', A=A, setup=True)
+    cg.tolerance, cg.maxIter = tol, MGX_ICHOL_MAXITER
+    ich, tIch = _sync_seconds(lambda: solverFactory.build('ichol', A=A,
+                                                          setup=True))
+    cg.setPreconditioner(ich.asPreconditioner())
+    x, secs = _sync_seconds(lambda: cg.solve(b))
+    res2 = float(torch.linalg.norm(b - A.matvec(x)))
+    summary['ichol_cg'] = {'setup_s': tIch, 'iterations': cg.iterations,
+                           'residual': res2, 'seconds': secs,
+                           'seconds_per_iteration':
+                           secs / max(cg.iterations, 1)}
+    log(f'  host smoothers, square noRef {noRef}: {json.dumps(summary)}')
+    # converged: multigrid on ||b - A x||, CG on sqrt(r.M r)
+    if not (res <= tol and its < ml.maxIter
+            and cg.iterations < MGX_ICHOL_MAXITER):
+        raise AssertionError(f'host smoothers: ILU multigrid {its} '
+                             f'iterations, residual {res} (tolerance {tol});'
+                             f' IChol CG {cg.iterations} iterations')
+    return summary
+
+
+def compare_cheb_smooth(n, reps=20):
+    """K26: its three modes on seeded vectors [n] against the plain
+    version after an untimed call each; the row is the step mode (7
+    vectors), the others beside it.  No single library call computes a
+    step."""
+    import torch
+    from pynucleus_tpu_torch.multilevel.gmg import (cheb_smooth,
+                                                    _cheb_smooth_plain)
+    g = torch.Generator('cuda').manual_seed(26)
+    b, Ax, x0, d0 = (torch.randn(n, dtype=torch.float64, device='cuda',
+                                 generator=g) for _ in range(4))
+    Dinv = torch.rand(n, dtype=torch.float64, device='cuda', generator=g) \
+        + 0.5
+    kw = {'zero': {'theta': 1.25}, 'first': {'theta': 1.25},
+          'step': {'c1': 0.35, 'c2': 1.7}}
+    # vectors read or written, and operations per dof
+    modes = {'zero': (4, 2), 'first': (6, 4), 'step': (7, 6)}
+    worst, byMode = 0.0, {}
+    for mode, (nvec, ops) in modes.items():
+        xk, dk, xp, dp = x0.clone(), d0.clone(), x0.clone(), d0.clone()
+        cheb_smooth(mode, xk, b, dk, Dinv, Ax=Ax, **kw[mode])
+        _cheb_smooth_plain(mode, xp, b, dp, Dinv, Ax, **kw[mode])
+        err = max(float((xk - xp).abs().max()), float((dk - dp).abs().max()))
+        scale = max(float(xp.abs().max()), float(dp.abs().max()))
+        if not (scale > 0 and err <= TOL_MGX_SSS * scale):
+            raise AssertionError(f'cheb_smooth ({mode}): max err {err}')
+        worst = max(worst, err)
+        ms = timed(lambda: [cheb_smooth(mode, xk, b, dk, Dinv, Ax=Ax,
+                                        **kw[mode])
+                            for _ in range(reps)]) / reps
+        pms = timed(lambda: [_cheb_smooth_plain(mode, xp, b, dp, Dinv, Ax,
+                                                **kw[mode])
+                             for _ in range(reps)]) / reps
+        work = [(8 * nvec * n, ops * n, F64_PEAK)]
+        byMode[mode] = {'ms': ms, 'plain_ms': pms,
+                        'bound_ms': bound(work)[0], 'work': work}
+    log('  cheb_smooth: n {}, max abs err {:.3e}; '.format(n, worst)
+        + ', '.join(f"{m} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, "
+                    f"bound {v['bound_ms']:.4f})" for m, v in byMode.items()))
+    st = byMode['step']
+    r = result(worst, st['ms'], st['plain_ms'], st['work'])
+    r['modes'] = {m: {k: v for k, v in d.items() if k != 'work'}
+                  for m, d in byMode.items()}
+    return r
+
+
+def compare_sss_spmv(S, A, reps=20):
+    """K27 on the SSS operator S of phase 11's finest stiffness A against
+    its plain version (1e-13 of the largest entry) after an untimed call,
+    with torch.sparse on the symmetric CSR (the library yardstick, never
+    used by the port) and K9 on it beside."""
+    import torch
+    from pynucleus_tpu_torch.base.linear_operators import (
+        sss_spmv, _sss_spmv_plain, csr_spmv)
+    args = (S.diag, S.data, S.indices, S.rowids, S.order1, S.offsets1,
+            S.order2, S.offsets2)
+    x = _seeded(S.num_rows)
+    yk = sss_spmv(*args, x)
+    yp = _sss_spmv_plain(S.diag, S.data, S.indices, S.rowids, x)
+    err = float((yk - yp).abs().max())
+    scale = float(yp.abs().max())
+    if not (scale > 0 and err <= TOL_MGX_SSS * scale):
+        raise AssertionError(f'sss_spmv: max err {err} (max {scale})')
+    ms = timed(lambda: [sss_spmv(*args, x, out=yk)
+                        for _ in range(reps)]) / reps
+    plain_ms = timed(lambda: [_sss_spmv_plain(S.diag, S.data, S.indices,
+                                              S.rowids, x)
+                              for _ in range(reps)]) / reps
+    lib = LibraryCSR(A)
+    lib.matvec(x)
+    lib_ms = timed(lambda: [lib.matvec(x) for _ in range(reps)]) / reps
+    cargs = (A.indptr, A.indices, A.data, x)
+    k9_ms = timed(lambda: [csr_spmv(*cargs, out=yp)
+                           for _ in range(reps)]) / reps
+    # what the function needs: L's data and its row and column ids, diag
+    # and x read once, y written once (the kernel's host-sorted orders and
+    # offsets are its own design, not the function's); per entry of L two
+    # products and two sums
+    work = [(nbytes(S.data, S.rowids, S.indices, S.diag, x) + 8 * S.num_rows,
+             4 * S.data.shape[0] + 3 * S.num_rows, F64_PEAK)]
+    log(f'  sss_spmv: n {S.num_rows}, nnz(L) {S.data.shape[0]}, max abs err '
+        f'{err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
+        f'torch.sparse (symmetric CSR) {lib_ms:.4f} ms, K9 on it {k9_ms:.4f} '
+        f'ms, bound {bound(work)[0]:.4f} ms per apply')
+    r = result(err, ms, plain_ms, work, lib_ms)
+    r['csr_spmv_ms'] = k9_ms
+    return r
+
+
+def phase20(serial=None):
+    """The multigrid extras: the pinned lines against the JAX outputs
+    (a path), Chebyshev multigrid at full width on phase 11's square (a
+    path), the host smoothers on the square at noRef MGX_HOST_NOREF (a
+    path), then K26 and K27 against their plain versions at the noRef 9
+    shapes.  ``serial`` is phase 11's square (alone: made here).  Returns
+    (launch counts per path, comparisons, summary)."""
+    import torch
+    log('phase 20: the multigrid extras (Chebyshev and ILU smoothers, '
+        '_mg_solve, the SSS apply, IChol)')
+    t0 = time.perf_counter()
+    if serial is None:
+        serial = serial_square(SERIAL_NOREF)
+    counts, summary = {}, {}
+    summary['pins'], counts['pins'] = count_path(
+        'multigrid extras pins', MGX_PIN_PATH, mgx_pin_lines)
+    (ml, S, summary['full']), counts['full'] = count_path(
+        f'Chebyshev multigrid noRef {SERIAL_NOREF}', MGX_PATH,
+        lambda: mgx_full_line(serial))
+    nLvl = len(ml.levels.As)
+    M = ml.asPreconditioner()
+    b = serial['b']
+    z = torch.empty_like(b)
+    M.matvec(b, out=z)
+    summary['full']['vcycle_ms'] = timed(
+        lambda: [M.matvec(b, out=z) for _ in range(10)]) / 10
+    log(f"  V-cycle (Chebyshev 3+3, {nLvl} levels) "
+        f"{summary['full']['vcycle_ms']:.3f} ms (CUDA events over 10 "
+        'cycles)')
+    del ml, M, z
+    torch.cuda.empty_cache()
+    summary['host'], counts['host'] = count_path(
+        f'host smoothers noRef {MGX_HOST_NOREF}', MGX_HOST_PATH,
+        mgx_host_line)
+    cmp = {'cheb_smooth': compare_cheb_smooth(serial['A'].num_rows),
+           'sss_spmv': compare_sss_spmv(S, serial['A'])}
+    del S
+    torch.cuda.empty_cache()
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 20 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def MGX20_PATHS(counts20):
+    """The main paths of phase 20: (kernels, label, launch counts)."""
+    return ((MGX_PIN_PATH, 'mg_extras_pins', counts20['pins']),
+            (MGX_PATH, f'chebyshev_mg_square_noRef{SERIAL_NOREF}',
+             counts20['full']),
+            (MGX_HOST_PATH, f'ilu_ichol_square_noRef{MGX_HOST_NOREF}',
+             counts20['host']))
+
+
 def main():
     try:
         import torch
@@ -5477,6 +5950,7 @@ def main():
     countsI, countsS, cmp10 = phase10()
     countsG, cmp11, serial = phase11()
     matfree19 = phase19_matfree(serial)
+    counts20, cmp20, summary20 = phase20(serial)
     del serial
     counts12, cmp12, _ = phase12()
     counts13, cmp13, summary13 = phase13()
@@ -5535,12 +6009,14 @@ def main():
         (DERIV_VEC_PATH,
          f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
          counts14['vector_full'])) + FH17_PATHS(counts17) \
-        + FORMATS18_PATHS(counts18) + INTERP19_PATHS(counts19)
+        + FORMATS18_PATHS(counts18) + INTERP19_PATHS(counts19) \
+        + MGX20_PATHS(counts20)
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
     cmp.update(cmp14)
     cmp.update(cmp19)
+    cmp.update(cmp20)
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
         c = cmp[name]
@@ -5670,13 +6146,14 @@ def main():
             'device_launches': sum(counts['device'][name] for _, _, counts
                                    in FORMATS18_PATHS(counts18)),
             'compared_at': FORMATS_COMPARED_AT[name]})
-    log(f'phases 1-19 took {time.perf_counter() - T_START:.1f} s')
+    log(f'phases 1-20 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
     log(f'phase 17 summary: {json.dumps(summary17)}')
     log(f'phase 18 summary: {json.dumps(summary18)}')
     log(f'phase 19 summary: {json.dumps(summary19)}')
+    log(f'phase 20 summary: {json.dumps(summary20)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -3,11 +3,13 @@ vector-valued operators; kernels K9 and K23.
 
 Port of Dense_LinearOperator, Diagonal_LinearOperator, CSR_LinearOperator,
 VectorLinearOperator, Dense_VectorLinearOperator and
-H2_VectorLinearOperator of pynucleus_tpu/base/linear_operators.py.  The
+H2_VectorLinearOperator, SSS_LinearOperator and SchurComplement of
+pynucleus_tpu/base/linear_operators.py.  The
 dense matvec is ``torch.mv``: the plain large product the JAX package
 leaves to XLA (``A.data @ x``); the dense and diagonal operators take
 float64 or complex128 data (the complex Greens operators).  The CSR matvec is kernel K9
-:func:`csr_spmv`, the dense vector operator's apply and transposed apply
+:func:`csr_spmv`, the SSS matvec kernel K27 :func:`sss_spmv`, the dense
+vector operator's apply and transposed apply
 kernel K23 :func:`vector_matvec`.  Every scalar operator's ``matvec(x,
 out=None)`` writes into ``out`` when given (the CG loop and the V-cycle
 reuse their buffers); the H2 operator is nl/h2.py H2Matrix.
@@ -21,7 +23,8 @@ from .. import kernels
 from ..config import getDevice
 
 __all__ = ['LinearOperator', 'Dense_LinearOperator', 'Diagonal_LinearOperator',
-           'CSR_LinearOperator', 'csr_spmv', 'VectorLinearOperator',
+           'CSR_LinearOperator', 'csr_spmv', 'SSS_LinearOperator', 'sss_spmv',
+           'SchurComplement', 'VectorLinearOperator',
            'Dense_VectorLinearOperator', 'H2_VectorLinearOperator',
            'vector_matvec']
 
@@ -283,6 +286,203 @@ class CSR_LinearOperator(LinearOperator):
         A = A.tocsr()
         return CSR_LinearOperator(A.indptr, A.indices, A.data,
                                   num_columns=A.shape[1], device=device)
+
+
+# ----------------------------------------------------------------- K27 ----
+
+def _segments(keys, n):
+    """(order, offsets): the stable order of the entries by key and each
+    key's range [offsets[k], offsets[k+1]) of it, as int32 host arrays."""
+    order = np.argsort(keys, kind='stable').astype(np.int32)
+    offsets = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(np.bincount(keys, minlength=n), out=offsets[1:])
+    return order, offsets
+
+
+def sss_spmv(diag, data, indices, rowids, order1, offsets1, order2,
+             offsets2, x, out=None):
+    """y = diag x + L x + L^T x for the strictly lower triangle L given by
+    its entries data [nnz] (float64) at (rowids, indices) (int32), in any
+    order, and diag and x [n] (float64).  order1/offsets1 list the entries
+    of each row (stably sorted by rowids), order2/offsets2 those of each
+    column (by indices), int32 [nnz] and [n+1] (:func:`_segments`).
+    Writes into ``out`` [n] when given, else into a new vector, and
+    returns it.
+
+    Kernel K27 (kernels/csrc/sss_spmv.cu) on CUDA tensors, the plain
+    version on CPU tensors.  Replaces the two segment sums of
+    pynucleus_tpu/base/linear_operators.py:434 SSS_LinearOperator.matvec."""
+    n = diag.shape[0]
+    dev = x.device
+    for t in (diag, data, indices, rowids, order1, offsets1, order2,
+              offsets2, x):
+        if t.device != dev or not t.is_contiguous() or t.dim() != 1:
+            raise ValueError(f'sss_spmv: contiguous vectors on {dev} '
+                             'expected')
+    for t in (diag, data, x):
+        if t.dtype != torch.float64:
+            raise ValueError(f'sss_spmv: float64 values expected, got '
+                             f'{t.dtype}')
+    for t in (indices, rowids, order1, offsets1, order2, offsets2):
+        if t.dtype != torch.int32:
+            raise ValueError(f'sss_spmv: int32 indices expected, got '
+                             f'{t.dtype}')
+    nnz = data.shape[0]
+    if x.shape != (n,) or any(t.shape != (nnz,) for t in (
+            indices, rowids, order1, order2)) \
+            or offsets1.shape != (n + 1,) or offsets2.shape != (n + 1,):
+        raise ValueError('sss_spmv: shape mismatch')
+    if out is None:
+        out = torch.empty(n, dtype=torch.float64, device=dev)
+    elif out.dtype != torch.float64 or out.shape != (n,) \
+            or not out.is_contiguous() or out.device != dev:
+        raise ValueError(f'sss_spmv: out must be a contiguous float64 [{n}] '
+                         f'on {dev}')
+    if dev.type == 'cpu':
+        return out.copy_(_sss_spmv_plain(diag, data, indices, rowids, x))
+    if dev.type != 'cuda':
+        raise ValueError(f'sss_spmv: unsupported device {dev}')
+    if n == 0:
+        return out
+    lib = kernels.library()
+    kernels.launches['sss_spmv'] += 1
+    kernels.deviceLaunches['sss_spmv'] += 1
+    p = kernels.ptr
+    kernels.check(lib.sss_spmv(p(out), p(diag), p(data), p(indices),
+                               p(rowids), p(order1), p(offsets1), p(order2),
+                               p(offsets2), p(x), n, kernels.stream()))
+    return out
+
+
+def _sss_spmv_plain(diag, data, indices, rowids, x):
+    """Plain PyTorch version of :func:`sss_spmv` (any device): the JAX
+    package's two segment sums, added in its order."""
+    n = diag.shape[0]
+    ri, ci = rowids.long(), indices.long()
+    s1 = torch.zeros(n, dtype=x.dtype, device=x.device)
+    s1.index_add_(0, ri, data * x[ci])
+    s2 = torch.zeros(n, dtype=x.dtype, device=x.device)
+    s2.index_add_(0, ci, data * x[ri])
+    return (diag * x + s1) + s2
+
+
+class SSS_LinearOperator(LinearOperator):
+    """Symmetric sparse skyline: diagonal + strictly lower CSR
+    (pynucleus_tpu/base/linear_operators.py:408); matvec(x) = diag x + L x
+    + L^T x by kernel K27 :func:`sss_spmv`.  L's entries are given by
+    ``indptr`` (CSR rows) or by ``rowids`` with ``num_rows``, in any
+    order; the host sorts them by row and by column once, here, so that
+    both products are gathers.  The operator lives on ``device``."""
+
+    def __init__(self, indices, indptr=None, data=None, diagonal=None, *,
+                 rowids=None, num_rows=None, device='cuda'):
+        dev = getDevice(device)
+        if indptr is not None:
+            indptr = np.asarray(indptr)
+            nr = indptr.shape[0] - 1
+            rowids = np.repeat(np.arange(nr, dtype=np.int32),
+                               np.diff(indptr))
+            self.indptr = indptr
+        else:
+            assert rowids is not None and num_rows is not None
+            nr = num_rows
+            self.indptr = None
+        self.num_rows = self.num_columns = int(nr)
+        rowids = np.asarray(rowids, dtype=np.int32)
+        indices = np.asarray(indices, dtype=np.int32)
+        segs = _segments(rowids, nr) + _segments(indices, nr)
+
+        def t(a, dtype=None):
+            return torch.as_tensor(np.array(a, dtype=dtype), device=dev)
+        self.rowids, self.indices = t(rowids), t(indices)
+        self.data = t(data, np.float64)
+        self.diag = t(diagonal, np.float64)
+        self.order1, self.offsets1, self.order2, self.offsets2 = \
+            (t(a) for a in segs)
+
+    def _host(self):
+        """L's row ids, column ids and data and the diagonal, read back
+        from the device as numpy arrays."""
+        return tuple(a.cpu().numpy() for a in (self.rowids, self.indices,
+                                               self.data, self.diag))
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @property
+    def nnz(self):
+        return self.indices.shape[0] + self.num_rows
+
+    def matvec(self, x, out=None):
+        return sss_spmv(self.diag, self.data, self.indices, self.rowids,
+                        self.order1, self.offsets1, self.order2,
+                        self.offsets2, x, out=out)
+
+    @property
+    def T(self):
+        return self
+
+    @property
+    def diagonal(self):
+        return self.diag
+
+    def toarray(self):
+        r, c, d, diag = self._host()
+        A = np.diag(diag)
+        np.add.at(A, (r, c), d)
+        np.add.at(A, (c, r), d)
+        return A
+
+    def to_csr(self):
+        import scipy.sparse as sp
+        r, c, d, diag = self._host()
+        n = self.num_rows
+        rows = np.concatenate([r, c, np.arange(n)])
+        cols = np.concatenate([c, r, np.arange(n)])
+        vals = np.concatenate([d, d, diag])
+        A = sp.coo_matrix((vals, (rows, cols)), shape=(n, n)).tocsr()
+        return CSR_LinearOperator.from_scipy(A, device=self.device)
+
+
+class SchurComplement(LinearOperator):
+    """S = A11 - A12 A22^{-1} A21 for the index split (indices, complement)
+    (pynucleus_tpu/base/linear_operators.py:664).  The blocks are dense on
+    A's device and A22 is factorised once by the library LU
+    (torch.linalg.lu_factor, where the JAX package has
+    jax.scipy.linalg.lu_factor)."""
+
+    def __init__(self, A, indices):
+        arr = torch.as_tensor(A.toarray(), device=A.device)
+        n = arr.shape[0]
+        indices = np.asarray(indices, dtype=np.int64)
+        comp = np.setdiff1d(np.arange(n), indices)
+        self.indices = indices
+        self.complement = comp
+        ii, cc = (torch.as_tensor(a, device=arr.device)
+                  for a in (indices, comp))
+        self.A11 = arr[ii][:, ii]
+        self.A12 = arr[ii][:, cc]
+        self.A21 = arr[cc][:, ii]
+        self.A22 = arr[cc][:, cc]
+        self._lu = torch.linalg.lu_factor(self.A22)
+        self.num_rows = self.num_columns = len(indices)
+
+    @property
+    def device(self):
+        return self.A11.device
+
+    def matvec(self, x, out=None):
+        t = torch.linalg.lu_solve(*self._lu, (self.A21 @ x).unsqueeze(1))
+        return torch.sub(self.A11 @ x, self.A12 @ t.squeeze(1), out=out)
+
+    def toarray(self):
+        inv22 = np.linalg.inv(self.A22.cpu().numpy())
+        return self.A11.cpu().numpy() - self.A12.cpu().numpy() @ inv22 \
+            @ self.A21.cpu().numpy()
+
+    def __repr__(self):
+        return f'SchurComplement({self.num_rows}x{self.num_rows})'
 
 
 # ----------------------------------------------------- vector operators ----

@@ -1,8 +1,9 @@
 """LU, Jacobi, (preconditioned) CG, GMRES and BiCGStab solvers on tensors;
 kernels K4, K17 and K18.
 
-Port of lu_solver, jacobi_solver, cg_solver, gmres_solver,
-bicgstab_solver and solverFactory of pynucleus_tpu/base/solvers.py, for
+Port of lu_solver, jacobi_solver, ichol_solver, ilu_solver, cg_solver,
+gmres_solver, bicgstab_solver and solverFactory of
+pynucleus_tpu/base/solvers.py, for
 real float64 systems, and for complex128 ones in LU, GMRES (runHelmholtz)
 and BiCGStab (the complex Greens operators).  The CG keeps
 ``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
@@ -32,6 +33,9 @@ runs its vector work through kernel K18 :func:`bicgstab_update` around its
 two applies and two preconditioner applies, its scalars on the device; the
 host reads ||r|| once per iteration; a complex128 system runs K18's
 complex variant, whose dots conjugate their first argument (jnp.vdot).
+The incomplete factorizations (IChol from the port's native copy, ILU from
+scipy's spilu) factor and solve on the host, as in the JAX package; as a
+preconditioner each apply moves the vector to the host and back.
 """
 from __future__ import annotations
 
@@ -39,9 +43,11 @@ import numpy as np
 import torch
 
 from .. import kernels
-from .linear_operators import Diagonal_LinearOperator, Dense_LinearOperator
+from .linear_operators import (LinearOperator, Diagonal_LinearOperator,
+                               Dense_LinearOperator, CSR_LinearOperator)
 
-__all__ = ['solver', 'lu_solver', 'jacobi_solver', 'iterative_solver',
+__all__ = ['solver', 'lu_solver', 'jacobi_solver', 'ichol_solver',
+           'ilu_solver', 'iterative_solver',
            'krylov_solver', 'cg_solver', 'gmres_solver', 'bicgstab_solver',
            'solverFactory', 'SOLVER_TYPES', 'pcg_update', 'pcg_update_prec',
            'gmres_arnoldi', 'gmres_combine', 'bicgstab_update']
@@ -387,6 +393,96 @@ class jacobi_solver(solver):
         return Diagonal_LinearOperator(self.invD)
 
 
+class _hostPrecOperator(LinearOperator):
+    """A preconditioner whose apply is a host function on numpy vectors:
+    the ILU and IChol triangular solves.  Those are sequential, row after
+    row, and are host algorithms in both packages (the JAX package calls
+    them through jax.pure_callback inside its jitted loops), so this is the
+    algorithm's own host part and no fallback: the vector goes to the
+    host, is solved there and comes back to its device."""
+
+    def __init__(self, fn, n, device):
+        self._fn = fn
+        self.num_rows = self.num_columns = n
+        self._device = device
+
+    @property
+    def device(self):
+        return self._device
+
+    def matvec(self, x, out=None):
+        y = torch.as_tensor(self._fn(x.cpu().numpy()), dtype=x.dtype,
+                            device=x.device)
+        return y if out is None else out.copy_(y)
+
+
+def _toCSRTriple(A):
+    """A as a scipy CSR matrix with summed duplicates and sorted indices
+    (pynucleus_tpu/base/solvers.py:190): a CSR operator's host arrays,
+    else its dense form."""
+    import scipy.sparse as sp
+    if isinstance(A, CSR_LinearOperator):
+        M = A.to_scipy().copy()
+    else:
+        M = sp.csr_matrix(np.asarray(A.toarray()))
+    M.sum_duplicates()
+    M.sort_indices()
+    return M
+
+
+class _hostSolver(solver):
+    """A solver whose solve is a host function (``self._apply``): b goes
+    to the host and x comes back to b's device."""
+
+    def solve(self, b):
+        return torch.as_tensor(self._apply(b.cpu().numpy()), dtype=b.dtype,
+                               device=b.device)
+
+    def asPreconditioner(self):
+        return _hostPrecOperator(self._apply, self.num_rows, self.A.device)
+
+
+class ichol_solver(_hostSolver):
+    """Incomplete Cholesky IC(0) (pynucleus_tpu/base/solvers.py:204): the
+    factorization and the triangular solves of the port's copy of the
+    native library (base/sparse_native.py), on the host."""
+
+    def setup(self, A=None):
+        from .sparse_native import IChol
+        if A is not None:
+            self.A = A
+        M = _toCSRTriple(self.A)
+        self._fac = IChol(M.indptr, M.indices, M.data, M.shape[0])
+        self._apply = self._fac.apply
+        self.num_rows = M.shape[0]
+        self.initialized = True
+
+    def __str__(self):
+        return 'Incomplete Cholesky'
+
+
+class ilu_solver(_hostSolver):
+    """Incomplete LU by scipy's SuperLU spilu with ``fill_factor`` 1, as
+    the JAX package's (pynucleus_tpu/base/solvers.py:227), on the host."""
+
+    def __init__(self, A=None):
+        super().__init__(A)
+        self.fill_factor = 1.0
+
+    def setup(self, A=None):
+        from scipy.sparse.linalg import spilu
+        if A is not None:
+            self.A = A
+        M = _toCSRTriple(self.A).tocsc()
+        self._ilu = spilu(M, fill_factor=self.fill_factor)
+        self._apply = self._ilu.solve
+        self.num_rows = M.shape[0]
+        self.initialized = True
+
+    def __str__(self):
+        return 'Incomplete LU'
+
+
 class iterative_solver(solver):
     def __init__(self, A=None):
         super().__init__(A)
@@ -602,24 +698,34 @@ class solverFactoryClass:
     """String -> solver construction (pynucleus_tpu/base/solvers.py:557-598).
     A combined name 'cg-jacobi' or 'cg-mg' is the first solver
     preconditioned by the second; a multilevel solver ('mg', registered by
-    multilevel/gmg.py) is built from the level ``hierarchy``."""
+    multilevel/gmg.py) is built from the level ``hierarchy``; a name may
+    have aliases ('gs' for 'gauss_seidel', registered by
+    multilevel/smoothers.py)."""
 
     def __init__(self):
         self.classes = {}
 
-    def register(self, name, classType, isMultilevelSolver=False):
-        self.classes[name] = (classType, isMultilevelSolver)
+    def register(self, name, classType, isMultilevelSolver=False,
+                 aliases=()):
+        """``name`` and each of ``aliases`` build ``classType``."""
+        for key in (name, *aliases):
+            self.classes[key] = (classType, isMultilevelSolver)
 
-    def build(self, name, A=None, setup=False, hierarchy=None):
+    def build(self, name, A=None, setup=False, hierarchy=None, **kwargs):
+        """The solver of ``name`` for A (a multilevel one for the level
+        ``hierarchy``), its constructor given ``kwargs``; set up if
+        ``setup``."""
         if A is None and hierarchy is not None:
             A = hierarchy[-1]['A']
         if name in self.classes:
             classType, isML = self.classes[name]
-            s = classType(hierarchy if isML and hierarchy is not None else A)
+            s = classType(hierarchy if isML and hierarchy is not None else A,
+                          **kwargs)
         elif '-' in name:
             outer, inner = name.split('-', 1)
             s = self.build(outer, A=A)
-            prec = self.build(inner, A=A, setup=setup, hierarchy=hierarchy)
+            prec = self.build(inner, A=A, setup=setup, hierarchy=hierarchy,
+                              **kwargs)
             if setup and not prec.initialized:
                 prec.setup()
             s.setPreconditioner(prec.asPreconditioner())
@@ -633,6 +739,8 @@ class solverFactoryClass:
 solverFactory = solverFactoryClass()
 solverFactory.register('lu', lu_solver)
 solverFactory.register('jacobi', jacobi_solver)
+solverFactory.register('ichol', ichol_solver)
+solverFactory.register('ilu', ilu_solver)
 solverFactory.register('cg', cg_solver)
 solverFactory.register('gmres', gmres_solver)
 solverFactory.register('bicgstab', bicgstab_solver)

@@ -15,7 +15,9 @@ that a multigrid cycle can run on operators identical to the JAX
 package's; ``csrHierarchyFromArrays`` builds a level list of CSR
 operators and prolongations, such as a JAX package stiffness hierarchy or
 a complex-shifted Helmholtz one (complex128 data), for the port's
-multigrid and Krylov solvers; ``denseVectorFromArrays``
+multigrid and Krylov solvers; ``sssFromArrays`` builds the port's SSS
+operator from the arrays of one, such as a JAX package
+SSS_LinearOperator; ``denseVectorFromArrays``
 builds the port's dense vector operator from the data of one, such as a
 JAX package Dense_VectorLinearOperator, so that its apply can be checked on
 its own.  Like every entry point of the port they build on the card
@@ -35,11 +37,11 @@ from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
                          leftRightFractionalOrder, GREENS_2D, GREENS_3D)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .nl.problems import parseFractionalOrder
-from .base.linear_operators import (CSR_LinearOperator,
+from .base.linear_operators import (CSR_LinearOperator, SSS_LinearOperator,
                                     Dense_VectorLinearOperator)
 
 __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
-           'csrHierarchyFromArrays', 'denseVectorFromArrays']
+           'csrHierarchyFromArrays', 'sssFromArrays', 'denseVectorFromArrays']
 
 
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
@@ -184,6 +186,18 @@ def csrHierarchyFromArrays(As, Ps, device='cuda'):
             entry['R'] = entry['P'].T
         hierarchy.append(entry)
     return hierarchy
+
+
+def sssFromArrays(indices, indptr=None, data=None, diagonal=None, *,
+                  rowids=None, num_rows=None, device='cuda'):
+    """The port's SSS_LinearOperator (diagonal + strictly lower triangle L,
+    applied as diag x + L x + L^T x) from L's column ``indices`` and
+    ``data`` [nnz] with its CSR row pointers ``indptr`` or its row ids
+    ``rowids`` and ``num_rows``, and the ``diagonal`` [n]: the arrays of a
+    JAX package SSS_LinearOperator (its ``indptr`` when it has one, else
+    its ``rowids``)."""
+    return SSS_LinearOperator(indices, indptr, data, diagonal, rowids=rowids,
+                              num_rows=num_rows, device=device)
 
 
 def denseVectorFromArrays(data, device='cuda'):

@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Twenty-five kernels carry the port's device work:
+Twenty-seven kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cuh) panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -83,6 +83,11 @@ Twenty-five kernels carry the port's device work:
                     element operator from its local matrices [C, dpe, dpe],
                     one thread per dof over its host-sorted local rows; or
                     its diagonal
+  K26 cheb_smooth   (csrc/cheb_smooth.cu)    one Chebyshev step of the
+                    multigrid smoother, three modes (float64)
+  K27 sss_spmv      (csrc/sss_spmv.cu)       apply of a symmetric sparse
+                    skyline operator, diag x + L x + L^T x, one thread per
+                    row over its host-sorted entries of L and of L^T
 
 The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
@@ -110,7 +115,7 @@ dimension of their centers says.
 Their wrappers, each beside its plain PyTorch version, live where the JAX
 package has the program they replace: K1-K3, K5-K7, K11-K15, K19, K21
 and K22 in nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20
-in nl/h2.py, K9 and K23 in base/linear_operators.py, K10 in
+in nl/h2.py, K9, K23 and K27 in base/linear_operators.py, K10 and K26 in
 multilevel/gmg.py, K16 and K25 in fem/assembly.py, K24 in
 nl/operator_interpolation.py.  A wrapper runs the plain
 version only for tensors on the CPU; on a CUDA tensor it launches its
@@ -147,10 +152,10 @@ zeroes both.
 
 The CUDA sources are compiled on first use by ``nvcc`` for sm_90a into
 ``kernels/build/`` (a shared library with a plain C interface, loaded with
-ctypes); only sources in this directory are used.  cut_cells.cu and
-panel_scatter_vec.cu are compiled with -fmad=false (the branch decisions
-of the one and the sums of the other must round as the plain versions'
-separate operations do).
+ctypes); only sources in this directory are used.  cut_cells.cu,
+panel_scatter_vec.cu, cheb_smooth.cu and sss_spmv.cu are compiled with
+-fmad=false (the branch decisions of the first and the sums and steps of
+the others must round as the plain versions' separate operations do).
 """
 from __future__ import annotations
 
@@ -166,7 +171,8 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
            'gmres_arnoldi', 'bicgstab_update', 'panel_scatter_nonsym',
            'h2_matvec_T', 'panel_scatter_vec', 'panel_scatter_nonsym_vec',
-           'vector_matvec', 'interp_matvec', 'matfree_apply')
+           'vector_matvec', 'interp_matvec', 'matfree_apply', 'cheb_smooth',
+           'sss_spmv')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross',
               'panel_scatter:diag')
@@ -199,11 +205,14 @@ SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
            'panel_scatter_nonsym.cu', 'panel_scatter_vec.cu',
-           'vector_matvec.cu', 'interp_matvec.cu', 'matfree_apply.cu')
+           'vector_matvec.cu', 'interp_matvec.cu', 'matfree_apply.cu',
+           'cheb_smooth.cu', 'sss_spmv.cu')
 HEADERS = ('common.cuh', 'panel_scatter.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
-                'panel_scatter_vec.cu': ('-fmad=false',)}
+                'panel_scatter_vec.cu': ('-fmad=false',),
+                'cheb_smooth.cu': ('-fmad=false',),
+                'sss_spmv.cu': ('-fmad=false',)}
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-Xcompiler', '-fPIC')
 
@@ -338,6 +347,11 @@ def _declare(lib):
         'interp_matvec': [P, P, P, P, I, L, P],
         # y, A, dofs, order, offsets, x, N, dpe, diagonal, stream
         'matfree_apply': [P, P, P, P, P, P, I, I, I, P],
+        # x, d, b, Ax, Dinv, n, mode, theta, c1, c2, stream
+        'cheb_smooth': [P, P, P, P, P, I, I, D, D, D, P],
+        # y, diag, data, indices, rowids, order1, offsets1, order2,
+        # offsets2, x, n, stream
+        'sss_spmv': [P, P, P, P, P, P, P, P, P, P, I, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
         # wq, Qx, ur, wr, Qy, horizon, C, e, stream
         'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],

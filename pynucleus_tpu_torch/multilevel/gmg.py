@@ -1,17 +1,26 @@
-"""Geometric multigrid on tensors; kernel K10.
+"""Geometric multigrid on tensors; kernels K10 and K26.
 
-Port of pynucleus_tpu/multilevel/gmg.py for the damped-Jacobi smoother:
-``buildProlongation`` (host numpy/scipy, code-identical), the level
-container, the V/W cycle ``_vcycle``/``_mg_apply`` with the smoother's
-pre- and post-sweep counts, full multigrid ``_fmg_solve``, ``multigrid``
-(set-up and the host-driven solve loop, V, W, FMG_V and FMG_W) and
-``mgPreconditioner``.
+Port of pynucleus_tpu/multilevel/gmg.py: ``buildProlongation`` (host
+numpy/scipy, code-identical), the level container, the V/W cycle
+``_vcycle``/``_mg_apply`` with the smoother's pre- and post-sweep counts,
+full multigrid ``_fmg_solve``, the loop of cycles ``_mg_solve``,
+``multigrid`` (set-up and the host-driven solve loop, V, W, FMG_V and
+FMG_W) and ``mgPreconditioner``, with the JAX package's three smoothers:
+damped Jacobi (the default), Chebyshev and ILU.
 
 The JAX package compiles the whole cycle into one XLA program; here the
 host walks the levels and each step is a launch on the level's device:
 
-  the level operator's matvec      torch.mv (dense) or kernel K8 (H2)
+  the level operator's matvec      torch.mv (dense), kernel K9 (CSR) or
+                                   K8 (H2)
   the damped-Jacobi passes         kernel K10 :func:`jacobi_smooth`
+  the Chebyshev steps              kernel K26 :func:`cheb_smooth`, with
+                                   the host's float64 coefficients from
+                                   rho(D^-1 A) of each level, estimated at
+                                   set-up (base/linalg.py)
+  the ILU steps                    host triangular solves of each level's
+                                   factors (scipy's spilu), as in the JAX
+                                   package, and K10's residual pass
   restriction P^T res, x += P xc   kernel K9 (CSR_LinearOperator)
   the coarsest level               torch.linalg.lu_solve on factors made
                                    once by torch.linalg.lu_factor (the JAX
@@ -23,10 +32,11 @@ use), so a cycle allocates only the coarsest level's solution.  Complex
 levels (complex128 operators with float64 prolongations, runHelmholtz's
 complex-shifted Laplacian) run the same steps on complex128 vectors:
 K9's and K10's complex variants, a complex inverse diagonal and a complex
-coarse LU.  FMG
-composes the same steps: the chain of P^T (K9), the coarse LU, then per
-level P (K9), the residual (the level's matvec and K10) and a cycle.  Not
-ported (ROADMAP A9): the Chebyshev and ILU smoothers and ``_mg_solve``.
+coarse LU; the Chebyshev smoother is float64 only (no JAX path smooths a
+complex level with it).  FMG and ``_mg_solve`` compose the same steps: the
+chain of P^T (K9), the coarse LU, then per level P (K9), the residual (the
+level's matvec and K10) and a cycle; a loop of residuals and cycles whose
+norm the host reads once per iteration.
 """
 from __future__ import annotations
 
@@ -35,11 +45,12 @@ import scipy.sparse as sp
 import torch
 
 from .. import kernels
+from ..base.linalg import estimateSpectralRadius
 from ..base.linear_operators import LinearOperator, CSR_LinearOperator
-from ..base.solvers import iterative_solver, solverFactory
+from ..base.solvers import iterative_solver, solverFactory, ilu_solver
 
 __all__ = ['buildProlongation', 'multigrid', 'mgPreconditioner',
-           'jacobi_smooth']
+           'jacobi_smooth', 'cheb_smooth']
 
 
 def buildProlongation(dmCoarse, dmFine):
@@ -167,6 +178,89 @@ def _jacobi_smooth_plain(mode, x, b, Ax=None, Dinv=None, omega=None):
     return x
 
 
+# ----------------------------------------------------------------- K26 ----
+
+CHEB_MODES = ('zero', 'first', 'step')
+
+
+def cheb_smooth(mode, x, b, d, Dinv, Ax=None, theta=None, c1=None, c2=None):
+    """One Chebyshev step of the smoother, into x and d [n] in place:
+
+        'zero'   d = (Dinv * b) / theta;  x = d        (first step, x = 0)
+        'first'  d = (Dinv * (b - Ax)) / theta;  x += d
+        'step'   d = c1 * d + c2 * (Dinv * (b - Ax));  x += d
+
+    with Ax = A x from the level's apply; float64 vectors [n] on one
+    device, theta, c1 and c2 host floats (:func:`_chebSchedule`).
+    Kernel K26 (kernels/csrc/cheb_smooth.cu) on CUDA tensors, the plain
+    version on CPU tensors.  Replaces the vector arithmetic of
+    pynucleus_tpu/multilevel/gmg.py:170 _chebSmooth (lines 181-189)."""
+    if mode not in CHEB_MODES:
+        raise ValueError(f'cheb_smooth: mode must be one of {CHEB_MODES}')
+    n = x.shape[0]
+    need = (x, b, d, Dinv) + ((Ax,) if mode != 'zero' else ())
+    for t in need:
+        if t is None or t.dtype != torch.float64 or t.shape != (n,) \
+                or not t.is_contiguous() or t.device != x.device:
+            raise ValueError(f'cheb_smooth ({mode}): contiguous float64 '
+                             f'vectors [{n}] on {x.device} expected')
+    scal = (theta,) if mode != 'step' else (c1, c2)
+    if any(not isinstance(c, float) for c in scal):
+        raise ValueError(f'cheb_smooth ({mode}): host float coefficients '
+                         'expected')
+    if x.device.type == 'cpu':
+        return _cheb_smooth_plain(mode, x, b, d, Dinv, Ax, theta, c1, c2)
+    if x.device.type != 'cuda':
+        raise ValueError(f'cheb_smooth: unsupported device {x.device}')
+    if n == 0:
+        return x
+    lib = kernels.library()
+    kernels.launches['cheb_smooth'] += 1
+    kernels.deviceLaunches['cheb_smooth'] += 1
+    p = kernels.ptr
+    kernels.check(lib.cheb_smooth(
+        p(x), p(d), p(b), p(b if Ax is None else Ax), p(Dinv), n,
+        CHEB_MODES.index(mode), 0.0 if theta is None else theta,
+        0.0 if c1 is None else c1, 0.0 if c2 is None else c2,
+        kernels.stream()))
+    return x
+
+
+def _cheb_smooth_plain(mode, x, b, d, Dinv, Ax=None, theta=None, c1=None,
+                       c2=None):
+    """Plain PyTorch version of :func:`cheb_smooth` (any device), in the
+    JAX package's order of operations."""
+    if mode == 'zero':
+        d.copy_((Dinv * b) / theta)
+        x.copy_(d)
+    elif mode == 'first':
+        d.copy_((Dinv * (b - Ax)) / theta)
+        x.add_(d)
+    else:
+        d.copy_(c1 * d + c2 * (Dinv * (b - Ax)))
+        x.add_(d)
+    return x
+
+
+def _chebSchedule(rho, degree, lowerFrac=0.25):
+    """(theta, [(c1, c2)] * (degree - 1)): the host coefficients of
+    ``degree`` Chebyshev steps for D^-1 A's eigenvalues in [lowerFrac rho,
+    rho], computed as pynucleus_tpu/multilevel/gmg.py:174-187 computes
+    them (c1 = rho_{k+1} rho_k, c2 = 2 rho_{k+1} / delta)."""
+    lmax = rho
+    lmin = lowerFrac * rho
+    theta = 0.5 * (lmax + lmin)
+    delta = 0.5 * (lmax - lmin)
+    sigma = theta / delta
+    rhok = 1.0 / sigma
+    coeffs = []
+    for _ in range(degree - 1):
+        rhokp = 1.0 / (2.0 * sigma - rhok)
+        coeffs.append((rhokp * rhok, 2.0 * rhokp / delta))
+        rhok = rhokp
+    return theta, coeffs
+
+
 # ------------------------------------------------------------- the cycle --
 
 # the smoother of the JAX package's default ('jacobi', {'omega': 2/3}):
@@ -174,30 +268,38 @@ def _jacobi_smooth_plain(mode, x, b, Ax=None, Dinv=None, omega=None):
 OMEGA = 2.0 / 3.0
 
 
+SMOOTHERS = ('jacobi', 'chebyshev', 'ilu')
+
+
 def _smootherParameters(smoother):
-    """(omega, preSteps, postSteps) of a smoother given as the JAX
-    package's multigrid takes it (gmg.py:335-346): a name, or a tuple
+    """(kind, omega, preSteps, postSteps) of a smoother given as the JAX
+    package's multigrid takes it (gmg.py:340-350): a name, or a tuple
     (name, {'omega', 'presmoothingSteps', 'postsmoothingSteps'}) whose
-    missing entries take the defaults (omega 2/3, one pre-sweep, as many
-    post-sweeps as pre-sweeps).  The port has the damped-Jacobi smoother
-    only."""
+    missing entries take the defaults (omega 2/3; three pre-sweeps for
+    Chebyshev, one for the others; as many post-sweeps as pre-sweeps).
+    The kinds are damped Jacobi, Chebyshev and ILU; the JAX package runs
+    any other name as Jacobi, the port raises."""
     kind, params = (smoother, {}) if isinstance(smoother, str) else smoother
-    if kind != 'jacobi':
-        raise NotImplementedError(f'smoother {kind!r}: the port has the '
-                                  'damped-Jacobi smoother only')
-    pre = params.get('presmoothingSteps', 1)
-    return params.get('omega', OMEGA), pre, params.get('postsmoothingSteps',
-                                                       pre)
+    if kind not in SMOOTHERS:
+        raise NotImplementedError(f'smoother {kind!r}: the kinds are '
+                                  f'{SMOOTHERS}')
+    pre = params.get('presmoothingSteps', 3 if kind == 'chebyshev' else 1)
+    return kind, params.get('omega', OMEGA), pre, \
+        params.get('postsmoothingSteps', pre)
 
 
 class _mgLevels:
     """Per-level A, P (to this level), damped-Jacobi inverse diagonal and
-    work vectors, plus the coarse LU factors and the sweep counts.
+    work vectors, plus the coarse LU factors, the smoother's kind and
+    sweep counts, and its per-level data: rho(D^-1 A) and the Chebyshev
+    schedules of the pre- and post-sweeps (``rhos``, ``chebPre``,
+    ``chebPost``), or the ILU preconditioners (``precOps``).
     ``Ps[l]`` maps level l-1 to l (``Ps[0]`` is None); ``omegaT`` is omega
     as a float64 tensor [1] on the device (K10's argument)."""
 
     def __init__(self, As, Ps, Dinvs, coarse_lu, coarse_piv, omega=OMEGA,
-                 preSteps=1, postSteps=1):
+                 preSteps=1, postSteps=1, kind='jacobi', rhos=None,
+                 precOps=None):
         self.As, self.Ps, self.Dinvs = As, Ps, Dinvs
         self.dev = As[-1].device
         # the levels' value type: complex128 for complex operators
@@ -205,12 +307,18 @@ class _mgLevels:
         self.omegaT = torch.tensor([omega], dtype=torch.float64,
                                    device=self.dev)
         self.preSteps, self.postSteps = preSteps, postSteps
+        self.kind, self.rhos, self.precOps = kind, rhos, precOps
+        if kind == 'chebyshev':
+            self.chebPre = [_chebSchedule(r, preSteps) for r in rhos]
+            self.chebPost = [_chebSchedule(r, postSteps) for r in rhos]
         self.coarse_lu, self.coarse_piv = coarse_lu, coarse_piv
         self.work = [None]
         for lvl in range(1, len(As)):
             n, nc = As[lvl].num_rows, As[lvl - 1].num_rows
             self.work.append({'x': self._vec(n), 'Ax': self._vec(n),
                               'res': self._vec(n), 'defect': self._vec(nc)})
+            if kind == 'chebyshev':
+                self.work[lvl]['d'] = self._vec(n)
         self._fmg = None
 
     def _vec(self, k):
@@ -255,14 +363,39 @@ def _smoothRestrict(levels, lvl, b, x):
     first from x = 0), the residual and its restriction; returns the
     defect."""
     A, Dinv, w = levels.As[lvl], levels.Dinvs[lvl], levels.work[lvl]
-    jacobi_smooth('zero', x, b, Dinv=Dinv, omega=levels.omegaT)
-    for _ in range(levels.preSteps - 1):
-        A.matvec(x, out=w['Ax'])
-        jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=Dinv,
-                      omega=levels.omegaT)
+    if levels.kind == 'chebyshev':
+        theta, coeffs = levels.chebPre[lvl]
+        cheb_smooth('zero', x, b, w['d'], Dinv, theta=theta)
+        _chebSteps(A, Dinv, w, b, x, coeffs)
+    elif levels.kind == 'ilu':
+        levels.precOps[lvl].matvec(b, out=x)
+        _iluSteps(levels, lvl, b, x, levels.preSteps - 1)
+    else:
+        jacobi_smooth('zero', x, b, Dinv=Dinv, omega=levels.omegaT)
+        for _ in range(levels.preSteps - 1):
+            A.matvec(x, out=w['Ax'])
+            jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=Dinv,
+                          omega=levels.omegaT)
     A.matvec(x, out=w['Ax'])
     jacobi_smooth('residual', w['res'], b, Ax=w['Ax'])
     return levels.Ps[lvl].rmatvec(w['res'], out=w['defect'])   # R = P^T
+
+
+def _chebSteps(A, Dinv, w, b, x, coeffs):
+    """The Chebyshev steps after the first (K26 'step' after each apply)."""
+    for c1, c2 in coeffs:
+        A.matvec(x, out=w['Ax'])
+        cheb_smooth('step', x, b, w['d'], Dinv, Ax=w['Ax'], c1=c1, c2=c2)
+
+
+def _iluSteps(levels, lvl, b, x, steps):
+    """``steps`` ILU sweeps x += M (b - A x), M the level's host
+    preconditioner."""
+    A, w = levels.As[lvl], levels.work[lvl]
+    for _ in range(steps):
+        A.matvec(x, out=w['Ax'])
+        jacobi_smooth('residual', w['res'], b, Ax=w['Ax'])
+        x.add_(levels.precOps[lvl].matvec(w['res']))
 
 
 def _prolongSmooth(levels, lvl, b, x, xc):
@@ -273,11 +406,20 @@ def _prolongSmooth(levels, lvl, b, x, xc):
 
 
 def _postSmooth(levels, lvl, b, x):
-    A, w = levels.As[lvl], levels.work[lvl]
-    for _ in range(levels.postSteps):
+    """The post-sweeps from x, of the levels' smoother kind."""
+    A, Dinv, w = levels.As[lvl], levels.Dinvs[lvl], levels.work[lvl]
+    if levels.kind == 'chebyshev':
+        theta, coeffs = levels.chebPost[lvl]
         A.matvec(x, out=w['Ax'])
-        jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=levels.Dinvs[lvl],
-                      omega=levels.omegaT)
+        cheb_smooth('first', x, b, w['d'], Dinv, Ax=w['Ax'], theta=theta)
+        _chebSteps(A, Dinv, w, b, x, coeffs)
+    elif levels.kind == 'ilu':
+        _iluSteps(levels, lvl, b, x, levels.postSteps)
+    else:
+        for _ in range(levels.postSteps):
+            A.matvec(x, out=w['Ax'])
+            jacobi_smooth('update', x, b, Ax=w['Ax'], Dinv=Dinv,
+                          omega=levels.omegaT)
 
 
 def _mg_apply(levels, b, gamma=1, out=None):
@@ -314,11 +456,34 @@ def _fmg_solve(levels, b, gamma=1, out=None):
     return out
 
 
+def _mg_solve(levels, b, x0, tol, maxiter, gamma=1):
+    """Cycles from x0 until ||b - A x|| <= tol or ``maxiter`` cycles
+    (pynucleus_tpu/multilevel/gmg.py:247, a while loop on the device
+    there): each iteration x += cycle(b - A x), then the residual, whose
+    norm the host reads.  Returns (x, iterations, the last residual
+    norm)."""
+    A = levels.As[-1]
+    nl = len(levels.As) - 1
+    x = x0.clone()
+    Ax, r, xc = (torch.empty_like(b) for _ in range(3))
+    A.matvec(x, out=Ax)
+    jacobi_smooth('residual', r, b, Ax=Ax)
+    rn = float(torch.linalg.norm(r))
+    k = 0
+    while rn > tol and k < maxiter:
+        x.add_(_vcycle(levels, nl, r, gamma, xc))
+        A.matvec(x, out=Ax)
+        jacobi_smooth('residual', r, b, Ax=Ax)
+        rn = float(torch.linalg.norm(r))
+        k += 1
+    return x, k, rn
+
+
 class multigrid(iterative_solver):
     """MG solver over a level list [{'A':..., 'P':..., ('R':...)}, ...]
     ordered coarse -> fine (pynucleus_tpu/multilevel/gmg.py:302) with the
-    damped-Jacobi smoother, given as the JAX package's (a name or a tuple,
-    :func:`_smootherParameters`)."""
+    damped-Jacobi, Chebyshev or ILU smoother, given as the JAX package's
+    (a name or a tuple, :func:`_smootherParameters`)."""
 
     def __init__(self, hierarchy=None, smoother=('jacobi', {'omega': OMEGA})):
         self.hierarchyList = hierarchy
@@ -330,20 +495,40 @@ class multigrid(iterative_solver):
 
     def setup(self, A=None):
         levels = self.hierarchyList
-        omega, pre, post = _smootherParameters(self.smootherType)
+        kind, omega, pre, post = _smootherParameters(self.smootherType)
         As, Ps, Dinvs = [], [], []
         for lvlNo, lvl in enumerate(levels):
             A_ = lvl['A']
             As.append(A_)
             Ps.append(lvl.get('P', None) if lvlNo > 0 else None)
             Dinvs.append((1.0 / A_.diagonal).contiguous())
+        rhos = precOps = None
+        if kind == 'chebyshev':
+            if Dinvs[-1].is_complex():
+                raise NotImplementedError('the Chebyshev smoother is float64 '
+                                          'only')
+            # rho(D^-1 A) of every level, the coarsest too, as the JAX
+            # package estimates them (gmg.py:364-367)
+            rhos = [estimateSpectralRadius(A_, Dinv_)
+                    for A_, Dinv_ in zip(As, Dinvs)]
+        elif kind == 'ilu':
+            # host ILU factors of each level above the coarsest with fill
+            # factor 10, the JAX package's choice for smoothing
+            # (gmg.py:368-383)
+            precOps = [None]
+            for lvl in levels[1:]:
+                s = ilu_solver(A=lvl['A'])
+                s.fill_factor = 10.0
+                s.setup()
+                precOps.append(s.asPreconditioner())
         # a complex coarse matrix keeps its type (the complex-shifted
         # Laplacian's levels): the LU is complex then
         A0 = torch.as_tensor(levels[0]['A'].toarray(), device=As[-1].device)
         if not A0.is_complex():
             A0 = A0.to(torch.float64)
         lu, piv = torch.linalg.lu_factor(A0)
-        self.levels = _mgLevels(As, Ps, Dinvs, lu, piv, omega, pre, post)
+        self.levels = _mgLevels(As, Ps, Dinvs, lu, piv, omega, pre, post,
+                                kind, rhos, precOps)
         self.initialized = True
 
     def _gamma(self):

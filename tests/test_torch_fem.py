@@ -82,7 +82,22 @@ def test_port_imports_no_jax():
             'pynucleus_tpu_torch.examples.example_operator_interpolation; '
             'from pynucleus_tpu_torch.fem.assembly import '
             'matrixFreeOperator; '
-            "assert 'jax' not in sys.modules, 'jax imported'")
+            'import pynucleus_tpu_torch.base.linalg, '
+            'pynucleus_tpu_torch.base.sparse_native, '
+            'pynucleus_tpu_torch.multilevel, '
+            'pynucleus_tpu_torch.multilevel.smoothers, '
+            'pynucleus_tpu_torch.multilevel.hierarchies; '
+            'from pynucleus_tpu_torch.base.linear_operators import '
+            'SSS_LinearOperator, SchurComplement, sss_spmv; '
+            'from pynucleus_tpu_torch.base.solvers import ichol_solver, '
+            'ilu_solver; '
+            'from pynucleus_tpu_torch.multilevel.gmg import cheb_smooth, '
+            '_mg_solve; '
+            'from pynucleus_tpu_torch.interop import sssFromArrays; '
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not any(m == 'pynucleus_tpu' or "
+            "m.startswith('pynucleus_tpu.') for m in sys.modules), "
+            "'pynucleus_tpu imported'")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                    timeout=120)
 

@@ -262,8 +262,14 @@ def test_solver_factory_builds_cg_mg(carried):
     s = solverFactory.build('cg-mg', hierarchy=hierarchy, setup=True)
     assert s.A is hierarchy[-1]['A'] and s.initialized
     assert isinstance(s.prec, tgmg.mgPreconditioner)
+    # a smoother kind the port does not have still raises; Chebyshev is
+    # one of its kinds now (tests/test_torch_mg_extras.py holds it)
     with pytest.raises(NotImplementedError):
-        tgmg.multigrid(hierarchy, smoother='chebyshev').setup()
+        tgmg.multigrid(hierarchy, smoother='gauss_seidel').setup()
+    ml = tgmg.multigrid(hierarchy, smoother='chebyshev')
+    ml.setup()
+    assert ml.levels.kind == 'chebyshev' and len(ml.levels.rhos) == \
+        len(hierarchy)
 
 
 # the pinned values of tests/test_drivers_fractional.py for this config
