@@ -228,6 +228,32 @@ result line):
      versions at the noRef 9 shapes (1e-13 of the largest entry).  Alone:
      `python -c 'import chip_smoke as c; from pynucleus_tpu_torch import
      kernels; kernels.library(); c.phase20()'` (it makes the square).
+ 21. the two-point weights, the tempered kernels and the remaining
+     profiles: the per-pair dense operators of the interval at noRef 4
+     with the tempered, leftRight and interface phis, a nonsymmetric order
+     with the tempered phi (K19), the tempered kernel of a finite horizon
+     (getSparse, K14), the log-inverse-distance, monomial and polynomial
+     profiles and greens2D with the tempered phi (a path), against the
+     JAX outputs pinned by scripts/pin_twopoint_jax.py (1e-11; the tier-1
+     far-entry ratio too); runNonlocal's gaussian and exponential lines on
+     the interval at noRef 6 and the gaussian on the square at noRef 2
+     (sparse, lu; each a path) against the JAX driver's errors (1e-10
+     absolute; the square rtol 1e-6); the full-width line, the flagship
+     disc at noRef 6 (18,145 dofs) on the default grid with the tempered
+     phi and the tempered kernel (a path): A_phi = (C/C_t) A_t to 1e-12 of
+     the largest entry (K1 and K2 apply phi; the JAX grid drops it), then
+     the tempered problem with its zero-exterior term (K3 with the
+     tempered boundary kernel) by CG-Jacobi, iterations and seconds;
+     runNonlocal's interval at noRef 10 with the gaussian and exponential
+     kernels (sparse, CG-MG; each a path); the weighted finite horizon (a
+     tempered fractional kernel times the tempered phi) on the interval
+     at noRef 10 and the square at noRef 1 (sparse; the square against its
+     dense operator), the nonsymmetric order with the tempered phi at
+     noRef 10 and the comparison builds on the disc at noRef 5 (a path);
+     then each new variant of K1, K2, K3, K14, K15 and K19 against its
+     plain version (1e-12 of the largest entry).  Alone: `python -c
+     'import chip_smoke as c; from pynucleus_tpu_torch import kernels;
+     kernels.library(); c.phase21()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -235,8 +261,10 @@ against their plain versions.
 The last lines are the kernel table (JSON: per kernel, per complex
 variant of K9, K10, K17, K1 (dense and diagonal targets), K15 and K18,
 per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
-(indicator, variable horizon), and per matrix-format variant of K1
-(complement, the zero-exterior diagonal), and K24-K27, its
+(indicator, variable horizon), per matrix-format variant of K1
+(complement, the zero-exterior diagonal), per profile and two-point
+variant of K1, K2, K3, K14, K15 and K19 (tempered, two_point,
+log_inverse, polynomial, gaussian, exponential), and K24-K27, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -509,9 +537,12 @@ def result(err, ms, plain_ms, work, library_ms=None):
 
 
 def merge(*rs):
-    return result(max(r['err'] for r in rs), sum(r['ms'] for r in rs),
-                  sum(r['plain_ms'] for r in rs),
-                  [w for r in rs for w in r['work']])
+    out = result(max(r['err'] for r in rs), sum(r['ms'] for r in rs),
+                 sum(r['plain_ms'] for r in rs),
+                 [w for r in rs for w in r['work']])
+    if all('unweighted_ms' in r for r in rs):
+        out['unweighted_ms'] = sum(r['unweighted_ms'] for r in rs)
+    return out
 
 
 def bound(work):
@@ -5909,6 +5940,689 @@ def MGX20_PATHS(counts20):
              counts20['host']))
 
 
+# ---------------------------------------------------------------- phase 21
+
+# JAX package outputs printed by scripts/pin_twopoint_jax.py (the JAX
+# package on the CPU, float64, its per-pair dense path): the largest entry,
+# ||A||_F and the trace, ||A x|| and (A x)[:4] for x_k = cos(0.3 k),
+# diag(A)[:4] of the interval [-1, 1] refined 4 times with the tempered
+# phi (lambda 2, zeroExterior=False; its far entry's ratio to the
+# unweighted kernel's), the leftRight and interface phis (with the
+# zero-exterior term), the nonsymmetric order constantNonSym(0.25) with
+# the tempered phi, the tempered kernel of a finite horizon (K14, getSparse
+# on the interval with its collar), the log-inverse-distance, monomial and
+# polynomial profiles (zeroExterior=False); greens2D with the tempered phi
+# on the square refined 2 times (its real and imaginary parts); and
+# runNonlocal's poly-Dirichlet lines (sparse, lu, horizon 0.2).  Held to
+# TOL_TP_PIN (relative; (A x)[:4] and diag(A)[:4] to it of their
+# largest); the interval's runNonlocal errors (the patch test, at rounding
+# level) to 1e-10 absolute, the square's to rtol 1e-6
+JAX_TWOPOINT = {'tempered_phi': {'dofs': 15,
+                                 'max_entry': 0.3336563740814601,
+                                 'fro': 1.350443143025439,
+                                 'trace': 4.745761686183031,
+                                 'Ax_norm': 1.0913206392453707,
+                                 'Ax4': [0.32807091060666693,
+                                         0.42856579778295323,
+                                         0.3791728339407006,
+                                         0.30606144543001734],
+                                 'diag4': [0.2482033095395635,
+                                           0.3336563740814601,
+                                           0.33345910600478706,
+                                           0.32868829721716325],
+                                 'far_ratio': 0.030844852201646174},
+                'leftRight': {'dofs': 15,
+                              'max_entry': 0.9504359031866001,
+                              'fro': 2.949930512798188,
+                              'trace': 10.56685069550095,
+                              'Ax_norm': 2.070467101745148,
+                              'Ax4': [0.6098562521330504,
+                                      0.6838438394416552,
+                                      0.7954847298409172,
+                                      0.4552290948137437],
+                              'diag4': [0.5243787157048646,
+                                        0.5777387693535567,
+                                        0.6961818763041907,
+                                        0.5326477166177579]},
+                'interface': {'dofs': 15,
+                              'max_entry': 0.5238839236535221,
+                              'fro': 1.5088049331705105,
+                              'trace': 4.84959147085016,
+                              'Ax_norm': 1.3453974672058013,
+                              'Ax4': [0.6080017317127377,
+                                      0.45848017645226313,
+                                      0.18396952445832937,
+                                      0.45119480557856784],
+                              'diag4': [0.5238839236535221,
+                                        0.3171062604735405,
+                                        0.1638778147763551,
+                                        0.5238652553086961]},
+                'nonsym_tempered': {'dofs': 15,
+                                    'max_entry': 0.20592357585227916,
+                                    'fro': 0.7544434032217756,
+                                    'trace': 2.8843309499008414,
+                                    'Ax_norm': 0.6159168115943436,
+                                    'Ax4': [0.21949231362724242,
+                                            0.22212218657565408,
+                                            0.19977008080855704,
+                                            0.14744580920813108],
+                                    'diag4': [0.2059235758522791,
+                                              0.18567685806925033,
+                                              0.18594559081091672,
+                                              0.190442295918542]},
+                'tempered_k14': {'dofs': 159,
+                                 'max_entry': 8.439575981604442,
+                                 'fro': 112.86710316093202,
+                                 'trace': 1341.8925810750047,
+                                 'Ax_norm': 54.33821314533362,
+                                 'Ax4': [7.080595098814382,
+                                         5.680627870328775,
+                                         2.6776316340205963,
+                                         0.94859696137146],
+                                 'diag4': [8.439575981603376,
+                                           8.439575981603635,
+                                           8.439575981603914,
+                                           8.439575981604408]},
+                'logInverseDistance': {'dofs': 15,
+                                       'max_entry': 0.2317863950166631,
+                                       'fro': 0.7806413568294248,
+                                       'trace': 2.654625003333725,
+                                       'Ax_norm': 0.6964500403840558,
+                                       'Ax4': [0.08069531433928934,
+                                               0.33321991227174785,
+                                               0.31598029985830145,
+                                               0.15211524620554484],
+                                       'diag4': [0.07777458531697362,
+                                                 0.2317863950166631,
+                                                 0.2291712520288341,
+                                                 0.18809498385002468]},
+                'monomial': {'dofs': 15,
+                             'max_entry': 0.1463541666666667,
+                             'fro': 0.4766145627014804,
+                             'trace': 1.6028645833333341,
+                             'Ax_norm': 0.3392675112230754,
+                             'Ax4': [0.191360352567918,
+                                     0.10004332498121979,
+                                     0.0879587585501285,
+                                     0.09520541386628226],
+                             'diag4': [0.1463541666666667,
+                                       0.08255208333333337,
+                                       0.0838541666666667,
+                                       0.1033854166666667]},
+                'polynomial': {'dofs': 15,
+                               'max_entry': 0.012705956623775931,
+                               'fro': 0.05245773766120673,
+                               'trace': 0.18120877363115023,
+                               'Ax_norm': 0.047025050498425223,
+                               'Ax4': [0.012228649052388477,
+                                       0.017971153144913272,
+                                       0.015953745845357754,
+                                       0.013439983714457444],
+                               'diag4': [0.008357779442044591,
+                                         0.012705956623775931,
+                                         0.012705956623775931,
+                                         0.012705956623775928]},
+                'greens_tempered_re': {'dofs': 9,
+                                       'max_entry': 0.008250657184068692,
+                                       'fro': 0.025906757331406082,
+                                       'trace': -0.06895165289195995,
+                                       'Ax_norm': 0.018031199090752875,
+                                       'Ax4': [-0.007788849995508121,
+                                               -0.00488141171892114,
+                                               -0.00530067206761402,
+                                               -0.007271676737350497],
+                                       'diag4': [-0.008164419876842974,
+                                                 -0.008164419876842978,
+                                                 -0.00825065718406869,
+                                                 -0.007428783261754667]},
+                'greens_tempered_im': {'dofs': 9,
+                                       'max_entry': 0.02322834234588816,
+                                       'fro': 0.0571818139164532,
+                                       'trace': 0.16386690946022628,
+                                       'Ax_norm': 0.035053270794369366,
+                                       'Ax4': [0.01579038214366782,
+                                               0.013953835551692646,
+                                               0.007740686547324499,
+                                               0.010646002822672963],
+                                       'diag4': [0.015898476246198414,
+                                                 0.015898476246198414,
+                                                 0.01575870477238807,
+                                                 0.01933105415834802]},
+                'run_nonlocal': {
+                    'interval_gaussian_noRef6': {
+                        'dofs': 639,
+                        'L2 error interpolated': 6.4247010076930075e-12},
+                    'interval_exponential_noRef6': {
+                        'dofs': 639,
+                        'L2 error interpolated': 8.358673601561266e-14},
+                    'square_gaussian_noRef2': {
+                        'dofs': 1521,
+                        'L2 error interpolated': 0.009458331118282133}}}
+TOL_TP_PIN = 1e-11
+TOL_TP_ERR_ABS = 1e-10
+TOL_TP_SQUARE = 1e-6
+TP_LAMBDA = 2.0          # temperedTwoPoint's lambda
+TP_TEMPER = 3.0          # the finite-horizon tempered kernel's lambda
+TP_FULL_NOREF = 6        # the flagship disc, 18,145 dofs
+TP_CHECK_NOREF = 5       # the grid variants' comparison shapes
+TP_NONLOCAL_NOREF = 10   # runNonlocal's interval, sparse CG-MG
+TP_FH_NOREF = 8          # the weighted finite horizon on the interval
+TP_CG_TOL = 1e-8
+TP_CG_MAXITER = 2000
+TOL_TP_RATIO = 1e-12
+TP_PIN_PATH = ('panel_scatter', 'panel_scatter:dense', 'panel_scatter:slots',
+               'panel_scatter_nonsym', 'cut1d', 'panel_scatter:two_point',
+               'panel_scatter:tempered', 'panel_scatter:log_inverse',
+               'panel_scatter:polynomial', 'cut1d:tempered',
+               'cut1d:polynomial', 'panel_scatter_nonsym:two_point',
+               'panel_scatter:complex')
+TP_NONLOCAL_PATH = ('panel_scatter', 'panel_scatter:slots',
+                    'panel_scatter:cross')
+TP_FULL_PATH = ('panel_scatter', 'panel_scatter:dense', 'grid_distant',
+                'grid_boundary', 'pcg_update', 'pcg_update:jacobi',
+                'panel_scatter:two_point', 'panel_scatter:tempered',
+                'grid_distant:two_point', 'grid_distant:tempered',
+                'grid_boundary:tempered')
+TP_FH_PATH = ('panel_scatter', 'panel_scatter:slots', 'cut1d', 'cut2d_polar',
+              'panel_scatter:tempered', 'panel_scatter:two_point',
+              'cut1d:tempered', 'cut1d:two_point', 'cut2d_polar:tempered',
+              'cut2d_polar:two_point', 'panel_scatter_nonsym',
+              'panel_scatter_nonsym:two_point', 'grid_distant',
+              'grid_distant:log_inverse', 'panel_scatter:log_inverse')
+# the JAX programs each variant replaces
+TWOPOINT_REPLACES = {
+    'panel_scatter': 'pynucleus_tpu/nl/assembly.py:91 with phiJax (:58-62), '
+                     'the tempered profile (nl/kernels.py:1095-1096) or the '
+                     'log-inverse-distance and polynomial profiles '
+                     '(:1122-1128)',
+    'grid_distant': 'pynucleus_tpu/nl/assembly.py:131 with the tempered '
+                    'profile (nl/kernels.py:1095-1096) or the '
+                    'log-inverse-distance profile; with phiJax, which the '
+                    'JAX program drops (a reference fault)',
+    'grid_boundary': 'pynucleus_tpu/nl/assembly.py:240 with the tempered '
+                     'boundary kernel (nl/kernels.py:1316-1327)',
+    'cut1d': 'pynucleus_tpu/nl/assembly.py:644 with the gaussian, '
+             'exponential, tempered or polynomial profile and phiJax '
+             '(:607)',
+    'cut2d_polar': 'pynucleus_tpu/nl/assembly.py:511 with the gaussian or '
+                   'tempered profile and phiJax (:674)',
+    'panel_scatter_nonsym': 'pynucleus_tpu/nl/assembly.py:424 with phiJax '
+                            '(:435-436)',
+}
+TWOPOINT_COMPARED_AT = {
+    'panel_scatter:two_point': f'the disc at noRef {TP_CHECK_NOREF} (grid '
+                               'build, its largest dense call) and the '
+                               f'interval at noRef {TP_FH_NOREF} (sparse, '
+                               'its largest slots call)',
+    'panel_scatter:tempered': 'the same as two_point, the tempered kernel',
+    'panel_scatter:log_inverse': f'the disc at noRef {TP_CHECK_NOREF} (grid '
+                                 'build, its largest dense call)',
+    'panel_scatter:polynomial': 'the pinned interval at noRef 4 (all dense '
+                                'calls)',
+    'grid_distant:two_point': f'the disc at noRef {TP_CHECK_NOREF}, all calls',
+    'grid_distant:tempered': f'the disc at noRef {TP_CHECK_NOREF}, all calls',
+    'grid_distant:log_inverse': f'the disc at noRef {TP_CHECK_NOREF}, all '
+                                'calls',
+    'grid_boundary:tempered': f'the disc at noRef {TP_CHECK_NOREF}',
+    'cut1d:gaussian': f'runNonlocal interval noRef {TP_NONLOCAL_NOREF}, its '
+                      'largest call',
+    'cut1d:exponential': f'runNonlocal interval noRef {TP_NONLOCAL_NOREF}, '
+                         'its largest call',
+    'cut1d:tempered': f'the interval at noRef {TP_FH_NOREF} (sparse), all '
+                      'calls',
+    'cut1d:two_point': f'the interval at noRef {TP_FH_NOREF} (sparse), all '
+                       'calls',
+    'cut1d:polynomial': 'the pinned interval at noRef 4, all calls',
+    'cut2d_polar:gaussian': 'runNonlocal square noRef 2, all calls',
+    'cut2d_polar:tempered': 'the square at noRef 1 (sparse), all calls',
+    'cut2d_polar:two_point': 'the square at noRef 1 (sparse), all calls',
+    'panel_scatter_nonsym:two_point': f'the interval at noRef {TP_FH_NOREF} '
+                                      '(constantNonSym(0.25), dense), its '
+                                      'largest call',
+}
+
+
+def TWOPOINT21_PATHS(counts21):
+    """The main paths of phase 21: (kernels, label, launch counts)."""
+    return ((TP_PIN_PATH, 'twopoint_pins', counts21['pins']),) + tuple(
+        (TP_NONLOCAL_PATH, f'run_nonlocal_{key}', counts21[key])
+        for key in counts21 if key.startswith(('interval_', 'square_'))) + (
+        (TP_FULL_PATH, f'tempered_disc_noRef{TP_FULL_NOREF}',
+         counts21['full']),
+        (TP_FH_PATH, 'weighted_finite_horizon_and_checks',
+         counts21['checks']))
+
+
+def tp_summary(D):
+    """tp pins' summary of a dense [N, N] tensor (real)."""
+    import torch
+    x = torch.cos(0.3 * torch.arange(D.shape[0], dtype=torch.float64,
+                                     device=D.device))
+    Ax = D @ x
+    return {'dofs': int(D.shape[0]), 'max_entry': float(D.abs().max()),
+            'fro': float(torch.linalg.norm(D)),
+            'trace': float(torch.trace(D)),
+            'Ax_norm': float(torch.linalg.norm(Ax)),
+            'Ax4': [float(v) for v in Ax[:4]],
+            'diag4': [float(v) for v in torch.diagonal(D)[:4]]}
+
+
+def check_tp_pin(label, got, ref):
+    """got against the pinned ref (tp_summary's keys), TOL_TP_PIN."""
+    if got['dofs'] != ref['dofs']:
+        raise AssertionError(f'{label}: dofs {got["dofs"]} != {ref["dofs"]}')
+    worst = 0.0
+    for k in ('max_entry', 'fro', 'trace', 'Ax_norm', 'far_ratio'):
+        if k in ref:
+            worst = max(worst, abs(got[k] - ref[k]) / abs(ref[k]))
+    for k in ('Ax4', 'diag4'):
+        scale = max(abs(v) for v in ref[k])
+        worst = max(worst, max(abs(a - b) for a, b in zip(got[k], ref[k]))
+                    / scale)
+    if not worst <= TOL_TP_PIN:
+        raise AssertionError(f'{label}: {got} vs the JAX pin {ref} ({worst})')
+    log(f'  {label}: {got["dofs"]} dofs, max {got["max_entry"]:.6e}, '
+        f'within {worst:.2e} of the JAX pin')
+    return worst
+
+
+def tp_dm(mesh, tag=None):
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.fem.meshes import PHYSICAL
+    return P1_DoFMap(mesh, PHYSICAL if tag is None else tag, device='cuda')
+
+
+def tp_refined(mesh, noRef):
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    return mesh
+
+
+def tp_dense(dm, kernel, zeroExterior=True, params=None):
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    return nonlocalBuilder(dm, kernel, zeroExterior=zeroExterior,
+                           params=params).getDense().data
+
+
+def tp_pin_lines():
+    """The port's operators of scripts/pin_twopoint_jax.py on the card,
+    per pair, against JAX_TWOPOINT."""
+    import torch
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval, uniformSquare
+    from pynucleus_tpu_torch.nl import kernels as tk
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.nl.problems import nonlocalMesh, DIRICHLET
+    perPair = {'denseGrid': False}
+    dm = tp_dm(tp_refined(simpleInterval(-1, 1), 4))
+    out, worst = {}, 0.0
+    A = tp_dense(dm, tk.getFractionalKernel(
+        1, 0.4, phi=tk.temperedTwoPoint(TP_LAMBDA)), False, perPair)
+    A0 = tp_dense(dm, tk.getFractionalKernel(1, 0.4), False, perPair)
+    out['tempered_phi'] = tp_summary(A)
+    out['tempered_phi']['far_ratio'] = float(A[0, -1] / A0[0, -1])
+    for name, phi in (('leftRight', tk.leftRightTwoPoint(1.0, 2.0, 0.5, 3.0,
+                                                         0.1)),
+                      ('interface', tk.interfaceTwoPoint(0.3, 0.2, True,
+                                                         0.05))):
+        out[name] = tp_summary(tp_dense(dm, tk.getFractionalKernel(
+            1, 0.4, phi=phi), params=perPair))
+    out['nonsym_tempered'] = tp_summary(tp_dense(dm, tk.getFractionalKernel(
+        1, tk.constantNonSymFractionalOrder(0.25),
+        phi=tk.temperedTwoPoint(TP_LAMBDA)), params=perPair))
+    kt = tk.FractionalKernel(1, 0.4, 0.2, tk.ball2(), temperedLambda=TP_TEMPER)
+    mesh, info = nonlocalMesh('interval', kt, DIRICHLET)
+    dmc = tp_dm(tp_refined(mesh, 4), info['domain'])
+    S = nonlocalBuilder(dmc, kt).getSparse()
+    out['tempered_k14'] = tp_summary(torch.as_tensor(S.toarray(),
+                                                     device=dmc.device))
+    for name, kern in (
+            ('logInverseDistance',
+             tk.getIntegrableKernel(1, 'logInverseDistance', float('inf'))),
+            ('monomial', tk.Kernel(1, 'monomial', float('inf'), None, 0.5,
+                                   1.0, monomialPower=1.0)),
+            ('polynomial', tk.Kernel(1, 'polynomial', 0.3, tk.ball2(), 0.5,
+                                     0.0, exponentParam=0.3))):
+        out[name] = tp_summary(tp_dense(dm, kern, False, perPair))
+    G = tp_dense(tp_dm(tp_refined(uniformSquare(2, 2, 0, 0, 1, 1), 2)),
+                 tk.getComplexKernel(2, greensLambda=-3j,
+                                     phi=tk.temperedTwoPoint(1.0)))
+    for part, D in (('re', G.real.contiguous()), ('im', G.imag.contiguous())):
+        out['greens_tempered_' + part] = tp_summary(D)
+    for name, got in out.items():
+        worst = max(worst, check_tp_pin(name, got, JAX_TWOPOINT[name]))
+    return {'worst': worst,
+            'far_ratio': out['tempered_phi']['far_ratio']}
+
+
+def tp_nonlocal_line(domain, kind, noRef, solver, path):
+    """runNonlocal's poly-Dirichlet line (sparse, horizon 0.2) of the kernel
+    type on the card (a path): dofs, iterations, L2 error, seconds."""
+    out, counts = run_nonlocal_path(
+        nonlocal_argv(domain, noRef, 'sparse', solver, kind), path)
+    res, tim = out['results'].toDict(), out['timers'].toDict()
+    line = {'dofs': res['dofs'], 'iterations': res['iterations'],
+            'L2 error interpolated':
+            out['errors'].toDict()['L2 error interpolated'],
+            'assembly_s': tim['assembly seconds'],
+            'solve_s': tim['solve seconds'], 'peak_GiB': out['peak'] / 2**30}
+    return line, counts
+
+
+def tp_full_line():
+    """The flagship disc at TP_FULL_NOREF on the port's default grid: the
+    tempered phi and the tempered kernel (zeroExterior=False) with A_phi =
+    (C / C_t) A_t to TOL_TP_RATIO of the largest entry (K1 and K2 apply phi
+    and the tempering), then the tempered problem (with its zero-exterior
+    term: K3 with the tempered boundary kernel) solved by CG-Jacobi."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    from pynucleus_tpu_torch.fem import assembleRHS, constant
+    from pynucleus_tpu_torch.fem.meshes import circle
+    from pynucleus_tpu_torch.nl import kernels as tk
+    dm = tp_dm(tp_refined(circle(h=0.78, radius=1.0), TP_FULL_NOREF))
+    kphi = tk.getFractionalKernel(2, 0.75, phi=tk.temperedTwoPoint(TP_LAMBDA))
+    kt = tk.FractionalKernel(2, 0.75, temperedLambda=TP_LAMBDA)
+    line = {'dofs': dm.num_dofs}
+    for key, k in (('phi', kphi), ('tempered', kt)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        line[key] = tp_dense(dm, k, zeroExterior=False)
+        torch.cuda.synchronize()
+        line[key + '_assembly_s'] = time.perf_counter() - t0
+    ratio = kphi.scalingValue / kt.scalingValue
+    scale = float(line['phi'].abs().max())
+    err = float((line['phi'] - ratio * line['tempered']).abs().max()) / scale
+    del line['phi'], line['tempered']
+    if not err <= TOL_TP_RATIO:
+        raise AssertionError(f'A_phi != (C/C_t) A_t: {err}')
+    line['ratio_err'] = err
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    A = nonlocalBuilder(dm, kt).getDense()
+    torch.cuda.synchronize()
+    line['zero_exterior_assembly_s'] = time.perf_counter() - t0
+    b = assembleRHS(dm, constant(1.0)).data
+    s = solverFactory.build('cg-jacobi', A=A, setup=True)
+    s.tolerance, s.maxIter = TP_CG_TOL, TP_CG_MAXITER
+    for key in ('cg_s', 'cg_warm_s'):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        line[key] = time.perf_counter() - t0
+    line['iterations'] = s.iterations
+    r = float(torch.linalg.norm(b - A.data @ x) / torch.linalg.norm(b))
+    line['relative_residual'] = r
+    line['x_max'] = float(x.abs().max())
+    line['peak_GiB'] = torch.cuda.max_memory_allocated() / 2**30
+    # the CG's own test: sqrt(r.M r) below its absolute tolerance
+    if not (s.residuals[-1] <= s.tolerance and s.iterations < TP_CG_MAXITER
+            and bool(x.isfinite().all())):
+        raise AssertionError(f'CG-Jacobi on the tempered disc: {line}')
+    log(f'  the tempered disc noRef {TP_FULL_NOREF}: {dm.num_dofs} dofs, '
+        f'A_phi = (C/C_t) A_t to {err:.2e}, assemblies '
+        f"{line['phi_assembly_s']:.3f} / {line['tempered_assembly_s']:.3f} / "
+        f"{line['zero_exterior_assembly_s']:.3f} s, CG-Jacobi "
+        f"{s.iterations} iterations in {line['cg_s']:.3f} s (warm "
+        f"{line['cg_warm_s']:.3f} s), relative residual {r:.2e}")
+    del A
+    torch.cuda.empty_cache()
+    return line
+
+
+def tp_check_lines():
+    """The variants' comparison builds (a path): the tempered phi and the
+    tempered kernel on the disc at TP_CHECK_NOREF on the grid (the kernel
+    with its zero-exterior term) and the log-inverse-distance kernel there;
+    the weighted finite horizon, FractionalKernel(0.4, horizon 0.2,
+    temperedLambda TP_TEMPER) times the tempered phi, on the interval at
+    TP_FH_NOREF and the square at noRef 1 (sparse, held to the dense
+    operator), and constantNonSym(0.25) with the tempered phi on the
+    interval at TP_FH_NOREF (dense, per pair)."""
+    import torch
+    from pynucleus_tpu_torch.fem.meshes import circle, simpleInterval
+    from pynucleus_tpu_torch.nl import kernels as tk
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.nl.problems import nonlocalMesh, DIRICHLET
+    dm = tp_dm(tp_refined(circle(h=0.78, radius=1.0), TP_CHECK_NOREF))
+    for k, ze in ((tk.getFractionalKernel(2, 0.75,
+                                          phi=tk.temperedTwoPoint(TP_LAMBDA)),
+                   False),
+                  (tk.FractionalKernel(2, 0.75, temperedLambda=TP_LAMBDA),
+                   True),
+                  (tk.getIntegrableKernel(2, 'logInverseDistance',
+                                          float('inf')), False)):
+        A = tp_dense(dm, k, zeroExterior=ze)
+        if not A.isfinite().all():
+            raise AssertionError('a check build is not finite')
+    del A
+    line = {}
+    for dim, noRef in ((1, TP_FH_NOREF), (2, 1)):
+        k = tk.FractionalKernel(dim, 0.4, 0.2, tk.ball2(),
+                                temperedLambda=TP_TEMPER).setTwoPoint(
+            tk.temperedTwoPoint(TP_LAMBDA))
+        mesh, info = nonlocalMesh('interval' if dim == 1 else 'square', k,
+                                  DIRICHLET)
+        b = nonlocalBuilder(tp_dm(tp_refined(mesh, noRef), info['domain']), k)
+        S = b.getSparse()
+        x = _cos(S.num_rows)
+        y = S.matvec(x)
+        if dim == 2:
+            D = b.getDense()
+            err = float((D.matvec(x) - y).abs().max() / y.abs().max())
+            if not err <= TOL_KERNEL:
+                raise AssertionError(f'sparse vs dense, weighted: {err}')
+            line['square_sparse_vs_dense'] = err
+        line[f'dim{dim}'] = {'dofs': S.num_rows, 'Ax_norm':
+                             float(torch.linalg.norm(y))}
+    dmi = tp_dm(tp_refined(simpleInterval(-1, 1), TP_FH_NOREF))
+    A = tp_dense(dmi, tk.getFractionalKernel(
+        1, tk.constantNonSymFractionalOrder(0.25),
+        phi=tk.temperedTwoPoint(TP_LAMBDA)))
+    line['nonsym_dofs'] = int(A.shape[0])
+    if not A.isfinite().all():
+        raise AssertionError('the nonsymmetric build is not finite')
+    log(f'  the weighted finite horizon and checks: {json.dumps(line)}')
+    return line
+
+
+def unweighted_ms(calls, kernel):
+    """The kernel's ms on recorded calls with the tempering and the
+    two-point weight taken out of their profile (the same shapes and
+    profile code): the cost of the weight, within one run."""
+    import torch
+    from pynucleus_tpu_torch.nl.kernels import Profile
+    ms = 0.0
+    for (shape, *args), kw in calls:
+        args = [a._replace(t=0.0, wcode=0, wlam=0.0)
+                if isinstance(a, Profile) else a for a in args]
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        D = torch.zeros(shape, dtype=torch.float64, device=dev)
+        kernel(D, *args, **kw)
+        ms += timed(lambda: kernel(D, *args, **kw))
+    return ms
+
+
+def _variant(args):
+    """A recorded call's variant key (profile code, tempered, two-point
+    code), from its first Profile argument."""
+    from pynucleus_tpu_torch.nl.kernels import Profile
+    prof = next(a for a in args if isinstance(a, Profile))
+    return int(prof.code), float(prof.t) != 0.0, int(prof.wcode)
+
+
+class VariantRecorder(ArgRecorder):
+    """An ArgRecorder (the target recorded by its shape) that keeps the
+    calls of each variant apart (``byKey``, keyed by _variant): every call,
+    or with ``size`` only each variant's largest."""
+
+    def __init__(self, module, name, size=None):
+        super().__init__(module, name, dataFirst=True)
+        self.vsize = size
+        self.byKey, self.best = {}, {}
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            key = _variant(args)
+            if self.vsize is None:
+                self.byKey.setdefault(key, []).append(self._record(args, kw))
+            else:
+                size = self.vsize(*args)
+                if size > self.best.get(key, -1):
+                    self.best[key] = size
+                    self.byKey[key] = [self._record(args, kw)]
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def select(self, pick):
+        """The recorded calls of the variants that pick(code, tempered,
+        wcode) selects."""
+        return [c for key, cs in self.byKey.items() if pick(*key) for c in cs]
+
+
+def phase21():
+    """The two-point weights, the tempered kernels and the remaining
+    profiles: the pins of scripts/pin_twopoint_jax.py (a path), runNonlocal's
+    gaussian and exponential lines against the JAX driver's errors (each a
+    path), the flagship disc at TP_FULL_NOREF with the tempered phi and the
+    tempered kernel (a path), runNonlocal's interval at TP_NONLOCAL_NOREF
+    with CG-MG (each a path), and the weighted finite horizon and the
+    comparison builds (a path); then each new variant of K1, K2, K3, K14,
+    K15 and K19 against its plain version.  Returns (launch counts per
+    path, comparisons, summary)."""
+    import contextlib
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.nl.kernels import (
+        TWO_POINT_TEMPERED, LOG_INVERSE_DISTANCE_PROFILE, POLYNOMIAL_PROFILE,
+        GAUSSIAN_PROFILE, EXPONENTIAL_PROFILE)
+    log('phase 21: the two-point weights, the tempered kernels and the '
+        'remaining profiles')
+    t0 = time.perf_counter()
+    counts, summary = {}, {}
+    names = ('panel_scatter', 'panel_scatter_slots', 'cut1d', 'cut2d_polar',
+             'grid_distant', 'grid_boundary', 'panel_scatter_nonsym')
+    sizes = {'panel_scatter': _k1_size, 'panel_scatter_slots': _k1_size,
+             'cut1d': lambda o, t, i, v, vi1, *a, **k: vi1.shape[0],
+             'panel_scatter_nonsym': _k19_size}
+
+    def recorders(stack, largest=()):
+        return {n: stack.enter_context(VariantRecorder(
+            asm, n, size=sizes[n] if n in largest else None)) for n in names}
+    recs = {}
+    with contextlib.ExitStack() as stack:
+        recs['pins'] = recorders(stack)
+        summary['pins'], counts['pins'] = count_path(
+            'two-point pins', TP_PIN_PATH, tp_pin_lines)
+    summary['run_nonlocal'] = {}
+    for key, (domain, kind, noRef) in {
+            'interval_gaussian_noRef6': ('interval', 'gaussian', 6),
+            'interval_exponential_noRef6': ('interval', 'exponential', 6),
+            'square_gaussian_noRef2': ('square', 'gaussian', 2)}.items():
+        cut = 'cut1d' if domain == 'interval' else 'cut2d_polar'
+        with contextlib.ExitStack() as stack:
+            recs[key] = recorders(stack)
+            line, counts[key] = tp_nonlocal_line(
+                domain, kind, noRef, 'lu',
+                TP_NONLOCAL_PATH + (cut, f'{cut}:{kind}'))
+        ref = JAX_TWOPOINT['run_nonlocal'][key]
+        got, want = line['L2 error interpolated'], \
+            ref['L2 error interpolated']
+        ok = line['dofs'] == ref['dofs'] and (
+            abs(got - want) <= TOL_TP_ERR_ABS if domain == 'interval'
+            else abs(got - want) <= TOL_TP_SQUARE * want)
+        if not ok:
+            raise AssertionError(f'{key}: {line} vs the JAX driver {ref}')
+        summary['run_nonlocal'][key] = line
+    summary['full'], counts['full'] = count_path(
+        f'tempered disc noRef {TP_FULL_NOREF}', TP_FULL_PATH, tp_full_line)
+    for kind in ('gaussian', 'exponential'):
+        key = f'interval_{kind}_noRef{TP_NONLOCAL_NOREF}_cg_mg'
+        with contextlib.ExitStack() as stack:
+            recs[key] = recorders(stack, largest=('cut1d',))
+            summary['run_nonlocal'][key], counts[key] = tp_nonlocal_line(
+                'interval', kind, TP_NONLOCAL_NOREF, 'cg-mg',
+                TP_NONLOCAL_PATH + ('cut1d', f'cut1d:{kind}', 'csr_spmv',
+                                    'jacobi_smooth', 'pcg_update'))
+    with contextlib.ExitStack() as stack:
+        recs['checks'] = recorders(stack, largest=(
+            'panel_scatter', 'panel_scatter_slots', 'panel_scatter_nonsym'))
+        summary['checks'], counts['checks'] = count_path(
+            'weighted finite horizon and checks', TP_FH_PATH, tp_check_lines)
+
+    log('  the variants against their plain versions')
+    chk, pins = recs['checks'], recs['pins']
+
+    def weighted(code, tempered, wcode):
+        return wcode == TWO_POINT_TEMPERED
+
+    def tempered(code, tempered, wcode):
+        return tempered
+
+    def ofCode(c):
+        return lambda code, tempered, wcode: code == c
+
+    def compare(label, rec, pick, kernel, plain, work):
+        """The calls against the plain version; for a tempered or weighted
+        variant also the same calls without the weight (unweighted_ms)."""
+        calls = rec.select(pick)
+        r = compare_target_kernel(label, calls, kernel, plain, work)
+        if pick in (weighted, tempered):
+            r['unweighted_ms'] = unweighted_ms(calls, kernel)
+            log(f"  {label}: the same calls without the weight "
+                f"{r['unweighted_ms']:.3f} ms")
+        return r
+    cmp = {}
+    for key, pick in (('two_point', weighted), ('tempered', tempered)):
+        cmp['panel_scatter:' + key] = merge(
+            compare(f'panel_scatter ({key}, dense)', chk['panel_scatter'],
+                    pick, asm.panel_scatter, asm._panel_scatter_plain,
+                    panel_work),
+            compare(f'panel_scatter ({key}, slots)',
+                    chk['panel_scatter_slots'], pick, asm.panel_scatter_slots,
+                    asm._panel_scatter_slots_plain, panel_work))
+    for key, code, rec in (
+            ('log_inverse', LOG_INVERSE_DISTANCE_PROFILE, chk),
+            ('polynomial', POLYNOMIAL_PROFILE, pins)):
+        cmp['panel_scatter:' + key] = compare(
+            f'panel_scatter ({key})', rec['panel_scatter'], ofCode(code),
+            asm.panel_scatter, asm._panel_scatter_plain, panel_work)
+    for key, pick in (('two_point', weighted), ('tempered', tempered),
+                      ('log_inverse', ofCode(LOG_INVERSE_DISTANCE_PROFILE))):
+        cmp['grid_distant:' + key] = compare(
+            f'grid_distant ({key})', chk['grid_distant'], pick,
+            asm.grid_distant, asm._grid_distant_plain, grid_distant_work)
+    cmp['grid_boundary:tempered'] = compare(
+        'grid_boundary (tempered)', chk['grid_boundary'], tempered,
+        asm.grid_boundary, asm._grid_boundary_plain, grid_boundary_work)
+    for key, rec, pick in (
+            ('gaussian', recs[f'interval_gaussian_noRef{TP_NONLOCAL_NOREF}'
+                              '_cg_mg'], ofCode(GAUSSIAN_PROFILE)),
+            ('exponential', recs[f'interval_exponential_noRef'
+                                 f'{TP_NONLOCAL_NOREF}_cg_mg'],
+             ofCode(EXPONENTIAL_PROFILE)),
+            ('tempered', chk, tempered), ('two_point', chk, weighted),
+            ('polynomial', pins, ofCode(POLYNOMIAL_PROFILE))):
+        cmp['cut1d:' + key] = compare(f'cut1d ({key})', rec['cut1d'], pick,
+                                      asm.cut1d, asm._cut1d_plain,
+                                      cut1d_work)
+    for key, rec, pick in (
+            ('gaussian', recs['square_gaussian_noRef2'],
+             ofCode(GAUSSIAN_PROFILE)),
+            ('tempered', chk, tempered), ('two_point', chk, weighted)):
+        cmp['cut2d_polar:' + key] = compare(
+            f'cut2d_polar ({key})', rec['cut2d_polar'], pick,
+            asm.cut2d_polar, asm._cut2d_polar_plain, cut2d_work)
+    cmp['panel_scatter_nonsym:two_point'] = compare(
+        'panel_scatter_nonsym (two_point, dense)',
+        chk['panel_scatter_nonsym'], weighted, asm.panel_scatter_nonsym,
+        _k19_plain('dense'), nonsym_work)
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 21 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
 def main():
     try:
         import torch
@@ -5960,6 +6674,7 @@ def main():
     counts17, cmp17, summary17 = phase17()
     counts18, cmp18, summary18 = phase18()
     counts19, cmp19, summary19 = phase19(matfree19)
+    counts21, cmp21, summary21 = phase21()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -6010,7 +6725,7 @@ def main():
          f"vector_LR2-d2_interval_noRef{summary14['vector_full']['noRef']}",
          counts14['vector_full'])) + FH17_PATHS(counts17) \
         + FORMATS18_PATHS(counts18) + INTERP19_PATHS(counts19) \
-        + MGX20_PATHS(counts20)
+        + MGX20_PATHS(counts20) + TWOPOINT21_PATHS(counts21)
     table = []
     cmp['panel_scatter_nonsym'] = cmp13.pop('panel_scatter_nonsym')
     cmp['h2_matvec_T'] = cmp13.pop('h2_matvec_T')
@@ -6146,7 +6861,31 @@ def main():
             'device_launches': sum(counts['device'][name] for _, _, counts
                                    in FORMATS18_PATHS(counts18)),
             'compared_at': FORMATS_COMPARED_AT[name]})
-    log(f'phases 1-20 took {time.perf_counter() - T_START:.1f} s')
+    # the variants of phase 21: the tempered profile, the smooth two-point
+    # weight and the log-inverse-distance and polynomial profiles in K1, K2,
+    # K3, K14, K15 and K19, the gaussian and exponential profiles of a
+    # finite horizon in K14 and K15; the CUDA launches counted where they
+    # launched
+    for name in TWOPOINT_COMPARED_AT:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        c = cmp21[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in TWOPOINT21_PATHS(counts21) if counts[name]}
+        table.append({
+            'name': name, 'route': route, 'source': src,
+            'replaces': TWOPOINT_REPLACES[base],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in TWOPOINT21_PATHS(counts21)),
+            'compared_at': TWOPOINT_COMPARED_AT[name],
+            **({'unweighted_ms': c['unweighted_ms']}
+               if 'unweighted_ms' in c else {})})
+    log(f'phases 1-21 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -6154,6 +6893,7 @@ def main():
     log(f'phase 18 summary: {json.dumps(summary18)}')
     log(f'phase 19 summary: {json.dumps(summary19)}')
     log(f'phase 20 summary: {json.dumps(summary20)}')
+    log(f'phase 21 summary: {json.dumps(summary21)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,7 +1,8 @@
 """Name -> constructor registry.
 
 The part of pynucleus_tpu/base/factory.py factory that nl/kernels.py
-kernelFactory uses: registration, and construction by a case-insensitive
+kernelFactory and twoPointFunctionFactory use: registration (with
+aliases), and construction by a case-insensitive
 name with the caller's arguments.
 """
 
@@ -10,8 +11,9 @@ class factory:
     def __init__(self):
         self.classes = {}
 
-    def register(self, name, classType):
-        self.classes[name.lower()] = classType
+    def register(self, name, classType, aliases=None):
+        for key in [name] + list(aliases or ()):
+            self.classes[key.lower()] = classType
 
     def __call__(self, name, *args, **kwargs):
         key = name.lower()

@@ -1,6 +1,7 @@
 """Solve a nonlocal Poisson problem with the port: a finite horizon with the
-Dirichlet collar (dense, sparse or H2 = sparse assembly on the device), or
-the gaussian or exponential kernel of an infinite horizon with the zero
+Dirichlet collar (dense, sparse or H2 = sparse assembly on the device; the
+constant, inverseDistance, fractional, gaussian and exponential kernels),
+or the gaussian or exponential kernel of an infinite horizon with the zero
 exterior (dense or H2).
 
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain square \\
@@ -11,6 +12,9 @@ exterior (dense or H2).
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain disc \\
         --kernelType constant --horizon 0.2 --problem poly-Dirichlet \\
         --element P1 --solverType cg-mg --matrixFormat sparse [--noRef N]
+    python -m pynucleus_tpu_torch.drivers.runNonlocal --domain interval \\
+        --kernelType gaussian|exponential --problem poly-Dirichlet \\
+        --solverType lu --matrixFormat sparse --noRef 6 [--device cpu]
     python -m pynucleus_tpu_torch.drivers.runNonlocal --domain interval \\
         --kernelType gaussian --problem gaussian --gaussianVariance 0.1 \\
         --interaction fullSpace --horizon inf --solverType lu \\
@@ -24,9 +28,11 @@ exponentialRate 1, noRef 8 on the interval, 2 on the square and 4 on the
 disc.  The interval, the square and the disc (of radius 1, its collar the
 ring out to 1 + horizon) take the poly-Dirichlet and constant problems,
 the interval also the gaussian and exponential ones; ``--interaction
-ellipse`` is ball2, as the JAX driver maps it.  poly-Neumann (the Sum
-operator) and a finite-horizon gaussian or exponential kernel are not
-ported.  It runs on the card unless ``--device cpu`` asks
+ellipse`` is ball2, as the JAX driver maps it.  The gaussian kernel of
+a finite horizon delta is C exp(-r^2 / (delta/3)^2), the exponential one
+C exp(-rate r), each normalized as the JAX package normalizes it (the
+exponential of a finite horizon on the interval only, as there).
+poly-Neumann (the Sum operator) is not ported.  It runs on the card unless ``--device cpu`` asks
 for the CPU; asking for the card without one raises.  With a multigrid
 solver every level noRef 0 ... N is assembled in the requested format.  It
 prints the JAX driver's ``results`` and ``errors`` labels, in float64, and

@@ -31,10 +31,12 @@ import torch
 from .config import getDevice
 
 from .fem.meshes import simplexMesh, PHYSICAL
-from .fem.dofmaps import P1_DoFMap
+from .fem.dofmaps import P1_DoFMap, fe_vector
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
                          getComplexKernel, interactionFactory, horizonFunction,
-                         leftRightFractionalOrder, GREENS_2D, GREENS_3D)
+                         leftRightFractionalOrder, FractionalKernel, Kernel,
+                         twoPointFunctionFactory, lookupTwoPoint, GREENS_2D,
+                         GREENS_3D, LOGINVERSEDISTANCE, MONOMIAL, POLYNOMIAL)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
 from .nl.problems import parseFractionalOrder
 from .base.linear_operators import (CSR_LinearOperator, SSS_LinearOperator,
@@ -44,10 +46,27 @@ __all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
            'csrHierarchyFromArrays', 'sssFromArrays', 'denseVectorFromArrays']
 
 
+def _twoPoint(phi, dm):
+    """The two-point weight of a tuple that names a factory entry and its
+    numbers: ('tempered', lambda), ('constant', value), ('leftRight', vll,
+    vrr, vlr, vrl, interface), ('interface', horizon1, horizon2, left,
+    interface) or ('lookup', w) with w the dof values of the weight on
+    ``dm``; None stays None."""
+    if phi is None:
+        return None
+    name, *args = phi
+    if name == 'lookup':
+        return lookupTwoPoint(fe_vector(torch.tensor(
+            np.asarray(args[0], dtype=np.float64), device=dm.device), dm))
+    return twoPointFunctionFactory(name, *args)
+
+
 def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
                kernelType='fractional', horizon=np.inf, interaction='ball2',
                normalized=True, interior=None, gaussianVariance=1.0,
-               exponentialRate=1.0, derivative=0, greensLambda=1.0j):
+               exponentialRate=1.0, derivative=0, greensLambda=1.0j,
+               phi=None, temperedLambda=0.0, monomialPower=0.0,
+               polynomialRadius=None):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
     P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
     with ``interior`` (a boolean mask of the vertices) the interior
@@ -70,7 +89,17 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     several parameters.  ``kernelType`` 'greens2D' or 'greens3D' is the
     complex Greens kernel of ``greensLambda`` (s unused; scaling 1 unless
     given), of an infinite or a finite ``horizon`` (ball2 unless
-    ``interaction`` names another ball)."""
+    ``interaction`` names another ball).  ``phi`` is a two-point weight
+    as a tuple of a factory name and its numbers (:func:`_twoPoint`:
+    ('tempered', lambda), ('leftRight', vll, vrr, vlr, vrl, interface),
+    ('interface', horizon1, horizon2, left, interface), ('lookup', dof
+    values), ('constant', value)); ``temperedLambda`` makes the fractional
+    kernel of a constant order tempered (FractionalKernel).  The gaussian
+    and exponential kernels take a finite horizon too.  ``kernelType``
+    'logInverseDistance' (scaling 1 unless given), 'monomial' (C
+    r^monomialPower, singularity monomialPower, scaling 1/2 unless given)
+    and 'polynomial' (C (1 - r^2/polynomialRadius^2)^2, scaling 1/2
+    unless given) are Kernel objects of those types."""
     if isinstance(s, str):
         s = parseFractionalOrder(s)
     elif isinstance(s, (tuple, list)):
@@ -78,27 +107,47 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
+    w = _twoPoint(phi, dm)
     if kernelType in (GREENS_2D, GREENS_3D):
         return mesh, dm, getComplexKernel(
             dim, kernel=kernelType, greensLambda=greensLambda,
             horizon=horizon, scaling=1.0 if scaling is None else scaling,
             interaction=None if horizon == np.inf
-            else interactionFactory[interaction]())
+            else interactionFactory[interaction]()).setTwoPoint(w)
+    if kernelType in (LOGINVERSEDISTANCE, MONOMIAL, POLYNOMIAL):
+        inter = None if horizon == np.inf else \
+            interactionFactory[interaction]()
+        C = {LOGINVERSEDISTANCE: 1.0}.get(kernelType, 0.5) \
+            if scaling is None else scaling
+        sing = monomialPower if kernelType == MONOMIAL else 0.0
+        return mesh, dm, Kernel(
+            dim, kernelType, horizon, inter, C, sing,
+            exponentParam=polynomialRadius or 0.0,
+            monomialPower=monomialPower).setTwoPoint(w)
+    if temperedLambda != 0.0:
+        if kernelType != 'fractional' or derivative:
+            raise NotImplementedError('temperedLambda: the fractional '
+                                      'kernel only')
+        inter = None if horizon == np.inf else \
+            interactionFactory[interaction]()
+        return mesh, dm, FractionalKernel(
+            dim, s, horizon, inter, scaling, normalized=normalized,
+            temperedLambda=temperedLambda).setTwoPoint(w)
     if horizon == np.inf:
         if kernelType in ('gaussian', 'exponential'):
             return mesh, dm, getIntegrableKernel(
                 dim, kernelType, horizon, scaling=scaling,
                 normalized=normalized, gaussian_variance=gaussianVariance,
-                exponentialRate=exponentialRate)
+                exponentialRate=exponentialRate, phi=w)
         if kernelType != 'fractional':
             raise NotImplementedError(f'{kernelType} with an infinite '
                                       'horizon')
         if derivative:
             return mesh, dm, getFractionalKernel(dim, s, normalized=normalized,
-                                                 derivative=derivative)
-        return mesh, dm, getFractionalKernel(dim, s, scaling=scaling)
+                                                 derivative=derivative, phi=w)
+        return mesh, dm, getFractionalKernel(dim, s, scaling=scaling, phi=w)
     if isinstance(horizon, (tuple, list)):
-        if kernelType != 'fractional':
+        if kernelType != 'fractional' or w is not None:
             raise NotImplementedError('a variable horizon of the '
                                       f'{kernelType} kernel')
         return mesh, dm, getFractionalKernel(
@@ -109,12 +158,14 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     if kernelType == 'fractional':
         kernel = getFractionalKernel(dim, s, horizon=horizon,
                                      interaction=inter, scaling=scaling,
-                                     normalized=normalized)
+                                     normalized=normalized, phi=w)
     else:
         kernel = getIntegrableKernel(
             dim, {'constant': 'indicator', 'inverseDistance': 'peridynamic'}
             .get(kernelType, kernelType), horizon, interaction=inter,
-            scaling=scaling, normalized=normalized)
+            scaling=scaling, normalized=normalized, phi=w,
+            gaussian_variance=gaussianVariance,
+            exponentialRate=exponentialRate)
     return mesh, dm, kernel
 
 

@@ -91,22 +91,30 @@ Twenty-seven kernels carry the port's device work:
 
 The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
-gaussian, the exponential, their boundary forms and the power-log
-r2^e (C + C1 ln r2 + C2 ln^2 r2) of the s-derivatives of a constant order)
+gaussian, the exponential, their boundary forms, the power-log
+r2^e (C + C1 ln r2 + C2 ln^2 r2) of the s-derivatives of a constant order,
+the log-inverse distance C ln(1/r) and the polynomial C (1 - r2/a^2)^2)
 in one device function, common.cuh radial<code>(); each is compiled once
-per profile code (eight) and its launcher picks the instance.  K21 and K22
+per profile code (ten) and its launcher picks the instance.  The power
+and power-log values of a tempered kernel are multiplied there by
+exp(-t r), and every value by the smooth two-point weight of the profile
+(common.cuh twoPoint: the tempered exp(-wlam |x-y|), from the node's
+r2), runtime arguments of every instance.  K21 and K22
 evaluate a vector kernel from its per-side table (nl/kernels.py
 VectorParams).  K1, K7 and K19 also take a
 variable fractional order (nl/kernels.py OrderParams: constantNonSym,
 leftRight), s(x, y) and its normalization per node in common.cuh
 kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
-seven profiles without an order, the power profile with each order);
+ten profiles without an order, the power profile with each order);
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
 ball1, the ellipse with its map T; K1 also the complement of ball2), K15
-clips its rays in the same balls' norms.  K14 and K15 take the power
-profile only, K15 also the complex one.  The complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
+clips its rays in the same balls' norms.  K14 and K15 take the profiles
+of a finite horizon (cut_cells.cu CUT_PROFILE_SWITCH: the power one with
+its tempering, the gaussian, the exponential, the log-inverse distance and
+the polynomial, five instances of each target), K15 also the complex one.
+The complex greens2D profile (code 8, common.cuh radialC: the A&S Bessel
 functions of pynucleus_tpu/nl/kernels.py _bessel_j0y0) has its own
 instances: K1's complex variant (dense and diagonal targets) and K15's.
 K5, K11 and K12 decide orders by the 1D or the 2D order model, as the
@@ -140,9 +148,15 @@ finite-horizon variants (HORIZON) under ``panel_scatter:ball1`` and
 variable-horizon instances); the matrix formats' variants (FORMATS) under
 ``panel_scatter:complement`` (K1 with the complement indicator, code 5)
 and ``panel_scatter:diag_exterior`` (K1's diagonal target on the
-zero-exterior pairs of a cell and a surface simplex).
-``deviceLaunches`` counts, per kernel and per complex or finite-horizon
-variant, the CUDA launches those calls made, where they launched: one per
+zero-exterior pairs of a cell and a surface simplex); the profile and
+two-point variants (TWOPOINT) of K1, K2, K3, K14, K15 and K19 under
+``<kernel>:tempered`` (a tempered profile, t != 0), ``:two_point`` (the
+smooth two-point weight), ``:log_inverse`` and ``:polynomial`` (those
+profile codes), and of K14 and K15 also ``:gaussian`` and
+``:exponential`` (a finite horizon's); one launch may count under
+several.
+``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
+those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
 four in the general form), K8 (one per pass that has work, as the C entry
 point reports: at most 2 nLvl + 2 for an operator of nLvl levels), K20
@@ -193,9 +207,23 @@ HORIZON = ('panel_scatter:ball1', 'panel_scatter:ellipse',
 # (code 5, the dense target with its entry mask) and K1's diagonal target
 # on the zero-exterior term's pairs of a cell and a surface simplex
 FORMATS = ('panel_scatter:complement', 'panel_scatter:diag_exterior')
+# the variants of the tempered profile, the smooth two-point weight and
+# the log-inverse-distance and polynomial profiles in the kernels that can
+# take them (K1, K2 and K3 of an infinite horizon, K14 and K15 with the
+# gaussian and exponential profiles of a finite horizon too, K19 of a
+# nonsymmetric order, K3 of a boundary kernel, which has no weight)
+TWOPOINT = tuple(f'panel_scatter:{v}' for v in (
+    'tempered', 'two_point', 'log_inverse', 'polynomial')) + tuple(
+    f'grid_distant:{v}' for v in ('tempered', 'two_point',
+                                  'log_inverse')) + (
+    'grid_boundary:tempered', 'panel_scatter_nonsym:two_point') + tuple(
+    f'{k}:{v}' for k in ('cut1d', 'cut2d_polar') for v in (
+        'tempered', 'two_point', 'log_inverse', 'polynomial', 'gaussian',
+        'exponential'))
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS}
-deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS}
+            + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT}
+deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS
+                  + TWOPOINT}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
@@ -285,8 +313,9 @@ def _declare(lib):
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
     F = ctypes.c_float
-    # a radial profile: code, C, e, a, C1, C2 (nl/kernels.py Profile)
-    PROF = (I, D, D, D, D, D)
+    # a radial profile: code, C, e, a, C1, C2, tempering t, two-point
+    # weight code and lambda (nl/kernels.py Profile)
+    PROF = (I, D, D, D, D, D, D, I, D)
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
     # exponent base, boundary (nl/kernels.py orderArgs)
     ORD = (I, D, D, D, D, D, D, D, D, I)
@@ -353,13 +382,14 @@ def _declare(lib):
         # offsets2, x, n, stream
         'sss_spmv': [P, P, P, P, P, P, P, P, P, P, I, P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P, tq,
-        # wq, Qx, ur, wr, Qy, horizon, C, e, stream
-        'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, D, D, P],
+        # wq, Qx, ur, wr, Qy, horizon, profile, stream
+        'cut1d': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, D, *PROF,
+                  P],
         # out, N, target, vertices, vi1, vi2, vols1, dofRows, slots, P,
         # bary_x, wx, Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, inter,
-        # T00, T01, T10, T11, profile code, C, e, a, stream
+        # T00, T01, T10, T11, profile, stream
         'cut2d_polar': [P, L, I, P, P, P, P, P, P, L, P, P, I, P, P, I, P, P,
-                        I, D, I, D, D, D, D, I, D, D, D, P],
+                        I, D, I, D, D, D, D, *PROF, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
         # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, stream

@@ -9,10 +9,15 @@
 
 // A kernel's radial profile (pynucleus_tpu_torch/nl/kernels.py Profile and
 // its codes): the power C r2^e (the constant-order fractional kernel and
-// its boundary kernel, the indicator and peridynamic kernels) and the
-// smooth kernels of pynucleus_tpu/nl/kernels.py:_radialJax with their
-// boundary forms, and the power-log profile of the s-derivatives of a
-// constant fractional order (DerivativeFractionalKernel._radialJax).
+// its boundary kernel, the indicator, peridynamic and monomial kernels) and
+// the smooth kernels of pynucleus_tpu/nl/kernels.py:_radialJax with their
+// boundary forms, the power-log profile of the s-derivatives of a
+// constant fractional order (DerivativeFractionalKernel._radialJax), and
+// the log-inverse-distance and polynomial profiles (:1122-1128).  t is
+// the tempering of the power and power-log profiles (their value times
+// exp(-t r), :1095-1096, :1480-1481), (wcode, wlam) the smooth two-point
+// weight (TwoPointCode) that multiplies the kernel after its value
+// (pynucleus_tpu/nl/assembly.py:54-64 _radial_eval with phiJax).
 enum ProfileCode {
     PROFILE_POWER = 0,          // C r2^e
     PROFILE_GAUSSIAN = 1,       // C exp(-a r2)
@@ -22,25 +27,47 @@ enum ProfileCode {
     PROFILE_EXPONENTIAL_B1 = 5, // C/a exp(-a r)
     PROFILE_EXPONENTIAL_B2 = 6, // C exp(-a r) (r/a + 1/a^2) / r
     PROFILE_POWER_LOG = 7,      // r2^e (C + C1 ln r2 + C2 ln^2 r2)
-    PROFILE_GREENS_2D = 8       // C (-Y0(a r) + i J0(a r)), complex: radialC
+    PROFILE_GREENS_2D = 8,      // C (-Y0(a r) + i J0(a r)), complex: radialC
+    // code 9 (greens3D) is a profile of the plain versions only
+    PROFILE_LOG_INVERSE = 10,   // C ln(1 / sqrt(r2))
+    PROFILE_POLYNOMIAL = 11     // C (1 - r2 / a^2)^2
 };
+
+// the two-point weight: none, or temperedTwoPoint's exp(-wlam |x-y|)
+enum TwoPointCode { TWO_POINT_NONE = 0, TWO_POINT_TEMPERED = 1 };
 
 struct Profile {
     int code;
     double C, e, a, C1, C2;
+    double t;     // tempering of the power and power-log values
+    int wcode;    // TwoPointCode
+    double wlam;  // the tempered weight's lambda
 };
 
-// gamma(r2) of the profile PC (a ProfileCode, fixed when the kernel is
-// compiled: each launcher switches on the code once, PROFILE_SWITCH), with
-// the parameters of p; exactly 0 at r2 == 0 (coincident points of the
-// singular rules), as pynucleus_tpu/nl/assembly.py:_radial_eval.  Every
-// kernel that evaluates a kernel shares it.  Each operation is the plain
-// version's (nl/kernels.py radialEval), in its order and rounded on its own
-// (the _rn intrinsics keep nvcc from contracting a product into an FMA);
-// exp, pow, log and erfc are CUDA's double-precision functions.
+// The entry points' profile arguments and the Profile they make.
+#define PROFILE_PARAMS                                                  \
+    int pcode, double C, double e, double a, double C1, double C2,      \
+        double tl, int wcode, double wl
+#define PROFILE_OF(Cv) Profile{pcode, Cv, e, a, C1, C2, tl, wcode, wl}
+
+// v times exp(-lam sqrt(r2)), the product rounded on its own (the JAX
+// expression val * jnp.exp(-lam * jnp.sqrt(r2))).
+__device__ __forceinline__ double temper(double v, double lam, double r2) {
+    return __dmul_rn(v, exp(__dmul_rn(-lam, sqrt(r2))));
+}
+
+// v times the smooth two-point weight of p at r2 = |x-y|^2: the tempered
+// exp(-wlam |x-y|) (temperedTwoPoint.jaxEval), applied after the kernel's
+// value; v itself without a weight.
+__device__ __forceinline__ double twoPoint(double v, double r2,
+                                           const Profile& p) {
+    return p.wcode == TWO_POINT_TEMPERED ? temper(v, p.wlam, r2) : v;
+}
+
+// The value of the profile PC at r2 > 0, before the tempering and the
+// weight (radial<PC>).
 template <int PC>
-__device__ __forceinline__ double radial(double r2, const Profile& p) {
-    if (!(r2 > 0.0)) return 0.0;
+__device__ __forceinline__ double radialValue(double r2, const Profile& p) {
     if constexpr (PC == PROFILE_POWER) {
         return __dmul_rn(p.C, pow(r2, p.e));
     } else if constexpr (PC == PROFILE_GAUSSIAN) {
@@ -62,6 +89,12 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
         const double poly = __dadd_rn(__dadd_rn(p.C, __dmul_rn(p.C1, L)),
                                       __dmul_rn(p.C2, __dmul_rn(L, L)));
         return __dmul_rn(pow(r2, p.e), poly);
+    } else if constexpr (PC == PROFILE_LOG_INVERSE) {
+        return __dmul_rn(p.C, log(__ddiv_rn(1.0, sqrt(r2))));
+    } else if constexpr (PC == PROFILE_POLYNOMIAL) {
+        // a^2 as the Python float a ** 2 of the JAX expression
+        const double q = __dsub_rn(1.0, __ddiv_rn(r2, __dmul_rn(p.a, p.a)));
+        return __dmul_rn(p.C, __dmul_rn(q, q));
     } else {
         static_assert(PC == PROFILE_EXPONENTIAL_B2, "unknown profile code");
         const double r = sqrt(r2);
@@ -70,6 +103,27 @@ __device__ __forceinline__ double radial(double r2, const Profile& p) {
         return __ddiv_rn(__dmul_rn(__dmul_rn(p.C, exp(__dmul_rn(-p.a, r))), t),
                          r);
     }
+}
+
+// gamma(r2) of the profile PC (a ProfileCode, fixed when the kernel is
+// compiled: each launcher switches on the code once, PROFILE_SWITCH), with
+// the parameters of p; exactly 0 at r2 == 0 (coincident points of the
+// singular rules), as pynucleus_tpu/nl/assembly.py:_radial_eval: the
+// profile's value, for the power and power-log profiles times the
+// tempering exp(-t r) where t != 0, then times the smooth two-point weight
+// (twoPoint; its r2 is |x-y|^2 at the node, which each kernel passes).
+// Every kernel that evaluates a kernel shares it.  Each operation is the
+// plain version's (nl/kernels.py radialEval), in its order and rounded on
+// its own (the _rn intrinsics keep nvcc from contracting a product into an
+// FMA); exp, pow, log and erfc are CUDA's double-precision functions.
+template <int PC>
+__device__ __forceinline__ double radial(double r2, const Profile& p) {
+    if (!(r2 > 0.0)) return 0.0;
+    double v = radialValue<PC>(r2, p);
+    if constexpr (PC == PROFILE_POWER || PC == PROFILE_POWER_LOG) {
+        if (p.t != 0.0) v = temper(v, p.t, r2);
+    }
+    return twoPoint(v, r2, p);
 }
 
 // p = c[n-1]; p = c[k] + t p for k = n-2 .. 0, each operation rounded on
@@ -128,11 +182,14 @@ __device__ __forceinline__ void besselJ0Y0(double x, double& j0,
 // i J0(a r)) as (re, im), exactly 0 at r2 == 0 as radial<PC>: the greens2D
 // kernel of pynucleus_tpu/nl/kernels.py ComplexKernel._radialJax through
 // _radial_eval, a the wavenumber -Im(greensLambda).
+// The smooth two-point weight multiplies both parts (a complex value times
+// a real weight).
 __device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
     if (!(r2 > 0.0)) return make_double2(0.0, 0.0);
     double j0, y0;
     besselJ0Y0(__dmul_rn(p.a, sqrt(r2)), j0, y0);
-    return make_double2(__dmul_rn(p.C, -y0), __dmul_rn(p.C, j0));
+    return make_double2(twoPoint(__dmul_rn(p.C, -y0), r2, p),
+                        twoPoint(__dmul_rn(p.C, j0), r2, p));
 }
 
 // Runs the statements ... with the compile-time constant PC equal to the
@@ -153,6 +210,8 @@ __device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
         PROFILE_CASE(PROFILE_EXPONENTIAL_B1, __VA_ARGS__)           \
         PROFILE_CASE(PROFILE_EXPONENTIAL_B2, __VA_ARGS__)           \
         PROFILE_CASE(PROFILE_POWER_LOG, __VA_ARGS__)                \
+        PROFILE_CASE(PROFILE_LOG_INVERSE, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_POLYNOMIAL, __VA_ARGS__)               \
         default: return static_cast<int>(cudaErrorInvalidValue);    \
     }
 
@@ -191,6 +250,7 @@ __device__ __forceinline__ double orderAt(const double* x, const double* y,
 // horizon) with s = s(x, y):
 //   C = 2^(2s) s / pi^(d/2) * 0.5 * exp(lgamma(s + d/2) - lgamma(1 - s))
 //   gamma = C r2^(-d/2 - s)   or  (C/s) r2^((1-d)/2 - s)  (boundary kernel)
+// times the smooth two-point weight (twoPoint);
 // each operation in the plain version's order (nl/kernels.py evalXY),
 // rounded on its own; pow, exp and lgamma are CUDA's double functions.
 template <int PC, int OC>
@@ -209,7 +269,9 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
             exp(__dsub_rn(lgamma(__dadd_rn(s, o.halfDim)),
                           lgamma(__dsub_rn(1.0, s)))));
         const double rp = pow(r2, __dsub_rn(o.eBase, s));
-        return o.boundary ? __dmul_rn(__ddiv_rn(C, s), rp) : __dmul_rn(C, rp);
+        return twoPoint(o.boundary ? __dmul_rn(__ddiv_rn(C, s), rp)
+                                   : __dmul_rn(C, rp),
+                        r2, p);
     }
 }
 

@@ -45,11 +45,18 @@
 //
 // Targets: dense A, CSR slots, A_BC (cross) and the diagonal alone (DIAG:
 // d[r] += M[i,j] where dofRows[p,i] = dofRows[p,j] = r >= 0, the
-// _DiagAccumulator of getDiagonal).  K15 takes the kernel's profile: the
-// power C r2^e, or the complex GREENS_2D profile (common.cuh radialC, the
-// greens2D kernel of ComplexKernel): then W and M are complex, kept as re
-// and im sums of the upper triangle (21 each), and added into the float64
-// view of a complex128 dense A or diagonal (re at 2 k, im at 2 k + 1).
+// _DiagAccumulator of getDiagonal).  Both kernels take the kernel's
+// profile (common.cuh radial<PC>, one instance per code of
+// CUT_PROFILE_SWITCH: the profiles of a finite horizon, the power C r2^e
+// with its tempering, the gaussian, the exponential, the log-inverse
+// distance and the polynomial) with its smooth two-point weight, evaluated
+// at the node's r2 (K15: r^2 where the JAX program weighs |x - y| of y = x
+// + r d, the same distance to rounding).  K15 also takes the complex
+// GREENS_2D profile (common.cuh radialC, the greens2D kernel of
+// ComplexKernel): then W and M are complex, kept as re and im sums of the
+// upper triangle (21 each), and added into the float64 view of a
+// complex128 dense A or diagonal (re at 2 k, im at 2 k + 1).  A host
+// two-point weight of the pair is folded into vols1 by the caller.
 //
 // This file is compiled with -fmad=false: the window ends, the order of
 // the kink candidates, the edge hits and the clipped interval decide the
@@ -57,6 +64,18 @@
 // near-grazing ray differently from the plain versions' separate
 // operations.
 #include "common.cuh"
+
+// The profiles of the cut-pair kernels' instances (a finite horizon's
+// kernels; the boundary and power-log profiles have none).
+#define CUT_PROFILE_SWITCH(code, ...)                               \
+    switch (code) {                                                 \
+        PROFILE_CASE(PROFILE_POWER, __VA_ARGS__)                    \
+        PROFILE_CASE(PROFILE_GAUSSIAN, __VA_ARGS__)                 \
+        PROFILE_CASE(PROFILE_EXPONENTIAL, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_LOG_INVERSE, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_POLYNOMIAL, __VA_ARGS__)               \
+        default: return static_cast<int>(cudaErrorInvalidValue);    \
+    }
 
 enum CutTarget { CUT_DENSE = 0, CUT_SLOTS = 1, CUT_CROSS = 2, CUT_DIAG = 3 };
 
@@ -140,7 +159,7 @@ __device__ __forceinline__ void addOuter(double* acc, const double* psi,
 
 // ------------------------------------------------------------------ K14 --
 
-template <int TARGET>
+template <int TARGET, int PC>
 __global__ void __launch_bounds__(256)
 cut1d_kernel(double* __restrict__ out, long long N,
              const double* __restrict__ vertices,
@@ -151,10 +170,9 @@ cut1d_kernel(double* __restrict__ out, long long N,
              const int* __restrict__ slots, long long P,
              const double* __restrict__ tq, const double* __restrict__ wq,
              int Qx, const double* __restrict__ ur,
-             const double* __restrict__ wr, int Qy, double horizon, double C,
-             double e) {
+             const double* __restrict__ wr, int Qy, double horizon,
+             Profile pf) {
     constexpr int N2 = 4, NU = N2 * (N2 + 1) / 2;
-    const Profile pf{PROFILE_POWER, C, e, 0.0};
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
@@ -178,7 +196,7 @@ cut1d_kernel(double* __restrict__ out, long long N,
         const double y = lo + ur[b] * len;
         const double t2 = (y - v20) / (v21 - v20);
         const double d = x - y;
-        const double W = radial<PROFILE_POWER>(d * d, pf)
+        const double W = radial<PC>(d * d, pf)
                          * (((wq[a] * wr[b]) * len) * vol);
         const double psi[N2] = {1.0 - t, t, -(1.0 - t2), -t2};
         addOuter<N2>(acc, psi, W);
@@ -204,7 +222,7 @@ __device__ __forceinline__ double mod2pi(double a) {
     return m;
 }
 
-template <int TARGET, bool CPLX>
+template <int TARGET, bool CPLX, int PC>
 __global__ void __launch_bounds__(CUT_WARPS * 32)
 cut2d_polar_kernel(double* __restrict__ out, long long N,
                    const double* __restrict__ vertices,
@@ -361,8 +379,7 @@ cut2d_polar_kernel(double* __restrict__ out, long long N,
                 addOuter<N2>(acci, psi, (((g.y * r) * wrad) * wth) * wxa);
             } else {
                 const double W =
-                    (((radial<PROFILE_POWER>(r * r, pf) * r) * wrad) * wth)
-                    * wxa;
+                    (((radial<PC>(r * r, pf) * r) * wrad) * wth) * wxa;
                 addOuter<N2>(acc, psi, W);
             }
         }
@@ -388,23 +405,28 @@ EXPORT int cut1d(double* out, long long N, int target,
                  const long long* vi2, const double* vols1,
                  const long long* dofRows, const int* slots, long long P,
                  const double* tq, const double* wq, int Qx, const double* ur,
-                 const double* wr, int Qy, double horizon, double C,
-                 double e, cudaStream_t stream) {
+                 const double* wr, int Qy, double horizon, PROFILE_PARAMS,
+                 cudaStream_t stream) {
     if (P <= 0) return 0;
     const int threads = 256;
     const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    if (target < CUT_DENSE || target > CUT_DIAG)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Profile pf = PROFILE_OF(C);
 #define LAUNCH(T)                                                           \
-    cut1d_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(              \
+    cut1d_kernel<T, PC><<<(unsigned)blocks, threads, 0, stream>>>(          \
         out, N, vertices, vi1, vi2, vols1, dofRows, slots, P, tq, wq, Qx,   \
-        ur, wr, Qy, horizon, C, e)
-    switch (target) {
-        case CUT_DENSE: LAUNCH(CUT_DENSE); break;
-        case CUT_SLOTS: LAUNCH(CUT_SLOTS); break;
-        case CUT_CROSS: LAUNCH(CUT_CROSS); break;
-        case CUT_DIAG: LAUNCH(CUT_DIAG); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
+        ur, wr, Qy, horizon, pf)
+#define TARGET_SWITCH                                   \
+    switch (target) {                                   \
+        case CUT_DENSE: LAUNCH(CUT_DENSE); break;       \
+        case CUT_SLOTS: LAUNCH(CUT_SLOTS); break;       \
+        case CUT_CROSS: LAUNCH(CUT_CROSS); break;       \
+        default: LAUNCH(CUT_DIAG); break;               \
     }
+    CUT_PROFILE_SWITCH(pcode, TARGET_SWITCH)
+#undef TARGET_SWITCH
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
@@ -419,36 +441,39 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
                        int Qx, const double* thetas, const double* wtheta,
                        int Qt, const double* rq, const double* wr, int Qr,
                        double horizon, int inter, double t00, double t01,
-                       double t10, double t11, int pcode, double C,
-                       double e, double a, cudaStream_t stream) {
+                       double t10, double t11, PROFILE_PARAMS,
+                       cudaStream_t stream) {
     if (P <= 0) return 0;
     if (Qx > MAXQX || inter < 1 || inter > 4)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (target < CUT_DENSE || target > CUT_DIAG)
         return static_cast<int>(cudaErrorInvalidValue);
     const Inter in{inter, 0.0, t00, t01, t10, t11};
     const long long blocks = (P + CUT_WARPS - 1) / CUT_WARPS;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    const Profile pf{pcode, C, e, a};
+    const Profile pf = PROFILE_OF(C);
 #define LAUNCH(T, CX)                                                       \
-    cut2d_polar_kernel<T, CX><<<(unsigned)blocks, CUT_WARPS * 32, 0,        \
-                                stream>>>(                                  \
+    cut2d_polar_kernel<T, CX, PC><<<(unsigned)blocks, CUT_WARPS * 32, 0,    \
+                                    stream>>>(                              \
         out, N, vertices, vi1, vi2, vols1, dofRows, slots, P, bary_x, wx,   \
         Qx, thetas, wtheta, Qt, rq, wr, Qr, horizon, in, pf)
     if (pcode == PROFILE_GREENS_2D) {
+        constexpr int PC = PROFILE_GREENS_2D;
         switch (target) {
             case CUT_DENSE: LAUNCH(CUT_DENSE, true); break;
             case CUT_DIAG: LAUNCH(CUT_DIAG, true); break;
             default: return static_cast<int>(cudaErrorInvalidValue);
         }
-    } else if (pcode == PROFILE_POWER) {
-        switch (target) {
-            case CUT_DENSE: LAUNCH(CUT_DENSE, false); break;
-            case CUT_SLOTS: LAUNCH(CUT_SLOTS, false); break;
-            case CUT_CROSS: LAUNCH(CUT_CROSS, false); break;
-            case CUT_DIAG: LAUNCH(CUT_DIAG, false); break;
-            default: return static_cast<int>(cudaErrorInvalidValue);
-        }
     } else {
-        return static_cast<int>(cudaErrorInvalidValue);
+#define TARGET_SWITCH                                          \
+    switch (target) {                                          \
+        case CUT_DENSE: LAUNCH(CUT_DENSE, false); break;       \
+        case CUT_SLOTS: LAUNCH(CUT_SLOTS, false); break;       \
+        case CUT_CROSS: LAUNCH(CUT_CROSS, false); break;       \
+        default: LAUNCH(CUT_DIAG, false); break;               \
+    }
+        CUT_PROFILE_SWITCH(pcode, TARGET_SWITCH)
+#undef TARGET_SWITCH
     }
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());

@@ -34,7 +34,8 @@ far_field_kernel(double* __restrict__ K, const double* __restrict__ gi,
 
 EXPORT int far_field(double* K, const double* gi, const double* gj,
                      long long P, int M, int dim, int pcode, double C,
-                     double e, double a, double C1, double C2, int ocode,
+                     double e, double a, double C1, double C2,
+                     double tl, int wcode, double wl, int ocode,
                      double sll, double srr, double slr, double srl,
                      double iface, double piD2,
                      double halfDim, double eBase, int boundary,
@@ -50,6 +51,6 @@ EXPORT int far_field(double* K, const double* gi, const double* gj,
                   far_field_kernel<PC, OC><<<(unsigned)blocks, threads, 0,
                                              stream>>>(
                       K, gi, gj, total, M, dim,
-                      Profile{pcode, C, e, a, C1, C2}, od))
+                      PROFILE_OF(C), od))
     return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@
 //   A[dof(c,a), dof(c,b)] += sum_q PhiXw[a,q] PhiX[b,q] R[c,q]
 // The excluded surface cells of c (touching pairs and the order > 4
 // corrections, both assembled by K1) arrive as sorted per-cell CSR lists
-// exclPtr [C+1] / exclIdx.
+// exclPtr [C+1] / exclIdx.  gamma_b is the boundary kernel's radial<PC>,
+// with a tempered kernel's tempering (its boundary kernel keeps lambda and
+// has no two-point weight, as in the JAX package).
 //
 // Design: one block per cell, threads striding over the S*Q2 surface
 // nodes, the Q1 partial sums reduced over the block (warp shuffles, then
@@ -111,7 +113,8 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
                          long long S, int Q2, const long long* exclPtr,
                          const long long* exclIdx, const double* PhiXw,
                          const double* PhiX, int pcode, double Cg, double e,
-                         double a, double C1, double C2, int useNormals,
+                         double a, double C1, double C2,
+                         double tl, int wcode, double wl, int useNormals,
                          cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM || C > 2147483647LL)
@@ -122,7 +125,7 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
             <<<(unsigned)C, BOUNDARY_THREADS, 0, stream>>>(                 \
                 A, N, X, dim, vols, dofs, Ysurf, svolw2, normals, S, Q2,    \
                 exclPtr, exclIdx, PhiXw, PhiX,                              \
-                Profile{pcode, Cg, e, a, C1, C2}, useNormals);              \
+                PROFILE_OF(Cg), useNormals);              \
         return static_cast<int>(cudaGetLastError());                        \
     }
     // order-4 cell rules: 6 triangle nodes (2D P1), 3 Gauss nodes (1D P1)

@@ -15,6 +15,10 @@
 //   A[dof(c,a), dof(c,b)] += 2 sum_q PhiXw[a,q] PhiX[b,q] R[c,q],
 // which is Bxx + Byy of the JAX program: the window is symmetric and
 // G(c1,c2)[q,r] = G(c2,c1)[r,q], so the column sums Byy equal Bxx.
+// gamma is radial<PC>: the profile with its tempering and the smooth
+// two-point weight exp(-wlam |x-y|) from the node pair's r2.  The JAX
+// program evaluates gamma without x and y and so drops that weight (a
+// fault of the reference, ROADMAP.md); the port applies it.
 //
 // Design: a 2D grid of (32 c2 x 8 c1) thread blocks, one ordered pair per
 // thread, the dpe x dpe cross block in registers, one atomicAdd(double)
@@ -266,7 +270,8 @@ EXPORT int grid_distant(double* A, long long N, const double* X, int Q,
                         const double* PhiXw, const double* PhiX,
                         const double* PsiYw, const double* w, float t_lo,
                         float t_hi, int pcode, double Cg, double e,
-                        double a, double C1, double C2, double* R,
+                        double a, double C1, double C2,
+                        double tl, int wcode, double wl, double* R,
                         cudaStream_t stream) {
     if (C <= 0) return 0;
     if (dim > MAXDIM) return static_cast<int>(cudaErrorInvalidValue);
@@ -274,7 +279,7 @@ EXPORT int grid_distant(double* A, long long N, const double* X, int Q,
     if (Q == QQ && dpe == DD)                                              \
         return launchGrid<QQ, DD, PC>(A, N, X, dim, ccf, vols, dofs, C,    \
                                       PhiXw, PhiX, PsiYw, w, t_lo, t_hi,   \
-                                      Profile{pcode, Cg, e, a, C1, C2}, R, \
+                                      PROFILE_OF(Cg), R,      \
                                       stream);
     // 2D P1 (dpe 3): compact triangle rules of orders 2, 4, 6, 8; 1D P1
     // (dpe 2): Gauss rules of orders 2, 4, 6, 8

@@ -194,7 +194,9 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
                            const double* rules, const int* ruleQ,
                            const long long* ruleOff, int pcode, double Cg,
                            double e, double a,
-                           double C1, double C2, cudaStream_t stream) {
+                           double C1, double C2,
+                           double tl, int wcode, double wl,
+                           cudaStream_t stream) {
     if (nP <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -220,7 +222,7 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
         }                                                                   \
         block_near_quad_kernel<NP, PC><<<nP, 256, shmem, stream>>>(         \
             data, bp, et, vertices, dim, vols, dofs, treePos, rules, rs,    \
-            Profile{pcode, Cg, e, a, C1, C2});                              \
+            PROFILE_OF(Cg));                              \
     }
     PROFILE_SWITCH(pcode, switch (dpe) {
         case 2: LAUNCH(4); break;

@@ -173,7 +173,9 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
                           const double* bary_y, const double* w,
                           const double* PSIP, int Q, int pcode, double C,
                           double e, double a,
-                          double C1, double C2, cudaStream_t stream) {
+                          double C1, double C2,
+                          double tl, int wcode, double wl,
+                          cudaStream_t stream) {
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -181,7 +183,7 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
     const long long blocks = ((long long)n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, Profile{pcode, C, e, a, C1, C2}};
+                        w, PSIP, Q, PROFILE_OF(C)};
 #define LAUNCH(NP)                                                          \
     near_enum_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
         data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,     \
@@ -223,7 +225,9 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, int pcode, double C,
                          double e, double a,
-                         double C1, double C2, cudaStream_t stream) {
+                         double C1, double C2,
+                         double tl, int wcode, double wl,
+                         cudaStream_t stream) {
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -231,7 +235,7 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
     const long long blocks = (n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, Profile{pcode, C, e, a, C1, C2}};
+                        w, PSIP, Q, PROFILE_OF(C)};
 #define LAUNCH(NP)                                                          \
     tree_csr_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
         data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt)

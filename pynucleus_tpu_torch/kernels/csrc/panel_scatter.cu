@@ -19,7 +19,8 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          const double* bary_y, const double* w,
                          const double* PSIP, int Q, int pcode, double C,
                          double e, double a,
-                         double C1, double C2, int inter, double h2,
+                         double C1, double C2,
+                         double tl, int wcode, double wl, int inter, double h2,
                          double t00, double t01, double t10, double t11,
                          int ocode, double sll, double srr, double slr,
                          double srl, double iface, double piD2,
@@ -30,7 +31,7 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2},
+                              PROFILE_OF(C),
                               Inter{inter, h2, t00, t01, t10, t11},
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
@@ -47,13 +48,14 @@ EXPORT int panel_scatter_diag(double* d, long long N,
                               const double* bary_y, const double* w,
                               const double* PSIP, int Q, int pcode, double C,
                               double e, double a, double C1, double C2,
+                              double tl, int wcode, double wl,
                               int inter, double h2, double t00, double t01,
                               double t10, double t11, cudaStream_t stream) {
     return launchPanel<DIAG>(d, N, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P,
                              nullptr, nullptr, nullptr, nullptr,
                              TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a, C1, C2},
+                             PROFILE_OF(C),
                              Inter{inter, h2, t00, t01, t10, t11}, Order{},
                              nullptr, -1LL, stream);
 }

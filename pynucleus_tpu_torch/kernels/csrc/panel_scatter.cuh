@@ -24,7 +24,10 @@
 // einsum on the CPU, which decides the complement indicator at |x_q - y_q|
 // = delta where the horizon spans whole cells; the plain version sums them
 // so for that indicator (nl/assembly.py _fmaNodes).
-// gamma is the kernel's radial profile or, for a variable fractional order
+// gamma is the kernel's radial profile (with its tempering and its smooth
+// two-point weight, common.cuh radial and twoPoint, from r2 of the node
+// pair: pynucleus_tpu/nl/assembly.py:58-62) or, for a variable fractional
+// order
 // (constantNonSym, leftRight: pynucleus_tpu/nl/kernels.py
 // FractionalKernel.evalXY, reached through _radial_eval), s(x, y) and its
 // normalization per node (common.cuh kernelXY); the kernel is a template on

@@ -13,7 +13,9 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, int pcode, double C,
                                double e, double a,
-                               double C1, double C2, int inter, double h2,
+                               double C1, double C2,
+                               double tl, int wcode, double wl,
+                               int inter, double h2,
                                double t00, double t01, double t10,
                                double t11,
                                cudaStream_t stream) {
@@ -21,7 +23,7 @@ EXPORT int panel_scatter_cross(double* A, long long NB,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2},
+                              PROFILE_OF(C),
                               Inter{inter, h2, t00, t01, t10, t11},
                               Order{}, nullptr, -1LL, stream);
 }

@@ -13,7 +13,9 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                const double* bary_y, const double* w,
                                const double* PSIP, int Q, int pcode, double C,
                                double e, double a,
-                               double C1, double C2, int inter, double h2,
+                               double C1, double C2,
+                               double tl, int wcode, double wl,
+                               int inter, double h2,
                                double t00, double t01, double t10,
                                double t11,
                                int ocode, double sll, double srr, double slr,
@@ -24,7 +26,7 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
-                              Profile{pcode, C, e, a, C1, C2},
+                              PROFILE_OF(C),
                               Inter{inter, h2, t00, t01, t10, t11},
                               Order{ocode, sll, srr, slr, srl, iface, piD2,
                                     halfDim, eBase, boundary},
@@ -45,6 +47,7 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               const double* w, const double* PSIP, int Q,
                               int pcode, double C, double e, double a,
                               double C1, double C2,
+                              double tl, int wcode, double wl,
                               int ocode, double sll, double srr, double slr,
                               double srl, double iface, double piD2,
                               double halfDim, double eBase, int boundary,
@@ -54,7 +57,7 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
                              bary_x, bary_y, w, PSIP, Q,
-                             Profile{pcode, C, e, a, C1, C2}, Inter{},
+                             PROFILE_OF(C), Inter{},
                              Order{ocode, sll, srr, slr, srl, iface, piD2,
                                    halfDim, eBase, boundary},
                              yShift, -1LL, stream);

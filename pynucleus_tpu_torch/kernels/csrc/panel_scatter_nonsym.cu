@@ -12,7 +12,9 @@
 //   t2_q = gamma(y_q, x_q) w_q chi(x_q, y_q) volsym[p]
 //   M[k] = sum_q t1_q PHIxPSI[q, k] - sum_q t2_q PHIyPSI[q, k]
 // with gamma the kernel's radial profile or its variable fractional order
-// (common.cuh kernelXY), or a variable horizon's kernel (varHorizonXY
+// (common.cuh kernelXY, with the smooth two-point weight exp(-wlam |x-y|)
+// of the profile after the value: pynucleus_tpu/nl/assembly.py:435-436),
+// or a variable horizon's kernel (varHorizonXY
 // below, delta at gamma's first point: delta(x) in t1, delta(y) in t2), chi
 // the interaction indicator of a finite horizon (common.cuh inBall, applied
 // after gamma as the JAX program applies jaxIndicator; code 0 none); both
@@ -192,7 +194,8 @@ static int launchNonsym(double* out, long long N, const double* vertices,
 // The indicator (inter, h2, t00 ... t11) and the order arguments (ocode
 // ... boundary) as K1's, then the variable horizon (Horizon's fields).
 #define NONSYM_TAIL_PARAMS                                                 \
-    int pcode, double C, double e, double a, double C1, double C2,        \
+    int pcode, double C, double e, double a, double C1, double C2,            \
+        double tl, int wcode, double wl,                                      \
         int inter, double h2, double t00, double t01, double t10,         \
         double t11, int ocode, double sll, double srr, double slr,         \
         double srl, double iface, double piD2, double halfDim,            \
@@ -201,7 +204,7 @@ static int launchNonsym(double* out, long long N, const double* vertices,
         double hgamma, double hpiD2, double hexpo, int hnormalized,       \
         cudaStream_t stream
 #define NONSYM_TAIL_ARGS                                                   \
-    Profile{pcode, C, e, a, C1, C2}, Inter{inter, h2, t00, t01, t10, t11}, \
+    PROFILE_OF(C), Inter{inter, h2, t00, t01, t10, t11}, \
         Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,    \
               boundary},                                                   \
         Horizon{hon, hc0, hc1, hlo, hhi, ha, he, hd, hgamma, hpiD2,       \

@@ -21,7 +21,16 @@ every cell pair and runs each through K1) and getH2 with the device-CSR near
 field (``params={'forceDeviceCSR': True}``) and the JAX package's default
 near-field engine: the block engine for orders up to 8 and the flat
 device enumeration for the pairs that also hold higher orders.  Every
-kernel evaluates the kernel's radial profile (nl.kernels.Profile).
+kernel evaluates the kernel's radial profile (nl.kernels.Profile), with
+a tempered kernel's tempering and the smooth two-point weight (a
+temperedTwoPoint phi) at each node; the grid passes K2 and K3 apply them
+from r2 as well (the JAX grid drops the weight: a reference fault the
+port does not copy).  A host two-point weight (leftRight, constant,
+interface, lambda, lookup) is evaluated at the cell centres of each cell
+pair and folded into its volume factor, the pairs of weight 0 dropped
+(pynucleus_tpu/nl/assembly.py:2110-2564); such a kernel leaves the grid.
+The H2 formats of a kernel with a weight or a tempering raise: the JAX
+package's H2 operator of such a kernel is off its own dense one.
 Finite horizon: getDense and getSparse on the per-pair path (the
 general branch of _runPairBuckets, every cell pair classified), getH2 as
 getSparse, and getDenseCross (A_BC of the Dirichlet collar); the ball2,
@@ -63,10 +72,12 @@ pattern exactly as the JAX package does; the device work is:
   K13 tree_csr_quad  H2 host engine: quadrature of host-listed elements
                      into tree slots
   K14 cut1d          finite horizon, 1D: pairs cut by the horizon, exact
-                     interval clipping (dense, CSR slots or A_BC)
+                     interval clipping (dense, CSR slots or A_BC); the
+                     power (tempered), gaussian, exponential,
+                     log-inverse-distance and polynomial profiles
   K15 cut2d_polar    finite horizon, 2D: pairs cut by the horizon, polar
                      rays clipped to the cell and the ball2, ballInf, ball1
-                     or ellipse ball
+                     or ellipse ball; the same profiles and greens2D
   K19 panel_scatter_nonsym  the nonsymmetric local matrices of a variable
                      or nonsymmetric order's pairs or of a variable
                      horizon's (times its indicator), into a dense A, into
@@ -121,7 +132,9 @@ from .panels import (classifyPairsDense, classifyPairsDenseGrid,
                      boundaryOrderModelParams)
 from .quad_singular import (sameCellRule1D, vertexRule1D, distantRule,
                             boundaryVertexRule1D, boundaryDistantRule)
-from .kernels import (radialEval, profileArgs, POWER, evalXY, orderArgs,
+from .kernels import (radialEval, profileArgs, POWER, GAUSSIAN_PROFILE,
+                      EXPONENTIAL_PROFILE, LOG_INVERSE_DISTANCE_PROFILE,
+                      POLYNOMIAL_PROFILE, evalXY, orderArgs,
                       horizonArgs, vectorTerms, COMPLEX_PROFILES,
                       GREENS_2D_PROFILE, IDENTITY_T,
                       BALL2, BALL_INF, BALL1, ELLIPSE, BALL2_COMPLEMENT,
@@ -252,6 +265,28 @@ def _countBall(name, indicator):
         kernels.countVariant(f'{name}:{key}')
 
 
+# the launch-count suffix of a profile code's variants (kernels.TWOPOINT:
+# the gaussian and exponential ones of K14 and K15 only)
+_PROFILE_VARIANTS = {LOG_INVERSE_DISTANCE_PROFILE: 'log_inverse',
+                     POLYNOMIAL_PROFILE: 'polynomial',
+                     GAUSSIAN_PROFILE: 'gaussian',
+                     EXPONENTIAL_PROFILE: 'exponential'}
+
+
+def _countProfile(name, prof, device=1):
+    """Counts a launch of kernel ``name`` with a tempered profile, a smooth
+    two-point weight, or a profile code of its own variant (kernels.
+    TWOPOINT), and the ``device`` CUDA launches it made."""
+    keys = [_PROFILE_VARIANTS.get(int(prof.code))]
+    if float(prof.t) != 0.0:
+        keys.append('tempered')
+    if int(prof.wcode) != 0:
+        keys.append('two_point')
+    for k in keys:
+        if f'{name}:{k}' in kernels.launches:
+            kernels.countVariant(f'{name}:{k}', device)
+
+
 def _interArgs(inter):
     """(code, T) of K15's interaction: an int code 1-3 (ball2, ballInf,
     ball1), or an object with ``code`` and ``T`` (an interaction domain or
@@ -366,6 +401,7 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
         kernels.countVariant('panel_scatter:complex'
                              + ('' if target == 'dense' else '_diag'))
     _countBall('panel_scatter', indicator)
+    _countProfile('panel_scatter', prof)
     if target == 'diag' and vi2.shape[1] < vi1.shape[1]:
         kernels.countVariant('panel_scatter:diag_exterior')
     p = kernels.ptr
@@ -585,6 +621,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
     kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:slots'] += 1
     _countBall('panel_scatter', indicator)
+    _countProfile('panel_scatter', prof)
     p = kernels.ptr
     kernels.check(lib.panel_scatter_slots(
         p(data), data.shape[0] - 1, p(vertices), dim, p(vi1), vi1.shape[1],
@@ -684,6 +721,7 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
     kernels.launches['panel_scatter'] += 1
     kernels.deviceLaunches['panel_scatter'] += 1
     kernels.launches['panel_scatter:tree'] += 1
+    _countProfile('panel_scatter', prof)
     p = kernels.ptr
     dofNode, treePos, indptrT, tStart = tables
     kernels.check(lib.panel_scatter_tree(
@@ -813,6 +851,7 @@ def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
     lib = kernels.library()
     kernels.launches['panel_scatter_nonsym'] += 1
     kernels.deviceLaunches['panel_scatter_nonsym'] += 1
+    _countProfile('panel_scatter_nonsym', prof)
     kernels.launches['panel_scatter_nonsym:' + target] += 1
     if horizon is not None:
         kernels.countVariant('panel_scatter_nonsym:var_horizon')
@@ -1114,6 +1153,7 @@ def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
     R = torch.zeros((nC, Q), dtype=torch.float64, device=A.device)
     lib = kernels.library()
     kernels.launches['grid_distant'] += 1
+    _countProfile('grid_distant', prof, device=2 if nC > 0 else 0)
     kernels.check(lib.grid_distant(
         kernels.ptr(A), A.shape[0], kernels.ptr(X), Q, dim, kernels.ptr(ccf),
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(PhiXw),
@@ -1194,6 +1234,7 @@ def grid_boundary(A, X, vols, dofs, Ysurf, svolw2, normals, exclPtr, exclIdx,
     lib = kernels.library()
     kernels.launches['grid_boundary'] += 1
     kernels.deviceLaunches['grid_boundary'] += 1
+    _countProfile('grid_boundary', prof)
     kernels.check(lib.grid_boundary(
         kernels.ptr(A), A.shape[0], kernels.ptr(X), Q1, dim,
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(Ysurf),
@@ -1776,14 +1817,23 @@ def _tree_csr_quad_plain(data, c1, c2, IA, JA, offF, offB, sf, vertices,
 CUT_TARGETS = ('dense', 'slots', 'cross', 'diag')
 
 
-def _powerProfile(name, prof):
-    """(C, e) of the power profile C r2^e, the only one K14 and K15
-    evaluate; any other profile raises."""
-    code, C, e = profileArgs(prof)[:3]
-    if code != POWER:
-        raise NotImplementedError(f'{name}: the power profile C r2^e only '
-                                  f'(profile code {code})')
-    return C, e
+# the real profiles of K14's and K15's instances: a finite horizon's
+# kernels (common.cuh radial<code>, cut_cells.cu CUT_PROFILE_SWITCH)
+CUT_PROFILES = (POWER, GAUSSIAN_PROFILE, EXPONENTIAL_PROFILE,
+                LOG_INVERSE_DISTANCE_PROFILE, POLYNOMIAL_PROFILE)
+
+
+def _cutProfile(name, prof, complexOK=False):
+    """The profile arguments of K14 and K15: a profile of CUT_PROFILES (the
+    power one with its tempering), with its smooth two-point weight, or
+    for K15 (``complexOK``) the complex GREENS_2D one; any other raises."""
+    args = profileArgs(prof)
+    if args[0] not in CUT_PROFILES and not (
+            complexOK and args[0] == GREENS_2D_PROFILE):
+        raise NotImplementedError(f'{name}: profile code {args[0]} (the '
+                                  'boundary and power-log profiles have no '
+                                  'finite horizon)')
+    return args
 
 
 def _cutCheck(name, out, target, index, vertices, vi1, vi2, vols1, floats,
@@ -1861,9 +1911,12 @@ def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
     dofs >= 0), 'slots' CSR data [nnz+1] (index slots [P, 16] int32, in
     [0, nnz)), 'cross' A_BC [N, NB] (index dofRows; interior row, boundary
     column -d-1), 'diag' the diagonal d [N] (index dofRows; the entries of
-    equal row and column dofs >= 0).  delta = horizon, gamma the power
-    profile ``prof`` (C r2^e, 0 at r2 = 0); any other profile raises
-    NotImplementedError.
+    equal row and column dofs >= 0).  delta = horizon, gamma the profile
+    ``prof`` (0 at r2 = 0; nl.kernels.radialEval: the power C r2^e with its
+    tempering, the gaussian, the exponential, the log-inverse-distance or
+    the polynomial one, times its smooth two-point weight); the other
+    profiles raise NotImplementedError.  A host two-point weight of pair p
+    is folded into vols1[p] by the caller.
 
     Kernel K14 (kernels/csrc/cut_cells.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces pynucleus_tpu/nl/assembly.py
@@ -1871,14 +1924,17 @@ def cut1d(out, target, index, vertices, vi1, vi2, vols1, tq, wq, ur, wr,
     both orderings of an unordered pair as rows, and so does the caller."""
     P = _cutCheck('cut1d', out, target, index, vertices, vi1, vi2, vols1,
                   (tq, wq, ur, wr), 16)
-    C, e = _powerProfile('cut1d', prof)
+    pargs = _cutProfile('cut1d', prof)
     if vertices.shape[1] != 1 or vi1.shape[1] != 2:
         raise ValueError('cut1d: segments in 1D (P1) expected')
     if out.device.type == 'cpu':
         return _cut1d_plain(out, target, index, vertices, vi1, vi2, vols1, tq,
                             wq, ur, wr, horizon, prof)
+    if P:
+        _countProfile('cut1d', prof)
     _launchCut('cut1d', out, target, index, P, vertices, vi1, vi2, vols1,
-               tq, wq, tq.shape[0], ur, wr, ur.shape[0], float(horizon), C, e)
+               tq, wq, tq.shape[0], ur, wr, ur.shape[0], float(horizon),
+               *pargs)
 
 
 def _cut1dMatrices(vertices, vi1, vi2, vols1, tq, wq, ur, wr, horizon, prof):
@@ -1934,7 +1990,8 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     slots [P, 36] int32).  ``inter`` is the interaction: its code 1 (ball2),
     2 (ballInf) or 3 (ball1), or an object with ``code`` and ``T`` (an
     interaction domain, nl.kernels.Indicator), which the ellipse (code 4)
-    needs.  gamma is the power profile C r2^e, or the complex GREENS_2D
+    needs.  gamma is a profile of a finite horizon as in :func:`cut1d`
+    (with its smooth two-point weight, at r^2), or the complex GREENS_2D
     profile (greens2D; its complex variant): then W and M are complex and
     ``out`` a complex128 dense A or diagonal.
 
@@ -1943,12 +2000,8 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
     _bucket_cut2d_polar (its P1 case: the shape functions are the
     barycentrics; the TPU-only clamp of the barycentrics to 1e-30 is not
     carried over) and the host add of its matrices."""
-    code = int(prof.code)
     dtype = _valueType('cut2d_polar', prof)
-    if code not in (POWER, GREENS_2D_PROFILE):
-        raise NotImplementedError(f'cut2d_polar: the power profile C r2^e '
-                                  'and the complex GREENS_2D profile only '
-                                  f'(profile code {code})')
+    pargs = _cutProfile('cut2d_polar', prof, complexOK=True)
     P = _cutCheck('cut2d_polar', out, target, index, vertices, vi1, vi2,
                   vols1, (bary_x, wx, thetas, wtheta, rq, wr), 36, dtype)
     Qx = wx.shape[0]
@@ -1964,10 +2017,11 @@ def cut2d_polar(out, target, index, vertices, vi1, vi2, vols1, bary_x, wx,
         raise ValueError('cut2d_polar: at most 32 x nodes')
     if _ballKey(icode) and P:
         kernels.countVariant('cut2d_polar:' + _ballKey(icode))
+    if P:
+        _countProfile('cut2d_polar', prof)
     _launchCut('cut2d_polar', out, target, index, P, vertices, vi1, vi2,
                vols1, bary_x, wx, Qx, thetas, wtheta, thetas.shape[0], rq, wr,
-               rq.shape[0], float(horizon), icode, *T,
-               *profileArgs(prof)[:4])
+               rq.shape[0], float(horizon), icode, *T, *pargs)
 
 
 def _cut2dRays(vertices, vi1, vi2, bary_x, thetas, wtheta, horizon, inter):
@@ -2307,11 +2361,13 @@ class _BucketRunner:
             raise NotImplementedError('a variable horizon: K19 only')
         return self.kernel.orderParams()
 
-    def runNatural(self, acc, rule, PSI, di, dj, symfac, entryMask=None):
+    def runNatural(self, acc, rule, PSI, di, dj, symfac, entryMask=None,
+                   weights=None):
         """Pairs given as cell ids (id buckets, distant corrections): the
         explicit K1 arrays are gathered on the device; entryMask [nPSI,
         nPSI] (or None) keeps those local entries of every pair (the dense
-        target)."""
+        target); weights [P] (host, or None) multiply each pair's volume
+        factor (a host two-point weight)."""
         if len(di) == 0:
             return
         di = self._t(di, TINDEX)
@@ -2319,6 +2375,8 @@ class _BucketRunner:
         dr = self.dofs[di] if PSI.shape[0] == self.dofs.shape[1] else \
             torch.cat([self.dofs[di], self.dofs[dj]], dim=1)
         vs = self.vols[di] * self.vols[dj] * float(symfac)
+        if weights is not None:
+            vs = vs * self._t(weights)
         self._launch(acc, rule, PSI, self.cells[di], self.cells[dj],
                      dr.contiguous(), vs, None, entryMask)
 
@@ -2489,6 +2547,20 @@ class DeviceTreeCSRAccumulator:
                                                                       n * n)
 
 
+def _refuseWeighted(kernel, what):
+    """Raise for the H2 formats of a kernel with a two-point weight or a
+    tempering: the JAX package's H2 operator of such a kernel is off its
+    own dense matrix by 8 % (a tempered kernel) to 48 % (a leftRight
+    weight) of its largest entry, on the diagonal band (ROADMAP.md, the
+    reference's faults), and the port does not mirror it."""
+    if kernel.hasWeight():
+        raise NotImplementedError(
+            f'{what} of a kernel with a two-point weight or a tempering: '
+            'the JAX package\'s H2 operator of such a kernel is 8-48 % off '
+            'its dense matrix on the diagonal band (a reference fault, '
+            'ROADMAP.md); assemble it dense or sparse')
+
+
 def _sync(device):
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
@@ -2542,9 +2614,6 @@ class nonlocalBuilder:
             or kernel.isComplex else zeroExterior
         self.device = getDevice(device if device is not None else dm.device)
         self.timers = {}
-        if kernel.phi is not None:
-            raise NotImplementedError('the port assembles kernels without '
-                                      'two-point weights only')
         if kernel.isComplex and (self.mesh.manifold_dim != 2 or int(
                 kernel.profileParams().code) != GREENS_2D_PROFILE):
             # 3D assembly raises in the JAX package as well
@@ -2676,17 +2745,21 @@ class nonlocalBuilder:
         detfac = {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
         sing = self.kernel.getSingularityValue()
         rules = self._makeRulesFor(sing, info['quad_order_diagonal'])
+        hostW = self._hostWeights()
 
         # --- identical-cell panels
         ids = info['id']
         ruleId = rules['ruleId']
+        ids, _, w = hostW(ids, ids)
         runner.runNatural(acc, ruleId,
                           ruleId.buildPSI(dm, nSharedVertices=mdim + 1),
-                          ids, ids, detfac ** 2)
+                          ids, ids, detfac ** 2, weights=w)
 
-        # --- touching panels
-        for rule, PSI, vi1, vi2, dr, vs, _ in self._touchingBuckets(info,
-                                                                    rules):
+        # --- touching panels (weighted, none dropped)
+        for rule, PSI, vi1, vi2, dr, vs, (tp, _) in self._touchingBuckets(
+                info, rules):
+            if self.kernel.phi is not None:
+                vs = vs * self._pairWeights(tp[:, 0], tp[:, 1])
             runner.run(acc, rule, PSI, vi1, vi2, dr, vs)
 
         # --- close distant pairs below the grid windows
@@ -2699,13 +2772,36 @@ class nonlocalBuilder:
         for order in np.unique(orders):
             sel = orders == order
             rule = distantRule(int(order), mdim)
+            ii, jj, w = hostW(di[sel], dj[sel])
             runner.runNatural(acc, rule, rule.buildPSI(dm, nSharedVertices=0),
-                              di[sel], dj[sel], 2.0)
+                              ii, jj, 2.0, weights=w)
 
         # --- pairs cut by a finite horizon
         ci, cj, cutOrders = info['cut']
         if len(ci):
             self._runCutPairs(acc, runner, ci, cj, cutOrders)
+
+    # ------------------------------------------------ host two-point weights
+    def _pairWeights(self, ii, jj):
+        """The host two-point weight phi of the cell pairs (ii, jj) at their
+        cell centres (pynucleus_tpu/nl/assembly.py:2110-2112, evalPairs)."""
+        centers = self.mesh.vertices[self.mesh.cells].mean(axis=1)
+        return np.asarray(self.kernel.phi.evalPairs(centers[ii], centers[jj]),
+                          dtype=np.float64)
+
+    def _hostWeights(self):
+        """A function (ii, jj) -> (ii, jj, w) of the pairs of a bucket that
+        the JAX package weighs and drops: with a host two-point weight,
+        the pairs of nonzero weight and their weights (keepW), else the
+        pairs as given and None."""
+        if self.kernel.phi is None:
+            return lambda ii, jj: (ii, jj, None)
+
+        def weigh(ii, jj):
+            w = self._pairWeights(ii, jj)
+            keep = w != 0.0
+            return ii[keep], jj[keep], w[keep]
+        return weigh
 
     # ------------------------------------ variable and nonsymmetric orders
     def _makeSplitRuleFor(self, sing, quad_order_diagonal, nS):
@@ -2775,6 +2871,8 @@ class nonlocalBuilder:
                 ruleCache[key] = self._makeRulesFor(sing, qd)
             return ruleCache[key]
 
+        phi = kernel.phi
+
         # --- identical-cell panels, grouped by singularity
         ids = info['id']
         if len(ids):
@@ -2787,9 +2885,17 @@ class nonlocalBuilder:
                 em = None
                 if maskLookup is not None:
                     em = maskLookup.lookup(idsS, idsS)[:, :dpe, :dpe]
+                vsId = dets[idsS] ** 2
+                if phi is not None:
+                    w = self._pairWeights(idsS, idsS)
+                    keepW = w != 0.0
+                    idsS, vsId = idsS[keepW], (vsId * w)[keepW]
+                    if em is not None:
+                        em = em[keepW]
+                    if len(idsS) == 0:
+                        continue
                 runner.runPairs(acc, ruleId, PSI, cells[idsS], cells[idsS],
-                                dofs[idsS], dets[idsS] ** 2, entryMask=em,
-                                PHI=PHI)
+                                dofs[idsS], vsId, entryMask=em, PHI=PHI)
 
         # --- touching panels, grouped by (#shared vertices, singularity of
         # gamma(x,y), singularity of gamma(y,x))
@@ -2818,6 +2924,8 @@ class nonlocalBuilder:
             sigInv = group[idxsArr]
             baseMask = maskLookup.lookup(ii, jj) \
                 if maskLookup is not None else None
+            # both orderings take the weight of (i, j), as the JAX package
+            phiW = self._pairWeights(ii, jj) if phi is not None else None
             for g in np.unique(sigInv):
                 gsel = np.nonzero(sigInv == g)[0]
                 _, perm1, perm2 = lut[g]
@@ -2831,6 +2939,8 @@ class nonlocalBuilder:
                 drj[:, sharedMask] = DROP
                 dr[np.ix_(gsel, dpe + np.arange(dpe))] = drj
                 vs[gsel] = dets[gi] * dets[gj]
+                if phiW is not None:
+                    vs[gsel] *= phiW[gsel]
                 if em is not None:
                     ldFull = np.concatenate([ld1, dpe + ld2])
                     em[gsel] = baseMask[gsel][:, ldFull][:, :, ldFull]
@@ -2842,6 +2952,8 @@ class nonlocalBuilder:
                 dri[:, sharedMask] = DROP
                 dr[np.ix_(o2, dpe + np.arange(dpe))] = dri
                 vs[o2] = dets[gi] * dets[gj]
+                if phiW is not None:
+                    vs[o2] *= phiW[gsel]
                 if em is not None:
                     ldFull2 = np.concatenate([dpe + ld2, ld1])
                     em[o2] = baseMask[gsel][:, ldFull2][:, :, ldFull2]
@@ -2890,6 +3002,13 @@ class nonlocalBuilder:
             jjA = np.concatenate([jj, ii])
             dr = np.concatenate([dofs[iiA], dofs[jjA]], axis=1)
             vs = vols[iiA] * vols[jjA]
+            if phi is not None:
+                w = self._pairWeights(iiA, jjA)
+                keepW = w != 0.0
+                iiA, jjA = iiA[keepW], jjA[keepW]
+                dr, vs = dr[keepW], (vs * w)[keepW]
+                if len(iiA) == 0:
+                    continue
             em = None
             if maskLookup is not None and len(iiA):
                 em = maskLookup.lookup(iiA, jjA).copy()
@@ -2938,29 +3057,39 @@ class nonlocalBuilder:
                 'ported')
         prof = kernel.profileParams()
         horizon = kernel.horizonValue
+        hostW = self._hostWeights()
         t = runner._t
+
+        def volsOf(ii, w):
+            """vols1 of the pairs, times their host weights (M is linear in
+            it; the JAX package multiplies M by the weight)."""
+            v = runner.vols[t(ii, TINDEX)]
+            return v if w is None else v * t(w)
         for order in np.unique(orders):
             sel = orders == order
-            ii = runner._t(ci[sel], TINDEX)
-            jj = runner._t(cj[sel], TINDEX)
             if mdim == 1:
                 tq, wq = gauss01(int(order))
                 ur, wr = gauss01(int(order))
-                iiA, jjA = torch.cat([ii, jj]), torch.cat([jj, ii])
+                # both orderings, factor 1 each
+                iiA, jjA, w = hostW(np.concatenate([ci[sel], cj[sel]]),
+                                    np.concatenate([cj[sel], ci[sel]]))
+                ii, jj = t(iiA, TINDEX), t(jjA, TINDEX)
                 out, target, index = acc.cutTarget(torch.cat(
-                    [runner.dofs[iiA], runner.dofs[jjA]], dim=1))
-                cut1d(out, target, index, runner.vertices, runner.cells[iiA],
-                      runner.cells[jjA], runner.vols[iiA], t(tq), t(wq),
+                    [runner.dofs[ii], runner.dofs[jj]], dim=1))
+                cut1d(out, target, index, runner.vertices, runner.cells[ii],
+                      runner.cells[jj], volsOf(iiA, w), t(tq), t(wq),
                       t(ur), t(wr), horizon, prof)
                 continue
             oX = max(int(order) // 2, 4)
             bary_x, wx = simplexDuffy(oX, 2)
             thetas, wtheta = gauss01(max(int(order) // 2 + 2, 6))
             rq, wr = gauss01(max(int(order) // 2, 4))
+            iiH, jjH, w = hostW(ci[sel], cj[sel])
+            ii, jj = t(iiH, TINDEX), t(jjH, TINDEX)
             out, target, index = acc.cutTarget(torch.cat(
                 [runner.dofs[ii], runner.dofs[jj]], dim=1))
             cut2d_polar(out, target, index, runner.vertices, runner.cells[ii],
-                        runner.cells[jj], runner.vols[ii], t(bary_x.T),
+                        runner.cells[jj], volsOf(iiH, w), t(bary_x.T),
                         t(wx), t(thetas), t(wtheta), t(rq), t(wr), horizon,
                         inter, prof)
 
@@ -2984,6 +3113,8 @@ class nonlocalBuilder:
             jjA = np.concatenate([jj, ii])
             dr = np.concatenate([dofs[iiA], dofs[jjA]], axis=1)
             vs = vols[iiA] * vols[jjA]
+            if self.kernel.phi is not None:
+                vs = vs * self._pairWeights(iiA, jjA)
             runner.runPairs(acc, rule, PSI, cells[iiA], cells[jjA], dr, vs,
                             PHI=PHI)
 
@@ -3023,7 +3154,7 @@ class nonlocalBuilder:
         # surface pair goes through K1 or K21 (the JAX package's gridOK; its
         # per-pair path is its CPU default, its _DiagAccumulator takes no
         # grid)
-        gridOK = not bkernel.variable and \
+        gridOK = not bkernel.variable and bkernel.phi is None and \
             self.params.get('denseGrid') is not False and acc.gridTarget
         binfo = classifyBoundaryPairs(
             dm, surface, bkernel, target_order=self.params.get('target_order'),
@@ -4066,9 +4197,13 @@ class nonlocalBuilder:
         self._scalarKernel('getDense')
         if self.kernel.finiteHorizon or self.general \
                 or self.kernel.isComplex or self.kernel.complement \
+                or self.kernel.phi is not None \
                 or self.params.get('denseGrid') is False:
             # the grid path takes real symmetric radial kernels of the full
-            # space only (pynucleus_tpu/nl/assembly.py _gridEligible)
+            # space without a host two-point weight only
+            # (pynucleus_tpu/nl/assembly.py _gridEligible); K2 and K3 apply
+            # the tempering and the smooth two-point weight from r2 (the JAX
+            # grid drops the weight: ROADMAP.md, the reference's faults)
             info = self._classifyAll()
         else:
             info = classifyPairsDenseGrid(
@@ -4195,6 +4330,7 @@ class nonlocalBuilder:
         kernel = self.kernel
         if not kernel.complement:
             raise ValueError('_getComplementCross needs a complement kernel')
+        _refuseWeighted(kernel, 'the cross operator of H2corrected')
         dm, mesh = self.dm, self.mesh
         cells, verts = mesh.cells, mesh.vertices
         dpe = dm.dofs_per_element
@@ -4265,6 +4401,7 @@ class nonlocalBuilder:
         kernel = self.kernel
         if not kernel.finiteHorizon:
             raise ValueError('H2corrected needs a finite horizon')
+        _refuseWeighted(kernel, 'H2corrected')
         if not hasattr(getattr(kernel, 's', None), 'value') \
                 or kernel.variable:
             raise NotImplementedError('H2corrected requires a constant '
@@ -4300,6 +4437,7 @@ class nonlocalBuilder:
             raise NotImplementedError('H2 of a complement kernel: its '
                                       'cross operator is dense '
                                       '(_getComplementCross)')
+        _refuseWeighted(self.kernel, 'H2')
         from .h2 import H2Matrix
         if self.mesh.manifold_dim not in (1, 2):
             raise NotImplementedError('the port assembles H2 operators on 1D '
@@ -4562,6 +4700,7 @@ class horizonCorrected(LinearOperator):
         if not hasattr(getattr(kernel, 's', None), 'value'):
             raise NotImplementedError('horizonCorrected requires a constant '
                                       'fractional order')
+        _refuseWeighted(kernel, 'horizonCorrected')
         self.kernel = kernel
         hv, C, s = kernel.horizonValue, kernel.scalingValue, kernel.s.value
         key = (round(hv, 14), round(C, 14), round(s, 14))

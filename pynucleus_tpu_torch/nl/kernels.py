@@ -1,23 +1,27 @@
 """Nonlocal kernels: the constant-order fractional kernel, with infinite or
-finite horizon, the integrable indicator ('constant') and peridynamic
-('inverseDistance') kernels of a finite horizon, and the gaussian and
-exponential kernels of an infinite horizon.
+finite horizon and an optional tempering exp(-lambda |x-y|), the integrable
+indicator ('constant'), peridynamic ('inverseDistance'), gaussian and
+exponential kernels (of a finite or an infinite horizon), the
+log-inverse-distance, monomial and polynomial profiles, and the two-point
+weights phi(x, y) that multiply a kernel.
 
 Port of the symmetric constant-coefficient part of
-pynucleus_tpu/nl/kernels.py: the interaction domains fullSpace, ball2,
+pynucleus_tpu/nl/kernels.py: the two-point functions (:585-712, :971-1028:
+constant, tempered, leftRight, lambda, lookup, interface and
+twoPointFunctionFactory), the interaction domains fullSpace, ball2,
 ballInf, ball1, the ellipse and ball2Complement (:717-895, with
-interactionFactory's aliases), constantFractionalLaplacianScaling (:901),
-constantIntegrableScaling (:917) for the indicator, peridynamic, gaussian
-and exponential kernels, Kernel and FractionalKernel (:1031, :1249) with
-the gaussian and exponential boundary kernels (:1182-1199),
-getFractionalKernel (:1681, an admissibleSet order to the ranged kernel
-of nl/operator_interpolation.py), getIntegrableKernel (:1728) and
-kernelFactory (:1853-1856: 'fractional', 'greens2D', 'greens3D').
+interactionFactory's aliases), constantFractionalLaplacianScaling (:901,
+with its tempered branch), constantIntegrableScaling (:917), Kernel and
+FractionalKernel (:1031, :1249) with the gaussian and exponential boundary
+kernels (:1182-1199), getFractionalKernel (:1681, an admissibleSet order to
+the ranged kernel of nl/operator_interpolation.py), getIntegrableKernel
+(:1728) and kernelFactory (:1853-1856: 'fractional', 'greens2D', 'greens3D').
 
 Every kernel here is a radial profile gamma(r2) (Kernel._radialJax,
-:1089-1121), times the interaction indicator for a finite horizon.  The
-device kernels take the profile as :class:`Profile` (code, C, e, a) from
-:meth:`Kernel.profileParams` and evaluate it as :func:`radialEval` does,
+:1089-1128), times the interaction indicator for a finite horizon.  The
+device kernels take the profile as :class:`Profile` (code, C, e, a, C1, C2,
+t, wcode, wlam) from :meth:`Kernel.profileParams` and evaluate it as
+:func:`radialEval` does,
 gamma = 0 at r2 = 0 exactly as ``_radial_eval`` (nl/assembly.py) does; the
 indicator comes as an :class:`Indicator` (code, horizon^2, T) from
 :meth:`Kernel.indicatorParams`, evaluated as :func:`indicatorMask` does,
@@ -29,7 +33,7 @@ the horizon-corrected format (nl/assembly.py horizonCorrected).
 The profiles (r = sqrt(r2)):
 
   POWER              C r2^e      (fractional, indicator e = 0, peridynamic
-                                  e = -1/2)
+                                  e = -1/2, monomial e = p/2)
   GAUSSIAN           C exp(-a r2)
   EXPONENTIAL        C exp(-a r)
   GAUSSIAN_BOUNDARY  1D: C 1/2 sqrt(pi/a) erfc(sqrt(a) r)
@@ -37,6 +41,21 @@ The profiles (r = sqrt(r2)):
   EXPONENTIAL_BOUNDARY  1D: C/a exp(-a r);  2D: C exp(-a r) (r/a + 1/a^2) / r
   POWER_LOG          r2^e (C + C1 ln r2 + C2 ln^2 r2)   (the s-derivatives
                                   of a constant order, below)
+  LOG_INVERSE_DISTANCE  C ln(1 / r)
+  POLYNOMIAL         C (1 - r2 / a^2)^2
+
+The power and power-log values of a tempered kernel (``temperedLambda``,
+the profile's t) are multiplied by exp(-t r) (:1095-1096, :1480-1481).  A
+two-point weight phi(x, y) (``phi=`` of the kernel factories) is either
+smooth, the tempered exp(-lambda |x-y|), which multiplies the kernel at
+every quadrature node on the device (the profile's wcode and wlam, after
+the value: pynucleus_tpu/nl/assembly.py:54-64; the kernel's
+``phiDevice``), or piecewise constant (constant, leftRight, lambda,
+lookup, interface: the kernel's ``phi``), which the builder evaluates on
+the host at the cell centres of each cell pair and folds into the pair's
+volume factor, dropping the pairs of weight 0.  The boundary kernel of the
+zero-exterior term keeps the tempering and drops phi, as in the JAX
+package.
 
 The fractional orders (:115-204): const, and varconst, constantNonSym and
 leftRight (twoDomain, twoDomainNonSym), registered by name as
@@ -46,8 +65,8 @@ s(x, y) and the normalization C(d, s) of an infinite horizon
 (FractionalKernel.evalXY, :1290-1330), by :func:`evalXY` and, on the card,
 common.cuh kernelXY() from the order's :class:`OrderParams`; constantNonSym
 and leftRight are nonsymmetric.  A variable order with a finite horizon
-raises NotImplementedError.  A variable horizon delta(x) of a constant
-order (variableHorizonFractionalKernel, :1349, with an affine
+or a tempering raises NotImplementedError.  A variable horizon delta(x) of
+a constant order (variableHorizonFractionalKernel, :1349, with an affine
 :class:`horizonFunction`) is C(delta(x)) |x-y|^(-d-2s) 1{|x-y| <= delta(x)},
 nonsymmetric, evaluated by :func:`evalXY` and K19 from its own
 :class:`HorizonParams` (:meth:`Kernel.horizonParams`).
@@ -76,8 +95,12 @@ approximations of :func:`besselJ0Y0`, as the JAX program, not scipy's);
 greens3D, C exp(-greensLambda r) / r, the GREENS_3D profile, evaluated
 by :func:`radialEval` only (3D assembly raises in both packages).
 
-Tempered kernels and two-point weights (phi) raise NotImplementedError.  The tempered fractional, log-inverse-distance,
-monomial and polynomial profiles (:1095-1096, :1122-1128) are not ported.
+Where the JAX package drops a weight silently, the port raises: a
+``temperedLambda`` given to getFractionalKernel (the JAX factory swallows
+it; the FractionalKernel constructor takes it), phi with a variable
+horizon, a tempering of a variable order.  getIntegrableKernel's
+polynomial kernel raises too (the JAX factory sets its a to 0, so its
+values are infinite): build Kernel(dim, 'polynomial', ..., exponentParam=a).
 """
 from __future__ import annotations
 
@@ -93,7 +116,7 @@ from ..base.factory import factory
 __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'constantNonSymFractionalOrder', 'leftRightFractionalOrder',
            'fractionalOrderFactory', 'OrderParams', 'evalXY', 'orderEval',
-           'Kernel', 'FractionalKernel',
+           'FractionalKernel',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
            'fullSpace', 'ball2', 'ballInf', 'ball1', 'ellipse',
@@ -102,7 +125,13 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'horizonFunction', 'variableHorizonFractionalKernel',
            'HorizonParams', 'horizonArgs',
            'radialEval', 'Profile', 'FRACTIONAL', 'INDICATOR',
-           'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POWER', 'POWER_LOG',
+           'PERIDYNAMIC', 'GAUSSIAN', 'EXPONENTIAL', 'POLYNOMIAL',
+           'LOGINVERSEDISTANCE', 'MONOMIAL', 'POWER', 'POWER_LOG',
+           'LOG_INVERSE_DISTANCE_PROFILE', 'POLYNOMIAL_PROFILE',
+           'TWO_POINT_NONE', 'TWO_POINT_TEMPERED',
+           'twoPointFunction', 'constantTwoPoint', 'temperedTwoPoint',
+           'leftRightTwoPoint', 'lambdaTwoPoint', 'lookupTwoPoint',
+           'interfaceTwoPoint', 'twoPointFunctionFactory', 'Kernel',
            'DerivativeFractionalKernel', 'VectorFractionalKernel',
            'VectorParams', 'vectorTerms', 'vectorEval', 'vectorLogCoeffs',
            'ComplexKernel', 'getComplexKernel', 'getKernel', 'kernelFactory',
@@ -115,6 +144,9 @@ INDICATOR = 'indicator'
 PERIDYNAMIC = 'peridynamic'
 GAUSSIAN = 'gaussian'
 EXPONENTIAL = 'exponential'
+POLYNOMIAL = 'polynomial'
+LOGINVERSEDISTANCE = 'logInverseDistance'
+MONOMIAL = 'monomial'
 GREENS_2D = 'greens2D'
 GREENS_3D = 'greens3D'
 
@@ -132,22 +164,39 @@ POWER_LOG = 7
 # with lam = a + i e
 GREENS_2D_PROFILE = 8
 GREENS_3D_PROFILE = 9
-PROFILE_CODES = range(10)
+# C ln(1 / r) and C (1 - r2 / a^2)^2 (pynucleus_tpu/nl/kernels.py:1122-1128)
+LOG_INVERSE_DISTANCE_PROFILE = 10
+POLYNOMIAL_PROFILE = 11
+PROFILE_CODES = range(12)
 COMPLEX_PROFILES = (GREENS_2D_PROFILE, GREENS_3D_PROFILE)
+# the tempering multiplies these profiles' values
+TEMPERED_PROFILES = (POWER, POWER_LOG)
+
+# two-point weight codes, shared with kernels/csrc/common.cuh twoPoint():
+# none, or the tempered exp(-wlam |x-y|)
+TWO_POINT_NONE = 0
+TWO_POINT_TEMPERED = 1
 
 
 class Profile(NamedTuple):
     """A kernel's radial profile as the device kernels take it: its code
     and the parameters C (scaling), e (the power's exponent of r2), a (the
     gaussian's or exponential's rate; greens2D's wavenumber lam; greens3D's
-    Re lam, with e its Im lam) and C1, C2 (the POWER_LOG profile's
-    coefficients of ln r2 and ln^2 r2)."""
+    Re lam, with e its Im lam; the polynomial's radius), C1, C2 (the
+    POWER_LOG profile's coefficients of ln r2 and ln^2 r2), t (the
+    tempering lambda of the power and power-log profiles: their value
+    times exp(-t r)) and the smooth two-point weight (wcode, wlam): code
+    TWO_POINT_TEMPERED multiplies gamma by exp(-wlam |x-y|) after the
+    tempering."""
     code: int
     C: float
     e: float
     a: float
     C1: float = 0.0
     C2: float = 0.0
+    t: float = 0.0
+    wcode: int = TWO_POINT_NONE
+    wlam: float = 0.0
 
 
 # fractional order codes, shared with kernels/csrc/common.cuh kernelXY()
@@ -307,6 +356,205 @@ fractionalOrderFactory = {
     'twoDomainNonSym': leftRightFractionalOrder,
     'leftRight': leftRightFractionalOrder,
 }
+
+
+# -------------------------------------------------------- two-point weights
+
+class twoPointFunction:
+    """phi(x, y) weights multiplying the kernel (pynucleus_tpu/nl/
+    kernels.py:585-700).  ``smooth`` marks the weight that the device
+    kernels evaluate at every quadrature node (:meth:`deviceParams`, the
+    profile's wcode and wlam); the others are evaluated on the host at
+    cell centres by ``evalPairs`` (numpy)."""
+    symmetric = True
+    smooth = False
+
+    def evalPairs(self, x, y):
+        raise NotImplementedError()
+
+    def eval(self, x, y):
+        raise NotImplementedError()
+
+
+class constantTwoPoint(twoPointFunction):
+    """phi = const."""
+
+    def __init__(self, value=1.0):
+        self.value = float(value)
+
+    def evalPairs(self, x, y):
+        return np.full(np.atleast_2d(x).shape[0], self.value)
+
+    def eval(self, x, y):
+        return torch.full(torch.broadcast_shapes(x.shape[:-1], y.shape[:-1]),
+                          self.value, dtype=x.dtype, device=x.device)
+
+    def _key(self):
+        return ('constantTwoPoint', self.value)
+
+
+class temperedTwoPoint(twoPointFunction):
+    """phi = exp(-lambda |x-y|): the smooth weight, evaluated per
+    quadrature node on the device (code TWO_POINT_TEMPERED)."""
+    smooth = True
+
+    def __init__(self, lambdaCoeff, dim=None):
+        self.lambdaCoeff = float(lambdaCoeff)
+        self.dim = dim
+
+    def evalPairs(self, x, y):
+        r = np.linalg.norm(np.atleast_2d(x) - np.atleast_2d(y), axis=-1)
+        return np.exp(-self.lambdaCoeff * r)
+
+    def eval(self, x, y):
+        r = torch.sqrt(((x - y) ** 2).sum(-1))
+        return torch.exp(-self.lambdaCoeff * r)
+
+    def deviceParams(self):
+        """(wcode, wlam) of the device kernels' profile."""
+        return TWO_POINT_TEMPERED, self.lambdaCoeff
+
+    def _key(self):
+        return ('temperedTwoPoint', self.lambdaCoeff)
+
+
+class leftRightTwoPoint(twoPointFunction):
+    """phi = vll/vrr on same-side pairs, vlr/vrl across the interface (the
+    side of a point: x[0] <= interface).  Piecewise constant: evaluated on
+    the host at cell centres, as in the JAX package."""
+
+    def __init__(self, vll, vrr, vlr=None, vrl=None, interface=0.0):
+        self.vll, self.vrr = vll, vrr
+        self.vlr = vlr if vlr is not None else 0.5 * (vll + vrr)
+        self.vrl = vrl if vrl is not None else 0.5 * (vll + vrr)
+        self.interface = interface
+        self.symmetric = (self.vlr == self.vrl)
+
+    def evalPairs(self, x, y):
+        x0 = np.atleast_2d(x)[:, 0]
+        y0 = np.atleast_2d(y)[:, 0]
+        xl = x0 <= self.interface
+        yl = y0 <= self.interface
+        return np.where(xl & yl, self.vll,
+                        np.where(~xl & ~yl, self.vrr,
+                                 np.where(xl, self.vlr, self.vrl)))
+
+    def eval(self, x, y):
+        xl = x[..., 0] <= self.interface
+        yl = y[..., 0] <= self.interface
+
+        def v(a):
+            return torch.tensor(float(a), dtype=x.dtype, device=x.device)
+        return torch.where(xl & yl, v(self.vll),
+                           torch.where(~xl & ~yl, v(self.vrr),
+                                       torch.where(xl, v(self.vlr),
+                                                   v(self.vrl))))
+
+    def _key(self):
+        return ('leftRightTwoPoint', self.vll, self.vrr, self.vlr, self.vrl,
+                self.interface)
+
+
+class lambdaTwoPoint(twoPointFunction):
+    """phi from a python callable fun(x, y); host evaluation at cell
+    centers."""
+
+    def __init__(self, fun, symmetric=True):
+        self.fun = fun
+        self.symmetric = symmetric
+
+    def evalPairs(self, x, y):
+        x = np.atleast_2d(x)
+        y = np.atleast_2d(y)
+        return np.array([self.fun(x[k], y[k]) for k in range(x.shape[0])])
+
+    def _key(self):
+        return ('lambdaTwoPoint', id(self.fun))
+
+
+class lookupTwoPoint(twoPointFunction):
+    """phi(x, y) = (w(x)+w(y))/2 with w an FE vector (fem.lookup)."""
+
+    def __init__(self, vec):
+        from ..fem.lookup import lookupFunction
+        self.vec = vec
+        self._lookup = lookupFunction(vec.dm.mesh, vec.dm, vec)
+
+    def evalPairs(self, x, y):
+        return 0.5 * (self._lookup(np.atleast_2d(x))
+                      + self._lookup(np.atleast_2d(y)))
+
+    def _key(self):
+        return ('lookupTwoPoint', id(self.vec))
+
+
+class interfaceTwoPoint(twoPointFunction):
+    """Interface weight phi(x, y) for two-domain kernels: 1 within the own
+    subdomain, 0 within the other, 1/2 on pairs straddling the interface
+    that BOTH kernels can reach (pynucleus_tpu/nl/kernels.py:971-1025).
+    Piecewise constant with breakpoints at interface and interface -/+
+    horizon2/horizon1, so evaluation at cell centers is exact per cell pair
+    on a mesh aligned to them."""
+
+    def __init__(self, horizon1, horizon2, left, interface=0.0,
+                 stripLo=0.0, stripHi=1.0):
+        self.horizon1 = horizon1
+        self.horizon2 = horizon2
+        self.left = left
+        self.interface = interface
+        # in 2D the physical domains occupy the strip stripLo < y < stripHi;
+        # points outside it are exterior collar
+        self.stripLo = stripLo
+        self.stripHi = stripHi
+        self.symmetric = True
+
+    def _key(self):
+        return ('interfaceTwoPoint', self.horizon1, self.horizon2,
+                self.left, self.interface, self.stripLo, self.stripHi)
+
+    def evalPairs(self, x, y):
+        """x, y [P, dim] -> weights [P]."""
+        c = self.interface
+        x = np.atleast_2d(np.asarray(x))
+        y = np.atleast_2d(np.asarray(y))
+        x0, y0 = x[:, 0], y[:, 0]
+        if self.left:
+            w = np.full(len(x0), 0.5)
+            w = np.where((x0 <= c) & (y0 <= c), 1.0, w)
+            w = np.where((x0 > c) & (y0 > c), 0.0, w)
+            w = np.where((x0 <= c - self.horizon2) & (y0 > c), 1.0, w)
+            w = np.where((x0 > c) & (y0 <= c - self.horizon2), 1.0, w)
+        else:
+            w = np.full(len(x0), 0.5)
+            w = np.where((x0 >= c) & (y0 >= c), 1.0, w)
+            w = np.where((x0 < c) & (y0 < c), 0.0, w)
+            w = np.where((x0 >= c + self.horizon1) & (y0 < c), 1.0, w)
+            w = np.where((x0 < c) & (y0 >= c + self.horizon1), 1.0, w)
+        if x.shape[1] >= 2:
+            # strip-exterior points belong to the partner's kernel: weight 1
+            # iff the in-strip partner lies on this kernel's side
+            xin = (x[:, 1] > self.stripLo) & (x[:, 1] < self.stripHi)
+            yin = (y[:, 1] > self.stripLo) & (y[:, 1] < self.stripHi)
+            own = (lambda p0: p0 <= c) if self.left else (lambda p0: p0 >= c)
+            w = np.where(xin & ~yin, np.where(own(x0), 1.0, 0.0), w)
+            w = np.where(~xin & yin, np.where(own(y0), 1.0, 0.0), w)
+            w = np.where(~xin & ~yin, 0.0, w)
+        return w
+
+
+# name -> two-point function, with the aliases of pynucleus_tpu/nl/
+# kernels.py twoPointFunctionFactory (:704-712, :1027-1028)
+twoPointFunctionFactory = factory()
+twoPointFunctionFactory.register('constant', constantTwoPoint,
+                                 aliases=['const', 'constantTwoPoint'])
+twoPointFunctionFactory.register('tempered', temperedTwoPoint,
+                                 aliases=['temperedTwoPoint'])
+twoPointFunctionFactory.register('leftRight', leftRightTwoPoint,
+                                 aliases=['leftRightTwoPoint'])
+twoPointFunctionFactory.register('lambda', lambdaTwoPoint)
+twoPointFunctionFactory.register('lookup', lookupTwoPoint)
+twoPointFunctionFactory.register('interface', interfaceTwoPoint,
+                                 aliases=['interfaceTwoPoint'])
 
 
 # ------------------------------------------------------------- interactions
@@ -485,9 +733,11 @@ def dirNorm(d, code, T=IDENTITY_T):
 
 # --------------------------------------------------------------- scalings
 
-def constantFractionalLaplacianScaling(dim, s, horizon):
+def constantFractionalLaplacianScaling(dim, s, horizon, tempered=0.0):
     """Normalization so the operator converges to -Laplacian (includes the
-    bilinear-form 1/2)."""
+    bilinear-form 1/2); a tempered kernel of an infinite horizon (s != 1/2)
+    takes Gamma(d/2) / |Gamma(-2s)| / pi^(d/2) / 4 (pynucleus_tpu/nl/
+    kernels.py:911-914)."""
     if 1.0 < s < 2.0:
         s = s - 1.0
     if horizon <= 0 or s <= 0 or s >= 1:
@@ -495,14 +745,17 @@ def constantFractionalLaplacianScaling(dim, s, horizon):
     if horizon < np.inf:
         return (2.0 - 2 * s) * horizon ** (2 * s - 2.0) * dim \
             * Gamma(0.5 * dim) / np.pi ** (0.5 * dim) * 0.5
-    return 2.0 ** (2.0 * s) * s * Gamma(s + 0.5 * dim) \
-        / np.pi ** (0.5 * dim) / Gamma(1.0 - s) * 0.5
+    if tempered == 0.0 or s == 0.5:
+        return 2.0 ** (2.0 * s) * s * Gamma(s + 0.5 * dim) \
+            / np.pi ** (0.5 * dim) / Gamma(1.0 - s) * 0.5
+    return Gamma(0.5 * dim) / abs(Gamma(-2 * s)) / np.pi ** (0.5 * dim) * 0.25
 
 
 def constantIntegrableScaling(kType, interaction, dim, horizon,
                               gaussian_variance=1.0, exponentialRate=1.0):
     """Second-moment normalizations of the integrable kernels (includes
-    the bilinear-form 1/2)."""
+    the bilinear-form 1/2; pynucleus_tpu/nl/kernels.py:917-965)."""
+    from scipy.special import erf
     if horizon <= 0:
         return np.nan
     if kType == INDICATOR:
@@ -523,19 +776,33 @@ def constantIntegrableScaling(kType, interaction, dim, horizon,
         if dim == 2 and isinstance(interaction, ball2):
             return 6.0 / np.pi / horizon ** 3 / 2.0
         raise NotImplementedError((kType, dim))
-    if kType in (GAUSSIAN, EXPONENTIAL) and horizon < np.inf:
-        raise NotImplementedError(
-            f'the {kType} kernel of a finite horizon is not ported')
     if kType == GAUSSIAN:
         if dim == 1:
+            if horizon < np.inf:
+                return 4.0 / np.sqrt(np.pi) / (erf(3.0) - 6.0 * np.exp(-9.0)
+                                               / np.sqrt(np.pi)) \
+                    / (horizon / 3.0) ** 3 / 2.0
             return 1.0 / np.sqrt(2.0 * np.pi * gaussian_variance) / 2.0
-        if dim == 2 and isinstance(interaction, fullSpace):
-            return 1.0 / (2.0 * np.pi * gaussian_variance) / 2.0
+        if dim == 2:
+            if isinstance(interaction, ball2) and horizon < np.inf:
+                return 4.0 / np.pi / (1.0 - 10.0 * np.exp(-9.0)) \
+                    / (horizon / 3.0) ** 4 / 2.0
+            if isinstance(interaction, fullSpace):
+                return 1.0 / (2.0 * np.pi * gaussian_variance) / 2.0
         raise NotImplementedError((kType, dim))
     if kType == EXPONENTIAL:
         if dim == 1:
+            if horizon < np.inf:
+                return exponentialRate ** 3 / (
+                    2.0 - np.exp(-exponentialRate * horizon)
+                    * (2.0 + 2.0 * exponentialRate * horizon
+                       + (exponentialRate * horizon) ** 2)) / 2.0
             return exponentialRate ** 3 / 2.0 / 2.0
         raise NotImplementedError((kType, dim))
+    if kType == POLYNOMIAL:
+        return 0.5
+    if kType == LOGINVERSEDISTANCE:
+        return 1.0
     raise NotImplementedError(kType)
 
 
@@ -544,9 +811,14 @@ def constantIntegrableScaling(kType, interaction, dim, horizon,
 class Kernel:
     """gamma(x, y) = the radial profile of kernelType (scalingValue *
     |x-y|^singularityValue for the fractional, indicator and peridynamic
-    kernels; C exp(-a r^2) and C exp(-a r) for the gaussian and the
-    exponential, a = exponentParam), times the interaction indicator for a
-    finite horizon (symmetric, constant coefficients)."""
+    kernels, times exp(-temperedLambda |x-y|) for a tempered fractional
+    one; C exp(-a r^2) and C exp(-a r) for the gaussian and the
+    exponential, a = exponentParam; C ln(1/r), C r^monomialPower and C (1 -
+    r^2/a^2)^2 for the log-inverse-distance, monomial and polynomial
+    types), times the interaction indicator for a finite horizon and the
+    two-point weight: the smooth ``phiDevice`` (a temperedTwoPoint, per
+    quadrature node) or the host ``phi`` (per cell pair, at the cell
+    centres); symmetric, constant coefficients."""
 
     isComplex = False
     variable = False
@@ -554,10 +826,11 @@ class Kernel:
     variableHorizon = False
     symmetric = True
     phi = None
+    phiDevice = None
 
     def __init__(self, dim, kernelType, horizon, interaction, scalingValue,
                  singularityValue, boundary=False, exponentParam=0.0,
-                 variance=1.0):
+                 variance=1.0, temperedLambda=0.0, monomialPower=0.0):
         self.dim = dim
         self.kernelType = kernelType
         self.horizonValue = float(horizon)
@@ -569,7 +842,42 @@ class Kernel:
         self.boundary = boundary
         self.exponentParam = float(exponentParam)
         self.variance = float(variance)
+        self.temperedLambda = float(temperedLambda)
+        self.monomialPower = float(monomialPower)
         self.complement = self.interaction.complement
+
+    def setTwoPoint(self, phi):
+        """Attach the two-point weight phi (or None): a smooth one as the
+        device weight ``phiDevice``, any other as the host ``phi``, as the
+        JAX factories set phiJax and phi."""
+        if phi is None:
+            return self
+        if not hasattr(phi, 'evalPairs'):
+            raise TypeError(f'phi must be a two-point function '
+                            f'(twoPointFunctionFactory), got {phi!r}')
+        if getattr(phi, 'smooth', False):
+            self.phiDevice = phi
+        else:
+            self.phi = phi
+        return self
+
+    def hasWeight(self):
+        """Whether a two-point weight or a tempering multiplies gamma."""
+        return self.phi is not None or self.phiDevice is not None \
+            or self.temperedLambda != 0.0
+
+    def _key(self):
+        """Value identity of the kernel (pynucleus_tpu/nl/kernels.py
+        Kernel._key): its parameters, the interaction's type, and the
+        two-point weights' keys."""
+        return (type(self).__name__, self.dim, self.kernelType,
+                self.horizonValue, self.scalingValue, self.singularityValue,
+                self.boundary, self.symmetric, self.temperedLambda,
+                self.exponentParam, self.monomialPower, self.variance,
+                type(self.interaction).__name__, self.complement,
+                self.phi._key() if self.phi is not None else None,
+                self.phiDevice._key() if self.phiDevice is not None
+                else None)
 
     @property
     def finiteHorizon(self):
@@ -578,14 +886,34 @@ class Kernel:
     def getSingularityValue(self):
         return self.singularityValue
 
+    def weightParams(self):
+        """(wcode, wlam) of the smooth two-point weight (none: code 0)."""
+        if self.phiDevice is None:
+            return TWO_POINT_NONE, 0.0
+        return self.phiDevice.deviceParams()
+
     def profileParams(self):
-        """The radial profile (code, C, e, a) that the device kernels and
-        their plain versions evaluate (:func:`radialEval`)."""
+        """The radial profile (code, C, e, a, C1, C2, t, wcode, wlam) that
+        the device kernels and their plain versions evaluate
+        (:func:`radialEval`): the fractional kernel's tempering is t (the
+        other types' _radialJax branches take none), the smooth two-point
+        weight (wcode, wlam)."""
         t, C, a = self.kernelType, self.scalingValue, self.exponentParam
-        if t in (FRACTIONAL, INDICATOR, PERIDYNAMIC):
-            return Profile(POWER, C, 0.5 * self.singularityValue, 0.0)
+        w = self.weightParams()
+        if t == FRACTIONAL:
+            return Profile(POWER, C, 0.5 * self.singularityValue, 0.0,
+                           t=self.temperedLambda, wcode=w[0], wlam=w[1])
+        if t in (INDICATOR, PERIDYNAMIC):
+            return Profile(POWER, C, 0.5 * self.singularityValue, 0.0,
+                           wcode=w[0], wlam=w[1])
+        if t == MONOMIAL:
+            # C r2^(p/2): the power profile's operations
+            return Profile(POWER, C, 0.5 * self.monomialPower, 0.0,
+                           wcode=w[0], wlam=w[1])
         code = {GAUSSIAN: GAUSSIAN_PROFILE,
                 EXPONENTIAL: EXPONENTIAL_PROFILE,
+                LOGINVERSEDISTANCE: LOG_INVERSE_DISTANCE_PROFILE,
+                POLYNOMIAL: POLYNOMIAL_PROFILE,
                 GAUSSIAN + 'Boundary': (GAUSSIAN_BOUNDARY_1D, GAUSSIAN_BOUNDARY_2D),
                 EXPONENTIAL + 'Boundary': (EXPONENTIAL_BOUNDARY_1D,
                                            EXPONENTIAL_BOUNDARY_2D)}.get(t)
@@ -593,7 +921,7 @@ class Kernel:
             raise NotImplementedError(f'the radial profile of {t}')
         if isinstance(code, tuple):
             code = code[0] if self.dim == 1 else code[1]
-        return Profile(code, C, 0.0, a)
+        return Profile(code, C, 0.0, a, wcode=w[0], wlam=w[1])
 
     def getBoundaryKernel(self):
         """Kernel of the Gauss-theorem elimination of the exterior: for the
@@ -670,7 +998,11 @@ class Kernel:
         horizon^2, the Euclidean ball of any interaction) and inside a
         complement kernel's (r2 < horizon^2).  A point at the horizon
         exactly keeps its value here and not in :meth:`eval`, as in the
-        JAX package; the other profiles evaluate through :meth:`eval`."""
+        JAX package; the other profiles evaluate through :meth:`eval`.  A
+        tempered kernel is multiplied by exp(-lambda |x-y|), a host weight
+        phi by its value at (x, y).  The smooth weight enters through
+        :meth:`eval` only (the JAX package's __call__ evaluates phiJax only
+        for the other profiles)."""
         x = np.atleast_2d(np.asarray(x, dtype=np.float64))
         y = np.atleast_2d(np.asarray(y, dtype=np.float64))
         r2 = float(((x - y) ** 2).sum())
@@ -680,17 +1012,24 @@ class Kernel:
             if r2 == 0.0:
                 return 0.0
             val = C * r2 ** (0.5 * self.singularityValue)
+            if self.temperedLambda != 0.0:
+                val *= np.exp(-self.temperedLambda * np.sqrt(r2))
         elif t == INDICATOR:
             val = C
         elif t == PERIDYNAMIC:
             val = C * r2 ** -0.5
         else:
-            return float(self.eval(torch.as_tensor(x), torch.as_tensor(y))
-                         .reshape(-1)[0])
+            val = float(self.eval(torch.as_tensor(x), torch.as_tensor(y))
+                        .reshape(-1)[0])
+            if self.phi is not None:
+                val = val * float(self.phi.evalPairs(x, y)[0])
+            return val
         if self.finiteHorizon and r2 > self.horizonValue ** 2:
             val = 0.0
         if self.complement and r2 < self.horizonValue ** 2:
             val = 0.0
+        if self.phi is not None:
+            val = val * float(self.phi.evalPairs(x, y)[0])
         return float(val)
 
     def __repr__(self):
@@ -705,10 +1044,13 @@ class FractionalKernel(Kernel):
     (``variable``: constantNonSym, leftRight) gamma(x, y) = C(d, s)
     |x-y|^(-d-2s) with s = s(x, y) and C(d, s) evaluated per quadrature node
     (pynucleus_tpu/nl/kernels.py:1249-1330 FractionalKernel).  A varconst
-    order sets ``variableOrder`` but stays a radial profile."""
+    order sets ``variableOrder`` but stays a radial profile.  With
+    ``temperedLambda`` the kernel of a constant order is tempered, gamma
+    times exp(-lambda |x-y|), normalized by the tempered scaling of an
+    infinite horizon; the boundary kernel keeps the tempering."""
 
     def __init__(self, dim, s, horizon=np.inf, interaction=None, scaling=None,
-                 normalized=True, boundary=False):
+                 normalized=True, boundary=False, temperedLambda=0.0):
         if not isinstance(s, fractionalOrderBase):
             s = constFractionalOrder(s)
         self.s = s
@@ -716,16 +1058,21 @@ class FractionalKernel(Kernel):
         sval = s.value if hasattr(s, 'value') else 0.5 * (s.min + s.max)
         if scaling is None:
             scaling = constantFractionalLaplacianScaling(
-                dim, sval, float(horizon)) if normalized else 0.5
+                dim, sval, float(horizon), temperedLambda) if normalized \
+                else 0.5
         super().__init__(dim, FRACTIONAL, horizon, interaction, scaling,
                          (1 if boundary else 0) - dim - 2 * sval,
-                         boundary=boundary)
+                         boundary=boundary, temperedLambda=temperedLambda)
         self.symmetric = s.symmetric
         self.variable = self.variableOrder and not isinstance(
             s, variableConstFractionalOrder)
         if self.variable and self.horizonValue != np.inf:
             raise NotImplementedError('a variable order with a finite '
                                       'horizon')
+        if self.variable and self.temperedLambda != 0.0:
+            # the JAX package's variable-order evalXY drops the tempering
+            raise NotImplementedError('a tempered kernel of a variable '
+                                      'order')
         self.min_singularity = (1 if boundary else 0) - dim - 2 * s.max
         self.max_singularity = (1 if boundary else 0) - dim - 2 * s.min
 
@@ -745,7 +1092,13 @@ class FractionalKernel(Kernel):
         scal = self.scalingValue / self.s.value \
             if hasattr(self.s, 'value') else 1.0
         return FractionalKernel(self.dim, self.s, horizon=self.horizonValue,
-                                scaling=scal, boundary=True)
+                                scaling=scal, boundary=True,
+                                temperedLambda=self.temperedLambda)
+
+    def _key(self):
+        skey = self.s._key() if hasattr(self.s, '_key') else \
+            ('s', getattr(self.s, 'value', None))
+        return super()._key() + (self.variableOrder, self.variable) + skey
 
 
 class horizonFunction:
@@ -870,13 +1223,15 @@ class DerivativeFractionalKernel(FractionalKernel):
         g'' = r2^e (C'' - 2 C' ln r2 + C ln^2 r2),     e = -d/2-s
 
     the POWER_LOG profile (:meth:`profileParams`), evaluated by
-    :meth:`radial`.  valueSize 1."""
+    :meth:`radial`; with ``temperedLambda`` times exp(-lambda r) (the JAX
+    _gOfS tempers the kernel, not its boundary kernel).  valueSize 1."""
 
     def __init__(self, dim, s, horizon=np.inf, interaction=None,
-                 normalized=True, boundary=False, derivative=1):
+                 normalized=True, boundary=False, derivative=1,
+                 temperedLambda=0.0):
         _checkDerivative(horizon, derivative)
         super().__init__(dim, s, horizon, interaction, normalized=normalized,
-                         boundary=boundary)
+                         boundary=boundary, temperedLambda=temperedLambda)
         if self.variable:
             raise NotImplementedError('derivative kernels of a variable '
                                       'order: a leftRight order gives a '
@@ -890,15 +1245,35 @@ class DerivativeFractionalKernel(FractionalKernel):
         _radial_eval)."""
         return radialEval(r2, self.profileParams())
 
+    def __call__(self, x, y):
+        """Pointwise host evaluation of g^(k) (pynucleus_tpu/nl/kernels.py
+        DerivativeFractionalKernel.__call__): 0 at x == y, beyond a finite
+        horizon and inside a complement kernel's; the host weight phi
+        multiplies it (the smooth one does not, as there)."""
+        x = np.atleast_2d(np.asarray(x, dtype=np.float64))
+        y = np.atleast_2d(np.asarray(y, dtype=np.float64))
+        r2 = float(((x - y) ** 2).sum())
+        if r2 == 0.0 or (self.finiteHorizon and r2 > self.horizonValue ** 2) \
+                or (self.complement and r2 < self.horizonValue ** 2):
+            return 0.0
+        prof = self.profileParams()._replace(wcode=TWO_POINT_NONE, wlam=0.0)
+        val = float(radialEval(torch.tensor([r2], dtype=torch.float64),
+                               prof)[0])
+        if self.phi is not None:
+            val = val * float(self.phi.evalPairs(x, y)[0])
+        return val
+
     def profileParams(self):
         """Profile(POWER_LOG, C0, e, 0, C1, C2): g^(k) = r2^e (C0 + C1 ln r2
         + C2 ln^2 r2) from C, C', C'' at s."""
         C, dC, d2C = _prefactorDerivatives(self.dim, self.sValue,
                                            self.normalized, self.boundary)
         e = _exponentBase(self.dim, self.boundary) - self.sValue
+        t = 0.0 if self.boundary else self.temperedLambda
+        w = self.weightParams()
         if self.derivative == 1:
-            return Profile(POWER_LOG, dC, e, 0.0, -C, 0.0)
-        return Profile(POWER_LOG, d2C, e, 0.0, -2.0 * dC, C)
+            return Profile(POWER_LOG, dC, e, 0.0, -C, 0.0, t, *w)
+        return Profile(POWER_LOG, d2C, e, 0.0, -2.0 * dC, C, t, *w)
 
     def getBoundaryKernel(self):
         """d^k/ds^k of the boundary kernel C(s)/s r2^((1-d)/2-s), the
@@ -906,7 +1281,7 @@ class DerivativeFractionalKernel(FractionalKernel):
         return DerivativeFractionalKernel(
             self.dim, self.s, horizon=self.horizonValue,
             normalized=self.normalized, boundary=True,
-            derivative=self.derivative)
+            derivative=self.derivative, temperedLambda=self.temperedLambda)
 
 
 class VectorParams(NamedTuple):
@@ -1089,44 +1464,69 @@ def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
     parameters, else a :class:`DerivativeFractionalKernel`.  An order
     ranging over an ``admissibleSet`` gives a ``RangedFractionalKernel``
     (nl/operator_interpolation.py), which takes ``kwargs`` (errorBound,
-    M_min, M_max, xi), as pynucleus_tpu/nl/kernels.py:1685-1688."""
+    M_min, M_max, xi), as pynucleus_tpu/nl/kernels.py:1685-1688.  ``phi``
+    is a two-point weight (:meth:`Kernel.setTwoPoint`)."""
     from .operator_interpolation import admissibleSet, RangedFractionalKernel
     if isinstance(s, admissibleSet):
+        if phi is not None or temperedLambda != 0.0:
+            raise NotImplementedError('a two-point weight or tempering of '
+                                      'a ranged kernel (the JAX factory '
+                                      'drops them)')
         return RangedFractionalKernel(dim, s, horizon=horizon,
                                       normalized=normalized, **kwargs)
     if kwargs:
         raise TypeError(f'getFractionalKernel: unexpected {sorted(kwargs)}')
-    if phi is not None or temperedLambda != 0.0:
-        raise NotImplementedError('two-point weights (phi) and tempered '
-                                  'kernels are not ported')
+    if temperedLambda != 0.0:
+        # the JAX getFractionalKernel takes the argument in its **kwargs and
+        # never passes it on: its kernel is not tempered
+        raise NotImplementedError(
+            'getFractionalKernel does not temper (the JAX factory drops '
+            'temperedLambda); build FractionalKernel(dim, s, horizon, '
+            'temperedLambda=...) instead')
     if not isinstance(s, fractionalOrderBase):
         s = constFractionalOrder(s)
     if isinstance(horizon, horizonFunction) or callable(horizon):
         # a function-valued horizon (pynucleus_tpu/nl/kernels.py:1691-1697)
+        if phi is not None:
+            raise NotImplementedError('a two-point weight with a variable '
+                                      'horizon (the JAX factory drops it)')
         return variableHorizonFractionalKernel(dim, s, horizon,
                                                normalized=normalized)
     hv = float(horizon)
     if interaction is None:
         interaction = fullSpace() if hv == np.inf else ball2()
     if derivative:
-        cls = VectorFractionalKernel if s.numParameters > 1 else \
-            DerivativeFractionalKernel
-        return cls(dim, s, hv, interaction, normalized=normalized,
-                   derivative=derivative)
+        if s.numParameters > 1:
+            if phi is not None:
+                raise NotImplementedError('a two-point weight of a vector '
+                                          'kernel (the JAX factory drops '
+                                          'it)')
+            return VectorFractionalKernel(dim, s, hv, interaction,
+                                          normalized=normalized,
+                                          derivative=derivative)
+        return DerivativeFractionalKernel(
+            dim, s, hv, interaction, normalized=normalized,
+            derivative=derivative).setTwoPoint(phi)
     return FractionalKernel(dim, s, hv, interaction, scaling,
-                            normalized=normalized)
+                            normalized=normalized).setTwoPoint(phi)
 
 
 def getIntegrableKernel(dim, kernel, horizon, interaction=None, scaling=None,
-                        normalized=True, gaussian_variance=1.0,
+                        normalized=True, phi=None, gaussian_variance=1.0,
                         exponentialRate=1.0):
     """The indicator (gamma = C) or peridynamic (gamma = C / |x-y|) kernel of
-    a finite horizon, or the gaussian (C exp(-a |x-y|^2), a = 1 / (2
-    variance^dim)) or exponential (C exp(-rate |x-y|)) kernel of an infinite
-    one."""
+    a finite horizon, the gaussian (C exp(-a |x-y|^2); a = 1 / (delta/3)^2
+    for a finite horizon delta, else 1 / (2 variance^dim)) or exponential
+    (C exp(-rate |x-y|)) kernel, or the log-inverse-distance kernel (C
+    ln(1/|x-y|)), with the two-point weight ``phi``
+    (pynucleus_tpu/nl/kernels.py:1728-1758).  The polynomial kernel raises:
+    the JAX factory gives it a = 0 (infinite values)."""
     hv = float(horizon)
-    if kernel in (GAUSSIAN, EXPONENTIAL) and hv < np.inf:
-        raise NotImplementedError(f'{kernel} kernel with a finite horizon')
+    if kernel == POLYNOMIAL:
+        raise NotImplementedError(
+            'getIntegrableKernel sets the polynomial kernel\'s a to 0 in the '
+            'JAX package (infinite values); build Kernel(dim, '
+            '"polynomial", horizon, interaction, C, 0.0, exponentParam=a)')
     if interaction is None:
         interaction = fullSpace() if hv == np.inf else ball2()
     if scaling is None:
@@ -1134,14 +1534,16 @@ def getIntegrableKernel(dim, kernel, horizon, interaction=None, scaling=None,
             kernel, interaction, dim, hv, gaussian_variance=gaussian_variance,
             exponentialRate=exponentialRate) if normalized else 0.5
     sing = {INDICATOR: 0.0, PERIDYNAMIC: -1.0, GAUSSIAN: 0.0,
-            EXPONENTIAL: 0.0}[kernel]
+            EXPONENTIAL: 0.0, LOGINVERSEDISTANCE: 0.0}[kernel]
     exponentParam = 0.0
     if kernel == GAUSSIAN:
-        exponentParam = 0.5 / gaussian_variance ** dim
+        exponentParam = (1.0 / (hv / 3.0) ** 2 if hv < np.inf
+                         else 0.5 / gaussian_variance ** dim)
     elif kernel == EXPONENTIAL:
         exponentParam = exponentialRate
     return Kernel(dim, kernel, hv, interaction, scaling, sing,
-                  exponentParam=exponentParam, variance=gaussian_variance)
+                  exponentParam=exponentParam,
+                  variance=gaussian_variance).setTwoPoint(phi)
 
 
 class ComplexKernel(Kernel):
@@ -1163,7 +1565,7 @@ class ComplexKernel(Kernel):
     isComplex = True
 
     def __init__(self, dim, kernelType, horizon=np.inf, interaction=None,
-                 scaling=1.0, greensLambda=1.0j):
+                 scaling=1.0, greensLambda=1.0j, phi=None):
         if kernelType == GREENS_2D:
             if dim != 2:
                 raise ValueError('greens2D kernel needs dim=2')
@@ -1180,12 +1582,16 @@ class ComplexKernel(Kernel):
         super().__init__(dim, kernelType, hv, interaction, float(scaling),
                          sing)
         self.greensLambda = complex(greensLambda)
+        self.setTwoPoint(phi)
 
     def profileParams(self):
         lam, C = self.greensLambda, self.scalingValue
+        w = self.weightParams()
         if self.kernelType == GREENS_2D:
-            return Profile(GREENS_2D_PROFILE, C, 0.0, -lam.imag)
-        return Profile(GREENS_3D_PROFILE, C, lam.imag, lam.real)
+            return Profile(GREENS_2D_PROFILE, C, 0.0, -lam.imag, wcode=w[0],
+                           wlam=w[1])
+        return Profile(GREENS_3D_PROFILE, C, lam.imag, lam.real, wcode=w[0],
+                       wlam=w[1])
 
     def __call__(self, x, y):
         """Host evaluation with scipy's exact Bessel functions (the JAX
@@ -1201,7 +1607,12 @@ class ComplexKernel(Kernel):
             val = C * 1j * hankel1(0.0, -self.greensLambda.imag * r)
         else:
             val = C * np.exp(-self.greensLambda * r) / r
+        if self.phi is not None:
+            val = val * float(self.phi.evalPairs(x, y)[0])
         return complex(val)
+
+    def _key(self):
+        return super()._key() + (self.greensLambda,)
 
     def getBoundaryKernel(self):
         raise NotImplementedError('boundary kernel not defined for complex '
@@ -1216,12 +1627,11 @@ class ComplexKernel(Kernel):
 def getComplexKernel(dim, kernel=GREENS_2D, greensLambda=1.0j,
                      horizon=np.inf, interaction=None, scaling=1.0,
                      phi=None):
-    """The complex Greens kernel ``kernel`` (GREENS_2D or GREENS_3D)."""
-    if phi is not None:
-        raise NotImplementedError('two-point weights (phi) are not ported')
+    """The complex Greens kernel ``kernel`` (GREENS_2D or GREENS_3D), with
+    the two-point weight ``phi``."""
     return ComplexKernel(dim, kernel, horizon=horizon,
                          interaction=interaction, scaling=scaling,
-                         greensLambda=greensLambda)
+                         greensLambda=greensLambda, phi=phi)
 
 
 def getKernel(dim, kernel=FRACTIONAL, **kwargs):
@@ -1243,13 +1653,31 @@ kernelFactory.register(GREENS_3D, lambda dim, **kw: getComplexKernel(
 
 
 def profileArgs(prof):
-    """(code, C, e, a, C1, C2) of a :class:`Profile` as the C entry points
-    take them; anything else (such as a bare (C, e)) raises."""
+    """(code, C, e, a, C1, C2, t, wcode, wlam) of a :class:`Profile` as the
+    C entry points take them; anything else (such as a bare (C, e)), a
+    tempering of a profile that takes none or an unknown two-point code
+    raises."""
     if not isinstance(prof, Profile) or int(prof.code) not in PROFILE_CODES:
-        raise ValueError(f'a radial Profile (code, C, e, a, C1, C2) is '
-                         f'expected, got {prof!r}')
+        raise ValueError(f'a radial Profile (code, C, e, a, C1, C2, t, '
+                         f'wcode, wlam) is expected, got {prof!r}')
+    if float(prof.t) != 0.0 and int(prof.code) not in TEMPERED_PROFILES:
+        raise ValueError(f'profile {prof.code}: only the power and '
+                         'power-log profiles are tempered')
+    if int(prof.wcode) not in (TWO_POINT_NONE, TWO_POINT_TEMPERED):
+        raise ValueError(f'two-point code {prof.wcode}: 0 (none) or 1 '
+                         '(tempered)')
     return (int(prof.code), float(prof.C), float(prof.e), float(prof.a),
-            float(prof.C1), float(prof.C2))
+            float(prof.C1), float(prof.C2), float(prof.t), int(prof.wcode),
+            float(prof.wlam))
+
+
+def _twoPoint(val, r2s, wcode, wlam):
+    """val times the smooth two-point weight at r2s = |x-y|^2: exp(-wlam
+    |x-y|) for TWO_POINT_TEMPERED (temperedTwoPoint.jaxEval after the
+    kernel's value, pynucleus_tpu/nl/assembly.py:58-62), else val."""
+    if wcode == TWO_POINT_TEMPERED:
+        return val * torch.exp(-wlam * torch.sqrt(r2s))
+    return val
 
 
 def besselJ0Y0(x):
@@ -1285,12 +1713,14 @@ def radialEval(r2, prof):
     """gamma(r2) of the radial profile ``prof`` (:class:`Profile`), and
     exactly 0 where r2 == 0 (coincident quadrature points of the singular
     rules), as pynucleus_tpu/nl/assembly.py _radial_eval evaluates
-    Kernel._radialJax: the same operations in the same order.  The complex
+    Kernel._radialJax: the same operations in the same order, the power
+    and power-log values times exp(-t r) where t != 0 (the tempering), then
+    times the smooth two-point weight of (wcode, wlam).  The complex
     profiles give complex128 values (ComplexKernel._radialJax):
 
         GREENS_2D  C (-Y0(a r) + i J0(a r))          (besselJ0Y0)
         GREENS_3D  C exp(-a r) (cos(e r) - i sin(e r)) / r"""
-    code, C, e, a, C1, C2 = profileArgs(prof)
+    code, C, e, a, C1, C2, t, wcode, wlam = profileArgs(prof)
     pos = r2 > 0
     r2s = torch.where(pos, r2, 1.0)
     if code in COMPLEX_PROFILES:
@@ -1302,6 +1732,7 @@ def radialEval(r2, prof):
             mag = C * torch.exp(-a * r)
             val = torch.complex(mag * torch.cos(e * r) / r,
                                 -(mag * torch.sin(e * r)) / r)
+        val = _twoPoint(val, r2s, wcode, wlam)
         return torch.where(pos, val, torch.zeros((), dtype=val.dtype))
     if code == POWER:
         val = C * r2s ** e
@@ -1319,9 +1750,17 @@ def radialEval(r2, prof):
     elif code == POWER_LOG:
         L = torch.log(r2s)
         val = r2s ** e * ((C + C1 * L) + C2 * (L * L))
+    elif code == LOG_INVERSE_DISTANCE_PROFILE:
+        val = C * torch.log(1.0 / torch.sqrt(r2s))
+    elif code == POLYNOMIAL_PROFILE:
+        q = 1.0 - r2s / a ** 2
+        val = C * (q * q)
     else:
         r = torch.sqrt(r2s)
         val = C * torch.exp(-a * r) * (r / a + 1.0 / a ** 2) / r
+    if t != 0.0:
+        val = val * torch.exp(-t * torch.sqrt(r2s))
+    val = _twoPoint(val, r2s, wcode, wlam)
     return torch.where(pos, val, 0.0)
 
 
@@ -1415,4 +1854,6 @@ def evalXY(x, y, r2, prof, order=None, horizon=None):
         val = (C / sv) * r2s ** (eBase - sv)
     else:
         val = C * r2s ** (eBase - sv)
+    _, _, _, _, _, _, _, wcode, wlam = profileArgs(prof)
+    val = _twoPoint(val, r2s, wcode, wlam)
     return torch.where(pos, val, 0.0)

@@ -1,7 +1,8 @@
 """Nonlocal problems: the fractional Laplacian on the interval and the disc
 (infinite horizon), the finite-horizon nonlocal Poisson problems on the
-interval and the square with an interaction collar, and the gaussian and
-exponential kernels' problems of an infinite horizon.
+interval and the square with an interaction collar (the constant,
+inverseDistance, fractional, gaussian and exponential kernels), and the
+gaussian and exponential kernels' problems of an infinite horizon.
 
 Port of pynucleus_tpu/nl/problems.py as plain functions (the ``@generates``
 DAG of the JAX package's drivers is not ported): the infinite-horizon

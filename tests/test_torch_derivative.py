@@ -314,7 +314,8 @@ def test_not_ported_raise():
         tker.getFractionalKernel(1, LR, horizon=0.5, derivative=1)
     with pytest.raises(NotImplementedError):
         tker.getFractionalKernel(1, 0.75, derivative=1, temperedLambda=1.0)
-    with pytest.raises(NotImplementedError):
+    # a two-point weight is a two-point function, not a bare callable
+    with pytest.raises(TypeError):
         tker.getFractionalKernel(1, 0.75, derivative=1, phi=lambda x, y: 1.0)
     with pytest.raises(NotImplementedError):
         tker.getFractionalKernel(

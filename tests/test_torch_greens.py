@@ -139,7 +139,8 @@ def test_host_call_and_attributes_match_jax():
             assert abs(got - ref) <= 1e-14 * max(abs(ref), 1e-300)
         with pytest.raises(NotImplementedError):
             kt.getBoundaryKernel()
-    with pytest.raises(NotImplementedError):
+    # a two-point weight is a two-point function
+    with pytest.raises(TypeError):
         tk.getComplexKernel(2, greensLambda=LAM, phi=object())
 
 

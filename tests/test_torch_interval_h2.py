@@ -140,25 +140,30 @@ def test_smooth_kernels_match_jax(kind, dim, kw):
                                 a.exponentParam, a.variance)
         assert repr(b) == repr(a)
     assert tk.getBoundaryKernel().scalingValue == 2.0 * tk.scalingValue
-    with pytest.raises(NotImplementedError, match='finite horizon'):
+    # of a finite horizon: the JAX package's scaling and exponent
+    fj, ft = jInt(dim, kind, 0.5, **kw), \
         tker.getIntegrableKernel(dim, kind, 0.5, **kw)
+    assert (ft.scalingValue, ft.exponentParam, ft.horizonValue) == \
+        (fj.scalingValue, fj.exponentParam, fj.horizonValue)
 
 
 def test_no_fallback_for_other_profiles():
-    """K14 and K15 evaluate the power profile only and raise on any other;
-    a wrapper given a bare (C, e) instead of a Profile raises."""
+    """K14 and K15 evaluate the profiles of a finite horizon only and raise
+    on any other (here a boundary kernel's); a wrapper given a bare (C, e)
+    instead of a Profile raises."""
     prof = tker.getIntegrableKernel(1, 'gaussian', np.inf,
-                                    gaussian_variance=0.1).profileParams()
+                                    gaussian_variance=0.1) \
+        .getBoundaryKernel().profileParams()
     f64, i64 = torch.float64, torch.int64
     one = torch.ones(2, dtype=f64)
-    with pytest.raises(NotImplementedError, match='power profile'):
+    with pytest.raises(NotImplementedError, match='profile code'):
         tasm.cut1d(torch.zeros((2, 2), dtype=f64), 'dense',
                    torch.zeros((1, 4), dtype=i64),
                    torch.zeros((2, 1), dtype=f64),
                    torch.zeros((1, 2), dtype=i64),
                    torch.zeros((1, 2), dtype=i64), one[:1], one, one, one,
                    one, 0.2, prof)
-    with pytest.raises(NotImplementedError, match='power profile'):
+    with pytest.raises(NotImplementedError, match='profile code'):
         tasm.cut2d_polar(torch.zeros((3, 3), dtype=f64), 'dense',
                          torch.zeros((1, 6), dtype=i64),
                          torch.zeros((3, 2), dtype=f64),

@@ -132,7 +132,8 @@ def test_cpu_wrappers_count_no_launch():
     assert set(kernels.deviceLaunches) == set(kernels.KERNELS
                                               + kernels.COMPLEX
                                               + kernels.HORIZON
-                                              + kernels.FORMATS)
+                                              + kernels.FORMATS
+                                              + kernels.TWOPOINT)
     assert {'interp_matvec', 'matfree_apply'} <= set(kernels.deviceLaunches)
 
 
