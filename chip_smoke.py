@@ -254,6 +254,23 @@ result line):
      plain version (1e-12 of the largest entry).  Alone: `python -c
      'import chip_smoke as c; from pynucleus_tpu_torch import kernels;
      kernels.library(); c.phase21()'`.
+ 22. the manifold fractional kernel and the variable orders in 1D and
+     2D: the pins of scripts/pin_orders2d_jax.py (a path: the manifold
+     kernel at 64 and 256 dofs, each order of VO22_CASES on the interval
+     refined 4 times and on the square or the disc at noRef 2, per pair,
+     with the zero-exterior term, and the variableOrder driver at noRef 3;
+     1e-10); the driver at its defaults (a path: the circle at noRef 5,
+     3,969 dofs, innerOuter through K1, lu and cg; the square at noRef 5,
+     961 dofs, leftRight through K19, lu and gmres with the transpose; the
+     interval at noRef 8, its seven orders, lu), with each assembly's and
+     solve's seconds; the manifold kernel on sphere1(8192) on the default
+     grid (a path: symmetric, A 1 = 0 and a positive diagonal, to 1e-12
+     of the largest entry) and sphere1(1024) on the grid against its
+     per-pair path (1e-12); then each variant of K1 and K19 with the
+     orders of position, and K1 and K2 on the manifold, against its plain
+     version (1e-12 of the largest entry).  Alone: `python -c 'import
+     chip_smoke as c; from pynucleus_tpu_torch import kernels;
+     kernels.library(); c.phase22()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -264,7 +281,9 @@ per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
 (indicator, variable horizon), per matrix-format variant of K1
 (complement, the zero-exterior diagonal), per profile and two-point
 variant of K1, K2, K3, K14, K15 and K19 (tempered, two_point,
-log_inverse, polynomial, gaussian, exponential), and K24-K27, its
+log_inverse, polynomial, gaussian, exponential), per order-of-position
+variant of K1 and K19 and per manifold variant of K1 and K2, and
+K24-K27, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -410,7 +429,7 @@ KERNEL_INFO = {
                         'pynucleus_tpu_torch/kernels/bicgstab_update.py',
                         'pynucleus_tpu/base/solvers.py:503'),
     'panel_scatter_nonsym': (
-        'cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym.cu',
+        'cuda', 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym.cuh',
         'pynucleus_tpu/nl/assembly.py:424'),
     'h2_matvec_T': ('cuda', 'pynucleus_tpu_torch/kernels/csrc/h2_matvec.cu',
                     'pynucleus_tpu/nl/h2.py:910'),
@@ -6207,8 +6226,9 @@ def tp_summary(D):
             'diag4': [float(v) for v in torch.diagonal(D)[:4]]}
 
 
-def check_tp_pin(label, got, ref):
-    """got against the pinned ref (tp_summary's keys), TOL_TP_PIN."""
+def check_tp_pin(label, got, ref, tol=None):
+    """got against the pinned ref (tp_summary's keys), to ``tol``
+    (TOL_TP_PIN by default)."""
     if got['dofs'] != ref['dofs']:
         raise AssertionError(f'{label}: dofs {got["dofs"]} != {ref["dofs"]}')
     worst = 0.0
@@ -6219,7 +6239,7 @@ def check_tp_pin(label, got, ref):
         scale = max(abs(v) for v in ref[k])
         worst = max(worst, max(abs(a - b) for a, b in zip(got[k], ref[k]))
                     / scale)
-    if not worst <= TOL_TP_PIN:
+    if not worst <= (TOL_TP_PIN if tol is None else tol):
         raise AssertionError(f'{label}: {got} vs the JAX pin {ref} ({worst})')
     log(f'  {label}: {got["dofs"]} dofs, max {got["max_entry"]:.6e}, '
         f'within {worst:.2e} of the JAX pin')
@@ -6623,6 +6643,783 @@ def phase21():
     return counts, cmp, summary
 
 
+# ---------------------------------------------------------------- phase 22
+
+# JAX package outputs printed by scripts/pin_orders2d_jax.py (the JAX
+# package on the CPU, float64, its per-pair dense path): tp_summary's
+# numbers of the manifold kernel (s 0.5, zeroExterior=False) on the surface
+# of circle(n=8) refined 3 and 5 times; of each order of VO22_CASES on the
+# interval refined 4 times and on its 2D mesh at noRef 2 (with the
+# zero-exterior term); and drivers/variableOrder.py's results at noRef 3
+# (the square with --do_transpose, the circle, the interval; lu).  Held to
+# TOL_VO_PIN (relative; (A x)[:4] and diag(A)[:4] to it of their largest;
+# a resNorm to it of ||b||)
+JAX_ORDERS2D = {'manifold_64': {'dofs': 64,
+                 'max_entry': 0.8826697649586849,
+                 'fro': 7.526243722523243,
+                 'trace': 56.49086495735572,
+                 'Ax_norm': 3.21205388149133,
+                 'Ax4': [0.625815096052594,
+                         0.5757927076353487,
+                         0.5773720133187832,
+                         0.7262391673086934],
+                 'diag4': [0.8826697649586828,
+                           0.8826697649586832,
+                           0.882669764958683,
+                           0.8826697649586849]},
+ 'manifold_256': {'dofs': 256,
+                  'max_entry': 0.8825503587168261,
+                  'fro': 15.046780658492407,
+                  'trace': 225.93289183150597,
+                  'Ax_norm': 8.47616825092752,
+                  'Ax4': [0.5077987187662467,
+                          0.5762011327844543,
+                          0.38146802903413035,
+                          0.3726362128281816],
+                  'diag4': [0.8825503587168205,
+                            0.8825503587168202,
+                            0.88255035871682,
+                            0.8825503587168201]},
+ 'orders_interval': {'leftRight': {'dofs': 15,
+                                   'max_entry': 3.525245209287952,
+                                   'fro': 10.767348435770643,
+                                   'trace': 28.308645095297283,
+                                   'Ax_norm': 6.55308425248601,
+                                   'Ax4': [0.2722942475480842,
+                                           2.5087099573098985,
+                                           3.437972623017804,
+                                           0.19793168465517214],
+                                   'diag4': [0.24926999100648878,
+                                             1.8872452880781707,
+                                             3.525222318619587,
+                                             0.24926119493744503]},
+                     'innerOuter': {'dofs': 15,
+                                    'max_entry': 3.5368476808813236,
+                                    'fro': 10.91662489706755,
+                                    'trace': 29.76401610613847,
+                                    'Ax_norm': 8.510961197054103,
+                                    'Ax4': [0.2922937817429196,
+                                            4.046059971018047,
+                                            3.4419504992249395,
+                                            1.0085467000777901],
+                                    'diag4': [0.2753453807425727,
+                                              3.5368476808813236,
+                                              3.5315313400971338,
+                                              1.8340888709099645]},
+                     'innerOuter_sio': {'dofs': 15,
+                                        'max_entry': 3.5328152214519672,
+                                        'fro': 10.936395655034126,
+                                        'trace': 29.863757107747492,
+                                        'Ax_norm': 8.485416556956814,
+                                        'Ax4': [0.29720681435198204,
+                                                4.0396810763144355,
+                                                3.4339464111169593,
+                                                0.7786915359001338],
+                                        'diag4': [0.2835785218617372,
+                                                  3.5328152214519672,
+                                                  3.5251775964521976,
+                                                  1.8493501995098187]},
+                     'islands': {'dofs': 15,
+                                 'max_entry': 2.6201654433785873,
+                                 'fro': 6.8644629973145275,
+                                 'trace': 19.953247949281344,
+                                 'Ax_norm': 4.997779180957,
+                                 'Ax4': [3.2502381600417354,
+                                         2.1256840598699984,
+                                         0.5252808813477867,
+                                         0.47913053632262603],
+                                 'diag4': [2.6201654433785873,
+                                           1.7028139182075384,
+                                           0.9226218672456228,
+                                           0.5211831259399449]},
+                     'islands_sio': {'dofs': 15,
+                                     'max_entry': 2.6364986973812923,
+                                     'fro': 7.226640109305576,
+                                     'trace': 20.086529876621118,
+                                     'Ax_norm': 5.226642073895198,
+                                     'Ax4': [3.2615128034167404,
+                                             2.5101569858402475,
+                                             0.718015849878807,
+                                             0.3118263838264857],
+                                     'diag4': [2.6364986973812923,
+                                               2.23730327301138,
+                                               0.14072412016031755,
+                                               0.3832235428807465]},
+                     'layers': {'dofs': 15,
+                                'max_entry': 0.5234343192946324,
+                                'fro': 1.3809839375069861,
+                                'trace': 4.716636060598183,
+                                'Ax_norm': 0.8655066496223354,
+                                'Ax4': [0.2078320819972459,
+                                        0.2703103589623721,
+                                        0.28174153520688894,
+                                        0.1522278286321003],
+                                'diag4': [0.1937873480212961,
+                                          0.2106872975604675,
+                                          0.23333180107218715,
+                                          0.1961874071156271]},
+                     'layers_nonsym': {'dofs': 15,
+                                       'max_entry': 0.6969245027452653,
+                                       'fro': 1.585664748447009,
+                                       'trace': 5.129710433776559,
+                                       'Ax_norm': 1.3190101372619356,
+                                       'Ax4': [0.20783049098259956,
+                                               0.2703103510267208,
+                                               0.28174108901346206,
+                                               0.15222669154715876],
+                                       'diag4': [0.19378607849594404,
+                                                 0.21068728601190656,
+                                                 0.23333149380793655,
+                                                 0.19618593445683474]},
+                     'smoothedLeftRight': {'dofs': 15,
+                                           'max_entry': 3.534271379143807,
+                                           'fro': 9.94527952505328,
+                                           'trace': 25.677357974419923,
+                                           'Ax_norm': 5.385626724633567,
+                                           'Ax4': [0.2722942475480842,
+                                                   1.2442157750301783,
+                                                   1.8429024976983928,
+                                                   0.19793168465517214],
+                                           'diag4': [0.24926999100648878,
+                                                     0.8776908985178558,
+                                                     1.9460331747560298,
+                                                     0.24926119493744503]},
+                     'linearLeftRightNonSym': {'dofs': 15,
+                                               'max_entry': 3.5535163199518305,
+                                               'fro': 9.62030898648073,
+                                               'trace': 24.825626168931848,
+                                               'Ax_norm': 5.063556394632448,
+                                               'Ax4': [0.2722942475480842,
+                                                       1.1988038457914296,
+                                                       1.513756677400993,
+                                                       0.19793168465517214],
+                                               'diag4': [0.24926999100648878,
+                                                         0.8794504081850417,
+                                                         1.5403977228806334,
+                                                         0.24926119493744503]},
+                     'innerOuterNonSym': {'dofs': 15,
+                                          'max_entry': 1.5175407363094469,
+                                          'fro': 4.0315155033059416,
+                                          'trace': 12.323997684856412,
+                                          'Ax_norm': 2.767807902775087,
+                                          'Ax4': [1.8435196070691848,
+                                                  0.40092755742976666,
+                                                  0.36321501147349133,
+                                                  0.5287655489342228],
+                                          'diag4': [1.5149213112921345,
+                                                    0.31745426799691046,
+                                                    0.3174531717282112,
+                                                    0.6784614835136906]},
+                     'fe': {'dofs': 15,
+                            'max_entry': 1.513510827373752,
+                            'fro': 3.6208251983788142,
+                            'trace': 11.69851097659489,
+                            'Ax_norm': 2.2596669542964674,
+                            'Ax4': [0.31319682329021975,
+                                    0.8767559459354018,
+                                    0.8492833308248885,
+                                    0.351687605470936],
+                            'diag4': [0.2837473805064576,
+                                      0.6780638151197189,
+                                      0.7729154824008851,
+                                      0.4066412372580074]}},
+ 'orders_2d': {'leftRight': {'dofs': 9,
+                             'max_entry': 1.4445448920299806,
+                             'fro': 3.052545258798117,
+                             'trace': 7.66014687018636,
+                             'Ax_norm': 2.311743867253763,
+                             'Ax4': [0.26903113292522685,
+                                     1.4849412226397534,
+                                     1.1013052900607712,
+                                     0.17630621515952713],
+                             'diag4': [0.2575910921058829,
+                                       1.4441195862859115,
+                                       1.4442743955933965,
+                                       0.8514836736641915]},
+               'innerOuter': {'dofs': 49,
+                              'max_entry': 0.8876790139925637,
+                              'fro': 3.3354425276719533,
+                              'trace': 16.82247466774525,
+                              'Ax_norm': 1.5490347815844152,
+                              'Ax4': [0.7668678319313625,
+                                      0.5952899492970668,
+                                      0.17137605724514168,
+                                      0.07611206404955617],
+                              'diag4': [0.8876790139925637,
+                                        0.8773284047819686,
+                                        0.8773284047819683,
+                                        0.8773284047819683]},
+               'innerOuter_sio': {'dofs': 49,
+                                  'max_entry': 0.8810045849503282,
+                                  'fro': 3.3639168796833285,
+                                  'trace': 17.08525674469301,
+                                  'Ax_norm': 1.5464073991542104,
+                                  'Ax4': [0.759810245525305,
+                                          0.5861766476017277,
+                                          0.16186556113733538,
+                                          0.06906828227385794],
+                                  'diag4': [0.8810045849503282,
+                                            0.8692284591602963,
+                                            0.8692284591602961,
+                                            0.869228459160296]},
+               'islands': {'dofs': 9,
+                           'max_entry': 0.9537951158745721,
+                           'fro': 2.4967386276611987,
+                           'trace': 7.25419527019659,
+                           'Ax_norm': 1.8080763407433116,
+                           'Ax4': [0.9144358867363824,
+                                   0.935718909221126,
+                                   0.7409332545649763,
+                                   0.28998900692534646],
+                           'diag4': [0.9381511993303427,
+                                     0.9381511993303427,
+                                     0.9537951158745721,
+                                     0.7632593915204854]},
+               'islands_sio': {'dofs': 9,
+                               'max_entry': 0.9320786096730941,
+                               'fro': 2.4417581152359737,
+                               'trace': 7.101187329459733,
+                               'Ax_norm': 1.7501097748012728,
+                               'Ax4': [0.8698184041686601,
+                                       0.890078817712726,
+                                       0.7209987781073439,
+                                       0.2726430487111305],
+                               'diag4': [0.8958189902667388,
+                                         0.8958189902667388,
+                                         0.9320786096730941,
+                                         0.7532649130965416]},
+               'layers': {'dofs': 9,
+                          'max_entry': 0.3825829792285259,
+                          'fro': 0.8908829059815772,
+                          'trace': 2.5787785551907803,
+                          'Ax_norm': 0.6142896119966575,
+                          'Ax4': [0.23674452493551656,
+                                  0.37100994062127,
+                                  0.1707584833010822,
+                                  0.15291770551385067],
+                          'diag4': [0.22283641777745622,
+                                    0.3825829792285259,
+                                    0.22278946572853175,
+                                    0.22306517363943135]},
+               'layers_nonsym': {'dofs': 9,
+                                 'max_entry': 0.5075638476530754,
+                                 'fro': 1.0574742629631582,
+                                 'trace': 2.8238068631125355,
+                                 'Ax_norm': 0.7565742989552768,
+                                 'Ax4': [0.2366949209645227,
+                                         0.5149261373102575,
+                                         0.1707691617675089,
+                                         0.15297373897306593],
+                                 'diag4': [0.22279368972216684,
+                                           0.5033102277040536,
+                                           0.22280324805289864,
+                                           0.22309164819704394]},
+               'smoothedLeftRight': {'dofs': 9,
+                                     'max_entry': 1.453672935049191,
+                                     'fro': 2.94587054002781,
+                                     'trace': 7.262401112686117,
+                                     'Ax_norm': 2.2873389906719455,
+                                     'Ax4': [0.27382544865805086,
+                                             1.4720513460682259,
+                                             1.087244066165974,
+                                             0.1801881417556532],
+                                     'diag4': [0.255172359934451,
+                                               1.4532406777027518,
+                                               1.4525184801925743,
+                                               0.7135808288420052]},
+               'linearLeftRightNonSym': {'dofs': 9,
+                                         'max_entry': 1.4373560349764203,
+                                         'fro': 2.876710290806856,
+                                         'trace': 7.070713009244347,
+                                         'Ax_norm': 2.2447311556086826,
+                                         'Ax4': [0.27882342528044496,
+                                                 1.4395129032629699,
+                                                 1.0743960746186914,
+                                                 0.18142179697996635],
+                                         'diag4': [0.25571908177550623,
+                                                   1.436875520118845,
+                                                   1.4362165712434796,
+                                                   0.6650255947312075]},
+               'innerOuterNonSym': {'dofs': 49,
+                                    'max_entry': 0.42171454147597437,
+                                    'fro': 2.2813870311747735,
+                                    'trace': 14.251886670168126,
+                                    'Ax_norm': 1.6664722405629808,
+                                    'Ax4': [0.10523801998774536,
+                                            0.0962809389209313,
+                                            0.08816137937598417,
+                                            0.0632212612384892],
+                                    'diag4': [0.10600528702592593,
+                                              0.09407347221539955,
+                                              0.09407347221539955,
+                                              0.09407347221539954]},
+               'fe': {'dofs': 9,
+                      'max_entry': 0.5393270457514378,
+                      'fro': 1.3392952980807418,
+                      'trace': 3.9370444696297975,
+                      'Ax_norm': 0.8860597806815661,
+                      'Ax4': [0.3768514546911431,
+                              0.48542480066561344,
+                              0.32704982415333994,
+                              0.1983873050627201],
+                      'diag4': [0.36551393622049194,
+                                0.4949593240201704,
+                                0.4504210549954538,
+                                0.44790046639377323]}},
+ 'driver': {'square': {'dense twoDomain(0.25,0.75) resNorm': 5.043482897809253e-16,
+                       'dense twoDomain(0.25,0.75) norm': 4.384200351598995,
+                       'dense twoDomain(0.25,0.75) transpose norm': 5.1081161514078985},
+            'circle': {'dense innerOuter(0.75,0.25,r=0.5) resNorm': 1.458551743605117e-15,
+                       'dense innerOuter(0.75,0.25,r=0.5) norm': 10.902629006072926},
+            'interval': {'dense const(0.25) resNorm': 1.5700924586837752e-16,
+                         'dense const(0.25) norm': 2.760245523340339,
+                         'dense const(0.75) resNorm': 2.9373740229761033e-16,
+                         'dense const(0.75) norm': 1.6165021072014385,
+                         'dense varconst(0.25) resNorm': 1.5700924586837752e-16,
+                         'dense varconst(0.25) norm': 2.760245523340339,
+                         'dense varconst(0.75) resNorm': 2.9373740229761033e-16,
+                         'dense varconst(0.75) norm': 1.6165021072014385,
+                         'dense twoDomain(0.25,0.75,0.25,0.25) resNorm': 6.010860650248393e-16,
+                         'dense twoDomain(0.25,0.75,0.25,0.25) norm': 2.0768966714902195,
+                         'dense twoDomain(0.25,0.75,0.5,0.5) resNorm': 3.7238012298709097e-16,
+                         'dense twoDomain(0.25,0.75,0.5,0.5) norm': 2.216004451754438,
+                         'dense twoDomain(0.25,0.75,0.75,0.75) resNorm': 4.791355229691893e-16,
+                         'dense twoDomain(0.25,0.75,0.75,0.75) norm': 2.42865222955214}}}
+TOL_VO_PIN = 1e-10
+VO22_PIN_NOREF = 3
+VO22_SPHERE_CELLS = 8192   # the manifold kernel at full width (8,192 dofs)
+VO22_GRID_CHECK_CELLS = 1024   # the manifold's grid against its per-pair path
+# the driver's lines whose K1 and K19 calls are compared at full width
+VO22_RECORDED = ('circle_lu', 'square_lu')
+TOL_VO_GRID = 1e-12
+# name -> (the port's factory entry, its arguments ('dim' for the
+# dimension), keywords, the 2D mesh); fe is the P1 interpolant of
+# vo_fe_order (scripts/pin_orders2d_jax.py ORDER_CASES)
+VO22_CASES = {
+    'leftRight': ('twoDomainNonSym', (0.25, 0.75), {}, 'square'),
+    'innerOuter': ('innerOuter', ('dim', 0.75, 0.25, 0.5), {}, 'disc'),
+    'innerOuter_sio': ('innerOuter', ('dim', 0.75, 0.25, 0.5),
+                       {'sio': 0.4, 'soi': 0.6}, 'disc'),
+    'islands': ('islands', (0.3, 0.7), {'r': 0.1, 'r2': 0.6}, 'square'),
+    'islands_sio': ('islands', (0.3, 0.7), {'r': 0.1, 'r2': 0.6,
+                                            'sio': 0.4, 'soi': 0.6},
+                    'square'),
+    'layers': ('layers', ('dim', [-1.0, 0.25, 1.0], [[0.2, 0.3],
+                                                      [0.3, 0.4]]), {},
+               'square'),
+    'layers_nonsym': ('layers', ('dim', [-1.0, 0.25, 1.0], [[0.2, 0.3],
+                                                             [0.6, 0.4]]),
+                      {}, 'square'),
+    'smoothedLeftRight': ('smoothedLeftRight', (0.25, 0.75), {'r': 0.3},
+                          'square'),
+    'linearLeftRightNonSym': ('linearLeftRightNonSym', (0.25, 0.75),
+                              {'r': 0.3}, 'square'),
+    'innerOuterNonSym': ('innerOuterNonSym', (0.3, 0.6),
+                         {'r': 0.2, 'radius': 0.5}, 'disc'),
+    'fe': ('fe', (), {}, 'square'),
+}
+# the driver at its defaults: (label, argv)
+VO22_FULL_LINES = (
+    ('circle_lu', ['--domain', 'circle', '--solver', 'lu']),
+    ('circle_cg', ['--domain', 'circle', '--solver', 'cg']),
+    ('square_lu', ['--domain', 'square', '--solver', 'lu',
+                   '--do_transpose']),
+    ('square_gmres', ['--domain', 'square', '--solver', 'gmres',
+                      '--do_transpose']),
+    ('interval_lu', ['--domain', 'interval', '--solver', 'lu']))
+ORDER22_VARIANTS = ('inner_outer', 'islands', 'layers', 'smoothed_left_right',
+                    'linear_left_right', 'smoothed_inner_outer', 'fe')
+VO22_PIN_PATH = ('panel_scatter', 'panel_scatter:dense',
+                 'panel_scatter_nonsym', 'panel_scatter_nonsym:dense',
+                 'panel_scatter:manifold') + tuple(
+    f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
+    for v in ORDER22_VARIANTS)
+VO22_FULL_PATH = ('panel_scatter', 'panel_scatter:dense',
+                  'panel_scatter:inner_outer', 'panel_scatter_nonsym',
+                  'panel_scatter_nonsym:dense', 'grid_distant',
+                  'grid_boundary', 'pcg_update', 'gmres_arnoldi')
+VO22_MANIFOLD_PATH = ('panel_scatter', 'panel_scatter:dense',
+                      'panel_scatter:manifold', 'grid_distant',
+                      'grid_distant:manifold')
+ORDERS22_REPLACES = {
+    'panel_scatter': 'pynucleus_tpu/nl/assembly.py:91 _bucket_contrib + '
+                     ':956 dense scatter with FractionalKernel.evalXY '
+                     '(nl/kernels.py:1290-1330) of the order (nl/kernels.py'
+                     ':206-475 jaxEval)',
+    'panel_scatter_nonsym': 'pynucleus_tpu/nl/assembly.py:424 '
+                            '_bucket_contrib_nonsym with FractionalKernel'
+                            '.evalXY of the order (nl/kernels.py:206-475 '
+                            'jaxEval)',
+}
+# the sources of the orders of position's instances
+ORDERS22_SOURCES = {
+    'panel_scatter': 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_order.cu',
+    'panel_scatter_nonsym':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym_order.cu'}
+MANIFOLD22_REPLACES = {
+    'panel_scatter:manifold': 'pynucleus_tpu/nl/assembly.py:91 '
+                              '_bucket_contrib with the MANIFOLD_FRACTIONAL '
+                              'kernel (nl/kernels.py:1252-1284): 1D rules '
+                              'on 2D vertices',
+    'grid_distant:manifold': 'pynucleus_tpu/nl/assembly.py:131 '
+                             '_grid_distant_pass on a 1-manifold in R^2',
+}
+
+
+def vo_fe_order(x):
+    return 0.45 + 0.2 * x[0]
+
+
+def vo_mesh(domain, noRef):
+    from pynucleus_tpu_torch.fem.meshes import (simpleInterval, circle,
+                                                uniformSquare)
+    m = {'interval': lambda: simpleInterval(-1.0, 1.0),
+         'square': lambda: uniformSquare(N=2, ax=-1.0, ay=-1.0, bx=1.0,
+                                         by=1.0),
+         'disc': lambda: circle(n=8)}[domain]()
+    return tp_refined(m, noRef)
+
+
+def vo_order(name, dm):
+    """The port's order of a VO22_CASES case on the dofmap dm."""
+    from pynucleus_tpu_torch.fem.functions import Lambda
+    from pynucleus_tpu_torch.nl import kernels as tk
+    entry, args, kw, _ = VO22_CASES[name]
+    if entry == 'fe':
+        return tk.feFractionalOrder(dm.interpolate(Lambda(vo_fe_order)))
+    args = [dm.mesh.dim if a == 'dim' else a for a in args]
+    return tk.fractionalOrderFactory[entry](*args, **kw)
+
+
+def vo_driver(argv, params=None):
+    """drivers/variableOrder.py on the card: its results and timers."""
+    from pynucleus_tpu_torch.drivers import variableOrder
+    out = variableOrder.main(argv + ['--device', 'cuda'], quiet=True,
+                             params=params)
+    import torch
+    b = torch.linalg.norm(variableOrder.assembleRHS(
+        out['dm'], variableOrder.constant(1.0)).data)
+    return out, float(b)
+
+
+def vo_check_driver(label, results, ref, bnorm):
+    """A driver's results against the JAX driver's pinned ones: the same
+    labels, norms to TOL_VO_PIN relative, resNorms to TOL_VO_PIN ||b||."""
+    if sorted(results) != sorted(ref):
+        raise AssertionError(f'{label}: labels {sorted(results)} vs '
+                             f'{sorted(ref)}')
+    worst = 0.0
+    for k, want in ref.items():
+        scale = bnorm if k.endswith('resNorm') else abs(want)
+        worst = max(worst, abs(results[k] - want) / scale)
+    if not worst <= TOL_VO_PIN:
+        raise AssertionError(f'{label}: {results} vs the JAX driver {ref}')
+    log(f'  the driver, {label} at noRef {VO22_PIN_NOREF}: {len(ref)} '
+        f'results within {worst:.2e} of the JAX driver')
+    return worst
+
+
+def vo_pin_lines():
+    """The pins of scripts/pin_orders2d_jax.py on the card, per pair: the
+    manifold kernel at 64 and 256 dofs, each order on the interval and on
+    its 2D mesh, the driver at noRef 3."""
+    from pynucleus_tpu_torch.fem.meshes import circle
+    from pynucleus_tpu_torch.nl import kernels as tk
+    perPair = {'denseGrid': False}
+    worst = 0.0
+    for noRef in (3, 5):
+        surf = tp_refined(circle(n=8), noRef).get_surface_mesh()
+        dm = tp_dm(surf)
+        got = tp_summary(tp_dense(dm, tk.getFractionalKernel(
+            2, 0.5, manifold=True), False, perPair))
+        key = f'manifold_{dm.num_dofs}'
+        worst = max(worst, check_tp_pin(key, got, JAX_ORDERS2D[key],
+                                        TOL_VO_PIN))
+    for key, domain, noRef in (('orders_interval', 'interval', 4),
+                               ('orders_2d', None, 2)):
+        for name, (*_, mesh2d) in VO22_CASES.items():
+            dm = tp_dm(vo_mesh(domain or mesh2d, noRef))
+            got = tp_summary(tp_dense(dm, tk.getFractionalKernel(
+                dm.mesh.dim, vo_order(name, dm)), params=perPair))
+            worst = max(worst, check_tp_pin(f'{key} {name}', got,
+                                            JAX_ORDERS2D[key][name],
+                                            TOL_VO_PIN))
+    for domain, extra in (('square', ['--do_transpose']), ('circle', []),
+                          ('interval', [])):
+        out, bnorm = vo_driver(['--domain', domain, '--noRef',
+                                str(VO22_PIN_NOREF), '--solver', 'lu']
+                               + extra, perPair)
+        worst = max(worst, vo_check_driver(
+            domain, out['results'].toDict(), JAX_ORDERS2D['driver'][domain],
+            bnorm))
+    return {'worst': worst}
+
+
+def vo_full_lines(recorders=()):
+    """drivers/variableOrder.py at its defaults on the card (a path): the
+    circle at noRef 5 (innerOuter through K1; lu and cg), the square at
+    noRef 5 (leftRight through K19; lu and gmres, with the transpose), the
+    interval at noRef 8 (its seven orders, lu).  Each solve's residual
+    below the driver's tolerance times ||b|| (lu: rounding) and its norms
+    finite.  The OrderRecorders ``recorders`` record the lines of
+    VO22_RECORDED alone (the other line of a domain assembles the same
+    operator)."""
+    lines = {}
+    for label, argv in VO22_FULL_LINES:
+        for rec in recorders:
+            rec.active = label in VO22_RECORDED
+        out, bnorm = vo_driver(argv)
+        res, tim = out['results'].toDict(), out['timers'].toDict()
+        for k, v in res.items():
+            if not math.isfinite(v) or (k.endswith('resNorm')
+                                        and not v <= 1e-6 * bnorm):
+                raise AssertionError(f'the driver, {label}: {k} = {v}')
+        lines[label] = {'dofs': out['info'].toDict()['dofs'], **res,
+                        **{k: v for k, v in tim.items()}}
+        log(f"  the driver, {label}: {lines[label]['dofs']} dofs, "
+            + ', '.join(f'{k} {v:.4g}' for k, v in tim.items()))
+    for rec in recorders:
+        rec.active = False
+    return lines
+
+
+def vo_manifold_lines():
+    """The manifold kernel at full width on the card (a path):
+    sphere1(VO22_SPHERE_CELLS) on the default grid, symmetric, the
+    constants in its null space and its diagonal positive, each to
+    TOL_KERNEL of the largest entry; the peak device memory from the
+    build on."""
+    import torch
+    from pynucleus_tpu_torch.fem.meshes import sphere1
+    from pynucleus_tpu_torch.nl import kernels as tk
+    k = tk.getFractionalKernel(2, 0.5, manifold=True)
+    dm = tp_dm(sphere1(VO22_SPHERE_CELLS))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A = tp_dense(dm, k, zeroExterior=False)
+    torch.cuda.synchronize()
+    line = {'dofs': dm.num_dofs, 'assembly_s': time.perf_counter() - t0}
+    scale = float(A.abs().max())
+    line['symmetry'] = float((A - A.T).abs().max()) / scale
+    one = torch.ones(dm.num_dofs, dtype=torch.float64, device=A.device)
+    line['constant'] = float(torch.linalg.norm(A @ one)) / scale
+    line['min_diagonal'] = float(torch.diagonal(A).min())
+    line['peak_GiB'] = torch.cuda.max_memory_allocated() / 2**30
+    del A
+    torch.cuda.empty_cache()
+    if not (line['symmetry'] <= TOL_KERNEL and line['constant'] <= TOL_KERNEL
+            and line['min_diagonal'] > 0):
+        raise AssertionError(f'the manifold kernel on sphere1: {line}')
+    log(f"  the manifold kernel on sphere1({VO22_SPHERE_CELLS}): "
+        f"{dm.num_dofs} dofs in {line['assembly_s']:.3f} s, symmetric to "
+        f"{line['symmetry']:.2e}, A 1 {line['constant']:.2e} of max|A|, "
+        f"min diag {line['min_diagonal']:.4g}")
+    return line
+
+
+def vo_manifold_grid_check():
+    """The manifold kernel on sphere1(VO22_GRID_CHECK_CELLS): its default
+    grid against its per-pair path, to TOL_VO_GRID of the largest entry
+    (a check, not a main path).  Returns the relative difference."""
+    from pynucleus_tpu_torch.fem.meshes import sphere1
+    from pynucleus_tpu_torch.nl import kernels as tk
+    k = tk.getFractionalKernel(2, 0.5, manifold=True)
+    dm = tp_dm(sphere1(VO22_GRID_CHECK_CELLS))
+    G = tp_dense(dm, k, zeroExterior=False)
+    P = tp_dense(dm, k, zeroExterior=False, params={'denseGrid': False})
+    rel = float((G - P).abs().max() / P.abs().max())
+    if not rel <= TOL_VO_GRID:
+        raise AssertionError(f'the manifold grid vs per pair: {rel}')
+    log(f'  the manifold kernel, grid vs per pair at {dm.num_dofs} dofs: '
+        f'{rel:.2e}')
+    return rel
+
+
+def _order_code(args, kw):
+    from pynucleus_tpu_torch.nl.kernels import OrderParams
+    order = next((a for a in list(args) + list(kw.values())
+                  if isinstance(a, OrderParams)), None)
+    return None if order is None else int(order.code)
+
+
+class OrderRecorder(ArgRecorder):
+    """An ArgRecorder (the target recorded by its shape) that keeps the
+    calls of each order code apart (None for no order; code 'manifold' for
+    the calls of simplices of a lower dimension than their vertices'
+    space).  With ``distantLargest``, of the buckets of distant pairs (the
+    first pair shares no vertex) only the largest of each code and shape
+    (simplex sizes, nPSI) is kept, every other bucket (identical cells,
+    touching pairs) is.  Nothing is recorded while ``active`` is False."""
+
+    def __init__(self, module, name, distantLargest=False):
+        super().__init__(module, name, dataFirst=True)
+        self.distantLargest = distantLargest
+        self.active = True
+        self.byCode = {}
+        self.distant = {}
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            if self.active:
+                self._keep(args, kw)
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def _keep(self, args, kw):
+        code = _order_code(args, kw)
+        vertices, vi1, vi2, index = args[1], args[2], args[3], args[4]
+        if code is None and vi1.shape[1] == vi2.shape[1] \
+                and vi1.shape[1] <= vertices.shape[1]:
+            code = 'manifold'
+        P = vi1.shape[0]
+        if self.distantLargest and P and not bool(
+                (vi1[0][:, None] == vi2[0][None, :]).any()):
+            key = (code, vi1.shape[1], vi2.shape[1], index.shape[1])
+            if P > self.distant.get(key, (0, None))[0]:
+                self.distant[key] = (P, self._record(args, kw))
+            return
+        self.byCode.setdefault(code, []).append(self._record(args, kw))
+
+    def codes(self):
+        return set(self.byCode) | {k[0] for k in self.distant}
+
+    def callsOf(self, code):
+        """The kept calls of ``code``: the near buckets, then the largest
+        distant ones."""
+        return self.byCode.get(code, []) + [
+            c for k, (_, c) in self.distant.items() if k[0] == code]
+
+
+def grid_manifold_calls(rec):
+    """The recorded K2 calls of a 1-manifold in R^2 (a P1 rule of dpe <=
+    dim)."""
+    return [c for c in rec.calls if c[0][4].shape[1] <= c[0][1].shape[2]]
+
+
+def phase22():
+    """The manifold fractional kernel and the variable orders of position:
+    the pins of scripts/pin_orders2d_jax.py (a path), the variableOrder
+    driver at its defaults (a path), the manifold kernel at full width on
+    sphere1 (a path), the manifold's grid against its per-pair path; then
+    each new variant of K1 and K19 (the orders of position, K1 and K2 on
+    the manifold) against its plain version, at the pins' calls and at the
+    full-width paths' calls (the driver's circle and square, sphere1).
+    Returns (launch counts per path, comparisons, the comparisons at full
+    width of the variants and of the base kernels, summary)."""
+    import contextlib
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.nl.kernels import ORDER_VARIANTS
+    log('phase 22: the manifold kernel and the variable orders in 1D and '
+        '2D')
+    t0 = time.perf_counter()
+    counts, summary = {}, {}
+    with contextlib.ExitStack() as stack:
+        k1 = stack.enter_context(OrderRecorder(asm, 'panel_scatter'))
+        k19 = stack.enter_context(OrderRecorder(asm, 'panel_scatter_nonsym'))
+        summary['pins'], counts['pins'] = count_path(
+            'orders and manifold pins', VO22_PIN_PATH, vo_pin_lines)
+    with contextlib.ExitStack() as stack:
+        k1f = stack.enter_context(OrderRecorder(asm, 'panel_scatter',
+                                                distantLargest=True))
+        k19f = stack.enter_context(OrderRecorder(
+            asm, 'panel_scatter_nonsym', distantLargest=True))
+        summary['full'], counts['full'] = count_path(
+            'the variableOrder driver at its defaults', VO22_FULL_PATH,
+            lambda: vo_full_lines((k1f, k19f)))
+    with contextlib.ExitStack() as stack:
+        k1m = stack.enter_context(OrderRecorder(asm, 'panel_scatter'))
+        k2m = stack.enter_context(ArgRecorder(asm, 'grid_distant',
+                                              dataFirst=True))
+        summary['manifold'], counts['manifold'] = count_path(
+            'the manifold kernel on sphere1', VO22_MANIFOLD_PATH,
+            vo_manifold_lines)
+    summary['manifold']['grid_vs_per_pair'] = vo_manifold_grid_check()
+
+    log('  the variants against their plain versions')
+    cmp = {}
+    for code, name in ORDER_VARIANTS.items():
+        cmp['panel_scatter:' + name] = compare_target_kernel(
+            f'panel_scatter ({name}, dense)', k1.callsOf(code),
+            asm.panel_scatter, asm._panel_scatter_plain, panel_order_work)
+        cmp['panel_scatter_nonsym:' + name] = compare_target_kernel(
+            f'panel_scatter_nonsym ({name}, dense)', k19.callsOf(code),
+            asm.panel_scatter_nonsym, _k19_plain('dense'), nonsym_work)
+    cmp['panel_scatter:manifold'] = compare_target_kernel(
+        f'panel_scatter (manifold, dense, sphere1({VO22_SPHERE_CELLS}))',
+        k1m.callsOf('manifold'), asm.panel_scatter,
+        asm._panel_scatter_plain, panel_work)
+    cmp['grid_distant:manifold'] = compare_target_kernel(
+        f'grid_distant (manifold, sphere1({VO22_SPHERE_CELLS}))',
+        grid_manifold_calls(k2m), asm.grid_distant, asm._grid_distant_plain,
+        grid_distant_work)
+    # the driver's circle and square at noRef 5: each order code that K1
+    # and K19 ran there, an order of position in its variant's row, the
+    # others (leftRight on triangles) in the kernel's own
+    full = {}
+    for rec, name, kernel, plain, work in (
+            (k1f, 'panel_scatter', asm.panel_scatter,
+             asm._panel_scatter_plain, panel_order_work),
+            (k19f, 'panel_scatter_nonsym', asm.panel_scatter_nonsym,
+             _k19_plain('dense'), nonsym_work)):
+        for code in sorted(c for c in rec.codes() if c is not None):
+            key = f'{name}:{ORDER_VARIANTS[code]}' \
+                if code in ORDER_VARIANTS else name
+            if key in full:
+                raise AssertionError(f'{key}: two order codes at full width')
+            full[key] = compare_target_kernel(
+                f'{name} (order code {code}, dense, the driver at noRef 5)',
+                rec.callsOf(code), kernel, plain, work)
+    if set(full) != set(VO22_FULL_COMPARED):
+        raise AssertionError(f'the full-width comparisons {sorted(full)} '
+                             f'vs {sorted(VO22_FULL_COMPARED)}')
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 22 summary: {json.dumps(summary)}')
+    return counts, cmp, full, summary
+
+
+def ORDERS22_PATHS(counts22):
+    """The main paths of phase 22: (kernels, label, launch counts)."""
+    return ((VO22_PIN_PATH, 'orders_and_manifold_pins', counts22['pins']),
+            (VO22_FULL_PATH, 'variable_order_driver_defaults',
+             counts22['full']),
+            (VO22_MANIFOLD_PATH,
+             f'manifold_sphere1_{VO22_SPHERE_CELLS}', counts22['manifold']))
+
+
+def ORDERS22_COMPARED_AT():
+    """Where each variant of phase 22 was compared."""
+    out = {f'{k}:{v}': 'the pins of scripts/pin_orders2d_jax.py (the '
+           'interval refined 4 times, the square and the disc at noRef 2, '
+           f'the driver at noRef {VO22_PIN_NOREF}), all dense calls'
+           for k in ('panel_scatter', 'panel_scatter_nonsym')
+           for v in ORDER22_VARIANTS}
+    out['panel_scatter:manifold'] = (
+        f'sphere1({VO22_SPHERE_CELLS}) on the grid (the main path), all '
+        'calls')
+    out['grid_distant:manifold'] = (
+        f'sphere1({VO22_SPHERE_CELLS}) on the grid (the main path), all '
+        'calls')
+    return out
+
+
+# the rows compared at the calls of the driver's full-width lines (K1 with
+# innerOuter on the circle, K19 with leftRight on the square's triangles
+# and K1 with it in the square's zero-exterior term), and where
+VO22_FULL_AT = ('the driver at its defaults, {}: every identical-cell, '
+                'touching and zero-exterior bucket and the largest distant '
+                'bucket of each shape')
+VO22_FULL_COMPARED = {
+    'panel_scatter:inner_outer': VO22_FULL_AT.format(
+        'the circle at noRef 5 (3,969 dofs)'),
+    'panel_scatter_nonsym': VO22_FULL_AT.format(
+        'the square at noRef 5 (961 dofs), leftRight on triangles'),
+    'panel_scatter': VO22_FULL_AT.format(
+        'the square at noRef 5 (961 dofs), the zero-exterior term of '
+        'leftRight on triangles (with normals)')}
+
+
 def main():
     try:
         import torch
@@ -6675,6 +7472,7 @@ def main():
     counts18, cmp18, summary18 = phase18()
     counts19, cmp19, summary19 = phase19(matfree19)
     counts21, cmp21, summary21 = phase21()
+    counts22, cmp22, full22, summary22 = phase22()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -6762,7 +7560,8 @@ def main():
                 ('at_interval', cmp12, INTERVAL_COMPARED_AT),
                 ('at_varorder', cmp13, VO_COMPARED_AT),
                 ('at_derivative', prof14, DERIV_COMPARED_AT),
-                ('at_diagonal', diag16, REAL_DIAG_COMPARED_AT)):
+                ('at_diagonal', diag16, REAL_DIAG_COMPARED_AT),
+                ('at_orders2d', full22, VO22_FULL_COMPARED)):
             if name in cX:
                 cx = cX[name]
                 xms, xby = bound(cx['work'])
@@ -6885,7 +7684,39 @@ def main():
             'compared_at': TWOPOINT_COMPARED_AT[name],
             **({'unweighted_ms': c['unweighted_ms']}
                if 'unweighted_ms' in c else {})})
-    log(f'phases 1-21 took {time.perf_counter() - T_START:.1f} s')
+    # the variants of phase 22: the orders of position in K1's and K19's
+    # dense targets, K1 and K2 on the manifold; the CUDA launches counted
+    # where they launched
+    compared22 = ORDERS22_COMPARED_AT()
+    for name in compared22:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        if name not in MANIFOLD22_REPLACES:
+            src = ORDERS22_SOURCES[base]
+        c = cmp22[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in ORDERS22_PATHS(counts22) if counts[name]}
+        table.append({
+            'name': name, 'route': route, 'source': src,
+            'replaces': MANIFOLD22_REPLACES.get(name,
+                                                ORDERS22_REPLACES.get(base)),
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in ORDERS22_PATHS(counts22)),
+            'compared_at': compared22[name]})
+        if name in full22:
+            cx = full22[name]
+            xms, xby = bound(cx['work'])
+            table[-1]['at_full_width'] = {
+                'max_abs_err': cx['err'], 'ms': cx['ms'],
+                'plain_ms': cx['plain_ms'], 'bound_ms': xms,
+                'bound_by': xby, 'library_ms': cx['library_ms'],
+                'compared_at': VO22_FULL_COMPARED[name]}
+    log(f'phases 1-22 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -6894,6 +7725,7 @@ def main():
     log(f'phase 19 summary: {json.dumps(summary19)}')
     log(f'phase 20 summary: {json.dumps(summary20)}')
     log(f'phase 21 summary: {json.dumps(summary21)}')
+    log(f'phase 22 summary: {json.dumps(summary22)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -1,5 +1,5 @@
 from .meshes import simplexMesh, simpleInterval, circle, uniformSquare, \
-    PHYSICAL
+    sphere1, PHYSICAL
 from .dofmaps import P1_DoFMap, fe_vector, str2DoFMap
 from .functions import constant, Lambda, radialIndicator, solFractional
 from .assembly import assembleMass, assembleStiffness, assembleRHS, \
@@ -7,7 +7,7 @@ from .assembly import assembleMass, assembleStiffness, assembleRHS, \
 from .lookup import cellFinder, lookupFunction
 
 __all__ = ['simplexMesh', 'simpleInterval', 'circle', 'uniformSquare',
-           'PHYSICAL',
+           'sphere1', 'PHYSICAL',
            'P1_DoFMap', 'fe_vector', 'str2DoFMap', 'constant', 'Lambda',
            'radialIndicator', 'solFractional', 'assembleMass',
            'assembleStiffness', 'assembleRHS', 'matrixFreeOperator',

@@ -99,12 +99,13 @@ class P1_DoFMap(DoFMap):
         mesh boundary), NO_BOUNDARY, a function object whose value > 0.5
         marks the interior vertices (pynucleus_tpu/fem/dofmaps.py
         _buildDofNumbering with a function tag), or a boolean vertex mask
-        of the interior vertices."""
+        of the interior vertices; None is PHYSICAL, as there (a closed
+        manifold has no boundary, so every vertex of a cell is a dof)."""
         mesh = self.mesh
         flat = mesh.cells.reshape(-1).astype(np.int64)
         verts, first = np.unique(flat, return_index=True)
         order = verts[np.argsort(first, kind='stable')]
-        tag = self.tag
+        tag = PHYSICAL if self.tag is None else self.tag
         if callable(tag) and not isinstance(tag, (int, np.integer)):
             # a function tag: a dof is interior iff tag(node) > 0.5 (volume
             # constraints on an interaction collar)

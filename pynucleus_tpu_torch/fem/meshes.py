@@ -4,7 +4,8 @@ Carried over from pynucleus_tpu/fem/meshes.py (host numpy): simpleInterval,
 the disc (circle + radialMeshTransformer), the uniform square and the
 interval, square and disc extended by an interaction collar of width
 horizon (intervalWithInteraction, uniformSquare, squareWithInteractions,
-discWithInteraction), red
+discWithInteraction), the circle as a closed 1-manifold in R^2 (sphere1,
+of pynucleus_tpu/fem/mesh_zoo.py), red
 refinement, the boundary facets of the default PHYSICAL tag and the
 outward-oriented surface mesh of the zero-exterior term.  Vertex and cell
 numbering are those of the JAX package, so both packages refine to
@@ -21,8 +22,8 @@ NO_BOUNDARY = np.iinfo(np.int32).min
 
 __all__ = ['simplexMesh', 'simpleInterval', 'circle', 'radialMeshTransformer',
            'intervalWithInteraction', 'uniformSquare',
-           'squareWithInteractions', 'discWithInteraction', 'PHYSICAL',
-           'NO_BOUNDARY']
+           'squareWithInteractions', 'discWithInteraction', 'sphere1',
+           'PHYSICAL', 'NO_BOUNDARY']
 
 
 class simplexMesh:
@@ -321,6 +322,20 @@ class radialMeshTransformer:
         scale = np.where(onCircle & (rm > 0),
                          target / np.maximum(rm, 1e-300), 1.0)
         newMesh.vertices[newIdx] = center + (mids - center) * scale[:, None]
+
+
+def sphere1(numCells=10, radius=1.):
+    """The circle of ``radius`` as a closed 1-manifold mesh in R^2:
+    numCells vertices at the angles 2 pi k / numCells, cell k joining
+    vertices k and k + 1 (mod numCells), refined onto the circle
+    (pynucleus_tpu/fem/mesh_zoo.py:443-451 sphere1)."""
+    thetas = 2 * np.pi * np.arange(numCells) / numCells
+    verts = radius * np.stack([np.cos(thetas), np.sin(thetas)], axis=1)
+    cells = np.stack([np.arange(numCells),
+                      (np.arange(numCells) + 1) % numCells], axis=1)
+    m = simplexMesh(verts.astype(REAL), cells.astype(INDEX), dim=2)
+    m.transformer = radialMeshTransformer()
+    return m
 
 
 def discWithInteraction(radius=1.0, horizon=0.1, h=0.25):

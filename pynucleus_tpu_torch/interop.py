@@ -34,7 +34,8 @@ from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap, fe_vector
 from .nl.kernels import (getFractionalKernel, getIntegrableKernel,
                          getComplexKernel, interactionFactory, horizonFunction,
-                         leftRightFractionalOrder, FractionalKernel, Kernel,
+                         leftRightFractionalOrder, feFractionalOrder,
+                         FractionalKernel, Kernel,
                          twoPointFunctionFactory, lookupTwoPoint, GREENS_2D,
                          GREENS_3D, LOGINVERSEDISTANCE, MONOMIAL, POLYNOMIAL)
 from .nl.h2 import TreeNearMeta, TreeNearOperator, H2Matrix
@@ -66,7 +67,7 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
                normalized=True, interior=None, gaussianVariance=1.0,
                exponentialRate=1.0, derivative=0, greensLambda=1.0j,
                phi=None, temperedLambda=0.0, monomialPower=0.0,
-               polynomialRadius=None):
+               polynomialRadius=None, manifold=False):
     """(mesh, dm, kernel) of the port: simplexMesh(vertices, cells), a
     P1_DoFMap and a kernel.  The dofmap's tag is the PHYSICAL boundary, or
     with ``interior`` (a boolean mask of the vertices) the interior
@@ -82,8 +83,14 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     delta(x) = clip(c0 + c x_0, min, max) (nl.kernels.horizonFunction).
     The order s is
     a number, a string of nl.problems.parseFractionalOrder
-    ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)', ...) or the
+    ('twoDomainNonSym(0.25,0.75)', 'constantNonSym(0.25)',
+    'innerOuter(2,0.75,0.25,0.5)', ...), ('fe', values[, smin, smax]) for
+    the feFractionalOrder of the P1 vector of those dof values on the
+    dofmap (such as a JAX package FE vector's numpy data), or the
     parameters (sll, srr[, slr, srl]) of a leftRight order.  With
+    ``manifold`` the mesh is a closed (dim-1)-manifold in R^dim (cells of
+    dim vertices, such as a JAX package surface mesh) and the kernel the
+    manifold fractional kernel of the constant order s.  With
     ``derivative`` (1 or 2) the fractional kernel of an infinite horizon is
     its s-derivative (normalized as given): a vector kernel for an order of
     several parameters.  ``kernelType`` 'greens2D' or 'greens3D' is the
@@ -100,13 +107,24 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
     r^monomialPower, singularity monomialPower, scaling 1/2 unless given)
     and 'polynomial' (C (1 - r^2/polynomialRadius^2)^2, scaling 1/2
     unless given) are Kernel objects of those types."""
-    if isinstance(s, str):
-        s = parseFractionalOrder(s)
-    elif isinstance(s, (tuple, list)):
-        s = leftRightFractionalOrder(*s)
     mesh = simplexMesh(np.asarray(vertices), np.asarray(cells), dim=dim)
     dm = P1_DoFMap(mesh, PHYSICAL if interior is None else
                    np.asarray(interior, dtype=bool), device=device)
+    if isinstance(s, str):
+        s = parseFractionalOrder(s)
+    elif isinstance(s, (tuple, list)) and s and s[0] == 'fe':
+        s = feFractionalOrder(fe_vector(torch.tensor(
+            np.asarray(s[1], dtype=np.float64), device=dm.device), dm),
+            *s[2:])
+    elif isinstance(s, (tuple, list)):
+        s = leftRightFractionalOrder(*s)
+    if manifold:
+        if kernelType != 'fractional' or horizon != np.inf or derivative \
+                or phi is not None:
+            raise NotImplementedError('manifold: the fractional kernel of '
+                                      'an infinite horizon only')
+        return mesh, dm, getFractionalKernel(dim, s, scaling=scaling,
+                                             manifold=True)
     w = _twoPoint(phi, dm)
     if kernelType in (GREENS_2D, GREENS_3D):
         return mesh, dm, getComplexKernel(

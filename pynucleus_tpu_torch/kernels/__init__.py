@@ -54,7 +54,7 @@ Twenty-seven kernels carry the port's device work:
                     Triton)                  around its applies; float64
                                              or complex128
   K19 panel_scatter_nonsym                   nonsymmetric local matrices of
-                    (csrc/panel_scatter_nonsym.cu)  explicit pairs,
+                    (csrc/panel_scatter_nonsym.cuh) explicit pairs,
                                              t1 PHIxPSI - t2 PHIyPSI with
                                              t1 = gamma(x, y), t2 = gamma(y, x),
                                              into dense A or CSR data at
@@ -105,7 +105,13 @@ VectorParams).  K1, K7 and K19 also take a
 variable fractional order (nl/kernels.py OrderParams: constantNonSym,
 leftRight), s(x, y) and its normalization per node in common.cuh
 kernelXY<profile, order>(), a template on both codes (KERNEL_SWITCH: the
-ten profiles without an order, the power profile with each order);
+ten profiles without an order, the power profile with each order); the
+dense targets of K1 and K19 also the orders of position (innerOuter,
+islands, layers, smoothedLeftRight, linearLeftRight, smoothedInnerOuter,
+fe: common.cuh orderAt, POSITION_ORDER_SWITCH), their instances in
+panel_scatter_order.cu and panel_scatter_nonsym_order.cu, reached from
+the dense entry points by the order's code (every entry point that takes
+an order takes the whole of it, nl/kernels.py orderArgs);
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
@@ -153,8 +159,12 @@ two-point variants (TWOPOINT) of K1, K2, K3, K14, K15 and K19 under
 ``<kernel>:tempered`` (a tempered profile, t != 0), ``:two_point`` (the
 smooth two-point weight), ``:log_inverse`` and ``:polynomial`` (those
 profile codes), and of K14 and K15 also ``:gaussian`` and
-``:exponential`` (a finite horizon's); one launch may count under
-several.
+``:exponential`` (a finite horizon's); the orders of position in K1's
+and K19's dense targets (ORDERS) under ``<kernel>:inner_outer``,
+``:islands``, ``:layers``, ``:smoothed_left_right``,
+``:linear_left_right``, ``:smoothed_inner_outer`` and ``:fe``, and the
+manifold kernel's 1D cells in R^2 under ``panel_scatter:manifold`` and
+``grid_distant:manifold``; one launch may count under several.
 ``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
 those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -220,22 +230,34 @@ TWOPOINT = tuple(f'panel_scatter:{v}' for v in (
     f'{k}:{v}' for k in ('cut1d', 'cut2d_polar') for v in (
         'tempered', 'two_point', 'log_inverse', 'polynomial', 'gaussian',
         'exponential'))
+# the variants of the orders of position (nl/kernels.py ORDER_VARIANTS)
+# in the dense targets of K1 and K19 (their own entry points and
+# instances), and the manifold kernel's K1 launches (1D rules on 2D
+# vertices)
+ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
+               for v in ('inner_outer', 'islands', 'layers',
+                         'smoothed_left_right', 'linear_left_right',
+                         'smoothed_inner_outer', 'fe')) + (
+    'panel_scatter:manifold', 'grid_distant:manifold')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
-            + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT}
+            + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT
+            + ORDERS}
 deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS
-                  + TWOPOINT}
+                  + TWOPOINT + ORDERS}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
-           'panel_scatter_cross.cu', 'grid_distant.cu', 'grid_boundary.cu',
+           'panel_scatter_cross.cu', 'panel_scatter_order.cu',
+           'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
-           'panel_scatter_nonsym.cu', 'panel_scatter_vec.cu',
+           'panel_scatter_nonsym.cu', 'panel_scatter_nonsym_order.cu',
+           'panel_scatter_vec.cu',
            'vector_matvec.cu', 'interp_matvec.cu', 'matfree_apply.cu',
            'cheb_smooth.cu', 'sss_spmv.cu')
-HEADERS = ('common.cuh', 'panel_scatter.cuh')
+HEADERS = ('common.cuh', 'panel_scatter.cuh', 'panel_scatter_nonsym.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
                 'panel_scatter_vec.cu': ('-fmad=false',),
@@ -317,8 +339,9 @@ def _declare(lib):
     # weight code and lambda (nl/kernels.py Profile)
     PROF = (I, D, D, D, D, D, D, I, D)
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
-    # exponent base, boundary (nl/kernels.py orderArgs)
-    ORD = (I, D, D, D, D, D, D, D, D, I)
+    # exponent base, boundary, the point dimension, g0-g3, the table
+    # (device), its n, lo0, lo1, hi0, hi1 (nl/kernels.py orderArgs)
+    ORD = (I, D, D, D, D, D, D, D, D, I, I, D, D, D, D, P, I, D, D, D, D)
     # an interaction indicator: code, h2, T00, T01, T10, T11 (nl/kernels.py
     # Indicator)
     IND = (I, D, D, D, D, D)

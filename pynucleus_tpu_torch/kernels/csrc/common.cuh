@@ -222,25 +222,172 @@ __device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
 // pynucleus_tpu/nl/kernels.py leftRightFractionalOrder.jaxEval).  piD2 =
 // pi^(d/2), halfDim = d/2 and eBase (-d/2, or (1-d)/2 for the boundary
 // kernel) are the host values of the JAX expression's Python floats.
-enum OrderCode { ORDER_NONE = 0, ORDER_CONST = 1, ORDER_LEFT_RIGHT = 2 };
+// The orders of position (the codes from ORDER_INNER_OUTER on:
+// pynucleus_tpu/nl/kernels.py:206-475, their jaxEval) also take the point
+// dimension xdim, up to four host constants g0-g3 (OrderParams.g, formed
+// from Python floats as the JAX expressions form them) and a table of n
+// (layers: its n - 1 inner boundaries, then its [n, n] orders; fe: its
+// raster [n] or [n, n]) with fe's box lo, hi:
+//   ORDER_INNER_OUTER   x in iff |x - (g0, g1)|^2 < g2 (= r^2), strict;
+//                       sll (sii) in-in, srr (soo) out-out, slr (sio) x
+//                       in, srl (soi) y in
+//   ORDER_ISLANDS       x in iff g0 <= |x_d| <= g1 for every d; as above
+//   ORDER_LAYERS        the layer of x[xdim-1]: the count of boundaries
+//                       <= it (searchsorted, side 'right'); orders[I, J]
+//   ORDER_SMOOTHED_LR   t = (x[0] - g0) g1 + 0.5 clipped to [0, 1],
+//                       sll + (srr - sll) (3 t^2 - 2 t (t t))
+//   ORDER_LINEAR_LR     t = ((x[0] - g0) + g1) / g2 clipped, sll + (srr -
+//                       sll) t
+//   ORDER_SMOOTHED_IO   t = (sqrt(sum_d x_d^2) - g0) g1 + 0.5, then as
+//                       ORDER_SMOOTHED_LR
+//   ORDER_FE            t_d = clip((x_d - lo_d) / (hi_d - lo_d)) (n - 1),
+//                       i_d = clamp(floor(t_d), 0, n - 2), f_d = t_d - i_d;
+//                       the raster interpolated linearly (bilinearly in
+//                       2D, the JAX expression's four terms summed in
+//                       order)
+// Each comparison is the JAX expression's (a value on a branch point takes
+// the JAX package's branch) and each operation is rounded on its own.
+enum OrderCode {
+    ORDER_NONE = 0,
+    ORDER_CONST = 1,
+    ORDER_LEFT_RIGHT = 2,
+    ORDER_INNER_OUTER = 3,
+    ORDER_ISLANDS = 4,
+    ORDER_LAYERS = 5,
+    ORDER_SMOOTHED_LR = 6,
+    ORDER_LINEAR_LR = 7,
+    ORDER_SMOOTHED_IO = 8,
+    ORDER_FE = 9
+};
 
 struct Order {
     int code;
     double sll, srr, slr, srl, interface;
     double piD2, halfDim, eBase;
     int boundary;
+    // the orders of position
+    int xdim;
+    double g0, g1, g2, g3;
+    const double* table;
+    int n;
+    double lo0, lo1, hi0, hi1;
 };
+
+// Every entry point that takes an order takes a whole Order
+// (nl/kernels.py orderArgs).
+#define ORDER_PARAMS                                                      \
+    int ocode, double sll, double srr, double slr, double srl,           \
+        double iface, double piD2, double halfDim, double eBase,         \
+        int boundary, int xdim, double g0, double g1, double g2,         \
+        double g3, const double* table, int tn, double lo0, double lo1,  \
+        double hi0, double hi1
+#define ORDER_OF                                                          \
+    Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,        \
+          boundary, xdim, g0, g1, g2, g3, table, tn, lo0, lo1, hi0, hi1}
+
+// sll where x and y are in, srr where both are out, slr / srl across (x
+// in / y in): the jnp.where nest of innerOuter, islands and leftRight.
+__device__ __forceinline__ double mixedOrder(bool xi, bool yi,
+                                             const Order& o) {
+    return (xi && yi) ? o.sll : ((!xi && !yi) ? o.srr : (xi ? o.slr : o.srl));
+}
+
+// sum_d (x_d - c_d)^2 over the xdim coordinates (c = 0 where center is
+// false), in order from d = 0.
+__device__ __forceinline__ double sumSquares(const double* x, const Order& o,
+                                             bool center) {
+    double r2 = 0.0;
+    for (int d = 0; d < o.xdim; ++d) {
+        const double dd =
+            center ? __dsub_rn(x[d], d == 0 ? o.g0 : o.g1) : x[d];
+        r2 = __dadd_rn(r2, __dmul_rn(dd, dd));
+    }
+    return r2;
+}
+
+// sll + (srr - sll) * (3 t^2 - 2 t^3) of t clipped to [0, 1], t^3 as
+// t (t t) (lax.integer_pow's order).
+__device__ __forceinline__ double smoothOrder(double t, const Order& o) {
+    t = fmin(fmax(t, 0.0), 1.0);
+    const double t2 = __dmul_rn(t, t);
+    const double ss = __dsub_rn(__dmul_rn(3.0, t2),
+                                __dmul_rn(2.0, __dmul_rn(t, t2)));
+    return __dadd_rn(o.sll, __dmul_rn(__dsub_rn(o.srr, o.sll), ss));
+}
+
+// The layer of the last coordinate c: the number of inner boundaries
+// (sorted) that are <= c.
+__device__ __forceinline__ int layerOf(const double* x, const Order& o) {
+    const double c = x[o.xdim - 1];
+    int idx = 0;
+    for (int k = 0; k < o.n - 1; ++k) idx += o.table[k] <= c;
+    return idx;
+}
+
+// fe's raster at x (feFractionalOrder.jaxEval).
+__device__ __forceinline__ double feRaster(const double* x, const Order& o) {
+    const double lo[2] = {o.lo0, o.lo1}, hi[2] = {o.hi0, o.hi1};
+    double f[2];
+    int i[2];
+    for (int d = 0; d < o.xdim; ++d) {
+        const double u = fmin(
+            fmax(__ddiv_rn(__dsub_rn(x[d], lo[d]), __dsub_rn(hi[d], lo[d])),
+                 0.0),
+            1.0);
+        const double t = __dmul_rn(u, (double)(o.n - 1));
+        i[d] = min(max((int)floor(t), 0), o.n - 2);
+        f[d] = __dsub_rn(t, (double)i[d]);
+    }
+    const double* g = o.table;
+    if (o.xdim == 1)
+        return __dadd_rn(__dmul_rn(__dsub_rn(1.0, f[0]), g[i[0]]),
+                         __dmul_rn(f[0], g[i[0] + 1]));
+    const long long n = o.n, a = i[0] * n + i[1], b = (i[0] + 1) * n + i[1];
+    const double fx = f[0], fy = f[1];
+    const double gx = __dsub_rn(1.0, fx), gy = __dsub_rn(1.0, fy);
+    double v = __dmul_rn(__dmul_rn(gx, gy), g[a]);
+    v = __dadd_rn(v, __dmul_rn(__dmul_rn(fx, gy), g[b]));
+    v = __dadd_rn(v, __dmul_rn(__dmul_rn(gx, fy), g[a + 1]));
+    return __dadd_rn(v, __dmul_rn(__dmul_rn(fx, fy), g[b + 1]));
+}
 
 template <int OC>
 __device__ __forceinline__ double orderAt(const double* x, const double* y,
                                           const Order& o) {
     if constexpr (OC == ORDER_CONST) {
         return o.sll;
+    } else if constexpr (OC == ORDER_LEFT_RIGHT) {
+        return mixedOrder(x[0] < o.interface, y[0] < o.interface, o);
+    } else if constexpr (OC == ORDER_INNER_OUTER) {
+        return mixedOrder(sumSquares(x, o, true) < o.g2,
+                          sumSquares(y, o, true) < o.g2, o);
+    } else if constexpr (OC == ORDER_ISLANDS) {
+        bool xi = true, yi = true;
+        for (int d = 0; d < o.xdim; ++d) {
+            const double px = fabs(x[d]), py = fabs(y[d]);
+            xi = xi && px >= o.g0 && px <= o.g1;
+            yi = yi && py >= o.g0 && py <= o.g1;
+        }
+        return mixedOrder(xi, yi, o);
+    } else if constexpr (OC == ORDER_LAYERS) {
+        return o.table[o.n - 1 + layerOf(x, o) * o.n + layerOf(y, o)];
+    } else if constexpr (OC == ORDER_SMOOTHED_LR) {
+        return smoothOrder(
+            __dadd_rn(__dmul_rn(__dsub_rn(x[0], o.g0), o.g1), 0.5), o);
+    } else if constexpr (OC == ORDER_LINEAR_LR) {
+        const double t = fmin(
+            fmax(__ddiv_rn(__dadd_rn(__dsub_rn(x[0], o.g0), o.g1), o.g2),
+                 0.0),
+            1.0);
+        return __dadd_rn(o.sll, __dmul_rn(__dsub_rn(o.srr, o.sll), t));
+    } else if constexpr (OC == ORDER_SMOOTHED_IO) {
+        const double rr = sqrt(sumSquares(x, o, false));
+        return smoothOrder(__dadd_rn(__dmul_rn(__dsub_rn(rr, o.g0), o.g1),
+                                     0.5),
+                           o);
     } else {
-        static_assert(OC == ORDER_LEFT_RIGHT, "unknown order code");
-        const bool xl = x[0] < o.interface, yl = y[0] < o.interface;
-        return (xl && yl) ? o.sll : ((!xl && !yl) ? o.srr
-                                                  : (xl ? o.slr : o.srl));
+        static_assert(OC == ORDER_FE, "unknown order code");
+        return feRaster(x, o);
     }
 }
 
@@ -294,6 +441,33 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
         __VA_ARGS__;                                                      \
     } else {                                                              \
         return static_cast<int>(cudaErrorInvalidValue);                   \
+    }
+
+// Runs the statements ... with PC = PROFILE_POWER and the compile-time
+// constant OC equal to the runtime code of an order of position (a
+// variable order is a fractional kernel); a profile other than the power
+// profile or another order code returns cudaErrorInvalidValue.  Their
+// instances exist for the dense targets of K1 and K19 alone
+// (panel_scatter_order.cu, panel_scatter_nonsym_order.cu), which the dense
+// entry points reach by the code; KERNEL_SWITCH refuses these codes.
+#define POSITION_ORDER_CASE(O, ...)         \
+    case O: {                                \
+        constexpr int OC = O;                \
+        constexpr int PC = PROFILE_POWER;    \
+        __VA_ARGS__;                         \
+    } break;
+#define POSITION_ORDER_SWITCH(pcode, ocode, ...)                       \
+    if ((pcode) != PROFILE_POWER)                                     \
+        return static_cast<int>(cudaErrorInvalidValue);               \
+    switch (ocode) {                                                  \
+        POSITION_ORDER_CASE(ORDER_INNER_OUTER, __VA_ARGS__)           \
+        POSITION_ORDER_CASE(ORDER_ISLANDS, __VA_ARGS__)               \
+        POSITION_ORDER_CASE(ORDER_LAYERS, __VA_ARGS__)                \
+        POSITION_ORDER_CASE(ORDER_SMOOTHED_LR, __VA_ARGS__)           \
+        POSITION_ORDER_CASE(ORDER_LINEAR_LR, __VA_ARGS__)             \
+        POSITION_ORDER_CASE(ORDER_SMOOTHED_IO, __VA_ARGS__)           \
+        POSITION_ORDER_CASE(ORDER_FE, __VA_ARGS__)                    \
+        default: return static_cast<int>(cudaErrorInvalidValue);      \
     }
 
 __device__ __forceinline__ double warpSum(double v) {

@@ -35,18 +35,14 @@ far_field_kernel(double* __restrict__ K, const double* __restrict__ gi,
 EXPORT int far_field(double* K, const double* gi, const double* gj,
                      long long P, int M, int dim, int pcode, double C,
                      double e, double a, double C1, double C2,
-                     double tl, int wcode, double wl, int ocode,
-                     double sll, double srr, double slr, double srl,
-                     double iface, double piD2,
-                     double halfDim, double eBase, int boundary,
+                     double tl, int wcode, double wl, ORDER_PARAMS,
                      cudaStream_t stream) {
     const long long total = P * M * M;
     if (total <= 0) return 0;
     const int threads = 256;
     const long long blocks = (total + threads - 1) / threads;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    const Order od{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,
-                   boundary};
+    const Order od = ORDER_OF;
     KERNEL_SWITCH(pcode, ocode,
                   far_field_kernel<PC, OC><<<(unsigned)blocks, threads, 0,
                                              stream>>>(

@@ -8,8 +8,10 @@ EXPORT const char* cuda_error_string(int err) {
 }
 
 // A: dense [N, N]; with pcode PROFILE_GREENS_2D the float64 view of a
-// complex128 A (and of a complex128 d [N] in panel_scatter_diag).  emask:
-// bit I*nPSI+J keeps local entry (I, J) of every pair (-1: all).
+// complex128 A (and of a complex128 d [N] in panel_scatter_diag).  The
+// order a whole Order (ORDER_PARAMS); an order of position (the codes from
+// ORDER_INNER_OUTER on) goes to its own instances.  emask: bit I*nPSI+J
+// keeps local entry (I, J) of every pair (-1: all).
 EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          int dim, const long long* vi1, int nv1,
                          const long long* vi2, int nv2,
@@ -22,19 +24,21 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          double C1, double C2,
                          double tl, int wcode, double wl, int inter, double h2,
                          double t00, double t01, double t10, double t11,
-                         int ocode, double sll, double srr, double slr,
-                         double srl, double iface, double piD2,
-                         double halfDim, double eBase, int boundary,
-                         const double* yShift, long long emask,
-                         cudaStream_t stream) {
+                         ORDER_PARAMS, const double* yShift,
+                         long long emask, cudaStream_t stream) {
+    if (ocode >= ORDER_INNER_OUTER)
+        // an order of position: its instances (panel_scatter_order.cu)
+        return launchPanelPosition(
+            A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
+            normals, P, bary_x, bary_y, w, PSIP, Q, PROFILE_OF(C),
+            Inter{inter, h2, t00, t01, t10, t11}, ORDER_OF, yShift, emask,
+            stream);
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
                               PROFILE_OF(C),
-                              Inter{inter, h2, t00, t01, t10, t11},
-                              Order{ocode, sll, srr, slr, srl, iface, piD2,
-                                    halfDim, eBase, boundary},
+                              Inter{inter, h2, t00, t01, t10, t11}, ORDER_OF,
                               yShift, emask, stream);
 }
 

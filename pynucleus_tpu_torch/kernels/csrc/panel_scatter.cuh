@@ -3,8 +3,9 @@
 // sparse format) or into the interior x boundary coupling A_BC.  The kernel
 // and its launcher; the C entry points of its targets are in three
 // sources, so that nvcc compiles their instances in parallel:
-// panel_scatter.cu (DENSE, DIAG), panel_scatter_csr.cu (SLOTS, TREE) and
-// panel_scatter_cross.cu (CROSS).
+// panel_scatter.cu (DENSE, DIAG), panel_scatter_csr.cu (SLOTS, TREE),
+// panel_scatter_cross.cu (CROSS) and panel_scatter_order.cu (DENSE with the
+// orders of position).
 #pragma once
 
 //
@@ -31,7 +32,13 @@
 // (constantNonSym, leftRight: pynucleus_tpu/nl/kernels.py
 // FractionalKernel.evalXY, reached through _radial_eval), s(x, y) and its
 // normalization per node (common.cuh kernelXY); the kernel is a template on
-// both codes and each launcher switches once (KERNEL_SWITCH).
+// both codes and each launcher switches once (KERNEL_SWITCH).  The orders
+// of position (innerOuter, islands, layers, smoothedLeftRight,
+// linearLeftRight, smoothedInnerOuter, fe: common.cuh orderAt) have the
+// DENSE target's instances alone (POSITION_ORDER_SWITCH, launchPanel with
+// POS, reached from the dense entry point by the code: launchPanelPosition
+// below): the dense operator of a symmetric one on the interval and on
+// triangles, and the zero-exterior term (with normals in 2D) of each.
 // One quadrature body (common.cuh panelQuad), four epilogues:
 //   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
 //          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
@@ -172,7 +179,7 @@ panel_scatter_kernel(double* __restrict__ out,
     }
 }
 
-template <int TARGET>
+template <int TARGET, bool POS = false>
 static int launchPanel(double* out, long long N, const double* vertices,
                        int dim, const long long* vi1, int nv1,
                        const long long* vi2, int nv2,
@@ -204,7 +211,11 @@ static int launchPanel(double* out, long long N, const double* vertices,
         case 6: LAUNCH(6); break;                                       \
         default: return static_cast<int>(cudaErrorInvalidValue);       \
     }
-    if (pf.code == PROFILE_GREENS_2D) {
+    if constexpr (POS) {
+        // the orders of position: the dense target alone
+        static_assert(TARGET == DENSE, "the orders of position: DENSE");
+        POSITION_ORDER_SWITCH(pf.code, od.code, NPSI_SWITCH)
+    } else if (pf.code == PROFILE_GREENS_2D) {
         // the complex profile (out the float64 view of a complex128
         // target): dense A or the diagonal, triangles (nPSI 3 for an
         // identical cell, else 6), no order, no normals, no shift
@@ -234,3 +245,17 @@ static int launchPanel(double* out, long long N, const double* vertices,
 #undef LAUNCH
     return static_cast<int>(cudaGetLastError());
 }
+
+// The DENSE target with an order of position: launchPanel<DENSE, true>,
+// instantiated in panel_scatter_order.cu; the dense entry point
+// (panel_scatter.cu) calls it for the codes from ORDER_INNER_OUTER on.
+int launchPanelPosition(double* A, long long N, const double* vertices,
+                        int dim, const long long* vi1, int nv1,
+                        const long long* vi2, int nv2,
+                        const long long* dofRows, int nPSI,
+                        const double* volsym, const double* normals,
+                        long long P, const double* bary_x,
+                        const double* bary_y, const double* w,
+                        const double* PSIP, int Q, Profile pf, Inter in,
+                        Order od, const double* yShift, long long emask,
+                        cudaStream_t stream);

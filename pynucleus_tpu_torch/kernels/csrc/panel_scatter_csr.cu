@@ -1,5 +1,6 @@
 // K1 panel_scatter (panel_scatter.cuh): the C entry points of its CSR
-// targets.
+// targets.  The order a whole Order (ORDER_PARAMS); an order of position
+// has no instance of these targets (cudaErrorInvalidValue).
 
 #include "panel_scatter.cuh"
 
@@ -18,18 +19,15 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                int inter, double h2,
                                double t00, double t01, double t10,
                                double t11,
-                               int ocode, double sll, double srr, double slr,
-                               double srl, double iface, double piD2,
-                               double halfDim, double eBase, int boundary,
-                               const double* yShift, cudaStream_t stream) {
+                               ORDER_PARAMS, const double* yShift,
+                               cudaStream_t stream) {
     return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
                               TreeTables{}, bary_x, bary_y, w, PSIP, Q,
                               PROFILE_OF(C),
                               Inter{inter, h2, t00, t01, t10, t11},
-                              Order{ocode, sll, srr, slr, srl, iface, piD2,
-                                    halfDim, eBase, boundary},
+                              ORDER_OF,
                               yShift, -1LL, stream);
 }
 
@@ -48,17 +46,14 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               int pcode, double C, double e, double a,
                               double C1, double C2,
                               double tl, int wcode, double wl,
-                              int ocode, double sll, double srr, double slr,
-                              double srl, double iface, double piD2,
-                              double halfDim, double eBase, int boundary,
-                              const double* yShift, cudaStream_t stream) {
+                              ORDER_PARAMS, const double* yShift,
+                              cudaStream_t stream) {
     return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P, I,
                              J, offF, offB,
                              TreeTables{dofNode, treePos, indptrT, tStart},
                              bary_x, bary_y, w, PSIP, Q,
                              PROFILE_OF(C), Inter{},
-                             Order{ocode, sll, srr, slr, srl, iface, piD2,
-                                   halfDim, eBase, boundary},
+                             ORDER_OF,
                              yShift, -1LL, stream);
 }

@@ -2,15 +2,18 @@
 K1-K3, K5-K7, K11-K15, K19, K21 and K22.
 
 Port of the constant-coefficient paths of pynucleus_tpu/nl/assembly.py
-and, on the interval, of its variable-order and nonsymmetric fractional
-kernels (constantNonSym, leftRight): the per-pair path of _runPairBuckets
-(rules per singularity, the nonsymmetric local matrices for both
-orderings, the split of touching panels whose two orderings have
+and of its variable-order and nonsymmetric fractional kernels: the
+per-pair path of _runPairBuckets on the interval and on triangles (rules
+per singularity; a symmetric variable order's unordered pairs with the
+off-diagonal factor 2, K1; the nonsymmetric local matrices for both
+orderings, K19, and the split of touching panels whose two orderings have
 different singularities), the zero-exterior term with the variable
-boundary kernel, and in H2 the cluster tree split at the order jumps, the
-near field through the per-pair legacy path with entry masks, the union
-surfaces with the jump facets (y shifted to either side) and the far field
-with the variable order.  The s-derivative kernels of an infinite horizon:
+boundary kernel, and, on the interval for constantNonSym and leftRight,
+in H2 the cluster tree split at the order jumps, the near field through
+the per-pair legacy path with entry masks, the union surfaces with the
+jump facets (y shifted to either side) and the far field with the
+variable order.  The manifold fractional kernel assembles dense on a
+closed 1-manifold in R^2 (1D rules on 2D vertices, the grid included).  The s-derivative kernels of an infinite horizon:
 of a constant order (the power-log profile) on every path below, of a
 leftRight order (a vector kernel, on the interval) through getDenseVector,
 the per-pair path with the vector local matrices and the singular rules'
@@ -136,7 +139,8 @@ from .kernels import (radialEval, profileArgs, POWER, GAUSSIAN_PROFILE,
                       EXPONENTIAL_PROFILE, LOG_INVERSE_DISTANCE_PROFILE,
                       POLYNOMIAL_PROFILE, evalXY, orderArgs,
                       horizonArgs, vectorTerms, COMPLEX_PROFILES,
-                      GREENS_2D_PROFILE, IDENTITY_T,
+                      GREENS_2D_PROFILE, IDENTITY_T, DENSE_ONLY_ORDERS,
+                      ORDER_VARIANTS,
                       BALL2, BALL_INF, BALL1, ELLIPSE, BALL2_COMPLEMENT,
                       indicatorMask,
                       dirNorm)
@@ -350,9 +354,20 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
         return _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym,
                                     normals, bary_x, bary_y, w, PSIP, prof,
                                     indicator, order, yShift, entryMask)
+    if P:
+        _countOrder('panel_scatter', order)
     _launchDofTarget('panel_scatter', 'dense', A, A.shape[0], vertices, vi1,
                      vi2, dofRows, volsym, normals, bary_x, bary_y, w, PSIP,
-                     prof, indicator, *orderArgs(order), _opt(yShift), emask)
+                     prof, indicator, *orderArgs(order, A.device),
+                     _opt(yShift), emask)
+
+
+def _countOrder(name, order):
+    """Counts the variant of an order of position (kernels.ORDERS); the
+    kernels have instances of these orders for their dense targets alone
+    (the other targets' launches fail)."""
+    if order is not None and int(order.code) in ORDER_VARIANTS:
+        kernels.countVariant(f'{name}:{ORDER_VARIANTS[int(order.code)]}')
 
 
 def _entryBits(entryMask, nPSI):
@@ -404,6 +419,10 @@ def _launchDofTarget(fn, target, A, N, vertices, vi1, vi2, dofRows, volsym,
     _countProfile('panel_scatter', prof)
     if target == 'diag' and vi2.shape[1] < vi1.shape[1]:
         kernels.countVariant('panel_scatter:diag_exterior')
+    if vi1.shape[1] == vi2.shape[1] and vi1.shape[1] <= vertices.shape[1]:
+        # simplices of a lower dimension than their vertices' space: the
+        # manifold kernel's 1D rules on 2D vertices
+        kernels.countVariant('panel_scatter:manifold')
     p = kernels.ptr
     kernels.check(getattr(lib, fn)(
         p(A), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
@@ -628,8 +647,8 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
         p(vi2), vi2.shape[1], p(slots), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(bary_x),
         p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
-        *_indicatorArgs(indicator), *orderArgs(order), _opt(yShift),
-        kernels.stream()))
+        *_indicatorArgs(indicator), *orderArgs(order, data.device),
+        _opt(yShift), kernels.stream()))
 
 
 def _addSlots(data, slots, vals):
@@ -729,8 +748,8 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(I), p(J), p(offF),
         p(offB), p(dofNode), p(treePos), p(indptrT), p(tStart), p(bary_x),
-        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof), *orderArgs(order),
-        _opt(yShift), kernels.stream()))
+        p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
+        *orderArgs(order, data.device), _opt(yShift), kernels.stream()))
 
 
 def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
@@ -786,7 +805,7 @@ def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
     no order) makes gamma the kernel of variableHorizonFractionalKernel,
     delta evaluated at gamma's first point: delta(x) in t1, delta(y) in t2.  PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi`
     of the rule's buildPHI and buildPSI).  Kernel K19
-    (kernels/csrc/panel_scatter_nonsym.cu) on CUDA tensors, the plain
+    (kernels/csrc/panel_scatter_nonsym.cuh) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _bucket_contrib_nonsym with
     DenseAccumulator.add."""
     P, Q, dim = _nonsymArgs('panel_scatter_nonsym', A, vertices, vi1, vi2,
@@ -858,12 +877,14 @@ def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
     p = kernels.ptr
     nPSI = index.shape[1] if target == 'dense' else \
         int(round(index.shape[1] ** 0.5))
+    head = (p(out), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
+            p(vi2), vi2.shape[1], p(index), nPSI, p(volsym), P, p(bary_x),
+            p(bary_y), p(w), p(PHIxPSI), p(PHIyPSI), w.shape[0],
+            *profileArgs(prof), *_indicatorArgs(indicator))
+    _countOrder('panel_scatter_nonsym', order)
     kernels.check(getattr(lib, fn)(
-        p(out), N, p(vertices), vertices.shape[1], p(vi1), vi1.shape[1],
-        p(vi2), vi2.shape[1], p(index), nPSI, p(volsym), P, p(bary_x),
-        p(bary_y), p(w), p(PHIxPSI), p(PHIyPSI), w.shape[0],
-        *profileArgs(prof), *_indicatorArgs(indicator), *orderArgs(order),
-        *horizonArgs(horizon), kernels.stream()))
+        *head, *orderArgs(order, out.device), *horizonArgs(horizon),
+        kernels.stream()))
 
 
 def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
@@ -1154,6 +1175,10 @@ def grid_distant(A, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w, t_lo, t_hi,
     lib = kernels.library()
     kernels.launches['grid_distant'] += 1
     _countProfile('grid_distant', prof, device=2 if nC > 0 else 0)
+    if dpe <= dim:
+        # a P1 rule of a lower dimension than the vertices' space: the
+        # manifold kernel's 1D cells in R^2
+        kernels.countVariant('grid_distant:manifold', 2 if nC > 0 else 0)
     kernels.check(lib.grid_distant(
         kernels.ptr(A), A.shape[0], kernels.ptr(X), Q, dim, kernels.ptr(ccf),
         kernels.ptr(vols), kernels.ptr(dofs), dpe, nC, kernels.ptr(PhiXw),
@@ -1528,7 +1553,7 @@ def far_field(gi, gj, prof, order=None):
     kernels.deviceLaunches['far_field'] += 1
     kernels.check(lib.far_field(
         kernels.ptr(K), kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
-        *profileArgs(prof), *orderArgs(order), kernels.stream()))
+        *profileArgs(prof), *orderArgs(order, gi.device), kernels.stream()))
     return K
 
 
@@ -2561,6 +2586,31 @@ def _refuseWeighted(kernel, what):
             'ROADMAP.md); assemble it dense or sparse')
 
 
+def _refuseH2Order(kernel, mesh):
+    """Raise for the H2 operators that the port does not build: of the
+    manifold kernel (the JAX getH2 fails on a closed curve, with a
+    ValueError from the classification of its empty surface), of a
+    variable or nonsymmetric order on triangles (the JAX getH2 fails there
+    with an AssertionError) and of the orders of DENSE_ONLY_ORDERS on any
+    mesh (their K1 and K19 instances are the dense targets'; the JAX H2
+    of a variable order is off its dense operator, ROADMAP.md)."""
+    if getattr(kernel, 'manifold', False):
+        raise NotImplementedError(
+            'H2 of the manifold kernel: the JAX package fails there too '
+            '(ValueError: the empty surface of a closed curve); assemble '
+            'it dense')
+    variable = kernel.variable or not kernel.symmetric
+    if variable and mesh.manifold_dim != 1:
+        raise NotImplementedError(
+            'H2 of a variable or nonsymmetric order in 2D: the JAX package '
+            'fails there (AssertionError); assemble it dense')
+    order = kernel.orderParams()
+    if order is not None and int(order.code) in DENSE_ONLY_ORDERS:
+        raise NotImplementedError(
+            f'H2 of the order {kernel.s!r}: its kernels are ported for the '
+            'dense operator only')
+
+
 def _sync(device):
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
@@ -2575,9 +2625,11 @@ NEAR_ENGINES = ('block', 'flat', 'host')
 class nonlocalBuilder:
     """Assembly of a nonlocal kernel (port of pynucleus_tpu/nl/assembly.py
     nonlocalBuilder).  A variable or nonsymmetric fractional order
-    (``general``: constantNonSym, leftRight) and a variable horizon take
-    the per-pair path on the interval, dense and H2 (a finite horizon:
-    sparse), as the JAX package does; on other meshes they raise.
+    (``general``) takes the per-pair path, as the JAX package does: dense
+    on the interval and on triangles, H2 on the interval for constantNonSym
+    and leftRight (the H2 of a 2D variable order, of the orders of
+    position and of the manifold kernel raise); a variable horizon on the
+    interval, dense and sparse.
     Infinite horizon (the
     fractional, gaussian and exponential kernels, zero exterior): getDense
     on the grid path, getH2 with the device-CSR near field, on the interval
@@ -2626,17 +2678,21 @@ class nonlocalBuilder:
                                       'kernel: the log correction of the '
                                       'scalar kernels is not ported')
         # a variable or nonsymmetric order, a variable horizon: the per-pair
-        # path
+        # path (a symmetric variable order through K1, the others through
+        # K19)
         self.general = kernel.variable or not kernel.symmetric
-        if self.general and self.mesh.manifold_dim != 1:
-            raise NotImplementedError('variable and nonsymmetric orders and '
-                                      'variable horizons are ported on the '
+        if self.general and self.mesh.manifold_dim not in (1, 2):
+            raise NotImplementedError('variable and nonsymmetric orders in '
+                                      '3D')
+        if kernel.horizonParams() is not None \
+                and self.mesh.manifold_dim != 1:
+            raise NotImplementedError('a variable horizon is ported on the '
                                       'interval only')
-        if self.general and kernel.symmetric:
-            # the symmetric variable orders are the 2D ones (innerOuter,
-            # islands, layers, ...): not ported
-            raise NotImplementedError('symmetric variable orders are not '
-                                      'ported')
+        if getattr(kernel, 'manifold', False) and (
+                self.mesh.manifold_dim != self.mesh.dim - 1
+                or kernel.dim != self.mesh.dim):
+            raise ValueError('the manifold kernel takes a (dim-1)-manifold '
+                             'mesh in R^dim')
         self.nearEngine = self.params.get('nearEngine', 'block')
         if self.nearEngine not in NEAR_ENGINES:
             raise ValueError(f'nearEngine {self.nearEngine!r}: one of '
@@ -2678,15 +2734,46 @@ class nonlocalBuilder:
         return 4 * int(getattr(self.kernel, 'derivative', 0) or 0)
 
     # ----------------------------------------------------------- buckets
-    def _touchingBuckets(self, info, rules):
-        """Touching panels, one bucket per number of shared vertices (the
-        pairs of one shared-vertex pattern group gather at once).  Yields
+    def _ruleCache(self, quad_order_diagonal):
+        """A function sing -> the rules of that singularity (_makeRulesFor),
+        made once per singularity rounded to 12 digits, as the JAX
+        package's rulesFor (nl/assembly.py _runPairBuckets)."""
+        cache = {}
+
+        def rulesFor(sing):
+            key = round(float(sing), 12)
+            if key not in cache:
+                cache[key] = self._makeRulesFor(sing, quad_order_diagonal)
+            return cache[key]
+        return rulesFor
+
+    def _singularityGroups(self, pi, pj, close=True):
+        """[(singularity, mask)] of the pairs (pi, pj) of a symmetric
+        kernel: its one singularity for a constant order, else each of the
+        pairs' singularities from the order at the cell centres rounded to
+        12 digits, with the pairs whose singularity is np.isclose to it
+        (``close``: the identical panels, pynucleus_tpu/nl/assembly.py
+        :2129-2133) or rounds to it (the touching panels' keys,
+        :2180-2187)."""
+        if not self.kernel.variable:
+            return [(self.kernel.getSingularityValue(),
+                     np.ones(len(pi), dtype=bool))]
+        sings = self._pairSingularities(pi, pj)
+        rounded = np.round(sings, 12)
+        return [(sing, np.isclose(sings, sing) if close else rounded == sing)
+                for sing in np.unique(rounded)]
+
+    def _touchingBuckets(self, info, rulesFor):
+        """Touching panels of a symmetric kernel, one bucket per (number of
+        shared vertices, singularity) (the pairs of one shared-vertex
+        pattern group gather at once; a constant order has one
+        singularity, a variable one those of _singularityGroups); rulesFor
+        maps a singularity to its rules (:meth:`_ruleCache`).  Yields
         (rule, PSI, vi1, vi2, dofRows, volsym, (pairs, ldFull)): rows in
-        rule
-        order, the shared j-side dofs DROPped, volsym with the off-diagonal
-        factor 2, and (pairs [P, 2], ldFull [P, 2 dpe]) where ldFull maps
-        each rule row to its position in the natural (cell-i dofs, cell-j
-        dofs) order."""
+        rule order, the shared j-side dofs DROPped, volsym with the
+        off-diagonal factor 2, and (pairs [P, 2], ldFull [P, 2 dpe]) where
+        ldFull maps each rule row to its position in the natural (cell-i
+        dofs, cell-j dofs) order."""
         dm, mesh = self.dm, self.mesh
         cells, dofs = mesh.cells, dm.dofs
         dpe = dm.dofs_per_element
@@ -2694,12 +2781,20 @@ class nonlocalBuilder:
         dets = mesh.simplexVolumes() * {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
         pairs, (lut, group) = info['touching']
         nShared = np.array([g[0] for g in lut], dtype=np.int64)
-        for nS in np.unique(nShared):
+        buckets = [(nS, sing, (nShared[group] == nS) & sel)
+                   for nS in np.unique(nShared)
+                   for sing, sel in (self._singularityGroups(
+                       pairs[:, 0], pairs[:, 1], close=False)
+                       if len(pairs) else [])]
+        for nS, sing, inBucket in buckets:
+            idxs = np.nonzero(inBucket)[0]
+            if len(idxs) == 0:
+                continue
+            rules = rulesFor(sing)
             rule = rules['ruleVertex'] if (mdim == 1 or nS == 1) \
                 else rules['ruleEdge']
             PSI = rule.buildPSI(dm, nSharedVertices=nS)
             sharedMask = rule.sharedDofMask(dm, nS)
-            idxs = np.nonzero(nShared[group] == nS)[0]
             P = len(idxs)
             nv = mdim + 1
             vi1 = np.zeros((P, nv), dtype=np.int64)
@@ -2710,7 +2805,7 @@ class nonlocalBuilder:
             ii = pairs[idxs, 0]
             jj = pairs[idxs, 1]
             sigInv = group[idxs]
-            for g in np.nonzero(nShared == nS)[0]:
+            for g in np.unique(sigInv):
                 gsel = np.nonzero(sigInv == g)[0]
                 _, perm1, perm2 = lut[g]
                 ld1 = permuteLocalDofs(dm, perm1)
@@ -2730,12 +2825,17 @@ class nonlocalBuilder:
         """The distant grid passes (K2) of a grid classification, then the
         identical-cell, touching and distant(-correction) buckets (K1), then
         the pairs cut by a finite horizon (K14, K15).  Unordered pairs,
-        off-diagonal factor 2 (ref addToMatrixElemElemSym(contrib, 2.)).
+        off-diagonal factor 2 (ref addToMatrixElemElemSym(contrib, 2.)),
+        for a constant order and a symmetric variable one (innerOuter,
+        islands, layers: pynucleus_tpu/nl/assembly.py _runPairBuckets with
+        ``sym``, :2097-2340), whose identical and touching panels take the
+        rules of each pair's singularity (_singularityGroups); a
+        nonsymmetric kernel takes :meth:`_runPairBucketsGeneral`.
 
         The grid passes need nothing but the classification, so they go
         first: the card works through them while the host builds the
         buckets."""
-        if self.general:
+        if not self.kernel.symmetric:
             return self._runPairBucketsGeneral(acc, info)
         if 'gridPasses' in info:
             self._runDistantGrid(acc, info['gridPasses'])
@@ -2743,21 +2843,21 @@ class nonlocalBuilder:
         mdim = mesh.manifold_dim
         runner = _BucketRunner(mesh, dm, self.kernel, self.device)
         detfac = {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
-        sing = self.kernel.getSingularityValue()
-        rules = self._makeRulesFor(sing, info['quad_order_diagonal'])
+        rulesFor = self._ruleCache(info['quad_order_diagonal'])
         hostW = self._hostWeights()
 
         # --- identical-cell panels
         ids = info['id']
-        ruleId = rules['ruleId']
-        ids, _, w = hostW(ids, ids)
-        runner.runNatural(acc, ruleId,
-                          ruleId.buildPSI(dm, nSharedVertices=mdim + 1),
-                          ids, ids, detfac ** 2, weights=w)
+        for sing, sel in self._singularityGroups(ids, ids):
+            ruleId = rulesFor(sing)['ruleId']
+            ii, jj, w = hostW(ids[sel], ids[sel])
+            runner.runNatural(acc, ruleId,
+                              ruleId.buildPSI(dm, nSharedVertices=mdim + 1),
+                              ii, jj, detfac ** 2, weights=w)
 
         # --- touching panels (weighted, none dropped)
         for rule, PSI, vi1, vi2, dr, vs, (tp, _) in self._touchingBuckets(
-                info, rules):
+                info, rulesFor):
             if self.kernel.phi is not None:
                 vs = vs * self._pairWeights(tp[:, 0], tp[:, 1])
             runner.run(acc, rule, PSI, vi1, vi2, dr, vs)
@@ -2807,11 +2907,23 @@ class nonlocalBuilder:
     def _makeSplitRuleFor(self, sing, quad_order_diagonal, nS):
         """Touching-panel rule with cancellation=1 for the one-sided terms
         of mixed-singularity nonsymmetric panels
-        (pynucleus_tpu/nl/assembly.py _makeSplitRuleFor, 1D)."""
+        (pynucleus_tpu/nl/assembly.py _makeSplitRuleFor): the 1D vertex
+        rule, in 2D the edge rule for nS == 2 shared vertices, else the
+        vertex rule."""
         p = max(self.dm.polynomialOrder, 1) + self._orderBump()
-        return vertexRule1D(sing, quad_order_diagonal, 2 * p,
-                            continuous=self.dm.polynomialOrder >= 1,
-                            cancellation=1.0)
+        continuous = self.dm.polynomialOrder >= 1
+        if self.mesh.manifold_dim == 1:
+            return vertexRule1D(sing, quad_order_diagonal, 2 * p,
+                                continuous=continuous, cancellation=1.0)
+        from .quad_singular_2d import edgeRule2DSS, vertexRule2DSS
+        radial = max(p - 1, 1)
+        if nS == 2:
+            return edgeRule2DSS(sing, 2 * p, quad_order_diagonal,
+                                continuous=continuous, radialOrder=radial,
+                                cancellation=1.0)
+        return vertexRule2DSS(sing, 2 * p, quad_order_diagonal,
+                              continuous=continuous, radialOrder=radial,
+                              cancellation=1.0)
 
     def _pairSingularities(self, pi, pj):
         """Per-pair kernel singularity from the order at the cell centers
@@ -2863,13 +2975,7 @@ class nonlocalBuilder:
         detfac = {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
         dets = vols * detfac
         qd = info['quad_order_diagonal']
-        ruleCache = {}
-
-        def rulesFor(sing):
-            key = round(float(sing), 12)
-            if key not in ruleCache:
-                ruleCache[key] = self._makeRulesFor(sing, qd)
-            return ruleCache[key]
+        rulesFor = self._ruleCache(qd)
 
         phi = kernel.phi
 
@@ -3147,6 +3253,10 @@ class nonlocalBuilder:
         order > 4 corrections through K1, everything else through K3."""
         dm, mesh = self.dm, self.mesh
         surface = mesh.get_surface_mesh()
+        if surface.num_cells == 0:
+            # a closed manifold: no surface, no term (the JAX per-pair path
+            # adds exactly 0; its grid path fails on the empty surface)
+            return
         bkernel = self.kernel.getModifiedKernel(horizon=np.inf) \
             .getBoundaryKernel()
         # a variable boundary kernel, the per-pair dense path and a target
@@ -3759,8 +3869,8 @@ class nonlocalBuilder:
         vols = mesh.simplexVolumes()
         detfac = {1: 1.0, 2: 2.0, 3: 6.0}[mdim]
         runner = _BucketRunner(mesh, dm, self.kernel, self.device)
-        rules = self._makeRulesFor(self.kernel.getSingularityValue(),
-                                   info['quad_order_diagonal'])
+        rulesFor = self._ruleCache(info['quad_order_diagonal'])
+        rules = rulesFor(self.kernel.getSingularityValue())
         if len(info['distant'][0]):
             raise AssertionError('identical/adjacent cell pairs classified '
                                  'as distant')
@@ -3774,7 +3884,7 @@ class nonlocalBuilder:
                             acc.maskedSlots(dofs[ids], em),
                             vols[ids] * vols[ids] * detfac ** 2)
         for rule, PSI, vi1, vi2, dr, vs, (pairs, ldFull) in \
-                self._touchingBuckets(info, rules):
+                self._touchingBuckets(info, rulesFor):
             for s in range(0, len(pairs), _HOST_PAIRS):
                 sl = slice(s, s + _HOST_PAIRS)
                 base = pairMasks.lookup(pairs[sl, 0], pairs[sl, 1])
@@ -4228,6 +4338,10 @@ class nonlocalBuilder:
         Diagonal_LinearOperator.  The nonsymmetric local matrices (K19)
         raise NotImplementedError."""
         self._scalarKernel('getDiagonal')
+        if self.kernel.variable:
+            raise NotImplementedError('the diagonal of a variable order: '
+                                      'K1\'s diagonal target takes a radial '
+                                      'profile')
         acc = DeviceDiagAccumulator(self.dm.num_dofs, self.device,
                                     self._dtype())
         self._runPairBuckets(acc, self._classifyAll())
@@ -4437,6 +4551,7 @@ class nonlocalBuilder:
             raise NotImplementedError('H2 of a complement kernel: its '
                                       'cross operator is dense '
                                       '(_getComplementCross)')
+        _refuseH2Order(self.kernel, self.mesh)
         _refuseWeighted(self.kernel, 'H2')
         from .h2 import H2Matrix
         if self.mesh.manifold_dim not in (1, 2):

@@ -57,15 +57,22 @@ volume factor, dropping the pairs of weight 0.  The boundary kernel of the
 zero-exterior term keeps the tempering and drops phi, as in the JAX
 package.
 
-The fractional orders (:115-204): const, and varconst, constantNonSym and
-leftRight (twoDomain, twoDomainNonSym), registered by name as
-:data:`fractionalOrderFactory` does there.  A variable order (constantNonSym,
-leftRight: ``kernel.variable``) is evaluated per quadrature node,
-s(x, y) and the normalization C(d, s) of an infinite horizon
-(FractionalKernel.evalXY, :1290-1330), by :func:`evalXY` and, on the card,
-common.cuh kernelXY() from the order's :class:`OrderParams`; constantNonSym
-and leftRight are nonsymmetric.  A variable order with a finite horizon
-or a tempering raises NotImplementedError.  A variable horizon delta(x) of
+The fractional orders (:115-475): const, and varconst, constantNonSym,
+leftRight (twoDomain, twoDomainNonSym) and the orders of position
+innerOuter, islands, layers, smoothedLeftRight (smoothedTwoDomain),
+linearLeftRightNonSym, innerOuterNonSym (smoothedInnerOuter) and fe (an
+FE vector's raster), registered by name as :data:`fractionalOrderFactory`
+does there.  A variable order (every one but const and varconst:
+``kernel.variable``) is evaluated per quadrature node, s(x, y) and the
+normalization C(d, s) of an infinite horizon (FractionalKernel.evalXY,
+:1290-1330), by :func:`evalXY` (:func:`orderEval`, each order's jaxEval)
+and, on the card, common.cuh kernelXY() from the order's
+:class:`OrderParams`; innerOuter, islands and layers are symmetric where
+their cross values are, the others nonsymmetric.  The manifold kernel
+(MANIFOLD_FRACTIONAL, ``manifold=True``, :1252-1284) is the fractional
+kernel of a constant order on a closed 1-manifold in R^2: the power
+profile with the effective dimension dim - 1.  A variable order with a
+finite horizon or a tempering raises NotImplementedError.  A variable horizon delta(x) of
 a constant order (variableHorizonFractionalKernel, :1349, with an affine
 :class:`horizonFunction`) is C(delta(x)) |x-y|^(-d-2s) 1{|x-y| <= delta(x)},
 nonsymmetric, evaluated by :func:`evalXY` and K19 from its own
@@ -105,6 +112,7 @@ values are infinite): build Kernel(dim, 'polynomial', ..., exponentParam=a).
 from __future__ import annotations
 
 import copy
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -116,6 +124,11 @@ from ..base.factory import factory
 __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'constantNonSymFractionalOrder', 'leftRightFractionalOrder',
            'fractionalOrderFactory', 'OrderParams', 'evalXY', 'orderEval',
+           'innerOuterFractionalOrder', 'smoothedLeftRightFractionalOrder',
+           'linearLeftRightFractionalOrder',
+           'smoothedInnerOuterFractionalOrder', 'islandsFractionalOrder',
+           'layersFractionalOrder', 'feFractionalOrder',
+           'OrderTable', 'DENSE_ONLY_ORDERS', 'MANIFOLD_FRACTIONAL',
            'FractionalKernel',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
@@ -140,6 +153,9 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'GREENS_3D_PROFILE', 'COMPLEX_PROFILES']
 
 FRACTIONAL = 'fractional'
+# the fractional kernel of a closed 1-manifold in R^2 (chordal distance,
+# effective dimension dim - 1: FractionalKernel(..., manifold=True))
+MANIFOLD_FRACTIONAL = 'manifold_fractional'
 INDICATOR = 'indicator'
 PERIDYNAMIC = 'peridynamic'
 GAUSSIAN = 'gaussian'
@@ -203,14 +219,57 @@ class Profile(NamedTuple):
 ORDER_NONE = 0          # the kernel is its radial profile
 ORDER_CONST = 1         # s(x, y) = sll, normalized per node
 ORDER_LEFT_RIGHT = 2    # sll / srr / slr / srl by the sides of x and y
-ORDER_CODES = range(3)
+ORDER_INNER_OUTER = 3   # sii / soo / sio / soi by |x - c|^2 < r^2
+ORDER_ISLANDS = 4       # sii / soo / sio / soi by r <= |x_d| <= r2 for all d
+ORDER_LAYERS = 5        # orders[I, J] of the layers of x[-1] and y[-1]
+ORDER_SMOOTHED_LR = 6   # s(x): smoothstep from sll to srr across x[0] = iface
+ORDER_LINEAR_LR = 7     # s(x): linear from sll to srr across x[0] = iface
+ORDER_SMOOTHED_IO = 8   # s(x): smoothstep from sl to sr across |x| = radius
+ORDER_FE = 9            # s(x): the raster of an FE vector, multilinear
+ORDER_CODES = range(10)
+# the codes whose kernels K1 and K19 have for their dense targets only (the
+# H2 and sparse formats of these orders raise)
+DENSE_ONLY_ORDERS = range(3, 10)
+# the variant names of the codes in kernels.launches
+ORDER_VARIANTS = {ORDER_INNER_OUTER: 'inner_outer',
+                  ORDER_ISLANDS: 'islands', ORDER_LAYERS: 'layers',
+                  ORDER_SMOOTHED_LR: 'smoothed_left_right',
+                  ORDER_LINEAR_LR: 'linear_left_right',
+                  ORDER_SMOOTHED_IO: 'smoothed_inner_outer',
+                  ORDER_FE: 'fe'}
+
+
+class OrderTable:
+    """An order's table (float64 [n], on the host) and its copies on the
+    devices it was used on, made once per device and kept as long as the
+    order that owns the table."""
+
+    def __init__(self, host):
+        self.host = host
+        self._copies = {}
+
+    def on(self, device):
+        """The table on ``device``."""
+        dev = torch.device(device)
+        if dev not in self._copies:
+            self._copies[dev] = self.host.to(dtype=torch.float64,
+                                             device=dev).contiguous()
+        return self._copies[dev]
 
 
 class OrderParams(NamedTuple):
     """A variable fractional order as the device kernels take it: its code
     and values (sll, srr, slr, srl, interface; a constant order has all four
     values equal), the dimension d of the normalization C(d, s) and whether
-    the kernel is the boundary kernel C(s)/s r^(1-d-2s)."""
+    the kernel is the boundary kernel C(s)/s r^(1-d-2s).  The orders of
+    position (codes DENSE_ONLY_ORDERS) also take ``g``, up to four floats
+    formed on the host as the JAX expressions form them from Python floats
+    (innerOuter: the centre's coordinates and r^2 at g[2]; islands: r, r2;
+    smoothedLeftRight: the interface and 0.5/r; linearLeftRight: the
+    interface, r and 2r; smoothedInnerOuter: the radius and 0.5/r), and
+    ``table`` (an :class:`OrderTable` of layers' inner boundaries then its
+    [n, n] orders, or of fe's raster [n] or [n, n]) with its ``n``, and
+    fe's raster box ``lo``, ``hi`` [dim]."""
     code: int
     sll: float
     srr: float
@@ -219,6 +278,11 @@ class OrderParams(NamedTuple):
     interface: float
     dim: int
     boundary: bool
+    g: tuple = ()
+    table: object = None
+    n: int = 0
+    lo: tuple = ()
+    hi: tuple = ()
 
 
 class HorizonParams(NamedTuple):
@@ -346,8 +410,291 @@ class leftRightFractionalOrder(fractionalOrderBase):
         return f'twoDomain({self.sll},{self.srr})'
 
 
-# name -> order (pynucleus_tpu/nl/kernels.py:564-569 fractionalOrderFactory,
-# the entries ported)
+def _mixedOrder(xi, yi, sii, soo, sio, soi):
+    """sii where x and y are in, soo where both are out, sio / soi
+    across (x in / y in): the np.where nest of the JAX orders."""
+    return np.where(xi & yi, sii,
+                    np.where(~xi & ~yi, soo, np.where(xi, sio, soi)))
+
+
+class innerOuterFractionalOrder(fractionalOrderBase):
+    """s by whether x and y lie inside the ball of radius r around
+    ``center``: sii inside-inside, soo outside-outside, sio / soi across
+    (pynucleus_tpu/nl/kernels.py:206-248).  Inside is the strict
+    |x - c|^2 < r^2; symmetric iff sio == soi."""
+
+    def __init__(self, dim, sii, soo, r, center=None, sio=np.nan,
+                 soi=np.nan):
+        if not np.isfinite(sio):
+            sio = 0.5 * (sii + soo)
+        if not np.isfinite(soi):
+            soi = 0.5 * (sii + soo)
+        self.dim = dim
+        self.sii, self.soo, self.sio, self.soi = sii, soo, sio, soi
+        self.r = float(r)
+        self.center = (np.zeros(dim) if center is None
+                       else np.asarray(center, dtype=np.float64))
+        self.smin = min(sii, soo, sio, soi)
+        self.smax = max(sii, soo, sio, soi)
+        self.symmetric = (sio == soi)
+
+    def _inside(self, X):
+        return np.sum((np.asarray(X) - self.center) ** 2, axis=-1) \
+            < self.r ** 2
+
+    def __call__(self, X, Y):
+        return _mixedOrder(self._inside(np.atleast_2d(X)),
+                           self._inside(np.atleast_2d(Y)), self.sii,
+                           self.soo, self.sio, self.soi)
+
+    def _key(self):
+        return (type(self).__name__, self.sii, self.soo, self.sio, self.soi,
+                self.r, tuple(self.center))
+
+    def orderParams(self, dim, boundary):
+        c = tuple(float(v) for v in self.center) + (0.0,) * (2 - self.dim)
+        return OrderParams(ORDER_INNER_OUTER, self.sii, self.soo, self.sio,
+                           self.soi, 0.0, dim, boundary,
+                           g=c[:2] + (self.r ** 2,))
+
+    def __repr__(self):
+        return f'innerOuter({self.sii},{self.soo},r={self.r})'
+
+
+def _smoothstep01(t, xp):
+    t = xp.clip(t, 0.0, 1.0)
+    return 3.0 * t ** 2 - 2.0 * t ** 3
+
+
+class smoothedLeftRightFractionalOrder(fractionalOrderBase):
+    """s(x) alone: a smoothstep from sll to srr over [interface - r,
+    interface + r] of x[0] (pynucleus_tpu/nl/kernels.py:256-285);
+    nonsymmetric."""
+    symmetric = False
+
+    def __init__(self, sll, srr, r=0.1, slope=200.0, interface=0.0):
+        self.sll, self.srr = sll, srr
+        self.r = float(r)
+        self.interface = float(interface)
+        self.smin = min(sll, srr)
+        self.smax = max(sll, srr)
+
+    def __call__(self, X, Y):
+        t = (np.atleast_2d(X)[..., 0] - self.interface) * (0.5 / self.r) \
+            + 0.5
+        return self.sll + (self.srr - self.sll) * _smoothstep01(t, np)
+
+    def _key(self):
+        return (type(self).__name__, self.sll, self.srr, self.r,
+                self.interface)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_SMOOTHED_LR, self.sll, self.srr, self.sll,
+                           self.srr, self.interface, dim, boundary,
+                           g=(self.interface, 0.5 / self.r))
+
+    def __repr__(self):
+        return f'smoothedLeftRight({self.sll},{self.srr},r={self.r})'
+
+
+class linearLeftRightFractionalOrder(fractionalOrderBase):
+    """s(x) alone: linear from sll to srr over [interface - r, interface +
+    r] of x[0] (pynucleus_tpu/nl/kernels.py:288-314); nonsymmetric."""
+    symmetric = False
+
+    def __init__(self, sll, srr, r=0.1, interface=0.0):
+        self.sll, self.srr = sll, srr
+        self.r = float(r)
+        self.interface = float(interface)
+        self.smin = min(sll, srr)
+        self.smax = max(sll, srr)
+
+    def __call__(self, X, Y):
+        t = np.clip((np.atleast_2d(X)[..., 0] - self.interface + self.r)
+                    / (2 * self.r), 0.0, 1.0)
+        return self.sll + (self.srr - self.sll) * t
+
+    def _key(self):
+        return (type(self).__name__, self.sll, self.srr, self.r,
+                self.interface)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_LINEAR_LR, self.sll, self.srr, self.sll,
+                           self.srr, self.interface, dim, boundary,
+                           g=(self.interface, self.r, 2 * self.r))
+
+    def __repr__(self):
+        return f'linearLeftRight({self.sll},{self.srr},r={self.r})'
+
+
+class smoothedInnerOuterFractionalOrder(fractionalOrderBase):
+    """s(x) alone: a smoothstep from sl (inside) to sr over |x| in [radius
+    - r, radius + r] (pynucleus_tpu/nl/kernels.py:317-342, the factory's
+    innerOuterNonSym); nonsymmetric."""
+    symmetric = False
+
+    def __init__(self, sl, sr, r=0.1, slope=200.0, radius=0.5):
+        self.sl, self.sr = sl, sr
+        self.r = float(r)
+        self.radius = float(radius)
+        self.smin = min(sl, sr)
+        self.smax = max(sl, sr)
+
+    def __call__(self, X, Y):
+        rr = np.sqrt(np.sum(np.atleast_2d(X) ** 2, axis=-1))
+        t = (rr - self.radius) * (0.5 / self.r) + 0.5
+        return self.sl + (self.sr - self.sl) * _smoothstep01(t, np)
+
+    def _key(self):
+        return (type(self).__name__, self.sl, self.sr, self.r, self.radius)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_SMOOTHED_IO, self.sl, self.sr, self.sl,
+                           self.sr, 0.0, dim, boundary,
+                           g=(self.radius, 0.5 / self.r))
+
+    def __repr__(self):
+        return f'smoothedInnerOuter({self.sl},{self.sr})'
+
+
+class islandsFractionalOrder(fractionalOrderBase):
+    """s by membership of x and y in the islands r <= |x_d| <= r2 for every
+    coordinate d (pynucleus_tpu/nl/kernels.py:345-379); symmetric iff
+    sio == soi."""
+
+    def __init__(self, sii, soo, r=0.1, r2=0.6, sio=np.nan, soi=np.nan):
+        if not np.isfinite(sio):
+            sio = 0.5 * (sii + soo)
+        if not np.isfinite(soi):
+            soi = 0.5 * (sii + soo)
+        self.sii, self.soo, self.sio, self.soi = sii, soo, sio, soi
+        self.r, self.r2 = float(r), float(r2)
+        self.smin = min(sii, soo, sio, soi)
+        self.smax = max(sii, soo, sio, soi)
+        self.symmetric = (sio == soi)
+
+    def _inIsland(self, X):
+        p = np.abs(np.asarray(X))
+        return np.all((p >= self.r) & (p <= self.r2), axis=-1)
+
+    def __call__(self, X, Y):
+        return _mixedOrder(self._inIsland(np.atleast_2d(X)),
+                           self._inIsland(np.atleast_2d(Y)), self.sii,
+                           self.soo, self.sio, self.soi)
+
+    def _key(self):
+        return (type(self).__name__, self.sii, self.soo, self.sio, self.soi,
+                self.r, self.r2)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_ISLANDS, self.sii, self.soo, self.sio,
+                           self.soi, 0.0, dim, boundary, g=(self.r, self.r2))
+
+    def __repr__(self):
+        return f'islands({self.sii},{self.soo})'
+
+
+class layersFractionalOrder(fractionalOrderBase):
+    """Layers along the last coordinate: s = layerOrders[I, J] with I, J
+    the layers of x[-1] and y[-1] (searchsorted of the inner boundaries,
+    side 'right'; pynucleus_tpu/nl/kernels.py:382-415); symmetric iff the
+    orders are."""
+
+    def __init__(self, dim, layerBoundaries, layerOrders):
+        self.dim = dim
+        self.layerBoundaries = np.asarray(layerBoundaries, dtype=np.float64)
+        self.layerOrders = np.asarray(layerOrders, dtype=np.float64)
+        self.smin = float(self.layerOrders.min())
+        self.smax = float(self.layerOrders.max())
+        self.symmetric = bool(np.allclose(self.layerOrders,
+                                          self.layerOrders.T))
+        self._table = OrderTable(torch.as_tensor(np.concatenate(
+            [self.layerBoundaries[1:-1], self.layerOrders.ravel()])))
+
+    def _layer(self, X):
+        idx = np.searchsorted(self.layerBoundaries[1:-1],
+                              np.asarray(X)[..., -1], side='right')
+        return np.clip(idx, 0, self.layerOrders.shape[0] - 1)
+
+    def __call__(self, X, Y):
+        return self.layerOrders[self._layer(np.atleast_2d(X)),
+                                self._layer(np.atleast_2d(Y))]
+
+    def _key(self):
+        return (type(self).__name__, tuple(self.layerBoundaries),
+                tuple(self.layerOrders.ravel()))
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_LAYERS, self.smin, self.smax, self.smin,
+                           self.smax, 0.0, dim, boundary, table=self._table,
+                           n=self.layerOrders.shape[0])
+
+    def __repr__(self):
+        return f'layers({self.layerOrders.shape[0]})'
+
+
+class feFractionalOrder(fractionalOrderBase):
+    """s(x) of an FE vector (pynucleus_tpu/nl/kernels.py:418-475):
+    evaluated on the host by locating x in the mesh (fem.lookup), on the
+    device on the JAX package's raster, gridN points per axis in 1D and
+    min(gridN, 192) in 2D over the mesh's bounding box, the FE values
+    clipped to [smin, smax] at the points and interpolated multilinearly
+    (the raster and the box travel in the order's OrderParams);
+    nonsymmetric."""
+    symmetric = False
+
+    def __init__(self, vec, smin=None, smax=None, gridN=256):
+        from ..fem.lookup import lookupFunction
+        self.vec = vec
+        self.dm = vec.dm
+        arr = np.asarray(vec.data.detach().cpu().numpy()
+                         if hasattr(vec.data, 'detach') else vec.data)
+        self.smin = float(smin if smin is not None else arr.min())
+        self.smax = float(smax if smax is not None else arr.max())
+        self._lookup = lookupFunction(vec.dm.mesh, vec.dm, vec,
+                                      fallback=0.5 * (self.smin + self.smax))
+        mesh = vec.dm.mesh
+        self._lo = mesh.vertices.min(axis=0)
+        self._hi = mesh.vertices.max(axis=0)
+        dim = mesh.dim
+        if dim > 2:
+            raise NotImplementedError('feFractionalOrder in 3D')
+        n = gridN if dim == 1 else min(gridN, 192)
+        axes = [np.linspace(self._lo[d], self._hi[d], n)
+                for d in range(dim)]
+        G = np.meshgrid(*axes, indexing='ij')
+        pts = np.stack([g.ravel() for g in G], axis=1)
+        vals = np.clip(self._lookup(pts), self.smin, self.smax)
+        self._gridN = n
+        self._grid = torch.as_tensor(vals.reshape((n,) * dim))
+        self._table = OrderTable(self._grid.reshape(-1))
+
+    def __call__(self, X, Y):
+        vals = np.clip(self._lookup(np.atleast_2d(X)), self.smin, self.smax)
+        return np.broadcast_to(
+            vals, np.broadcast_shapes(np.atleast_2d(X).shape[:-1],
+                                      np.atleast_2d(Y).shape[:-1])).copy()
+
+    @property
+    def numParameters(self):
+        return self.dm.num_dofs
+
+    def _key(self):
+        return (type(self).__name__, id(self.vec), self.smin, self.smax)
+
+    def orderParams(self, dim, boundary):
+        return OrderParams(ORDER_FE, self.smin, self.smax, self.smin,
+                           self.smax, 0.0, dim, boundary,
+                           table=self._table, n=self._gridN,
+                           lo=tuple(float(v) for v in self._lo),
+                           hi=tuple(float(v) for v in self._hi))
+
+    def __repr__(self):
+        return f'fe({self.smin},{self.smax})'
+
+
+# name -> order (pynucleus_tpu/nl/kernels.py:564-580 fractionalOrderFactory
+# with its aliases)
 fractionalOrderFactory = {
     'const': constFractionalOrder,
     'varconst': variableConstFractionalOrder,
@@ -355,6 +702,14 @@ fractionalOrderFactory = {
     'twoDomain': leftRightFractionalOrder,
     'twoDomainNonSym': leftRightFractionalOrder,
     'leftRight': leftRightFractionalOrder,
+    'innerOuter': innerOuterFractionalOrder,
+    'smoothedLeftRight': smoothedLeftRightFractionalOrder,
+    'smoothedTwoDomain': smoothedLeftRightFractionalOrder,
+    'linearLeftRightNonSym': linearLeftRightFractionalOrder,
+    'innerOuterNonSym': smoothedInnerOuterFractionalOrder,
+    'islands': islandsFractionalOrder,
+    'layers': layersFractionalOrder,
+    'fe': feFractionalOrder,
 }
 
 
@@ -900,7 +1255,7 @@ class Kernel:
         weight (wcode, wlam)."""
         t, C, a = self.kernelType, self.scalingValue, self.exponentParam
         w = self.weightParams()
-        if t == FRACTIONAL:
+        if t in (FRACTIONAL, MANIFOLD_FRACTIONAL):
             return Profile(POWER, C, 0.5 * self.singularityValue, 0.0,
                            t=self.temperedLambda, wcode=w[0], wlam=w[1])
         if t in (INDICATOR, PERIDYNAMIC):
@@ -1008,7 +1363,7 @@ class Kernel:
         r2 = float(((x - y) ** 2).sum())
         C = self.scalingValue
         t = self.kernelType
-        if t == FRACTIONAL:
+        if t in (FRACTIONAL, MANIFOLD_FRACTIONAL):
             if r2 == 0.0:
                 return 0.0
             val = C * r2 ** (0.5 * self.singularityValue)
@@ -1047,21 +1402,31 @@ class FractionalKernel(Kernel):
     order sets ``variableOrder`` but stays a radial profile.  With
     ``temperedLambda`` the kernel of a constant order is tempered, gamma
     times exp(-lambda |x-y|), normalized by the tempered scaling of an
-    infinite horizon; the boundary kernel keeps the tempering."""
+    infinite horizon; the boundary kernel keeps the tempering.
+
+    ``manifold=True`` is the MANIFOLD_FRACTIONAL kernel of a closed
+    (dim-1)-manifold in R^dim (pynucleus_tpu/nl/kernels.py:1252-1284): the
+    chordal distance |x-y| with the effective dimension dim - 1 in the
+    scaling and the singularity alone; ``dim`` stays the space's.  A
+    variable order of it raises (its normalization would take ``dim``)."""
 
     def __init__(self, dim, s, horizon=np.inf, interaction=None, scaling=None,
-                 normalized=True, boundary=False, temperedLambda=0.0):
+                 normalized=True, boundary=False, temperedLambda=0.0,
+                 manifold=False):
         if not isinstance(s, fractionalOrderBase):
             s = constFractionalOrder(s)
         self.s = s
+        self.manifold = manifold
+        dEff = dim - 1 if manifold else dim
         self.variableOrder = type(s) is not constFractionalOrder
         sval = s.value if hasattr(s, 'value') else 0.5 * (s.min + s.max)
         if scaling is None:
             scaling = constantFractionalLaplacianScaling(
-                dim, sval, float(horizon), temperedLambda) if normalized \
+                dEff, sval, float(horizon), temperedLambda) if normalized \
                 else 0.5
-        super().__init__(dim, FRACTIONAL, horizon, interaction, scaling,
-                         (1 if boundary else 0) - dim - 2 * sval,
+        super().__init__(dim, MANIFOLD_FRACTIONAL if manifold else FRACTIONAL,
+                         horizon, interaction, scaling,
+                         (1 if boundary else 0) - dEff - 2 * sval,
                          boundary=boundary, temperedLambda=temperedLambda)
         self.symmetric = s.symmetric
         self.variable = self.variableOrder and not isinstance(
@@ -1073,8 +1438,11 @@ class FractionalKernel(Kernel):
             # the JAX package's variable-order evalXY drops the tempering
             raise NotImplementedError('a tempered kernel of a variable '
                                       'order')
-        self.min_singularity = (1 if boundary else 0) - dim - 2 * s.max
-        self.max_singularity = (1 if boundary else 0) - dim - 2 * s.min
+        if manifold and (self.variable or self.horizonValue != np.inf):
+            raise NotImplementedError('a variable order or a finite horizon '
+                                      'of the manifold kernel')
+        self.min_singularity = (1 if boundary else 0) - dEff - 2 * s.max
+        self.max_singularity = (1 if boundary else 0) - dEff - 2 * s.min
 
     @property
     def sValue(self):
@@ -1458,15 +1826,25 @@ class _ComponentFractionalKernel(FractionalKernel):
 
 def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
                         scaling=None, normalized=True, derivative=0, phi=None,
-                        temperedLambda=0.0, **kwargs):
+                        temperedLambda=0.0, manifold=False, **kwargs):
     """The fractional kernel of order s; with ``derivative`` (1 or 2) its
     s-derivative: a :class:`VectorFractionalKernel` for an order of several
     parameters, else a :class:`DerivativeFractionalKernel`.  An order
     ranging over an ``admissibleSet`` gives a ``RangedFractionalKernel``
     (nl/operator_interpolation.py), which takes ``kwargs`` (errorBound,
     M_min, M_max, xi), as pynucleus_tpu/nl/kernels.py:1685-1688.  ``phi``
-    is a two-point weight (:meth:`Kernel.setTwoPoint`)."""
+    is a two-point weight (:meth:`Kernel.setTwoPoint`).  ``manifold=True``
+    gives the MANIFOLD_FRACTIONAL kernel (:class:`FractionalKernel`) of a
+    constant order and a single horizon; with a ranged order, a variable
+    horizon or an s-derivative it raises (the JAX factory drops it
+    there)."""
     from .operator_interpolation import admissibleSet, RangedFractionalKernel
+    if manifold and (isinstance(s, admissibleSet) or derivative
+                     or isinstance(horizon, horizonFunction)
+                     or callable(horizon)):
+        raise NotImplementedError('the manifold kernel of a ranged order, '
+                                  'a variable horizon or an s-derivative '
+                                  '(the JAX factory drops manifold there)')
     if isinstance(s, admissibleSet):
         if phi is not None or temperedLambda != 0.0:
             raise NotImplementedError('a two-point weight or tempering of '
@@ -1508,7 +1886,8 @@ def getFractionalKernel(dim, s, horizon=np.inf, interaction=None,
             dim, s, hv, interaction, normalized=normalized,
             derivative=derivative).setTwoPoint(phi)
     return FractionalKernel(dim, s, hv, interaction, scaling,
-                            normalized=normalized).setTwoPoint(phi)
+                            normalized=normalized,
+                            manifold=manifold).setTwoPoint(phi)
 
 
 def getIntegrableKernel(dim, kernel, horizon, interaction=None, scaling=None,
@@ -1764,23 +2143,42 @@ def radialEval(r2, prof):
     return torch.where(pos, val, 0.0)
 
 
-def orderArgs(order):
-    """(code, sll, srr, slr, srl, interface, piD2, halfDim, eBase, boundary)
-    of an :class:`OrderParams` (or None) as the C entry points take them:
-    pi^(d/2), d/2 and the exponent base (-d/2, or (1-d)/2 for the boundary
-    kernel) are formed here on the host, as the JAX expression forms them
-    from Python floats."""
+def _orderNorm(order):
+    """pi^(d/2), d/2 and the exponent base (-d/2, or (1-d)/2 for the
+    boundary kernel) of an :class:`OrderParams`, formed on the host as the
+    JAX expression forms them from Python floats."""
+    d = order.dim
+    eBase = 0.5 * (1.0 - d) if order.boundary else -0.5 * d
+    return float(np.pi ** (0.5 * d)), float(0.5 * d), float(eBase)
+
+
+def orderArgs(order, device=None):
+    """(code, sll, srr, slr, srl, interface, piD2, halfDim, eBase, boundary,
+    xdim, g0, g1, g2, g3, table, n, lo0, lo1, hi0, hi1) of an
+    :class:`OrderParams` (or None) as every C entry point that takes an
+    order takes it (common.cuh ORDER_PARAMS): :func:`_orderNorm`'s host
+    values, the order of position's point dimension, its constants g and
+    its table (a pointer to the copy on ``device``, which an order with a
+    table needs; None without one) with fe's box."""
     if order is None:
-        return (ORDER_NONE, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0)
+        return (ORDER_NONE, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0, 0,
+                0.0, 0.0, 0.0, 0.0, None, 0, 0.0, 0.0, 0.0, 0.0)
     if not isinstance(order, OrderParams) or int(order.code) not in \
             ORDER_CODES:
         raise ValueError(f'an OrderParams is expected, got {order!r}')
-    d = order.dim
-    eBase = 0.5 * (1.0 - d) if order.boundary else -0.5 * d
+    table = None
+    if order.table is not None:
+        if device is None:
+            raise ValueError('orderArgs: an order with a table needs the '
+                             'device of its copy')
+        table = ctypes.c_void_p(order.table.on(device).data_ptr())
+    g = tuple(float(v) for v in order.g) + (0.0,) * (4 - len(order.g))
+    lo = tuple(float(v) for v in order.lo) + (0.0,) * (2 - len(order.lo))
+    hi = tuple(float(v) for v in order.hi) + (0.0,) * (2 - len(order.hi))
     return (int(order.code), float(order.sll), float(order.srr),
             float(order.slr), float(order.srl), float(order.interface),
-            float(np.pi ** (0.5 * d)), float(0.5 * d), float(eBase),
-            int(bool(order.boundary)))
+            *_orderNorm(order), int(bool(order.boundary)), int(order.dim),
+            *g, table, int(order.n), *lo, *hi)
 
 
 def _horizonConsts(horizon):
@@ -1802,20 +2200,99 @@ def horizonArgs(horizon):
             int(bool(horizon.normalized)))
 
 
+def _mixedOrderT(xi, yi, order, v):
+    """The torch.where nest of the two-region orders (innerOuter, islands):
+    sll in-in, srr out-out, slr / srl across."""
+    return torch.where(xi & yi, v(order.sll),
+                       torch.where(~xi & ~yi, v(order.srr),
+                                   torch.where(xi, v(order.slr),
+                                               v(order.srl))))
+
+
+def _smoothstepT(t):
+    """3 t^2 - 2 t^3 of t clipped to [0, 1], t^3 as t (t t): the JAX
+    expression's integer powers (t ** 3 is lax.integer_pow, x (x x))."""
+    t = torch.clamp(t, 0.0, 1.0)
+    return 3.0 * (t * t) - 2.0 * (t * (t * t))
+
+
+def _feRaster(x, order):
+    """feFractionalOrder.jaxEval: the raster [n] or [n, n] (order.table)
+    at x [..., dim], multilinear, t clipped to the box and the cell index
+    to [0, n-2], in the JAX expression's order."""
+    n = int(order.n)
+    g = order.table.on(x.device).to(x.dtype)
+    lo = torch.tensor(order.lo, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(order.hi, dtype=x.dtype, device=x.device)
+    t = torch.clamp((x - lo) / (hi - lo), 0.0, 1.0) * (n - 1)
+    i0 = torch.clamp(torch.floor(t).to(torch.int32), 0, n - 2)
+    f = t - i0
+    i0 = i0.long()
+    if x.shape[-1] == 1:
+        i, fx = i0[..., 0], f[..., 0]
+        return (1 - fx) * g[i] + fx * g[i + 1]
+    i, j = i0[..., 0], i0[..., 1]
+    fx, fy = f[..., 0], f[..., 1]
+    return ((1 - fx) * (1 - fy) * g[i * n + j]
+            + fx * (1 - fy) * g[(i + 1) * n + j]
+            + (1 - fx) * fy * g[i * n + j + 1]
+            + fx * fy * g[(i + 1) * n + j + 1])
+
+
 def orderEval(x, y, order):
-    """s(x, y) [...] of an :class:`OrderParams` at x, y [..., dim]."""
-    if order.code == ORDER_CONST:
-        return torch.full(torch.broadcast_shapes(x.shape[:-1], y.shape[:-1]),
-                          float(order.sll), dtype=x.dtype, device=x.device)
-    xl = x[..., 0] < order.interface
-    yl = y[..., 0] < order.interface
+    """s(x, y) [...] of an :class:`OrderParams` at x, y [..., dim]: each
+    order's jaxEval (pynucleus_tpu/nl/kernels.py:115-475), the same
+    comparisons and operations in the same order (common.cuh orderAt is
+    its copy on the card)."""
+    shape = torch.broadcast_shapes(x.shape[:-1], y.shape[:-1])
 
     def v(a):
         return torch.tensor(float(a), dtype=x.dtype, device=x.device)
-    return torch.where(xl & yl, v(order.sll),
-                       torch.where(~xl & ~yl, v(order.srr),
-                                   torch.where(xl, v(order.slr),
-                                               v(order.srl))))
+    code = int(order.code)
+    if code == ORDER_CONST:
+        return torch.full(shape, float(order.sll), dtype=x.dtype,
+                          device=x.device)
+    if code == ORDER_LEFT_RIGHT:
+        return _mixedOrderT(x[..., 0] < order.interface,
+                            y[..., 0] < order.interface, order, v)
+    g = order.g
+    if code == ORDER_INNER_OUTER:
+        c = torch.tensor(g[:x.shape[-1]], dtype=x.dtype, device=x.device)
+        return _mixedOrderT(((x - c) ** 2).sum(-1) < g[2],
+                            ((y - c) ** 2).sum(-1) < g[2], order, v)
+    if code == ORDER_ISLANDS:
+        def inIsland(p):
+            p = p.abs()
+            return ((p >= g[0]) & (p <= g[1])).all(-1)
+        return _mixedOrderT(inIsland(x), inIsland(y), order, v)
+    if code == ORDER_LAYERS:
+        nL = int(order.n)
+        tab = order.table.on(x.device).to(x.dtype)
+        edges = tab[:nL - 1].contiguous()
+        orders = tab[nL - 1:]
+
+        def layer(p):
+            c = p[..., -1].contiguous()
+            idx = torch.searchsorted(edges, c, right=True)
+            return torch.clamp(idx, 0, nL - 1)
+        I, J = torch.broadcast_tensors(layer(x), layer(y))
+        return orders[I * nL + J]
+    if code == ORDER_SMOOTHED_LR:
+        t = (x[..., 0] - g[0]) * g[1] + 0.5
+        val = order.sll + (order.srr - order.sll) * _smoothstepT(t)
+    elif code == ORDER_LINEAR_LR:
+        t = torch.clamp((x[..., 0] - g[0] + g[1]) / g[2], 0.0, 1.0)
+        val = order.sll + (order.srr - order.sll) * t
+    elif code == ORDER_SMOOTHED_IO:
+        rr = torch.sqrt((x ** 2).sum(-1))
+        t = (rr - g[0]) * g[1] + 0.5
+        val = order.sll + (order.srr - order.sll) * _smoothstepT(t)
+    elif code == ORDER_FE:
+        val = _feRaster(x, order)
+    else:
+        raise ValueError(f'order code {code}')
+    # the orders of x alone, broadcast to the pairs of (x, y)
+    return torch.broadcast_to(val, shape)
 
 
 def evalXY(x, y, r2, prof, order=None, horizon=None):
@@ -1846,7 +2323,8 @@ def evalXY(x, y, r2, prof, order=None, horizon=None):
         return torch.where(pos, val, 0.0)
     if order is None:
         return radialEval(r2, prof)
-    _, _, _, _, _, _, piD2, halfDim, eBase, boundary = orderArgs(order)
+    piD2, halfDim, eBase = _orderNorm(order)
+    boundary = bool(order.boundary)
     sv = orderEval(x, y, order)
     C = (2.0 ** (2 * sv) * sv / piD2 * 0.5 *
          torch.exp(torch.lgamma(sv + halfDim) - torch.lgamma(1.0 - sv)))

@@ -28,7 +28,7 @@ from ..fem.functions import (constant, Lambda, squareIndicator,
                              radialIndicator, solFractional)
 from .kernels import (constFractionalOrder, variableConstFractionalOrder,
                       constantNonSymFractionalOrder, leftRightFractionalOrder,
-                      getFractionalKernel,
+                      fractionalOrderFactory, getFractionalKernel,
                       getIntegrableKernel, ball2, ballInf, FRACTIONAL,
                       GAUSSIAN, EXPONENTIAL)
 
@@ -49,7 +49,14 @@ def parseFractionalOrder(sArg):
     """'const(0.75)', 'varconst(0.75)', 'constantNonSym(0.25)',
     'twoDomainNonSym(0.25,0.75)' or 'twoDomain(0.25,0.75)' (or a number)
     -> the fractional order (pynucleus_tpu/nl/problems.py
-    parseFractionalOrder)."""
+    parseFractionalOrder); and the other names of fractionalOrderFactory
+    with the arguments of their constructors, numbers, positional or
+    ``name=value``: 'innerOuter(2,0.75,0.25,0.5)' (dim, sii, soo, r),
+    'islands(0.3,0.7,r=0.1,r2=0.6)', 'smoothedLeftRight(0.25,0.75,r=0.1)'
+    (also smoothedTwoDomain), 'linearLeftRightNonSym(0.25,0.75,r=0.5)',
+    'innerOuterNonSym(0.3,0.6,r=0.1,radius=0.5)' and 'layers(dim, nL,
+    the nL + 1 boundaries, the nL^2 orders row by row)'.  The fe order
+    needs an FE vector and is not parsed."""
     if isinstance(sArg, (int, float)):
         return constFractionalOrder(float(sArg))
     for name, builder in [
@@ -62,7 +69,25 @@ def parseFractionalOrder(sArg):
         if sArg.startswith(name + '('):
             inner = sArg[len(name) + 1:-1]
             return builder([float(t) for t in inner.split(',') if t.strip()])
-    raise NotImplementedError(sArg)
+    name, _, inner = sArg.partition('(')
+    if name == 'fe' or name not in fractionalOrderFactory \
+            or not inner.endswith(')'):
+        raise NotImplementedError(sArg)
+    args, kw = [], {}
+    for tok in (t.strip() for t in inner[:-1].split(',')):
+        if '=' in tok:
+            k, v = tok.split('=')
+            kw[k.strip()] = float(v)
+        elif tok:
+            args.append(float(tok))
+    if name == 'innerOuter':
+        args[0] = int(args[0])
+    elif name == 'layers':
+        dim, nL = int(args[0]), int(args[1])
+        bounds = args[2:3 + nL]
+        orders = np.reshape(args[3 + nL:], (nL, nL))
+        return fractionalOrderFactory[name](dim, bounds, orders)
+    return fractionalOrderFactory[name](*args, **kw)
 
 
 def defaultNoRef(domain, element='P1'):

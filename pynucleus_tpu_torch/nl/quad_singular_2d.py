@@ -1,7 +1,8 @@
 """2D singularity-cancelling quadrature rules for triangle pairs.
 
 Carried over from pynucleus_tpu/nl/quad_singular_2d.py (numpy host code,
-without the one-sided cancellation option of the nonsymmetric kernels).  The
+with the one-sided cancellation option of the nonsymmetric kernels'
+mixed-singularity panels).  The
 transformations are the classical Sauter-Schwab-type collapsed-coordinate
 decompositions of the 4D product domain T x T:
   - COMMON_FACE: 3 subdomains (x6 symmetry -> weight 2), Jacobian
@@ -64,10 +65,15 @@ def sameCellRule2DSS(singularity, order_unused, quad_order_diagonal,
 
 
 def edgeRule2DSS(singularity, order_unused, quad_order_diagonal,
-                 continuous=True, radialOrder=1):
+                 continuous=True, radialOrder=1, cancellation=None):
     """Common-edge panel (ref fractionalLaplacian2D.pyx:173-320).  Shared edge
-    = permuted vertices (0, 1) of both triangles, matched in order."""
-    sigma = (2.0 if continuous else 0.0) + singularity
+    = permuted vertices (0, 1) of both triangles, matched in order.
+    ``cancellation`` overrides the vanishing-order count (see
+    quad_singular.vertexRule1D: one-sided terms of mixed-singularity nonsym
+    panels use 1)."""
+    if cancellation is None:
+        cancellation = 2.0 if continuous else 0.0
+    sigma = cancellation + singularity
     rA0 = gaussJacobi01(radialOrder, 3.0 + sigma, 0.0)
     rA1 = gaussJacobi01(radialOrder, 2.0 + sigma, 0.0)
     qd = quad_order_diagonal
@@ -103,10 +109,13 @@ def edgeRule2DSS(singularity, order_unused, quad_order_diagonal,
 
 
 def vertexRule2DSS(singularity, order_unused, quad_order_diagonalV,
-                   continuous=True, radialOrder=1):
+                   continuous=True, radialOrder=1, cancellation=None):
     """Common-vertex panel (ref fractionalLaplacian2D.pyx:321-401).  Shared
-    vertex = permuted vertex 0 of both triangles."""
-    sigma = (2.0 if continuous else 0.0) + singularity
+    vertex = permuted vertex 0 of both triangles.  ``cancellation``: see
+    edgeRule2DSS."""
+    if cancellation is None:
+        cancellation = 2.0 if continuous else 0.0
+    sigma = cancellation + singularity
     r0 = gaussJacobi01(radialOrder, 3.0 + sigma, 0.0)
     qv = quad_order_diagonalV
     rQ0 = gaussJacobi01(qv, 0.0, 0.0)

@@ -94,6 +94,11 @@ def test_port_imports_no_jax():
             'from pynucleus_tpu_torch.multilevel.gmg import cheb_smooth, '
             '_mg_solve; '
             'from pynucleus_tpu_torch.interop import sssFromArrays; '
+            'import pynucleus_tpu_torch.drivers.variableOrder; '
+            'from pynucleus_tpu_torch.fem.meshes import sphere1; '
+            'from pynucleus_tpu_torch.nl.kernels import '
+            'feFractionalOrder, innerOuterFractionalOrder, '
+            'layersFractionalOrder, MANIFOLD_FRACTIONAL; '
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'pynucleus_tpu' or "
             "m.startswith('pynucleus_tpu.') for m in sys.modules), "

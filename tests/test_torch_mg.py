@@ -133,7 +133,8 @@ def test_cpu_wrappers_count_no_launch():
                                               + kernels.COMPLEX
                                               + kernels.HORIZON
                                               + kernels.FORMATS
-                                              + kernels.TWOPOINT)
+                                              + kernels.TWOPOINT
+                                              + kernels.ORDERS)
     assert {'interp_matvec', 'matfree_apply'} <= set(kernels.deviceLaunches)
 
 

@@ -115,12 +115,15 @@ def test_orders_and_flags_match_jax(sArg):
 def test_variable_order_refusals():
     with pytest.raises(NotImplementedError):
         tker.getFractionalKernel(1, tParse(LR), horizon=0.5)
+    # a variable order in 2D assembles dense (tests/test_torch_orders2d.py);
+    # its H2 operator raises, as the JAX package fails there
     m = jfem.circle(h=0.78, radius=1.0)
     _, tdm, tk = fromArrays(m.vertices, m.cells, LR, 2, device='cpu')
     with pytest.raises(NotImplementedError):
-        tasm.nonlocalBuilder(tdm, tk)
+        tasm.nonlocalBuilder(tdm, tk).getH2()
+    # the fe order needs an FE vector: no string of it parses
     with pytest.raises(NotImplementedError):
-        tParse('innerOuter(0.25,0.75)')
+        tParse('fe(0.25,0.75)')
 
 
 EVAL_CASES = [('constantNonSym(0.25)', False), (LR, False), (LR, True)]
