@@ -100,8 +100,8 @@ result line):
      of its own) against their pins and the pinned JAX outputs; H2 and its
      transpose against dense at noRef 12 (8,191 dofs; the transposed apply
      a path of its own, eT < max(1e-5, 3 eFwd), tests/test_h2_transpose.py
-     :33); the full-width line, twoDomainNonSym gmres-mg H2 at noRef 14
-     (15 levels, 32,767 dofs; a path; noRef 12 instead if its host set-up
+     :33); the full-width line, twoDomainNonSym gmres-mg H2 at noRef 13
+     (14 levels, 16,383 dofs; a path; noRef 12 instead if its host set-up
      exceeds 300 s): iterations, errors, per-level build parts, cold and
      warm solve, ms per V-cycle, peak device memory; then K1 with the order
      codes (dense target; tree, dense and slots targets with the y shift),
@@ -117,8 +117,8 @@ result line):
      noRef 6 (5e-4); the full-width lines, dA/ds of the flagship disc at
      noRef 7 (getH2Vector under torch.profiler: build parts and seconds,
      its device time, apply and transposed apply, peak memory) and
-     d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 12 (8,191 dofs,
-     [8191, 8191, 4]; noRef 11 if its host classification exceeds 300 s;
+     d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 11 (4,095 dofs,
+     [4095, 4095, 4]; noRef 10 if its host classification exceeds 300 s;
      each a path, K21's and K22's calls recorded during it); then K21, K22,
      K23 (against torch.einsum too) and the power-log profile in K1, K2,
      K3, K6 (where called), K7 and K12 against their plain versions.
@@ -271,6 +271,24 @@ result line):
      version (1e-12 of the largest entry).  Alone: `python -c 'import
      chip_smoke as c; from pynucleus_tpu_torch import kernels;
      kernels.library(); c.phase22()'`.
+ 23. the float32 dense path (a builder's params={'dtype': np.float32}):
+     tests/test_f32_path.py's interval lines (noRef 6, grid and per pair,
+     e32 < max(2 e64, 5e-4); a path), then bench.py's benchAssembly disc,
+     circle(n=8) refined 6 times (16,129 dofs), getDense on the grid in
+     float32 (a path: K1's, K2's and K3's float32 instances) and CG-Jacobi
+     to 1e-6 (500 iterations at most, K4 on float32 vectors, TF32 off), and
+     the same in float64 (a path): each assembly's seconds and its
+     kernels' device ms (CUDA events), iterations, residuals, peak device
+     memory, max|A32 - A64| / max|A64| and the relative distance of the two
+     solutions (below 1e-3); then each float32 instance against its
+     float32 plain version at the disc's calls (every identical-cell,
+     touching and zero-exterior bucket and the largest distant bucket of
+     each route and shape; 1e-5 of the largest entry; K4 10 iterations,
+     x, r and p to 1e-5 relative) with the same calls' float64 time, and
+     the natural-order entry (the JAX package's one-chunk
+     _bucket_natural_scatter) on its largest call in float32 and float64.
+     Alone: `python -c 'import chip_smoke as c; from pynucleus_tpu_torch
+     import kernels; kernels.library(); c.phase23()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -282,8 +300,9 @@ per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
 (complement, the zero-exterior diagonal), per profile and two-point
 variant of K1, K2, K3, K14, K15 and K19 (tempered, two_point,
 log_inverse, polynomial, gaussian, exponential), per order-of-position
-variant of K1 and K19 and per manifold variant of K1 and K2, and
-K24-K27, its
+variant of K1 and K19, per manifold variant of K1 and K2, per float32
+instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4
+(with the same calls' float64 time), and K24-K27, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -504,9 +523,9 @@ COMPARED_AT = {
                             'constantNonSym(0.25): the dense target on all '
                             'calls of the noRef 6 dense builds and the '
                             'largest of noRef 12, the slots target on the '
-                            'largest call of the noRef 14 gmres-mg H2 line',
+                            'largest call of the noRef 13 gmres-mg H2 line',
     'h2_matvec_T': 'interval twoDomainNonSym(0.25,0.75): noRef 12, and '
-                   'every level of the noRef 14 gmres-mg H2 line, timed on '
+                   'every level of the noRef 13 gmres-mg H2 line, timed on '
                    'the finest, per apply',
 }
 
@@ -600,20 +619,21 @@ def target_entries(shape, index):
     return min(int((rows * cols).sum()), math.prod(shape))
 
 
-def panel_work(args):
+def panel_work(args, entryBytes=16, peak=F64_PEAK):
     """K1 (any target) on recorded args (the target's shape, vertices, vi1,
     vi2, dofRows or slots, ..., w, PSIP, profile): per pair and node the
     positions, r^2, gamma (one pow, exp or erfc), the normal factor and
     nPSI^2 multiply-adds; inputs read once, the target's entries that the
-    call reaches read and written once (target_entries)."""
+    call reaches read and written once (target_entries; ``entryBytes`` for
+    the read and the write, ``peak`` the rate of the operations' type)."""
     vertices, vi1, vi2, normals = args[1], args[2], args[3], args[6]
     w, PSIP = args[-3], args[-2]
     P, Q, nn, dim = vi1.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1]
     ops = P * Q * (2 * dim * (vi1.shape[1] + vi2.shape[1]) + 3 * dim + 3
                    + 2 * nn + (3 * dim + 2 if normals is not None else 0))
-    return (nbytes(args[1:]) + 16 * target_entries(args[0], args[4]), ops,
-            F64_PEAK)
+    return (nbytes(args[1:]) + entryBytes * target_entries(args[0], args[4]),
+            ops, peak)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -711,15 +731,15 @@ def record_h2_build(build, names=H2_BUILD, largestOnly=False):
 
 
 def compare_target_kernel(name, calls, kernel, plain, work, dtype=None,
-                          csr=True):
+                          csr=True, tol=TOL_KERNEL):
     """Recorded calls of a kernel that adds into its first argument
     (recorded by its shape: dense A, A_BC or CSR data [nnz+1]; with
     ``csr=False`` a vector target is the diagonal [N]) through the kernel
     and through the plain version, the calls of one shape all into one zero
     tensor of ``dtype`` (float64 by default) each way (after an untimed
     warm-up call of each); CSR data compared on its nnz real slots.
-    Returns the result() with ``work(args)`` of each call's recorded
-    args."""
+    Each target is held to ``tol`` of its largest entry.  Returns the
+    result() with ``work(args)`` of each call's recorded args."""
     import torch
     byShape = {}
     for c in calls:
@@ -739,7 +759,7 @@ def compare_target_kernel(name, calls, kernel, plain, work, dtype=None,
             Dk, Dp = Dk[:-1], Dp[:-1]
         err = float((Dk - Dp).abs().max())
         scale = float(Dp.abs().max())
-        if not (scale > 0 and err <= TOL_KERNEL * scale):
+        if not (scale > 0 and err <= tol * scale):
             raise AssertionError(f'{name}: kernel vs plain max err {err} '
                                  f'(max {scale}) on {shape}')
         worst_abs = max(worst_abs, err)
@@ -1094,11 +1114,12 @@ def compare_jacobi_smooth(n, reps=10, dtype=None):
     return r
 
 
-def grid_distant_work(args):
+def grid_distant_work(args, entryBytes=16, peak=F64_PEAK):
     """K2 on recorded args (N, X, ccf, vols, dofs, PhiXw, PhiX, PsiYw, w,
     t_lo, t_hi, profile): per cell pair of the window Q^2 kernel values
     (one pow or exp each) and the two contractions with the dpe shape functions, per
-    cell its dpe^2 block; the touched entries read and written once."""
+    cell its dpe^2 block; the touched entries read and written once, at
+    most the whole target however many pairs share them."""
     import torch
     import pynucleus_tpu_torch.nl.assembly as asm
     X, ccf, dofs, t_lo, t_hi = args[1], args[2], args[4], args[9], args[10]
@@ -1108,10 +1129,11 @@ def grid_distant_work(args):
     pairs = int(((d2 >= t_lo) & (d2 < t_hi)).sum())
     ops = pairs * (Q * Q * (3 * dim + 5) + 2 * Q * Q * dpe
                    + 2 * Q * dpe * dpe) + 3 * nC * Q * dpe * dpe
-    return (nbytes(args[1:]) + 16 * (pairs + nC) * dpe * dpe, ops, F64_PEAK)
+    entries = min((pairs + nC) * dpe * dpe, math.prod(args[0]))
+    return (nbytes(args[1:]) + entryBytes * entries, ops, peak)
 
 
-def grid_boundary_work(args):
+def grid_boundary_work(args, entryBytes=16, peak=F64_PEAK):
     """K3 on recorded args (N, X, vols, dofs, Ysurf, svolw2, normals,
     exclPtr, exclIdx, PhiXw, PhiX, profile, useNormals): a kernel value (and
     the normal factor) per cell node and surface node not excluded, per
@@ -1124,10 +1146,10 @@ def grid_boundary_work(args):
     evals = (nC * S - exclIdx.numel()) * Q1 * Q2
     ops = evals * (3 * dim + 3 + (3 * dim + 2 if useNormals else 0)) \
         + 3 * nC * Q1 * dpe * dpe
-    return (nbytes(args[1:]) + 16 * nC * dpe * dpe, ops, F64_PEAK)
+    return (nbytes(args[1:]) + entryBytes * nC * dpe * dpe, ops, peak)
 
 
-def compare_pcg(name, fns, states, M=None, iters=10):
+def compare_pcg(name, fns, states, M=None, iters=10, tol=TOL_KERNEL):
     """``iters`` PCG iterations through fns[0] (the kernel) on states[0],
     with A p by the operator ``M[0]`` and, for the general form, the
     preconditioner ``M[1]``; each iteration the plain version fns[1] takes
@@ -1152,7 +1174,7 @@ def compare_pcg(name, fns, states, M=None, iters=10):
             vp = states[1][i][:it + 2] if what == 'hist' else states[1][i]
             err = float((vk - vp).abs().max())
             scale = float(vp.abs().max())
-            if not err <= TOL_KERNEL * scale:
+            if not err <= tol * scale:
                 raise AssertionError(f'{name}: {what} max err {err} '
                                      f'(max {scale}) at iteration {it}')
             worst = max(worst, err)
@@ -2614,7 +2636,9 @@ VO_PATHS = {
     'twoDomainNonSym-H2-mg': VO_H2 + ('gmres_arnoldi', 'csr_spmv',
                                       'jacobi_smooth')}
 VO_TRANSPOSE_PATH = VO_H2 + ('h2_matvec_T',)
-VO_NOREF = 14
+# the full-width line at VO_NOREF (noRef 14 until phase 23 came: its
+# assembly took 36.6 s there, PERF.md section 4)
+VO_NOREF = 13
 VO_CHECK_NOREF = 12
 # the L2 error of twoDomainNonSym(0.25,0.75) knownSolution lu H2 at noRef
 # VO_CHECK_NOREF: the JAX driver's (drivers/runFractional.py on the CPU,
@@ -2630,7 +2654,7 @@ VO_EVAL_OPS = 16
 # operations of one radial power-profile evaluation (a pow and a product)
 RADIAL_EVAL_OPS = 2
 _VO_FULL = (f'the noRef {VO_NOREF} twoDomainNonSym(0.25,0.75) gmres-mg H2 '
-            f'line ({VO_NOREF + 1} levels, {2 ** VO_NOREF - 1:,} dofs)')
+            f'line ({VO_NOREF + 1} levels, {2 ** (VO_NOREF + 1) - 1:,} dofs)')
 VO_COMPARED_AT = {
     'panel_scatter': (
         'interval, twoDomainNonSym(0.25,0.75) (order code 2) and '
@@ -3037,10 +3061,11 @@ DERIV_CHECK_NOREF = 6
 TOL_DERIV_H2 = 5e-4
 DERIV_NOREF = 7
 # d^2A/ds^2 of leftRight(0.25, 0.75), dense vector on the interval at
-# DERIV_VECTOR_NOREF; DERIV_VECTOR_FALLBACK if its host set-up exceeds
-# DERIV_HOST_LIMIT seconds
-DERIV_VECTOR_NOREF = 12
-DERIV_VECTOR_FALLBACK = 11
+# DERIV_VECTOR_NOREF (noRef 12 until phase 23 came: its build took 17.0 s
+# there, PERF.md section 4); DERIV_VECTOR_FALLBACK if its host set-up
+# exceeds DERIV_HOST_LIMIT seconds
+DERIV_VECTOR_NOREF = 11
+DERIV_VECTOR_FALLBACK = 10
 DERIV_HOST_LIMIT = 300.0
 # the kernels each path of phase 14 must launch
 DERIV_DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary',
@@ -3067,14 +3092,15 @@ DERIV_COMPARED_AT = {
 }
 COMPARED_AT.update({
     'panel_scatter_vec': 'interval, the three vector lines at noRef 6 and '
-                         'leftRight(0.25, 0.75) d^2/ds^2 at noRef 12: all '
-                         'calls',
+                         'leftRight(0.25, 0.75) d^2/ds^2 at noRef '
+                         f'{DERIV_VECTOR_NOREF}: all calls',
     'panel_scatter_nonsym_vec': 'interval, the three vector lines at noRef 6 '
                                 '(all calls) and leftRight(0.25, 0.75) '
-                                'd^2/ds^2 at noRef 12 (its largest call)',
-    'vector_matvec': 'interval, leftRight(0.25, 0.75) d^2/ds^2 at noRef 12 '
-                     '(8,191 x 8,191 x 4): one apply and one transposed '
-                     'apply, per pair, library torch.einsum'})
+                                f'd^2/ds^2 at noRef {DERIV_VECTOR_NOREF} (its '
+                                'largest call)',
+    'vector_matvec': 'interval, leftRight(0.25, 0.75) d^2/ds^2 at noRef '
+                     f'{DERIV_VECTOR_NOREF} (N x N x 4): one apply and one '
+                     'transposed apply, per pair, library torch.einsum'})
 
 
 def count_path(label, path, fn):
@@ -7237,24 +7263,39 @@ def vo_manifold_grid_check():
 
 
 def _order_code(args, kw):
+    """The order code of a K1 or K19 call (None for no order; 'manifold'
+    for the calls of simplices of a lower dimension than their vertices'
+    space)."""
     from pynucleus_tpu_torch.nl.kernels import OrderParams
     order = next((a for a in list(args) + list(kw.values())
                   if isinstance(a, OrderParams)), None)
-    return None if order is None else int(order.code)
+    if order is not None:
+        return int(order.code)
+    vertices, vi1, vi2 = args[1], args[2], args[3]
+    if vi1.shape[1] == vi2.shape[1] and vi1.shape[1] <= vertices.shape[1]:
+        return 'manifold'
+    return None
+
+
+def _k1_route(args, kw):
+    """K1's route of a call: 'natural' (pairs gathered from cell ids),
+    'rows' (with normals: the 2D zero-exterior rows), else 'pairs'."""
+    return 'natural' if kw.get('natural') else \
+        'rows' if args[6] is not None else 'pairs'
 
 
 class OrderRecorder(ArgRecorder):
     """An ArgRecorder (the target recorded by its shape) that keeps the
-    calls of each order code apart (None for no order; code 'manifold' for
-    the calls of simplices of a lower dimension than their vertices'
-    space).  With ``distantLargest``, of the buckets of distant pairs (the
-    first pair shares no vertex) only the largest of each code and shape
+    calls of each ``key(args, kw)`` apart (by default the order code,
+    _order_code).  With ``distantLargest``, of the buckets of distant pairs
+    (the first pair shares no vertex) only the largest of each key and shape
     (simplex sizes, nPSI) is kept, every other bucket (identical cells,
     touching pairs) is.  Nothing is recorded while ``active`` is False."""
 
-    def __init__(self, module, name, distantLargest=False):
+    def __init__(self, module, name, distantLargest=False, key=_order_code):
         super().__init__(module, name, dataFirst=True)
         self.distantLargest = distantLargest
+        self.key = key
         self.active = True
         self.byCode = {}
         self.distant = {}
@@ -7268,11 +7309,8 @@ class OrderRecorder(ArgRecorder):
         return self
 
     def _keep(self, args, kw):
-        code = _order_code(args, kw)
-        vertices, vi1, vi2, index = args[1], args[2], args[3], args[4]
-        if code is None and vi1.shape[1] == vi2.shape[1] \
-                and vi1.shape[1] <= vertices.shape[1]:
-            code = 'manifold'
+        code = self.key(args, kw)
+        vi1, vi2, index = args[2], args[3], args[4]
         P = vi1.shape[0]
         if self.distantLargest and P and not bool(
                 (vi1[0][:, None] == vi2[0][None, :]).any()):
@@ -7285,11 +7323,12 @@ class OrderRecorder(ArgRecorder):
     def codes(self):
         return set(self.byCode) | {k[0] for k in self.distant}
 
-    def callsOf(self, code):
-        """The kept calls of ``code``: the near buckets, then the largest
-        distant ones."""
-        return self.byCode.get(code, []) + [
-            c for k, (_, c) in self.distant.items() if k[0] == code]
+    def callsOf(self, *codes):
+        """The kept calls of ``codes`` (of every key without one): the near
+        buckets, then the largest distant ones."""
+        codes = codes or self.codes()
+        return [c for code in codes for c in self.byCode.get(code, [])] + [
+            c for k, (_, c) in self.distant.items() if k[0] in codes]
 
 
 def grid_manifold_calls(rec):
@@ -7420,6 +7459,457 @@ VO22_FULL_COMPARED = {
         'leftRight on triangles (with normals)')}
 
 
+# ---------------------------------------------------------------- phase 23
+
+# bench.py's benchAssembly (bench.py:123-158) and the CG-Jacobi solve of
+# bench.py:253-273: (-Delta)^0.75 u = 1 on circle(n=8) refined F32_NOREF
+# times (32,768 cells, 16,129 dofs, 536,887,296 cell pairs), P1, infinite
+# horizon, zero exterior, getDense on the grid in float32 (the JAX
+# package's dtype off the CPU, bench.py:58-64) and, beside it, in float64
+F32_NOREF = 6
+F32_S = 0.75
+F32_CG_TOL = 1e-6
+F32_CG_MAXITER = 500
+TOL_F32 = 1e-5            # each float32 instance against its plain version
+TOL_F32_VS_F64 = 1e-3     # the float32 solution against the float64 one
+F32_INTERVAL_NOREF = 6    # tests/test_f32_path.py's interval (63 dofs)
+F32_BAR_FLOOR = 5e-4      # tests/test_f32_path.py:44: e32 < max(2 e64, 5e-4)
+K123 = ('panel_scatter', 'grid_distant', 'grid_boundary')
+F32_PATH = ('panel_scatter', 'panel_scatter:dense', 'panel_scatter:float32',
+            'panel_scatter:float32_natural', 'panel_scatter:float32_rows',
+            'grid_distant', 'grid_distant:float32', 'grid_boundary',
+            'grid_boundary:float32', 'pcg_update', 'pcg_update:jacobi',
+            'pcg_update:float32')
+F32_INTERVAL_PATH = ('panel_scatter', 'panel_scatter:float32',
+                     'panel_scatter:float32_natural', 'grid_distant:float32',
+                     'grid_boundary:float32', 'pcg_update',
+                     'pcg_update:float32')
+FLOAT32_REPLACES = {
+    'panel_scatter:float32': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:float32_natural': 'pynucleus_tpu/nl/assembly.py:352',
+    'panel_scatter:float32_rows': 'pynucleus_tpu/nl/assembly.py:315',
+    'grid_distant:float32': 'pynucleus_tpu/nl/assembly.py:131',
+    'grid_boundary:float32': 'pynucleus_tpu/nl/assembly.py:240',
+    'pcg_update:float32': 'pynucleus_tpu/base/solvers.py:297'}
+F32_SOURCES = {
+    'panel_scatter': 'pynucleus_tpu_torch/kernels/csrc/panel_scatter_f32.cu'}
+_F32_AT = (f'the float32 disc (circle(n=8) refined {F32_NOREF} times, 16,129 '
+           'dofs, dense on the grid)')
+F32_COMPARED_AT = {
+    'panel_scatter:float32': _F32_AT + ': every identical-cell, touching '
+    'and zero-exterior bucket and the largest distant bucket of each route '
+    'and shape',
+    'panel_scatter:float32_natural': _F32_AT + ': its natural-order calls '
+    'among those (identical cells, distant corrections)',
+    'panel_scatter:float32_rows': _F32_AT + ': its calls with normals '
+    'among those (the zero-exterior rows)',
+    'grid_distant:float32': _F32_AT + ': all calls',
+    'grid_boundary:float32': _F32_AT + ': its one call',
+    'pcg_update:float32': _F32_AT + ': 10 iterations of the Jacobi form on '
+    'its operator, device time (CUDA events around calls queued behind a '
+    'spin of the card; around the calls on an idle card: event_ms)'}
+
+
+class EventTimer:
+    """Wraps kernel wrappers of a module with CUDA events around each call:
+    the device milliseconds of each wrapper, summed over its calls (a
+    kernel's share of an assembly)."""
+
+    def __init__(self, module, names):
+        self.module, self.names = module, names
+        self.events = {n: [] for n in names}
+
+    def __enter__(self):
+        import torch
+        self.orig = {n: getattr(self.module, n) for n in self.names}
+
+        def wrap(n):
+            def timedCall(*a, **k):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = self.orig[n](*a, **k)
+                e.record()
+                self.events[n].append((s, e))
+                return out
+            return timedCall
+        for n in self.names:
+            setattr(self.module, n, wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n in self.names:
+            setattr(self.module, n, self.orig[n])
+
+    def ms(self):
+        import torch
+        torch.cuda.synchronize()
+        return {n: sum(s.elapsed_time(e) for s, e in ev)
+                for n, ev in self.events.items()}
+
+
+class NaturalRecorder(ArgRecorder):
+    """Records the largest natural-order bucket of a dense build
+    (_BucketRunner.runNatural on a dense target, no entry mask or weights)
+    as a call of the one-chunk entry panel_scatter_natural (the target
+    recorded by its shape)."""
+
+    def __init__(self):
+        import pynucleus_tpu_torch.nl.assembly as asm
+        super().__init__(asm._BucketRunner, 'runNatural', dataFirst=True)
+
+    def __enter__(self):
+        from pynucleus_tpu_torch.nl.assembly import TINDEX
+
+        def rec(runner, acc, rule, PSI, di, dj, symfac, entryMask=None,
+                weights=None):
+            if entryMask is None and weights is None \
+                    and len(di) > self.largest:
+                self.largest = len(di)
+                self.calls = [self._record(
+                    (acc.A, runner.vertices, runner.cells, runner.dofs,
+                     runner.vols, runner._t(di, TINDEX),
+                     runner._t(dj, TINDEX), float(symfac),
+                     *runner.ruleTables(rule, PSI),
+                     runner.kernel.profileParams()), {})]
+            return self.orig(runner, acc, rule, PSI, di, dj, symfac,
+                             entryMask, weights)
+        setattr(self.module, self.name, rec)
+        return self
+
+
+def natural_work(args, entryBytes=16, peak=F64_PEAK):
+    """The natural-order entry on recorded args (the target's shape,
+    vertices, cells, dofs, vols, di, dj, symfac, bary_x, bary_y, w, PSIP,
+    profile): K1's work on the gathered pairs (panel_work), the gather's
+    cell, dof and volume rows read once in place of the whole arrays."""
+    import pynucleus_tpu_torch.nl.assembly as asm
+    shape, vertices, cells, dofs, vols, di, dj, symfac = args[:8]
+    vi1, vi2, dr, vs = asm._naturalPairs(cells, dofs, vols, di, dj, symfac,
+                                         asm._nPSI(args[11]))
+    return panel_work((shape, vertices, vi1, vi2, dr, vs, None, *args[8:]),
+                      entryBytes, peak)
+
+
+def as_float64(args, keep=()):
+    """Recorded args of a float32 call in float64: each float32 tensor
+    cast, except at the positions ``keep`` (K2's float32 centres)."""
+    import torch
+    return tuple(a.double() if isinstance(a, torch.Tensor) and a.dtype ==
+                 torch.float32 and i not in keep else a
+                 for i, a in enumerate(args))
+
+
+def float64_ms(calls, kernel, keep=()):
+    """The kernel's milliseconds on the recorded float32 calls cast to
+    float64 (the same calls in float64), after an untimed warm-up call."""
+    import torch
+    dev = next(a.device for a in calls[0][0] if isinstance(a, torch.Tensor))
+    casts = [((shape,) + as_float64(args, keep), kw)
+             for (shape, *args), kw in calls]
+    (shape0, *args0), kw0 = casts[0]
+    kernel(torch.zeros(shape0, dtype=torch.float64, device=dev), *args0,
+           **kw0)
+    ms = 0.0
+    for (shape, *args), kw in casts:
+        D = torch.zeros(shape, dtype=torch.float64, device=dev)
+        ms += timed(lambda: kernel(D, *args, **kw))
+    return ms
+
+
+def f32_tf32_off():
+    """float32 means float32: no TF32 in the card's matrix products."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError('TF32 allowed in a float32 solve')
+
+
+def f32_interval_error(dtype, grid):
+    """tests/test_f32_path.py's _solve on the card: the interval at noRef
+    6, getDense in ``dtype`` (on the grid or per pair), CG to 1e-6 (500
+    iterations at most); the max error against (-Delta)^0.75 u = 1's
+    analytic solution, and the iterations."""
+    import numpy as np
+    import torch
+    from scipy.special import gamma
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    dm = tp_dm(tp_refined(simpleInterval(-1.0, 1.0), F32_INTERVAL_NOREF))
+    A = nonlocalBuilder(dm, getFractionalKernel(1, F32_S), params={
+        'dtype': dtype, 'denseGrid': grid}).getDense()
+    b = assembleRHS(dm, constant(1.0)).data.to(A.data.dtype)
+    cg = solverFactory.build('cg', A=A, setup=True)
+    cg.tolerance = F32_CG_TOL
+    cg.maxIter = F32_CG_MAXITER
+    f32_tf32_off()
+    u = cg.solve(b)
+    if u.dtype != (torch.float32 if dtype == np.float32 else torch.float64):
+        raise AssertionError(f'the solution is {u.dtype}')
+    s = F32_S
+    xs = dm.getDoFCoordinates()[:, 0]
+    uex = (2.0 ** (-2 * s) * np.sqrt(np.pi)
+           / (gamma(s + 0.5) * gamma(1.0 + s))) * (1 - xs ** 2) ** s
+    return float(np.abs(u.double().cpu().numpy() - uex).max()), \
+        cg.iterations
+
+
+def f32_interval_lines():
+    """tests/test_f32_path.py's two bars on the card: e32 < max(2 e64,
+    5e-4), on the grid and per pair."""
+    import numpy as np
+    out = {}
+    for grid in (True, False):
+        e64, it64 = f32_interval_error(np.float64, grid)
+        e32, it32 = f32_interval_error(np.float32, grid)
+        if not e32 < max(2.0 * e64, F32_BAR_FLOOR):
+            raise AssertionError(f'float32 interval (grid {grid}): e32 {e32} '
+                                 f'vs e64 {e64}')
+        out['grid' if grid else 'per_pair'] = {
+            'e32': e32, 'e64': e64, 'iterations32': it32,
+            'iterations64': it64}
+    log(f'  tests/test_f32_path.py bars on the card: {json.dumps(out)}')
+    return out
+
+
+# cycles of the spin that holds the card while the host queues a short
+# timed run (about 25 ms at the H100's 1.98 GHz)
+QUEUE_SPIN_CYCLES = 50_000_000
+
+
+def queued_ms(run):
+    """The device milliseconds of run()'s launches: they are queued behind
+    a spin of the card (torch.cuda._sleep), so that CUDA events around
+    them read their device time and not the host's time to launch them
+    (which CUDA events around short calls on an idle card read)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def k4_device_ms(A, u, fn):
+    """The device ms of 10 calls of K4's Jacobi form (or its plain
+    version) ``fn`` on the operator A's PCG state from b = A u, after a
+    warm-up call (A p once: the calls' work does not depend on it)."""
+    b = A.matvec(u)
+    invD = 1.0 / A.diagonal
+    st = pcg_state(b, invD * b, [invD])
+    A.matvec(st[3], out=st[4])
+    fn(*st, 0)
+    return queued_ms(lambda: [fn(*st, it) for it in range(10)])
+
+
+def f32_disc_mesh():
+    from pynucleus_tpu_torch.fem.meshes import circle
+    return tp_dm(tp_refined(circle(n=8), F32_NOREF))
+
+
+def f32_disc_dense(dm, dtype):
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    return nonlocalBuilder(dm, getFractionalKernel(2, F32_S),
+                           params={'dtype': dtype}).getDense()
+
+
+def f32_disc_line(dtype, timer):
+    """The disc in ``dtype``: getDense on the grid (host seconds after a
+    synchronise; each kernel's device ms by CUDA events), CG-Jacobi to
+    F32_CG_TOL (500 iterations at most; cold, then warm), the peak device
+    memory above the line's start.  Returns (summary, (A, u))."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    dm = f32_disc_mesh()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    A = f32_disc_dense(dm, dtype)
+    torch.cuda.synchronize()
+    assembly = time.perf_counter() - t0
+    shares = timer.ms()
+    real = torch.float32 if dtype == np.float32 else torch.float64
+    if A.data.dtype != real or not bool(torch.isfinite(A.data).all()):
+        raise AssertionError(f'the {real} operator: {A.data.dtype}, finite '
+                             f'{bool(torch.isfinite(A.data).all())}')
+    b = assembleRHS(dm, constant(1.0)).data.to(real)
+    cg = solverFactory.build('cg-jacobi', A=A, setup=True)
+    cg.tolerance = F32_CG_TOL
+    cg.maxIter = F32_CG_MAXITER
+    f32_tf32_off()
+    solve = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        u = cg.solve(b)
+        torch.cuda.synchronize()
+        solve.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    if u.dtype != real or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f'the {real} solution: {u.dtype}')
+    rel = float(torch.linalg.norm(b - A.matvec(u)) / torch.linalg.norm(b))
+    out = {'dofs': dm.num_dofs, 'cells': dm.mesh.num_cells,
+           'cell_pairs': dm.mesh.num_cells * (dm.mesh.num_cells + 1) // 2,
+           'dtype': str(real).split('.')[-1], 'assembly_s': assembly,
+           'kernel_ms': shares, 'iterations': cg.iterations,
+           'residual': float(cg.residuals[-1]),
+           'converged': bool(cg.residuals[-1] <= F32_CG_TOL),
+           'relative_residual': rel, 'solve_s': solve[0],
+           'warm_solve_s': solve[1], 'peak_GiB': peak / 2**30,
+           'operator_GB': A.data.numel() * A.data.element_size() / 1e9}
+    log(f'  the disc in {out["dtype"]}: {json.dumps(out)}')
+    return out, (A, u)
+
+
+def phase23():
+    """The float32 dense path: tests/test_f32_path.py's interval lines (a
+    path), bench.py's disc in float32 (a path: getDense on the grid, K1's,
+    K2's and K3's float32 instances, CG-Jacobi through K4's) and in float64
+    (a path), the distance of the two operators and solutions, K4 in both
+    on their operators; then, recorded during a third (float32) build of
+    the disc, each float32 instance against its float32 plain version at
+    the disc's calls (1e-5 of the largest entry; K4 10 iterations, x, r and
+    p to 1e-5 relative) with the same calls' float64 time, and the
+    natural-order entry (float32, and the same call in float64) on its
+    largest call.  Returns (launch counts per path, comparisons,
+    summary)."""
+    import contextlib
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.base import solvers
+    log('phase 23: the float32 dense path (bench.py\'s disc in float32 and '
+        'float64)')
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    counts, summary = {}, {}
+    summary['interval'], counts['interval'] = count_path(
+        'the float32 interval lines', F32_INTERVAL_PATH, f32_interval_lines)
+    lines = {}
+    for label, dtype, path in (('float32', np.float32, F32_PATH),
+                               ('float64', np.float64, DENSE_PATH)):
+        with EventTimer(asm, K123) as timer:
+            (summary[label], lines[label]), counts[label] = count_path(
+                f'the {label} disc', path, lambda: f32_disc_line(dtype,
+                                                                  timer))
+    (A32, u32), (A64, u64) = lines.pop('float32'), lines.pop('float64')
+    scale = float(A64.data.abs().max())
+    dA = float((A32.data.double() - A64.data).abs().max()) / scale
+    du = float(torch.linalg.norm(u32.double() - u64)
+               / torch.linalg.norm(u64))
+    summary['operator_distance'] = dA
+    summary['solution_distance'] = du
+    log(f'  max|A32 - A64| / max|A64| = {dA:.3e}; ||u32 - u64|| / ||u64|| = '
+        f'{du:.3e}')
+    if not du <= TOL_F32_VS_F64:
+        raise AssertionError(f'the float32 solution {du} from the float64 '
+                             'one')
+    if not summary['float64']['converged']:
+        raise AssertionError('the float64 CG-Jacobi did not converge')
+    # K4 on the disc's operators: 10 iterations of the Jacobi form against
+    # its plain version in float32; its device time (a call is three short
+    # launches, so CUDA events around it read the host's launch time
+    # whenever the card waits for it) queued behind a spin, in turns
+    # float32, float64, float64, float32 (the second run of each kept)
+    jac = (solvers.pcg_update, solvers._pcg_update_plain)
+    b32 = A32.matvec(u32)
+    invD32 = 1.0 / A32.diagonal
+    errJ, eventMs, _ = compare_pcg(
+        'pcg_update (Jacobi form, float32)', jac,
+        [pcg_state(b32, invD32 * b32, [invD32]) for _ in range(2)],
+        (A32, None), tol=TOL_F32)
+    dev = {}
+    for label in ('float32', 'float64', 'float64', 'float32'):
+        A, u = (A32, u32) if label == 'float32' else (A64, u64)
+        dev[label] = {fn.__name__: k4_device_ms(A, u, fn) for fn in jac}
+    n = u32.shape[0]
+    msJ, plainJ = dev['float32']['pcg_update'], \
+        dev['float32']['_pcg_update_plain']
+    ms64 = dev['float64']['pcg_update']
+    log(f'  pcg_update (float32, n {n}): 10 iterations, max abs err '
+        f'{errJ:.3e}; device ms (queued): kernel {msJ:.4f} (float64 '
+        f'{ms64:.4f}), plain {plainJ:.4f}; CUDA events around the calls '
+        f'{eventMs:.4f} ms')
+    cmp = {'pcg_update:float32': result(errJ, msJ, plainJ,
+                                        [(36 * n, 13 * n, F32_PEAK)] * 10)}
+    cmp['pcg_update:float32'].update(float64_ms=ms64, event_ms=eventMs)
+    del A32, A64, u32, u64, lines
+    torch.cuda.empty_cache()
+
+    # the kernels' calls, recorded during a third build (float32; no path)
+    with contextlib.ExitStack() as stack:
+        nat = stack.enter_context(NaturalRecorder())
+        k1 = stack.enter_context(OrderRecorder(
+            asm, 'panel_scatter', distantLargest=True, key=_k1_route))
+        k2 = stack.enter_context(ArgRecorder(asm, 'grid_distant',
+                                             dataFirst=True))
+        k3 = stack.enter_context(ArgRecorder(asm, 'grid_boundary',
+                                             dataFirst=True))
+        f32_disc_dense(f32_disc_mesh(), np.float32)
+    torch.cuda.synchronize()
+    log('  the float32 instances against their plain versions (1e-5 of the '
+        'largest entry), and the same calls in float64')
+    F32W = dict(entryBytes=8, peak=F32_PEAK)
+    for name, calls, kernel, plain, work, keep in (
+            ('panel_scatter:float32', k1.callsOf(), asm.panel_scatter,
+             asm._panel_scatter_plain, panel_work, ()),
+            ('panel_scatter:float32_natural', k1.callsOf('natural'),
+             asm.panel_scatter, asm._panel_scatter_plain, panel_work, ()),
+            ('panel_scatter:float32_rows', k1.callsOf('rows'),
+             asm.panel_scatter, asm._panel_scatter_plain, panel_work, ()),
+            ('grid_distant:float32', k2.calls, asm.grid_distant,
+             asm._grid_distant_plain, grid_distant_work, (1,)),
+            ('grid_boundary:float32', k3.calls, asm.grid_boundary,
+             asm._grid_boundary_plain, grid_boundary_work, ())):
+        cmp[name] = compare_target_kernel(
+            name, calls, kernel, plain, functools.partial(work, **F32W),
+            dtype=torch.float32, tol=TOL_F32)
+        cmp[name]['float64_ms'] = float64_ms(calls, kernel, keep)
+        log(f'    the same calls in float64: {cmp[name]["float64_ms"]:.3f} '
+            'ms')
+    # the natural-order entry (the one-chunk program, no JAX caller) on its
+    # largest call, and the same call in float64
+    natCalls = {'float32': nat.calls,
+                'float64': [((c[0][0],) + as_float64(c[0][1:]), c[1])
+                            for c in nat.calls]}
+    cmp['panel_scatter:float32_natural']['one_chunk_entry'] = {
+        label: compare_target_kernel(
+            f'panel_scatter_natural ({label}, its largest call)', calls,
+            asm.panel_scatter_natural, asm._panel_scatter_natural_plain,
+            functools.partial(natural_work, **(
+                F32W if label == 'float32' else {})),
+            dtype=getattr(torch, label),
+            tol=TOL_F32 if label == 'float32' else TOL_KERNEL)
+        for label, calls in natCalls.items()}
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 23 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def FLOAT32_23_PATHS(counts23):
+    """The main paths of phase 23: (kernels, label, launch counts)."""
+    return ((F32_INTERVAL_PATH,
+             f'float32_interval_noRef{F32_INTERVAL_NOREF}_grid_and_per_pair',
+             counts23['interval']),
+            (F32_PATH, f'float32_disc_noRef{F32_NOREF}_grid_cg_jacobi',
+             counts23['float32']),
+            (DENSE_PATH, f'float64_disc_noRef{F32_NOREF}_grid_cg_jacobi',
+             counts23['float64']))
+
+
 def main():
     try:
         import torch
@@ -7473,6 +7963,7 @@ def main():
     counts19, cmp19, summary19 = phase19(matfree19)
     counts21, cmp21, summary21 = phase21()
     counts22, cmp22, full22, summary22 = phase22()
+    counts23, cmp23, summary23 = phase23()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -7716,7 +8207,37 @@ def main():
                 'plain_ms': cx['plain_ms'], 'bound_ms': xms,
                 'bound_by': xby, 'library_ms': cx['library_ms'],
                 'compared_at': VO22_FULL_COMPARED[name]}
-    log(f'phases 1-22 took {time.perf_counter() - T_START:.1f} s')
+    # the float32 instances of phase 23: K1's dense target (all its float32
+    # calls, and of those the natural-order and the zero-exterior rows), K2,
+    # K3 and K4; the CUDA launches counted where they launched
+    for name in F32_COMPARED_AT:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        c = cmp23[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in FLOAT32_23_PATHS(counts23) if counts[name]}
+        table.append({
+            'name': name, 'route': route,
+            'source': F32_SOURCES.get(base, src),
+            'replaces': FLOAT32_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in FLOAT32_23_PATHS(counts23)),
+            'compared_at': F32_COMPARED_AT[name],
+            'float64_ms': c['float64_ms'],
+            **({'event_ms': c['event_ms']} if 'event_ms' in c else {}),
+            **({'one_chunk_entry': {
+                k: {'max_abs_err': v['err'], 'ms': v['ms'],
+                    'plain_ms': v['plain_ms'],
+                    'bound_ms': bound(v['work'])[0],
+                    'bound_by': bound(v['work'])[1]}
+                for k, v in c['one_chunk_entry'].items()}}
+               if 'one_chunk_entry' in c else {})})
+    log(f'phases 1-23 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -7726,6 +8247,7 @@ def main():
     log(f'phase 20 summary: {json.dumps(summary20)}')
     log(f'phase 21 summary: {json.dumps(summary21)}')
     log(f'phase 22 summary: {json.dumps(summary22)}')
+    log(f'phase 23 summary: {json.dumps(summary23)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -4,7 +4,8 @@ kernels K4, K17 and K18.
 Port of lu_solver, jacobi_solver, ichol_solver, ilu_solver, cg_solver,
 gmres_solver, bicgstab_solver and solverFactory of
 pynucleus_tpu/base/solvers.py, for
-real float64 systems, and for complex128 ones in LU, GMRES (runHelmholtz)
+real float64 systems, for float32 ones in Jacobi and CG (the float32
+dense path), and for complex128 ones in LU, GMRES (runHelmholtz)
 and BiCGStab (the complex Greens operators).  The CG keeps
 ``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
 (sqrt(r.r) with use2norm) against an absolute tolerance, the residual
@@ -63,6 +64,9 @@ def pcg_update(x, r, z, p, Ap, invD, scal, hist, it, use2norm=False):
         scal[(it+1)%2] = beta;  scal[2] = hist[it+1] = sqrt(beta)
                                           (sqrt(r.r) with use2norm)
 
+    All float64, or all float32 (the float32 dense path: every value and
+    every dot's sums in float32, as _cg_core on float32 vectors).
+
     Kernel K4's Jacobi form (Triton, kernels/pcg_update.py) on CUDA
     tensors; the plain version on CPU tensors.  Replaces the vector work of
     the body of pynucleus_tpu/base/solvers.py:_cg_core."""
@@ -72,22 +76,32 @@ def pcg_update(x, r, z, p, Ap, invD, scal, hist, it, use2norm=False):
         return _pcg_update_plain(x, r, z, p, Ap, invD, scal, hist, it,
                                  use2norm)
     from ..kernels import pcg_update as k4
-    parts = torch.empty((3, -(-n // k4.BLOCK)), dtype=torch.float64,
+    parts = torch.empty((3, -(-n // k4.BLOCK)), dtype=x.dtype,
                         device=x.device)
     kernels.launches['pcg_update'] += 1
     kernels.launches['pcg_update:jacobi'] += 1
-    kernels.deviceLaunches['pcg_update'] += k4.launch(
-        x, r, z, p, Ap, invD, scal, hist, it, use2norm, parts)
+    launched = k4.launch(x, r, z, p, Ap, invD, scal, hist, it, use2norm,
+                         parts)
+    kernels.deviceLaunches['pcg_update'] += launched
+    _countFloat32(x, launched)
+
+
+def _countFloat32(x, launched):
+    """Counts a K4 call on float32 vectors (``pcg_update:float32``)."""
+    if x.dtype == torch.float32:
+        kernels.countVariant('pcg_update:float32', launched)
 
 
 def _checkVectors(name, vecs, scal, hist, it):
     x = vecs[0]
     n = x.shape[0]
+    if x.dtype not in (torch.float64, torch.float32):
+        raise ValueError(f'{name}: float64 or float32 vectors expected')
     for t in vecs + (scal, hist):
-        if t.device != x.device or t.dtype != torch.float64 \
+        if t.device != x.device or t.dtype != x.dtype \
                 or not t.is_contiguous():
-            raise ValueError(f'{name}: float64 contiguous tensors on one '
-                             'device expected')
+            raise ValueError(f'{name}: contiguous tensors of one type '
+                             '(float64 or float32) on one device expected')
     if any(t.shape != (n,) for t in vecs) or scal.shape != (3,) \
             or hist.shape[0] < it + 2:
         raise ValueError(f'{name}: shape mismatch')
@@ -123,7 +137,8 @@ def pcg_update_prec(x, r, z, p, Ap, M, scal, hist, it, use2norm=False):
 
     Kernel K4's general form (Triton, kernels/pcg_update.py: two passes
     before M, two after) on CUDA tensors; the plain version on CPU tensors.
-    Replaces the vector work of _cg_core's use_prec branch
+    Float64 or float32 vectors, as :func:`pcg_update`.  Replaces the vector
+    work of _cg_core's use_prec branch
     (pynucleus_tpu/base/solvers.py:324-328)."""
     _checkVectors('pcg_update_prec', (x, r, z, p, Ap), scal, hist, it)
     n = x.shape[0]
@@ -131,15 +146,16 @@ def pcg_update_prec(x, r, z, p, Ap, M, scal, hist, it, use2norm=False):
         return _pcg_update_prec_plain(x, r, z, p, Ap, M, scal, hist, it,
                                       use2norm)
     from ..kernels import pcg_update as k4
-    parts = torch.empty((3, -(-n // k4.BLOCK)), dtype=torch.float64,
+    parts = torch.empty((3, -(-n // k4.BLOCK)), dtype=x.dtype,
                         device=x.device)
     kernels.launches['pcg_update'] += 1
     kernels.launches['pcg_update:general'] += 1
-    kernels.deviceLaunches['pcg_update'] += k4.launch_step(
-        x, r, p, Ap, scal, it, parts)
+    launched = k4.launch_step(x, r, p, Ap, scal, it, parts)
     M.matvec(r, out=z)
-    kernels.deviceLaunches['pcg_update'] += k4.launch_direction(
-        r, z, p, scal, hist, it, use2norm, parts)
+    launched += k4.launch_direction(r, z, p, scal, hist, it, use2norm,
+                                    parts)
+    kernels.deviceLaunches['pcg_update'] += launched
+    _countFloat32(x, launched)
 
 
 def _pcg_update_prec_plain(x, r, z, p, Ap, M, scal, hist, it,
@@ -501,6 +517,11 @@ class krylov_solver(iterative_solver):
 
 
 class cg_solver(krylov_solver):
+    """(Preconditioned) CG in b's type: float64, or float32 on the float32
+    dense path (the operator, the preconditioner's diagonal and every
+    vector float32; the tolerance compared in float32, as _cg_core
+    compares a float32 residual with it)."""
+
     def __init__(self, A=None):
         super().__init__(A)
         self.use2norm = False
@@ -509,6 +530,8 @@ class cg_solver(krylov_solver):
     def solve(self, b):
         A = self.A
         tol = self.tolerance
+        if b.dtype == torch.float32:
+            tol = float(np.float32(tol))
         maxiter = self.maxIter if self.maxIter > 0 else 50
         M = self.prec
         jacobi = M is None or isinstance(M, Diagonal_LinearOperator)

@@ -20,7 +20,10 @@ operator from the arrays of one, such as a JAX package
 SSS_LinearOperator; ``denseVectorFromArrays``
 builds the port's dense vector operator from the data of one, such as a
 JAX package Dense_VectorLinearOperator, so that its apply can be checked on
-its own.  Like every entry point of the port they build on the card
+its own; ``builderFromArrays`` gives the port's nonlocalBuilder on the mesh
+and kernel of ``fromArrays`` in a value type (float64, or float32 for the
+float32 dense path), so that both packages build the same operator in the
+same dtype.  Like every entry point of the port they build on the card
 unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -43,7 +46,8 @@ from .nl.problems import parseFractionalOrder
 from .base.linear_operators import (CSR_LinearOperator, SSS_LinearOperator,
                                     Dense_VectorLinearOperator)
 
-__all__ = ['fromArrays', 'h2FromArrays', 'csrFromArrays',
+__all__ = ['fromArrays', 'builderFromArrays', 'h2FromArrays',
+           'csrFromArrays',
            'csrHierarchyFromArrays', 'sssFromArrays', 'denseVectorFromArrays']
 
 
@@ -185,6 +189,23 @@ def fromArrays(vertices, cells, s, dim, scaling=None, device='cuda',
             gaussian_variance=gaussianVariance,
             exponentialRate=exponentialRate)
     return mesh, dm, kernel
+
+
+def builderFromArrays(vertices, cells, s, dim, dtype=None, params=None,
+                      device='cuda', zeroExterior=True, **kw):
+    """The port's nonlocalBuilder of the dofmap and kernel of
+    ``fromArrays(vertices, cells, s, dim, device=device, **kw)`` with
+    ``params`` and the value type ``dtype`` as ``params['dtype']``
+    (np.float32, 'float32' or torch.float32 for the float32 dense path;
+    None keeps float64), as a JAX package builder takes
+    ``params={'dtype': dtype}``."""
+    from .nl.assembly import nonlocalBuilder
+    _, dm, kernel = fromArrays(vertices, cells, s, dim, device=device, **kw)
+    params = dict(params or {})
+    if dtype is not None:
+        params['dtype'] = dtype
+    return nonlocalBuilder(dm, kernel, params=params,
+                           zeroExterior=zeroExterior)
 
 
 def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,

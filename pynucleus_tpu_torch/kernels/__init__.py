@@ -16,7 +16,8 @@ Twenty-seven kernels carry the port's device work:
                     (dense)
   K4 pcg_update     (pcg_update.py, Triton)  fused PCG vector pass, in two
                     forms: Jacobi (z = invD r inside the pass) and general
-                    (two passes around the preconditioner's z = M r)
+                    (two passes around the preconditioner's z = M r);
+                    float64 or float32 vectors
   K5 near_enum      (csrc/near_enum.cu)      H2 near-field enumeration:
                     element keys, f32 order model (1D or 2D),
                     histogram
@@ -111,7 +112,11 @@ islands, layers, smoothedLeftRight, linearLeftRight, smoothedInnerOuter,
 fe: common.cuh orderAt, POSITION_ORDER_SWITCH), their instances in
 panel_scatter_order.cu and panel_scatter_nonsym_order.cu, reached from
 the dense entry points by the order's code (every entry point that takes
-an order takes the whole of it, nl/kernels.py orderArgs);
+an order takes the whole of it, nl/kernels.py orderArgs); the float32
+dense path (a builder's ``params={'dtype': float32}``) has float32
+instances of K1's dense target, K2 and K3 with the power profile alone
+(common.cuh radial<PC, float>: powf, the constants rounded to float32 on
+the host) and runs K4's Triton kernels on float32 vectors;
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
@@ -164,7 +169,14 @@ and K19's dense targets (ORDERS) under ``<kernel>:inner_outer``,
 ``:islands``, ``:layers``, ``:smoothed_left_right``,
 ``:linear_left_right``, ``:smoothed_inner_outer`` and ``:fe``, and the
 manifold kernel's 1D cells in R^2 under ``panel_scatter:manifold`` and
-``grid_distant:manifold``; one launch may count under several.
+``grid_distant:manifold``; the float32 instances of the dense path
+(FLOAT32: K1's dense target in csrc/panel_scatter_f32.cu, K2 and K3 in
+their sources, K4's Triton kernels on float32 vectors) under
+``<kernel>:float32``, and of K1's float32 launches those of the
+natural-order buckets (the cell ids gathered on the device, nl/assembly.py
+panel_scatter_natural) also under ``panel_scatter:float32_natural`` and
+those with normals (the 2D zero-exterior rows) under
+``panel_scatter:float32_rows``; one launch may count under several.
 ``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
 those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -239,17 +251,24 @@ ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
                          'smoothed_left_right', 'linear_left_right',
                          'smoothed_inner_outer', 'fe')) + (
     'panel_scatter:manifold', 'grid_distant:manifold')
+# the float32 instances of the dense path: K1 (every float32 launch, and of
+# those the natural-order buckets gathered on the device and the rows with
+# normals of the 2D zero-exterior term), K2, K3 and K4
+FLOAT32 = ('panel_scatter:float32', 'panel_scatter:float32_natural',
+           'panel_scatter:float32_rows', 'grid_distant:float32',
+           'grid_boundary:float32', 'pcg_update:float32')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
             + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT
-            + ORDERS}
+            + ORDERS + FLOAT32}
 deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS
-                  + TWOPOINT + ORDERS}
+                  + TWOPOINT + ORDERS + FLOAT32}
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
            'panel_scatter_cross.cu', 'panel_scatter_order.cu',
+           'panel_scatter_f32.cu',
            'grid_distant.cu', 'grid_boundary.cu',
            'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
            'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
@@ -338,6 +357,8 @@ def _declare(lib):
     # a radial profile: code, C, e, a, C1, C2, tempering t, two-point
     # weight code and lambda (nl/kernels.py Profile)
     PROF = (I, D, D, D, D, D, D, I, D)
+    # the float32 instances' profile: code, C, e, t, wcode
+    PROF32 = (I, D, D, D, I)
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
     # exponent base, boundary, the point dimension, g0-g3, the table
     # (device), its n, lo0, lo1, hi0, hi1 (nl/kernels.py orderArgs)
@@ -369,6 +390,16 @@ def _declare(lib):
         # S, Q2, exclPtr, exclIdx, PhiXw, PhiX, profile, useNormals, stream
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, *PROF, I, P],
+        # the float32 instances (every array float32) with the power
+        # profile's code, C, e, t and wcode (PROF32): K1's dense target
+        # (as panel_scatter up to PSIP, Q; no indicator, order, shift or
+        # entry mask), K2 and K3 (as grid_distant and grid_boundary)
+        'panel_scatter_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                              P, P, P, P, I, *PROF32, P],
+        'grid_distant_f32': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
+                             F, F, *PROF32, P, P],
+        'grid_boundary_f32': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
+                              P, P, P, P, *PROF32, I, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile, indicator, order,
         # yShift, stream

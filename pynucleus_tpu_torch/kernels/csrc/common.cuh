@@ -1,7 +1,45 @@
-// Shared device helpers of the port's CUDA kernels (sm_90a, float64).
+// Shared device helpers of the port's CUDA kernels (sm_90a, float64; the
+// node geometry, the power profile and the quadrature body of K1 also in
+// float32, for the float32 dense path).
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+// T as a parameter type that takes no part in template argument deduction:
+// the scalar type of a templated helper comes from one argument alone
+// (nullptr and literals pass for the others).
+template <typename T>
+struct NoDeduceT { using type = T; };
+template <typename T>
+using NoDeduce = typename NoDeduceT<T>::type;
+
+template <typename T>
+constexpr bool IS_F32 = std::is_same<T, float>::value;
+
+// The operations rounded on their own (no contraction into an FMA), and
+// the fused multiply-add, in float64 and float32.
+__device__ __forceinline__ double addRN(double a, double b) {
+    return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float addRN(float a, float b) {
+    return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double mulRN(double a, double b) {
+    return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mulRN(float a, float b) {
+    return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double fmaRN(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float fmaRN(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double sqrtT(double v) { return sqrt(v); }
+__device__ __forceinline__ float sqrtT(float v) { return sqrtf(v); }
 
 #define EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -116,14 +154,26 @@ __device__ __forceinline__ double radialValue(double r2, const Profile& p) {
 // plain version's (nl/kernels.py radialEval), in its order and rounded on
 // its own (the _rn intrinsics keep nvcc from contracting a product into an
 // FMA); exp, pow, log and erfc are CUDA's double-precision functions.
-template <int PC>
-__device__ __forceinline__ double radial(double r2, const Profile& p) {
-    if (!(r2 > 0.0)) return 0.0;
-    double v = radialValue<PC>(r2, p);
-    if constexpr (PC == PROFILE_POWER || PC == PROFILE_POWER_LOG) {
-        if (p.t != 0.0) v = temper(v, p.t, r2);
+// With T = float (the float32 dense path) the power profile alone, C r2^e
+// in float32 with powf, C and e rounded to float32 once on the host
+// (nl/kernels.py Profile.rounded), as the JAX expression C * r2 ** e rounds
+// its Python floats against a float32 array; no tempering and no weight
+// (the host refuses them in float32).
+template <int PC, typename T = double>
+__device__ __forceinline__ T radial(T r2, const Profile& p) {
+    if constexpr (IS_F32<T>) {
+        static_assert(PC == PROFILE_POWER, "float32: the power profile only");
+        if (!(r2 > 0.0f)) return 0.0f;
+        return __fmul_rn(static_cast<float>(p.C),
+                         powf(r2, static_cast<float>(p.e)));
+    } else {
+        if (!(r2 > 0.0)) return 0.0;
+        double v = radialValue<PC>(r2, p);
+        if constexpr (PC == PROFILE_POWER || PC == PROFILE_POWER_LOG) {
+            if (p.t != 0.0) v = temper(v, p.t, r2);
+        }
+        return twoPoint(v, r2, p);
     }
-    return twoPoint(v, r2, p);
 }
 
 // p = c[n-1]; p = c[k] + t p for k = n-2 .. 0, each operation rounded on
@@ -470,7 +520,8 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
         default: return static_cast<int>(cudaErrorInvalidValue);      \
     }
 
-__device__ __forceinline__ double warpSum(double v) {
+template <typename T>
+__device__ __forceinline__ T warpSum(T v) {
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
     return v;
@@ -482,11 +533,11 @@ constexpr int MAXDIM = 3;
 constexpr int MAXNV = 3;
 
 // v[a][d] = vertices[vid[a], d] for the nv vertex ids of one simplex
-// (int64 or int32 ids).
-template <typename Idx>
-__device__ __forceinline__ void loadSimplex(double v[MAXNV][MAXDIM],
-                                            const double* __restrict__ vertices,
-                                            const Idx* vid, int nv, int dim) {
+// (int64 or int32 ids; float64 or float32 coordinates).
+template <typename Idx, typename T>
+__device__ __forceinline__ void loadSimplex(
+    T v[MAXNV][MAXDIM], const NoDeduce<T>* __restrict__ vertices,
+    const Idx* vid, int nv, int dim) {
     for (int a = 0; a < nv; ++a)
         for (int d = 0; d < dim; ++d)
             v[a][d] = vertices[(long long)vid[a] * dim + d];
@@ -648,26 +699,28 @@ __device__ __forceinline__ bool inBall(const Inter& in, const double* x,
 // package's einsum rounds them on the CPU and the plain versions'
 // nl/assembly.py _fmaNodes does; this decides the complement indicator at
 // nodes exactly delta apart.  Without FMA, x = x + b_a v_a, the product and
-// the sum each rounded (K21, K22, as nl/assembly.py _nodesInOrder).
-template <bool FMA = true>
-__device__ __forceinline__ double panelNode(
-    double x[MAXDIM], double y[MAXDIM], double v1[MAXNV][MAXDIM], int nv1,
-    double v2[MAXNV][MAXDIM], int nv2, int dim,
-    const double* __restrict__ bary_x, const double* __restrict__ bary_y,
-    int Q, int q, const double* ysh) {
-    double r2 = 0.0;
+// the sum each rounded (K21, K22, as nl/assembly.py _nodesInOrder).  In
+// float32 (T = float, K1's float32 instances) the same sums with __fmaf_rn.
+template <bool FMA = true, typename T>
+__device__ __forceinline__ T panelNode(
+    T x[MAXDIM], NoDeduce<T> y[MAXDIM], NoDeduce<T> v1[MAXNV][MAXDIM],
+    int nv1, NoDeduce<T> v2[MAXNV][MAXDIM], int nv2, int dim,
+    const NoDeduce<T>* __restrict__ bary_x,
+    const NoDeduce<T>* __restrict__ bary_y, int Q, int q,
+    const NoDeduce<T>* ysh) {
+    T r2 = 0;
     for (int d = 0; d < dim; ++d) {
-        double xd = 0.0, yd = 0.0;
+        T xd = 0, yd = 0;
         for (int a = 0; a < nv1; ++a)
-            xd = FMA ? __fma_rn(bary_x[a * Q + q], v1[a][d], xd)
-                     : __dadd_rn(xd, __dmul_rn(bary_x[a * Q + q], v1[a][d]));
+            xd = FMA ? fmaRN(bary_x[a * Q + q], v1[a][d], xd)
+                     : addRN(xd, mulRN(bary_x[a * Q + q], v1[a][d]));
         for (int a = 0; a < nv2; ++a)
-            yd = FMA ? __fma_rn(bary_y[a * Q + q], v2[a][d], yd)
-                     : __dadd_rn(yd, __dmul_rn(bary_y[a * Q + q], v2[a][d]));
-        if (ysh != nullptr) yd = __dadd_rn(yd, ysh[d]);
+            yd = FMA ? fmaRN(bary_y[a * Q + q], v2[a][d], yd)
+                     : addRN(yd, mulRN(bary_y[a * Q + q], v2[a][d]));
+        if (ysh != nullptr) yd = addRN(yd, ysh[d]);
         x[d] = xd;
         y[d] = yd;
-        const double dd = xd - yd;
+        const T dd = xd - yd;
         r2 += dd * dd;
     }
     return r2;
@@ -685,20 +738,25 @@ __device__ __forceinline__ double panelNode(
 // ysh [dim] (or nullptr) shifts the y nodes of a variable-order surface
 // item to one side of an order jump.  The complex profile
 // PROFILE_GREENS_2D (radialC) keeps the real parts of t_q and M in acc and
-// the imaginary ones in acci [NN] (no normals, no order, no shift).
-template <int NN, int PC, int OC = ORDER_NONE>
+// the imaginary ones in acci [NN] (no normals, no order, no shift).  The
+// scalar type T is acc's: in float32 (K1's float32 instances) every value
+// is a float, gamma the power profile's radial<PC, float> with no order
+// and no indicator (the host refuses both in float32).
+template <int NN, int PC, int OC = ORDER_NONE, typename T>
 __device__ __forceinline__ void panelQuad(
-    double acc[NN], double v1[MAXNV][MAXDIM], int nv1,
-    double v2[MAXNV][MAXDIM], int nv2, int dim,
-    const double* nrm /* [dim] or nullptr */, double vs,
-    const double* __restrict__ bary_x, const double* __restrict__ bary_y,
-    const double* __restrict__ w, const double* __restrict__ PSIP, int Q,
-    const Profile& pf, int lane, int nl, const Inter in = Inter{},
-    const Order od = Order{}, const double* ysh = nullptr,
-    double* acci = nullptr) {
+    T acc[NN], NoDeduce<T> v1[MAXNV][MAXDIM], int nv1,
+    NoDeduce<T> v2[MAXNV][MAXDIM], int nv2, int dim,
+    const NoDeduce<T>* nrm /* [dim] or nullptr */, NoDeduce<T> vs,
+    const NoDeduce<T>* __restrict__ bary_x,
+    const NoDeduce<T>* __restrict__ bary_y,
+    const NoDeduce<T>* __restrict__ w, const NoDeduce<T>* __restrict__ PSIP,
+    int Q, const Profile& pf, int lane, int nl, const Inter in = Inter{},
+    const Order od = Order{}, const NoDeduce<T>* ysh = nullptr,
+    NoDeduce<T>* acci = nullptr) {
 #pragma unroll
-    for (int k = 0; k < NN; ++k) acc[k] = 0.0;
+    for (int k = 0; k < NN; ++k) acc[k] = 0;
     if constexpr (PC == PROFILE_GREENS_2D) {
+        static_assert(!IS_F32<T>, "the complex profile is float64");
 #pragma unroll
         for (int k = 0; k < NN; ++k) acci[k] = 0.0;
         for (int q = lane; q < Q; q += nl) {
@@ -720,22 +778,28 @@ __device__ __forceinline__ void panelQuad(
         }
     } else {
         for (int q = lane; q < Q; q += nl) {
-            double x[MAXDIM], y[MAXDIM];
-            const double r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
-                                        bary_y, Q, q, ysh);
-            double t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
-            if (!inBall(in, x, y, dim)) t = 0.0;
+            T x[MAXDIM], y[MAXDIM];
+            const T r2 = panelNode(x, y, v1, nv1, v2, nv2, dim, bary_x,
+                                   bary_y, Q, q, ysh);
+            T t;
+            if constexpr (IS_F32<T>) {
+                static_assert(OC == ORDER_NONE, "float32: no variable order");
+                t = radial<PC>(r2, pf) * w[q];
+            } else {
+                t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
+                if (!inBall(in, x, y, dim)) t = 0.0;
+            }
             if (nrm != nullptr) {
-                double fac = 0.0;
-                if (r2 > 0.0) {
+                T fac = 0;
+                if (r2 > 0) {
                     for (int d = 0; d < dim; ++d)
                         fac += nrm[d] * (y[d] - x[d]);
-                    fac /= sqrt(r2);
+                    fac /= sqrtT(r2);
                 }
                 t *= fac;
             }
             t *= vs;
-            const double* ps = PSIP + (long long)q * NN;
+            const T* ps = PSIP + (long long)q * NN;
 #pragma unroll
             for (int k = 0; k < NN; ++k) acc[k] += t * __ldg(ps + k);
         }

@@ -27,7 +27,9 @@
 // close windows) share each pair's work over the warp (warpPairs).  None of the TPU program's intermediates
 // ([C, Q2, Ct*Q1] tiles, the [N+1, K, Ct*Q1] incidence gather) exist.
 // Bound on the card: Q^2 float64 pow per pair in the window (compute) and
-// dpe^2 atomics per pair.
+// dpe^2 atomics per pair.  The float32 instances (grid_distant_f32: the
+// power profile of the float32 dense path) run the same kernels on float
+// data, each sum a float and each atomic an atomicAdd(float).
 
 #include "common.cuh"
 
@@ -42,47 +44,47 @@ constexpr int COOP_Q = 12;
 // idx = 32 j + k (q = idx / Q, r = idx % Q).  The cross block is reduced
 // over the warp per pair; the row sums of c1 (fixed for the warp) stay in
 // registers per round and are reduced once, through shared memory.
-template <int Q, int DPE, int PC>
+template <int Q, int DPE, int PC, typename T>
 __device__ __forceinline__ void warpPairs(
-        double* __restrict__ A, long long N, const double* __restrict__ X,
-        int dim, const double* __restrict__ vols,
-        const long long* __restrict__ dofs, const double* __restrict__ PhiXw,
-        const double* __restrict__ PsiYw, const double* __restrict__ w,
-        const Profile& pf, double* __restrict__ R, long long c1,
+        T* __restrict__ A, long long N, const T* __restrict__ X,
+        int dim, const T* __restrict__ vols,
+        const long long* __restrict__ dofs, const T* __restrict__ PhiXw,
+        const T* __restrict__ PsiYw, const T* __restrict__ w,
+        const Profile& pf, T* __restrict__ R, long long c1,
         long long c2, bool in) {
     constexpr int NR = (Q * Q + 31) / 32;
     const int lane = threadIdx.x & 31;
-    double racc[NR];
+    T racc[NR];
 #pragma unroll
-    for (int k = 0; k < NR; ++k) racc[k] = 0.0;
-    const double* x1 = X + c1 * Q * dim;
+    for (int k = 0; k < NR; ++k) racc[k] = 0;
+    const T* x1 = X + c1 * Q * dim;
     unsigned mask = __ballot_sync(FULL_MASK, in);
     while (mask) {
         const int src = __ffs(mask) - 1;
         mask &= mask - 1;
         const long long pc2 = __shfl_sync(FULL_MASK, c2, src);
-        const double vv = vols[pc2] * vols[c1];
-        const double* y2 = X + pc2 * Q * dim;
-        double cross[DPE][DPE];
+        const T vv = vols[pc2] * vols[c1];
+        const T* y2 = X + pc2 * Q * dim;
+        T cross[DPE][DPE];
 #pragma unroll
         for (int a = 0; a < DPE; ++a)
 #pragma unroll
-            for (int b = 0; b < DPE; ++b) cross[a][b] = 0.0;
+            for (int b = 0; b < DPE; ++b) cross[a][b] = 0;
 #pragma unroll
         for (int k = 0; k < NR; ++k) {
             const int idx = k * 32 + lane;
             if (idx < Q * Q) {
                 const int q = idx / Q, r = idx - q * Q;
-                double r2 = 0.0;
+                T r2 = 0;
                 for (int d = 0; d < dim; ++d) {
-                    const double dd = y2[r * dim + d] - x1[q * dim + d];
+                    const T dd = y2[r * dim + d] - x1[q * dim + d];
                     r2 += dd * dd;
                 }
-                const double g = radial<PC>(r2, pf) * vv;
+                const T g = radial<PC>(r2, pf) * vv;
                 racc[k] += g * w[r];
 #pragma unroll
                 for (int a = 0; a < DPE; ++a) {
-                    const double ga = g * PhiXw[a * Q + q];
+                    const T ga = g * PhiXw[a * Q + q];
 #pragma unroll
                     for (int b = 0; b < DPE; ++b)
                         cross[a][b] += ga * PsiYw[b * Q + r];
@@ -93,18 +95,18 @@ __device__ __forceinline__ void warpPairs(
         for (int a = 0; a < DPE; ++a)
 #pragma unroll
             for (int b = 0; b < DPE; ++b) {
-                const double v = warpSum(cross[a][b]);
+                const T v = warpSum(cross[a][b]);
                 if (lane == a * DPE + b) {
                     const long long row = dofs[c1 * DPE + a];
                     const long long col = dofs[pc2 * DPE + b];
                     if (row >= 0 && col >= 0)
-                        atomicAdd(A + row * N + col, 2.0 * v);
+                        atomicAdd(A + row * N + col, T(2) * v);
                 }
             }
     }
-    __shared__ double rowSum[8][Q];  // one row per warp (blockDim.y == 8)
-    double* rs = rowSum[threadIdx.y];
-    for (int q = lane; q < Q; q += 32) rs[q] = 0.0;
+    __shared__ T rowSum[8][Q];  // one row per warp (blockDim.y == 8)
+    T* rs = rowSum[threadIdx.y];
+    for (int q = lane; q < Q; q += 32) rs[q] = 0;
     __syncwarp();
 #pragma unroll
     for (int k = 0; k < NR; ++k) {
@@ -117,40 +119,40 @@ __device__ __forceinline__ void warpPairs(
 
 // One ordered pair per thread: the cross block in registers, the row sums
 // of c1 (fixed for the warp) reduced over the warp, one atomic per node.
-template <int Q, int DPE, int PC>
+template <int Q, int DPE, int PC, typename T>
 __device__ __forceinline__ void threadPairs(
-        double* __restrict__ A, long long N, const double* __restrict__ X,
-        int dim, const double* __restrict__ vols,
+        T* __restrict__ A, long long N, const T* __restrict__ X,
+        int dim, const T* __restrict__ vols,
         const long long* __restrict__ dofs, long long C,
-        const double* __restrict__ PhiXw, const double* __restrict__ PsiYw,
-        const double* __restrict__ w, const Profile& pf,
-        double* __restrict__ R, long long c1, long long c2, bool in) {
-    double Rx[Q];
+        const T* __restrict__ PhiXw, const T* __restrict__ PsiYw,
+        const T* __restrict__ w, const Profile& pf,
+        T* __restrict__ R, long long c1, long long c2, bool in) {
+    T Rx[Q];
 #pragma unroll
-    for (int q = 0; q < Q; ++q) Rx[q] = 0.0;
+    for (int q = 0; q < Q; ++q) Rx[q] = 0;
 
     if (in) {
-        const double vv = vols[c2] * vols[c1];
-        const double* x1 = X + c1 * Q * dim;
-        const double* y2 = X + c2 * Q * dim;
-        double cross[DPE][DPE];
+        const T vv = vols[c2] * vols[c1];
+        const T* x1 = X + c1 * Q * dim;
+        const T* y2 = X + c2 * Q * dim;
+        T cross[DPE][DPE];
 #pragma unroll
         for (int a = 0; a < DPE; ++a)
 #pragma unroll
-            for (int b = 0; b < DPE; ++b) cross[a][b] = 0.0;
+            for (int b = 0; b < DPE; ++b) cross[a][b] = 0;
 #pragma unroll
         for (int q = 0; q < Q; ++q) {
-            double tq[DPE];
+            T tq[DPE];
 #pragma unroll
-            for (int b = 0; b < DPE; ++b) tq[b] = 0.0;
-            double rq = 0.0;
+            for (int b = 0; b < DPE; ++b) tq[b] = 0;
+            T rq = 0;
             for (int r = 0; r < Q; ++r) {
-                double r2 = 0.0;
+                T r2 = 0;
                 for (int d = 0; d < dim; ++d) {
-                    const double dd = y2[r * dim + d] - x1[q * dim + d];
+                    const T dd = y2[r * dim + d] - x1[q * dim + d];
                     r2 += dd * dd;
                 }
-                const double g = radial<PC>(r2, pf) * vv;
+                const T g = radial<PC>(r2, pf) * vv;
                 rq += g * w[r];
 #pragma unroll
                 for (int b = 0; b < DPE; ++b) tq[b] += g * PsiYw[b * Q + r];
@@ -169,29 +171,30 @@ __device__ __forceinline__ void threadPairs(
 #pragma unroll
             for (int b = 0; b < DPE; ++b) {
                 const long long col = dofs[c2 * DPE + b];
-                if (col >= 0) atomicAdd(A + row * N + col, 2.0 * cross[a][b]);
+                if (col >= 0)
+                    atomicAdd(A + row * N + col, T(2) * cross[a][b]);
             }
         }
     }
     const int lane = threadIdx.x & 31;
 #pragma unroll
     for (int q = 0; q < Q; ++q) {
-        const double s = warpSum(Rx[q]);
+        const T s = warpSum(Rx[q]);
         if (lane == 0 && c1 < C) atomicAdd(R + c1 * Q + q, s);
     }
 }
 
-template <int Q, int DPE, int PC>
+template <int Q, int DPE, int PC, typename T>
 __global__ void __launch_bounds__(256)
-grid_distant_kernel(double* __restrict__ A, long long N,
-                    const double* __restrict__ X, int dim,
+grid_distant_kernel(T* __restrict__ A, long long N,
+                    const T* __restrict__ X, int dim,
                     const float* __restrict__ ccf,
-                    const double* __restrict__ vols,
+                    const T* __restrict__ vols,
                     const long long* __restrict__ dofs, long long C,
-                    const double* __restrict__ PhiXw,
-                    const double* __restrict__ PsiYw,
-                    const double* __restrict__ w, float t_lo, float t_hi,
-                    Profile pf, double* __restrict__ R) {
+                    const T* __restrict__ PhiXw,
+                    const T* __restrict__ PsiYw,
+                    const T* __restrict__ w, float t_lo, float t_hi,
+                    Profile pf, T* __restrict__ R) {
     const long long c2 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long c1 = (long long)blockIdx.y * blockDim.y + threadIdx.y;
     bool in = (c1 < C) && (c2 < C);
@@ -208,20 +211,20 @@ grid_distant_kernel(double* __restrict__ A, long long N,
     if (!__any_sync(FULL_MASK, in)) return;
 
     if constexpr (Q >= COOP_Q)
-        warpPairs<Q, DPE, PC>(A, N, X, dim, vols, dofs, PhiXw, PsiYw, w, pf,
-                              R, c1, c2, in);
+        warpPairs<Q, DPE, PC, T>(A, N, X, dim, vols, dofs, PhiXw, PsiYw, w,
+                                 pf, R, c1, c2, in);
     else
-        threadPairs<Q, DPE, PC>(A, N, X, dim, vols, dofs, C, PhiXw, PsiYw, w,
-                                pf, R, c1, c2, in);
+        threadPairs<Q, DPE, PC, T>(A, N, X, dim, vols, dofs, C, PhiXw, PsiYw,
+                                   w, pf, R, c1, c2, in);
 }
 
-template <int Q, int DPE>
-__global__ void grid_diag_kernel(double* __restrict__ A, long long N,
+template <int Q, int DPE, typename T>
+__global__ void grid_diag_kernel(T* __restrict__ A, long long N,
                                  const long long* __restrict__ dofs,
                                  long long C,
-                                 const double* __restrict__ PhiXw,
-                                 const double* __restrict__ PhiX,
-                                 const double* __restrict__ R) {
+                                 const T* __restrict__ PhiXw,
+                                 const T* __restrict__ PhiX,
+                                 const T* __restrict__ R) {
     const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (c >= C) return;
 #pragma unroll
@@ -232,33 +235,34 @@ __global__ void grid_diag_kernel(double* __restrict__ A, long long N,
         for (int b = 0; b < DPE; ++b) {
             const long long col = dofs[c * DPE + b];
             if (col < 0) continue;
-            double s = 0.0;
+            T s = 0;
 #pragma unroll
             for (int q = 0; q < Q; ++q)
                 s += PhiXw[a * Q + q] * PhiX[b * Q + q] * R[c * Q + q];
-            atomicAdd(A + row * N + col, 2.0 * s);
+            atomicAdd(A + row * N + col, T(2) * s);
         }
     }
 }
 
-template <int Q, int DPE, int PC>
-static int launchGrid(double* A, long long N, const double* X, int dim,
-                      const float* ccf, const double* vols,
+template <int Q, int DPE, int PC, typename T>
+static int launchGrid(T* A, long long N, const T* X, int dim,
+                      const float* ccf, const T* vols,
                       const long long* dofs, long long C,
-                      const double* PhiXw, const double* PhiX,
-                      const double* PsiYw, const double* w, float t_lo,
-                      float t_hi, Profile pf, double* R,
+                      const T* PhiXw, const T* PhiX,
+                      const T* PsiYw, const T* w, float t_lo,
+                      float t_hi, Profile pf, T* R,
                       cudaStream_t stream) {
     const dim3 block(32, 8);
     const long long gx = (C + 31) / 32, gy = (C + 7) / 8;
     if (gy > 65535) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 grid((unsigned)gx, (unsigned)gy);
-    grid_distant_kernel<Q, DPE, PC><<<grid, block, 0, stream>>>(
+    grid_distant_kernel<Q, DPE, PC, T><<<grid, block, 0, stream>>>(
         A, N, X, dim, ccf, vols, dofs, C, PhiXw, PsiYw, w, t_lo, t_hi, pf,
         R);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    grid_diag_kernel<Q, DPE><<<(unsigned)((C + 127) / 128), 128, 0, stream>>>(
+    grid_diag_kernel<Q, DPE, T>
+        <<<(unsigned)((C + 127) / 128), 128, 0, stream>>>(
         A, N, dofs, C, PhiXw, PhiX, R);
     return static_cast<int>(cudaGetLastError());
 }
@@ -277,15 +281,44 @@ EXPORT int grid_distant(double* A, long long N, const double* X, int Q,
     if (dim > MAXDIM) return static_cast<int>(cudaErrorInvalidValue);
 #define CASE(QQ, DD)                                                       \
     if (Q == QQ && dpe == DD)                                              \
-        return launchGrid<QQ, DD, PC>(A, N, X, dim, ccf, vols, dofs, C,    \
-                                      PhiXw, PhiX, PsiYw, w, t_lo, t_hi,   \
-                                      PROFILE_OF(Cg), R,      \
-                                      stream);
+        return launchGrid<QQ, DD, PC, double>(                            \
+            A, N, X, dim, ccf, vols, dofs, C, PhiXw, PhiX, PsiYw, w, t_lo,  \
+            t_hi, PROFILE_OF(Cg), R, stream);
     // 2D P1 (dpe 3): compact triangle rules of orders 2, 4, 6, 8; 1D P1
     // (dpe 2): Gauss rules of orders 2, 4, 6, 8
     PROFILE_SWITCH(pcode, CASE(3, 3) CASE(6, 3) CASE(12, 3) CASE(16, 3)
                    CASE(2, 2) CASE(3, 2) CASE(4, 2) CASE(5, 2)
                    return static_cast<int>(cudaErrorInvalidValue))
+#undef CASE
+    return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float32 instances (the float32 dense path, the power profile with no
+// tempering and no weight; C and e rounded to float32 on the host): A, X,
+// vols, PhiXw, PhiX, PsiYw, w and the scratch R are float32, each value
+// and each sum a float, as _grid_distant_pass with float32 arrays.
+EXPORT int grid_distant_f32(float* A, long long N, const float* X, int Q,
+                            int dim, const float* ccf, const float* vols,
+                            const long long* dofs, int dpe, long long C,
+                            const float* PhiXw, const float* PhiX,
+                            const float* PsiYw, const float* w, float t_lo,
+                            float t_hi, int pcode, double Cg, double e,
+                            double tl, int wcode, float* R,
+                            cudaStream_t stream) {
+    if (C <= 0) return 0;
+    if (dim > MAXDIM || pcode != PROFILE_POWER || tl != 0.0
+        || wcode != TWO_POINT_NONE)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const Profile pf{PROFILE_POWER, Cg, e, 0.0, 0.0, 0.0, 0.0,
+                     TWO_POINT_NONE, 0.0};
+    constexpr int PC = PROFILE_POWER;
+#define CASE(QQ, DD)                                                       \
+    if (Q == QQ && dpe == DD)                                              \
+        return launchGrid<QQ, DD, PC, float>(A, N, X, dim, ccf, vols,      \
+                                             dofs, C, PhiXw, PhiX, PsiYw,  \
+                                             w, t_lo, t_hi, pf, R, stream);
+    CASE(3, 3) CASE(6, 3) CASE(12, 3) CASE(16, 3)
+    CASE(2, 2) CASE(3, 2) CASE(4, 2) CASE(5, 2)
 #undef CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -69,6 +69,12 @@
 // getDense and getDiagonal), triangles only (nPSI 3 or 6).  No normals and
 // no variable order: a complex kernel has no zero-exterior term.
 //
+// The float32 instances (T = float; panel_scatter_f32.cu) are the DENSE
+// target's with the power profile and no order, indicator or shift: the
+// float32 dense path (its explicit pairs, its natural-order buckets and the
+// zero-exterior rows with normals in 2D), every value a float, the nodes
+// summed with __fmaf_rn, each entry added with atomicAdd(float).
+//
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
 // leave lanes idle), the nPSI^2 local entries kept in registers, a warp
@@ -82,42 +88,44 @@
 
 enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3, DIAG = 4 };
 
-template <int NPSI, int TARGET, int PC, int OC>
+template <int NPSI, int TARGET, int PC, int OC, typename T = double>
 __global__ void __launch_bounds__(256)
-panel_scatter_kernel(double* __restrict__ out,
+panel_scatter_kernel(T* __restrict__ out,
                      long long N /* dense: N; CSR: nnz; cross: NB */,
-                     const double* __restrict__ vertices, int dim,
+                     const T* __restrict__ vertices, int dim,
                      const long long* __restrict__ vi1, int nv1,
                      const long long* __restrict__ vi2, int nv2,
                      const long long* __restrict__ dofRows,
                      const int* __restrict__ slots,
-                     const double* __restrict__ volsym,
-                     const double* __restrict__ normals, long long P,
+                     const T* __restrict__ volsym,
+                     const T* __restrict__ normals, long long P,
                      const int* __restrict__ I, const int* __restrict__ J,
                      const int* __restrict__ offF,
                      const int* __restrict__ offB, TreeTables tt,
-                     const double* __restrict__ bary_x,
-                     const double* __restrict__ bary_y,
-                     const double* __restrict__ w,
-                     const double* __restrict__ PSIP, int Q,
+                     const T* __restrict__ bary_x,
+                     const T* __restrict__ bary_y,
+                     const T* __restrict__ w,
+                     const T* __restrict__ PSIP, int Q,
                      Profile pf, Inter in, Order od,
-                     const double* __restrict__ yShift, long long emask) {
+                     const T* __restrict__ yShift, long long emask) {
     constexpr int NN = NPSI * NPSI;
     constexpr bool CPLX = PC == PROFILE_GREENS_2D;
     static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
                   "the complex profile scatters into dense A or the diagonal");
+    static_assert(!IS_F32<T> || TARGET == DENSE,
+                  "float32: the dense target only");
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
     if (pair >= P) return;  // uniform across the warp
 
-    double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM], nrm[MAXDIM];
+    T v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM], nrm[MAXDIM];
     loadSimplex(v1, vertices, vi1 + pair * nv1, nv1, dim);
     loadSimplex(v2, vertices, vi2 + pair * nv2, nv2, dim);
     if (normals != nullptr)
         for (int d = 0; d < dim; ++d) nrm[d] = normals[pair * dim + d];
 
-    double acc[NN], acci[CPLX ? NN : 1];
+    T acc[NN], acci[CPLX ? NN : 1];
     panelQuad<NN, PC, OC>(acc, v1, nv1, v2, nv2, dim,
                           normals != nullptr ? nrm : nullptr, volsym[pair],
                           bary_x, bary_y, w, PSIP, Q, pf, lane, 32, in, od,
@@ -147,7 +155,7 @@ panel_scatter_kernel(double* __restrict__ out,
         }
         return;
     }
-    if (TARGET == TREE) {
+    if constexpr (TARGET == TREE) {
         long long dr[NPSI];
 #pragma unroll
         for (int i = 0; i < NPSI; ++i) dr[i] = dofRows[pair * NPSI + i];

@@ -22,6 +22,11 @@ two passes around the preconditioner's ``z = M r``:
   3. partial sums of r.z                                (_rz_kernel)
   4. as 3. of the Jacobi form                           (_direction_kernel)
 
+The kernels take float64 or float32 vectors (Triton compiles an instance
+per pointer type): on float32 vectors (the float32 dense path) every
+value, every block sum and every sum of the partial sums is a float32, as
+_cg_core's jnp.vdot of float32 vectors accumulates in float32.
+
 Every program reduces the same partial sums in the same order, so all
 programs see identical scalars; the scalars stay on the device (``scal``:
 r.z of the two latest iterations in slots k%2 / (k+1)%2, the convergence
@@ -151,7 +156,7 @@ def _kernelsAndGrid(n):
 
 def launch(x, r, z, p, Ap, invD, scal, hist, it, use2norm, parts):
     """Launch the three kernels of iteration ``it`` on the current stream
-    and return how many were launched.  ``parts`` is float64 scratch
+    and return how many were launched.  ``parts`` is scratch of x's type
     [3, nparts], nparts = cdiv(n, BLOCK)."""
     n = x.shape[0]
     (pap_k, upd_k, dir_k, _, _), nparts, NPART = _kernelsAndGrid(n)

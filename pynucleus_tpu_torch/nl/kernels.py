@@ -214,6 +214,17 @@ class Profile(NamedTuple):
     wcode: int = TWO_POINT_NONE
     wlam: float = 0.0
 
+    def rounded(self, dtype):
+        """The profile as a kernel of value type ``dtype`` evaluates it:
+        for float32 each parameter rounded to float32 once on the host (as
+        the JAX expression C * r2 ** e rounds its Python floats against a
+        float32 array), for float64 the profile itself."""
+        if dtype != torch.float32:
+            return self
+        return self._replace(**{k: float(np.float32(getattr(self, k)))
+                                for k in ('C', 'e', 'a', 'C1', 'C2', 't',
+                                          'wlam')})
+
 
 # fractional order codes, shared with kernels/csrc/common.cuh kernelXY()
 ORDER_NONE = 0          # the kernel is its radial profile

@@ -99,6 +99,10 @@ def test_port_imports_no_jax():
             'from pynucleus_tpu_torch.nl.kernels import '
             'feFractionalOrder, innerOuterFractionalOrder, '
             'layersFractionalOrder, MANIFOLD_FRACTIONAL; '
+            'from pynucleus_tpu_torch.config import realType; '
+            'from pynucleus_tpu_torch.interop import builderFromArrays; '
+            'from pynucleus_tpu_torch.nl.assembly import '
+            'panel_scatter_natural; '
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'pynucleus_tpu' or "
             "m.startswith('pynucleus_tpu.') for m in sys.modules), "

@@ -134,7 +134,8 @@ def test_cpu_wrappers_count_no_launch():
                                               + kernels.HORIZON
                                               + kernels.FORMATS
                                               + kernels.TWOPOINT
-                                              + kernels.ORDERS)
+                                              + kernels.ORDERS
+                                              + kernels.FLOAT32)
     assert {'interp_matvec', 'matfree_apply'} <= set(kernels.deviceLaunches)
 
 
