@@ -117,8 +117,8 @@ result line):
      noRef 6 (5e-4); the full-width lines, dA/ds of the flagship disc at
      noRef 7 (getH2Vector under torch.profiler: build parts and seconds,
      its device time, apply and transposed apply, peak memory) and
-     d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 11 (4,095 dofs,
-     [4095, 4095, 4]; noRef 10 if its host classification exceeds 300 s;
+     d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 10 (2,047 dofs,
+     [2047, 2047, 4]; noRef 9 if its host classification exceeds 300 s;
      each a path, K21's and K22's calls recorded during it); then K21, K22,
      K23 (against torch.einsum too) and the power-log profile in K1, K2,
      K3, K6 (where called), K7 and K12 against their plain versions.
@@ -166,7 +166,7 @@ result line):
      the apply; the variable horizon delta(x) on the interval
      (getFractionalKernel(1, s, horizon=horizonFunction(...))): noRef 6
      against its pins (a path), getDense = getSparse at noRef 12, and the
-     full-width noRef 13 (8,191 dofs; a path): getSparse, the apply,
+     full-width noRef 12 (4,095 dofs; a path): getSparse, the apply,
      unpreconditioned GMRES of A u = A 1 to 1e-10 relative, the device
      time of K19; then K15 and K1 with ball1 and the ellipse and K19 with
      the indicator and the variable horizon against their plain versions
@@ -244,7 +244,7 @@ result line):
      the largest entry (K1 and K2 apply phi; the JAX grid drops it), then
      the tempered problem with its zero-exterior term (K3 with the
      tempered boundary kernel) by CG-Jacobi, iterations and seconds;
-     runNonlocal's interval at noRef 10 with the gaussian and exponential
+     runNonlocal's interval at noRef 9 with the gaussian and exponential
      kernels (sparse, CG-MG; each a path); the weighted finite horizon (a
      tempered fractional kernel times the tempered phi) on the interval
      at noRef 10 and the square at noRef 1 (sparse; the square against its
@@ -289,6 +289,26 @@ result line):
      _bucket_natural_scatter) on its largest call in float32 and float64.
      Alone: `python -c 'import chip_smoke as c; from pynucleus_tpu_torch
      import kernels; kernels.library(); c.phase23()'`.
+ 24. the float32 H2 path (getH2 with params={'dtype': np.float32}):
+     bench.py's h2_2d, the disc of phase 23 (16,129 dofs), getH2 on the
+     block engine in float32 (a path: the float32 instances of K1's slot
+     and tree targets, K6, K7, K8 and K12; no float64 instance of them)
+     and in float64 (a path), CG-Jacobi (b = M 1, 1e-6, 500 at most) and
+     the steady apply (bench.py:92, 64 normalised applications); bench.py's
+     h2_1d, the interval refined 16 times (65,535 dofs), getH2 and the
+     steady apply on sin(pi x) in float32 (a path) and its float64 twin (a
+     path; at noRef 14 beside a float32 build there if the float32 build
+     at 16 took over 25 s): build seconds with the builder's timers, the
+     build kernels' device ms (CUDA events), near nnz, far blocks, peak
+     device memory, iterations, residuals, warm solve seconds; max|H32 x -
+     H64 x| / max|H64 x|, the diagonals' gap, the solutions' (below 1e-3)
+     and the disc's H2 against phase 23's float64 dense operator; then each
+     float32 instance against its float32 plain version at a third float32
+     build's calls (the largest bucket of K1's slot and tree targets and of
+     K6, every call of K12 and K7; K8 10 applies of the disc's operator,
+     1e-5 of max|y|) with the same calls' float64 time.  Alone: `python -c
+     'import chip_smoke as c; from pynucleus_tpu_torch import kernels;
+     kernels.library(); c.phase24()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -302,6 +322,7 @@ variant of K1, K2, K3, K14, K15 and K19 (tempered, two_point,
 log_inverse, polynomial, gaussian, exponential), per order-of-position
 variant of K1 and K19, per manifold variant of K1 and K2, per float32
 instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4
+and of the H2 path (K1's slot and tree targets, K6, K7, K8, K12)
 (with the same calls' float64 time), and K24-K27, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
@@ -320,6 +341,9 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
+# operators that one phase leaves to a later one (phase 23's float64 dense
+# disc for phase 24)
+KEPT = {}
 
 # JAX package outputs of `drivers/runFractional.py --domain disc --s
 # 'const(0.75)' --problem constant --element P1 --solverType cg-jacobi
@@ -770,16 +794,17 @@ def compare_target_kernel(name, calls, kernel, plain, work, dtype=None,
     return result(worst_abs, ms, plain_ms, [work(c[0]) for c in calls])
 
 
-def enum_quad_work(args):
+def enum_quad_work(args, entryBytes=16, peak=F64_PEAK):
     """K6 on recorded args (nnz+1, ids, pT, ..., vertices, cells, ...,
     w, PSIP, profile): K1's quadrature body per element (two cells), the
-    touched entries read and written once."""
+    touched entries read and written once (``entryBytes`` for the read and
+    the write, ``peak`` the rate of the operations' type)."""
     ids, vertices, cells, w, PSIP = args[1], args[12], args[13], args[-3], \
         args[-2]
     n, Q, nn, dim, nv = ids.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1], cells.shape[1]
     ops = n * Q * (4 * dim * nv + 3 * dim + 3 + 2 * nn)
-    return (nbytes(args[1:]) + 16 * n * nn, ops, F64_PEAK)
+    return (nbytes(args[1:]) + entryBytes * n * nn, ops, peak)
 
 
 def compare_h2_build(recs):
@@ -822,19 +847,22 @@ def compare_h2_build(recs):
     return out
 
 
-def compare_far_field(calls, label='far_field'):
+def compare_far_field(calls, label='far_field', tol=TOL_KERNEL):
     """K7 on recorded calls (gi, gj, profile[, order]) against its plain
-    version, each after an untimed warm-up call; per entry r^2 and one
-    profile evaluation (a variable order's VO_EVAL_OPS)."""
+    version, each after an untimed warm-up call, to ``tol`` of the largest
+    entry; per entry r^2 and one profile evaluation (a variable order's
+    VO_EVAL_OPS), the blocks written once in the grids' type."""
     import pynucleus_tpu_torch.nl.assembly as asm
     worst = ms = plain_ms = 0.0
     work = []
     for args, kw in calls:
         P, M, dim = args[0].shape
         order = args[3] if len(args) > 3 else kw.get('order')
-        work.append((nbytes(args[:2]) + 8 * P * M * M,
+        f32 = args[0].element_size() == 4
+        work.append((nbytes(args[:2]) + args[0].element_size() * P * M * M,
                      P * M * M * (3 * dim + (VO_EVAL_OPS if order is not None
-                                             else 1)), F64_PEAK))
+                                             else 1)),
+                     F32_PEAK if f32 else F64_PEAK))
         asm.far_field(*args, **kw), asm._far_field_plain(*args, **kw)
         got, ref = [], []
         ms += timed(lambda: got.append(asm.far_field(*args, **kw)))
@@ -842,7 +870,7 @@ def compare_far_field(calls, label='far_field'):
                                                                   **kw)))
         err = float((got[0] - ref[0]).abs().max())
         scale = float(ref[0].abs().max())
-        if not (scale > 0 and err <= TOL_KERNEL * scale):
+        if not (scale > 0 and err <= tol * scale):
             raise AssertionError(f'{label}: max err {err} (max {scale})')
         worst = max(worst, err)
     log(f"  {label}: {len(calls)} calls, max abs err "
@@ -865,12 +893,14 @@ def block_count_work(args):
     return (nbytes(args) + 20 * args[0].shape[0], ENUM_OPS * T, F32_PEAK)
 
 
-def block_quad_work(args):
+def block_quad_work(args, entryBytes=16, peak=F64_PEAK):
     """K12 on recorded args (nnz+1, pairs, ncArr, cells, cellNodes,
     centers, logh, consts, vertices, vols, dofs, treePos, rules, profile):
     the order model per element; per element of a requested order K1's
     quadrature body (counted by K11's plain version on the same pairs);
-    the tables read once, each pair's block(s) read and written once."""
+    the tables read once, each pair's block(s) read and written once
+    (``entryBytes`` for the read and the write; ``peak`` the quadrature's
+    rate, the order model's float32)."""
     import pynucleus_tpu_torch.nl.assembly as asm
     pairs, tabs, rules = args[1], args[2:8], args[12]
     cells, vertices, dofs = args[3], args[8], args[10]
@@ -883,7 +913,7 @@ def block_quad_work(args):
             4 * dim * nv + 3 * dim + 3 + 2 * nn)
     nI, nJ, I, J = pairs[12].long(), pairs[13].long(), pairs[4], pairs[5]
     blockEntries = int((nI * nJ * (1 + (I != J).long())).sum())
-    return (nbytes(args[1:]) + 16 * blockEntries, ops, F64_PEAK)
+    return (nbytes(args[1:]) + entryBytes * blockEntries, ops, peak)
 
 
 def tree_quad_work(args):
@@ -966,16 +996,16 @@ def compare_operators(label, Ha, Hb, seed):
 def h2_matvec_work(H):
     """K8 per apply: x read and y written, the operator's arrays read
     once; the near products, the leaf moments and leaf outputs, the up
-    and down transfers and the far blocks."""
+    and down transfers and the far blocks (in the operator's type)."""
     A = H.Anear
-    b = 16 * H.num_rows + nbytes(
+    b = 2 * A.dataZ.element_size() * H.num_rows + nbytes(
         A.perm, A.rowNode, A.indptrT, A.tStartRow, A.tLen, A.rowLen,
         A.tmplStart, A.tmplAll, A.dataZ, H.leafPhi, H.leafNode, H.Ttr,
         H.parent, H.Kall, H.src, H.dst)
     M = H.M
     ops = 2 * A.nnz + 4 * H.L * H.nbar * M + 4 * M * M * H.nNodes \
         + 2 * M * M * H.Kall.shape[0]
-    return (b, ops, F64_PEAK)
+    return (b, ops, F32_PEAK if A.dataZ.element_size() == 4 else F64_PEAK)
 
 
 def compare_h2_matvec(H, reps=10, label=''):
@@ -3061,11 +3091,11 @@ DERIV_CHECK_NOREF = 6
 TOL_DERIV_H2 = 5e-4
 DERIV_NOREF = 7
 # d^2A/ds^2 of leftRight(0.25, 0.75), dense vector on the interval at
-# DERIV_VECTOR_NOREF (noRef 12 until phase 23 came: its build took 17.0 s
-# there, PERF.md section 4); DERIV_VECTOR_FALLBACK if its host set-up
-# exceeds DERIV_HOST_LIMIT seconds
-DERIV_VECTOR_NOREF = 11
-DERIV_VECTOR_FALLBACK = 10
+# DERIV_VECTOR_NOREF (cut so that the script keeps within its time limit,
+# PERF.md section 4); DERIV_VECTOR_FALLBACK if its host set-up exceeds
+# DERIV_HOST_LIMIT seconds
+DERIV_VECTOR_NOREF = 10
+DERIV_VECTOR_FALLBACK = 9
 DERIV_HOST_LIMIT = 300.0
 # the kernels each path of phase 14 must launch
 DERIV_DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary',
@@ -4108,7 +4138,9 @@ VH_PIN = ((0.15, 0.05, 0.1, 0.2), 0.25)
 VH_CHECK = ((0.25, 0.1, 0.15, 0.35), 0.4)
 VH_PIN_NOREF = 6
 VH_CHECK_NOREF = 12
-VH_NOREF = 13
+# the full-width variable horizon (cut so that the script keeps within its
+# time limit, PERF.md section 4)
+VH_NOREF = 12
 TOL_VH_RES = 1e-10
 BALL_PATH = ('panel_scatter', 'cut2d_polar', 'panel_scatter:dense',
              'panel_scatter:slots')
@@ -6150,7 +6182,9 @@ TP_LAMBDA = 2.0          # temperedTwoPoint's lambda
 TP_TEMPER = 3.0          # the finite-horizon tempered kernel's lambda
 TP_FULL_NOREF = 6        # the flagship disc, 18,145 dofs
 TP_CHECK_NOREF = 5       # the grid variants' comparison shapes
-TP_NONLOCAL_NOREF = 10   # runNonlocal's interval, sparse CG-MG
+# runNonlocal's interval, sparse CG-MG (cut so that the script keeps within
+# its time limit, PERF.md section 4)
+TP_NONLOCAL_NOREF = 9
 TP_FH_NOREF = 8          # the weighted finite horizon on the interval
 TP_CG_TOL = 1e-8
 TP_CG_MAXITER = 2000
@@ -7593,11 +7627,17 @@ def natural_work(args, entryBytes=16, peak=F64_PEAK):
 
 def as_float64(args, keep=()):
     """Recorded args of a float32 call in float64: each float32 tensor
-    cast, except at the positions ``keep`` (K2's float32 centres)."""
+    cast (in a dict of rules too), except at the positions ``keep`` (the
+    float32 centres of K2, K5, K11 and K12)."""
     import torch
-    return tuple(a.double() if isinstance(a, torch.Tensor) and a.dtype ==
-                 torch.float32 and i not in keep else a
-                 for i, a in enumerate(args))
+
+    def cast(a):
+        if isinstance(a, torch.Tensor) and a.dtype == torch.float32:
+            return a.double()
+        if isinstance(a, dict):
+            return {k: tuple(cast(t) for t in v) for k, v in a.items()}
+        return a
+    return tuple(a if i in keep else cast(a) for i, a in enumerate(args))
 
 
 def float64_ms(calls, kernel, keep=()):
@@ -7846,6 +7886,8 @@ def phase23():
     cmp = {'pcg_update:float32': result(errJ, msJ, plainJ,
                                         [(36 * n, 13 * n, F32_PEAK)] * 10)}
     cmp['pcg_update:float32'].update(float64_ms=ms64, event_ms=eventMs)
+    # the float64 dense A of the disc stays for phase 24 (H2 against it)
+    KEPT['disc_dense64'] = A64
     del A32, A64, u32, u64, lines
     torch.cuda.empty_cache()
 
@@ -7910,6 +7952,411 @@ def FLOAT32_23_PATHS(counts23):
              counts23['float64']))
 
 
+# ---------------------------------------------------------------- phase 24
+
+# bench.py's H2 lines on the port: h2_2d (benchH2Matvec2D with _cgSolve,
+# bench.py:218-273) on phase 23's disc (circle(n=8) refined H2F_NOREF
+# times, 16,129 dofs) and h2_1d (benchH2Matvec, bench.py:186-215) on
+# simpleInterval(-1, 1) refined H2F_INTERVAL_NOREF times (65,535 dofs, one
+# cell halved 16 times, bench.py's BENCH_H2_NOREF default): getH2 of
+# (-Delta)^0.75, P1, infinite horizon, zero exterior, on the default
+# (block) engine, in float32 (the JAX package's dtype off the CPU,
+# bench.py:58-64) and, beside it, in float64
+H2F_NOREF = 6
+H2F_INTERVAL_NOREF = 16
+# the float64 twin of h2_1d at H2F_INTERVAL_NOREF, or, where the float32
+# build there took longer than H2F_TWIN_LIMIT seconds, at H2F_TWIN_NOREF
+# with a float32 build at that depth beside it (phase 24 keeps to about
+# 90 s)
+H2F_TWIN_NOREF = 14
+H2F_TWIN_LIMIT = 25.0
+H2F_APPLIES = 64           # bench.py:92 _steadyMatvec's applications
+H2F_SEED = 24
+# the build's kernel wrappers timed by CUDA events (nl.assembly)
+H2F_BUILD = ('panel_scatter_slots', 'panel_scatter_tree', 'block_near_count',
+             'block_near_quad', 'near_enum', 'near_enum_quad', 'far_field')
+# the float32 instances of the H2 path and the float64 kernels they replace
+# on it (each float32 line launches none of the latter's float64 instances)
+H2F_VARIANTS = {'panel_scatter': 'panel_scatter:float32',
+                'near_enum_quad': 'near_enum_quad:float32',
+                'block_near_quad': 'block_near_quad:float32',
+                'far_field': 'far_field:float32',
+                'h2_matvec': 'h2_matvec:float32',
+                'pcg_update': 'pcg_update:float32'}
+H2F64_PATH = ('panel_scatter', 'panel_scatter:slots', 'panel_scatter:tree',
+              'near_enum', 'near_enum_quad', 'block_near_count',
+              'block_near_quad', 'far_field', 'h2_matvec')
+H2F32_PATH = H2F64_PATH + ('panel_scatter:float32',
+                           'panel_scatter:float32_slots',
+                           'panel_scatter:float32_tree',
+                           'near_enum_quad:float32',
+                           'block_near_quad:float32', 'far_field:float32',
+                           'h2_matvec:float32')
+H2F_CG = ('pcg_update', 'pcg_update:jacobi')
+# on the interval every near cluster pair also holds orders above 8: K12
+# has no element to run (K11 counts them, K6 runs them)
+H2F_1D = ('block_near_quad', 'block_near_quad:float32')
+FLOAT32_H2_REPLACES = {
+    'panel_scatter:float32_slots': 'pynucleus_tpu/nl/assembly.py:1088',
+    'panel_scatter:float32_tree': 'pynucleus_tpu/nl/assembly.py:1568',
+    'near_enum_quad:float32': 'pynucleus_tpu/nl/assembly.py:1506',
+    'block_near_quad:float32': 'pynucleus_tpu/nl/assembly.py:1427',
+    'far_field:float32': 'pynucleus_tpu/nl/assembly.py:744',
+    'h2_matvec:float32': 'pynucleus_tpu/nl/h2.py:963'}
+_H2F_AT = (f'the float32 h2_2d disc (circle(n=8) refined {H2F_NOREF} times, '
+           '16,129 dofs, block engine)')
+FLOAT32_H2_COMPARED_AT = {
+    'panel_scatter:float32_slots': _H2F_AT + ': its largest slot-target '
+    'bucket',
+    'panel_scatter:float32_tree': _H2F_AT + ': its largest tree-target '
+    'bucket (the union surfaces)',
+    'near_enum_quad:float32': _H2F_AT + ': its largest order (the pairs '
+    'that also hold orders above 8)',
+    'block_near_quad:float32': _H2F_AT + ': its one call',
+    'far_field:float32': _H2F_AT + ': its one call',
+    'h2_matvec:float32': _H2F_AT + ': 10 applies of its operator, device '
+    'time (CUDA events around applies queued behind a spin of the card; '
+    'around the applies on an idle card: event_ms), per apply'}
+
+
+def h2f_dm(domain, noRef):
+    from pynucleus_tpu_torch.fem.meshes import circle, simpleInterval
+    mesh = circle(n=8) if domain == 'disc' else simpleInterval(-1.0, 1.0)
+    return tp_dm(tp_refined(mesh, noRef))
+
+
+def h2f_operator(dm, dtype):
+    """getH2 of (-Delta)^F32_S on dm in dtype; returns (H, builder
+    timers)."""
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    b = nonlocalBuilder(dm, getFractionalKernel(dm.mesh.dim, F32_S),
+                        params={'dtype': dtype})
+    return b.getH2(), dict(b.timers)
+
+
+def steady_apply_ms(H, x):
+    """bench.py:92 _steadyMatvec on the port: H2F_APPLIES normalised
+    applications y = H y / (1e-30 + max|H y|), after an untimed run of
+    them; ms per application (host clock around a synchronised run)."""
+    import torch
+
+    def run():
+        y = x.clone()
+        for _ in range(H2F_APPLIES):
+            y = H.matvec(y)
+            y = y / (1e-30 + y.abs().max())
+        return y
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = run()
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(y).all()):
+        raise AssertionError('the steady apply is not finite')
+    return (time.perf_counter() - t0) * 1e3 / H2F_APPLIES
+
+
+def h2f_check_types(label, counts, dtype):
+    """A float32 line launched no float64 instance of the H2 path's
+    kernels (each launch of such a kernel is its float32 variant's); a
+    float64 line no float32 instance."""
+    import numpy as np
+    for base, var in H2F_VARIANTS.items():
+        if dtype == np.float32 and counts[base] != counts[var]:
+            raise AssertionError(f'{label}: {counts[base]} launches of '
+                                 f'{base}, {counts[var]} of {var}')
+        if dtype == np.float64 and counts[var]:
+            raise AssertionError(f'{label}: {counts[var]} launches of {var}')
+
+
+def h2f_line(label, domain, noRef, dtype, x, solve=False):
+    """One line in ``dtype``: getH2 (host seconds after a synchronise, the
+    builder's timers, each build kernel's device ms by CUDA events), near
+    nnz, far blocks, the steady apply on x, with ``solve`` CG-Jacobi
+    (bench.py:253-273: b = M 1 in the working type, 1e-6, 500 at most, M =
+    1 / H.diagonal; cold, then warm), the peak device memory above the
+    line's start.  Returns (summary, H, u or None)."""
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    dm = h2f_dm(domain, noRef)
+    real = torch.float32 if dtype == np.float32 else torch.float64
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with EventTimer(asm, H2F_BUILD) as timer:
+        t0 = time.perf_counter()
+        H, timers = h2f_operator(dm, dtype)
+        torch.cuda.synchronize()
+        build = time.perf_counter() - t0
+    if H.dtype != real or H.diagonal.dtype != real or not bool(
+            torch.isfinite(H.Anear.dataT).all()):
+        raise AssertionError(f'{label}: the {real} operator is '
+                             f'{H.dtype}')
+    near = sum(v for k, v in timers.items() if k in (
+        'near pattern', 'singular', 'near blocks', 'enumeration',
+        'surfaces'))
+    out = {'dofs': dm.num_dofs, 'noRef': noRef,
+           'dtype': str(real).split('.')[-1], 'build_s': build,
+           'timers_s': timers, 'near_field_s': near,
+           'kernel_ms': timer.ms(), 'near_nnz': H.Anear.nnz,
+           'far_blocks': H.Kall.shape[0], 'M': H.M, 'levels': H.nLvl,
+           'operator_GB': sum(t.numel() * t.element_size() for t in (
+               H.Anear.dataZ, H.leafPhi, H.Ttr, H.Kall)) / 1e9}
+    u = None
+    if solve:
+        b = assembleRHS(dm, constant(1.0)).data.to(real)
+        cg = solverFactory.build('cg-jacobi', A=H, setup=True)
+        cg.tolerance = F32_CG_TOL
+        cg.maxIter = F32_CG_MAXITER
+        f32_tf32_off()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            u = cg.solve(b)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if u.dtype != real or not bool(torch.isfinite(u).all()):
+            raise AssertionError(f'{label}: the solution is {u.dtype}')
+        out.update(
+            iterations=cg.iterations, residual=float(cg.residuals[-1]),
+            converged=bool(cg.residuals[-1] <= F32_CG_TOL),
+            at_cap=cg.iterations >= F32_CG_MAXITER,
+            relative_residual=float(torch.linalg.norm(b - H.matvec(u))
+                                    / torch.linalg.norm(b)),
+            solve_s=times[0], warm_solve_s=times[1])
+    out['steady_apply_ms'] = steady_apply_ms(H, x.to(real))
+    out['peak_GiB'] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    log(f'  {label}: {json.dumps(out)}')
+    return out, H, u
+
+
+def h2f_gaps(H32, H64, x):
+    """max|H32 x - H64 x| / max|H64 x| and max|diag32 - diag64| /
+    max|diag64|."""
+    y64 = H64.matvec(x.double())
+    y32 = H32.matvec(x.float()).double()
+    d64, d32 = H64.diagonal, H32.diagonal.double()
+    return (float((y32 - y64).abs().max() / y64.abs().max()),
+            float((d32 - d64).abs().max() / d64.abs().max()))
+
+
+def h2f_path(dt, domain):
+    """The kernels that a line of ``domain`` in ``dt`` must launch."""
+    path = H2F32_PATH if dt == 'float32' else H2F64_PATH
+    return tuple(k for k in path if domain == 'disc' or k not in H2F_1D)
+
+
+def h2f_pair(label, domain, noRef32, noRef64, x32, x64, solve, counts,
+             summary):
+    """The float32 line (a path) and the float64 one (a path) of a domain;
+    their gaps where the depths agree.  Returns the operators and the
+    solutions."""
+    import numpy as np
+    ops = {}
+    for dt, noRef, x in (('float32', noRef32, x32), ('float64', noRef64,
+                                                      x64)):
+        dtype = getattr(np, dt)
+        key = f'{label}_{dt}'
+        path = h2f_path(dt, domain) + (H2F_CG if solve else ())
+        (summary[key], H, u), counts[key] = count_path(
+            f'{label} in {dt}', path,
+            lambda: h2f_line(f'{label} in {dt}', domain, noRef, dtype, x,
+                             solve))
+        h2f_check_types(key, counts[key], dtype)
+        ops[dt] = (H, u)
+    return ops
+
+
+def phase24():
+    """The float32 H2 path: bench.py's h2_2d (the disc in float32 and
+    float64, a path each: getH2 on the block engine, CG-Jacobi, the steady
+    apply) and h2_1d (the interval at noRef 16 in float32 with its float64
+    twin, a path each: getH2 and the steady apply); the float32 operators
+    against the float64 ones (the apply, the diagonal, the solution) and,
+    where phase 23 left it, the float64 dense disc; then, recorded during
+    a third (float32) build of the disc and at its operator, each float32
+    instance against its float32 plain version (1e-5 of the largest entry,
+    K8 of max|y|) with the same calls' float64 time.  Returns (launch counts
+    per path, comparisons, summary)."""
+    import contextlib
+    import functools
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    from pynucleus_tpu_torch.nl import h2
+    log('phase 24: the float32 H2 path (bench.py\'s h2_2d and h2_1d lines in '
+        'float32 and float64)')
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    counts, summary = {}, {}
+    gen = torch.Generator('cuda').manual_seed(H2F_SEED)
+    n2 = h2f_dm('disc', H2F_NOREF).num_dofs
+    x2 = torch.randn(n2, dtype=torch.float64, device='cuda', generator=gen)
+    disc = h2f_pair('h2_2d', 'disc', H2F_NOREF, H2F_NOREF, x2, x2, True,
+                    counts, summary)
+    (H32, u32), (H64, u64) = disc['float32'], disc['float64']
+    gap, dgap = h2f_gaps(H32, H64, x2)
+    du = float(torch.linalg.norm(u32.double() - u64) / torch.linalg.norm(u64))
+    summary['h2_2d_gaps'] = {'apply': gap, 'diagonal': dgap,
+                             'solution': du}
+    A64 = KEPT.pop('disc_dense64', None)
+    if A64 is not None:
+        yA = A64.matvec(x2)
+        summary['h2_2d_gaps']['h2_32_vs_dense_64'] = float(
+            (H32.matvec(x2.float()).double() - yA).abs().max()
+            / yA.abs().max())
+        summary['h2_2d_gaps']['h2_64_vs_dense_64'] = float(
+            (H64.matvec(x2) - yA).abs().max() / yA.abs().max())
+        del A64, yA
+    log(f"  h2_2d gaps: {json.dumps(summary['h2_2d_gaps'])}")
+    if not du <= TOL_F32_VS_F64:
+        raise AssertionError(f'h2_2d: the float32 solution {du} from the '
+                             'float64 one')
+    if not summary['h2_2d_float64']['converged']:
+        raise AssertionError('h2_2d: the float64 CG-Jacobi did not converge')
+
+    # h2_1d: x = sin(pi linspace(-1, 1, N)) (bench.py:212); the float64
+    # twin at noRef 16, or at 14 beside a float32 build at 14
+    def sinx(noRef):
+        n = h2f_dm('interval', noRef).num_dofs
+        return torch.sin(np.pi * torch.linspace(-1.0, 1.0, n,
+                                                dtype=torch.float64,
+                                                device='cuda'))
+    x1 = sinx(H2F_INTERVAL_NOREF)
+    (summary['h2_1d_float32'], H1, _), counts['h2_1d_float32'] = count_path(
+        'h2_1d in float32', h2f_path('float32', 'interval'),
+        lambda: h2f_line('h2_1d in float32', 'interval', H2F_INTERVAL_NOREF,
+                         np.float32, x1))
+    h2f_check_types('h2_1d_float32', counts['h2_1d_float32'], np.float32)
+    twin = H2F_INTERVAL_NOREF \
+        if summary['h2_1d_float32']['build_s'] <= H2F_TWIN_LIMIT \
+        else H2F_TWIN_NOREF
+    summary['h2_1d_twin_noRef'] = twin
+    if twin == H2F_INTERVAL_NOREF:
+        (summary['h2_1d_float64'], H1_64, _), counts['h2_1d_float64'] = \
+            count_path('h2_1d in float64', h2f_path('float64', 'interval'),
+                       lambda: h2f_line('h2_1d in float64', 'interval', twin,
+                                        np.float64, x1))
+        h2f_check_types('h2_1d_float64', counts['h2_1d_float64'], np.float64)
+        pair = (H1, H1_64, x1)
+    else:
+        del H1
+        xt = sinx(twin)
+        ops = h2f_pair(f'h2_1d_noRef{twin}', 'interval', twin, twin, xt, xt,
+                       False, counts, summary)
+        pair = (ops['float32'][0], ops['float64'][0], xt)
+    gap1, dgap1 = h2f_gaps(*pair)
+    summary['h2_1d_gaps'] = {'noRef': twin, 'apply': gap1,
+                             'diagonal': dgap1}
+    log(f"  h2_1d gaps: {json.dumps(summary['h2_1d_gaps'])}")
+    del pair
+    torch.cuda.empty_cache()
+
+    # the kernels' calls, recorded during a third build of the disc
+    # (float32; no path): the largest bucket of K1's slot and tree
+    # targets and of K6, every call of K12 and K7
+    sizes = {'panel_scatter_slots': lambda data, v, vi1, *a: vi1.shape[0],
+             'panel_scatter_tree': lambda data, v, vi1, *a: vi1.shape[0],
+             'near_enum_quad': lambda data, ids, *a: ids.shape[0]}
+    with contextlib.ExitStack() as stack:
+        recs = {n: stack.enter_context(ArgRecorder(
+            asm, n, dataFirst=n != 'far_field', size=sizes.get(n)))
+            for n in ('panel_scatter_slots', 'panel_scatter_tree',
+                      'near_enum_quad', 'block_near_quad', 'far_field')}
+        h2f_operator(h2f_dm('disc', H2F_NOREF), np.float32)
+    torch.cuda.synchronize()
+    log('  the float32 instances against their plain versions (1e-5 of the '
+        'largest entry), and the same calls in float64')
+    F32W = dict(entryBytes=8, peak=F32_PEAK)
+    cmp = {}
+    for name, n, work, keep in (
+            ('panel_scatter:float32_slots', 'panel_scatter_slots',
+             panel_work, ()),
+            ('panel_scatter:float32_tree', 'panel_scatter_tree', panel_work,
+             ()),
+            ('near_enum_quad:float32', 'near_enum_quad', enum_quad_work, ()),
+            ('block_near_quad:float32', 'block_near_quad', block_quad_work,
+             (4, 5))):
+        calls = recs[n].calls
+        if not calls:
+            raise AssertionError(f'{n}: the disc build made no call of it')
+        kernel, plain = getattr(asm, n), getattr(asm, '_' + n + '_plain')
+        cmp[name] = compare_target_kernel(
+            name, calls, kernel, plain, functools.partial(work, **F32W),
+            dtype=torch.float32, tol=TOL_F32)
+        cmp[name]['float64_ms'] = float64_ms(calls, kernel, keep)
+        log(f'    the same calls in float64: {cmp[name]["float64_ms"]:.3f} '
+            'ms')
+    kcalls = recs['far_field'].calls
+    if not kcalls:
+        raise AssertionError('far_field: the disc build made no call of it')
+    cmp['far_field:float32'] = compare_far_field(
+        kcalls, 'far_field (float32)', tol=TOL_F32)
+    k64 = [(as_float64(a), kw) for a, kw in kcalls]
+    asm.far_field(*k64[0][0], **k64[0][1])
+    cmp['far_field:float32']['float64_ms'] = sum(
+        timed(lambda: asm.far_field(*a, **kw)) for a, kw in k64)
+    log('    the same calls in float64: '
+        f"{cmp['far_field:float32']['float64_ms']:.3f} ms")
+    cmp['h2_matvec:float32'] = compare_h2_matvec_f32(H32, H64, x2)
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 24 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def compare_h2_matvec_f32(H32, H64, x, reps=10):
+    """K8's float32 instance: ``reps`` applies of the float32 operator
+    against its plain version (1e-5 of max|y|), device time queued behind
+    a spin of the card (an apply is some twenty short launches), in turns
+    float32, float64 (the float64 instance on the float64 operator of the
+    same disc), float64, float32, the second run of each kept; CUDA events
+    around the applies on an idle card beside."""
+    import torch
+    from pynucleus_tpu_torch.nl import h2
+    x32, x64 = x.float().contiguous(), x.double().contiguous()
+    yk, y64 = torch.empty_like(x32), torch.empty_like(x64)
+    h2.h2_matvec(H32, x32, out=yk)
+    yp = h2._h2_matvec_plain(H32, x32)
+    err = float((yk - yp).abs().max())
+    scale = float(yp.abs().max())
+    if not (scale > 0 and err <= TOL_F32 * scale):
+        raise AssertionError(f'h2_matvec (float32): max err {err} (max '
+                             f'{scale})')
+    h2.h2_matvec(H64, x64, out=y64)
+    runs = {'float32': lambda: [h2.h2_matvec(H32, x32, out=yk)
+                                for _ in range(reps)],
+            'float64': lambda: [h2.h2_matvec(H64, x64, out=y64)
+                                for _ in range(reps)],
+            'plain': lambda: [h2._h2_matvec_plain(H32, x32)
+                              for _ in range(reps)]}
+    dev = {}
+    for label in ('float32', 'float64', 'plain', 'plain', 'float64',
+                  'float32'):
+        dev[label] = queued_ms(runs[label]) / reps
+    eventMs = timed(runs['float32']) / reps
+    log(f'  h2_matvec (float32, n {H32.num_rows}): max abs err {err:.3e} '
+        f'(rel {err / scale:.3e}); device ms per apply (queued): kernel '
+        f"{dev['float32']:.4f} (float64 {dev['float64']:.4f}), plain "
+        f"{dev['plain']:.4f}; CUDA events around the applies "
+        f'{eventMs:.4f} ms')
+    out = result(err, dev['float32'], dev['plain'], [h2_matvec_work(H32)])
+    out.update(float64_ms=dev['float64'], event_ms=eventMs)
+    return out
+
+
+def FLOAT32_H2_24_PATHS(counts24):
+    """The main paths of phase 24: (kernels, label, launch counts)."""
+    return tuple((h2f_path(key.split('_')[-1],
+                           'disc' if key.startswith('h2_2d') else 'interval'),
+                  key, c) for key, c in counts24.items())
+
+
 def main():
     try:
         import torch
@@ -7964,6 +8411,7 @@ def main():
     counts21, cmp21, summary21 = phase21()
     counts22, cmp22, full22, summary22 = phase22()
     counts23, cmp23, summary23 = phase23()
+    counts24, cmp24, summary24 = phase24()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -8237,7 +8685,30 @@ def main():
                     'bound_by': bound(v['work'])[1]}
                 for k, v in c['one_chunk_entry'].items()}}
                if 'one_chunk_entry' in c else {})})
-    log(f'phases 1-23 took {time.perf_counter() - T_START:.1f} s')
+    # the float32 instances of phase 24: K1's slot and tree targets, K6,
+    # K12, K7 and K8 on the float32 H2 path; the CUDA launches counted where
+    # they launched
+    for name in FLOAT32_H2_COMPARED_AT:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        c = cmp24[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in FLOAT32_H2_24_PATHS(counts24) if counts[name]}
+        table.append({
+            'name': name, 'route': route,
+            'source': F32_SOURCES.get(base, src),
+            'replaces': FLOAT32_H2_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in FLOAT32_H2_24_PATHS(counts24)),
+            'compared_at': FLOAT32_H2_COMPARED_AT[name],
+            'float64_ms': c['float64_ms'],
+            **({'event_ms': c['event_ms']} if 'event_ms' in c else {})})
+    log(f'phases 1-24 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -8248,6 +8719,7 @@ def main():
     log(f'phase 21 summary: {json.dumps(summary21)}')
     log(f'phase 22 summary: {json.dumps(summary22)}')
     log(f'phase 23 summary: {json.dumps(summary23)}')
+    log(f'phase 24 summary: {json.dumps(summary24)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

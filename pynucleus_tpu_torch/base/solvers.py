@@ -518,8 +518,8 @@ class krylov_solver(iterative_solver):
 
 class cg_solver(krylov_solver):
     """(Preconditioned) CG in b's type: float64, or float32 on the float32
-    dense path (the operator, the preconditioner's diagonal and every
-    vector float32; the tolerance compared in float32, as _cg_core
+    dense and H2 paths (the operator, the preconditioner's diagonal and
+    every vector float32; the tolerance compared in float32, as _cg_core
     compares a float32 residual with it)."""
 
     def __init__(self, A=None):

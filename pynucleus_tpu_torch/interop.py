@@ -22,8 +22,8 @@ builds the port's dense vector operator from the data of one, such as a
 JAX package Dense_VectorLinearOperator, so that its apply can be checked on
 its own; ``builderFromArrays`` gives the port's nonlocalBuilder on the mesh
 and kernel of ``fromArrays`` in a value type (float64, or float32 for the
-float32 dense path), so that both packages build the same operator in the
-same dtype.  Like every entry point of the port they build on the card
+float32 dense and H2 paths), so that both packages build the same
+operator in the same dtype (``h2FromArrays`` takes the dtype too).  Like every entry point of the port they build on the card
 unless the caller asks for the CPU.
 """
 from __future__ import annotations
@@ -31,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .config import getDevice
+from .config import getDevice, realType
 
 from .fem.meshes import simplexMesh, PHYSICAL
 from .fem.dofmaps import P1_DoFMap, fe_vector
@@ -196,7 +196,8 @@ def builderFromArrays(vertices, cells, s, dim, dtype=None, params=None,
     """The port's nonlocalBuilder of the dofmap and kernel of
     ``fromArrays(vertices, cells, s, dim, device=device, **kw)`` with
     ``params`` and the value type ``dtype`` as ``params['dtype']``
-    (np.float32, 'float32' or torch.float32 for the float32 dense path;
+    (np.float32, 'float32' or torch.float32 for the float32 dense and H2
+    paths;
     None keeps float64), as a JAX package builder takes
     ``params={'dtype': dtype}``."""
     from .nl.assembly import nonlocalBuilder
@@ -210,7 +211,7 @@ def builderFromArrays(vertices, cells, s, dim, dtype=None, params=None,
 
 def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
                  perm, N, leafDofs, leafPhi, leafLvl, leafPos, levels,
-                 device='cuda', symmetric=True):
+                 device='cuda', symmetric=True, dtype=None):
     """The port's H2Matrix from numpy arrays.
 
     Near field: the tree-ordered data [nnz] and its structure (the fields
@@ -221,10 +222,14 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
     'parentIdx' [size], 'K' [p, M, M] (with the -2 factor), 'src' and
     'dst' [p], as the JAX package's H2Matrix.levels hold them.
     ``symmetric`` as the JAX operator's flag: a nonsymmetric operator's
-    ``.T`` applies the transpose (K20)."""
+    ``.T`` applies the transpose (K20).  ``dtype`` the operator's value
+    type (None or float64; np.float32, 'float32' or torch.float32 for a
+    float32 operator, as a JAX package getH2 with params={'dtype':
+    float32} makes it): every value array is cast to it."""
     dev = getDevice(device)
+    real = realType(dtype)
     dataT = np.array(dataT, dtype=np.float64)
-    dataZ = torch.zeros(len(dataT) + 1, dtype=torch.float64, device=dev)
+    dataZ = torch.zeros(len(dataT) + 1, dtype=real, device=dev)
     dataZ[:-1] = torch.as_tensor(dataT, device=dev)
     near = TreeNearOperator(dataZ, TreeNearMeta(
         indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen, perm, N))
@@ -244,10 +249,10 @@ def h2FromArrays(dataT, indptrT, tmplAll, tmplStart, tStartRow, tLen, rowLen,
         lv.append(entry)
     M = np.asarray(leafPhi).shape[2]
     Kall = torch.as_tensor(np.concatenate(Ks) if Ks else
-                           np.zeros((0, M, M)), device=dev)
+                           np.zeros((0, M, M)), device=dev, dtype=real)
     return H2Matrix(near, torch.as_tensor(np.asarray(leafPhi,
                                                      dtype=np.float64),
-                                          device=dev),
+                                          device=dev, dtype=real),
                     (leafLvl, leafPos), lv, Kall, N, leafDofs,
                     symmetric=symmetric)
 

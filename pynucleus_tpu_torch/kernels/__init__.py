@@ -116,7 +116,10 @@ an order takes the whole of it, nl/kernels.py orderArgs); the float32
 dense path (a builder's ``params={'dtype': float32}``) has float32
 instances of K1's dense target, K2 and K3 with the power profile alone
 (common.cuh radial<PC, float>: powf, the constants rounded to float32 on
-the host) and runs K4's Triton kernels on float32 vectors;
+the host) and runs K4's Triton kernels on float32 vectors; the float32 H2
+path (getH2 with that dtype) has float32 instances of K1's slot and tree
+targets (panel_scatter_f32.cu), K6 (near_enum.cu), K7 (far_field.cu), K8
+(h2_matvec.cu) and K12 (near_block.cu), the power profile alone;
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
@@ -176,7 +179,11 @@ their sources, K4's Triton kernels on float32 vectors) under
 natural-order buckets (the cell ids gathered on the device, nl/assembly.py
 panel_scatter_natural) also under ``panel_scatter:float32_natural`` and
 those with normals (the 2D zero-exterior rows) under
-``panel_scatter:float32_rows``; one launch may count under several.
+``panel_scatter:float32_rows``; the float32 instances of the H2 path
+under ``panel_scatter:float32_slots`` and ``:float32_tree`` (K1's CSR
+targets, also under ``panel_scatter:float32``), ``near_enum_quad:float32``,
+``far_field:float32``, ``h2_matvec:float32`` (its CUDA launches as K8's)
+and ``block_near_quad:float32``; one launch may count under several.
 ``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
 those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -200,6 +207,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'near_enum', 'near_enum_quad', 'far_field', 'h2_matvec',
@@ -251,12 +259,17 @@ ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
                          'smoothed_left_right', 'linear_left_right',
                          'smoothed_inner_outer', 'fe')) + (
     'panel_scatter:manifold', 'grid_distant:manifold')
-# the float32 instances of the dense path: K1 (every float32 launch, and of
+# the float32 instances: of the dense path K1 (every float32 launch, and of
 # those the natural-order buckets gathered on the device and the rows with
-# normals of the 2D zero-exterior term), K2, K3 and K4
+# normals of the 2D zero-exterior term), K2, K3 and K4; of the H2 path K1's
+# slot and tree targets (also counted under panel_scatter:float32), K6,
+# K7, K8 and K12
 FLOAT32 = ('panel_scatter:float32', 'panel_scatter:float32_natural',
            'panel_scatter:float32_rows', 'grid_distant:float32',
-           'grid_boundary:float32', 'pcg_update:float32')
+           'grid_boundary:float32', 'pcg_update:float32',
+           'panel_scatter:float32_slots', 'panel_scatter:float32_tree',
+           'near_enum_quad:float32', 'far_field:float32',
+           'h2_matvec:float32', 'block_near_quad:float32')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
             + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT
             + ORDERS + FLOAT32}
@@ -266,16 +279,15 @@ deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
-SOURCES = ('panel_scatter.cu', 'panel_scatter_csr.cu',
-           'panel_scatter_cross.cu', 'panel_scatter_order.cu',
-           'panel_scatter_f32.cu',
-           'grid_distant.cu', 'grid_boundary.cu',
-           'near_enum.cu', 'far_field.cu', 'h2_matvec.cu', 'csr_spmv.cu',
-           'near_block.cu', 'cut_cells.cu', 'csr_scatter.cu',
-           'panel_scatter_nonsym.cu', 'panel_scatter_nonsym_order.cu',
-           'panel_scatter_vec.cu',
-           'vector_matvec.cu', 'interp_matvec.cu', 'matfree_apply.cu',
-           'cheb_smooth.cu', 'sss_spmv.cu')
+# the heaviest compiles first (buildLibrary starts them in this order)
+SOURCES = ('panel_scatter_csr.cu', 'panel_scatter_nonsym.cu',
+           'panel_scatter.cu', 'grid_distant.cu', 'near_enum.cu',
+           'panel_scatter_cross.cu', 'panel_scatter_nonsym_order.cu',
+           'cut_cells.cu', 'panel_scatter_order.cu', 'near_block.cu',
+           'grid_boundary.cu', 'panel_scatter_f32.cu', 'far_field.cu',
+           'panel_scatter_vec.cu', 'h2_matvec.cu', 'vector_matvec.cu',
+           'cheb_smooth.cu', 'matfree_apply.cu', 'csr_scatter.cu',
+           'interp_matvec.cu', 'sss_spmv.cu', 'csr_spmv.cu')
 HEADERS = ('common.cuh', 'panel_scatter.cuh', 'panel_scatter_nonsym.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
@@ -309,10 +321,10 @@ def _nvcc():
 
 def buildLibrary(verbose=False):
     """Compile the CUDA sources (once per source content) and return the
-    path of the shared library.  One nvcc per source, all started
-    together, then one link: on the H100 machine (8 cores) the cold build
-    of seven sources took 9.2 s, where one nvcc over the first three
-    alone had taken 15.0 s."""
+    path of the shared library.  One nvcc per source, as many at a time as
+    the host has cores, the heaviest first (SOURCES' order: the longest
+    compile starts at once and holds a core of its own, the short ones fill
+    the other cores), then one link."""
     h = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
     h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for name in SOURCES + HEADERS:
@@ -325,13 +337,16 @@ def buildLibrary(verbose=False):
     extra = ['-Xptxas=-v'] if verbose else []
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [os.path.join(tmp, s.replace('.cu', '.o')) for s in SOURCES]
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS,
-                                   *SOURCE_FLAGS.get(s, ()), *extra, '-c',
-                                   os.path.join(CSRC, s), '-o', o],
-                                  stdout=subprocess.PIPE,
+
+        def compileOne(source, obj):
+            return subprocess.run([_nvcc(), *NVCC_FLAGS,
+                                   *SOURCE_FLAGS.get(source, ()), *extra,
+                                   '-c', os.path.join(CSRC, source), '-o',
+                                   obj], stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True)
-                 for s, o in zip(SOURCES, objs)]
-        logs = [p.communicate()[0] for p in procs]
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            procs = list(pool.map(compileOne, SOURCES, objs))
+        logs = [p.stdout for p in procs]
         failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
         if not failed:
             link = subprocess.run([_nvcc(), '-shared', '-gencode',
@@ -396,6 +411,27 @@ def _declare(lib):
         # entry mask), K2 and K3 (as grid_distant and grid_boundary)
         'panel_scatter_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                               P, P, P, P, I, *PROF32, P],
+        # the float32 instances of the float32 H2 path, each with PROF32 in
+        # place of its profile (and no indicator, order or y shift): K1's
+        # slot and tree targets (as panel_scatter_slots and
+        # panel_scatter_tree), K6, K7, K8 (as h2_matvec) and K12
+        'panel_scatter_slots_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                    P, P, P, P, I, *PROF32, P],
+        'panel_scatter_tree_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                   P, P, P, P, P, P, P, P, P, P, P, P, I,
+                                   *PROF32, P],
+        'near_enum_quad_f32': [P, L, P, I, P, P, P, P, P, P, P, P, P, P, P,
+                               I, P, I, P, P, I, P, P, P, P, P, P, P, P, I,
+                               *PROF32, P],
+        'far_field_f32': [P, P, P, L, I, I, *PROF32, P],
+        'h2_matvec_f32': [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P,
+                          P, P, P, P, P, P, P, I, P, P, P, L,
+                          ctypes.POINTER(ctypes.c_int), P],
+        'block_near_quad_f32': [P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                                P, I, P, P, I, P, I, P, I, I, P, F, F, F, P,
+                                I, P, P, P, P, ctypes.POINTER(ctypes.c_int),
+                                ctypes.POINTER(ctypes.c_longlong), *PROF32,
+                                P],
         'grid_distant_f32': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
                              F, F, *PROF32, P, P],
         'grid_boundary_f32': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,

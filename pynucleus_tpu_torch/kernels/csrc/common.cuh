@@ -1,6 +1,6 @@
 // Shared device helpers of the port's CUDA kernels (sm_90a, float64; the
-// node geometry, the power profile and the quadrature body of K1 also in
-// float32, for the float32 dense path).
+// node geometry, the power profile, the quadrature body of K1 and the tree
+// scatter also in float32, for the float32 dense and H2 paths).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -834,13 +834,14 @@ __device__ __forceinline__ long long treeSlot(const TreeTables& tt,
 
 // Adds the warp-reduced entries acc[k] (k = i*NPSI+j, every lane holding
 // the full sum) at the tree slots of (dr[i], dr[j]); lane k % 32 adds
-// entry k.  Slots outside [0, nnz) are skipped.
-template <int NPSI>
-__device__ __forceinline__ void treeScatter(double* __restrict__ data,
+// entry k.  Slots outside [0, nnz) are skipped.  T is the data's type
+// (float64, or float32 on the float32 H2 path).
+template <int NPSI, typename T>
+__device__ __forceinline__ void treeScatter(T* __restrict__ data,
                                             long long nnz, const TreeTables& tt,
                                             const long long dr[NPSI], int I,
                                             int J, int offF, int offB,
-                                            const double acc[NPSI * NPSI],
+                                            const NoDeduce<T>* acc,
                                             int lane) {
 #pragma unroll
     for (int k = 0; k < NPSI * NPSI; ++k) {

@@ -23,6 +23,10 @@
 // Bound on the card: the near data, read once per apply (8 B per stored
 // entry, a few hundred MB at 73k dofs), and the far blocks K; the per-level
 // passes are small and latency-bound (launch overhead dominates them).
+// The passes are templates on the value type: K8's float32 instance
+// (h2_matvec_f32) runs them on the float32 H2 path's operator, x and work
+// buffers (4 B per stored entry read), the sums in float32, as
+// _h2_matvec on float32 arrays.  K20 is float64 alone.
 //
 // K20 h2_matvec_T: y = A^T x for a nonsymmetric H2 operator (a variable
 // fractional order), in the same layout and on the same arrays.  Replaces
@@ -41,22 +45,23 @@
 
 #include "common.cuh"
 
-__global__ void gather_kernel(double* __restrict__ xt,
-                              const double* __restrict__ x,
+template <typename T>
+__global__ void gather_kernel(T* __restrict__ xt, const T* __restrict__ x,
                               const int* __restrict__ perm, int Nt,
-                              double* __restrict__ coef,
-                              double* __restrict__ far, long long nCoef) {
+                              T* __restrict__ coef, T* __restrict__ far,
+                              long long nCoef) {
     const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (t < Nt) xt[t] = x[perm[t]];
     if (t < nCoef) {
-        coef[t] = 0.0;
-        far[t] = 0.0;
+        coef[t] = T(0);
+        far[t] = T(0);
     }
 }
 
-__global__ void moments_kernel(double* __restrict__ coef,
-                               const double* __restrict__ xt,
-                               const double* __restrict__ leafPhi,
+template <typename T>
+__global__ void moments_kernel(T* __restrict__ coef,
+                               const T* __restrict__ xt,
+                               const T* __restrict__ leafPhi,
                                const int* __restrict__ leafNode,
                                const int* __restrict__ tStartRow,
                                const int* __restrict__ tLen, int L, int nbar,
@@ -65,30 +70,30 @@ __global__ void moments_kernel(double* __restrict__ coef,
     if (idx >= (long long)L * M) return;
     const int l = static_cast<int>(idx / M), m = static_cast<int>(idx % M);
     const int t0 = tStartRow[l], n = tLen[l];
-    const double* ph = leafPhi + (long long)l * nbar * M + m;
-    double s = 0.0;
+    const T* ph = leafPhi + (long long)l * nbar * M + m;
+    T s = T(0);
     for (int i = 0; i < n; ++i) s += ph[(long long)i * M] * xt[t0 + i];
     coef[(long long)leafNode[l] * M + m] = s;
 }
 
-__global__ void up_kernel(double* __restrict__ coef,
-                          const double* __restrict__ T,
+template <typename S>
+__global__ void up_kernel(S* __restrict__ coef, const S* __restrict__ T,
                           const int* __restrict__ parent, long long n0,
                           int cnt, int M) {
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)cnt * M) return;
     const long long n = n0 + idx / M;
     const int i = static_cast<int>(idx % M);
-    const double* Tr = T + (n * M + i) * M;
-    const double* c = coef + n * M;
-    double v = 0.0;
+    const S* Tr = T + (n * M + i) * M;
+    const S* c = coef + n * M;
+    S v = S(0);
     for (int j = 0; j < M; ++j) v += Tr[j] * c[j];
     atomicAdd(coef + (long long)parent[n] * M + i, v);
 }
 
-__global__ void far_kernel(double* __restrict__ far,
-                           const double* __restrict__ coef,
-                           const double* __restrict__ K,
+template <typename T>
+__global__ void far_kernel(T* __restrict__ far, const T* __restrict__ coef,
+                           const T* __restrict__ K,
                            const int* __restrict__ src,
                            const int* __restrict__ dst, long long nFar,
                            int M) {
@@ -96,32 +101,33 @@ __global__ void far_kernel(double* __restrict__ far,
     if (idx >= nFar * M) return;
     const long long p = idx / M;
     const int i = static_cast<int>(idx % M);
-    const double* Kr = K + (p * M + i) * M;
-    const double* c = coef + (long long)src[p] * M;
-    double v = 0.0;
+    const T* Kr = K + (p * M + i) * M;
+    const T* c = coef + (long long)src[p] * M;
+    T v = T(0);
     for (int j = 0; j < M; ++j) v += Kr[j] * c[j];
     atomicAdd(far + (long long)dst[p] * M + i, v);
 }
 
-__global__ void down_kernel(double* __restrict__ far,
-                            const double* __restrict__ T,
+template <typename S>
+__global__ void down_kernel(S* __restrict__ far, const S* __restrict__ T,
                             const int* __restrict__ parent, long long n0,
                             int cnt, int M) {
     const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (idx >= (long long)cnt * M) return;
     const long long n = n0 + idx / M;
     const int i = static_cast<int>(idx % M);
-    const double* Tn = T + n * M * M + i;
-    const double* o = far + (long long)parent[n] * M;
-    double v = 0.0;
+    const S* Tn = T + n * M * M + i;
+    const S* o = far + (long long)parent[n] * M;
+    S v = S(0);
     for (int j = 0; j < M; ++j) v += Tn[(long long)j * M] * o[j];
     far[n * M + i] += v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-near_leaf_kernel(double* __restrict__ y, const double* __restrict__ xt,
-                 const double* __restrict__ far,
-                 const double* __restrict__ data,
+near_leaf_kernel(T* __restrict__ y, const T* __restrict__ xt,
+                 const T* __restrict__ far,
+                 const T* __restrict__ data,
                  const int* __restrict__ perm,
                  const int* __restrict__ rowNode,
                  const int* __restrict__ indptrT,
@@ -129,7 +135,7 @@ near_leaf_kernel(double* __restrict__ y, const double* __restrict__ xt,
                  const int* __restrict__ rowLen,
                  const int* __restrict__ tmplStart,
                  const int* __restrict__ tmplAll,
-                 const double* __restrict__ leafPhi,
+                 const T* __restrict__ leafPhi,
                  const int* __restrict__ leafNode, int Nt, int nbar, int M) {
     const int lane = threadIdx.x & 31;
     const long long t = (long long)blockIdx.x * (blockDim.x >> 5)
@@ -140,10 +146,10 @@ near_leaf_kernel(double* __restrict__ y, const double* __restrict__ xt,
     const long long start = indptrT[t];
     const int Lr = rowLen[r];
     const int* tm = tmplAll + tmplStart[r];
-    double s = 0.0;
+    T s = T(0);
     for (int c = lane; c < Lr; c += 32) s += data[start + c] * xt[tm[c]];
-    const double* ph = leafPhi + ((long long)r * nbar + i) * M;
-    const double* o = far + (long long)leafNode[r] * M;
+    const T* ph = leafPhi + ((long long)r * nbar + i) * M;
+    const T* o = far + (long long)leafNode[r] * M;
     for (int m = lane; m < M; m += 32) s += ph[m] * o[m];
     s = warpSum(s);
     if (lane == 0) y[perm[t]] = s;
@@ -213,16 +219,18 @@ static inline unsigned gridFor(long long work, int threads) {
     return static_cast<unsigned>((work + threads - 1) / threads);
 }
 
-EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
-                     double* far, int Nt, int L, int nbar, int M,
-                     const int* perm, const int* rowNode, const int* indptrT,
-                     const int* tStartRow, const int* tLen, const int* rowLen,
-                     const int* tmplStart, const int* tmplAll,
-                     const double* data, const double* leafPhi,
-                     const int* leafNode, const double* T, const int* parent,
-                     const long long* levelOff, int nLvl, const double* K,
-                     const int* src, const int* dst, long long nFar,
-                     int* launched, cudaStream_t stream) {
+// K8's passes in the operator's type T (float64, or float32 on the float32
+// H2 path).
+template <typename T>
+static int h2Apply(T* y, const T* x, T* xt, T* coef, T* far, int Nt, int L,
+                   int nbar, int M, const int* perm, const int* rowNode,
+                   const int* indptrT, const int* tStartRow, const int* tLen,
+                   const int* rowLen, const int* tmplStart,
+                   const int* tmplAll, const T* data, const T* leafPhi,
+                   const int* leafNode, const T* T_, const int* parent,
+                   const long long* levelOff, int nLvl, const T* K,
+                   const int* src, const int* dst, long long nFar,
+                   int* launched, cudaStream_t stream) {
     const int th = 256;
     int err;
     *launched = 0;
@@ -242,7 +250,7 @@ EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
         const int cnt = static_cast<int>(levelOff[ell + 1] - n0);
         if (cnt == 0) continue;
         up_kernel<<<gridFor((long long)cnt * M, th), th, 0, stream>>>(
-            coef, T, parent, n0, cnt, M);
+            coef, T_, parent, n0, cnt, M);
         CHECK();
     }
     if (nFar > 0) {
@@ -255,7 +263,7 @@ EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
         const int cnt = static_cast<int>(levelOff[ell + 1] - n0);
         if (cnt == 0) continue;
         down_kernel<<<gridFor((long long)cnt * M, th), th, 0, stream>>>(
-            far, T, parent, n0, cnt, M);
+            far, T_, parent, n0, cnt, M);
         CHECK();
     }
     near_leaf_kernel<<<gridFor((long long)Nt * 32, th), th, 0, stream>>>(
@@ -264,6 +272,42 @@ EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
     CHECK();
 #undef CHECK
     return 0;
+}
+
+EXPORT int h2_matvec(double* y, const double* x, double* xt, double* coef,
+                     double* far, int Nt, int L, int nbar, int M,
+                     const int* perm, const int* rowNode, const int* indptrT,
+                     const int* tStartRow, const int* tLen, const int* rowLen,
+                     const int* tmplStart, const int* tmplAll,
+                     const double* data, const double* leafPhi,
+                     const int* leafNode, const double* T, const int* parent,
+                     const long long* levelOff, int nLvl, const double* K,
+                     const int* src, const int* dst, long long nFar,
+                     int* launched, cudaStream_t stream) {
+    return h2Apply(y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode,
+                   indptrT, tStartRow, tLen, rowLen, tmplStart, tmplAll, data,
+                   leafPhi, leafNode, T, parent, levelOff, nLvl, K, src, dst,
+                   nFar, launched, stream);
+}
+
+// K8's float32 instance: every value array float32 (the operator of the
+// float32 H2 path, x, y and the work buffers), the sums in float32.
+EXPORT int h2_matvec_f32(float* y, const float* x, float* xt, float* coef,
+                         float* far, int Nt, int L, int nbar, int M,
+                         const int* perm, const int* rowNode,
+                         const int* indptrT, const int* tStartRow,
+                         const int* tLen, const int* rowLen,
+                         const int* tmplStart, const int* tmplAll,
+                         const float* data, const float* leafPhi,
+                         const int* leafNode, const float* T,
+                         const int* parent, const long long* levelOff,
+                         int nLvl, const float* K, const int* src,
+                         const int* dst, long long nFar, int* launched,
+                         cudaStream_t stream) {
+    return h2Apply(y, x, xt, coef, far, Nt, L, nbar, M, perm, rowNode,
+                   indptrT, tStartRow, tLen, rowLen, tmplStart, tmplAll, data,
+                   leafPhi, leafNode, T, parent, levelOff, nLvl, K, src, dst,
+                   nFar, launched, stream);
 }
 
 EXPORT int h2_matvec_T(double* y, const double* x, double* xt, double* coef,

@@ -22,7 +22,9 @@
 // that order's distant rule with volsym 2 vol(a) vol(b), the same compact
 // product rule that _block_near_quad tensorises; then the entries whose row
 // dof lies in I and column dof in J go into the pair's [tLen(I), tLen(J)]
-// float64 block in shared memory (shared-memory atomics).  At the end the
+// block in shared memory (shared-memory atomics), float64, or float32 in the
+// float32 instance (block_near_quad_f32: the power profile, every value a
+// float, _block_near_quad on the float32 H2 path's data).  At the end the
 // CTA adds the block to the tree-ordered CSR data at baseF + i LI + j and,
 // for I != J, its transpose at baseB + j LJ + i (for I == J the block holds
 // the whole symmetric local matrix).  Each unordered pair is one CTA, so
@@ -97,29 +99,33 @@ EXPORT int block_near_count(int* counts, int nP, const int* offI,
 }
 
 // The rules of orders 2, 4, 6 and 8 (class k = order / 2 - 1) in one
-// float64 table: class k's bary_x [nv, Q], bary_y [nv, Q], w [Q] and PSIP
-// [Q, (2 dpe)^2] lie one after the other from rules + off[k]; Q[k] == 0
-// where the order is not to run.
+// table of the data's type: class k's bary_x [nv, Q], bary_y [nv, Q], w
+// [Q] and PSIP [Q, (2 dpe)^2] lie one after the other from rules + off[k];
+// Q[k] == 0 where the order is not to run.
 struct RuleSet {
     int Q[4];
     long long off[4];
 };
 
-template <int NPSI, int PC>
+// T is the data's type: float64, or float32 for the float32 instance
+// (the block in shared memory, the rules, vertices, volumes and the
+// quadrature body in float32, as _block_near_quad on float32 data).
+template <int NPSI, int PC, typename T>
 __global__ void __launch_bounds__(256)
-block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
-                       EnumTables et, const double* __restrict__ vertices,
-                       int dim, const double* __restrict__ vols,
+block_near_quad_kernel(T* __restrict__ data, BlockPairs bp,
+                       EnumTables et, const T* __restrict__ vertices,
+                       int dim, const T* __restrict__ vols,
                        const long long* __restrict__ dofs,
                        const int* __restrict__ treePos,
-                       const double* __restrict__ rules, RuleSet rs,
+                       const T* __restrict__ rules, RuleSet rs,
                        Profile pf) {
     constexpr int DPE = NPSI / 2;
     constexpr int NN = NPSI * NPSI;
-    extern __shared__ double blk[];
+    extern __shared__ __align__(16) unsigned char blkBytes[];
+    T* blk = reinterpret_cast<T*>(blkBytes);
     const int p = blockIdx.x;
     const int nI = bp.nI[p], nJ = bp.nJ[p];
-    for (int k = threadIdx.x; k < nI * nJ; k += blockDim.x) blk[k] = 0.0;
+    for (int k = threadIdx.x; k < nI * nJ; k += blockDim.x) blk[k] = T(0);
     __syncthreads();
     const int offI = bp.offI[p], offJ = bp.offJ[p], I = bp.I[p], J = bp.J[p];
     const int tSI = bp.tSI[p], tSJ = bp.tSJ[p];
@@ -137,16 +143,16 @@ block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
         if (o > 8) continue;
         const int Q = rs.Q[o / 2 - 1];
         if (Q == 0) continue;
-        const double* bx = rules + rs.off[o / 2 - 1];
-        const double* by = bx + nv * Q;
-        const double* w = by + nv * Q;
-        const double* PSIP = w + Q;
-        double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
+        const T* bx = rules + rs.off[o / 2 - 1];
+        const T* by = bx + nv * Q;
+        const T* w = by + nv * Q;
+        const T* PSIP = w + Q;
+        T v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
         loadSimplex(v1, vertices, et.cells + a * nv, nv, dim);
         loadSimplex(v2, vertices, et.cells + b * nv, nv, dim);
-        double acc[NN];
+        T acc[NN];
         panelQuad<NN, PC>(acc, v1, nv, v2, nv, dim, nullptr,
-                          vols[a] * vols[b] * 2.0, bx, by, w, PSIP, Q, pf,
+                          vols[a] * vols[b] * T(2), bx, by, w, PSIP, Q, pf,
                           lane, 32);
 #pragma unroll
         for (int k = 0; k < NN; ++k) acc[k] = warpSum(acc[k]);
@@ -174,10 +180,51 @@ block_near_quad_kernel(double* __restrict__ data, BlockPairs bp,
     const int LI = bp.LI[p], LJ = bp.LJ[p];
     for (int k = threadIdx.x; k < nI * nJ; k += blockDim.x) {
         const int i = k / nJ, j = k % nJ;
-        const double v = blk[k];
+        const T v = blk[k];
         data[baseF + (long long)i * LI + j] += v;
         if (I != J) data[baseB + (long long)j * LJ + i] += v;
     }
+}
+
+// K12's launch of the profile PC: one CTA per pair, the largest block in
+// dynamic shared memory (above the 48 KiB default only after opting in;
+// 227 KiB on the H100).
+template <int PC, typename T>
+static int launchBlockQuad(T* data, int nP, const BlockPairs& bp,
+                           const EnumTables& et, int maxBlock,
+                           const T* vertices, int dim, const T* vols,
+                           const long long* dofs, const int* treePos,
+                           const T* rules, const RuleSet& rs,
+                           const Profile& pf, int dpe, cudaStream_t stream) {
+    const size_t shmem = (size_t)maxBlock * sizeof(T);
+#define LAUNCH(NP)                                                          \
+    {                                                                       \
+        if (shmem > 48 * 1024) {                                            \
+            const cudaError_t err = cudaFuncSetAttribute(                   \
+                block_near_quad_kernel<NP, PC, T>,                          \
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);   \
+            if (err != cudaSuccess) return static_cast<int>(err);           \
+        }                                                                   \
+        block_near_quad_kernel<NP, PC, T><<<nP, 256, shmem, stream>>>(      \
+            data, bp, et, vertices, dim, vols, dofs, treePos, rules, rs,    \
+            pf);                                                            \
+    }
+    switch (dpe) {
+        case 2: LAUNCH(4); break;
+        case 3: LAUNCH(6); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
+}
+
+static RuleSet ruleSet(const int* ruleQ, const long long* ruleOff) {
+    RuleSet rs;
+    for (int k = 0; k < 4; ++k) {
+        rs.Q[k] = ruleQ[k];
+        rs.off[k] = ruleOff[k];
+    }
+    return rs;
 }
 
 EXPORT int block_near_quad(double* data, int nP, const int* offI,
@@ -204,31 +251,45 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
                         LJ, nI, nJ};
     const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, dimC, C,
                         logh, s, c, lH0};
-    RuleSet rs;
-    for (int k = 0; k < 4; ++k) {
-        rs.Q[k] = ruleQ[k];
-        rs.off[k] = ruleOff[k];
-    }
-    // the largest block in shared memory; above the 48 KiB default only
-    // after opting in (227 KiB on the H100)
-    const size_t shmem = (size_t)maxBlock * sizeof(double);
-#define LAUNCH(NP)                                                          \
-    {                                                                       \
-        if (shmem > 48 * 1024) {                                            \
-            const cudaError_t err = cudaFuncSetAttribute(                   \
-                block_near_quad_kernel<NP, PC>,                             \
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);   \
-            if (err != cudaSuccess) return static_cast<int>(err);           \
-        }                                                                   \
-        block_near_quad_kernel<NP, PC><<<nP, 256, shmem, stream>>>(         \
-            data, bp, et, vertices, dim, vols, dofs, treePos, rules, rs,    \
-            PROFILE_OF(Cg));                              \
-    }
-    PROFILE_SWITCH(pcode, switch (dpe) {
-        case 2: LAUNCH(4); break;
-        case 3: LAUNCH(6); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    })
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
+    const RuleSet rs = ruleSet(ruleQ, ruleOff);
+    PROFILE_SWITCH(pcode, return launchBlockQuad<PC>(
+        data, nP, bp, et, maxBlock, vertices, dim, vols, dofs, treePos,
+        rules, rs, PROFILE_OF(Cg), dpe, stream))
+    return 0;
+}
+
+// K12's float32 instance (the float32 H2 path: _block_near_quad on
+// float32 data): data, vertices, vols and the rules float32, the power
+// profile's code, C, e (rounded to float32 on the host), no tempering and
+// no two-point weight; any other profile returns cudaErrorInvalidValue.
+EXPORT int block_near_quad_f32(float* data, int nP, const int* offI,
+                               const int* offJ, const int* n1, const int* n2,
+                               const int* I, const int* J, const int* tSI,
+                               const int* tSJ, const int* baseF,
+                               const int* baseB, const int* LI,
+                               const int* LJ, const int* nI, const int* nJ,
+                               int maxBlock, const int* ncArr,
+                               const int* cells, int nv, const int* cellNodes,
+                               int dpe, const float* centers, int dimC, int C,
+                               const float* logh, float s, float c, float lH0,
+                               const float* vertices, int dim,
+                               const float* vols, const long long* dofs,
+                               const int* treePos, const float* rules,
+                               const int* ruleQ, const long long* ruleOff,
+                               int pcode, double Cg, double e, double tl,
+                               int wcode, cudaStream_t stream) {
+    if (nP <= 0) return 0;
+    if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
+        || dim > MAXDIM || nv > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const BlockPairs bp{offI, offJ, n1, n2, I, J, tSI, tSJ, baseF, baseB, LI,
+                        LJ, nI, nJ};
+    const EnumTables et{ncArr, cells, nv, cellNodes, dpe, centers, dimC, C,
+                        logh, s, c, lH0};
+    return launchBlockQuad<PROFILE_POWER>(
+        data, nP, bp, et, maxBlock, vertices, dim, vols, dofs, treePos,
+        rules, ruleSet(ruleQ, ruleOff),
+        Profile{PROFILE_POWER, Cg, e, 0.0, 0.0, 0.0, 0.0, TWO_POINT_NONE,
+                0.0},
+        dpe, stream);
 }

@@ -16,7 +16,10 @@
 //
 // K6 replaces _enum_phase2 (the compaction of one order's element ids is
 // the caller's torch.nonzero).  One warp per compacted element: decode
-// (p, c1, c2) as K5 does, then the element body below.
+// (p, c1, c2) as K5 does, then the element body below.  Its float32
+// instance (near_enum_quad_f32, the power profile alone) runs the element
+// body in float32 into float32 data: _enum_phase2 on the float32 H2 path's
+// data.
 //
 // K13 replaces _bucket_tree_csr_scan, the quadrature of the host
 // enumeration engine: the same element body over a host-made element list
@@ -90,36 +93,38 @@ EXPORT int near_enum(signed char* keys, int* pT, int* hist, const int* cum,
     return static_cast<int>(cudaGetLastError());
 }
 
-// Mesh data and one rule of the quadrature elements (K6, K13).
+// Mesh data and one rule of the quadrature elements (K6, K13), in the
+// element body's type T (float64, or float32 for K6's float32 instance).
+template <typename T>
 struct QuadTables {
-    const double* vertices;
+    const T* vertices;
     int dim;
     const long long* cells;  // [C, nv]
     int nv;
-    const double* vols;      // [C]
+    const T* vols;           // [C]
     const long long* dofs;   // [C, dpe]
-    const double* bary_x;    // [nv, Q]
-    const double* bary_y;    // [nv, Q]
-    const double* w;         // [Q]
-    const double* PSIP;      // [Q, (2 dpe)^2]
+    const T* bary_x;         // [nv, Q]
+    const T* bary_y;         // [nv, Q]
+    const T* w;              // [Q]
+    const T* PSIP;           // [Q, (2 dpe)^2]
     int Q;
     Profile pf;
 };
 
 // The element body of K6 and K13, run by one warp.
-template <int NPSI, int PC>
-__device__ __forceinline__ void treeElement(double* __restrict__ data,
+template <int NPSI, int PC, typename T>
+__device__ __forceinline__ void treeElement(T* __restrict__ data,
                                             long long nnz, const TreeTables& tt,
-                                            const QuadTables& qt, long long c1,
-                                            long long c2, double sf, int I,
-                                            int J, int offF, int offB,
-                                            int lane) {
+                                            const QuadTables<T>& qt,
+                                            long long c1, long long c2,
+                                            NoDeduce<T> sf, int I, int J,
+                                            int offF, int offB, int lane) {
     constexpr int DPE = NPSI / 2;
     constexpr int NN = NPSI * NPSI;
-    double v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
+    T v1[MAXNV][MAXDIM], v2[MAXNV][MAXDIM];
     loadSimplex(v1, qt.vertices, qt.cells + c1 * qt.nv, qt.nv, qt.dim);
     loadSimplex(v2, qt.vertices, qt.cells + c2 * qt.nv, qt.nv, qt.dim);
-    double acc[NN];
+    T acc[NN];
     panelQuad<NN, PC>(acc, v1, qt.nv, v2, qt.nv, qt.dim, nullptr,
                       qt.vols[c1] * qt.vols[c2] * sf, qt.bary_x, qt.bary_y,
                       qt.w, qt.PSIP, qt.Q, qt.pf, lane, 32);
@@ -134,9 +139,9 @@ __device__ __forceinline__ void treeElement(double* __restrict__ data,
     treeScatter<NPSI>(data, nnz, tt, dr, I, J, offF, offB, acc, lane);
 }
 
-template <int NPSI, int PC>
+template <int NPSI, int PC, typename T>
 __global__ void __launch_bounds__(256)
-near_enum_quad_kernel(double* __restrict__ data, long long nnz,
+near_enum_quad_kernel(T* __restrict__ data, long long nnz,
                       const int* __restrict__ ids, int n,
                       const int* __restrict__ pT, const int* __restrict__ cum,
                       const int* __restrict__ offI,
@@ -145,7 +150,7 @@ near_enum_quad_kernel(double* __restrict__ data, long long nnz,
                       const int* __restrict__ JA,
                       const int* __restrict__ offF,
                       const int* __restrict__ offB,
-                      const int* __restrict__ ncArr, QuadTables qt,
+                      const int* __restrict__ ncArr, QuadTables<T> qt,
                       TreeTables tt) {
     const int lane = threadIdx.x & 31;
     const long long k = (long long)blockIdx.x * (blockDim.x >> 5)
@@ -157,8 +162,34 @@ near_enum_quad_kernel(double* __restrict__ data, long long nnz,
     const int n2p = n2[p];
     const long long c1 = ncArr[offI[p] + l / n2p];
     const long long c2 = ncArr[offJ[p] + l % n2p];
-    treeElement<NPSI, PC>(data, nnz, tt, qt, c1, c2, 2.0, IA[p], JA[p],
+    treeElement<NPSI, PC>(data, nnz, tt, qt, c1, c2, T(2), IA[p], JA[p],
                           offF[p], offB[p], lane);
+}
+
+// K6's launch of the profile PC on the element ids of one order.
+template <int PC, typename T>
+static int launchEnumQuad(T* data, long long nnz, const int* ids, int n,
+                          const int* pT, const int* cum, const int* offI,
+                          const int* offJ, const int* n2, const int* IA,
+                          const int* JA, const int* offF, const int* offB,
+                          const int* ncArr, const QuadTables<T>& qt,
+                          const TreeTables& tt, int dpe,
+                          cudaStream_t stream) {
+    const int threads = 256;
+    const long long blocks = ((long long)n + (threads / 32) - 1)
+                             / (threads / 32);
+#define LAUNCH(NP)                                                          \
+    near_enum_quad_kernel<NP, PC, T><<<(unsigned)blocks, threads, 0,        \
+                                       stream>>>(                           \
+        data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,     \
+        ncArr, qt, tt)
+    switch (dpe) {
+        case 2: LAUNCH(4); break;
+        case 3: LAUNCH(6); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
 }
 
 EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
@@ -179,22 +210,46 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 256;
-    const long long blocks = ((long long)n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
-    const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, PROFILE_OF(C)};
-#define LAUNCH(NP)                                                          \
-    near_enum_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
-        data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,     \
-        ncArr, qt, tt)
-    PROFILE_SWITCH(pcode, switch (dpe) {
-        case 2: LAUNCH(4); break;
-        case 3: LAUNCH(6); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    })
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
+    const QuadTables<double> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
+                                bary_y, w, PSIP, Q, PROFILE_OF(C)};
+    PROFILE_SWITCH(pcode, return launchEnumQuad<PC>(
+        data, nnz, ids, n, pT, cum, offI, offJ, n2, IA, JA, offF, offB,
+        ncArr, qt, tt, dpe, stream))
+    return 0;
+}
+
+// K6's float32 instance (the float32 H2 path: _enum_phase2 on float32
+// data): every array float32, the power profile's code, C, e (rounded to
+// float32 on the host), no tempering and no two-point weight; any other
+// profile returns cudaErrorInvalidValue.
+EXPORT int near_enum_quad_f32(float* data, long long nnz, const int* ids,
+                              int n, const int* pT, const int* cum,
+                              const int* offI, const int* offJ,
+                              const int* n2, const int* IA, const int* JA,
+                              const int* offF, const int* offB,
+                              const int* ncArr, const float* vertices,
+                              int dim, const long long* cells, int nv,
+                              const float* vols, const long long* dofs,
+                              int dpe, const int* dofNode,
+                              const int* treePos, const int* indptrT,
+                              const int* tStart, const float* bary_x,
+                              const float* bary_y, const float* w,
+                              const float* PSIP, int Q, int pcode, double C,
+                              double e, double tl, int wcode,
+                              cudaStream_t stream) {
+    if (n <= 0) return 0;
+    if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
+        || dim > MAXDIM || nv > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const TreeTables tt{dofNode, treePos, indptrT, tStart};
+    const QuadTables<float> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
+                               bary_y, w, PSIP, Q,
+                               Profile{PROFILE_POWER, C, e, 0.0, 0.0, 0.0,
+                                       0.0, TWO_POINT_NONE, 0.0}};
+    return launchEnumQuad<PROFILE_POWER>(data, nnz, ids, n, pT, cum, offI,
+                                         offJ, n2, IA, JA, offF, offB, ncArr,
+                                         qt, tt, dpe, stream);
 }
 
 template <int NPSI, int PC>
@@ -205,7 +260,7 @@ tree_csr_quad_kernel(double* __restrict__ data, long long nnz,
                      const int* __restrict__ offFA,
                      const int* __restrict__ offBA,
                      const double* __restrict__ sfA, long long n,
-                     QuadTables qt, TreeTables tt) {
+                     QuadTables<double> qt, TreeTables tt) {
     const int lane = threadIdx.x & 31;
     const long long k = (long long)blockIdx.x * (blockDim.x >> 5)
                         + (threadIdx.x >> 5);
@@ -234,8 +289,8 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
     const int threads = 256;
     const long long blocks = (n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
-    const QuadTables qt{vertices, dim, cells, nv, vols, dofs, bary_x, bary_y,
-                        w, PSIP, Q, PROFILE_OF(C)};
+    const QuadTables<double> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
+                                bary_y, w, PSIP, Q, PROFILE_OF(C)};
 #define LAUNCH(NP)                                                          \
     tree_csr_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
         data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt)

@@ -69,11 +69,13 @@
 // getDense and getDiagonal), triangles only (nPSI 3 or 6).  No normals and
 // no variable order: a complex kernel has no zero-exterior term.
 //
-// The float32 instances (T = float; panel_scatter_f32.cu) are the DENSE
-// target's with the power profile and no order, indicator or shift: the
-// float32 dense path (its explicit pairs, its natural-order buckets and the
-// zero-exterior rows with normals in 2D), every value a float, the nodes
-// summed with __fmaf_rn, each entry added with atomicAdd(float).
+// The float32 instances (T = float; panel_scatter_f32.cu) are the DENSE,
+// SLOTS and TREE targets' with the power profile and no order, indicator or
+// shift: the float32 dense path (its explicit pairs, its natural-order
+// buckets and the zero-exterior rows with normals in 2D) and the float32 H2
+// path (the singular panels at explicit slots of the near data, the union
+// surfaces at tree slots, with normals in 2D), every value a float, the
+// nodes summed with __fmaf_rn, each entry added with atomicAdd(float).
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
@@ -112,8 +114,9 @@ panel_scatter_kernel(T* __restrict__ out,
     constexpr bool CPLX = PC == PROFILE_GREENS_2D;
     static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
                   "the complex profile scatters into dense A or the diagonal");
-    static_assert(!IS_F32<T> || TARGET == DENSE,
-                  "float32: the dense target only");
+    static_assert(!IS_F32<T> || TARGET == DENSE || TARGET == SLOTS
+                      || TARGET == TREE,
+                  "float32: the dense and CSR targets only");
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);

@@ -366,15 +366,17 @@ class TreeNearOperator:
     the global CSR view and an apply of its own: K8 reads each node's block
     in place).
 
-    dataZ [nnz+1] float64 on the device; slot nnz is the assembly's dump
-    slot and is zeroed here."""
+    dataZ [nnz+1] float64 on the device, or float32 (the float32 H2 path:
+    pynucleus_tpu/nl/h2.py TreeNearOperator with dtype); slot nnz is the
+    assembly's dump slot and is zeroed here."""
 
     def __init__(self, dataZ, meta):
         m = meta
         nnz = m.nnz
-        if dataZ.dtype != torch.float64 or dataZ.shape != (nnz + 1,):
-            raise ValueError('TreeNearOperator: data must be float64 '
-                             f'[nnz+1] = [{nnz + 1}]')
+        if dataZ.dtype not in (torch.float64, torch.float32) \
+                or dataZ.shape != (nnz + 1,):
+            raise ValueError('TreeNearOperator: data must be float64 or '
+                             f'float32 [nnz+1] = [{nnz + 1}]')
         if nnz >= (1 << 31):
             raise ValueError('TreeNearOperator: int32 slots need nnz < 2^31')
         self.meta = m
@@ -403,6 +405,10 @@ class TreeNearOperator:
     @property
     def device(self):
         return self.dataZ.device
+
+    @property
+    def dtype(self):
+        return self.dataZ.dtype
 
     @property
     def nnz(self):
@@ -461,9 +467,11 @@ class H2Matrix(LinearOperator):
     """Level-major symmetric H2 operator on the device (port of
     pynucleus_tpu/nl/h2.py H2Matrix in its fused tree layout).
 
-      Anear       TreeNearOperator (node list == leaf list)
-      leafPhi     [L, nbar, M] float64: leaf integrals, row i of leaf l is
-                  its i-th dof in tree order
+      Anear       TreeNearOperator (node list == leaf list); its data's type
+                  (float64, or float32 on the float32 H2 path) is the
+                  operator's: leafPhi, T and Kall are cast to it once
+      leafPhi     [L, nbar, M]: leaf integrals, row i of leaf l is its i-th
+                  dof in tree order
       leafLevelPos (lvlIdx, posIdx) of each leaf
       levels      list over levels of dicts: 'size', and for ell > 0 'T'
                   [size, M, M] (child -> parent transfer, kept as ``Ttr``:
@@ -471,8 +479,8 @@ class H2Matrix(LinearOperator):
                   [size]; far pairs of the level are rows
                   farOff : farOff + farCount of Kall with 'src'/'dst'
                   positions (numpy or tensors)
-      Kall        [Pfar, M, M] float64 far blocks (with the -2 factor),
-                  level by level
+      Kall        [Pfar, M, M] far blocks (with the -2 factor), level by
+                  level
       leafDofs    [L, nbar] host array (pad -1), to check the fused layout
       symmetric   False for a nonsymmetric kernel: ``.T`` is then the
                   transposed operator (K20), else the operator itself
@@ -503,8 +511,8 @@ class H2Matrix(LinearOperator):
                              'needs node list == leaf list and one leaf per '
                              'dof')
         self.L, self.nbar, self.M = L, nbar, M
-        self.leafPhi = leafPhi.to(device=dev, dtype=torch.float64) \
-            .contiguous()
+        dt = Anear.dtype
+        self.leafPhi = leafPhi.to(device=dev, dtype=dt).contiguous()
         sizes = [int(lv['size']) for lv in levels]
         self.nLvl = len(sizes)
         levelOff = np.zeros(self.nLvl + 1, dtype=np.int64)
@@ -518,14 +526,13 @@ class H2Matrix(LinearOperator):
             return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                    device=dev)
         self.leafNode = i32(levelOff[lvlIdx] + posIdx)
-        Tall = torch.zeros((nNodes, M, M), dtype=torch.float64, device=dev)
+        Tall = torch.zeros((nNodes, M, M), dtype=dt, device=dev)
         parent = np.full(nNodes, -1, dtype=np.int64)
         src, dst = [], []
         for ell, lv in enumerate(levels):
             a, b = levelOff[ell], levelOff[ell + 1]
             if ell > 0:
-                Tall[a:b] = torch.as_tensor(lv['T'], dtype=torch.float64,
-                                            device=dev)
+                Tall[a:b] = torch.as_tensor(lv['T'], dtype=dt, device=dev)
                 parent[a:b] = levelOff[ell - 1] + _np(lv['parentIdx'])
             if lv.get('farCount', 0):
                 if int(lv['farOff']) != sum(len(s_) for s_ in src):
@@ -537,7 +544,7 @@ class H2Matrix(LinearOperator):
         self.parent = i32(parent)
         self.src = i32(np.concatenate(src) if src else np.zeros(0))
         self.dst = i32(np.concatenate(dst) if dst else np.zeros(0))
-        self.Kall = Kall.to(device=dev, dtype=torch.float64).contiguous()
+        self.Kall = Kall.to(device=dev, dtype=dt).contiguous()
         if self.Kall.shape != (len(self.src), M, M):
             raise ValueError('H2Matrix: Kall must hold one [M, M] block per '
                              'far pair')
@@ -547,6 +554,10 @@ class H2Matrix(LinearOperator):
     @property
     def device(self):
         return self.Anear.device
+
+    @property
+    def dtype(self):
+        return self.Anear.dtype
 
     def matvec(self, x, out=None):
         return h2_matvec(self, x, out=out)
@@ -606,14 +617,17 @@ def _np(a):
 # ------------------------------------------------------------------ K8 ----
 
 def _checkApply(name, op, x, out):
-    N = op.num_rows
-    if x.dtype != torch.float64 or x.shape != (N,) or not x.is_contiguous() \
+    """x and out contiguous [N] of the operator's type (float64, or float32
+    with a float32 operator) on its device; a mixed type raises."""
+    N, dt = op.num_rows, op.Anear.dtype
+    kind = str(dt).split('.')[-1]
+    if x.dtype != dt or x.shape != (N,) or not x.is_contiguous() \
             or x.device != op.device:
-        raise ValueError(f'{name}: x must be contiguous float64 [{N}] on '
+        raise ValueError(f'{name}: x must be contiguous {kind} [{N}] on '
                          f'{op.device}')
     if out is None:
         out = torch.empty_like(x)
-    elif out.dtype != torch.float64 or out.shape != (N,) \
+    elif out.dtype != dt or out.shape != (N,) \
             or not out.is_contiguous() or out.device != x.device:
         raise ValueError(f'{name}: out must match x')
     if x.device.type not in ('cpu', 'cuda'):
@@ -623,11 +637,10 @@ def _checkApply(name, op, x, out):
 
 def _work(op, dev):
     if op._work is None:
-        op._work = (torch.empty(op.Anear.Nt, dtype=torch.float64, device=dev),
-                    torch.empty((op.nNodes, op.M), dtype=torch.float64,
-                                device=dev),
-                    torch.empty((op.nNodes, op.M), dtype=torch.float64,
-                                device=dev))
+        dt = op.Anear.dtype
+        op._work = (torch.empty(op.Anear.Nt, dtype=dt, device=dev),
+                    torch.empty((op.nNodes, op.M), dtype=dt, device=dev),
+                    torch.empty((op.nNodes, op.M), dtype=dt, device=dev))
     return op._work
 
 
@@ -645,7 +658,9 @@ def h2_matvec(op, x, out=None):
     the tree CSR.)  Kernel K8 (kernels/csrc/h2_matvec.cu, one launch per pass
     and level that has work) on CUDA tensors, the plain version on CPU tensors.  Replaces
     pynucleus_tpu/nl/h2.py:_h2_matvec with TreeNearOperator._x2,
-    _matvec_tree and _scatter_tree."""
+    _matvec_tree and _scatter_tree.  A float32 operator (the float32 H2
+    path) takes float32 x and out and runs K8's float32 instance (counted
+    also as ``h2_matvec:float32``), as _h2_matvec on float32 arrays."""
     out = _checkApply('h2_matvec', op, x, out)
     if x.device.type == 'cpu':
         out.copy_(_h2_matvec_plain(op, x))
@@ -657,7 +672,8 @@ def h2_matvec(op, x, out=None):
     kernels.launches['h2_matvec'] += 1
     P = kernels.ptr
     launched = ctypes.c_int(0)
-    err = lib.h2_matvec(
+    f32 = x.dtype == torch.float32
+    err = (lib.h2_matvec_f32 if f32 else lib.h2_matvec)(
         P(out), P(x), P(xt), P(coef), P(far), A.Nt, op.L, op.nbar, M,
         P(A.perm), P(A.rowNode), P(A.indptrT), P(A.tStartRow), P(A.tLen),
         P(A.rowLen), P(A.tmplStart), P(A.tmplAll), P(A.dataZ),
@@ -666,6 +682,8 @@ def h2_matvec(op, x, out=None):
         P(op.dst), op.Kall.shape[0], ctypes.byref(launched),
         kernels.stream())
     kernels.deviceLaunches['h2_matvec'] += launched.value
+    if f32:
+        kernels.countVariant('h2_matvec:float32', launched.value)
     kernels.check(err)
     return out
 
@@ -723,7 +741,12 @@ def h2_matvec_T(op, x, out=None):
     Kernel K20 (kernels/csrc/h2_matvec.cu h2_matvec_T: K8's near data read
     in place and scattered by column with atomics) on CUDA tensors, the
     plain version on CPU tensors.  Replaces pynucleus_tpu/nl/h2.py
-    :_h2_matvec_T with TreeNearOperator.rmatvec."""
+    :_h2_matvec_T with TreeNearOperator.rmatvec.  Float64 alone: a float32
+    operator is symmetric (the float32 H2 path's kernel), its ``.T`` is
+    itself."""
+    if op.Anear.dtype == torch.float32:
+        raise NotImplementedError('h2_matvec_T: float64 operators only (the '
+                                  'float32 H2 path is symmetric)')
     out = _checkApply('h2_matvec_T', op, x, out)
     if x.device.type == 'cpu':
         out.copy_(_h2_matvec_T_plain(op, x))

@@ -448,9 +448,10 @@ def test_f32_partition_and_orders_as_float64(grid):
 
 
 def test_f32_refusals():
-    """Float32 outside the dense path of the constant-order fractional
-    kernel raises NotImplementedError; a float32 target with float64
-    tables (or vectors) raises ValueError; an unknown dtype ValueError."""
+    """Float32 outside the dense and H2 paths of the constant-order
+    fractional kernel (and the H2 path's host engine) raises
+    NotImplementedError; a float32 target with float64 tables (or vectors)
+    raises ValueError; an unknown dtype ValueError."""
     from pynucleus_tpu_torch.interop import fromArrays
     from pynucleus_tpu_torch.base.solvers import pcg_update
     m, _ = _mesh('interval', 3)
@@ -463,14 +464,17 @@ def test_f32_refusals():
         with pytest.raises(NotImplementedError, match='float32'):
             builderFromArrays(m.vertices, m.cells, s, 1, **kw, **args)
     b = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw)
-    for build in (b.getH2, b.getSparse, b.getDiagonal, b.getDenseCross,
+    host = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw,
+                             params={'nearEngine': 'host'})
+    for build in (host.getH2, b.getSparse, b.getDiagonal, b.getDenseCross,
                   b.getH2FiniteHorizon, b.getDenseVector, b.getH2Vector,
                   lambda: b.getDense(trySparsification=True)):
         with pytest.raises(NotImplementedError, match='float32'):
             build()
     _, dm, k = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
     with pytest.raises(NotImplementedError, match='float32'):
-        tasm.assembleNonlocal(dm, k, 'H2', params={'dtype': 'float32'})
+        tasm.assembleNonlocal(dm, k, 'H2', params={'dtype': 'float32',
+                                                   'nearEngine': 'host'})
     with pytest.raises(ValueError, match='float64 or float32'):
         builderFromArrays(m.vertices, m.cells, 0.75, 1, dtype='float16',
                           device='cpu')
