@@ -88,7 +88,7 @@ result line):
      these profiles (erfc included, in the gaussian's 1D boundary kernel);
      the gaussian at noRef 14 (cg-jacobi, a path); H2 against dense at
      noRef 12 (8,191 dofs, 1e-5 relative) and that line's CG-MG error; then
-     the full-width line, H2 CG-MG at noRef 16 (17 levels, 131,071 dofs; a
+     the full-width line, H2 CG-MG at noRef 15 (16 levels, 65,535 dofs; a
      path): per-level build parts, iterations, the warm solve, ms per
      V-cycle, peak device memory, an L2 error below noRef 12's, and K1's
      CSR targets, K5, K6, K7, K11 and K12 (their largest calls) against
@@ -100,11 +100,11 @@ result line):
      of its own) against their pins and the pinned JAX outputs; H2 and its
      transpose against dense at noRef 12 (8,191 dofs; the transposed apply
      a path of its own, eT < max(1e-5, 3 eFwd), tests/test_h2_transpose.py
-     :33); the full-width line, twoDomainNonSym gmres-mg H2 at noRef 13
-     (14 levels, 16,383 dofs; a path; noRef 12 instead if its host set-up
-     exceeds 300 s): iterations, errors, per-level build parts, cold and
-     warm solve, ms per V-cycle, peak device memory; then K1 with the order
-     codes (dense target; tree, dense and slots targets with the y shift),
+     :33); the full-width line, twoDomainNonSym gmres-mg H2 at noRef 12
+     (13 levels, 8,191 dofs; a path): iterations, errors, per-level build
+     parts, cold and warm solve, ms per V-cycle, peak device memory; then
+     K1 with the order codes (dense target; tree, dense and slots targets
+     with the y shift),
      K7 with them, K19 (dense and slots targets) and K20 (noRef 12 and
      every level of the full-width line) against their plain versions.
  14. the s-derivative operators (nonlocalBuilder with getFractionalKernel(d,
@@ -244,7 +244,7 @@ result line):
      the largest entry (K1 and K2 apply phi; the JAX grid drops it), then
      the tempered problem with its zero-exterior term (K3 with the
      tempered boundary kernel) by CG-Jacobi, iterations and seconds;
-     runNonlocal's interval at noRef 9 with the gaussian and exponential
+     runNonlocal's interval at noRef 8 with the gaussian and exponential
      kernels (sparse, CG-MG; each a path); the weighted finite horizon (a
      tempered fractional kernel times the tempered phi) on the interval
      at noRef 10 and the square at noRef 1 (sparse; the square against its
@@ -309,6 +309,36 @@ result line):
      1e-5 of max|y|) with the same calls' float64 time.  Alone: `python -c
      'import chip_smoke as c; from pynucleus_tpu_torch import kernels;
      kernels.library(); c.phase24()'`.
+ 25. distribution on one card, a shard mesh of four shards stacked on it
+     (pynucleus_tpu_torch/parallel): drivers/testDistOp.py's disc at noRef
+     7 (73,153 dofs) in H2, wrapped as DistributedH2Matrix in halo and
+     bcast mode, with the distributed CG (a path): the distributed applies
+     within 1e-10 of the H2 one (relative), the CG converged; ms per apply
+     of each against K8's (CUDA events), K28's and K29's launches and the
+     bytes the shards receive per apply, the peak device memory; the
+     dense bases (each a path): testDistOp's disc at noRef 5 on a dense
+     base (DistributedRowBlockOperator, DistributedHaloOperator; 1e-10 of
+     the dense apply, the CG converged), shardedDenseAssembly on the dry
+     run's S1 problem (s 0.25, the interval at 4,095 dofs) against the
+     per-pair getDense (1e-12 of the largest entry) with CG-Jacobi on its
+     row shards (residual below 1e-5 |b|), and a banded operator (a
+     horizon of 0.05 on the interval at noRef 12, dofs in coordinate
+     order) through the halo strips, DistMatrix and Import (1e-12 of
+     max|Bx|); runParallelGMG's interval P1 at its default noRef (32,767
+     dofs) with --ranks 4 (a path: its levels of at least 2000 rows sharded as
+     DistributedCSROperator) against --ranks 1 (residual histories rtol
+     1e-10, atol 1e-12) and the reference cache of
+     tests/test_parallel_gmg.py; dryrunDistributedH2 at noRef 14 (a path;
+     its CG must converge); the overlap accumulate and the repartition of
+     tests/test_overlaps.py's square (a path) against the host path
+     (1e-14); then K28 (each phase) and K29 (the pack, also at the banded
+     operator's halo strips; the receive-add and the 2D gather at the
+     overlap calls) against their plain versions at the calls of one halo
+     and one bcast apply of the disc (1e-12 of
+     each call's largest output), K28's near phase against torch.sparse
+     and K29's pack against index_select.  Alone: `python -c 'import
+     chip_smoke as c; from pynucleus_tpu_torch import kernels;
+     kernels.library(); c.phase25()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -323,7 +353,7 @@ log_inverse, polynomial, gaussian, exponential), per order-of-position
 variant of K1 and K19, per manifold variant of K1 and K2, per float32
 instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4
 and of the H2 path (K1's slot and tree targets, K6, K7, K8, K12)
-(with the same calls' float64 time), and K24-K27, its
+(with the same calls' float64 time), and K24-K29, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -2302,7 +2332,9 @@ SMOOTH_LINES = {
 SQUARE_NOREF = 3
 JAX_SQUARE_GAUSSIAN = 41.68066922312951
 SQUARE_EXPONENTIAL = {'exponentialRate': 8.0, 'scaling': 0.7}
-INTERVAL_NOREF = 16
+# the interval's full-width CG-MG line (16 until phase 25 came, PERF.md
+# section 4)
+INTERVAL_NOREF = 15
 INTERVAL_CHECK_NOREF = 12
 SMOOTH_NOREF = 14
 INTERVAL_LU_PATH = ('panel_scatter', 'near_enum', 'near_enum_quad',
@@ -2667,8 +2699,8 @@ VO_PATHS = {
                                       'jacobi_smooth')}
 VO_TRANSPOSE_PATH = VO_H2 + ('h2_matvec_T',)
 # the full-width line at VO_NOREF (noRef 14 until phase 23 came: its
-# assembly took 36.6 s there, PERF.md section 4)
-VO_NOREF = 13
+# assembly took 36.6 s there; 13 until phase 25 came, PERF.md section 4)
+VO_NOREF = 12
 VO_CHECK_NOREF = 12
 # the L2 error of twoDomainNonSym(0.25,0.75) knownSolution lu H2 at noRef
 # VO_CHECK_NOREF: the JAX driver's (drivers/runFractional.py on the CPU,
@@ -6183,8 +6215,8 @@ TP_TEMPER = 3.0          # the finite-horizon tempered kernel's lambda
 TP_FULL_NOREF = 6        # the flagship disc, 18,145 dofs
 TP_CHECK_NOREF = 5       # the grid variants' comparison shapes
 # runNonlocal's interval, sparse CG-MG (cut so that the script keeps within
-# its time limit, PERF.md section 4)
-TP_NONLOCAL_NOREF = 9
+# its time limit, PERF.md section 4: 10 before phase 24, 9 before phase 25)
+TP_NONLOCAL_NOREF = 8
 TP_FH_NOREF = 8          # the weighted finite horizon on the interval
 TP_CG_TOL = 1e-8
 TP_CG_MAXITER = 2000
@@ -8357,6 +8389,647 @@ def FLOAT32_H2_24_PATHS(counts24):
                   key, c) for key, c in counts24.items())
 
 
+# ----------------------------------------------------------------- phase 25
+
+# drivers/testDistOp.py's flagship line: the disc in H2 over four shards on
+# one card (73,153 dofs at noRef 7), bcast and halo modes, the distributed
+# CG; runParallelGMG's interval P1 at its default noRef, 4 ranks against 1;
+# the dry run of the distributed H2 at its default noRef 14
+DIST_NOREF = 7
+DIST_RANKS = 4
+DIST_DRYRUN_NOREF = 14
+DIST_SEED = 25
+TOL_DIST = 1e-10
+# the reference cache of tests/test_parallel_gmg.py's interval P1 line
+GMG_INTERVAL_CACHE = {
+    'iterations': {'MG': 6, 'FMG': 5, 'PCG': 3, 'PGMRES': 3,
+                   'PBICGSTAB': 2, 'FMG-PCG': 2, 'FMG-PGMRES': 2},
+    'rates': {'MG': 0.049099444405778306, 'FMG': 0.02700477186888465,
+              'PCG': 0.002753242733377948, 'PGMRES': 0.002568348642045146,
+              'FMG-PCG': 0.00012398350674816368,
+              'FMG-PGMRES': 0.00011126556266466207},
+    'errors': {'L^2 error': 3.161013638317052e-08,
+               'H^1_0 error': 6.148245111522337e-05}}
+DIST_OP_PATH = ('dist_h2_matvec', 'outbox', 'h2_matvec', 'pcg_update',
+                'panel_scatter', 'far_field')
+DIST_GMG_PATH = ('outbox', 'csr_spmv', 'jacobi_smooth', 'pcg_update',
+                 'csr_scatter', 'gmres_arnoldi', 'bicgstab_update')
+DIST_DRYRUN_PATH = ('dist_h2_matvec', 'outbox', 'h2_matvec', 'pcg_update',
+                    'far_field')
+DIST_OVERLAP_PATH = ('outbox', 'outbox:pack', 'outbox:recv_add',
+                     'outbox:gather2d')
+# the dense bases: testDistOp's disc on a dense base (bcast: row blocks with
+# an all_gathered x; halo: the fractional operator's full bandwidth gathers
+# x too); shardedDenseAssembly with CG-Jacobi on its row-sharded operator,
+# the S1 problem of __graft_entry__.py:88-101 (s 0.25 on the interval
+# refined 1 + 11 times, 4,095 dofs); and a banded operator (a finite
+# horizon on the interval, its dofs in coordinate order) whose halo mode
+# exchanges strips (K29 pack, ppermute), beside DistMatrix (K9 per part)
+# and Import (K29's 2D gather)
+DIST_DENSE_NOREF = 5
+DIST_S1_NOREF = 11
+DIST_S1_S = 0.25
+DIST_BANDED_NOREF = 12
+DIST_BANDED_HORIZON = 0.05
+DIST_DENSE_PATH = ('panel_scatter', 'grid_distant', 'grid_boundary',
+                   'pcg_update')
+DIST_SHARDED_DENSE_PATH = ('panel_scatter', 'panel_scatter:dense',
+                           'pcg_update', 'pcg_update:jacobi')
+DIST_BANDED_PATH = ('outbox', 'outbox:pack', 'outbox:gather2d', 'csr_spmv')
+KERNEL_INFO['dist_h2_matvec'] = (
+    'cuda', 'pynucleus_tpu_torch/kernels/csrc/dist_h2.cu',
+    'pynucleus_tpu/parallel/dist_h2.py:722')
+KERNEL_INFO['outbox'] = (
+    'cuda', 'pynucleus_tpu_torch/kernels/csrc/outbox.cu',
+    'pynucleus_tpu/parallel/dist_h2.py:578')
+COMPARED_AT['dist_h2_matvec'] = (
+    f'testDistOp disc noRef {DIST_NOREF}, {DIST_RANKS} shards: every phase '
+    'call of one halo apply (timed, per apply) and of one bcast apply')
+COMPARED_AT['outbox'] = (
+    f'testDistOp disc noRef {DIST_NOREF}, {DIST_RANKS} shards: every pack '
+    'of one halo apply (timed, per apply) and of one bcast apply; the '
+    'halo strips of the banded interval operator (noRef '
+    f'{DIST_BANDED_NOREF}); the receive-add and the 2D gather on '
+    'tests/test_overlaps.py\'s square')
+
+
+def dist_argv(device='cuda'):
+    return ['--domain', 'disc', '--s', 'const(0.75)', '--problem',
+            'constant', '--noRef', str(DIST_NOREF), '--buildH2',
+            '--buildDistributedH2Bcast', '--buildDistributedH2', '--doSolve',
+            '--ranks', str(DIST_RANKS), '--device', device]
+
+
+def DIST25_PATHS(counts25):
+    """The main paths of phase 25: (kernels, label, launch counts)."""
+    return ((DIST_OP_PATH, f'test_dist_op_disc_noRef{DIST_NOREF}',
+             counts25['testDistOp']),
+            (DIST_GMG_PATH, 'parallel_gmg_interval_ranks4',
+             counts25['gmg']),
+            (DIST_DRYRUN_PATH, f'dryrun_dist_h2_noRef{DIST_DRYRUN_NOREF}',
+             counts25['dryrun']),
+            (DIST_OVERLAP_PATH, 'overlap_accumulate_repartition',
+             counts25['overlaps']),
+            (DIST_DENSE_PATH, f'test_dist_op_dense_disc_noRef'
+             f'{DIST_DENSE_NOREF}', counts25['dense']),
+            (DIST_SHARDED_DENSE_PATH, f'sharded_dense_interval_noRef'
+             f'{DIST_S1_NOREF}', counts25['sharded_dense']),
+            (DIST_BANDED_PATH, f'banded_halo_interval_noRef'
+             f'{DIST_BANDED_NOREF}', counts25['banded']))
+
+
+def _tensorsOf(args):
+    import torch
+    return [a for a in args if isinstance(a, torch.Tensor)]
+
+
+def compare_recorded(name, calls, kernel, plain, work, library=None):
+    """Recorded calls of a function that writes into some of its tensor
+    arguments and may return a tensor: each call through the kernel and
+    the plain version on clones of its arguments; every float64 argument
+    and the returned tensor compared, each call to TOL_KERNEL of its
+    outputs' largest value.  Times the calls as one group each way (and
+    ``library(args)``, a callable timed per call, where given)."""
+    import torch
+    worst = worst_rel = 0.0
+    for args, kw in calls:
+        a1, a2 = _clone(args), _clone(args)
+        r1, r2 = kernel(*a1, **kw), plain(*a2, **kw)
+        outs = [(t1, t2) for t1, t2, t0 in zip(a1, a2, args)
+                if isinstance(t0, torch.Tensor) and t0.is_floating_point()]
+        if isinstance(r1, torch.Tensor):
+            outs.append((r1, r2))
+        err = max([float((p - q).abs().max()) if p.numel() else 0.0
+                   for p, q in outs] + [0.0])
+        scale = max([float(q.abs().max()) if q.numel() else 0.0
+                     for _, q in outs] + [0.0])
+        if not err <= TOL_KERNEL * scale:
+            raise AssertionError(f'{name}: kernel vs plain max err {err} '
+                                 f'(max {scale})')
+        worst = max(worst, err)
+        worst_rel = max(worst_rel, err / scale if scale else 0.0)
+    ka = [(_clone(a), kw) for a, kw in calls]
+    pa = [(_clone(a), kw) for a, kw in calls]
+    ms = timed(lambda: [kernel(*a, **kw) for a, kw in ka])
+    plain_ms = timed(lambda: [plain(*a, **kw) for a, kw in pa])
+    lib = None
+    if library is not None:
+        fns = [library(a) for a, _ in calls]
+        for f in fns:
+            f()
+        lib = timed(lambda: [f() for f in fns])
+    log(f'  {name}: {len(calls)} calls, max abs err {worst:.3e} (rel '
+        f'{worst_rel:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms'
+        + (f', library {lib:.4f} ms' if lib is not None else ''))
+    return result(worst, ms, plain_ms, [work(a) for a, _ in calls], lib)
+
+
+def dist_work(args):
+    """A K28 phase or a K29 gather on recorded args: every tensor argument
+    read once and the written ones (float64) written once; two operations
+    per float64 value read (a multiply-add)."""
+    import torch
+    b = nbytes(args)
+    floats = sum(t.numel() for t in _tensorsOf(args)
+                 if t.dtype == torch.float64)
+    return (b + 8 * floats, 2 * floats, F64_PEAK)
+
+
+def pack_work(args):
+    """K29 pack on recorded args (src, slot): the slots read, the gathered
+    rows read and the outbox written once."""
+    src, slot = args[0], args[1]
+    rows = slot.numel() * src.shape[2] * 8
+    return (nbytes(slot) + 2 * rows, 0, F64_PEAK)
+
+
+def pack_library(args):
+    """torch.index_select on the sources padded by one zero row: the
+    same outbox as K29's pack."""
+    import torch
+    src, slot = args[0], args[1]
+    nk, P = slot.shape
+    ns, S, W = src.shape
+    flat = torch.cat([src.reshape(ns * S, W), src.new_zeros(1, W)])
+    base = (torch.arange(nk, device=slot.device)[:, None] * S
+            if ns > 1 else 0)
+    idx = torch.where(slot >= 0, slot.long() + base, ns * S).reshape(-1)
+    return lambda: torch.index_select(flat, 0, idx)
+
+
+def near_library(args):
+    """torch.sparse CSR mv on the shards' rows: one block-diagonal CSR
+    [nk R, nk (R + B + 1)] applied to the stacked [x, halo, 0]."""
+    import torch
+    y, xl, buf, ptr, col, dat = args
+    nk, R = xl.shape
+    B = buf.shape[1]
+    w = R + B + 1
+    xe = torch.cat([xl, buf.expand(nk, B), xl.new_zeros(nk, 1)], 1) \
+        .reshape(-1)
+    crow = [torch.zeros(1, dtype=torch.int64, device=ptr.device)]
+    cols, vals, base = [], [], 0
+    for k in range(nk):
+        n = int(ptr[k, -1])
+        crow.append(ptr[k, 1:] + base)
+        cols.append(torch.clamp(col[k, :n], max=R + B) + k * w)
+        vals.append(dat[k, :n])
+        base += n
+    A = torch.sparse_csr_tensor(torch.cat(crow), torch.cat(cols),
+                                torch.cat(vals), size=(nk * R, nk * w))
+    return lambda: torch.mv(A, xe)
+
+
+class StorageRecorder(ArgRecorder):
+    """An ArgRecorder that also keeps, per call, the storage (data
+    pointer), bytes and type of each tensor argument as the call saw it."""
+
+    def __init__(self, module, name):
+        super().__init__(module, name)
+        self.storages = []
+
+    def _record(self, args, kw):
+        import torch
+        self.storages.append([
+            (a.data_ptr(), a.numel() * a.element_size(),
+             a.dtype == torch.float64)
+            for a in args if isinstance(a, torch.Tensor)])
+        return super()._record(args, kw)
+
+
+def record_dist_apply(op, x):
+    """Runs one apply of ``op`` with every call of K28's phases and of
+    K29's pack recorded: {function name: StorageRecorder}."""
+    import contextlib
+    import torch
+    import pynucleus_tpu_torch.kernels.dist_h2 as kd
+    import pynucleus_tpu_torch.kernels.outbox as ko
+    with contextlib.ExitStack() as stack:
+        recs = {n: stack.enter_context(StorageRecorder(kd, n))
+                for n in kd.PLAIN}
+        recs['outbox_pack'] = stack.enter_context(
+            StorageRecorder(ko, 'outbox_pack'))
+        op.matvec(x)
+    torch.cuda.synchronize()
+    return recs
+
+
+def apply_work(storageLists):
+    """The work of one apply's K28 phases: each distinct storage among the
+    calls' tensor arguments (the shard arrays, x and its halo, the level
+    coefficients, y) read or written once, two operations per float64
+    value (a multiply-add).  A storage that the allocator handed to two
+    short-lived tensors counts once: a bound on the low side."""
+    seen = {}
+    for storages in storageLists:
+        for ptr, b, f64 in storages:
+            seen[ptr] = (max(b, seen.get(ptr, (0, f64))[0]), f64)
+    b = sum(v for v, _ in seen.values())
+    floats = sum(v // 8 for v, f64 in seen.values() if f64)
+    return (b, 2 * floats, F64_PEAK)
+
+
+def compare_dist_kernels(Ah, Ab, x):
+    """K28 (each phase) and K29's pack against their plain versions on
+    the calls of one halo apply (timed: ms per apply) and of one bcast
+    apply (held to the same tolerance); the library calls beside: K28's
+    near phase against torch.sparse, K29's pack against index_select."""
+    import pynucleus_tpu_torch.kernels.dist_h2 as kd
+    import pynucleus_tpu_torch.kernels.outbox as ko
+    out = {}
+    for label, op in (('halo', Ah), ('bcast', Ab)):
+        recs = record_dist_apply(op, x)
+        parts = []
+        for n, plain in kd.PLAIN.items():
+            if recs[n].calls:
+                parts.append(compare_recorded(
+                    f'{n} ({label})', recs[n].calls, getattr(kd, n), plain,
+                    dist_work, near_library if n == 'dist_h2_near' else None))
+        k28 = merge(*parts)
+        k28['work'] = [apply_work([st for n in kd.PLAIN
+                                   for st in recs[n].storages])]
+        k28['library_ms'] = parts[0]['library_ms']       # the near phase
+        k28['library_of'] = 'the near phase: torch.sparse CSR mv'
+        k28['phase_ms'] = {n[8:]: p['ms'] for n, p in zip(
+            [n for n in kd.PLAIN if recs[n].calls], parts)}
+        k29 = compare_recorded(
+            f'outbox_pack ({label})', recs['outbox_pack'].calls,
+            ko.outbox_pack, lambda src, slot: ko._outbox_pack_plain(src, slot),
+            pack_work, pack_library)
+        k29['library_of'] = 'torch.index_select on x padded by one zero'
+        out[label] = (k28, k29)
+    return out
+
+
+def dist_overlaps(device='cuda'):
+    """tests/test_overlaps.py's square (uniformSquare(10) refined, 4 parts)
+    on the card: the sharded accumulate (K29 pack and receive-add) and the
+    repartition (K29's 2D gather) against the host path (1e-14), and the
+    receive-add and the 2D gather against their plain versions on their
+    calls.  Returns (cmp of the two, launch counts)."""
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.kernels.outbox as ko
+    from pynucleus_tpu_torch.fem import uniformSquare, P1_DoFMap
+    from pynucleus_tpu_torch.fem.partitioning import regularMeshPartitioner
+    from pynucleus_tpu_torch.parallel import overlaps as ov
+    from pynucleus_tpu_torch.parallel import makeDeviceMesh
+    m = uniformSquare(N=10).refine()
+    dm = P1_DoFMap(m, tag=None, device=device)
+    cellPart = regularMeshPartitioner(m, 4)
+    mesh = makeDeviceMesh(4, device=device)
+    bc = m.vertices[m.cells].mean(axis=1)
+    tgt = np.minimum((bc[:, 1] * 4).astype(np.int64), 3)
+    src, _, rep = ov.repartitionConnector(dm, m, cellPart, tgt)
+    mgr = ov.AlgebraicOverlapManager(src)
+    rng = np.random.default_rng(DIST_SEED)
+    X = rng.standard_normal((4, src.maxLocal))
+    with ArgRecorder(ko, 'outbox_recv_add') as ra, \
+            ArgRecorder(ko, 'outbox_gather2d') as g2:
+        def run():
+            acc = mgr.shardmapAccumulate(mesh)(torch.as_tensor(
+                X, device=device))
+            Xs = src.fromGlobal(rng.standard_normal(dm.num_dofs))
+            moved = rep.deviceApply(mesh)(torch.as_tensor(Xs, device=device))
+            return acc, Xs, moved
+        (acc, Xs, moved), counts = count_path(
+            'overlap accumulate and repartition', DIST_OVERLAP_PATH, run)
+    e1 = float(np.abs(acc.cpu().numpy() - mgr.accumulate(X)).max())
+    e2 = float(np.abs(moved.cpu().numpy() - rep.apply(Xs)).max())
+    log(f'  overlaps: accumulate {e1:.3e}, repartition {e2:.3e} from the '
+        'host path')
+    if not (e1 <= 1e-14 and e2 <= 1e-14):
+        raise AssertionError(f'overlaps on the card: {e1}, {e2}')
+    cmp = {'recv_add': compare_recorded(
+        'outbox_recv_add', ra.calls, ko.outbox_recv_add,
+        lambda X_, *a: X_.copy_(ko._outbox_recv_add_plain(X_, *a)),
+        dist_work),
+        'gather2d': compare_recorded(
+        'outbox_gather2d', g2.calls, ko.outbox_gather2d,
+        ko._outbox_gather2d_plain, dist_work)}
+    return cmp, counts
+
+
+def dist_dense_bases(device='cuda'):
+    """The dense bases on the card, four shards: testDistOp's disc at
+    noRef DIST_DENSE_NOREF on a dense base (a path: DistributedRowBlock-
+    Operator and DistributedHaloOperator within TOL_DIST of the dense apply,
+    the distributed CG converged); shardedDenseAssembly on the dry run's S1
+    problem (a path) against the per-pair getDense (1e-12 of the largest
+    entry; on the disc the two differ by 1.2e-8 in both packages at noRef
+    3) and
+    CG-Jacobi on its row-sharded operator to the dry run's bar; the banded
+    interval operator (a path): DistributedHaloOperator's halo strips, DistMatrix and Import
+    against the dense apply and x, and K29's packs of the halo apply
+    against their plain version.  Returns (launch counts per path, the
+    packs' comparison, summary)."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+    import pynucleus_tpu_torch.kernels.outbox as ko
+    from pynucleus_tpu_torch.base.linear_operators import \
+        Dense_LinearOperator
+    from pynucleus_tpu_torch.drivers import testDistOp
+    from pynucleus_tpu_torch.fem import simpleInterval, P1_DoFMap
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.parallel import makeDeviceMesh
+    from pynucleus_tpu_torch.parallel.dist import (
+        shardedDenseAssembly, rowShardedOperator, distributedSolveStep,
+        DistributedHaloOperator)
+    from pynucleus_tpu_torch.parallel.maps import (Map, DistVector, Import,
+                                                   DistMatrix)
+    counts, summary = {}, {}
+    t = time.perf_counter()
+    out, counts['dense'] = count_path(
+        'testDistOp dense disc', DIST_DENSE_PATH,
+        lambda: testDistOp.main(
+            ['--domain', 'disc', '--s', 'const(0.75)', '--problem',
+             'constant', '--noRef', str(DIST_DENSE_NOREF), '--buildDense',
+             '--buildDistributedH2Bcast', '--buildDistributedH2',
+             '--doSolve', '--ranks', str(DIST_RANKS), '--device', device],
+            quiet=True))
+    ops, x, dm = out['ops'], out['x'], out['dm']
+    kinds = {k: type(ops[k]).__name__ for k in
+             ('A_distributed_bcast', 'A_distributed_halo')}
+    if kinds != {'A_distributed_bcast': 'DistributedRowBlockOperator',
+                 'A_distributed_halo': 'DistributedHaloOperator'}:
+        raise AssertionError(f'testDistOp dense: operators {kinds}')
+    ref = float(torch.linalg.norm(ops['A_dense'].matvec(x)))
+    rel = {k: v / ref for k, v in out['matvec errors'].toDict().items()}
+    solve = out['solve'].toDict()
+    if not (len(rel) == 2 and all(v <= TOL_DIST for v in rel.values())):
+        raise AssertionError(f'testDistOp dense: distributed applies {rel}')
+    if not (solve['residual norm'] <= 1e-5
+            and solve['CG iterations'] < 1000):
+        raise AssertionError(f'testDistOp dense: the distributed CG did not '
+                             f'converge: {solve}')
+    summary['dense'] = {'dofs': dm.num_dofs, 'rel_errors': rel,
+                        'solve': solve, 'timers': out['timers'].toDict(),
+                        'seconds': time.perf_counter() - t}
+    log(f'  testDistOp dense disc noRef {DIST_DENSE_NOREF}: {dm.num_dofs} '
+        f'dofs, relative errors {json.dumps(rel)}, CG '
+        f"{solve['CG iterations']} iterations, residual "
+        f"{solve['residual norm']:.3e}")
+    del out, ops
+
+    # S1: the distant pairs over the shards, then psum; CG-Jacobi (K4) on
+    # the row-sharded operator, as the dry run
+    t = time.perf_counter()
+    m = simpleInterval(-1.0, 1.0).refine()
+    for _ in range(DIST_S1_NOREF):
+        m = m.refine()
+    dmS = P1_DoFMap(m, device=device)
+    kernel = getFractionalKernel(1, DIST_S1_S)
+    mesh = makeDeviceMesh(DIST_RANKS, device=device)
+    b = assembleRHS(dmS, constant(1.0)).data
+
+    def sharded():
+        A = shardedDenseAssembly(dmS, kernel, mesh)
+        Ash, pad = rowShardedOperator(A, mesh)
+        return A, distributedSolveStep(mesh, Ash, b, pad, tol=1e-6,
+                                       maxiter=1000)
+    (As, (u, its)), counts['sharded_dense'] = count_path(
+        'shardedDenseAssembly', DIST_SHARDED_DENSE_PATH, sharded)
+    Ad = nonlocalBuilder(dmS, kernel, params={'denseGrid': False}).getDense()
+    errS = float((As.data - Ad.data).abs().max())
+    scaleS = float(Ad.data.abs().max())
+    res = float(torch.linalg.norm(b - As.matvec(u)))
+    bn = float(torch.linalg.norm(b))
+    if not errS <= 1e-12 * scaleS:
+        raise AssertionError(f'shardedDenseAssembly: {errS} off the '
+                             f'per-pair getDense (max entry {scaleS})')
+    if not (its < 1000 and res < 1e-5 * bn):
+        raise AssertionError(f'distributedSolveStep: {its} iterations, '
+                             f'residual {res} (|b| {bn})')
+    summary['sharded_dense'] = {'dofs': dmS.num_dofs, 'err': errS,
+                                'max_entry': scaleS,
+                                'cg_iterations': its, 'residual': res,
+                                'seconds': time.perf_counter() - t}
+    log(f'  shardedDenseAssembly, interval s {DIST_S1_S}: {dmS.num_dofs} '
+        f'dofs, {errS:.3e} off the per-pair getDense (max entry '
+        f'{scaleS:.3e}); CG-Jacobi on its row shards {its} iterations, '
+        f'residual {res:.3e} (|b| {bn:.3e})')
+    del As, Ad
+
+    # a banded operator: the halo strips (K29 pack, ppermute), DistMatrix
+    # (K9 per part), Import (K29's 2D gather)
+    t = time.perf_counter()
+    m = simpleInterval(-1.0, 1.0)
+    for _ in range(DIST_BANDED_NOREF):
+        m = m.refine()
+    dmI = P1_DoFMap(m, device=device)
+    A = nonlocalBuilder(dmI, getFractionalKernel(
+        1, 0.75, horizon=DIST_BANDED_HORIZON)).getDense()
+    coords = dmI.getDoFCoordinates()[:, 0]
+    order = torch.as_tensor(np.argsort(coords, kind='stable'),
+                            device=A.data.device)
+    B = Dense_LinearOperator(A.data[order][:, order].contiguous())
+    N = B.num_rows
+    xB = torch.sin(np.pi * torch.as_tensor(np.sort(coords),
+                                           device=A.data.device))
+    yRef = B.matvec(xB)
+    Bcsr = sp.csr_matrix(B.data.cpu().numpy())
+    rowMap = Map.blockDistribution(N, DIST_RANKS)
+    cyclic = Map([np.arange(k, N, DIST_RANKS) for k in range(DIST_RANKS)],
+                 N)
+    with ArgRecorder(ko, 'outbox_pack') as packs:
+        def banded():
+            halo = DistributedHaloOperator(B, mesh)
+            return (halo, halo.matvec(xB),
+                    DistMatrix(Bcsr, rowMap, device=device).matvec(xB),
+                    Import(rowMap, cyclic)(DistVector.fromGlobal(rowMap, xB)))
+        (halo, yH, yM, xC), counts['banded'] = count_path(
+            'banded halo, DistMatrix, Import', DIST_BANDED_PATH, banded)
+    scale = float(yRef.abs().max())
+    eH = float((yH - yRef).abs().max())
+    eM = float(np.abs(yM.toGlobal() - yRef.cpu().numpy()).max())
+    eI = float(np.abs(xC.toGlobal() - xB.cpu().numpy()).max())
+    if halo.fullGather or not 0 < halo.halo < halo.per:
+        raise AssertionError(f'banded operator: halo {halo.halo}, block '
+                             f'{halo.per}, full gather {halo.fullGather}')
+    if not (eH <= TOL_KERNEL * scale and eM <= TOL_KERNEL * scale
+            and eI == 0.0):
+        raise AssertionError(f'banded operator: halo {eH}, DistMatrix {eM}, '
+                             f'Import {eI} (max|Bx| {scale})')
+    summary['banded'] = {'dofs': N, 'halo': halo.halo, 'block': halo.per,
+                         'err_halo': eH, 'err_dist_matrix': eM,
+                         'err_import': eI, 'max_abs_Bx': scale,
+                         'seconds': time.perf_counter() - t}
+    log(f'  banded interval operator: {N} dofs, halo {halo.halo} of '
+        f'blocks of {halo.per}; halo apply {eH:.3e}, DistMatrix {eM:.3e}, '
+        f'Import {eI:.3e} off (max|Bx| {scale:.3e})')
+    cmp = compare_recorded(
+        'outbox_pack (halo strips)', packs.calls, ko.outbox_pack,
+        lambda src, slot: ko._outbox_pack_plain(src, slot), pack_work,
+        pack_library)
+    return counts, cmp, summary
+
+
+def dist_apply_ms(op, x, reps=10):
+    """ms per apply of an operator (CUDA events over ``reps`` applies after
+    one untimed)."""
+    y = op.matvec(x)
+    return timed(lambda: [op.matvec(x, out=y) for _ in range(reps)]) / reps
+
+
+def phase25():
+    """Distribution on one card: testDistOp's disc in H2 over four shards
+    (a path), the distributed applies against the H2 one, the distributed
+    CG, ms per apply against K8, bytes exchanged, peak memory, K28's and
+    K29's launches per apply; the dense bases (dist_dense_bases: three
+    paths); runParallelGMG's interval P1 at --ranks 4 (a path) against
+    --ranks 1 and the reference cache; dryrunDistributedH2
+    at noRef 14 (a path, converged); the overlap accumulate and the
+    repartition (a path); then K28 and K29 against their plain versions at
+    these calls.  Returns (launch counts per path, comparisons, summary)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch import kernels
+    from pynucleus_tpu_torch.drivers import testDistOp, runParallelGMG
+    from pynucleus_tpu_torch.parallel import makeDeviceMesh
+    from pynucleus_tpu_torch.parallel.dist_h2 import dryrunDistributedH2
+    log(f'phase 25: distribution on one card (testDistOp disc noRef '
+        f'{DIST_NOREF} over {DIST_RANKS} shards, the dense bases, '
+        'runParallelGMG, the dry run, overlaps)')
+    t0 = time.perf_counter()
+    counts, summary = {}, {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out, counts['testDistOp'] = count_path(
+        'testDistOp disc', DIST_OP_PATH,
+        lambda: testDistOp.main(dist_argv(), quiet=True))
+    seconds = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for g in ('info', 'matvec errors', 'solve', 'timers'):
+        out[g].log()
+    ops, x = out['ops'], out['x']
+    H, Ah, Ab = ops['A_h2'], ops['A_distributed_halo'], \
+        ops['A_distributed_bcast']
+    ref = float(torch.linalg.norm(H.matvec(x)))
+    errs = out['matvec errors'].toDict()
+    rel = {k: v / ref for k, v in errs.items()}
+    solve = out['solve'].toDict()
+    s = {'dofs': out['dm'].num_dofs, 'seconds': seconds,
+         'peak_GiB': peak, 'rel_errors': rel, 'solve': solve,
+         'timers': out['timers'].toDict()}
+    if not all(v <= TOL_DIST for v in rel.values()):
+        raise AssertionError(f'testDistOp: distributed applies {rel}')
+    if not (solve['residual norm'] <= 1e-5 and solve['CG iterations'] < 1000):
+        raise AssertionError(f'testDistOp: the distributed CG did not '
+                             f'converge: {solve}')
+    # ms per apply, launches per apply, bytes exchanged per apply
+    x = x.contiguous()
+    s['ms_per_apply'] = {'K8 h2_matvec': dist_apply_ms(H, x),
+                         'halo': dist_apply_ms(Ah, x),
+                         'bcast': dist_apply_ms(Ab, x)}
+    for label, op in (('halo', Ah), ('bcast', Ab)):
+        torch.cuda.synchronize()
+        kernels.resetLaunches()
+        op.matvec(x)
+        torch.cuda.synchronize()
+        s[f'launches_per_apply_{label}'] = {
+            k: kernels.launches[k] for k in kernels.launches
+            if k.startswith(('dist_h2_matvec', 'outbox')) and
+            kernels.launches[k]}
+        s[f'exchange_bytes_{label}'] = op.exchangeBytes()
+    s['operator'] = {'nLvl': Ah._meta['nLvl'], 'M': Ah._meta['M'],
+                     'R': Ah.R, 'maxOwn': list(Ah._meta['maxOwn']),
+                     'nShr': list(Ah._meta['nShr']),
+                     'far_levels': sorted(int(k) for k in Ah._farMeta)}
+    summary['testDistOp'] = s
+    log(f"  testDistOp: {s['dofs']} dofs, {seconds:.1f} s, peak "
+        f"{peak:.3f} GiB, relative errors {json.dumps(rel)}, CG "
+        f"{solve['CG iterations']} iterations; ms per apply "
+        f"{json.dumps(s['ms_per_apply'])}; launches per halo apply "
+        f"{json.dumps(s['launches_per_apply_halo'])}; bytes exchanged per "
+        f"halo apply {json.dumps(s['exchange_bytes_halo'])}")
+    cmpDist = compare_dist_kernels(Ah, Ab, x)
+    del out, ops, H, Ah, Ab
+    torch.cuda.empty_cache()
+
+    cD, cmpStrips, summary['dense_bases'] = dist_dense_bases()
+    counts.update(cD)
+    torch.cuda.empty_cache()
+
+    # runParallelGMG: the interval P1 at its default noRef, 4 ranks (a
+    # path) against 1 and the reference cache
+    t = time.perf_counter()
+    g4, counts['gmg'] = count_path(
+        'runParallelGMG --ranks 4', DIST_GMG_PATH,
+        lambda: runParallelGMG.main(['--domain', 'interval', '--element',
+                                     'P1', '--ranks', str(DIST_RANKS)],
+                                    quiet=True))
+    g1 = runParallelGMG.main(['--domain', 'interval', '--element', 'P1',
+                              '--ranks', '1'], quiet=True)
+    h1, h4 = g1['resHist'].toDict(), g4['resHist'].toDict()
+    if set(h1) != set(h4) or not all(
+            len(h1[k]) == len(h4[k]) and np.allclose(
+                h1[k], h4[k], rtol=1e-10, atol=1e-12) for k in h1):
+        raise AssertionError(f'runParallelGMG: --ranks 4 {h4} against '
+                             f'--ranks 1 {h1}')
+    its = g4['iterations'].toDict()
+    rates = g4['rates'].toDict()
+    errsG = g4['errors'].toDict()
+    for label, n in GMG_INTERVAL_CACHE['iterations'].items():
+        if its['Number of iterations ' + label] != n:
+            raise AssertionError(f'runParallelGMG {label}: {its}')
+    for label, r in GMG_INTERVAL_CACHE['rates'].items():
+        if not np.isclose(rates['Rate of convergence ' + label], r,
+                          atol=1e-2):
+            raise AssertionError(f'runParallelGMG {label}: {rates}')
+    for label, e in GMG_INTERVAL_CACHE['errors'].items():
+        if not np.isclose(errsG[label], e, rtol=4.0):
+            raise AssertionError(f'runParallelGMG {label}: {errsG}')
+    summary['gmg'] = {'dofs': g4['info'].toDict()['DoFs'],
+                      'levels': len(g4['hierarchy']),
+                      'sharded_levels': sum(
+                          type(A).__name__ == 'DistributedCSROperator'
+                          for A in g4['ml'].levels.As),
+                      'iterations': its, 'seconds': time.perf_counter() - t,
+                      'timers_ranks4': g4['timers'].toDict(),
+                      'timers_ranks1': g1['timers'].toDict()}
+    log(f"  runParallelGMG interval P1: {summary['gmg']['dofs']} dofs, "
+        f"{summary['gmg']['sharded_levels']} of "
+        f"{summary['gmg']['levels']} levels sharded, iterations "
+        f"{json.dumps(its)}; --ranks 4 repeats --ranks 1's residual "
+        'histories')
+    del g1, g4
+
+    # the dry run of the distributed H2 (its CG must converge)
+    t = time.perf_counter()
+    dr, counts['dryrun'] = count_path(
+        'dryrunDistributedH2', DIST_DRYRUN_PATH,
+        lambda: dryrunDistributedH2(makeDeviceMesh(DIST_RANKS),
+                                    noRef=DIST_DRYRUN_NOREF))
+    dr['seconds'] = time.perf_counter() - t
+    summary['dryrun'] = dr
+
+    cmpOv, counts['overlaps'] = dist_overlaps()
+    k28, k29 = cmpDist['halo']
+    summary['bcast_kernels'] = {
+        'dist_h2_matvec': {'err': cmpDist['bcast'][0]['err'],
+                           'ms': cmpDist['bcast'][0]['ms']},
+        'outbox': {'err': cmpDist['bcast'][1]['err'],
+                   'ms': cmpDist['bcast'][1]['ms']}}
+    k28['err'] = max(k28['err'], cmpDist['bcast'][0]['err'])
+    k29['err'] = max(k29['err'], cmpDist['bcast'][1]['err'],
+                     cmpStrips['err'], cmpOv['recv_add']['err'],
+                     cmpOv['gather2d']['err'])
+    k29['halo_strips'] = {k: cmpStrips[k] for k in
+                          ('err', 'ms', 'plain_ms', 'library_ms')}
+    k29['recv_add'] = {k: cmpOv['recv_add'][k] for k in
+                       ('err', 'ms', 'plain_ms')}
+    k29['gather2d'] = {k: cmpOv['gather2d'][k] for k in
+                       ('err', 'ms', 'plain_ms')}
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 25 summary: {json.dumps(summary)}')
+    return counts, {'dist_h2_matvec': k28, 'outbox': k29}, summary
+
+
 def main():
     try:
         import torch
@@ -8412,6 +9085,7 @@ def main():
     counts22, cmp22, full22, summary22 = phase22()
     counts23, cmp23, summary23 = phase23()
     counts24, cmp24, summary24 = phase24()
+    counts25, cmp25, summary25 = phase25()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -8469,6 +9143,8 @@ def main():
     cmp.update(cmp14)
     cmp.update(cmp19)
     cmp.update(cmp20)
+    cmp.update(cmp25)
+    paths = paths + DIST25_PATHS(counts25)
     for name in kernels.KERNELS:
         route, src, replaces = KERNEL_INFO[name]
         c = cmp[name]
@@ -8708,7 +9384,7 @@ def main():
             'compared_at': FLOAT32_H2_COMPARED_AT[name],
             'float64_ms': c['float64_ms'],
             **({'event_ms': c['event_ms']} if 'event_ms' in c else {})})
-    log(f'phases 1-24 took {time.perf_counter() - T_START:.1f} s')
+    log(f'phases 1-25 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -8720,6 +9396,7 @@ def main():
     log(f'phase 22 summary: {json.dumps(summary22)}')
     log(f'phase 23 summary: {json.dumps(summary23)}')
     log(f'phase 24 summary: {json.dumps(summary24)}')
+    log(f'phase 25 summary: {json.dumps(summary25)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -7,7 +7,8 @@ pynucleus_tpu/base/solvers.py, for
 real float64 systems, for float32 ones in Jacobi and CG (the float32
 dense path), and for complex128 ones in LU, GMRES (runHelmholtz)
 and BiCGStab (the complex Greens operators).  The CG keeps
-``_cg_core``'s semantics: x0 = 0, convergence test on sqrt(r.M.r)
+``_cg_core``'s semantics: x0 = 0 (or the ``setInitialGuess`` vector, as
+for GMRES), convergence test on sqrt(r.M.r)
 (sqrt(r.r) with use2norm) against an absolute tolerance, the residual
 history, and the reference's iteration convention (the loop index at the
 convergence check).
@@ -505,6 +506,12 @@ class iterative_solver(solver):
         self.maxIter = -1
         self.tolerance = 1e-5
         self.residuals = []
+        self.x0 = None
+
+    def setInitialGuess(self, x0=None):
+        """Start CG and GMRES from x0 (None: from 0), as the JAX
+        package's iterative_solver.setInitialGuess."""
+        self.x0 = x0
 
 
 class krylov_solver(iterative_solver):
@@ -538,7 +545,7 @@ class cg_solver(krylov_solver):
         if jacobi:
             invD = (M.diagonal if M is not None
                     else torch.ones_like(b)).contiguous()
-        x = torch.zeros_like(b)
+        x = torch.zeros_like(b) if self.x0 is None else self.x0.clone()
         r = b - A.matvec(x)
         z = invD * r if jacobi else M.matvec(r)
         p = z.clone()
@@ -593,6 +600,8 @@ class gmres_solver(krylov_solver):
         def vec(*shape):
             return torch.empty(shape, dtype=b.dtype, device=dev)
         x, w, Ax, h = vec(n).zero_(), vec(n), vec(n), vec(restart + 1)
+        if self.x0 is not None:
+            x.copy_(self.x0)
         V = vec(restart + 1, n)
         Z = vec(restart, n) if M is not None else None
         guards = torch.tensor([0.0, 1e-300], dtype=torch.float64, device=dev)

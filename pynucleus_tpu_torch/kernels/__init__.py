@@ -1,6 +1,6 @@
 """Hand-written Hopper kernels of the port and their build.
 
-Twenty-seven kernels carry the port's device work:
+Twenty-nine kernels carry the port's device work:
 
   K1 panel_scatter  (csrc/panel_scatter.cuh) panel quadrature of explicit
                     pairs (times the interaction indicator of a finite
@@ -89,6 +89,11 @@ Twenty-seven kernels carry the port's device work:
   K27 sss_spmv      (csrc/sss_spmv.cu)       apply of a symmetric sparse
                     skyline operator, diag x + L x + L^T x, one thread per
                     row over its host-sorted entries of L and of L^T
+  K28 dist_h2_matvec (csrc/dist_h2.cu)       the per-shard phases of the
+                    distributed H2 apply (near, moments, up, far, down,
+                    leaf), every shard of a card in one launch per phase
+  K29 outbox        (csrc/outbox.cu)         the packed-outbox gathers of the
+                    sharded programs: pack, receive-add, masked 2D gather
 
 The quadrature kernels (K1, K2, K3, K6, K7, K12, K13, K19) evaluate the
 kernel's radial profile (nl/kernels.py Profile: the power C r2^e, the
@@ -139,7 +144,8 @@ package has the program they replace: K1-K3, K5-K7, K11-K15, K19, K21
 and K22 in nl/assembly.py, K4, K17 and K18 in base/solvers.py, K8 and K20
 in nl/h2.py, K9, K23 and K27 in base/linear_operators.py, K10 and K26 in
 multilevel/gmg.py, K16 and K25 in fem/assembly.py, K24 in
-nl/operator_interpolation.py.  A wrapper runs the plain
+nl/operator_interpolation.py, K28 and K29 in kernels/dist_h2.py and
+kernels/outbox.py (called by parallel/).  A wrapper runs the plain
 version only for tensors on the CPU; on a CUDA tensor it launches its
 kernel or raises.
 
@@ -215,8 +221,8 @@ KERNELS = ('panel_scatter', 'grid_distant', 'grid_boundary', 'pcg_update',
            'tree_csr_quad', 'cut1d', 'cut2d_polar', 'csr_scatter',
            'gmres_arnoldi', 'bicgstab_update', 'panel_scatter_nonsym',
            'h2_matvec_T', 'panel_scatter_vec', 'panel_scatter_nonsym_vec',
-           'vector_matvec', 'interp_matvec', 'matfree_apply', 'cheb_smooth',
-           'sss_spmv')
+           'vector_matvec', 'interp_matvec', 'matfree_apply',
+           'dist_h2_matvec', 'outbox', 'cheb_smooth', 'sss_spmv')
 K1_TARGETS = ('panel_scatter:dense', 'panel_scatter:slots',
               'panel_scatter:tree', 'panel_scatter:cross',
               'panel_scatter:diag')
@@ -270,9 +276,14 @@ FLOAT32 = ('panel_scatter:float32', 'panel_scatter:float32_natural',
            'panel_scatter:float32_slots', 'panel_scatter:float32_tree',
            'near_enum_quad:float32', 'far_field:float32',
            'h2_matvec:float32', 'block_near_quad:float32')
+# the phases of K28 (kernels/dist_h2.py) and the three gathers of K29
+# (kernels/outbox.py), each counted also under its kernel
+DIST = tuple(f'dist_h2_matvec:{p}' for p in (
+    'near', 'moments', 'up', 'up_shared', 'far', 'far_shared', 'down',
+    'leaf')) + ('outbox:pack', 'outbox:recv_add', 'outbox:gather2d')
 launches = {k: 0 for k in KERNELS + K1_TARGETS + K19_TARGETS + K4_FORMS
             + K23_FORMS + K25_FORMS + COMPLEX + HORIZON + FORMATS + TWOPOINT
-            + ORDERS + FLOAT32}
+            + ORDERS + FLOAT32 + DIST}
 deviceLaunches = {k: 0 for k in KERNELS + COMPLEX + HORIZON + FORMATS
                   + TWOPOINT + ORDERS + FLOAT32}
 
@@ -287,7 +298,8 @@ SOURCES = ('panel_scatter_csr.cu', 'panel_scatter_nonsym.cu',
            'grid_boundary.cu', 'panel_scatter_f32.cu', 'far_field.cu',
            'panel_scatter_vec.cu', 'h2_matvec.cu', 'vector_matvec.cu',
            'cheb_smooth.cu', 'matfree_apply.cu', 'csr_scatter.cu',
-           'interp_matvec.cu', 'sss_spmv.cu', 'csr_spmv.cu')
+           'interp_matvec.cu', 'sss_spmv.cu', 'dist_h2.cu', 'csr_spmv.cu',
+           'outbox.cu')
 HEADERS = ('common.cuh', 'panel_scatter.cuh', 'panel_scatter_nonsym.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
@@ -532,6 +544,37 @@ def _declare(lib):
         'csr_spmv': [P, P, P, P, P, I, I, I, P],
         # data, vals, order, offsets, nnz, stream
         'csr_scatter': [P, P, P, P, I, P],
+        # K29: out, src, srcStride, S, slot, idx64, nk, P, W, stream
+        'outbox_pack': [P, P, L, L, P, I, I, L, I, P],
+        # X, L, buf, nbuf, rp, rs, idx64, nk, nI, C, stream
+        'outbox_recv_add': [P, L, P, L, P, P, I, I, L, I, P],
+        # out, buf, L, gp, gs, vm, idx64, nk, nI, stream
+        'outbox_gather2d': [P, P, L, P, P, P, I, I, L, P],
+        # K28's phases (kernels/dist_h2.py): y, R, xl, buf, bufStride, B,
+        # ptr, col, dat, nnzStride, nk, stream
+        'dist_h2_near': [P, L, P, P, L, L, P, P, P, L, I, P],
+        # own, ownTot, M, xl, R, lfPhi, lfXslot, lfRow, LP, nbar, nk, stream
+        'dist_h2_moments': [P, L, I, P, L, P, P, P, L, I, I, P],
+        # own, partial, ownTot, M, Town, ptr, idx, idxStride, moP, nShrP,
+        # rowOffChild, rowOffParent, nk, stream
+        'dist_h2_up': [P, P, L, I, P, P, P, L, L, L, L, L, I, P],
+        # shr, shrTot, M, psum, Tshr, ptr, idx, nShrP, shrOffChild,
+        # shrOffParent, nk, stream
+        'dist_h2_up_shared': [P, L, I, P, P, P, P, L, L, L, I, P],
+        # outOwn, partC, own, shr, buf, bufStride, nBufRows, ownTot, shrTot,
+        # M, rowOff, shrOff, mo, nShr, ptrA, srcA, KA, nA, ptrC, srcC, KC,
+        # nC, nk, stream
+        'dist_h2_far': [P, P, P, P, P, L, L, L, L, I, L, L, L, L, P, P, P, L,
+                        P, P, P, L, I, P],
+        # outShr, shr, shrTot, M, shrOff, nShr, psum, ptrD, srcD, KD, nk,
+        # stream
+        'dist_h2_far_shared': [P, P, L, I, L, L, P, P, P, P, I, P],
+        # outOwn, outShr, ownTot, shrTot, M, Town, parOwnRow, parShrRow,
+        # Tshr, shrParRow, rowOff, mo, shrOff, nShr, nk, stream
+        'dist_h2_down': [P, P, L, L, I, P, P, P, P, P, L, L, L, L, I, P],
+        # y, R, outOwn, ownTot, M, lfPhi, lfXslot, lfRow, LP, nbar, nk,
+        # stream
+        'dist_h2_leaf': [P, L, P, L, I, P, P, P, L, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

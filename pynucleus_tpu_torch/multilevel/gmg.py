@@ -485,23 +485,51 @@ class multigrid(iterative_solver):
     damped-Jacobi, Chebyshev or ILU smoother, given as the JAX package's
     (a name or a tuple, :func:`_smootherParameters`)."""
 
-    def __init__(self, hierarchy=None, smoother=('jacobi', {'omega': OMEGA})):
+    def __init__(self, hierarchy=None, smoother=('jacobi', {'omega': OMEGA}),
+                 deviceMesh=None, shardThreshold=2000):
         self.hierarchyList = hierarchy
         A = hierarchy[-1]['A'] if hierarchy else None
         super().__init__(A)
         self.smootherType = smoother
         self.maxIter = 50
         self.cycle = 'V'
+        # distributed GMG (pynucleus_tpu/multilevel/gmg.py:307-360): with a
+        # shard mesh of more than one shard, the levels above the coarsest
+        # with at least shardThreshold rows get sharded operators (CSR halo
+        # or distributed H2); the smoothers stay on global vectors, so each
+        # sweep's only exchange is its apply's halo; the coarse levels stay
+        # whole
+        self.deviceMesh = deviceMesh
+        self.shardThreshold = shardThreshold
+
+    def _shardOperator(self, A):
+        """A level operator for the shard mesh: a DistributedH2Matrix of
+        an H2Matrix, a DistributedCSROperator of a CSR operator, else A."""
+        from ..parallel.dist_h2 import (DistributedH2Matrix,
+                                        DistributedCSROperator)
+        from ..nl.h2 import H2Matrix
+        from ..base.linear_operators import CSR_LinearOperator
+        if isinstance(A, H2Matrix):
+            return DistributedH2Matrix(A, self.deviceMesh)
+        if isinstance(A, CSR_LinearOperator):
+            return DistributedCSROperator(A, self.deviceMesh)
+        return A
 
     def setup(self, A=None):
         levels = self.hierarchyList
         kind, omega, pre, post = _smootherParameters(self.smootherType)
         As, Ps, Dinvs = [], [], []
+        shard = (self.deviceMesh is not None
+                 and int(self.deviceMesh.devices.size) > 1)
         for lvlNo, lvl in enumerate(levels):
             A_ = lvl['A']
+            if shard and lvlNo > 0 and A_.num_rows >= self.shardThreshold:
+                A_ = self._shardOperator(A_)
             As.append(A_)
             Ps.append(lvl.get('P', None) if lvlNo > 0 else None)
             Dinvs.append((1.0 / A_.diagonal).contiguous())
+        if shard:
+            self.A = As[-1]
         rhos = precOps = None
         if kind == 'chebyshev':
             if Dinvs[-1].is_complex():

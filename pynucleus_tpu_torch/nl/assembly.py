@@ -2903,6 +2903,39 @@ def _sync(device):
 NEAR_ENGINES = ('block', 'flat', 'host')
 
 
+def _treeCSRToGlobal(op):
+    """The tree-ordered near field ``op`` (a TreeNearOperator) as a
+    CSR_LinearOperator in global dof order (pynucleus_tpu/nl/assembly.py
+    :1704 _treeCSRToGlobal): the rows of a tree node share one column
+    template, so one small argsort per node re-sorts the columns, and the
+    data move by one gather on the device.  With a near field of a part of
+    the node list the other dofs keep empty rows."""
+    m = op.meta
+    N, perm, nnz = m.N, m.perm, m.nnz
+    lenPerG = np.zeros(N, dtype=np.int64)
+    lenPerG[perm] = np.repeat(m.rowLen, m.tLen)
+    indptrG = np.zeros(N + 1, dtype=np.int64)
+    indptrG[1:] = np.cumsum(lenPerG)
+    indicesG = np.empty(nnz, dtype=np.int32)
+    src = np.empty(nnz, dtype=np.int64)
+    for r in range(len(m.tLen)):
+        L, n = int(m.rowLen[r]), int(m.tLen[r])
+        if L == 0 or n == 0:
+            continue
+        tmpl = m.tmplAll[m.tmplStart[r]:m.tmplStart[r] + L]
+        gcols = perm[tmpl]
+        ordC = np.argsort(gcols)
+        t0 = int(m.tStartRow[r])
+        g = perm[t0:t0 + n]
+        pos = (indptrG[g][:, None] + np.arange(L)[None, :]).reshape(-1)
+        src[pos] = (m.indptrT[t0] + np.arange(n)[:, None] * L
+                    + ordC[None, :]).reshape(-1)
+        indicesG[pos] = np.tile(gcols[ordC].astype(np.int32), n)
+    data = op.dataT[torch.as_tensor(src, device=op.device)]
+    return CSR_LinearOperator.fromDevice(indptrG, indicesG, data,
+                                         num_columns=N)
+
+
 class nonlocalBuilder:
     """Assembly of a nonlocal kernel (port of pynucleus_tpu/nl/assembly.py
     nonlocalBuilder).  A variable or nonsymmetric fractional order
@@ -3773,6 +3806,7 @@ class nonlocalBuilder:
         farGi = farGj = gridsAll = None
         farOffs = {}
         farSrcDst = {}
+        farRows = {}
         if farIds:
             gridsAll = batchedChebyshevGrids(
                 m, np.stack([nodes[nid].box for nid in farIds]))
@@ -3786,6 +3820,9 @@ class nonlocalBuilder:
                                          dtype=np.int64, count=pN))
                 rjAll.append(np.fromiter((gridRow[j] for (i, j) in cplist),
                                          dtype=np.int64, count=pN))
+                # the grid rows of each level's pairs (the partition-first
+                # distributed assembly evaluates a shard's blocks alone)
+                farRows[ell] = (riAll[-1], rjAll[-1])
                 farSrcDst[ell] = (
                     np.fromiter((pos[j] for (i, j) in cplist),
                                 dtype=np.int64, count=pN),
@@ -3848,10 +3885,12 @@ class nonlocalBuilder:
         leafPhi = flatPhi.reshape(L, maxLeafN, M)
 
         return dict(nodes=nodes, Pfar=Pfar, Pnear=Pnear, m=m, M=M,
+                    dt=np.float32 if self.real == torch.float32
+                    else np.float64,
                     nLvl=nLvl, byLevel=byLevel, pos=pos, sizes=sizes,
                     Thost=Thost, parentIdxH=parentIdxH,
                     farGi=farGi, farGj=farGj, farOffs=farOffs,
-                    farSrcDst=farSrcDst, gridsAll=gridsAll,
+                    farSrcDst=farSrcDst, farRows=farRows, gridsAll=gridsAll,
                     leafDofs=leafDofs, leafPhi=leafPhi, lvlIdx=lvlIdx,
                     posIdx=posIdx, maxLeafN=maxLeafN)
 
@@ -3963,7 +4002,7 @@ class nonlocalBuilder:
             t0 = self._lap('surfaces', t0)
             meta = TreeNearMeta(indptrT, tmplAll, tmplStart, tStartRow, tLen,
                                 rowLen, perm, N)
-            op = TreeNearOperator(acc.data, meta)
+            op = self._nearFormat(TreeNearOperator(acc.data, meta))
             self._lap('near operator set-up', t0)
             return op
         self._runNearSingular(acc, info, pairMasks)
@@ -3992,9 +4031,22 @@ class nonlocalBuilder:
         t0 = self._lap('surfaces', t0)
         meta = TreeNearMeta(indptrT, tmplAll, tmplStart, tStartRow, tLen,
                             rowLen, perm, N)
-        op = TreeNearOperator(acc.data, meta)
+        op = self._nearFormat(TreeNearOperator(acc.data, meta))
         self._lap('near operator set-up', t0)
         return op
+
+    def _nearFormat(self, op):
+        """The near field in ``params['nearFormat']``: 'blocks' (the
+        default) the TreeNearOperator itself, 'csr' a CSR_LinearOperator in
+        global dof order (pynucleus_tpu/nl/assembly.py:3436-3438; the
+        partition-first distributed assembly reads a shard's rows from it).
+        Any other value raises ValueError."""
+        fmt = self.params.get('nearFormat', 'blocks')
+        if fmt == 'blocks':
+            return op
+        if fmt != 'csr':
+            raise ValueError(f"nearFormat {fmt!r}: 'blocks' or 'csr'")
+        return _treeCSRToGlobal(op)
 
     def _runNearDistantLegacy(self, acc, IJ, nodeRow, ncArr, ncOff,
                               pairMasks):

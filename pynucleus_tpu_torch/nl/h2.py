@@ -511,6 +511,10 @@ class H2Matrix(LinearOperator):
                              'needs node list == leaf list and one leaf per '
                              'dof')
         self.L, self.nbar, self.M = L, nbar, M
+        # the leaf layout on the host (the distributed operator's set-up)
+        self.leafDofs = leafDofs
+        self.leafLevelPos = tuple(np.asarray(a, dtype=np.int64)
+                                  for a in leafLevelPos)
         dt = Anear.dtype
         self.leafPhi = leafPhi.to(device=dev, dtype=dt).contiguous()
         sizes = [int(lv['size']) for lv in levels]

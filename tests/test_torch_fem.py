@@ -103,6 +103,17 @@ def test_port_imports_no_jax():
             'from pynucleus_tpu_torch.interop import builderFromArrays; '
             'from pynucleus_tpu_torch.nl.assembly import '
             'panel_scatter_natural; '
+            'import pynucleus_tpu_torch.parallel, '
+            'pynucleus_tpu_torch.parallel.dist, '
+            'pynucleus_tpu_torch.parallel.dist_h2, '
+            'pynucleus_tpu_torch.parallel.maps, '
+            'pynucleus_tpu_torch.parallel.overlaps, '
+            'pynucleus_tpu_torch.parallel.collectives, '
+            'pynucleus_tpu_torch.fem.partitioning, '
+            'pynucleus_tpu_torch.kernels.outbox, '
+            'pynucleus_tpu_torch.kernels.dist_h2, '
+            'pynucleus_tpu_torch.drivers.testDistOp, '
+            'pynucleus_tpu_torch.drivers.runParallelGMG; '
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'pynucleus_tpu' or "
             "m.startswith('pynucleus_tpu.') for m in sys.modules), "
