@@ -339,6 +339,33 @@ result line):
      and K29's pack against index_select.  Alone: `python -c 'import
      chip_smoke as c; from pynucleus_tpu_torch import kernels;
      kernels.library(); c.phase25()'`.
+26. the float32 remainder (params={'dtype': np.float32} beyond getDense
+     and getH2): runNonlocal's square with its collar at noRef 2 (the
+     constant kernel, ball2, horizon 0.2; a path): getSparse in float32
+     and float64 on one dofmap and kernel (one O(C^2) classification),
+     CG-Jacobi on each (1e-6, 500 at most: K9's and K4's float32
+     instances), the float32 solution within 1e-3 of the float64 one,
+     the float32 getDiagonal float64 and within one float32 ulp of the
+     float32 operator's diagonal; the interval at noRef 9 the same way
+     without the diagonal (K14, a path); the float32 getDiagonal of phase
+     18's zero-exterior lines (the interval at noRef 12, the disc at noRef
+     4; a path each) within 1e-3 of their float64 ones (the float32
+     diagonal moves away with refinement in both packages:
+     scripts/f32_diag_gap_jax.py); the host engine's
+     float32 getH2 on the disc circle(n=8) at noRef 5 (3,969 dofs, one
+     level below phase 24's: the host enumeration; a path) within 1e-5
+     of max|y| of the float32 block-engine operator of the same mesh, and
+     DistributedH2Matrix of it over four shards in halo and bcast mode (a
+     path each): a float64 apply of a float32 x within 1e-12 (relative) of
+     K8's float64 apply on the upcast coefficients (H.double()); then K1's
+     float32 instances into float64 data (with the indicator) and into
+     the float64 diagonal, K9's and K13's float32 instances against their
+     float32 plain versions at these calls (1e-5 of the largest entry),
+     with the same calls' float64 time and, for K9, torch.sparse's
+     float32 product.  The cut pairs run K14 and K15 in float64, as the
+     JAX float32 program runs them.  Alone: `python -c 'import chip_smoke
+     as c; from pynucleus_tpu_torch import kernels; kernels.library();
+     c.phase26()'` (it then builds phase 18's diagonals itself).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -351,8 +378,9 @@ per finite-horizon variant of K1, K15 (ball1, ellipse) and K19
 variant of K1, K2, K3, K14, K15 and K19 (tempered, two_point,
 log_inverse, polynomial, gaussian, exponential), per order-of-position
 variant of K1 and K19, per manifold variant of K1 and K2, per float32
-instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4
-and of the H2 path (K1's slot and tree targets, K6, K7, K8, K12)
+instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4,
+of the H2 path (K1's slot and tree targets, K6, K7, K8, K12) and of the
+float32 remainder (K1 into float64 CSR data and diagonals, K9, K13)
 (with the same calls' float64 time), and K24-K29, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
@@ -946,17 +974,18 @@ def block_quad_work(args, entryBytes=16, peak=F64_PEAK):
     return (nbytes(args[1:]) + entryBytes * blockEntries, ops, peak)
 
 
-def tree_quad_work(args):
+def tree_quad_work(args, entryBytes=16, peak=F64_PEAK):
     """K13 on recorded args (nnz+1, c1, c2, I, J, offF, offB, sf,
     vertices, cells, vols, dofs, tables, bary_x, bary_y, w, PSIP,
     profile): K1's quadrature body per element, the touched entries read
-    and written once."""
+    and written once (``entryBytes`` for the read and the write, ``peak``
+    the rate of the operations' type)."""
     c1, vertices, cells, w, PSIP = args[1], args[8], args[9], args[-3], \
         args[-2]
     n, Q, nn, dim, nv = c1.shape[0], w.shape[0], PSIP.shape[1], \
         vertices.shape[1], cells.shape[1]
     ops = n * Q * (4 * dim * nv + 3 * dim + 3 + 2 * nn)
-    return (nbytes(args[1:]) + 16 * n * nn, ops, F64_PEAK)
+    return (nbytes(args[1:]) + entryBytes * n * nn, ops, peak)
 
 
 def compare_block_count(calls):
@@ -3938,7 +3967,8 @@ def device_ms_by_kernel(run):
     return dict(sorted(dev.items(), key=lambda kv: -kv[1])[:6])
 
 
-def panel_work_dof(args, cplx=False, mask=None, indicatorOps=0):
+def panel_work_dof(args, cplx=False, mask=None, indicatorOps=0,
+                   peak=F64_PEAK):
     """K1's dense or diagonal target on recorded args (shape, vertices,
     vi1, vi2, dofRows, volsym, normals (None), bary_x, bary_y, w, PSIP,
     profile), counting in this run's data the entries the target takes
@@ -3948,7 +3978,8 @@ def panel_work_dof(args, cplx=False, mask=None, indicatorOps=0):
     ``cplx``: the Bessel pair and greens2D) and ``indicatorOps``, per entry
     and node a multiply-add (complex: 4 operations); inputs read once, the
     entries (complex: 16 B) read and written once, at most the whole
-    target, however many pairs share them."""
+    target, however many pairs share them; ``peak`` the rate of the
+    operations' type."""
     shape, vertices, vi1, vi2, dofRows = args[:5]
     Q, dim = args[-3].shape[0], vertices.shape[1]
     r, c = dofRows[:, :, None], dofRows[:, None, :]
@@ -3961,7 +3992,7 @@ def panel_work_dof(args, cplx=False, mask=None, indicatorOps=0):
                         + (BESSEL_OPS if cplx else 3) + indicatorOps)
                + (4 if cplx else 2) * entries)
     return (nbytes(args[1:]) + (32 if cplx else 16)
-            * min(entries, math.prod(shape)), ops, F64_PEAK)
+            * min(entries, math.prod(shape)), ops, peak)
 
 
 # getDiagonal of a real kernel of a finite horizon (the constant kernel of
@@ -4973,22 +5004,31 @@ def h2c_line(domain, noRef, solve):
     return out
 
 
-def mf_diag_line(domain, noRef):
-    """getDiagonal with the zero-exterior term (s MF_DIAG_S, infinite
-    horizon; 2D: normals) against the diagonal of getDense without the
-    grid (the same classification), 1e-12 of the largest."""
-    import torch
+def mf_diag_setup(domain, noRef):
+    """(dm, kernel) of a zero-exterior diagonal line: the fractional
+    kernel of order MF_DIAG_S (infinite horizon) on the interval [-1, 1]
+    or the disc circle(h=0.78) refined noRef times, P1, on the card."""
     from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
     from pynucleus_tpu_torch.fem.meshes import simpleInterval, circle
-    from pynucleus_tpu_torch.nl.assembly import (assembleNonlocal,
-                                                 nonlocalBuilder)
     from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
     mesh = simpleInterval(-1.0, 1.0) if domain == 'interval' else \
         circle(h=0.78, radius=1.0)
     for _ in range(noRef):
         mesh = mesh.refine()
-    dm = P1_DoFMap(mesh, device='cuda')
-    kernel = getFractionalKernel(mesh.dim, MF_DIAG_S)
+    return P1_DoFMap(mesh, device='cuda'), getFractionalKernel(mesh.dim,
+                                                               MF_DIAG_S)
+
+
+def mf_diag_line(domain, noRef):
+    """getDiagonal with the zero-exterior term (s MF_DIAG_S, infinite
+    horizon; 2D: normals) against the diagonal of getDense without the
+    grid (the same classification), 1e-12 of the largest.  The dofmap, the
+    kernel and the diagonal are kept for phase 26's float32 getDiagonal."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import (assembleNonlocal,
+                                                 nonlocalBuilder)
+    dm, kernel = mf_diag_setup(domain, noRef)
+    mesh = dm.mesh
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d = assembleNonlocal(dm, kernel, matrixFormat='diagonal').diagonal
@@ -4998,6 +5038,7 @@ def mf_diag_line(domain, noRef):
                                         params={'denseGrid': False})
                         .getDense().data)
     err = float((d - dD).abs().max() / dD.abs().max())
+    KEPT[f'diag64_{domain}'] = (dm, kernel, d)
     out = {'noRef': noRef, 'cells': mesh.num_cells, 'dofs': dm.num_dofs,
            'getDiagonal_s': tDiag, 'vs_dense': err}
     log(f'  diagonal {domain} noRef {noRef}: {json.dumps(out)}')
@@ -9030,6 +9071,396 @@ def phase25():
     return counts, {'dist_h2_matvec': k28, 'outbox': k29}, summary
 
 
+# ----------------------------------------------------------------- phase 26
+
+# the float32 remainder: getSparse, getDiagonal and CG-Jacobi of a finite
+# horizon in float32 (runNonlocal's constant kernel, ball2, horizon 0.2, on
+# the square with its collar at FH_NOREF, as phase 10: the O(C^2)
+# classification, shared by the float32 and float64 builds of one dofmap;
+# the interval at FH32_INTERVAL_NOREF), the float32 getDiagonal of phase
+# 18's zero-exterior lines, the host engine's float32 getH2 on phase 24's
+# disc and DistributedH2Matrix of it over FH32_SHARDS shards
+FH32_HORIZON = 0.2
+FH32_INTERVAL_NOREF = 9
+# the host engine's disc: circle(n=8) refined FH32_HOST_NOREF times (3,969
+# dofs), one level below phase 24's, against a block-engine build of the
+# same mesh (the host enumeration on phase 24's 16,129 dofs took 42.6 s)
+FH32_HOST_NOREF = H2F_NOREF - 1
+FH32_SHARDS = 4
+TOL_DIST32 = 1e-12        # the float64 distributed apply of a float32 H2
+FH32_SPARSE = ('panel_scatter', 'panel_scatter:slots',
+               'panel_scatter:float32', 'panel_scatter:float32_indicator')
+FH32_CG = ('csr_spmv', 'csr_spmv:float32', 'pcg_update', 'pcg_update:jacobi',
+           'pcg_update:float32')
+FH32_PATHS = {'square': FH32_SPARSE + ('cut2d_polar',) + FH32_CG,
+              'interval': FH32_SPARSE + ('cut1d',) + FH32_CG}
+FH32_DIAG_PATH = ('panel_scatter', 'panel_scatter:diag',
+                  'panel_scatter:float32', 'panel_scatter:float32_diag')
+FH32_HOST_PATH = ('panel_scatter', 'panel_scatter:float32', 'tree_csr_quad',
+                  'tree_csr_quad:float32', 'far_field', 'far_field:float32')
+FH32_DIST_PATH = ('dist_h2_matvec', 'outbox')
+FLOAT32_REM_REPLACES = {
+    'panel_scatter:float32_indicator': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:float32_diag': 'pynucleus_tpu/nl/assembly.py:91',
+    'csr_spmv:float32': 'pynucleus_tpu/base/linear_operators.py:310',
+    'tree_csr_quad:float32': 'pynucleus_tpu/nl/assembly.py:1118'}
+FLOAT32_REM_SOURCES = {
+    'panel_scatter:float32_indicator':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_f32.cu',
+    'panel_scatter:float32_diag':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_f32.cu'}
+_FH32_SQ = (f'the float32 square (runNonlocal\'s square with its collar at '
+            f'noRef {FH_NOREF}, the constant kernel, ball2, horizon '
+            f'{FH32_HORIZON})')
+FLOAT32_REM_COMPARED_AT = {
+    'panel_scatter:float32_indicator': _FH32_SQ + ': the largest bucket of '
+    'its getSparse (float32 entries into float64 data)',
+    'panel_scatter:float32_diag': 'the float32 getDiagonal of the disc at '
+    'noRef 4 (s 0.6, zero exterior): its largest bucket and its largest '
+    'bucket with normals (the exterior rows), into the float64 diagonal',
+    'csr_spmv:float32': _FH32_SQ + ' and the interval at noRef '
+    f'{FH32_INTERVAL_NOREF}: 10 products y = S x with each float32 sparse '
+    'operator',
+    'tree_csr_quad:float32': f'the float32 host-engine getH2 of the disc '
+    f'circle(n=8) refined {FH32_HOST_NOREF} times (3,969 dofs): its largest '
+    'call'}
+
+
+def fh32_setup(domain, noRef):
+    """(dm, kernel): runNonlocal's constant kernel (horizon FH32_HORIZON,
+    ball2) on nonlocalMesh's domain with its collar refined noRef times,
+    P1 on the interior dofs, on the card."""
+    from pynucleus_tpu_torch.fem.dofmaps import P1_DoFMap
+    from pynucleus_tpu_torch.nl.problems import (nonlocalMesh, processKernel,
+                                                 HOMOGENEOUS_DIRICHLET)
+    kernel = processKernel(domain, 'constant', 'const(0.4)', FH32_HORIZON)
+    mesh, info = nonlocalMesh(domain, kernel, HOMOGENEOUS_DIRICHLET)
+    for _ in range(noRef):
+        mesh = mesh.refine()
+    return P1_DoFMap(mesh, tag=info['domain'], device='cuda'), kernel
+
+
+def fh32_cg(S, b):
+    """CG-Jacobi on S (F32_CG_TOL, F32_CG_MAXITER): (u, iterations,
+    converged, the relative residual)."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    cg = solverFactory.build('cg-jacobi', A=S, setup=True)
+    cg.tolerance = F32_CG_TOL
+    cg.maxIter = F32_CG_MAXITER
+    f32_tf32_off()
+    u = cg.solve(b)
+    torch.cuda.synchronize()
+    if u.dtype != b.dtype or not bool(torch.isfinite(u).all()):
+        raise AssertionError(f'CG-Jacobi: the solution is {u.dtype}')
+    res = float(torch.linalg.norm(b - S.matvec(u)) / torch.linalg.norm(b))
+    return u, cg.iterations, bool(cg.residuals[-1] <= F32_CG_TOL), res
+
+
+def fh32_line(domain, noRef, diagonal=False):
+    """getSparse in float32 and float64 on one dofmap and kernel (one
+    classification), CG-Jacobi on each (b = M 1 in the working type), the
+    float32 data and solution against the float64 ones; with ``diagonal``
+    the float32 getDiagonal (float64, as the JAX package's) against the
+    float32 operator's diagonal (one float32 ulp).  Returns (summary, the
+    float32 and float64 operators)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    dm, kernel = fh32_setup(domain, noRef)
+    b64 = assembleRHS(dm, constant(1.0)).data
+    out = {'dofs': dm.num_dofs, 'noRef': noRef}
+    ops, us = {}, {}
+    for dt in ('float32', 'float64'):
+        builder = nonlocalBuilder(dm, kernel, params={'dtype': getattr(
+            np, dt)})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S = builder.getSparse()
+        torch.cuda.synchronize()
+        real = getattr(torch, dt)
+        if S.data.dtype != real or not bool(torch.isfinite(S.data).all()):
+            raise AssertionError(f'{domain} getSparse ({dt}): '
+                                 f'{S.data.dtype} data')
+        u, its, conv, res = fh32_cg(S, b64.to(real))
+        if not conv:
+            raise AssertionError(f'{domain} CG-Jacobi ({dt}) did not '
+                                 f'converge in {its} iterations')
+        out[dt] = {'getSparse_s': time.perf_counter() - t0,
+                   'timers_s': dict(builder.timers), 'nnz': S.nnz,
+                   'iterations': its, 'relative_residual': res}
+        ops[dt], us[dt] = S, u
+    d32, d64 = ops['float32'].data.double(), ops['float64'].data
+    out['data_gap'] = float((d32 - d64).abs().max() / d64.abs().max())
+    out['solution_gap'] = float(torch.linalg.norm(us['float32'].double()
+                                                  - us['float64'])
+                                / torch.linalg.norm(us['float64']))
+    if not out['solution_gap'] <= TOL_F32_VS_F64:
+        raise AssertionError(f"{domain}: the float32 solution "
+                             f"{out['solution_gap']} from the float64 one")
+    if diagonal:
+        t0 = time.perf_counter()
+        D = nonlocalBuilder(dm, kernel, params={
+            'dtype': np.float32}).getDiagonal().data
+        torch.cuda.synchronize()
+        dS = ops['float32'].diagonal.to(D.device)
+        d32 = D.float()
+        ulp = torch.nextafter(d32.abs(), torch.tensor(
+            float('inf'), device=D.device)) - d32.abs()
+        out['diagonal'] = {'getDiagonal_s': time.perf_counter() - t0,
+                           'dtype': str(D.dtype).split('.')[-1],
+                           'ulps_from_sparse': float(
+                               ((dS - d32).abs() / ulp).max())}
+        if D.dtype != torch.float64 or \
+                not bool(((dS - d32).abs() <= ulp).all()):
+            raise AssertionError(f"{domain}: the float32 getDiagonal "
+                                 f"{out['diagonal']} from the sparse one")
+    log(f'  {domain} noRef {noRef} (horizon {FH32_HORIZON}): '
+        f'{json.dumps(out)}')
+    return out, ops
+
+
+def fh32_diag_line(domain, noRef):
+    """The float32 getDiagonal (float64) of phase 18's zero-exterior line
+    against its float64 getDiagonal (kept by phase 18 with its dofmap and
+    kernel, whose classification the float32 build reuses; made here when
+    phase 18 did not run), TOL_F32_VS_F64 of the largest entry: the float32
+    diagonal of s 0.6 moves away from the float64 one with refinement, in
+    both packages alike (scripts/f32_diag_gap_jax.py)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    kept = KEPT.pop(f'diag64_{domain}', None)
+    if kept is None:
+        dm, kernel = mf_diag_setup(domain, noRef)
+        d64 = nonlocalBuilder(dm, kernel).getDiagonal().data
+    else:
+        dm, kernel, d64 = kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    D = nonlocalBuilder(dm, kernel, params={
+        'dtype': np.float32}).getDiagonal().data
+    torch.cuda.synchronize()
+    out = {'noRef': noRef, 'dofs': dm.num_dofs,
+           'getDiagonal_s': time.perf_counter() - t0,
+           'dtype': str(D.dtype).split('.')[-1],
+           'gap': float((D - d64).abs().max() / d64.abs().max())}
+    log(f'  float32 diagonal {domain} noRef {noRef}: {json.dumps(out)}')
+    if D.dtype != torch.float64 or not out['gap'] <= TOL_F32_VS_F64:
+        raise AssertionError(f'float32 diagonal {domain}: {out}')
+    return out
+
+
+def fh32_host_line(x):
+    """The float32 getH2 with nearEngine='host' on the disc at
+    FH32_HOST_NOREF: build seconds, its apply on x against the float32
+    block-engine operator of the same mesh, relative to max|y|.  Returns
+    (summary, the host-engine operator)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.kernels import getFractionalKernel
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm = h2f_dm('disc', FH32_HOST_NOREF)
+    kernel = getFractionalKernel(2, F32_S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = nonlocalBuilder(dm, kernel, params={'dtype': np.float32,
+                                            'nearEngine': 'host'})
+    H = b.getH2()
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    block = nonlocalBuilder(dm, kernel, params={'dtype': np.float32}).getH2()
+    if H.dtype != torch.float32:
+        raise AssertionError(f'host engine float32: a {H.dtype} operator')
+    yb = block.matvec(x)
+    gap = float((H.matvec(x) - yb).abs().max() / yb.abs().max())
+    out = {'dofs': dm.num_dofs, 'build_s': build, 'timers_s': b.timers,
+           'near_nnz': H.Anear.nnz, 'vs_block_engine': gap}
+    log(f'  host engine float32 getH2: {json.dumps(out)}')
+    if not gap <= TOL_F32:
+        raise AssertionError(f'host engine float32: {gap} from the block '
+                             'engine')
+    return out, H
+
+
+def fh32_dist_line(H, x, bcast):
+    """DistributedH2Matrix of the float32 H over FH32_SHARDS shards on the
+    card: a float64 apply of the float32 x, against K8's float64 apply of
+    H's coefficients upcast (H.double()), relative 2-norm."""
+    import torch
+    from pynucleus_tpu_torch.parallel import makeDeviceMesh
+    from pynucleus_tpu_torch.parallel import DistributedH2Matrix
+    t0 = time.perf_counter()
+    A = DistributedH2Matrix(H, makeDeviceMesh(FH32_SHARDS, device='cuda'),
+                            bcast=bcast)
+    setup = time.perf_counter() - t0
+    y = A.matvec(x)
+    ref = H.double().matvec(x.double())
+    rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+    out = {'setup_s': setup, 'dtype': str(y.dtype).split('.')[-1],
+           'vs_upcast_h2': rel}
+    log(f"  DistributedH2Matrix ({'bcast' if bcast else 'halo'}) of the "
+        f'float32 H2: {json.dumps(out)}')
+    if y.dtype != torch.float64 or not rel <= TOL_DIST32:
+        raise AssertionError(f'distributed float32 H2: {out}')
+    return out
+
+
+def compare_csr_spmv_f32(pairs, reps=10):
+    """K9's float32 instance on the float32 sparse operators (each with
+    its float64 twin of the same pattern): y = S x against the plain
+    version (TOL_F32 of max|y|), then ``reps`` products each way, through
+    the float64 instance on the twin and through one float32 torch.sparse
+    CSR product (the library's yardstick, never used by the port), after
+    an untimed call of each.  Returns the result() with float64_ms."""
+    import torch
+    from pynucleus_tpu_torch.base.linear_operators import (csr_spmv,
+                                                           _csr_spmv_plain)
+    g = torch.Generator('cuda').manual_seed(26)
+    worst = ms = ms64 = plain_ms = lib_ms = 0.0
+    work = []
+    for S, S64 in pairs:
+        x = torch.randn(S.num_columns, dtype=torch.float32, device='cuda',
+                        generator=g)
+        x64 = x.double()
+        args = (S.indptr, S.indices, S.data, x)
+        args64 = (S64.indptr, S64.indices, S64.data, x64)
+        yk = csr_spmv(*args)
+        yp = _csr_spmv_plain(*args, torch.empty_like(yk))
+        err = float((yk - yp).abs().max())
+        scale = float(yp.abs().max())
+        if not (scale > 0 and err <= TOL_F32 * scale):
+            raise AssertionError(f'csr_spmv (float32): max err {err} (max '
+                                 f'{scale})')
+        worst = max(worst, err)
+        L = torch.sparse_csr_tensor(S.indptr, S.indices, S.data,
+                                    size=S.shape)
+        yl = torch.mv(L, x)
+        y64 = csr_spmv(*args64)
+        ms += timed(lambda: [csr_spmv(*args, out=yk)
+                             for _ in range(reps)]) / reps
+        ms64 += timed(lambda: [csr_spmv(*args64, out=y64)
+                               for _ in range(reps)]) / reps
+        plain_ms += timed(lambda: [_csr_spmv_plain(*args, yp)
+                                   for _ in range(reps)]) / reps
+        lib_ms += timed(lambda: [torch.mv(L, x) for _ in range(reps)]) / reps
+        if not float((yl - yk).abs().max()) <= TOL_F32 * scale:
+            raise AssertionError('csr_spmv (float32): the library product '
+                                 'differs')
+        work.append((nbytes(*args) + x.element_size() * S.num_rows,
+                     2 * S.nnz, F32_PEAK))
+    log(f'  csr_spmv (float32): {len(pairs)} operators, max abs err '
+        f'{worst:.3e}, kernel {ms:.4f} ms (float64 {ms64:.4f}), plain '
+        f'{plain_ms:.4f} ms, torch.sparse {lib_ms:.4f} ms per set of '
+        'products')
+    out = result(worst, ms, plain_ms, work, lib_ms)
+    out['float64_ms'] = ms64
+    return out
+
+
+def phase26():
+    """The float32 remainder: the square's float32 getSparse (K1's float32
+    instance into float64 data with the indicator, K15 in float64),
+    CG-Jacobi (K9's and K4's float32 instances) and getDiagonal against
+    the float64 ones (a path); the interval's at noRef FH32_INTERVAL_NOREF
+    (K14, a path); the float32 getDiagonal of phase 18's lines (a path
+    each); the host engine's float32 getH2 on phase 24's disc (K13's
+    float32 instance, a path) and DistributedH2Matrix of it in halo and
+    bcast mode (the float64 K28 and K29, a path each); then each new
+    float32 instance against its float32 plain version at these calls
+    (TOL_F32 of the largest entry) with the same calls' float64 time.
+    Returns (launch counts per path, comparisons, summary)."""
+    import contextlib
+    import functools
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    log('phase 26: the float32 remainder (getSparse, getDiagonal, CG on the '
+        'sparse operator, the host engine, the distributed apply)')
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    counts, summary, cmp = {}, {}, {}
+    def f32Size(normals=False):
+        """The size of a K1 call by its pairs: the float32 tables' calls
+        alone (with ``normals``, those with normals alone), -1 for the
+        others (never kept)."""
+        def size(out, v, vi1, vi2, index, vs, nm, *a):
+            ok = v.dtype == torch.float32 and (nm is not None or not normals)
+            return vi1.shape[0] if ok else -1
+        return size
+    with ArgRecorder(asm, 'panel_scatter_slots', dataFirst=True,
+                     size=f32Size()) as k1s:
+        (summary['square'], sq), counts['square'] = count_path(
+            'float32 square', FH32_PATHS['square'],
+            lambda: fh32_line('square', FH_NOREF, diagonal=True))
+    (summary['interval'], iv), counts['interval'] = count_path(
+        'float32 interval', FH32_PATHS['interval'],
+        lambda: fh32_line('interval', FH32_INTERVAL_NOREF))
+    with contextlib.ExitStack() as stack:
+        diagRecs = [stack.enter_context(ArgRecorder(
+            asm, 'panel_scatter_diag', dataFirst=True, size=f32Size(nm)))
+            for nm in (False, True)]
+        for domain, noRef in MF_DIAG_LINES:
+            key = f'diag_{domain}'
+            summary[key], counts[key] = count_path(
+                f'float32 diagonal {domain}', FH32_DIAG_PATH,
+                lambda: fh32_diag_line(domain, noRef))
+    x = torch.randn(h2f_dm('disc', FH32_HOST_NOREF).num_dofs,
+                    dtype=torch.float32,
+                    device='cuda',
+                    generator=torch.Generator('cuda').manual_seed(H2F_SEED))
+    with ArgRecorder(asm, 'tree_csr_quad', dataFirst=True,
+                     size=lambda data, c1, *a: c1.shape[0]) as k13:
+        (summary['host'], H), counts['host'] = count_path(
+            'float32 host engine', FH32_HOST_PATH,
+            lambda: fh32_host_line(x))
+    for bcast in (False, True):
+        key = 'dist_bcast' if bcast else 'dist_halo'
+        summary[key], counts[key] = count_path(
+            f'distributed float32 H2 ({key})', FH32_DIST_PATH,
+            lambda: fh32_dist_line(H, x, bcast))
+    del H
+    torch.cuda.empty_cache()
+
+    log('  the float32 instances against their plain versions (1e-5 of the '
+        'largest entry), and the same calls in float64')
+    F32W = dict(peak=F32_PEAK)
+    for name, calls, n, work, dtype, csr in (
+            ('panel_scatter:float32_indicator', k1s.calls,
+             'panel_scatter_slots', panel_work, torch.float64, True),
+            ('panel_scatter:float32_diag',
+             diagRecs[0].calls + diagRecs[1].calls, 'panel_scatter_diag',
+             panel_work_dof, torch.float64, False),
+            ('tree_csr_quad:float32', k13.calls, 'tree_csr_quad',
+             functools.partial(tree_quad_work, entryBytes=8), torch.float32,
+             True)):
+        if not calls:
+            raise AssertionError(f'{n}: phase 26 made no call of it')
+        kernel, plain = getattr(asm, n), getattr(asm, '_' + n + '_plain')
+        cmp[name] = compare_target_kernel(
+            name, calls, kernel, plain, functools.partial(work, **F32W),
+            dtype=dtype, csr=csr, tol=TOL_F32)
+        cmp[name]['float64_ms'] = float64_ms(calls, kernel)
+        log(f'    the same calls in float64: {cmp[name]["float64_ms"]:.3f} '
+            'ms')
+    cmp['csr_spmv:float32'] = compare_csr_spmv_f32(
+        [(sq['float32'], sq['float64']), (iv['float32'], iv['float64'])])
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 26 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def FLOAT32_REM_26_PATHS(counts26):
+    """The main paths of phase 26: (kernels, label, launch counts)."""
+    paths = {'square': FH32_PATHS['square'],
+             'interval': FH32_PATHS['interval'], 'host': FH32_HOST_PATH,
+             'dist_halo': FH32_DIST_PATH, 'dist_bcast': FH32_DIST_PATH}
+    return tuple((paths.get(key, FH32_DIAG_PATH), f'float32_{key}', c)
+                 for key, c in counts26.items())
+
+
+
 def main():
     try:
         import torch
@@ -9086,6 +9517,7 @@ def main():
     counts23, cmp23, summary23 = phase23()
     counts24, cmp24, summary24 = phase24()
     counts25, cmp25, summary25 = phase25()
+    counts26, cmp26, summary26 = phase26()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -9384,7 +9816,29 @@ def main():
             'compared_at': FLOAT32_H2_COMPARED_AT[name],
             'float64_ms': c['float64_ms'],
             **({'event_ms': c['event_ms']} if 'event_ms' in c else {})})
-    log(f'phases 1-25 took {time.perf_counter() - T_START:.1f} s')
+    # the float32 instances of phase 26: K1's slot target into float64 data
+    # with the indicator and its diagonal target, K9 and K13; the CUDA
+    # launches counted where they launched
+    for name in FLOAT32_REM_COMPARED_AT:
+        base = name.split(':')[0]
+        route, src, _ = KERNEL_INFO[base]
+        c = cmp26[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in FLOAT32_REM_26_PATHS(counts26) if counts[name]}
+        table.append({
+            'name': name, 'route': route,
+            'source': FLOAT32_REM_SOURCES.get(name, src),
+            'replaces': FLOAT32_REM_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in FLOAT32_REM_26_PATHS(counts26)),
+            'compared_at': FLOAT32_REM_COMPARED_AT[name],
+            'float64_ms': c['float64_ms']})
+    log(f'phases 1-26 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -9397,6 +9851,7 @@ def main():
     log(f'phase 23 summary: {json.dumps(summary23)}')
     log(f'phase 24 summary: {json.dumps(summary24)}')
     log(f'phase 25 summary: {json.dumps(summary25)}')
+    log(f'phase 26 summary: {json.dumps(summary26)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

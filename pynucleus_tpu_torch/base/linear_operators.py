@@ -104,20 +104,23 @@ class Diagonal_LinearOperator(LinearOperator):
 # the value types K9 takes: (data, x) -> the code of its C entry point
 _SPMV_TYPES = {(torch.float64, torch.float64): 0,
                (torch.float64, torch.complex128): 1,
-               (torch.complex128, torch.complex128): 2}
+               (torch.complex128, torch.complex128): 2,
+               (torch.float32, torch.float32): 3}
 
 
 def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
     """y = A x (``accumulate``: y += A x) for the CSR matrix A given by
     indptr [nRows+1], indices [nnz] int32 and data [nnz]; x [nCols].  data
     and x are float64, or x is complex128 and data float64 or complex128
-    (a real prolongation applied to a complex vector, a complex operator);
-    y has x's type.  Writes into ``out`` [nRows] when given, else into a
+    (a real prolongation applied to a complex vector, a complex operator),
+    or both float32 (the float32 sparse operator); y has x's type.
+    Writes into ``out`` [nRows] when given, else into a
     new vector (zero-filled first with ``accumulate``), and returns it.
 
     Kernel K9 (kernels/csrc/csr_spmv.cu; the complex variant its
-    double2 instances) on CUDA tensors, the plain version on CPU tensors.
-    Replaces the gather + segment-sum of
+    double2 instances, counted also as ``csr_spmv:complex``, the float32
+    one as ``csr_spmv:float32``) on CUDA tensors, the plain version on CPU
+    tensors.  Replaces the gather + segment-sum of
     pynucleus_tpu/base/linear_operators.py:310 CSR_LinearOperator.matvec
     and, on the CSR of the transpose, :314 rmatvec."""
     nRows = indptr.shape[0] - 1
@@ -126,7 +129,8 @@ def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
     if types is None:
         raise ValueError(f'csr_spmv: data {data.dtype} and x {x.dtype}: '
                          'expected float64 and float64, float64 and '
-                         'complex128, or complex128 and complex128')
+                         'complex128, complex128 and complex128, or float32 '
+                         'and float32')
     for t in (indptr, indices, data, x):
         if t.device != dev or not t.is_contiguous() or t.dim() != 1:
             raise ValueError(f'csr_spmv: expected contiguous vectors on '
@@ -151,7 +155,7 @@ def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
         raise ValueError(f'csr_spmv: unsupported device {dev}')
     if nRows == 0:
         return out
-    if types:
+    if types in (1, 2):
         # complex values are read as double2: 16-byte aligned
         for t in (data, x, out):
             if t.is_complex() and t.data_ptr() % 16:
@@ -160,8 +164,10 @@ def csr_spmv(indptr, indices, data, x, out=None, accumulate=False):
     lib = kernels.library()
     kernels.launches['csr_spmv'] += 1
     kernels.deviceLaunches['csr_spmv'] += 1
-    if types:
+    if types in (1, 2):
         kernels.countVariant('csr_spmv:complex')
+    elif types == 3:
+        kernels.countVariant('csr_spmv:float32')
     p = kernels.ptr
     kernels.check(lib.csr_spmv(p(out), p(indptr), p(indices), p(data), p(x),
                                nRows, int(bool(accumulate)), types,

@@ -22,7 +22,7 @@ builds the port's dense vector operator from the data of one, such as a
 JAX package Dense_VectorLinearOperator, so that its apply can be checked on
 its own; ``builderFromArrays`` gives the port's nonlocalBuilder on the mesh
 and kernel of ``fromArrays`` in a value type (float64, or float32 for the
-float32 dense and H2 paths), so that both packages build the same
+float32 paths), so that both packages build the same
 operator in the same dtype (``h2FromArrays`` takes the dtype too).  Like every entry point of the port they build on the card
 unless the caller asks for the CPU.
 """
@@ -196,8 +196,8 @@ def builderFromArrays(vertices, cells, s, dim, dtype=None, params=None,
     """The port's nonlocalBuilder of the dofmap and kernel of
     ``fromArrays(vertices, cells, s, dim, device=device, **kw)`` with
     ``params`` and the value type ``dtype`` as ``params['dtype']``
-    (np.float32, 'float32' or torch.float32 for the float32 dense and H2
-    paths;
+    (np.float32, 'float32' or torch.float32 for the float32 paths: dense,
+    H2, sparse and diagonal;
     None keeps float64), as a JAX package builder takes
     ``params={'dtype': dtype}``."""
     from .nl.assembly import nonlocalBuilder

@@ -28,7 +28,8 @@ Twenty-nine kernels carry the port's device work:
                     launches per call)
   K9 csr_spmv       (csrc/csr_spmv.cu)       CSR apply y = A x or y += A x
                     (multigrid prolongation and restriction); float64,
-                    and complex128 x with float64 or complex128 data
+                    complex128 x with float64 or complex128 data, and
+                    float32
   K10 jacobi_smooth (jacobi_smooth.py,       damped-Jacobi vector pass of
                     Triton)                  the V-cycle, three modes;
                                              float64 or complex128
@@ -124,7 +125,14 @@ instances of K1's dense target, K2 and K3 with the power profile alone
 the host) and runs K4's Triton kernels on float32 vectors; the float32 H2
 path (getH2 with that dtype) has float32 instances of K1's slot and tree
 targets (panel_scatter_f32.cu), K6 (near_enum.cu), K7 (far_field.cu), K8
-(h2_matvec.cu) and K12 (near_block.cu), the power profile alone;
+(h2_matvec.cu), K12 (near_block.cu) and K13 (near_enum.cu), the power
+profile alone; the float32 sparse path and getDiagonal (a finite horizon:
+the indicator, peridynamic and truncated fractional kernels) have float32
+instances of K1's slot and diagonal targets that add their float32 local
+entries into float64 targets, with the indicator (common.cuh inBall on
+floats), and K9's float32 instance applies the result (its pairs cut by
+the horizon run K14 and K15 in float64, as the JAX float32 program runs
+them);
 K19 also the variable horizon delta(x) of a constant order (its own
 Horizon argument and instances).  K1 and K19 apply the interaction
 indicator of a finite horizon per node (common.cuh inBall: ball2, ballInf,
@@ -188,8 +196,14 @@ those with normals (the 2D zero-exterior rows) under
 ``panel_scatter:float32_rows``; the float32 instances of the H2 path
 under ``panel_scatter:float32_slots`` and ``:float32_tree`` (K1's CSR
 targets, also under ``panel_scatter:float32``), ``near_enum_quad:float32``,
-``far_field:float32``, ``h2_matvec:float32`` (its CUDA launches as K8's)
-and ``block_near_quad:float32``; one launch may count under several.
+``far_field:float32``, ``h2_matvec:float32`` (its CUDA launches as K8's),
+``block_near_quad:float32`` and ``tree_csr_quad:float32``; of the sparse
+path and getDiagonal under ``panel_scatter:float32_indicator`` (K1's
+float32 entries into float64 CSR data, with the indicator; the H2 path's
+touching panels into their float64 shadow count as ``:float32_slots``)
+and ``panel_scatter:float32_diag`` (into the
+float64 diagonal), both also under ``panel_scatter:float32``, and
+``csr_spmv:float32``; one launch may count under several.
 ``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
 those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -269,13 +283,17 @@ ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
 # those the natural-order buckets gathered on the device and the rows with
 # normals of the 2D zero-exterior term), K2, K3 and K4; of the H2 path K1's
 # slot and tree targets (also counted under panel_scatter:float32), K6,
-# K7, K8 and K12
+# K7, K8, K12 and K13 (the host engine); of the sparse path and
+# getDiagonal K1's float32 entries into float64 CSR data (with the
+# indicator of a finite horizon) and into the float64 diagonal, and K9
 FLOAT32 = ('panel_scatter:float32', 'panel_scatter:float32_natural',
            'panel_scatter:float32_rows', 'grid_distant:float32',
            'grid_boundary:float32', 'pcg_update:float32',
            'panel_scatter:float32_slots', 'panel_scatter:float32_tree',
            'near_enum_quad:float32', 'far_field:float32',
-           'h2_matvec:float32', 'block_near_quad:float32')
+           'h2_matvec:float32', 'block_near_quad:float32',
+           'panel_scatter:float32_indicator', 'panel_scatter:float32_diag',
+           'csr_spmv:float32', 'tree_csr_quad:float32')
 # the phases of K28 (kernels/dist_h2.py) and the three gathers of K29
 # (kernels/outbox.py), each counted also under its kernel
 DIST = tuple(f'dist_h2_matvec:{p}' for p in (
@@ -448,6 +466,16 @@ def _declare(lib):
                              F, F, *PROF32, P, P],
         'grid_boundary_f32': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                               P, P, P, P, *PROF32, I, P],
+        # K1's float32 local entries into a float64 target, with an
+        # indicator (IND): the CSR data at slots (as panel_scatter_slots_f32)
+        # and the diagonal (as panel_scatter_diag)
+        'panel_scatter_slots_f32d': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                     P, P, P, P, I, *PROF32, *IND, P],
+        'panel_scatter_diag_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                   P, P, P, P, I, *PROF32, *IND, P],
+        # K13's float32 instance (as tree_csr_quad with PROF32)
+        'tree_csr_quad_f32': [P, L, P, P, P, P, P, P, P, L, P, I, P, I, P, P,
+                              I, P, P, P, P, P, P, P, P, I, *PROF32, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile, indicator, order,
         # yShift, stream

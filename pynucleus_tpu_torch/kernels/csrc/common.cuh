@@ -690,6 +690,37 @@ __device__ __forceinline__ bool inBall(const Inter& in, const double* x,
     return __dmul_rn(l1, l1) < in.h2;
 }
 
+// The indicator at float32 nodes (K1's float32 instances on the float32
+// sparse path and getDiagonal): the JAX float32 program's jaxIndicator,
+// the differences, squares and sums in float32 against h2 rounded once to
+// float32 (the Python float horizon ** 2 against a float32 array); the
+// ellipse's T is a float64 array there, so its products and sums run in
+// float64 on the float32 differences, against h2 in float64.
+__device__ __forceinline__ bool inBall(const Inter& in, const float* x,
+                                       const float* y, int dim) {
+    if (in.code == 0) return true;
+    if (in.code == 4) {
+        const double d0 = __fsub_rn(x[0], y[0]), d1 = __fsub_rn(x[1], y[1]);
+        const double a = __dadd_rn(__dmul_rn(in.t00, d0),
+                                   __dmul_rn(in.t01, d1));
+        const double b = __dadd_rn(__dmul_rn(in.t10, d0),
+                                   __dmul_rn(in.t11, d1));
+        return __dadd_rn(__dmul_rn(a, a), __dmul_rn(b, b)) < in.h2;
+    }
+    float r2 = 0.0f, m = 0.0f, l1 = 0.0f;
+    for (int d = 0; d < dim; ++d) {
+        const float dd = __fsub_rn(x[d], y[d]);
+        r2 = __fadd_rn(r2, __fmul_rn(dd, dd));
+        m = fmaxf(m, fabsf(dd));
+        l1 = __fadd_rn(l1, fabsf(dd));
+    }
+    const float h2 = __double2float_rn(in.h2);
+    if (in.code == 1) return r2 < h2;
+    if (in.code == 5) return !(r2 < h2);
+    if (in.code == 2) return __fmul_rn(m, m) < h2;
+    return __fmul_rn(l1, l1) < h2;
+}
+
 // Quadrature node q of a pair: x_q = sum_a bary_x[a,q] v1[a] and y_q =
 // sum_a bary_y[a,q] v2[a] (+ ysh [dim], or nullptr) into x, y [dim];
 // returns r2 = |x_q - y_q|^2.  The node geometry of K1 (panelQuad) and K19,
@@ -741,7 +772,8 @@ __device__ __forceinline__ T panelNode(
 // the imaginary ones in acci [NN] (no normals, no order, no shift).  The
 // scalar type T is acc's: in float32 (K1's float32 instances) every value
 // is a float, gamma the power profile's radial<PC, float> with no order
-// and no indicator (the host refuses both in float32).
+// (the host refuses one in float32), the indicator of a finite horizon the
+// float32 inBall.
 template <int NN, int PC, int OC = ORDER_NONE, typename T>
 __device__ __forceinline__ void panelQuad(
     T acc[NN], NoDeduce<T> v1[MAXNV][MAXDIM], int nv1,
@@ -787,8 +819,8 @@ __device__ __forceinline__ void panelQuad(
                 t = radial<PC>(r2, pf) * w[q];
             } else {
                 t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
-                if (!inBall(in, x, y, dim)) t = 0.0;
             }
+            if (!inBall(in, x, y, dim)) t = 0;
             if (nrm != nullptr) {
                 T fac = 0;
                 if (r2 > 0) {

@@ -1,9 +1,11 @@
 // K9 csr_spmv: y = A x (or y += A x) for a CSR matrix A with int32 row
-// pointers and column indices, in three instances of one template on the
+// pointers and column indices, in four instances of one template on the
 // value types: float64 data and x (the real operators), float64 data with
 // complex128 x (a real prolongation or restriction applied to a complex
-// vector), and complex128 data and x (a complex operator).  Complex values
-// are interleaved (re, im) pairs, read as double2.
+// vector), complex128 data and x (a complex operator), and float32 data
+// and x (the float32 sparse operator of a finite horizon, its sums in
+// float32 as the JAX float32 segment sum).  Complex values are
+// interleaved (re, im) pairs, read as double2.
 //
 // Replaces pynucleus_tpu/base/linear_operators.py:310 CSR_LinearOperator
 // .matvec (gather data * x[indices], segment sum over rows) and, run on
@@ -17,8 +19,8 @@
 // the same in every run.  A P1 prolongation row holds 1-2 entries and a
 // row of P^T or of a P1 operator up to about 7, so most lanes idle: a
 // simple first design.  Bound on the card: memory (12 B per real entry, 20
-// B per complex one, 16-24 B per row, and the gathered x), far below the
-// float64 rate.
+// B per complex one, 8 B per float32 one, 16-24 B per row, and the
+// gathered x), far below the float64 rate.
 
 #include "common.cuh"
 
@@ -29,6 +31,10 @@ __device__ __forceinline__ double2 warpSum(double2 v) {
 }
 
 __device__ __forceinline__ void madd(double& s, double a, double x) {
+    s += a * x;
+}
+
+__device__ __forceinline__ void madd(float& s, float a, float x) {
     s += a * x;
 }
 
@@ -43,6 +49,8 @@ __device__ __forceinline__ void madd(double2& s, double2 a, double2 x) {
 }
 
 __device__ __forceinline__ double plus(double a, double b) { return a + b; }
+
+__device__ __forceinline__ float plus(float a, float b) { return a + b; }
 
 __device__ __forceinline__ double2 plus(double2 a, double2 b) {
     return make_double2(a.x + b.x, a.y + b.y);
@@ -68,7 +76,8 @@ csr_spmv_kernel(TX* __restrict__ y, const int* __restrict__ indptr,
 
 // the value types of A and x (pynucleus_tpu_torch/base/linear_operators.py
 // csr_spmv passes the code)
-enum SpmvTypes { REAL_REAL = 0, REAL_COMPLEX = 1, COMPLEX_COMPLEX = 2 };
+enum SpmvTypes { REAL_REAL = 0, REAL_COMPLEX = 1, COMPLEX_COMPLEX = 2,
+                 FLOAT_FLOAT = 3 };
 
 template <typename TD, typename TX>
 static int launch(void* y, const int* indptr, const int* indices,
@@ -96,6 +105,9 @@ EXPORT int csr_spmv(void* y, const int* indptr, const int* indices,
     case COMPLEX_COMPLEX:
         return launch<double2, double2>(y, indptr, indices, data, x, nRows,
                                         accumulate, stream);
+    case FLOAT_FLOAT:
+        return launch<float, float>(y, indptr, indices, data, x, nRows,
+                                    accumulate, stream);
     default:
         return static_cast<int>(cudaErrorInvalidValue);
     }

@@ -23,7 +23,10 @@
 //
 // K13 replaces _bucket_tree_csr_scan, the quadrature of the host
 // enumeration engine: the same element body over a host-made element list
-// (c1, c2, I, J, offF, offB, sf), one warp per element.
+// (c1, c2, I, J, offF, offB, sf), one warp per element.  Its float32
+// instance (tree_csr_quad_f32, the power profile alone) runs the element
+// body in float32 into float32 data: _bucket_tree_csr_scan on the float32
+// H2 path's data (getH2 with nearEngine='host').
 //
 // The element body: K1's quadrature body (common.cuh panelQuad) over the
 // order's rule with volsym sf vol(c1) vol(c2), and K1's tree-slot epilogue
@@ -252,21 +255,45 @@ EXPORT int near_enum_quad_f32(float* data, long long nnz, const int* ids,
                                          qt, tt, dpe, stream);
 }
 
-template <int NPSI, int PC>
+template <int NPSI, int PC, typename T>
 __global__ void __launch_bounds__(256)
-tree_csr_quad_kernel(double* __restrict__ data, long long nnz,
+tree_csr_quad_kernel(T* __restrict__ data, long long nnz,
                      const int* __restrict__ c1A, const int* __restrict__ c2A,
                      const int* __restrict__ IA, const int* __restrict__ JA,
                      const int* __restrict__ offFA,
                      const int* __restrict__ offBA,
-                     const double* __restrict__ sfA, long long n,
-                     QuadTables<double> qt, TreeTables tt) {
+                     const T* __restrict__ sfA, long long n,
+                     QuadTables<T> qt, TreeTables tt) {
     const int lane = threadIdx.x & 31;
     const long long k = (long long)blockIdx.x * (blockDim.x >> 5)
                         + (threadIdx.x >> 5);
     if (k >= n) return;  // uniform across the warp
     treeElement<NPSI, PC>(data, nnz, tt, qt, c1A[k], c2A[k], sfA[k], IA[k],
                           JA[k], offFA[k], offBA[k], lane);
+}
+
+// K13's launch of the profile PC on n host-listed elements.
+template <int PC, typename T>
+static int launchTreeQuad(T* data, long long nnz, const int* c1,
+                          const int* c2, const int* IA, const int* JA,
+                          const int* offF, const int* offB, const T* sf,
+                          long long n, const QuadTables<T>& qt,
+                          const TreeTables& tt, int dpe,
+                          cudaStream_t stream) {
+    const int threads = 256;
+    const long long blocks = (n + (threads / 32) - 1) / (threads / 32);
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+#define LAUNCH(NP)                                                          \
+    tree_csr_quad_kernel<NP, PC, T><<<(unsigned)blocks, threads, 0,         \
+                                      stream>>>(                            \
+        data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt)
+    switch (dpe) {
+        case 2: LAUNCH(4); break;
+        case 3: LAUNCH(6); break;
+        default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef LAUNCH
+    return static_cast<int>(cudaGetLastError());
 }
 
 EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
@@ -286,19 +313,40 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
     if (n <= 0) return 0;
     if (dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
-    const int threads = 256;
-    const long long blocks = (n + (threads / 32) - 1) / (threads / 32);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables<double> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
                                 bary_y, w, PSIP, Q, PROFILE_OF(C)};
-#define LAUNCH(NP)                                                          \
-    tree_csr_quad_kernel<NP, PC><<<(unsigned)blocks, threads, 0, stream>>>( \
-        data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt)
-    PROFILE_SWITCH(pcode, switch (dpe) {
-        case 2: LAUNCH(4); break;
-        case 3: LAUNCH(6); break;
-        default: return static_cast<int>(cudaErrorInvalidValue);
-    })
-#undef LAUNCH
-    return static_cast<int>(cudaGetLastError());
+    PROFILE_SWITCH(pcode, return launchTreeQuad<PC>(
+        data, nnz, c1, c2, IA, JA, offF, offB, sf, n, qt, tt, dpe, stream))
+    return 0;
+}
+
+// K13's float32 instance (the float32 H2 path's host engine:
+// _bucket_tree_csr_scan on float32 data): every array float32, the power
+// profile's code, C, e (rounded to float32 on the host), no tempering and
+// no two-point weight; any other profile returns cudaErrorInvalidValue.
+EXPORT int tree_csr_quad_f32(float* data, long long nnz, const int* c1,
+                             const int* c2, const int* IA, const int* JA,
+                             const int* offF, const int* offB,
+                             const float* sf, long long n,
+                             const float* vertices, int dim,
+                             const long long* cells, int nv,
+                             const float* vols, const long long* dofs,
+                             int dpe, const int* dofNode, const int* treePos,
+                             const int* indptrT, const int* tStart,
+                             const float* bary_x, const float* bary_y,
+                             const float* w, const float* PSIP, int Q,
+                             int pcode, double C, double e, double tl,
+                             int wcode, cudaStream_t stream) {
+    if (n <= 0) return 0;
+    if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
+        || dim > MAXDIM || nv > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const TreeTables tt{dofNode, treePos, indptrT, tStart};
+    const QuadTables<float> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
+                               bary_y, w, PSIP, Q,
+                               Profile{PROFILE_POWER, C, e, 0.0, 0.0, 0.0,
+                                       0.0, TWO_POINT_NONE, 0.0}};
+    return launchTreeQuad<PROFILE_POWER>(data, nnz, c1, c2, IA, JA, offF,
+                                         offB, sf, n, qt, tt, dpe, stream);
 }

@@ -70,12 +70,17 @@
 // no variable order: a complex kernel has no zero-exterior term.
 //
 // The float32 instances (T = float; panel_scatter_f32.cu) are the DENSE,
-// SLOTS and TREE targets' with the power profile and no order, indicator or
+// SLOTS, TREE and DIAG targets' with the power profile and no order or
 // shift: the float32 dense path (its explicit pairs, its natural-order
 // buckets and the zero-exterior rows with normals in 2D) and the float32 H2
 // path (the singular panels at explicit slots of the near data, the union
 // surfaces at tree slots, with normals in 2D), every value a float, the
-// nodes summed with __fmaf_rn, each entry added with atomicAdd(float).
+// nodes summed with __fmaf_rn, each entry added with atomicAdd(float); and,
+// with the indicator of a finite horizon (common.cuh inBall on floats),
+// the float32 sparse path and getDiagonal: the SLOTS and DIAG targets'
+// float32 local entries added into float64 data (TO = double, one
+// atomicAdd(double) of the exact widening each), the float64 host sums of
+// the JAX package's CSRAccumulator and _DiagAccumulator.
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
@@ -90,9 +95,10 @@
 
 enum Target { DENSE = 0, SLOTS = 1, TREE = 2, CROSS = 3, DIAG = 4 };
 
-template <int NPSI, int TARGET, int PC, int OC, typename T = double>
+template <int NPSI, int TARGET, int PC, int OC, typename T = double,
+          typename TO = T>
 __global__ void __launch_bounds__(256)
-panel_scatter_kernel(T* __restrict__ out,
+panel_scatter_kernel(TO* __restrict__ out,
                      long long N /* dense: N; CSR: nnz; cross: NB */,
                      const T* __restrict__ vertices, int dim,
                      const long long* __restrict__ vi1, int nv1,
@@ -115,8 +121,11 @@ panel_scatter_kernel(T* __restrict__ out,
     static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
                   "the complex profile scatters into dense A or the diagonal");
     static_assert(!IS_F32<T> || TARGET == DENSE || TARGET == SLOTS
-                      || TARGET == TREE,
-                  "float32: the dense and CSR targets only");
+                      || TARGET == TREE || TARGET == DIAG,
+                  "float32: the dense, CSR and diagonal targets only");
+    static_assert(std::is_same<T, TO>::value
+                      || (TARGET == SLOTS || TARGET == DIAG),
+                  "a wider target: the slots and the diagonal only");
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
@@ -173,19 +182,20 @@ panel_scatter_kernel(T* __restrict__ out,
             const long long* dr = dofRows + pair * NPSI;
             const long long r = dr[k / NPSI], c = dr[k % NPSI];
             if (r >= 0 && c >= 0 && ((emask >> k) & 1))
-                atomicAdd(out + r * N + c, acc[k]);
+                atomicAdd(out + r * N + c, static_cast<TO>(acc[k]));
         } else if (TARGET == CROSS) {
             const long long* dr = dofRows + pair * NPSI;
             const long long r = dr[k / NPSI], c = dr[k % NPSI];
             if (r >= 0 && c < 0 && c > DROP_HALF)
-                atomicAdd(out + r * N - c - 1, acc[k]);
+                atomicAdd(out + r * N - c - 1, static_cast<TO>(acc[k]));
         } else if (TARGET == DIAG) {
             const long long* dr = dofRows + pair * NPSI;
             const long long r = dr[k / NPSI];
-            if (r >= 0 && r == dr[k % NPSI]) atomicAdd(out + r, acc[k]);
+            if (r >= 0 && r == dr[k % NPSI])
+                atomicAdd(out + r, static_cast<TO>(acc[k]));
         } else {
             const long long s = slots[pair * NN + k];
-            if (s >= 0 && s < N) atomicAdd(out + s, acc[k]);
+            if (s >= 0 && s < N) atomicAdd(out + s, static_cast<TO>(acc[k]));
         }
     }
 }

@@ -34,6 +34,7 @@ tests/test_torch_varorder.py); H2Matrix raises where it does not.
 """
 from __future__ import annotations
 
+import copy
 import ctypes
 from dataclasses import dataclass, field
 
@@ -562,6 +563,21 @@ class H2Matrix(LinearOperator):
     @property
     def dtype(self):
         return self.Anear.dtype
+
+    def double(self):
+        """The operator on its coefficients upcast to float64 (near data,
+        leaf integrals, transfers, far blocks; the tables shared): of a
+        float32 operator, what DistributedH2Matrix applies."""
+        if self.dtype == torch.float64:
+            return self
+        op = copy.copy(self)
+        op.Anear = copy.copy(self.Anear)
+        op.Anear.dataZ = self.Anear.dataZ.double()
+        op.Anear._diag = None
+        op.leafPhi, op.Ttr, op.Kall = (
+            t.double() for t in (self.leafPhi, self.Ttr, self.Kall))
+        op._T = op._work = op._workT = None
+        return op
 
     def matvec(self, x, out=None):
         return h2_matvec(self, x, out=out)

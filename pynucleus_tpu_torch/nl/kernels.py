@@ -1078,7 +1078,9 @@ def indicatorMask(x, y, r2, indicator):
     elif code == BALL1:
         m = (x - y).abs().sum(-1)
     elif code == ELLIPSE:
-        return _ellipseNorm2(x - y, T) < h2
+        # T is a float64 array in the JAX expression: float32 differences
+        # take its products and sums in float64
+        return _ellipseNorm2((x - y).double(), T) < h2
     else:
         raise ValueError(f'interaction code {code}: 0 to 5')
     return m * m < h2

@@ -131,22 +131,23 @@ class DistributedH2Matrix:
       ``_assembleNearField`` on the cluster pairs touching the shard) and
       its far blocks (K7) directly into the sharded layout.
 
-    Vectors are global, on the mesh's device; the apply is float64 (the
-    float32 distributed apply raises NotImplementedError)."""
+    Vectors are global, on the mesh's device; the apply is float64.  A
+    float32 H2 (``params={'dtype': float32}``) is applied in float64 too,
+    as the JAX package applies it: every coefficient it shards (near data,
+    leaf integrals, transfers, far blocks) upcast to float64 at set-up, the
+    float64 K28 and K29, a float32 x taken and a float64 y returned
+    (pynucleus_tpu/parallel/dist_h2.py:549-554 shards float64 arrays)."""
 
     def __init__(self, op, mesh, axis='d', bcast=False):
         from ..nl.h2 import H2Matrix
         assert isinstance(op, H2Matrix), type(op)
-        if op.dtype != torch.float64:
-            raise NotImplementedError('the float32 distributed H2 apply is '
-                                      'queued in ROADMAP.md A7')
         nLvl = op.nLvl
         off = op.levelOff
         parent = op.parent.cpu().numpy().astype(np.int64)
-        Ttr = op.Ttr.cpu().numpy()
+        Ttr = op.Ttr.cpu().numpy().astype(np.float64)
         src = op.src.cpu().numpy().astype(np.int64)
         dst = op.dst.cpu().numpy().astype(np.int64)
-        Kall = op.Kall.cpu().numpy()
+        Kall = op.Kall.cpu().numpy().astype(np.float64)
         farLvl = np.searchsorted(off, src, side='right') - 1
         farStart = {}
         farSrcDst = {}
@@ -158,7 +159,7 @@ class DistributedH2Matrix:
         meta = dict(
             N=op.num_rows, symmetric=op.symmetric,
             leafDofs=np.asarray(op.leafDofs),
-            leafPhi=op.leafPhi.cpu().numpy(),
+            leafPhi=op.leafPhi.cpu().numpy().astype(np.float64),
             lvlIdx=np.asarray(op.leafLevelPos[0]),
             posIdx=np.asarray(op.leafLevelPos[1]),
             sizes=[int(off[l + 1] - off[l]) for l in range(nLvl)],
@@ -176,7 +177,7 @@ class DistributedH2Matrix:
         rows, cols = An.rowsCols()
         rowidsG = perm[rows.cpu().numpy()]
         colsG = perm[cols.cpu().numpy()]
-        dataG = An.dataT.cpu().numpy()
+        dataG = An.dataT.cpu().numpy().astype(np.float64)
 
         def nearRowsFor(k, dofDev):
             sel = dofDev[rowidsG] == k
@@ -192,7 +193,10 @@ class DistributedH2Matrix:
         blocks assembled directly into the sharded layout; no global near
         field and no global far blocks are built (ref nonlocalAssembly
         pxi:2162 reduceNearOp, :2232 drop off-rank, :2401 partitionDoFs,
-        :2424 createLocalStuff)."""
+        :2424 createLocalStuff).  With ``params={'dtype': float32}`` the
+        near rows and far blocks are the float32 builder's (K1's, K6's or
+        K12's and K7's float32 instances), upcast to float64 for the
+        apply."""
         from ..nl.assembly import nonlocalBuilder, far_field, _upload
         # each shard reads its near rows in the 'csr' near format
         builder = nonlocalBuilder(dm, kernel,
@@ -204,9 +208,6 @@ class DistributedH2Matrix:
             raise NotImplementedError(
                 'finite-horizon distributed operators go through '
                 'DistributedCSROperator')
-        if builder.real != torch.float64:
-            raise NotImplementedError('the float32 distributed H2 apply is '
-                                      'queued in ROADMAP.md A7')
         plan = builder.planH2()
         nodes = plan['nodes']
         PnearAll = plan['Pnear']
@@ -227,9 +228,12 @@ class DistributedH2Matrix:
             if len(idx) == 0:
                 return np.zeros((0, M, M))
             ri, rj = plan['farRows'][ell]
-            gi = _upload(gridsAll[ri[idx]], mesh.device)
-            gj = _upload(gridsAll[rj[idx]], mesh.device)
-            return (-2.0 * far_field(gi, gj, prof)).cpu().numpy().astype(dtp)
+            # the grids in the builder's type (float32: K7's float32
+            # instance), the blocks scaled in it and upcast
+            gi = _upload(gridsAll[ri[idx]], mesh.device, builder.real)
+            gj = _upload(gridsAll[rj[idx]], mesh.device, builder.real)
+            return (-2.0 * far_field(gi, gj, prof)).cpu().numpy().astype(
+                dtp).astype(np.float64)
 
         POrdA = np.asarray(PnearAll, dtype=np.int64).reshape(-1, 2)
         firstDof = np.fromiter((nd.dofs[0] for nd in nodes),
@@ -692,7 +696,8 @@ class DistributedH2Matrix:
         return torch.float64
 
     def matvec(self, x, out=None):
-        """y = A x for a global float64 x [N] on the mesh's device."""
+        """y = A x, float64, for a global float64 or float32 x [N] on the
+        mesh's device (float32: upcast, as the JAX program takes it)."""
         from ..kernels.outbox import outbox_pack
         from ..kernels import dist_h2 as K
         mesh, m = self.mesh, self._meta
@@ -700,12 +705,12 @@ class DistributedH2Matrix:
         maxOwn, nShr = m['maxOwn'], m['nShr']
         ownOff, shrOff = self._ownOff, self._shrOff
         N = self.num_rows
-        if x.dtype != torch.float64 or x.shape != (N,) \
+        if x.dtype not in (torch.float64, torch.float32) or x.shape != (N,) \
                 or x.device != mesh.device:
-            raise ValueError(f'DistributedH2Matrix: x must be float64 [{N}] '
-                             f'on {mesh.device}')
+            raise ValueError(f'DistributedH2Matrix: x must be float64 or '
+                             f'float32 [{N}] on {mesh.device}')
         Gs = self._groups
-        xc = x.contiguous()
+        xc = x.contiguous().to(torch.float64)
         # communicateNear: the shards' rows of x, their outboxes, the swap
         xl = [outbox_pack(xc.to(G['lfPhi'].device)[None, :, None],
                           G['localDof'])[..., 0] for G in Gs]

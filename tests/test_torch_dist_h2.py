@@ -166,14 +166,6 @@ def test_two_shard_groups_give_the_same_bits():
     assert torch.equal(one.diagonal, two.diagonal)
 
 
-def test_float32_is_refused():
-    jdm, tdm, _ = _case('interval6')
-    H = nonlocalBuilder(tdm, getFractionalKernel(1, 0.5),
-                        params={'dtype': np.float32}).getH2()
-    with pytest.raises(NotImplementedError, match='float32'):
-        DistributedH2Matrix(H, makeDeviceMesh(4, device='cpu'))
-
-
 @pytest.mark.parametrize('dim,noRef,s', [(1, 9, 0.75), (2, 3, 0.25)],
                          ids=['1d', '2d'])
 def test_assemble_matches_wrap(dim, noRef, s):

@@ -46,6 +46,17 @@ TOL_DENSE = 1e-5
 F32 = torch.float32
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _twoTorchThreads():
+    """Two torch threads for this module's tests: the workers of a
+    parallel test run share the host's cores, and more threads per worker
+    oversubscribe them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def disc():
     m = jfem.circle(h=0.78, radius=1.0)
@@ -448,15 +459,18 @@ def test_f32_partition_and_orders_as_float64(grid):
 
 
 def test_f32_refusals():
-    """Float32 outside the dense and H2 paths of the constant-order
-    fractional kernel (and the H2 path's host engine) raises
-    NotImplementedError; a float32 target with float64 tables (or vectors)
-    raises ValueError; an unknown dtype ValueError."""
+    """Float32 beyond the kernels and formats of the float32 paths (the
+    constant-order fractional kernel of an infinite horizon in getDense,
+    getH2 and getDiagonal; a constant finite horizon in getSparse,
+    getDiagonal and getH2) raises NotImplementedError; a float32 target
+    with float64 tables (or vectors) raises ValueError; an unknown dtype
+    ValueError."""
     from pynucleus_tpu_torch.interop import fromArrays
     from pynucleus_tpu_torch.base.solvers import pcg_update
     m, _ = _mesh('interval', 3)
     kw = dict(dtype=np.float32, device='cpu')
-    for args in (dict(horizon=0.2), dict(s='twoDomainNonSym(0.25,0.75)'),
+    for args in (dict(horizon=(0.2, 0.0, 0.1, 0.3)),
+                 dict(s='twoDomainNonSym(0.25,0.75)'),
                  dict(kernelType='gaussian', s=0.75),
                  dict(temperedLambda=2.0), dict(phi=('tempered', 2.0)),
                  dict(derivative=1)):
@@ -464,17 +478,17 @@ def test_f32_refusals():
         with pytest.raises(NotImplementedError, match='float32'):
             builderFromArrays(m.vertices, m.cells, s, 1, **kw, **args)
     b = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw)
-    host = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw,
-                             params={'nearEngine': 'host'})
-    for build in (host.getH2, b.getSparse, b.getDiagonal, b.getDenseCross,
-                  b.getH2FiniteHorizon, b.getDenseVector, b.getH2Vector,
-                  lambda: b.getDense(trySparsification=True)):
+    finite = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw,
+                               horizon=0.2)
+    for build in (b.getDenseCross, b.getH2FiniteHorizon, b.getDenseVector,
+                  b.getH2Vector, lambda: b.getDense(trySparsification=True),
+                  finite.getDense, finite.getDenseCross):
         with pytest.raises(NotImplementedError, match='float32'):
             build()
     _, dm, k = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
     with pytest.raises(NotImplementedError, match='float32'):
-        tasm.assembleNonlocal(dm, k, 'H2', params={'dtype': 'float32',
-                                                   'nearEngine': 'host'})
+        tasm.assembleNonlocal(dm, k, 'sparsified',
+                              params={'dtype': 'float32'})
     with pytest.raises(ValueError, match='float64 or float32'):
         builderFromArrays(m.vertices, m.cells, 0.75, 1, dtype='float16',
                           device='cpu')

@@ -60,6 +60,17 @@ NONSYM = ['constantNonSym(0.25)', 'twoDomainNonSym(0.25,0.75)']
 LR = 'twoDomainNonSym(0.25,0.75)'
 
 
+@pytest.fixture(autouse=True, scope='module')
+def _twoTorchThreads():
+    """Two torch threads for this module's tests: the workers of a
+    parallel test run share the host's cores, and more threads per worker
+    oversubscribe them (the noRef 10 lines above all)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 def _interval(noRef):
     """The runFractional interval mesh of noRef: [-1, 1] refined noRef + 1
     times."""
@@ -493,23 +504,31 @@ NOREF10_DENSE_L2 = 0.00011265870936805422
 
 
 def test_h2_lu_error_at_noRef10_matches_jax():
-    """The H2 line's error at depth is the JAX package's, and both lie far
-    above the dense line's: the fault of section C is mirrored, not the
-    port's own."""
-    from drivers.runFractional import main as jMain
+    """The H2 line's error at depth is the JAX package's (its value pinned
+    in NOREF10_H2_L2, which the slow twin below holds to the JAX driver),
+    and it lies far above the dense line's: the fault of section C is
+    mirrored, not the port's own."""
     from pynucleus_tpu_torch.drivers.runFractional import main as tMain
     argv = _argv(LR, 'knownSolution', 'lu', 'H2') + ['--noRef', '10']
-    d, _ = jMain(argv)
-    jax = d.outputGroups['errors'].toDict()['L2 error']
     port = tMain(argv + ['--device', 'cpu'],
                  quiet=True)['errors'].toDict()['L2 error']
     dense = tMain(_argv(LR, 'knownSolution', 'lu', 'dense')
                   + ['--noRef', '10', '--device', 'cpu'],
                   quiet=True)['errors'].toDict()['L2 error']
-    assert np.isclose(jax, NOREF10_H2_L2, rtol=1e-6, atol=0), jax
-    assert np.isclose(port, jax, rtol=1e-6, atol=0), (port, jax)
+    assert np.isclose(port, NOREF10_H2_L2, rtol=1e-6, atol=0), port
     assert np.isclose(dense, NOREF10_DENSE_L2, rtol=1e-6, atol=0), dense
-    assert min(port, jax) > 10.0 * dense, (port, jax, dense)
+    assert min(port, NOREF10_H2_L2) > 10.0 * dense, (port, dense)
+
+
+@pytest.mark.slow
+def test_h2_lu_error_at_noRef10_jax_driver():
+    """The JAX driver's H2 line at noRef 10 gives the pinned error
+    NOREF10_H2_L2 that the tier-1 test above holds the port to."""
+    from drivers.runFractional import main as jMain
+    argv = _argv(LR, 'knownSolution', 'lu', 'H2') + ['--noRef', '10']
+    d, _ = jMain(argv)
+    jax = d.outputGroups['errors'].toDict()['L2 error']
+    assert np.isclose(jax, NOREF10_H2_L2, rtol=1e-6, atol=0), jax
 
 
 @pytest.mark.cuda
