@@ -311,7 +311,7 @@ result line):
      kernels.library(); c.phase24()'`.
  25. distribution on one card, a shard mesh of four shards stacked on it
      (pynucleus_tpu_torch/parallel): drivers/testDistOp.py's disc at noRef
-     7 (73,153 dofs) in H2, wrapped as DistributedH2Matrix in halo and
+     6 (18,145 dofs; cut from 7) in H2, wrapped as DistributedH2Matrix in halo and
      bcast mode, with the distributed CG (a path): the distributed applies
      within 1e-10 of the H2 one (relative), the CG converged; ms per apply
      of each against K8's (CUDA events), K28's and K29's launches and the
@@ -366,6 +366,29 @@ result line):
      JAX float32 program runs them.  Alone: `python -c 'import chip_smoke
      as c; from pynucleus_tpu_torch import kernels; kernels.library();
      c.phase26()'` (it then builds phase 18's diagonals itself).
+27. the variable-order H2 on the interval: getH2Vector of the derivative-1
+     kernel of leftRight(0.25, 0.75, 0.4, 0.6) (four component kernels
+     through K1 and K19 with the component order and the singular rules'
+     log correction, K7 with the component order) against getDenseVector
+     (K22, K21; applies by K23) at noRef 8 (a path: each component's gap
+     of the apply and of the transposed apply against the JAX gap pinned
+     from scripts/pin_varorder_h2_jax.py, |gap - pin| <= 1e-6 pin +
+     1e-12) and at noRef 11 (4,095 dofs, cut from 12: PERF.md §4; a path:
+     build parts, applies, gaps), the getDense of its component 0 there
+     against the stack (1e-12; a path); the H2 of the orders of position
+     innerOuter and islands (symmetric and with sio != soi), layers and
+     fe against their dense operators at noRef 8 (fe at noRef 3, the
+     largest interval the JAX getH2 of fe builds; a path: the gaps against
+     the JAX pins) and at noRef 10 (2,047 dofs, cut from 12: PERF.md §4; a
+     path; fe's H2 there raises NotImplementedError, as the JAX getH2
+     fails), GMRES-Jacobi on innerOuter's H2 and dense operators at noRef
+     10 (a path: iterations, residuals, the solutions' gap); then the
+     component order's variants of
+     K1 (dense and tree targets), K19 (dense and slot targets) and K7, and
+     the orders of position in K1's tree target, K19's slot target and K7
+     against their plain versions at these calls (1e-12 of the largest
+     entry).  Alone: `python -c 'import chip_smoke as c; from
+     pynucleus_tpu_torch import kernels; kernels.library(); c.phase27()'`.
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -381,7 +404,10 @@ variant of K1 and K19, per manifold variant of K1 and K2, per float32
 instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4,
 of the H2 path (K1's slot and tree targets, K6, K7, K8, K12) and of the
 float32 remainder (K1 into float64 CSR data and diagonals, K9, K13)
-(with the same calls' float64 time), and K24-K29, its
+(with the same calls' float64 time), per variant of the interval's
+variable-order H2 (the component order in K1, K19, K7 with its log
+launches; the orders of position in K1's tree target, K19's slot target
+and K7), and K24-K29, its
 launches on the main paths and the CUDA
 launches those made, the largest error against
 its plain version, its time, the plain version's, the least time the card
@@ -8433,10 +8459,13 @@ def FLOAT32_H2_24_PATHS(counts24):
 # ----------------------------------------------------------------- phase 25
 
 # drivers/testDistOp.py's flagship line: the disc in H2 over four shards on
-# one card (73,153 dofs at noRef 7), bcast and halo modes, the distributed
-# CG; runParallelGMG's interval P1 at its default noRef, 4 ranks against 1;
-# the dry run of the distributed H2 at its default noRef 14
-DIST_NOREF = 7
+# one card, bcast and halo modes, the distributed CG, at noRef 6 (18,145
+# dofs; cut from 7, 73,153 dofs, whose H2 build and two set-ups took 42.9 and
+# 27.9 s of 73.0 s when the script reached 1,100.5 s of its 1,200 s on an
+# H100 80GB HBM3 at 700 W); runParallelGMG's interval P1 at its default
+# noRef, 4 ranks against 1; the dry run of the distributed H2 at its default
+# noRef 14
+DIST_NOREF = 6
 DIST_RANKS = 4
 DIST_DRYRUN_NOREF = 14
 DIST_SEED = 25
@@ -9461,6 +9490,468 @@ def FLOAT32_REM_26_PATHS(counts26):
 
 
 
+# ---------------------------------------------------------------- phase 27
+
+# JAX package outputs (scripts/pin_varorder_h2_jax.py, run on the CPU in
+# float64): on runFractional's interval at noRef VH2_PIN_NOREF (511 dofs;
+# fe at VH2_FE_NOREF, 15 dofs), x = numpy default_rng(VH2_SEED)
+# standard_normal(N), the gaps max|H x - D x| / max|D x| of the H2 apply
+# and of the transposed apply against the dense operator of the same
+# kernel: getH2Vector of leftRight(0.25, 0.75, 0.4, 0.6) derivative 1
+# against getDenseVector, per component; getH2 of the orders of position
+# against getDense.  Each port gap is held to |gap - pin| <= TOL_VH2_REL
+# pin + TOL_VH2_ABS.
+JAX_VARORDER_H2 = {
+    'LR4-d1': {'apply': [5.60588738856365e-07, 1.5345432004069005e-07,
+                         1.9129346083200515e-06, 2.515224496778948e-06],
+               'transposed': [5.605887387929001e-07, 1.5345432162195289e-07,
+                              4.5678843502527985e-07,
+                              5.116918448683324e-07]},
+    'innerOuter': {'apply': 2.270628209755678e-07,
+                   'transposed': 2.270628211900415e-07},
+    'innerOuter_sio': {'apply': 2.2695103086086474e-07,
+                       'transposed': 2.2709112331712752e-07},
+    'islands': {'apply': 0.024762394856380068,
+                'transposed': 0.024762394856379617},
+    'islands_sio': {'apply': 0.018873829100256256,
+                    'transposed': 0.01887362659396562},
+    'layers': {'apply': 0.00702783818578188,
+               'transposed': 0.007027838185781868},
+    'fe': {'apply': 7.573992384217347e-05,
+           'transposed': 8.314771823762246e-05}}
+TOL_VH2_REL = 1e-6
+TOL_VH2_ABS = 1e-12
+VH2_SEED = 27
+VH2_PIN_NOREF = 8
+# getH2Vector at full width (4 components), cut from phase 13's 12 (8,191
+# dofs, where its build, the dense stack's and a component's dense build
+# took 17.1, 19.1 and 19.5 s of a 90.7 s phase and the script 1,110.3 s of
+# its 1,200 s on an H100 80GB HBM3 at 700 W): 4,095 dofs
+VH2_NOREF = 11
+# the orders of position at full width, cut from 12: at 8,191 dofs their
+# five dense operators' O(C^2) classifications and builds took 7-17 s each
+# (H100 80GB HBM3, 700 W), and GMRES-Jacobi did not converge in 500 steps
+VH2_ORDERS_NOREF = 10
+VH2_FE_NOREF = 3        # the largest interval of the JAX fe order's H2
+VH2_LINE = (0.25, 0.75, 0.4, 0.6)
+VH2_GMRES_TOL = 1e-8    # relative to ||b||
+VH2_GMRES_MAXITER = 3000   # one cycle
+# the orders of position (the port's order strings; fe the interpolant of
+# 0.5 + 0.3 x clipped to [0.2, 0.8], scripts/pin_varorder_h2_jax.py)
+VH2_ORDERS = {
+    'innerOuter': 'innerOuter(1,0.75,0.25,0.5)',
+    'innerOuter_sio': 'innerOuter(1,0.75,0.25,0.5,sio=0.4,soi=0.6)',
+    'islands': 'islands(0.3,0.7)',
+    'islands_sio': 'islands(0.3,0.7,sio=0.4,soi=0.6)',
+    'layers': 'layers(1,3,-1,-0.3,0.4,1,0.2,0.3,0.4,0.3,0.5,0.6,0.4,0.6,0.7)',
+    'fe': None}
+VH2_FE = (0.5, 0.3, 0.2, 0.8)   # fe's values a + b x, smin, smax
+VH2_VEC_PATH = ('panel_scatter', 'panel_scatter:tree', 'panel_scatter:log',
+                'panel_scatter:component', 'panel_scatter_nonsym',
+                'panel_scatter_nonsym:slots', 'panel_scatter_nonsym:log',
+                'panel_scatter_nonsym:component', 'far_field',
+                'far_field:component', 'h2_matvec', 'h2_matvec_T',
+                'panel_scatter_vec', 'panel_scatter_nonsym_vec',
+                'vector_matvec', 'vector_matvec:apply',
+                'vector_matvec:transposed')
+VH2_COMP_DENSE_PATH = ('panel_scatter', 'panel_scatter:dense',
+                       'panel_scatter:log', 'panel_scatter:component',
+                       'panel_scatter_nonsym', 'panel_scatter_nonsym:dense',
+                       'panel_scatter_nonsym:log',
+                       'panel_scatter_nonsym:component')
+VH2_ORDERS_PATH = ('panel_scatter', 'panel_scatter:dense',
+                   'panel_scatter:slots', 'panel_scatter:tree',
+                   'panel_scatter:position',
+                   'panel_scatter_nonsym', 'panel_scatter_nonsym:dense',
+                   'panel_scatter_nonsym:slots',
+                   'panel_scatter_nonsym:position', 'far_field',
+                   'far_field:position', 'h2_matvec', 'h2_matvec_T')
+VH2_GMRES_PATH = ('h2_matvec', 'gmres_arnoldi')
+VARH2_REPLACES = {
+    'panel_scatter:component': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:position': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter_nonsym:component': 'pynucleus_tpu/nl/assembly.py:424',
+    'panel_scatter_nonsym:position': 'pynucleus_tpu/nl/assembly.py:424',
+    'far_field:component': 'pynucleus_tpu/nl/assembly.py:744',
+    'far_field:position': 'pynucleus_tpu/nl/assembly.py:744'}
+VARH2_SOURCES = {
+    'panel_scatter:component':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_order.cu',
+    'panel_scatter:position':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_order_h2.cu',
+    'panel_scatter_nonsym:component':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym_order.cu',
+    'panel_scatter_nonsym:position':
+        'pynucleus_tpu_torch/kernels/csrc/panel_scatter_nonsym_order_h2.cu',
+    'far_field:component': 'pynucleus_tpu_torch/kernels/csrc/far_field.cu',
+    'far_field:position': 'pynucleus_tpu_torch/kernels/csrc/far_field.cu'}
+
+
+def VARH2_COMPARED_AT(summary):
+    """Where phase 27 compared each variant with its plain version."""
+    n, no = summary['vector_full']['noRef'], summary['orders_noRef']
+    vec = (f'getH2Vector of leftRight{VH2_LINE} derivative 1 on the '
+           f'interval at noRef {n}')
+    return {
+        'panel_scatter:component': f'the largest call of the getDense of '
+        f'its component 0 at noRef {n} (the zero-exterior term, with the log '
+        f'correction); every call of {vec} into the tree target (the union '
+        'surfaces of the four components, with and without the log '
+        'correction, with the y shift; the calls of one operator compared '
+        'together: the two runs over a jump facet nearly cancel in a slot)',
+        'panel_scatter_nonsym:component': f'the largest call of the getDense '
+        f'of its component 0 at noRef {n} (dense target) and of {vec} (slot '
+        'target), with the log correction',
+        'far_field:component': f'the largest far-field call of {vec}',
+        'panel_scatter:position': 'the orders of position (innerOuter, '
+        f'islands, layers) on the interval at noRef {no}: the largest call '
+        'of their getH2s into the slot target (the singular panels of a '
+        'symmetric order) and every call into the tree target (the '
+        'distant near pairs of a symmetric order, the union surfaces with '
+        'and without the y shift; the calls of one operator compared '
+        'together)',
+        'panel_scatter_nonsym:position': 'the orders of position on the '
+        f'interval at noRef {no}: the largest call of their getH2s into the '
+        'slot target',
+        'far_field:position': 'the orders of position on the interval at '
+        f'noRef {no}: the largest far-field call of their getH2s'}
+
+
+class VariantCallRecorder(ArgRecorder):
+    """ArgRecorder of the calls of a K1, K19 or K7 wrapper whose order is
+    of one kind: 'component' (ORDER_COMPONENT) or 'position' (an order of
+    position); with ``largest`` only the call of the most pairs (blocks
+    for K7) is kept."""
+
+    def __init__(self, module, name, kind, largest=False, dataFirst=True):
+        self.kind, self.keepLargest = kind, largest
+        super().__init__(module, name, dataFirst=dataFirst)
+
+    def __enter__(self):
+        from pynucleus_tpu_torch.nl.kernels import (ORDER_COMPONENT,
+                                                    ORDER_VARIANTS)
+        orig = self.orig
+
+        def rec(*args, **kw):
+            order = kw.get('order')
+            if order is None and self.name.startswith('panel_scatter_nonsym'):
+                order = args[12] if len(args) > 12 else None
+            code = None if order is None else int(order.code)
+            match = code == ORDER_COMPONENT if self.kind == 'component' \
+                else code in ORDER_VARIANTS
+            if match:
+                size = args[0].shape[0] if self.name == 'far_field' \
+                    else args[2].shape[0]
+                if not self.keepLargest:
+                    self.calls.append(self._record(args, kw))
+                elif size > self.largest:
+                    self.largest = size
+                    self.calls = [self._record(args, kw)]
+            return orig(*args, **kw)
+        setattr(self.module, self.name, rec)
+        return self
+
+
+def vh2_interval(noRef, spec, **kw):
+    """(dofmap, kernel) of runFractional's interval at noRef (simpleInterval
+    (-1, 1) refined noRef + 1 times, P1, zero exterior) on the card: the
+    order ``spec`` (a string, the leftRight parameters with derivative=,
+    or 'fe': VH2_FE's interpolant on the dofmap)."""
+    import numpy as np
+    from pynucleus_tpu_torch.fem.meshes import simpleInterval
+    from pynucleus_tpu_torch.interop import fromArrays
+    m = simpleInterval(-1.0, 1.0)
+    for _ in range(noRef + 1):
+        m = m.refine()
+    if spec == 'fe':
+        _, dm, _ = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
+        dofs = np.asarray(dm.dofs)
+        x = np.zeros(dm.num_dofs)
+        x[dofs[dofs >= 0]] = np.asarray(m.vertices)[
+            np.asarray(m.cells)[dofs >= 0], 0]
+        a, b, smin, smax = VH2_FE
+        spec = ('fe', a + b * x, smin, smax)
+    _, dm, k = fromArrays(m.vertices, m.cells, spec, 1, device='cuda', **kw)
+    return dm, k
+
+
+def vh2_seeded(n):
+    import numpy as np
+    import torch
+    return torch.as_tensor(np.random.default_rng(VH2_SEED).standard_normal(
+        n), dtype=torch.float64, device='cuda')
+
+
+def vh2_gaps(y, ref):
+    """max|y - ref| / max|ref| per column of [N, V] (or of [N])."""
+    if y.dim() == 1:
+        y, ref = y[:, None], ref[:, None]
+    scale = ref.abs().amax(0)
+    err = (y - ref).abs().amax(0)
+    return [float(e / s) if float(s) > 0 else float(e)
+            for e, s in zip(err, scale)]
+
+
+def vh2_check_pins(label, got, pin):
+    """Each gap of ``got`` against the JAX gap ``pin`` (lists or
+    numbers): |gap - pin| <= TOL_VH2_REL pin + TOL_VH2_ABS."""
+    gs = got if isinstance(got, list) else [got]
+    ps = pin if isinstance(pin, list) else [pin]
+    for g, p in zip(gs, ps):
+        if not abs(g - p) <= TOL_VH2_REL * p + TOL_VH2_ABS:
+            raise AssertionError(f'{label}: gap {g} vs the JAX gap {p}')
+    log(f'  {label}: gaps {gs} = the JAX gaps (|gap - pin| <= '
+        f'{TOL_VH2_REL} pin + {TOL_VH2_ABS})')
+
+
+def vh2_vector_line(noRef, pins=None):
+    """getH2Vector and getDenseVector of leftRight VH2_LINE derivative 1 at
+    noRef: build seconds (the H2 build's parts summed over the components),
+    each component's apply and transposed apply gap (H2 against K23 on
+    the dense stack), held to ``pins`` where given.  Returns (summary,
+    dofmap, kernel, dense vector operator)."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, k = vh2_interval(noRef, VH2_LINE, derivative=1)
+    b = nonlocalBuilder(dm, k)
+    H, tH = _sync_seconds(b.getH2Vector)
+    D, tD = _sync_seconds(nonlocalBuilder(dm, k).getDenseVector)
+    x = vh2_seeded(dm.num_dofs)
+    (yH, yD), tA = _sync_seconds(lambda: (H.matvec(x), D.matvec(x)))
+    (tH2, tD2), tT = _sync_seconds(lambda: (H.matvecTrans(x), D.matvecTrans(x)))
+    out = {'noRef': noRef, 'dofs': dm.num_dofs, 'components': k.valueSize,
+           'getH2Vector_s': tH, 'h2_parts_s': dict(b.timers),
+           'getDenseVector_s': tD,
+           'dense_GB': D.data.numel() * 8 / 1e9,
+           'apply_gaps': vh2_gaps(yH, yD),
+           'transposed_gaps': vh2_gaps(tH2, tD2),
+           'applies_s': tA, 'transposed_applies_s': tT}
+    for key in ('apply_gaps', 'transposed_gaps'):
+        if not all(g == g and g < 1e-3 for g in out[key]):
+            raise AssertionError(f'getH2Vector at noRef {noRef}: {out}')
+    log(f'  getH2Vector noRef {noRef}: {json.dumps(out)}')
+    if pins is not None:
+        vh2_check_pins(f'getH2Vector noRef {noRef} apply',
+                       out['apply_gaps'], pins['apply'])
+        vh2_check_pins(f'getH2Vector noRef {noRef} transposed apply',
+                       out['transposed_gaps'], pins['transposed'])
+    return out, dm, k, D
+
+
+def vh2_component_dense(dm, k, D, q=0):
+    """getDense of component q of the vector kernel k (K1 and K19 with the
+    component order and the log correction) against the component of the
+    dense vector operator D (K22, K21): 1e-12 of its largest entry."""
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    A, t = _sync_seconds(lambda: nonlocalBuilder(
+        dm, k.componentKernels()[q]).getDense().data)
+    ref = D.data[:, :, q]
+    err = float((A - ref).abs().max() / ref.abs().max())
+    out = {'component': q, 'getDense_s': t, 'vs_vector_dense': err}
+    log(f'  component {q} getDense at {dm.num_dofs} dofs: {json.dumps(out)}')
+    if not err <= TOL_KERNEL:
+        raise AssertionError(f'component {q} getDense vs getDenseVector: '
+                             f'{err}')
+    return out
+
+
+def vh2_order_line(name, noRef, pin=None):
+    """getH2 and getDense of the order of position ``name`` at noRef: build
+    seconds and parts, the apply and transposed apply gaps, held to the
+    JAX gaps ``pin`` where given.  Returns (summary, H2, dense, dofmap)."""
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    dm, k = vh2_interval(noRef, VH2_ORDERS[name] or 'fe')
+    b = nonlocalBuilder(dm, k)
+    H, tH = _sync_seconds(b.getH2)
+    D, tD = _sync_seconds(lambda: nonlocalBuilder(dm, k).getDense().data)
+    x = vh2_seeded(dm.num_dofs)
+    out = {'order': name, 'noRef': noRef, 'dofs': dm.num_dofs,
+           'symmetric': bool(k.symmetric), 'getH2_s': tH,
+           'h2_parts_s': dict(b.timers), 'getDense_s': tD,
+           'apply_gap': vh2_gaps(H.matvec(x), D @ x)[0],
+           'transposed_gap': vh2_gaps(H.T.matvec(x), D.T @ x)[0]}
+    log(f'  {name} noRef {noRef}: {json.dumps(out)}')
+    if not (out['apply_gap'] < 0.1 and out['transposed_gap'] < 0.1):
+        raise AssertionError(f'{name} H2 vs dense: {out}')
+    if pin is not None:
+        vh2_check_pins(f'{name} noRef {noRef}',
+                       [out['apply_gap'], out['transposed_gap']],
+                       [pin['apply'], pin['transposed']])
+    return out, H, D, dm
+
+
+def vh2_gmres(H, D, dm):
+    """GMRES-Jacobi (one cycle of at most VH2_GMRES_MAXITER steps, to
+    VH2_GMRES_TOL ||b||) on the H2 operator and on the dense one, b the
+    seeded vector: iterations, seconds, relative residuals and the
+    solutions' gap."""
+    import torch
+    from pynucleus_tpu_torch.base.linear_operators import \
+        Dense_LinearOperator
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    b = vh2_seeded(dm.num_dofs)
+    out, xs = {}, {}
+    for label, A in (('H2', H), ('dense', Dense_LinearOperator(D))):
+        s = solverFactory.build('gmres-jacobi', A=A, setup=True)
+        s.tolerance = VH2_GMRES_TOL * float(torch.linalg.norm(b))
+        s.maxIter = VH2_GMRES_MAXITER
+        x, t = _sync_seconds(lambda: s.solve(b))
+        res = float(torch.linalg.norm(A.matvec(x) - b) / torch.linalg.norm(b))
+        if not res <= 10 * VH2_GMRES_TOL:
+            raise AssertionError(f'GMRES-Jacobi ({label}): residual {res} '
+                                 f'after {s.iterations} iterations')
+        out[label] = {'iterations': s.iterations, 'seconds': t,
+                      'relative_residual': res}
+        xs[label] = x
+    out['solution_gap'] = float(torch.linalg.norm(xs['H2'] - xs['dense'])
+                                / torch.linalg.norm(xs['dense']))
+    log(f'  GMRES-Jacobi on the innerOuter H2 and dense operators: '
+        f'{json.dumps(out)}')
+    return out
+
+
+def phase27():
+    """The variable-order H2 on the interval: getH2Vector of leftRight
+    VH2_LINE derivative 1 (its component kernels through K1 and K19 with
+    the log correction and K7 with the component order) against
+    getDenseVector at noRef VH2_PIN_NOREF (a path: each component's gap
+    against the JAX one) and at noRef VH2_NOREF (a path), the getDense of
+    its component 0 there against the stack (a path); the H2 of the orders
+    of position (innerOuter and islands, symmetric and not, layers, fe)
+    against their dense operators at noRef VH2_PIN_NOREF (fe at
+    VH2_FE_NOREF; a path: the gaps against the JAX ones) and at noRef
+    VH2_ORDERS_NOREF (a path; fe raises there as the JAX getH2 fails),
+    GMRES-Jacobi on innerOuter's H2 and dense operators (a path); then the
+    new variants of K1, K19 and K7 against their plain versions at the
+    full-width calls.  Returns (launch counts per path, comparisons,
+    summary)."""
+    import contextlib
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    log('phase 27: the variable-order H2 on the interval (getH2Vector of a '
+        'multi-parameter order, the orders of position)')
+    t0 = time.perf_counter()
+    counts, summary, cmp = {}, {}, {}
+    (summary['vector_pins'], *_), counts['vector_pins'] = count_path(
+        f'getH2Vector noRef {VH2_PIN_NOREF}', VH2_VEC_PATH,
+        lambda: vh2_vector_line(VH2_PIN_NOREF, JAX_VARORDER_H2['LR4-d1']))
+
+    # the full width: the component variants' calls recorded
+    with contextlib.ExitStack() as stack:
+        rTree = stack.enter_context(VariantCallRecorder(
+            asm, 'panel_scatter_tree', 'component'))
+        r19s = stack.enter_context(VariantCallRecorder(
+            asm, 'panel_scatter_nonsym_slots', 'component', largest=True))
+        r7 = stack.enter_context(VariantCallRecorder(
+            asm, 'far_field', 'component', largest=True, dataFirst=False))
+        (summary['vector_full'], dm, k, D), counts['vector_full'] = \
+            count_path(f'getH2Vector noRef {VH2_NOREF}', VH2_VEC_PATH,
+                       lambda: vh2_vector_line(VH2_NOREF))
+    with VariantCallRecorder(asm, 'panel_scatter', 'component',
+                             largest=True) as r1d, \
+            VariantCallRecorder(asm, 'panel_scatter_nonsym', 'component',
+                                largest=True) as r19d:
+        summary['component_dense'], counts['component_dense'] = count_path(
+            f'component getDense noRef {VH2_NOREF}', VH2_COMP_DENSE_PATH,
+            lambda: vh2_component_dense(dm, k, D))
+    del D, dm, k
+    torch.cuda.empty_cache()
+
+    def orderPins():
+        return {name: vh2_order_line(
+            name, VH2_FE_NOREF if name == 'fe' else VH2_PIN_NOREF,
+            JAX_VARORDER_H2[name])[0] for name in VH2_ORDERS}
+    summary['orders_pins'], counts['orders_pins'] = count_path(
+        f'the orders of position noRef {VH2_PIN_NOREF}', VH2_ORDERS_PATH,
+        orderPins)
+
+    full = {}
+
+    def orderFull():
+        out = {}
+        for name in VH2_ORDERS:
+            if name == 'fe':
+                # the JAX getH2 of fe fails beyond 15 dofs; the port refuses
+                dmF, kF = vh2_interval(VH2_ORDERS_NOREF, 'fe')
+                try:
+                    asm.nonlocalBuilder(dmF, kF).getH2()
+                except NotImplementedError as e:
+                    out['fe_refused'] = str(e)
+                    log(f'  fe noRef {VH2_ORDERS_NOREF}: refused ({e})')
+                    continue
+                raise AssertionError('fe: the H2 beyond 15 dofs built')
+            out[name], H, D, dmO = vh2_order_line(name, VH2_ORDERS_NOREF)
+            if name == 'innerOuter':
+                full['innerOuter'] = (H, D, dmO)
+            del H, D
+        return out
+    with contextlib.ExitStack() as stack:
+        rTreeP = stack.enter_context(VariantCallRecorder(
+            asm, 'panel_scatter_tree', 'position'))
+        rSlotsP = stack.enter_context(VariantCallRecorder(
+            asm, 'panel_scatter_slots', 'position', largest=True))
+        r19P = stack.enter_context(VariantCallRecorder(
+            asm, 'panel_scatter_nonsym_slots', 'position', largest=True))
+        r7P = stack.enter_context(VariantCallRecorder(
+            asm, 'far_field', 'position', largest=True, dataFirst=False))
+        summary['orders_full'], counts['orders_full'] = count_path(
+            f'the orders of position noRef {VH2_ORDERS_NOREF}',
+            VH2_ORDERS_PATH, orderFull)
+    summary['orders_noRef'] = VH2_ORDERS_NOREF
+    summary['gmres'], counts['gmres'] = count_path(
+        'GMRES-Jacobi on innerOuter', VH2_GMRES_PATH,
+        lambda: vh2_gmres(*full.pop('innerOuter')))
+    torch.cuda.empty_cache()
+
+    log('  the new variants against their plain versions (1e-12 of the '
+        'largest entry)')
+    cmp['panel_scatter:component'] = merge(
+        compare_target_kernel('panel_scatter (component, log, dense)',
+                              r1d.calls, asm.panel_scatter,
+                              asm._panel_scatter_plain, panel_order_work),
+        compare_target_kernel('panel_scatter (component, tree)',
+                              rTree.calls, asm.panel_scatter_tree,
+                              asm._panel_scatter_tree_plain,
+                              panel_order_work))
+    cmp['panel_scatter_nonsym:component'] = merge(
+        compare_target_kernel('panel_scatter_nonsym (component, log, dense)',
+                              r19d.calls, asm.panel_scatter_nonsym,
+                              _k19_plain('dense'), nonsym_work),
+        compare_target_kernel('panel_scatter_nonsym (component, log, slots)',
+                              r19s.calls, asm.panel_scatter_nonsym_slots,
+                              _k19_plain('slots'), nonsym_work))
+    cmp['far_field:component'] = compare_far_field(
+        r7.calls, 'far_field (component)')
+    cmp['panel_scatter:position'] = merge(
+        compare_target_kernel('panel_scatter (orders of position, slots)',
+                              rSlotsP.calls, asm.panel_scatter_slots,
+                              asm._panel_scatter_slots_plain,
+                              panel_order_work),
+        compare_target_kernel('panel_scatter (orders of position, tree)',
+                              rTreeP.calls, asm.panel_scatter_tree,
+                              asm._panel_scatter_tree_plain,
+                              panel_order_work))
+    cmp['panel_scatter_nonsym:position'] = compare_target_kernel(
+        'panel_scatter_nonsym (orders of position, slots)', r19P.calls,
+        asm.panel_scatter_nonsym_slots, _k19_plain('slots'), nonsym_work)
+    cmp['far_field:position'] = compare_far_field(
+        r7P.calls, 'far_field (orders of position)')
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 27 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def VARH2_27_PATHS(counts27):
+    """The main paths of phase 27: (kernels, label, launch counts)."""
+    paths = {'vector_pins': VH2_VEC_PATH, 'vector_full': VH2_VEC_PATH,
+             'component_dense': VH2_COMP_DENSE_PATH,
+             'orders_pins': VH2_ORDERS_PATH, 'orders_full': VH2_ORDERS_PATH,
+             'gmres': VH2_GMRES_PATH}
+    return tuple((paths[key], f'varorder_h2_{key}', c)
+                 for key, c in counts27.items())
+
+
 def main():
     try:
         import torch
@@ -9518,6 +10009,7 @@ def main():
     counts24, cmp24, summary24 = phase24()
     counts25, cmp25, summary25 = phase25()
     counts26, cmp26, summary26 = phase26()
+    counts27, cmp27, summary27 = phase27()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -9838,7 +10330,33 @@ def main():
                                    in FLOAT32_REM_26_PATHS(counts26)),
             'compared_at': FLOAT32_REM_COMPARED_AT[name],
             'float64_ms': c['float64_ms']})
-    log(f'phases 1-26 took {time.perf_counter() - T_START:.1f} s')
+    # the variants of phase 27: the component order (with the singular
+    # rules' log correction) in K1, K19 and K7, the orders of position in
+    # K1's tree target, K19's slot target and K7; the CUDA launches counted
+    # where they launched
+    compared27 = VARH2_COMPARED_AT(summary27)
+    for name in compared27:
+        base = name.split(':')[0]
+        route, _, _ = KERNEL_INFO[base]
+        c = cmp27[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in VARH2_27_PATHS(counts27) if counts[name]}
+        table.append({
+            'name': name, 'route': route, 'source': VARH2_SOURCES[name],
+            'replaces': VARH2_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            **({'log_launches': {
+                label: counts[f'{base}:log'] for _, label, counts
+                in VARH2_27_PATHS(counts27) if counts.get(f'{base}:log')}}
+               if name.endswith(':component') else {}),
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in VARH2_27_PATHS(counts27)),
+            'compared_at': compared27[name]})
+    log(f'phases 1-27 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -9852,6 +10370,7 @@ def main():
     log(f'phase 24 summary: {json.dumps(summary24)}')
     log(f'phase 25 summary: {json.dumps(summary25)}')
     log(f'phase 26 summary: {json.dumps(summary26)}')
+    log(f'phase 27 summary: {json.dumps(summary27)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -118,7 +118,17 @@ islands, layers, smoothedLeftRight, linearLeftRight, smoothedInnerOuter,
 fe: common.cuh orderAt, POSITION_ORDER_SWITCH), their instances in
 panel_scatter_order.cu and panel_scatter_nonsym_order.cu, reached from
 the dense entry points by the order's code (every entry point that takes
-an order takes the whole of it, nl/kernels.py orderArgs); the float32
+an order takes the whole of it, nl/kernels.py orderArgs); the component
+order of a vector kernel's component (nl/kernels.py
+_ComponentFractionalKernel: the parent's VectorParams row of each side and
+its gradient entry, common.cuh componentTerm, sharing K21's vecTermCore)
+with the singular rules' log correction (the rule's lnEta, cw1, cw2,
+pointers of the entry points of K1's dense and tree targets and of K19)
+in the dense targets' instances too, and the orders of position whose H2
+operator the JAX package builds on the interval (innerOuter, islands,
+layers, fe) with the component order in instances of K1's tree target,
+K19's slot target (panel_scatter_order_h2.cu,
+panel_scatter_nonsym_order_h2.cu) and K7 (H2_ORDER_SWITCH); the float32
 dense path (a builder's ``params={'dtype': float32}``) has float32
 instances of K1's dense target, K2 and K3 with the power profile alone
 (common.cuh radial<PC, float>: powf, the constants rounded to float32 on
@@ -184,9 +194,12 @@ profile codes), and of K14 and K15 also ``:gaussian`` and
 ``:exponential`` (a finite horizon's); the orders of position in K1's
 and K19's dense targets (ORDERS) under ``<kernel>:inner_outer``,
 ``:islands``, ``:layers``, ``:smoothed_left_right``,
-``:linear_left_right``, ``:smoothed_inner_outer`` and ``:fe``, and the
+``:linear_left_right``, ``:smoothed_inner_outer`` and ``:fe``, the
 manifold kernel's 1D cells in R^2 under ``panel_scatter:manifold`` and
-``grid_distant:manifold``; the float32 instances of the dense path
+``grid_distant:manifold``, and the interval's variable-order H2 (VARH2)
+under ``<kernel>:position`` (the orders of position in K1's tree target,
+K19's slot target and K7), ``:component`` (the component order) and
+``:log`` (the singular rules' log tables) of K1, K19 and K7; the float32 instances of the dense path
 (FLOAT32: K1's dense target in csrc/panel_scatter_f32.cu, K2 and K3 in
 their sources, K4's Triton kernels on float32 vectors) under
 ``<kernel>:float32``, and of K1's float32 launches those of the
@@ -270,6 +283,15 @@ TWOPOINT = tuple(f'panel_scatter:{v}' for v in (
     f'{k}:{v}' for k in ('cut1d', 'cut2d_polar') for v in (
         'tempered', 'two_point', 'log_inverse', 'polynomial', 'gaussian',
         'exponential'))
+# the variants of the interval's variable-order H2 (nl/assembly.py
+# _countOrder): the orders of position in the H2 targets (K1's tree target,
+# K19's slot target, K7) under ``<kernel>:position``, the component order
+# of a vector kernel's component (any target) under ``<kernel>:component``
+# and the launches with a singular rule's log tables under ``<kernel>:log``
+VARH2 = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym',
+                                   'far_field')
+              for v in ('position', 'component', 'log')
+              if (k, v) != ('far_field', 'log'))
 # the variants of the orders of position (nl/kernels.py ORDER_VARIANTS)
 # in the dense targets of K1 and K19 (their own entry points and
 # instances), and the manifold kernel's K1 launches (1D rules on 2D
@@ -278,7 +300,8 @@ ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
                for v in ('inner_outer', 'islands', 'layers',
                          'smoothed_left_right', 'linear_left_right',
                          'smoothed_inner_outer', 'fe')) + (
-    'panel_scatter:manifold', 'grid_distant:manifold')
+    'panel_scatter:manifold', 'grid_distant:manifold') + VARH2
+
 # the float32 instances: of the dense path K1 (every float32 launch, and of
 # those the natural-order buckets gathered on the device and the rows with
 # normals of the 2D zero-exterior term), K2, K3 and K4; of the H2 path K1's
@@ -312,7 +335,9 @@ BUILD_DIR = os.path.join(_HERE, 'build')
 SOURCES = ('panel_scatter_csr.cu', 'panel_scatter_nonsym.cu',
            'panel_scatter.cu', 'grid_distant.cu', 'near_enum.cu',
            'panel_scatter_cross.cu', 'panel_scatter_nonsym_order.cu',
-           'cut_cells.cu', 'panel_scatter_order.cu', 'near_block.cu',
+           'cut_cells.cu', 'panel_scatter_order.cu',
+           'panel_scatter_order_h2.cu', 'panel_scatter_nonsym_order_h2.cu',
+           'near_block.cu',
            'grid_boundary.cu', 'panel_scatter_f32.cu', 'far_field.cu',
            'panel_scatter_vec.cu', 'h2_matvec.cu', 'vector_matvec.cu',
            'cheb_smooth.cu', 'matfree_apply.cu', 'csr_scatter.cu',
@@ -414,12 +439,16 @@ def _declare(lib):
     # a variable horizon: on, c0, c, min, max, 2 - 2s, 2s - 2, d,
     # Gamma(d/2), pi^(d/2), -d/2 - s, normalized (nl/kernels.py horizonArgs)
     HOR = (I, D, D, D, D, D, D, D, D, D, D, I)
+    # a singular rule's log tables lnEta, cw1, cw2 [Q] (null: none), which
+    # the component order adds (nl/assembly.py _logArgs)
+    LOGS = (P, P, P)
     sigs = {
         # A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile (code, C, e, a),
-        # indicator, order, yShift, entry mask bits (-1: all), stream
+        # indicator, order, yShift, the log tables (LOGS), entry mask bits
+        # (-1: all), stream
         'panel_scatter': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                          P, P, P, P, I, *PROF, *IND, *ORD, P, L, P],
+                          P, P, P, P, I, *PROF, *IND, *ORD, P, *LOGS, L, P],
         # A_BC, NB, then as panel_scatter up to the indicator (a finite
         # horizon: no variable order, no y shift), stream
         'panel_scatter_cross': [P, L, P, I, P, I, P, I, P, I, P, P, L,
@@ -486,11 +515,11 @@ def _declare(lib):
         # horizon, stream
         'panel_scatter_nonsym': [P, L, P, I, P, I, P, I, P, I, P, L,
                                  P, P, P, P, P, I, *PROF, *IND, *ORD, *HOR,
-                                 P],
+                                 *LOGS, P],
         # data, nnz, then as panel_scatter_nonsym with slots for dofRows
         'panel_scatter_nonsym_slots': [P, L, P, I, P, I, P, I, P, I, P, L,
                                        P, P, P, P, P, I, *PROF, *IND, *ORD,
-                                       *HOR, P],
+                                       *HOR, *LOGS, P],
         # A, N, V, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
         # P, bary_x, bary_y, w, PSIP, Q, table, interface, lnEta, cw1, cw2,
         # stream
@@ -522,10 +551,11 @@ def _declare(lib):
                         I, D, I, D, D, D, D, *PROF, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI,
         # volsym, normals, P, I, J, offF, offB, dofNode, treePos, indptrT,
-        # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, stream
+        # tStart, bary_x, bary_y, w, PSIP, Q, profile, order, yShift, the log
+        # tables, stream
         'panel_scatter_tree': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                                P, P, P, P, P, P, P, P, P, P, P, P, I, *PROF,
-                               *ORD, P, P],
+                               *ORD, P, *LOGS, P],
         # keys, pT, hist, cum, nP, offI, offJ, n2, IA, JA, ncArr, cells, nv,
         # cellNodes, dpe, centers, dim, C, logh, s, c, logH0, T, stream
         'near_enum': [P, P, P, P, I, P, P, P, P, P, P, P, I, P, I, P, I, I,

@@ -297,6 +297,13 @@ __device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
 //                       order)
 // Each comparison is the JAX expression's (a value on a branch point takes
 // the JAX package's branch) and each operation is rounded on its own.
+// ORDER_COMPONENT is component q of a vector s-derivative kernel of a
+// leftRight order (nl/kernels.py _ComponentFractionalKernel): table holds
+// per side (0 ll, 1 rr, 2 lr, 3 rl; left is x[0] < interface) the row
+// (c0, c1, c2, b, c, e, G_q) of COMPONENT_ROW doubles (componentTerm
+// below); with a singular rule's log tables lnEta, cw1 and cw2 [Q] (set by
+// the entry points that take them, else null) K1 and K19 add the rule's
+// log correction per node.
 enum OrderCode {
     ORDER_NONE = 0,
     ORDER_CONST = 1,
@@ -307,8 +314,11 @@ enum OrderCode {
     ORDER_SMOOTHED_LR = 6,
     ORDER_LINEAR_LR = 7,
     ORDER_SMOOTHED_IO = 8,
-    ORDER_FE = 9
+    ORDER_FE = 9,
+    ORDER_COMPONENT = 10
 };
+
+constexpr int COMPONENT_ROW = 7;
 
 struct Order {
     int code;
@@ -321,6 +331,8 @@ struct Order {
     const double* table;
     int n;
     double lo0, lo1, hi0, hi1;
+    // the singular rule's log tables of a component order (null: none)
+    const double *lnEta, *cw1, *cw2;
 };
 
 // Every entry point that takes an order takes a whole Order
@@ -334,6 +346,18 @@ struct Order {
 #define ORDER_OF                                                          \
     Order{ocode, sll, srr, slr, srl, iface, piD2, halfDim, eBase,        \
           boundary, xdim, g0, g1, g2, g3, table, tn, lo0, lo1, hi0, hi1}
+
+// A whole Order (ORDER_OF) with a singular rule's log tables le, c1, c2
+// [Q] (null: none; the entry points of K1's dense and tree targets and of
+// K19 take them, nl/assembly.py _logArgs).
+#define ORDER_WITH_LOGS(le, c1, c2)                                        \
+    [&] {                                                                  \
+        Order o_ = ORDER_OF;                                               \
+        o_.lnEta = (le);                                                   \
+        o_.cw1 = (c1);                                                     \
+        o_.cw2 = (c2);                                                     \
+        return o_;                                                         \
+    }()
 
 // sll where x and y are in, srr where both are out, slr / srl across (x
 // in / y in): the jnp.where nest of innerOuter, islands and leftRight.
@@ -401,6 +425,64 @@ __device__ __forceinline__ double feRaster(const double* x, const Order& o) {
     return __dadd_rn(v, __dmul_rn(__dmul_rn(fx, fy), g[b + 1]));
 }
 
+// The side of a node pair of a leftRight order or of a vector kernel: 0
+// ll, 1 rr, 2 lr, 3 rl (left is x[0] < iface, strict).
+__device__ __forceinline__ int vecSide(const double* x, const double* y,
+                                       double iface) {
+    const bool xl = x[0] < iface, yl = y[0] < iface;
+    return (xl && yl) ? 0 : ((!xl && !yl) ? 1 : (xl ? 2 : 3));
+}
+
+// The scalar factor of a vector kernel's node pair at r2 > 0 on the side
+// whose row is cf = (c0, c1, c2, b, c, e), with rad = r2^e and L = ln r2:
+//   t = rad (c0 + c1 L + c2 L^2) wq
+//       (+ cw1_q (b rad + 2 c rad lnR) + cw2_q c rad,  lnR = L/2 - lnEta_q)
+// the log correction of a singular rule (pynucleus_tpu/nl/assembly.py
+// _log_extra_scalar) where lnEta is not null.  Every operation is the plain
+// versions' (nl/kernels.py vectorTerms, nl/assembly.py _vecNodeTerms and
+// nl/kernels.py logExtra) in their order, rounded on its own.  K21 and K22
+// multiply it by volsym and the component's gradient entry, K1, K19 and K7
+// (componentTerm) by the gradient entry.
+__device__ __forceinline__ double vecTermCore(double r2, const double* cf,
+                                              double wq, const double* lnEta,
+                                              const double* cw1,
+                                              const double* cw2, int q) {
+    const double rad = pow(r2, cf[5]);
+    const double L = log(r2);
+    const double val = __dmul_rn(
+        rad, __dadd_rn(__dadd_rn(cf[0], __dmul_rn(cf[1], L)),
+                       __dmul_rn(cf[2], __dmul_rn(L, L))));
+    double t = __dmul_rn(val, wq);
+    if (lnEta != nullptr) {
+        const double b = __dmul_rn(cf[3], rad), c = __dmul_rn(cf[4], rad);
+        const double lnR = __dsub_rn(__dmul_rn(0.5, L), lnEta[q]);
+        t = __dadd_rn(
+            t, __dadd_rn(__dmul_rn(cw1[q],
+                                   __dadd_rn(b, __dmul_rn(__dmul_rn(2.0, c),
+                                                          lnR))),
+                         __dmul_rn(cw2[q], c)));
+    }
+    return t;
+}
+
+// The component order's t_q at the node pair (x, y), exactly 0 at r2 == 0:
+// G_q vecTermCore with the side's row of o.table, the log correction where
+// ``useLog`` and the order carries log tables.  G_q is 0 or 1 (ds/dp_q of
+// the leftRight order), so this is the JAX program's gamma_q w_q + cw1_q
+// (b_q + 2 c_q lnR_q) + cw2_q c_q with gamma_q, b_q, c_q the parent's
+// column q, rounded alike (nl/kernels.py componentTerms and logExtra).
+__device__ __forceinline__ double componentTerm(double r2, const double* x,
+                                                const double* y,
+                                                const Order& o, double wq,
+                                                int q, bool useLog) {
+    if (!(r2 > 0.0)) return 0.0;
+    const double* cf = o.table + vecSide(x, y, o.interface) * COMPONENT_ROW;
+    const bool lg = useLog && o.lnEta != nullptr;
+    return __dmul_rn(vecTermCore(r2, cf, wq, lg ? o.lnEta : nullptr, o.cw1,
+                                 o.cw2, q),
+                     cf[6]);
+}
+
 template <int OC>
 __device__ __forceinline__ double orderAt(const double* x, const double* y,
                                           const Order& o) {
@@ -442,7 +524,8 @@ __device__ __forceinline__ double orderAt(const double* x, const double* y,
 }
 
 // gamma(x, y) at r2 = |x-y|^2, exactly 0 at r2 == 0: the radial profile PC
-// (radial<PC>) for OC == ORDER_NONE, else the variable-order fractional
+// (radial<PC>) for OC == ORDER_NONE, a component order's value
+// (componentTerm) for ORDER_COMPONENT, else the variable-order fractional
 // kernel of pynucleus_tpu/nl/kernels.py FractionalKernel.evalXY (infinite
 // horizon) with s = s(x, y):
 //   C = 2^(2s) s / pi^(d/2) * 0.5 * exp(lgamma(s + d/2) - lgamma(1 - s))
@@ -456,6 +539,9 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
                                            const Order& o) {
     if constexpr (OC == ORDER_NONE) {
         return radial<PC>(r2, p);
+    } else if constexpr (OC == ORDER_COMPONENT) {
+        // the component's value (its log correction is K1's and K19's)
+        return componentTerm(r2, x, y, o, 1.0, 0, false);
     } else {
         if (!(r2 > 0.0)) return 0.0;
         const double s = orderAt<OC>(x, y, o);
@@ -494,12 +580,17 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
     }
 
 // Runs the statements ... with PC = PROFILE_POWER and the compile-time
-// constant OC equal to the runtime code of an order of position (a
-// variable order is a fractional kernel); a profile other than the power
-// profile or another order code returns cudaErrorInvalidValue.  Their
-// instances exist for the dense targets of K1 and K19 alone
-// (panel_scatter_order.cu, panel_scatter_nonsym_order.cu), which the dense
-// entry points reach by the code; KERNEL_SWITCH refuses these codes.
+// constant OC equal to the runtime code of an order of position or of the
+// component order (a variable order is a fractional kernel); a profile
+// other than the power profile or another order code returns
+// cudaErrorInvalidValue.  POSITION_ORDER_SWITCH has every one of them, for
+// the dense targets of K1 and K19 (panel_scatter_order.cu,
+// panel_scatter_nonsym_order.cu); H2_ORDER_SWITCH those whose H2 operator
+// the JAX package builds on the interval (innerOuter, islands, layers, fe)
+// and the component order, for the H2 targets: K1's tree target, K19's
+// slot target (panel_scatter_order_h2.cu, panel_scatter_nonsym_order_h2.cu)
+// and K7 (far_field.cu).  The entry points reach them by the code;
+// KERNEL_SWITCH refuses these codes.
 #define POSITION_ORDER_CASE(O, ...)         \
     case O: {                                \
         constexpr int OC = O;                \
@@ -517,6 +608,18 @@ __device__ __forceinline__ double kernelXY(double r2, const double* x,
         POSITION_ORDER_CASE(ORDER_LINEAR_LR, __VA_ARGS__)             \
         POSITION_ORDER_CASE(ORDER_SMOOTHED_IO, __VA_ARGS__)           \
         POSITION_ORDER_CASE(ORDER_FE, __VA_ARGS__)                    \
+        POSITION_ORDER_CASE(ORDER_COMPONENT, __VA_ARGS__)             \
+        default: return static_cast<int>(cudaErrorInvalidValue);      \
+    }
+#define H2_ORDER_SWITCH(pcode, ocode, ...)                             \
+    if ((pcode) != PROFILE_POWER)                                     \
+        return static_cast<int>(cudaErrorInvalidValue);               \
+    switch (ocode) {                                                  \
+        POSITION_ORDER_CASE(ORDER_INNER_OUTER, __VA_ARGS__)           \
+        POSITION_ORDER_CASE(ORDER_ISLANDS, __VA_ARGS__)               \
+        POSITION_ORDER_CASE(ORDER_LAYERS, __VA_ARGS__)                \
+        POSITION_ORDER_CASE(ORDER_FE, __VA_ARGS__)                    \
+        POSITION_ORDER_CASE(ORDER_COMPONENT, __VA_ARGS__)             \
         default: return static_cast<int>(cudaErrorInvalidValue);      \
     }
 
@@ -761,7 +864,8 @@ __device__ __forceinline__ T panelNode(
 // K13:
 // lanes lane, lane+nl, ... of the pair's Q nodes accumulate
 //   x_q = sum_v bary_x[v,q] v1[v],  y_q = sum_v bary_y[v,q] v2[v] (+ ysh)
-//   t_q = gamma(x_q, y_q) w_q (* n.(y_q-x_q)/|y_q-x_q|)
+//   t_q = gamma(x_q, y_q) w_q (+ a component order's log correction,
+//         componentTerm) (* n.(y_q-x_q)/|y_q-x_q|)
 //         (* chi(x_q, y_q) for a finite horizon, in.code != 0) volsym
 //   acc[k] += t_q PSIP[q, k]
 // (acc zeroed here); the caller reduces across its nl lanes.  gamma is
@@ -817,6 +921,8 @@ __device__ __forceinline__ void panelQuad(
             if constexpr (IS_F32<T>) {
                 static_assert(OC == ORDER_NONE, "float32: no variable order");
                 t = radial<PC>(r2, pf) * w[q];
+            } else if constexpr (OC == ORDER_COMPONENT) {
+                t = componentTerm(r2, x, y, od, w[q], q, true);
             } else {
                 t = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
             }

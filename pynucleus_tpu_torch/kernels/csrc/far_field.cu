@@ -4,7 +4,9 @@
 //   K[p, a, b] = gamma(gi[p, a], gj[p, b]),  gi, gj [P, M, dim]
 // with gamma the kernel's radial profile or its variable fractional order
 // (kernel.jaxEval -> evalXY; common.cuh kernelXY), the same as K1's (getH2
-// scales the result by -2).  One thread per entry; the M <= 64 grid points of a pair
+// scales the result by -2): the orders of H2_ORDER_SWITCH (innerOuter,
+// islands, layers, fe and the component order of a vector kernel's
+// component, common.cuh componentTerm) in instances of their own.  One thread per entry; the M <= 64 grid points of a pair
 // stay in L1/L2.  Bound on the card: the float64 pow per entry (compute);
 // the output, 8 B per entry, is the only large traffic (343 MB at 17,852
 // pairs of M = 49).
@@ -63,11 +65,16 @@ EXPORT int far_field(double* K, const double* gi, const double* gj,
     const long long blocks = farBlocks(total, threads);
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
     const Order od = ORDER_OF;
-    KERNEL_SWITCH(pcode, ocode,
-                  far_field_kernel<PC, OC, double><<<(unsigned)blocks,
-                                                     threads, 0, stream>>>(
-                      K, gi, gj, total, M, dim,
-                      PROFILE_OF(C), od))
+#define LAUNCH_FAR                                                        \
+    far_field_kernel<PC, OC, double><<<(unsigned)blocks, threads, 0,     \
+                                       stream>>>(K, gi, gj, total, M, dim, \
+                                                 PROFILE_OF(C), od)
+    if (ocode >= ORDER_INNER_OUTER) {
+        H2_ORDER_SWITCH(pcode, ocode, LAUNCH_FAR)
+    } else {
+        KERNEL_SWITCH(pcode, ocode, LAUNCH_FAR)
+    }
+#undef LAUNCH_FAR
     return static_cast<int>(cudaGetLastError());
 }
 

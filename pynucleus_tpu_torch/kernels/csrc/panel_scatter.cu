@@ -10,7 +10,9 @@ EXPORT const char* cuda_error_string(int err) {
 // A: dense [N, N]; with pcode PROFILE_GREENS_2D the float64 view of a
 // complex128 A (and of a complex128 d [N] in panel_scatter_diag).  The
 // order a whole Order (ORDER_PARAMS); an order of position (the codes from
-// ORDER_INNER_OUTER on) goes to its own instances.  emask: bit I*nPSI+J
+// ORDER_INNER_OUTER on) and the component order go to their own
+// instances; lnEta, cw1, cw2 [Q] (or null) are a singular rule's log
+// tables, which the component order's instances add.  emask: bit I*nPSI+J
 // keeps local entry (I, J) of every pair (-1: all).
 EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          int dim, const long long* vi1, int nv1,
@@ -25,14 +27,18 @@ EXPORT int panel_scatter(double* A, long long N, const double* vertices,
                          double tl, int wcode, double wl, int inter, double h2,
                          double t00, double t01, double t10, double t11,
                          ORDER_PARAMS, const double* yShift,
-                         long long emask, cudaStream_t stream) {
+                         const double* lnEta, const double* cw1,
+                         const double* cw2, long long emask,
+                         cudaStream_t stream) {
     if (ocode >= ORDER_INNER_OUTER)
-        // an order of position: its instances (panel_scatter_order.cu)
+        // an order of position or the component order: their instances
+        // (panel_scatter_order.cu)
         return launchPanelPosition(
             A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
             normals, P, bary_x, bary_y, w, PSIP, Q, PROFILE_OF(C),
-            Inter{inter, h2, t00, t01, t10, t11}, ORDER_OF, yShift, emask,
-            stream);
+            Inter{inter, h2, t00, t01, t10, t11},
+            ORDER_WITH_LOGS(lnEta, cw1, cw2), yShift, emask, stream);
+    if (lnEta != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return launchPanel<DENSE>(A, N, vertices, dim, vi1, nv1, vi2, nv2,
                               dofRows, nullptr, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,

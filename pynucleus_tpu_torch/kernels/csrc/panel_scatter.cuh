@@ -2,15 +2,18 @@
 // scattered into the dense operator, into CSR data (the H2 near field, the
 // sparse format) or into the interior x boundary coupling A_BC.  The kernel
 // and its launcher; the C entry points of its targets are in three
-// sources, so that nvcc compiles their instances in parallel:
+// sources, and the instances of the orders of position and of the component
+// order in two more, so that nvcc compiles them in parallel:
 // panel_scatter.cu (DENSE, DIAG), panel_scatter_csr.cu (SLOTS, TREE),
-// panel_scatter_cross.cu (CROSS) and panel_scatter_order.cu (DENSE with the
-// orders of position).
+// panel_scatter_cross.cu (CROSS), panel_scatter_order.cu (DENSE with the
+// orders of position and the component order) and panel_scatter_order_h2.cu
+// (SLOTS and TREE with those of H2_ORDER_SWITCH).
 #pragma once
 
 //
 // Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib (+ the dense
-// scatter _device_scatter_rows), _bucket_natural_scatter_scan,
+// scatter _device_scatter_rows; with useLogCorr, :68 _log_extra_scalar,
+// for a component kernel), _bucket_natural_scatter_scan,
 // _bucket_rows_scatter_scan, _bucket_masked_csr_scan and
 // _bucket_surface_tree_scan.  For pair p with simplices vi1[p], vi2[p]:
 //   x_q = sum_v bary_x[v,q] V[vi1[p,v]],  y_q = sum_v bary_y[v,q] V[vi2[p,v]]
@@ -34,11 +37,19 @@
 // normalization per node (common.cuh kernelXY); the kernel is a template on
 // both codes and each launcher switches once (KERNEL_SWITCH).  The orders
 // of position (innerOuter, islands, layers, smoothedLeftRight,
-// linearLeftRight, smoothedInnerOuter, fe: common.cuh orderAt) have the
-// DENSE target's instances alone (POSITION_ORDER_SWITCH, launchPanel with
-// POS, reached from the dense entry point by the code: launchPanelPosition
-// below): the dense operator of a symmetric one on the interval and on
-// triangles, and the zero-exterior term (with normals in 2D) of each.
+// linearLeftRight, smoothedInnerOuter, fe: common.cuh orderAt) and the
+// component order of a vector kernel's component (common.cuh
+// componentTerm: its value, and with a singular rule's log tables its log
+// correction, t_q = gamma_q w_q + cw1_q (b_q + 2 c_q lnR_q) + cw2_q c_q)
+// have instances of their own, launchPanel with POS: the DENSE target's
+// with every one of them (POSITION_ORDER_SWITCH; the dense operator of a
+// symmetric order on the interval and on triangles, and the zero-exterior
+// term, with normals in 2D, of each), the SLOTS and TREE targets' with
+// those of H2_ORDER_SWITCH on the interval (nPSI 2 and 4: the singular
+// panels, the distant pairs of the near cluster pairs and the union
+// surfaces, with and without the y shift, of an H2 near field); the entry
+// points reach them by the code (launchPanelPosition,
+// launchPanelH2Position below).
 // One quadrature body (common.cuh panelQuad), four epilogues:
 //   DENSE  A[dofRows[p,I], dofRows[p,J]] += M[I,J]   for both dofs >= 0
 //          (negative dofs, boundary -d-1 and DROP, replace the JAX dump row)
@@ -232,10 +243,18 @@ static int launchPanel(double* out, long long N, const double* vertices,
         case 6: LAUNCH(6); break;                                       \
         default: return static_cast<int>(cudaErrorInvalidValue);       \
     }
-    if constexpr (POS) {
-        // the orders of position: the dense target alone
-        static_assert(TARGET == DENSE, "the orders of position: DENSE");
+    if constexpr (POS && TARGET == DENSE) {
+        // the orders of position and the component order
         POSITION_ORDER_SWITCH(pf.code, od.code, NPSI_SWITCH)
+    } else if constexpr (POS) {
+        // their H2 orders on the interval: the near field's CSR targets
+        static_assert(TARGET == SLOTS || TARGET == TREE,
+                      "the orders of position: DENSE, SLOTS, TREE");
+        H2_ORDER_SWITCH(pf.code, od.code, switch (nPSI) {
+            case 2: LAUNCH(2); break;
+            case 4: LAUNCH(4); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        })
     } else if (pf.code == PROFILE_GREENS_2D) {
         // the complex profile (out the float64 view of a complex128
         // target): dense A or the diagonal, triangles (nPSI 3 for an
@@ -267,9 +286,10 @@ static int launchPanel(double* out, long long N, const double* vertices,
     return static_cast<int>(cudaGetLastError());
 }
 
-// The DENSE target with an order of position: launchPanel<DENSE, true>,
-// instantiated in panel_scatter_order.cu; the dense entry point
-// (panel_scatter.cu) calls it for the codes from ORDER_INNER_OUTER on.
+// The DENSE target with an order of position or the component order:
+// launchPanel<DENSE, true>, instantiated in panel_scatter_order.cu; the
+// dense entry point (panel_scatter.cu) calls it for the codes from
+// ORDER_INNER_OUTER on.
 int launchPanelPosition(double* A, long long N, const double* vertices,
                         int dim, const long long* vi1, int nv1,
                         const long long* vi2, int nv2,
@@ -280,3 +300,21 @@ int launchPanelPosition(double* A, long long N, const double* vertices,
                         const double* PSIP, int Q, Profile pf, Inter in,
                         Order od, const double* yShift, long long emask,
                         cudaStream_t stream);
+
+// The SLOTS and TREE targets with the orders of H2_ORDER_SWITCH:
+// launchPanel<SLOTS or TREE, true>, instantiated in
+// panel_scatter_order_h2.cu; the CSR entry points (panel_scatter_csr.cu)
+// call it for the codes from ORDER_INNER_OUTER on, ``slots`` null for the
+// tree target.
+int launchPanelH2Position(double* data, long long nnz,
+                          const double* vertices, int dim,
+                          const long long* vi1, int nv1,
+                          const long long* vi2, int nv2,
+                          const long long* dofRows, const int* slots,
+                          int nPSI, const double* volsym,
+                          const double* normals, long long P, const int* I,
+                          const int* J, const int* offF, const int* offB,
+                          TreeTables tt, const double* bary_x,
+                          const double* bary_y, const double* w,
+                          const double* PSIP, int Q, Profile pf, Order od,
+                          const double* yShift, cudaStream_t stream);

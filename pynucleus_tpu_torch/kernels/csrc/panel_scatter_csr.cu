@@ -1,6 +1,9 @@
 // K1 panel_scatter (panel_scatter.cuh): the C entry points of its CSR
-// targets.  The order a whole Order (ORDER_PARAMS); an order of position
-// has no instance of these targets (cudaErrorInvalidValue).
+// targets.  The order a whole Order (ORDER_PARAMS); both targets reach the
+// instances of the orders of H2_ORDER_SWITCH (panel_scatter_order_h2.cu)
+// by the code (the others return cudaErrorInvalidValue), the tree target
+// with a singular rule's log tables lnEta, cw1, cw2 [Q] (or null) for the
+// component order.
 
 #include "panel_scatter.cuh"
 
@@ -21,6 +24,12 @@ EXPORT int panel_scatter_slots(double* data, long long nnz,
                                double t11,
                                ORDER_PARAMS, const double* yShift,
                                cudaStream_t stream) {
+    if (ocode >= ORDER_INNER_OUTER)
+        return launchPanelH2Position(
+            data, nnz, vertices, dim, vi1, nv1, vi2, nv2, nullptr, slots,
+            nPSI, volsym, normals, P, nullptr, nullptr, nullptr, nullptr,
+            TreeTables{}, bary_x, bary_y, w, PSIP, Q, PROFILE_OF(C),
+            ORDER_OF, yShift, stream);
     return launchPanel<SLOTS>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                               nullptr, slots, nPSI, volsym, normals, P,
                               nullptr, nullptr, nullptr, nullptr,
@@ -47,7 +56,16 @@ EXPORT int panel_scatter_tree(double* data, long long nnz,
                               double C1, double C2,
                               double tl, int wcode, double wl,
                               ORDER_PARAMS, const double* yShift,
-                              cudaStream_t stream) {
+                              const double* lnEta, const double* cw1,
+                              const double* cw2, cudaStream_t stream) {
+    if (ocode >= ORDER_INNER_OUTER)
+        return launchPanelH2Position(
+            data, nnz, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nullptr,
+            nPSI, volsym, normals, P, I, J, offF, offB,
+            TreeTables{dofNode, treePos, indptrT, tStart}, bary_x, bary_y,
+            w, PSIP, Q, PROFILE_OF(C), ORDER_WITH_LOGS(lnEta, cw1, cw2),
+            yShift, stream);
+    if (lnEta != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return launchPanel<TREE>(data, nnz, vertices, dim, vi1, nv1, vi2, nv2,
                              dofRows, nullptr, nPSI, volsym, normals, P, I,
                              J, offF, offB,

@@ -4,10 +4,13 @@
 #include "panel_scatter_nonsym.cuh"
 
 // The indicator (inter, h2, t00 ... t11) and the whole order
-// (ORDER_PARAMS) as K1's, then the variable horizon (Horizon's fields).  An
-// order of position goes to its own instances of the dense target
-// (panel_scatter_nonsym_order.cu); the slot target has none
-// (cudaErrorInvalidValue).
+// (ORDER_PARAMS) as K1's, then the variable horizon (Horizon's fields) and
+// a singular rule's log tables lnEta, cw1, cw2 [Q] (or null: the component
+// order adds them).  An order of position or the component order goes to
+// its own instances: of the dense target (panel_scatter_nonsym_order.cu)
+// and, for those of H2_ORDER_SWITCH, of the slot target
+// (panel_scatter_nonsym_order_h2.cu; the others return
+// cudaErrorInvalidValue).
 #define NONSYM_TAIL_PARAMS                                                 \
     int pcode, double C, double e, double a, double C1, double C2,            \
         double tl, int wcode, double wl,                                      \
@@ -15,10 +18,11 @@
         double t11, ORDER_PARAMS, int hon, double hc0, double hc1,        \
         double hlo, double hhi, double ha, double he, double hd,          \
         double hgamma, double hpiD2, double hexpo, int hnormalized,       \
+        const double *lnEta, const double *cw1, const double *cw2,        \
         cudaStream_t stream
 #define NONSYM_TAIL_ARGS                                                   \
     PROFILE_OF(C), Inter{inter, h2, t00, t01, t10, t11}, \
-        ORDER_OF,                                                          \
+        ORDER_WITH_LOGS(lnEta, cw1, cw2),                                  \
         Horizon{hon, hc0, hc1, hlo, hhi, ha, he, hd, hgamma, hpiD2,       \
                 hexpo, hnormalized},                                       \
         stream
@@ -34,6 +38,7 @@ EXPORT int panel_scatter_nonsym(
         return launchNonsymPosition(
             A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nPSI, volsym,
             P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, NONSYM_TAIL_ARGS);
+    if (lnEta != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return launchNonsym<NS_DENSE>(
         A, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, nullptr, nPSI,
         volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, NONSYM_TAIL_ARGS);
@@ -46,6 +51,12 @@ EXPORT int panel_scatter_nonsym_slots(
     const double* bary_x, const double* bary_y, const double* w,
     const double* PHIxPSI, const double* PHIyPSI, int Q,
     NONSYM_TAIL_PARAMS) {
+    if (ocode >= ORDER_INNER_OUTER)
+        return launchNonsymSlotsPosition(
+            data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI,
+            volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q,
+            NONSYM_TAIL_ARGS);
+    if (lnEta != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     return launchNonsym<NS_SLOTS>(
         data, nnz, vertices, dim, vi1, nv1, vi2, nv2, nullptr, slots, nPSI,
         volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, NONSYM_TAIL_ARGS);

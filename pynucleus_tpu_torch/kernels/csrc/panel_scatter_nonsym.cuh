@@ -6,8 +6,9 @@
 // panel_scatter_nonsym_order.cu (launchNonsymPosition below).
 #pragma once
 //
-// Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib_nonsym (with the
-// dense scatter of DenseAccumulator.add, the per-pair entry-mask adds
+// Replaces pynucleus_tpu/nl/assembly.py:_bucket_contrib_nonsym (with
+// useLogCorr, :68 _log_extra_scalar at (x, y) and at (y, x), for a
+// component kernel; with the dense scatter of DenseAccumulator.add, the per-pair entry-mask adds
 // into the H2 near field's tree CSR of _runPairBuckets, the CSR adds of
 // getSparse, and the indicator fallback of _runCutPairs, :2509-2537).
 // For pair p:
@@ -38,10 +39,15 @@
 // evaluations per node (two pow, two lgamma and an exp each; the variable
 // horizon's two pow each) and the 2 nPSI^2 FMAs (compute).  The variable
 // horizon has its own template instances (VH; the interval's nPSI 2 and 4).
-// The orders of position (common.cuh orderAt) have the dense target's
-// instances alone (launchNonsym with POS): nPSI 2 and 4 on the interval, 3
-// (identical triangles) and 6 (the other triangle pairs: both cells' dofs,
-// the shared ones DROPped on the second) in 2D.
+// The orders of position (common.cuh orderAt) and the component order
+// (common.cuh componentTerm: its value and, with a singular rule's log
+// tables, its log correction, in t1 at (x, y) and in t2 at (y, x)) have
+// instances of their own (launchNonsym with POS): the dense target's with
+// every one of them, nPSI 2 and 4 on the interval, 3 (identical triangles)
+// and 6 (the other triangle pairs: both cells' dofs, the shared ones
+// DROPped on the second) in 2D (panel_scatter_nonsym_order.cu); the slot
+// target's with those of H2_ORDER_SWITCH on the interval, nPSI 2 and 4
+// (the H2 near field's per-pair path, panel_scatter_nonsym_order_h2.cu).
 
 #include "common.cuh"
 
@@ -118,6 +124,9 @@ panel_scatter_nonsym_kernel(double* __restrict__ out,
         if constexpr (VH) {
             t1 = varHorizonXY(r2, x, hz) * w[q];
             t2 = varHorizonXY(r2, y, hz) * w[q];
+        } else if constexpr (OC == ORDER_COMPONENT) {
+            t1 = componentTerm(r2, x, y, od, w[q], q, true);
+            t2 = componentTerm(r2, y, x, od, w[q], q, true);
         } else {
             t1 = kernelXY<PC, OC>(r2, x, y, pf, od) * w[q];
             t2 = kernelXY<PC, OC>(r2, y, x, pf, od) * w[q];
@@ -175,14 +184,21 @@ static int launchNonsym(double* out, long long N, const double* vertices,
             out, N, vertices, dim, vi1, nv1, vi2, nv2, dofRows, slots,       \
             volsym, P, bary_x, bary_y, w, PHIxPSI, PHIyPSI, Q, pf, in, od,   \
             hz)
-    if constexpr (POS) {
-        static_assert(TARGET == NS_DENSE, "the orders of position: dense");
+    if constexpr (POS && TARGET == NS_DENSE) {
         if (hz.on) return static_cast<int>(cudaErrorInvalidValue);
         POSITION_ORDER_SWITCH(pf.code, od.code, switch (nPSI) {
             case 2: LAUNCH(2, false); break;
             case 3: LAUNCH(3, false); break;
             case 4: LAUNCH(4, false); break;
             case 6: LAUNCH(6, false); break;
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        })
+    } else if constexpr (POS) {
+        // the H2 near field's per-pair path on the interval
+        if (hz.on) return static_cast<int>(cudaErrorInvalidValue);
+        H2_ORDER_SWITCH(pf.code, od.code, switch (nPSI) {
+            case 2: LAUNCH(2, false); break;
+            case 4: LAUNCH(4, false); break;
             default: return static_cast<int>(cudaErrorInvalidValue);
         })
     } else if (hz.on) {
@@ -210,10 +226,13 @@ static int launchNonsym(double* out, long long N, const double* vertices,
 }
 
 
-// The dense target with an order of position: launchNonsym<NS_DENSE,
-// true>, instantiated in panel_scatter_nonsym_order.cu; the dense entry
-// point (panel_scatter_nonsym.cu) calls it for the codes from
-// ORDER_INNER_OUTER on.
+// The dense target with an order of position or the component order:
+// launchNonsym<NS_DENSE, true>, instantiated in
+// panel_scatter_nonsym_order.cu; the slot target with those of
+// H2_ORDER_SWITCH: launchNonsym<NS_SLOTS, true>, instantiated in
+// panel_scatter_nonsym_order_h2.cu; the entry points
+// (panel_scatter_nonsym.cu) call them for the codes from ORDER_INNER_OUTER
+// on.
 int launchNonsymPosition(double* A, long long N, const double* vertices,
                          int dim, const long long* vi1, int nv1,
                          const long long* vi2, int nv2,
@@ -223,3 +242,14 @@ int launchNonsymPosition(double* A, long long N, const double* vertices,
                          const double* w, const double* PHIxPSI,
                          const double* PHIyPSI, int Q, Profile pf, Inter in,
                          Order od, Horizon hz, cudaStream_t stream);
+int launchNonsymSlotsPosition(double* data, long long nnz,
+                              const double* vertices, int dim,
+                              const long long* vi1, int nv1,
+                              const long long* vi2, int nv2,
+                              const int* slots, int nPSI,
+                              const double* volsym, long long P,
+                              const double* bary_x, const double* bary_y,
+                              const double* w, const double* PHIxPSI,
+                              const double* PHIyPSI, int Q, Profile pf,
+                              Inter in, Order od, Horizon hz,
+                              cudaStream_t stream);

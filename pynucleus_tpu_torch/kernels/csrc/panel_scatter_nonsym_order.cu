@@ -1,11 +1,14 @@
 // K19 panel_scatter_nonsym (panel_scatter_nonsym.cuh): the instances of
 // its dense target with the orders of position (common.cuh orderAt:
 // innerOuter, islands and layers with sio != soi, smoothedLeftRight,
-// linearLeftRight, smoothedInnerOuter and fe), in a source of their own so
-// that nvcc compiles them beside the others; the dense entry point
+// linearLeftRight, smoothedInnerOuter and fe) and the component order
+// (common.cuh componentTerm), in a source of their own so that nvcc
+// compiles them beside the others; the dense entry point
 // (panel_scatter_nonsym.cu) reaches them by the order's code.  Replaces
 // pynucleus_tpu/nl/assembly.py:_bucket_contrib_nonsym + the dense scatter
-// with FractionalKernel.evalXY of those orders.
+// with FractionalKernel.evalXY of those orders, and with
+// _ComponentFractionalKernel.evalXY and useLogCorr (:68
+// _log_extra_scalar).
 
 #include "panel_scatter_nonsym.cuh"
 

@@ -40,31 +40,16 @@
 constexpr int VEC_MAXV = 16;
 constexpr int VEC_COEFS = 6;
 
-__device__ __forceinline__ int vecSide(const double* x, const double* y,
-                                       double iface) {
-    const bool xl = x[0] < iface, yl = y[0] < iface;
-    return (xl && yl) ? 0 : ((!xl && !yl) ? 1 : (xl ? 2 : 3));
-}
-
 // T of one node pair at r2 on the side whose coefficient row is cf, times
-// vs; the operations of nl/kernels.py vectorTerms and the plain version in
-// their order.
+// vs (common.cuh vecTermCore and vecSide, shared with the component order
+// of K1, K19 and K7).
 __device__ __forceinline__ double vecTerm(double r2, const double* cf,
                                           double wq, const double* lnEta,
                                           const double* cw1,
                                           const double* cw2, int q,
                                           double vs) {
     if (!(r2 > 0.0)) return 0.0;
-    const double rad = pow(r2, cf[5]);
-    const double L = log(r2);
-    const double val = rad * ((cf[0] + cf[1] * L) + cf[2] * (L * L));
-    double t = val * wq;
-    if (lnEta != nullptr) {
-        const double b = cf[3] * rad, c = cf[4] * rad;
-        const double lnR = 0.5 * L - lnEta[q];
-        t = t + (cw1[q] * (b + 2.0 * c * lnR) + cw2[q] * c);
-    }
-    return t * vs;
+    return __dmul_rn(vecTermCore(r2, cf, wq, lnEta, cw1, cw2, q), vs);
 }
 
 template <int NPSI, bool NONSYM>

@@ -163,7 +163,7 @@ from .kernels import (radialEval, profileArgs, POWER, GAUSSIAN_PROFILE,
                       POLYNOMIAL_PROFILE, evalXY, orderArgs,
                       horizonArgs, vectorTerms, COMPLEX_PROFILES,
                       GREENS_2D_PROFILE, IDENTITY_T, DENSE_ONLY_ORDERS,
-                      ORDER_VARIANTS,
+                      ORDER_VARIANTS, ORDER_COMPONENT, logExtra,
                       BALL2, BALL_INF, BALL1, ELLIPSE, BALL2_COMPLEMENT,
                       indicatorMask,
                       dirNorm, FRACTIONAL, INDICATOR, PERIDYNAMIC)
@@ -422,7 +422,7 @@ def _interArgs(inter):
 
 def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
                   bary_x, bary_y, w, PSIP, prof, indicator=None, order=None,
-                  yShift=None, entryMask=None, natural=False):
+                  yShift=None, entryMask=None, natural=False, logTables=None):
     """Panel quadrature of explicit pairs, scattered into A [N, N]:
 
         M[p] = sum_q gamma(x_q, y_q) w_q volsym[p]
@@ -445,7 +445,11 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
     local entry (I, J) of every pair of the launch where it is True: the
     JAX package's entryMask with DROP rows, one mask for the launch (the
     complement cross operator keeps the off-diagonal blocks of its local
-    matrices).
+    matrices).  logTables = (lnEta, cw1, cw2) [Q] (or None) of a singular
+    rule add the log correction of a component order (ORDER_COMPONENT) to
+    t_q before the indicator: gamma w_q + cw1_q (b + 2 c lnR_q) + cw2_q c
+    with lnR_q = ln|x_q - y_q| - lnEta_q (useLogCorr of the JAX program,
+    nl.kernels.logExtra).
 
     A float32 A (the float32 dense path) takes float32 tables and the
     power profile alone (no indicator, order, y shift or entry mask; its
@@ -462,28 +466,29 @@ def panel_scatter(A, vertices, vi1, vi2, dofRows, volsym, normals,
                        indicator, entryMask)
     _check('panel_scatter', A,
            floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
-                   yShift),
+                   yShift) + tuple(logTables or ()),
            ints=(vi1, vi2, dofRows), dtype=dtype)
     P, _, _ = _panelArgs('panel_scatter', None, vertices, vi1, vi2, volsym,
                          normals, bary_x, bary_y, w, PSIP, dofRows.shape[1],
-                         yShift)
+                         yShift, order, logTables)
     if dofRows.shape[0] != P:
         raise ValueError('panel_scatter: shape mismatch')
     emask = _entryBits(entryMask, dofRows.shape[1])
     if A.device.type == 'cpu':
         return _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym,
                                     normals, bary_x, bary_y, w, PSIP, prof,
-                                    indicator, order, yShift, entryMask)
+                                    indicator, order, yShift, entryMask,
+                                    logTables=logTables)
     if dtype == torch.float32:
         return _launchFloat32Panels(A, vertices, vi1, vi2, dofRows, volsym,
                                     normals, bary_x, bary_y, w, PSIP, prof,
                                     natural)
     if P:
-        _countOrder('panel_scatter', order)
+        _countOrder('panel_scatter', order, 'dense', logTables)
     _launchDofTarget('panel_scatter', 'dense', A, A.shape[0], vertices, vi1,
                      vi2, dofRows, volsym, normals, bary_x, bary_y, w, PSIP,
                      prof, indicator, *orderArgs(order, A.device),
-                     _opt(yShift), emask)
+                     _opt(yShift), *_logArgs(logTables), emask)
 
 
 def _launchFloat32Panels(A, vertices, vi1, vi2, dofRows, volsym, normals,
@@ -566,12 +571,31 @@ def _panel_scatter_natural_plain(A, vertices, cells, dofs, vols, di, dj,
                          w, PSIP, prof, indicator, order)
 
 
-def _countOrder(name, order):
-    """Counts the variant of an order of position (kernels.ORDERS); the
-    kernels have instances of these orders for their dense targets alone
-    (the other targets' launches fail)."""
-    if order is not None and int(order.code) in ORDER_VARIANTS:
-        kernels.countVariant(f'{name}:{ORDER_VARIANTS[int(order.code)]}')
+def _countOrder(name, order, target='dense', logTables=None):
+    """Counts the variants of an order (kernels.ORDERS): of an order of
+    position in a dense target by the order's name, in an H2 target
+    (K1's tree target, K19's slot target, K7) as ``<name>:position``;
+    of the component order as ``<name>:component``; a launch with the
+    singular rules' log tables as ``<name>:log``.  The H2 targets take the
+    orders of position innerOuter, islands, layers and fe alone (the others'
+    launches fail)."""
+    if logTables is not None:
+        kernels.countVariant(f'{name}:log')
+    if order is None:
+        return
+    code = int(order.code)
+    if code == ORDER_COMPONENT:
+        kernels.countVariant(f'{name}:component')
+    elif code in ORDER_VARIANTS:
+        kernels.countVariant(f'{name}:{ORDER_VARIANTS[code]}'
+                             if target == 'dense' else f'{name}:position')
+
+
+def _logArgs(logTables):
+    """The pointers (lnEta, cw1, cw2) of the singular rules' log tables
+    (None: three null pointers)."""
+    return tuple(kernels.ptr(t) for t in logTables) if logTables is not None \
+        else (None, None, None)
 
 
 def _entryBits(entryMask, nPSI):
@@ -585,11 +609,12 @@ def _entryBits(entryMask, nPSI):
     return int(sum(1 << k for k in np.flatnonzero(em.reshape(-1))))
 
 
-def _orderKw(order, yShift=None):
-    """The keyword arguments of a variable order and a y shift where given
-    (a constant-order kernel's calls keep K1's and K7's plain signatures)."""
-    return {k: v for k, v in (('order', order), ('yShift', yShift))
-            if v is not None}
+def _orderKw(order=None, yShift=None, logTables=None):
+    """The keyword arguments of a variable order, a y shift and the log
+    tables where given (a constant-order kernel's calls keep K1's and K7's
+    plain signatures)."""
+    return {k: v for k, v in (('order', order), ('yShift', yShift),
+                              ('logTables', logTables)) if v is not None}
 
 
 def _opt(t):
@@ -756,7 +781,8 @@ def _panel_scatter_cross_plain(A, vertices, vi1, vi2, dofRows, volsym,
 
 
 def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
-                   PSIP, prof, indicator=None, order=None, yShift=None):
+                   PSIP, prof, indicator=None, order=None, yShift=None,
+                   logTables=None):
     """Local matrices M [P, nPSI^2] of explicit pairs (K1's quadrature body,
     plain); the caller bounds P.  With the complement indicator the nodes
     are summed as K1 and the JAX package's einsum round them
@@ -776,6 +802,8 @@ def _panelMatrices(vertices, vi1, vi2, volsym, normals, bary_x, bary_y, w,
         y = y + yShift[:, None, :]
     r2 = ((x - y) ** 2).sum(-1)
     t = evalXY(x, y, r2, prof, order) * w[None, :]
+    if logTables is not None:
+        t = t + logExtra(x, y, r2, order, logTables)
     if indicator is not None and int(indicator[0]) != 0:
         t = t * indicatorMask(x, y, r2, indicator)
     if normals is not None:
@@ -796,7 +824,7 @@ def _plainChunks(P, Q):
 def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
                          bary_x, bary_y, w, PSIP, prof, indicator=None,
                          order=None, yShift=None, entryMask=None,
-                         natural=False):
+                         natural=False, logTables=None):
     """Plain PyTorch version of :func:`panel_scatter` (any device; the
     route ``natural`` counts the kernel's launches alone)."""
     prof = prof.rounded(A.dtype)
@@ -807,7 +835,7 @@ def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
                            bary_x, bary_y, w, PSIP, prof, indicator, order,
-                           None if yShift is None else yShift[sl])
+                           None if yShift is None else yShift[sl], logTables)
         dr = dofRows[sl]
         p = dr.shape[0]
         rows = dr[:, :, None].expand(p, nPSI, nPSI).reshape(p, -1)
@@ -819,10 +847,13 @@ def _panel_scatter_plain(A, vertices, vi1, vi2, dofRows, volsym, normals,
 
 
 def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
-               bary_y, w, PSIP, nPSI, yShift=None):
+               bary_y, w, PSIP, nPSI, yShift=None, order=None,
+               logTables=None):
     """Shape checks of K1's targets (``data``: the CSR data, whose slots
-    are int32, or None for a dof-indexed target); returns (P, Q, dim)."""
+    are int32, or None for a dof-indexed target); returns (P, Q, dim).
+    Log tables go with a component order alone."""
     P, Q, dim = vi1.shape[0], w.shape[0], vertices.shape[1]
+    _checkLogTables(name, order, logTables, Q)
     if vi2.shape[0] != P or volsym.shape != (P,) \
             or bary_x.shape != (vi1.shape[1], Q) \
             or bary_y.shape != (vi2.shape[1], Q) \
@@ -833,6 +864,15 @@ def _panelArgs(name, data, vertices, vi1, vi2, volsym, normals, bary_x,
     if data is not None and data.shape[0] - 1 >= (1 << 31):
         raise ValueError(f'{name}: int32 slots need nnz < 2^31')
     return P, Q, dim
+
+
+def _checkLogTables(name, order, logTables, Q):
+    if logTables is None:
+        return
+    if order is None or int(order.code) != ORDER_COMPONENT:
+        raise ValueError(f'{name}: log tables go with a component order')
+    if len(logTables) != 3 or any(t.shape != (Q,) for t in logTables):
+        raise ValueError(f'{name}: logTables = (lnEta, cw1, cw2) [Q]')
 
 
 def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
@@ -849,8 +889,11 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
     identical-cell bucket) and the host adds of _bucket_contrib's
     touching-pair matrices (DeviceCSRAccumulator.add, and CSRAccumulator.add
     of the sparse format); ``indicator``, ``order`` and ``yShift`` as in
-    :func:`panel_scatter`.  Float32 data (the float32 H2 path) take
-    float32 tables and the power profile alone (K1's float32 instance,
+    :func:`panel_scatter` (the orders of position innerOuter, islands,
+    layers and fe, the interval's nPSI 2 and 4, in instances of their own:
+    the singular panels of a symmetric one's H2 near field).  Float32 data
+    (the float32 H2 path) take float32 tables and the power profile alone
+    (K1's float32 instance,
     counted also as ``panel_scatter:float32`` and ``:float32_slots``).
     Float32 tables into float64 data (the float32 sparse path, the float32
     H2 path's touching panels) compute each local entry in float32 and sum
@@ -905,6 +948,7 @@ def panel_scatter_slots(data, vertices, vi1, vi2, slots, volsym, normals,
             *_float32ProfileArgs(prof))
     _countBall('panel_scatter', indicator)
     _countProfile('panel_scatter', prof)
+    _countOrder('panel_scatter', order, 'slots')
     kernels.check(lib.panel_scatter_slots(
         p(data), data.shape[0] - 1, p(vertices), dim, p(vi1), vi1.shape[1],
         p(vi2), vi2.shape[1], p(slots), nPSI, p(volsym),
@@ -970,7 +1014,7 @@ def _checkTables(name, data, tables, dtype=torch.float64):
 
 def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
                        I, J, offF, offB, tables, bary_x, bary_y, w, PSIP,
-                       prof, order=None, yShift=None):
+                       prof, order=None, yShift=None, logTables=None):
     """K1 into CSR data at arithmetic tree slots: with M[p] as in
     :func:`panel_scatter` and the slot of local entry (a, b) of pair p from
     its cluster pair (I[p], J[p]) and block offsets (offF[p], offB[p])
@@ -979,8 +1023,11 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         data[slot(p, a, b)] += M[p, a*nPSI+b]     (dump slot skipped)
 
     dofRows [P, nPSI] int64; I, J, offF, offB [P] int32; tables = (dofNode
-    [N], treePos [N], indptrT [Nt+1], tStart [nodes]) int32; ``order`` and
-    ``yShift`` as in :func:`panel_scatter`.  Kernel K1 on CUDA tensors, the
+    [N], treePos [N], indptrT [Nt+1], tStart [nodes]) int32; ``order``,
+    ``yShift`` and ``logTables`` as in :func:`panel_scatter` (the orders of
+    position innerOuter, islands, layers and fe and the component order,
+    the interval's nPSI 2 and 4, in their own instances).  Kernel K1 on
+    CUDA tensors, the
     plain version on CPU tensors.  Replaces _bucket_surface_tree_scan (with
     useYShift for a variable order's items).  Float32 data (the float32 H2
     path) take float32 tables and the power profile alone (K1's float32
@@ -991,12 +1038,12 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
     _checkTables('panel_scatter_tree', data, tables, dtype)
     _check('panel_scatter_tree', data, flat=True,
            floats=(vertices, volsym, normals, bary_x, bary_y, w, PSIP,
-                   yShift),
+                   yShift) + tuple(logTables or ()),
            ints=(vi1, vi2, dofRows), i32=(I, J, offF, offB), dtype=dtype)
     nPSI = dofRows.shape[1]
     P, Q, dim = _panelArgs('panel_scatter_tree', data, vertices, vi1, vi2,
                            volsym, normals, bary_x, bary_y, w, PSIP, nPSI,
-                           yShift)
+                           yShift, order, logTables)
     if dofRows.shape[0] != P or any(a.shape != (P,) for a in (I, J, offF,
                                                               offB)):
         raise ValueError('panel_scatter_tree: shape mismatch')
@@ -1004,7 +1051,7 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
         return _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows,
                                          volsym, normals, I, J, offF, offB,
                                          tables, bary_x, bary_y, w, PSIP, prof,
-                                         order, yShift)
+                                         order, yShift, logTables)
     if P == 0:
         return
     lib = kernels.library()
@@ -1023,18 +1070,21 @@ def panel_scatter_tree(data, vertices, vi1, vi2, dofRows, volsym, normals,
             p(treePos), p(indptrT), p(tStart), p(bary_x), p(bary_y), p(w),
             p(PSIP), Q, *_float32ProfileArgs(prof))
     _countProfile('panel_scatter', prof)
+    _countOrder('panel_scatter', order, 'tree', logTables)
     kernels.check(lib.panel_scatter_tree(
         p(data), data.shape[0] - 1, p(vertices), dim, p(vi1), vi1.shape[1],
         p(vi2), vi2.shape[1], p(dofRows), nPSI, p(volsym),
         p(normals) if normals is not None else None, P, p(I), p(J), p(offF),
         p(offB), p(dofNode), p(treePos), p(indptrT), p(tStart), p(bary_x),
         p(bary_y), p(w), p(PSIP), Q, *profileArgs(prof),
-        *orderArgs(order, data.device), _opt(yShift), kernels.stream()))
+        *orderArgs(order, data.device), _opt(yShift), *_logArgs(logTables),
+        kernels.stream()))
 
 
 def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
                               normals, I, J, offF, offB, tables, bary_x,
-                              bary_y, w, PSIP, prof, order=None, yShift=None):
+                              bary_y, w, PSIP, prof, order=None, yShift=None,
+                              logTables=None):
     """Plain PyTorch version of :func:`panel_scatter_tree` (any device)."""
     prof = _inType(prof, data.dtype)
     nnz = data.shape[0] - 1
@@ -1042,7 +1092,7 @@ def _panel_scatter_tree_plain(data, vertices, vi1, vi2, dofRows, volsym,
         M = _panelMatrices(vertices, vi1[sl], vi2[sl], volsym[sl],
                            None if normals is None else normals[sl],
                            bary_x, bary_y, w, PSIP, prof, None, order,
-                           None if yShift is None else yShift[sl])
+                           None if yShift is None else yShift[sl], logTables)
         slots = _treeSlots(dofRows[sl], I[sl], J[sl], offF[sl], offB[sl],
                            tables, nnz)
         _addSlots(data, slots.reshape(-1), M.reshape(-1))
@@ -1057,13 +1107,16 @@ def _phiPsi(PHI, PSI):
 
 
 def _nonsymArgs(name, out, vertices, vi1, vi2, volsym, bary_x, bary_y, w,
-                PHIxPSI, PHIyPSI, nPSI, ints, i32=()):
+                PHIxPSI, PHIyPSI, nPSI, ints, i32=(), order=None,
+                logTables=None):
     """Checks of K19's arguments; returns (P, Q, dim)."""
     _check(name, out, flat=out.dim() == 1,
-           floats=(vertices, volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI),
+           floats=(vertices, volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI)
+           + tuple(logTables or ()),
            ints=(vi1, vi2) + ints, i32=i32)
     P, Q, dim = _panelArgs(name, None, vertices, vi1, vi2, volsym, None,
-                           bary_x, bary_y, w, PHIxPSI, nPSI)
+                           bary_x, bary_y, w, PHIxPSI, nPSI, None, order,
+                           logTables)
     if PHIyPSI.shape != PHIxPSI.shape:
         raise ValueError(f'{name}: shape mismatch')
     return P, Q, dim
@@ -1071,7 +1124,7 @@ def _nonsymArgs(name, out, vertices, vi1, vi2, volsym, bary_x, bary_y, w,
 
 def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
                          bary_y, w, PHIxPSI, PHIyPSI, prof, order=None,
-                         indicator=None, horizon=None):
+                         indicator=None, horizon=None, logTables=None):
     """Nonsymmetric local matrices of explicit pairs, scattered into A
     [N, N]:
 
@@ -1084,29 +1137,34 @@ def panel_scatter_nonsym(A, vertices, vi1, vi2, dofRows, volsym, bary_x,
     indicator chi of a finite horizon (``indicator``, or None) as in
     :func:`panel_scatter`; a variable ``horizon`` (nl.kernels.HorizonParams,
     no order) makes gamma the kernel of variableHorizonFractionalKernel,
-    delta evaluated at gamma's first point: delta(x) in t1, delta(y) in t2.  PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi`
-    of the rule's buildPHI and buildPSI).  Kernel K19
+    delta evaluated at gamma's first point: delta(x) in t1, delta(y) in t2.
+    PHIxPSI, PHIyPSI [Q, nPSI^2] (:func:`_phiPsi` of the rule's buildPHI
+    and buildPSI).  logTables (lnEta, cw1, cw2) [Q] add a component order's
+    log correction to t1 and t2 as in :func:`panel_scatter`, at (x, y) and
+    at (y, x) (useLogCorr of the JAX program).  Kernel K19
     (kernels/csrc/panel_scatter_nonsym.cuh) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _bucket_contrib_nonsym with
     DenseAccumulator.add."""
     P, Q, dim = _nonsymArgs('panel_scatter_nonsym', A, vertices, vi1, vi2,
                             volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
-                            dofRows.shape[1], (dofRows,))
+                            dofRows.shape[1], (dofRows,), order=order,
+                            logTables=logTables)
     if dofRows.shape[0] != P:
         raise ValueError('panel_scatter_nonsym: shape mismatch')
     if A.device.type == 'cpu':
         return _panel_scatter_nonsym_plain(A, 'dense', dofRows, vertices, vi1,
                                            vi2, volsym, bary_x, bary_y, w,
                                            PHIxPSI, PHIyPSI, prof, order,
-                                           indicator, horizon)
+                                           indicator, horizon, logTables)
     _launchNonsym('panel_scatter_nonsym', 'dense', A, A.shape[0], dofRows,
                   vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
-                  PHIyPSI, prof, order, indicator, horizon)
+                  PHIyPSI, prof, order, indicator, horizon, logTables)
 
 
 def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
                                bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof,
-                               order=None, indicator=None, horizon=None):
+                               order=None, indicator=None, horizon=None,
+                               logTables=None):
     """K19 into CSR data at explicit slots: with M[p] as in
     :func:`panel_scatter_nonsym`,
 
@@ -1115,13 +1173,16 @@ def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
     data [nnz+1] float64 (slot nnz, the dump slot, and negative slots are
     skipped); slots [P, nPSI^2] int32, the host's per-pair entry masks
     folded in (a masked entry has the dump slot), or the sparse format's
-    slots.  Kernel K19 on CUDA tensors, the plain version on CPU tensors.
-    Replaces the masked adds of _bucket_contrib_nonsym's matrices into the
-    H2 near field and the CSRAccumulator.add of getSparse."""
+    slots.  ``order`` (the orders of position innerOuter, islands, layers
+    and fe and the component order in their own instances, the interval's
+    nPSI 2 and 4) and ``logTables`` as in :func:`panel_scatter_nonsym`.  Kernel K19 on
+    CUDA tensors, the plain version on CPU tensors.  Replaces the masked
+    adds of _bucket_contrib_nonsym's matrices into the H2 near field and
+    the CSRAccumulator.add of getSparse."""
     nPSI = int(round(slots.shape[1] ** 0.5))
     P, Q, dim = _nonsymArgs('panel_scatter_nonsym_slots', data, vertices,
                             vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
-                            PHIyPSI, nPSI, (), (slots,))
+                            PHIyPSI, nPSI, (), (slots,), order, logTables)
     if slots.shape != (P, nPSI * nPSI):
         raise ValueError('panel_scatter_nonsym_slots: slots must be '
                          '[P, nPSI^2]')
@@ -1132,16 +1193,16 @@ def panel_scatter_nonsym_slots(data, vertices, vi1, vi2, slots, volsym,
         return _panel_scatter_nonsym_plain(data, 'slots', slots, vertices,
                                            vi1, vi2, volsym, bary_x, bary_y,
                                            w, PHIxPSI, PHIyPSI, prof, order,
-                                           indicator, horizon)
+                                           indicator, horizon, logTables)
     _launchNonsym('panel_scatter_nonsym_slots', 'slots', data,
                   data.shape[0] - 1, slots, vertices, vi1, vi2, volsym,
                   bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order,
-                  indicator, horizon)
+                  indicator, horizon, logTables)
 
 
 def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
                   bary_x, bary_y, w, PHIxPSI, PHIyPSI, prof, order,
-                  indicator, horizon):
+                  indicator, horizon, logTables=None):
     P = vi1.shape[0]
     if P == 0:
         return
@@ -1162,14 +1223,15 @@ def _launchNonsym(fn, target, out, N, index, vertices, vi1, vi2, volsym,
             p(vi2), vi2.shape[1], p(index), nPSI, p(volsym), P, p(bary_x),
             p(bary_y), p(w), p(PHIxPSI), p(PHIyPSI), w.shape[0],
             *profileArgs(prof), *_indicatorArgs(indicator))
-    _countOrder('panel_scatter_nonsym', order)
+    _countOrder('panel_scatter_nonsym', order, target, logTables)
     kernels.check(getattr(lib, fn)(
         *head, *orderArgs(order, out.device), *horizonArgs(horizon),
-        kernels.stream()))
+        *_logArgs(logTables), kernels.stream()))
 
 
 def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
-                    PHIyPSI, prof, order, indicator=None, horizon=None):
+                    PHIyPSI, prof, order, indicator=None, horizon=None,
+                    logTables=None):
     """M [P, nPSI^2] of explicit pairs (K19's body, plain), in the order of
     pynucleus_tpu/nl/assembly.py _bucket_contrib_nonsym."""
     x = torch.einsum('pvd,vq->pqd', vertices[vi1], bary_x)
@@ -1177,6 +1239,9 @@ def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
     r2 = ((x - y) ** 2).sum(-1)
     t1 = evalXY(x, y, r2, prof, order, horizon) * w[None, :]
     t2 = evalXY(y, x, r2, prof, order, horizon) * w[None, :]
+    if logTables is not None:
+        t1 = t1 + logExtra(x, y, r2, order, logTables)
+        t2 = t2 + logExtra(y, x, r2, order, logTables)
     if indicator is not None and int(indicator[0]) != 0:
         ind = indicatorMask(x, y, r2, indicator)
         t1 = t1 * ind
@@ -1189,13 +1254,13 @@ def _nonsymMatrices(vertices, vi1, vi2, volsym, bary_x, bary_y, w, PHIxPSI,
 def _panel_scatter_nonsym_plain(out, target, index, vertices, vi1, vi2,
                                 volsym, bary_x, bary_y, w, PHIxPSI, PHIyPSI,
                                 prof, order=None, indicator=None,
-                                horizon=None):
+                                horizon=None, logTables=None):
     """Plain PyTorch version of K19 (any device): target 'dense' (index:
     dofRows) or 'slots' (index: slots)."""
     for sl in _plainChunks(vi1.shape[0], w.shape[0]):
         M = _nonsymMatrices(vertices, vi1[sl], vi2[sl], volsym[sl], bary_x,
                             bary_y, w, PHIxPSI, PHIyPSI, prof, order,
-                            indicator, horizon)
+                            indicator, horizon, logTables)
         if target == 'slots':
             _addSlots(out, index[sl].reshape(-1), M.reshape(-1))
             continue
@@ -1865,9 +1930,10 @@ def far_field(gi, gj, prof, order=None):
     """Far-field blocks K[p, a, b] = gamma(gi[p, a], gj[p, b]) for the
     Chebyshev grids gi, gj [P, M, dim] float64 of the far cluster pairs;
     gamma the radial profile ``prof``, or with ``order`` a variable
-    fractional order's kernel, as in K1 (nl.kernels.evalXY).  Float32
-    grids (the float32 H2 path) give float32 blocks of the power profile
-    alone (K7's float32 instance, counted also as ``far_field:float32``).
+    fractional order's kernel, as in K1 (nl.kernels.evalXY; the orders of
+    position innerOuter, islands, layers and fe and the component order in
+    instances of their own).  Float32 grids (the float32 H2 path) give
+    float32 blocks of the power profile alone (K7's float32 instance, counted also as ``far_field:float32``).
     Kernel K7 (kernels/csrc/far_field.cu) on CUDA tensors, the plain
     version on CPU tensors.  Replaces _farFieldBlocks (kernel.jaxEval)."""
     dtype = _realTarget('far_field', gi, prof, order=order)
@@ -1892,6 +1958,7 @@ def far_field(gi, gj, prof, order=None):
                    kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
                    *_float32ProfileArgs(prof))
         return K
+    _countOrder('far_field', order, 'far')
     kernels.check(lib.far_field(
         kernels.ptr(K), kernels.ptr(gi), kernels.ptr(gj), P, M, dim,
         *profileArgs(prof), *orderArgs(order, gi.device), kernels.stream()))
@@ -2536,16 +2603,17 @@ class DeviceDenseAccumulator:
 
     def addPanels(self, vertices, vi1, vi2, dofRows, volsym, normals,
                   tables, prof, indicator, order=None, entryMask=None,
-                  natural=False):
+                  natural=False, logTables=None):
         panel_scatter(self.A, vertices, vi1, vi2, dofRows, volsym, normals,
                       *tables, prof, indicator=indicator, entryMask=entryMask,
-                      natural=natural, **_orderKw(order))
+                      natural=natural, **_orderKw(order, logTables=logTables))
 
     def addNonsym(self, vertices, vi1, vi2, dofRows, volsym, tables, prof,
-                  order, indicator=None, horizon=None):
+                  order, indicator=None, horizon=None, logTables=None):
         """K19 into A; tables = (bary_x, bary_y, w, PHIxPSI, PHIyPSI)."""
         panel_scatter_nonsym(self.A, vertices, vi1, vi2, dofRows, volsym,
-                             *tables, prof, order, indicator, horizon)
+                             *tables, prof, order, indicator, horizon,
+                             **_orderKw(logTables=logTables))
 
     def cutTarget(self, dofRows):
         """(out, target, index) of K14 and K15 for local dofs dofRows."""
@@ -2743,7 +2811,7 @@ class _BucketRunner:
                              self.logTables(rule))
             return
         prof = self.kernel.profileParams()
-        kw = _orderKw(self._k1Order())
+        kw = _orderKw(self._k1Order(), logTables=self.logTables(rule))
         if entryMask is not None:
             kw['entryMask'] = entryMask
         if natural:
@@ -2804,7 +2872,8 @@ class _BucketRunner:
                             self._t(vertIdx1, TINDEX),
                             self._t(vertIdx2, TINDEX), self._t(slots, TI32),
                             self._t(volsym), None,
-                            *self.ruleTables(rule, PSI), prof)
+                            *self.ruleTables(rule, PSI), prof,
+                            **_orderKw(self._k1Order()))
 
     def runPairs(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
                  entryMask=None, *, PHI):
@@ -2832,13 +2901,14 @@ class _BucketRunner:
             return
         indicator = self.kernel.indicatorParams()
         horizon = self.kernel.horizonParams()
+        logKw = _orderKw(logTables=self.logTables(rule))
         if not isinstance(acc, DeviceTreeCSRAccumulator):
             if entryMask is not None:
                 raise ValueError('entry masks need the tree CSR target')
             acc.addNonsym(self.vertices, self._t(vertIdx1, TINDEX),
                           self._t(vertIdx2, TINDEX),
                           self._t(dofRows, TINDEX), self._t(volsym), tables,
-                          prof, order, indicator, horizon)
+                          prof, order, indicator, horizon, **logKw)
             return
         n = PSI.shape[0]
         for s in range(0, P, _HOST_PAIRS):
@@ -2850,7 +2920,7 @@ class _BucketRunner:
                 self._t(vertIdx2[sl], TINDEX),
                 self._t(acc.maskedSlots(dofRows[sl], em), TI32),
                 self._t(volsym[sl]), *tables, prof, order, indicator,
-                horizon)
+                horizon, **logKw)
 
     def runTree(self, acc, rule, PSI, vertIdx1, vertIdx2, dofRows, volsym,
                 normals, I, J, offF, offB, yShift=None):
@@ -2866,7 +2936,8 @@ class _BucketRunner:
             *(self._t(a, TI32) for a in (I, J, offF, offB)), acc.tables,
             *self.ruleTables(rule, PSI), prof,
             **_orderKw(self._k1Order(),
-                       self._t(yShift) if yShift is not None else None))
+                       self._t(yShift) if yShift is not None else None,
+                       self.logTables(rule)))
 
 
 class _PatternMaskLookup:
@@ -2981,9 +3052,10 @@ def _refuseH2Order(kernel, mesh):
     manifold kernel (the JAX getH2 fails on a closed curve, with a
     ValueError from the classification of its empty surface), of a
     variable or nonsymmetric order on triangles (the JAX getH2 fails there
-    with an AssertionError) and of the orders of DENSE_ONLY_ORDERS on any
-    mesh (their K1 and K19 instances are the dense targets'; the JAX H2
-    of a variable order is off its dense operator, ROADMAP.md)."""
+    with an AssertionError) and of the orders of DENSE_ONLY_ORDERS
+    (smoothedLeftRight, linearLeftRight, smoothedInnerOuter: the JAX getH2
+    fails on the interval with an AssertionError; their K1 and K19
+    instances are the dense targets')."""
     if getattr(kernel, 'manifold', False):
         raise NotImplementedError(
             'H2 of the manifold kernel: the JAX package fails there too '
@@ -2997,8 +3069,8 @@ def _refuseH2Order(kernel, mesh):
     order = kernel.orderParams()
     if order is not None and int(order.code) in DENSE_ONLY_ORDERS:
         raise NotImplementedError(
-            f'H2 of the order {kernel.s!r}: its kernels are ported for the '
-            'dense operator only')
+            f'H2 of the order {kernel.s!r}: the JAX package fails to build '
+            'it (AssertionError in its getH2); assemble it dense')
 
 
 def _sync(device):
@@ -3094,12 +3166,6 @@ class nonlocalBuilder:
             # 3D assembly raises in the JAX package as well
             raise NotImplementedError('complex kernels: greens2D on 2D '
                                       'meshes only')
-        if getattr(kernel, 'derivative', 0) and kernel.variable \
-                and getattr(kernel, 'valueSize', 1) == 1:
-            # pynucleus_tpu's scalar programs with useLogCorr (:91, :424)
-            raise NotImplementedError('the component kernels of a vector '
-                                      'kernel: the log correction of the '
-                                      'scalar kernels is not ported')
         # a variable or nonsymmetric order, a variable horizon: the per-pair
         # path (a symmetric variable order through K1, the others through
         # K19)
@@ -4060,6 +4126,15 @@ class nonlocalBuilder:
         tStartRow[1:] = np.cumsum(tLen)
         perm = np.concatenate([nodes[nid].dofs for nid in nearIds])
         Nt = len(perm)
+        if Nt > N:
+            # the leaves split at the order's jumps share dofs: the JAX
+            # package's getH2 fails here (pynucleus_tpu/nl/assembly.py
+            # _assembleNearField, its assert Nt <= N), as for the fe order
+            # beyond 15 dofs on the interval
+            raise NotImplementedError(
+                f'H2 of the order {kernel.s!r}: its near-field nodes hold '
+                f'{Nt} dofs for {N}; the JAX package fails to build it '
+                f'(AssertionError in its getH2); assemble it dense')
         treePos = np.full(N, -1, dtype=np.int64)
         treePos[perm] = np.arange(Nt)
         tStartOfNode = np.full(len(nodes), -1, dtype=np.int64)
@@ -4115,10 +4190,11 @@ class nonlocalBuilder:
                                        nodeRow, nNear, ordKeysS, blockOffS,
                                        indptrT, tStartOfNode, self.real)
         t0 = self._lap('near pattern', t0)
-        if self.general:
-            # a variable or nonsymmetric order: the per-pair path with entry
-            # masks (K1, K19) for the singular pairs, the near cluster pairs'
-            # distant cell pairs and the union surfaces with the order jumps
+        if not kernel.symmetric:
+            # a nonsymmetric kernel: the per-pair path with entry masks (K19)
+            # for the singular pairs and the near cluster pairs' distant
+            # cell pairs, and the union surfaces with the order jumps (K1)
+            # (pynucleus_tpu/nl/assembly.py:3471-3477)
             self._runPairBucketsGeneral(acc, info, maskLookup=pairMasks)
             t0 = self._lap('singular', t0)
             self._runNearDistantLegacy(acc, IJ, nodeRow, ncArr, ncOff,
@@ -4140,7 +4216,11 @@ class nonlocalBuilder:
                              blockOffS=blockOffS, cellNodes=cellNodes,
                              tLen=tLen, tStartOfNode=tStartOfNode,
                              indptrT=indptrT)
-        if self.nearEngine == 'host':
+        if self.nearEngine == 'host' or kernel.variable:
+            # a symmetric variable order (innerOuter, islands, layers with
+            # sio == soi) takes the host enumeration with K1's tree target,
+            # the JAX package's CPU path (its near-field engines on the
+            # device have no variable order)
             self._runNearDistantTree(acc, nf, info, np.sort(
                 adj[:, 0] * C + adj[:, 1]))
         else:
@@ -4366,18 +4446,20 @@ class nonlocalBuilder:
         runner = _BucketRunner(mesh, dm, self.kernel, self.device,
                                real=self.real)
         rulesFor = self._ruleCache(info['quad_order_diagonal'])
-        rules = rulesFor(self.kernel.getSingularityValue())
         if len(info['distant'][0]):
             raise AssertionError('identical/adjacent cell pairs classified '
                                  'as distant')
-        ids = info['id']
-        if len(ids):
-            ruleId = rules['ruleId']
+        # the volume factor in the working type, as the JAX program forms
+        # it on the device (float32: vols32^2 * 4 rounded twice)
+        vw = vols.astype(np.float32) if self.real == torch.float32 else vols
+        # a symmetric variable order: the identical cells grouped by their
+        # singularity, each group with its rule (_singularityGroups)
+        for sing, sel in self._singularityGroups(info['id'], info['id']):
+            ids = info['id'][sel]
+            if not len(ids):
+                continue
+            ruleId = rulesFor(sing)['ruleId']
             em = pairMasks.lookup(ids, ids)[:, :dpe, :dpe]
-            # the volume factor in the working type, as the JAX program
-            # forms it on the device (float32: vols32^2 * 4 rounded twice)
-            vw = vols.astype(np.float32) if self.real == torch.float32 \
-                else vols
             runner.runSlots(acc, ruleId,
                             ruleId.buildPSI(dm, nSharedVertices=mdim + 1),
                             cells[ids], cells[ids],
@@ -4539,7 +4621,9 @@ class nonlocalBuilder:
         identical cells, dedup within each cluster pair, drop the touching
         pairs (adjK, the sorted adjacency keys lo * C + hi), order the rest
         with distantOrders and run each (chunk, order) bucket through K13
-        into tree slots."""
+        into tree slots; a variable order's through K1's tree target
+        (volsym vols[lo] vols[hi] 2, the JAX package's host path,
+        pynucleus_tpu/nl/assembly.py:3987-4020)."""
         dm, mesh, kernel = self.dm, self.mesh, self.kernel
         dev = self.device
         C = mesh.num_cells
@@ -4599,6 +4683,7 @@ class nonlocalBuilder:
 
         runner = _BucketRunner(mesh, dm, kernel, dev, real=self.real)
         prof = kernel.profileParams()
+        vols = mesh.simplexVolumes()
         rules = {}
         p0 = 0
         while p0 < len(IJ):
@@ -4622,6 +4707,16 @@ class nonlocalBuilder:
             for k_, o in enumerate(uniq):
                 o = int(o)
                 sl = slice(int(bounds[k_]), int(bounds[k_ + 1]))
+                if kernel.variable:
+                    rule = distantRule(o, mesh.manifold_dim)
+                    loS, hiS = lo[sl], hi[sl]
+                    runner.runTree(
+                        acc, rule, rule.buildPSI(dm, nSharedVertices=0),
+                        cells[loS], cells[hiS],
+                        np.concatenate([dm.dofs[loS], dm.dofs[hiS]], axis=1),
+                        vols[loS] * vols[hiS] * 2.0, None,
+                        IJ[pidx[sl], 0], IJ[pidx[sl], 1], offF[sl], offB[sl])
+                    continue
                 if o not in rules:
                     rule = distantRule(o, mesh.manifold_dim)
                     rules[o] = runner.ruleTables(
@@ -5169,19 +5264,19 @@ class nonlocalBuilder:
 
     def getH2Vector(self):
         """Vector-valued H2 operator: one getH2 per component
-        (pynucleus_tpu/nl/assembly.py getH2Vector), of a kernel of one
-        component; ``timers`` holds its build parts.  A multi-parameter
-        order raises NotImplementedError (its component kernels need the
-        log correction inside K1, K19 and K7)."""
+        (pynucleus_tpu/nl/assembly.py getH2Vector).  A multi-parameter
+        order's components are its component kernels, each built through
+        the per-pair path with the singular rules' log correction (K19,
+        K1's tree target, K7 with the component order); ``timers`` holds
+        the build parts summed over the components."""
         self._refuseFloat32('getH2Vector')
-        if getattr(self.kernel, 'valueSize', 1) > 1:
-            raise NotImplementedError('getH2Vector of a multi-parameter '
-                                      'order is not ported')
-        comps = []
+        comps, timers = [], {}
         for k in self._componentKernels():
             b = self._componentBuilder(k)
             comps.append(b.getH2())
-            self.timers = b.timers
+            for part, sec in b.timers.items():
+                timers[part] = timers.get(part, 0.0) + sec
+        self.timers = timers
         return H2_VectorLinearOperator(comps)
 
 

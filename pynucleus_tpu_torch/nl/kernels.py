@@ -128,7 +128,8 @@ __all__ = ['constFractionalOrder', 'variableConstFractionalOrder',
            'linearLeftRightFractionalOrder',
            'smoothedInnerOuterFractionalOrder', 'islandsFractionalOrder',
            'layersFractionalOrder', 'feFractionalOrder',
-           'OrderTable', 'DENSE_ONLY_ORDERS', 'MANIFOLD_FRACTIONAL',
+           'OrderTable', 'DENSE_ONLY_ORDERS',
+           'ORDER_COMPONENT', 'componentTerms', 'MANIFOLD_FRACTIONAL',
            'FractionalKernel',
            'getFractionalKernel', 'getIntegrableKernel',
            'constantFractionalLaplacianScaling', 'constantIntegrableScaling',
@@ -237,10 +238,15 @@ ORDER_SMOOTHED_LR = 6   # s(x): smoothstep from sll to srr across x[0] = iface
 ORDER_LINEAR_LR = 7     # s(x): linear from sll to srr across x[0] = iface
 ORDER_SMOOTHED_IO = 8   # s(x): smoothstep from sl to sr across |x| = radius
 ORDER_FE = 9            # s(x): the raster of an FE vector, multilinear
-ORDER_CODES = range(10)
-# the codes whose kernels K1 and K19 have for their dense targets only (the
-# H2 and sparse formats of these orders raise)
-DENSE_ONLY_ORDERS = range(3, 10)
+ORDER_COMPONENT = 10    # component q of a vector s-derivative kernel
+ORDER_CODES = range(11)
+# the orders of position whose H2 operator the JAX package fails to build on
+# the interval (an AssertionError in its getH2): the kernels have them for
+# the dense targets of K1 and K19 only, and the H2 format raises
+DENSE_ONLY_ORDERS = (ORDER_SMOOTHED_LR, ORDER_LINEAR_LR, ORDER_SMOOTHED_IO)
+# the coefficient row of a side of a component order: (c0, c1, c2, b, c, e)
+# of :class:`VectorParams` and the side's gradient entry G_q
+COMPONENT_ROW = 7
 # the variant names of the codes in kernels.launches
 ORDER_VARIANTS = {ORDER_INNER_OUTER: 'inner_outer',
                   ORDER_ISLANDS: 'islands', ORDER_LAYERS: 'layers',
@@ -273,14 +279,18 @@ class OrderParams(NamedTuple):
     and values (sll, srr, slr, srl, interface; a constant order has all four
     values equal), the dimension d of the normalization C(d, s) and whether
     the kernel is the boundary kernel C(s)/s r^(1-d-2s).  The orders of
-    position (codes DENSE_ONLY_ORDERS) also take ``g``, up to four floats
+    position (codes 3-9) also take ``g``, up to four floats
     formed on the host as the JAX expressions form them from Python floats
     (innerOuter: the centre's coordinates and r^2 at g[2]; islands: r, r2;
     smoothedLeftRight: the interface and 0.5/r; linearLeftRight: the
     interface, r and 2r; smoothedInnerOuter: the radius and 0.5/r), and
     ``table`` (an :class:`OrderTable` of layers' inner boundaries then its
     [n, n] orders, or of fe's raster [n] or [n, n]) with its ``n``, and
-    fe's raster box ``lo``, ``hi`` [dim]."""
+    fe's raster box ``lo``, ``hi`` [dim].  The component order
+    (ORDER_COMPONENT, :class:`_ComponentFractionalKernel`) is component q of
+    a vector kernel: its ``table`` the [4, COMPONENT_ROW] rows of the sides
+    ll, rr, lr, rl (the side's :class:`VectorParams` coefficients and its
+    gradient entry G_q), ``interface`` the sides' interface."""
     code: int
     sll: float
     srr: float
@@ -1713,6 +1723,40 @@ def _grads(vp, side, dtype):
     return torch.as_tensor(vp.grads, dtype=dtype, device=side.device)[side]
 
 
+def componentTerms(x, y, r2, order):
+    """(gamma, b, c) [...] of a component order (:class:`OrderParams` of
+    code ORDER_COMPONENT) at nodes x, y [..., dim] with r2 = |x-y|^2: the
+    component's value and its log coefficients (the parent's
+    :func:`vectorEval` and :func:`vectorLogCoeffs` at column q: the side's
+    factors of :func:`vectorTerms` times its gradient entry G_q), exactly 0
+    where r2 == 0.  The operations of common.cuh componentTerm."""
+    side = vectorSide(x, y, order.interface)
+    tab = order.table.on(r2.device).to(r2.dtype).reshape(4, COMPONENT_ROW)
+    cf = tab[side]
+    pos = r2 > 0
+    r2s = torch.where(pos, r2, 1.0)
+    rad = r2s ** cf[..., 5]
+    L = torch.log(r2s)
+    val = rad * ((cf[..., 0] + cf[..., 1] * L) + cf[..., 2] * (L * L))
+    G = cf[..., 6]
+    return (torch.where(pos, val * G, 0.0),
+            torch.where(pos, (cf[..., 3] * rad) * G, 0.0),
+            torch.where(pos, (cf[..., 4] * rad) * G, 0.0))
+
+
+def logExtra(x, y, r2, order, logTables):
+    """The singular rules' log correction [P, Q] of a component order at
+    the node pairs (x, y) [P, Q, dim] (pynucleus_tpu/nl/assembly.py
+    _log_extra_scalar): cw1 (b + 2 c lnR) + cw2 c with lnR = ln|x-y| -
+    lnEta and (b, c) the component's log coefficients
+    (:func:`componentTerms`), 0 where r2 == 0; logTables = (lnEta, cw1,
+    cw2) [Q]."""
+    lnEta, cw1, cw2 = logTables
+    _, b, c = componentTerms(x, y, r2, order)
+    lnR = 0.5 * torch.log(torch.where(r2 > 0, r2, 1.0)) - lnEta[None, :]
+    return cw1[None, :] * (b + 2.0 * c * lnR) + cw2[None, :] * c
+
+
 def vectorEval(x, y, r2, vp):
     """All components [..., V] of :class:`VectorParams` vp at x, y."""
     val, _, _, side = vectorTerms(x, y, r2, vp)
@@ -1811,9 +1855,11 @@ class VectorFractionalKernel(FractionalKernel):
 class _ComponentFractionalKernel(FractionalKernel):
     """Scalar view of component q of a :class:`VectorFractionalKernel`
     (pynucleus_tpu/nl/kernels.py _ComponentFractionalKernel), with the
-    parent's derivative (the quadrature-order bump).  Its assembly needs
-    the log correction inside the scalar kernels (K1, K19, K7): not ported,
-    the builder raises."""
+    parent's derivative (the quadrature-order bump; the singular rules' log
+    correction of its buckets).  The device kernels (K1, K19, K7) take it
+    as the component order (:meth:`orderParams`, ORDER_COMPONENT): the
+    parent's :class:`VectorParams` row of each side and the side's gradient
+    entry G_q."""
 
     def __init__(self, parent, q):
         super().__init__(parent.dim, parent.s, horizon=parent.horizonValue,
@@ -1824,6 +1870,20 @@ class _ComponentFractionalKernel(FractionalKernel):
         self.symmetric = False
         self.variable = True
         self.derivative = parent.derivative
+        vp = parent.vectorParams()
+        rows = np.concatenate([vp.coefs, vp.grads[:, self.q:self.q + 1]],
+                              axis=1)
+        self._order = OrderParams(
+            ORDER_COMPONENT, parent.s.sll, parent.s.srr, parent.s.slr,
+            parent.s.srl, vp.interface, self.dim, self.boundary,
+            table=OrderTable(torch.as_tensor(np.ravel(rows),
+                                             dtype=torch.float64)),
+            n=COMPONENT_ROW)
+
+    def orderParams(self):
+        """The component order (ORDER_COMPONENT): its table [4 *
+        COMPONENT_ROW] of the sides' rows (c0, c1, c2, b, c, e, G_q)."""
+        return self._order
 
     def evalXY(self, x, y, r2):
         return self.parent.evalComponents(x, y, r2)[..., self.q]
@@ -2336,6 +2396,8 @@ def evalXY(x, y, r2, prof, order=None, horizon=None):
         return torch.where(pos, val, 0.0)
     if order is None:
         return radialEval(r2, prof)
+    if int(order.code) == ORDER_COMPONENT:
+        return componentTerms(x, y, r2, order)[0]
     piD2, halfDim, eBase = _orderNorm(order)
     boundary = bool(order.boundary)
     sv = orderEval(x, y, order)

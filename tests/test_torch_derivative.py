@@ -323,12 +323,20 @@ def test_not_ported_raise():
     m = _interval(3)
     _, tdm, tk = fromArrays(m.vertices, m.cells, (0.25, 0.75), 1,
                             device='cpu', derivative=1)
-    with pytest.raises(NotImplementedError):
-        tasm.nonlocalBuilder(tdm, tk).getH2Vector()
+    # getH2Vector of a multi-parameter order and nonlocalBuilder of a
+    # component kernel run (tests/test_torch_varorder_h2.py holds them to
+    # the JAX package): the components' dense operators are the vector
+    # operator's
+    x = torch.sin(torch.arange(tdm.num_dofs, dtype=torch.float64))
+    Dv = tasm.nonlocalBuilder(tdm, tk).getDenseVector()
+    Hv = tasm.nonlocalBuilder(tdm, tk).getH2Vector()
+    assert Hv.matvec(x).shape == Dv.matvec(x).shape == (tdm.num_dofs, 2)
+    for q, kq in enumerate(tk.componentKernels()):
+        Dq = tasm.nonlocalBuilder(tdm, kq).getDense().data
+        assert float((Dq - Dv.data[:, :, q]).abs().max()) \
+            <= 1e-12 * float(Dv.data.abs().max())
     with pytest.raises(TypeError):
         tasm.nonlocalBuilder(tdm, tk).getDense()
-    with pytest.raises(NotImplementedError):
-        tasm.nonlocalBuilder(tdm, tk.componentKernels()[0])
     d = _disc(0)
     _, ddm, dk = fromArrays(d.vertices, d.cells, (0.25, 0.75), 2,
                             device='cpu', derivative=1)
