@@ -115,7 +115,8 @@ result line):
      the vector kernel against central differences of the dense operators
      in (sll, srr) at noRef 8 (5e-4); dA/ds H2 against dense on the disc at
      noRef 6 (5e-4); the full-width lines, dA/ds of the flagship disc at
-     noRef 7 (getH2Vector under torch.profiler: build parts and seconds,
+     noRef 6 (cut from 7 to make room for phase 28; getH2Vector under
+     torch.profiler: build parts and seconds,
      its device time, apply and transposed apply, peak memory) and
      d^2A/ds^2 of leftRight(0.25, 0.75) dense at noRef 10 (2,047 dofs,
      [2047, 2047, 4]; noRef 9 if its host classification exceeds 300 s;
@@ -389,6 +390,29 @@ result line):
      against their plain versions at these calls (1e-12 of the largest
      entry).  Alone: `python -c 'import chip_smoke as c; from
      pynucleus_tpu_torch import kernels; kernels.library(); c.phase27()'`.
+ 28. the float32 formats of the finite horizon and the smooth kernels
+     (params={'dtype': np.float32}): the gaussian kernel's getDense on the
+     disc of phase 23 (16,129 dofs, on the grid; K1, K2 and K3's float32
+     instances with the profile switch; a path) and in float64 (a path),
+     CG-Jacobi on each; runNonlocal's constant kernel (ball2, horizon 0.2)
+     on phase 26's square (noRef 2) and interval (noRef 9): getDense (K1's
+     float32 instance with the indicator into a float32 A, the cut pairs'
+     float64 matrices of K14 and K15 added with one rounding), 'sparsified'
+     (equal to the dense entries) and on the interval getDenseCross (K1's
+     float32 entries into the float64 A_BC), CG-Jacobi on the sparsified
+     operator against phase 26's float64 getSparse and solve (a path each);
+     phase 18's H2corrected line (the interval at noRef 10) in float32 (the
+     float32 getH2, K1 with the complement indicator and the block mask
+     into the float64 cross operator, a float64 apply; a path) against
+     phase 18's float64 operator, CG-Jacobi on each; the gaussian kernel of
+     horizon 0.2 on the square in float32 getSparse (K1's float32 entries
+     with the profile into float64 data) and float64, CG-Jacobi on each (a
+     path); every float32 solution within 1e-3 of the float64 one; then each
+     new float32 instance against its plain version at the largest call of
+     each kind (1e-5 of the largest entry) with the same calls' float64
+     time.  Alone: `python -c 'import chip_smoke as c; from
+     pynucleus_tpu_torch import kernels; kernels.library(); c.phase28()'`
+     (it then makes the float64 lines of phases 18 and 26 itself).
 Phase 2 also holds K4's two forms, K9 (P and P^T of noRef 3 -> 4) and K10
 at the noRef 4 shapes, K8 on the noRef 0, 1 and 2 operators, and K11, K12
 (a default build) and K13 (a host-engine build) at the noRef 4 shapes
@@ -403,7 +427,10 @@ log_inverse, polynomial, gaussian, exponential), per order-of-position
 variant of K1 and K19, per manifold variant of K1 and K2, per float32
 instance of K1 (all, natural-order, zero-exterior rows), K2, K3 and K4,
 of the H2 path (K1's slot and tree targets, K6, K7, K8, K12) and of the
-float32 remainder (K1 into float64 CSR data and diagonals, K9, K13)
+float32 remainder (K1 into float64 CSR data and diagonals, K9, K13) and
+of the finite horizon's formats and the smooth kernels (K1 with the
+indicator into a float32 A, into the float64 A_BC, with the complement
+indicator into a float64 A; K1, K2 and K3 with the profiles)
 (with the same calls' float64 time), per variant of the interval's
 variable-order H2 (the component order in K1, K19, K7 with its log
 launches; the orders of position in K1's tree target, K19's slot target
@@ -839,27 +866,33 @@ def record_h2_build(build, names=H2_BUILD, largestOnly=False):
 
 
 def compare_target_kernel(name, calls, kernel, plain, work, dtype=None,
-                          csr=True, tol=TOL_KERNEL):
+                          csr=True, tol=TOL_KERNEL, perCall=False):
     """Recorded calls of a kernel that adds into its first argument
     (recorded by its shape: dense A, A_BC or CSR data [nnz+1]; with
     ``csr=False`` a vector target is the diagonal [N]) through the kernel
     and through the plain version, the calls of one shape all into one zero
-    tensor of ``dtype`` (float64 by default) each way (after an untimed
-    warm-up call of each); CSR data compared on its nnz real slots.
-    Each target is held to ``tol`` of its largest entry.  Returns the
-    result() with ``work(args)`` of each call's recorded args."""
+    tensor of ``dtype`` (float64 by default) each way (with ``perCall``
+    each call into one of its own: a float32 target's sums round at the
+    magnitude the other calls left in it, so calls of different operators
+    are not summed there), after an untimed warm-up call of each per
+    shape; CSR data compared on its nnz real slots.  Each target is held
+    to ``tol`` of its largest entry.  Returns the result() with
+    ``work(args)`` of each call's recorded args."""
     import torch
     byShape = {}
-    for c in calls:
-        byShape.setdefault(c[0][0], []).append(c)
+    for i, c in enumerate(calls):
+        byShape.setdefault((c[0][0], i if perCall else -1), []).append(c)
     dev = next(a.device for a in calls[0][0] if isinstance(a, torch.Tensor))
     worst_abs = worst_rel = ms = plain_ms = 0.0
-    for shape, group in byShape.items():
+    warm = set()
+    for (shape, _), group in byShape.items():
         Dk = torch.zeros(shape, dtype=dtype or torch.float64, device=dev)
         Dp = torch.zeros_like(Dk)
         (_, *args0), kw0 = group[0]
-        kernel(torch.zeros_like(Dk), *args0, **kw0)
-        plain(torch.zeros_like(Dk), *args0, **kw0)
+        if shape not in warm:
+            warm.add(shape)
+            kernel(torch.zeros_like(Dk), *args0, **kw0)
+            plain(torch.zeros_like(Dk), *args0, **kw0)
         for (_, *args), kw in group:
             ms += timed(lambda: kernel(Dk, *args, **kw))
             plain_ms += timed(lambda: plain(Dp, *args, **kw))
@@ -1734,21 +1767,21 @@ def run_nonlocal_path(argv, path):
     return out, counts
 
 
-def cut1d_work(args):
+def cut1d_work(args, entryBytes=16):
     """K14 on recorded args (shape, target, index, vertices, vi1, vi2,
     vols1, tq, wq, ur, wr, horizon, profile): every (x, y) node product of
     every pair; inputs read once, the 16 entries of a pair (4 for the
     diagonal target, whose nodes need 4 of the 10 multiply-adds) read and
-    written once, at most the whole target."""
+    written once (``entryBytes`` each), at most the whole target."""
     P = args[4].shape[0]
     Q = args[7].shape[0] * args[9].shape[0]
     diag = args[1] == 'diag'
     ops = (CUT1D_NODE_OPS - (12 if diag else 0)) * P * Q
     touched = min((4 if diag else 16) * P, math.prod(args[0]))
-    return (nbytes(args[2:]) + 16 * touched, ops, F64_PEAK)
+    return (nbytes(args[2:]) + entryBytes * touched, ops, F64_PEAK)
 
 
-def cut2d_work(args, cplx=False):
+def cut2d_work(args, cplx=False, entryBytes=16):
     """K15 on recorded args (shape, target, index, vertices, vi1, vi2,
     vols1, bary_x, wx, thetas, wtheta, rq, wr, horizon, inter, profile): the
     window of every x node, every ray, and the radial nodes of the rays
@@ -1756,9 +1789,10 @@ def cut2d_work(args, cplx=False):
     ray part, chunked), with the 21 sums of the triangle at each (the 6 of
     the diagonal for the diagonal target); inputs read once, the 36
     entries of a pair (6 for the diagonal target) read and written once,
-    at most the whole target, however many pairs share them.  ``cplx``:
-    the complex variant, with the Bessel pair and complex sums at each
-    radial node, and complex entries (16 B)."""
+    at most the whole target, however many pairs share them
+    (``entryBytes`` each).  ``cplx``: the complex variant, with the Bessel
+    pair and complex sums at each radial node, and complex entries (16 B
+    each way)."""
     import pynucleus_tpu_torch.nl.assembly as asm
     (vertices, vi1, vi2, bary_x, thetas, wtheta, horizon,
      inter) = args[3], args[4], args[5], args[7], args[9], args[10], \
@@ -1778,7 +1812,8 @@ def cut2d_work(args, cplx=False):
     ops = CUT2D_XNODE_OPS * P * Qx + CUT2D_RAY_OPS * rays \
         + node * hitRays * Qr
     touched = min((6 if diag else 36) * P, math.prod(args[0]))
-    return (nbytes(args[2:]) + (32 if cplx else 16) * touched, ops, F64_PEAK)
+    return (nbytes(args[2:]) + (32 if cplx else entryBytes) * touched, ops,
+            F64_PEAK)
 
 
 def phase10():
@@ -4588,7 +4623,7 @@ def csr_to_dense(S, like):
     D = torch.zeros_like(like)
     D[torch.repeat_interleave(torch.arange(S.num_rows, device=like.device),
                               torch.diff(S.indptr.long())),
-      S.indices.long()] = S.data
+      S.indices.long()] = S.data.to(like.dtype)
     return D
 
 
@@ -5008,6 +5043,9 @@ def h2c_line(domain, noRef, solve):
     A.setKernel(kernel)
     if A.timers:
         bad.append('setKernel back to the first horizon missed the cache')
+    if solve:
+        # the float64 operator stays for phase 28 (its float32 twin)
+        KEPT[f'h2c64_{domain}'] = (dm, kernel, A)
     if solve:
         rhs = A.mass.matvec(torch.ones_like(x))
         for label, op in (('h2corrected', A), ('sparse', Asp)):
@@ -9223,6 +9261,8 @@ def fh32_line(domain, noRef, diagonal=False):
         ops[dt], us[dt] = S, u
     d32, d64 = ops['float32'].data.double(), ops['float64'].data
     out['data_gap'] = float((d32 - d64).abs().max() / d64.abs().max())
+    # the float64 line stays for phase 28 (its float32 formats on this mesh)
+    KEPT[f'fh32_{domain}'] = (dm, kernel, ops['float64'], us['float64'])
     out['solution_gap'] = float(torch.linalg.norm(us['float32'].double()
                                                   - us['float64'])
                                 / torch.linalg.norm(us['float64']))
@@ -9952,6 +9992,558 @@ def VARH2_27_PATHS(counts27):
                  for key, c in counts27.items())
 
 
+# ---------------------------------------------------------------- phase 28
+
+# the float32 formats of the finite horizon and the smooth kernels: the
+# gaussian kernel of an infinite horizon and the tempered fractional one on
+# phase 23's disc (circle(n=8) refined F32_NOREF times, 16,129 dofs:
+# bench.py's float32 dense line, on the grid), runNonlocal's constant
+# kernel (ball2, horizon FH32_HORIZON) on phase 26's square (noRef
+# FH_NOREF) and interval (noRef
+# FH32_INTERVAL_NOREF) in getDense, 'sparsified' and (the interval)
+# getDenseCross, phase 18's H2corrected line (the interval at noRef
+# MF_NOREF), and the gaussian kernel of horizon FH32_HORIZON on phase 26's
+# square in getSparse; each in float32 (a path) against the same line in
+# float64 (kept from phases 18 and 26 where they ran)
+F28_GAUSS_VARIANCE = 0.1    # runNonlocal's --gaussianVariance of its lines
+# the float32 operator against the float64 one, of its largest entry (the
+# discs' dense operators, the finite horizon's getDense and getDenseCross):
+# float32 local entries are each within half an ulp (6e-8), their sums a
+# few ulps of the largest entry; 5x the largest gap read on the card (the
+# tempered disc's 2.0e-5, PERF.md section 6), and far below what a wrong
+# profile, indicator or cut-pair entry gives
+F28_OPERATOR_BAR = 1e-4
+# the JAX package's own float32 H2corrected gaps to float64 on phase 18's
+# interval line (scripts/f32_h2corrected_gap_jax.py --noRef 10, on a CPU;
+# the port's there: 1.0219944722086355e-04 and 0.1402988419523544): the
+# float32 nodes at |x - y| = delta fall on either side of the complement
+# indicator, so the cross operator's ring-cut entries move by 14 % of its
+# largest entry in both packages.  Phase 28 holds the port's apply gaps
+# within twice the JAX apply gap (tests/test_torch_f32_h2.py's rule for the
+# float32 H2) and its cross gap within 1.1 times the JAX one.
+F28_H2C_JAX_GAPS = {10: {'apply_gap': 1.0218599616650326e-04,
+                         'cross_gap': 0.1402987941288597}}
+F28_H2C_CROSS_FACTOR = 1.1
+F28_EXTERIOR_NOREF = 4      # the gaussian's zero-exterior line (961 dofs)
+F28_DENSE = ('panel_scatter', 'panel_scatter:dense', 'panel_scatter:float32',
+             'panel_scatter:float32_horizon')
+F28_PATHS = {
+    'discs': ('panel_scatter', 'panel_scatter:float32',
+              'panel_scatter:float32_profile', 'panel_scatter:float32_rows',
+              'grid_distant', 'grid_distant:float32',
+              'grid_distant:float32_profile', 'grid_boundary',
+              'grid_boundary:float32', 'grid_boundary:float32_profile',
+              'pcg_update', 'pcg_update:float32'),
+    'square': F28_DENSE + ('cut2d_polar', 'cut2d_polar:float32', 'csr_spmv',
+                           'csr_spmv:float32', 'pcg_update',
+                           'pcg_update:float32'),
+    'interval': F28_DENSE + ('cut1d', 'cut1d:float32', 'panel_scatter:cross',
+                             'panel_scatter:float32_cross', 'csr_spmv',
+                             'csr_spmv:float32', 'pcg_update',
+                             'pcg_update:float32'),
+    'h2corrected': ('panel_scatter', 'panel_scatter:float32',
+                    'panel_scatter:float32_complement', 'h2_matvec',
+                    'h2_matvec:float32', 'far_field:float32', 'csr_spmv',
+                    'pcg_update', 'pcg_update:jacobi'),
+    'gaussian_sparse': ('panel_scatter', 'panel_scatter:slots',
+                        'panel_scatter:float32',
+                        'panel_scatter:float32_indicator',
+                        'panel_scatter:float32_profile', 'cut2d_polar',
+                        'csr_spmv:float32', 'pcg_update:float32')}
+F28_64_PATHS = {'discs64': ('panel_scatter', 'panel_scatter:dense',
+                             'grid_distant', 'grid_boundary', 'pcg_update')}
+F28_REPLACES = {
+    'panel_scatter:float32_horizon': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:float32_cross': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:float32_complement': 'pynucleus_tpu/nl/assembly.py:91',
+    'panel_scatter:float32_profile': 'pynucleus_tpu/nl/assembly.py:91',
+    'grid_distant:float32_profile': 'pynucleus_tpu/nl/assembly.py:131',
+    'grid_boundary:float32_profile': 'pynucleus_tpu/nl/assembly.py:240',
+    'cut1d:float32': 'pynucleus_tpu/nl/assembly.py:644',
+    'cut2d_polar:float32': 'pynucleus_tpu/nl/assembly.py:511'}
+_CSRC = 'pynucleus_tpu_torch/kernels/csrc/'
+F28_SOURCES = {
+    'panel_scatter:float32_horizon': _CSRC + 'panel_scatter_f32.cu',
+    'panel_scatter:float32_cross': _CSRC + 'panel_scatter_f32.cu',
+    'panel_scatter:float32_complement': _CSRC + 'panel_scatter_f32.cu',
+    'panel_scatter:float32_profile': _CSRC + 'panel_scatter_f32_profiles.cu',
+    'grid_distant:float32_profile': _CSRC + 'grid_distant_f32.cu',
+    'grid_boundary:float32_profile': _CSRC + 'grid_boundary.cu',
+    'cut1d:float32': _CSRC + 'cut_cells.cu',
+    'cut2d_polar:float32': _CSRC + 'cut_cells.cu'}
+_F28_DISC = (f'the float32 disc (circle(n=8) refined {F32_NOREF} times, '
+             '16,129 dofs, dense on the grid) with the gaussian kernel '
+             f'(variance {F28_GAUSS_VARIANCE}, infinite horizon, no exterior '
+             'term) and the tempered fractional kernel (s 0.75, lambda '
+             f'{TP_LAMBDA}, zero exterior)')
+_F28_SMALL = (f'the gaussian kernel with its zero-exterior term on the disc '
+              f'at noRef {F28_EXTERIOR_NOREF} (961 dofs)')
+F28_COMPARED_AT = {
+    'panel_scatter:float32_horizon': _FH32_SQ + ': the largest bucket of '
+    'each shape of its float32 getDense (float32 entries with the indicator '
+    'into a float32 A)',
+    'panel_scatter:float32_cross': 'the float32 getDenseCross of the '
+    f'interval at noRef {FH32_INTERVAL_NOREF} (horizon {FH32_HORIZON}): the '
+    'largest bucket of each shape, into the float64 A_BC',
+    'panel_scatter:float32_complement': 'the float32 H2corrected of the '
+    f'interval at noRef {MF_NOREF} (s {MF_S}, horizon {MF_DELTA}): the '
+    'largest bucket of each shape of its complement cross operator, into a '
+    'float64 dense A with the block mask',
+    'panel_scatter:float32_profile': _F28_DISC + ' and ' + _F28_SMALL
+    + ': the largest bucket of each shape and route (the boundary '
+    'profiles\' rows with normals among them), and the float32 getSparse '
+    f'of the gaussian kernel of horizon {FH32_HORIZON} on the square: its '
+    'largest bucket of each shape, into float64 CSR data',
+    'grid_distant:float32_profile': _F28_SMALL + ': all calls, and ' +
+    _F28_DISC + ': the first distance window of the gaussian and of the '
+    'tempered kernel',
+    'grid_boundary:float32_profile': _F28_DISC + ': the tempered kernel\'s '
+    'call (the gaussian\'s boundary kernel leaves K3 no pair: every one is '
+    'a correction)',
+    'cut1d:float32': 'the float32 getDense and sparsified of the interval at '
+    f'noRef {FH32_INTERVAL_NOREF} (horizon {FH32_HORIZON}): all calls, '
+    'float64 entries into a float32 A, each rounded as it is added',
+    'cut2d_polar:float32': _FH32_SQ + ': all calls of its float32 getDense '
+    'and sparsified, float64 entries into a float32 A, each rounded as it is '
+    'added'}
+
+
+class LargestRecorder(ArgRecorder):
+    """An ArgRecorder (the target recorded by its shape) that keeps, of the
+    calls that ``want(args, kw)`` admits, the largest (by its pairs) of each
+    key (the target's dtype and shape class, the simplex sizes, nPSI,
+    whether it has normals, and the profile's code, tempering and two-point
+    weight): the heaviest bucket of each kind and profile, not all."""
+
+    def __init__(self, module, name, want):
+        super().__init__(module, name, dataFirst=True)
+        self.want = want
+        self.kept = {}
+
+    def __enter__(self):
+        def rec(*args, **kw):
+            if self.want(args, kw):
+                vi1, vi2, index = args[2], args[3], args[4]
+                prof = _profileOf(args)
+                key = (args[0].dtype, args[0].dim(), vi1.shape[1],
+                       vi2.shape[1], index.shape[1], args[6] is None,
+                       int(prof.code), float(prof.t) != 0.0,
+                       int(prof.wcode))
+                if vi1.shape[0] > self.kept.get(key, (0, None))[0]:
+                    self.kept[key] = (vi1.shape[0], self._record(args, kw))
+            return self.orig(*args, **kw)
+        setattr(self.module, self.name, rec)
+        return self
+
+    def callsOf(self, dtype):
+        return [c for k, (_, c) in sorted(self.kept.items(), key=str)
+                if k[0] == dtype]
+
+
+def _f32Args(args, kw):
+    """A float32 call (its vertices float32) of a kernel of K1's targets."""
+    import torch
+    return args[1].dtype == torch.float32
+
+
+def _profileOf(args):
+    """The profile among a K1 call's recorded args."""
+    return next(a for a in reversed(args) if hasattr(a, 'wcode'))
+
+
+def _smoothProfile(args, kw):
+    """A float32 call with a profile other than the plain power one."""
+    prof = _profileOf(args)
+    return _f32Args(args, kw) and (int(prof.code) != 0 or prof.t != 0.0
+                                   or int(prof.wcode) != 0)
+
+
+def f28_cg(A, b, tol=F32_CG_TOL, maxIter=F32_CG_MAXITER):
+    """CG-Jacobi on A u = b: (u, iterations, seconds); raises unless it
+    converged to a finite u of b's type (the float64 u of H2corrected's
+    float64 apply)."""
+    import torch
+    from pynucleus_tpu_torch.base.solvers import solverFactory
+    cg = solverFactory.build('cg-jacobi', A=A, setup=True)
+    cg.tolerance, cg.maxIter = tol, maxIter
+    f32_tf32_off()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = cg.solve(b)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if not bool(torch.isfinite(u).all()) or not cg.residuals[-1] <= tol:
+        raise AssertionError(f'CG-Jacobi: {cg.iterations} iterations, '
+                             f'residual {cg.residuals[-1]}, {u.dtype}')
+    return u, cg.iterations, secs
+
+
+def f28_gap(u32, u64):
+    import torch
+    return float(torch.linalg.norm(u32.double() - u64)
+                 / torch.linalg.norm(u64))
+
+
+def f28_check(label, out, bars=()):
+    """The float32 bars of a line: its solution within TOL_F32_VS_F64 of the
+    float64 one, and each (key, bar) of ``bars`` (an operator's or an
+    apply's gap to float64) at or under its bar."""
+    log(f'  {label}: {json.dumps(out)}')
+    for key, bar in (('solution_gap', TOL_F32_VS_F64),) + tuple(bars):
+        if not out[key] <= bar:
+            raise AssertionError(f'{label}: {key} {out[key]} over {bar}')
+    return out
+
+
+def f28_disc(dtype, dm, kernel, zeroExterior):
+    """getDense of ``kernel`` on the disc dm in ``dtype`` (on the grid) and
+    CG-Jacobi (b = M 1 in its type): (summary, (A, u))."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A = nonlocalBuilder(dm, kernel, params={'dtype': dtype},
+                        zeroExterior=zeroExterior).getDense()
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    real = torch.float32 if dtype == np.float32 else torch.float64
+    if A.data.dtype != real or not bool(torch.isfinite(A.data).all()):
+        raise AssertionError(f'disc: a {A.data.dtype} operator')
+    b = assembleRHS(dm, constant(1.0)).data.to(real)
+    u, its, secs = f28_cg(A, b)
+    return {'dofs': dm.num_dofs, 'getDense_s': build, 'iterations': its,
+            'cg_s': secs}, (A, u)
+
+
+def f28_disc_lines(dtype):
+    """The disc lines of phase 28 in ``dtype``: the gaussian kernel of an
+    infinite horizon on phase 23's disc (16,129 dofs) without the
+    zero-exterior term (its boundary kernel takes every surface pair as a
+    correction through K1: 16.7 million pairs, 13 s a dtype on the card)
+    and with it on the disc at F28_EXTERIOR_NOREF, and the tempered
+    fractional kernel on phase 23's disc with the zero-exterior term (K3
+    with its boundary profile): {line: (summary, (A, u))}."""
+    import numpy as np
+    from pynucleus_tpu_torch.nl.kernels import (getIntegrableKernel,
+                                                FractionalKernel)
+    gaussian = getIntegrableKernel(2, 'gaussian', np.inf,
+                                   gaussian_variance=F28_GAUSS_VARIANCE)
+    from pynucleus_tpu_torch.fem.meshes import circle
+    full = f32_disc_mesh()
+    small = tp_dm(tp_refined(circle(n=8), F28_EXTERIOR_NOREF))
+    return {'gaussian': f28_disc(dtype, full, gaussian, False),
+            'gaussian_exterior': f28_disc(dtype, small, gaussian, True),
+            'tempered': f28_disc(dtype, full, FractionalKernel(
+                2, F32_S, temperedLambda=TP_LAMBDA), True)}
+
+
+def f28_finite(domain, noRef, cross=False):
+    """runNonlocal's constant kernel on phase 26's mesh of ``domain``: the
+    float32 getDense (K1's float32 instance with the indicator, the cut
+    pairs in float64 added with one rounding) and 'sparsified' (its
+    nonzero entries, float32 CSR: equal to the dense entries), CG-Jacobi
+    on the sparsified operator (K9 and K4 in float32) against phase 26's
+    float64 getSparse and its solve (made here when phase 26 did not run);
+    with ``cross`` getDenseCross in float32 (float64, K1's float32 entries
+    into A_BC) against the float64 one."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    kept = KEPT.pop(f'fh32_{domain}', None)
+    if kept is None:
+        dm, kernel = fh32_setup(domain, noRef)
+        S64 = nonlocalBuilder(dm, kernel).getSparse()
+        b64 = assembleRHS(dm, constant(1.0)).data
+        u64, _, _ = f28_cg(S64, b64)
+    else:
+        dm, kernel, S64, u64 = kept
+    out = {'dofs': dm.num_dofs, 'noRef': noRef}
+    f32 = {'dtype': np.float32}
+    t0 = time.perf_counter()
+    A = nonlocalBuilder(dm, kernel, params=f32).getDense()
+    torch.cuda.synchronize()
+    out['getDense_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Ssp = nonlocalBuilder(dm, kernel, params=f32).getDense(
+        trySparsification=True)
+    torch.cuda.synchronize()
+    out['sparsified_s'] = time.perf_counter() - t0
+    if A.data.dtype != torch.float32 or Ssp.data.dtype != torch.float32 \
+            or not hasattr(Ssp, 'indptr'):
+        raise AssertionError(f'{domain}: float32 getDense {A.data.dtype}, '
+                             f'sparsified {type(Ssp).__name__}')
+    D64 = csr_to_dense(S64, A.data.double())
+    out['dense_gap'] = float((A.data.double() - D64).abs().max()
+                             / D64.abs().max())
+    Dsp = csr_to_dense(Ssp, A.data.double())
+    out['sparsified_vs_dense'] = float((Dsp - A.data.double()).abs().max()
+                                       / A.data.abs().max())
+    out['sparsified_nnz'] = Ssp.nnz
+    if out['sparsified_vs_dense'] > TOL_F32:
+        raise AssertionError(f'{domain}: sparsified {out} off the dense')
+    b = assembleRHS(dm, constant(1.0)).data.float()
+    u, its, secs = f28_cg(Ssp, b)
+    out.update(iterations=its, cg_s=secs, solution_gap=f28_gap(u, u64))
+    if cross:
+        t0 = time.perf_counter()
+        C32 = nonlocalBuilder(dm, kernel, params=f32).getDenseCross()
+        torch.cuda.synchronize()
+        out['getDenseCross_s'] = time.perf_counter() - t0
+        C64 = nonlocalBuilder(dm, kernel).getDenseCross()
+        if C32.data.dtype != torch.float64:
+            raise AssertionError(f'float32 getDenseCross: {C32.data.dtype}')
+        out['cross_gap'] = float((C32.data - C64.data).abs().max()
+                                 / C64.data.abs().max())
+    return f28_check(f'float32 {domain} (getDense, sparsified'
+                     + (', getDenseCross' if cross else '') + ')', out,
+                     (('dense_gap', F28_OPERATOR_BAR),)
+                     + ((('cross_gap', F28_OPERATOR_BAR),) if cross else ()))
+
+
+def f28_h2corrected():
+    """Phase 18's H2corrected line in float32: S_inf the float32 getH2, the
+    complement cross operator float64 from float32 entries (K1 code 5 with
+    the block mask), the apply float64; CG-Jacobi (MF_CG_TOL) on A x = M 1
+    against phase 18's float64 operator (made here when phase 18 did not
+    run) and its solve; the applies' gap on a cosine."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    kept = KEPT.pop('h2c64_interval', None)
+    if kept is None:
+        dm, kernel = mf_setup('interval', MF_NOREF)
+        A64 = nonlocalBuilder(dm, kernel).getH2FiniteHorizon()
+    else:
+        dm, kernel, A64 = kept
+    t0 = time.perf_counter()
+    b = nonlocalBuilder(dm, kernel, params={'dtype': np.float32})
+    A = b.getH2FiniteHorizon()
+    torch.cuda.synchronize()
+    out = {'noRef': MF_NOREF, 'dofs': A.num_rows,
+           'build_s': time.perf_counter() - t0, 'parts_s': dict(b.timers)}
+    if A.Sinf.dtype != torch.float32 or A.Cross.data.dtype != torch.float64:
+        raise AssertionError(f'float32 H2corrected: S_inf {A.Sinf.dtype}, '
+                             f'Cross {A.Cross.data.dtype}')
+    x = _cos(A.num_rows)
+    y, y64 = A.matvec(x), A64.matvec(x)
+    y32 = A.matvec(x.float())
+    if y.dtype != torch.float64 or y32.dtype != torch.float64:
+        raise AssertionError(f'float32 H2corrected: apply {y.dtype}, '
+                             f'{y32.dtype}')
+    out['apply_gap'] = float((y - y64).abs().max() / y64.abs().max())
+    out['apply_gap_float32_x'] = float((y32 - y64).abs().max()
+                                       / y64.abs().max())
+    out['cross_gap'] = float((A.Cross.data - A64.Cross.data).abs().max()
+                             / A64.Cross.data.abs().max())
+    rhs = A64.mass.matvec(torch.ones_like(x))
+    u, its, secs = f28_cg(A, rhs, MF_CG_TOL, 5000)
+    u64, its64, secs64 = f28_cg(A64, rhs, MF_CG_TOL, 5000)
+    out.update(iterations=its, iterations64=its64, cg_s=secs, cg64_s=secs64,
+               solution_gap=f28_gap(u, u64))
+    jax = F28_H2C_JAX_GAPS[MF_NOREF]
+    return f28_check(f'float32 H2corrected interval noRef {MF_NOREF}', out,
+                     (('apply_gap', 2.0 * jax['apply_gap']),
+                      ('apply_gap_float32_x', 2.0 * jax['apply_gap']),
+                      ('cross_gap',
+                       F28_H2C_CROSS_FACTOR * jax['cross_gap'])))
+
+
+def f28_gaussian_sparse():
+    """getSparse of the gaussian kernel of horizon FH32_HORIZON on phase
+    26's square in float32 and float64 (one classification: the same
+    dofmap and kernel), CG-Jacobi on each (b = M 1)."""
+    import numpy as np
+    import torch
+    from pynucleus_tpu_torch.nl.assembly import nonlocalBuilder
+    from pynucleus_tpu_torch.nl.kernels import getIntegrableKernel
+    from pynucleus_tpu_torch.fem.assembly import assembleRHS
+    from pynucleus_tpu_torch.fem.functions import constant
+    dm, _ = fh32_setup('square', FH_NOREF)
+    kernel = getIntegrableKernel(2, 'gaussian', FH32_HORIZON,
+                                 gaussian_variance=F28_GAUSS_VARIANCE)
+    out, us = {'dofs': dm.num_dofs}, {}
+    for dt in ('float32', 'float64'):
+        t0 = time.perf_counter()
+        S = nonlocalBuilder(dm, kernel, params={
+            'dtype': getattr(np, dt)}).getSparse()
+        torch.cuda.synchronize()
+        real = getattr(torch, dt)
+        if S.data.dtype != real:
+            raise AssertionError(f'gaussian getSparse ({dt}): '
+                                 f'{S.data.dtype}')
+        b = assembleRHS(dm, constant(1.0)).data.to(real)
+        us[dt], its, secs = f28_cg(S, b)
+        out[dt] = {'getSparse_s': time.perf_counter() - t0, 'nnz': S.nnz,
+                   'iterations': its, 'cg_s': secs}
+    out['solution_gap'] = f28_gap(us['float32'], us['float64'])
+    return f28_check('float32 gaussian getSparse square', out)
+
+
+def phase28():
+    """The float32 formats of the finite horizon and the smooth kernels:
+    the gaussian kernel's getDense on the disc in float32 (a path: K1, K2
+    and K3's float32 instances with the profile switch) and float64 (a
+    path), CG-Jacobi on each; runNonlocal's constant kernel on phase 26's
+    square and interval in float32 getDense and 'sparsified' (K1 with the
+    indicator into a float32 A, the cut pairs' float64 matrices added with
+    one rounding) and on the interval getDenseCross (K1 into the float64
+    A_BC), CG-Jacobi on the sparsified operator, against phase 26's float64
+    getSparse and solve (a path each); phase 18's H2corrected line in
+    float32 (the float32 getH2, K1 code 5 into the float64 cross operator;
+    a path) against its float64 operator, CG-Jacobi on each; the gaussian
+    kernel of a finite horizon in float32 getSparse (K1's float32 entries
+    with the profile into float64 data) and float64, CG-Jacobi on each (a
+    path); each float32 solution within TOL_F32_VS_F64 of the float64 one.
+    Then each new float32 instance against its plain version at the largest
+    recorded call of each kind, each call into a target of its own (1e-5
+    of its largest entry), with the same calls' float64 time.  Returns (launch counts per path, comparisons,
+    summary)."""
+    import contextlib
+    import numpy as np
+    import torch
+    import pynucleus_tpu_torch.nl.assembly as asm
+    log('phase 28: the float32 formats of the finite horizon and the smooth '
+        'kernels (getDense of a finite horizon, sparsified, getDenseCross, '
+        'H2corrected; the gaussian kernel)')
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    counts, summary, cmp = {}, {}, {}
+    secs = summary['path_s'] = {}
+
+    def path(key, label, fn):
+        """count_path of F28_PATHS[key] (or F28_64_PATHS), timed."""
+        t1 = time.perf_counter()
+        out, counts[key] = count_path(
+            label, dict(F28_PATHS, **F28_64_PATHS)[key], fn)
+        secs[key] = time.perf_counter() - t1
+        return out
+    with contextlib.ExitStack() as stack:
+        k1p = stack.enter_context(LargestRecorder(asm, 'panel_scatter',
+                                                  _smoothProfile))
+        k2 = stack.enter_context(ArgRecorder(asm, 'grid_distant',
+                                             dataFirst=True))
+        k3 = stack.enter_context(ArgRecorder(asm, 'grid_boundary',
+                                             dataFirst=True))
+        d32 = path('discs', 'float32 discs',
+                   lambda: f28_disc_lines(np.float32))
+    # K2 at the small disc's calls and at the full disc's first distance
+    # window of each profile (the plain version takes 10 s for all the full
+    # disc's windows), K3 at the tempered kernel's (the gaussian's boundary
+    # kernel leaves it no pair)
+    nSmall = d32['gaussian_exterior'][1][0].num_rows
+    k2calls, k2full = [], {}
+    for c in k2.calls:
+        if c[0][1].dtype != torch.float32:
+            continue
+        if c[0][0][0] == nSmall:
+            k2calls.append(c)
+        else:
+            prof = c[0][-1]
+            k2full.setdefault((int(prof.code), float(prof.t),
+                               int(prof.wcode)), c)
+    if len(k2full) != 2:
+        raise AssertionError(f'K2 on the full disc: profiles {list(k2full)}')
+    k2calls += list(k2full.values())
+    k3calls = [c for c in k3.calls if c[0][1].dtype == torch.float32
+               and c[0][0][0] != nSmall]
+    del k2, k3
+    d64 = path('discs64', 'float64 discs',
+               lambda: f28_disc_lines(np.float64))
+    for line in d32:
+        (s32, (A32, u32)), (s64, (A64, u64)) = d32[line], d64[line]
+        summary[f'disc_{line}'] = f28_check(f'float32 disc, {line}', {
+            'float32': s32, 'float64': s64,
+            'operator_gap': float((A32.data.double() - A64.data).abs().max()
+                                  / A64.data.abs().max()),
+            'solution_gap': f28_gap(u32, u64)},
+            (('operator_gap', F28_OPERATOR_BAR),))
+    del d32, d64, A32, A64, u32, u64
+    torch.cuda.empty_cache()
+    with LargestRecorder(asm, 'panel_scatter', _f32Args) as k1h, \
+            ArgRecorder(asm, 'cut2d_polar', dataFirst=True) as k15:
+        summary['square'] = path('square', 'float32 square',
+                                 lambda: f28_finite('square', FH_NOREF))
+    with LargestRecorder(asm, 'panel_scatter_cross', _f32Args) as k1c, \
+            ArgRecorder(asm, 'cut1d', dataFirst=True) as k14:
+        summary['interval'] = path(
+            'interval', 'float32 interval',
+            lambda: f28_finite('interval', FH32_INTERVAL_NOREF, cross=True))
+    # K14 and K15 into the float32 A (the other calls: CSR data, A_BC)
+    k14calls = [c for c in k14.calls if c[0][1] == 'dense']
+    k15calls = [c for c in k15.calls if c[0][1] == 'dense']
+    del k14, k15
+    with LargestRecorder(asm, 'panel_scatter', _f32Args) as k1m:
+        summary['h2corrected'] = path('h2corrected', 'float32 H2corrected',
+                                      f28_h2corrected)
+    with LargestRecorder(asm, 'panel_scatter_slots', _smoothProfile) as k1s:
+        summary['gaussian_sparse'] = path('gaussian_sparse',
+                                          'float32 gaussian sparse',
+                                          f28_gaussian_sparse)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+
+    log('  the float32 instances against their plain versions (1e-5 of the '
+        'largest entry), and the same calls in float64')
+    F32W = dict(entryBytes=8, peak=F32_PEAK)
+    WIDE = dict(entryBytes=16, peak=F32_PEAK)
+    f32, f64 = torch.float32, torch.float64
+    k1 = (asm.panel_scatter, asm._panel_scatter_plain)
+    for name, parts in (
+            ('panel_scatter:float32_horizon',
+             [(k1h.callsOf(f32), *k1, panel_work, F32W, f32, True)]),
+            ('panel_scatter:float32_cross',
+             [(k1c.callsOf(f64), asm.panel_scatter_cross,
+               asm._panel_scatter_cross_plain, panel_work, WIDE, f64,
+               True)]),
+            ('panel_scatter:float32_complement',
+             [(k1m.callsOf(f64), *k1, panel_work, WIDE, f64, True)]),
+            ('panel_scatter:float32_profile',
+             [(k1p.callsOf(f32), *k1, panel_work, F32W, f32, True),
+              (k1s.callsOf(f64), asm.panel_scatter_slots,
+               asm._panel_scatter_slots_plain, panel_work, WIDE, f64,
+               True)]),
+            ('grid_distant:float32_profile',
+             [(k2calls, asm.grid_distant, asm._grid_distant_plain,
+               grid_distant_work, F32W, f32, True)]),
+            ('grid_boundary:float32_profile',
+             [(k3calls, asm.grid_boundary, asm._grid_boundary_plain,
+               grid_boundary_work, F32W, f32, True)]),
+            ('cut1d:float32',
+             [(k14calls, asm.cut1d, asm._cut1d_plain, cut1d_work,
+               dict(entryBytes=8), f32, True)]),
+            ('cut2d_polar:float32',
+             [(k15calls, asm.cut2d_polar, asm._cut2d_polar_plain,
+               cut2d_work, dict(entryBytes=8), f32, True)])):
+        rs, ms64 = [], 0.0
+        for calls, kernel_, plain, work, wkw, dtype, csr in parts:
+            if not calls:
+                raise AssertionError(f'{name}: phase 28 made no call of it')
+            rs.append(compare_target_kernel(
+                name, calls, kernel_, plain, functools.partial(work, **wkw),
+                dtype=dtype, csr=csr, tol=TOL_F32, perCall=True))
+            ms64 += float64_ms(calls, kernel_,
+                               (1,) if kernel_ is asm.grid_distant else ())
+        cmp[name] = merge(*rs)
+        cmp[name]['float64_ms'] = ms64
+        log(f'    the same calls in float64: {ms64:.3f} ms')
+    summary['compare_s'] = time.perf_counter() - t1
+    summary['seconds'] = time.perf_counter() - t0
+    log(f'phase 28 summary: {json.dumps(summary)}')
+    return counts, cmp, summary
+
+
+def F28_28_PATHS(counts28):
+    """The main paths of phase 28: (kernels, label, launch counts)."""
+    paths = dict(F28_PATHS, **F28_64_PATHS)
+    return tuple((paths[key], f'float32_formats_{key}', c)
+                 for key, c in counts28.items())
+
+
 def main():
     try:
         import torch
@@ -10010,6 +10602,7 @@ def main():
     counts25, cmp25, summary25 = phase25()
     counts26, cmp26, summary26 = phase26()
     counts27, cmp27, summary27 = phase27()
+    counts28, cmp28, summary28 = phase28()
 
     # K1 is one kernel with four targets: the dense one compared at the
     # noRef 4 shapes, the CSR ones at the H2 main path's, the cross one at
@@ -10356,7 +10949,30 @@ def main():
             'device_launches': sum(counts['device'][name] for _, _, counts
                                    in VARH2_27_PATHS(counts27)),
             'compared_at': compared27[name]})
-    log(f'phases 1-27 took {time.perf_counter() - T_START:.1f} s')
+    # the float32 instances of phase 28: K1 with the indicator into a
+    # float32 dense A, into the float64 A_BC, with the complement indicator
+    # and the block mask into a float64 dense A, and K1, K2 and K3 with a
+    # profile other than the plain power one; the CUDA launches counted
+    # where they launched
+    for name in F28_COMPARED_AT:
+        base = name.split(':')[0]
+        route, _, _ = KERNEL_INFO[base]
+        c = cmp28[name]
+        bms, by = bound(c['work'])
+        byPath = {label: counts[name] for _, label, counts
+                  in F28_28_PATHS(counts28) if counts[name]}
+        table.append({
+            'name': name, 'route': route, 'source': F28_SOURCES[name],
+            'replaces': F28_REPLACES[name],
+            'launches': sum(byPath.values()), 'max_abs_err': c['err'],
+            'ms': c['ms'], 'plain_ms': c['plain_ms'], 'bound_ms': bms,
+            'bound_by': by, 'library_ms': c['library_ms'],
+            'launches_by_path': byPath,
+            'device_launches': sum(counts['device'][name] for _, _, counts
+                                   in F28_28_PATHS(counts28)),
+            'compared_at': F28_COMPARED_AT[name],
+            'float64_ms': c['float64_ms']})
+    log(f'phases 1-28 took {time.perf_counter() - T_START:.1f} s')
     log(f'phase 14 summary: {json.dumps(summary14)}')
     log(f'phase 15 summary: {json.dumps(summary15)}')
     log(f'phase 16 summary: {json.dumps(summary16)}')
@@ -10371,6 +10987,7 @@ def main():
     log(f'phase 25 summary: {json.dumps(summary25)}')
     log(f'phase 26 summary: {json.dumps(summary26)}')
     log(f'phase 27 summary: {json.dumps(summary27)}')
+    log(f'phase 28 summary: {json.dumps(summary28)}')
     print(json.dumps({'kernels': table}))
     print(card)
     print(json.dumps({'ok': True, 'device': {

@@ -130,17 +130,25 @@ layers, fe) with the component order in instances of K1's tree target,
 K19's slot target (panel_scatter_order_h2.cu,
 panel_scatter_nonsym_order_h2.cu) and K7 (H2_ORDER_SWITCH); the float32
 dense path (a builder's ``params={'dtype': float32}``) has float32
-instances of K1's dense target, K2 and K3 with the power profile alone
-(common.cuh radial<PC, float>: powf, the constants rounded to float32 on
-the host) and runs K4's Triton kernels on float32 vectors; the float32 H2
+instances of K1's dense target (with the indicator of a finite horizon),
+K2 and K3 with every real profile but the power-log one (common.cuh
+radial<PC, float> and radialValueF: the profile's float32 expressions, the
+constants rounded to float32 on the host, the tempering and the smooth
+two-point weight; the power profile's instances in panel_scatter_f32.cu
+and grid_distant_f32.cu, K1's others in panel_scatter_f32_profiles.cu and
+panel_scatter_f32_wide.cu) and runs K4's Triton kernels on float32
+vectors; getDenseCross and H2corrected's complement cross operator have
+K1's float32 instances into the float64 A_BC and (the complement
+indicator, the block mask) a float64 dense A; the float32 H2
 path (getH2 with that dtype) has float32 instances of K1's slot and tree
 targets (panel_scatter_f32.cu), K6 (near_enum.cu), K7 (far_field.cu), K8
 (h2_matvec.cu), K12 (near_block.cu) and K13 (near_enum.cu), the power
-profile alone; the float32 sparse path and getDiagonal (a finite horizon:
-the indicator, peridynamic and truncated fractional kernels) have float32
-instances of K1's slot and diagonal targets that add their float32 local
-entries into float64 targets, with the indicator (common.cuh inBall on
-floats), and K9's float32 instance applies the result (its pairs cut by
+profile alone; the float32 sparse path and getDiagonal (a finite horizon,
+the profiles of K14 and K15; getDiagonal of an infinite horizon with the
+boundary forms too) have float32 instances of K1's slot and diagonal
+targets that add their float32 local entries into float64 targets, with
+the indicator (common.cuh inBall on floats), and K9's float32 instance
+applies the result (its pairs cut by
 the horizon run K14 and K15 in float64, as the JAX float32 program runs
 them);
 K19 also the variable horizon delta(x) of a constant order (its own
@@ -216,7 +224,14 @@ float32 entries into float64 CSR data, with the indicator; the H2 path's
 touching panels into their float64 shadow count as ``:float32_slots``)
 and ``panel_scatter:float32_diag`` (into the
 float64 diagonal), both also under ``panel_scatter:float32``, and
-``csr_spmv:float32``; one launch may count under several.
+``csr_spmv:float32``; of the finite horizon's formats and the
+smooth kernels (F32_FORMATS) under ``panel_scatter:float32_horizon`` (K1
+with the indicator into a float32 dense A), ``:float32_cross`` (into the
+float64 A_BC), ``:float32_complement`` (the complement indicator into a
+float64 dense A), ``<kernel>:float32_profile`` (K1, K2 and K3 with a
+profile other than the plain power one, any target) and ``cut1d:float32``,
+``cut2d_polar:float32`` (K14 and K15 into a float32 dense A); one launch
+may count under several.
 ``deviceLaunches`` counts, per kernel and per variant, the CUDA launches
 those calls made, where they launched: one per
 call, except for K2 (two), K4 (three in the Jacobi form,
@@ -302,6 +317,19 @@ ORDERS = tuple(f'{k}:{v}' for k in ('panel_scatter', 'panel_scatter_nonsym')
                          'smoothed_inner_outer', 'fe')) + (
     'panel_scatter:manifold', 'grid_distant:manifold') + VARH2
 
+# the float32 instances of the finite horizon's formats and of the smooth
+# kernels: K1 with the indicator into a float32 dense A (getDense of a
+# finite horizon), into the float64 A_BC (getDenseCross) and with the
+# complement indicator and the block mask into a float64 dense A (the cross
+# operator of H2corrected), K1, K2 and K3 with a profile other than the
+# plain power one (another code, a tempering or the smooth two-point
+# weight; any target of K1), and K14 and K15 into a float32 dense A (each
+# float64 entry rounded as it is added)
+F32_FORMATS = ('panel_scatter:float32_horizon', 'panel_scatter:float32_cross',
+               'panel_scatter:float32_complement',
+               'panel_scatter:float32_profile', 'grid_distant:float32_profile',
+               'grid_boundary:float32_profile', 'cut1d:float32',
+               'cut2d_polar:float32')
 # the float32 instances: of the dense path K1 (every float32 launch, and of
 # those the natural-order buckets gathered on the device and the rows with
 # normals of the 2D zero-exterior term), K2, K3 and K4; of the H2 path K1's
@@ -316,7 +344,7 @@ FLOAT32 = ('panel_scatter:float32', 'panel_scatter:float32_natural',
            'near_enum_quad:float32', 'far_field:float32',
            'h2_matvec:float32', 'block_near_quad:float32',
            'panel_scatter:float32_indicator', 'panel_scatter:float32_diag',
-           'csr_spmv:float32', 'tree_csr_quad:float32')
+           'csr_spmv:float32', 'tree_csr_quad:float32') + F32_FORMATS
 # the phases of K28 (kernels/dist_h2.py) and the three gathers of K29
 # (kernels/outbox.py), each counted also under its kernel
 DIST = tuple(f'dist_h2_matvec:{p}' for p in (
@@ -333,7 +361,9 @@ CSRC = os.path.join(_HERE, 'csrc')
 BUILD_DIR = os.path.join(_HERE, 'build')
 # the heaviest compiles first (buildLibrary starts them in this order)
 SOURCES = ('panel_scatter_csr.cu', 'panel_scatter_nonsym.cu',
-           'panel_scatter.cu', 'grid_distant.cu', 'near_enum.cu',
+           'panel_scatter.cu', 'panel_scatter_f32_wide.cu', 'grid_distant.cu',
+           'near_enum.cu', 'panel_scatter_f32_profiles.cu',
+           'grid_distant_f32.cu',
            'panel_scatter_cross.cu', 'panel_scatter_nonsym_order.cu',
            'cut_cells.cu', 'panel_scatter_order.cu',
            'panel_scatter_order_h2.cu', 'panel_scatter_nonsym_order_h2.cu',
@@ -343,7 +373,8 @@ SOURCES = ('panel_scatter_csr.cu', 'panel_scatter_nonsym.cu',
            'cheb_smooth.cu', 'matfree_apply.cu', 'csr_scatter.cu',
            'interp_matvec.cu', 'sss_spmv.cu', 'dist_h2.cu', 'csr_spmv.cu',
            'outbox.cu')
-HEADERS = ('common.cuh', 'panel_scatter.cuh', 'panel_scatter_nonsym.cuh')
+HEADERS = ('common.cuh', 'panel_scatter.cuh', 'panel_scatter_nonsym.cuh',
+           'grid_distant.cuh')
 # flags of one source on top of NVCC_FLAGS
 SOURCE_FLAGS = {'cut_cells.cu': ('-fmad=false',),
                 'panel_scatter_vec.cu': ('-fmad=false',),
@@ -427,8 +458,6 @@ def _declare(lib):
     # a radial profile: code, C, e, a, C1, C2, tempering t, two-point
     # weight code and lambda (nl/kernels.py Profile)
     PROF = (I, D, D, D, D, D, D, I, D)
-    # the float32 instances' profile: code, C, e, t, wcode
-    PROF32 = (I, D, D, D, I)
     # a variable order: code, sll, srr, slr, srl, interface, pi^(d/2), d/2,
     # exponent base, boundary, the point dimension, g0-g3, the table
     # (device), its n, lo0, lo1, hi0, hi1 (nl/kernels.py orderArgs)
@@ -464,47 +493,56 @@ def _declare(lib):
         # S, Q2, exclPtr, exclIdx, PhiXw, PhiX, profile, useNormals, stream
         'grid_boundary': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
                           P, P, P, P, *PROF, I, P],
-        # the float32 instances (every array float32) with the power
-        # profile's code, C, e, t and wcode (PROF32): K1's dense target
-        # (as panel_scatter up to PSIP, Q; no indicator, order, shift or
-        # entry mask), K2 and K3 (as grid_distant and grid_boundary)
+        # the float32 instances of the dense path (every array float32)
+        # with the profile rounded to float32 (PROF): K1's dense target (as
+        # panel_scatter up to PSIP, Q, then the indicator; no order, shift
+        # or entry mask), K2 and K3 (as grid_distant and grid_boundary)
         'panel_scatter_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                              P, P, P, P, I, *PROF32, P],
-        # the float32 instances of the float32 H2 path, each with PROF32 in
-        # place of its profile (and no indicator, order or y shift): K1's
-        # slot and tree targets (as panel_scatter_slots and
-        # panel_scatter_tree), K6, K7, K8 (as h2_matvec) and K12
+                              P, P, P, P, I, *PROF, *IND, P],
+        # K1's float32 local entries of the complement kernel into a
+        # float64 dense A: as panel_scatter_f32, then the entry mask bits
+        'panel_scatter_f32d': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                               P, P, P, P, I, *PROF, *IND, L, P],
+        # K1's float32 local entries into the float64 A_BC (as
+        # panel_scatter_cross)
+        'panel_scatter_cross_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
+                                    P, P, P, P, I, *PROF, *IND, P],
+        # the float32 instances of the float32 H2 path, each with the
+        # profile rounded to float32 (PROF; the power one alone) and no
+        # indicator, order or y shift: K1's slot and tree targets (as
+        # panel_scatter_slots and panel_scatter_tree), K6, K7, K8 (as
+        # h2_matvec) and K12
         'panel_scatter_slots_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                    P, P, P, P, I, *PROF32, P],
+                                    P, P, P, P, I, *PROF, P],
         'panel_scatter_tree_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
                                    P, P, P, P, P, P, P, P, P, P, P, P, I,
-                                   *PROF32, P],
+                                   *PROF, P],
         'near_enum_quad_f32': [P, L, P, I, P, P, P, P, P, P, P, P, P, P, P,
                                I, P, I, P, P, I, P, P, P, P, P, P, P, P, I,
-                               *PROF32, P],
-        'far_field_f32': [P, P, P, L, I, I, *PROF32, P],
+                               *PROF, P],
+        'far_field_f32': [P, P, P, L, I, I, *PROF, P],
         'h2_matvec_f32': [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P, P,
                           P, P, P, P, P, P, P, I, P, P, P, L,
                           ctypes.POINTER(ctypes.c_int), P],
         'block_near_quad_f32': [P, I, P, P, P, P, P, P, P, P, P, P, P, P, P,
                                 P, I, P, P, I, P, I, P, I, I, P, F, F, F, P,
                                 I, P, P, P, P, ctypes.POINTER(ctypes.c_int),
-                                ctypes.POINTER(ctypes.c_longlong), *PROF32,
+                                ctypes.POINTER(ctypes.c_longlong), *PROF,
                                 P],
         'grid_distant_f32': [P, L, P, I, I, P, P, P, I, L, P, P, P, P,
-                             F, F, *PROF32, P, P],
+                             F, F, *PROF, P, P],
         'grid_boundary_f32': [P, L, P, I, I, P, P, I, L, P, P, P, L, I,
-                              P, P, P, P, *PROF32, I, P],
-        # K1's float32 local entries into a float64 target, with an
-        # indicator (IND): the CSR data at slots (as panel_scatter_slots_f32)
-        # and the diagonal (as panel_scatter_diag)
+                              P, P, P, P, *PROF, I, P],
+        # K1's float32 local entries into a float64 target, with the
+        # profile (PROF) and an indicator (IND): the CSR data at slots (as
+        # panel_scatter_slots_f32) and the diagonal (as panel_scatter_diag)
         'panel_scatter_slots_f32d': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                     P, P, P, P, I, *PROF32, *IND, P],
+                                     P, P, P, P, I, *PROF, *IND, P],
         'panel_scatter_diag_f32': [P, L, P, I, P, I, P, I, P, I, P, P, L,
-                                   P, P, P, P, I, *PROF32, *IND, P],
-        # K13's float32 instance (as tree_csr_quad with PROF32)
+                                   P, P, P, P, I, *PROF, *IND, P],
+        # K13's float32 instance (as tree_csr_quad, PROF rounded)
         'tree_csr_quad_f32': [P, L, P, P, P, P, P, P, P, L, P, I, P, I, P, P,
-                              I, P, P, P, P, P, P, P, P, I, *PROF32, P],
+                              I, P, P, P, P, P, P, P, P, I, *PROF, P],
         # data, nnz, vertices, dim, vi1, nv1, vi2, nv2, slots, nPSI, volsym,
         # normals, P, bary_x, bary_y, w, PSIP, Q, profile, indicator, order,
         # yShift, stream

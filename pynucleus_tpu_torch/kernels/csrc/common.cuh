@@ -154,18 +154,78 @@ __device__ __forceinline__ double radialValue(double r2, const Profile& p) {
 // plain version's (nl/kernels.py radialEval), in its order and rounded on
 // its own (the _rn intrinsics keep nvcc from contracting a product into an
 // FMA); exp, pow, log and erfc are CUDA's double-precision functions.
-// With T = float (the float32 dense path) the power profile alone, C r2^e
-// in float32 with powf, C and e rounded to float32 once on the host
-// (nl/kernels.py Profile.rounded), as the JAX expression C * r2 ** e rounds
-// its Python floats against a float32 array; no tempering and no weight
-// (the host refuses them in float32).
+// With T = float (the float32 paths) radialValueF<PC>: every profile but
+// the power-log and the complex ones, in float32, each constant rounded to
+// float32 once on the host (nl/kernels.py Profile.rounded), as the JAX
+// expressions round their Python floats against a float32 array; the
+// tempering and the smooth two-point weight in float32 too.
 template <int PC, typename T = double>
+__device__ __forceinline__ T radial(T r2, const Profile& p);
+
+// exp(-lam sqrt(r2)) times v in float32 (the tempering and the smooth
+// two-point weight of a float32 node), lam rounded to float32 on the host.
+__device__ __forceinline__ float temperF(float v, double lam, float r2) {
+    return __fmul_rn(v, expf(__fmul_rn(-static_cast<float>(lam),
+                                       sqrtf(r2))));
+}
+
+// The value of the profile PC at a float32 r2 > 0, before the tempering
+// and the weight: the plain version's expressions (nl/kernels.py
+// radialEval) on float32 tensors, each tensor operation a float; the
+// scalar factors that the plain version forms from Python floats (C/a,
+// 2a, a^2, C/2 sqrt(pi/a)) formed in float64 and rounded to float32 once.
+template <int PC>
+__device__ __forceinline__ float radialValueF(float r2, const Profile& p) {
+    const float C = static_cast<float>(p.C);
+    if constexpr (PC == PROFILE_POWER) {
+        return __fmul_rn(C, powf(r2, static_cast<float>(p.e)));
+    } else if constexpr (PC == PROFILE_GAUSSIAN) {
+        return __fmul_rn(C, expf(__fmul_rn(-static_cast<float>(p.a), r2)));
+    } else if constexpr (PC == PROFILE_EXPONENTIAL) {
+        return __fmul_rn(C, expf(__fmul_rn(-static_cast<float>(p.a),
+                                           sqrtf(r2))));
+    } else if constexpr (PC == PROFILE_GAUSSIAN_B1) {
+        const float k = __double2float_rn(__dmul_rn(
+            __dmul_rn(p.C, 0.5), sqrt(__ddiv_rn(3.141592653589793, p.a))));
+        const float sa = __double2float_rn(sqrt(p.a));
+        return __fmul_rn(k, erfcf(__fmul_rn(sa, sqrtf(r2))));
+    } else if constexpr (PC == PROFILE_GAUSSIAN_B2) {
+        const float a2 = __double2float_rn(__dmul_rn(2.0, p.a));
+        return __fdiv_rn(__fmul_rn(C, expf(__fmul_rn(-static_cast<float>(p.a),
+                                                     r2))),
+                         __fmul_rn(a2, sqrtf(r2)));
+    } else if constexpr (PC == PROFILE_EXPONENTIAL_B1) {
+        const float ca = __double2float_rn(__ddiv_rn(p.C, p.a));
+        return __fmul_rn(ca, expf(__fmul_rn(-static_cast<float>(p.a),
+                                            sqrtf(r2))));
+    } else if constexpr (PC == PROFILE_EXPONENTIAL_B2) {
+        const float r = sqrtf(r2);
+        const float ia2 = __double2float_rn(__ddiv_rn(1.0,
+                                                      __dmul_rn(p.a, p.a)));
+        const float t = __fadd_rn(__fdiv_rn(r, static_cast<float>(p.a)),
+                                  ia2);
+        return __fdiv_rn(__fmul_rn(__fmul_rn(C, expf(__fmul_rn(
+                             -static_cast<float>(p.a), r))), t), r);
+    } else if constexpr (PC == PROFILE_LOG_INVERSE) {
+        return __fmul_rn(C, logf(__fdiv_rn(1.0f, sqrtf(r2))));
+    } else {
+        static_assert(PC == PROFILE_POLYNOMIAL,
+                      "float32: no power-log or complex profile");
+        const float a2 = __double2float_rn(__dmul_rn(p.a, p.a));
+        const float q = __fsub_rn(1.0f, __fdiv_rn(r2, a2));
+        return __fmul_rn(C, __fmul_rn(q, q));
+    }
+}
+
+template <int PC, typename T>
 __device__ __forceinline__ T radial(T r2, const Profile& p) {
     if constexpr (IS_F32<T>) {
-        static_assert(PC == PROFILE_POWER, "float32: the power profile only");
         if (!(r2 > 0.0f)) return 0.0f;
-        return __fmul_rn(static_cast<float>(p.C),
-                         powf(r2, static_cast<float>(p.e)));
+        float v = radialValueF<PC>(r2, p);
+        if constexpr (PC == PROFILE_POWER) {
+            if (p.t != 0.0) v = temperF(v, p.t, r2);
+        }
+        return p.wcode == TWO_POINT_TEMPERED ? temperF(v, p.wlam, r2) : v;
     } else {
         if (!(r2 > 0.0)) return 0.0;
         double v = radialValue<PC>(r2, p);
@@ -262,6 +322,30 @@ __device__ __forceinline__ double2 radialC(double r2, const Profile& p) {
         PROFILE_CASE(PROFILE_POWER_LOG, __VA_ARGS__)                \
         PROFILE_CASE(PROFILE_LOG_INVERSE, __VA_ARGS__)              \
         PROFILE_CASE(PROFILE_POLYNOMIAL, __VA_ARGS__)               \
+        default: return static_cast<int>(cudaErrorInvalidValue);    \
+    }
+
+// The float32 instances' profiles beside the power one (radialValueF):
+// the smooth kernels of an infinite horizon with their boundary forms and
+// the log-inverse-distance one (F32_SMOOTH_SWITCH), and the profiles of a
+// finite horizon that K14 and K15 take, without the power one
+// (F32_FINITE_SWITCH); an unknown code returns cudaErrorInvalidValue.
+#define F32_FINITE_CASES(...)                                       \
+    PROFILE_CASE(PROFILE_GAUSSIAN, __VA_ARGS__)                     \
+    PROFILE_CASE(PROFILE_EXPONENTIAL, __VA_ARGS__)                  \
+    PROFILE_CASE(PROFILE_LOG_INVERSE, __VA_ARGS__)                  \
+    PROFILE_CASE(PROFILE_POLYNOMIAL, __VA_ARGS__)
+#define F32_FINITE_SWITCH(code, ...)                                \
+    switch (code) {                                                 \
+        F32_FINITE_CASES(__VA_ARGS__)                               \
+        default: return static_cast<int>(cudaErrorInvalidValue);    \
+    }
+#define F32_BOUNDARY_SWITCH(code, ...)                              \
+    switch (code) {                                                 \
+        PROFILE_CASE(PROFILE_GAUSSIAN_B1, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_GAUSSIAN_B2, __VA_ARGS__)              \
+        PROFILE_CASE(PROFILE_EXPONENTIAL_B1, __VA_ARGS__)           \
+        PROFILE_CASE(PROFILE_EXPONENTIAL_B2, __VA_ARGS__)           \
         default: return static_cast<int>(cudaErrorInvalidValue);    \
     }
 

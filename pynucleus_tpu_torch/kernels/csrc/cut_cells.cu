@@ -43,9 +43,12 @@
 // pow per node and the (2 dpe)^2 FMAs per node (K15 also two trig calls
 // and three ray-edge solves per ray); atomics are (2 dpe)^2 per pair.
 //
-// Targets: dense A, CSR slots, A_BC (cross) and the diagonal alone (DIAG:
+// Targets: dense A, CSR slots, A_BC (cross), the diagonal alone (DIAG:
 // d[r] += M[i,j] where dofRows[p,i] = dofRows[p,j] = r >= 0, the
-// _DiagAccumulator of getDiagonal).  Both kernels take the kernel's
+// _DiagAccumulator of getDiagonal) and a float32 dense A (DENSE32, the
+// float32 getDense of a finite horizon: each float64 entry added as
+// A = fl32(A + v), one compare-and-swap step, the rounding of the float32
+// DenseAccumulator's np.add.at).  Both kernels take the kernel's
 // profile (common.cuh radial<PC>, one instance per code of
 // CUT_PROFILE_SWITCH: the profiles of a finite horizon, the power C r2^e
 // with its tempering, the gaussian, the exponential, the log-inverse
@@ -77,13 +80,33 @@
         default: return static_cast<int>(cudaErrorInvalidValue);    \
     }
 
-enum CutTarget { CUT_DENSE = 0, CUT_SLOTS = 1, CUT_CROSS = 2, CUT_DIAG = 3 };
+enum CutTarget {
+    CUT_DENSE = 0,
+    CUT_SLOTS = 1,
+    CUT_CROSS = 2,
+    CUT_DIAG = 3,
+    CUT_DENSE32 = 4
+};
+
+// *a = fl32(*a + v) in one atomic step: the float64 sum of the float32
+// entry and v, rounded to float32 once.
+__device__ __forceinline__ void atomicAddRounded(float* a, double v) {
+    unsigned int* p = reinterpret_cast<unsigned int*>(a);
+    unsigned int old = *p, assumed;
+    do {
+        assumed = old;
+        const float nv = __double2float_rn(
+            __dadd_rn(static_cast<double>(__uint_as_float(assumed)), v));
+        old = atomicCAS(p, assumed, __float_as_uint(nv));
+    } while (old != assumed);
+}
 
 // Adds the warp-reduced symmetric local matrix of one pair, held as its
 // upper triangle up[] (row-major over i <= j), at the pair's target:
-// dense A[dr[i], dr[j]] (both >= 0), CSR data[slots[p, i*n2+j]] (slot in
-// [0, nnz)), or cross A[dr[i], -dr[j]-1] (row >= 0, DROP_HALF < col < 0).
-// Lane k % 32 adds entry k.
+// dense A[dr[i], dr[j]] (both >= 0; DENSE32: out is a float32 A),
+// CSR data[slots[p, i*n2+j]] (slot in [0, nnz)), or cross
+// A[dr[i], -dr[j]-1] (row >= 0, DROP_HALF < col < 0).  Lane k % 32 adds
+// entry k.
 template <int N2, int TARGET>
 __device__ __forceinline__ void cutScatter(double* __restrict__ out,
                                            long long N,
@@ -106,6 +129,10 @@ __device__ __forceinline__ void cutScatter(double* __restrict__ out,
             const long long r = dr[i], c = dr[j];
             if (TARGET == CUT_DENSE) {
                 if (r >= 0 && c >= 0) atomicAdd(out + r * N + c, v);
+            } else if (TARGET == CUT_DENSE32) {
+                if (r >= 0 && c >= 0)
+                    atomicAddRounded(
+                        reinterpret_cast<float*>(out) + r * N + c, v);
             } else if (r >= 0 && c < 0 && c > DROP_HALF) {
                 atomicAdd(out + r * N - c - 1, v);
             }
@@ -411,7 +438,7 @@ EXPORT int cut1d(double* out, long long N, int target,
     const int threads = 256;
     const long long blocks = (P + (threads / 32) - 1) / (threads / 32);
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-    if (target < CUT_DENSE || target > CUT_DIAG)
+    if (target < CUT_DENSE || target > CUT_DENSE32)
         return static_cast<int>(cudaErrorInvalidValue);
     const Profile pf = PROFILE_OF(C);
 #define LAUNCH(T)                                                           \
@@ -423,7 +450,8 @@ EXPORT int cut1d(double* out, long long N, int target,
         case CUT_DENSE: LAUNCH(CUT_DENSE); break;       \
         case CUT_SLOTS: LAUNCH(CUT_SLOTS); break;       \
         case CUT_CROSS: LAUNCH(CUT_CROSS); break;       \
-        default: LAUNCH(CUT_DIAG); break;               \
+        case CUT_DIAG: LAUNCH(CUT_DIAG); break;         \
+        default: LAUNCH(CUT_DENSE32); break;            \
     }
     CUT_PROFILE_SWITCH(pcode, TARGET_SWITCH)
 #undef TARGET_SWITCH
@@ -431,8 +459,9 @@ EXPORT int cut1d(double* out, long long N, int target,
     return static_cast<int>(cudaGetLastError());
 }
 
-// out: float64 (the power profile), or the float64 view of a complex128
-// dense A or diagonal (the GREENS_2D profile: targets dense and diagonal).
+// out: float64 (a real profile; float32 for DENSE32), or the float64 view
+// of a complex128 dense A or diagonal (the GREENS_2D profile: targets dense
+// and diagonal).
 EXPORT int cut2d_polar(double* out, long long N, int target,
                        const double* vertices, const long long* vi1,
                        const long long* vi2, const double* vols1,
@@ -446,7 +475,7 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
     if (P <= 0) return 0;
     if (Qx > MAXQX || inter < 1 || inter > 4)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (target < CUT_DENSE || target > CUT_DIAG)
+    if (target < CUT_DENSE || target > CUT_DENSE32)
         return static_cast<int>(cudaErrorInvalidValue);
     const Inter in{inter, 0.0, t00, t01, t10, t11};
     const long long blocks = (P + CUT_WARPS - 1) / CUT_WARPS;
@@ -470,7 +499,8 @@ EXPORT int cut2d_polar(double* out, long long N, int target,
         case CUT_DENSE: LAUNCH(CUT_DENSE, false); break;       \
         case CUT_SLOTS: LAUNCH(CUT_SLOTS, false); break;       \
         case CUT_CROSS: LAUNCH(CUT_CROSS, false); break;       \
-        default: LAUNCH(CUT_DIAG, false); break;               \
+        case CUT_DIAG: LAUNCH(CUT_DIAG, false); break;         \
+        default: LAUNCH(CUT_DENSE32, false); break;            \
     }
         CUT_PROFILE_SWITCH(pcode, TARGET_SWITCH)
 #undef TARGET_SWITCH

@@ -78,12 +78,11 @@ EXPORT int far_field(double* K, const double* gi, const double* gj,
     return static_cast<int>(cudaGetLastError());
 }
 
-// K [P, M, M], gi, gj [P, M, dim] float32; the power profile's code, C, e
-// (rounded to float32 on the host), no tempering, no two-point weight and
-// no order; any other profile returns cudaErrorInvalidValue.
+// K [P, M, M], gi, gj [P, M, dim] float32; the power profile (its
+// constants rounded to float32 on the host), no tempering, no two-point
+// weight and no order; any other profile returns cudaErrorInvalidValue.
 EXPORT int far_field_f32(float* K, const float* gi, const float* gj,
-                         long long P, int M, int dim, int pcode, double C,
-                         double e, double tl, int wcode,
+                         long long P, int M, int dim, PROFILE_PARAMS,
                          cudaStream_t stream) {
     const long long total = P * M * M;
     if (total <= 0) return 0;
@@ -94,9 +93,6 @@ EXPORT int far_field_f32(float* K, const float* gi, const float* gj,
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
     far_field_kernel<PROFILE_POWER, ORDER_NONE, float>
         <<<(unsigned)blocks, threads, 0, stream>>>(
-            K, gi, gj, total, M, dim,
-            Profile{PROFILE_POWER, C, e, 0.0, 0.0, 0.0, 0.0, TWO_POINT_NONE,
-                    0.0},
-            Order{});
+            K, gi, gj, total, M, dim, PROFILE_OF(C), Order{});
     return static_cast<int>(cudaGetLastError());
 }

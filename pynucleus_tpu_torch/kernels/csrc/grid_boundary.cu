@@ -16,8 +16,10 @@
 // shared memory), the dpe x dpe block formed by one thread and added with
 // atomics (cells share dofs).  Bound on the card: C*Q1*S*Q2 float64 pow
 // (compute); it reads only O(C + S) data.  The float32 instances
-// (grid_boundary_f32, the float32 dense path) run the same kernel on float
-// data.
+// (grid_boundary_f32, the float32 dense path: the power profile with its
+// tempering and the gaussian's and exponential's boundary forms, replacing
+// pynucleus_tpu/nl/assembly.py:240 _grid_boundary_blocks + :303 in
+// float32) run the same kernel on float data.
 
 #include "common.cuh"
 
@@ -129,12 +131,15 @@ static int launchBoundary(T* A, long long N, const T* X, int Q1, int dim,
     }
     // order-4 cell rules: 6 triangle nodes (2D P1), 3 Gauss nodes (1D P1)
     if constexpr (IS_F32<T>) {
-        // float32: the power profile alone (no tempering, no weight)
-        if (pf.code != PROFILE_POWER || pf.t != 0.0
-            || pf.wcode != TWO_POINT_NONE)
-            return static_cast<int>(cudaErrorInvalidValue);
-        constexpr int PC = PROFILE_POWER;
-        CASE(6, 3) CASE(3, 2)
+        // float32: the power profile (with a tempering) and the boundary
+        // forms of the gaussian and exponential kernels
+        switch (pf.code) {
+            PROFILE_CASE(PROFILE_POWER, CASE(6, 3) CASE(3, 2))
+            default:
+                F32_BOUNDARY_SWITCH(pf.code, CASE(6, 3) CASE(3, 2)
+                                    return static_cast<int>(
+                                        cudaErrorInvalidValue))
+        }
     } else {
         PROFILE_SWITCH(pf.code, CASE(6, 3) CASE(3, 2)
                        return static_cast<int>(cudaErrorInvalidValue))
@@ -159,10 +164,11 @@ EXPORT int grid_boundary(double* A, long long N, const double* X, int Q1,
                                   useNormals, stream);
 }
 
-// The float32 instances (the float32 dense path: the power boundary
-// kernel, C and e rounded to float32 on the host): every array float32,
-// each value and each sum a float, as _grid_boundary_blocks with
-// dtype=float32 and _scatter_cell_blocks into a float32 A.
+// The float32 instances (the float32 dense path: the boundary kernel of
+// the fractional kernel, tempered or not, and of the gaussian and
+// exponential kernels; the constants rounded to float32 on the host): every
+// array float32, each value and each sum a float, as _grid_boundary_blocks
+// with dtype=float32 and _scatter_cell_blocks into a float32 A.
 EXPORT int grid_boundary_f32(float* A, long long N, const float* X, int Q1,
                              int dim, const float* vols,
                              const long long* dofs, int dpe, long long C,
@@ -171,11 +177,11 @@ EXPORT int grid_boundary_f32(float* A, long long N, const float* X, int Q1,
                              const long long* exclPtr,
                              const long long* exclIdx, const float* PhiXw,
                              const float* PhiX, int pcode, double Cg,
-                             double e, double tl, int wcode, int useNormals,
+                             double e, double a, double C1, double C2,
+                             double tl, int wcode, double wl, int useNormals,
                              cudaStream_t stream) {
-    return launchBoundary<float>(
-        A, N, X, Q1, dim, vols, dofs, dpe, C, Ysurf, svolw2, normals, S, Q2,
-        exclPtr, exclIdx, PhiXw, PhiX,
-        Profile{pcode, Cg, e, 0.0, 0.0, 0.0, tl, wcode, 0.0}, useNormals,
-        stream);
+    return launchBoundary<float>(A, N, X, Q1, dim, vols, dofs, dpe, C, Ysurf,
+                                 svolw2, normals, S, Q2, exclPtr, exclIdx,
+                                 PhiXw, PhiX, PROFILE_OF(Cg), useNormals,
+                                 stream);
 }

@@ -260,8 +260,9 @@ EXPORT int block_near_quad(double* data, int nP, const int* offI,
 
 // K12's float32 instance (the float32 H2 path: _block_near_quad on
 // float32 data): data, vertices, vols and the rules float32, the power
-// profile's code, C, e (rounded to float32 on the host), no tempering and
-// no two-point weight; any other profile returns cudaErrorInvalidValue.
+// profile (its constants rounded to float32 on the host; Cg its C), no
+// tempering and no two-point weight; any other profile returns
+// cudaErrorInvalidValue.
 EXPORT int block_near_quad_f32(float* data, int nP, const int* offI,
                                const int* offJ, const int* n1, const int* n2,
                                const int* I, const int* J, const int* tSI,
@@ -276,8 +277,9 @@ EXPORT int block_near_quad_f32(float* data, int nP, const int* offI,
                                const float* vols, const long long* dofs,
                                const int* treePos, const float* rules,
                                const int* ruleQ, const long long* ruleOff,
-                               int pcode, double Cg, double e, double tl,
-                               int wcode, cudaStream_t stream) {
+                               int pcode, double Cg, double e, double a,
+                               double C1, double C2, double tl, int wcode,
+                               double wl, cudaStream_t stream) {
     if (nP <= 0) return 0;
     if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
         || dim > MAXDIM || nv > MAXNV)
@@ -289,7 +291,5 @@ EXPORT int block_near_quad_f32(float* data, int nP, const int* offI,
     return launchBlockQuad<PROFILE_POWER>(
         data, nP, bp, et, maxBlock, vertices, dim, vols, dofs, treePos,
         rules, ruleSet(ruleQ, ruleOff),
-        Profile{PROFILE_POWER, Cg, e, 0.0, 0.0, 0.0, 0.0, TWO_POINT_NONE,
-                0.0},
-        dpe, stream);
+        PROFILE_OF(Cg), dpe, stream);
 }

@@ -223,7 +223,7 @@ EXPORT int near_enum_quad(double* data, long long nnz, const int* ids, int n,
 }
 
 // K6's float32 instance (the float32 H2 path: _enum_phase2 on float32
-// data): every array float32, the power profile's code, C, e (rounded to
+// data): every array float32, the power profile (its constants rounded to
 // float32 on the host), no tempering and no two-point weight; any other
 // profile returns cudaErrorInvalidValue.
 EXPORT int near_enum_quad_f32(float* data, long long nnz, const int* ids,
@@ -238,8 +238,7 @@ EXPORT int near_enum_quad_f32(float* data, long long nnz, const int* ids,
                               const int* treePos, const int* indptrT,
                               const int* tStart, const float* bary_x,
                               const float* bary_y, const float* w,
-                              const float* PSIP, int Q, int pcode, double C,
-                              double e, double tl, int wcode,
+                              const float* PSIP, int Q, PROFILE_PARAMS,
                               cudaStream_t stream) {
     if (n <= 0) return 0;
     if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
@@ -247,9 +246,7 @@ EXPORT int near_enum_quad_f32(float* data, long long nnz, const int* ids,
         return static_cast<int>(cudaErrorInvalidValue);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables<float> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
-                               bary_y, w, PSIP, Q,
-                               Profile{PROFILE_POWER, C, e, 0.0, 0.0, 0.0,
-                                       0.0, TWO_POINT_NONE, 0.0}};
+                               bary_y, w, PSIP, Q, PROFILE_OF(C)};
     return launchEnumQuad<PROFILE_POWER>(data, nnz, ids, n, pT, cum, offI,
                                          offJ, n2, IA, JA, offF, offB, ncArr,
                                          qt, tt, dpe, stream);
@@ -323,7 +320,7 @@ EXPORT int tree_csr_quad(double* data, long long nnz, const int* c1,
 
 // K13's float32 instance (the float32 H2 path's host engine:
 // _bucket_tree_csr_scan on float32 data): every array float32, the power
-// profile's code, C, e (rounded to float32 on the host), no tempering and
+// profile (its constants rounded to float32 on the host), no tempering and
 // no two-point weight; any other profile returns cudaErrorInvalidValue.
 EXPORT int tree_csr_quad_f32(float* data, long long nnz, const int* c1,
                              const int* c2, const int* IA, const int* JA,
@@ -336,17 +333,14 @@ EXPORT int tree_csr_quad_f32(float* data, long long nnz, const int* c1,
                              const int* indptrT, const int* tStart,
                              const float* bary_x, const float* bary_y,
                              const float* w, const float* PSIP, int Q,
-                             int pcode, double C, double e, double tl,
-                             int wcode, cudaStream_t stream) {
+                             PROFILE_PARAMS, cudaStream_t stream) {
     if (n <= 0) return 0;
     if (pcode != PROFILE_POWER || tl != 0.0 || wcode != TWO_POINT_NONE
         || dim > MAXDIM || nv > MAXNV)
         return static_cast<int>(cudaErrorInvalidValue);
     const TreeTables tt{dofNode, treePos, indptrT, tStart};
     const QuadTables<float> qt{vertices, dim, cells, nv, vols, dofs, bary_x,
-                               bary_y, w, PSIP, Q,
-                               Profile{PROFILE_POWER, C, e, 0.0, 0.0, 0.0,
-                                       0.0, TWO_POINT_NONE, 0.0}};
+                               bary_y, w, PSIP, Q, PROFILE_OF(C)};
     return launchTreeQuad<PROFILE_POWER>(data, nnz, c1, c2, IA, JA, offF,
                                          offB, sf, n, qt, tt, dpe, stream);
 }

@@ -80,18 +80,23 @@
 // getDense and getDiagonal), triangles only (nPSI 3 or 6).  No normals and
 // no variable order: a complex kernel has no zero-exterior term.
 //
-// The float32 instances (T = float; panel_scatter_f32.cu) are the DENSE,
-// SLOTS, TREE and DIAG targets' with the power profile and no order or
+// The float32 instances (T = float; launchF32At below) have no order or
 // shift: the float32 dense path (its explicit pairs, its natural-order
-// buckets and the zero-exterior rows with normals in 2D) and the float32 H2
-// path (the singular panels at explicit slots of the near data, the union
-// surfaces at tree slots, with normals in 2D), every value a float, the
-// nodes summed with __fmaf_rn, each entry added with atomicAdd(float); and,
-// with the indicator of a finite horizon (common.cuh inBall on floats),
-// the float32 sparse path and getDiagonal: the SLOTS and DIAG targets'
-// float32 local entries added into float64 data (TO = double, one
-// atomicAdd(double) of the exact widening each), the float64 host sums of
-// the JAX package's CSRAccumulator and _DiagAccumulator.
+// buckets, the zero-exterior rows with normals in 2D and, with the
+// indicator of a finite horizon, every pair of getDense) into a float32 A
+// and the float32 H2 path (the singular panels at explicit slots of the
+// near data, the union surfaces at tree slots, with normals in 2D), every
+// value a float, the nodes summed with __fmaf_rn, each entry added with
+// atomicAdd(float); and, with the indicator of a finite horizon (common.cuh
+// inBall on floats), the float32 sparse path, getDiagonal, getDenseCross and
+// the complement cross operator of H2corrected (code 5 with the block
+// mask): the SLOTS, DIAG, CROSS and DENSE targets' float32 local entries
+// added into float64 data (TO = double, one atomicAdd(double) of the exact
+// widening each), the float64 host sums of the JAX package's
+// CSRAccumulator, _DiagAccumulator, BCAccumulator and DenseAccumulator(N).
+// The power profile's instances are in panel_scatter_f32.cu, the other
+// profiles' (common.cuh radialValueF) in panel_scatter_f32_profiles.cu
+// (DENSE into float32) and panel_scatter_f32_wide.cu (into float64).
 //
 // Design: one warp per pair, lanes striding over the Q quadrature nodes
 // (the 2D singular rules have 30-3000 nodes, so a thread per pair would
@@ -131,12 +136,12 @@ panel_scatter_kernel(TO* __restrict__ out,
     constexpr bool CPLX = PC == PROFILE_GREENS_2D;
     static_assert(!CPLX || TARGET == DENSE || TARGET == DIAG,
                   "the complex profile scatters into dense A or the diagonal");
-    static_assert(!IS_F32<T> || TARGET == DENSE || TARGET == SLOTS
-                      || TARGET == TREE || TARGET == DIAG,
-                  "float32: the dense, CSR and diagonal targets only");
     static_assert(std::is_same<T, TO>::value
-                      || (TARGET == SLOTS || TARGET == DIAG),
-                  "a wider target: the slots and the diagonal only");
+                      || (IS_F32<T> && (TARGET == SLOTS || TARGET == DIAG
+                                        || TARGET == DENSE
+                                        || TARGET == CROSS)),
+                  "a wider target: float32 entries into the slots, the "
+                  "diagonal, dense A or A_BC");
     const int lane = threadIdx.x & 31;
     const long long pair = (long long)blockIdx.x * (blockDim.x >> 5)
                            + (threadIdx.x >> 5);
@@ -318,3 +323,90 @@ int launchPanelH2Position(double* data, long long nnz,
                           const double* bary_y, const double* w,
                           const double* PSIP, int Q, Profile pf, Order od,
                           const double* yShift, cudaStream_t stream);
+
+// The arguments of one launch of a float32 instance (T = float): as
+// launchPanel's, with the profile already rounded to float32 on the host.
+struct F32Launch {
+    long long N;  // dense: N; CSR: nnz; cross: NB
+    const float* vertices;
+    int dim;
+    const long long* vi1;
+    int nv1;
+    const long long* vi2;
+    int nv2;
+    const long long* dofRows;
+    const int* slots;
+    int nPSI;
+    const float* volsym;
+    const float* normals;
+    long long P;
+    const int *I, *J, *offF, *offB;
+    TreeTables tt;
+    const float *bary_x, *bary_y, *w, *PSIP;
+    int Q;
+    Profile pf;
+    Inter in;
+    long long emask;
+};
+
+// One launch of K1's float32 instance of TARGET and profile PC into a
+// target of type TO (float, or double: float32 entries summed in float64);
+// CELL_ONLY instantiates nPSI 2 and 3 alone (the local dofs of one cell:
+// the zero-exterior pairs of a boundary profile).
+template <int TARGET, int PC, typename TO, bool CELL_ONLY = false>
+static int launchF32At(TO* out, const F32Launch& a, cudaStream_t stream) {
+    if (a.P <= 0) return 0;
+    if (a.dim > MAXDIM || a.nv1 > MAXNV || a.nv2 > MAXNV)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = 256;
+    const long long blocks = (a.P + (threads / 32) - 1) / (threads / 32);
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+#define F32_CASE(NP)                                                         \
+    case NP:                                                                 \
+        panel_scatter_kernel<NP, TARGET, PC, ORDER_NONE, float, TO>          \
+            <<<(unsigned)blocks, threads, 0, stream>>>(                      \
+                out, a.N, a.vertices, a.dim, a.vi1, a.nv1, a.vi2, a.nv2,     \
+                a.dofRows, a.slots, a.volsym, a.normals, a.P, a.I, a.J,      \
+                a.offF, a.offB, a.tt, a.bary_x, a.bary_y, a.w, a.PSIP, a.Q,  \
+                a.pf, a.in, Order{}, nullptr, a.emask);                      \
+        break;
+    if constexpr (CELL_ONLY) {
+        switch (a.nPSI) {
+            F32_CASE(2)
+            F32_CASE(3)
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    } else {
+        switch (a.nPSI) {
+            F32_CASE(2)
+            F32_CASE(3)
+            F32_CASE(4)
+            F32_CASE(6)
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    }
+#undef F32_CASE
+    return static_cast<int>(cudaGetLastError());
+}
+
+// K1's float32 instances of the profiles other than the power one
+// (panel_scatter_f32_profiles.cu: DENSE into float32, the smooth kernels
+// with their boundary forms, and a finite horizon's; panel_scatter_f32_
+// wide.cu: SLOTS and CROSS into float64 with a finite horizon's profiles,
+// DIAG into float64 with those and the boundary forms); the power
+// profile's entry points (panel_scatter_f32.cu) call them for every other
+// code.  A code without an instance returns cudaErrorInvalidValue.
+template <int TARGET, typename TO>
+int launchF32Smooth(TO* out, const F32Launch& a, cudaStream_t stream);
+template <>
+int launchF32Smooth<DENSE, float>(float* out, const F32Launch& a,
+                                  cudaStream_t stream);
+template <>
+int launchF32Smooth<SLOTS, double>(double* out, const F32Launch& a,
+                                   cudaStream_t stream);
+template <>
+int launchF32Smooth<CROSS, double>(double* out, const F32Launch& a,
+                                   cudaStream_t stream);
+template <>
+int launchF32Smooth<DIAG, double>(double* out, const F32Launch& a,
+                                  cudaStream_t stream);

@@ -459,36 +459,37 @@ def test_f32_partition_and_orders_as_float64(grid):
 
 
 def test_f32_refusals():
-    """Float32 beyond the kernels and formats of the float32 paths (the
-    constant-order fractional kernel of an infinite horizon in getDense,
-    getH2 and getDiagonal; a constant finite horizon in getSparse,
-    getDiagonal and getH2) raises NotImplementedError; a float32 target
-    with float64 tables (or vectors) raises ValueError; an unknown dtype
-    ValueError."""
+    """Float32 beyond the kernels and formats of the float32 paths (a
+    variable or nonsymmetric order or horizon, the s-derivatives and the
+    vector formats, getH2 of a profile other than the fractional one,
+    operator interpolation, the power-log profile in K1's float32 target)
+    raises NotImplementedError; a float32 target with float64 tables (or
+    vectors) raises ValueError; an unknown dtype ValueError."""
     from pynucleus_tpu_torch.interop import fromArrays
     from pynucleus_tpu_torch.base.solvers import pcg_update
     m, _ = _mesh('interval', 3)
     kw = dict(dtype=np.float32, device='cpu')
     for args in (dict(horizon=(0.2, 0.0, 0.1, 0.3)),
                  dict(s='twoDomainNonSym(0.25,0.75)'),
-                 dict(kernelType='gaussian', s=0.75),
-                 dict(temperedLambda=2.0), dict(phi=('tempered', 2.0)),
+                 dict(s='constantNonSym(0.25)'), dict(s=(0.25, 0.75)),
+                 dict(s=(0.25, 0.75), derivative=1),
                  dict(derivative=1)):
         s = args.pop('s', 0.75)
         with pytest.raises(NotImplementedError, match='float32'):
             builderFromArrays(m.vertices, m.cells, s, 1, **kw, **args)
     b = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw)
-    finite = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw,
-                               horizon=0.2)
-    for build in (b.getDenseCross, b.getH2FiniteHorizon, b.getDenseVector,
-                  b.getH2Vector, lambda: b.getDense(trySparsification=True),
-                  finite.getDense, finite.getDenseCross):
+    gaussian = builderFromArrays(m.vertices, m.cells, 0.75, 1, **kw,
+                                 kernelType='gaussian')
+    for build in (b.getDenseVector, b.getH2Vector, gaussian.getH2):
         with pytest.raises(NotImplementedError, match='float32'):
             build()
     _, dm, k = fromArrays(m.vertices, m.cells, 0.75, 1, device='cpu')
+    from pynucleus_tpu_torch.nl.kernels import kernelFactory
+    from pynucleus_tpu_torch.nl.operator_interpolation import admissibleSet
     with pytest.raises(NotImplementedError, match='float32'):
-        tasm.assembleNonlocal(dm, k, 'sparsified',
-                              params={'dtype': 'float32'})
+        tasm.assembleNonlocal(dm, kernelFactory(
+            'fractional', s=admissibleSet([0.25, 0.75]), dim=1), 'dense',
+            params={'dtype': 'float32'})
     with pytest.raises(ValueError, match='float64 or float32'):
         builderFromArrays(m.vertices, m.cells, 0.75, 1, dtype='float16',
                           device='cpu')
@@ -502,7 +503,7 @@ def test_f32_refusals():
                            i2, i2, torch.ones(1), None, *tables, prof)
     with pytest.raises(NotImplementedError, match='float32'):
         tasm.panel_scatter(A, torch.zeros((3, 1)), i2, i2, i2, torch.ones(1),
-                           None, *tables, Profile(1, 1.0, 0.0, 2.0))
+                           None, *tables, Profile(7, 1.0, 0.0, 0.0))
     with pytest.raises(ValueError, match='float32'):
         tasm.grid_distant(A, torch.zeros((2, 3, 1), dtype=torch.float64),
                           torch.zeros((2, 1)), torch.ones(2),

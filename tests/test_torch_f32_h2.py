@@ -28,7 +28,8 @@ float32.
                    more than twice the JAX package's own gap on the mesh
                    (pinned in JAX_GAPS; a slow twin holds the pins to the
                    JAX package's float32 and float64 builds)
-  refusals         float32 H2corrected raises NotImplementedError; K20, a
+  refusals         the float32 H2 of the gaussian kernel raises
+                   NotImplementedError; K20, a
                    mixed-type apply and float32 data with float64 tables
                    raise
 """
@@ -363,7 +364,8 @@ def test_float64_h2_unchanged_by_dtype_param():
 
 
 def test_float32_h2_refusals():
-    """Float32 raises NotImplementedError for H2corrected; K20 on a float32
+    """Float32 raises NotImplementedError for the H2 of a profile other
+    than the fractional one (the gaussian kernel's); K20 on a float32
     operator raises NotImplementedError; a float64 x on a float32
     operator, and float32 data with float64 tables, ValueError; on CPU
     tensors no launch is counted."""
@@ -371,7 +373,8 @@ def test_float32_h2_refusals():
     kw = dict(dtype=np.float32, device='cpu')
     b = builderFromArrays(m.vertices, m.cells, S, 1, **kw)
     with pytest.raises(NotImplementedError, match='float32'):
-        b.getH2FiniteHorizon()
+        builderFromArrays(m.vertices, m.cells, S, 1, kernelType='gaussian',
+                          **kw).getH2()
     kernels.resetLaunches()
     H = b.getH2()
     assert not any(kernels.launches.values())

@@ -28,7 +28,8 @@ indicator), K9 and K13.
                     JAX package's, within 1e-12 of the port's own H2 on
                     the upcast coefficients (H2Matrix.double)
   refusals          what the float32 paths still refuse raises
-                    NotImplementedError; the JAX package runs it
+                    NotImplementedError naming ROADMAP.md; the JAX package
+                    runs it
 """
 import numpy as np
 import pytest
@@ -38,6 +39,7 @@ import jax.numpy as jnp
 import pynucleus_tpu.fem as jfem
 from pynucleus_tpu.nl import getFractionalKernel as jKernel
 from pynucleus_tpu.nl import assembly as jasm
+from pynucleus_tpu.nl import kernels as jk
 from pynucleus_tpu.nl.kernels import (getIntegrableKernel as jIntegrable,
                                       ball2 as jBall2, ballInf as jBallInf)
 from pynucleus_tpu.nl.problems import nonlocalMeshFactory, DIRICHLET
@@ -330,54 +332,58 @@ def _tinyInterval():
     return m
 
 
-# the float32 formats and kernels that the port still refuses: each names
-# the port's call (on the builder of its kernel) and the JAX package's
+# the float32 cases that the port still refuses and the JAX package's
+# float32 program runs (ROADMAP.md A7-f32r queues them): each names the
+# port's builder keywords (builderFromArrays; None: the ranged kernel of
+# operator interpolation) and call, and the JAX package's kernel and call
 REFUSED = {
-    'getDenseCross': (dict(kernelType='constant', horizon=HORIZON),
-                      'getDenseCross'),
-    'H2corrected': (dict(horizon=0.4), 'getH2FiniteHorizon'),
-    'denseFiniteHorizon': (dict(kernelType='constant', horizon=HORIZON),
-                           'getDense'),
-    'sparsified': (dict(), 'sparsified'),
-    'gaussian': (dict(kernelType='gaussian'), 'getDense'),
+    'gaussianH2': (dict(kernelType='gaussian'), 'getH2',
+                   lambda: jIntegrable(1, 'gaussian', np.inf)),
+    'derivative': (dict(derivative=1), 'getDense',
+                   lambda: jKernel(1, 0.25, derivative=1)),
+    'leftRight': (dict(s=(0.25, 0.75)), 'getDense',
+                  lambda: jKernel(1, jk.leftRightFractionalOrder(0.25,
+                                                                  0.75))),
+    'constantNonSym': (dict(s='constantNonSym(0.25)'), 'getDense',
+                       lambda: jKernel(1, jk.constantNonSymFractionalOrder(
+                           0.25))),
+    'vector': (dict(s=(0.25, 0.75), derivative=1), 'getDenseVector',
+               lambda: jKernel(1, jk.leftRightFractionalOrder(0.25, 0.75),
+                               derivative=1)),
+    'interpolation': (None, 'dense', None),
 }
 
 
 @pytest.mark.parametrize('name', list(REFUSED))
 def test_float32_refusals_that_jax_runs(name):
     """Each float32 refusal that remains raises NotImplementedError in the
-    port, where the JAX package's float32 program runs (ROADMAP.md A queues
-    them)."""
-    kw, call = REFUSED[name]
+    port, naming ROADMAP.md, where the JAX package's float32 program runs
+    (ROADMAP.md A7-f32r queues them)."""
+    kw, call, jaxKernel = REFUSED[name]
     m = _tinyInterval()
-    tb = builderFromArrays(m.vertices, m.cells, 0.25, 1, dtype=np.float32,
-                           device='cpu', zeroExterior=False, **kw) \
-        if name != 'gaussian' else None
-    with pytest.raises(NotImplementedError, match='float32'):
-        if tb is None:
-            builderFromArrays(m.vertices, m.cells, 0.25, 1,
-                              dtype=np.float32, device='cpu', **kw)
-        elif call == 'sparsified':
-            tb.getDense(trySparsification=True)
-        else:
-            getattr(tb, call)()
     dm = jfem.P1_DoFMap(m)
-    hv = kw.get('horizon', np.inf)
-    if kw.get('kernelType') == 'constant':
-        jk = jIntegrable(1, 'indicator', hv)
-    elif kw.get('kernelType') == 'gaussian':
-        jk = jIntegrable(1, 'gaussian', np.inf)
-    else:
-        jk = jKernel(1, 0.25, horizon=hv)
-    jb = jasm.nonlocalBuilder(dm, jk, params={'dtype': np.float32},
-                              zeroExterior=False,
-                              **({'dm2': dm.getComplementDoFMap()}
-                                 if call == 'getDenseCross' else {}))
-    if call == 'sparsified':
-        jb.getDense(trySparsification=True)
-    else:
-        getattr(jb, call)()
-
+    params = {'dtype': np.float32}
+    if kw is None:
+        from pynucleus_tpu.nl.operator_interpolation import admissibleSet
+        from pynucleus_tpu_torch.nl.kernels import kernelFactory
+        from pynucleus_tpu_torch.nl.operator_interpolation import \
+            admissibleSet as tAdmissible
+        _, tdm, _ = fromArrays(m.vertices, m.cells, 0.25, 1, device='cpu')
+        with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+            tasm.assembleNonlocal(tdm, kernelFactory(
+                'fractional', s=tAdmissible([0.25, 0.75]), dim=1),
+                matrixFormat=call, params=dict(params))
+        jasm.assembleNonlocal(dm, jk.kernelFactory(
+            'fractional', s=admissibleSet([0.25, 0.75]), dim=1), call,
+            params=params)
+        return
+    kw = dict(kw)
+    s = kw.pop('s', 0.25)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
+        getattr(builderFromArrays(m.vertices, m.cells, s, 1,
+                                  dtype=np.float32, device='cpu', **kw),
+                call)()
+    getattr(jasm.nonlocalBuilder(dm, jaxKernel(), params=params), call)()
 
 def test_launch_counts_stay_zero_on_the_cpu():
     """On CPU tensors the float32 wrappers run their plain versions and
